@@ -1,0 +1,111 @@
+"""The port's slice as a whole on the CPU: one fixed-length replay
+recording through both Correlators (fxtpu and fxtpu_torch), the port's CLI
+end to end, its independence from JAX, and the options it does not carry
+yet.
+
+Tolerances: CSV rows within 2e-5*scale (fxtpu's fused-against-unfused
+bound, tests/test_planes.py:318-321), delays within 0.01 sample."""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(2)
+
+from fxtpu.config import CorrelatorConfig as JConfig  # noqa: E402
+from fxtpu.correlator import Correlator as JCorrelator  # noqa: E402
+from fxtpu_torch.cli import main as cli_main  # noqa: E402
+from fxtpu_torch.config import CorrelatorConfig  # noqa: E402
+from fxtpu_torch.correlator import Correlator, StateTransitionError  # noqa: E402
+from fxtpu_torch.products import load_products  # noqa: E402
+from fxtpu_torch.sources import NoiseSource, save_recording  # noqa: E402
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SMALL = dict(num_samp=2**13, nbins=256, clamp_num_samp=False, run_time=1,
+             startup_duration=0.1, loglevel="WARNING")
+
+
+def _csv_lines(path, n):
+    with open(path) as fh:
+        return [fh.readline() for _ in range(n)]
+
+
+@pytest.mark.parametrize("mode", ["SPECTRUM", "CONTINUUM", "TEST"])
+def test_replay_run_matches_fxtpu(tmp_path, mode):
+    src = NoiseSource(nchan=2, delays=[0.0, 2e-6], seed=31)
+    rec = save_recording(src, str(tmp_path / "rec.npy"), SMALL["num_samp"], 6)
+    common = dict(SMALL, mode=mode, source="replay", replay_file=rec)
+    jcor = JCorrelator(config=JConfig(
+        **common, output_file=str(tmp_path / "jax.csv")))
+    jcor.run_state_machine()
+    tcor = Correlator(config=CorrelatorConfig(
+        **common, output_file=str(tmp_path / "torch.csv"), device="cpu"))
+    tcor.run_state_machine()
+
+    # 6 recorded blocks: 1 consumed by calibrate-on-start, 5 correlated
+    assert tcor.blocks_processed == jcor.blocks_processed == 5
+    assert tcor.state == "SHUTDOWN"
+    nhead = 2 if mode == "SPECTRUM" else 1
+    assert (_csv_lines(tcor.output_file, nhead)
+            == _csv_lines(jcor.output_file, nhead))
+    _, want = load_products(jcor.output_file)
+    _, got = load_products(tcor.output_file)
+    assert got.shape == want.shape and np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, atol=2e-5 * np.abs(want).max())
+    bw = tcor.bandwidth
+    np.testing.assert_allclose(tcor.calibrated_delays * bw,
+                               jcor.calibrated_delays * bw, atol=0.01)
+
+
+def test_cli_runs_end_to_end_on_cpu(tmp_path):
+    out = str(tmp_path / "vis.csv")
+    cor = cli_main(["--time", "1", "--mode", "spectrum", "--num_samp",
+                    "8192", "--resolution", "256", "--true_delay", "2e-6",
+                    "--no_keyboard", "--omit_plot", "--output", out,
+                    "--device", "cpu", "-L", "WARNING"])
+    assert not cor.engine.kernel_active
+    assert abs(cor.calibrated_delays[1] - 2e-6) * 2.4e6 < 0.5
+    data = np.atleast_2d(np.loadtxt(out, dtype=np.complex128, delimiter=",",
+                                    skiprows=2))
+    assert data.shape == (cor.blocks_processed, 256)
+    assert cor.blocks_processed >= 1
+    inner = slice(256 // 4, 3 * 256 // 4)
+    assert np.std(np.unwrap(np.angle(data.mean(axis=0)[inner]))) < 0.3
+
+
+def test_port_never_imports_jax():
+    code = ("import sys, fxtpu_torch.cli, fxtpu_torch.correlator, "
+            "fxtpu_torch.ops, fxtpu_torch.post_process; "
+            "sys.exit(1 if 'jax' in sys.modules else 0)")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
+@pytest.mark.parametrize("kw", [
+    dict(mesh_time=2), dict(mesh_freq=2), dict(blocks_per_dispatch=4),
+    dict(ingest_dtype="int8"), dict(snapshot_every=5),
+    dict(resume_from="state.npz")])
+def test_unported_options_raise(kw):
+    cfg = CorrelatorConfig(**SMALL, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A."):
+        Correlator(config=cfg)
+
+
+def test_unported_cli_flags_raise(tmp_path):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A.9"):
+        cli_main(["--num_processes", "2", "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A.6"):
+        cli_main(["--blocks_per_dispatch", "2", "--device", "cpu",
+                  "--output", str(tmp_path / "v.csv")])
+
+
+def test_illegal_transition_raises():
+    cor = Correlator(config=CorrelatorConfig(**SMALL, device="cpu"))
+    with pytest.raises(StateTransitionError):
+        cor.state = "RUN"   # OFF -> RUN is not an edge
