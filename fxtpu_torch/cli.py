@@ -4,9 +4,10 @@ The same flags as ``fxtpu.cli`` (a superset of the reference CLI,
 ``effex/effex.py:703-772``), plus ``--device {cuda,cpu}``
 (default cuda), which takes the place of the JAX backend switch
 ``--platform``.  Without a CUDA device the run raises unless
-``--device cpu`` was asked for.  Flags of options not ported yet (mesh,
-multi-process, int8 ingest, blocks_per_dispatch > 1, snapshots) are
-accepted and raise ``NotImplementedError`` naming their ROADMAP.md item.
+``--device cpu`` was asked for.  ``--ingest int8`` keeps samples 8-bit
+from the source to the card.  Flags of options not ported yet (mesh,
+multi-process, blocks_per_dispatch > 1, snapshots) are accepted and raise
+``NotImplementedError`` naming their ROADMAP.md item.
 """
 
 from __future__ import annotations

@@ -74,11 +74,12 @@ class CorrelatorConfig:
 
     # --- source selection ----------------------------------------------------
     source: str = "synthetic"      # synthetic | replay | rtlsdr
-    ingest_dtype: str = "complex64"  # complex64; int8 (8-bit quantized IQ
-                                     # end to end) is not ported yet and
-                                     # raises (ROADMAP.md A.7)
-    quant_step: float = 1.0 / 32     # LSB size of 8-bit samples (x ~ q*step);
-                                     # dequantizes rtl_sdr u8 replays
+    ingest_dtype: str = "complex64"  # complex64 | int8: int8 streams 8-bit
+                                     # quantized IQ through the rings and
+                                     # the host-to-device copy (4x fewer
+                                     # bytes; radio ADCs are 8-bit), and
+                                     # the device dequantizes it
+    quant_step: float = 1.0 / 32     # LSB size of 8-bit samples (x ~ q*step)
     replay_file: Optional[str] = None
     seed: int = 77777              # test-suite RNG seed parity (test_effex.py:10)
     synthetic_delay: float = 0.0   # true injected inter-channel delay (seconds)
@@ -106,8 +107,8 @@ class CorrelatorConfig:
     # --- dispatch batching ---------------------------------------------------
     # Blocks correlated per device dispatch.  Only 1 (reference-style
     # per-block dispatch) is ported; the Correlator raises for >1
-    # (ROADMAP.md A.6).  The mesh, int8 and snapshot knobs below are kept
-    # for field parity with fxtpu.config and raise the same way.
+    # (ROADMAP.md A.6).  The mesh and snapshot knobs below are kept for
+    # field parity with fxtpu.config and raise the same way.
     blocks_per_dispatch: int = 1
 
     # --- long-integration / durability (SURVEY.md §5.4; none in reference) --
@@ -153,6 +154,9 @@ class CorrelatorConfig:
             raise ValueError(
                 f"device must be 'cuda' (or 'cuda:N') or 'cpu', got "
                 f"{self.device!r}")
+        if self.ingest_dtype not in ("complex64", "int8"):
+            raise ValueError(f"ingest_dtype must be 'complex64' or 'int8', "
+                             f"got {self.ingest_dtype!r}")
         if self.source not in ("synthetic", "replay", "rtlsdr"):
             raise ValueError(f"unknown source kind: {self.source}")
         if self.buffer_chunks is None:

@@ -81,8 +81,6 @@ def reject_unported(cfg: CorrelatorConfig):
         (cfg.blocks_per_dispatch > 1,
          f"blocks_per_dispatch={cfg.blocks_per_dispatch}",
          "A.6, multi-block dispatch"),
-        (cfg.ingest_dtype != "complex64",
-         f"ingest_dtype={cfg.ingest_dtype!r}", "A.7, int8 ingest"),
         (bool(cfg.snapshot_every), f"snapshot_every={cfg.snapshot_every}",
          "A.8, checkpoint/resume"),
         (bool(cfg.resume_from), f"resume_from={cfg.resume_from!r}",
@@ -181,8 +179,12 @@ class Correlator:
 
     def _make_rings(self):
         cfg = self.config
-        self.bufs = [make_ring(cfg.buffer_chunks, (cfg.num_samp,),
-                               dtype=np.complex64)
+        # int8 ingest keeps the rings 8-bit: (I, Q) byte pairs
+        if cfg.ingest_dtype == "int8":
+            shape, dtype = (cfg.num_samp, 2), np.int8
+        else:
+            shape, dtype = (cfg.num_samp,), np.complex64
+        self.bufs = [make_ring(cfg.buffer_chunks, shape, dtype=dtype)
                      for _ in range(cfg.nchan)]
         self.aligner = BlockAligner(self.bufs)
 
@@ -361,6 +363,7 @@ class Correlator:
         RUN) -> SHUTDOWN -> done."""
         with profiler_trace(self.config.profile_dir):
             self._run_machine()
+        self.metrics.mark_once("end")
         self.logger.info("%s", self.metrics.report())
         for c, buf in enumerate(self.bufs):
             if buf.drops:

@@ -62,6 +62,8 @@ def _declare(lib):
     P, I = ctypes.c_void_p, ctypes.c_int
     lib.fxt_fx_fused.restype = I
     lib.fxt_fx_fused.argtypes = [P] * 9 + [I] * 8 + [P]
+    lib.fxt_fx_fused_i8.restype = I
+    lib.fxt_fx_fused_i8.argtypes = [P] * 10 + [I] * 8 + [ctypes.c_double, P]
     lib.fxt_error_string.restype = ctypes.c_char_p
     lib.fxt_error_string.argtypes = [I]
     return lib

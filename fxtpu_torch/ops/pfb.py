@@ -16,14 +16,21 @@ from typing import Optional, Tuple
 
 import torch
 
-__all__ = ["dc_remove", "zero_history", "frame_rows", "pfb_fir",
-           "spectrometer_rows", "spectrometer"]
+__all__ = ["dc_remove", "dequantize", "zero_history", "frame_rows",
+           "pfb_fir", "spectrometer_rows", "spectrometer"]
 
 
 def dc_remove(iq: torch.Tensor) -> torch.Tensor:
     """DC-spike removal: subtract the per-channel complex mean over the
     last axis (``effex.py:393-395``)."""
     return iq - iq.mean(dim=-1, keepdim=True)
+
+
+def dequantize(q: torch.Tensor, quant_step: float) -> torch.Tensor:
+    """8-bit samples ``int8 [..., 2]`` (I, Q interleaved, the ring's
+    bytes) -> ``complex64 [...]`` = ``q * quant_step``, one float32
+    multiply per plane (``fxtpu.fx._dequant``)."""
+    return torch.view_as_complex((q.float() * quant_step).contiguous())
 
 
 def zero_history(batch_shape, nbins: int, ntaps: int, device,

@@ -89,16 +89,23 @@ class Metrics:
                 self._marks[name] = (time.time(), dict(self._counters))
 
     # -- reporting ----------------------------------------------------------
-    def rates(self, since: Optional[str] = None) -> Dict[str, float]:
-        """Throughput rates over the whole run, or — with ``since`` naming a
-        :meth:`mark_once` mark — over the steady-state span after it."""
+    def rates(self, since: Optional[str] = None,
+              until: Optional[str] = None) -> Dict[str, float]:
+        """Throughput rates over the whole run, or between the
+        :meth:`mark_once` marks ``since`` (e.g. 'steady', so sustained
+        rates exclude warm-up) and ``until`` (e.g. 'end', so a report
+        read after the run is not diluted by the time since); a mark not
+        set yet stands for the run's start or now."""
         t0, base = self.started_at, {}
         if since is not None and since in self._marks:
             t0, base = self._marks[since]
-        elapsed = max(time.time() - t0, 1e-9)
+        t1, top = time.time(), self._counters
+        if until is not None and until in self._marks:
+            t1, top = self._marks[until]
+        elapsed = max(t1 - t0, 1e-9)
 
         def delta(name):
-            return self.get(name) - base.get(name, 0)
+            return top.get(name, 0) - base.get(name, 0)
 
         return {
             "elapsed_s": elapsed,
@@ -109,7 +116,7 @@ class Metrics:
 
     def report(self) -> str:
         lines = ["run metrics:"]
-        r = self.rates()
+        r = self.rates(until="end")
         lines.append(
             f"  throughput: {r['samples_per_s'] / 1e6:.2f} Msamp/s, "
             f"{r['blocks_per_s']:.2f} blocks/s, "

@@ -6,8 +6,10 @@ the Python condition-variable lock dominates.  Falls back cleanly: callers
 use :func:`native_available` / :func:`make_ring` and get the Python
 implementation when the shared library hasn't been built
 (``make -C native``).  The library is the JAX package's own
-(``native/libfxring.so``); only its ring-buffer symbols are bound here —
-the int8 data-plane helpers arrive with int8 ingest (ROADMAP.md A.7).
+(``native/libfxring.so``).  Bound here: its ring buffer and the int8
+data-plane loops of int8 ingest (:func:`quantize_c64`,
+:func:`split_planes_i8`); its 4-bins-per-int32 packing is not, because it
+answered the TPU's element-bound copies and GPU loads are byte-addressed.
 """
 
 from __future__ import annotations
@@ -69,6 +71,10 @@ def _load():
                                            ctypes.POINTER(ctypes.c_void_p),
                                            ctypes.c_double]
                 lib.rb_commit.argtypes = [ctypes.c_void_p, ctypes.c_int64]
+            if hasattr(lib, "fx_quant_c64_i8"):   # older .so: ring only
+                P, I64 = ctypes.c_void_p, ctypes.c_int64
+                lib.fx_quant_c64_i8.argtypes = [P, P, I64, ctypes.c_float]
+                lib.fx_split_i8.argtypes = [P, P, P, I64]
             _lib = lib
             return lib
     return None
@@ -76,6 +82,65 @@ def _load():
 
 def native_available() -> bool:
     return _load() is not None
+
+
+def _dataplane():
+    lib = _load()
+    return lib if lib is not None and hasattr(lib, "fx_quant_c64_i8") \
+        else None
+
+
+def _ptr(a: np.ndarray) -> ctypes.c_void_p:
+    return a.ctypes.data_as(ctypes.c_void_p)
+
+
+# ---------------------------------------------------------------------------
+# Host data-plane loops of int8 ingest (native/dataplane.cpp), each with the
+# numpy expression it replaces as its fallback: identical results, used
+# when the library is missing or the input layout rules the flat loop out.
+
+def quantize_c64(block: np.ndarray, quant_step: float,
+                 out: Optional[np.ndarray] = None) -> np.ndarray:
+    """complex64 ``[..., n]`` -> int8 ``[..., n, 2]``, ``round(x/step)``
+    (half to even) clipped to [-127, 127] (the QuantizedSource contract).
+    ``out`` (int8, ``block.shape + (2,)``, contiguous) lets the caller
+    quantize straight into a ring slot (the zero-copy producer)."""
+    if out is not None and (out.dtype != np.int8
+                            or not out.flags.c_contiguous
+                            or out.shape != (*block.shape, 2)):
+        raise ValueError(f"out must be contiguous int8 {(*block.shape, 2)}, "
+                         f"got {out.dtype} {out.shape}")
+    lib = _dataplane()
+    if (lib is not None and block.dtype == np.complex64
+            and block.flags.c_contiguous):
+        if out is None:
+            out = np.empty((*block.shape, 2), np.int8)
+        lib.fx_quant_c64_i8(_ptr(block), _ptr(out), block.size,
+                            1.0 / float(quant_step))
+        return out
+    q = out if out is not None \
+        else np.empty((*block.shape, 2), dtype=np.int8)
+    inv = 1.0 / quant_step
+    np.clip(np.rint(block.real * inv), -127, 127, out=q[..., 0],
+            casting="unsafe")
+    np.clip(np.rint(block.imag * inv), -127, 127, out=q[..., 1],
+            casting="unsafe")
+    return q
+
+
+def split_planes_i8(block: np.ndarray):
+    """int8 ``[..., n, 2]`` interleaved -> (re, im) contiguous int8
+    ``[..., n]`` planes."""
+    lib = _dataplane()
+    if lib is not None and block.dtype == np.int8 \
+            and block.flags.c_contiguous:
+        shape = block.shape[:-1]
+        re = np.empty(shape, np.int8)
+        im = np.empty(shape, np.int8)
+        lib.fx_split_i8(_ptr(block), _ptr(re), _ptr(im), re.size)
+        return re, im
+    return (np.ascontiguousarray(block[..., 0]),
+            np.ascontiguousarray(block[..., 1]))
 
 
 class NativeRingBuffer:

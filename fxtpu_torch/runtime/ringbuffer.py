@@ -42,6 +42,7 @@ class RingBuffer:
             raise ValueError(f"unknown policy {policy}")
         self.capacity = int(capacity)
         self.block_shape = tuple(block_shape)
+        self.dtype = np.dtype(dtype)
         self._slots = np.zeros((self.capacity, *self.block_shape), dtype=dtype)
         self._seqs = np.full(self.capacity, -1, dtype=np.int64)
         self._head = 0  # next slot to write

@@ -77,6 +77,16 @@ class Source(abc.ABC):
         """Produce the next aligned block, shape ``[nchan, num_samp]``
         complex64, or None when the source is exhausted (replay end)."""
 
+    def read_block_span(self, num_samp: int, start: int,
+                        stop: int) -> Optional[np.ndarray]:
+        """Produce only samples ``[start, stop)`` of the next
+        ``num_samp``-sample block (the stream still advances by the full
+        ``num_samp``).  Default: read the full block and slice."""
+        block = self.read_block(num_samp)
+        if block is None:
+            return None
+        return np.ascontiguousarray(block[:, start:stop])
+
     async def stream(self, num_samp: int) -> AsyncIterator[np.ndarray]:
         """Async block iterator, shaped like the reference's
         ``sdr.stream(format='samples', num_samples_or_bytes=N)``
@@ -169,6 +179,94 @@ class LimitedSource(Source):
         for o in outs:
             o._read = self._read
         return outs
+
+    def stop(self):
+        super().stop()
+        self.inner.stop()
+
+    def close(self):
+        super().close()
+        self.inner.close()
+
+
+class QuantizedSource(Source):
+    """Wraps a source and emits 8-BIT blocks: ``[nchan, num_samp, 2]``
+    int8 with the I/Q planes quantized as ``round(x / quant_step)``
+    clipped to [-127, 127].
+
+    This is how radio hardware delivers samples (RTL-SDRs are 8-bit
+    ADCs; the reference's pyrtlsdr converts u8 -> complex128 at the USB
+    boundary, quadrupling every byte before any transport).  Keeping int8
+    through the rings, the aligner and the host-to-device copy cuts the
+    pipeline's bytes 4x; the dequantize runs on the device."""
+
+    def __init__(self, inner: Source, quant_step: float = 1.0 / 32):
+        super().__init__(inner.nchan, inner.sample_rate, inner.center_freq,
+                         inner.gain)
+        self.inner = inner
+        self.quant_step = float(quant_step)
+        self.realtime = getattr(inner, "realtime", False)
+        self.max_stable_bandwidth = inner.max_stable_bandwidth
+
+    # tuning pass-through reaches the wrapped hardware/generator
+    @Source.sample_rate.setter
+    def sample_rate(self, value: float):
+        self._sample_rate = float(value)
+        self.inner.sample_rate = value
+
+    @Source.center_freq.setter
+    def center_freq(self, value: float):
+        self._center_freq = float(value)
+        self.inner.center_freq = value
+
+    @Source.gain.setter
+    def gain(self, value: float):
+        self._gain = float(value)
+        self.inner.gain = value
+
+    def _quantize(self, block: np.ndarray, out=None) -> np.ndarray:
+        from fxtpu_torch.runtime.native import quantize_c64
+        return quantize_c64(np.ascontiguousarray(block, dtype=np.complex64),
+                            self.quant_step, out=out)
+
+    def read_block(self, num_samp: int):
+        block = self.inner.read_block(num_samp)
+        if block is None:
+            return None
+        return self._quantize(block)
+
+    def read_block_into(self, out: np.ndarray, num_samp: int) -> bool:
+        """Zero-copy-producer read: quantize the wrapped single-channel
+        source's next block straight into ``out`` (an int8 ``[num_samp,
+        2]`` ring slot view).  False = inner source exhausted."""
+        if self.nchan != 1:
+            raise ValueError("read_block_into requires a 1-channel source")
+        block = self.inner.read_block(num_samp)
+        if block is None:
+            return False
+        self._quantize(block.reshape(num_samp), out=out)
+        return True
+
+    def read_block_span(self, num_samp: int, start: int, stop: int):
+        block = self.inner.read_block_span(num_samp, start, stop)
+        if block is None:
+            return None
+        return self._quantize(block)
+
+    def split_channels(self):
+        """Per-channel quantizing splits: quantization is per sample, so a
+        QuantizedSource over channel c equals channel c of this one, and
+        each split keeps the zero-copy ``read_block_into``."""
+        inners = self.inner.split_channels()
+        if inners is None:
+            return None
+        return [QuantizedSource(i, self.quant_step) for i in inners]
+
+    def snapshot_state(self):
+        return self.inner.snapshot_state()
+
+    def restore_state(self, state: dict) -> None:
+        self.inner.restore_state(state)
 
     def stop(self):
         super().stop()
