@@ -1,16 +1,24 @@
 // The fused FX step for one block: DC removal, PFB FIR with carried tap
 // history, an nbins-point FFT in shared memory, and the frame-summed cross
-// power of every baseline.  Built by fxtpu_torch/cuda_build.py, called
-// through fxtpu_torch/ops/fx_fused.py (fx_fused_raw, fx_fused_raw_i8).
+// power of every baseline; and the F-stage spectrometer, which writes the
+// spectra out in place of the cross power.  Built by
+// fxtpu_torch/cuda_build.py, called through fxtpu_torch/ops/fx_fused.py
+// (fx_fused_raw, fx_fused_raw_i8) and fxtpu_torch/ops/spectrometer.py
+// (spectrometer_fused).
 //
 // Replaces: fxtpu/ops/pfb_pallas.py _fx_kernel (launched by _fx_call,
 // wrapped by fx_pallas_parts / fx_pallas_raw_multi / fx_pallas_raw), for
-// any list of baseline pairs, autos included, in two of its modes:
-//   * f32 direct-tap mode      -> fxt_fx_fused     (complex64 samples);
-//   * int8-native mode         -> fxt_fx_fused_i8  (8-bit samples).
-// The two share the frame kernel (FIR, Stockham FFT, X loop), templated on
-// a sample loader, and differ only in how a row sample is read and which
-// mean it loses.
+// any list of baseline pairs, autos included, in four of its modes:
+//   * f32 direct-tap mode      -> fxt_fx_fused     rank 0 (complex64);
+//   * f32 SVD-FIR mode         -> fxt_fx_fused     rank r > 0;
+//   * int8-native mode         -> fxt_fx_fused_i8  rank 0 (8-bit samples);
+//   * int8-native SVD-FIR mode -> fxt_fx_fused_i8  rank r > 0;
+// and pfb_pallas.py _kernel (launched by _pfb_fft_call, wrapped by
+// spectrometer_pallas) -> fxt_spectrometer.
+// All share one frame kernel (FIR, Stockham FFT, output), templated on a
+// sample loader (how a row sample is read and which mean it loses), a FIR
+// policy (the direct tap loop over the window, or the rank-r factorisation
+// w = u v) and an output policy (the X loop, or the spectra written out).
 //
 // Contract of fxt_fx_fused (fx_pallas_raw): given x complex64
 // [nch, S, nbins], the DC-corrected history complex64 [nch, ntaps-1,
@@ -18,44 +26,65 @@
 //   xp[l, b]      = sum over frames of spec_p[b] * conj(spec_q[b]),
 //                   natural bin order, no rotation, no normalisation;
 //   new_hist      = the block's last ntaps-1 rows minus the block mean,
-// where spec is the FFT of the FIR over [history; x - mean].
+// where spec is the FFT of the FIR over [history; x - mean].  With rank
+// r > 0 the FIR is sum_k v[k, b] * (sum_t u[t, k] * row[f+t, b]) for
+// u f32 [ntaps, r] and v f32 [r, nbins] (u v ~= w, fx_fused.svd_tensors).
 //
 // Contract of fxt_fx_fused_i8 (fx_pallas_raw, int8-native): x int8
 // [nch, S, nbins, 2] (I/Q interleaved, the ring's bytes), the previous
 // block's raw tail int8 [nch, ntaps-1, nbins, 2] and its mean mu_prev
-// complex64 [nch] in real units, window, pairs and quant_step; return xp
-// as above over [tail*step - mu_prev; x*step - mu] and mu, this block's
-// mean in real units.  The new history (x's last ntaps-1 rows and mu) is a
-// slice the caller takes: this kernel writes no history.  fxtpu folds the
-// step into the window and corrects both means after the kernel
-// (_dc_correct(mu_prev=...)); here each sample is dequantized and loses
-// its own block's mean before the FIR, the same function in exact
-// arithmetic, with every subtraction in real units.
+// complex64 [nch] in real units, window (or u, v), pairs and quant_step;
+// return xp as above over [tail*step - mu_prev; x*step - mu] and mu, this
+// block's mean in real units.  The new history (x's last ntaps-1 rows and
+// mu) is a slice the caller takes: this kernel writes no history.  fxtpu
+// folds the step into the window (or into v) and corrects both means after
+// the kernel (_dc_correct(mu_prev=...)); here each sample is dequantized
+// and loses its own block's mean before the FIR, the same function in
+// exact arithmetic, with every subtraction in real units.
+//
+// Contract of fxt_spectrometer (spectrometer_pallas): x complex64
+// [nch, nsamp], the DC-corrected history [nch, ntaps-1, nbins] (ntaps >= 1)
+// and the window; return spec [nch, S, nbins] with S = nsamp / nbins, the
+// FFT of the FIR over [history; x - mean], where the mean covers all nsamp
+// samples (the tail beyond S*nbins too), and new_hist, the last ntaps-1
+// rows of [history; x - mean].
 //
 // What bounds it on the H100: per block the kernel reads the input twice
 // (mean pre-pass, then the frames; 2 x 4 MiB at the flagship 2-channel,
 // 2^18-sample block in complex64, 2 x 1 MiB in int8) and does ~5 n log2 n
 // flops per frame and channel, far below both roofs at these sizes, so
 // launch latency and the serial shared-memory FFT stages (one
-// __syncthreads per radix-2 stage) bound it.  The design keeps what the
-// TPU kernel keeps out of device memory: the spectra live only in shared
-// memory (nch x nbins x 8 B, 64 KiB at the flagship shape, so the dynamic
-// shared-memory limit is raised), and only the [n_groups, nbl, nbins]
-// partial cross power reaches device memory.  Every sum runs in a fixed
-// order (a two-stage mean reduction, in double for complex64 samples and
-// in exact 64-bit integers for int8 ones, and a fixed-order sum of the
+// __syncthreads per radix-2 stage) bound it.  Each frame reads its ntaps
+// rows again, so at deep taps (32 taps x 8192 bins, the wideband shape)
+// the frames read 32x the block from L2; the SVD form does not change
+// those reads and multiplies the FIR's flops by r (r FMAs per tap and
+// sample), a trade that paid on the TPU, where it moved the tap loop onto
+// the matrix unit, and does not here: on an H100 (700 W) the SVD mode
+// takes 1.8x the direct loop's time at the wideband shape (PERF.md; the
+// mode is kept because fxtpu routes deep taps to it).  The design keeps what
+// the TPU kernel keeps out of device memory: the spectra live only in
+// shared memory (nch x nbins x 8 B, 64 KiB at the flagship shape, so the
+// dynamic shared-memory limit is raised), and only the [n_groups, nbl,
+// nbins] partial cross power reaches device memory.  Every sum runs in a
+// fixed order (a two-stage mean reduction, in double for complex64 samples
+// and in exact 64-bit integers for int8 ones, and a fixed-order sum of the
 // partials), so a run is bit-for-bit repeatable; there are no atomics.
 // The mean pre-pass costs the second read of the input; the post-hoc DC
 // algebra of the TPU kernel (_dc_constants / _dc_correct) removes it and
 // is a later change.  The TPU's 4-bins-per-int32 packing of int8 planes
 // answered its element-bound DMA; loads here are byte-addressed, so the
-// int8 kernel reads the interleaved (I, Q) bytes as they arrived.
+// int8 kernel reads the interleaved (I, Q) bytes as they arrived.  The
+// TPU's banded bf16 matmul for the SVD conv, its hi/lo splits and its
+// 1-pass tail ranks are matrix-unit workarounds: here every rank runs in
+// f32 on the CUDA cores, u in shared memory, r accumulators per bin.
 
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kThreads = 256;
+// Largest SVD rank the FIR policy keeps in registers (fx_fused.MAX_SVD_RANK).
+constexpr int kMaxRank = 16;
 
 __device__ __forceinline__ float2 cadd(float2 a, float2 b) {
   return make_float2(a.x + b.x, a.y + b.y);
@@ -87,7 +116,7 @@ template <> struct SumOf<char2> {
 };
 
 // (a) Stage 1 of the channel means: grid (parts, nch).  Block `part`
-// sums one contiguous chunk of channel c's S*nbins samples and
+// sums one contiguous chunk of channel c's n_per_chan samples and
 // tree-reduces it in shared memory, in a fixed order.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -154,26 +183,36 @@ __device__ float2 channel_mean_i8(const longlong2* __restrict__ sums, int c,
                      static_cast<float>(static_cast<double>(i) / n * step));
 }
 
+// Every input the frame kernel reads (samples, history, window, factors,
+// pairs) is read-only for the whole launch and is loaded through the
+// read-only cache (__ldg): a pointer inside a struct argument does not get
+// that path on its own, as a const __restrict__ argument does, and the
+// plain loads cost the int8 frame kernel a fifth to a third of its time
+// on an H100 (PERF.md).
+//
 // Sample loaders of the frame kernel.  at(c, e, bin, mu) is row e of
 // [history; x] at one bin, DC-corrected: complex64 history rows arrive
 // corrected and block rows lose the block mean mu; int8 rows are
 // dequantized (I and Q times the step) and lose mu_prev (tail rows) or mu
-// (block rows), rounded as the plain version rounds them.
+// (block rows), rounded as the plain version rounds them.  Channel c of x
+// starts n samples after channel c-1; the mean covers those n samples
+// (S * nbins for the FX step, every sample for the spectrometer).
 struct F32Rows {
   const float2* x;
   const float2* hist;
   const double2* sums;
+  long long n;
   int S, halo, nbins;
 
   __device__ float2 mean(int c, int parts) const {
-    return channel_mean(sums, c, parts, static_cast<long long>(S) * nbins);
+    return channel_mean(sums, c, parts, n);
   }
   __device__ float2 at(int c, int e, int bin, float2 mu) const {
     if (e < halo) {
-      return hist[(static_cast<size_t>(c) * halo + e) * nbins + bin];
+      return __ldg(hist + (static_cast<size_t>(c) * halo + e) * nbins + bin);
     }
-    return csub(x[(static_cast<size_t>(c) * S + (e - halo)) * nbins + bin],
-                mu);
+    return csub(
+        __ldg(x + c * n + static_cast<size_t>(e - halo) * nbins + bin), mu);
   }
 };
 
@@ -182,22 +221,22 @@ struct I8Rows {
   const char2* tail;
   const float2* mu_prev;
   const longlong2* sums;
+  long long n;
   int S, halo, nbins;
   float step;
   double step_d;
 
   __device__ float2 mean(int c, int parts) const {
-    return channel_mean_i8(sums, c, parts,
-                           static_cast<long long>(S) * nbins, step_d);
+    return channel_mean_i8(sums, c, parts, n, step_d);
   }
   __device__ float2 at(int c, int e, int bin, float2 mu) const {
     char2 q;
     float2 m;
     if (e < halo) {
-      q = tail[(static_cast<size_t>(c) * halo + e) * nbins + bin];
-      m = mu_prev[c];
+      q = __ldg(tail + (static_cast<size_t>(c) * halo + e) * nbins + bin);
+      m = __ldg(mu_prev + c);
     } else {
-      q = x[(static_cast<size_t>(c) * S + (e - halo)) * nbins + bin];
+      q = __ldg(x + c * n + static_cast<size_t>(e - halo) * nbins + bin);
       m = mu;
     }
     // no fused multiply-add: the same two roundings as q*step - m in torch
@@ -207,31 +246,146 @@ struct I8Rows {
   }
 };
 
+// FIR policies: fir(rows, tab, c, f, bin, mu, ntaps, nbins) is frame f's
+// FIR output at one bin over rows f .. f+ntaps-1 of [history; x].
+// DirectFir is the tap loop over the window w [ntaps, nbins].
+struct DirectFir {
+  const float* w;
+
+  size_t table_bytes(int) const { return 0; }
+  __device__ void stage(float*, int) const {}
+  template <class Rows>
+  __device__ float2 operator()(const Rows& rows, const float*, int c, int f,
+                               int bin, float2 mu, int ntaps,
+                               int nbins) const {
+    float2 acc = make_float2(0.f, 0.f);
+    for (int t = 0; t < ntaps; ++t) {
+      const float2 v = rows.at(c, f + t, bin, mu);
+      const float wt = __ldg(w + t * nbins + bin);
+      acc.x += wt * v.x;
+      acc.y += wt * v.y;
+    }
+    return acc;
+  }
+};
+
+// SvdFir is the rank-r factorisation: per rank k the scalar-tap
+// convolution c_k = sum_t u[t, k] row[f+t] (u staged in shared memory as
+// `tab`, one broadcast read per tap and rank), summed in tap order into r
+// register accumulators, then fir = sum_k v[k, bin] c_k in rank order.
+struct SvdFir {
+  const float* u;   // [ntaps, rank]
+  const float* v;   // [rank, nbins]
+  int rank;
+
+  size_t table_bytes(int ntaps) const {
+    return static_cast<size_t>(ntaps) * rank * sizeof(float);
+  }
+  __device__ void stage(float* tab, int ntaps) const {
+    for (int i = threadIdx.x; i < ntaps * rank; i += kThreads) tab[i] = u[i];
+  }
+  template <class Rows>
+  __device__ float2 operator()(const Rows& rows, const float* tab, int c,
+                               int f, int bin, float2 mu, int ntaps,
+                               int nbins) const {
+    float2 ck[kMaxRank];
+#pragma unroll
+    for (int k = 0; k < kMaxRank; ++k) ck[k] = make_float2(0.f, 0.f);
+    for (int t = 0; t < ntaps; ++t) {
+      const float2 x = rows.at(c, f + t, bin, mu);
+      const float* ut = tab + t * rank;
+#pragma unroll
+      for (int k = 0; k < kMaxRank; ++k) {
+        if (k < rank) {
+          ck[k].x += ut[k] * x.x;
+          ck[k].y += ut[k] * x.y;
+        }
+      }
+    }
+    float2 acc = make_float2(0.f, 0.f);
+#pragma unroll
+    for (int k = 0; k < kMaxRank; ++k) {
+      if (k < rank) {
+        const float vk = __ldg(v + k * nbins + bin);
+        acc.x += vk * ck[k].x;
+        acc.y += vk * ck[k].y;
+      }
+    }
+    return acc;
+  }
+};
+
+// Output policies.  CrossOut keeps every channel's spectrum of the frame
+// in shared memory and, once all are done, adds the cross power of every
+// pair to the CTA's own slice of `partial` (each element owned by one
+// thread: no atomics).  SpecOut keeps one spectrum and writes each to
+// spec[c, f, :] as it is done.
+struct CrossOut {
+  const int* pairs;
+  float2* partial;   // [n_groups, nbl, nbins]
+  int nbl;
+
+  __host__ __device__ static int slots(int nch) { return nch; }
+  __device__ float2* slot(float2* spec, int c, int nbins) const {
+    return spec + static_cast<size_t>(c) * nbins;
+  }
+  __device__ void channel_done(const float2*, int, int, int) const {}
+  __device__ void frame_done(const float2* spec, int f, int f0, int nbins,
+                             int log2n) const {
+    float2* out = partial + static_cast<size_t>(blockIdx.x) * nbl * nbins;
+    for (int idx = threadIdx.x; idx < nbl * nbins; idx += kThreads) {
+      const int l = idx >> log2n;
+      const int bin = idx & (nbins - 1);
+      const int p = __ldg(pairs + 2 * l);
+      const int q = __ldg(pairs + 2 * l + 1);
+      const float2 v = cmulconj(spec[static_cast<size_t>(p) * nbins + bin],
+                                spec[static_cast<size_t>(q) * nbins + bin]);
+      out[idx] = (f == f0) ? v : cadd(out[idx], v);
+    }
+  }
+};
+
+struct SpecOut {
+  float2* spec_out;   // [nch, S, nbins]
+  int S;
+
+  __host__ __device__ static int slots(int) { return 1; }
+  __device__ float2* slot(float2* spec, int, int) const { return spec; }
+  __device__ void channel_done(const float2* own, int c, int f,
+                               int nbins) const {
+    float2* out = spec_out + (static_cast<size_t>(c) * S + f) * nbins;
+    for (int bin = threadIdx.x; bin < nbins; bin += kThreads) {
+      out[bin] = own[bin];
+    }
+    __syncthreads();  // the next channel's FIR or FFT overwrites `own`
+  }
+  __device__ void frame_done(const float2*, int, int, int, int) const {}
+};
+
 // (b) One CTA per group of frames.  Dynamic shared memory:
-//   spec  [nch][nbins]  float2 — the frame's spectra of every channel
-//   work  [nbins]       float2 — the FFT's ping-pong buffer
-//   mean  [nch]         float2
-// For each frame and channel: FIR over ntaps rows of [history; x] (read
-// through `rows`) into the FFT's first buffer, a radix-2 Stockham FFT
-// (log2 nbins stages, ping-ponging between work and spec[c] and ending in
-// spec[c]), then the cross power of every pair, summed over the group's
-// frames into its own slice of `partial` (each element owned by one
-// thread: no atomics).
-template <class Rows>
+//   spec  [slots][nbins] float2 — the frame's spectra (CrossOut: every
+//                                 channel's; SpecOut: one)
+//   work  [nbins]        float2 — the FFT's ping-pong buffer
+//   mean  [nch]          float2
+//   tab   [ntaps * r]    float  — SvdFir's u (none for DirectFir)
+// For each frame and channel: the FIR over ntaps rows of [history; x]
+// (read through `rows`) into the FFT's first buffer, a radix-2 Stockham
+// FFT (log2 nbins stages, ping-ponging between work and the channel's slot
+// and ending in the slot), then the output policy.
+template <class Rows, class Fir, class Out>
 __global__ void __launch_bounds__(kThreads)
-fx_frames_kernel(Rows rows, const float* __restrict__ w,
-                 const float2* __restrict__ tw,
-                 const int* __restrict__ pairs,
-                 float2* __restrict__ partial, int nch, int S, int nbins,
-                 int log2n, int ntaps, int nbl, int frames_per_group,
-                 int parts) {
+fx_frames_kernel(Rows rows, Fir fir, Out out, const float2* __restrict__ tw,
+                 int nch, int S, int nbins, int log2n, int ntaps,
+                 int frames_per_group, int parts) {
   extern __shared__ float2 smem[];
   float2* spec = smem;
-  float2* work = smem + static_cast<size_t>(nch) * nbins;
+  float2* work = smem + static_cast<size_t>(Out::slots(nch)) * nbins;
   float2* mean_s = work + nbins;
+  float* tab = reinterpret_cast<float*>(mean_s + nch);
   const int tid = threadIdx.x;
   const int half = nbins >> 1;
 
+  fir.stage(tab, ntaps);
   for (int c = tid; c < nch; c += kThreads) {
     mean_s[c] = rows.mean(c, parts);
   }
@@ -239,24 +393,16 @@ fx_frames_kernel(Rows rows, const float* __restrict__ w,
 
   const int f0 = blockIdx.x * frames_per_group;
   const int f1 = min(f0 + frames_per_group, S);
-  float2* out = partial + static_cast<size_t>(blockIdx.x) * nbl * nbins;
 
   for (int f = f0; f < f1; ++f) {
     for (int c = 0; c < nch; ++c) {
-      float2* own = spec + static_cast<size_t>(c) * nbins;
+      float2* own = out.slot(spec, c, nbins);
       // an odd stage count starts in `work` so the result ends in `own`
       float2* a = (log2n & 1) ? work : own;
       float2* b = (log2n & 1) ? own : work;
       const float2 mu = mean_s[c];
       for (int bin = tid; bin < nbins; bin += kThreads) {
-        float2 acc = make_float2(0.f, 0.f);
-        for (int t = 0; t < ntaps; ++t) {
-          const float2 v = rows.at(c, f + t, bin, mu);  // row of [hist; x]
-          const float wt = w[t * nbins + bin];
-          acc.x += wt * v.x;
-          acc.y += wt * v.y;
-        }
-        a[bin] = acc;
+        a[bin] = fir(rows, tab, c, f, bin, mu, ntaps, nbins);
       }
       __syncthreads();
       for (int s = 0, ns = 1; s < log2n; ++s, ns <<= 1) {
@@ -274,16 +420,9 @@ fx_frames_kernel(Rows rows, const float* __restrict__ w,
         a = b;
         b = tmp;
       }
+      out.channel_done(own, c, f, nbins);
     }
-    for (int idx = tid; idx < nbl * nbins; idx += kThreads) {
-      const int l = idx >> log2n;
-      const int bin = idx & (nbins - 1);
-      const int p = pairs[2 * l];
-      const int q = pairs[2 * l + 1];
-      const float2 v = cmulconj(spec[static_cast<size_t>(p) * nbins + bin],
-                                spec[static_cast<size_t>(q) * nbins + bin]);
-      out[idx] = (f == f0) ? v : cadd(out[idx], v);
-    }
+    out.frame_done(spec, f, f0, nbins, log2n);
     __syncthreads();  // the next frame overwrites spec
   }
 }
@@ -300,8 +439,8 @@ __device__ __forceinline__ void sum_partials(const float2* __restrict__ partial,
   xp[idx] = acc;
 }
 
-// (c) f32: the partials summed, and the new history: rows S .. S+halo-1
-// of [history; x - mean].
+// (c) f32: the partials summed (nbl > 0), and the new history: rows
+// S .. S+halo-1 of [history; x - mean].
 __global__ void __launch_bounds__(kThreads)
 fx_reduce_kernel(const float2* __restrict__ partial, float2* __restrict__ xp,
                  F32Rows rows, float2* __restrict__ new_hist, int n_groups,
@@ -340,30 +479,52 @@ int log2_of(int n) {
   return k;
 }
 
-// Mean pre-pass and frame kernel of either mode, on `st`.
-template <typename T, class Rows>
+// Mean pre-pass and frame kernel of any mode, on `st`.
+template <typename T, class Rows, class Fir, class Out>
 cudaError_t launch_means_and_frames(const T* x, typename SumOf<T>::pair* sums,
-                                    const Rows& rows, const void* w,
-                                    const void* tw, const void* pairs,
-                                    void* partial, int nch, int S, int nbins,
-                                    int ntaps, int nbl, int n_groups,
+                                    const Rows& rows, const Fir& fir,
+                                    const Out& out, const void* tw, int nch,
+                                    int S, int nbins, int ntaps, int n_groups,
                                     int frames_per_group, int parts,
                                     cudaStream_t st) {
   const size_t smem =
-      (static_cast<size_t>(nch + 1) * nbins + nch) * sizeof(float2);
+      (static_cast<size_t>(Out::slots(nch) + 1) * nbins + nch) *
+          sizeof(float2) +
+      fir.table_bytes(ntaps);
   cudaError_t err = cudaFuncSetAttribute(
-      reinterpret_cast<const void*>(&fx_frames_kernel<Rows>),
+      reinterpret_cast<const void*>(&fx_frames_kernel<Rows, Fir, Out>),
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  mean_partial_kernel<T><<<dim3(parts, nch), kThreads, 0, st>>>(
-      x, sums, static_cast<long long>(S) * nbins);
+  mean_partial_kernel<T><<<dim3(parts, nch), kThreads, 0, st>>>(x, sums,
+                                                                rows.n);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  fx_frames_kernel<Rows><<<n_groups, kThreads, smem, st>>>(
-      rows, static_cast<const float*>(w), static_cast<const float2*>(tw),
-      static_cast<const int*>(pairs), static_cast<float2*>(partial), nch, S,
-      nbins, log2_of(nbins), ntaps, nbl, frames_per_group, parts);
+  fx_frames_kernel<Rows, Fir, Out><<<n_groups, kThreads, smem, st>>>(
+      rows, fir, out, static_cast<const float2*>(tw), nch, S, nbins,
+      log2_of(nbins), ntaps, frames_per_group, parts);
   return cudaGetLastError();
+}
+
+// The FIR mode of the FX entry points: rank 0 the direct tap loop over w,
+// rank 1 .. kMaxRank the factorisation u v.
+template <typename T, class Rows>
+cudaError_t launch_fx(const T* x, typename SumOf<T>::pair* sums,
+                      const Rows& rows, const void* w, const void* u,
+                      const void* v, int rank, const CrossOut& out,
+                      const void* tw, int nch, int S, int nbins, int ntaps,
+                      int n_groups, int frames_per_group, int parts,
+                      cudaStream_t st) {
+  if (rank < 0 || rank > kMaxRank) return cudaErrorInvalidValue;
+  if (rank > 0) {
+    const SvdFir fir{static_cast<const float*>(u),
+                     static_cast<const float*>(v), rank};
+    return launch_means_and_frames(x, sums, rows, fir, out, tw, nch, S, nbins,
+                                   ntaps, n_groups, frames_per_group, parts,
+                                   st);
+  }
+  const DirectFir fir{static_cast<const float*>(w)};
+  return launch_means_and_frames(x, sums, rows, fir, out, tw, nch, S, nbins,
+                                 ntaps, n_groups, frames_per_group, parts, st);
 }
 
 int reduce_blocks(long long n) {
@@ -374,22 +535,33 @@ int reduce_blocks(long long n) {
 
 // Launch the three kernels of the complex64 mode on `stream`.  The caller
 // (fx_fused.py) has checked shapes, types, contiguity and that nbins is a
-// power of two in [256, 8192] with ntaps >= 2.  Scratch: sums [nch, parts]
-// double2, partial [n_groups, nbl, nbins] float2.  Returns
-// cudaGetLastError().
+// power of two in [256, 8192] with ntaps >= 2 and rank in [0, 16] (0: the
+// direct loop over w; else u [ntaps, rank] and v [rank, nbins]).  Scratch:
+// sums [nch, parts] double2, partial [n_groups, nbl, nbins] float2.
+// Returns cudaGetLastError().
 extern "C" int fxt_fx_fused(const void* x, const void* hist, const void* w,
-                            const void* tw, const void* pairs, void* sums,
-                            void* partial, void* xp, void* new_hist, int nch,
-                            int S, int nbins, int ntaps, int nbl, int n_groups,
-                            int frames_per_group, int parts, void* stream) {
+                            const void* u, const void* v, const void* tw,
+                            const void* pairs, void* sums, void* partial,
+                            void* xp, void* new_hist, int nch, int S,
+                            int nbins, int ntaps, int rank, int nbl,
+                            int n_groups, int frames_per_group, int parts,
+                            void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int halo = ntaps - 1;
   auto* sd = static_cast<double2*>(sums);
   const F32Rows rows{static_cast<const float2*>(x),
-                     static_cast<const float2*>(hist), sd, S, halo, nbins};
-  cudaError_t err = launch_means_and_frames(
-      static_cast<const float2*>(x), sd, rows, w, tw, pairs, partial, nch, S,
-      nbins, ntaps, nbl, n_groups, frames_per_group, parts, st);
+                     static_cast<const float2*>(hist),
+                     sd,
+                     static_cast<long long>(S) * nbins,
+                     S,
+                     halo,
+                     nbins};
+  const CrossOut out{static_cast<const int*>(pairs),
+                     static_cast<float2*>(partial), nbl};
+  cudaError_t err =
+      launch_fx(static_cast<const float2*>(x), sd, rows, w, u, v, rank, out,
+                tw, nch, S, nbins, ntaps, n_groups, frames_per_group, parts,
+                st);
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long n_out = static_cast<long long>(nbl) * nbins;
   const long long n_hist = static_cast<long long>(nch) * halo * nbins;
@@ -408,25 +580,30 @@ extern "C" int fxt_fx_fused(const void* x, const void* hist, const void* w,
 // xp [nbl, nbins] and mu [nch] (complex64).  Returns cudaGetLastError().
 extern "C" int fxt_fx_fused_i8(const void* x, const void* tail,
                                const void* mu_prev, const void* w,
-                               const void* tw, const void* pairs, void* sums,
-                               void* partial, void* xp, void* mu, int nch,
-                               int S, int nbins, int ntaps, int nbl,
-                               int n_groups, int frames_per_group, int parts,
-                               double step, void* stream) {
+                               const void* u, const void* v, const void* tw,
+                               const void* pairs, void* sums, void* partial,
+                               void* xp, void* mu, int nch, int S, int nbins,
+                               int ntaps, int rank, int nbl, int n_groups,
+                               int frames_per_group, int parts, double step,
+                               void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   auto* sl = static_cast<longlong2*>(sums);
   const I8Rows rows{static_cast<const char2*>(x),
                     static_cast<const char2*>(tail),
                     static_cast<const float2*>(mu_prev),
                     sl,
+                    static_cast<long long>(S) * nbins,
                     S,
                     ntaps - 1,
                     nbins,
                     static_cast<float>(step),
                     step};
-  cudaError_t err = launch_means_and_frames(
-      static_cast<const char2*>(x), sl, rows, w, tw, pairs, partial, nch, S,
-      nbins, ntaps, nbl, n_groups, frames_per_group, parts, st);
+  const CrossOut out{static_cast<const int*>(pairs),
+                     static_cast<float2*>(partial), nbl};
+  cudaError_t err =
+      launch_fx(static_cast<const char2*>(x), sl, rows, w, u, v, rank, out,
+                tw, nch, S, nbins, ntaps, n_groups, frames_per_group, parts,
+                st);
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long n_out = static_cast<long long>(nbl) * nbins;
   fx_reduce_i8_kernel<<<reduce_blocks(n_out > nch ? n_out : nch), kThreads, 0,
@@ -434,6 +611,43 @@ extern "C" int fxt_fx_fused_i8(const void* x, const void* tail,
                               static_cast<float2*>(xp), rows,
                               static_cast<float2*>(mu), n_groups, nbl, nch,
                               parts);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Launch the spectrometer on `stream`: the mean pre-pass over all nsamp
+// samples of each channel, the frame kernel with the spectra written to
+// spec [nch, S, nbins], and (ntaps > 1) the new history.  The caller
+// (spectrometer.py) has checked shapes, types, contiguity, that nbins is a
+// power of two in [256, 8192], ntaps >= 1 and S >= 1.  Scratch: sums
+// [nch, parts] double2.  Returns cudaGetLastError().
+extern "C" int fxt_spectrometer(const void* x, const void* hist,
+                                const void* w, const void* tw, void* sums,
+                                void* spec, void* new_hist, long long nsamp,
+                                int nch, int S, int nbins, int ntaps,
+                                int n_groups, int frames_per_group, int parts,
+                                void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int halo = ntaps - 1;
+  auto* sd = static_cast<double2*>(sums);
+  const F32Rows rows{static_cast<const float2*>(x),
+                     static_cast<const float2*>(hist),
+                     sd,
+                     nsamp,
+                     S,
+                     halo,
+                     nbins};
+  const DirectFir fir{static_cast<const float*>(w)};
+  const SpecOut out{static_cast<float2*>(spec), S};
+  cudaError_t err = launch_means_and_frames(
+      static_cast<const float2*>(x), sd, rows, fir, out, tw, nch, S, nbins,
+      ntaps, n_groups, frames_per_group, parts, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long n_hist = static_cast<long long>(nch) * halo * nbins;
+  if (n_hist > 0) {
+    fx_reduce_kernel<<<reduce_blocks(n_hist), kThreads, 0, st>>>(
+        nullptr, nullptr, rows, static_cast<float2*>(new_hist), 1, 0, nch,
+        parts);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -12,7 +12,12 @@ per engine (``_resolve_fused``, like ``fxtpu.fx._resolve_fused``):
     fftshift and the continuum reduction on the tiny ``[nbl, nbins]``
     result (the rotation commutes with the frame sum).  On a CUDA device
     the fused step is the hand-written kernel; on the CPU its plain
-    version, as ``fxtpu`` runs its Pallas kernel in interpret mode there;
+    version, as ``fxtpu`` runs its Pallas kernel in interpret mode there.
+    Its FIR runs in one of two modes, chosen once with the route: through
+    the window's rank-r factors where the window factorises
+    (``ops.svd_fir.deep_svd_applies``: 16 taps or more, as
+    ``fxtpu.fx.make_fx_step`` chooses its SVD-FIR kernel), the direct tap
+    loop everywhere else;
   * the plain route: dequantization of 8-bit samples, DC removal, the
     streaming spectrometer (``torch.fft``), the rotation per frame, the
     frame mean and the shift, all in plain torch (``fxtpu``'s
@@ -34,9 +39,11 @@ import torch
 from fxtpu_torch.config import CorrelatorConfig
 from fxtpu_torch.ops.delay import estimate_delay
 from fxtpu_torch.ops.fx_fused import (fx_fused_raw, fx_fused_raw_i8,
-                                      pairs_tensor, supported, supported_i8)
+                                      pairs_tensor, supported, supported_i8,
+                                      svd_tensors)
 from fxtpu_torch.ops.pfb import (dc_remove, dequantize, spectrometer,
                                  zero_history)
+from fxtpu_torch.ops.svd_fir import deep_svd_applies
 from fxtpu_torch.ops.window import pfb_window
 from fxtpu_torch.ops.xengine import (baseline_pairs, continuum_reduce,
                                      fstc_rotate, rf_freqs, rotation_phase,
@@ -47,19 +54,22 @@ __all__ = ["make_fx_step", "make_calibrator", "dc_remove", "FxEngine"]
 
 
 def _resolve_fused(fused, device: torch.device, nbins: int, ntaps: int,
-                   nch: int, *, int8: bool = False, s_rows: int = 0) -> bool:
+                   nch: int, *, int8: bool = False, s_rows: int = 0,
+                   rank: int = 0) -> bool:
     """The route, decided once per engine.  'auto' -> the fused route on a
     CUDA device for every shape its kernel takes, plain torch otherwise;
     True -> the fused route on any device (the kernel on a CUDA device,
     its plain version on the CPU), raising for a shape the kernel does
     not take; False -> plain torch.  ``int8`` asks about the int8 kernel,
-    which also needs ``s_rows`` (see ``fx_fused.supported_i8``)."""
-    shape = f"nbins={nbins}, ntaps={ntaps}, nch={nch}"
+    which also needs ``s_rows`` (see ``fx_fused.supported_i8``); ``rank``
+    is the SVD-FIR mode's rank (0: the direct tap loop)."""
+    shape = f"nbins={nbins}, ntaps={ntaps}, nch={nch}, rank={rank}"
     if int8:
-        takes, check = supported_i8(nbins, ntaps, nch, s_rows), "supported_i8"
+        takes = supported_i8(nbins, ntaps, nch, s_rows, rank)
+        check = "supported_i8"
         shape += f", S={s_rows}"
     else:
-        takes, check = supported(nbins, ntaps, nch), "supported"
+        takes, check = supported(nbins, ntaps, nch, rank), "supported"
     if fused == "auto":
         return device.type == "cuda" and takes
     if fused is True:
@@ -71,6 +81,16 @@ def _resolve_fused(fused, device: torch.device, nbins: int, ntaps: int,
     if fused is False:
         return False
     raise ValueError(f"fused must be 'auto', True or False, got {fused!r}")
+
+
+def _svd_mode(window2d, nbins: int, device):
+    """The fused step's FIR mode for this window, in both ingests: its
+    factors ``(u, v)`` on ``device`` where it factorises
+    (``deep_svd_applies``, the choice ``fxtpu.fx.make_fx_step`` makes), or
+    None for the direct tap loop."""
+    if not deep_svd_applies(window2d, nbins):
+        return None
+    return svd_tensors(window2d, device)
 
 
 class _FinishTables:
@@ -105,13 +125,16 @@ def _finish(xp: torch.Tensor, delays: torch.Tensor, tables: _FinishTables,
 
 def make_fx_step(*, mode: str, nbins: int, window2d: np.ndarray,
                  pairs: np.ndarray, bandwidth: float, frequency: float,
-                 device, fused: bool, quant_step: float = 1.0 / 32):
+                 device, fused: bool, quant_step: float = 1.0 / 32,
+                 svd=None):
     """Build the per-block step on ``device``.  ``fused=True`` takes the
     fused route on framed input: :func:`fx_fused_raw` for complex64
     ``[nch, S, nbins]`` blocks with a tensor history,
     :func:`fx_fused_raw_i8` for int8 ``[nch, S, nbins, 2]`` blocks with
     the raw-tail dict history (each the CUDA kernel for CUDA tensors, its
-    plain version for CPU tensors).  ``fused=False`` takes the plain route
+    plain version for CPU tensors), in the FIR mode ``svd``: None for the
+    direct tap loop, or the window's factors ``(u, v)`` on ``device``
+    (``fx_fused.svd_tensors``).  ``fused=False`` takes the plain route
     on ``[nch, num_samp]`` complex64 or ``[nch, num_samp, 2]`` int8
     samples.  8-bit samples are ``q * quant_step`` in real units."""
     device = torch.device(device)
@@ -127,9 +150,10 @@ def make_fx_step(*, mode: str, nbins: int, window2d: np.ndarray,
         def fused_step(iq, delays, history):
             if isinstance(history, dict):
                 xp, new_history = fx_fused_raw_i8(iq, history, w, pairs_dev,
-                                                  quant_step)
+                                                  quant_step, svd)
             else:
-                xp, new_history = fx_fused_raw(iq, history, w, pairs_dev)
+                xp, new_history = fx_fused_raw(iq, history, w, pairs_dev,
+                                               svd)
             vis = _finish(xp, delays, tables, iq.shape[1], bandwidth,
                           continuum)
             return vis, new_history
@@ -186,9 +210,9 @@ def _unpack_i8_words(words) -> np.ndarray:
 class FxEngine:
     """Window + pairs + step + calibrator for one config, on
     ``cfg.device``.  The route is decided once, here: :attr:`fused_active`
-    reports it, :attr:`kernel_active` whether it runs a CUDA kernel, and
+    reports it, :attr:`kernel_active` whether it runs a CUDA kernel,
     :attr:`int8_native` whether 8-bit samples reach the fused step as
-    they are."""
+    they are, and :attr:`fir_mode` which FIR the step runs."""
 
     def __init__(self, cfg: CorrelatorConfig, fused=None):
         self.cfg = cfg
@@ -203,14 +227,17 @@ class FxEngine:
         self.window = pfb_window(cfg.ntaps, cfg.nbins, cfg.window)
         self.window2d = self.window.reshape(cfg.ntaps, cfg.nbins)
         self.pairs = baseline_pairs(cfg.nchan, cfg.include_autos)
+        svd = _svd_mode(self.window2d, cfg.nbins, self.device)
         self._fused = _resolve_fused(
             self.fused, self.device, cfg.nbins, cfg.ntaps, cfg.nchan,
-            int8=self._int8, s_rows=cfg.num_samp // cfg.nbins)
+            int8=self._int8, s_rows=cfg.num_samp // cfg.nbins,
+            rank=0 if svd is None else svd[0].shape[1])
+        self._svd = svd if self._fused else None
         self.step = make_fx_step(
             mode=cfg.mode, nbins=cfg.nbins, window2d=self.window2d,
             pairs=self.pairs, bandwidth=cfg.bandwidth,
             frequency=cfg.frequency, device=self.device,
-            fused=self._fused, quant_step=cfg.quant_step)
+            fused=self._fused, quant_step=cfg.quant_step, svd=self._svd)
         self.calibrate = make_calibrator(bandwidth=cfg.bandwidth)
 
     @property
@@ -223,6 +250,13 @@ class FxEngine:
         """True when :attr:`step` launches a hand-written CUDA kernel: the
         fused route on a CUDA device."""
         return self._fused and self.device.type == "cuda"
+
+    @property
+    def fir_mode(self) -> str:
+        """``"svd"`` when the fused step runs its FIR through the window's
+        rank-r factors, ``"direct"`` when it runs the tap loop over the
+        window (the plain route always does)."""
+        return "direct" if self._svd is None else "svd"
 
     @property
     def int8_native(self) -> bool:

@@ -8,9 +8,14 @@ Pallas kernel ``_fx_kernel`` becomes the hand-written CUDA kernels in
   * :func:`fx_fused_raw`, complex64 samples (f32 direct-tap mode);
   * :func:`fx_fused_raw_i8`, 8-bit samples (int8-native mode).
 
-Beside each sits its plain torch version (``*_reference``).  A wrapper
-runs the plain version only for CPU tensors; for a CUDA tensor it
-launches the kernel or raises.
+Each takes the FIR in one of two modes: the direct tap loop over the
+window (``svd=None``), or, at deep taps, the window's rank-r factors
+``svd=(u, v)`` (:func:`svd_tensors`; ``_fx_kernel``'s SVD-FIR mode,
+``svd_r > 0``).  Beside each sits its plain torch version
+(``*_reference``), which computes the same FIR in the same mode.  A
+wrapper runs the plain version only for CPU tensors; for a CUDA tensor it
+launches the kernel or raises.  Each mode counts its launches apart:
+``.launches`` (direct) and ``.svd_launches`` on each wrapper.
 
 Contract of :func:`fx_fused_raw`, for ``x`` complex64 ``[nch, S, nbins]``,
 the DC-corrected ``history`` complex64 ``[nch, ntaps-1, nbins]``,
@@ -43,10 +48,12 @@ import numpy as np
 import torch
 
 from fxtpu_torch.ops.pfb import dequantize, spectrometer_rows
+from fxtpu_torch.ops.svd_fir import svd_fir_factors
 
 __all__ = ["supported", "supported_i8", "fx_fused_raw",
            "fx_fused_raw_reference", "fx_fused_raw_i8",
-           "fx_fused_raw_i8_reference", "pairs_tensor", "MAX_SHARED_BYTES"]
+           "fx_fused_raw_i8_reference", "pairs_tensor", "svd_tensors",
+           "MAX_SHARED_BYTES", "MAX_SVD_RANK"]
 
 #: Dynamic shared memory one block may use on Hopper (227 KiB).
 MAX_SHARED_BYTES = 232448
@@ -56,31 +63,50 @@ MEAN_PARTS = 32
 MAX_GROUPS = 264
 #: Bound on the kernel's [n_groups, nbl, nbins] partial cross power.
 MAX_PARTIAL_BYTES = 64 << 20
+#: Largest SVD rank the kernel's FIR keeps in registers (kMaxRank).
+MAX_SVD_RANK = 16
 
 
-def shared_bytes(nbins: int, nch: int) -> int:
+def shared_bytes(nbins: int, nch: int, ntaps: int = 0, rank: int = 0) -> int:
     """Dynamic shared memory of the frame kernel: every channel's
-    spectrum, one FFT ping-pong buffer and the channel means."""
-    return ((nch + 1) * nbins + nch) * 8
+    spectrum, one FFT ping-pong buffer, the channel means and, in the
+    SVD-FIR mode (``rank > 0``), the ``[ntaps, rank]`` float32 table u."""
+    return ((nch + 1) * nbins + nch) * 8 + ntaps * rank * 4
 
 
-def supported(nbins: int, ntaps: int, nch: int) -> bool:
+def supported(nbins: int, ntaps: int, nch: int, rank: int = 0) -> bool:
     """True when the CUDA kernel takes this shape: nbins a power of two
-    in [256, 8192], ntaps >= 2, and the spectra of all channels (plus the
-    FFT's work buffer) fit in one block's shared memory."""
+    in [256, 8192], ntaps >= 2, an SVD rank in [0, MAX_SVD_RANK] (0: the
+    direct tap loop), and the spectra of all channels (plus the FFT's
+    work buffer and the u table) fit in one block's shared memory."""
     return (256 <= nbins <= 8192 and nbins & (nbins - 1) == 0
-            and ntaps >= 2 and nch >= 1
-            and shared_bytes(nbins, nch) <= MAX_SHARED_BYTES)
+            and ntaps >= 2 and nch >= 1 and 0 <= rank <= MAX_SVD_RANK
+            and shared_bytes(nbins, nch, ntaps, rank) <= MAX_SHARED_BYTES)
 
 
-def supported_i8(nbins: int, ntaps: int, nch: int, s_rows: int) -> bool:
+def supported_i8(nbins: int, ntaps: int, nch: int, s_rows: int,
+                 rank: int = 0) -> bool:
     """True when the int8 kernel takes this shape: what :func:`supported`
     asks, and a block of at least ntaps-1 rows.  The new raw tail is the
     block's own last ntaps-1 rows; a shorter block would carry rows of two
     earlier blocks under one ``mu_prev`` (``fxtpu`` never takes its
     int8-native route there either: ``_pick_tile`` needs a tile >= the
     halo)."""
-    return supported(nbins, ntaps, nch) and s_rows >= ntaps - 1
+    return supported(nbins, ntaps, nch, rank) and s_rows >= ntaps - 1
+
+
+def svd_tensors(window2d, device):
+    """The window's factors as the kernel takes them, ``(u [ntaps, r],
+    v [r, nbins])`` float32 on ``device``, or None where the window does
+    not factorise (``ops.svd_fir.svd_fir_factors``).  They are taken of
+    the float32 window the kernel would otherwise read, as ``fxtpu``'s
+    ``_fx_call`` factorises its float32 ``w2d``."""
+    w = np.asarray(window2d, np.float32)
+    fac = svd_fir_factors(w.astype(np.float64), w.shape[1])
+    if fac is None:
+        return None
+    return tuple(torch.as_tensor(np.ascontiguousarray(a, np.float32),
+                                 device=device) for a in fac[:2])
 
 
 def pairs_tensor(pairs, nch: int, device) -> torch.Tensor:
@@ -101,11 +127,12 @@ def _cross_power(spec: torch.Tensor, pairs: torch.Tensor) -> torch.Tensor:
 
 
 def fx_fused_raw_reference(x: torch.Tensor, history: torch.Tensor,
-                           window2d: torch.Tensor, pairs: torch.Tensor):
+                           window2d: torch.Tensor, pairs: torch.Tensor,
+                           svd=None):
     """The fused step in plain torch (``torch.fft``), same contract as
     :func:`fx_fused_raw`."""
     rows = x - x.mean(dim=(-2, -1), keepdim=True)
-    spec, new_history = spectrometer_rows(rows, window2d, history)
+    spec, new_history = spectrometer_rows(rows, window2d, history, svd)
     return _cross_power(spec, pairs), new_history
 
 
@@ -129,7 +156,7 @@ def _i8_history(x: torch.Tensor, ntaps: int, mu: torch.Tensor) -> dict:
 
 def fx_fused_raw_i8_reference(x: torch.Tensor, history: dict,
                               window2d: torch.Tensor, pairs: torch.Tensor,
-                              quant_step: float):
+                              quant_step: float, svd=None):
     """The int8 fused step in plain torch, same contract as
     :func:`fx_fused_raw_i8`: both means are subtracted in real units
     before the FIR (the ``_dc_correct(mu_prev=...)`` algebra of
@@ -138,7 +165,7 @@ def fx_fused_raw_i8_reference(x: torch.Tensor, history: dict,
     rows = dequantize(x, quant_step) - mu[:, None, None]
     hist = (dequantize(history["tail"], quant_step)
             - history["mu_prev"][:, None, None])
-    spec, _ = spectrometer_rows(rows, window2d, hist)
+    spec, _ = spectrometer_rows(rows, window2d, hist, svd)
     return (_cross_power(spec, pairs),
             _i8_history(x, window2d.shape[0], mu))
 
@@ -160,9 +187,10 @@ def _groups(s_rows: int, nbl: int, nbins: int):
     return -(-s_rows // per), per
 
 
-def _check_args(x, window2d, pairs, nbins, tensors):
-    """The checks both kernels share: window, pairs, one device and
-    contiguous memory for every tensor the kernel reads."""
+def _check_args(x, window2d, pairs, nbins, tensors, svd):
+    """The checks both kernels share: window, pairs, the SVD factors, one
+    device and contiguous memory for every tensor the kernel reads.
+    Returns the FIR mode's rank (0: the direct tap loop)."""
     if window2d.dtype != torch.float32 or pairs.dtype != torch.int32:
         raise TypeError("window2d must be float32 and pairs int32")
     ntaps = window2d.shape[0]
@@ -171,32 +199,51 @@ def _check_args(x, window2d, pairs, nbins, tensors):
                          f"nbins={nbins}")
     if pairs.ndim != 2 or pairs.shape[1] != 2 or pairs.shape[0] < 1:
         raise ValueError(f"pairs must be [nbl, 2], got {tuple(pairs.shape)}")
+    rank = 0
+    if svd is not None:
+        u, v = svd
+        if u.dtype != torch.float32 or v.dtype != torch.float32:
+            raise TypeError("the SVD factors u and v must be float32")
+        rank = u.shape[-1]
+        if u.shape != (ntaps, rank) or v.shape != (rank, nbins):
+            raise ValueError(
+                f"svd factors u {tuple(u.shape)} and v {tuple(v.shape)} "
+                f"must be [ntaps, r] and [r, nbins] for ntaps={ntaps}, "
+                f"nbins={nbins}")
+        if not 1 <= rank <= MAX_SVD_RANK:
+            raise ValueError(f"svd rank {rank} is outside [1, "
+                             f"{MAX_SVD_RANK}] (fx_fused.MAX_SVD_RANK)")
+        tensors = [*tensors, ("u", u), ("v", v)]
     for name, t in (("x", x), *tensors, ("window2d", window2d),
                     ("pairs", pairs)):
         if t.device != x.device:
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    return rank
 
 
-def _check(x, history, window2d, pairs):
+def _check(x, history, window2d, pairs, svd):
     if x.dtype != torch.complex64 or history.dtype != torch.complex64:
         raise TypeError("x and history must be complex64")
     if x.ndim != 3:
         raise ValueError(f"x must be framed [nch, S, nbins], got {x.shape}")
     nch, _, nbins = x.shape
     ntaps = window2d.shape[0]
-    _check_args(x, window2d, pairs, nbins, [("history", history)])
+    rank = _check_args(x, window2d, pairs, nbins, [("history", history)],
+                       svd)
     if history.shape != (nch, ntaps - 1, nbins):
         raise ValueError(f"history {tuple(history.shape)} must be "
                          f"{(nch, ntaps - 1, nbins)}")
-    if not supported(nbins, ntaps, nch):
+    if not supported(nbins, ntaps, nch, rank):
         raise ValueError(
             f"the CUDA FX kernel does not take nbins={nbins}, "
-            f"ntaps={ntaps}, nch={nch} (see fx_fused.supported)")
+            f"ntaps={ntaps}, nch={nch}, rank={rank} (see "
+            "fx_fused.supported)")
+    return rank
 
 
-def _check_i8(x, history, window2d, pairs, quant_step):
+def _check_i8(x, history, window2d, pairs, quant_step, svd):
     if not isinstance(history, dict) or set(history) != {"tail", "mu_prev"}:
         raise TypeError('history must be {"tail": ..., "mu_prev": ...}')
     tail, mu_prev = history["tail"], history["mu_prev"]
@@ -209,8 +256,8 @@ def _check_i8(x, history, window2d, pairs, quant_step):
             f"x must be framed int8 [nch, S, nbins, 2], got {x.shape}")
     nch, s_rows, nbins, _ = x.shape
     ntaps = window2d.shape[0]
-    _check_args(x, window2d, pairs, nbins,
-                [("tail", tail), ("mu_prev", mu_prev)])
+    rank = _check_args(x, window2d, pairs, nbins,
+                       [("tail", tail), ("mu_prev", mu_prev)], svd)
     if tail.shape != (nch, ntaps - 1, nbins, 2):
         raise ValueError(f"tail {tuple(tail.shape)} must be "
                          f"{(nch, ntaps - 1, nbins, 2)}")
@@ -221,11 +268,12 @@ def _check_i8(x, history, window2d, pairs, quant_step):
                          "(an even address)")
     if not (math.isfinite(quant_step) and quant_step > 0):
         raise ValueError(f"quant_step must be positive, got {quant_step}")
-    if not supported_i8(nbins, ntaps, nch, s_rows):
+    if not supported_i8(nbins, ntaps, nch, s_rows, rank):
         raise ValueError(
             f"the CUDA int8 FX kernel does not take nbins={nbins}, "
-            f"ntaps={ntaps}, nch={nch}, S={s_rows} (see "
+            f"ntaps={ntaps}, nch={nch}, S={s_rows}, rank={rank} (see "
             "fx_fused.supported_i8)")
+    return rank
 
 
 def _launch_setup(x, pairs, s_rows, nbins):
@@ -240,20 +288,35 @@ def _launch_setup(x, pairs, s_rows, nbins):
     return lib, nbl, n_groups, per, xp, partial
 
 
+def _svd_ptrs(svd):
+    """The factors' addresses for the C call (NULL in the direct mode)."""
+    return (None, None) if svd is None else (svd[0].data_ptr(),
+                                             svd[1].data_ptr())
+
+
+def _count(wrapper, rank):
+    if rank:
+        wrapper.svd_launches += 1
+    else:
+        wrapper.launches += 1
+
+
 def fx_fused_raw(x: torch.Tensor, history: torch.Tensor,
-                 window2d: torch.Tensor, pairs: torch.Tensor):
+                 window2d: torch.Tensor, pairs: torch.Tensor, svd=None):
     """Fused DC + PFB + FFT + X for one block -> ``(xp, new_history)``
     (module docstring contract).  ``pairs`` comes from
     :func:`pairs_tensor`: int32 on ``x``'s device, entries in ``[0, nch)``.
+    ``svd`` is None (the direct tap loop over ``window2d``) or the
+    factors ``(u, v)`` of :func:`svd_tensors` on ``x``'s device.
 
     CPU tensors run :func:`fx_fused_raw_reference`; CUDA tensors launch
     the kernel (built at first use) or raise.  Each launch adds one to
-    ``fx_fused_raw.launches``."""
+    ``fx_fused_raw.launches`` (direct) or ``fx_fused_raw.svd_launches``."""
     if x.device.type == "cpu":
-        return fx_fused_raw_reference(x, history, window2d, pairs)
+        return fx_fused_raw_reference(x, history, window2d, pairs, svd)
     if x.device.type != "cuda":
         raise ValueError(f"fx_fused_raw runs on cuda or cpu, not {x.device}")
-    _check(x, history, window2d, pairs)
+    rank = _check(x, history, window2d, pairs, svd)
     from fxtpu_torch.cuda_build import check
     nch, s_rows, nbins = x.shape
     ntaps = window2d.shape[0]
@@ -268,35 +331,38 @@ def fx_fused_raw(x: torch.Tensor, history: torch.Tensor,
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.fxt_fx_fused(
             x.data_ptr(), history.data_ptr(), window2d.data_ptr(),
-            tw.data_ptr(), pairs.data_ptr(), sums.data_ptr(),
-            partial.data_ptr(), xp.data_ptr(), new_hist.data_ptr(),
-            nch, s_rows, nbins, ntaps, nbl, n_groups, per, MEAN_PARTS,
-            stream)
+            *_svd_ptrs(svd), tw.data_ptr(), pairs.data_ptr(),
+            sums.data_ptr(), partial.data_ptr(), xp.data_ptr(),
+            new_hist.data_ptr(), nch, s_rows, nbins, ntaps, rank, nbl,
+            n_groups, per, MEAN_PARTS, stream)
     check(lib, rc, "fx_fused kernel launch")
-    fx_fused_raw.launches += 1
+    _count(fx_fused_raw, rank)
     return xp, new_hist
 
 
 fx_fused_raw.launches = 0
+fx_fused_raw.svd_launches = 0
 
 
 def fx_fused_raw_i8(x: torch.Tensor, history: dict, window2d: torch.Tensor,
-                    pairs: torch.Tensor, quant_step: float):
+                    pairs: torch.Tensor, quant_step: float, svd=None):
     """Fused DC + PFB + FFT + X for one block of 8-bit samples ->
     ``(xp, new_history)`` (module docstring contract; ``history`` is the
-    raw-tail dict, zeros at stream start).
+    raw-tail dict, zeros at stream start; ``svd`` as for
+    :func:`fx_fused_raw`).
 
     CPU tensors run :func:`fx_fused_raw_i8_reference`; CUDA tensors
     launch the int8 kernel (built at first use) or raise.  Each launch
-    adds one to ``fx_fused_raw_i8.launches``."""
+    adds one to ``fx_fused_raw_i8.launches`` (direct) or
+    ``fx_fused_raw_i8.svd_launches``."""
     if x.device.type == "cpu":
         return fx_fused_raw_i8_reference(x, history, window2d, pairs,
-                                         quant_step)
+                                         quant_step, svd)
     if x.device.type != "cuda":
         raise ValueError(
             f"fx_fused_raw_i8 runs on cuda or cpu, not {x.device}")
     quant_step = float(quant_step)
-    _check_i8(x, history, window2d, pairs, quant_step)
+    rank = _check_i8(x, history, window2d, pairs, quant_step, svd)
     from fxtpu_torch.cuda_build import check
     nch, s_rows, nbins, _ = x.shape
     ntaps = window2d.shape[0]
@@ -311,13 +377,14 @@ def fx_fused_raw_i8(x: torch.Tensor, history: dict, window2d: torch.Tensor,
         rc = lib.fxt_fx_fused_i8(
             x.data_ptr(), history["tail"].data_ptr(),
             history["mu_prev"].data_ptr(), window2d.data_ptr(),
-            tw.data_ptr(), pairs.data_ptr(), sums.data_ptr(),
-            partial.data_ptr(), xp.data_ptr(), mu.data_ptr(),
-            nch, s_rows, nbins, ntaps, nbl, n_groups, per, MEAN_PARTS,
-            quant_step, stream)
+            *_svd_ptrs(svd), tw.data_ptr(), pairs.data_ptr(),
+            sums.data_ptr(), partial.data_ptr(), xp.data_ptr(),
+            mu.data_ptr(), nch, s_rows, nbins, ntaps, rank, nbl, n_groups,
+            per, MEAN_PARTS, quant_step, stream)
     check(lib, rc, "fx_fused_i8 kernel launch")
-    fx_fused_raw_i8.launches += 1
+    _count(fx_fused_raw_i8, rank)
     return xp, _i8_history(x, ntaps, mu)
 
 
 fx_fused_raw_i8.launches = 0
+fx_fused_raw_i8.svd_launches = 0

@@ -17,7 +17,7 @@ from typing import Optional, Tuple
 import torch
 
 __all__ = ["dc_remove", "dequantize", "zero_history", "frame_rows",
-           "pfb_fir", "spectrometer_rows", "spectrometer"]
+           "pfb_fir", "svd_fir", "spectrometer_rows", "spectrometer"]
 
 
 def dc_remove(iq: torch.Tensor) -> torch.Tensor:
@@ -62,13 +62,34 @@ def pfb_fir(xp: torch.Tensor, window2d: torch.Tensor) -> torch.Tensor:
     return acc
 
 
+def svd_fir(xp: torch.Tensor, u: torch.Tensor, v: torch.Tensor
+            ) -> torch.Tensor:
+    """The FIR through the window's rank-r factors ``u [ntaps, r]``, ``v
+    [r, nbins]`` (``ops.svd_fir``), computed literally: per rank the
+    scalar-tap convolution ``c_k[..., f, b] = sum_t u[t, k] * xp[...,
+    f+t, b]`` summed in tap order, then ``sum_k v[k, b] * c_k`` in rank
+    order (not ``u @ v`` taken as a window, which rounds differently)."""
+    ntaps, r = u.shape
+    s = xp.shape[-2] - ntaps + 1
+    col = (r,) + (1,) * xp.ndim
+    c = u[0].reshape(col) * xp[..., 0:s, :]            # [r, ..., s, nbins]
+    for t in range(1, ntaps):
+        c = c + u[t].reshape(col) * xp[..., t:t + s, :]
+    acc = v[0] * c[0]
+    for k in range(1, r):
+        acc = acc + v[k] * c[k]
+    return acc
+
+
 def spectrometer_rows(rows: torch.Tensor, window2d: torch.Tensor,
-                      history: Optional[torch.Tensor] = None
+                      history: Optional[torch.Tensor] = None,
+                      svd: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Streaming PFB on pre-framed, already DC-corrected rows
     ``[..., S, nbins]`` -> ``(spectra [..., S, nbins], new_history)``.
     ``history`` is the previous block's DC-corrected tail (zeros at
-    stream start)."""
+    stream start).  ``svd=(u, v)`` runs the FIR through the window's
+    factors (:func:`svd_fir`) instead of the tap loop over ``window2d``."""
     ntaps, nbins = window2d.shape
     batch = rows.shape[:-2]
     if ntaps == 1:
@@ -81,7 +102,8 @@ def spectrometer_rows(rows: torch.Tensor, window2d: torch.Tensor,
                                    rows.dtype)
         xp = torch.cat([history.to(rows.dtype), rows], dim=-2)
         new_history = xp[..., -(ntaps - 1):, :]
-    return torch.fft.fft(pfb_fir(xp, window2d), dim=-1), new_history
+    fir = pfb_fir(xp, window2d) if svd is None else svd_fir(xp, *svd)
+    return torch.fft.fft(fir, dim=-1), new_history
 
 
 def spectrometer(x: torch.Tensor, window2d: torch.Tensor, nbins: int,

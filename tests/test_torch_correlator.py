@@ -5,7 +5,8 @@ and the options it does not carry yet.
 
 Tolerances: CSV rows within 2e-5*scale (fxtpu's fused-against-unfused
 bound, tests/test_planes.py:318-321), 3e-5*scale under int8 ingest
-(fxtpu's int8-native bound, tests/test_planes.py:558), delays within 0.01
+(fxtpu's int8-native bound, tests/test_planes.py:558) and at deep taps
+(the SVD-FIR mode, tests/test_planes.py:485), delays within 0.01
 sample."""
 
 import os
@@ -17,6 +18,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 torch.set_num_threads(2)
+pytest.importorskip("jax")   # the reference; absent on the card's machine
 
 from fxtpu.config import CorrelatorConfig as JConfig  # noqa: E402
 from fxtpu.correlator import Correlator as JCorrelator  # noqa: E402
@@ -114,6 +116,37 @@ def test_int8_replay_run_matches_fxtpu(tmp_path, fused):
     np.testing.assert_allclose(got, want, atol=3e-5 * np.abs(want).max())
 
 
+@pytest.mark.parametrize("ingest", ["complex64", "int8"])
+def test_deep_tap_fused_replay_run_matches_fxtpu(tmp_path, ingest):
+    """The deep-tap path as a whole: 32 taps, fused route in both
+    Correlators on the CPU (fxtpu's SVD-FIR kernel in interpret mode, the
+    port's SVD-FIR plain version), 4 recorded blocks: 1 consumed by
+    calibrate-on-start, 3 correlated."""
+    src = NoiseSource(nchan=2, delays=[0.0, 2e-6], seed=33)
+    rec = save_recording(src, str(tmp_path / "rec.npy"), SMALL["num_samp"], 4)
+    common = dict(SMALL, mode="SPECTRUM", source="replay", replay_file=rec,
+                  ntaps=32, fused=True, ingest_dtype=ingest)
+    jcor = JCorrelator(config=JConfig(
+        **common, output_file=str(tmp_path / "jax.csv")))
+    jcor.run_state_machine()
+    tcor = Correlator(config=CorrelatorConfig(
+        **common, output_file=str(tmp_path / "torch.csv"), device="cpu"))
+    tcor.run_state_machine()
+    assert tcor.blocks_processed == jcor.blocks_processed == 3
+    assert jcor.engine.fused_active and tcor.engine.fused_active
+    assert tcor.engine.fir_mode == "svd" and not tcor.engine.kernel_active
+    assert tcor.engine.int8_native == jcor.engine.int8_native == (
+        ingest == "int8")
+    _, want = load_products(jcor.output_file)
+    _, got = load_products(tcor.output_file)
+    assert got.shape == want.shape == (3, SMALL["nbins"])
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, atol=3e-5 * np.abs(want).max())
+    bw = tcor.bandwidth
+    np.testing.assert_allclose(tcor.calibrated_delays * bw,
+                               jcor.calibrated_delays * bw, atol=0.01)
+
+
 def test_cli_runs_end_to_end_on_cpu(tmp_path):
     out = str(tmp_path / "vis.csv")
     cor = cli_main(["--time", "1", "--mode", "spectrum", "--num_samp",
@@ -146,9 +179,27 @@ def test_cli_int8_runs_end_to_end_on_cpu(tmp_path):
     assert np.std(np.unwrap(np.angle(data.mean(axis=0)[inner]))) < 0.35
 
 
+def test_cli_deep_taps_runs_end_to_end_on_cpu(tmp_path):
+    """``--ntaps 32`` through the CLI (the plain route on the CPU)."""
+    out = str(tmp_path / "vis.csv")
+    cor = cli_main(["--time", "1", "--mode", "spectrum", "--num_samp",
+                    "16384", "--resolution", "256", "--ntaps", "32",
+                    "--true_delay", "2e-6", "--no_keyboard", "--omit_plot",
+                    "--output", out, "--device", "cpu", "-L", "WARNING"])
+    assert cor.config.ntaps == 32 and not cor.engine.kernel_active
+    assert abs(cor.calibrated_delays[1] - 2e-6) * 2.4e6 < 0.5
+    data = np.atleast_2d(np.loadtxt(out, dtype=np.complex128, delimiter=",",
+                                    skiprows=2))
+    assert data.shape == (cor.blocks_processed, 256)
+    assert cor.blocks_processed >= 1 and np.isfinite(data).all()
+    inner = slice(256 // 4, 3 * 256 // 4)
+    assert np.std(np.unwrap(np.angle(data.mean(axis=0)[inner]))) < 0.3
+
+
 def test_port_never_imports_jax():
     code = ("import sys, fxtpu_torch.cli, fxtpu_torch.correlator, "
-            "fxtpu_torch.ops, fxtpu_torch.post_process; "
+            "fxtpu_torch.ops, fxtpu_torch.ops.spectrometer, "
+            "fxtpu_torch.ops.svd_fir, fxtpu_torch.post_process; "
             "sys.exit(1 if 'jax' in sys.modules else 0)")
     env = dict(os.environ, PYTHONPATH=REPO)
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,

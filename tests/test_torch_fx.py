@@ -7,8 +7,8 @@ between the packages.
 
 Tolerance: 2e-5*scale, fxtpu's fused-against-unfused bound
 (tests/test_planes.py:318-321), and 3e-5*scale on the int8-native fused
-route, fxtpu's own bound there (tests/test_planes.py:558); delays within
-0.01 sample."""
+route and at deep taps (the SVD-FIR mode), fxtpu's own bounds there
+(tests/test_planes.py:558 and :485); delays within 0.01 sample."""
 
 import numpy as np
 import pytest
@@ -16,7 +16,7 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(2)
 
-import jax.numpy as jnp  # noqa: E402
+jnp = pytest.importorskip("jax.numpy")   # absent on the card's machine
 
 from fxtpu.config import CorrelatorConfig as JConfig  # noqa: E402
 from fxtpu.fx import FxEngine as JEngine  # noqa: E402
@@ -24,7 +24,8 @@ from fxtpu.ops.cplx import to_complex  # noqa: E402
 from fxtpu.ops.planes import pack_delays  # noqa: E402
 from fxtpu.sources import NoiseSource  # noqa: E402
 from fxtpu_torch.config import CorrelatorConfig  # noqa: E402
-from fxtpu_torch.fx import FxEngine, _resolve_fused, make_fx_step  # noqa: E402
+from fxtpu_torch.fx import (FxEngine, _resolve_fused, _svd_mode,  # noqa: E402
+                            make_fx_step)
 
 SMALL = dict(num_samp=2**13, nbins=256, clamp_num_samp=False)
 
@@ -272,6 +273,68 @@ def test_route_resolution():
     assert not plain.kernel_active and not plain.fused_active
     fused = FxEngine(CorrelatorConfig(**SMALL, device="cpu"), fused=True)
     assert fused.fused_active and not fused.kernel_active
+
+
+@pytest.mark.parametrize("ingest", ["complex64", "int8"])
+def test_deep_tap_step_matches_fxtpu_three_chained_blocks(ingest):
+    """32 taps, fused=True in both packages: both run the SVD-FIR mode
+    (fxtpu its Pallas kernel in interpret mode, the port the plain
+    version), over 3 chained blocks from a fresh history."""
+    kw = dict(SMALL, mode="SPECTRUM", ntaps=32, ingest_dtype=ingest,
+              quant_step=STEP)
+    jeng = JEngine(JConfig(**kw), fused=True)
+    teng = FxEngine(CorrelatorConfig(**kw, device="cpu"), fused=True)
+    assert jeng.fused_active and teng.fused_active and not teng.kernel_active
+    assert teng.fir_mode == "svd"
+    int8 = ingest == "int8"
+    assert teng.int8_native == jeng.int8_native == int8
+    blocks = (_int8_blocks(seed=29) if int8 else
+              [b + (0.02 - 0.01j) for b in _blocks(2, seed=28)])
+    jh, th = jeng.fresh_history(), teng.fresh_history()
+    for k, x in enumerate(blocks):
+        d = pack_delays(np.array([0.0, 1.3e-6 + 1e-7 * k]),
+                        jeng.cfg.frequency)
+        jv, jh = jeng.step(jeng.prepare_block(x), jnp.asarray(d), jh)
+        tv, th = teng.step(teng.prepare_block(x), torch.from_numpy(d), th)
+        want = to_complex(jv)
+        np.testing.assert_allclose(tv.numpy(), want,
+                                   atol=3e-5 * np.abs(want).max(),
+                                   err_msg=f"block {k}")
+        if int8:
+            np.testing.assert_array_equal(th["tail"].numpy(), _i8_tail(jh))
+            np.testing.assert_allclose(th["mu_prev"].numpy(),
+                                       to_complex(jh["mu_prev"]), atol=1e-7)
+        else:
+            np.testing.assert_allclose(th.numpy(), to_complex(jh),
+                                       atol=1e-6)
+
+
+def test_fir_mode_resolution():
+    """SVD where the window factorises (as fxtpu decides), the direct loop
+    elsewhere and on the plain route."""
+    from fxtpu.fx import _deep_svd_applies
+    from fxtpu_torch.ops.window import pfb_window
+    windows = {
+        "pfb32": (pfb_window(32, 256).reshape(32, 256), True),
+        "pfb4": (pfb_window(4, 256).reshape(4, 256), False),
+        "random32": (np.random.default_rng(3).normal(size=(32, 256)), False),
+    }
+    for name, (w, svd) in windows.items():
+        assert (_svd_mode(w, 256, "cpu") is not None) == svd, name
+        assert _deep_svd_applies(w, 256) == svd, name
+    for ntaps, fused, mode in ((32, True, "svd"), (16, True, "svd"),
+                               (4, True, "direct"), (32, False, "direct")):
+        for ingest in ("complex64", "int8"):
+            cfg = CorrelatorConfig(**SMALL, ntaps=ntaps, device="cpu",
+                                   ingest_dtype=ingest)
+            assert FxEngine(cfg, fused=fused).fir_mode == mode
+    # a rank above the kernel's bound: fused=True raises, 'auto' is plain
+    cuda = torch.device("cuda")
+    with pytest.raises(ValueError, match="rank=17"):
+        _resolve_fused(True, cuda, 256, 32, 2, rank=17)
+    assert not _resolve_fused("auto", cuda, 256, 32, 2, rank=17)
+    assert _resolve_fused("auto", cuda, 8192, 32, 2, rank=6)
+    assert not _resolve_fused("auto", cuda, 8192, 32, 3, rank=6)
 
 
 def test_cuda_engine_without_card_raises():

@@ -6,11 +6,13 @@ Quantized samples are integers, so everything is compared exactly."""
 import numpy as np
 import pytest
 
-from fxtpu import sources as jsources
-from fxtpu.runtime import native as jnative
-from fxtpu_torch import sources as tsources
-from fxtpu_torch.config import CorrelatorConfig
-from fxtpu_torch.runtime import native as tnative
+pytest.importorskip("jax")   # the reference; absent on the card's machine
+
+from fxtpu import sources as jsources  # noqa: E402
+from fxtpu.runtime import native as jnative  # noqa: E402
+from fxtpu_torch import sources as tsources  # noqa: E402
+from fxtpu_torch.config import CorrelatorConfig  # noqa: E402
+from fxtpu_torch.runtime import native as tnative  # noqa: E402
 
 STEP = 1.0 / 32
 
