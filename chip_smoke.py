@@ -6,10 +6,12 @@ Run from the repository root on a machine with one NVIDIA card:
     python3 chip_smoke.py
 
 Shapes: the flagship (the CLI defaults: 2 channels, 2^18-sample blocks,
-4096 bins, 4 taps) and the wideband configuration of ``bench.py``
+4096 bins, 4 taps), the wideband configuration of ``bench.py``
 (``wideband`` / ``wideband_int8``: 2 channels, 2^21-sample blocks, 8192
 bins, 32 taps, where the fused step's FIR runs through the window's
-rank-6 factors, the SVD-FIR mode).
+rank-6 factors, the SVD-FIR mode), the CLI's deep-tap block (2 x 2^18
+samples at 8192 bins and 32 taps) and ``bench.py``'s ``bench_pipeline``
+(2 channels, 2^21-sample blocks, 4096 bins, 8 blocks per dispatch).
 
 Phases (any failure raises and exits non-zero, with no ``ok`` line):
 
@@ -28,18 +30,29 @@ Phases (any failure raises and exits non-zero, with no ``ok`` line):
    8-bit samples the raw tail exact and ``mu_prev`` within 1e-6 max|mu|;
    the spectrometer (``spectrometer``) at nbins=256 with 4 taps (a ragged
    tail) and 1 tap and at the flagship: spectra within 5e-6 max|spec|
-   (``tests/test_planes.py:301``), history within 1e-6;
+   (``tests/test_planes.py:301``), history within 1e-6; the K-block
+   entries (``fx_fused_multi``, ``fx_fused_i8_multi``) over 2 chained
+   launches in both FIR modes, K = 3 at nbins=256 (4 and 32 taps), K = 8
+   at the flagship and K = 2 at the wideband shape: within 2e-5
+   max|xp_ref| of their plain versions (3e-5 in the SVD mode) with the
+   history bounds above, and bit for bit the K one-block launches;
 3. the main path, ``fxtpu_torch.cli.main`` for 3 s on the card, at the
    CLI defaults and at ``--resolution 8192 --ntaps 32`` (the deep-tap
    path), each with complex64 ingest and with ``--ingest int8`` (int8
-   rings), each with every launch count set to 0 just before and read
-   just after: the run's kernel entry ran once per correlated block and
-   no other at all, the engine's ``fir_mode`` is the run's (``direct``,
-   ``svd``), the calibration recovered the injected 2 us delay within 0.5
-   sample, the calibrated in-band phase is flat (std < 0.3 rad, 0.35
-   under int8) and the CSV loads with the reference recipe; then the
-   F-stage entry ``spectrometer_fused``, which no main path calls, over 3
-   chained flagship blocks, counted the same way;
+   rings), then at the defaults with ``--blocks_per_dispatch 8`` (the
+   staged path) in both ingests, each with every launch count set to 0
+   just before and read just after: the run's kernel entry ran once per
+   correlated block (at K = 8: K-block launches x 8 + one-block launches
+   = blocks) and no other at all, the engine's ``fir_mode`` is the run's
+   (``direct``, ``svd``), the calibration recovered the injected 2 us
+   delay within 0.5 sample, the calibrated in-band phase is flat (std <
+   0.3 rad, 0.35 under int8) and the CSV loads with the reference recipe;
+   then ``bench_pipeline``'s configuration through the Correlator
+   (looping replay, CONTINUUM, ``buffer_chunks`` 32) for 4 s at K = 8 and
+   at K = 1 in each ingest, counted the same way, under a CUDA-only
+   ``torch.profiler`` trace for the device's busy share; then the F-stage
+   entry ``spectrometer_fused``, which no main path calls, over 3 chained
+   flagship blocks;
 4. times (CUDA events, median of 2 x n calls after warm-up, in turns): at
    the flagship each direct-loop kernel against its plain version, the
    engine step on either route for both ingests, the host-to-device copy
@@ -47,9 +60,14 @@ Phases (any failure raises and exits non-zero, with no ``ok`` line):
    against its plain version; at the wideband shape the SVD-FIR kernel,
    the direct-loop kernel and both plain versions for each ingest, the
    engine step on either route (the kernel route in the SVD mode) and one
-   block's copy.
+   block's copy; per block, one K = 8 launch against 8 one-block launches
+   and the plain version at the flagship and at the CLI's deep-tap block
+   (SVD), ``multi_step`` against ``step`` at the flagship, and 8 blocks'
+   copy through a pinned buffer on a side stream against 8 pageable
+   copies.
 
-It prints one JSON line of kernel results, then, as the last line,
+It prints one JSON line of kernel results (for the K-block entries every
+time per block, at K = 8), then, as the last line,
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -68,6 +86,17 @@ SMALL = dict(nch=3, nsamp=32 * 256, nbins=256, ntaps=4, autos=True)
 # bench.py's wideband configuration at its full width
 WIDEBAND = dict(nch=2, nsamp=2**21, nbins=8192, ntaps=32, autos=False)
 SMALL_DEEP = dict(nch=3, nsamp=64 * 256, nbins=256, ntaps=32, autos=True)
+# the CLI's block at --resolution 8192 --ntaps 32 (the reference's clamp)
+DEEP_CLI = dict(nch=2, nsamp=2**18, nbins=8192, ntaps=32, autos=False)
+MULTI_K = 8          # blocks per dispatch of the CLI runs and the pipeline
+# (shape, K, FIR mode) of the K-block entries' checks in phase 2
+MULTI_CASES = ((SMALL, 3, "direct"), (FLAGSHIP, MULTI_K, "direct"),
+               (WIDEBAND, 2, "direct"), (SMALL_DEEP, 3, "svd"),
+               (WIDEBAND, 2, "svd"))
+# bench.py's bench_pipeline at its defaults, run for PIPELINE_S seconds
+PIPELINE = dict(mode="CONTINUUM", nchan=2, num_samp=2**21, nbins=4096,
+                buffer_chunks=4 * MULTI_K)
+PIPELINE_S = 4
 SPEC_CASES = (dict(nch=3, nsamp=32 * 256 + 100, nbins=256, ntaps=4),
               dict(nch=3, nsamp=32 * 256, nbins=256, ntaps=1),
               dict(nch=2, nsamp=2**18, nbins=4096, ntaps=4))
@@ -77,6 +106,7 @@ SPEC_TOL = 5e-6      # spectra, relative to max|spec_ref| (test_planes:301)
 HIST_TOL = 1e-6      # history, absolute
 MU_TOL = 1e-6        # int8 mu_prev, relative to max|mu_ref|
 STEP = 1.0 / 32      # quant_step of 8-bit samples, the CLI default
+TRUE_DELAY = 2e-6    # the delay the CLI runs inject (--true_delay)
 SOURCE = "fxtpu_torch/csrc/fx_fused.cu"
 # entry -> the TPU kernel (or mode of it) it replaces
 REPLACES = {
@@ -85,6 +115,8 @@ REPLACES = {
     "fx_fused_svd": "fxtpu/ops/pfb_pallas.py:810",
     "fx_fused_i8_svd": "fxtpu/ops/pfb_pallas.py:831",
     "spectrometer": "fxtpu/ops/pfb_pallas.py:133",
+    "fx_fused_multi": "fxtpu/ops/pfb_pallas.py:1669",
+    "fx_fused_i8_multi": "fxtpu/ops/pfb_pallas.py:1669",
 }
 
 
@@ -104,21 +136,26 @@ def nvcc_version() -> str:
 
 
 def reset_counts():
-    from fxtpu_torch.ops.fx_fused import fx_fused_raw, fx_fused_raw_i8
+    from fxtpu_torch.ops import fx_fused
     from fxtpu_torch.ops.spectrometer import spectrometer_fused
-    for fn in (fx_fused_raw, fx_fused_raw_i8):
+    for fn in (fx_fused.fx_fused_raw, fx_fused.fx_fused_raw_i8,
+               fx_fused.fx_fused_raw_multi, fx_fused.fx_fused_raw_i8_multi):
         fn.launches = fn.svd_launches = 0
     spectrometer_fused.launches = 0
 
 
 def read_counts() -> dict:
-    from fxtpu_torch.ops.fx_fused import fx_fused_raw, fx_fused_raw_i8
+    from fxtpu_torch.ops import fx_fused
     from fxtpu_torch.ops.spectrometer import spectrometer_fused
-    return {"fx_fused": fx_fused_raw.launches,
-            "fx_fused_svd": fx_fused_raw.svd_launches,
-            "fx_fused_i8": fx_fused_raw_i8.launches,
-            "fx_fused_i8_svd": fx_fused_raw_i8.svd_launches,
-            "spectrometer": spectrometer_fused.launches}
+    counts = {}
+    for name, fn in (("fx_fused", fx_fused.fx_fused_raw),
+                     ("fx_fused_i8", fx_fused.fx_fused_raw_i8),
+                     ("fx_fused_multi", fx_fused.fx_fused_raw_multi),
+                     ("fx_fused_i8_multi", fx_fused.fx_fused_raw_i8_multi)):
+        counts[name] = fn.launches
+        counts[name + "_svd"] = fn.svd_launches
+    counts["spectrometer"] = spectrometer_fused.launches
+    return counts
 
 
 def window_and_fir(case, fir, device):
@@ -249,6 +286,111 @@ def compare_kernel_i8(case, device, fir):
     return abs_err, rel_err
 
 
+def merged_batch(case, k, rng, device, int8):
+    """K blocks of numpy-seeded samples in the merged layout ``[nch, K,
+    S, nbins]`` complex64 (int8: ``[nch, K, S, nbins, 2]``), with a DC
+    offset that differs per channel and block (so each block's own mean
+    matters)."""
+    import torch
+    nch, nbins = case["nch"], case["nbins"]
+    s = case["nsamp"] // nbins
+    grade = np.arange(1, nch + 1)[:, None] * np.arange(1, k + 1)[None, :]
+    if int8:
+        dc = np.array([3.0, -2.0]) * grade[..., None]
+        x = np.clip(np.rint(30 * rng.normal(size=(nch, k, s, nbins, 2))
+                            + dc[:, :, None, None]), -127, 127)
+        return torch.as_tensor(x.astype(np.int8), device=device)
+    x = (rng.normal(size=(nch, k, s, nbins))
+         + 1j * rng.normal(size=(nch, k, s, nbins))
+         + (0.3 - 0.2j) * grade[..., None, None])
+    return torch.as_tensor(x.astype(np.complex64), device=device)
+
+
+def fresh_history(case, device, int8):
+    import torch
+    nch, ntaps, nbins = case["nch"], case["ntaps"], case["nbins"]
+    if int8:
+        return {"tail": torch.zeros((nch, ntaps - 1, nbins, 2),
+                                    dtype=torch.int8, device=device),
+                "mu_prev": torch.zeros((nch,), dtype=torch.complex64,
+                                       device=device)}
+    return torch.zeros((nch, ntaps - 1, nbins), dtype=torch.complex64,
+                       device=device)
+
+
+def multi_entries(int8):
+    """(K-block wrapper, its plain version, the one-block wrapper)."""
+    from fxtpu_torch.ops import fx_fused as ff
+    if int8:
+        return (ff.fx_fused_raw_i8_multi, ff.fx_fused_raw_i8_multi_reference,
+                ff.fx_fused_raw_i8)
+    return (ff.fx_fused_raw_multi, ff.fx_fused_raw_multi_reference,
+            ff.fx_fused_raw)
+
+
+def same_history(a, b):
+    import torch
+    if isinstance(a, dict):
+        return all(torch.equal(a[key], b[key]) for key in a)
+    return torch.equal(a, b)
+
+
+def compare_multi(case, k, device, fir, int8):
+    """Phase 2 for a K-block entry: two chained K-block launches against
+    the plain version (xp within 2e-5 max|xp_ref|, 3e-5 in the SVD mode;
+    history as for the one-block entries) and against K chained one-block
+    launches, bit for bit.  Returns (max abs err, max rel err) of xp."""
+    import torch
+
+    from fxtpu_torch.ops import baseline_pairs, pairs_tensor
+    multi, ref, single = multi_entries(int8)
+    w, svd = window_and_fir(case, fir, device)
+    pairs = pairs_tensor(baseline_pairs(case["nch"], case["autos"]),
+                         case["nch"], device)
+    arg = (STEP,) if int8 else ()
+    tol = DEEP_TOL if fir == "svd" else REL_TOL
+    rng = np.random.default_rng(2468)
+    hk = hr = hs = fresh_history(case, device, int8)
+    abs_err = rel_err = 0.0
+    for call in range(2):
+        x = merged_batch(case, k, rng, device, int8)
+        xk, hk = multi(x, hk, w, pairs, *arg, svd)
+        xr, hr = ref(x, hr, w, pairs, *arg, svd)
+        xs = []
+        for j in range(k):
+            xj, hs = single(x[:, j].contiguous(), hs, w, pairs, *arg, svd)
+            xs.append(xj)
+        torch.cuda.synchronize()
+        if not torch.isfinite(torch.view_as_real(xk)).all():
+            raise AssertionError(f"non-finite K-block output at {case}")
+        err = (xk - xr).abs().max().item()
+        scale = xr.abs().max().item()
+        if int8:
+            mu_err = (hk["mu_prev"] - hr["mu_prev"]).abs().max().item()
+            hist_ok = (torch.equal(hk["tail"], hr["tail"]) and mu_err
+                       <= MU_TOL * hr["mu_prev"].abs().max().item())
+            hdesc = f"tail exact, mu err {mu_err:.3g}" if hist_ok else "bad"
+        else:
+            herr = (hk - hr).abs().max().item()
+            hist_ok = herr <= HIST_TOL
+            hdesc = f"history err {herr:.3g}"
+        bitwise = (xk.shape == (k, len(pairs), case["nbins"])
+                   and torch.equal(xk, torch.stack(xs))
+                   and same_history(hk, hs))
+        print(f"  call {call} (K={k}): max|xp_k - xp_ref| = {err:.6g} "
+              f"({err / scale:.3g} of max|xp_ref| = {scale:.6g}), {hdesc}, "
+              f"= {k} one-block launches bit for bit: {bitwise}",
+              flush=True)
+        if err > tol * scale or not hist_ok or not bitwise:
+            raise AssertionError(
+                f"K-block entry disagrees at {case}, K={k} ({fir}, int8 "
+                f"{int8}): xp {err / scale:.3g} > {tol}, history ok "
+                f"{hist_ok}, bit for bit {bitwise}")
+        abs_err = max(abs_err, err)
+        rel_err = max(rel_err, err / scale)
+    return abs_err, rel_err
+
+
 def make_spec_case(case, rng, device):
     """Window and 3 blocks [nch, nsamp] (nsamp need not be a multiple of
     nbins) with a DC offset per channel, and the fresh history."""
@@ -300,44 +442,42 @@ def compare_spectrometer(case, device):
     return abs_err, rel_err
 
 
-def run_main_path(tmpdir, ingest, deep):
-    """Phase 3: the CLI on the card at one ingest dtype and depth, with
-    the launch counts of the run: its kernel entry once per block, every
-    other entry not at all.  Returns (entry name, its launches)."""
+def run_cli(tmpdir, name, ingest, extra=()):
+    """``fxtpu_torch.cli.main`` for 3 s on the card with every launch
+    count set to 0 just before and read just after -> (Correlator, CSV
+    path, counts)."""
     from fxtpu_torch.cli import main as cli_main
-    from fxtpu_torch.products import load_products
-    int8 = ingest == "int8"
-    name = ("fx_fused_i8" if int8 else "fx_fused") + ("_svd" if deep else "")
     out = os.path.join(tmpdir, f"vis_{name}.csv")
-    true_delay = 2e-6
-    shape = ["--resolution", "8192", "--ntaps", "32"] if deep else []
     reset_counts()
     cor = cli_main(["--time", "3", "--mode", "spectrum", "--true_delay",
-                    str(true_delay), "--ingest", ingest, "--no_keyboard",
+                    str(TRUE_DELAY), "--ingest", ingest, "--no_keyboard",
                     "--omit_plot", "--output", out, "--device", "cuda",
-                    *shape])
+                    *extra])
     counts = read_counts()
-    cfg = cor.config
     eng = cor.engine
     print(f"  blocks processed {cor.blocks_processed}, launches {counts}, "
           f"kernel_active {eng.kernel_active}, int8_native "
-          f"{eng.int8_native}, fir_mode {eng.fir_mode}, rings "
-          f"{cor.bufs[0].dtype} {cor.bufs[0].block_shape}, nbins "
-          f"{cfg.nbins}, ntaps {cfg.ntaps}", flush=True)
-    if not eng.kernel_active or eng.int8_native != int8:
+          f"{eng.int8_native}, fir_mode {eng.fir_mode}, staged "
+          f"{cor.stager is not None}, rings {cor.bufs[0].dtype} "
+          f"{cor.bufs[0].block_shape}, nbins {cor.config.nbins}, ntaps "
+          f"{cor.config.ntaps}", flush=True)
+    if not eng.kernel_active or eng.int8_native != (ingest == "int8"):
         raise AssertionError("the CLI run did not take the kernel route")
-    if eng.fir_mode != ("svd" if deep else "direct"):
-        raise AssertionError(f"fir_mode {eng.fir_mode} in the {name} run")
-    if int8 and not (cor.bufs[0].dtype == np.int8
-                     and cor.bufs[0].block_shape == (cfg.num_samp, 2)):
+    if ingest == "int8" and not (
+            cor.bufs[0].dtype == np.int8
+            and cor.bufs[0].block_shape == (cor.config.num_samp, 2)):
         raise AssertionError("the int8 run's rings are not int8")
-    others = {k: v for k, v in counts.items() if k != name}
-    if not (counts[name] == cor.blocks_processed >= 3) or any(
-            others.values()):
-        raise AssertionError(
-            f"launches {counts} do not match blocks_processed "
-            f"{cor.blocks_processed} of {name} (or fewer than 3 blocks)")
-    err_samples = abs(cor.calibrated_delays[1] - true_delay) * cfg.bandwidth
+    return cor, out, counts
+
+
+def check_products(cor, out, name):
+    """The CLI run's science: the calibration recovered the injected
+    delay, the CSV loads with the reference recipe, one finite row per
+    block, and the calibrated in-band phase is flat."""
+    from fxtpu_torch.products import load_products
+    cfg = cor.config
+    int8 = cfg.ingest_dtype == "int8"
+    err_samples = abs(cor.calibrated_delays[1] - TRUE_DELAY) * cfg.bandwidth
     print(f"  calibration error {err_samples:.4f} samples", flush=True)
     if not err_samples < 0.5:
         raise AssertionError(f"calibration error {err_samples} >= 0.5")
@@ -360,7 +500,138 @@ def run_main_path(tmpdir, ingest, deep):
     print(f"  [{name}] steady state: {rates['blocks_per_s']:.4f} "
           f"blocks/s, {rates['samples_per_s'] / 1e6:.4f} Msamp/s over "
           f"{rates['elapsed_s']:.3f} s; {cor.metrics.report()}", flush=True)
+
+
+def run_main_path(tmpdir, ingest, deep):
+    """Phase 3: the CLI on the card at one ingest dtype and depth, with
+    the launch counts of the run: its kernel entry once per block, every
+    other entry not at all.  Returns (entry name, its launches)."""
+    name = ("fx_fused_i8" if ingest == "int8" else "fx_fused") + (
+        "_svd" if deep else "")
+    shape = ["--resolution", "8192", "--ntaps", "32"] if deep else []
+    cor, out, counts = run_cli(tmpdir, name, ingest, shape)
+    if cor.engine.fir_mode != ("svd" if deep else "direct"):
+        raise AssertionError(f"fir_mode {cor.engine.fir_mode} in the {name} "
+                             "run")
+    others = {k: v for k, v in counts.items() if k != name}
+    if not (counts[name] == cor.blocks_processed >= 3) or any(
+            others.values()):
+        raise AssertionError(
+            f"launches {counts} do not match blocks_processed "
+            f"{cor.blocks_processed} of {name} (or fewer than 3 blocks)")
+    check_products(cor, out, name)
     return name, counts[name]
+
+
+def run_staged_main_path(tmpdir, ingest):
+    """Phase 3, the staged path: the CLI at ``--blocks_per_dispatch 8``:
+    the K-block entry once per staged batch, the one-block entry once per
+    tail block, every other entry not at all, and K-block launches x 8 +
+    one-block launches = blocks.  Returns (K-block entry, its launches)."""
+    single = "fx_fused_i8" if ingest == "int8" else "fx_fused"
+    name = single + "_multi"
+    cor, out, counts = run_cli(tmpdir, name, ingest, [
+        "--blocks_per_dispatch", str(MULTI_K)])
+    if cor.stager is None or cor.engine.fir_mode != "direct":
+        raise AssertionError("the staged run did not start its stager")
+    others = {k: v for k, v in counts.items() if k not in (name, single)}
+    if not (counts[name] >= 1 and counts[name] * MULTI_K + counts[single]
+            == cor.blocks_processed) or any(others.values()):
+        raise AssertionError(
+            f"launches {counts} do not account for blocks_processed "
+            f"{cor.blocks_processed} at K = {MULTI_K} (or no K-block launch)")
+    check_products(cor, out, name)
+    return name, counts[name]
+
+
+def device_busy(prof, path):
+    """(busy ms, kernel ms, copy ms, first-to-last span ms) of the device
+    in a ``torch.profiler`` trace: the union of its kernels', copies' and
+    memsets' spans, and the sums of each."""
+    prof.export_chrome_trace(path)
+    with open(path) as fh:
+        events = json.load(fh)["traceEvents"]
+    spans, kern, copy = [], 0.0, 0.0
+    for e in events:
+        if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"):
+            spans.append((e["ts"], e["ts"] + e["dur"]))
+            if e["cat"] == "kernel":
+                kern += e["dur"]
+            elif e["cat"] == "gpu_memcpy":
+                copy += e["dur"]
+    if not spans:
+        raise AssertionError("the profiler saw no device work")
+    spans.sort()
+    busy, (lo, hi) = 0.0, spans[0]
+    first = lo
+    for a, b in spans[1:]:
+        if a > hi:
+            busy += hi - lo
+            lo, hi = a, b
+        else:
+            hi = max(hi, b)
+    busy += hi - lo
+    last = max(b for _, b in spans)
+    return busy / 1e3, kern / 1e3, copy / 1e3, (last - first) / 1e3
+
+
+def run_pipeline(tmpdir, rec, ingest, k):
+    """Phase 3: ``bench_pipeline``'s configuration through the Correlator
+    at K blocks per dispatch for PIPELINE_S seconds (looping replay),
+    counted like the CLI runs, under a CUDA-only profiler trace.  Returns
+    a dict of its rates and device times."""
+    import torch
+
+    from fxtpu_torch.config import CorrelatorConfig
+    from fxtpu_torch.correlator import Correlator
+    from fxtpu_torch.products import load_products
+    single = "fx_fused_i8" if ingest == "int8" else "fx_fused"
+    out = os.path.join(tmpdir, f"pipe_{ingest}_{k}.csv")
+    cfg = CorrelatorConfig(
+        **PIPELINE, run_time=PIPELINE_S, clamp_num_samp=False,
+        loglevel="WARNING", source="replay", replay_file=rec,
+        blocks_per_dispatch=k, ingest_dtype=ingest, device="cuda",
+        output_file=out)
+    cor = Correlator(config=cfg)
+    getattr(cor.source, "inner", cor.source).loop = True
+    reset_counts()
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        cor.run_state_machine()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    counts = read_counts()
+    n = cor.blocks_processed
+    multi = counts[single + "_multi"]
+    others = {c: v for c, v in counts.items()
+              if c not in (single, single + "_multi")}
+    if (n < 2 * k or multi * k + counts[single] != n or any(others.values())
+            or (k > 1) != (multi > 0) or (cor.stager is None) != (k == 1)):
+        raise AssertionError(f"pipeline {ingest} K={k}: launches {counts} "
+                             f"against {n} blocks")
+    md, data = load_products(out)
+    if (data.shape[0] != n or not np.isfinite(data).all()
+            or md["mode"] != "CONTINUUM"):
+        raise AssertionError(f"pipeline CSV {data.shape} for {n} blocks")
+    busy, kern, copy, span = device_busy(
+        prof, os.path.join(tmpdir, f"trace_{ingest}_{k}.json"))
+    r = cor.metrics.rates(since="steady", until="end")
+    res = {"k": k, "blocks": n, "blocks_per_s": r["blocks_per_s"],
+           "msamp_per_s": r["samples_per_s"] / 1e6,
+           "steady_s": r["elapsed_s"], "wall_s": wall,
+           "device_busy_ms": busy, "busy_share": busy / (wall * 1e3),
+           "kernel_ms_per_block": kern / n, "copy_ms_per_block": copy / n,
+           "device_span_ms": span, "launches": counts}
+    print(f"  pipeline {ingest} K={k}: {n} blocks, "
+          f"{res['blocks_per_s']:.4f} blocks/s, "
+          f"{res['msamp_per_s']:.4f} Msamp/s steady over "
+          f"{r['elapsed_s']:.3f} s; device busy {busy:.3f} ms of "
+          f"{wall:.3f} s ({100 * res['busy_share']:.4f}%), kernels "
+          f"{res['kernel_ms_per_block']:.4f} ms/block, copies "
+          f"{res['copy_ms_per_block']:.4f} ms/block; "
+          f"{cor.metrics.report()}", flush=True)
+    return res
 
 
 def run_spectrometer_path(device):
@@ -529,6 +800,96 @@ def time_wideband(device):
     return kt, cuda_times(steps, n=20), host_times(copies, n=10)
 
 
+def time_multi_kernels(device):
+    """Phase 4, per block: one K = 8 launch of each K-block entry against
+    8 chained one-block launches and the plain version, at the flagship
+    (direct loop) and at the CLI's deep-tap block (SVD)."""
+    from fxtpu_torch.ops import baseline_pairs, pairs_tensor
+    out = {}
+    for tag, case, fir in (("flagship", FLAGSHIP, "direct"),
+                           ("deep", DEEP_CLI, "svd")):
+        for int8 in (False, True):
+            multi, ref, single = multi_entries(int8)
+            w, svd = window_and_fir(case, fir, device)
+            pairs = pairs_tensor(baseline_pairs(case["nch"]), case["nch"],
+                                 device)
+            arg = (STEP,) if int8 else ()
+            x = merged_batch(case, MULTI_K, np.random.default_rng(17),
+                             device, int8)
+            xs = [x[:, j].contiguous() for j in range(MULTI_K)]
+            h = fresh_history(case, device, int8)
+
+            def singles(xs=xs, h=h, w=w, pairs=pairs, arg=arg, svd=svd,
+                        single=single):
+                for xj in xs:
+                    _, h = single(xj, h, w, pairs, *arg, svd)
+
+            t = cuda_times({
+                "multi": lambda: multi(x, h, w, pairs, *arg, svd),
+                "singles": singles,
+                "plain": lambda: ref(x, h, w, pairs, *arg, svd),
+            }, n=20 if tag == "flagship" else 6, warm=2)
+            key = tag + ("_i8" if int8 else "")
+            out[key] = {k: v / MULTI_K for k, v in t.items()}
+            del x, xs
+    return out
+
+
+def time_multi_step(device):
+    """Phase 4 at the flagship, per block: the engine's ``multi_step``
+    over K = 8 blocks against ``step`` (checking that block 0 of the one
+    is the other bit for bit), and 8 blocks' copy through a pinned buffer
+    on a side stream (``prepare_batch``, the stager's copy) against 8
+    pageable ``prepare_block`` copies, by the host clock."""
+    import torch
+
+    from fxtpu_torch.config import CorrelatorConfig
+    from fxtpu_torch.fx import FxEngine
+    from fxtpu_torch.ops.xengine import pack_delays
+    from fxtpu_torch.runtime.native import quantize_c64
+    rng = np.random.default_rng(19)
+    c64 = [(rng.normal(size=(2, FLAGSHIP["nsamp"], 2)) @ np.array([1.0, 1j])
+            ).astype(np.complex64) for _ in range(MULTI_K)]
+    steps, copies = {}, {}
+    side = torch.cuda.Stream(device)
+    for ingest in ("complex64", "int8"):
+        sfx = "_i8" if ingest == "int8" else ""
+        eng = FxEngine(CorrelatorConfig(device="cuda", ingest_dtype=ingest,
+                                        quant_step=STEP), fused=True)
+        blocks = c64 if ingest == "complex64" else [
+            quantize_c64(b, STEP) for b in c64]
+        freq = eng.cfg.frequency
+        d1 = torch.as_tensor(pack_delays([0.0, TRUE_DELAY], freq),
+                             device=device)
+        dk = torch.as_tensor(pack_delays(
+            np.tile([0.0, TRUE_DELAY], (MULTI_K, 1)), freq), device=device)
+        h = eng.fresh_history()
+        iq_k, iq_1 = eng.prepare_batch(blocks), eng.prepare_block(blocks[0])
+        vk, _ = eng.multi_step(iq_k, dk, h)
+        v1, _ = eng.step(iq_1, d1, h)
+        if not torch.equal(vk[0], v1):
+            raise AssertionError(f"multi_step block 0 is not step ({ingest})")
+        steps["multi_step" + sfx] = (
+            lambda e=eng, i=iq_k, hh=h, d=dk: e.multi_step(i, d, hh))
+        steps["step" + sfx] = (
+            lambda e=eng, i=iq_1, hh=h, d=d1: e.step(i, d, hh))
+        host = eng.batch_host_buffer(MULTI_K)
+
+        def pinned(e=eng, b=blocks, host=host):
+            with torch.cuda.stream(side):
+                e.prepare_batch(b, host)
+            side.synchronize()
+
+        copies["pinned" + sfx] = pinned
+        copies["pageable" + sfx] = (
+            lambda e=eng, b=blocks: [e.prepare_block(x) for x in b])
+    st = cuda_times(steps, n=30)
+    ct = host_times(copies, n=10)
+    st = {k: v / MULTI_K if k.startswith("multi") else v
+          for k, v in st.items()}
+    return st, {k: v / MULTI_K for k, v in ct.items()}
+
+
 def host_times(fns, n=30, warm=3):
     """Median ms per call of each fn by the host clock, each call ended
     by a synchronize, in turns (a, b, b, a)."""
@@ -600,6 +961,12 @@ def main() -> int:
         print(f"  spectrometer shape {case}", flush=True)
         errs["spectrometer"] = tuple(map(max, errs["spectrometer"],
                                          compare_spectrometer(case, device)))
+    for name, int8 in (("fx_fused_multi", False),
+                       ("fx_fused_i8_multi", True)):
+        for case, k, fir in MULTI_CASES:
+            print(f"  {name} ({fir}) K={k} shape {case}", flush=True)
+            errs[name] = tuple(map(max, errs[name],
+                                   compare_multi(case, k, device, fir, int8)))
 
     print("phase 3: main path (python -m fxtpu_torch)", flush=True)
     launches = {}
@@ -611,11 +978,26 @@ def main() -> int:
                       flush=True)
                 name, n = run_main_path(tmp, ingest, deep)
                 launches[name] = n
+        for ingest in ("complex64", "int8"):
+            print(f"  --ingest {ingest} --blocks_per_dispatch {MULTI_K}",
+                  flush=True)
+            name, n = run_staged_main_path(tmp, ingest)
+            launches[name] = n
+        from fxtpu_torch.sources import NoiseSource, save_recording
+        rec = save_recording(NoiseSource(nchan=PIPELINE["nchan"], seed=1),
+                             os.path.join(tmp, "rec.npy"),
+                             PIPELINE["num_samp"], 4)
+        pipe = {}
+        for ingest in ("complex64", "int8"):
+            for k in (MULTI_K, 1):
+                pipe[f"{ingest}_k{k}"] = run_pipeline(tmp, rec, ingest, k)
     launches["spectrometer"] = run_spectrometer_path(device)
 
     print("phase 4: times at the flagship and wideband shapes", flush=True)
     kt, st, h2d = time_flagship(device)
     wkt, wst, wh2d = time_wideband(device)
+    mkt = time_multi_kernels(device)
+    mst, mct = time_multi_step(device)
     samples = FLAGSHIP["nch"] * FLAGSHIP["nsamp"]
     wsamples = WIDEBAND["nch"] * WIDEBAND["nsamp"]
     for name, sfx in (("fx_fused", ""), ("fx_fused_i8", "_i8")):
@@ -643,6 +1025,21 @@ def main() -> int:
         print(f"  [{card}] one block to the card ({ingest}): flagship "
               f"{h2d[ingest]:.4f} ms, wideband {wh2d[ingest]:.4f} ms",
               flush=True)
+    for tag in mkt:
+        t = mkt[tag]
+        print(f"  [{card}] {tag} per block: one K={MULTI_K} launch "
+              f"{t['multi']:.4f} ms, {MULTI_K} one-block launches "
+              f"{t['singles']:.4f} ms, plain {t['plain']:.4f} ms", flush=True)
+    for sfx, ingest in (("", "complex64"), ("_i8", "int8")):
+        print(f"  [{card}] flagship {ingest} per block: multi_step "
+              f"{mst['multi_step' + sfx]:.4f} ms against step "
+              f"{mst['step' + sfx]:.4f} ms; copy of {MULTI_K} blocks, pinned "
+              f"on a side stream {mct['pinned' + sfx]:.4f} ms against "
+              f"pageable {mct['pageable' + sfx]:.4f} ms", flush=True)
+    for key, r in pipe.items():
+        print(f"  [{card}] pipeline {key}: {r['blocks_per_s']:.4f} blocks/s, "
+              f"{r['msamp_per_s']:.4f} Msamp/s, device busy "
+              f"{100 * r['busy_share']:.4f}%", flush=True)
 
     kernels = []
     for name, sfx, ingest in (("fx_fused", "", "complex64"),
@@ -667,6 +1064,26 @@ def main() -> int:
             "direct_ms": wkt["direct" + sfx],
             "step_ms": wst["kernel" + sfx],
             "plain_step_ms": wst["plain" + sfx], "h2d_ms": wh2d[ingest],
+        })
+    for name, sfx, ingest in (("fx_fused_multi", "", "complex64"),
+                              ("fx_fused_i8_multi", "_i8", "int8")):
+        fl, dp = mkt["flagship" + sfx], mkt["deep" + sfx]
+        kernels.append({
+            "name": name, "route": "cuda", "source": SOURCE,
+            "replaces": REPLACES[name], "launches": launches[name],
+            "max_abs_err": errs[name][0], "max_rel_err": errs[name][1],
+            "k": MULTI_K, "ms": fl["multi"], "plain_ms": fl["plain"],
+            "one_block_launches_ms": fl["singles"],
+            "deep_svd_ms": dp["multi"], "deep_svd_plain_ms": dp["plain"],
+            "deep_svd_one_block_launches_ms": dp["singles"],
+            "step_ms": mst["multi_step" + sfx],
+            "one_block_step_ms": mst["step" + sfx],
+            "pinned_copy_ms": mct["pinned" + sfx],
+            "pageable_copy_ms": mct["pageable" + sfx],
+            "pipeline": {f"k{k}": {key: v for key, v in
+                                   pipe[f"{ingest}_k{k}"].items()
+                                   if key != "launches"}
+                         for k in (1, MULTI_K)},
         })
     kernels.append({
         "name": "spectrometer", "route": "cuda", "source": SOURCE,

@@ -5,8 +5,10 @@ The same flags as ``fxtpu.cli`` (a superset of the reference CLI,
 (default cuda), which takes the place of the JAX backend switch
 ``--platform``.  Without a CUDA device the run raises unless
 ``--device cpu`` was asked for.  ``--ingest int8`` keeps samples 8-bit
-from the source to the card.  Flags of options not ported yet (mesh,
-multi-process, blocks_per_dispatch > 1, snapshots) are accepted and raise
+from the source to the card.  ``--blocks_per_dispatch K`` correlates K
+blocks per device call, staged by a background thread (pinned host
+buffers, the copy on its own CUDA stream).  Flags of options not ported
+yet (mesh, multi-process, snapshots) are accepted and raise
 ``NotImplementedError`` naming their ROADMAP.md item.
 """
 
@@ -83,9 +85,11 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--no_keyboard", action="store_true",
                         help="Disable the interactive 'c'-to-recalibrate key.")
     parser.add_argument("--blocks_per_dispatch", default=1, type=int,
-                        help="Blocks correlated per device dispatch "
-                             "(scanned in one executable; amortizes "
-                             "dispatch latency for sustained streaming).")
+                        help="Blocks correlated per device call (one "
+                             "K-block kernel launch on the fused route, "
+                             "staged by a background thread; amortizes "
+                             "launches and copies for sustained "
+                             "streaming).")
     parser.add_argument("--integration_blocks", default=1, type=int,
                         help="Blocks averaged per output row.")
     parser.add_argument("--snapshot_every", default=0, type=int,

@@ -105,10 +105,11 @@ class CorrelatorConfig:
     test_offset_steps: int = 1600             # offset = step*1600, effex.py:155
 
     # --- dispatch batching ---------------------------------------------------
-    # Blocks correlated per device dispatch.  Only 1 (reference-style
-    # per-block dispatch) is ported; the Correlator raises for >1
-    # (ROADMAP.md A.6).  The mesh and snapshot knobs below are kept for
-    # field parity with fxtpu.config and raise the same way.
+    # Blocks correlated per device call.  1 is the reference's per-block
+    # dispatch; K > 1 stages K blocks at a time (runtime/stager.py) for
+    # one FxEngine.multi_step call.  The mesh knobs above and the snapshot
+    # knobs below are kept for field parity with fxtpu.config and raise
+    # NotImplementedError naming their ROADMAP.md item.
     blocks_per_dispatch: int = 1
 
     # --- long-integration / durability (SURVEY.md §5.4; none in reference) --

@@ -1,8 +1,7 @@
 """The Correlator: state machine, orchestration, and the host hot loop.
 
-Counterpart of ``fxtpu.correlator`` for one device, one block per step.
-Behavioural contract from the reference ``Correlator``
-(``effex/effex.py:23-696``):
+Counterpart of ``fxtpu.correlator`` for one device.  Behavioural
+contract from the reference ``Correlator`` (``effex/effex.py:23-696``):
 
   * five states with guarded transitions and :class:`StateTransitionError`
     on illegal edges (``effex.py:204-228``);
@@ -17,7 +16,12 @@ Behavioural contract from the reference ``Correlator``
 The FX step runs on ``config.device`` through :class:`~fxtpu_torch.fx.
 FxEngine`; PyTorch launches asynchronously, so the host loop prepares
 block k+1 while the device works on block k and the writer thread forces
-block k-1's transfer.  Options of ``fxtpu`` that are not ported yet raise
+block k-1's transfer.  With ``blocks_per_dispatch`` K > 1 the RUN state
+takes its blocks from :class:`~fxtpu_torch.runtime.stager.DeviceStager`,
+which stages K blocks at a time (pinned, copied on its own stream) for
+one ``multi_step`` call, in ``fxtpu``'s order: the first block is
+calibrated on the unstaged path and the stager starts on the RUN
+transition.  Options of ``fxtpu`` that are not ported yet raise
 ``NotImplementedError`` naming the ROADMAP.md item that ports them.
 """
 
@@ -42,6 +46,7 @@ from fxtpu_torch.ops.xengine import pack_delays
 from fxtpu_torch.runtime.feeder import BlockAligner, Feeder, StreamDrainTracker
 from fxtpu_torch.runtime.metrics import Metrics, profiler_trace
 from fxtpu_torch.runtime.native import make_ring
+from fxtpu_torch.runtime.stager import DeviceStager
 from fxtpu_torch.sources import make_source
 from fxtpu_torch.sources.base import Source
 
@@ -78,9 +83,6 @@ def reject_unported(cfg: CorrelatorConfig):
         (cfg.mesh_time * cfg.mesh_freq > 1,
          f"a device mesh (mesh_time={cfg.mesh_time}, mesh_freq="
          f"{cfg.mesh_freq})", "A.9, scale-out"),
-        (cfg.blocks_per_dispatch > 1,
-         f"blocks_per_dispatch={cfg.blocks_per_dispatch}",
-         "A.6, multi-block dispatch"),
         (bool(cfg.snapshot_every), f"snapshot_every={cfg.snapshot_every}",
          "A.8, checkpoint/resume"),
         (bool(cfg.resume_from), f"resume_from={cfg.resume_from!r}",
@@ -158,6 +160,7 @@ class Correlator:
         # --- compute engine (F+X, device side) ---------------------------
         self.engine = FxEngine(config)
         self.history = self.engine.fresh_history()
+        self.stager: Optional[DeviceStager] = None
 
         # --- science data (effex.py:129-141) ------------------------------
         self.calibrated_delays = np.zeros(config.nchan, dtype=np.float64)
@@ -346,8 +349,11 @@ class Correlator:
         return False
 
     def close(self):
-        """Stop the feeders and release the source (``sdr.close()``
-        analog, ``effex.py:176-180``)."""
+        """Stop the stager and the feeders and release the source
+        (``sdr.close()`` analog, ``effex.py:176-180``)."""
+        stager = getattr(self, "stager", None)
+        if stager is not None:
+            stager.stop()
         for feeder in getattr(self, "feeders", []):
             feeder.stop()
         source = getattr(self, "source", None)
@@ -400,10 +406,17 @@ class Correlator:
                 self.state = "STARTUP"
             elif self.state == "STARTUP":
                 self._startup_task()
-                self.state = ("CALIBRATE" if self.config.calibrate_on_start
-                              else "RUN")
+                if self.config.calibrate_on_start:
+                    self.state = "CALIBRATE"
+                else:
+                    self.state = "RUN"
+                    self._maybe_start_stager()
             elif self.state in ("CALIBRATE", "RUN"):
                 if time.time() < self.start_time:
+                    continue
+                if self.stager is not None:
+                    if not self._staged_iteration():
+                        break
                     continue
                 block = self.aligner.get(timeout=1.0)
                 if block is None:
@@ -426,18 +439,15 @@ class Correlator:
                 drain.got_block()
                 self.metrics.count("samples_in",
                                    self.config.nchan * self.num_samp)
-                with self.metrics.stage("h2d"):
-                    iq = self.engine.prepare_block(block)
                 if self.state == "CALIBRATE":
+                    with self.metrics.stage("h2d"):
+                        iq = self.engine.prepare_block(block)
                     with self.metrics.stage("calibrate"):
                         self._calibrate_task(iq)
                     self.state = "RUN"
+                    self._maybe_start_stager()
                 else:
-                    if self.mode == "TEST":
-                        # artificial delay sweep (effex.py:403-404)
-                        self.calibrated_delays[1:] += self.test_delay_sweep_step
-                    with self.metrics.stage("fx_step"):
-                        self._emit(self._run_task(iq))
+                    self._run_blocks([block])
                     self.metrics.mark_once("steady")
             elif self.state == "SHUTDOWN":
                 self.close()
@@ -512,13 +522,15 @@ class Correlator:
         self.logger.info("Estimated delay (us): %s",
                          1e6 * self.calibrated_delays[1:])
 
-    def _device_delays(self) -> torch.Tensor:
-        """The calibrated delays in the packed ``(delay, frac(fc*d))``
-        form on the device: the carrier cycles are reduced in float64 on
-        the host (``pack_delays``), and the copy is made again only when
-        the delays changed (every block in TEST mode, else only at
-        calibration)."""
-        host = self.calibrated_delays
+    def _device_delays(self, host: Optional[np.ndarray] = None
+                       ) -> torch.Tensor:
+        """Delays (the calibrated ones, or ``host`` ``[K, nch]`` of a
+        K-block call) in the packed ``(delay, frac(fc*d))`` form on the
+        device: the carrier cycles are reduced in float64 on the host
+        (``pack_delays``), and the copy is made again only when the delays
+        changed (every block in TEST mode, else only at calibration)."""
+        if host is None:
+            host = self.calibrated_delays
         if self._delays_dev is None or not np.array_equal(
                 self._delays_dev[0], host):
             packed = pack_delays(host, self.frequency)
@@ -536,6 +548,111 @@ class Correlator:
             # baseline (autos come first in baseline_pairs)
             vis = vis[0]
         return vis
+
+    @property
+    def _dispatch_batch(self) -> int:
+        """Blocks per device call (``FxEngine.dispatch_batch_for``)."""
+        return self.engine.dispatch_batch_for(
+            self.config.blocks_per_dispatch)
+
+    def _run_blocks(self, blocks):
+        """Correlate aligned host blocks: one K-block call when they are a
+        full batch, single steps otherwise."""
+        k = len(blocks)
+        if k == self._dispatch_batch and k > 1:
+            with self.metrics.stage("h2d"):
+                iq = self.engine.prepare_batch(blocks)
+            with self.metrics.stage("fx_step"):
+                self._dispatch_multi(iq, k)
+            return
+        for b in blocks:
+            if self.mode == "TEST":
+                # artificial delay sweep (effex.py:403-404)
+                self.calibrated_delays[1:] += self.test_delay_sweep_step
+            with self.metrics.stage("h2d"):
+                iq = self.engine.prepare_block(b)
+            with self.metrics.stage("fx_step"):
+                self._emit(self._run_task(iq))
+
+    def _dispatch_multi(self, iq: torch.Tensor, k: int):
+        """One K-block call on a prepared batch, with per-block delays:
+        TEST mode advances the sweep one step per block inside the call."""
+        delays_k = np.repeat(self.calibrated_delays[None], k, axis=0)
+        if self.mode == "TEST":
+            steps = np.arange(1, k + 1) * self.test_delay_sweep_step
+            delays_k[:, 1:] += steps[:, None]
+            self.calibrated_delays[1:] += k * self.test_delay_sweep_step
+        vis, self.history = self.engine.multi_step(
+            iq, self._device_delays(delays_k), self.history)
+        for i in range(k):
+            v = vis[i]
+            if len(self.engine.pairs) == 1:
+                v = v[0]  # single-baseline squeeze (see _run_task)
+            self._emit(v)
+
+    # ------------------------------------------------------------------
+    # Staged ingest (runtime/stager.py): overlaps the host's gather, the
+    # staging and the copy with the device's work; active when
+    # blocks_per_dispatch > 1.
+    # ------------------------------------------------------------------
+    def _maybe_start_stager(self):
+        if self.stager is not None or self._dispatch_batch <= 1:
+            return
+        self.stager = DeviceStager(
+            self.aligner, self.engine.prepare_block,
+            batch=self._dispatch_batch, exc_queue=self.exc_queue,
+            feeding=lambda: self._feeding,
+            prepare_batch=self.engine.prepare_batch,
+            host_buffer=self.engine.batch_host_buffer,
+            device=self.engine.device, metrics=self.metrics).start()
+        self.logger.debug("Started device stager (batch=%d).",
+                          self._dispatch_batch)
+
+    def _staged_iteration(self) -> bool:
+        """One main-loop iteration on the staged path.  Returns False when
+        the machine should stop (SHUTDOWN handled here)."""
+        batch = self.stager.get(timeout=0.1)
+        if batch is None:
+            if not self.stager.done:
+                return True  # nothing staged yet
+            if self.vis_out.empty():
+                self.logger.info(
+                    "IQ processing complete, buffers drained. Shutting down.")
+                self.state = "SHUTDOWN"
+                self.close()
+                return False
+            time.sleep(0.05)
+            return True
+
+        self.metrics.count("samples_in",
+                           batch.k * self.config.nchan * self.num_samp)
+        iq = batch.take()
+        if self.state == "CALIBRATE":
+            # Mid-run recalibration ('c'): estimate from the first staged
+            # block, then correlate the whole batch with the fresh delays
+            # (no samples are dropped: the cal block is correlated too).
+            with self.metrics.stage("calibrate"):
+                self._calibrate_task(self._first_staged_block(batch))
+            self.state = "RUN"
+        with self.metrics.stage("fx_step"):
+            if batch.stacked:
+                self._dispatch_multi(iq, batch.k)
+            else:
+                if self.mode == "TEST":
+                    self.calibrated_delays[1:] += self.test_delay_sweep_step
+                self._emit(self._run_task(iq))
+        self.metrics.mark_once("steady")
+        return True
+
+    def _first_staged_block(self, batch) -> torch.Tensor:
+        """Block 0 of a staged batch in single-block input form: the
+        second axis of the fused route's merged layout, the first of the
+        plain route's stack."""
+        if not batch.stacked:
+            return batch.iq
+        if self.engine.batch_merged:
+            return batch.iq[:, 0]
+        return batch.iq[0]
 
     def _emit(self, vis):
         self.blocks_processed += 1

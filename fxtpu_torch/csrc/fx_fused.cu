@@ -1,9 +1,10 @@
-// The fused FX step for one block: DC removal, PFB FIR with carried tap
+// The fused FX step for K blocks: DC removal, PFB FIR with carried tap
 // history, an nbins-point FFT in shared memory, and the frame-summed cross
 // power of every baseline; and the F-stage spectrometer, which writes the
 // spectra out in place of the cross power.  Built by
 // fxtpu_torch/cuda_build.py, called through fxtpu_torch/ops/fx_fused.py
-// (fx_fused_raw, fx_fused_raw_i8) and fxtpu_torch/ops/spectrometer.py
+// (fx_fused_raw, fx_fused_raw_i8 at K = 1; fx_fused_raw_multi,
+// fx_fused_raw_i8_multi at any K) and fxtpu_torch/ops/spectrometer.py
 // (spectrometer_fused).
 //
 // Replaces: fxtpu/ops/pfb_pallas.py _fx_kernel (launched by _fx_call,
@@ -13,6 +14,8 @@
 //   * f32 SVD-FIR mode         -> fxt_fx_fused     rank r > 0;
 //   * int8-native mode         -> fxt_fx_fused_i8  rank 0 (8-bit samples);
 //   * int8-native SVD-FIR mode -> fxt_fx_fused_i8  rank r > 0;
+// each for K >= 1 blocks per launch (fx_pallas_raw_multi's grid
+// (k_blocks, tiles) over the merged rows [nch, K*S, lanes]);
 // and pfb_pallas.py _kernel (launched by _pfb_fft_call, wrapped by
 // spectrometer_pallas) -> fxt_spectrometer.
 // All share one frame kernel (FIR, Stockham FFT, output), templated on a
@@ -42,6 +45,19 @@
 // and loses its own block's mean before the FIR, the same function in
 // exact arithmetic, with every subtraction in real units.
 //
+// K blocks per launch (fx_pallas_raw_multi(merged=True)): x is the merged
+// layout [nch, K, S, nbins] (int8: [nch, K, S, nbins, 2]), the same memory
+// as [nch, K*S, nbins]; xp is [K, nbl, nbins] and the int8 mu [K, nch].
+// Merged row e of [history; x] is history for e < ntaps-1 (the corrected
+// tail, or the raw tail losing mu_prev); any other row belongs to block
+// j = (e - ntaps + 1) / S and loses block j's own mean, so block k's
+// first frames read block k-1's rows corrected by block k-1's mean:
+// exactly what K chained one-block launches compute, bit for bit (each
+// block's mean, frame groups and sums are formed as a one-block launch
+// forms them).  The new complex64 history is the last halo rows of
+// [history; x] (the last block's, minus its mean); fxtpu gets the same
+// function by correcting after the kernel (_dc_correct(mu_prev=...)).
+//
 // Contract of fxt_spectrometer (spectrometer_pallas): x complex64
 // [nch, nsamp], the DC-corrected history [nch, ntaps-1, nbins] (ntaps >= 1)
 // and the window; return spec [nch, S, nbins] with S = nsamp / nbins, the
@@ -60,8 +76,10 @@
 // those reads and multiplies the FIR's flops by r (r FMAs per tap and
 // sample), a trade that paid on the TPU, where it moved the tap loop onto
 // the matrix unit, and does not here: on an H100 (700 W) the SVD mode
-// takes 1.8x the direct loop's time at the wideband shape (PERF.md; the
-// mode is kept because fxtpu routes deep taps to it).  The design keeps what
+// takes 1.8x to 2.9x the direct loop's time at the wideband shape
+// (PERF.md; the mode is kept because fxtpu routes deep taps to it).  At
+// few taps a frame's time is its loads' latency, so the direct loop issues
+// four bins' loads per tap together.  The design keeps what
 // the TPU kernel keeps out of device memory: the spectra live only in
 // shared memory (nch x nbins x 8 B, 64 KiB at the flagship shape, so the
 // dynamic shared-memory limit is raised), and only the [n_groups, nbl,
@@ -76,7 +94,11 @@
 // int8 kernel reads the interleaved (I, Q) bytes as they arrived.  The
 // TPU's banded bf16 matmul for the SVD conv, its hi/lo splits and its
 // 1-pass tail ranks are matrix-unit workarounds: here every rank runs in
-// f32 on the CUDA cores, u in shared memory, r accumulators per bin.
+// f32 on the CUDA cores, u in shared memory, r accumulators per bin.  A
+// launch of K blocks runs K times the CTAs of one block: where one block's
+// frames leave most SMs idle (the deep-tap CLI block's 32 frames fill 32
+// of 132) they fill the card, and the host pays one set of launches per K
+// blocks.
 
 #include <cuda_runtime.h>
 
@@ -115,23 +137,26 @@ template <> struct SumOf<char2> {
   using pair = longlong2;
 };
 
-// (a) Stage 1 of the channel means: grid (parts, nch).  Block `part`
-// sums one contiguous chunk of channel c's n_per_chan samples and
-// tree-reduces it in shared memory, in a fixed order.
+// (a) Stage 1 of the means: grid (parts, nch, K).  Block (part, c, k)
+// sums one contiguous chunk of block k's n samples of channel c (channel
+// c starts `stride` samples after channel c-1, block k n samples after
+// block k-1) and tree-reduces it in shared memory, in a fixed order, into
+// sums[k, c, part].
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 mean_partial_kernel(const T* __restrict__ x,
-                    typename SumOf<T>::pair* __restrict__ sums,
-                    long long n_per_chan) {
+                    typename SumOf<T>::pair* __restrict__ sums, long long n,
+                    long long stride) {
   using A = typename SumOf<T>::type;
   __shared__ A red_re[kThreads];
   __shared__ A red_im[kThreads];
   const int c = blockIdx.y;
+  const int k = blockIdx.z;
   const int parts = gridDim.x;
-  const long long chunk = (n_per_chan + parts - 1) / parts;
+  const long long chunk = (n + parts - 1) / parts;
   const long long lo = blockIdx.x * chunk;
-  const long long hi = min(lo + chunk, n_per_chan);
-  const T* xc = x + c * n_per_chan;
+  const long long hi = min(lo + chunk, n);
+  const T* xc = x + c * stride + k * n;
   A sr = 0, si = 0;
   for (long long i = lo + threadIdx.x; i < hi; i += kThreads) {
     const T v = xc[i];
@@ -149,39 +174,50 @@ mean_partial_kernel(const T* __restrict__ x,
     __syncthreads();
   }
   if (threadIdx.x == 0) {
-    sums[c * parts + blockIdx.x] =
+    sums[(static_cast<long long>(k) * gridDim.y + c) * parts + blockIdx.x] =
         typename SumOf<T>::pair{red_re[0], red_im[0]};
   }
 }
 
-// Stage 2 of the channel means, in the same fixed order wherever it runs.
-__device__ float2 channel_mean(const double2* __restrict__ sums, int c,
-                               int parts, long long n_per_chan) {
+// Stage 2 of the means: the `parts` sums of one block and channel, in the
+// same fixed order wherever it runs.
+__device__ float2 channel_mean(const double2* __restrict__ sums, int parts,
+                               long long n) {
   double r = 0.0, i = 0.0;
   for (int k = 0; k < parts; ++k) {
-    const double2 v = sums[c * parts + k];
+    const double2 v = sums[k];
     r += v.x;
     i += v.y;
   }
-  return make_float2(static_cast<float>(r / n_per_chan),
-                     static_cast<float>(i / n_per_chan));
+  return make_float2(static_cast<float>(r / n), static_cast<float>(i / n));
 }
 
 // The int8 mean in real units: an exact integer sum, formed in double and
 // rounded once (fx_fused.block_mean_i8 forms it the same way).
-__device__ float2 channel_mean_i8(const longlong2* __restrict__ sums, int c,
-                                  int parts, long long n_per_chan,
-                                  double step) {
+__device__ float2 channel_mean_i8(const longlong2* __restrict__ sums,
+                                  int parts, long long n, double step) {
   long long r = 0, i = 0;
   for (int k = 0; k < parts; ++k) {
-    const longlong2 v = sums[c * parts + k];
+    const longlong2 v = sums[k];
     r += v.x;
     i += v.y;
   }
-  const double n = static_cast<double>(n_per_chan);
-  return make_float2(static_cast<float>(static_cast<double>(r) / n * step),
-                     static_cast<float>(static_cast<double>(i) / n * step));
+  const double nd = static_cast<double>(n);
+  return make_float2(static_cast<float>(static_cast<double>(r) / nd * step),
+                     static_cast<float>(static_cast<double>(i) / nd * step));
 }
+
+// The means a frame's rows lose, for one channel: rows e >= e_own are the
+// CTA's own block's and lose `own`; a row of an earlier block j loses
+// tab[(j - jlo) * nch] (the CTA's staged means, offset to the channel);
+// history rows (e < halo) lose none (complex64: corrected already) or
+// mu_prev (int8).  With one block e_own = halo and tab is never read.
+struct RowMeans {
+  float2 own;
+  long long e_own;
+  const float2* tab;
+  int jlo, nch;
+};
 
 // Every input the frame kernel reads (samples, history, window, factors,
 // pairs) is read-only for the whole launch and is loaded through the
@@ -190,89 +226,192 @@ __device__ float2 channel_mean_i8(const longlong2* __restrict__ sums, int c,
 // plain loads cost the int8 frame kernel a fifth to a third of its time
 // on an H100 (PERF.md).
 //
-// Sample loaders of the frame kernel.  at(c, e, bin, mu) is row e of
-// [history; x] at one bin, DC-corrected: complex64 history rows arrive
-// corrected and block rows lose the block mean mu; int8 rows are
-// dequantized (I and Q times the step) and lose mu_prev (tail rows) or mu
-// (block rows), rounded as the plain version rounds them.  Channel c of x
-// starts n samples after channel c-1; the mean covers those n samples
-// (S * nbins for the FX step, every sample for the spectrometer).
+// Sample loaders of the frame kernel.  row(c, e, bin, mu) is merged row e
+// of [history; x] at one bin, DC-corrected: complex64 history rows arrive
+// corrected and block rows lose mu; int8 rows are dequantized (I and Q
+// times the step) and lose mu_prev (tail rows) or mu (block rows), rounded
+// as the plain version rounds them.  sample_ptr / history_ptr address a
+// row's sample and block_value / history_value correct it, for a caller
+// that walks the rows itself (for_each_tap).  Channel c of x starts
+// `stride` samples after channel c-1 and block j of it n samples after
+// block j-1 (stride = K n); block row r of block j is merged row halo + j
+// S + r.  A
+// block's mean covers its n samples (S * nbins for the FX step, every
+// sample for the spectrometer, which takes one block); mean(j, c) reads
+// sums[j, c, :].
 struct F32Rows {
+  using T = float2;
   const float2* x;
   const float2* hist;
   const double2* sums;
-  long long n;
-  int S, halo, nbins;
+  long long n, stride;
+  int S, halo, nbins, nch;
 
-  __device__ float2 mean(int c, int parts) const {
-    return channel_mean(sums, c, parts, n);
+  __device__ float2 mean(int j, int c, int parts) const {
+    return channel_mean(
+        sums + (static_cast<long long>(j) * nch + c) * parts, parts, n);
   }
-  __device__ float2 at(int c, int e, int bin, float2 mu) const {
-    if (e < halo) {
-      return __ldg(hist + (static_cast<size_t>(c) * halo + e) * nbins + bin);
-    }
-    return csub(
-        __ldg(x + c * n + static_cast<size_t>(e - halo) * nbins + bin), mu);
+  __device__ const float2* sample_ptr(int c, long long e, int bin) const {
+    return x + c * stride + (e - halo) * nbins + bin;
+  }
+  __device__ const float2* history_ptr(int c, long long e, int bin) const {
+    return hist + (static_cast<long long>(c) * halo + e) * nbins + bin;
+  }
+  // the history arrives DC-corrected: it loses no mean
+  __device__ float2 history_mean(int) const { return make_float2(0.f, 0.f); }
+  __device__ float2 history_value(float2 v, float2) const { return v; }
+  __device__ float2 block_value(float2 v, float2 mu) const {
+    return csub(v, mu);
+  }
+  __device__ float2 row(int c, long long e, int bin, float2 mu) const {
+    return e < halo ? __ldg(history_ptr(c, e, bin))
+                    : block_value(__ldg(sample_ptr(c, e, bin)), mu);
   }
 };
 
 struct I8Rows {
+  using T = char2;
   const char2* x;
   const char2* tail;
   const float2* mu_prev;
   const longlong2* sums;
-  long long n;
-  int S, halo, nbins;
+  long long n, stride;
+  int S, halo, nbins, nch;
   float step;
   double step_d;
 
-  __device__ float2 mean(int c, int parts) const {
-    return channel_mean_i8(sums, c, parts, n, step_d);
+  __device__ float2 mean(int j, int c, int parts) const {
+    return channel_mean_i8(
+        sums + (static_cast<long long>(j) * nch + c) * parts, parts, n,
+        step_d);
   }
-  __device__ float2 at(int c, int e, int bin, float2 mu) const {
-    char2 q;
-    float2 m;
-    if (e < halo) {
-      q = __ldg(tail + (static_cast<size_t>(c) * halo + e) * nbins + bin);
-      m = __ldg(mu_prev + c);
-    } else {
-      q = __ldg(x + c * n + static_cast<size_t>(e - halo) * nbins + bin);
-      m = mu;
-    }
-    // no fused multiply-add: the same two roundings as q*step - m in torch
+  // no fused multiply-add: the same two roundings as q*step - m in torch
+  __device__ float2 deq(char2 q, float2 m) const {
     return make_float2(
         __fsub_rn(__fmul_rn(static_cast<float>(q.x), step), m.x),
         __fsub_rn(__fmul_rn(static_cast<float>(q.y), step), m.y));
   }
+  __device__ const char2* sample_ptr(int c, long long e, int bin) const {
+    return x + c * stride + (e - halo) * nbins + bin;
+  }
+  __device__ const char2* history_ptr(int c, long long e, int bin) const {
+    return tail + (static_cast<long long>(c) * halo + e) * nbins + bin;
+  }
+  // the raw tail loses the previous block's mean
+  __device__ float2 history_mean(int c) const { return __ldg(mu_prev + c); }
+  __device__ float2 history_value(char2 q, float2 m) const {
+    return deq(q, m);
+  }
+  __device__ float2 block_value(char2 q, float2 mu) const {
+    return deq(q, mu);
+  }
+  __device__ float2 row(int c, long long e, int bin, float2 mu) const {
+    return e < halo ? deq(__ldg(history_ptr(c, e, bin)), history_mean(c))
+                    : deq(__ldg(sample_ptr(c, e, bin)), mu);
+  }
 };
 
-// FIR policies: fir(rows, tab, c, f, bin, mu, ntaps, nbins) is frame f's
-// FIR output at one bin over rows f .. f+ntaps-1 of [history; x].
-// DirectFir is the tap loop over the window w [ntaps, nbins].
+// The frame's rows e0 .. e0+ntaps-1 of [history; x] at NB bins (bin,
+// bin + kThreads, ...; the first nb of them are real), each DC-corrected,
+// handed to f(t, v[NB]) in tap order: the history rows (e < halo), then
+// rows of earlier blocks (each losing its own block's mean, from m.tab),
+// then the CTA's own block's rows (losing m.own).  Each run is a loop of
+// its own over pointers that step one row (nbins samples) per tap, so a
+// frame inside its own block, the common case, reads its taps with no
+// branch and no 64-bit multiply per tap; block rows are contiguous across
+// blocks in the merged layout.  The NB bins' loads of a tap are issued
+// together: at few taps the frame's latency is its loads'.
+template <int NB, class Rows, class F>
+__device__ __forceinline__ void for_each_tap(const Rows& rows, int c,
+                                             long long e0, int bin, int nb,
+                                             const RowMeans& m, int ntaps,
+                                             F&& f) {
+  using T = typename Rows::T;
+  const long long halo = rows.halo;
+  const long long n = ntaps;
+  const int t1 = static_cast<int>(min(max(halo - e0, 0LL), n));
+  const int t2 = static_cast<int>(
+      min(max(m.e_own - e0, static_cast<long long>(t1)), n));
+  const int step = rows.nbins;
+  float2 v[NB];
+  int t = 0;
+  if (t1 > 0) {
+    const T* p = rows.history_ptr(c, e0, bin);
+    const float2 mh = rows.history_mean(c);
+    for (; t < t1; ++t, p += step) {
+#pragma unroll
+      for (int j = 0; j < NB; ++j) {
+        if (j < nb) v[j] = rows.history_value(__ldg(p + j * kThreads), mh);
+      }
+      f(t, v);
+    }
+  }
+  if (t < ntaps) {
+    const T* p = rows.sample_ptr(c, e0 + t, bin);
+    for (; t < t2; ++t, p += step) {
+      const long long blk = (e0 + t - halo) / rows.S;
+      const float2 mu = m.tab[(blk - m.jlo) * m.nch];
+#pragma unroll
+      for (int j = 0; j < NB; ++j) {
+        if (j < nb) v[j] = rows.block_value(__ldg(p + j * kThreads), mu);
+      }
+      f(t, v);
+    }
+    for (; t < ntaps; ++t, p += step) {
+#pragma unroll
+      for (int j = 0; j < NB; ++j) {
+        if (j < nb) v[j] = rows.block_value(__ldg(p + j * kThreads), m.own);
+      }
+      f(t, v);
+    }
+  }
+}
+
+// FIR policies: fir(rows, tab, c, e0, m, ntaps, nbins, out) writes the FIR
+// output of the frame over merged rows e0 .. e0+ntaps-1 of [history; x],
+// each losing the mean m gives it, to out[bin] for this thread's bins.
+// DirectFir is the tap loop over the window w [ntaps, nbins], kBins bins
+// at a time (each bin's sum still runs in tap order).
 struct DirectFir {
+  static constexpr int kBins = 4;
   const float* w;
 
   size_t table_bytes(int) const { return 0; }
   __device__ void stage(float*, int) const {}
   template <class Rows>
-  __device__ float2 operator()(const Rows& rows, const float*, int c, int f,
-                               int bin, float2 mu, int ntaps,
-                               int nbins) const {
-    float2 acc = make_float2(0.f, 0.f);
-    for (int t = 0; t < ntaps; ++t) {
-      const float2 v = rows.at(c, f + t, bin, mu);
-      const float wt = __ldg(w + t * nbins + bin);
-      acc.x += wt * v.x;
-      acc.y += wt * v.y;
+  __device__ void operator()(const Rows& rows, const float*, int c,
+                             long long e0, const RowMeans& m, int ntaps,
+                             int nbins, float2* out) const {
+    for (int b0 = threadIdx.x; b0 < nbins; b0 += kBins * kThreads) {
+      const int nb = min(kBins, (nbins - b0 + kThreads - 1) / kThreads);
+      float2 acc[kBins];
+#pragma unroll
+      for (int j = 0; j < kBins; ++j) acc[j] = make_float2(0.f, 0.f);
+      for_each_tap<kBins>(rows, c, e0, b0, nb, m, ntaps,
+                          [&](int t, const float2* v) {
+        const float* wt = w + t * nbins + b0;
+#pragma unroll
+        for (int j = 0; j < kBins; ++j) {
+          if (j < nb) {
+            const float wj = __ldg(wt + j * kThreads);
+            acc[j].x += wj * v[j].x;
+            acc[j].y += wj * v[j].y;
+          }
+        }
+      });
+#pragma unroll
+      for (int j = 0; j < kBins; ++j) {
+        if (j < nb) out[b0 + j * kThreads] = acc[j];
+      }
     }
-    return acc;
   }
 };
 
 // SvdFir is the rank-r factorisation: per rank k the scalar-tap
 // convolution c_k = sum_t u[t, k] row[f+t] (u staged in shared memory as
 // `tab`, one broadcast read per tap and rank), summed in tap order into r
-// register accumulators, then fir = sum_k v[k, bin] c_k in rank order.
+// register accumulators, then fir = sum_k v[k, bin] c_k in rank order; one
+// bin at a time (its r accumulators fill the registers).
 struct SvdFir {
   const float* u;   // [ntaps, rank]
   const float* v;   // [rank, nbins]
@@ -285,33 +424,35 @@ struct SvdFir {
     for (int i = threadIdx.x; i < ntaps * rank; i += kThreads) tab[i] = u[i];
   }
   template <class Rows>
-  __device__ float2 operator()(const Rows& rows, const float* tab, int c,
-                               int f, int bin, float2 mu, int ntaps,
-                               int nbins) const {
-    float2 ck[kMaxRank];
+  __device__ void operator()(const Rows& rows, const float* tab, int c,
+                             long long e0, const RowMeans& m, int ntaps,
+                             int nbins, float2* out) const {
+    for (int bin = threadIdx.x; bin < nbins; bin += kThreads) {
+      float2 ck[kMaxRank];
 #pragma unroll
-    for (int k = 0; k < kMaxRank; ++k) ck[k] = make_float2(0.f, 0.f);
-    for (int t = 0; t < ntaps; ++t) {
-      const float2 x = rows.at(c, f + t, bin, mu);
-      const float* ut = tab + t * rank;
+      for (int k = 0; k < kMaxRank; ++k) ck[k] = make_float2(0.f, 0.f);
+      for_each_tap<1>(rows, c, e0, bin, 1, m, ntaps,
+                      [&](int t, const float2* x) {
+        const float* ut = tab + t * rank;
+#pragma unroll
+        for (int k = 0; k < kMaxRank; ++k) {
+          if (k < rank) {
+            ck[k].x += ut[k] * x[0].x;
+            ck[k].y += ut[k] * x[0].y;
+          }
+        }
+      });
+      float2 acc = make_float2(0.f, 0.f);
 #pragma unroll
       for (int k = 0; k < kMaxRank; ++k) {
         if (k < rank) {
-          ck[k].x += ut[k] * x.x;
-          ck[k].y += ut[k] * x.y;
+          const float vk = __ldg(v + k * nbins + bin);
+          acc.x += vk * ck[k].x;
+          acc.y += vk * ck[k].y;
         }
       }
+      out[bin] = acc;
     }
-    float2 acc = make_float2(0.f, 0.f);
-#pragma unroll
-    for (int k = 0; k < kMaxRank; ++k) {
-      if (k < rank) {
-        const float vk = __ldg(v + k * nbins + bin);
-        acc.x += vk * ck[k].x;
-        acc.y += vk * ck[k].y;
-      }
-    }
-    return acc;
   }
 };
 
@@ -322,7 +463,7 @@ struct SvdFir {
 // spec[c, f, :] as it is done.
 struct CrossOut {
   const int* pairs;
-  float2* partial;   // [n_groups, nbl, nbins]
+  float2* partial;   // [K, n_groups, nbl, nbins]
   int nbl;
 
   __host__ __device__ static int slots(int nch) { return nch; }
@@ -332,7 +473,9 @@ struct CrossOut {
   __device__ void channel_done(const float2*, int, int, int) const {}
   __device__ void frame_done(const float2* spec, int f, int f0, int nbins,
                              int log2n) const {
-    float2* out = partial + static_cast<size_t>(blockIdx.x) * nbl * nbins;
+    const size_t cta =
+        static_cast<size_t>(blockIdx.y) * gridDim.x + blockIdx.x;
+    float2* out = partial + cta * nbl * nbins;
     for (int idx = threadIdx.x; idx < nbl * nbins; idx += kThreads) {
       const int l = idx >> log2n;
       const int bin = idx & (nbins - 1);
@@ -362,11 +505,13 @@ struct SpecOut {
   __device__ void frame_done(const float2*, int, int, int, int) const {}
 };
 
-// (b) One CTA per group of frames.  Dynamic shared memory:
+// (b) One CTA per group of frames of one block: grid (n_groups, K),
+// block k = blockIdx.y.  Dynamic shared memory:
 //   spec  [slots][nbins] float2 — the frame's spectra (CrossOut: every
 //                                 channel's; SpecOut: one)
 //   work  [nbins]        float2 — the FFT's ping-pong buffer
-//   mean  [nch]          float2
+//   mean  [mean_blocks][nch] float2 — the means of blocks jlo .. k, the
+//                                 blocks the CTA's rows lie in
 //   tab   [ntaps * r]    float  — SvdFir's u (none for DirectFir)
 // For each frame and channel: the FIR over ntaps rows of [history; x]
 // (read through `rows`) into the FFT's first buffer, a radix-2 Stockham
@@ -376,34 +521,40 @@ template <class Rows, class Fir, class Out>
 __global__ void __launch_bounds__(kThreads)
 fx_frames_kernel(Rows rows, Fir fir, Out out, const float2* __restrict__ tw,
                  int nch, int S, int nbins, int log2n, int ntaps,
-                 int frames_per_group, int parts) {
+                 int frames_per_group, int parts, int mean_blocks) {
   extern __shared__ float2 smem[];
   float2* spec = smem;
   float2* work = smem + static_cast<size_t>(Out::slots(nch)) * nbins;
   float2* mean_s = work + nbins;
-  float* tab = reinterpret_cast<float*>(mean_s + nch);
+  float* tab = reinterpret_cast<float*>(mean_s + mean_blocks * nch);
   const int tid = threadIdx.x;
   const int half = nbins >> 1;
+  const int kb = blockIdx.y;  // this CTA's block
+  const int halo = ntaps - 1;
+  // the first block any of this block's frames reads a row of
+  const long long g_min = static_cast<long long>(kb) * S - halo;
+  const int jlo = g_min <= 0 ? 0 : static_cast<int>(g_min / S);
 
   fir.stage(tab, ntaps);
-  for (int c = tid; c < nch; c += kThreads) {
-    mean_s[c] = rows.mean(c, parts);
+  for (int i = tid; i < (kb - jlo + 1) * nch; i += kThreads) {
+    mean_s[i] = rows.mean(jlo + i / nch, i % nch, parts);
   }
   __syncthreads();
 
   const int f0 = blockIdx.x * frames_per_group;
   const int f1 = min(f0 + frames_per_group, S);
+  const long long e_own = static_cast<long long>(kb) * S + halo;
 
   for (int f = f0; f < f1; ++f) {
+    const long long e0 = static_cast<long long>(kb) * S + f;
     for (int c = 0; c < nch; ++c) {
       float2* own = out.slot(spec, c, nbins);
       // an odd stage count starts in `work` so the result ends in `own`
       float2* a = (log2n & 1) ? work : own;
       float2* b = (log2n & 1) ? own : work;
-      const float2 mu = mean_s[c];
-      for (int bin = tid; bin < nbins; bin += kThreads) {
-        a[bin] = fir(rows, tab, c, f, bin, mu, ntaps, nbins);
-      }
+      const RowMeans m{mean_s[(kb - jlo) * nch + c], e_own, mean_s + c, jlo,
+                       nch};
+      fir(rows, tab, c, e0, m, ntaps, nbins, a);
       __syncthreads();
       for (int s = 0, ns = 1; s < log2n; ++s, ns <<= 1) {
         const int tshift = log2n - 1 - s;  // twiddle stride nbins / (2 ns)
@@ -427,50 +578,60 @@ fx_frames_kernel(Rows rows, Fir fir, Out out, const float2* __restrict__ tw,
   }
 }
 
-// The partials of element idx summed over groups in a fixed order.
+// The partials of element idx of xp [K, nbl, nbins] summed over block k's
+// groups in a fixed order (partial [K, n_groups, nbl, nbins]).
 __device__ __forceinline__ void sum_partials(const float2* __restrict__ partial,
                                              float2* __restrict__ xp,
                                              long long idx, int n_groups,
                                              long long n_xp) {
-  float2 acc = partial[idx];
+  const long long k = idx / n_xp;
+  const float2* p = partial + k * n_groups * n_xp + (idx - k * n_xp);
+  float2 acc = p[0];
   for (int g = 1; g < n_groups; ++g) {
-    acc = cadd(acc, partial[g * n_xp + idx]);
+    acc = cadd(acc, p[g * n_xp]);
   }
   xp[idx] = acc;
 }
 
-// (c) f32: the partials summed (nbl > 0), and the new history: rows
-// S .. S+halo-1 of [history; x - mean].
+// (c) f32: the partials summed (nbl > 0), and the new history: the last
+// halo rows K S .. K S + halo - 1 of [history; x], each losing its
+// block's mean.
 __global__ void __launch_bounds__(kThreads)
 fx_reduce_kernel(const float2* __restrict__ partial, float2* __restrict__ xp,
-                 F32Rows rows, float2* __restrict__ new_hist, int n_groups,
-                 int nbl, int nch, int parts) {
+                 F32Rows rows, float2* __restrict__ new_hist, int K,
+                 int n_groups, int nbl, int nch, int parts) {
   const long long idx =
       static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
   const long long n_xp = static_cast<long long>(nbl) * rows.nbins;
-  if (idx < n_xp) sum_partials(partial, xp, idx, n_groups, n_xp);
+  if (idx < K * n_xp) sum_partials(partial, xp, idx, n_groups, n_xp);
   const int halo = rows.halo, nbins = rows.nbins;
   if (idx < static_cast<long long>(nch) * halo * nbins) {
     const int bin = static_cast<int>(idx % nbins);
     const int r = static_cast<int>((idx / nbins) % halo);
     const int c = static_cast<int>(idx / (static_cast<long long>(nbins) * halo));
-    const int e = rows.S + r;
-    const float2 mu = e < halo ? make_float2(0.f, 0.f) : rows.mean(c, parts);
-    new_hist[idx] = rows.at(c, e, bin, mu);
+    const long long e = static_cast<long long>(K) * rows.S + r;
+    const float2 mu =
+        e < halo ? make_float2(0.f, 0.f)
+                 : rows.mean(static_cast<int>((e - halo) / rows.S), c, parts);
+    new_hist[idx] = rows.row(c, e, bin, mu);
   }
 }
 
-// (c) int8: the partials summed, and this block's mean in real units.
+// (c) int8: the partials summed, and each block's mean in real units,
+// mu [K, nch].
 __global__ void __launch_bounds__(kThreads)
 fx_reduce_i8_kernel(const float2* __restrict__ partial,
                     float2* __restrict__ xp, I8Rows rows,
-                    float2* __restrict__ mu, int n_groups, int nbl, int nch,
-                    int parts) {
+                    float2* __restrict__ mu, int K, int n_groups, int nbl,
+                    int nch, int parts) {
   const long long idx =
       static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
   const long long n_xp = static_cast<long long>(nbl) * rows.nbins;
-  if (idx < n_xp) sum_partials(partial, xp, idx, n_groups, n_xp);
-  if (idx < nch) mu[idx] = rows.mean(static_cast<int>(idx), parts);
+  if (idx < K * n_xp) sum_partials(partial, xp, idx, n_groups, n_xp);
+  if (idx < static_cast<long long>(K) * nch) {
+    const int i = static_cast<int>(idx);
+    mu[idx] = rows.mean(i / nch, i % nch, parts);
+  }
 }
 
 int log2_of(int n) {
@@ -479,29 +640,36 @@ int log2_of(int n) {
   return k;
 }
 
-// Mean pre-pass and frame kernel of any mode, on `st`.
+// Mean pre-pass and frame kernel of any mode over K blocks, on `st`.  A
+// CTA stages the means of every block its rows lie in: at most
+// ceil(halo / S) + 1 of them, and never more than K.
 template <typename T, class Rows, class Fir, class Out>
 cudaError_t launch_means_and_frames(const T* x, typename SumOf<T>::pair* sums,
                                     const Rows& rows, const Fir& fir,
                                     const Out& out, const void* tw, int nch,
-                                    int S, int nbins, int ntaps, int n_groups,
-                                    int frames_per_group, int parts,
-                                    cudaStream_t st) {
+                                    int K, int S, int nbins, int ntaps,
+                                    int n_groups, int frames_per_group,
+                                    int parts, cudaStream_t st) {
+  if (K < 1 || K > 65535 || S < 1) return cudaErrorInvalidValue;
+  const int halo = ntaps - 1;
+  const int mean_blocks = min(K, (halo + S - 1) / S + 1);
   const size_t smem =
-      (static_cast<size_t>(Out::slots(nch) + 1) * nbins + nch) *
+      (static_cast<size_t>(Out::slots(nch) + 1) * nbins +
+       static_cast<size_t>(nch) * mean_blocks) *
           sizeof(float2) +
       fir.table_bytes(ntaps);
   cudaError_t err = cudaFuncSetAttribute(
       reinterpret_cast<const void*>(&fx_frames_kernel<Rows, Fir, Out>),
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  mean_partial_kernel<T><<<dim3(parts, nch), kThreads, 0, st>>>(x, sums,
-                                                                rows.n);
+  mean_partial_kernel<T><<<dim3(parts, nch, K), kThreads, 0, st>>>(
+      x, sums, rows.n, rows.stride);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  fx_frames_kernel<Rows, Fir, Out><<<n_groups, kThreads, smem, st>>>(
-      rows, fir, out, static_cast<const float2*>(tw), nch, S, nbins,
-      log2_of(nbins), ntaps, frames_per_group, parts);
+  fx_frames_kernel<Rows, Fir, Out>
+      <<<dim3(n_groups, K), kThreads, smem, st>>>(
+          rows, fir, out, static_cast<const float2*>(tw), nch, S, nbins,
+          log2_of(nbins), ntaps, frames_per_group, parts, mean_blocks);
   return cudaGetLastError();
 }
 
@@ -511,20 +679,21 @@ template <typename T, class Rows>
 cudaError_t launch_fx(const T* x, typename SumOf<T>::pair* sums,
                       const Rows& rows, const void* w, const void* u,
                       const void* v, int rank, const CrossOut& out,
-                      const void* tw, int nch, int S, int nbins, int ntaps,
-                      int n_groups, int frames_per_group, int parts,
-                      cudaStream_t st) {
+                      const void* tw, int nch, int K, int S, int nbins,
+                      int ntaps, int n_groups, int frames_per_group,
+                      int parts, cudaStream_t st) {
   if (rank < 0 || rank > kMaxRank) return cudaErrorInvalidValue;
   if (rank > 0) {
     const SvdFir fir{static_cast<const float*>(u),
                      static_cast<const float*>(v), rank};
-    return launch_means_and_frames(x, sums, rows, fir, out, tw, nch, S, nbins,
-                                   ntaps, n_groups, frames_per_group, parts,
-                                   st);
+    return launch_means_and_frames(x, sums, rows, fir, out, tw, nch, K, S,
+                                   nbins, ntaps, n_groups, frames_per_group,
+                                   parts, st);
   }
   const DirectFir fir{static_cast<const float*>(w)};
-  return launch_means_and_frames(x, sums, rows, fir, out, tw, nch, S, nbins,
-                                 ntaps, n_groups, frames_per_group, parts, st);
+  return launch_means_and_frames(x, sums, rows, fir, out, tw, nch, K, S,
+                                 nbins, ntaps, n_groups, frames_per_group,
+                                 parts, st);
 }
 
 int reduce_blocks(long long n) {
@@ -533,84 +702,94 @@ int reduce_blocks(long long n) {
 
 }  // namespace
 
-// Launch the three kernels of the complex64 mode on `stream`.  The caller
-// (fx_fused.py) has checked shapes, types, contiguity and that nbins is a
-// power of two in [256, 8192] with ntaps >= 2 and rank in [0, 16] (0: the
-// direct loop over w; else u [ntaps, rank] and v [rank, nbins]).  Scratch:
-// sums [nch, parts] double2, partial [n_groups, nbl, nbins] float2.
-// Returns cudaGetLastError().
+// Launch the three kernels of the complex64 mode over K blocks on
+// `stream`.  The caller (fx_fused.py) has checked shapes, types,
+// contiguity and that nbins is a power of two in [256, 8192] with ntaps >=
+// 2 and rank in [0, 16] (0: the direct loop over w; else u [ntaps, rank]
+// and v [rank, nbins]).  x is [nch, K, S, nbins]; each block has n_groups
+// groups of frames_per_group frames.  Scratch: sums [K, nch, parts]
+// double2, partial [K, n_groups, nbl, nbins] float2.  Writes xp [K, nbl,
+// nbins] and new_hist [nch, ntaps-1, nbins].  Returns cudaGetLastError().
 extern "C" int fxt_fx_fused(const void* x, const void* hist, const void* w,
                             const void* u, const void* v, const void* tw,
                             const void* pairs, void* sums, void* partial,
-                            void* xp, void* new_hist, int nch, int S,
+                            void* xp, void* new_hist, int nch, int K, int S,
                             int nbins, int ntaps, int rank, int nbl,
                             int n_groups, int frames_per_group, int parts,
                             void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int halo = ntaps - 1;
+  const long long n = static_cast<long long>(S) * nbins;
   auto* sd = static_cast<double2*>(sums);
   const F32Rows rows{static_cast<const float2*>(x),
                      static_cast<const float2*>(hist),
                      sd,
-                     static_cast<long long>(S) * nbins,
+                     n,
+                     K * n,
                      S,
                      halo,
-                     nbins};
+                     nbins,
+                     nch};
   const CrossOut out{static_cast<const int*>(pairs),
                      static_cast<float2*>(partial), nbl};
   cudaError_t err =
       launch_fx(static_cast<const float2*>(x), sd, rows, w, u, v, rank, out,
-                tw, nch, S, nbins, ntaps, n_groups, frames_per_group, parts,
-                st);
+                tw, nch, K, S, nbins, ntaps, n_groups, frames_per_group,
+                parts, st);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const long long n_out = static_cast<long long>(nbl) * nbins;
+  const long long n_out = static_cast<long long>(K) * nbl * nbins;
   const long long n_hist = static_cast<long long>(nch) * halo * nbins;
   fx_reduce_kernel<<<reduce_blocks(n_out > n_hist ? n_out : n_hist), kThreads,
                      0, st>>>(static_cast<const float2*>(partial),
                               static_cast<float2*>(xp), rows,
-                              static_cast<float2*>(new_hist), n_groups, nbl,
-                              nch, parts);
+                              static_cast<float2*>(new_hist), K, n_groups,
+                              nbl, nch, parts);
   return static_cast<int>(cudaGetLastError());
 }
 
-// Launch the three kernels of the int8 mode on `stream`.  The caller
-// (fx_fused.py) has checked what it checks for fxt_fx_fused, plus S >=
-// ntaps-1 and that x and tail start on an (I, Q) pair.  Scratch: sums
-// [nch, parts] longlong2, partial [n_groups, nbl, nbins] float2.  Writes
-// xp [nbl, nbins] and mu [nch] (complex64).  Returns cudaGetLastError().
+// Launch the three kernels of the int8 mode over K blocks on `stream`.
+// The caller (fx_fused.py) has checked what it checks for fxt_fx_fused,
+// plus S >= ntaps-1 and that x and tail start on an (I, Q) pair.  x is
+// [nch, K, S, nbins, 2].  Scratch: sums [K, nch, parts] longlong2, partial
+// [K, n_groups, nbl, nbins] float2.  Writes xp [K, nbl, nbins] and mu [K,
+// nch] (complex64).  Returns cudaGetLastError().
 extern "C" int fxt_fx_fused_i8(const void* x, const void* tail,
                                const void* mu_prev, const void* w,
                                const void* u, const void* v, const void* tw,
                                const void* pairs, void* sums, void* partial,
-                               void* xp, void* mu, int nch, int S, int nbins,
-                               int ntaps, int rank, int nbl, int n_groups,
-                               int frames_per_group, int parts, double step,
-                               void* stream) {
+                               void* xp, void* mu, int nch, int K, int S,
+                               int nbins, int ntaps, int rank, int nbl,
+                               int n_groups, int frames_per_group, int parts,
+                               double step, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const long long n = static_cast<long long>(S) * nbins;
   auto* sl = static_cast<longlong2*>(sums);
   const I8Rows rows{static_cast<const char2*>(x),
                     static_cast<const char2*>(tail),
                     static_cast<const float2*>(mu_prev),
                     sl,
-                    static_cast<long long>(S) * nbins,
+                    n,
+                    K * n,
                     S,
                     ntaps - 1,
                     nbins,
+                    nch,
                     static_cast<float>(step),
                     step};
   const CrossOut out{static_cast<const int*>(pairs),
                      static_cast<float2*>(partial), nbl};
   cudaError_t err =
       launch_fx(static_cast<const char2*>(x), sl, rows, w, u, v, rank, out,
-                tw, nch, S, nbins, ntaps, n_groups, frames_per_group, parts,
-                st);
+                tw, nch, K, S, nbins, ntaps, n_groups, frames_per_group,
+                parts, st);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const long long n_out = static_cast<long long>(nbl) * nbins;
-  fx_reduce_i8_kernel<<<reduce_blocks(n_out > nch ? n_out : nch), kThreads, 0,
-                        st>>>(static_cast<const float2*>(partial),
-                              static_cast<float2*>(xp), rows,
-                              static_cast<float2*>(mu), n_groups, nbl, nch,
-                              parts);
+  const long long n_out = static_cast<long long>(K) * nbl * nbins;
+  const long long n_mu = static_cast<long long>(K) * nch;
+  fx_reduce_i8_kernel<<<reduce_blocks(n_out > n_mu ? n_out : n_mu), kThreads,
+                        0, st>>>(static_cast<const float2*>(partial),
+                                 static_cast<float2*>(xp), rows,
+                                 static_cast<float2*>(mu), K, n_groups, nbl,
+                                 nch, parts);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -633,19 +812,21 @@ extern "C" int fxt_spectrometer(const void* x, const void* hist,
                      static_cast<const float2*>(hist),
                      sd,
                      nsamp,
+                     nsamp,
                      S,
                      halo,
-                     nbins};
+                     nbins,
+                     nch};
   const DirectFir fir{static_cast<const float*>(w)};
   const SpecOut out{static_cast<float2*>(spec), S};
   cudaError_t err = launch_means_and_frames(
-      static_cast<const float2*>(x), sd, rows, fir, out, tw, nch, S, nbins,
-      ntaps, n_groups, frames_per_group, parts, st);
+      static_cast<const float2*>(x), sd, rows, fir, out, tw, nch, 1, S,
+      nbins, ntaps, n_groups, frames_per_group, parts, st);
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long n_hist = static_cast<long long>(nch) * halo * nbins;
   if (n_hist > 0) {
     fx_reduce_kernel<<<reduce_blocks(n_hist), kThreads, 0, st>>>(
-        nullptr, nullptr, rows, static_cast<float2*>(new_hist), 1, 0, nch,
+        nullptr, nullptr, rows, static_cast<float2*>(new_hist), 1, 1, 0, nch,
         parts);
   }
   return static_cast<int>(cudaGetLastError());

@@ -61,9 +61,9 @@ def library_path() -> Path:
 def _declare(lib):
     P, I = ctypes.c_void_p, ctypes.c_int
     lib.fxt_fx_fused.restype = I
-    lib.fxt_fx_fused.argtypes = [P] * 11 + [I] * 9 + [P]
+    lib.fxt_fx_fused.argtypes = [P] * 11 + [I] * 10 + [P]
     lib.fxt_fx_fused_i8.restype = I
-    lib.fxt_fx_fused_i8.argtypes = [P] * 12 + [I] * 9 + [ctypes.c_double, P]
+    lib.fxt_fx_fused_i8.argtypes = [P] * 12 + [I] * 10 + [ctypes.c_double, P]
     lib.fxt_spectrometer.restype = I
     lib.fxt_spectrometer.argtypes = ([P] * 7 + [ctypes.c_longlong]
                                      + [I] * 7 + [P])

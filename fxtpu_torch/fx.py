@@ -27,6 +27,13 @@ per engine (``_resolve_fused``, like ``fxtpu.fx._resolve_fused``):
 ``[nbl, nbins]`` fftshifted cross-power spectra (SPECTRUM) or ``[nbl]``
 scalars (CONTINUUM/TEST); ``delays`` is ``[nch]`` seconds or the packed
 ``[nch, 2]`` form of :func:`~fxtpu_torch.ops.xengine.pack_delays`.
+
+``multi_step(iq, delays, history) -> (vis [K, ...], new_history)`` takes
+K blocks per call (``fxtpu.fx.make_fx_multi_step``), as
+:meth:`FxEngine.prepare_batch` stages them, with per-block delays ``[K,
+nch]`` or ``[K, nch, 2]``: on the fused route one K-block launch of the
+fused step, on the plain route the plain step over the blocks in turn;
+either way K chained single steps bit for bit.
 """
 
 from __future__ import annotations
@@ -39,8 +46,9 @@ import torch
 from fxtpu_torch.config import CorrelatorConfig
 from fxtpu_torch.ops.delay import estimate_delay
 from fxtpu_torch.ops.fx_fused import (fx_fused_raw, fx_fused_raw_i8,
-                                      pairs_tensor, supported, supported_i8,
-                                      svd_tensors)
+                                      fx_fused_raw_i8_multi,
+                                      fx_fused_raw_multi, pairs_tensor,
+                                      supported, supported_i8, svd_tensors)
 from fxtpu_torch.ops.pfb import (dc_remove, dequantize, spectrometer,
                                  zero_history)
 from fxtpu_torch.ops.svd_fir import deep_svd_applies
@@ -50,7 +58,8 @@ from fxtpu_torch.ops.xengine import (baseline_pairs, continuum_reduce,
                                      split_delays, xcorr_baselines)
 from fxtpu_torch.runtime.native import quantize_c64
 
-__all__ = ["make_fx_step", "make_calibrator", "dc_remove", "FxEngine"]
+__all__ = ["make_fx_step", "make_fx_multi_step", "make_calibrator",
+           "dc_remove", "FxEngine"]
 
 
 def _resolve_fused(fused, device: torch.device, nbins: int, ntaps: int,
@@ -107,15 +116,16 @@ class _FinishTables:
 
 def _finish(xp: torch.Tensor, delays: torch.Tensor, tables: _FinishTables,
             n_frames: int, bandwidth: float, continuum: bool):
-    """Raw frame-summed cross power ``[nbl, nbins]`` -> the visibility
+    """Raw frame-summed cross power ``[nbl, nbins]``, or ``[K, nbl,
+    nbins]`` with delays ``[K, nch(, 2)]`` per block -> the visibility
     (``fxtpu.fx._finish_fused``): ``vis[p,q] = xp[p,q] rot_p conj(rot_q) /
     n_frames`` with ``rot_c = exp(+2 pi j f d_c)``, fftshift, and the
     continuum reduction."""
-    d, frac = split_delays(delays, 1)
-    dd = d[tables.p] - d[tables.q]                           # [nbl]
+    d, frac = split_delays(delays, xp.ndim - 1)
+    dd = d[..., tables.p] - d[..., tables.q]                 # [..., nbl]
     if frac is not None:
         phase = rotation_phase(tables.fbase, dd,
-                               frac[tables.p] - frac[tables.q])
+                               frac[..., tables.p] - frac[..., tables.q])
     else:
         phase = rotation_phase(tables.frf, dd, None)
     rot = torch.complex(torch.cos(phase), torch.sin(phase))
@@ -140,12 +150,10 @@ def make_fx_step(*, mode: str, nbins: int, window2d: np.ndarray,
     device = torch.device(device)
     continuum = mode in ("CONTINUUM", "TEST")
     w = torch.as_tensor(np.asarray(window2d, np.float32), device=device)
-    nch = int(np.asarray(pairs).max()) + 1
 
     if fused:
-        pairs_dev = pairs_tensor(pairs, nch, device)
-        tables = _FinishTables(np.asarray(pairs), nbins, bandwidth,
-                               frequency, device)
+        pairs_dev, tables = _fused_tables(pairs, nbins, bandwidth, frequency,
+                                          device)
 
         def fused_step(iq, delays, history):
             if isinstance(history, dict):
@@ -174,6 +182,62 @@ def make_fx_step(*, mode: str, nbins: int, window2d: np.ndarray,
         return vis, new_history
 
     return step
+
+
+def _fused_tables(pairs, nbins: int, bandwidth: float, frequency: float,
+                  device):
+    """The fused route's pairs on ``device`` and :class:`_FinishTables`."""
+    pairs = np.asarray(pairs)
+    return (pairs_tensor(pairs, int(pairs.max()) + 1, device),
+            _FinishTables(pairs, nbins, bandwidth, frequency, device))
+
+
+def make_fx_multi_step(*, mode: str, nbins: int, window2d: np.ndarray,
+                       pairs: np.ndarray, bandwidth: float, frequency: float,
+                       device, fused: bool, quant_step: float = 1.0 / 32,
+                       svd=None):
+    """Build the K-blocks-per-call step on ``device`` (``fxtpu.fx.
+    make_fx_multi_step``): ``multi(iq, delays [K, nch(, 2)], history) ->
+    (vis [K, ...], new_history)``, identical to K chained steps of
+    :func:`make_fx_step` with the same arguments.  ``fused=True``: ``iq``
+    is the merged ``[nch, K, S, nbins]`` complex64 or ``[nch, K, S, nbins,
+    2]`` int8 batch and the K blocks go through one
+    :func:`fx_fused_raw_multi` / :func:`fx_fused_raw_i8_multi` call, then
+    one :func:`_finish` over all K; ``fused=False``: ``iq`` is the stacked
+    ``[K, nch, num_samp(, 2)]`` batch and the plain step runs over the
+    blocks in turn (the counterpart of ``fxtpu``'s ``lax.scan``)."""
+    if not fused:
+        step = make_fx_step(mode=mode, nbins=nbins, window2d=window2d,
+                            pairs=pairs, bandwidth=bandwidth,
+                            frequency=frequency, device=device, fused=False,
+                            quant_step=quant_step)
+
+        def multi(iq, delays, history):
+            vis = []
+            for k in range(iq.shape[0]):
+                v, history = step(iq[k], delays[k], history)
+                vis.append(v)
+            return torch.stack(vis), history
+
+        return multi
+
+    device = torch.device(device)
+    continuum = mode in ("CONTINUUM", "TEST")
+    w = torch.as_tensor(np.asarray(window2d, np.float32), device=device)
+    pairs_dev, tables = _fused_tables(pairs, nbins, bandwidth, frequency,
+                                      device)
+
+    def multi_fused(iq, delays, history):
+        if isinstance(history, dict):
+            xp, new_history = fx_fused_raw_i8_multi(iq, history, w, pairs_dev,
+                                                    quant_step, svd)
+        else:
+            xp, new_history = fx_fused_raw_multi(iq, history, w, pairs_dev,
+                                                 svd)
+        vis = _finish(xp, delays, tables, iq.shape[2], bandwidth, continuum)
+        return vis, new_history
+
+    return multi_fused
 
 
 def make_calibrator(*, bandwidth: float):
@@ -239,6 +303,34 @@ class FxEngine:
             frequency=cfg.frequency, device=self.device,
             fused=self._fused, quant_step=cfg.quant_step, svd=self._svd)
         self.calibrate = make_calibrator(bandwidth=cfg.bandwidth)
+        self._multi_step = None
+
+    @property
+    def multi_step(self):
+        """The K-blocks-per-call step (:func:`make_fx_multi_step` on this
+        engine's route and FIR mode), built at first use: feed it what
+        :meth:`prepare_batch` returns."""
+        if self._multi_step is None:
+            cfg = self.cfg
+            self._multi_step = make_fx_multi_step(
+                mode=cfg.mode, nbins=cfg.nbins, window2d=self.window2d,
+                pairs=self.pairs, bandwidth=cfg.bandwidth,
+                frequency=cfg.frequency, device=self.device,
+                fused=self._fused, quant_step=cfg.quant_step, svd=self._svd)
+        return self._multi_step
+
+    @property
+    def batch_merged(self) -> bool:
+        """True when :meth:`prepare_batch` stages the merged ``[nch, K, S,
+        nbins(, 2)]`` layout (block 0 on the second axis), the fused
+        route's; the plain route stacks ``[K, nch, ...]``."""
+        return self._fused
+
+    def dispatch_batch_for(self, requested: int) -> int:
+        """Blocks per :attr:`multi_step` call for ``requested``: any K on
+        one device, 1 for ``requested <= 1``
+        (``fxtpu.fx.FxEngine.dispatch_batch_for`` without a mesh)."""
+        return requested if requested > 1 else 1
 
     @property
     def fused_active(self) -> bool:
@@ -298,6 +390,61 @@ class FxEngine:
             block = block[:, : s * nbins].reshape(nch, s, nbins,
                                                   *block.shape[2:])
         return torch.from_numpy(block).to(self.device)
+
+    def batch_host_buffer(self, k: int) -> torch.Tensor:
+        """An empty host tensor that holds a batch of ``k`` blocks in
+        :meth:`prepare_batch`'s layout: pinned on a CUDA engine (raising
+        if the memory cannot be pinned), plain memory otherwise."""
+        cfg = self.cfg
+        iq = (2,) if self._int8 else ()
+        if self._fused:
+            shape = (cfg.nchan, k, cfg.num_samp // cfg.nbins, cfg.nbins, *iq)
+        else:
+            shape = (k, cfg.nchan, cfg.num_samp, *iq)
+        dtype = torch.int8 if self._int8 else torch.complex64
+        if self.device.type != "cuda":
+            return torch.empty(shape, dtype=dtype)
+        host = torch.empty(shape, dtype=dtype, pin_memory=True)
+        if not host.is_pinned():
+            raise RuntimeError("the batch's host buffer could not be pinned")
+        return host
+
+    def prepare_batch(self, blocks, host: Optional[torch.Tensor] = None
+                      ) -> torch.Tensor:
+        """K host blocks -> the input of one :attr:`multi_step` call
+        (``fxtpu.fx.FxEngine.prepare_batch``).  ``blocks``: K arrays
+        ``[nch, num_samp]`` complex64, or int8 ``[nch, num_samp, 2]`` for
+        an int8 engine (complex ones are quantized at ``quant_step``
+        first).  The fused route stages the merged ``[nch, K, S, nbins(,
+        2)]`` layout, each block framed with its tail samples dropped; the
+        plain route stacks ``[K, nch, num_samp(, 2)]``.
+
+        The blocks are copied into ``host`` (from
+        :meth:`batch_host_buffer`; a new one when None).  On a CUDA engine
+        that buffer is pinned and goes to the card with one
+        ``non_blocking`` copy on the current stream: the caller keeps
+        ``host`` untouched until that copy has completed (``runtime.
+        stager`` records an event after it).  On the CPU the buffer is
+        the batch."""
+        blocks = list(blocks)
+        if host is None:
+            host = self.batch_host_buffer(len(blocks))
+        out = host.numpy()
+        cfg = self.cfg
+        s_rows = cfg.num_samp // cfg.nbins
+        for j, block in enumerate(blocks):
+            if self._int8 and np.iscomplexobj(block):
+                block = quantize_c64(np.ascontiguousarray(block, np.complex64),
+                                     cfg.quant_step)
+            if self._fused:
+                block = block[:, : s_rows * cfg.nbins].reshape(
+                    cfg.nchan, s_rows, cfg.nbins, *block.shape[2:])
+                np.copyto(out[:, j], block)
+            else:
+                np.copyto(out[j], block)
+        if self.device.type != "cuda":
+            return host
+        return host.to(self.device, non_blocking=True)
 
     def calibrate_block(self, iq: torch.Tensor,
                         ncal: Optional[int] = None) -> torch.Tensor:

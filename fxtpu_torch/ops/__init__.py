@@ -12,7 +12,11 @@ from fxtpu_torch.ops.xengine import (baseline_pairs, continuum_reduce,
                                      xcorr_baselines)
 from fxtpu_torch.ops.delay import estimate_delay
 from fxtpu_torch.ops.fx_fused import (fx_fused_raw, fx_fused_raw_i8,
+                                      fx_fused_raw_i8_multi,
+                                      fx_fused_raw_i8_multi_reference,
                                       fx_fused_raw_i8_reference,
+                                      fx_fused_raw_multi,
+                                      fx_fused_raw_multi_reference,
                                       fx_fused_raw_reference, pairs_tensor,
                                       supported, supported_i8, svd_tensors)
 from fxtpu_torch.ops.spectrometer import (spectrometer_fused,
@@ -28,7 +32,10 @@ __all__ = [
     "rf_freqs", "xcorr_baselines",
     "estimate_delay",
     "fx_fused_raw", "fx_fused_raw_reference", "fx_fused_raw_i8",
-    "fx_fused_raw_i8_reference", "pairs_tensor", "supported", "supported_i8",
+    "fx_fused_raw_i8_reference", "fx_fused_raw_multi",
+    "fx_fused_raw_multi_reference", "fx_fused_raw_i8_multi",
+    "fx_fused_raw_i8_multi_reference", "pairs_tensor", "supported",
+    "supported_i8",
     "svd_tensors", "spectrometer_fused", "spectrometer_fused_reference",
     "supported_spectrometer",
 ]

@@ -35,6 +35,17 @@ last rows as they arrived and its mean in real units.  spec is then the
 FFT of the FIR over ``[tail*step - mu_prev; x*step - mu]`` and the new
 history is ``{"tail": x[:, S-ntaps+1:], "mu_prev": mu}``.
 
+K blocks per launch (``fx_pallas_raw_multi(..., merged=True)``):
+:func:`fx_fused_raw_multi` and :func:`fx_fused_raw_i8_multi` take the
+merged layout ``fxtpu`` stages, ``[nch, K, S, nbins]`` complex64 or
+``[nch, K, S, nbins, 2]`` int8 (the same memory as ``[nch, K*S, nbins]``),
+and return ``xp [K, nbl, nbins]`` and the history after the last block:
+bit for bit what K chained single-block calls return (``fxtpu``'s own
+contract, ``fxtpu/fx.py:305-307``), which is how their plain versions
+compute it.  The single-block wrappers launch the same entry points at
+K = 1.  Their launches count apart, on ``fx_fused_raw_multi`` and
+``fx_fused_raw_i8_multi``.
+
 The rotation, ``1/n_frames``, fftshift and continuum stay with the caller
 (``fxtpu_torch.fx._finish``), as ``_finish_fused`` stays XLA in JAX.
 """
@@ -52,26 +63,43 @@ from fxtpu_torch.ops.svd_fir import svd_fir_factors
 
 __all__ = ["supported", "supported_i8", "fx_fused_raw",
            "fx_fused_raw_reference", "fx_fused_raw_i8",
-           "fx_fused_raw_i8_reference", "pairs_tensor", "svd_tensors",
+           "fx_fused_raw_i8_reference", "fx_fused_raw_multi",
+           "fx_fused_raw_multi_reference", "fx_fused_raw_i8_multi",
+           "fx_fused_raw_i8_multi_reference", "pairs_tensor", "svd_tensors",
            "MAX_SHARED_BYTES", "MAX_SVD_RANK"]
 
 #: Dynamic shared memory one block may use on Hopper (227 KiB).
 MAX_SHARED_BYTES = 232448
 #: Blocks per channel in the kernel's mean pre-pass.
 MEAN_PARTS = 32
-#: Most CTAs the frame kernel is split into (two per H100 SM).
+#: Most CTAs the frame kernel splits one block into (two per H100 SM).
 MAX_GROUPS = 264
-#: Bound on the kernel's [n_groups, nbl, nbins] partial cross power.
+#: Bound on one block's [n_groups, nbl, nbins] partial cross power.
 MAX_PARTIAL_BYTES = 64 << 20
+#: Bound on a launch's partial cross power, all K blocks' together.
+MAX_LAUNCH_PARTIAL_BYTES = 1 << 30
 #: Largest SVD rank the kernel's FIR keeps in registers (kMaxRank).
 MAX_SVD_RANK = 16
+#: Most blocks one launch takes (the grid's second axis).
+MAX_BLOCKS = 65535
 
 
-def shared_bytes(nbins: int, nch: int, ntaps: int = 0, rank: int = 0) -> int:
+def shared_bytes(nbins: int, nch: int, ntaps: int = 0, rank: int = 0,
+                 mean_blocks: int = 1) -> int:
     """Dynamic shared memory of the frame kernel: every channel's
-    spectrum, one FFT ping-pong buffer, the channel means and, in the
-    SVD-FIR mode (``rank > 0``), the ``[ntaps, rank]`` float32 table u."""
-    return ((nch + 1) * nbins + nch) * 8 + ntaps * rank * 4
+    spectrum, one FFT ping-pong buffer, the channel means of
+    ``mean_blocks`` blocks (:func:`mean_blocks`; 1 for one block per
+    launch) and, in the SVD-FIR mode (``rank > 0``), the ``[ntaps,
+    rank]`` float32 table u."""
+    return (((nch + 1) * nbins + nch * mean_blocks) * 8
+            + ntaps * rank * 4)
+
+
+def mean_blocks(k: int, s_rows: int, ntaps: int) -> int:
+    """How many blocks' means a CTA of a K-block launch stages: the
+    blocks its frames read rows of, its own and the ``ceil((ntaps-1) /
+    S)`` before it, never more than K (the kernel's ``mean_blocks``)."""
+    return min(k, -(-(ntaps - 1) // s_rows) + 1)
 
 
 def supported(nbins: int, ntaps: int, nch: int, rank: int = 0) -> bool:
@@ -179,8 +207,12 @@ def _twiddles(nbins: int, device: torch.device) -> torch.Tensor:
 
 
 def _groups(s_rows: int, nbl: int, nbins: int):
-    """(n_groups, frames_per_group): one frame per CTA until the grid
-    reaches MAX_GROUPS or the partials MAX_PARTIAL_BYTES."""
+    """(n_groups, frames_per_group) of one block: one frame per CTA until
+    the block's CTAs reach MAX_GROUPS or its partials MAX_PARTIAL_BYTES.
+    A launch of K blocks has K times the CTAs and the partials: the
+    grouping of a block must not depend on K, or its frames would be
+    summed in another order than a one-block launch sums them, and K
+    blocks would no longer be K one-block launches bit for bit."""
     cap = max(1, MAX_PARTIAL_BYTES // (nbl * nbins * 8))
     n = max(1, min(s_rows, MAX_GROUPS, cap))
     per = -(-s_rows // n)
@@ -223,12 +255,34 @@ def _check_args(x, window2d, pairs, nbins, tensors, svd):
     return rank
 
 
-def _check(x, history, window2d, pairs, svd):
+def _check_blocks(k, s_rows, nbins, ntaps, nch, rank, nbl):
+    """What a launch of k blocks adds to the per-frame checks: the grid's
+    block axis, the means of the blocks a CTA reads in shared memory, and
+    the k blocks' partials together (each block is grouped as alone, see
+    :func:`_groups`, so they grow with k)."""
+    if not 1 <= k <= MAX_BLOCKS:
+        raise ValueError(f"{k} blocks per launch is outside [1, "
+                         f"{MAX_BLOCKS}]")
+    partial = k * _groups(s_rows, nbl, nbins)[0] * nbl * nbins * 8
+    if partial > MAX_LAUNCH_PARTIAL_BYTES:
+        raise ValueError(f"{k} blocks of S={s_rows} need {partial} bytes of "
+                         f"partial cross power, more than "
+                         f"{MAX_LAUNCH_PARTIAL_BYTES}: take fewer blocks "
+                         "per launch")
+    smem = shared_bytes(nbins, nch, ntaps, rank,
+                        mean_blocks(k, s_rows, ntaps))
+    if smem > MAX_SHARED_BYTES:
+        raise ValueError(f"{k} blocks of S={s_rows} need {smem} bytes of "
+                         f"shared memory, more than {MAX_SHARED_BYTES}")
+
+
+def _check(x, history, window2d, pairs, svd, multi=False):
     if x.dtype != torch.complex64 or history.dtype != torch.complex64:
         raise TypeError("x and history must be complex64")
-    if x.ndim != 3:
-        raise ValueError(f"x must be framed [nch, S, nbins], got {x.shape}")
-    nch, _, nbins = x.shape
+    if x.ndim != (4 if multi else 3):
+        form = "[nch, K, S, nbins]" if multi else "[nch, S, nbins]"
+        raise ValueError(f"x must be framed {form}, got {x.shape}")
+    nch, s_rows, nbins = x.shape[0], x.shape[-2], x.shape[-1]
     ntaps = window2d.shape[0]
     rank = _check_args(x, window2d, pairs, nbins, [("history", history)],
                        svd)
@@ -240,10 +294,13 @@ def _check(x, history, window2d, pairs, svd):
             f"the CUDA FX kernel does not take nbins={nbins}, "
             f"ntaps={ntaps}, nch={nch}, rank={rank} (see "
             "fx_fused.supported)")
+    if multi:
+        _check_blocks(x.shape[1], s_rows, nbins, ntaps, nch, rank,
+                      pairs.shape[0])
     return rank
 
 
-def _check_i8(x, history, window2d, pairs, quant_step, svd):
+def _check_i8(x, history, window2d, pairs, quant_step, svd, multi=False):
     if not isinstance(history, dict) or set(history) != {"tail", "mu_prev"}:
         raise TypeError('history must be {"tail": ..., "mu_prev": ...}')
     tail, mu_prev = history["tail"], history["mu_prev"]
@@ -251,10 +308,10 @@ def _check_i8(x, history, window2d, pairs, quant_step, svd):
         raise TypeError("x and the tail must be int8")
     if mu_prev.dtype != torch.complex64:
         raise TypeError("mu_prev must be complex64")
-    if x.ndim != 4 or x.shape[-1] != 2:
-        raise ValueError(
-            f"x must be framed int8 [nch, S, nbins, 2], got {x.shape}")
-    nch, s_rows, nbins, _ = x.shape
+    if x.ndim != (5 if multi else 4) or x.shape[-1] != 2:
+        form = "[nch, K, S, nbins, 2]" if multi else "[nch, S, nbins, 2]"
+        raise ValueError(f"x must be framed int8 {form}, got {x.shape}")
+    nch, s_rows, nbins = x.shape[0], x.shape[-3], x.shape[-2]
     ntaps = window2d.shape[0]
     rank = _check_args(x, window2d, pairs, nbins,
                        [("tail", tail), ("mu_prev", mu_prev)], svd)
@@ -273,17 +330,21 @@ def _check_i8(x, history, window2d, pairs, quant_step, svd):
             f"the CUDA int8 FX kernel does not take nbins={nbins}, "
             f"ntaps={ntaps}, nch={nch}, S={s_rows}, rank={rank} (see "
             "fx_fused.supported_i8)")
+    if multi:
+        _check_blocks(x.shape[1], s_rows, nbins, ntaps, nch, rank,
+                      pairs.shape[0])
     return rank
 
 
-def _launch_setup(x, pairs, s_rows, nbins):
-    """Library, output, scratch and grid shared by both kernels' launches."""
+def _launch_setup(x, pairs, k, s_rows, nbins):
+    """Library, output, scratch and grid shared by both kernels' launches
+    over k blocks: xp [k, nbl, nbins], partial [k, n_groups, nbl, nbins]."""
     from fxtpu_torch.cuda_build import load_kernels
     lib = load_kernels()
     nbl = pairs.shape[0]
     n_groups, per = _groups(s_rows, nbl, nbins)
-    xp = torch.empty((nbl, nbins), dtype=torch.complex64, device=x.device)
-    partial = torch.empty((n_groups, nbl, nbins), dtype=torch.complex64,
+    xp = torch.empty((k, nbl, nbins), dtype=torch.complex64, device=x.device)
+    partial = torch.empty((k, n_groups, nbl, nbins), dtype=torch.complex64,
                           device=x.device)
     return lib, nbl, n_groups, per, xp, partial
 
@@ -301,6 +362,65 @@ def _count(wrapper, rank):
         wrapper.launches += 1
 
 
+def _launch(x, history, window2d, pairs, svd, rank, what):
+    """The complex64 entry point over x [nch, K, S, nbins] (checked) ->
+    (xp [K, nbl, nbins], new_history)."""
+    from fxtpu_torch.cuda_build import check
+    nch, k, s_rows, nbins = x.shape
+    ntaps = window2d.shape[0]
+    lib, nbl, n_groups, per, xp, partial = _launch_setup(
+        x, pairs, k, s_rows, nbins)
+    dev = x.device
+    new_hist = torch.empty((nch, ntaps - 1, nbins), dtype=torch.complex64,
+                           device=dev)
+    sums = torch.empty((k, nch, MEAN_PARTS, 2), dtype=torch.float64,
+                       device=dev)
+    tw = _twiddles(nbins, dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.fxt_fx_fused(
+            x.data_ptr(), history.data_ptr(), window2d.data_ptr(),
+            *_svd_ptrs(svd), tw.data_ptr(), pairs.data_ptr(),
+            sums.data_ptr(), partial.data_ptr(), xp.data_ptr(),
+            new_hist.data_ptr(), nch, k, s_rows, nbins, ntaps, rank, nbl,
+            n_groups, per, MEAN_PARTS, stream)
+    check(lib, rc, what)
+    return xp, new_hist
+
+
+def _launch_i8(x, history, window2d, pairs, quant_step, svd, rank, what):
+    """The int8 entry point over x [nch, K, S, nbins, 2] (checked) ->
+    (xp [K, nbl, nbins], mu [K, nch])."""
+    from fxtpu_torch.cuda_build import check
+    nch, k, s_rows, nbins, _ = x.shape
+    ntaps = window2d.shape[0]
+    lib, nbl, n_groups, per, xp, partial = _launch_setup(
+        x, pairs, k, s_rows, nbins)
+    dev = x.device
+    mu = torch.empty((k, nch), dtype=torch.complex64, device=dev)
+    sums = torch.empty((k, nch, MEAN_PARTS, 2), dtype=torch.int64,
+                       device=dev)
+    tw = _twiddles(nbins, dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.fxt_fx_fused_i8(
+            x.data_ptr(), history["tail"].data_ptr(),
+            history["mu_prev"].data_ptr(), window2d.data_ptr(),
+            *_svd_ptrs(svd), tw.data_ptr(), pairs.data_ptr(),
+            sums.data_ptr(), partial.data_ptr(), xp.data_ptr(),
+            mu.data_ptr(), nch, k, s_rows, nbins, ntaps, rank, nbl,
+            n_groups, per, MEAN_PARTS, quant_step, stream)
+    check(lib, rc, what)
+    return xp, mu
+
+
+def _on_card(x, name):
+    """True for a CUDA tensor, False for a CPU one; raises otherwise."""
+    if x.device.type in ("cpu", "cuda"):
+        return x.device.type == "cuda"
+    raise ValueError(f"{name} runs on cuda or cpu, not {x.device}")
+
+
 def fx_fused_raw(x: torch.Tensor, history: torch.Tensor,
                  window2d: torch.Tensor, pairs: torch.Tensor, svd=None):
     """Fused DC + PFB + FFT + X for one block -> ``(xp, new_history)``
@@ -310,34 +430,16 @@ def fx_fused_raw(x: torch.Tensor, history: torch.Tensor,
     factors ``(u, v)`` of :func:`svd_tensors` on ``x``'s device.
 
     CPU tensors run :func:`fx_fused_raw_reference`; CUDA tensors launch
-    the kernel (built at first use) or raise.  Each launch adds one to
-    ``fx_fused_raw.launches`` (direct) or ``fx_fused_raw.svd_launches``."""
-    if x.device.type == "cpu":
+    the kernel (built at first use) at K = 1 or raise.  Each launch adds
+    one to ``fx_fused_raw.launches`` (direct) or
+    ``fx_fused_raw.svd_launches``."""
+    if not _on_card(x, "fx_fused_raw"):
         return fx_fused_raw_reference(x, history, window2d, pairs, svd)
-    if x.device.type != "cuda":
-        raise ValueError(f"fx_fused_raw runs on cuda or cpu, not {x.device}")
     rank = _check(x, history, window2d, pairs, svd)
-    from fxtpu_torch.cuda_build import check
-    nch, s_rows, nbins = x.shape
-    ntaps = window2d.shape[0]
-    lib, nbl, n_groups, per, xp, partial = _launch_setup(
-        x, pairs, s_rows, nbins)
-    dev = x.device
-    new_hist = torch.empty((nch, ntaps - 1, nbins), dtype=torch.complex64,
-                           device=dev)
-    sums = torch.empty((nch, MEAN_PARTS, 2), dtype=torch.float64, device=dev)
-    tw = _twiddles(nbins, dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.fxt_fx_fused(
-            x.data_ptr(), history.data_ptr(), window2d.data_ptr(),
-            *_svd_ptrs(svd), tw.data_ptr(), pairs.data_ptr(),
-            sums.data_ptr(), partial.data_ptr(), xp.data_ptr(),
-            new_hist.data_ptr(), nch, s_rows, nbins, ntaps, rank, nbl,
-            n_groups, per, MEAN_PARTS, stream)
-    check(lib, rc, "fx_fused kernel launch")
+    xp, new_hist = _launch(x.unsqueeze(1), history, window2d, pairs, svd,
+                           rank, "fx_fused kernel launch")
     _count(fx_fused_raw, rank)
-    return xp, new_hist
+    return xp[0], new_hist
 
 
 fx_fused_raw.launches = 0
@@ -352,39 +454,105 @@ def fx_fused_raw_i8(x: torch.Tensor, history: dict, window2d: torch.Tensor,
     :func:`fx_fused_raw`).
 
     CPU tensors run :func:`fx_fused_raw_i8_reference`; CUDA tensors
-    launch the int8 kernel (built at first use) or raise.  Each launch
-    adds one to ``fx_fused_raw_i8.launches`` (direct) or
+    launch the int8 kernel (built at first use) at K = 1 or raise.  Each
+    launch adds one to ``fx_fused_raw_i8.launches`` (direct) or
     ``fx_fused_raw_i8.svd_launches``."""
-    if x.device.type == "cpu":
+    if not _on_card(x, "fx_fused_raw_i8"):
         return fx_fused_raw_i8_reference(x, history, window2d, pairs,
                                          quant_step, svd)
-    if x.device.type != "cuda":
-        raise ValueError(
-            f"fx_fused_raw_i8 runs on cuda or cpu, not {x.device}")
     quant_step = float(quant_step)
     rank = _check_i8(x, history, window2d, pairs, quant_step, svd)
-    from fxtpu_torch.cuda_build import check
-    nch, s_rows, nbins, _ = x.shape
-    ntaps = window2d.shape[0]
-    lib, nbl, n_groups, per, xp, partial = _launch_setup(
-        x, pairs, s_rows, nbins)
-    dev = x.device
-    mu = torch.empty((nch,), dtype=torch.complex64, device=dev)
-    sums = torch.empty((nch, MEAN_PARTS, 2), dtype=torch.int64, device=dev)
-    tw = _twiddles(nbins, dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.fxt_fx_fused_i8(
-            x.data_ptr(), history["tail"].data_ptr(),
-            history["mu_prev"].data_ptr(), window2d.data_ptr(),
-            *_svd_ptrs(svd), tw.data_ptr(), pairs.data_ptr(),
-            sums.data_ptr(), partial.data_ptr(), xp.data_ptr(),
-            mu.data_ptr(), nch, s_rows, nbins, ntaps, rank, nbl, n_groups,
-            per, MEAN_PARTS, quant_step, stream)
-    check(lib, rc, "fx_fused_i8 kernel launch")
+    xp, mu = _launch_i8(x.unsqueeze(1), history, window2d, pairs,
+                        quant_step, svd, rank, "fx_fused_i8 kernel launch")
     _count(fx_fused_raw_i8, rank)
-    return xp, _i8_history(x, ntaps, mu)
+    return xp[0], _i8_history(x, window2d.shape[0], mu[0])
 
 
 fx_fused_raw_i8.launches = 0
 fx_fused_raw_i8.svd_launches = 0
+
+
+def fx_fused_raw_multi_reference(x: torch.Tensor, history: torch.Tensor,
+                                 window2d: torch.Tensor, pairs: torch.Tensor,
+                                 svd=None):
+    """K blocks in plain torch: :func:`fx_fused_raw_reference` chained
+    over the blocks of the merged ``x [nch, K, S, nbins]``, each block
+    taken contiguous as a single-block caller holds it -> ``(xp [K, nbl,
+    nbins], history after the last block)``."""
+    xps = []
+    for k in range(x.shape[1]):
+        xp, history = fx_fused_raw_reference(x[:, k].contiguous(), history,
+                                             window2d, pairs, svd)
+        xps.append(xp)
+    return torch.stack(xps), history
+
+
+def fx_fused_raw_multi(x: torch.Tensor, history: torch.Tensor,
+                       window2d: torch.Tensor, pairs: torch.Tensor,
+                       svd=None):
+    """Fused DC + PFB + FFT + X for the K blocks of the merged ``x [nch,
+    K, S, nbins]`` in one launch -> ``(xp [K, nbl, nbins], new_history)``,
+    K chained :func:`fx_fused_raw` calls bit for bit (``fxtpu``'s
+    ``fx_pallas_raw_multi(..., merged=True)``).  Arguments as for
+    :func:`fx_fused_raw`.
+
+    CPU tensors run :func:`fx_fused_raw_multi_reference`; CUDA tensors
+    launch the kernel or raise.  Each launch adds one to
+    ``fx_fused_raw_multi.launches`` (direct) or
+    ``fx_fused_raw_multi.svd_launches``."""
+    if not _on_card(x, "fx_fused_raw_multi"):
+        return fx_fused_raw_multi_reference(x, history, window2d, pairs, svd)
+    rank = _check(x, history, window2d, pairs, svd, multi=True)
+    out = _launch(x, history, window2d, pairs, svd, rank,
+                  "fx_fused_multi kernel launch")
+    _count(fx_fused_raw_multi, rank)
+    return out
+
+
+fx_fused_raw_multi.launches = 0
+fx_fused_raw_multi.svd_launches = 0
+
+
+def fx_fused_raw_i8_multi_reference(x: torch.Tensor, history: dict,
+                                    window2d: torch.Tensor,
+                                    pairs: torch.Tensor, quant_step: float,
+                                    svd=None):
+    """K blocks of 8-bit samples in plain torch:
+    :func:`fx_fused_raw_i8_reference` chained over the blocks of the
+    merged ``x [nch, K, S, nbins, 2]`` -> ``(xp [K, nbl, nbins], the
+    raw-tail history after the last block)``."""
+    xps = []
+    for k in range(x.shape[1]):
+        xp, history = fx_fused_raw_i8_reference(
+            x[:, k].contiguous(), history, window2d, pairs, quant_step, svd)
+        xps.append(xp)
+    return torch.stack(xps), history
+
+
+def fx_fused_raw_i8_multi(x: torch.Tensor, history: dict,
+                          window2d: torch.Tensor, pairs: torch.Tensor,
+                          quant_step: float, svd=None):
+    """Fused DC + PFB + FFT + X for the K blocks of the merged 8-bit ``x
+    [nch, K, S, nbins, 2]`` in one launch -> ``(xp [K, nbl, nbins],
+    new_history)``: K chained :func:`fx_fused_raw_i8` calls bit for bit.
+    The new raw tail is the last block's last ntaps-1 rows and
+    ``mu_prev`` its mean (``pfb_pallas.py:1719-1734``).
+
+    CPU tensors run :func:`fx_fused_raw_i8_multi_reference`; CUDA tensors
+    launch the int8 kernel or raise.  Each launch adds one to
+    ``fx_fused_raw_i8_multi.launches`` (direct) or
+    ``fx_fused_raw_i8_multi.svd_launches``."""
+    if not _on_card(x, "fx_fused_raw_i8_multi"):
+        return fx_fused_raw_i8_multi_reference(x, history, window2d, pairs,
+                                               quant_step, svd)
+    quant_step = float(quant_step)
+    rank = _check_i8(x, history, window2d, pairs, quant_step, svd,
+                     multi=True)
+    xp, mu = _launch_i8(x, history, window2d, pairs, quant_step, svd, rank,
+                        "fx_fused_i8_multi kernel launch")
+    _count(fx_fused_raw_i8_multi, rank)
+    return xp, _i8_history(x[:, -1], window2d.shape[0], mu[-1])
+
+
+fx_fused_raw_i8_multi.launches = 0
+fx_fused_raw_i8_multi.svd_launches = 0

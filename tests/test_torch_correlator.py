@@ -208,7 +208,8 @@ def test_port_never_imports_jax():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(mesh_time=2), dict(mesh_freq=2), dict(blocks_per_dispatch=4),
+    dict(mesh_time=2), dict(mesh_freq=2),
+    dict(blocks_per_dispatch=4, resume_from="state.npz"),
     dict(ingest_dtype="int8", snapshot_every=5), dict(snapshot_every=5),
     dict(resume_from="state.npz")])
 def test_unported_options_raise(kw):
@@ -220,9 +221,9 @@ def test_unported_options_raise(kw):
 def test_unported_cli_flags_raise(tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP.md A.9"):
         cli_main(["--num_processes", "2", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A.6"):
-        cli_main(["--blocks_per_dispatch", "2", "--device", "cpu",
-                  "--output", str(tmp_path / "v.csv")])
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A.8"):
+        cli_main(["--blocks_per_dispatch", "2", "--snapshot_every", "2",
+                  "--device", "cpu", "--output", str(tmp_path / "v.csv")])
 
 
 def test_illegal_transition_raises():
