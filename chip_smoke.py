@@ -33,9 +33,11 @@ Phases (any failure raises and exits non-zero, with no ``ok`` line):
    (``tests/test_planes.py:301``), history within 1e-6; the K-block
    entries (``fx_fused_multi``, ``fx_fused_i8_multi``) over 2 chained
    launches in both FIR modes, K = 3 at nbins=256 (4 and 32 taps), K = 8
-   at the flagship and K = 2 at the wideband shape: within 2e-5
-   max|xp_ref| of their plain versions (3e-5 in the SVD mode) with the
-   history bounds above, and bit for bit the K one-block launches;
+   at the flagship, at ``bench_pipeline``'s block (frames summed in groups
+   of 2) and at the CLI's deep-tap block (SVD), and K = 2 at the wideband
+   shape: within 2e-5 max|xp_ref| of their plain versions (3e-5 in the SVD
+   mode) with the history bounds above, and bit for bit the K one-block
+   launches;
 3. the main path, ``fxtpu_torch.cli.main`` for 3 s on the card, at the
    CLI defaults and at ``--resolution 8192 --ntaps 32`` (the deep-tap
    path), each with complex64 ingest and with ``--ingest int8`` (int8
@@ -77,6 +79,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -89,9 +92,13 @@ SMALL_DEEP = dict(nch=3, nsamp=64 * 256, nbins=256, ntaps=32, autos=True)
 # the CLI's block at --resolution 8192 --ntaps 32 (the reference's clamp)
 DEEP_CLI = dict(nch=2, nsamp=2**18, nbins=8192, ntaps=32, autos=False)
 MULTI_K = 8          # blocks per dispatch of the CLI runs and the pipeline
-# (shape, K, FIR mode) of the K-block entries' checks in phase 2
+# bench_pipeline's block: 512 frames in 256 groups of 2 (frames_per_group > 1)
+PIPELINE_BLOCK = dict(nch=2, nsamp=2**21, nbins=4096, ntaps=4, autos=False)
+# (shape, K, FIR mode) of the K-block entries' checks in phase 2: every
+# shape and K the main path and phase 4 launch them at, and smaller ones
 MULTI_CASES = ((SMALL, 3, "direct"), (FLAGSHIP, MULTI_K, "direct"),
-               (WIDEBAND, 2, "direct"), (SMALL_DEEP, 3, "svd"),
+               (PIPELINE_BLOCK, MULTI_K, "direct"), (WIDEBAND, 2, "direct"),
+               (SMALL_DEEP, 3, "svd"), (DEEP_CLI, MULTI_K, "svd"),
                (WIDEBAND, 2, "svd"))
 # bench.py's bench_pipeline at its defaults, run for PIPELINE_S seconds
 PIPELINE = dict(mode="CONTINUUM", nchan=2, num_samp=2**21, nbins=4096,
@@ -993,7 +1000,8 @@ def main() -> int:
                 pipe[f"{ingest}_k{k}"] = run_pipeline(tmp, rec, ingest, k)
     launches["spectrometer"] = run_spectrometer_path(device)
 
-    print("phase 4: times at the flagship and wideband shapes", flush=True)
+    print("phase 4: times at the flagship and wideband shapes "
+          f"({threading.active_count()} threads alive)", flush=True)
     kt, st, h2d = time_flagship(device)
     wkt, wst, wh2d = time_wideband(device)
     mkt = time_multi_kernels(device)

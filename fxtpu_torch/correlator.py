@@ -161,6 +161,12 @@ class Correlator:
         self.engine = FxEngine(config)
         self.history = self.engine.fresh_history()
         self.stager: Optional[DeviceStager] = None
+        if self._dispatch_batch < config.blocks_per_dispatch:
+            self.logger.warning(
+                "blocks_per_dispatch=%d is more than one kernel launch "
+                "takes at this shape: %d blocks per call "
+                "(fxtpu_torch.ops.fx_fused.max_blocks)",
+                config.blocks_per_dispatch, self._dispatch_batch)
 
         # --- science data (effex.py:129-141) ------------------------------
         self.calibrated_delays = np.zeros(config.nchan, dtype=np.float64)
@@ -447,7 +453,7 @@ class Correlator:
                     self.state = "RUN"
                     self._maybe_start_stager()
                 else:
-                    self._run_blocks([block])
+                    self._run_block(block)
                     self.metrics.mark_once("steady")
             elif self.state == "SHUTDOWN":
                 self.close()
@@ -555,24 +561,16 @@ class Correlator:
         return self.engine.dispatch_batch_for(
             self.config.blocks_per_dispatch)
 
-    def _run_blocks(self, blocks):
-        """Correlate aligned host blocks: one K-block call when they are a
-        full batch, single steps otherwise."""
-        k = len(blocks)
-        if k == self._dispatch_batch and k > 1:
-            with self.metrics.stage("h2d"):
-                iq = self.engine.prepare_batch(blocks)
-            with self.metrics.stage("fx_step"):
-                self._dispatch_multi(iq, k)
-            return
-        for b in blocks:
-            if self.mode == "TEST":
-                # artificial delay sweep (effex.py:403-404)
-                self.calibrated_delays[1:] += self.test_delay_sweep_step
-            with self.metrics.stage("h2d"):
-                iq = self.engine.prepare_block(b)
-            with self.metrics.stage("fx_step"):
-                self._emit(self._run_task(iq))
+    def _run_block(self, block):
+        """Correlate one aligned host block on the unstaged path (K-block
+        calls run only on the stager's batches, :meth:`_staged_iteration`)."""
+        if self.mode == "TEST":
+            # artificial delay sweep (effex.py:403-404)
+            self.calibrated_delays[1:] += self.test_delay_sweep_step
+        with self.metrics.stage("h2d"):
+            iq = self.engine.prepare_block(block)
+        with self.metrics.stage("fx_step"):
+            self._emit(self._run_task(iq))
 
     def _dispatch_multi(self, iq: torch.Tensor, k: int):
         """One K-block call on a prepared batch, with per-block delays:

@@ -47,8 +47,9 @@ from fxtpu_torch.config import CorrelatorConfig
 from fxtpu_torch.ops.delay import estimate_delay
 from fxtpu_torch.ops.fx_fused import (fx_fused_raw, fx_fused_raw_i8,
                                       fx_fused_raw_i8_multi,
-                                      fx_fused_raw_multi, pairs_tensor,
-                                      supported, supported_i8, svd_tensors)
+                                      fx_fused_raw_multi, max_blocks,
+                                      pairs_tensor, supported, supported_i8,
+                                      svd_tensors)
 from fxtpu_torch.ops.pfb import (dc_remove, dequantize, spectrometer,
                                  zero_history)
 from fxtpu_torch.ops.svd_fir import deep_svd_applies
@@ -327,10 +328,21 @@ class FxEngine:
         return self._fused
 
     def dispatch_batch_for(self, requested: int) -> int:
-        """Blocks per :attr:`multi_step` call for ``requested``: any K on
-        one device, 1 for ``requested <= 1``
-        (``fxtpu.fx.FxEngine.dispatch_batch_for`` without a mesh)."""
-        return requested if requested > 1 else 1
+        """The largest K <= ``requested`` blocks per :attr:`multi_step`
+        call this engine takes (``fxtpu.fx.FxEngine.dispatch_batch_for``
+        without a mesh), 1 for ``requested <= 1``: any K on the plain
+        route; on the fused route at most what one kernel launch takes at
+        this shape (``ops.fx_fused.max_blocks``)."""
+        if requested <= 1:
+            return 1
+        if not self._fused:
+            return requested
+        cfg = self.cfg
+        most = max_blocks(
+            cfg.num_samp // cfg.nbins, cfg.nbins, cfg.ntaps, cfg.nchan,
+            0 if self._svd is None else self._svd[0].shape[1],
+            len(self.pairs))
+        return max(1, min(requested, most))
 
     @property
     def fused_active(self) -> bool:

@@ -65,8 +65,8 @@ __all__ = ["supported", "supported_i8", "fx_fused_raw",
            "fx_fused_raw_reference", "fx_fused_raw_i8",
            "fx_fused_raw_i8_reference", "fx_fused_raw_multi",
            "fx_fused_raw_multi_reference", "fx_fused_raw_i8_multi",
-           "fx_fused_raw_i8_multi_reference", "pairs_tensor", "svd_tensors",
-           "MAX_SHARED_BYTES", "MAX_SVD_RANK"]
+           "fx_fused_raw_i8_multi_reference", "max_blocks", "pairs_tensor",
+           "svd_tensors", "MAX_SHARED_BYTES", "MAX_SVD_RANK"]
 
 #: Dynamic shared memory one block may use on Hopper (227 KiB).
 MAX_SHARED_BYTES = 232448
@@ -255,25 +255,33 @@ def _check_args(x, window2d, pairs, nbins, tensors, svd):
     return rank
 
 
+def max_blocks(s_rows: int, nbins: int, ntaps: int, nch: int, rank: int,
+               nbl: int) -> int:
+    """The most blocks one launch of either FX kernel takes at this shape
+    (0 when not even one fits): bounded by the grid's block axis
+    (MAX_BLOCKS), the K blocks' partials together
+    (MAX_LAUNCH_PARTIAL_BYTES: each block is grouped as alone, see
+    :func:`_groups`, so they grow with K) and the means of the blocks a
+    CTA reads in shared memory (MAX_SHARED_BYTES)."""
+    per_block = _groups(s_rows, nbl, nbins)[0] * nbl * nbins * 8
+    k = min(MAX_BLOCKS, MAX_LAUNCH_PARTIAL_BYTES // per_block)
+    while k > 0 and shared_bytes(nbins, nch, ntaps, rank, mean_blocks(
+            k, s_rows, ntaps)) > MAX_SHARED_BYTES:
+        k = mean_blocks(k, s_rows, ntaps) - 1
+    return k
+
+
 def _check_blocks(k, s_rows, nbins, ntaps, nch, rank, nbl):
-    """What a launch of k blocks adds to the per-frame checks: the grid's
-    block axis, the means of the blocks a CTA reads in shared memory, and
-    the k blocks' partials together (each block is grouped as alone, see
-    :func:`_groups`, so they grow with k)."""
-    if not 1 <= k <= MAX_BLOCKS:
-        raise ValueError(f"{k} blocks per launch is outside [1, "
-                         f"{MAX_BLOCKS}]")
-    partial = k * _groups(s_rows, nbl, nbins)[0] * nbl * nbins * 8
-    if partial > MAX_LAUNCH_PARTIAL_BYTES:
-        raise ValueError(f"{k} blocks of S={s_rows} need {partial} bytes of "
-                         f"partial cross power, more than "
-                         f"{MAX_LAUNCH_PARTIAL_BYTES}: take fewer blocks "
-                         "per launch")
-    smem = shared_bytes(nbins, nch, ntaps, rank,
-                        mean_blocks(k, s_rows, ntaps))
-    if smem > MAX_SHARED_BYTES:
-        raise ValueError(f"{k} blocks of S={s_rows} need {smem} bytes of "
-                         f"shared memory, more than {MAX_SHARED_BYTES}")
+    """What a launch of k blocks adds to the per-frame checks: at least
+    one block and at most :func:`max_blocks`."""
+    most = max_blocks(s_rows, nbins, ntaps, nch, rank, nbl)
+    if not 1 <= k <= most:
+        raise ValueError(
+            f"{k} blocks of S={s_rows} per launch: the kernel takes 1 to "
+            f"{most} at this shape (fx_fused.max_blocks: the grid's block "
+            f"axis, {MAX_BLOCKS}; the blocks' partial cross power, "
+            f"{MAX_LAUNCH_PARTIAL_BYTES} bytes; the blocks' means in "
+            f"shared memory, {MAX_SHARED_BYTES} bytes)")
 
 
 def _check(x, history, window2d, pairs, svd, multi=False):
@@ -336,14 +344,16 @@ def _check_i8(x, history, window2d, pairs, quant_step, svd, multi=False):
     return rank
 
 
-def _launch_setup(x, pairs, k, s_rows, nbins):
+def _launch_setup(x, pairs, k, s_rows, nbins, merged):
     """Library, output, scratch and grid shared by both kernels' launches
-    over k blocks: xp [k, nbl, nbins], partial [k, n_groups, nbl, nbins]."""
+    over k blocks: xp [k, nbl, nbins] (``[nbl, nbins]`` for a one-block
+    call, ``merged`` False), partial [k, n_groups, nbl, nbins]."""
     from fxtpu_torch.cuda_build import load_kernels
     lib = load_kernels()
     nbl = pairs.shape[0]
     n_groups, per = _groups(s_rows, nbl, nbins)
-    xp = torch.empty((k, nbl, nbins), dtype=torch.complex64, device=x.device)
+    xp = torch.empty((k, nbl, nbins) if merged else (nbl, nbins),
+                     dtype=torch.complex64, device=x.device)
     partial = torch.empty((k, n_groups, nbl, nbins), dtype=torch.complex64,
                           device=x.device)
     return lib, nbl, n_groups, per, xp, partial
@@ -362,14 +372,17 @@ def _count(wrapper, rank):
         wrapper.launches += 1
 
 
-def _launch(x, history, window2d, pairs, svd, rank, what):
-    """The complex64 entry point over x [nch, K, S, nbins] (checked) ->
-    (xp [K, nbl, nbins], new_history)."""
+def _launch(x, history, window2d, pairs, svd, rank, what, merged):
+    """The complex64 entry point over x (checked): one block ``[nch, S,
+    nbins]`` -> (xp [nbl, nbins], new_history), or with ``merged`` the K
+    blocks of ``[nch, K, S, nbins]`` -> (xp [K, nbl, nbins], new_history).
+    One block is the same memory as ``[nch, 1, S, nbins]``."""
     from fxtpu_torch.cuda_build import check
-    nch, k, s_rows, nbins = x.shape
+    nch, s_rows, nbins = x.shape[0], x.shape[-2], x.shape[-1]
+    k = x.shape[1] if merged else 1
     ntaps = window2d.shape[0]
     lib, nbl, n_groups, per, xp, partial = _launch_setup(
-        x, pairs, k, s_rows, nbins)
+        x, pairs, k, s_rows, nbins, merged)
     dev = x.device
     new_hist = torch.empty((nch, ntaps - 1, nbins), dtype=torch.complex64,
                            device=dev)
@@ -388,16 +401,20 @@ def _launch(x, history, window2d, pairs, svd, rank, what):
     return xp, new_hist
 
 
-def _launch_i8(x, history, window2d, pairs, quant_step, svd, rank, what):
-    """The int8 entry point over x [nch, K, S, nbins, 2] (checked) ->
-    (xp [K, nbl, nbins], mu [K, nch])."""
+def _launch_i8(x, history, window2d, pairs, quant_step, svd, rank, what,
+               merged):
+    """The int8 entry point over x (checked): one block ``[nch, S, nbins,
+    2]`` -> (xp [nbl, nbins], mu [nch]), or with ``merged`` the K blocks of
+    ``[nch, K, S, nbins, 2]`` -> (xp [K, nbl, nbins], mu [K, nch])."""
     from fxtpu_torch.cuda_build import check
-    nch, k, s_rows, nbins, _ = x.shape
+    nch, s_rows, nbins = x.shape[0], x.shape[-3], x.shape[-2]
+    k = x.shape[1] if merged else 1
     ntaps = window2d.shape[0]
     lib, nbl, n_groups, per, xp, partial = _launch_setup(
-        x, pairs, k, s_rows, nbins)
+        x, pairs, k, s_rows, nbins, merged)
     dev = x.device
-    mu = torch.empty((k, nch), dtype=torch.complex64, device=dev)
+    mu = torch.empty((k, nch) if merged else (nch,), dtype=torch.complex64,
+                     device=dev)
     sums = torch.empty((k, nch, MEAN_PARTS, 2), dtype=torch.int64,
                        device=dev)
     tw = _twiddles(nbins, dev)
@@ -436,10 +453,10 @@ def fx_fused_raw(x: torch.Tensor, history: torch.Tensor,
     if not _on_card(x, "fx_fused_raw"):
         return fx_fused_raw_reference(x, history, window2d, pairs, svd)
     rank = _check(x, history, window2d, pairs, svd)
-    xp, new_hist = _launch(x.unsqueeze(1), history, window2d, pairs, svd,
-                           rank, "fx_fused kernel launch")
+    out = _launch(x, history, window2d, pairs, svd, rank,
+                  "fx_fused kernel launch", merged=False)
     _count(fx_fused_raw, rank)
-    return xp[0], new_hist
+    return out
 
 
 fx_fused_raw.launches = 0
@@ -462,10 +479,10 @@ def fx_fused_raw_i8(x: torch.Tensor, history: dict, window2d: torch.Tensor,
                                          quant_step, svd)
     quant_step = float(quant_step)
     rank = _check_i8(x, history, window2d, pairs, quant_step, svd)
-    xp, mu = _launch_i8(x.unsqueeze(1), history, window2d, pairs,
-                        quant_step, svd, rank, "fx_fused_i8 kernel launch")
+    xp, mu = _launch_i8(x, history, window2d, pairs, quant_step, svd, rank,
+                        "fx_fused_i8 kernel launch", merged=False)
     _count(fx_fused_raw_i8, rank)
-    return xp[0], _i8_history(x, window2d.shape[0], mu[0])
+    return xp, _i8_history(x, window2d.shape[0], mu)
 
 
 fx_fused_raw_i8.launches = 0
@@ -504,7 +521,7 @@ def fx_fused_raw_multi(x: torch.Tensor, history: torch.Tensor,
         return fx_fused_raw_multi_reference(x, history, window2d, pairs, svd)
     rank = _check(x, history, window2d, pairs, svd, multi=True)
     out = _launch(x, history, window2d, pairs, svd, rank,
-                  "fx_fused_multi kernel launch")
+                  "fx_fused_multi kernel launch", merged=True)
     _count(fx_fused_raw_multi, rank)
     return out
 
@@ -549,7 +566,7 @@ def fx_fused_raw_i8_multi(x: torch.Tensor, history: dict,
     rank = _check_i8(x, history, window2d, pairs, quant_step, svd,
                      multi=True)
     xp, mu = _launch_i8(x, history, window2d, pairs, quant_step, svd, rank,
-                        "fx_fused_i8_multi kernel launch")
+                        "fx_fused_i8_multi kernel launch", merged=True)
     _count(fx_fused_raw_i8_multi, rank)
     return xp, _i8_history(x[:, -1], window2d.shape[0], mu[-1])
 

@@ -274,6 +274,45 @@ def test_dispatch_batch_for(requested, k, fused):
     assert eng.dispatch_batch_for(requested) == k
 
 
+@pytest.mark.parametrize("fused,k", [(False, 64), (True, 51)])
+def test_dispatch_batch_for_caps_k_at_the_launch_limit(fused, k, caplog,
+                                                       tmp_path):
+    """The largest K <= requested the engine takes (fxtpu's contract): a
+    fused launch holds K blocks' partials, so 64 blocks of 4 channels
+    with autos at 4096 bins (10 baselines, 20 MiB per block) become 51
+    (fx_fused.max_blocks), and the Correlator says so when it is built,
+    before any block runs."""
+    cfg = CorrelatorConfig(nchan=4, include_autos=True, nbins=4096,
+                           num_samp=2**18, fused=fused, device="cpu",
+                           blocks_per_dispatch=64, buffer_chunks=2,
+                           output_file=str(tmp_path / "k.csv"))
+    with caplog.at_level("WARNING", logger="fxtpu_torch.correlator"):
+        cor = Correlator(config=cfg)
+    try:
+        assert cor.engine.dispatch_batch_for(64) == cor._dispatch_batch == k
+        assert cor.engine.dispatch_batch_for(k) == k
+        assert ("51 blocks per call" in caplog.text) == fused
+    finally:
+        cor.close()
+
+
+@pytest.mark.parametrize("s_rows,nbins,ntaps,nch,rank,nbl,most", [
+    (512, 4096, 4, 2, 0, 3, 42),      # bench_pipeline with autos
+    (512, 4096, 4, 2, 0, 1, 128),     # bench_pipeline
+    (32, 256, 4, 2, 0, 1, 16384),     # the CPU shape
+    (8, 8192, 32, 2, 6, 1, 2048),     # S < halo in the SVD mode
+    (1, 8192, 2300, 2, 0, 1, 2240),   # the blocks' means fill shared memory
+])
+def test_max_blocks_is_the_launch_check(s_rows, nbins, ntaps, nch, rank,
+                                        nbl, most):
+    assert fx_fused.max_blocks(s_rows, nbins, ntaps, nch, rank,
+                               nbl) == most
+    fx_fused._check_blocks(most, s_rows, nbins, ntaps, nch, rank, nbl)
+    with pytest.raises(ValueError, match=f"1 to {most} at this shape"):
+        fx_fused._check_blocks(most + 1, s_rows, nbins, ntaps, nch, rank,
+                               nbl)
+
+
 def test_multi_wrappers_take_plain_versions_on_cpu():
     nch, ntaps = 2, 4
     pairs = pairs_tensor(baseline_pairs(nch), nch, "cpu")
