@@ -22,7 +22,8 @@ Phases (any failure raises and exits non-zero, with no ``ok`` line):
 2. hold each kernel entry against its plain torch version on the card,
    over 3 chained blocks from a fresh history: the fused FX step in the
    direct-loop mode (``fx_fused``, ``fx_fused_i8``) at nbins=256 with 3
-   channels and autos, at the flagship and at the wideband shape; in the
+   channels and autos, at the flagship, at the flagship width with 4
+   channels and autos (10 pairs) and at the wideband shape; in the
    SVD-FIR mode (``fx_fused_svd``, ``fx_fused_i8_svd``) at nbins=256 x 32
    taps x 3 channels with autos and at the wideband shape: ``max|xp_k -
    xp_ref| <= 2e-5 max|xp_ref|``, the fused-against-unfused tolerance of
@@ -37,8 +38,15 @@ Phases (any failure raises and exits non-zero, with no ``ok`` line):
    of 2) and at the CLI's deep-tap block (SVD), and K = 2 at the wideband
    shape: within 2e-5 max|xp_ref| of their plain versions (3e-5 in the SVD
    mode) with the history bounds above, and bit for bit the K one-block
-   launches;
-3. the main path, ``fxtpu_torch.cli.main`` for 3 s on the card, at the
+   launches; every stage of the ablation (``fx_ablate``:
+   ``ops.fx_fused.fx_fused_ablate``, both ingests, both FIR modes) at
+   nbins=256, at the flagship, at the CLI's deep-tap block and at the
+   wideband shape, and every leg of the copy, overlap and retile probes
+   (``copy_probe``, ``overlap_probe``, ``retile_probe``) at a small shape
+   and at the shape it is timed at, each against its plain version (the
+   stages within 2e-5 max|xp_ref|, 3e-5 at deep taps; the copy checksums
+   exactly; overlap within 2e-5, retile within 1e-5 of max|plain|);
+3. the main path, ``fxtpu_torch.cli.main`` for 2 s on the card, at the
    CLI defaults and at ``--resolution 8192 --ntaps 32`` (the deep-tap
    path), each with complex64 ingest and with ``--ingest int8`` (int8
    rings), then at the defaults with ``--blocks_per_dispatch 8`` (the
@@ -54,11 +62,16 @@ Phases (any failure raises and exits non-zero, with no ``ok`` line):
    at K = 1 in each ingest, counted the same way, under a CUDA-only
    ``torch.profiler`` trace for the device's busy share; then the F-stage
    entry ``spectrometer_fused``, which no main path calls, over 3 chained
-   flagship blocks;
+   flagship blocks; then the measurement path, ``fxtpu_torch.probes.main``
+   for ``ablate`` (flagship and ``bench_pipeline`` blocks at K = 1 and 8 in
+   both ingests, the deep-tap block and the wideband shape in both FIR
+   modes), ``copy_rate``, ``overlap`` (both copy mechanisms), ``retile``,
+   ``breakdown`` (2 x 2^18 and 2 x 2^21 samples) and ``all``, each run
+   counted the same way: its own kernel launched, no other;
 4. times (CUDA events, median of 2 x n calls after warm-up, in turns): at
-   the flagship each direct-loop kernel against its plain version, the
-   engine step on either route for both ingests, the host-to-device copy
-   of one block (host clock to a synchronize) and the spectrometer
+   the flagship each direct-loop kernel against its plain version (also
+   with 4 channels and autos, 10 pairs), the engine step on either route
+   for both ingests, the host-to-device copy of one block (host clock to a synchronize) and the spectrometer
    against its plain version; at the wideband shape the SVD-FIR kernel,
    the direct-loop kernel and both plain versions for each ingest, the
    engine step on either route (the kernel route in the SVD mode) and one
@@ -66,11 +79,26 @@ Phases (any failure raises and exits non-zero, with no ``ok`` line):
    and the plain version at the flagship and at the CLI's deep-tap block
    (SVD), ``multi_step`` against ``step`` at the flagship, and 8 blocks'
    copy through a pinned buffer on a side stream against 8 pageable
-   copies.
+   copies; the device launches of one engine step (flagship, and wideband
+   in the SVD mode), of one K = 8 ``multi_step`` and of each wrapper alone
+   (a CUDA-only profiler trace); the stage table, the
+   frame kernel's device time per block after each stage from the
+   ``ablate`` runs, with ``torch.fft.fft`` over ``[nch, S, nbins]`` timed
+   beside the FFT stages (``library_ms``; the port never calls it on this
+   path).
 
-It prints one JSON line of kernel results (for the K-block entries every
-time per block, at K = 8), then, as the last line,
-``{"ok": true, "device": {...}}``.
+Every kernel's ``bound_ms`` is computed here from the run's shapes: the
+larger of its bytes (each input read once, each output written once) over
+3.35 TB/s and its operations over 67 TFLOP/s (float32 outside the tensor
+cores), the H100's published rates; ``bound_by`` says which.  ``library_ms``
+is the time of one PyTorch call that computes the same function, timed
+here and used nowhere in the port: ``torch.sum`` over the tiles' words
+beside the copy probe's leg of contiguous tiles; no single call computes
+what any other kernel here computes, so theirs is null.
+
+It prints one JSON line of the stage table, one of kernel results (for
+the K-block entries every time per block, at K = 8), then, as the last
+line, ``{"ok": true, "device": {...}}``.
 """
 
 import json
@@ -94,6 +122,9 @@ DEEP_CLI = dict(nch=2, nsamp=2**18, nbins=8192, ntaps=32, autos=False)
 MULTI_K = 8          # blocks per dispatch of the CLI runs and the pipeline
 # bench_pipeline's block: 512 frames in 256 groups of 2 (frames_per_group > 1)
 PIPELINE_BLOCK = dict(nch=2, nsamp=2**21, nbins=4096, ntaps=4, autos=False)
+# the X stage over many pairs: four channels with autos at the flagship
+# width, 10 baselines of spectra that all stay in shared memory
+MANY_PAIRS = dict(nch=4, nsamp=2**18, nbins=4096, ntaps=4, autos=True)
 # (shape, K, FIR mode) of the K-block entries' checks in phase 2: every
 # shape and K the main path and phase 4 launch them at, and smaller ones
 MULTI_CASES = ((SMALL, 3, "direct"), (FLAGSHIP, MULTI_K, "direct"),
@@ -103,7 +134,11 @@ MULTI_CASES = ((SMALL, 3, "direct"), (FLAGSHIP, MULTI_K, "direct"),
 # bench.py's bench_pipeline at its defaults, run for PIPELINE_S seconds
 PIPELINE = dict(mode="CONTINUUM", nchan=2, num_samp=2**21, nbins=4096,
                 buffer_chunks=4 * MULTI_K)
-PIPELINE_S = 4
+PIPELINE_S = 2.5
+CLI_S = 2            # seconds of each CLI run
+HBM_BYTES_PER_S = 3.35e12    # the H100's published device-memory rate
+FP32_FLOPS = 67e12           # and float32 rate outside the tensor cores
+PROBES_SOURCE = "fxtpu_torch/csrc/probes.cu"
 SPEC_CASES = (dict(nch=3, nsamp=32 * 256 + 100, nbins=256, ntaps=4),
               dict(nch=3, nsamp=32 * 256, nbins=256, ntaps=1),
               dict(nch=2, nsamp=2**18, nbins=4096, ntaps=4))
@@ -124,7 +159,12 @@ REPLACES = {
     "spectrometer": "fxtpu/ops/pfb_pallas.py:133",
     "fx_fused_multi": "fxtpu/ops/pfb_pallas.py:1669",
     "fx_fused_i8_multi": "fxtpu/ops/pfb_pallas.py:1669",
+    "fx_ablate": "scripts/fused_ablate.py:58",
+    "copy_probe": "scripts/dma_width_probe.py:44",
+    "overlap_probe": "scripts/dma_overlap_probe.py:154",
+    "retile_probe": "scripts/retile_probe.py:51",
 }
+PROBE_KERNELS = ("fx_ablate", "copy_probe", "overlap_probe", "retile_probe")
 
 
 def card_line() -> str:
@@ -142,6 +182,16 @@ def nvcc_version() -> str:
     return out.strip().splitlines()[-1]
 
 
+def probe_wrappers() -> dict:
+    """The measurement path's kernel wrappers by their entry's name."""
+    from fxtpu_torch.ops.fx_fused import fx_fused_ablate
+    from fxtpu_torch.probes.copy_rate import copy_probe
+    from fxtpu_torch.probes.overlap import overlap_probe
+    from fxtpu_torch.probes.retile import retile_probe
+    return {"fx_ablate": fx_fused_ablate, "copy_probe": copy_probe,
+            "overlap_probe": overlap_probe, "retile_probe": retile_probe}
+
+
 def reset_counts():
     from fxtpu_torch.ops import fx_fused
     from fxtpu_torch.ops.spectrometer import spectrometer_fused
@@ -149,6 +199,8 @@ def reset_counts():
                fx_fused.fx_fused_raw_multi, fx_fused.fx_fused_raw_i8_multi):
         fn.launches = fn.svd_launches = 0
     spectrometer_fused.launches = 0
+    for fn in probe_wrappers().values():
+        fn.launches = 0
 
 
 def read_counts() -> dict:
@@ -162,6 +214,8 @@ def read_counts() -> dict:
         counts[name] = fn.launches
         counts[name + "_svd"] = fn.svd_launches
     counts["spectrometer"] = spectrometer_fused.launches
+    for name, fn in probe_wrappers().items():
+        counts[name] = fn.launches
     return counts
 
 
@@ -450,13 +504,14 @@ def compare_spectrometer(case, device):
 
 
 def run_cli(tmpdir, name, ingest, extra=()):
-    """``fxtpu_torch.cli.main`` for 3 s on the card with every launch
+    """``fxtpu_torch.cli.main`` for CLI_S s on the card with every launch
     count set to 0 just before and read just after -> (Correlator, CSV
     path, counts)."""
     from fxtpu_torch.cli import main as cli_main
     out = os.path.join(tmpdir, f"vis_{name}.csv")
     reset_counts()
-    cor = cli_main(["--time", "3", "--mode", "spectrum", "--true_delay",
+    cor = cli_main(["--time", str(CLI_S), "--mode", "spectrum",
+                    "--true_delay",
                     str(TRUE_DELAY), "--ingest", ingest, "--no_keyboard",
                     "--omit_plot", "--output", out, "--device", "cuda",
                     *extra])
@@ -671,6 +726,334 @@ def run_spectrometer_path(device):
     return counts["spectrometer"]
 
 
+def compare_ablate(case, k, device):
+    """Phase 2 for the stage ablation at one shape: every stage in both
+    ingests and, at deep taps, both FIR modes, against its plain version.
+    Returns (max abs err, max rel err) over all of them."""
+    import torch
+
+    from fxtpu_torch.ops import fx_fused as ff
+    from fxtpu_torch.probes import ablate
+    deep = case["ntaps"] >= 16
+    tol = DEEP_TOL if deep else REL_TOL
+    abs_err = rel_err = 0.0
+    for ingest in ("complex64", "int8"):
+        for fir in (("direct", "svd") if deep else ("direct",)):
+            x, h, w, pairs, step, svd = ablate.make_inputs(
+                device, nch=case["nch"], k=k, num_samp=case["nsamp"],
+                nbins=case["nbins"], ntaps=case["ntaps"], ingest=ingest,
+                fir_mode=fir, seed=3)
+            errs = {}
+            for stage in ff.STAGES:
+                got = ff.fx_fused_ablate(x, h, w, pairs, stage, step, svd)
+                want = ff.fx_fused_ablate_reference(x, h, w, pairs, stage,
+                                                    step, svd)
+                torch.cuda.synchronize()
+                scale = want.abs().max().item()
+                err = (got - want).abs().max().item()
+                errs[stage] = err / scale
+                if got.shape != want.shape or not err <= tol * scale:
+                    raise AssertionError(
+                        f"ablation stage {stage} ({ingest}, {fir}) disagrees "
+                        f"with its plain version at {case}: {err / scale:.3g} "
+                        f"> {tol}")
+                abs_err = max(abs_err, err)
+                rel_err = max(rel_err, err / scale)
+            print(f"  {ingest} {fir} K={k}: "
+                  + ", ".join(f"{st} {e:.2g}" for st, e in errs.items()),
+                  flush=True)
+            del x
+    return abs_err, rel_err
+
+
+def compare_probes(device):
+    """Phase 2 for the three probe kernels: every leg at a small shape and
+    at the shape the probes time it at, against its plain version.
+    Returns {entry: (max abs err, max rel err)}."""
+    import torch
+
+    from fxtpu_torch.probes import copy_rate, overlap, retile
+    from fxtpu_torch.probes.common import sm_count
+    errs = {}
+    # copy probe: checksums are exact
+    legs = 0
+    for nbytes in (2**22, copy_rate.COLD_BYTES):
+        src = copy_rate._source(nbytes, device, seed=5)
+        plans = [copy_rate.width_plan(wd, nbytes)
+                 for wd in copy_rate.WIDTHS]
+        plans += [plan for _, _, _, plan in copy_rate.shape_plans(
+            nbytes, FLAGSHIP["nbins"])]
+        for plan in plans:
+            want = copy_rate.copy_probe_reference(src, plan, 2)
+            for mech in copy_rate.MECHS:
+                got = copy_rate.copy_probe(src, plan, mech, reps=2)
+                if not torch.equal(got, want):
+                    raise AssertionError(
+                        f"copy probe ({mech}) checksums differ from the "
+                        f"plain version at {plan}")
+                legs += 1
+        del src
+    print(f"  copy_probe: {legs} legs, every tile checksum exact",
+          flush=True)
+    errs["copy_probe"] = (0.0, 0.0)
+    # overlap probe: the probe's own shapes and a small one
+    sms = sm_count(device)
+    worst = 0.0
+    for n, cb, frames in ((1024, 256, 3), (4096, 512, 32)):
+        gen = torch.Generator(device=device).manual_seed(6)
+        src = torch.view_as_complex(torch.randn(
+            (2 * sms * frames + 3, n, 2), device=device, generator=gen))
+        for structure, (nbuf, per_sm) in overlap.STRUCTURES.items():
+            nbuf = min(nbuf, n // cb)
+            for mech in overlap.MECHS:
+                for copy, body in ((True, "touch"), (False, "fma"),
+                                   (False, "fx"), (True, "fma"),
+                                   (True, "fx")):
+                    worst = max(worst, overlap.check_leg(
+                        src, tol=REL_TOL, cb=cb, ntaps=4,
+                        frames=frames * 2 // per_sm, reps=1, nbuf=nbuf,
+                        copy=copy, body=body, grid=per_sm * sms, mech=mech))
+        del src
+    print(f"  overlap_probe: every leg within {worst:.3g} of max|plain|",
+          flush=True)
+    errs["overlap_probe"] = (worst, worst)
+    x, xt, m = retile.make_inputs(device)
+    worst = max(retile.check_form(x, xt, m, form, nt, reps)
+                for form in retile.FORMS
+                for nt, reps in ((2, 1), (retile.NT, 32)))
+    print(f"  retile_probe: every leg within {worst:.3g} of max|plain|",
+          flush=True)
+    errs["retile_probe"] = (worst, worst)
+    return errs
+
+
+def run_probe(argv, expect):
+    """Phase 3, the measurement path: ``fxtpu_torch.probes.main(argv)``
+    with every launch count set to 0 just before and read just after.
+    ``expect`` names the entries that must have launched; every other
+    entry must not have.  Returns (records, counts)."""
+    import contextlib
+    import io
+
+    from fxtpu_torch import probes
+    reset_counts()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        records = probes.main([*argv, "--device", "cuda"])
+    counts = read_counts()
+    lines = [ln for ln in buf.getvalue().splitlines() if ln.strip()]
+    if len(lines) != len(records) or [json.loads(ln) for ln in lines] != (
+            json.loads(json.dumps(records))):
+        raise AssertionError(f"probes {argv}: the printed lines are not the "
+                             "records")
+    launched = {k: v for k, v in counts.items() if v}
+    print(f"  probes {' '.join(argv)}: {len(records)} lines, launches "
+          f"{launched}", flush=True)
+    if set(launched) != set(expect):
+        raise AssertionError(f"probes {argv}: launches {launched}, expected "
+                             f"exactly {sorted(expect)}")
+    for rec in records:
+        bad = [k for k, v in rec.items() if isinstance(v, float)
+               and not np.isfinite(v)]
+        if bad or rec.get("finite") is False or rec.get(
+                "checksum_ok") is False:
+            raise AssertionError(f"probes {argv}: bad record {rec}")
+    return records, counts
+
+
+def fx_bound(case, k, int8, rank, spectra=False):
+    """The least time the card could take for one FX call (or, with
+    ``spectra``, one spectrometer call) over k blocks of ``case``: the
+    larger of its bytes (samples, history, window or factors and pairs in
+    once, the cross power or the spectra and the history out once) over
+    the device-memory rate and its operations (per sample and tap 4 for the
+    FIR, the direct form's count in either FIR mode: the rank-r factors are
+    one way to compute the same output, not work the function needs; 5 n
+    log2 n per FFT; 8 per pair, frame and bin for the X stage; 2 per sample
+    for the mean) over the float32 rate.  Returns (ms, "bytes" or
+    "operations")."""
+    nch, nbins, ntaps = case["nch"], case["nbins"], case["ntaps"]
+    s = case["nsamp"] // nbins
+    nbl = (nch * (nch - 1) // 2 + (nch if case.get("autos") else 0))
+    samples = k * nch * s * nbins
+    halo = nch * (ntaps - 1) * nbins
+    table = (ntaps + nbins) * rank * 4 if rank else ntaps * nbins * 4
+    if int8:
+        nbytes = 2 * samples + 2 * halo + 8 * nch + k * nch * 8
+    else:
+        nbytes = 8 * samples + 2 * 8 * halo
+    nbytes += table + (0 if spectra else 8 * nbl + 8 * k * nbl * nbins)
+    flops = samples * (2 + 4 * ntaps + 5 * np.log2(nbins))
+    if spectra:
+        nbytes += 8 * samples
+    else:
+        flops += 8 * k * nbl * s * nbins
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_flops = flops / FP32_FLOPS * 1e3
+    return max(t_bytes, t_flops), "bytes" if t_bytes >= t_flops else "operations"
+
+
+def svd_form_ms(case, k, rank):
+    """A note beside an SVD entry's bound: the time of the operations the
+    rank-r form of the FIR itself spends (4 per sample, tap and rank, and 4
+    per sample and rank to recombine) at the float32 rate."""
+    samples = k * case["nch"] * case["nsamp"]
+    return (samples * (4 * case["ntaps"] * rank + 4 * rank)
+            / FP32_FLOPS * 1e3)
+
+
+def count_device_launches(fn):
+    """Kernels, copies and memsets the device runs for one call of ``fn``:
+    the device events of 3 traced calls (``probes.common.device_events``,
+    which holds every launching call of the host to its device record and
+    the calls to the same number of launches each), over 3."""
+    import torch
+
+    from fxtpu_torch.probes.common import device_events
+    fn()
+    torch.cuda.synchronize()
+    return len(device_events(fn, 3)) // 3
+
+
+def stage_table(ablate_runs, device):
+    """Phase 4: one row per ``ablate`` run of phase 3 with the frame
+    kernel's device time per block after each stage (us, the profiler's),
+    the pre-pass and the reduce, the event time per block of the whole
+    call, and ``torch.fft.fft`` over one block's ``[nch, S, nbins]``
+    complex64 timed beside them (``library_ms``, per block)."""
+    import torch
+    rows, fft_ms = [], {}
+    for tag, records in ablate_runs:
+        stages = [r for r in records if "stage" in r]
+        diff = [r for r in records if "stage" not in r][0]
+        first = stages[0]
+        shape = (first["nch"], first["num_samp"] // first["nbins"],
+                 first["nbins"])
+        if shape not in fft_ms:
+            z = torch.view_as_complex(torch.randn((*shape, 2), device=device))
+            fft_ms[shape] = cuda_times(
+                {"fft": lambda z=z: torch.fft.fft(z)}, n=20)["fft"]
+            del z
+        full = {r["stage"]: r for r in stages}["full"]
+        rows.append({
+            "shape": tag, "k": first["k"], "ingest": first["ingest"],
+            "fir_mode": first["fir_mode"],
+            "frames_us": {r["stage"]: r["device_us"]["frames"]
+                          for r in stages},
+            "event_ms": {r["stage"]: r["ms_per_block"] for r in stages},
+            "prepass_us": full["device_us"]["prepass"],
+            "reduce_us": full["device_us"]["reduce"],
+            "frames_differences_us":
+                diff["frame_kernel_differences_us_per_block"],
+            "library_ms": fft_ms[shape]})
+    return rows
+
+
+def probe_kernel_entries(table, probe_records, launches, errs, mkt, device):
+    """The ``kernels`` line's entries of the measurement path's four
+    kernels: each one's time at the shape its probe times it at, its plain
+    version's time on the same input, and its bound from that input."""
+    import torch
+
+    from fxtpu_torch.ops import fx_fused as ff
+    from fxtpu_torch.probes import ablate, copy_rate, overlap, retile
+    out = []
+
+    def entry(name, source, **fields):
+        out.append({"name": name, "route": "cuda", "source": source,
+                    "replaces": REPLACES[name], "launches": launches[name],
+                    "max_abs_err": errs[name][0], "max_rel_err": errs[name][1],
+                    "library_ms": None, **fields})
+
+    # fx_ablate: stage "fft" (all but the X stage) per block, flagship, K = 8
+    x, h, w, pairs, step, svd = ablate.make_inputs(
+        device, nch=2, k=MULTI_K, num_samp=FLAGSHIP["nsamp"],
+        nbins=FLAGSHIP["nbins"], ntaps=FLAGSHIP["ntaps"],
+        ingest="complex64", fir_mode="direct", seed=1)
+    t = cuda_times({
+        "kernel": lambda: ff.fx_fused_ablate(x, h, w, pairs, "fft"),
+        "plain": lambda: ff.fx_fused_ablate_reference(x, h, w, pairs, "fft"),
+    }, n=10, warm=2)
+    # per block of the K = 8 launch: the samples in, the one touch of the
+    # partial out, and an eighth of the history and the window, which the
+    # launch reads once
+    nb, s = FLAGSHIP["nbins"], FLAGSHIP["nsamp"] // FLAGSHIP["nbins"]
+    samples = 2 * s * nb
+    nbytes = (8 * samples + 8 * ff.FFT_STAGE_BINS
+              + (8 * 2 * 3 * nb + 4 * 4 * nb) / MULTI_K)
+    flops = samples * (2 + 4 * 4 + 5 * np.log2(nb))
+    tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS * 1e3
+    row = next(r for r in table if (r["shape"], r["k"], r["ingest"]) == (
+        "flagship", MULTI_K, "complex64"))
+    entry("fx_ablate", SOURCE, ms=t["kernel"] / MULTI_K,
+          plain_ms=t["plain"] / MULTI_K, bound_ms=max(tb, tf),
+          bound_by="bytes" if tb >= tf else "operations", stage="fft",
+          k=MULTI_K, frames_us=row["frames_us"],
+          full_plain_ms=mkt["flagship"]["plain"])
+    del x
+
+    # copy_probe: the cold walk by bulk copies of 32 KB runs, one repeat
+    rec = next(r for r in probe_records["copy_rate"] if (
+        r["sweep"], r["walk"], r["mech"], r["width"]) == (
+        "width", "cold", "bulk", 32768))
+    src = copy_rate._source(rec["bytes_per_rep"], device, seed=0)
+    plan = copy_rate.width_plan(32768, rec["bytes_per_rep"])
+    # at this width a tile is 64 contiguous KB, so one torch.sum over the
+    # words as [ntiles, 16384] forms the same checksums (modulo 2^32)
+    words = src.view(torch.int32).view(plan.ntiles, -1)
+    if not torch.equal(words.sum(dim=1) & 0xffffffff,
+                       copy_rate.copy_probe_reference(src, plan, 1)):
+        raise AssertionError("torch.sum over the tiles' words is not the "
+                             "copy probe's checksum")
+    t = cuda_times({
+        "plain": lambda: copy_rate.copy_probe_reference(src, plan, 1),
+        "library": lambda: words.sum(dim=1)}, n=5, warm=1)
+    plain = t["plain"]
+    entry("copy_probe", PROBES_SOURCE, ms=rec["ms_per_rep"], plain_ms=plain,
+          library_ms=t["library"], library="torch.sum over [ntiles, words]",
+          bound_ms=(rec["bytes_per_rep"] + 4 * plan.ntiles)
+          / HBM_BYTES_PER_S * 1e3, bound_by="bytes", gbps=rec["gbps"],
+          leg="width sweep, cold, bulk, 32 KB runs")
+    del src, words
+
+    # overlap_probe: the pipelined fx leg, one repeat
+    rec = next(r for r in probe_records["overlap_bulk"] if (
+        r.get("leg"), r.get("body")) == ("pipelined", "fx"))
+    n, ntaps, grid, frames = (rec["n"], rec["ntaps"], rec["grid"],
+                              rec["frames_per_cta"])
+    gen = torch.Generator(device=device).manual_seed(0)
+    src = torch.view_as_complex(torch.randn(
+        (grid * frames + ntaps - 1, n, 2), device=device, generator=gen))
+    plain = cuda_times({"plain": lambda: overlap.overlap_probe_reference(
+        src, cb=rec["cb"], ntaps=ntaps, frames=frames, reps=1, nbuf=2,
+        copy=True, body="fx", grid=grid)}, n=5, warm=1)["plain"]
+    # one repeat (the slope): every row in once; the checksums are written
+    # once a launch, not once a repeat
+    nbytes = src.numel() * 8
+    flops = grid * frames * n * (4 * ntaps + 5 * np.log2(n))
+    tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS * 1e3
+    entry("overlap_probe", PROBES_SOURCE, ms=rec["ms_per_rep"],
+          plain_ms=plain, bound_ms=max(tb, tf),
+          bound_by="bytes" if tb >= tf else "operations",
+          leg="pipelined, fx body, bulk copies")
+    del src
+
+    # retile_probe: the gather leg, one repeat of 32 tiles of 16 frames
+    rec = next(r for r in probe_records["retile"] if r["form"] == "gather")
+    x, xt, m = retile.make_inputs(device)
+    plain = cuda_times({"plain": lambda: retile.retile_reference(
+        x, m, rec["nt"], 1)}, n=10, warm=2)["plain"]
+    slots = rec["nt"] * rec["tile"]
+    nbytes = x.numel() * 4 + m.numel() * 4      # one repeat, as above
+    flops = slots * 2 * retile.N1 * retile.NBINS
+    tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS * 1e3
+    entry("retile_probe", PROBES_SOURCE,
+          ms=rec["ps_per_sample"] * rec["samples_per_rep"] * 1e-9,
+          plain_ms=plain, bound_ms=max(tb, tf),
+          bound_by="bytes" if tb >= tf else "operations", leg="gather")
+    return out
+
+
 def cuda_times(fns, n=60, warm=5):
     """Median ms per call of each fn, timed with CUDA events in turns
     (a, b, b, a) so drift hits both alike."""
@@ -732,7 +1115,8 @@ def engine_steps(shape_kw, block_c64, d, tol, fir_mode, tag):
 def time_flagship(device):
     """Phase 4 at the flagship: each direct-loop kernel and the
     spectrometer vs its plain version, the engine step on either route
-    for both ingests, and one block's copy to the card."""
+    for both ingests, one block's copy to the card, and the device
+    launches of one call of each wrapper."""
     import torch
 
     from fxtpu_torch.ops.fx_fused import (fx_fused_raw, fx_fused_raw_i8,
@@ -741,6 +1125,7 @@ def time_flagship(device):
     from fxtpu_torch.ops.spectrometer import (spectrometer_fused,
                                               spectrometer_fused_reference)
     from fxtpu_torch.ops.xengine import pack_delays
+    from fxtpu_torch.probes.ablate import device_times
     w, _, pairs, blocks, hist = make_case(FLAGSHIP, np.random.default_rng(7),
                                           device)
     x = blocks[0]
@@ -751,6 +1136,12 @@ def time_flagship(device):
     ws, sblocks, shist = make_spec_case(sc, np.random.default_rng(10),
                                         device)
     xs, nb = sblocks[0], sc["nbins"]
+    wm, _, pm, mblocks, mhist = make_case(MANY_PAIRS,
+                                          np.random.default_rng(21), device)
+    xm = mblocks[0]
+    _, _, _, mblocks8, mhist8 = make_case_i8(
+        MANY_PAIRS, np.random.default_rng(22), device)
+    xm8 = mblocks8[0]
     kt = cuda_times({
         "plain": lambda: fx_fused_raw_reference(x, hist, w, pairs),
         "kernel": lambda: fx_fused_raw(x, hist, w, pairs),
@@ -759,19 +1150,39 @@ def time_flagship(device):
         "kernel_i8": lambda: fx_fused_raw_i8(x8, hist8, w, pairs, STEP),
         "plain_spec": lambda: spectrometer_fused_reference(xs, ws, nb, shist),
         "kernel_spec": lambda: spectrometer_fused(xs, ws, nb, shist),
+        "plain_many": lambda: fx_fused_raw_reference(xm, mhist, wm, pm),
+        "kernel_many": lambda: fx_fused_raw(xm, mhist, wm, pm),
+        "plain_many_i8": lambda: fx_fused_raw_i8_reference(xm8, mhist8, wm,
+                                                           pm, STEP),
+        "kernel_many_i8": lambda: fx_fused_raw_i8(xm8, mhist8, wm, pm, STEP),
     })
+    # the many-pairs kernels' device time: pre-pass + frame kernel + reduce
+    for key, fn in (("device_us_many",
+                     lambda: fx_fused_raw(xm, mhist, wm, pm)),
+                    ("device_us_many_i8",
+                     lambda: fx_fused_raw_i8(xm8, mhist8, wm, pm, STEP))):
+        kt[key] = sum(device_times(fn).values())
     rng = np.random.default_rng(8)
     iq_np = (rng.normal(size=(2, 2**18, 2)) @ np.array([1.0, 1j])
              ).astype(np.complex64)
     d = torch.as_tensor(pack_delays([0.0, 2e-6], 1.4204e9), device=device)
     steps, copies = engine_steps({}, iq_np, d, REL_TOL, "direct", "flagship")
-    return kt, cuda_times(steps), host_times(copies)
+    counts = {
+        "fx_fused_raw": count_device_launches(
+            lambda: fx_fused_raw(x, hist, w, pairs)),
+        "fx_fused_raw_i8": count_device_launches(
+            lambda: fx_fused_raw_i8(x8, hist8, w, pairs, STEP)),
+        "spectrometer_fused": count_device_launches(
+            lambda: spectrometer_fused(xs, ws, nb, shist)),
+    }
+    return kt, cuda_times(steps), host_times(copies), counts
 
 
 def time_wideband(device):
     """Phase 4 at the wideband shape: per ingest the SVD-FIR kernel, the
     direct-loop kernel and both plain versions; the engine step on either
-    route (the kernel route in the SVD mode) and one block's copy."""
+    route (the kernel route in the SVD mode), one block's copy, and the
+    device launches of one step on the kernel route."""
     import torch
 
     from fxtpu_torch.ops.fx_fused import (fx_fused_raw, fx_fused_raw_i8,
@@ -804,7 +1215,9 @@ def time_wideband(device):
     shape = dict(nbins=WIDEBAND["nbins"], ntaps=WIDEBAND["ntaps"],
                  num_samp=WIDEBAND["nsamp"], clamp_num_samp=False)
     steps, copies = engine_steps(shape, iq_np, d, DEEP_TOL, "svd", "wideband")
-    return kt, cuda_times(steps, n=20), host_times(copies, n=10)
+    counts = {"wideband_step": count_device_launches(steps["kernel"]),
+              "wideband_step_i8": count_device_launches(steps["kernel_i8"])}
+    return kt, cuda_times(steps, n=20), host_times(copies, n=10), counts
 
 
 def time_multi_kernels(device):
@@ -847,7 +1260,8 @@ def time_multi_step(device):
     over K = 8 blocks against ``step`` (checking that block 0 of the one
     is the other bit for bit), and 8 blocks' copy through a pinned buffer
     on a side stream (``prepare_batch``, the stager's copy) against 8
-    pageable ``prepare_block`` copies, by the host clock."""
+    pageable ``prepare_block`` copies, by the host clock; and the device
+    launches (kernels, copies, memsets) of one call of each step."""
     import torch
 
     from fxtpu_torch.config import CorrelatorConfig
@@ -894,7 +1308,8 @@ def time_multi_step(device):
     ct = host_times(copies, n=10)
     st = {k: v / MULTI_K if k.startswith("multi") else v
           for k, v in st.items()}
-    return st, {k: v / MULTI_K for k, v in ct.items()}
+    counts = {k: count_device_launches(fn) for k, fn in steps.items()}
+    return st, {k: v / MULTI_K for k, v in ct.items()}, counts
 
 
 def host_times(fns, n=30, warm=3):
@@ -940,7 +1355,8 @@ def main() -> int:
     t0 = time.perf_counter()
     load_kernels()
     from fxtpu_torch import cuda_build
-    print(f"  {library_path().name} ready in {time.perf_counter() - t0:.1f} s",
+    print(f"  {library_path().name} ready in {time.perf_counter() - t0:.1f} s "
+          f"(nvcc {cuda_build.build_seconds:.1f} s, one process per source)",
           flush=True)
     for line in cuda_build.build_log.splitlines():
         if "registers" in line or "bytes stack" in line or "Compiling" in line:
@@ -954,9 +1370,9 @@ def main() -> int:
     errs = {name: (0.0, 0.0) for name in REPLACES}
     for name, compare, fir, cases in (
             ("fx_fused", compare_kernel, "direct",
-             (SMALL, FLAGSHIP, WIDEBAND)),
+             (SMALL, FLAGSHIP, MANY_PAIRS, WIDEBAND)),
             ("fx_fused_i8", compare_kernel_i8, "direct",
-             (SMALL, FLAGSHIP, WIDEBAND)),
+             (SMALL, FLAGSHIP, MANY_PAIRS, WIDEBAND)),
             ("fx_fused_svd", compare_kernel, "svd", (SMALL_DEEP, WIDEBAND)),
             ("fx_fused_i8_svd", compare_kernel_i8, "svd",
              (SMALL_DEEP, WIDEBAND))):
@@ -974,6 +1390,12 @@ def main() -> int:
             print(f"  {name} ({fir}) K={k} shape {case}", flush=True)
             errs[name] = tuple(map(max, errs[name],
                                    compare_multi(case, k, device, fir, int8)))
+    for case, k in ((SMALL, 3), (FLAGSHIP, 2), (SMALL_DEEP, 3),
+                    (DEEP_CLI, 2), (WIDEBAND, 1)):
+        print(f"  fx_ablate K={k} shape {case}", flush=True)
+        errs["fx_ablate"] = tuple(map(max, errs["fx_ablate"],
+                                      compare_ablate(case, k, device)))
+    errs.update(compare_probes(device))
 
     print("phase 3: main path (python -m fxtpu_torch)", flush=True)
     launches = {}
@@ -999,13 +1421,62 @@ def main() -> int:
             for k in (MULTI_K, 1):
                 pipe[f"{ingest}_k{k}"] = run_pipeline(tmp, rec, ingest, k)
     launches["spectrometer"] = run_spectrometer_path(device)
+    print("phase 3: the measurement path (python -m fxtpu_torch.probes)",
+          flush=True)
+    launches.update({name: 0 for name in PROBE_KERNELS})
+    ablate_runs, probe_records = [], {}
+
+    def probe(tag, argv, expect):
+        records, counts = run_probe(argv, expect)
+        for name in PROBE_KERNELS:
+            launches[name] += counts[name]
+        probe_records[tag] = records
+        return records
+
+    for tag, case, ks, firs, iters in (
+            ("flagship", FLAGSHIP, (1, MULTI_K), ("auto",), 20),
+            ("pipeline", PIPELINE_BLOCK, (1, MULTI_K), ("auto",), 10),
+            ("deep", DEEP_CLI, (1, MULTI_K), ("direct", "svd"), 6),
+            ("wideband", WIDEBAND, (1, MULTI_K), ("direct", "svd"), 3)):
+        for k in ks:
+            for ingest in ("complex64", "int8"):
+                for fir in firs:
+                    argv = ["ablate", "--num_samp", str(case["nsamp"]),
+                            "--nbins", str(case["nbins"]), "--ntaps",
+                            str(case["ntaps"]), "--k", str(k), "--ingest",
+                            ingest, "--fir_mode", fir, "--iters", str(iters)]
+                    ablate_runs.append((tag, probe(
+                        f"ablate_{tag}_{k}_{ingest}_{fir}", argv,
+                        ["fx_ablate"])))
+    probe("copy_rate", ["copy_rate"], ["copy_probe"])
+    for mech in ("bulk", "cp_async"):
+        probe(f"overlap_{mech}", ["overlap", "--mech", mech],
+              ["overlap_probe"])
+    probe("retile", ["retile"], ["retile_probe"])
+    for nsamp in (FLAGSHIP["nsamp"], PIPELINE_BLOCK["nsamp"]):
+        recs = probe(f"breakdown_{nsamp}", [
+            "breakdown", "--num_samp", str(nsamp), "--k", str(MULTI_K)],
+            ["fx_fused", "fx_fused_multi"])
+        for rec in recs:
+            print(f"    breakdown {nsamp} {rec['route']}: against the float64 "
+                  f"oracle {rec['max_rel_err']:.3g} of max|vis| (DC bins "
+                  f"{rec['max_rel_err_dc']:.3g}), multi_step "
+                  f"{rec['ms_per_block']:.4f} ms/block, "
+                  f"{rec['gs_per_s']:.4f} GS/s", flush=True)
+            if not rec["max_rel_err"] <= 3.1e-5 or not rec[
+                    "multi_step_block0_is_step"]:
+                raise AssertionError(f"breakdown: {rec}")
+    probe("all", ["all"], [*PROBE_KERNELS, "fx_fused", "fx_fused_multi"])
 
     print("phase 4: times at the flagship and wideband shapes "
           f"({threading.active_count()} threads alive)", flush=True)
-    kt, st, h2d = time_flagship(device)
-    wkt, wst, wh2d = time_wideband(device)
+    kt, st, h2d, call_launches = time_flagship(device)
+    wkt, wst, wh2d, wide_launches = time_wideband(device)
     mkt = time_multi_kernels(device)
-    mst, mct = time_multi_step(device)
+    mst, mct, step_launches = time_multi_step(device)
+    step_launches.update(call_launches)
+    step_launches.update(wide_launches)
+    table = stage_table(ablate_runs, device)
     samples = FLAGSHIP["nch"] * FLAGSHIP["nsamp"]
     wsamples = WIDEBAND["nch"] * WIDEBAND["nsamp"]
     for name, sfx in (("fx_fused", ""), ("fx_fused_i8", "_i8")):
@@ -1026,6 +1497,11 @@ def main() -> int:
               f"({wsamples / wst['kernel' + sfx] / 1e6:.4f} GS/s), plain "
               f"route {wst['plain' + sfx]:.4f} ms "
               f"({wsamples / wst['plain' + sfx] / 1e6:.4f} GS/s)", flush=True)
+        print(f"  [{card}] many pairs {name} ({MANY_PAIRS['nch']} channels "
+              f"with autos, flagship width): kernel "
+              f"{kt['kernel_many' + sfx]:.4f} ms "
+              f"({kt['device_us_many' + sfx]:.2f} us of device time), plain "
+              f"torch {kt['plain_many' + sfx]:.4f} ms", flush=True)
     print(f"  [{card}] flagship spectrometer kernel "
           f"{kt['kernel_spec']:.4f} ms, plain torch {kt['plain_spec']:.4f} ms",
           flush=True)
@@ -1048,11 +1524,58 @@ def main() -> int:
         print(f"  [{card}] pipeline {key}: {r['blocks_per_s']:.4f} blocks/s, "
               f"{r['msamp_per_s']:.4f} Msamp/s, device busy "
               f"{100 * r['busy_share']:.4f}%", flush=True)
+    print(f"  [{card}] device launches per call: {step_launches} (a step "
+          "at the flagship: mean pre-pass, frame kernel, reduce and the "
+          f"finish; multi_step: the same for {MULTI_K} blocks; the wrappers "
+          "alone; a wideband step in the SVD mode)", flush=True)
+    print(f"  [{card}] stage table: the frame kernel's device time per "
+          "block after each stage, us (pre-pass, reduce; torch.fft.fft "
+          "over one block beside them)", flush=True)
+    for row in table:
+        fr = row["frames_us"]
+        print(f"    {row['shape']} K={row['k']} {row['ingest']} "
+              f"{row['fir_mode']}: "
+              + ", ".join(f"{st} {fr[st]:.2f}" for st in fr)
+              + f" (pre-pass {row['prepass_us']:.2f}, reduce "
+              f"{row['reduce_us']:.2f}; torch.fft.fft "
+              f"{1e3 * row['library_ms']:.2f})", flush=True)
+    for rec in probe_records["copy_rate"]:
+        if rec["sweep"] == "width" or rec["mode"] in ("chan", "prod"):
+            print(f"    copy {rec['sweep']} {rec['walk']} "
+                  f"{rec.get('mode', '')} {rec.get('ingest', '')} "
+                  f"{rec['mech']} {rec['width']} B: {rec['gbps']:.1f} GB/s",
+                  flush=True)
+    for mech in ("bulk", "cp_async"):
+        for rec in probe_records[f"overlap_{mech}"]:
+            if "summary" in rec:
+                print(f"    overlap {mech} {rec['structure']} "
+                      f"{rec['summary']}: copy {rec['copy_ms']:.4f} + comp "
+                      f"{rec['comp_ms']:.4f} = {rec['sum_ms']:.4f}, max "
+                      f"{rec['max_ms']:.4f}, measured "
+                      f"{rec['measured_ms']:.4f} ms", flush=True)
+    for rec in probe_records["retile"]:
+        print(f"    retile {rec['form']}: {rec['ps_per_sample']:.4f} ps per "
+              f"sample ({rec['us_per_tile']:.4f} us per tile)", flush=True)
 
+    def bound(case, k, int8, rank=0, spectra=False):
+        ms, by = fx_bound(case, k, int8, rank, spectra)
+        return {"bound_ms": ms, "bound_by": by, "library_ms": None}
+
+    # the rank of the 32-tap window's factors at each deep shape
+    ranks = {tag: next(r["rank"] for r in recs if "stage" in r)
+             for tag, recs in probe_records.items()
+             if tag.endswith("_svd")}
+    wide_rank = ranks["ablate_wideband_1_complex64_svd"]
+    deep_rank = ranks[f"ablate_deep_{MULTI_K}_complex64_svd"]
     kernels = []
     for name, sfx, ingest in (("fx_fused", "", "complex64"),
                               ("fx_fused_i8", "_i8", "int8")):
+        many_bound = fx_bound(MANY_PAIRS, 1, ingest == "int8", 0)
         kernels.append({
+            **bound(FLAGSHIP, 1, ingest == "int8"),
+            "wideband_bound_ms": fx_bound(WIDEBAND, 1, ingest == "int8",
+                                          0)[0],
+            "step_device_launches": step_launches["step" + sfx],
             "name": name, "route": "cuda", "source": SOURCE,
             "replaces": REPLACES[name], "launches": launches[name],
             "max_abs_err": errs[name][0], "max_rel_err": errs[name][1],
@@ -1061,22 +1584,39 @@ def main() -> int:
             "plain_step_ms": st["plain" + sfx], "h2d_ms": h2d[ingest],
             "wideband_ms": wkt["direct" + sfx],
             "wideband_plain_ms": wkt["plain_direct" + sfx],
+            "many_pairs_ms": kt["kernel_many" + sfx],
+            "many_pairs_device_us": kt["device_us_many" + sfx],
+            "many_pairs_plain_ms": kt["plain_many" + sfx],
+            "many_pairs_bound_ms": many_bound[0],
+            "many_pairs_bound_by": many_bound[1],
         })
     for name, sfx, ingest in (("fx_fused_svd", "", "complex64"),
                               ("fx_fused_i8_svd", "_i8", "int8")):
         kernels.append({
+            **bound(WIDEBAND, 1, ingest == "int8", wide_rank),
+            "svd_form_operations_ms": svd_form_ms(WIDEBAND, 1, wide_rank),
             "name": name, "route": "cuda", "source": SOURCE,
             "replaces": REPLACES[name], "launches": launches[name],
             "max_abs_err": errs[name][0], "max_rel_err": errs[name][1],
             "ms": wkt["svd" + sfx], "plain_ms": wkt["plain_svd" + sfx],
             "direct_ms": wkt["direct" + sfx],
+            "step_device_launches": step_launches["wideband_step" + sfx],
             "step_ms": wst["kernel" + sfx],
             "plain_step_ms": wst["plain" + sfx], "h2d_ms": wh2d[ingest],
         })
     for name, sfx, ingest in (("fx_fused_multi", "", "complex64"),
                               ("fx_fused_i8_multi", "_i8", "int8")):
         fl, dp = mkt["flagship" + sfx], mkt["deep" + sfx]
+        per_block = {key: v / MULTI_K if key == "bound_ms" else v
+                     for key, v in bound(FLAGSHIP, MULTI_K,
+                                         ingest == "int8").items()}
         kernels.append({
+            **per_block,
+            "deep_svd_bound_ms": fx_bound(DEEP_CLI, MULTI_K, ingest == "int8",
+                                          deep_rank)[0] / MULTI_K,
+            "deep_svd_form_operations_ms": svd_form_ms(DEEP_CLI, 1,
+                                                       deep_rank),
+            "step_device_launches": step_launches["multi_step" + sfx],
             "name": name, "route": "cuda", "source": SOURCE,
             "replaces": REPLACES[name], "launches": launches[name],
             "max_abs_err": errs[name][0], "max_rel_err": errs[name][1],
@@ -1094,14 +1634,26 @@ def main() -> int:
                          for k in (1, MULTI_K)},
         })
     kernels.append({
+        **bound(SPEC_CASES[-1], 1, False, spectra=True),
         "name": "spectrometer", "route": "cuda", "source": SOURCE,
         "replaces": REPLACES["spectrometer"],
         "launches": launches["spectrometer"],
         "max_abs_err": errs["spectrometer"][0],
         "max_rel_err": errs["spectrometer"][1],
         "ms": kt["kernel_spec"], "plain_ms": kt["plain_spec"],
+        "device_launches": step_launches["spectrometer_fused"],
     })
+    kernels += probe_kernel_entries(table, probe_records, launches, errs,
+                                    mkt, device)
+    for entry in kernels:
+        missing = {"name", "route", "source", "replaces", "launches",
+                   "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                   "library_ms"} - set(entry)
+        if missing or not entry["launches"] >= 1:
+            raise AssertionError(f"kernel entry {entry.get('name')}: missing "
+                                 f"{missing} or never launched")
     print(f"  whole run {time.perf_counter() - t_start:.1f} s", flush=True)
+    print(json.dumps({"stage_table": table, "card": card}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

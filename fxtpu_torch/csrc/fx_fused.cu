@@ -4,8 +4,9 @@
 // spectra out in place of the cross power.  Built by
 // fxtpu_torch/cuda_build.py, called through fxtpu_torch/ops/fx_fused.py
 // (fx_fused_raw, fx_fused_raw_i8 at K = 1; fx_fused_raw_multi,
-// fx_fused_raw_i8_multi at any K) and fxtpu_torch/ops/spectrometer.py
-// (spectrometer_fused).
+// fx_fused_raw_i8_multi at any K; fx_fused_ablate, the same step with the
+// frame kernel truncated after a stage, for timing) and
+// fxtpu_torch/ops/spectrometer.py (spectrometer_fused).
 //
 // Replaces: fxtpu/ops/pfb_pallas.py _fx_kernel (launched by _fx_call,
 // wrapped by fx_pallas_parts / fx_pallas_raw_multi / fx_pallas_raw), for
@@ -17,7 +18,9 @@
 // each for K >= 1 blocks per launch (fx_pallas_raw_multi's grid
 // (k_blocks, tiles) over the merged rows [nch, K*S, lanes]);
 // and pfb_pallas.py _kernel (launched by _pfb_fft_call, wrapped by
-// spectrometer_pallas) -> fxt_spectrometer.
+// spectrometer_pallas) -> fxt_spectrometer; and scripts/fused_ablate.py's
+// kernel (its STAGE truncation; _fx_kernel's FXTPU_FUSED_ABLATE)
+// -> fxt_fx_ablate, fxt_fx_ablate_i8 (the kStage tags below).
 // All share one frame kernel (FIR, Stockham FFT, output), templated on a
 // sample loader (how a row sample is read and which mean it loses), a FIR
 // policy (the direct tap loop over the window, or the rank-r factorisation
@@ -65,40 +68,49 @@
 // samples (the tail beyond S*nbins too), and new_hist, the last ntaps-1
 // rows of [history; x - mean].
 //
-// What bounds it on the H100: per block the kernel reads the input twice
-// (mean pre-pass, then the frames; 2 x 4 MiB at the flagship 2-channel,
-// 2^18-sample block in complex64, 2 x 1 MiB in int8) and does ~5 n log2 n
-// flops per frame and channel, far below both roofs at these sizes, so
-// launch latency and the serial shared-memory FFT stages (one
-// __syncthreads per radix-2 stage) bound it.  Each frame reads its ntaps
-// rows again, so at deep taps (32 taps x 8192 bins, the wideband shape)
-// the frames read 32x the block from L2; the SVD form does not change
-// those reads and multiplies the FIR's flops by r (r FMAs per tap and
-// sample), a trade that paid on the TPU, where it moved the tap loop onto
-// the matrix unit, and does not here: on an H100 (700 W) the SVD mode
-// takes 1.8x to 2.9x the direct loop's time at the wideband shape
-// (PERF.md; the mode is kept because fxtpu routes deep taps to it).  At
-// few taps a frame's time is its loads' latency, so the direct loop issues
-// four bins' loads per tap together.  The design keeps what
-// the TPU kernel keeps out of device memory: the spectra live only in
-// shared memory (nch x nbins x 8 B, 64 KiB at the flagship shape, so the
-// dynamic shared-memory limit is raised), and only the [n_groups, nbl,
-// nbins] partial cross power reaches device memory.  Every sum runs in a
-// fixed order (a two-stage mean reduction, in double for complex64 samples
-// and in exact 64-bit integers for int8 ones, and a fixed-order sum of the
-// partials), so a run is bit-for-bit repeatable; there are no atomics.
-// The mean pre-pass costs the second read of the input; the post-hoc DC
-// algebra of the TPU kernel (_dc_constants / _dc_correct) removes it and
-// is a later change.  The TPU's 4-bins-per-int32 packing of int8 planes
-// answered its element-bound DMA; loads here are byte-addressed, so the
-// int8 kernel reads the interleaved (I, Q) bytes as they arrived.  The
-// TPU's banded bf16 matmul for the SVD conv, its hi/lo splits and its
-// 1-pass tail ranks are matrix-unit workarounds: here every rank runs in
-// f32 on the CUDA cores, u in shared memory, r accumulators per bin.  A
-// launch of K blocks runs K times the CTAs of one block: where one block's
-// frames leave most SMs idle (the deep-tap CLI block's 32 frames fill 32
-// of 132) they fill the card, and the host pays one set of launches per K
-// blocks.
+// What bounds it on the H100: the card's bound for a flagship block (2
+// channels, 2^18 samples, 4096 bins, 4 taps: 4.2 MB in once, 33 KB out) is
+// its bytes over 3.35 TB/s in complex64, 1.4 us, and in int8 (1.1 MB) its
+// 43 MFLOP over the 67 TFLOP/s float32 peak, 0.64 us.  The frame kernel
+// takes 38 to 40 us for one block and 15 us a block at K = 8: the bound is
+// 2 to 9% of that.  The stage ablation (fxt_fx_ablate; `python -m
+// fxtpu_torch.probes ablate`, numbers in PERF.md) says where it goes: about
+// two thirds in the log2 n radix-2 Stockham stages (one __syncthreads each,
+// every stage a full pass over shared memory: 12 passes where a radix-16
+// register FFT would make 3), about a third in bringing the tap rows in
+// (each frame reads its ntaps rows again, through registers, one float2 or
+// char2 a thread: the copy probe measures that load width at a third, for
+// char2 an eighth, of what 16-byte cp.async or bulk copies reach), a
+// twentieth in the FIR's arithmetic, and nothing measurable in the X stage.
+// Per block the input is read twice (the mean pre-pass, 3 us of device
+// time, then the frames).  At deep taps (32 taps x 8192 bins, the wideband
+// shape) the frames read 32x the block from L2 and loads and FIR are most
+// of the kernel; the SVD form does not change those reads and multiplies
+// the FIR's flops by r (r FMAs per tap and sample), a trade that paid on
+// the TPU, where it moved the tap loop onto the matrix unit, and does not
+// here: on an H100 (700 W) the SVD mode takes 2.2x to 2.6x the direct
+// loop's time at the wideband shape (PERF.md; the mode is kept because
+// fxtpu routes deep taps to it).  At few taps a frame's load time is its
+// loads' latency, so the direct loop starts four bins' loads per tap
+// together.  The design keeps what the TPU kernel keeps out of device
+// memory: the spectra live only in shared memory (nch x nbins x 8 B, 64 KiB
+// at the flagship shape, so the dynamic shared-memory limit is raised), and
+// only the [n_groups, nbl, nbins] partial cross power reaches device
+// memory.  Every sum runs in a fixed order (a two-stage mean reduction, in
+// double for complex64 samples and in exact 64-bit integers for int8 ones,
+// and a fixed-order sum of the partials), so a run is bit-for-bit
+// repeatable; there are no atomics.  The mean pre-pass costs the second
+// read of the input; the post-hoc DC algebra of the TPU kernel
+// (_dc_constants / _dc_correct) removes it and is a later change.  The
+// TPU's 4-bins-per-int32 packing of int8 planes answered its element-bound
+// DMA; loads here are byte-addressed, so the int8 kernel reads the
+// interleaved (I, Q) bytes as they arrived.  The TPU's banded bf16 matmul
+// for the SVD conv, its hi/lo splits and its 1-pass tail ranks are
+// matrix-unit workarounds: here every rank runs in f32 on the CUDA cores, u
+// in shared memory, r accumulators per bin.  A launch of K blocks runs K
+// times the CTAs of one block: where one block's frames leave most SMs idle
+// (the deep-tap CLI block's 32 frames fill 32 of 132) they fill the card,
+// and the host pays one set of launches per K blocks.
 
 #include <cuda_runtime.h>
 
@@ -263,6 +275,7 @@ struct F32Rows {
   __device__ float2 block_value(float2 v, float2 mu) const {
     return csub(v, mu);
   }
+  __device__ static float2 raw(float2 v) { return v; }
   __device__ float2 row(int c, long long e, int bin, float2 mu) const {
     return e < halo ? __ldg(history_ptr(c, e, bin))
                     : block_value(__ldg(sample_ptr(c, e, bin)), mu);
@@ -304,6 +317,9 @@ struct I8Rows {
   }
   __device__ float2 block_value(char2 q, float2 mu) const {
     return deq(q, mu);
+  }
+  __device__ static float2 raw(char2 q) {
+    return make_float2(static_cast<float>(q.x), static_cast<float>(q.y));
   }
   __device__ float2 row(int c, long long e, int bin, float2 mu) const {
     return e < halo ? deq(__ldg(history_ptr(c, e, bin)), history_mean(c))
@@ -367,6 +383,82 @@ __device__ __forceinline__ void for_each_tap(const Rows& rows, int c,
   }
 }
 
+// Stages of the frame kernel, for the stage ablation (fxt_fx_ablate; the
+// counterpart of scripts/fused_ablate.py's STAGE and of the TPU kernel's
+// FXTPU_FUSED_ABLATE): the kernel truncated after a stage, with the output
+// policy still run over whatever the channels' slots then hold, so that
+// every truncated result is a defined function of the input (held against
+// fx_fused.fx_fused_ablate_reference) and no load can be optimised away.
+//   kStageFull     the production kernel: what the FX entry points launch;
+//   kStageLoad     every tap row read as the FIR reads it (for_each_tap,
+//                  DC-corrected, the int8 rows dequantized) and summed
+//                  with unit weights: no window, no multiply.  The sum is
+//                  the cheapest use that keeps every load alive
+//                  (TPU: dma; int8 with the dequantisation);
+//   kStageLoadRaw  the same over the samples as they arrived: no mean
+//                  lost, int8 only converted (TPU: dmapure / dma0);
+//   kStageFir      stop after the FIR (TPU: fir);
+//   kStageFftHalf  stop after floor(log2 n / 2) Stockham stages (TPU: fft1);
+//   kStageFft      every stage and no X stage: each thread folds one bin
+//                  of every channel's spectrum into its element of the
+//                  partial (TPU: fft2 / nox).
+enum : int {
+  kStageFull = 0,
+  kStageLoad,
+  kStageLoadRaw,
+  kStageFir,
+  kStageFftHalf,
+  kStageFft,
+  kStageCount
+};
+
+// A loader that hands for_each_tap its rows as they arrived: same
+// addresses, same loads, no correction.
+template <class Rows>
+struct RawRows : Rows {
+  using T = typename Rows::T;
+  __device__ float2 history_value(T v, float2) const { return Rows::raw(v); }
+  __device__ float2 block_value(T v, float2) const { return Rows::raw(v); }
+};
+
+// The load stages' stand-in for the FIR: out[bin] = the sum in tap order of
+// the frame's ntaps rows at this thread's bins, NB bins at a time as the
+// FIR policy reads them.
+template <int NB, class Rows>
+__device__ void tap_sum(const Rows& rows, int c, long long e0,
+                        const RowMeans& m, int ntaps, int nbins,
+                        float2* out) {
+  for (int b0 = threadIdx.x; b0 < nbins; b0 += NB * kThreads) {
+    const int nb = min(NB, (nbins - b0 + kThreads - 1) / kThreads);
+    float2 acc[NB];
+#pragma unroll
+    for (int j = 0; j < NB; ++j) acc[j] = make_float2(0.f, 0.f);
+    for_each_tap<NB>(rows, c, e0, b0, nb, m, ntaps,
+                     [&](int, const float2* v) {
+#pragma unroll
+      for (int j = 0; j < NB; ++j) {
+        if (j < nb) acc[j] = cadd(acc[j], v[j]);
+      }
+    });
+#pragma unroll
+    for (int j = 0; j < NB; ++j) {
+      if (j < nb) out[b0 + j * kThreads] = acc[j];
+    }
+  }
+}
+
+// How many Stockham stages a stage of the ablation runs.
+template <int Stage>
+__device__ __forceinline__ int fft_stages(int log2n) {
+  if constexpr (Stage == kStageFull || Stage == kStageFft) {
+    return log2n;
+  } else if constexpr (Stage == kStageFftHalf) {
+    return log2n >> 1;
+  } else {
+    return 0;
+  }
+}
+
 // FIR policies: fir(rows, tab, c, e0, m, ntaps, nbins, out) writes the FIR
 // output of the frame over merged rows e0 .. e0+ntaps-1 of [history; x],
 // each losing the mean m gives it, to out[bin] for this thread's bins.
@@ -413,6 +505,7 @@ struct DirectFir {
 // register accumulators, then fir = sum_k v[k, bin] c_k in rank order; one
 // bin at a time (its r accumulators fill the registers).
 struct SvdFir {
+  static constexpr int kBins = 1;
   const float* u;   // [ntaps, rank]
   const float* v;   // [rank, nbins]
   int rank;
@@ -486,6 +579,19 @@ struct CrossOut {
       out[idx] = (f == f0) ? v : cadd(out[idx], v);
     }
   }
+  // kStageFft's output: bin threadIdx.x of every channel's spectrum summed
+  // into element threadIdx.x of the CTA's partial, and nothing else.
+  __device__ void touch(const float2* spec, int nch, int f, int f0,
+                        int nbins) const {
+    const size_t cta =
+        static_cast<size_t>(blockIdx.y) * gridDim.x + blockIdx.x;
+    float2* out = partial + cta * nbl * nbins;
+    float2 v = spec[threadIdx.x];
+    for (int c = 1; c < nch; ++c) {
+      v = cadd(v, spec[static_cast<size_t>(c) * nbins + threadIdx.x]);
+    }
+    out[threadIdx.x] = (f == f0) ? v : cadd(out[threadIdx.x], v);
+  }
 };
 
 struct SpecOut {
@@ -516,8 +622,12 @@ struct SpecOut {
 // For each frame and channel: the FIR over ntaps rows of [history; x]
 // (read through `rows`) into the FFT's first buffer, a radix-2 Stockham
 // FFT (log2 nbins stages, ping-ponging between work and the channel's slot
-// and ending in the slot), then the output policy.
-template <class Rows, class Fir, class Out>
+// and ending in the slot), then the output policy.  Stage truncates the
+// frame for the ablation (kStageFull: nothing is truncated; every branch on
+// Stage is an `if constexpr`, so that instantiation is the production
+// code); a truncated frame runs fewer Stockham stages and starts in the
+// buffer from which they end in the slot.
+template <class Rows, class Fir, class Out, int Stage = kStageFull>
 __global__ void __launch_bounds__(kThreads)
 fx_frames_kernel(Rows rows, Fir fir, Out out, const float2* __restrict__ tw,
                  int nch, int S, int nbins, int log2n, int ntaps,
@@ -550,13 +660,20 @@ fx_frames_kernel(Rows rows, Fir fir, Out out, const float2* __restrict__ tw,
     for (int c = 0; c < nch; ++c) {
       float2* own = out.slot(spec, c, nbins);
       // an odd stage count starts in `work` so the result ends in `own`
-      float2* a = (log2n & 1) ? work : own;
-      float2* b = (log2n & 1) ? own : work;
+      const int nstages = fft_stages<Stage>(log2n);
+      float2* a = (nstages & 1) ? work : own;
+      float2* b = (nstages & 1) ? own : work;
       const RowMeans m{mean_s[(kb - jlo) * nch + c], e_own, mean_s + c, jlo,
                        nch};
-      fir(rows, tab, c, e0, m, ntaps, nbins, a);
+      if constexpr (Stage == kStageLoad) {
+        tap_sum<Fir::kBins>(rows, c, e0, m, ntaps, nbins, a);
+      } else if constexpr (Stage == kStageLoadRaw) {
+        tap_sum<Fir::kBins>(RawRows<Rows>{rows}, c, e0, m, ntaps, nbins, a);
+      } else {
+        fir(rows, tab, c, e0, m, ntaps, nbins, a);
+      }
       __syncthreads();
-      for (int s = 0, ns = 1; s < log2n; ++s, ns <<= 1) {
+      for (int s = 0, ns = 1; s < nstages; ++s, ns <<= 1) {
         const int tshift = log2n - 1 - s;  // twiddle stride nbins / (2 ns)
         for (int j = tid; j < half; j += kThreads) {
           const int k = j & (ns - 1);
@@ -573,7 +690,11 @@ fx_frames_kernel(Rows rows, Fir fir, Out out, const float2* __restrict__ tw,
       }
       out.channel_done(own, c, f, nbins);
     }
-    out.frame_done(spec, f, f0, nbins, log2n);
+    if constexpr (Stage == kStageFft) {
+      out.touch(spec, nch, f, f0, nbins);
+    } else {
+      out.frame_done(spec, f, f0, nbins, log2n);
+    }
     __syncthreads();  // the next frame overwrites spec
   }
 }
@@ -643,7 +764,8 @@ int log2_of(int n) {
 // Mean pre-pass and frame kernel of any mode over K blocks, on `st`.  A
 // CTA stages the means of every block its rows lie in: at most
 // ceil(halo / S) + 1 of them, and never more than K.
-template <typename T, class Rows, class Fir, class Out>
+template <int Stage = kStageFull, typename T, class Rows, class Fir,
+          class Out>
 cudaError_t launch_means_and_frames(const T* x, typename SumOf<T>::pair* sums,
                                     const Rows& rows, const Fir& fir,
                                     const Out& out, const void* tw, int nch,
@@ -659,14 +781,15 @@ cudaError_t launch_means_and_frames(const T* x, typename SumOf<T>::pair* sums,
           sizeof(float2) +
       fir.table_bytes(ntaps);
   cudaError_t err = cudaFuncSetAttribute(
-      reinterpret_cast<const void*>(&fx_frames_kernel<Rows, Fir, Out>),
+      reinterpret_cast<const void*>(
+          &fx_frames_kernel<Rows, Fir, Out, Stage>),
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   mean_partial_kernel<T><<<dim3(parts, nch, K), kThreads, 0, st>>>(
       x, sums, rows.n, rows.stride);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  fx_frames_kernel<Rows, Fir, Out>
+  fx_frames_kernel<Rows, Fir, Out, Stage>
       <<<dim3(n_groups, K), kThreads, smem, st>>>(
           rows, fir, out, static_cast<const float2*>(tw), nch, S, nbins,
           log2_of(nbins), ntaps, frames_per_group, parts, mean_blocks);
@@ -675,7 +798,7 @@ cudaError_t launch_means_and_frames(const T* x, typename SumOf<T>::pair* sums,
 
 // The FIR mode of the FX entry points: rank 0 the direct tap loop over w,
 // rank 1 .. kMaxRank the factorisation u v.
-template <typename T, class Rows>
+template <int Stage = kStageFull, typename T, class Rows>
 cudaError_t launch_fx(const T* x, typename SumOf<T>::pair* sums,
                       const Rows& rows, const void* w, const void* u,
                       const void* v, int rank, const CrossOut& out,
@@ -686,18 +809,118 @@ cudaError_t launch_fx(const T* x, typename SumOf<T>::pair* sums,
   if (rank > 0) {
     const SvdFir fir{static_cast<const float*>(u),
                      static_cast<const float*>(v), rank};
-    return launch_means_and_frames(x, sums, rows, fir, out, tw, nch, K, S,
-                                   nbins, ntaps, n_groups, frames_per_group,
-                                   parts, st);
+    return launch_means_and_frames<Stage>(x, sums, rows, fir, out, tw, nch,
+                                          K, S, nbins, ntaps, n_groups,
+                                          frames_per_group, parts, st);
   }
   const DirectFir fir{static_cast<const float*>(w)};
-  return launch_means_and_frames(x, sums, rows, fir, out, tw, nch, K, S,
-                                 nbins, ntaps, n_groups, frames_per_group,
-                                 parts, st);
+  return launch_means_and_frames<Stage>(x, sums, rows, fir, out, tw, nch, K,
+                                        S, nbins, ntaps, n_groups,
+                                        frames_per_group, parts, st);
+}
+
+// launch_fx at a stage chosen at run time (the ablation's entry points).
+template <typename T, class Rows>
+cudaError_t launch_fx_stage(int stage, const T* x,
+                            typename SumOf<T>::pair* sums, const Rows& rows,
+                            const void* w, const void* u, const void* v,
+                            int rank, const CrossOut& out, const void* tw,
+                            int nch, int K, int S, int nbins, int ntaps,
+                            int n_groups, int frames_per_group, int parts,
+                            cudaStream_t st) {
+#define FXT_STAGE_CASE(STAGE)                                               \
+  case STAGE:                                                               \
+    return launch_fx<STAGE>(x, sums, rows, w, u, v, rank, out, tw, nch, K,  \
+                            S, nbins, ntaps, n_groups, frames_per_group,    \
+                            parts, st)
+  switch (stage) {
+    FXT_STAGE_CASE(kStageFull);
+    FXT_STAGE_CASE(kStageLoad);
+    FXT_STAGE_CASE(kStageLoadRaw);
+    FXT_STAGE_CASE(kStageFir);
+    FXT_STAGE_CASE(kStageFftHalf);
+    FXT_STAGE_CASE(kStageFft);
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef FXT_STAGE_CASE
 }
 
 int reduce_blocks(long long n) {
   return static_cast<int>((n + kThreads - 1) / kThreads);
+}
+
+// The three kernels of the complex64 mode over K blocks on `st`, the
+// frame kernel at `stage` (fxt_fx_fused: kStageFull).
+int fx_c64(int stage, const void* x, const void* hist, const void* w,
+           const void* u, const void* v, const void* tw, const void* pairs,
+           void* sums, void* partial, void* xp, void* new_hist, int nch,
+           int K, int S, int nbins, int ntaps, int rank, int nbl,
+           int n_groups, int frames_per_group, int parts, cudaStream_t st) {
+  const int halo = ntaps - 1;
+  const long long n = static_cast<long long>(S) * nbins;
+  auto* sd = static_cast<double2*>(sums);
+  const F32Rows rows{static_cast<const float2*>(x),
+                     static_cast<const float2*>(hist),
+                     sd,
+                     n,
+                     K * n,
+                     S,
+                     halo,
+                     nbins,
+                     nch};
+  const CrossOut out{static_cast<const int*>(pairs),
+                     static_cast<float2*>(partial), nbl};
+  cudaError_t err = launch_fx_stage(
+      stage, static_cast<const float2*>(x), sd, rows, w, u, v, rank, out, tw,
+      nch, K, S, nbins, ntaps, n_groups, frames_per_group, parts, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long n_out = static_cast<long long>(K) * nbl * nbins;
+  const long long n_hist = static_cast<long long>(nch) * halo * nbins;
+  fx_reduce_kernel<<<reduce_blocks(n_out > n_hist ? n_out : n_hist), kThreads,
+                     0, st>>>(static_cast<const float2*>(partial),
+                              static_cast<float2*>(xp), rows,
+                              static_cast<float2*>(new_hist), K, n_groups,
+                              nbl, nch, parts);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The three kernels of the int8 mode over K blocks on `st`, the frame
+// kernel at `stage` (fxt_fx_fused_i8: kStageFull).
+int fx_i8(int stage, const void* x, const void* tail, const void* mu_prev,
+          const void* w, const void* u, const void* v, const void* tw,
+          const void* pairs, void* sums, void* partial, void* xp, void* mu,
+          int nch, int K, int S, int nbins, int ntaps, int rank, int nbl,
+          int n_groups, int frames_per_group, int parts, double step,
+          cudaStream_t st) {
+  const long long n = static_cast<long long>(S) * nbins;
+  auto* sl = static_cast<longlong2*>(sums);
+  const I8Rows rows{static_cast<const char2*>(x),
+                    static_cast<const char2*>(tail),
+                    static_cast<const float2*>(mu_prev),
+                    sl,
+                    n,
+                    K * n,
+                    S,
+                    ntaps - 1,
+                    nbins,
+                    nch,
+                    static_cast<float>(step),
+                    step};
+  const CrossOut out{static_cast<const int*>(pairs),
+                     static_cast<float2*>(partial), nbl};
+  cudaError_t err = launch_fx_stage(
+      stage, static_cast<const char2*>(x), sl, rows, w, u, v, rank, out, tw,
+      nch, K, S, nbins, ntaps, n_groups, frames_per_group, parts, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long n_out = static_cast<long long>(K) * nbl * nbins;
+  const long long n_mu = static_cast<long long>(K) * nch;
+  fx_reduce_i8_kernel<<<reduce_blocks(n_out > n_mu ? n_out : n_mu), kThreads,
+                        0, st>>>(static_cast<const float2*>(partial),
+                                 static_cast<float2*>(xp), rows,
+                                 static_cast<float2*>(mu), K, n_groups, nbl,
+                                 nch, parts);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -717,34 +940,9 @@ extern "C" int fxt_fx_fused(const void* x, const void* hist, const void* w,
                             int nbins, int ntaps, int rank, int nbl,
                             int n_groups, int frames_per_group, int parts,
                             void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int halo = ntaps - 1;
-  const long long n = static_cast<long long>(S) * nbins;
-  auto* sd = static_cast<double2*>(sums);
-  const F32Rows rows{static_cast<const float2*>(x),
-                     static_cast<const float2*>(hist),
-                     sd,
-                     n,
-                     K * n,
-                     S,
-                     halo,
-                     nbins,
-                     nch};
-  const CrossOut out{static_cast<const int*>(pairs),
-                     static_cast<float2*>(partial), nbl};
-  cudaError_t err =
-      launch_fx(static_cast<const float2*>(x), sd, rows, w, u, v, rank, out,
-                tw, nch, K, S, nbins, ntaps, n_groups, frames_per_group,
-                parts, st);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const long long n_out = static_cast<long long>(K) * nbl * nbins;
-  const long long n_hist = static_cast<long long>(nch) * halo * nbins;
-  fx_reduce_kernel<<<reduce_blocks(n_out > n_hist ? n_out : n_hist), kThreads,
-                     0, st>>>(static_cast<const float2*>(partial),
-                              static_cast<float2*>(xp), rows,
-                              static_cast<float2*>(new_hist), K, n_groups,
-                              nbl, nch, parts);
-  return static_cast<int>(cudaGetLastError());
+  return fx_c64(kStageFull, x, hist, w, u, v, tw, pairs, sums, partial, xp,
+                new_hist, nch, K, S, nbins, ntaps, rank, nbl, n_groups,
+                frames_per_group, parts, static_cast<cudaStream_t>(stream));
 }
 
 // Launch the three kernels of the int8 mode over K blocks on `stream`.
@@ -761,36 +959,43 @@ extern "C" int fxt_fx_fused_i8(const void* x, const void* tail,
                                int nbins, int ntaps, int rank, int nbl,
                                int n_groups, int frames_per_group, int parts,
                                double step, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const long long n = static_cast<long long>(S) * nbins;
-  auto* sl = static_cast<longlong2*>(sums);
-  const I8Rows rows{static_cast<const char2*>(x),
-                    static_cast<const char2*>(tail),
-                    static_cast<const float2*>(mu_prev),
-                    sl,
-                    n,
-                    K * n,
-                    S,
-                    ntaps - 1,
-                    nbins,
-                    nch,
-                    static_cast<float>(step),
-                    step};
-  const CrossOut out{static_cast<const int*>(pairs),
-                     static_cast<float2*>(partial), nbl};
-  cudaError_t err =
-      launch_fx(static_cast<const char2*>(x), sl, rows, w, u, v, rank, out,
-                tw, nch, K, S, nbins, ntaps, n_groups, frames_per_group,
-                parts, st);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const long long n_out = static_cast<long long>(K) * nbl * nbins;
-  const long long n_mu = static_cast<long long>(K) * nch;
-  fx_reduce_i8_kernel<<<reduce_blocks(n_out > n_mu ? n_out : n_mu), kThreads,
-                        0, st>>>(static_cast<const float2*>(partial),
-                                 static_cast<float2*>(xp), rows,
-                                 static_cast<float2*>(mu), K, n_groups, nbl,
-                                 nch, parts);
-  return static_cast<int>(cudaGetLastError());
+  return fx_i8(kStageFull, x, tail, mu_prev, w, u, v, tw, pairs, sums,
+               partial, xp, mu, nch, K, S, nbins, ntaps, rank, nbl, n_groups,
+               frames_per_group, parts, step,
+               static_cast<cudaStream_t>(stream));
+}
+
+// The stage ablation (fx_fused.fx_fused_ablate): fxt_fx_fused with the
+// frame kernel truncated at `stage` (the kStage values, 0 .. 5; 0 is the
+// production kernel, the instantiation fxt_fx_fused launches).  The mean
+// pre-pass and the reduce run as they do there, so two stages' times
+// differ by the frame kernel alone; the history written is fxt_fx_fused's.
+// At kStageFft only xp[k, 0, 0:256] is defined.
+extern "C" int fxt_fx_ablate(const void* x, const void* hist, const void* w,
+                             const void* u, const void* v, const void* tw,
+                             const void* pairs, void* sums, void* partial,
+                             void* xp, void* new_hist, int nch, int K, int S,
+                             int nbins, int ntaps, int rank, int nbl,
+                             int n_groups, int frames_per_group, int parts,
+                             int stage, void* stream) {
+  return fx_c64(stage, x, hist, w, u, v, tw, pairs, sums, partial, xp,
+                new_hist, nch, K, S, nbins, ntaps, rank, nbl, n_groups,
+                frames_per_group, parts, static_cast<cudaStream_t>(stream));
+}
+
+// The stage ablation of the int8 mode: fxt_fx_fused_i8 at `stage`.
+extern "C" int fxt_fx_ablate_i8(const void* x, const void* tail,
+                                const void* mu_prev, const void* w,
+                                const void* u, const void* v, const void* tw,
+                                const void* pairs, void* sums, void* partial,
+                                void* xp, void* mu, int nch, int K, int S,
+                                int nbins, int ntaps, int rank, int nbl,
+                                int n_groups, int frames_per_group, int parts,
+                                double step, int stage, void* stream) {
+  return fx_i8(stage, x, tail, mu_prev, w, u, v, tw, pairs, sums, partial,
+               xp, mu, nch, K, S, nbins, ntaps, rank, nbl, n_groups,
+               frames_per_group, parts, step,
+               static_cast<cudaStream_t>(stream));
 }
 
 // Launch the spectrometer on `stream`: the mean pre-pass over all nsamp

@@ -48,6 +48,14 @@ K = 1.  Their launches count apart, on ``fx_fused_raw_multi`` and
 
 The rotation, ``1/n_frames``, fftshift and continuum stay with the caller
 (``fxtpu_torch.fx._finish``), as ``_finish_fused`` stays XLA in JAX.
+
+The stage ablation (``scripts/fused_ablate.py``'s ``STAGE`` and
+``_fx_kernel``'s ``FXTPU_FUSED_ABLATE``): :func:`fx_fused_ablate` launches
+either entry point with the frame kernel truncated after one of
+:data:`STAGES`, the X stage still run over what the truncated frame left,
+so each stage's result is a defined function of the input, which
+:func:`fx_fused_ablate_reference` computes in plain torch.  ``"full"`` is
+the production kernel.  ``fxtpu_torch.probes.ablate`` times the stages.
 """
 
 from __future__ import annotations
@@ -58,15 +66,18 @@ import math
 import numpy as np
 import torch
 
-from fxtpu_torch.ops.pfb import dequantize, spectrometer_rows
+from fxtpu_torch.ops.pfb import (dequantize, pfb_fir, spectrometer_rows,
+                                 svd_fir)
 from fxtpu_torch.ops.svd_fir import svd_fir_factors
 
 __all__ = ["supported", "supported_i8", "fx_fused_raw",
            "fx_fused_raw_reference", "fx_fused_raw_i8",
            "fx_fused_raw_i8_reference", "fx_fused_raw_multi",
            "fx_fused_raw_multi_reference", "fx_fused_raw_i8_multi",
-           "fx_fused_raw_i8_multi_reference", "max_blocks", "pairs_tensor",
-           "svd_tensors", "MAX_SHARED_BYTES", "MAX_SVD_RANK"]
+           "fx_fused_raw_i8_multi_reference", "fx_fused_ablate",
+           "fx_fused_ablate_reference", "stockham_stages", "max_blocks",
+           "pairs_tensor", "svd_tensors", "MAX_SHARED_BYTES",
+           "MAX_SVD_RANK", "STAGES", "FFT_STAGE_BINS"]
 
 #: Dynamic shared memory one block may use on Hopper (227 KiB).
 MAX_SHARED_BYTES = 232448
@@ -82,6 +93,14 @@ MAX_LAUNCH_PARTIAL_BYTES = 1 << 30
 MAX_SVD_RANK = 16
 #: Most blocks one launch takes (the grid's second axis).
 MAX_BLOCKS = 65535
+#: Stages of the ablation, in the kernel's numbering (kStageFull ...):
+#: the whole step; every tap row read and summed with unit weights,
+#: DC-corrected (``load``) or as it arrived (``load_raw``); stop after the
+#: FIR; after ``log2(nbins) // 2`` Stockham stages; after all of them,
+#: with no X stage.
+STAGES = ("full", "load", "load_raw", "fir", "fft_half", "fft")
+#: Bins of baseline 0 that stage ``"fft"`` writes (one per thread).
+FFT_STAGE_BINS = 256
 
 
 def shared_bytes(nbins: int, nch: int, ntaps: int = 0, rank: int = 0,
@@ -344,12 +363,14 @@ def _check_i8(x, history, window2d, pairs, quant_step, svd, multi=False):
     return rank
 
 
-def _launch_setup(x, pairs, k, s_rows, nbins, merged):
-    """Library, output, scratch and grid shared by both kernels' launches
-    over k blocks: xp [k, nbl, nbins] (``[nbl, nbins]`` for a one-block
-    call, ``merged`` False), partial [k, n_groups, nbl, nbins]."""
-    from fxtpu_torch.cuda_build import load_kernels
-    lib = load_kernels()
+def _launch_setup(x, pairs, k, s_rows, nbins, merged, lib=None):
+    """Library (``lib``, or the one built from this tree's sources),
+    output, scratch and grid shared by both kernels' launches over k
+    blocks: xp [k, nbl, nbins] (``[nbl, nbins]`` for a one-block call,
+    ``merged`` False), partial [k, n_groups, nbl, nbins]."""
+    if lib is None:
+        from fxtpu_torch.cuda_build import load_kernels
+        lib = load_kernels()
     nbl = pairs.shape[0]
     n_groups, per = _groups(s_rows, nbl, nbins)
     xp = torch.empty((k, nbl, nbins) if merged else (nbl, nbins),
@@ -372,17 +393,21 @@ def _count(wrapper, rank):
         wrapper.launches += 1
 
 
-def _launch(x, history, window2d, pairs, svd, rank, what, merged):
+def _launch(x, history, window2d, pairs, svd, rank, what, merged,
+            stage=None, lib=None):
     """The complex64 entry point over x (checked): one block ``[nch, S,
     nbins]`` -> (xp [nbl, nbins], new_history), or with ``merged`` the K
     blocks of ``[nch, K, S, nbins]`` -> (xp [K, nbl, nbins], new_history).
-    One block is the same memory as ``[nch, 1, S, nbins]``."""
+    One block is the same memory as ``[nch, 1, S, nbins]``.  ``stage``
+    (an index into :data:`STAGES`) goes through the ablation's entry;
+    ``lib`` is another build of the kernels to launch from (a comparison
+    of two trees' kernels)."""
     from fxtpu_torch.cuda_build import check
     nch, s_rows, nbins = x.shape[0], x.shape[-2], x.shape[-1]
     k = x.shape[1] if merged else 1
     ntaps = window2d.shape[0]
     lib, nbl, n_groups, per, xp, partial = _launch_setup(
-        x, pairs, k, s_rows, nbins, merged)
+        x, pairs, k, s_rows, nbins, merged, lib)
     dev = x.device
     new_hist = torch.empty((nch, ntaps - 1, nbins), dtype=torch.complex64,
                            device=dev)
@@ -391,27 +416,30 @@ def _launch(x, history, window2d, pairs, svd, rank, what, merged):
     tw = _twiddles(nbins, dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.fxt_fx_fused(
+        entry, extra = ((lib.fxt_fx_fused, ()) if stage is None
+                        else (lib.fxt_fx_ablate, (stage,)))
+        rc = entry(
             x.data_ptr(), history.data_ptr(), window2d.data_ptr(),
             *_svd_ptrs(svd), tw.data_ptr(), pairs.data_ptr(),
             sums.data_ptr(), partial.data_ptr(), xp.data_ptr(),
             new_hist.data_ptr(), nch, k, s_rows, nbins, ntaps, rank, nbl,
-            n_groups, per, MEAN_PARTS, stream)
+            n_groups, per, MEAN_PARTS, *extra, stream)
     check(lib, rc, what)
     return xp, new_hist
 
 
 def _launch_i8(x, history, window2d, pairs, quant_step, svd, rank, what,
-               merged):
+               merged, stage=None, lib=None):
     """The int8 entry point over x (checked): one block ``[nch, S, nbins,
     2]`` -> (xp [nbl, nbins], mu [nch]), or with ``merged`` the K blocks of
-    ``[nch, K, S, nbins, 2]`` -> (xp [K, nbl, nbins], mu [K, nch])."""
+    ``[nch, K, S, nbins, 2]`` -> (xp [K, nbl, nbins], mu [K, nch]).
+    ``stage`` and ``lib`` as for :func:`_launch`."""
     from fxtpu_torch.cuda_build import check
     nch, s_rows, nbins = x.shape[0], x.shape[-3], x.shape[-2]
     k = x.shape[1] if merged else 1
     ntaps = window2d.shape[0]
     lib, nbl, n_groups, per, xp, partial = _launch_setup(
-        x, pairs, k, s_rows, nbins, merged)
+        x, pairs, k, s_rows, nbins, merged, lib)
     dev = x.device
     mu = torch.empty((k, nch) if merged else (nch,), dtype=torch.complex64,
                      device=dev)
@@ -420,13 +448,15 @@ def _launch_i8(x, history, window2d, pairs, quant_step, svd, rank, what,
     tw = _twiddles(nbins, dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.fxt_fx_fused_i8(
+        entry, extra = ((lib.fxt_fx_fused_i8, ()) if stage is None
+                        else (lib.fxt_fx_ablate_i8, (stage,)))
+        rc = entry(
             x.data_ptr(), history["tail"].data_ptr(),
             history["mu_prev"].data_ptr(), window2d.data_ptr(),
             *_svd_ptrs(svd), tw.data_ptr(), pairs.data_ptr(),
             sums.data_ptr(), partial.data_ptr(), xp.data_ptr(),
             mu.data_ptr(), nch, k, s_rows, nbins, ntaps, rank, nbl,
-            n_groups, per, MEAN_PARTS, quant_step, stream)
+            n_groups, per, MEAN_PARTS, quant_step, *extra, stream)
     check(lib, rc, what)
     return xp, mu
 
@@ -573,3 +603,126 @@ def fx_fused_raw_i8_multi(x: torch.Tensor, history: dict,
 
 fx_fused_raw_i8_multi.launches = 0
 fx_fused_raw_i8_multi.svd_launches = 0
+
+
+def stockham_stages(x: torch.Tensor, nstages: int) -> torch.Tensor:
+    """The first ``nstages`` radix-2 Stockham stages of the frame kernel's
+    FFT over the last axis of complex ``x`` (a power of two long), by
+    tensor indexing, with the kernel's own index arithmetic
+    (``fx_fused.cu``: ``b[d]``, ``b[d + ns]``).  All ``log2(n)`` stages
+    give the DFT in natural order."""
+    n = x.shape[-1]
+    log2n = n.bit_length() - 1
+    if n != 1 << log2n or not 0 <= nstages <= log2n:
+        raise ValueError(f"{nstages} Stockham stages over {n} points")
+    half = n // 2
+    tw = _twiddles(n, x.device)
+    j = torch.arange(half, device=x.device)
+    a = x
+    for s in range(nstages):
+        ns = 1 << s
+        k = j & (ns - 1)
+        d = ((j - k) << 1) + k
+        v0 = a[..., :half]
+        v1 = a[..., half:] * tw[k << (log2n - 1 - s)]
+        b = torch.empty_like(a)
+        b[..., d] = v0 + v1
+        b[..., d + ns] = v0 - v1
+        a = b
+    return a
+
+
+def fx_fused_ablate_reference(x: torch.Tensor, history, window2d: torch.Tensor,
+                              pairs: torch.Tensor, stage: str,
+                              quant_step=None, svd=None) -> torch.Tensor:
+    """The truncated step in plain torch, same contract as
+    :func:`fx_fused_ablate`: the merged rows ``[history; x]`` (each block
+    losing its own mean, 8-bit samples dequantized; ``"load_raw"``: as they
+    arrived), the stage's share of FIR and Stockham stages, then the cross
+    power of every pair summed over each block's frames."""
+    if stage not in STAGES:
+        raise ValueError(f"stage {stage!r} is not one of {STAGES}")
+    int8 = x.dtype == torch.int8
+    if stage == "full":
+        if int8:
+            return fx_fused_raw_i8_multi_reference(
+                x, history, window2d, pairs, quant_step, svd)[0]
+        return fx_fused_raw_multi_reference(x, history, window2d, pairs,
+                                            svd)[0]
+    nch, k, s_rows = x.shape[:3]
+    ntaps, nbins = window2d.shape
+    raw = stage == "load_raw"
+    if int8 and raw:
+        rows = torch.view_as_complex(x.float())
+        hist = torch.view_as_complex(history["tail"].float())
+    elif int8:
+        mu = torch.stack([block_mean_i8(x[:, j], quant_step)
+                          for j in range(k)], dim=1)          # [nch, K]
+        rows = dequantize(x, quant_step) - mu[:, :, None, None]
+        hist = (dequantize(history["tail"], quant_step)
+                - history["mu_prev"][:, None, None])
+    else:
+        rows = x if raw else x - x.mean(dim=(-2, -1), keepdim=True)
+        hist = history
+    merged = torch.cat([hist, rows.reshape(nch, k * s_rows, nbins)], dim=1)
+    if stage in ("load", "load_raw"):
+        y = pfb_fir(merged, torch.ones_like(window2d))
+    elif svd is None:
+        y = pfb_fir(merged, window2d)
+    else:
+        y = svd_fir(merged, *svd)
+    log2n = nbins.bit_length() - 1
+    if stage == "fft_half":
+        y = stockham_stages(y, log2n // 2)
+    elif stage == "fft":
+        y = stockham_stages(y, log2n)
+    y = y.reshape(nch, k, s_rows, nbins)
+    if stage == "fft":
+        # frames first, then channels: each block's sum is formed alike
+        return y[..., :FFT_STAGE_BINS].sum(dim=2).sum(dim=0)[:, None, :]
+    idx = pairs.to(device=y.device, dtype=torch.long)
+    xp = (y[idx[:, 0]] * y[idx[:, 1]].conj()).sum(dim=-2)   # [nbl, K, nbins]
+    return xp.permute(1, 0, 2).contiguous()
+
+
+def fx_fused_ablate(x: torch.Tensor, history, window2d: torch.Tensor,
+                    pairs: torch.Tensor, stage: str, quant_step=None,
+                    svd=None) -> torch.Tensor:
+    """The fused step over the K blocks of the merged ``x`` with the frame
+    kernel truncated after ``stage`` (:data:`STAGES`) -> ``xp [K, nbl,
+    nbins]``: the cross power of what the truncated frames left in the
+    channels' slots.  Stage ``"fft"`` runs no X stage and returns ``[K, 1,
+    FFT_STAGE_BINS]``, every channel's spectrum summed over the block's
+    frames at the first bins.  ``x`` complex64 ``[nch, K, S, nbins]`` with
+    a tensor history, or int8 ``[nch, K, S, nbins, 2]`` with the raw-tail
+    dict and ``quant_step``; ``svd`` as for :func:`fx_fused_raw`.  No
+    history is returned: a timing harness feeds the same one again.
+
+    CPU tensors run :func:`fx_fused_ablate_reference`; CUDA tensors launch
+    the kernels (mean pre-pass, truncated frame kernel, reduce) or raise.
+    Each launch adds one to ``fx_fused_ablate.launches``."""
+    if stage not in STAGES:
+        raise ValueError(f"stage {stage!r} is not one of {STAGES}")
+    int8 = x.dtype == torch.int8
+    if int8 and quant_step is None:
+        raise ValueError("8-bit samples need their quant_step")
+    if not _on_card(x, "fx_fused_ablate"):
+        return fx_fused_ablate_reference(x, history, window2d, pairs, stage,
+                                         quant_step, svd)
+    index = STAGES.index(stage)
+    what = f"fx_fused ablation ({stage}) kernel launch"
+    if int8:
+        quant_step = float(quant_step)
+        rank = _check_i8(x, history, window2d, pairs, quant_step, svd,
+                         multi=True)
+        xp, _ = _launch_i8(x, history, window2d, pairs, quant_step, svd,
+                           rank, what, merged=True, stage=index)
+    else:
+        rank = _check(x, history, window2d, pairs, svd, multi=True)
+        xp, _ = _launch(x, history, window2d, pairs, svd, rank, what,
+                        merged=True, stage=index)
+    fx_fused_ablate.launches += 1
+    return xp[:, :1, :FFT_STAGE_BINS] if stage == "fft" else xp
+
+
+fx_fused_ablate.launches = 0

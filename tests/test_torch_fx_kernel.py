@@ -465,3 +465,36 @@ def test_cuda_svd_wrappers_reject_bad_factors(cuda_device):
             call((u.cpu(), v))
         with pytest.raises(TypeError):
             call((u.double(), v))
+
+
+# --- the stage ablation (every stage: tests/test_torch_probes.py) ---------
+
+@pytest.mark.parametrize("nch,autos", [(2, False), (3, True)])
+def test_ablate_full_is_the_reference_step(nch, autos):
+    """Stage ``full`` of the ablation over one block is
+    fx_fused_raw_reference, exactly; a truncated stage is not."""
+    _, _, blocks, wt, pt = _case(nch, autos, seed=40 + nch)
+    x = torch.from_numpy(blocks[0])
+    h = torch.from_numpy(blocks[1][:, :NTAPS - 1].copy())
+    want, _ = fx_fused_raw_reference(x, h, wt, pt)
+    got = fx_fused.fx_fused_ablate(x[:, None], h, wt, pt, "full")
+    assert torch.equal(got[0], want)
+    fir = fx_fused.fx_fused_ablate(x[:, None], h, wt, pt, "fir")
+    assert fir.shape == got.shape and not torch.allclose(fir, got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nbins,s,ntaps", [(256, 32, 4), (512, 16, 2),
+                                           (8192, 8, 4)])
+def test_cuda_ablate_full_is_the_one_block_launch(nbins, s, ntaps,
+                                                  cuda_device):
+    """The ablation's ``full`` stage launches the production
+    instantiation: its output is the one-block wrapper's, bit for bit."""
+    _, _, blocks, wt, pt = _case(2, False, seed=50, device=cuda_device,
+                                 nbins=nbins, s=s, ntaps=ntaps)
+    x = torch.as_tensor(blocks[0], device=cuda_device)
+    h = torch.zeros((2, ntaps - 1, nbins), dtype=torch.complex64,
+                    device=cuda_device)
+    want, _ = fx_fused_raw(x, h, wt, pt)
+    got = fx_fused.fx_fused_ablate(x[:, None].contiguous(), h, wt, pt, "full")
+    assert torch.equal(got[0], want)
