@@ -38,7 +38,21 @@ Phases (any failure raises and exits non-zero, with no ``ok`` line):
    of 2) and at the CLI's deep-tap block (SVD), and K = 2 at the wideband
    shape: within 2e-5 max|xp_ref| of their plain versions (3e-5 in the SVD
    mode) with the history bounds above, and bit for bit the K one-block
-   launches; every stage of the ablation (``fx_ablate``:
+   launches; the single pass (``fx_parts``, ``fx_parts_i8``:
+   ``ops.fx_fused.fx_fused_parts`` / ``fx_fused_parts_i8``) and its
+   epilogue (``fx_finish``: ``ops.fx_epilogue.fx_finish``) at K = 1 and 8
+   from a carried history, in the direct mode at nbins=256, the flagship,
+   ``bench_pipeline``'s block and the wideband shape, in the SVD mode at
+   nbins=256 x 32 taps, the CLI's deep-tap block and the wideband shape:
+   the parts within 2e-5 (3e-5: 8-bit samples, deep taps) of their plain
+   version's scale, off the DC bin and at it, mu and the complex64 tail
+   within 1e-6, the int8 tail exact; the epilogue against ``dc_correct``
+   + ``finish`` (packed and plain delays, spectra and continuum), every
+   bin within 1e-6 of max|vis| plus 2e-6 of the raw cross power per frame
+   that cancels at that bin, the DC bin printed apart; the corrected cross
+   power against the two-pass plain version with the same allowance for
+   what cancels; every stage
+   of the ablation (``fx_ablate``:
    ``ops.fx_fused.fx_fused_ablate``, both ingests, both FIR modes) at
    nbins=256, at the flagship, at the CLI's deep-tap block and at the
    wideband shape, and every leg of the copy, overlap and retile probes
@@ -51,16 +65,21 @@ Phases (any failure raises and exits non-zero, with no ``ok`` line):
    path), each with complex64 ingest and with ``--ingest int8`` (int8
    rings), then at the defaults with ``--blocks_per_dispatch 8`` (the
    staged path) in both ingests, each with every launch count set to 0
-   just before and read just after: the run's kernel entry ran once per
-   correlated block (at K = 8: K-block launches x 8 + one-block launches
-   = blocks) and no other at all, the engine's ``fir_mode`` is the run's
+   just before and read just after: the run's single-pass wrapper and the
+   epilogue ran once per correlated block each (at K = 8: K-block calls x
+   8 + one-block calls = blocks), the two-pass entries and every other
+   not at all, the engine's ``fir_mode`` is the run's
    (``direct``, ``svd``), the calibration recovered the injected 2 us
    delay within 0.5 sample, the calibrated in-band phase is flat (std <
    0.3 rad, 0.35 under int8) and the CSV loads with the reference recipe;
    then ``bench_pipeline``'s configuration through the Correlator
    (looping replay, CONTINUUM, ``buffer_chunks`` 32) for 4 s at K = 8 and
    at K = 1 in each ingest, counted the same way, under a CUDA-only
-   ``torch.profiler`` trace for the device's busy share; then the F-stage
+   ``torch.profiler`` trace for the device's busy share; then the
+   two-pass entries, which the engine no longer calls, as a caller
+   composes a step from them (``fx_fused_raw*`` and the plain ``finish``:
+   3 blocks one at a time, 2 batches of 8, both ingests, 4 and 32 taps),
+   counted the same way and held to the engine's step; then the F-stage
    entry ``spectrometer_fused``, which no main path calls, over 3 chained
    flagship blocks; then the measurement path, ``fxtpu_torch.probes.main``
    for ``ablate`` (flagship and ``bench_pipeline`` blocks at K = 1 and 8 in
@@ -79,7 +98,14 @@ Phases (any failure raises and exits non-zero, with no ``ok`` line):
    and the plain version at the flagship and at the CLI's deep-tap block
    (SVD), ``multi_step`` against ``step`` at the flagship, and 8 blocks'
    copy through a pinned buffer on a side stream against 8 pageable
-   copies; the device launches of one engine step (flagship, and wideband
+   copies; the single pass against the two-pass form of the fused route
+   in one process, in turns (A B B A): ``step`` and ``multi_step`` at the
+   flagship and ``step`` at ``bench_pipeline``'s block in both ingests,
+   one block's copy pinned (``prepare_block``) against pageable by the
+   host's clock and by CUDA events, the device time of each kernel of a
+   step, and the device launches of a single-pass step, which fails the
+   run when they are more than 3 or the mean pre-pass is among them; the
+   device launches of one engine step (flagship, and wideband
    in the SVD mode), of one K = 8 ``multi_step`` and of each wrapper alone
    (a CUDA-only profiler trace); the stage table, the
    frame kernel's device time per block after each stage from the
@@ -159,12 +185,24 @@ REPLACES = {
     "spectrometer": "fxtpu/ops/pfb_pallas.py:133",
     "fx_fused_multi": "fxtpu/ops/pfb_pallas.py:1669",
     "fx_fused_i8_multi": "fxtpu/ops/pfb_pallas.py:1669",
+    "fx_parts": "fxtpu/ops/pfb_pallas.py:993",
+    "fx_parts_i8": "fxtpu/ops/pfb_pallas.py:1050",
+    "fx_finish": "fxtpu/ops/pfb_pallas.py:1501",
     "fx_ablate": "scripts/fused_ablate.py:58",
     "copy_probe": "scripts/dma_width_probe.py:44",
     "overlap_probe": "scripts/dma_overlap_probe.py:154",
     "retile_probe": "scripts/retile_probe.py:51",
 }
 PROBE_KERNELS = ("fx_ablate", "copy_probe", "overlap_probe", "retile_probe")
+FINISH_SOURCE = "fxtpu_torch/csrc/fx_finish.cu"
+FIN_TOL = 1e-6       # fx_finish, relative to max|vis_ref|, plus
+CANCEL_TOL = 2e-6    # this share of the raw cross power that cancels at a
+#                      bin (the DC bin's |mu|^2 |Abar(0)|^2 and its leakage)
+# (shape, K, FIR mode) of the single-pass entries' checks in phase 2
+PARTS_CASES = tuple((case, k, "direct") for case in (
+    SMALL, FLAGSHIP, PIPELINE_BLOCK, WIDEBAND) for k in (1, MULTI_K)) + tuple(
+    (case, k, "svd") for case in (SMALL_DEEP, DEEP_CLI, WIDEBAND)
+    for k in (1, MULTI_K))
 
 
 def card_line() -> str:
@@ -194,25 +232,31 @@ def probe_wrappers() -> dict:
 
 def reset_counts():
     from fxtpu_torch.ops import fx_fused
+    from fxtpu_torch.ops.fx_epilogue import fx_finish
     from fxtpu_torch.ops.spectrometer import spectrometer_fused
     for fn in (fx_fused.fx_fused_raw, fx_fused.fx_fused_raw_i8,
-               fx_fused.fx_fused_raw_multi, fx_fused.fx_fused_raw_i8_multi):
+               fx_fused.fx_fused_raw_multi, fx_fused.fx_fused_raw_i8_multi,
+               fx_fused.fx_fused_parts, fx_fused.fx_fused_parts_i8):
         fn.launches = fn.svd_launches = 0
-    spectrometer_fused.launches = 0
+    spectrometer_fused.launches = fx_finish.launches = 0
     for fn in probe_wrappers().values():
         fn.launches = 0
 
 
 def read_counts() -> dict:
     from fxtpu_torch.ops import fx_fused
+    from fxtpu_torch.ops.fx_epilogue import fx_finish
     from fxtpu_torch.ops.spectrometer import spectrometer_fused
     counts = {}
     for name, fn in (("fx_fused", fx_fused.fx_fused_raw),
                      ("fx_fused_i8", fx_fused.fx_fused_raw_i8),
                      ("fx_fused_multi", fx_fused.fx_fused_raw_multi),
-                     ("fx_fused_i8_multi", fx_fused.fx_fused_raw_i8_multi)):
+                     ("fx_fused_i8_multi", fx_fused.fx_fused_raw_i8_multi),
+                     ("fx_parts", fx_fused.fx_fused_parts),
+                     ("fx_parts_i8", fx_fused.fx_fused_parts_i8)):
         counts[name] = fn.launches
         counts[name + "_svd"] = fn.svd_launches
+    counts["fx_finish"] = fx_finish.launches
     counts["spectrometer"] = spectrometer_fused.launches
     for name, fn in probe_wrappers().items():
         counts[name] = fn.launches
@@ -452,6 +496,184 @@ def compare_multi(case, k, device, fir, int8):
     return abs_err, rel_err
 
 
+def raw_history(case, rng, device, int8):
+    """A history that is not zero: a DC-corrected complex64 tail, or a
+    raw int8 tail with the mean it still carries."""
+    import torch
+    nch, ntaps, nbins = case["nch"], case["ntaps"], case["nbins"]
+    if int8:
+        tail = np.clip(np.rint(30 * rng.normal(size=(nch, ntaps - 1, nbins,
+                                                     2))), -127, 127)
+        mu = 0.05 * (rng.normal(size=nch) + 1j * rng.normal(size=nch))
+        return {"tail": torch.as_tensor(tail.astype(np.int8), device=device),
+                "mu_prev": torch.as_tensor(mu.astype(np.complex64),
+                                           device=device)}
+    h = rng.normal(size=(nch, ntaps - 1, nbins, 2)) @ np.array([1.0, 1j])
+    return torch.as_tensor(h.astype(np.complex64), device=device)
+
+
+def parts_batch(case, k, rng, device, int8):
+    """K merged blocks for the single pass: noise with a DC offset of a
+    few hundredths to a few tenths of its sigma that differs per channel
+    and block (a receiver's offset; the post-hoc correction cancels at the
+    DC bin, which loses precision as the mean grows)."""
+    import torch
+    nch, nbins = case["nch"], case["nbins"]
+    s = case["nsamp"] // nbins
+    grade = np.arange(1, nch + 1)[:, None] + 0.5 * np.arange(k)[None, :]
+    if int8:
+        dc = np.array([3.0, -2.0]) * grade[..., None, None, None]
+        x = np.clip(np.rint(30 * rng.normal(size=(nch, k, s, nbins, 2)) + dc),
+                    -127, 127)
+        return torch.as_tensor(x.astype(np.int8), device=device)
+    x = (rng.normal(size=(nch, k, s, nbins, 2)) @ np.array([1.0, 1j])
+         + (0.03 - 0.02j) * grade[..., None, None])
+    return torch.as_tensor(x.astype(np.complex64), device=device)
+
+
+def compare_parts(case, k, device, fir, int8):
+    """Phase 2 for the single pass at one shape, K blocks from a carried
+    history: the parts (``fx_fused_parts`` / ``fx_fused_parts_i8``)
+    against their plain version: xp_raw and T within 2e-5 (3e-5 for
+    8-bit samples and deep taps) of their scale off the DC bin and at it
+    (the raw DC bin towers above the rest, so each is held on its own
+    scale), GJ on one scale, mu and the complex64 tail within 1e-6, the
+    int8 tail exact; then the epilogue (``fx_finish``) on the kernel's
+    parts against ``dc_correct`` + ``finish`` for packed and plain delays,
+    spectra and continuum: every bin within 1e-6 of max|vis| plus 2e-6
+    of the raw cross power per frame that cancels at that bin (the DC bin
+    and, for large means, its neighbours); then the corrected cross power
+    against the two-pass plain version, at the kernels' tolerance plus the
+    same allowance for what cancels.  Returns {entry: (max abs err, max
+    rel err)} for the parts entry and ``fx_finish``, and the largest
+    DC-bin error seen, relative to max|vis|."""
+    import torch
+
+    from fxtpu_torch.ops import baseline_pairs, pairs_tensor
+    from fxtpu_torch.ops import fx_epilogue as fe
+    from fxtpu_torch.ops import fx_fused as ff
+    from fxtpu_torch.ops.dc_posthoc import (block_mu_prev, dc_constants,
+                                            dc_correct)
+    from fxtpu_torch.ops.xengine import pack_delays
+    nch, nbins, ntaps = case["nch"], case["nbins"], case["ntaps"]
+    s = case["nsamp"] // nbins
+    w, svd = window_and_fir(case, fir, device)
+    pairs_np = baseline_pairs(nch, case["autos"])
+    pairs = pairs_tensor(pairs_np, nch, device)
+    consts = dc_constants(w.cpu().numpy(), nbins, s, device)
+    rng = np.random.default_rng(1357)
+    x = parts_batch(case, k, rng, device, int8)
+    hist = raw_history(case, rng, device, int8)
+    deep = int8 or ntaps >= 16
+    tol = DEEP_TOL if deep else REL_TOL
+    if int8:
+        got = ff.fx_fused_parts_i8(x, hist["tail"], w, pairs, STEP, svd,
+                                   consts)
+        want = ff.fx_fused_parts_i8_reference(x, hist["tail"], w, pairs, STEP,
+                                              svd, consts)
+        mu_prev = hist["mu_prev"]
+    else:
+        got = ff.fx_fused_parts(x, hist, w, pairs, svd, consts)
+        want = ff.fx_fused_parts_reference(x, hist, w, pairs, svd, consts)
+        mu_prev = None
+    torch.cuda.synchronize()
+    abs_err = rel_err = 0.0
+    notes = []
+    for name, g, r in zip(("xp", "T", "GJ"), got, want):
+        if not torch.isfinite(torch.view_as_real(g)).all():
+            raise AssertionError(f"non-finite {name} at {case}")
+        regions = ((slice(None),) if name == "GJ"
+                   else (slice(1, None), slice(0, 1)))
+        for sl in regions:
+            err = (g[..., sl] - r[..., sl]).abs().max().item()
+            scale = r[..., sl].abs().max().item()
+            if not err <= tol * scale:
+                raise AssertionError(
+                    f"{name} of the single pass disagrees with its plain "
+                    f"version at {case} K={k} ({fir}, int8 {int8}): "
+                    f"{err / scale:.3g} > {tol}")
+            abs_err, rel_err = max(abs_err, err), max(rel_err, err / scale)
+        notes.append(f"{name} {err / scale:.2g}")
+    mu_err = (got[3] - want[3]).abs().max().item()
+    if int8:
+        hist_ok = torch.equal(got[4], want[4])
+    else:
+        hist_ok = (got[4] - want[4]).abs().max().item() <= HIST_TOL
+    if not (mu_err <= MU_TOL * max(1.0, want[3].abs().max().item())
+            and hist_ok):
+        raise AssertionError(f"mu ({mu_err:.3g}) or the new history of the "
+                             f"single pass is wrong at {case} K={k}")
+    # the epilogue on the kernel's parts
+    bw, freq = 2.4e6, 1.4204e9
+    tables = fe.FinishTables(pairs_np, nbins, bw, freq, device)
+    d = (np.tile(np.arange(nch) * TRUE_DELAY, (k, 1))
+         + 1e-7 * np.arange(k)[:, None])
+    # what cancels at each bin: the raw cross power, per frame (the DC bin's
+    # |mu|^2 |Abar(0)|^2 and what the window leaks of it into its neighbours)
+    raw = got[0].abs() / s
+    raw_dc = raw.max().item()
+    raw_shifted = torch.fft.fftshift(raw, dim=-1)
+    fin_abs = fin_rel = dc_rel = cont_rel = 0.0
+    for packed in (True, False):
+        delays = torch.as_tensor(
+            pack_delays(d, freq) if packed else d.astype(np.float32),
+            device=device)
+        for continuum in (False, True):
+            v = fe.fx_finish(*got[:4], pairs, consts, delays, tables, s, bw,
+                             continuum, mu_prev)
+            r = fe.fx_finish_reference(*got[:4], pairs, consts, delays,
+                                       tables, s, bw, continuum, mu_prev)
+            torch.cuda.synchronize()
+            scale = r.abs().max().item()
+            err = (v - r).abs()
+            if continuum:
+                bound = FIN_TOL * scale + CANCEL_TOL * raw.mean(dim=-1) / bw
+            else:
+                bound = FIN_TOL * scale + CANCEL_TOL * raw_shifted
+            if v.shape != r.shape or not bool((err <= bound).all()):
+                raise AssertionError(
+                    f"fx_finish disagrees with its plain version at {case} "
+                    f"K={k} (packed {packed}, continuum {continuum}): "
+                    f"{(err / bound).max().item():.3g} of its bound, "
+                    f"{FIN_TOL} * max|vis| + {CANCEL_TOL} * raw cross power "
+                    "per frame")
+            if continuum:       # every bin's share, the DC bin's too
+                cont_rel = max(cont_rel, err.max().item() / scale)
+                continue
+            # the five bins around DC are reported apart
+            around = slice(nbins // 2 - 2, nbins // 2 + 3)
+            dc_rel = max(dc_rel, err[..., around].max().item() / scale)
+            err[..., around] = 0
+            worst = err.max().item()
+            fin_abs, fin_rel = max(fin_abs, worst), max(fin_rel, worst / scale)
+    # the single pass against the two-pass plain version, off the DC bin
+    xp = dc_correct(*got[:4], pairs, consts,
+                    mu_prev=block_mu_prev(got[3], mu_prev))
+    if int8:
+        ref, _ = ff.fx_fused_raw_i8_multi_reference(x, hist, w, pairs, STEP,
+                                                    svd)
+    else:
+        ref, _ = ff.fx_fused_raw_multi_reference(x, hist, w, pairs, svd)
+    scale = ref.abs().max().item()
+    err = (xp - ref).abs()
+    two_dc = err[..., 0].max().item() / scale
+    two_off = err[..., 1:].max().item() / scale
+    if not bool((err <= tol * scale + CANCEL_TOL * got[0].abs()).all()):
+        raise AssertionError(
+            f"the corrected single pass disagrees with the two-pass plain "
+            f"version at {case} K={k}: {two_off:.3g} of max|xp| off the DC "
+            f"bin, {two_dc:.3g} at it; bound {tol} * max|xp| + {CANCEL_TOL} * "
+            "the raw cross power")
+    print(f"  K={k}: " + ", ".join(notes) + f", mu {mu_err:.2g}; fx_finish "
+          f"{fin_rel:.2g} of max|vis| (5 bins around DC {dc_rel:.2g}, "
+          f"continuum {cont_rel:.2g}, raw DC bin "
+          f"{raw_dc / scale * s:.3g} of max|xp|); against the two-pass plain "
+          f"version {two_off:.2g} off DC, DC bin {two_dc:.2g}", flush=True)
+    name = "fx_parts_i8" if int8 else "fx_parts"
+    return ({name: (abs_err, rel_err), "fx_finish": (fin_abs, fin_rel)},
+            max(dc_rel, two_dc))
+
+
 def make_spec_case(case, rng, device):
     """Window and 3 blocks [nch, nsamp] (nsamp need not be a multiple of
     nbins) with a DC offset per channel, and the fresh history."""
@@ -564,46 +786,68 @@ def check_products(cor, out, name):
           f"{rates['elapsed_s']:.3f} s; {cor.metrics.report()}", flush=True)
 
 
+def parts_name(ingest, deep=False):
+    """The count a run's single-pass wrapper adds to (``read_counts``)."""
+    return ("fx_parts_i8" if ingest == "int8" else "fx_parts") + (
+        "_svd" if deep else "")
+
+
 def run_main_path(tmpdir, ingest, deep):
     """Phase 3: the CLI on the card at one ingest dtype and depth, with
-    the launch counts of the run: its kernel entry once per block, every
-    other entry not at all.  Returns (entry name, its launches)."""
-    name = ("fx_fused_i8" if ingest == "int8" else "fx_fused") + (
-        "_svd" if deep else "")
+    the launch counts of the run: the single-pass wrapper and the epilogue
+    once per block each, every other entry (the two-pass ones too) not at
+    all.  Returns (count name, the run's counts)."""
+    name = parts_name(ingest, deep)
     shape = ["--resolution", "8192", "--ntaps", "32"] if deep else []
     cor, out, counts = run_cli(tmpdir, name, ingest, shape)
     if cor.engine.fir_mode != ("svd" if deep else "direct"):
         raise AssertionError(f"fir_mode {cor.engine.fir_mode} in the {name} "
                              "run")
-    others = {k: v for k, v in counts.items() if k != name}
-    if not (counts[name] == cor.blocks_processed >= 3) or any(
-            others.values()):
+    others = {k: v for k, v in counts.items()
+              if k not in (name, "fx_finish")}
+    if not (counts[name] == counts["fx_finish"] == cor.blocks_processed
+            >= 3) or any(others.values()):
         raise AssertionError(
             f"launches {counts} do not match blocks_processed "
             f"{cor.blocks_processed} of {name} (or fewer than 3 blocks)")
     check_products(cor, out, name)
-    return name, counts[name]
+    return name, counts
+
+
+def staged_launches(counts, name, blocks, k):
+    """(K-block calls, one-block calls) of a staged run from the count of
+    its single-pass wrapper, which takes both: m K-block calls and t tail
+    calls give ``m + t`` launches and ``k m + t`` blocks.  Raises when no
+    such m >= 0, t >= 0 exist or the epilogue did not run once a call."""
+    launches = counts[name]
+    m, rest = (divmod(blocks - launches, k - 1) if k > 1
+               else (0, blocks - launches))
+    others = {c: v for c, v in counts.items()
+              if c not in (name, "fx_finish")}
+    if (rest or m < 0 or launches - m < 0 or counts["fx_finish"] != launches
+            or any(others.values())):
+        raise AssertionError(
+            f"launches {counts} do not account for {blocks} blocks at K = "
+            f"{k} through {name}")
+    return m, launches - m
 
 
 def run_staged_main_path(tmpdir, ingest):
     """Phase 3, the staged path: the CLI at ``--blocks_per_dispatch 8``:
-    the K-block entry once per staged batch, the one-block entry once per
-    tail block, every other entry not at all, and K-block launches x 8 +
-    one-block launches = blocks.  Returns (K-block entry, its launches)."""
-    single = "fx_fused_i8" if ingest == "int8" else "fx_fused"
-    name = single + "_multi"
-    cor, out, counts = run_cli(tmpdir, name, ingest, [
+    the single-pass wrapper and the epilogue once per staged batch and
+    once per tail block, every other entry not at all, and K-block calls x
+    8 + one-block calls = blocks.  Returns (count name, the counts)."""
+    name = parts_name(ingest)
+    cor, out, counts = run_cli(tmpdir, name + "_staged", ingest, [
         "--blocks_per_dispatch", str(MULTI_K)])
     if cor.stager is None or cor.engine.fir_mode != "direct":
         raise AssertionError("the staged run did not start its stager")
-    others = {k: v for k, v in counts.items() if k not in (name, single)}
-    if not (counts[name] >= 1 and counts[name] * MULTI_K + counts[single]
-            == cor.blocks_processed) or any(others.values()):
-        raise AssertionError(
-            f"launches {counts} do not account for blocks_processed "
-            f"{cor.blocks_processed} at K = {MULTI_K} (or no K-block launch)")
+    m, t = staged_launches(counts, name, cor.blocks_processed, MULTI_K)
+    print(f"  {m} calls of {MULTI_K} blocks, {t} of one", flush=True)
+    if m < 1:
+        raise AssertionError("the staged run made no K-block call")
     check_products(cor, out, name)
-    return name, counts[name]
+    return name, counts
 
 
 def device_busy(prof, path):
@@ -647,7 +891,7 @@ def run_pipeline(tmpdir, rec, ingest, k):
     from fxtpu_torch.config import CorrelatorConfig
     from fxtpu_torch.correlator import Correlator
     from fxtpu_torch.products import load_products
-    single = "fx_fused_i8" if ingest == "int8" else "fx_fused"
+    name = parts_name(ingest)
     out = os.path.join(tmpdir, f"pipe_{ingest}_{k}.csv")
     cfg = CorrelatorConfig(
         **PIPELINE, run_time=PIPELINE_S, clamp_num_samp=False,
@@ -665,11 +909,9 @@ def run_pipeline(tmpdir, rec, ingest, k):
         wall = time.perf_counter() - t0
     counts = read_counts()
     n = cor.blocks_processed
-    multi = counts[single + "_multi"]
-    others = {c: v for c, v in counts.items()
-              if c not in (single, single + "_multi")}
-    if (n < 2 * k or multi * k + counts[single] != n or any(others.values())
-            or (k > 1) != (multi > 0) or (cor.stager is None) != (k == 1)):
+    multi, _ = staged_launches(counts, name, n, k)
+    if (n < 2 * k or (k > 1) != (multi > 0)
+            or (cor.stager is None) != (k == 1)):
         raise AssertionError(f"pipeline {ingest} K={k}: launches {counts} "
                              f"against {n} blocks")
     md, data = load_products(out)
@@ -694,6 +936,109 @@ def run_pipeline(tmpdir, rec, ingest, k):
           f"{res['copy_ms_per_block']:.4f} ms/block; "
           f"{cor.metrics.report()}", flush=True)
     return res
+
+
+def two_pass_steps(eng):
+    """``(step, multi_step)`` of the fused step's two-pass form for
+    ``eng``'s configuration, as a caller composes it from the two-pass
+    wrappers (``fx_fused_raw*``: a mean pre-pass, the frame kernel, a
+    reduce) and the plain ``finish``: what the engine ran before the
+    single pass, with the engine's own inputs and history contracts."""
+    import torch
+
+    from fxtpu_torch.ops import fx_fused as ff
+    from fxtpu_torch.ops.fx_epilogue import FinishTables, finish
+    cfg, dev = eng.cfg, eng.device
+    w = torch.as_tensor(eng.window2d.astype(np.float32), device=dev)
+    svd = ff.svd_tensors(eng.window2d, dev) if eng.fir_mode == "svd" else None
+    pairs = ff.pairs_tensor(eng.pairs, cfg.nchan, dev)
+    tables = FinishTables(eng.pairs, cfg.nbins, cfg.bandwidth, cfg.frequency,
+                          dev)
+    continuum = cfg.mode in ("CONTINUUM", "TEST")
+
+    def build(c64, i8, frames_axis):
+        def run(iq, delays, history):
+            if isinstance(history, dict):
+                xp, history = i8(iq, history, w, pairs, cfg.quant_step, svd)
+            else:
+                xp, history = c64(iq, history, w, pairs, svd)
+            return finish(xp, delays, tables, iq.shape[frames_axis],
+                          cfg.bandwidth, continuum), history
+        return run
+
+    return (build(ff.fx_fused_raw, ff.fx_fused_raw_i8, 1),
+            build(ff.fx_fused_raw_multi, ff.fx_fused_raw_i8_multi, 2))
+
+
+def run_two_pass_path(device):
+    """Phase 3, the two-pass entries, which the engine no longer calls:
+    ``fx_fused_raw*`` with the plain ``finish`` (:func:`two_pass_steps`)
+    over 3 chained blocks one at a time and 2 chained batches of 8, at the
+    flagship in both ingests and at the CLI's deep-tap block (SVD),
+    counted like the main path: the one-block entry once a block, the
+    K-block entry once a batch, no single-pass entry at all; every
+    visibility within 2e-5 (3e-5: 8-bit samples, deep taps) of max|vis| of
+    the engine's single-pass step on the same input.  Returns {entry:
+    launches}."""
+    import torch
+
+    from fxtpu_torch.config import CorrelatorConfig
+    from fxtpu_torch.fx import FxEngine
+    from fxtpu_torch.ops.xengine import pack_delays
+    from fxtpu_torch.runtime.native import quantize_c64
+    launches = {}
+    rng = np.random.default_rng(77)
+    for deep in (False, True):
+        shape = (dict(nbins=DEEP_CLI["nbins"], ntaps=DEEP_CLI["ntaps"])
+                 if deep else {})
+        for ingest in ("complex64", "int8"):
+            cfg = CorrelatorConfig(device="cuda", ingest_dtype=ingest,
+                                   quant_step=STEP, **shape)
+            one = FxEngine(cfg)
+            step2, multi2 = two_pass_steps(one)
+            single = ("fx_fused_i8" if ingest == "int8" else "fx_fused")
+            sfx = "_svd" if deep else ""
+            tol = DEEP_TOL if (deep or ingest == "int8") else REL_TOL
+            blocks = [(rng.normal(size=(2, cfg.num_samp, 2))
+                       @ np.array([1.0, 1j]) + (0.02 - 0.01j)
+                       ).astype(np.complex64) for _ in range(MULTI_K)]
+            if ingest == "int8":
+                blocks = [quantize_c64(b, STEP) for b in blocks]
+            d1 = torch.as_tensor(pack_delays([0.0, TRUE_DELAY],
+                                             cfg.frequency), device=device)
+            dk = d1.expand(MULTI_K, *d1.shape).contiguous()
+            reset_counts()
+            h, vis = one.fresh_history(), []
+            for b in blocks[:3]:
+                v, h = step2(one.prepare_block(b), d1, h)
+                vis.append(v)
+            hm = one.fresh_history()
+            for _ in range(2):
+                vm, hm = multi2(one.prepare_batch(blocks), dk, hm)
+            torch.cuda.synchronize()
+            counts = read_counts()
+            want = {single + sfx: 3, single + "_multi" + sfx: 2}
+            if {c: v for c, v in counts.items() if v} != want:
+                raise AssertionError(f"two-pass step launches {counts}, "
+                                     f"expected {want}")
+            h1, worst = one.fresh_history(), 0.0
+            for b, v2 in zip(blocks[:3], vis):
+                v1, h1 = one.step(one.prepare_block(b), d1, h1)
+                worst = max(worst, ((v1 - v2).abs().max()
+                                    / v2.abs().max()).item())
+            if not worst <= tol:
+                raise AssertionError(
+                    f"the single-pass step disagrees with the two-pass "
+                    f"form ({ingest}, deep {deep}): {worst:.3g} > {tol}")
+            print(f"  two-pass step {ingest}{' deep' if deep else ''}: "
+                  f"launches {want}; single pass within {worst:.3g} of "
+                  "max|vis|", flush=True)
+            if not deep:
+                launches.update(want)
+            else:
+                launches[single + sfx] = want[single + sfx]
+                launches[single + "_multi"] += want[single + "_multi" + sfx]
+    return launches
 
 
 def run_spectrometer_path(device):
@@ -861,7 +1206,7 @@ def run_probe(argv, expect):
     return records, counts
 
 
-def fx_bound(case, k, int8, rank, spectra=False):
+def fx_bound(case, k, int8, rank, spectra=False, parts=False):
     """The least time the card could take for one FX call (or, with
     ``spectra``, one spectrometer call) over k blocks of ``case``: the
     larger of its bytes (samples, history, window or factors and pairs in
@@ -870,8 +1215,10 @@ def fx_bound(case, k, int8, rank, spectra=False):
     FIR, the direct form's count in either FIR mode: the rank-r factors are
     one way to compute the same output, not work the function needs; 5 n
     log2 n per FFT; 8 per pair, frame and bin for the X stage; 2 per sample
-    for the mean) over the float32 rate.  Returns (ms, "bytes" or
-    "operations")."""
+    for the mean) over the float32 rate.  With ``parts`` the single pass:
+    the dA table in as well, T and GJ out beside the cross power and mu
+    for every block, and 2 operations per sample for T and 8 per channel,
+    halo frame and bin for GJ.  Returns (ms, "bytes" or "operations")."""
     nch, nbins, ntaps = case["nch"], case["nbins"], case["ntaps"]
     s = case["nsamp"] // nbins
     nbl = (nch * (nch - 1) // 2 + (nch if case.get("autos") else 0))
@@ -888,9 +1235,30 @@ def fx_bound(case, k, int8, rank, spectra=False):
         nbytes += 8 * samples
     else:
         flops += 8 * k * nbl * s * nbins
+    if parts:
+        nbytes += (8 * (ntaps - 1) * nbins + 8 * k * 2 * nch * nbins
+                   + (0 if int8 else 8 * k * nch))
+        flops += 2 * samples + 8 * k * nch * (ntaps - 1) * nbins
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_flops = flops / FP32_FLOPS * 1e3
     return max(t_bytes, t_flops), "bytes" if t_bytes >= t_flops else "operations"
+
+
+def finish_bound(case, k):
+    """The least time the card could take for one epilogue over k blocks
+    of ``case``: its bytes (the parts, the window's constants, the
+    frequencies, means and delays in, the visibilities out) over the
+    device-memory rate, or its operations (13 complex products, 10 complex
+    sums, a sine and a cosine and two divisions, some 130 per visibility)
+    over the float32 rate.  Returns (ms, "bytes" or "operations")."""
+    nch, nbins = case["nch"], case["nbins"]
+    nbl = (nch * (nch - 1) // 2 + (nch if case.get("autos") else 0))
+    nbytes = (8 * k * (nbl + 2 * nch) * nbins + 28 * nbins + 24 * k * nch
+              + 8 * nbl + 8 * k * nbl * nbins)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_flops = 130 * k * nbl * nbins / FP32_FLOPS * 1e3
+    return (max(t_bytes, t_flops),
+            "bytes" if t_bytes >= t_flops else "operations")
 
 
 def svd_form_ms(case, k, rank):
@@ -1312,6 +1680,140 @@ def time_multi_step(device):
     return st, {k: v / MULTI_K for k, v in ct.items()}, counts
 
 
+def kernel_us(events):
+    """Median device time (us) per kernel of a list of device events, by
+    the part of its name that says which it is; copies as ``copy``."""
+    names = {"mean_partial_kernel": "prepass", "fx_frames_kernel": "frames",
+             "fx_parts_reduce_kernel": "reduce", "fx_reduce": "reduce",
+             "fx_finish_kernel": "finish"}
+    durs = {}
+    for e in events:
+        key = "copy" if e["cat"] == "gpu_memcpy" else next(
+            (v for k, v in names.items() if k in e["name"]), "other")
+        durs.setdefault(key, []).append(e["dur"])
+    return {k: statistics.median(v) for k, v in durs.items()}
+
+
+def time_single_pass(device):
+    """Phase 4, the single pass against the two-pass form of the fused
+    route, both in this process and timed in turns (A B B A): the engine's
+    ``step`` and ``multi_step`` (K = 8, per block) at the flagship in both
+    ingests and ``step`` at ``bench_pipeline``'s block; one block's copy
+    to the card, pinned (``prepare_block``; and the same through numpy's
+    ``copyto``) against pageable, by the host's clock (to a synchronize)
+    and by CUDA events around the call;
+    each wrapper's call and
+    its plain version at the flagship.  Counts the device launches of one
+    single-pass step and raises when they are more than 3 or the mean
+    pre-pass is among them.  Returns (times ms, launches per call, device
+    us per kernel)."""
+    import torch
+
+    from fxtpu_torch.config import CorrelatorConfig
+    from fxtpu_torch.fx import FxEngine
+    from fxtpu_torch.ops import fx_epilogue as fe
+    from fxtpu_torch.ops import fx_fused as ff
+    from fxtpu_torch.ops.xengine import pack_delays
+    from fxtpu_torch.probes.common import device_events
+    from fxtpu_torch.runtime.native import quantize_c64
+    rng = np.random.default_rng(23)
+    steps, copies, launches, device_us = {}, {}, {}, {}
+    keep = []
+    for tag, shape in (("flagship", {}), ("pipeline", dict(
+            num_samp=PIPELINE_BLOCK["nsamp"], nbins=PIPELINE_BLOCK["nbins"],
+            clamp_num_samp=False))):
+        for ingest in ("complex64", "int8"):
+            sfx = ("" if tag == "flagship" else "_pipeline") + (
+                "_i8" if ingest == "int8" else "")
+            cfg = CorrelatorConfig(device="cuda", ingest_dtype=ingest,
+                                   quant_step=STEP, **shape)
+            eng = FxEngine(cfg)
+            forms = {"new": (eng.step, eng.multi_step),
+                     "old": two_pass_steps(eng)}
+            k = MULTI_K if tag == "flagship" else 1
+            blocks = [(rng.normal(size=(2, cfg.num_samp, 2))
+                       @ np.array([1.0, 1j])).astype(np.complex64)
+                      for _ in range(k)]
+            if ingest == "int8":
+                blocks = [quantize_c64(b, STEP) for b in blocks]
+            d1 = torch.as_tensor(pack_delays([0.0, TRUE_DELAY],
+                                             cfg.frequency), device=device)
+            iq, h = eng.prepare_block(blocks[0]), eng.fresh_history()
+            iqk = eng.prepare_batch(blocks) if tag == "flagship" else None
+            dk = d1.expand(k, *d1.shape).contiguous()
+            for name, (step, multi) in forms.items():
+                steps[f"step_{name}{sfx}"] = (
+                    lambda f=step, i=iq, hh=h: f(i, d1, hh))
+                if tag == "flagship":
+                    steps[f"multi_step_{name}{sfx}"] = (
+                        lambda f=multi, i=iqk, hh=h, d=dk: f(i, d, hh))
+            framed = torch.from_numpy(blocks[0]).reshape(
+                2, -1, cfg.nbins, *blocks[0].shape[2:])
+            copies["pinned" + sfx] = (
+                lambda e=eng, b=blocks[0]: e.prepare_block(b))
+            copies["pageable" + sfx] = lambda f=framed: f.to(device)
+            host = torch.empty(framed.shape, dtype=framed.dtype,
+                               pin_memory=True)
+            # the pinned route with numpy's single-threaded copy in place
+            # of torch's threaded one (what prepare_block does not do)
+            copies["pinned_numpy" + sfx] = (
+                lambda h=host, f=framed: (np.copyto(h.numpy(), f.numpy()),
+                                          h.to(device, non_blocking=True)))
+            keep.append((eng, blocks))
+    for fn in (*steps.values(), *copies.values()):
+        fn()        # the first call forms the window's constants and pins
+    torch.cuda.synchronize()
+    for key, fn in steps.items():
+        events = device_events(fn, 3)
+        launches[key] = len(events) // 3
+        us = kernel_us(events)
+        per = MULTI_K if key.startswith("multi") else 1
+        device_us[key] = {k: v / per for k, v in us.items() if k != "other"}
+        names = sorted({e["name"][:60] for e in events})
+        if "_new" in key and (launches[key] > 3 or "prepass" in us
+                              or "other" in us):
+            raise AssertionError(
+                f"{key}: {launches[key]} device launches a call ({names}): "
+                "a single-pass step is the frame kernel, the reduce and the "
+                "epilogue, and no mean pre-pass")
+    ce = cuda_times(copies, n=10, warm=2)
+    st = cuda_times(steps, n=20, warm=3)
+    st = {k: v / MULTI_K if k.startswith("multi") else v
+          for k, v in st.items()}
+    ct = host_times(copies, n=10)
+    # the wrappers alone, at the flagship
+    w, _, pairs, blocks, hist = make_case(FLAGSHIP, np.random.default_rng(7),
+                                          device)
+    _, _, _, blocks8, hist8 = make_case_i8(FLAGSHIP,
+                                           np.random.default_rng(9), device)
+    x, x8 = blocks[0][:, None], blocks8[0][:, None]
+    from fxtpu_torch.ops.dc_posthoc import dc_constants
+    s_rows = FLAGSHIP["nsamp"] // FLAGSHIP["nbins"]
+    consts = dc_constants(w.cpu().numpy(), FLAGSHIP["nbins"], s_rows, device)
+    parts = ff.fx_fused_parts(x, hist, w, pairs, None, consts)
+    tables = fe.FinishTables(np.array([[0, 1]]), FLAGSHIP["nbins"], 2.4e6,
+                             1.4204e9, device)
+    d = torch.as_tensor(pack_delays([[0.0, TRUE_DELAY]], 1.4204e9),
+                        device=device)
+    kt = cuda_times({
+        "parts": lambda: ff.fx_fused_parts(x, hist, w, pairs, None, consts),
+        "parts_plain": lambda: ff.fx_fused_parts_reference(
+            x, hist, w, pairs, None, consts),
+        "parts_i8": lambda: ff.fx_fused_parts_i8(
+            x8, hist8["tail"], w, pairs, STEP, None, consts),
+        "parts_i8_plain": lambda: ff.fx_fused_parts_i8_reference(
+            x8, hist8["tail"], w, pairs, STEP, None, consts),
+        "finish": lambda: fe.fx_finish(*parts[:4], pairs, consts, d, tables,
+                                       s_rows, 2.4e6, False),
+        "finish_plain": lambda: fe.fx_finish_reference(
+            *parts[:4], pairs, consts, d, tables, s_rows, 2.4e6, False),
+    }, n=20, warm=3)
+    del keep
+    return {**st, **{"copy_" + k: v for k, v in ct.items()},
+            **{"copy_events_" + k: v for k, v in ce.items()}, **kt}, \
+        launches, device_us
+
+
 def host_times(fns, n=30, warm=3):
     """Median ms per call of each fn by the host clock, each call ended
     by a synchronize, in turns (a, b, b, a)."""
@@ -1351,7 +1853,10 @@ def main() -> int:
     print(f"native/libfxring.so present: {os.path.exists(native_lib)}",
           flush=True)
 
-    print("phase 1: build", flush=True)
+    def phase(title):
+        print(f"{title} [{time.perf_counter() - t_start:.1f} s]", flush=True)
+
+    phase("phase 1: build")
     t0 = time.perf_counter()
     load_kernels()
     from fxtpu_torch import cuda_build
@@ -1362,7 +1867,7 @@ def main() -> int:
         if "registers" in line or "bytes stack" in line or "Compiling" in line:
             print(f"  {line.strip()}", flush=True)
 
-    print("phase 2: kernels against their plain versions", flush=True)
+    phase("phase 2: kernels against their plain versions")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print(f"  allow_tf32: matmul {torch.backends.cuda.matmul.allow_tf32}, "
@@ -1390,6 +1895,16 @@ def main() -> int:
             print(f"  {name} ({fir}) K={k} shape {case}", flush=True)
             errs[name] = tuple(map(max, errs[name],
                                    compare_multi(case, k, device, fir, int8)))
+    dc_bin = {}
+    for int8 in (False, True):
+        for case, k, fir in PARTS_CASES:
+            name = "fx_parts_i8" if int8 else "fx_parts"
+            print(f"  {name} + fx_finish ({fir}) K={k} shape {case}",
+                  flush=True)
+            got, dc = compare_parts(case, k, device, fir, int8)
+            for key, pair in got.items():
+                errs[key] = tuple(map(max, errs[key], pair))
+            dc_bin[name] = max(dc_bin.get(name, 0.0), dc)
     for case, k in ((SMALL, 3), (FLAGSHIP, 2), (SMALL_DEEP, 3),
                     (DEEP_CLI, 2), (WIDEBAND, 1)):
         print(f"  fx_ablate K={k} shape {case}", flush=True)
@@ -1397,21 +1912,21 @@ def main() -> int:
                                       compare_ablate(case, k, device)))
     errs.update(compare_probes(device))
 
-    print("phase 3: main path (python -m fxtpu_torch)", flush=True)
-    launches = {}
+    phase("phase 3: main path (python -m fxtpu_torch)")
+    launches, main_counts = {}, []
     with tempfile.TemporaryDirectory() as tmp:
         for deep in (False, True):
             for ingest in ("complex64", "int8"):
                 print(f"  --ingest {ingest}"
                       + (" --resolution 8192 --ntaps 32" if deep else ""),
                       flush=True)
-                name, n = run_main_path(tmp, ingest, deep)
-                launches[name] = n
+                name, counts = run_main_path(tmp, ingest, deep)
+                main_counts.append(counts)
         for ingest in ("complex64", "int8"):
             print(f"  --ingest {ingest} --blocks_per_dispatch {MULTI_K}",
                   flush=True)
-            name, n = run_staged_main_path(tmp, ingest)
-            launches[name] = n
+            name, counts = run_staged_main_path(tmp, ingest)
+            main_counts.append(counts)
         from fxtpu_torch.sources import NoiseSource, save_recording
         rec = save_recording(NoiseSource(nchan=PIPELINE["nchan"], seed=1),
                              os.path.join(tmp, "rec.npy"),
@@ -1420,9 +1935,16 @@ def main() -> int:
         for ingest in ("complex64", "int8"):
             for k in (MULTI_K, 1):
                 pipe[f"{ingest}_k{k}"] = run_pipeline(tmp, rec, ingest, k)
+                main_counts.append(pipe[f"{ingest}_k{k}"]["launches"])
+    # the single-pass entries' launches on the main path, both FIR modes
+    for name in ("fx_parts", "fx_parts_i8"):
+        launches[name] = sum(c[name] + c[name + "_svd"] for c in main_counts)
+    launches["fx_finish"] = sum(c["fx_finish"] for c in main_counts)
+    print(f"  main path, every run: launches {launches}", flush=True)
+    phase("phase 3: the two-pass entries (fx_fused_raw* and finish)")
+    launches.update(run_two_pass_path(device))
     launches["spectrometer"] = run_spectrometer_path(device)
-    print("phase 3: the measurement path (python -m fxtpu_torch.probes)",
-          flush=True)
+    phase("phase 3: the measurement path (python -m fxtpu_torch.probes)")
     launches.update({name: 0 for name in PROBE_KERNELS})
     ablate_runs, probe_records = [], {}
 
@@ -1456,7 +1978,7 @@ def main() -> int:
     for nsamp in (FLAGSHIP["nsamp"], PIPELINE_BLOCK["nsamp"]):
         recs = probe(f"breakdown_{nsamp}", [
             "breakdown", "--num_samp", str(nsamp), "--k", str(MULTI_K)],
-            ["fx_fused", "fx_fused_multi"])
+            ["fx_parts", "fx_finish"])
         for rec in recs:
             print(f"    breakdown {nsamp} {rec['route']}: against the float64 "
                   f"oracle {rec['max_rel_err']:.3g} of max|vis| (DC bins "
@@ -1466,14 +1988,15 @@ def main() -> int:
             if not rec["max_rel_err"] <= 3.1e-5 or not rec[
                     "multi_step_block0_is_step"]:
                 raise AssertionError(f"breakdown: {rec}")
-    probe("all", ["all"], [*PROBE_KERNELS, "fx_fused", "fx_fused_multi"])
+    probe("all", ["all"], [*PROBE_KERNELS, "fx_parts", "fx_finish"])
 
-    print("phase 4: times at the flagship and wideband shapes "
-          f"({threading.active_count()} threads alive)", flush=True)
+    phase("phase 4: times at the flagship and wideband shapes "
+          f"({threading.active_count()} threads alive)")
     kt, st, h2d, call_launches = time_flagship(device)
     wkt, wst, wh2d, wide_launches = time_wideband(device)
     mkt = time_multi_kernels(device)
     mst, mct, step_launches = time_multi_step(device)
+    spt, sp_launches, sp_us = time_single_pass(device)
     step_launches.update(call_launches)
     step_launches.update(wide_launches)
     table = stage_table(ablate_runs, device)
@@ -1525,9 +2048,38 @@ def main() -> int:
               f"{r['msamp_per_s']:.4f} Msamp/s, device busy "
               f"{100 * r['busy_share']:.4f}%", flush=True)
     print(f"  [{card}] device launches per call: {step_launches} (a step "
-          "at the flagship: mean pre-pass, frame kernel, reduce and the "
-          f"finish; multi_step: the same for {MULTI_K} blocks; the wrappers "
-          "alone; a wideband step in the SVD mode)", flush=True)
+          "at the flagship: frame kernel, reduce and epilogue; multi_step: "
+          f"the same for {MULTI_K} blocks; the two-pass wrappers alone; a "
+          "wideband step in the SVD mode)", flush=True)
+    print(f"  [{card}] single pass (new) against the two-pass form (old), "
+          f"in turns, device launches per call: {sp_launches}", flush=True)
+    for sfx, what in (("", "flagship complex64"), ("_i8", "flagship int8"),
+                      ("_pipeline", "pipeline block complex64"),
+                      ("_pipeline_i8", "pipeline block int8")):
+        line = (f"  [{card}] {what}: step {spt['step_new' + sfx]:.4f} ms new "
+                f"/ {spt['step_old' + sfx]:.4f} old")
+        if "multi_step_new" + sfx in spt:
+            line += (f"; multi_step per block "
+                     f"{spt['multi_step_new' + sfx]:.4f} / "
+                     f"{spt['multi_step_old' + sfx]:.4f}")
+        print(line + f"; one block's copy by the host's clock, pinned "
+              f"{spt['copy_pinned' + sfx]:.4f} ms / pageable "
+              f"{spt['copy_pageable' + sfx]:.4f} (pinned through "
+              f"numpy's copyto {spt['copy_pinned_numpy' + sfx]:.4f}), by "
+              "events "
+              f"{spt['copy_events_pinned' + sfx]:.4f} / "
+              f"{spt['copy_events_pageable' + sfx]:.4f} ms; device us per "
+              f"kernel of a step: new {sp_us['step_new' + sfx]}, old "
+              f"{sp_us['step_old' + sfx]}", flush=True)
+    for sfx in ("", "_i8"):
+        print(f"  [{card}] flagship multi_step{sfx} device us per block: new "
+              f"{sp_us['multi_step_new' + sfx]}, old "
+              f"{sp_us['multi_step_old' + sfx]}", flush=True)
+    print(f"  [{card}] flagship wrappers: fx_fused_parts {spt['parts']:.4f} "
+          f"ms (plain {spt['parts_plain']:.4f}), fx_fused_parts_i8 "
+          f"{spt['parts_i8']:.4f} (plain {spt['parts_i8_plain']:.4f}), "
+          f"fx_finish {spt['finish']:.4f} (plain {spt['finish_plain']:.4f}); "
+          f"DC bin, worst of phase 2, of max|vis|: {dc_bin}", flush=True)
     print(f"  [{card}] stage table: the frame kernel's device time per "
           "block after each stage, us (pre-pass, reduce; torch.fft.fft "
           "over one block beside them)", flush=True)
@@ -1575,12 +2127,13 @@ def main() -> int:
             **bound(FLAGSHIP, 1, ingest == "int8"),
             "wideband_bound_ms": fx_bound(WIDEBAND, 1, ingest == "int8",
                                           0)[0],
-            "step_device_launches": step_launches["step" + sfx],
+            # the two-pass form of the step (two_pass_steps)
+            "step_device_launches": sp_launches["step_old" + sfx],
             "name": name, "route": "cuda", "source": SOURCE,
             "replaces": REPLACES[name], "launches": launches[name],
             "max_abs_err": errs[name][0], "max_rel_err": errs[name][1],
             "ms": kt["kernel" + sfx], "plain_ms": kt["plain" + sfx],
-            "step_ms": st["kernel" + sfx],
+            "step_ms": spt["step_old" + sfx],
             "plain_step_ms": st["plain" + sfx], "h2d_ms": h2d[ingest],
             "wideband_ms": wkt["direct" + sfx],
             "wideband_plain_ms": wkt["plain_direct" + sfx],
@@ -1616,7 +2169,7 @@ def main() -> int:
                                           deep_rank)[0] / MULTI_K,
             "deep_svd_form_operations_ms": svd_form_ms(DEEP_CLI, 1,
                                                        deep_rank),
-            "step_device_launches": step_launches["multi_step" + sfx],
+            "step_device_launches": sp_launches["multi_step_old" + sfx],
             "name": name, "route": "cuda", "source": SOURCE,
             "replaces": REPLACES[name], "launches": launches[name],
             "max_abs_err": errs[name][0], "max_rel_err": errs[name][1],
@@ -1624,8 +2177,8 @@ def main() -> int:
             "one_block_launches_ms": fl["singles"],
             "deep_svd_ms": dp["multi"], "deep_svd_plain_ms": dp["plain"],
             "deep_svd_one_block_launches_ms": dp["singles"],
-            "step_ms": mst["multi_step" + sfx],
-            "one_block_step_ms": mst["step" + sfx],
+            "step_ms": spt["multi_step_old" + sfx],
+            "one_block_step_ms": spt["step_old" + sfx],
             "pinned_copy_ms": mct["pinned" + sfx],
             "pageable_copy_ms": mct["pageable" + sfx],
             "pipeline": {f"k{k}": {key: v for key, v in
@@ -1642,6 +2195,54 @@ def main() -> int:
         "max_rel_err": errs["spectrometer"][1],
         "ms": kt["kernel_spec"], "plain_ms": kt["plain_spec"],
         "device_launches": step_launches["spectrometer_fused"],
+    })
+    for name, sfx, int8 in (("fx_parts", "", False),
+                            ("fx_parts_i8", "_i8", True)):
+        ms, by = fx_bound(FLAGSHIP, 1, int8, 0, parts=True)
+        kernels.append({
+            "name": name, "route": "cuda", "source": SOURCE,
+            "replaces": REPLACES[name], "launches": launches[name],
+            "max_abs_err": errs[name][0], "max_rel_err": errs[name][1],
+            "ms": spt["parts" + sfx],
+            "plain_ms": spt["parts" + sfx + "_plain"],
+            "bound_ms": ms, "bound_by": by, "library_ms": None,
+            "pipeline_bound_ms": fx_bound(PIPELINE_BLOCK, 1, int8, 0,
+                                          parts=True)[0],
+            "dc_bin_max_rel_err": dc_bin[name],
+            "device_us": {"flagship": sp_us["step_new" + sfx],
+                          "flagship_k8_per_block":
+                              sp_us["multi_step_new" + sfx],
+                          "pipeline": sp_us["step_new_pipeline" + sfx]},
+            "two_pass_device_us": {
+                "flagship": sp_us["step_old" + sfx],
+                "flagship_k8_per_block": sp_us["multi_step_old" + sfx],
+                "pipeline": sp_us["step_old_pipeline" + sfx]},
+            "step_device_launches": sp_launches["step_new" + sfx],
+            "two_pass_step_device_launches": sp_launches["step_old" + sfx],
+            "step_ms": spt["step_new" + sfx],
+            "two_pass_step_ms": spt["step_old" + sfx],
+            "multi_step_ms": spt["multi_step_new" + sfx],
+            "two_pass_multi_step_ms": spt["multi_step_old" + sfx],
+            "pipeline_step_ms": spt["step_new_pipeline" + sfx],
+            "two_pass_pipeline_step_ms": spt["step_old_pipeline" + sfx],
+            "copy_ms": {key: spt["copy_" + key + sfx]
+                        for key in ("pinned", "pageable")},
+            "pipeline_copy_ms": {
+                key: spt[f"copy_{key}_pipeline{sfx}"]
+                for key in ("pinned", "pageable", "pinned_numpy")},
+            "pipeline_copy_events_ms": {
+                key: spt[f"copy_events_{key}_pipeline{sfx}"]
+                for key in ("pinned", "pageable")},
+        })
+    ms, by = finish_bound(FLAGSHIP, 1)
+    kernels.append({
+        "name": "fx_finish", "route": "cuda", "source": FINISH_SOURCE,
+        "replaces": REPLACES["fx_finish"], "launches": launches["fx_finish"],
+        "max_abs_err": errs["fx_finish"][0],
+        "max_rel_err": errs["fx_finish"][1],
+        "ms": spt["finish"], "plain_ms": spt["finish_plain"],
+        "bound_ms": ms, "bound_by": by, "library_ms": None,
+        "device_us": sp_us["step_new"].get("finish"),
     })
     kernels += probe_kernel_entries(table, probe_records, launches, errs,
                                     mkt, device)

@@ -165,7 +165,7 @@ class Correlator:
             self.logger.warning(
                 "blocks_per_dispatch=%d is more than one kernel launch "
                 "takes at this shape: %d blocks per call "
-                "(fxtpu_torch.ops.fx_fused.max_blocks)",
+                "(fxtpu_torch.ops.fx_fused.max_blocks_parts)",
                 config.blocks_per_dispatch, self._dispatch_batch)
 
         # --- science data (effex.py:129-141) ------------------------------
@@ -377,6 +377,10 @@ class Correlator:
             self._run_machine()
         self.metrics.mark_once("end")
         self.logger.info("%s", self.metrics.report())
+        if self.engine.kernel_active:
+            self.logger.info("kernel launches (%s FIR): %s",
+                             self.engine.fir_mode,
+                             self.engine.launch_counts())
         for c, buf in enumerate(self.bufs):
             if buf.drops:
                 self.logger.warning("channel %d dropped %d blocks", c,

@@ -17,6 +17,10 @@
 //   * int8-native SVD-FIR mode -> fxt_fx_fused_i8  rank r > 0;
 // each for K >= 1 blocks per launch (fx_pallas_raw_multi's grid
 // (k_blocks, tiles) over the merged rows [nch, K*S, lanes]);
+// and the same kernel's single-pass DC accumulators (tout_ref, uout_ref,
+// sout_ref and, in f32 mode, the corrected tail hout_ref: what
+// fx_pallas_parts returns) -> fxt_fx_parts, fxt_fx_parts_i8 (the PartsOut
+// output policy below: no mean pre-pass, the input read once);
 // and pfb_pallas.py _kernel (launched by _pfb_fft_call, wrapped by
 // spectrometer_pallas) -> fxt_spectrometer; and scripts/fused_ablate.py's
 // kernel (its STAGE truncation; _fx_kernel's FXTPU_FUSED_ABLATE)
@@ -61,6 +65,25 @@
 // [history; x] (the last block's, minus its mean); fxtpu gets the same
 // function by correcting after the kernel (_dc_correct(mu_prev=...)).
 //
+// Contract of fxt_fx_parts / fxt_fx_parts_i8 (fx_pallas_parts): the FIR and
+// the FFT run over the rows as they arrived (complex64: [history; x] with
+// the history the DC-corrected tail the stream carries; int8: [tail; x]
+// times the step, no mean lost anywhere) and each block k leaves
+//   xp_raw[k, l, b] = sum over frames of spec_p[b] * conj(spec_q[b]);
+//   T[k, c, b]      = sum over frames of spec_c[b];
+//   GJ[k, c, b]     = sum over frames j < ntaps-1 of spec_c[j, b] *
+//                     conj(dA[j, b]), dA the window's table [ntaps-1, nbins]
+//                     (dc_posthoc.dc_constants);
+//   mu[k, c]        = the mean of block k's samples, in real units;
+// together `parts` [K, nbl + 2 nch, nbins]; and the new history: complex64
+// the last block's last ntaps-1 rows minus its mean, int8 those rows as
+// they arrived.  From these the caller removes the means after the fact
+// (dc_posthoc.dc_correct; fxt_fx_finish in fx_finish.cu).  Blocks k >= 1
+// of a launch read block k-1's rows raw (the TPU kernel's sequential grid
+// corrects them in VMEM first; one CTA per frame group across all blocks
+// cannot), so the caller corrects them with the raw-tail algebra, mu_prev
+// [k] = mu[k-1], in both ingests: the same function.  S >= ntaps-1.
+//
 // Contract of fxt_spectrometer (spectrometer_pallas): x complex64
 // [nch, nsamp], the DC-corrected history [nch, ntaps-1, nbins] (ntaps >= 1)
 // and the window; return spec [nch, S, nbins] with S = nsamp / nbins, the
@@ -82,10 +105,11 @@
 // char2 a thread: the copy probe measures that load width at a third, for
 // char2 an eighth, of what 16-byte cp.async or bulk copies reach), a
 // twentieth in the FIR's arithmetic, and nothing measurable in the X stage.
-// Per block the input is read twice (the mean pre-pass, 3 us of device
-// time, then the frames).  At deep taps (32 taps x 8192 bins, the wideband
-// shape) the frames read 32x the block from L2 and loads and FIR are most
-// of the kernel; the SVD form does not change those reads and multiplies
+// On the two-pass entries the input is read twice per block (the mean
+// pre-pass, 3 us of device time, then the frames); the single-pass entries
+// sum each frame's newest tap row as the FIR reads it.  At deep taps (32
+// taps x 8192 bins, the wideband shape) the frames read 32x the block from
+// L2 and loads and FIR are most of the kernel; the SVD form does not change those reads and multiplies
 // the FIR's flops by r (r FMAs per tap and sample), a trade that paid on
 // the TPU, where it moved the tap loop onto the matrix unit, and does not
 // here: on an H100 (700 W) the SVD mode takes 2.2x to 2.6x the direct
@@ -101,7 +125,9 @@
 // and a fixed-order sum of the partials), so a run is bit-for-bit
 // repeatable; there are no atomics.  The mean pre-pass costs the second
 // read of the input; the post-hoc DC algebra of the TPU kernel
-// (_dc_constants / _dc_correct) removes it and is a later change.  The
+// (_dc_constants / _dc_correct) removes it: the single-pass entries
+// (PartsOut) are what the engine's step launches, the two-pass entries stay
+// for callers that want the corrected cross power from one call.  The
 // TPU's 4-bins-per-int32 packing of int8 planes answered its element-bound
 // DMA; loads here are byte-addressed, so the int8 kernel reads the
 // interleaved (I, Q) bytes as they arrived.  The TPU's banded bf16 matmul
@@ -117,6 +143,7 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
 // Largest SVD rank the FIR policy keeps in registers (fx_fused.MAX_SVD_RANK).
 constexpr int kMaxRank = 16;
 
@@ -253,6 +280,7 @@ struct RowMeans {
 // sums[j, c, :].
 struct F32Rows {
   using T = float2;
+  static constexpr bool kRaw = false;
   const float2* x;
   const float2* hist;
   const double2* sums;
@@ -284,6 +312,7 @@ struct F32Rows {
 
 struct I8Rows {
   using T = char2;
+  static constexpr bool kRaw = false;
   const char2* x;
   const char2* tail;
   const float2* mu_prev;
@@ -324,6 +353,86 @@ struct I8Rows {
   __device__ float2 row(int c, long long e, int bin, float2 mu) const {
     return e < halo ? deq(__ldg(history_ptr(c, e, bin)), history_mean(c))
                     : deq(__ldg(sample_ptr(c, e, bin)), mu);
+  }
+};
+
+// Loaders of the single-pass entries: the rows as they arrived, in real
+// units, no mean lost (the history too: the complex64 one arrives
+// corrected, the int8 tail's mean is removed after the fact).  No means are
+// staged for them (kRaw).  sum_term turns a loaded value back into what the
+// sample sums add: the float itself in double, or the 8-bit sample as an
+// exact integer (q * step * (1 / step) rounds to q: the error is below
+// 127 * 2^-22).
+struct F32Raw : F32Rows {
+  static constexpr bool kRaw = true;
+  __device__ float2 history_value(float2 v, float2) const { return v; }
+  __device__ float2 block_value(float2 v, float2) const { return v; }
+  __device__ float inv_step() const { return 1.f; }
+  __device__ static double sum_term(float v, float) { return v; }
+};
+
+struct I8Raw : I8Rows {
+  static constexpr bool kRaw = true;
+  __device__ float2 scaled(char2 q) const {
+    return make_float2(__fmul_rn(static_cast<float>(q.x), step),
+                       __fmul_rn(static_cast<float>(q.y), step));
+  }
+  __device__ float2 history_mean(int) const { return make_float2(0.f, 0.f); }
+  __device__ float2 history_value(char2 q, float2) const { return scaled(q); }
+  __device__ float2 block_value(char2 q, float2) const { return scaled(q); }
+  __device__ float inv_step() const {
+    return static_cast<float>(1.0 / step_d);
+  }
+  __device__ static long long sum_term(float v, float inv) {
+    return __float2ll_rn(v * inv);
+  }
+};
+
+// What a FIR policy hands each frame's newest tap row to (tap ntaps-1:
+// block row f is the newest row of frame f and of no other, so a block's
+// frames meet each of its samples once).  NoSum drops it; RowSum adds it
+// to two per-thread sums, in double for complex64 samples and in exact
+// 64-bit integers for 8-bit ones, and flush() folds the warp's sums, in
+// lane order, into the warp's slot of channel c (only lane 0 of the warp
+// ever touches that slot).
+struct NoSum {
+  static constexpr bool kActive = false;
+  template <class Rows>
+  __device__ explicit NoSum(const Rows&) {}
+  template <int NB>
+  __device__ void add(const float2*, int) {}
+};
+
+template <class Rows>
+struct RowSum {
+  static constexpr bool kActive = true;
+  using A = typename SumOf<typename Rows::T>::type;
+  using Pair = typename SumOf<typename Rows::T>::pair;
+  A re, im;
+  float inv;
+
+  __device__ explicit RowSum(const Rows& rows)
+      : re(0), im(0), inv(rows.inv_step()) {}
+  template <int NB>
+  __device__ void add(const float2* v, int nb) {
+#pragma unroll
+    for (int j = 0; j < NB; ++j) {
+      if (j < nb) {
+        re += Rows::sum_term(v[j].x, inv);
+        im += Rows::sum_term(v[j].y, inv);
+      }
+    }
+  }
+  __device__ void flush(Pair* wsum, int c) {
+    for (int o = 16; o > 0; o >>= 1) {
+      re += __shfl_down_sync(0xffffffffu, re, o);
+      im += __shfl_down_sync(0xffffffffu, im, o);
+    }
+    if ((threadIdx.x & 31) == 0) {
+      Pair& w = wsum[c * kWarps + (threadIdx.x >> 5)];
+      w.x += re;
+      w.y += im;
+    }
   }
 };
 
@@ -459,9 +568,10 @@ __device__ __forceinline__ int fft_stages(int log2n) {
   }
 }
 
-// FIR policies: fir(rows, tab, c, e0, m, ntaps, nbins, out) writes the FIR
-// output of the frame over merged rows e0 .. e0+ntaps-1 of [history; x],
-// each losing the mean m gives it, to out[bin] for this thread's bins.
+// FIR policies: fir(rows, tab, c, e0, m, ntaps, nbins, out, sum) writes the
+// FIR output of the frame over merged rows e0 .. e0+ntaps-1 of [history; x],
+// each losing the mean m gives it, to out[bin] for this thread's bins, and
+// hands the newest row's values to `sum` (NoSum: nothing is compiled).
 // DirectFir is the tap loop over the window w [ntaps, nbins], kBins bins
 // at a time (each bin's sum still runs in tap order).
 struct DirectFir {
@@ -470,10 +580,10 @@ struct DirectFir {
 
   size_t table_bytes(int) const { return 0; }
   __device__ void stage(float*, int) const {}
-  template <class Rows>
+  template <class Rows, class Sum>
   __device__ void operator()(const Rows& rows, const float*, int c,
                              long long e0, const RowMeans& m, int ntaps,
-                             int nbins, float2* out) const {
+                             int nbins, float2* out, Sum& sum) const {
     for (int b0 = threadIdx.x; b0 < nbins; b0 += kBins * kThreads) {
       const int nb = min(kBins, (nbins - b0 + kThreads - 1) / kThreads);
       float2 acc[kBins];
@@ -482,6 +592,9 @@ struct DirectFir {
       for_each_tap<kBins>(rows, c, e0, b0, nb, m, ntaps,
                           [&](int t, const float2* v) {
         const float* wt = w + t * nbins + b0;
+        if constexpr (Sum::kActive) {
+          if (t == ntaps - 1) sum.template add<kBins>(v, nb);
+        }
 #pragma unroll
         for (int j = 0; j < kBins; ++j) {
           if (j < nb) {
@@ -516,10 +629,10 @@ struct SvdFir {
   __device__ void stage(float* tab, int ntaps) const {
     for (int i = threadIdx.x; i < ntaps * rank; i += kThreads) tab[i] = u[i];
   }
-  template <class Rows>
+  template <class Rows, class Sum>
   __device__ void operator()(const Rows& rows, const float* tab, int c,
                              long long e0, const RowMeans& m, int ntaps,
-                             int nbins, float2* out) const {
+                             int nbins, float2* out, Sum& sum) const {
     for (int bin = threadIdx.x; bin < nbins; bin += kThreads) {
       float2 ck[kMaxRank];
 #pragma unroll
@@ -527,6 +640,9 @@ struct SvdFir {
       for_each_tap<1>(rows, c, e0, bin, 1, m, ntaps,
                       [&](int t, const float2* x) {
         const float* ut = tab + t * rank;
+        if constexpr (Sum::kActive) {
+          if (t == ntaps - 1) sum.template add<1>(x, 1);
+        }
 #pragma unroll
         for (int k = 0; k < kMaxRank; ++k) {
           if (k < rank) {
@@ -553,8 +669,12 @@ struct SvdFir {
 // in shared memory and, once all are done, adds the cross power of every
 // pair to the CTA's own slice of `partial` (each element owned by one
 // thread: no atomics).  SpecOut keeps one spectrum and writes each to
-// spec[c, f, :] as it is done.
+// spec[c, f, :] as it is done.  PartsOut (further down) is CrossOut over
+// raw rows plus the DC accumulators.
 struct CrossOut {
+  static constexpr bool kParts = false;
+  template <class Rows>
+  using Sum = NoSum;
   const int* pairs;
   float2* partial;   // [K, n_groups, nbl, nbins]
   int nbl;
@@ -595,6 +715,9 @@ struct CrossOut {
 };
 
 struct SpecOut {
+  static constexpr bool kParts = false;
+  template <class Rows>
+  using Sum = NoSum;
   float2* spec_out;   // [nch, S, nbins]
   int S;
 
@@ -611,13 +734,94 @@ struct SpecOut {
   __device__ void frame_done(const float2*, int, int, int, int) const {}
 };
 
+// PartsOut, the single-pass policy (the TPU kernel's tout_ref, uout_ref and
+// sout_ref): over spectra of the raw rows, the CTA's slice of `partial`
+// [K, n_groups, nbl + 2 nch, nbins] takes the cross power of every pair
+// (rows 0 .. nbl-1, as CrossOut), T_c = the sum of the CTA's frames'
+// spectra of channel c (rows nbl + c) and, in a CTA that holds frames j <
+// halo of its block, GJ_c = the sum over those of spec_c[j] conj(dA[j])
+// (rows nbl + nch + c; CTAs that start at or after frame halo leave theirs
+// unwritten and the reduce never reads them).  A block's first halo frames
+// may share a CTA with later ones (frames in groups) and at deep taps
+// nearly every frame is one; each is tested by its own index.  The sample
+// sums of the CTA's frames' newest rows leave as sums[k, group, c].  T is
+// read, added to and written per frame, like the cross power; it is linear
+// in the FIR output, so one more FFT over the summed FIR outputs would do,
+// at the price of nch more rows of shared memory.
+template <typename T>
+struct PartsOut {
+  static constexpr bool kParts = true;
+  template <class Rows>
+  using Sum = RowSum<Rows>;
+  using Pair = typename SumOf<T>::pair;
+  const int* pairs;
+  float2* partial;   // [K, n_groups, nbl + 2 nch, nbins]
+  const float2* da;  // [halo, nbins]
+  Pair* sums;        // [K, n_groups, nch]
+  int nbl, nch, halo;
+
+  __host__ __device__ static int slots(int nch) { return nch; }
+  __device__ float2* slot(float2* spec, int c, int nbins) const {
+    return spec + static_cast<size_t>(c) * nbins;
+  }
+  __device__ void channel_done(const float2*, int, int, int) const {}
+  __device__ void zero_sums(Pair* wsum) const {
+    for (int i = threadIdx.x; i < nch * kWarps; i += kThreads) {
+      wsum[i] = Pair{0, 0};
+    }
+  }
+  __device__ void frame_done(const float2* spec, int f, int f0, int nbins,
+                             int log2n) const {
+    const size_t cta =
+        static_cast<size_t>(blockIdx.y) * gridDim.x + blockIdx.x;
+    float2* out = partial + cta * (nbl + 2 * nch) * nbins;
+    const bool first = f == f0;
+    for (int idx = threadIdx.x; idx < nbl * nbins; idx += kThreads) {
+      const int l = idx >> log2n;
+      const int bin = idx & (nbins - 1);
+      const int p = __ldg(pairs + 2 * l);
+      const int q = __ldg(pairs + 2 * l + 1);
+      const float2 v = cmulconj(spec[static_cast<size_t>(p) * nbins + bin],
+                                spec[static_cast<size_t>(q) * nbins + bin]);
+      out[idx] = first ? v : cadd(out[idx], v);
+    }
+    float2* tsum = out + static_cast<size_t>(nbl) * nbins;
+    for (int idx = threadIdx.x; idx < nch * nbins; idx += kThreads) {
+      tsum[idx] = first ? spec[idx] : cadd(tsum[idx], spec[idx]);
+    }
+    if (f < halo) {   // then f0 < halo too: the CTA's first frame wrote gj
+      float2* gj = tsum + static_cast<size_t>(nch) * nbins;
+      const float2* dj = da + static_cast<size_t>(f) * nbins;
+      for (int idx = threadIdx.x; idx < nch * nbins; idx += kThreads) {
+        const float2 v = cmulconj(spec[idx], __ldg(dj + (idx & (nbins - 1))));
+        gj[idx] = first ? v : cadd(gj[idx], v);
+      }
+    }
+  }
+  // the warps' sample sums of each channel, in warp order
+  __device__ void cta_done(const Pair* wsum) const {
+    const size_t cta =
+        static_cast<size_t>(blockIdx.y) * gridDim.x + blockIdx.x;
+    for (int c = threadIdx.x; c < nch; c += kThreads) {
+      Pair acc = wsum[c * kWarps];
+      for (int w = 1; w < kWarps; ++w) {
+        acc.x += wsum[c * kWarps + w].x;
+        acc.y += wsum[c * kWarps + w].y;
+      }
+      sums[cta * nch + c] = acc;
+    }
+  }
+};
+
 // (b) One CTA per group of frames of one block: grid (n_groups, K),
 // block k = blockIdx.y.  Dynamic shared memory:
 //   spec  [slots][nbins] float2 — the frame's spectra (CrossOut: every
 //                                 channel's; SpecOut: one)
 //   work  [nbins]        float2 — the FFT's ping-pong buffer
-//   mean  [mean_blocks][nch] float2 — the means of blocks jlo .. k, the
-//                                 blocks the CTA's rows lie in
+//   mean  [chan_slots][nch] float2 — the means of blocks jlo .. k, the
+//                                 blocks the CTA's rows lie in (chan_slots
+//                                 of them); PartsOut stages no means and
+//                                 keeps its warps' sample sums there
 //   tab   [ntaps * r]    float  — SvdFir's u (none for DirectFir)
 // For each frame and channel: the FIR over ntaps rows of [history; x]
 // (read through `rows`) into the FFT's first buffer, a radix-2 Stockham
@@ -631,12 +835,13 @@ template <class Rows, class Fir, class Out, int Stage = kStageFull>
 __global__ void __launch_bounds__(kThreads)
 fx_frames_kernel(Rows rows, Fir fir, Out out, const float2* __restrict__ tw,
                  int nch, int S, int nbins, int log2n, int ntaps,
-                 int frames_per_group, int parts, int mean_blocks) {
+                 int frames_per_group, int parts, int chan_slots) {
   extern __shared__ float2 smem[];
   float2* spec = smem;
   float2* work = smem + static_cast<size_t>(Out::slots(nch)) * nbins;
   float2* mean_s = work + nbins;
-  float* tab = reinterpret_cast<float*>(mean_s + mean_blocks * nch);
+  float* tab = reinterpret_cast<float*>(mean_s + chan_slots * nch);
+  using Sum = typename Out::template Sum<Rows>;
   const int tid = threadIdx.x;
   const int half = nbins >> 1;
   const int kb = blockIdx.y;  // this CTA's block
@@ -646,8 +851,13 @@ fx_frames_kernel(Rows rows, Fir fir, Out out, const float2* __restrict__ tw,
   const int jlo = g_min <= 0 ? 0 : static_cast<int>(g_min / S);
 
   fir.stage(tab, ntaps);
-  for (int i = tid; i < (kb - jlo + 1) * nch; i += kThreads) {
-    mean_s[i] = rows.mean(jlo + i / nch, i % nch, parts);
+  if constexpr (Out::kParts) {
+    static_assert(Rows::kRaw, "PartsOut runs over raw rows");
+    out.zero_sums(reinterpret_cast<typename Out::Pair*>(mean_s));
+  } else {
+    for (int i = tid; i < (kb - jlo + 1) * nch; i += kThreads) {
+      mean_s[i] = rows.mean(jlo + i / nch, i % nch, parts);
+    }
   }
   __syncthreads();
 
@@ -663,14 +873,22 @@ fx_frames_kernel(Rows rows, Fir fir, Out out, const float2* __restrict__ tw,
       const int nstages = fft_stages<Stage>(log2n);
       float2* a = (nstages & 1) ? work : own;
       float2* b = (nstages & 1) ? own : work;
-      const RowMeans m{mean_s[(kb - jlo) * nch + c], e_own, mean_s + c, jlo,
-                       nch};
+      // raw rows lose no mean: every block row runs as the CTA's own
+      const RowMeans m =
+          Out::kParts
+              ? RowMeans{make_float2(0.f, 0.f), halo, nullptr, 0, nch}
+              : RowMeans{mean_s[(kb - jlo) * nch + c], e_own, mean_s + c,
+                         jlo, nch};
+      Sum sum(rows);
       if constexpr (Stage == kStageLoad) {
         tap_sum<Fir::kBins>(rows, c, e0, m, ntaps, nbins, a);
       } else if constexpr (Stage == kStageLoadRaw) {
         tap_sum<Fir::kBins>(RawRows<Rows>{rows}, c, e0, m, ntaps, nbins, a);
       } else {
-        fir(rows, tab, c, e0, m, ntaps, nbins, a);
+        fir(rows, tab, c, e0, m, ntaps, nbins, a, sum);
+      }
+      if constexpr (Out::kParts) {
+        sum.flush(reinterpret_cast<typename Out::Pair*>(mean_s), c);
       }
       __syncthreads();
       for (int s = 0, ns = 1; s < nstages; ++s, ns <<= 1) {
@@ -696,6 +914,9 @@ fx_frames_kernel(Rows rows, Fir fir, Out out, const float2* __restrict__ tw,
       out.frame_done(spec, f, f0, nbins, log2n);
     }
     __syncthreads();  // the next frame overwrites spec
+  }
+  if constexpr (Out::kParts) {
+    out.cta_done(reinterpret_cast<const typename Out::Pair*>(mean_s));
   }
 }
 
@@ -755,15 +976,127 @@ fx_reduce_i8_kernel(const float2* __restrict__ partial,
   }
 }
 
+// (c) single pass: the partials of every row of parts [K, nbl + 2 nch,
+// nbins] summed over the block's groups in a fixed order (the GJ rows over
+// the first n_gj groups, the ones that hold frames j < halo); mu [K, nch]
+// from the groups' sample sums (complex64: the double sum over n, rounded
+// once; int8: the exact integer sum over n times the step, formed in
+// double and rounded once, as fx_fused.block_mean_i8 forms it); and the
+// new history from the last block's last halo rows: complex64 minus that
+// block's mean (hout_ref's contract), int8 as they arrived (new_hist is
+// then char2 [nch, halo, nbins]).
+template <typename T>
+__device__ float2 parts_mean(const typename SumOf<T>::pair* __restrict__ sums,
+                             int n_groups, int nch, long long n,
+                             double step) {
+  typename SumOf<T>::type r = 0, i = 0;
+  for (int g = 0; g < n_groups; ++g) {
+    const typename SumOf<T>::pair v = sums[static_cast<size_t>(g) * nch];
+    r += v.x;
+    i += v.y;
+  }
+  const double nd = static_cast<double>(n);
+  return make_float2(static_cast<float>(static_cast<double>(r) / nd * step),
+                     static_cast<float>(static_cast<double>(i) / nd * step));
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+fx_parts_reduce_kernel(const float2* __restrict__ partial,
+                       const typename SumOf<T>::pair* __restrict__ sums,
+                       const T* __restrict__ x, float2* __restrict__ parts,
+                       float2* __restrict__ mu, T* __restrict__ new_hist,
+                       int K, int S, int n_groups, int n_gj, int nbl, int nch,
+                       int nbins, int halo, double step) {
+  extern __shared__ float2 mu_last[];   // [nch]: the last block's means
+  constexpr bool kC64 = sizeof(T) == sizeof(float2);
+  const long long n = static_cast<long long>(S) * nbins;
+  if constexpr (kC64) {
+    for (int c = threadIdx.x; c < nch; c += kThreads) {
+      mu_last[c] = parts_mean<T>(
+          sums + (static_cast<size_t>(K - 1) * n_groups) * nch + c, n_groups,
+          nch, n, step);
+    }
+    __syncthreads();
+  }
+  const long long idx =
+      static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  const int rows = nbl + 2 * nch;
+  const long long n_block = static_cast<long long>(rows) * nbins;
+  if (idx < K * n_block) {
+    const long long k = idx / n_block;
+    const long long e = idx - k * n_block;
+    const int ng = e < static_cast<long long>(nbl + nch) * nbins ? n_groups
+                                                                  : n_gj;
+    const float2* p = partial + k * n_groups * n_block + e;
+    float2 acc = p[0];
+    for (int g = 1; g < ng; ++g) acc = cadd(acc, p[g * n_block]);
+    parts[idx] = acc;
+  }
+  if (idx < static_cast<long long>(K) * nch) {
+    const int k = static_cast<int>(idx / nch), c = static_cast<int>(idx % nch);
+    mu[idx] = parts_mean<T>(
+        sums + (static_cast<size_t>(k) * n_groups) * nch + c, n_groups, nch,
+        n, step);
+  }
+  if (idx < static_cast<long long>(nch) * halo * nbins) {
+    const int bin = static_cast<int>(idx % nbins);
+    const int r = static_cast<int>((idx / nbins) % halo);
+    const int c = static_cast<int>(idx / (static_cast<long long>(nbins) * halo));
+    const T v = x[(static_cast<long long>(c) * K + (K - 1)) * n +
+                  static_cast<long long>(S - halo + r) * nbins + bin];
+    if constexpr (kC64) {
+      new_hist[idx] = csub(v, mu_last[c]);
+    } else {
+      new_hist[idx] = v;
+    }
+  }
+}
+
+int reduce_blocks(long long n) {
+  return static_cast<int>((n + kThreads - 1) / kThreads);
+}
+
 int log2_of(int n) {
   int k = 0;
   while ((1 << k) < n) ++k;
   return k;
 }
 
-// Mean pre-pass and frame kernel of any mode over K blocks, on `st`.  A
-// CTA stages the means of every block its rows lie in: at most
-// ceil(halo / S) + 1 of them, and never more than K.
+// The frame kernel of any mode over K blocks, on `st`, with chan_slots
+// float2 per channel of shared memory after the FFT's buffers; `pre` puts
+// whatever must run before it on the stream (the two-pass entries' mean
+// pre-pass).
+template <int Stage = kStageFull, class Rows, class Fir, class Out,
+          class Pre>
+cudaError_t launch_frames(const Rows& rows, const Fir& fir, const Out& out,
+                          const void* tw, int nch, int K, int S, int nbins,
+                          int ntaps, int n_groups, int frames_per_group,
+                          int parts, int chan_slots, cudaStream_t st,
+                          Pre&& pre) {
+  if (K < 1 || K > 65535 || S < 1) return cudaErrorInvalidValue;
+  const size_t smem =
+      (static_cast<size_t>(Out::slots(nch) + 1) * nbins +
+       static_cast<size_t>(nch) * chan_slots) *
+          sizeof(float2) +
+      fir.table_bytes(ntaps);
+  cudaError_t err = cudaFuncSetAttribute(
+      reinterpret_cast<const void*>(
+          &fx_frames_kernel<Rows, Fir, Out, Stage>),
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  err = pre();
+  if (err != cudaSuccess) return err;
+  fx_frames_kernel<Rows, Fir, Out, Stage>
+      <<<dim3(n_groups, K), kThreads, smem, st>>>(
+          rows, fir, out, static_cast<const float2*>(tw), nch, S, nbins,
+          log2_of(nbins), ntaps, frames_per_group, parts, chan_slots);
+  return cudaGetLastError();
+}
+
+// Mean pre-pass and frame kernel of a two-pass mode.  A CTA stages the
+// means of every block its rows lie in: at most ceil(halo / S) + 1 of
+// them, and never more than K.
 template <int Stage = kStageFull, typename T, class Rows, class Fir,
           class Out>
 cudaError_t launch_means_and_frames(const T* x, typename SumOf<T>::pair* sums,
@@ -772,28 +1105,68 @@ cudaError_t launch_means_and_frames(const T* x, typename SumOf<T>::pair* sums,
                                     int K, int S, int nbins, int ntaps,
                                     int n_groups, int frames_per_group,
                                     int parts, cudaStream_t st) {
-  if (K < 1 || K > 65535 || S < 1) return cudaErrorInvalidValue;
+  if (K < 1 || S < 1) return cudaErrorInvalidValue;
   const int halo = ntaps - 1;
   const int mean_blocks = min(K, (halo + S - 1) / S + 1);
-  const size_t smem =
-      (static_cast<size_t>(Out::slots(nch) + 1) * nbins +
-       static_cast<size_t>(nch) * mean_blocks) *
-          sizeof(float2) +
-      fir.table_bytes(ntaps);
-  cudaError_t err = cudaFuncSetAttribute(
-      reinterpret_cast<const void*>(
-          &fx_frames_kernel<Rows, Fir, Out, Stage>),
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  mean_partial_kernel<T><<<dim3(parts, nch, K), kThreads, 0, st>>>(
-      x, sums, rows.n, rows.stride);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  fx_frames_kernel<Rows, Fir, Out, Stage>
-      <<<dim3(n_groups, K), kThreads, smem, st>>>(
-          rows, fir, out, static_cast<const float2*>(tw), nch, S, nbins,
-          log2_of(nbins), ntaps, frames_per_group, parts, mean_blocks);
-  return cudaGetLastError();
+  return launch_frames<Stage>(
+      rows, fir, out, tw, nch, K, S, nbins, ntaps, n_groups,
+      frames_per_group, parts, mean_blocks, st, [&]() {
+        mean_partial_kernel<T><<<dim3(parts, nch, K), kThreads, 0, st>>>(
+            x, sums, rows.n, rows.stride);
+        return cudaGetLastError();
+      });
+}
+
+// The single-pass step over K blocks on `st`: the frame kernel over raw
+// rows with PartsOut in the FIR mode `rank` gives (no mean pre-pass), then
+// the reduce.  The warps' sample sums take kWarps pairs per channel of
+// shared memory, 2 kWarps float2 slots.
+template <typename T, class Rows>
+int fx_parts(const Rows& rows, const void* w, const void* u, const void* v,
+             const void* tw, const void* pairs, const void* da, void* sums,
+             void* partial, void* parts, void* mu, void* new_hist, int nch,
+             int K, int S, int nbins, int ntaps, int rank, int nbl,
+             int n_groups, int frames_per_group, double step,
+             cudaStream_t st) {
+  using Pair = typename SumOf<T>::pair;
+  static_assert(sizeof(Pair) == 2 * sizeof(float2), "two slots per pair");
+  const int halo = ntaps - 1;
+  if (rank < 0 || rank > kMaxRank || halo < 1 || S < halo) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const PartsOut<T> out{static_cast<const int*>(pairs),
+                        static_cast<float2*>(partial),
+                        static_cast<const float2*>(da),
+                        static_cast<Pair*>(sums),
+                        nbl,
+                        nch,
+                        halo};
+  const auto none = []() { return cudaSuccess; };
+  cudaError_t err;
+  if (rank > 0) {
+    const SvdFir fir{static_cast<const float*>(u),
+                     static_cast<const float*>(v), rank};
+    err = launch_frames(rows, fir, out, tw, nch, K, S, nbins, ntaps, n_groups,
+                        frames_per_group, 0, 2 * kWarps, st, none);
+  } else {
+    const DirectFir fir{static_cast<const float*>(w)};
+    err = launch_frames(rows, fir, out, tw, nch, K, S, nbins, ntaps, n_groups,
+                        frames_per_group, 0, 2 * kWarps, st, none);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int n_gj = min(n_groups,
+                       (halo + frames_per_group - 1) / frames_per_group);
+  const long long n_out =
+      static_cast<long long>(K) * (nbl + 2 * nch) * nbins;
+  const long long n_hist = static_cast<long long>(nch) * halo * nbins;
+  fx_parts_reduce_kernel<T>
+      <<<reduce_blocks(n_out > n_hist ? n_out : n_hist), kThreads,
+         nch * sizeof(float2), st>>>(
+          static_cast<const float2*>(partial), static_cast<const Pair*>(sums),
+          rows.x, static_cast<float2*>(parts), static_cast<float2*>(mu),
+          static_cast<T*>(new_hist), K, S, n_groups, n_gj, nbl, nch, nbins,
+          halo, step);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // The FIR mode of the FX entry points: rank 0 the direct tap loop over w,
@@ -844,10 +1217,6 @@ cudaError_t launch_fx_stage(int stage, const T* x,
       return cudaErrorInvalidValue;
   }
 #undef FXT_STAGE_CASE
-}
-
-int reduce_blocks(long long n) {
-  return static_cast<int>((n + kThreads - 1) / kThreads);
 }
 
 // The three kernels of the complex64 mode over K blocks on `st`, the
@@ -963,6 +1332,54 @@ extern "C" int fxt_fx_fused_i8(const void* x, const void* tail,
                partial, xp, mu, nch, K, S, nbins, ntaps, rank, nbl, n_groups,
                frames_per_group, parts, step,
                static_cast<cudaStream_t>(stream));
+}
+
+// The single-pass step of the complex64 mode over K blocks on `stream`
+// (fx_fused.fx_fused_parts): two kernels, frames and reduce.  Checked by
+// the caller as for fxt_fx_fused, plus S >= ntaps-1.  da is the window's
+// table dA [ntaps-1, nbins] complex64.  Scratch: sums [K, n_groups, nch]
+// double2, partial [K, n_groups, nbl + 2 nch, nbins] float2.  Writes parts
+// [K, nbl + 2 nch, nbins] (xp_raw, T, GJ), mu [K, nch] and new_hist [nch,
+// ntaps-1, nbins].  Returns cudaGetLastError().
+extern "C" int fxt_fx_parts(const void* x, const void* hist, const void* w,
+                            const void* u, const void* v, const void* tw,
+                            const void* pairs, const void* da, void* sums,
+                            void* partial, void* parts, void* mu,
+                            void* new_hist, int nch, int K, int S, int nbins,
+                            int ntaps, int rank, int nbl, int n_groups,
+                            int frames_per_group, void* stream) {
+  const long long n = static_cast<long long>(S) * nbins;
+  const F32Raw rows{{static_cast<const float2*>(x),
+                     static_cast<const float2*>(hist), nullptr, n, K * n, S,
+                     ntaps - 1, nbins, nch}};
+  return fx_parts<float2>(rows, w, u, v, tw, pairs, da, sums, partial, parts,
+                          mu, new_hist, nch, K, S, nbins, ntaps, rank, nbl,
+                          n_groups, frames_per_group, 1.0,
+                          static_cast<cudaStream_t>(stream));
+}
+
+// The single-pass step of the int8 mode (fx_fused.fx_fused_parts_i8): x
+// int8 [nch, K, S, nbins, 2], tail the stream's raw tail.  Scratch: sums
+// [K, n_groups, nch] longlong2.  Writes parts and mu as fxt_fx_parts (real
+// units) and new_tail int8 [nch, ntaps-1, nbins, 2], the last block's last
+// rows as they arrived.  Returns cudaGetLastError().
+extern "C" int fxt_fx_parts_i8(const void* x, const void* tail, const void* w,
+                               const void* u, const void* v, const void* tw,
+                               const void* pairs, const void* da, void* sums,
+                               void* partial, void* parts, void* mu,
+                               void* new_tail, int nch, int K, int S,
+                               int nbins, int ntaps, int rank, int nbl,
+                               int n_groups, int frames_per_group,
+                               double step, void* stream) {
+  const long long n = static_cast<long long>(S) * nbins;
+  const I8Raw rows{{static_cast<const char2*>(x),
+                    static_cast<const char2*>(tail), nullptr, nullptr, n,
+                    K * n, S, ntaps - 1, nbins, nch,
+                    static_cast<float>(step), step}};
+  return fx_parts<char2>(rows, w, u, v, tw, pairs, da, sums, partial, parts,
+                         mu, new_tail, nch, K, S, nbins, ntaps, rank, nbl,
+                         n_groups, frames_per_group, step,
+                         static_cast<cudaStream_t>(stream));
 }
 
 // The stage ablation (fx_fused.fx_fused_ablate): fxt_fx_fused with the

@@ -70,6 +70,9 @@ def declare(lib):
     signatures = {
         "fxt_fx_fused": [P] * 11 + [I] * 10 + [P],
         "fxt_fx_fused_i8": [P] * 12 + [I] * 10 + [D, P],
+        "fxt_fx_parts": [P] * 13 + [I] * 9 + [P],
+        "fxt_fx_parts_i8": [P] * 13 + [I] * 9 + [D, P],
+        "fxt_fx_finish": [P] * 13 + [L] * 3 + [I] * 7 + [D, P],
         "fxt_fx_ablate": [P] * 11 + [I] * 11 + [P],
         "fxt_fx_ablate_i8": [P] * 12 + [I] * 10 + [D, I, P],
         "fxt_spectrometer": [P] * 7 + [L] + [I] * 7 + [P],

@@ -4,15 +4,21 @@ Counterpart of ``fxtpu.fx``.  Two routes with one contract, chosen once
 per engine (``_resolve_fused``, like ``fxtpu.fx._resolve_fused``):
 
   * the fused route: the block arrives pre-framed, ``[nch, S, nbins]``
-    complex64 or ``[nch, S, nbins, 2]`` int8; the fused step
-    (:func:`~fxtpu_torch.ops.fx_fused.fx_fused_raw`, or
-    :func:`~fxtpu_torch.ops.fx_fused.fx_fused_raw_i8` with the raw-tail
-    history of 8-bit ingest) returns the raw frame-summed cross power,
-    and :func:`_finish` applies the FSTC rotation, ``1/n_frames``, the
-    fftshift and the continuum reduction on the tiny ``[nbl, nbins]``
-    result (the rotation commutes with the frame sum).  On a CUDA device
-    the fused step is the hand-written kernel; on the CPU its plain
-    version, as ``fxtpu`` runs its Pallas kernel in interpret mode there.
+    complex64 or ``[nch, S, nbins, 2]`` int8, and goes through
+    :func:`~fxtpu_torch.ops.fx_epilogue.fx_fused_step`, the single pass
+    ``fxtpu``'s fused route takes: the kernel reads the samples once as
+    they arrived and returns the raw frame-summed cross power with the
+    DC accumulators (``ops.fx_fused.fx_fused_parts`` /
+    ``fx_fused_parts_i8``, the latter with the raw-tail history of 8-bit
+    ingest), and one epilogue (``ops.fx_epilogue.fx_finish``) removes the
+    means after the fact and applies the FSTC rotation, ``1/n_frames``,
+    the fftshift and the continuum reduction on the tiny ``[nbl, nbins]``
+    result (the rotation commutes with the frame sum): three kernel
+    launches a step.  (The two-pass wrappers ``ops.fx_fused.fx_fused_raw*``
+    with ``ops.fx_epilogue.finish`` compute the same step with a mean
+    pre-pass and an exact DC bin; nothing here calls them.)  On a
+    CUDA device each step is hand-written kernels; on the CPU their plain
+    versions, as ``fxtpu`` runs its Pallas kernel in interpret mode there.
     Its FIR runs in one of two modes, chosen once with the route: through
     the window's rank-r factors where the window factorises
     (``ops.svd_fir.deep_svd_applies``: 16 taps or more, as
@@ -32,31 +38,34 @@ scalars (CONTINUUM/TEST); ``delays`` is ``[nch]`` seconds or the packed
 K blocks per call (``fxtpu.fx.make_fx_multi_step``), as
 :meth:`FxEngine.prepare_batch` stages them, with per-block delays ``[K,
 nch]`` or ``[K, nch, 2]``: on the fused route one K-block launch of the
-fused step, on the plain route the plain step over the blocks in turn;
-either way K chained single steps bit for bit.
+fused step, on the plain route the plain step over the blocks in turn.
+The plain route is K chained single steps bit for bit; the fused route
+corrects blocks after the first for the raw rows of the block before
+(``dc_correct``'s ``mu_prev`` terms) and agrees with K chained steps
+within ``fxtpu``'s own bound for that, 1e-5 of max|vis|.
 """
 
 from __future__ import annotations
 
+import threading
 from typing import Optional
 
 import numpy as np
 import torch
 
 from fxtpu_torch.config import CorrelatorConfig
+from fxtpu_torch.ops import fx_epilogue, fx_fused
+from fxtpu_torch.ops.dc_posthoc import dc_constants
 from fxtpu_torch.ops.delay import estimate_delay
-from fxtpu_torch.ops.fx_fused import (fx_fused_raw, fx_fused_raw_i8,
-                                      fx_fused_raw_i8_multi,
-                                      fx_fused_raw_multi, max_blocks,
-                                      pairs_tensor, supported, supported_i8,
-                                      svd_tensors)
+from fxtpu_torch.ops.fx_epilogue import FinishTables, fx_fused_step
+from fxtpu_torch.ops.fx_fused import (max_blocks_parts, pairs_tensor,
+                                      supported, supported_i8, svd_tensors)
 from fxtpu_torch.ops.pfb import (dc_remove, dequantize, spectrometer,
                                  zero_history)
 from fxtpu_torch.ops.svd_fir import deep_svd_applies
 from fxtpu_torch.ops.window import pfb_window
 from fxtpu_torch.ops.xengine import (baseline_pairs, continuum_reduce,
-                                     fstc_rotate, rf_freqs, rotation_phase,
-                                     split_delays, xcorr_baselines)
+                                     fstc_rotate, xcorr_baselines)
 from fxtpu_torch.runtime.native import quantize_c64
 
 __all__ = ["make_fx_step", "make_fx_multi_step", "make_calibrator",
@@ -71,8 +80,10 @@ def _resolve_fused(fused, device: torch.device, nbins: int, ntaps: int,
     True -> the fused route on any device (the kernel on a CUDA device,
     its plain version on the CPU), raising for a shape the kernel does
     not take; False -> plain torch.  ``int8`` asks about the int8 kernel,
-    which also needs ``s_rows`` (see ``fx_fused.supported_i8``); ``rank``
-    is the SVD-FIR mode's rank (0: the direct tap loop)."""
+    which also needs ``s_rows`` (see ``fx_fused.supported_i8``; a
+    complex64 engine's blocks always hold the ntaps-1 rows the single pass
+    needs, the config's bound); ``rank`` is the SVD-FIR mode's rank (0:
+    the direct tap loop)."""
     shape = f"nbins={nbins}, ntaps={ntaps}, nch={nch}, rank={rank}"
     if int8:
         takes = supported_i8(nbins, ntaps, nch, s_rows, rank)
@@ -103,72 +114,36 @@ def _svd_mode(window2d, nbins: int, device):
     return svd_tensors(window2d, device)
 
 
-class _FinishTables:
-    """Device-resident constants of :func:`_finish`, built once per step
-    so the per-block finish makes no host-to-device copy."""
-
-    def __init__(self, pairs: np.ndarray, nbins: int, bandwidth: float,
-                 frequency: float, device):
-        self.p = torch.as_tensor(pairs[:, 0], dtype=torch.long, device=device)
-        self.q = torch.as_tensor(pairs[:, 1], dtype=torch.long, device=device)
-        self.fbase = rf_freqs(nbins, bandwidth, frequency, True, device)
-        self.frf = rf_freqs(nbins, bandwidth, frequency, False, device)
-
-
-def _finish(xp: torch.Tensor, delays: torch.Tensor, tables: _FinishTables,
-            n_frames: int, bandwidth: float, continuum: bool):
-    """Raw frame-summed cross power ``[nbl, nbins]``, or ``[K, nbl,
-    nbins]`` with delays ``[K, nch(, 2)]`` per block -> the visibility
-    (``fxtpu.fx._finish_fused``): ``vis[p,q] = xp[p,q] rot_p conj(rot_q) /
-    n_frames`` with ``rot_c = exp(+2 pi j f d_c)``, fftshift, and the
-    continuum reduction."""
-    d, frac = split_delays(delays, xp.ndim - 1)
-    dd = d[..., tables.p] - d[..., tables.q]                 # [..., nbl]
-    if frac is not None:
-        phase = rotation_phase(tables.fbase, dd,
-                               frac[..., tables.p] - frac[..., tables.q])
-    else:
-        phase = rotation_phase(tables.frf, dd, None)
-    rot = torch.complex(torch.cos(phase), torch.sin(phase))
-    vis = torch.fft.fftshift(xp * rot / n_frames, dim=-1)
-    return continuum_reduce(vis, bandwidth) if continuum else vis
-
-
 def make_fx_step(*, mode: str, nbins: int, window2d: np.ndarray,
                  pairs: np.ndarray, bandwidth: float, frequency: float,
                  device, fused: bool, quant_step: float = 1.0 / 32,
                  svd=None):
     """Build the per-block step on ``device``.  ``fused=True`` takes the
-    fused route on framed input: :func:`fx_fused_raw` for complex64
-    ``[nch, S, nbins]`` blocks with a tensor history,
-    :func:`fx_fused_raw_i8` for int8 ``[nch, S, nbins, 2]`` blocks with
-    the raw-tail dict history (each the CUDA kernel for CUDA tensors, its
-    plain version for CPU tensors), in the FIR mode ``svd``: None for the
-    direct tap loop, or the window's factors ``(u, v)`` on ``device``
-    (``fx_fused.svd_tensors``).  ``fused=False`` takes the plain route
-    on ``[nch, num_samp]`` complex64 or ``[nch, num_samp, 2]`` int8
-    samples.  8-bit samples are ``q * quant_step`` in real units."""
-    device = torch.device(device)
-    continuum = mode in ("CONTINUUM", "TEST")
-    w = torch.as_tensor(np.asarray(window2d, np.float32), device=device)
-
+    fused route on framed input, complex64 ``[nch, S, nbins]`` blocks
+    with a tensor history or int8 ``[nch, S, nbins, 2]`` blocks with the
+    raw-tail dict history, through :func:`fx_fused_step` (the single pass
+    and its epilogue: the CUDA kernels for CUDA tensors, the plain
+    versions for CPU tensors; blocks of S >= ntaps-1 rows), in the FIR
+    mode ``svd``: None for the direct tap loop, or the window's factors
+    ``(u, v)`` on ``device`` (``fx_fused.svd_tensors``).  ``fused=False``
+    takes the plain route on ``[nch, num_samp]`` complex64 or ``[nch,
+    num_samp, 2]`` int8 samples.  8-bit samples are ``q * quant_step`` in
+    real units."""
     if fused:
-        pairs_dev, tables = _fused_tables(pairs, nbins, bandwidth, frequency,
-                                          device)
+        multi = make_fx_multi_step(
+            mode=mode, nbins=nbins, window2d=window2d, pairs=pairs,
+            bandwidth=bandwidth, frequency=frequency, device=device,
+            fused=True, quant_step=quant_step, svd=svd)
 
         def fused_step(iq, delays, history):
-            if isinstance(history, dict):
-                xp, new_history = fx_fused_raw_i8(iq, history, w, pairs_dev,
-                                                  quant_step, svd)
-            else:
-                xp, new_history = fx_fused_raw(iq, history, w, pairs_dev,
-                                               svd)
-            vis = _finish(xp, delays, tables, iq.shape[1], bandwidth,
-                          continuum)
-            return vis, new_history
+            vis, new_history = multi(iq[:, None], delays[None], history)
+            return vis[0], new_history
 
         return fused_step
 
+    device = torch.device(device)
+    continuum = mode in ("CONTINUUM", "TEST")
+    w = torch.as_tensor(np.asarray(window2d, np.float32), device=device)
     pairs_idx = torch.as_tensor(np.asarray(pairs), dtype=torch.long,
                                 device=device)
 
@@ -185,28 +160,21 @@ def make_fx_step(*, mode: str, nbins: int, window2d: np.ndarray,
     return step
 
 
-def _fused_tables(pairs, nbins: int, bandwidth: float, frequency: float,
-                  device):
-    """The fused route's pairs on ``device`` and :class:`_FinishTables`."""
-    pairs = np.asarray(pairs)
-    return (pairs_tensor(pairs, int(pairs.max()) + 1, device),
-            _FinishTables(pairs, nbins, bandwidth, frequency, device))
-
-
 def make_fx_multi_step(*, mode: str, nbins: int, window2d: np.ndarray,
                        pairs: np.ndarray, bandwidth: float, frequency: float,
                        device, fused: bool, quant_step: float = 1.0 / 32,
                        svd=None):
     """Build the K-blocks-per-call step on ``device`` (``fxtpu.fx.
     make_fx_multi_step``): ``multi(iq, delays [K, nch(, 2)], history) ->
-    (vis [K, ...], new_history)``, identical to K chained steps of
-    :func:`make_fx_step` with the same arguments.  ``fused=True``: ``iq``
-    is the merged ``[nch, K, S, nbins]`` complex64 or ``[nch, K, S, nbins,
-    2]`` int8 batch and the K blocks go through one
-    :func:`fx_fused_raw_multi` / :func:`fx_fused_raw_i8_multi` call, then
-    one :func:`_finish` over all K; ``fused=False``: ``iq`` is the stacked
-    ``[K, nch, num_samp(, 2)]`` batch and the plain step runs over the
-    blocks in turn (the counterpart of ``fxtpu``'s ``lax.scan``)."""
+    (vis [K, ...], new_history)``, K chained steps of :func:`make_fx_step`
+    with the same arguments (the fused route within rounding, see the
+    module docstring).  ``fused=True``: ``iq`` is the merged ``[nch, K,
+    S, nbins]`` complex64 or ``[nch, K, S, nbins, 2]`` int8 batch and the
+    K blocks go through one :func:`fx_fused_step` call, with the window's
+    DC constants formed once per block length S and kept on the device;
+    ``fused=False``: ``iq`` is the stacked ``[K, nch, num_samp(, 2)]``
+    batch and the plain step runs over the blocks in turn (the
+    counterpart of ``fxtpu``'s ``lax.scan``)."""
     if not fused:
         step = make_fx_step(mode=mode, nbins=nbins, window2d=window2d,
                             pairs=pairs, bandwidth=bandwidth,
@@ -225,18 +193,18 @@ def make_fx_multi_step(*, mode: str, nbins: int, window2d: np.ndarray,
     device = torch.device(device)
     continuum = mode in ("CONTINUUM", "TEST")
     w = torch.as_tensor(np.asarray(window2d, np.float32), device=device)
-    pairs_dev, tables = _fused_tables(pairs, nbins, bandwidth, frequency,
-                                      device)
+    pairs = np.asarray(pairs)
+    pairs_dev = pairs_tensor(pairs, int(pairs.max()) + 1, device)
+    tables = FinishTables(pairs, nbins, bandwidth, frequency, device)
+    consts = {}
 
     def multi_fused(iq, delays, history):
-        if isinstance(history, dict):
-            xp, new_history = fx_fused_raw_i8_multi(iq, history, w, pairs_dev,
-                                                    quant_step, svd)
-        else:
-            xp, new_history = fx_fused_raw_multi(iq, history, w, pairs_dev,
-                                                 svd)
-        vis = _finish(xp, delays, tables, iq.shape[2], bandwidth, continuum)
-        return vis, new_history
+        s_rows = iq.shape[2]
+        if s_rows not in consts:
+            consts[s_rows] = dc_constants(window2d, nbins, s_rows, device)
+        return fx_fused_step(iq, history, w, pairs_dev, consts[s_rows],
+                             delays, tables, bandwidth, continuum,
+                             quant_step, svd)
 
     return multi_fused
 
@@ -272,6 +240,46 @@ def _unpack_i8_words(words) -> np.ndarray:
         *w.shape[:-1], 4 * w.shape[-1])
 
 
+class _PinnedBlocks:
+    """Pinned host buffers for single blocks on their way to the card:
+    ``depth`` per block shape, handed out in turn, each written again only
+    after the copy that last read it has completed (its event), the
+    discipline of ``runtime.stager``.  One staging at a time: the main
+    loop and the stager's thread (its tail blocks) may both come here."""
+
+    def __init__(self, depth: int = 3):
+        self.depth = depth
+        self._pools = {}
+        self._lock = threading.Lock()
+
+    def stage(self, block: np.ndarray, device: torch.device) -> torch.Tensor:
+        """``block`` on ``device``, through the next pinned buffer of its
+        shape, by one ``non_blocking`` copy on the current stream."""
+        with self._lock:
+            slots, turn = self._pools.setdefault(
+                (block.shape, block.dtype.str), ([], [0]))
+            if len(slots) < self.depth:
+                host = torch.empty(
+                    block.shape, pin_memory=True,
+                    dtype=torch.from_numpy(block[:0].reshape(-1)).dtype)
+                if not host.is_pinned():
+                    raise RuntimeError(
+                        "the block's host buffer could not be pinned")
+                slots.append([host, None])
+            host, copied = slot = slots[turn[0] % self.depth]
+            turn[0] += 1
+            if copied is not None:
+                copied.synchronize()
+            # torch's copy runs on its intra-op threads; numpy's copyto on
+            # one, several times slower for a block of tens of MiB
+            # (chip_smoke.py times both; PERF.md)
+            host.copy_(torch.from_numpy(block))
+            dev = host.to(device, non_blocking=True)
+            slot[1] = torch.cuda.Event()
+            slot[1].record(torch.cuda.current_stream(device))
+            return dev
+
+
 class FxEngine:
     """Window + pairs + step + calibrator for one config, on
     ``cfg.device``.  The route is decided once, here: :attr:`fused_active`
@@ -298,6 +306,7 @@ class FxEngine:
             int8=self._int8, s_rows=cfg.num_samp // cfg.nbins,
             rank=0 if svd is None else svd[0].shape[1])
         self._svd = svd if self._fused else None
+        self._pinned = _PinnedBlocks()
         self.step = make_fx_step(
             mode=cfg.mode, nbins=cfg.nbins, window2d=self.window2d,
             pairs=self.pairs, bandwidth=cfg.bandwidth,
@@ -332,16 +341,14 @@ class FxEngine:
         call this engine takes (``fxtpu.fx.FxEngine.dispatch_batch_for``
         without a mesh), 1 for ``requested <= 1``: any K on the plain
         route; on the fused route at most what one kernel launch takes at
-        this shape (``ops.fx_fused.max_blocks``)."""
+        this shape (``ops.fx_fused.max_blocks_parts``)."""
         if requested <= 1:
             return 1
         if not self._fused:
             return requested
         cfg = self.cfg
-        most = max_blocks(
-            cfg.num_samp // cfg.nbins, cfg.nbins, cfg.ntaps, cfg.nchan,
-            0 if self._svd is None else self._svd[0].shape[1],
-            len(self.pairs))
+        most = max_blocks_parts(cfg.num_samp // cfg.nbins, cfg.nbins,
+                                cfg.nchan, len(self.pairs))
         return max(1, min(requested, most))
 
     @property
@@ -354,6 +361,19 @@ class FxEngine:
         """True when :attr:`step` launches a hand-written CUDA kernel: the
         fused route on a CUDA device."""
         return self._fused and self.device.type == "cuda"
+
+    def launch_counts(self) -> dict:
+        """The launch counters of the kernel wrappers this engine's fused
+        route calls, by wrapper name (process-wide counts since import or
+        the last reset; empty on the plain route): the single pass in this
+        engine's ingest and FIR mode (its ``svd_launches`` in the SVD-FIR
+        mode) and the epilogue."""
+        if not self._fused:
+            return {}
+        name = "fx_fused_parts_i8" if self._int8 else "fx_fused_parts"
+        attr = "launches" if self._svd is None else "svd_launches"
+        return {name: getattr(getattr(fx_fused, name), attr),
+                "fx_finish": fx_epilogue.fx_finish.launches}
 
     @property
     def fir_mode(self) -> str:
@@ -390,7 +410,11 @@ class FxEngine:
         device).  An int8 engine handed complex samples quantizes them
         here at ``quant_step`` first.  The fused route frames the block on
         the host (a free reshape) into ``[nch, S, nbins]`` rows (``[nch,
-        S, nbins, 2]`` for int8), dropping the tail samples."""
+        S, nbins, 2]`` for int8), dropping the tail samples.  On a CUDA
+        engine the block goes through a pooled pinned buffer and one
+        ``non_blocking`` copy on the current stream (raising if the
+        memory cannot be pinned), so the host does not wait for the card;
+        work queued on that stream afterwards sees the whole block."""
         if self._int8 and np.iscomplexobj(block):
             block = quantize_c64(np.ascontiguousarray(block, np.complex64),
                                  self.cfg.quant_step)
@@ -401,7 +425,9 @@ class FxEngine:
             s = block.shape[1] // nbins
             block = block[:, : s * nbins].reshape(nch, s, nbins,
                                                   *block.shape[2:])
-        return torch.from_numpy(block).to(self.device)
+        if self.device.type != "cuda":
+            return torch.from_numpy(block)
+        return self._pinned.stage(block, self.device)
 
     def batch_host_buffer(self, k: int) -> torch.Tensor:
         """An empty host tensor that holds a batch of ``k`` blocks in

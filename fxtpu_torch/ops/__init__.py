@@ -11,6 +11,12 @@ from fxtpu_torch.ops.xengine import (baseline_pairs, continuum_reduce,
                                      fstc_rotate, pack_delays, rf_freqs,
                                      xcorr_baselines)
 from fxtpu_torch.ops.delay import estimate_delay
+from fxtpu_torch.ops.dc_posthoc import (block_mu_prev, dc_constants,
+                                        dc_correct)
+from fxtpu_torch.ops.fx_fused import (fx_fused_parts, fx_fused_parts_i8,
+                                      fx_fused_parts_i8_reference,
+                                      fx_fused_parts_reference,
+                                      supported_parts)
 from fxtpu_torch.ops.fx_fused import (fx_fused_raw, fx_fused_raw_i8,
                                       fx_fused_raw_i8_multi,
                                       fx_fused_raw_i8_multi_reference,
@@ -19,6 +25,8 @@ from fxtpu_torch.ops.fx_fused import (fx_fused_raw, fx_fused_raw_i8,
                                       fx_fused_raw_multi_reference,
                                       fx_fused_raw_reference, pairs_tensor,
                                       supported, supported_i8, svd_tensors)
+from fxtpu_torch.ops.fx_epilogue import (finish, fx_finish,
+                                       fx_finish_reference, fx_fused_step)
 from fxtpu_torch.ops.spectrometer import (spectrometer_fused,
                                           spectrometer_fused_reference,
                                           supported_spectrometer)
@@ -35,7 +43,11 @@ __all__ = [
     "fx_fused_raw_i8_reference", "fx_fused_raw_multi",
     "fx_fused_raw_multi_reference", "fx_fused_raw_i8_multi",
     "fx_fused_raw_i8_multi_reference", "pairs_tensor", "supported",
-    "supported_i8",
+    "supported_i8", "supported_parts",
+    "block_mu_prev", "dc_constants", "dc_correct",
+    "fx_fused_parts", "fx_fused_parts_reference", "fx_fused_parts_i8",
+    "fx_fused_parts_i8_reference",
+    "finish", "fx_finish", "fx_finish_reference", "fx_fused_step",
     "svd_tensors", "spectrometer_fused", "spectrometer_fused_reference",
     "supported_spectrometer",
 ]

@@ -46,8 +46,22 @@ compute it.  The single-block wrappers launch the same entry points at
 K = 1.  Their launches count apart, on ``fx_fused_raw_multi`` and
 ``fx_fused_raw_i8_multi``.
 
+The single pass (``fx_pallas_parts``): :func:`fx_fused_parts` and
+:func:`fx_fused_parts_i8` run the FIR and the FFT over the samples as they
+arrived, with no mean pre-pass, and return the raw accumulators of
+``_fx_kernel`` for the K blocks of the merged layout: ``(xp_raw [K, nbl,
+nbins], T [K, nch, nbins], GJ [K, nch, nbins], mu [K, nch], tail)``, from
+which ``ops.dc_posthoc.dc_correct`` removes the means after the fact.  It
+is what the engine's fused step launches (``ops.fx_epilogue.fx_fused_step``:
+the parts, then one epilogue kernel).  Blocks k >= 1 of one call read
+block k-1's rows raw in both ingests, so ``dc_correct`` takes
+``mu_prev[k] = mu[k-1]`` for them (``dc_posthoc.block_mu_prev``); the
+result agrees with K chained one-block calls within rounding, no longer
+bit for bit.  The two-pass wrappers above keep their contract: one call
+that returns corrected cross power, its DC bin included, exactly.
+
 The rotation, ``1/n_frames``, fftshift and continuum stay with the caller
-(``fxtpu_torch.fx._finish``), as ``_finish_fused`` stays XLA in JAX.
+(``fxtpu_torch.ops.fx_epilogue``), as ``_finish_fused`` stays XLA in JAX.
 
 The stage ablation (``scripts/fused_ablate.py``'s ``STAGE`` and
 ``_fx_kernel``'s ``FXTPU_FUSED_ABLATE``): :func:`fx_fused_ablate` launches
@@ -66,6 +80,7 @@ import math
 import numpy as np
 import torch
 
+from fxtpu_torch.ops.dc_posthoc import dc_constants
 from fxtpu_torch.ops.pfb import (dequantize, pfb_fir, spectrometer_rows,
                                  svd_fir)
 from fxtpu_torch.ops.svd_fir import svd_fir_factors
@@ -74,7 +89,10 @@ __all__ = ["supported", "supported_i8", "fx_fused_raw",
            "fx_fused_raw_reference", "fx_fused_raw_i8",
            "fx_fused_raw_i8_reference", "fx_fused_raw_multi",
            "fx_fused_raw_multi_reference", "fx_fused_raw_i8_multi",
-           "fx_fused_raw_i8_multi_reference", "fx_fused_ablate",
+           "fx_fused_raw_i8_multi_reference", "fx_fused_parts",
+           "fx_fused_parts_reference", "fx_fused_parts_i8",
+           "fx_fused_parts_i8_reference", "supported_parts",
+           "max_blocks_parts", "fx_fused_ablate",
            "fx_fused_ablate_reference", "stockham_stages", "max_blocks",
            "pairs_tensor", "svd_tensors", "MAX_SHARED_BYTES",
            "MAX_SVD_RANK", "STAGES", "FFT_STAGE_BINS"]
@@ -89,6 +107,9 @@ MAX_GROUPS = 264
 MAX_PARTIAL_BYTES = 64 << 20
 #: Bound on a launch's partial cross power, all K blocks' together.
 MAX_LAUNCH_PARTIAL_BYTES = 1 << 30
+#: float2 slots per channel the single-pass frame kernel keeps in shared
+#: memory for its warps' sample sums (2 kWarps: a pair of doubles a warp).
+PARTS_CHAN_SLOTS = 16
 #: Largest SVD rank the kernel's FIR keeps in registers (kMaxRank).
 MAX_SVD_RANK = 16
 #: Most blocks one launch takes (the grid's second axis).
@@ -108,8 +129,10 @@ def shared_bytes(nbins: int, nch: int, ntaps: int = 0, rank: int = 0,
     """Dynamic shared memory of the frame kernel: every channel's
     spectrum, one FFT ping-pong buffer, the channel means of
     ``mean_blocks`` blocks (:func:`mean_blocks`; 1 for one block per
-    launch) and, in the SVD-FIR mode (``rank > 0``), the ``[ntaps,
-    rank]`` float32 table u."""
+    launch; :data:`PARTS_CHAN_SLOTS` for the single-pass kernel, which
+    keeps its sample sums there and stages no means and no dA table: it
+    reads dA from device memory) and, in the SVD-FIR mode (``rank > 0``),
+    the ``[ntaps, rank]`` float32 table u."""
     return (((nch + 1) * nbins + nch * mean_blocks) * 8
             + ntaps * rank * 4)
 
@@ -122,24 +145,39 @@ def mean_blocks(k: int, s_rows: int, ntaps: int) -> int:
 
 
 def supported(nbins: int, ntaps: int, nch: int, rank: int = 0) -> bool:
-    """True when the CUDA kernel takes this shape: nbins a power of two
+    """True when the CUDA kernels take this shape: nbins a power of two
     in [256, 8192], ntaps >= 2, an SVD rank in [0, MAX_SVD_RANK] (0: the
     direct tap loop), and the spectra of all channels (plus the FFT's
-    work buffer and the u table) fit in one block's shared memory."""
+    work buffer, the u table and the single pass's sample sums, the
+    larger of the two forms' needs per channel) fit in one block's shared
+    memory."""
     return (256 <= nbins <= 8192 and nbins & (nbins - 1) == 0
             and ntaps >= 2 and nch >= 1 and 0 <= rank <= MAX_SVD_RANK
-            and shared_bytes(nbins, nch, ntaps, rank) <= MAX_SHARED_BYTES)
+            and shared_bytes(nbins, nch, ntaps, rank, PARTS_CHAN_SLOTS)
+            <= MAX_SHARED_BYTES)
 
 
 def supported_i8(nbins: int, ntaps: int, nch: int, s_rows: int,
                  rank: int = 0) -> bool:
-    """True when the int8 kernel takes this shape: what :func:`supported`
+    """True when the int8 kernels take this shape: what :func:`supported`
     asks, and a block of at least ntaps-1 rows.  The new raw tail is the
     block's own last ntaps-1 rows; a shorter block would carry rows of two
     earlier blocks under one ``mu_prev`` (``fxtpu`` never takes its
     int8-native route there either: ``_pick_tile`` needs a tile >= the
-    halo)."""
+    halo).  The single pass asks the same in either ingest
+    (:func:`supported_parts`)."""
     return supported(nbins, ntaps, nch, rank) and s_rows >= ntaps - 1
+
+
+def supported_parts(nbins: int, ntaps: int, nch: int, s_rows: int,
+                    rank: int = 0) -> bool:
+    """True when the single-pass kernels take this shape, in either
+    ingest: what :func:`supported` asks, and a block of at least ntaps-1
+    rows: the post-hoc correction assumes that a block's first ntaps-1
+    frames reach into the previous block only (``fxtpu``'s ``_pick_tile``
+    asks the same): :func:`supported_i8`'s condition.  An engine's blocks
+    always hold ntaps rows (the config's bound)."""
+    return supported_i8(nbins, ntaps, nch, s_rows, rank)
 
 
 def svd_tensors(window2d, device):
@@ -226,7 +264,9 @@ def _twiddles(nbins: int, device: torch.device) -> torch.Tensor:
 
 
 def _groups(s_rows: int, nbl: int, nbins: int):
-    """(n_groups, frames_per_group) of one block: one frame per CTA until
+    """(n_groups, frames_per_group) of one block whose CTAs each write
+    ``nbl`` rows of partials (the single-pass kernel: its ``nbl + 2 nch``
+    rows): one frame per CTA until
     the block's CTAs reach MAX_GROUPS or its partials MAX_PARTIAL_BYTES.
     A launch of K blocks has K times the CTAs and the partials: the
     grouping of a block must not depend on K, or its frames would be
@@ -290,6 +330,15 @@ def max_blocks(s_rows: int, nbins: int, ntaps: int, nch: int, rank: int,
     return k
 
 
+def max_blocks_parts(s_rows: int, nbins: int, nch: int, nbl: int) -> int:
+    """:func:`max_blocks` for the single-pass kernels: their partials hold
+    ``nbl + 2 nch`` rows a CTA (the cross power, T and GJ), and their
+    shared memory does not grow with K."""
+    rows = nbl + 2 * nch
+    per_block = _groups(s_rows, rows, nbins)[0] * rows * nbins * 8
+    return min(MAX_BLOCKS, MAX_LAUNCH_PARTIAL_BYTES // per_block)
+
+
 def _check_blocks(k, s_rows, nbins, ntaps, nch, rank, nbl):
     """What a launch of k blocks adds to the per-frame checks: at least
     one block and at most :func:`max_blocks`."""
@@ -303,7 +352,7 @@ def _check_blocks(k, s_rows, nbins, ntaps, nch, rank, nbl):
             f"shared memory, {MAX_SHARED_BYTES} bytes)")
 
 
-def _check(x, history, window2d, pairs, svd, multi=False):
+def _check(x, history, window2d, pairs, svd, multi=False, blocks=True):
     if x.dtype != torch.complex64 or history.dtype != torch.complex64:
         raise TypeError("x and history must be complex64")
     if x.ndim != (4 if multi else 3):
@@ -321,7 +370,7 @@ def _check(x, history, window2d, pairs, svd, multi=False):
             f"the CUDA FX kernel does not take nbins={nbins}, "
             f"ntaps={ntaps}, nch={nch}, rank={rank} (see "
             "fx_fused.supported)")
-    if multi:
+    if multi and blocks:
         _check_blocks(x.shape[1], s_rows, nbins, ntaps, nch, rank,
                       pairs.shape[0])
     return rank
@@ -330,22 +379,30 @@ def _check(x, history, window2d, pairs, svd, multi=False):
 def _check_i8(x, history, window2d, pairs, quant_step, svd, multi=False):
     if not isinstance(history, dict) or set(history) != {"tail", "mu_prev"}:
         raise TypeError('history must be {"tail": ..., "mu_prev": ...}')
-    tail, mu_prev = history["tail"], history["mu_prev"]
+    return _check_i8_rows(x, history["tail"], window2d, pairs, quant_step,
+                          svd, multi, mu_prev=history["mu_prev"])
+
+
+def _check_i8_rows(x, tail, window2d, pairs, quant_step, svd, multi=False,
+                   blocks=True, mu_prev=None):
+    """The int8 kernels' checks over the samples and the raw tail, and
+    over ``mu_prev`` where the entry takes it (the two-pass ones)."""
     if x.dtype != torch.int8 or tail.dtype != torch.int8:
         raise TypeError("x and the tail must be int8")
-    if mu_prev.dtype != torch.complex64:
+    if mu_prev is not None and mu_prev.dtype != torch.complex64:
         raise TypeError("mu_prev must be complex64")
     if x.ndim != (5 if multi else 4) or x.shape[-1] != 2:
         form = "[nch, K, S, nbins, 2]" if multi else "[nch, S, nbins, 2]"
         raise ValueError(f"x must be framed int8 {form}, got {x.shape}")
     nch, s_rows, nbins = x.shape[0], x.shape[-3], x.shape[-2]
     ntaps = window2d.shape[0]
-    rank = _check_args(x, window2d, pairs, nbins,
-                       [("tail", tail), ("mu_prev", mu_prev)], svd)
+    carried = [] if mu_prev is None else [("mu_prev", mu_prev)]
+    rank = _check_args(x, window2d, pairs, nbins, [("tail", tail), *carried],
+                       svd)
     if tail.shape != (nch, ntaps - 1, nbins, 2):
         raise ValueError(f"tail {tuple(tail.shape)} must be "
                          f"{(nch, ntaps - 1, nbins, 2)}")
-    if mu_prev.shape != (nch,):
+    if mu_prev is not None and mu_prev.shape != (nch,):
         raise ValueError(f"mu_prev {tuple(mu_prev.shape)} must be {(nch,)}")
     if x.data_ptr() % 2 or tail.data_ptr() % 2:
         raise ValueError("x and the tail must start on an (I, Q) pair "
@@ -357,7 +414,7 @@ def _check_i8(x, history, window2d, pairs, quant_step, svd, multi=False):
             f"the CUDA int8 FX kernel does not take nbins={nbins}, "
             f"ntaps={ntaps}, nch={nch}, S={s_rows}, rank={rank} (see "
             "fx_fused.supported_i8)")
-    if multi:
+    if multi and blocks:
         _check_blocks(x.shape[1], s_rows, nbins, ntaps, nch, rank,
                       pairs.shape[0])
     return rank
@@ -603,6 +660,202 @@ def fx_fused_raw_i8_multi(x: torch.Tensor, history: dict,
 
 fx_fused_raw_i8_multi.launches = 0
 fx_fused_raw_i8_multi.svd_launches = 0
+
+
+def _parts_from_rows(rows, hist, x_shape, window2d, pairs, svd, consts):
+    """(xp_raw, T, GJ) of the merged raw rows ``[nch, K S, nbins]`` behind
+    the raw history ``hist``, by ``torch.fft``."""
+    nch, k, s_rows, nbins = x_shape
+    halo = window2d.shape[0] - 1
+    merged = torch.cat([hist, rows], dim=1)
+    fir = pfb_fir(merged, window2d) if svd is None else svd_fir(merged, *svd)
+    spec = torch.fft.fft(fir, dim=-1).reshape(nch, k, s_rows, nbins)
+    idx = pairs.to(device=spec.device, dtype=torch.long)
+    xp = (spec[idx[:, 0]] * spec[idx[:, 1]].conj()).sum(dim=-2)
+    gj = (spec[:, :, :halo] * consts[1].conj()).sum(dim=-2)
+    return (xp.permute(1, 0, 2).contiguous(),
+            spec.sum(dim=-2).permute(1, 0, 2).contiguous(),
+            gj.permute(1, 0, 2).contiguous())
+
+
+def _parts_consts(consts, window2d, nbins, s_rows, device):
+    """``consts``, or the window's constants formed now (a copy of the
+    window to the host: callers on the card pass them in)."""
+    if consts is not None:
+        return consts
+    return dc_constants(window2d.detach().cpu().numpy(), nbins, s_rows,
+                        device)
+
+
+def fx_fused_parts_reference(x: torch.Tensor, history: torch.Tensor,
+                             window2d: torch.Tensor, pairs: torch.Tensor,
+                             svd=None, consts=None):
+    """The single pass in plain torch, same contract as
+    :func:`fx_fused_parts`."""
+    nch, k, s_rows, nbins = x.shape
+    halo = window2d.shape[0] - 1
+    consts = _parts_consts(consts, window2d, nbins, s_rows, x.device)
+    xp, t, gj = _parts_from_rows(x.reshape(nch, k * s_rows, nbins), history,
+                                 x.shape, window2d, pairs, svd, consts)
+    mu = x.mean(dim=(-2, -1)).T.contiguous()                  # [K, nch]
+    tail = x[:, -1, s_rows - halo:] - mu[-1][:, None, None]
+    return xp, t, gj, mu, tail
+
+
+def fx_fused_parts_i8_reference(x: torch.Tensor, tail: torch.Tensor,
+                                window2d: torch.Tensor, pairs: torch.Tensor,
+                                quant_step: float, svd=None, consts=None):
+    """The single pass over 8-bit samples in plain torch, same contract
+    as :func:`fx_fused_parts_i8`."""
+    nch, k, s_rows, nbins = x.shape[:4]
+    consts = _parts_consts(consts, window2d, nbins, s_rows, x.device)
+    rows = dequantize(x, quant_step).reshape(nch, k * s_rows, nbins)
+    xp, t, gj = _parts_from_rows(rows, dequantize(tail, quant_step),
+                                 x.shape[:4], window2d, pairs, svd, consts)
+    mu = torch.stack([block_mean_i8(x[:, j], quant_step) for j in range(k)])
+    return xp, t, gj, mu, _i8_history(x[:, -1], window2d.shape[0],
+                                      mu[-1])["tail"]
+
+
+def _check_parts(x, history, window2d, pairs, svd, consts, quant_step=None):
+    """What the single-pass wrappers check beyond the two-pass ones'
+    checks: the constants' table dA, S >= ntaps-1 and the K-block bound
+    of their own partials.  Returns the FIR mode's rank."""
+    if quant_step is not None:
+        rank = _check_i8_rows(x, history, window2d, pairs, quant_step, svd,
+                              multi=True, blocks=False)
+        nch, k, s_rows, nbins = x.shape[:4]
+    else:
+        rank = _check(x, history, window2d, pairs, svd, multi=True,
+                      blocks=False)
+        nch, k, s_rows, nbins = x.shape
+    ntaps = window2d.shape[0]
+    if not supported_parts(nbins, ntaps, nch, s_rows, rank):
+        raise ValueError(
+            f"the single-pass FX kernel does not take nbins={nbins}, "
+            f"ntaps={ntaps}, nch={nch}, S={s_rows}, rank={rank} (see "
+            "fx_fused.supported_parts)")
+    most = max_blocks_parts(s_rows, nbins, nch, pairs.shape[0])
+    if not 1 <= k <= most:
+        raise ValueError(
+            f"{k} blocks of S={s_rows} per launch: the single-pass kernel "
+            f"takes 1 to {most} at this shape (fx_fused.max_blocks_parts)")
+    da = consts[1]
+    if (da.dtype != torch.complex64 or da.device != x.device
+            or da.shape != (ntaps - 1, nbins) or not da.is_contiguous()):
+        raise ValueError(
+            f"consts must be dc_posthoc.dc_constants on {x.device}: dA "
+            f"{tuple(da.shape)} {da.dtype} on {da.device}, expected "
+            f"{(ntaps - 1, nbins)} complex64")
+    return rank
+
+
+def _launch_parts(x, history, window2d, pairs, svd, consts, rank, step,
+                  what):
+    """Either single-pass entry over the merged x (checked) -> (xp_raw,
+    T, GJ, mu, new history): complex64 the corrected tail, int8 (``step``
+    not None) the raw tail.  Two kernels: frames and reduce."""
+    from fxtpu_torch.cuda_build import check, load_kernels
+    lib = load_kernels()
+    int8 = step is not None
+    nch, k, s_rows, nbins = x.shape[:4]
+    ntaps, nbl, dev = window2d.shape[0], pairs.shape[0], x.device
+    rows = nbl + 2 * nch
+    n_groups, per = _groups(s_rows, rows, nbins)
+    parts = torch.empty((k, rows, nbins), dtype=torch.complex64, device=dev)
+    partial = torch.empty((k, n_groups, rows, nbins), dtype=torch.complex64,
+                          device=dev)
+    sums = torch.empty((k, n_groups, nch, 2),
+                       dtype=torch.int64 if int8 else torch.float64,
+                       device=dev)
+    mu = torch.empty((k, nch), dtype=torch.complex64, device=dev)
+    new_hist = torch.empty_like(history)
+    tw = _twiddles(nbins, dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        entry, extra = ((lib.fxt_fx_parts_i8, (step,)) if int8
+                        else (lib.fxt_fx_parts, ()))
+        rc = entry(
+            x.data_ptr(), history.data_ptr(), window2d.data_ptr(),
+            *_svd_ptrs(svd), tw.data_ptr(), pairs.data_ptr(),
+            consts[1].data_ptr(), sums.data_ptr(), partial.data_ptr(),
+            parts.data_ptr(), mu.data_ptr(), new_hist.data_ptr(), nch, k,
+            s_rows, nbins, ntaps, rank, nbl, n_groups, per, *extra, stream)
+    check(lib, rc, what)
+    return (parts[:, :nbl], parts[:, nbl:nbl + nch], parts[:, nbl + nch:],
+            mu, new_hist)
+
+
+def fx_fused_parts(x: torch.Tensor, history: torch.Tensor,
+                   window2d: torch.Tensor, pairs: torch.Tensor, svd=None,
+                   consts=None):
+    """The single-pass fused step over the K blocks of the merged ``x
+    [nch, K, S, nbins]`` complex64 (one block: ``x[:, None]``) ->
+    ``(xp_raw [K, nbl, nbins], T [K, nch, nbins], GJ [K, nch, nbins], mu
+    [K, nch], tail [nch, ntaps-1, nbins])`` (``fxtpu``'s
+    ``fx_pallas_parts``): the spectra are those of the FIR over ``[history;
+    x]`` as they are, ``history`` being the DC-corrected tail the stream
+    carries; ``xp_raw`` is their frame-summed cross power per block, ``T``
+    their sum over the block's frames, ``GJ`` the block's first ntaps-1
+    frames contracted with ``conj(dA)``, ``mu`` the block's sample mean
+    and ``tail`` the last block's last rows minus its mean, the next
+    call's history.  ``consts`` are ``dc_posthoc.dc_constants`` of the
+    window for ``S`` on ``x``'s device (formed here when None, through
+    the host); ``dc_posthoc.dc_correct(xp_raw, T, GJ, mu, pairs, consts,
+    block_mu_prev(mu))`` is the corrected cross power.  S >= ntaps-1.
+
+    CPU tensors run :func:`fx_fused_parts_reference`; CUDA tensors launch
+    the kernels (frames and reduce, no mean pre-pass) or raise.  Each call
+    adds one to ``fx_fused_parts.launches`` (direct) or
+    ``fx_fused_parts.svd_launches``."""
+    if not _on_card(x, "fx_fused_parts"):
+        return fx_fused_parts_reference(x, history, window2d, pairs, svd,
+                                        consts)
+    consts = _parts_consts(consts, window2d, x.shape[-1], x.shape[-2],
+                           x.device)
+    rank = _check_parts(x, history, window2d, pairs, svd, consts)
+    out = _launch_parts(x, history, window2d, pairs, svd, consts, rank, None,
+                        "fx_parts kernel launch")
+    _count(fx_fused_parts, rank)
+    return out
+
+
+fx_fused_parts.launches = 0
+fx_fused_parts.svd_launches = 0
+
+
+def fx_fused_parts_i8(x: torch.Tensor, tail: torch.Tensor,
+                      window2d: torch.Tensor, pairs: torch.Tensor,
+                      quant_step: float, svd=None, consts=None):
+    """The single-pass fused step over the K blocks of the merged 8-bit
+    ``x [nch, K, S, nbins, 2]`` -> ``(xp_raw, T, GJ, mu, new_tail)`` as
+    :func:`fx_fused_parts` returns them, in real units (each sample times
+    ``quant_step``), over ``[tail; x]`` with ``tail`` the stream's raw
+    tail int8 ``[nch, ntaps-1, nbins, 2]``; ``mu`` is exact (an integer
+    sum).  ``new_tail`` is a copy of the last block's last rows as they
+    arrived, the next call's ``tail`` (``fx_pallas_parts`` leaves that
+    slice to its caller; here the reduce kernel writes it, so a step
+    needs no launch of its own for it).  Correct with ``dc_correct(...,
+    mu_prev=block_mu_prev(mu, carried mu_prev))``.
+
+    CPU tensors run :func:`fx_fused_parts_i8_reference`; CUDA tensors
+    launch the kernels or raise.  Each call adds one to
+    ``fx_fused_parts_i8.launches`` (direct) or ``.svd_launches``."""
+    if not _on_card(x, "fx_fused_parts_i8"):
+        return fx_fused_parts_i8_reference(x, tail, window2d, pairs,
+                                           quant_step, svd, consts)
+    quant_step = float(quant_step)
+    consts = _parts_consts(consts, window2d, x.shape[-2], x.shape[-3],
+                           x.device)
+    rank = _check_parts(x, tail, window2d, pairs, svd, consts, quant_step)
+    out = _launch_parts(x, tail, window2d, pairs, svd, consts, rank,
+                        quant_step, "fx_parts_i8 kernel launch")
+    _count(fx_fused_parts_i8, rank)
+    return out
+
+
+fx_fused_parts_i8.launches = 0
+fx_fused_parts_i8.svd_launches = 0
 
 
 def stockham_stages(x: torch.Tensor, nstages: int) -> torch.Tensor:

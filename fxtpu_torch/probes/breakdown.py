@@ -4,9 +4,10 @@ Counterpart of ``scripts/tpu_breakdown.py``: both routes of ``FxEngine``
 (the plain torch route and the fused route, which on the card launches the
 CUDA kernel) against a float64 numpy oracle at 2 channels x 2^21 samples
 x 4096 bins x 4 taps, under a delay of ~600 carrier cycles so that the
-packed-phase path is exercised, with the bins around DC reported apart (a
-DC correction cancels there; the port subtracts the mean before the FIR,
-so its DC bins should be no worse than the rest), then ``multi_step`` over
+packed-phase path is exercised, with the bins around DC reported apart
+(the fused route removes the means after the fact, a correction that
+cancels at the DC bin, so that bin loses precision as the mean grows; the
+plain route subtracts the mean before the FIR), then ``multi_step`` over
 K blocks: ms per block and GS/s.  The oracle is this module's own.
 
     python -m fxtpu_torch.probes breakdown [--num_samp 2097152 --k 8]

@@ -56,7 +56,8 @@ def production_kernels(log: str) -> dict:
         if stage and stage.group(1) != "0":
             continue
         policy = "_".join(re.findall(
-            r"(F32Rows|I8Rows|DirectFir|SvdFir|CrossOut|SpecOut)", m.group(1)))
+            r"(F32Rows|I8Rows|F32Raw|I8Raw|DirectFir|SvdFir|CrossOut|SpecOut|"
+            r"PartsOut)", m.group(1)))
         info = " ".join(s.strip() for s in lines[i + 1:i + 4]
                         if "registers" in s or "spill" in s)
         out[policy] = re.sub(r"ptxas info\s*:\s*", "", info)
@@ -113,8 +114,11 @@ def main(argv=None) -> list:
     libs = {"parent": parent, "change": change}
     regs = {"parent": production_kernels(parent_log),
             "change": production_kernels(change_log)}
-    emit(records, probe="ab_trees", ptxas=regs,
-         same=regs["parent"] == regs["change"] and bool(regs["parent"]),
+    # the kernels both trees have (a newer tree has more instantiations)
+    both = sorted(set(regs["parent"]) & set(regs["change"]))
+    emit(records, probe="ab_trees", ptxas=regs, compared=both,
+         same=bool(both) and all(regs["parent"][k] == regs["change"][k]
+                                 for k in both),
          card=card)
     for ingest in ("complex64", "int8"):
         for k in (1, 8):

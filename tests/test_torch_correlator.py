@@ -71,8 +71,8 @@ def _replay_pair(tmp_path, **kw):
     by calibrate-on-start, 5 correlated."""
     src = NoiseSource(nchan=2, delays=[0.0, 2e-6], seed=32)
     rec = save_recording(src, str(tmp_path / "rec.npy"), SMALL["num_samp"], 6)
-    common = dict(SMALL, mode="SPECTRUM", source="replay", replay_file=rec,
-                  **kw)
+    common = dict(SMALL, source="replay", replay_file=rec,
+                  **{"mode": "SPECTRUM", **kw})
     jcor = JCorrelator(config=JConfig(
         **common, output_file=str(tmp_path / "jax.csv")))
     jcor.run_state_machine()
@@ -97,6 +97,22 @@ def test_fused_route_correlator_matches_fxtpu_on_cpu(tmp_path):
     assert jcor.engine.fused_active and tcor.engine.fused_active
     assert not tcor.engine.kernel_active
     np.testing.assert_allclose(got, want, atol=2e-5 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("mode", ["CONTINUUM", "TEST"])
+@pytest.mark.parametrize("ingest,tol", [("complex64", 2e-5), ("int8", 3e-5)])
+def test_single_pass_correlator_matches_fxtpu_on_cpu(tmp_path, ingest, tol,
+                                                     mode):
+    """The Correlator's fused route is the single pass (the parts, the
+    post-hoc DC correction and the epilogue, here in their plain
+    versions), as fxtpu's fused route is: the scalar products of a replay
+    run agree in CONTINUUM and in TEST (its per-block delay sweep)."""
+    jcor, tcor, got, want = _replay_pair(tmp_path, fused=True, mode=mode,
+                                         ingest_dtype=ingest)
+    assert tcor.engine.fused_active and not tcor.engine.kernel_active
+    assert list(tcor.engine.launch_counts())[-1] == "fx_finish"
+    assert got.ndim == 1 and got.shape == want.shape
+    np.testing.assert_allclose(got, want, atol=tol * np.abs(want).max())
 
 
 @pytest.mark.parametrize("fused", [False, True])

@@ -337,6 +337,107 @@ def test_fir_mode_resolution():
     assert not _resolve_fused("auto", cuda, 8192, 32, 3, rank=6)
 
 
+def _two_pass_step(eng):
+    """The fused step's two-pass form for ``eng``'s configuration, as a
+    caller composes it: fx_fused_raw / fx_fused_raw_i8 (the mean
+    subtracted before the FIR), then the plain finish."""
+    from fxtpu_torch.ops import fx_fused as ff
+    from fxtpu_torch.ops.fx_epilogue import FinishTables, finish
+    cfg = eng.cfg
+    w = torch.as_tensor(eng.window2d.astype(np.float32))
+    pairs = ff.pairs_tensor(eng.pairs, cfg.nchan, "cpu")
+    tables = FinishTables(eng.pairs, cfg.nbins, cfg.bandwidth, cfg.frequency,
+                          "cpu")
+
+    def step(iq, delays, history):
+        if isinstance(history, dict):
+            xp, history = ff.fx_fused_raw_i8(iq, history, w, pairs,
+                                             cfg.quant_step)
+        else:
+            xp, history = ff.fx_fused_raw(iq, history, w, pairs)
+        return finish(xp, delays, tables, iq.shape[1], cfg.bandwidth,
+                      cfg.mode in ("CONTINUUM", "TEST")), history
+
+    return step
+
+
+@pytest.mark.parametrize("mode", ["SPECTRUM", "CONTINUUM"])
+@pytest.mark.parametrize("ingest", ["complex64", "int8"])
+def test_single_pass_step_matches_the_two_pass_form(ingest, mode):
+    """The engine's fused step (the single pass) against the two-pass
+    wrappers with the plain finish, over 3 chained blocks with plain
+    (unpacked) sub-cycle delays: within 2e-5 of max|vis|, history 1e-6."""
+    kw = dict(SMALL, mode=mode, ingest_dtype=ingest, quant_step=STEP,
+              device="cpu", nchan=3, include_autos=True)
+    eng = FxEngine(CorrelatorConfig(**kw), fused=True)
+    two = _two_pass_step(eng)
+    blocks = (_int8_blocks(nch=3, seed=33) if ingest == "int8"
+              else _blocks(3, seed=32))
+    d = torch.tensor([0.0, 1.1e-10, -2.3e-10])
+    h1 = h2 = eng.fresh_history()
+    for k, x in enumerate(blocks):
+        iq = eng.prepare_block(x)
+        v1, h1 = eng.step(iq, d, h1)
+        v2, h2 = two(iq, d, h2)
+        assert v1.shape == v2.shape == ((6,) if mode == "CONTINUUM"
+                                        else (6, 256))
+        assert (v1 - v2).abs().max() <= 2e-5 * v2.abs().max(), f"block {k}"
+        if ingest == "int8":
+            assert torch.equal(h1["tail"], h2["tail"])
+            assert (h1["mu_prev"] - h2["mu_prev"]).abs().max() <= 1e-7
+        else:
+            assert (h1 - h2).abs().max() <= 1e-6
+
+
+def test_fused_route_is_the_single_pass():
+    """The fused route's wrappers are the single pass's and the epilogue,
+    by ingest; the plain route has none.  Its K cap counts the single
+    pass's partials (5 rows a CTA for 2 channels and one baseline)."""
+    from fxtpu_torch.ops import fx_fused as ff
+    cfg = CorrelatorConfig(**SMALL, device="cpu")
+    assert list(FxEngine(cfg, fused=True).launch_counts()) == [
+        "fx_fused_parts", "fx_finish"]
+    i8 = CorrelatorConfig(**SMALL, device="cpu", ingest_dtype="int8")
+    assert list(FxEngine(i8, fused=True).launch_counts()) == [
+        "fx_fused_parts_i8", "fx_finish"]
+    assert FxEngine(cfg, fused=False).launch_counts() == {}
+    big = CorrelatorConfig(num_samp=2**21, nbins=4096, clamp_num_samp=False,
+                           device="cpu")
+    assert FxEngine(big, fused=True).dispatch_batch_for(64) == (
+        ff.max_blocks_parts(512, 4096, 2, 1)) == 25
+    assert FxEngine(big, fused=False).dispatch_batch_for(64) == 64
+
+
+@pytest.mark.parametrize("ingest,tol", [("complex64", 2e-5), ("int8", 3e-5)])
+def test_import_fxtpu_state_round_trip_on_the_single_pass(ingest, tol):
+    """The history contracts did not change with the single pass: the
+    state fxtpu's fused engine leaves after one block is imported as it
+    is, and both packages go on for two blocks, each from its own
+    carried history."""
+    kw = dict(SMALL, mode="SPECTRUM", ingest_dtype=ingest, quant_step=STEP)
+    jeng = JEngine(JConfig(**kw), fused=True)
+    teng = FxEngine(CorrelatorConfig(**kw, device="cpu"), fused=True)
+    blocks = (_int8_blocks(k=3, seed=35) if ingest == "int8"
+              else _blocks(2, k=3, seed=34))
+    d = pack_delays(np.array([0.0, 3e-7]), jeng.cfg.frequency)
+    _, jh = jeng.step(jeng.prepare_block(blocks[0]), jnp.asarray(d),
+                      jeng.fresh_history())
+    th, td = teng.import_fxtpu_state(jeng.window2d, jeng.pairs, jh, d)
+    for k, x in enumerate(blocks[1:]):
+        jv, jh = jeng.step(jeng.prepare_block(x), jnp.asarray(d), jh)
+        tv, th = teng.step(teng.prepare_block(x), td, th)
+        want = to_complex(jv)
+        np.testing.assert_allclose(tv.numpy(), want,
+                                   atol=tol * np.abs(want).max(),
+                                   err_msg=f"block {k + 1}")
+    if ingest == "int8":
+        np.testing.assert_array_equal(th["tail"].numpy(), _i8_tail(jh))
+        np.testing.assert_allclose(th["mu_prev"].numpy(),
+                                   to_complex(jh["mu_prev"]), atol=1e-7)
+    else:
+        np.testing.assert_allclose(th.numpy(), to_complex(jh), atol=1e-6)
+
+
 def test_cuda_engine_without_card_raises():
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present")

@@ -498,3 +498,269 @@ def test_cuda_ablate_full_is_the_one_block_launch(nbins, s, ntaps,
     want, _ = fx_fused_raw(x, h, wt, pt)
     got = fx_fused.fx_fused_ablate(x[:, None].contiguous(), h, wt, pt, "full")
     assert torch.equal(got[0], want)
+
+
+# --- the single pass: parts, epilogue, step (parity with fxtpu's
+# fx_pallas_parts: tests/test_torch_dc_posthoc.py) --------------------------
+
+def _parts_inputs(nch, autos, k, s, nbins, ntaps, int8, fir, device, seed):
+    """The merged blocks (a DC offset that differs per channel and block),
+    a random history, window, pairs, FIR factors and DC constants."""
+    from fxtpu_torch.ops.dc_posthoc import dc_constants
+    w2d = pfb_window(ntaps, nbins).reshape(ntaps, nbins).astype(np.float32)
+    rng = np.random.default_rng(seed)
+    grade = np.arange(1, nch + 1)[:, None] + 0.5 * np.arange(k)[None, :]
+    if int8:
+        dc = np.array([3.0, -2.0]) * grade[..., None, None, None]
+        x = np.clip(np.rint(30 * rng.normal(size=(nch, k, s, nbins, 2)) + dc),
+                    -127, 127).astype(np.int8)
+        hist = np.clip(np.rint(30 * rng.normal(
+            size=(nch, ntaps - 1, nbins, 2))), -127, 127).astype(np.int8)
+    else:
+        x = (rng.normal(size=(nch, k, s, nbins))
+             + 1j * rng.normal(size=(nch, k, s, nbins))
+             + (0.04 - 0.03j) * grade[..., None, None]).astype(np.complex64)
+        hist = (rng.normal(size=(nch, ntaps - 1, nbins)) + 1j * rng.normal(
+            size=(nch, ntaps - 1, nbins))).astype(np.complex64)
+    svd = svd_tensors(w2d, device) if fir == "svd" else None
+    assert (svd is not None) == (fir == "svd")
+    return (torch.as_tensor(x, device=device),
+            torch.as_tensor(hist, device=device),
+            torch.as_tensor(w2d, device=device),
+            pairs_tensor(baseline_pairs(nch, autos), nch, device), svd,
+            dc_constants(w2d, nbins, s, device))
+
+
+def _assert_parts_close(got, want, tol):
+    """xp and T off the DC bin and at it, each on its own scale (the raw DC
+    bin towers above the rest); GJ on one scale; mu and the tail 1e-6
+    (8-bit: mu 1e-6 of max|mu|, the raw tail exact)."""
+    for name, g, r in zip(("xp", "T"), got, want):
+        assert g.shape == r.shape
+        for sl in (slice(1, None), slice(0, 1)):
+            err = (g[..., sl] - r[..., sl]).abs().max().item()
+            assert err <= tol * r[..., sl].abs().max().item(), (name, sl)
+    assert (got[2] - want[2]).abs().max() <= tol * want[2].abs().max()
+    assert (got[3] - want[3]).abs().max() <= 1e-6 * max(
+        1.0, want[3].abs().max().item())
+    if got[4].dtype == torch.int8:
+        assert torch.equal(got[4], want[4])
+    else:
+        assert (got[4] - want[4]).abs().max() <= 1e-6
+
+
+PARTS_SHAPES = [
+    # nbins, s, ntaps, nch, autos, k, fir
+    (256, 32, 4, 2, False, 1, "direct"),    # the CPU tests' shape
+    (256, 32, 4, 3, True, 3, "direct"),     # autos, three blocks
+    (512, 64, 2, 2, False, 2, "direct"),    # odd stage count, one halo frame
+    (256, 1024, 4, 2, False, 2, "direct"),  # 4 frames per CTA: halo frames
+                                            # share a CTA with a later one
+    (256, 529, 4, 2, False, 1, "direct"),   # ragged last frame group
+    (256, 3, 4, 2, False, 3, "direct"),     # S == ntaps-1: every frame halo
+    (1024, 16, 4, 6, True, 2, "direct"),    # six channels, 21 baselines
+    (256, 64, 32, 3, True, 3, "svd"),       # deep taps, the SVD-FIR mode
+    (256, 31, 32, 2, False, 2, "direct"),   # S == ntaps-1 at deep taps
+    (8192, 32, 32, 2, False, 2, "svd"),     # the CLI's deep-tap block
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("nbins,s,ntaps,nch,autos,k,fir", PARTS_SHAPES)
+def test_cuda_parts_kernel_matches_plain_version(cuda_device, nbins, s, ntaps,
+                                                 nch, autos, k, fir, int8):
+    from fxtpu_torch.ops.fx_fused import (fx_fused_parts, fx_fused_parts_i8,
+                                          fx_fused_parts_i8_reference,
+                                          fx_fused_parts_reference)
+    x, hist, wt, pt, svd, consts = _parts_inputs(
+        nch, autos, k, s, nbins, ntaps, int8, fir, cuda_device, seed=60)
+    fn, ref, arg = ((fx_fused_parts_i8, fx_fused_parts_i8_reference, (STEP,))
+                    if int8 else
+                    (fx_fused_parts, fx_fused_parts_reference, ()))
+    before = (fn.launches, fn.svd_launches)
+    got = fn(x, hist, wt, pt, *arg, svd, consts)
+    want = ref(x, hist, wt, pt, *arg, svd, consts)
+    torch.cuda.synchronize()
+    assert (fn.launches, fn.svd_launches) == (
+        before[0] + (fir == "direct"), before[1] + (fir == "svd"))
+    _assert_parts_close(got, want, 3e-5 if (int8 or ntaps >= 16) else 2e-5)
+    again = fn(x, hist, wt, pt, *arg, svd, consts)   # no atomics
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("continuum", [False, True])
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("int8,k,nbins", [(False, 1, 256), (False, 3, 256),
+                                          (True, 3, 256), (True, 8, 4096)])
+def test_cuda_fx_finish_matches_plain_version(cuda_device, int8, k, nbins,
+                                              packed, continuum):
+    """The epilogue kernel against dc_correct + finish on the same parts:
+    every bin within 1e-6 of max|vis| plus 2e-6 of the raw cross power per
+    frame that the correction cancels at that bin (at the DC bin |mu|^2
+    |Abar(0)|^2; the continuum value takes the bins' mean of it)."""
+    from fxtpu_torch.ops import fx_epilogue as fe
+    from fxtpu_torch.ops.fx_fused import fx_fused_parts, fx_fused_parts_i8
+    from fxtpu_torch.ops.xengine import pack_delays
+    nch, s, bw, freq = 3, 32, 2.4e6, 1.4204e9
+    x, hist, wt, pt, _, consts = _parts_inputs(
+        nch, True, k, s, nbins, 4, int8, "direct", cuda_device, seed=61)
+    if int8:
+        parts = fx_fused_parts_i8(x, hist, wt, pt, STEP, None, consts)
+        mu_prev = torch.tensor([0.05 - 0.02j, -0.03j, 0.01 + 0j],
+                               dtype=torch.complex64, device=cuda_device)
+    else:
+        parts, mu_prev = fx_fused_parts(x, hist, wt, pt, None, consts), None
+    tables = fe.FinishTables(baseline_pairs(nch, True), nbins, bw, freq,
+                             cuda_device)
+    d = np.tile([0.0, 2e-6, -1.3e-6], (k, 1)) + 1e-7 * np.arange(k)[:, None]
+    delays = torch.as_tensor(
+        pack_delays(d, freq) if packed else d.astype(np.float32),
+        device=cuda_device)
+    before = fe.fx_finish.launches
+    got = fe.fx_finish(*parts[:4], pt, consts, delays, tables, s, bw,
+                       continuum, mu_prev)
+    want = fe.fx_finish_reference(*parts[:4], pt, consts, delays, tables, s,
+                                  bw, continuum, mu_prev)
+    torch.cuda.synchronize()
+    assert fe.fx_finish.launches == before + 1
+    assert got.shape == want.shape == ((k, 6) if continuum
+                                       else (k, 6, nbins))
+    scale = want.abs().max().item()
+    raw = parts[0].abs() / s
+    err = (got - want).abs()
+    if continuum:
+        assert bool((err <= 1e-6 * scale + 2e-6 * raw.mean(dim=-1) / bw
+                     ).all())
+    else:
+        assert bool((err <= 1e-6 * scale + 2e-6 * torch.fft.fftshift(
+            raw, dim=-1)).all())
+
+
+@pytest.mark.cuda
+def test_cuda_parts_wrappers_reject_bad_input(cuda_device):
+    from fxtpu_torch.ops import fx_epilogue as fe
+    from fxtpu_torch.ops.fx_fused import fx_fused_parts, fx_fused_parts_i8
+    x, hist, wt, pt, _, consts = _parts_inputs(
+        2, False, 2, 32, NBINS, NTAPS, False, "direct", cuda_device, seed=62)
+    with pytest.raises(ValueError, match="history"):
+        fx_fused_parts(x, hist[:, :1], wt, pt, None, consts)
+    with pytest.raises(ValueError, match="supported_parts"):
+        fx_fused_parts(x[:, :, :2].contiguous(), hist, wt, pt, None, consts)
+    with pytest.raises(ValueError, match="dc_constants"):
+        fx_fused_parts(x, hist, wt, pt, None,
+                       tuple(c.cpu() for c in consts))
+    with pytest.raises(ValueError, match="framed"):
+        fx_fused_parts(x[:, 0], hist, wt, pt, None, consts)
+    x8, h8, _, _, _, _ = _parts_inputs(
+        2, False, 2, 32, NBINS, NTAPS, True, "direct", cuda_device, seed=63)
+    with pytest.raises(ValueError, match="quant_step"):
+        fx_fused_parts_i8(x8, h8, wt, pt, 0.0, None, consts)
+    with pytest.raises(TypeError):
+        fx_fused_parts_i8(x8, hist, wt, pt, STEP, None, consts)
+    parts = fx_fused_parts(x, hist, wt, pt, None, consts)
+    tables = fe.FinishTables(baseline_pairs(2), NBINS, 2.4e6, 1.4e9,
+                             cuda_device)
+    d = torch.zeros((2, 2), device=cuda_device)
+    with pytest.raises(ValueError, match="delays"):
+        fe.fx_finish(*parts[:4], pt, consts, d[:1], tables, 32, 2.4e6, False)
+    with pytest.raises(ValueError, match="contiguous rows"):
+        fe.fx_finish(parts[0][..., ::2], *parts[1:4], pt, consts, d, tables,
+                     32, 2.4e6, False)
+    with pytest.raises(ValueError, match="is on"):
+        fe.fx_finish(*parts[:3], parts[3].cpu(), pt, consts, d, tables, 32,
+                     2.4e6, False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["SPECTRUM", "CONTINUUM"])
+@pytest.mark.parametrize("ingest,ntaps", [("complex64", 4), ("int8", 4),
+                                          ("complex64", 32), ("int8", 32)])
+def test_cuda_engine_step_is_the_single_pass(cuda_device, ingest, ntaps,
+                                             mode):
+    """FxEngine.step on the card: the single-pass wrapper and the epilogue
+    launch once a block each, the two-pass wrappers not at all, and three
+    chained steps agree with the plain route within 2e-5 of max|vis| (3e-5
+    for 8-bit samples and at deep taps)."""
+    from fxtpu_torch.config import CorrelatorConfig
+    from fxtpu_torch.fx import FxEngine
+    from fxtpu_torch.ops.xengine import pack_delays
+    cfg = CorrelatorConfig(num_samp=2**14, nbins=NBINS, ntaps=ntaps,
+                           clamp_num_samp=False, mode=mode,
+                           ingest_dtype=ingest, quant_step=STEP,
+                           device="cuda")
+    one, plain = FxEngine(cfg), FxEngine(cfg, fused=False)
+    assert one.kernel_active and not plain.fused_active
+    rng = np.random.default_rng(64)
+    d = torch.as_tensor(pack_delays([0.0, 2e-6], cfg.frequency),
+                        device=cuda_device)
+    h1, h2 = one.fresh_history(), plain.fresh_history()
+    before = one.launch_counts()
+
+    def two_pass_counts():
+        return [fn.launches + fn.svd_launches for fn in (
+            fx_fused_raw, fx_fused_raw_i8, fx_fused.fx_fused_raw_multi,
+            fx_fused.fx_fused_raw_i8_multi)]
+
+    old = two_pass_counts()
+    tol = 3e-5 if (ingest == "int8" or ntaps >= 16) else 2e-5
+    for k in range(3):
+        blk = (rng.normal(size=(2, 2**14, 2)) @ np.array([1.0, 1j])
+               + (0.03 - 0.02j)).astype(np.complex64)
+        v1, h1 = one.step(one.prepare_block(blk), d, h1)
+        v2, h2 = plain.step(plain.prepare_block(blk), d, h2)
+        assert v1.shape == v2.shape
+        assert (v1 - v2).abs().max() <= tol * v2.abs().max(), f"block {k}"
+    after = one.launch_counts()
+    assert [after[n] - before[n] for n in after] == [3, 3]
+    assert two_pass_counts() == old
+
+
+def test_fx_finish_takes_plain_version_on_cpu():
+    from fxtpu_torch.ops import fx_epilogue as fe
+    from fxtpu_torch.ops.dc_posthoc import block_mu_prev, dc_correct
+    from fxtpu_torch.ops.fx_fused import fx_fused_parts_reference
+    x, hist, wt, pt, _, consts = _parts_inputs(
+        2, True, 3, 32, NBINS, NTAPS, False, "direct", "cpu", seed=65)
+    parts = fx_fused_parts_reference(x, hist, wt, pt, None, consts)
+    tables = fe.FinishTables(baseline_pairs(2, True), NBINS, 2.4e6, 1.4e9,
+                             "cpu")
+    d = torch.tensor([[0.0, 1e-10]] * 3)
+    before = fe.fx_finish.launches
+    got = fe.fx_finish(*parts[:4], pt, consts, d, tables, 32, 2.4e6, False)
+    assert fe.fx_finish.launches == before    # no kernel launched
+    want = fe.finish(dc_correct(*parts[:4], pt, consts,
+                                mu_prev=block_mu_prev(parts[3])),
+                     d, tables, 32, 2.4e6, False)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_fx_fused_step_on_cpu_agrees_with_the_two_pass_wrappers(int8):
+    """fx_fused_step (plain versions on the CPU) over K = 3 merged blocks
+    against fx_fused_raw*_multi_reference + finish, within 2e-5 of
+    max|vis| (3e-5 for 8-bit samples); the history in the same contract."""
+    from fxtpu_torch.ops import fx_epilogue as fe
+    x, hist, wt, pt, _, consts = _parts_inputs(
+        2, True, 3, 32, NBINS, NTAPS, int8, "direct", "cpu", seed=66)
+    tables = fe.FinishTables(baseline_pairs(2, True), NBINS, 2.4e6, 1.4e9,
+                             "cpu")
+    d = torch.tensor([[0.0, 1e-10]] * 3)
+    if int8:
+        h = {"tail": hist, "mu_prev": torch.tensor(
+            [0.02 + 0.01j, -0.01j], dtype=torch.complex64)}
+        xr, hr = fx_fused.fx_fused_raw_i8_multi_reference(x, h, wt, pt, STEP)
+    else:
+        h = hist
+        xr, hr = fx_fused.fx_fused_raw_multi_reference(x, h, wt, pt)
+    want = fe.finish(xr, d, tables, 32, 2.4e6, False)
+    got, hn = fe.fx_fused_step(x, h, wt, pt, consts, d, tables, 2.4e6, False,
+                               STEP if int8 else None)
+    assert (got - want).abs().max() <= (3e-5 if int8 else 2e-5) * want.abs(
+        ).max()
+    if int8:
+        assert torch.equal(hn["tail"], hr["tail"])
+        assert (hn["mu_prev"] - hr["mu_prev"]).abs().max() <= 1e-7
+    else:
+        assert (hn - hr).abs().max() <= 1e-6

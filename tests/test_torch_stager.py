@@ -115,7 +115,14 @@ def test_staged_run_writes_the_rows_of_one_block_dispatch(tmp_path, fused,
     assert corK.engine.fused_active == fused
     assert isinstance(corK.history, dict) == (fused and ingest == "int8")
     assert d1.shape == dK.shape == (9, SMALL["nbins"])
-    np.testing.assert_array_equal(dK, d1)
+    if fused:
+        # the single pass corrects a launch's later blocks for the raw
+        # rows of the block before: K chained steps within fxtpu's bound
+        # for that (tests/test_planes.py:576), not bit for bit
+        np.testing.assert_allclose(dK, d1, rtol=0,
+                                   atol=1e-5 * np.abs(d1).max())
+    else:
+        np.testing.assert_array_equal(dK, d1)
     np.testing.assert_array_equal(corK.calibrated_delays,
                                   cor1.calibrated_delays)
 
@@ -271,3 +278,50 @@ def test_cuda_stager_never_reads_a_buffer_mid_copy(ingest, held):
         else:
             want = cpu.prepare_block(blocks[(n // k) * k + i - n // k])
         assert torch.equal(t.cpu(), want), f"batch {i}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ingest", ["complex64", "int8"])
+def test_cuda_prepare_block_never_rewrites_a_buffer_mid_copy(ingest):
+    """The unstaged path's copy: prepare_block sends each block through
+    one of 3 pooled pinned buffers with a non_blocking copy.  With the
+    stream held back by a sleep, 8 blocks in a row each arrive as handed
+    over: a buffer is written again only after the event of the copy
+    that last read it.  Blocks of another length take buffers of their
+    own."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (pinned memory and a copy stream)")
+    cfg = CorrelatorConfig(**SMALL, device="cuda", ingest_dtype=ingest)
+    eng = FxEngine(cfg, fused=True)
+    cpu = FxEngine(CorrelatorConfig(**SMALL, device="cpu",
+                                    ingest_dtype=ingest), fused=True)
+    rng = np.random.default_rng(6)
+    shape = (cfg.nchan, cfg.num_samp)
+    if ingest == "int8":
+        blocks = [rng.integers(-127, 128, size=(*shape, 2)).astype(np.int8)
+                  for _ in range(8)]
+    else:
+        blocks = [(rng.normal(size=shape) + 1j * rng.normal(size=shape))
+                  .astype(np.complex64) for _ in range(8)]
+    torch.cuda._sleep(20_000_000)          # ~10 ms: the copies queue up
+    got = [eng.prepare_block(b) for b in blocks]
+    short = eng.prepare_block(blocks[0][:, : cfg.num_samp // 2])
+    torch.cuda.synchronize()
+    for g, b in zip(got, blocks):
+        assert g.device.type == "cuda"
+        assert torch.equal(g.cpu(), cpu.prepare_block(b))
+    assert torch.equal(short.cpu(), cpu.prepare_block(
+        blocks[0][:, : cfg.num_samp // 2]))
+    pools = eng._pinned._pools
+    assert sorted(len(slots) for slots, _ in pools.values()) == [1, 3]
+    assert all(host.is_pinned() for slots, _ in pools.values()
+               for host, _ in slots)
+
+
+def test_prepare_block_on_the_cpu_pins_nothing():
+    eng = FxEngine(CorrelatorConfig(**SMALL, device="cpu"), fused=True)
+    blk = np.zeros((2, SMALL["num_samp"]), np.complex64)
+    iq = eng.prepare_block(blk)
+    assert iq.shape == (2, SMALL["num_samp"] // SMALL["nbins"],
+                        SMALL["nbins"]) and not iq.is_pinned()
+    assert eng._pinned._pools == {}
