@@ -51,7 +51,17 @@ Phases (any failure raises and exits non-zero, with no ``ok`` line):
    bin within 1e-6 of max|vis| plus 2e-6 of the raw cross power per frame
    that cancels at that bin, the DC bin printed apart; the corrected cross
    power against the two-pass plain version with the same allowance for
-   what cancels; every stage
+   what cancels; the single pass's wide route (``fx_parts_wide``,
+   ``fx_parts_wide_i8``: the spectra through device memory to the X
+   kernel of ``fx_xstage.cu``) at bench.py's nchan8 block (8 x 2^20
+   samples, 4096 bins, 36 baselines), the CLI's block at ``--nchan 8``
+   (8 x 2^18, 4096 bins, 28 baselines), the CLI's 8-channel deep-tap block
+   (8 x 2^18, 8192 bins, 32 taps, SVD), the many-pairs shape and 64
+   channels at nbins=256 (both forced onto it, and held to the shared
+   route's kernels within 2e-6 of scale as well, bit equality reported)
+   at K = 1 and 4, to the same rules, its autos' imaginary parts exactly
+   0; the X kernel alone (``fx_xstage``) at three of those shapes within
+   2e-5 of each part's scale; every stage
    of the ablation (``fx_ablate``:
    ``ops.fx_fused.fx_fused_ablate``, both ingests, both FIR modes) at
    nbins=256, at the flagship, at the CLI's deep-tap block and at the
@@ -68,7 +78,11 @@ Phases (any failure raises and exits non-zero, with no ``ok`` line):
    just before and read just after: the run's single-pass wrapper and the
    epilogue ran once per correlated block each (at K = 8: K-block calls x
    8 + one-block calls = blocks), the two-pass entries and every other
-   not at all, the engine's ``fir_mode`` is the run's
+   not at all (at ``--nchan 8`` in each ingest the wide route's counters
+   and the X kernel's, counted by the wrapper that launches it, 28 baselines a block in the CSV, every channel's delay recovered; and
+   ``FxEngine`` takes the wide route's kernels at the nchan8 shape and at
+   ``--nchan 3 --resolution 8192 --ntaps 32``), the engine's
+   ``fir_mode`` is the run's
    (``direct``, ``svd``), the calibration recovered the injected 2 us
    delay within 0.5 sample, the calibrated in-band phase is flat (std <
    0.3 rad, 0.35 under int8) and the CSV loads with the reference recipe;
@@ -104,7 +118,14 @@ Phases (any failure raises and exits non-zero, with no ``ok`` line):
    one block's copy pinned (``prepare_block``) against pageable by the
    host's clock and by CUDA events, the device time of each kernel of a
    step, and the device launches of a single-pass step, which fails the
-   run when they are more than 3 or the mean pre-pass is among them; the
+   run when they are more than 3 or the mean pre-pass is among them; at
+   8 channels the wide route's wrapper and plain version (nchan8 and the
+   8-channel deep block, both ingests), the X kernel alone against its
+   plain version and one ``torch.matmul`` of the spectra (its
+   ``library_ms``), the nchan8 engine step on either route, failing the
+   run above 4 device launches a wide-route step; the single pass with
+   ``x_stage`` "shared" against "global" at the flagship and
+   ``bench_pipeline``'s block, both ingests, in turns (A B B A); the
    device launches of one engine step (flagship, and wideband
    in the SVD mode), of one K = 8 ``multi_step`` and of each wrapper alone
    (a CUDA-only profiler trace); the stage table, the
@@ -119,8 +140,10 @@ larger of its bytes (each input read once, each output written once) over
 cores), the H100's published rates; ``bound_by`` says which.  ``library_ms``
 is the time of one PyTorch call that computes the same function, timed
 here and used nowhere in the port: ``torch.sum`` over the tiles' words
-beside the copy probe's leg of contiguous tiles; no single call computes
-what any other kernel here computes, so theirs is null.
+beside the copy probe's leg of contiguous tiles, ``torch.matmul`` of the
+spectra per bin (the Gram ``[nch, S] @ [S, nch]^H``) beside the X kernel;
+no single call computes what any other kernel here computes, so theirs
+is null.
 
 It prints one JSON line of the stage table, one of kernel results (for
 the K-block entries every time per block, at K = 8), then, as the last
@@ -151,6 +174,29 @@ PIPELINE_BLOCK = dict(nch=2, nsamp=2**21, nbins=4096, ntaps=4, autos=False)
 # the X stage over many pairs: four channels with autos at the flagship
 # width, 10 baselines of spectra that all stay in shared memory
 MANY_PAIRS = dict(nch=4, nsamp=2**18, nbins=4096, ntaps=4, autos=True)
+# bench.py's nchan8 cell (bench.py:392-393): 8 channels of 2^20 samples at
+# 4096 bins with autos (36 baselines); a frame's 8 spectra do not fit in
+# one CTA's shared memory, so the single pass takes its wide route (the
+# spectra through device memory to the X kernel, fx_xstage.cu)
+NCHAN8 = dict(nch=8, nsamp=2**20, nbins=4096, ntaps=4, autos=True)
+# the CLI's deep-tap block at --nchan 8 (28 baselines, the SVD-FIR mode)
+DEEP8 = dict(nch=8, nsamp=2**18, nbins=8192, ntaps=32, autos=False)
+# the CLI's block at --nchan 8 and its defaults (28 baselines, no autos):
+# the wide route's shape on the main path
+CLI8 = dict(nch=8, nsamp=2**18, nbins=4096, ntaps=4, autos=False)
+# fxtpu's most channels (MAX_FUSED_NCHAN = 64; 2080 pairs with autos) at
+# a small width: the X kernel's largest tile (128 KiB of shared memory)
+WIDE64 = dict(nch=64, nsamp=8 * 256, nbins=256, ntaps=4, autos=True)
+WIDE_K = 4           # blocks of the wide route's K-block checks
+# (shape, FIR mode, x_stage) of the wide route's checks in phase 2, each
+# at K = 1 and WIDE_K: the shapes where it is the only route (the main
+# path's among them), and two where the shared route takes the shape too
+# and is compared with it
+WIDE_CASES = ((NCHAN8, "direct", "auto"), (CLI8, "direct", "auto"),
+              (DEEP8, "svd", "auto"), (MANY_PAIRS, "direct", "global"),
+              (WIDE64, "direct", "global"))
+CLI_NCHAN = 8        # the CLI runs of the wide route (28 baselines)
+XSTAGE_SOURCE = "fxtpu_torch/csrc/fx_xstage.cu"
 # (shape, K, FIR mode) of the K-block entries' checks in phase 2: every
 # shape and K the main path and phase 4 launch them at, and smaller ones
 MULTI_CASES = ((SMALL, 3, "direct"), (FLAGSHIP, MULTI_K, "direct"),
@@ -187,6 +233,9 @@ REPLACES = {
     "fx_fused_i8_multi": "fxtpu/ops/pfb_pallas.py:1669",
     "fx_parts": "fxtpu/ops/pfb_pallas.py:993",
     "fx_parts_i8": "fxtpu/ops/pfb_pallas.py:1050",
+    "fx_parts_wide": "fxtpu/ops/pfb_pallas.py:993",
+    "fx_parts_wide_i8": "fxtpu/ops/pfb_pallas.py:1050",
+    "fx_xstage": "fxtpu/ops/pfb_pallas.py:1078",
     "fx_finish": "fxtpu/ops/pfb_pallas.py:1501",
     "fx_ablate": "scripts/fused_ablate.py:58",
     "copy_probe": "scripts/dma_width_probe.py:44",
@@ -233,12 +282,16 @@ def probe_wrappers() -> dict:
 def reset_counts():
     from fxtpu_torch.ops import fx_fused
     from fxtpu_torch.ops.fx_epilogue import fx_finish
+    from fxtpu_torch.ops.fx_xstage import fx_xstage
     from fxtpu_torch.ops.spectrometer import spectrometer_fused
     for fn in (fx_fused.fx_fused_raw, fx_fused.fx_fused_raw_i8,
                fx_fused.fx_fused_raw_multi, fx_fused.fx_fused_raw_i8_multi,
                fx_fused.fx_fused_parts, fx_fused.fx_fused_parts_i8):
         fn.launches = fn.svd_launches = 0
+    for fn in (fx_fused.fx_fused_parts, fx_fused.fx_fused_parts_i8):
+        fn.wide_launches = fn.wide_svd_launches = 0
     spectrometer_fused.launches = fx_finish.launches = 0
+    fx_xstage.launches = 0
     for fn in probe_wrappers().values():
         fn.launches = 0
 
@@ -246,6 +299,7 @@ def reset_counts():
 def read_counts() -> dict:
     from fxtpu_torch.ops import fx_fused
     from fxtpu_torch.ops.fx_epilogue import fx_finish
+    from fxtpu_torch.ops.fx_xstage import fx_xstage
     from fxtpu_torch.ops.spectrometer import spectrometer_fused
     counts = {}
     for name, fn in (("fx_fused", fx_fused.fx_fused_raw),
@@ -256,6 +310,12 @@ def read_counts() -> dict:
                      ("fx_parts_i8", fx_fused.fx_fused_parts_i8)):
         counts[name] = fn.launches
         counts[name + "_svd"] = fn.svd_launches
+    # the single pass's wide route (the X stage through device memory)
+    for name, fn in (("fx_parts_wide", fx_fused.fx_fused_parts),
+                     ("fx_parts_wide_i8", fx_fused.fx_fused_parts_i8)):
+        counts[name] = fn.wide_launches
+        counts[name + "_svd"] = fn.wide_svd_launches
+    counts["fx_xstage"] = fx_xstage.launches
     counts["fx_finish"] = fx_finish.launches
     counts["spectrometer"] = spectrometer_fused.launches
     for name, fn in probe_wrappers().items():
@@ -516,11 +576,13 @@ def parts_batch(case, k, rng, device, int8):
     """K merged blocks for the single pass: noise with a DC offset of a
     few hundredths to a few tenths of its sigma that differs per channel
     and block (a receiver's offset; the post-hoc correction cancels at the
-    DC bin, which loses precision as the mean grows)."""
+    DC bin, which loses precision as the mean grows).  The channels' grades
+    run 1 .. 4 and start again, so that the offsets stay in that range at
+    any channel count."""
     import torch
     nch, nbins = case["nch"], case["nbins"]
     s = case["nsamp"] // nbins
-    grade = np.arange(1, nch + 1)[:, None] + 0.5 * np.arange(k)[None, :]
+    grade = (np.arange(nch) % 4 + 1)[:, None] + 0.5 * np.arange(k)[None, :]
     if int8:
         dc = np.array([3.0, -2.0]) * grade[..., None, None, None]
         x = np.clip(np.rint(30 * rng.normal(size=(nch, k, s, nbins, 2)) + dc),
@@ -531,10 +593,16 @@ def parts_batch(case, k, rng, device, int8):
     return torch.as_tensor(x.astype(np.complex64), device=device)
 
 
-def compare_parts(case, k, device, fir, int8):
+def compare_parts(case, k, device, fir, int8, x_stage="auto"):
     """Phase 2 for the single pass at one shape, K blocks from a carried
-    history: the parts (``fx_fused_parts`` / ``fx_fused_parts_i8``)
-    against their plain version: xp_raw and T within 2e-5 (3e-5 for
+    history, on the X stage ``x_stage`` gives (``fx_fused.x_route``: the
+    shared-memory route, or the wide route, whose entries are
+    ``fx_parts_wide`` / ``fx_parts_wide_i8``): the parts
+    (``fx_fused_parts`` / ``fx_fused_parts_i8``) against their plain
+    version (on the wide route ``fx_fused_parts_wide_reference``, its
+    autos' imaginary parts exactly 0, and where the shared route takes the
+    shape too, against its kernels within 2e-6 of scale, bit equality
+    reported): xp_raw and T within 2e-5 (3e-5 for
     8-bit samples and deep taps) of their scale off the DC bin and at it
     (the raw DC bin towers above the rest, so each is held on its own
     scale), GJ on one scale, mu and the complex64 tail within 1e-6, the
@@ -566,16 +634,22 @@ def compare_parts(case, k, device, fir, int8):
     hist = raw_history(case, rng, device, int8)
     deep = int8 or ntaps >= 16
     tol = DEEP_TOL if deep else REL_TOL
+    rank = 0 if svd is None else svd[0].shape[1]
+    wide = ff.x_route(nbins, ntaps, nch, rank, x_stage) == "global"
     if int8:
-        got = ff.fx_fused_parts_i8(x, hist["tail"], w, pairs, STEP, svd,
-                                   consts)
-        want = ff.fx_fused_parts_i8_reference(x, hist["tail"], w, pairs, STEP,
-                                              svd, consts)
+        args = (x, hist["tail"], w, pairs, STEP, svd, consts)
+        entry = ff.fx_fused_parts_i8
+        ref = (ff.fx_fused_parts_i8_wide_reference if wide
+               else ff.fx_fused_parts_i8_reference)
         mu_prev = hist["mu_prev"]
     else:
-        got = ff.fx_fused_parts(x, hist, w, pairs, svd, consts)
-        want = ff.fx_fused_parts_reference(x, hist, w, pairs, svd, consts)
+        args = (x, hist, w, pairs, svd, consts)
+        entry = ff.fx_fused_parts
+        ref = (ff.fx_fused_parts_wide_reference if wide
+               else ff.fx_fused_parts_reference)
         mu_prev = None
+    got = entry(*args, x_stage=x_stage)
+    want = ref(*args)
     torch.cuda.synchronize()
     abs_err = rel_err = 0.0
     notes = []
@@ -594,6 +668,31 @@ def compare_parts(case, k, device, fir, int8):
                     f"{err / scale:.3g} > {tol}")
             abs_err, rel_err = max(abs_err, err), max(rel_err, err / scale)
         notes.append(f"{name} {err / scale:.2g}")
+    if wide:
+        autos = pairs[:, 0] == pairs[:, 1]
+        if bool(autos.any()) and bool((got[0][:, autos].imag != 0).any()):
+            raise AssertionError(f"the wide route's autos have an "
+                                 f"imaginary part at {case} K={k}")
+        if ff.supported(nbins, ntaps, nch, rank):
+            shared = entry(*args, x_stage="shared")
+            torch.cuda.synchronize()
+            same = []
+            for name, g, r in zip(("xp", "T", "GJ"), got, shared):
+                for sl in (slice(1, None), slice(0, 1)):
+                    err = (g[..., sl] - r[..., sl]).abs().max().item()
+                    scale = r[..., sl].abs().max().item()
+                    if not err <= 2e-6 * scale:
+                        raise AssertionError(
+                            f"{name} of the wide route disagrees with the "
+                            f"shared route at {case} K={k}: "
+                            f"{err / scale:.3g} > 2e-6")
+                cross = ~autos if name == "xp" else slice(None)
+                equal = torch.equal(g[:, cross], r[:, cross])
+                same.append(f"{name} {bool(equal)}")
+            same.append(f"mu {bool(torch.equal(got[3], shared[3]))}, tail "
+                        f"{bool(torch.equal(got[4], shared[4]))}")
+            notes.append("= shared route bit for bit (cross pairs): "
+                         + ", ".join(same))
     mu_err = (got[3] - want[3]).abs().max().item()
     if int8:
         hist_ok = torch.equal(got[4], want[4])
@@ -669,9 +768,65 @@ def compare_parts(case, k, device, fir, int8):
           f"continuum {cont_rel:.2g}, raw DC bin "
           f"{raw_dc / scale * s:.3g} of max|xp|); against the two-pass plain "
           f"version {two_off:.2g} off DC, DC bin {two_dc:.2g}", flush=True)
-    name = "fx_parts_i8" if int8 else "fx_parts"
+    name = ("fx_parts_wide" if wide else "fx_parts") + (
+        "_i8" if int8 else "")
     return ({name: (abs_err, rel_err), "fx_finish": (fin_abs, fin_rel)},
             max(dc_rel, two_dc))
+
+
+def xstage_inputs(case, k, device):
+    """The X kernel's inputs at ``case``: the spectra ``[K, nch, S,
+    nbins]`` of K raw blocks from a carried history (plain torch), the
+    pairs and the window's dA."""
+    from fxtpu_torch.ops import baseline_pairs, pairs_tensor
+    from fxtpu_torch.ops import fx_fused as ff
+    from fxtpu_torch.ops.dc_posthoc import dc_constants
+    nch, nbins = case["nch"], case["nbins"]
+    s = case["nsamp"] // nbins
+    w, _ = window_and_fir(case, "direct", device)
+    pairs = pairs_tensor(baseline_pairs(nch, case["autos"]), nch, device)
+    da = dc_constants(w.cpu().numpy(), nbins, s, device)[1]
+    rng = np.random.default_rng(2024)
+    x = parts_batch(case, k, rng, device, False)
+    hist = raw_history(case, rng, device, False)
+    spec = ff._raw_spectra(x.reshape(nch, k * s, nbins), hist, x.shape, w,
+                           None)
+    return spec.transpose(0, 1).contiguous(), pairs, da
+
+
+def compare_xstage(case, k, device):
+    """Phase 2 for the X kernel alone (``fx_xstage``): K blocks' spectra
+    through the kernel against its plain version, the cross power, T and
+    GJ each within 2e-5 of its own scale, the autos' imaginary parts
+    exactly 0.  Returns (max abs err, max rel err)."""
+    import torch
+
+    from fxtpu_torch.ops.fx_xstage import fx_xstage, fx_xstage_reference
+    spec, pairs, da = xstage_inputs(case, k, device)
+    got = fx_xstage(spec, pairs, da)
+    want = fx_xstage_reference(spec, pairs, da)
+    torch.cuda.synchronize()
+    nbl, nch = pairs.shape[0], case["nch"]
+    abs_err = rel_err = 0.0
+    notes = []
+    for name, rows in (("xp", slice(0, nbl)), ("T", slice(nbl, nbl + nch)),
+                       ("GJ", slice(nbl + nch, None))):
+        err = (got[:, rows] - want[:, rows]).abs().max().item()
+        scale = want[:, rows].abs().max().item()
+        if not (torch.isfinite(torch.view_as_real(got[:, rows])).all()
+                and err <= REL_TOL * scale):
+            raise AssertionError(
+                f"fx_xstage {name} disagrees with its plain version at "
+                f"{case} K={k}: {err / scale:.3g} > {REL_TOL}")
+        abs_err, rel_err = max(abs_err, err), max(rel_err, err / scale)
+        notes.append(f"{name} {err / scale:.2g}")
+    autos = pairs[:, 0] == pairs[:, 1]
+    if bool((got[:, :nbl][:, autos].imag != 0).any()):
+        raise AssertionError(f"fx_xstage autos have an imaginary part at "
+                             f"{case} K={k}")
+    print(f"  fx_xstage K={k}: " + ", ".join(notes) + " of scale; autos' "
+          "imaginary parts 0", flush=True)
+    return abs_err, rel_err
 
 
 def make_spec_case(case, rng, device):
@@ -761,17 +916,21 @@ def check_products(cor, out, name):
     from fxtpu_torch.products import load_products
     cfg = cor.config
     int8 = cfg.ingest_dtype == "int8"
-    err_samples = abs(cor.calibrated_delays[1] - TRUE_DELAY) * cfg.bandwidth
-    print(f"  calibration error {err_samples:.4f} samples", flush=True)
+    nbl = cfg.n_baselines
+    # every channel after the first carries the injected delay
+    err_samples = float(np.abs(cor.calibrated_delays[1:] - TRUE_DELAY).max()
+                        * cfg.bandwidth)
+    print(f"  calibration error {err_samples:.4f} samples (worst of "
+          f"{cfg.nchan - 1} channels)", flush=True)
     if not err_samples < 0.5:
         raise AssertionError(f"calibration error {err_samples} >= 0.5")
     # the reference recipe for product files: complex rows after the header
     data = np.loadtxt(out, dtype=np.complex128, delimiter=",", skiprows=2)
     data = np.atleast_2d(data)
     md, _ = load_products(out)
-    if data.shape != (cor.blocks_processed, cfg.nbins):
+    if data.shape != (cor.blocks_processed * nbl, cfg.nbins):
         raise AssertionError(f"CSV shape {data.shape}, expected "
-                             f"{(cor.blocks_processed, cfg.nbins)}")
+                             f"{(cor.blocks_processed * nbl, cfg.nbins)}")
     if not np.isfinite(data).all() or md["mode"] != "SPECTRUM":
         raise AssertionError("CSV holds non-finite values or wrong mode")
     inner = slice(cfg.nbins // 4, 3 * cfg.nbins // 4)
@@ -812,6 +971,57 @@ def run_main_path(tmpdir, ingest, deep):
             f"{cor.blocks_processed} of {name} (or fewer than 3 blocks)")
     check_products(cor, out, name)
     return name, counts
+
+
+def run_wide_main_path(tmpdir, ingest):
+    """Phase 3, the wide route's main path: the CLI at ``--nchan 8`` (28
+    baselines at 4096 bins, where a frame's 8 spectra do not fit in one
+    CTA's shared memory): the wide single pass and the epilogue once per
+    block each, every other entry not at all, the engine's X stage
+    ``global``, 28 baselines a block in the CSV and every channel's delay
+    recovered, and the X kernel launched once a block by the wrapper
+    that launches it.  Returns (count name, the run's counts)."""
+    name = "fx_parts_wide" + ("_i8" if ingest == "int8" else "")
+    cor, out, counts = run_cli(tmpdir, name, ingest,
+                               ["--nchan", str(CLI_NCHAN)])
+    eng = cor.engine
+    if eng.x_stage != "global" or eng.fir_mode != "direct":
+        raise AssertionError(f"--nchan {CLI_NCHAN}: x_stage {eng.x_stage}, "
+                             f"fir_mode {eng.fir_mode}")
+    if cor.config.n_baselines != CLI_NCHAN * (CLI_NCHAN - 1) // 2:
+        raise AssertionError(f"{cor.config.n_baselines} baselines")
+    others = {k: v for k, v in counts.items()
+              if k not in (name, "fx_xstage", "fx_finish")}
+    if not (counts[name] == counts["fx_xstage"] == counts["fx_finish"]
+            == cor.blocks_processed >= 2) or any(others.values()):
+        raise AssertionError(
+            f"launches {counts} do not match blocks_processed "
+            f"{cor.blocks_processed} of {name} (or fewer than 2 blocks)")
+    check_products(cor, out, name)
+    return name, counts
+
+
+def check_wide_engines():
+    """Phase 3: ``FxEngine`` with ``fused='auto'`` on the card takes the
+    kernels, on the wide route, at bench.py's nchan8 shape and at
+    ``--nchan 3 --resolution 8192 --ntaps 32``, in both ingests."""
+    from fxtpu_torch.config import CorrelatorConfig
+    from fxtpu_torch.fx import FxEngine
+    for shape, fir in ((dict(nchan=8, include_autos=True, num_samp=2**20,
+                             nbins=4096, clamp_num_samp=False), "direct"),
+                       (dict(nchan=3, nbins=8192, ntaps=32), "svd")):
+        for ingest in ("complex64", "int8"):
+            eng = FxEngine(CorrelatorConfig(
+                device="cuda", ingest_dtype=ingest, quant_step=STEP,
+                **shape))
+            print(f"  FxEngine {shape} {ingest}: kernel_active "
+                  f"{eng.kernel_active}, x_stage {eng.x_stage}, fir_mode "
+                  f"{eng.fir_mode}, launch counters "
+                  f"{list(eng.launch_counts())}", flush=True)
+            if not (eng.kernel_active and eng.x_stage == "global"
+                    and eng.fir_mode == fir):
+                raise AssertionError(f"FxEngine {shape} {ingest} does not "
+                                     "take the wide route's kernels")
 
 
 def staged_launches(counts, name, blocks, k):
@@ -1685,7 +1895,7 @@ def kernel_us(events):
     the part of its name that says which it is; copies as ``copy``."""
     names = {"mean_partial_kernel": "prepass", "fx_frames_kernel": "frames",
              "fx_parts_reduce_kernel": "reduce", "fx_reduce": "reduce",
-             "fx_finish_kernel": "finish"}
+             "fx_finish_kernel": "finish", "fx_xstage_kernel": "xstage"}
     durs = {}
     for e in events:
         key = "copy" if e["cat"] == "gpu_memcpy" else next(
@@ -1814,6 +2024,195 @@ def time_single_pass(device):
         launches, device_us
 
 
+def xstage_bound(case, k):
+    """The least time the card could take for one X kernel launch over k
+    blocks of ``case``: its bytes (the spectra in once, the pairs and dA
+    in, the parts out once) over the device-memory rate, or its
+    operations (8 per cross pair, frame and bin, 4 per auto pair, 2 per
+    channel, frame and bin for T, 8 per channel, halo frame and bin for
+    GJ) over the float32 rate.  Returns (ms, "bytes" or "operations")."""
+    nch, nbins, ntaps = case["nch"], case["nbins"], case["ntaps"]
+    s = case["nsamp"] // nbins
+    autos = nch if case.get("autos") else 0
+    nbl = nch * (nch - 1) // 2 + autos
+    nbytes = (8 * k * nch * s * nbins + 8 * nbl + 8 * (ntaps - 1) * nbins
+              + 8 * k * (nbl + 2 * nch) * nbins)
+    flops = (k * s * nbins * (8 * (nbl - autos) + 4 * autos + 2 * nch)
+             + 8 * k * nch * (ntaps - 1) * nbins)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_flops = flops / FP32_FLOPS * 1e3
+    return (max(t_bytes, t_flops),
+            "bytes" if t_bytes >= t_flops else "operations")
+
+
+def time_wide(device):
+    """Phase 4, the wide route at 8 channels: the single-pass wrapper on
+    its wide route and its plain version at bench.py's nchan8 block and
+    at the CLI's 8-channel deep-tap block (SVD) in both ingests (CUDA
+    events; the device us of each kernel of a call); the X kernel alone at
+    the nchan8 block against its plain version and one ``torch.matmul``
+    of the spectra, ``[nbins, nch, S] @ [nbins, S, nch]`` conjugated (its
+    ``library_ms``, TF32 off; the port never calls it); the engine's step
+    at the nchan8 block on either route, held to each other, with the
+    device launches of a kernel-route step, which fails the run above 4
+    (frames, X, epilogue and at most one more) or with a mean pre-pass
+    among them.  Returns (times ms, device us per kernel, launches)."""
+    import torch
+
+    from fxtpu_torch.config import CorrelatorConfig
+    from fxtpu_torch.fx import FxEngine
+    from fxtpu_torch.ops import baseline_pairs, pairs_tensor
+    from fxtpu_torch.ops import fx_fused as ff
+    from fxtpu_torch.ops.dc_posthoc import dc_constants
+    from fxtpu_torch.ops.fx_xstage import fx_xstage, fx_xstage_reference
+    from fxtpu_torch.ops.xengine import pack_delays
+    from fxtpu_torch.probes.common import device_events
+    from fxtpu_torch.runtime.native import quantize_c64
+    fns, dev_us, launches, keep = {}, {}, {}, []
+    rng = np.random.default_rng(41)
+    for tag, case, fir in (("nchan8", NCHAN8, "direct"),
+                           ("deep8", DEEP8, "svd")):
+        nch, nbins = case["nch"], case["nbins"]
+        s = case["nsamp"] // nbins
+        w, svd = window_and_fir(case, fir, device)
+        pairs = pairs_tensor(baseline_pairs(nch, case["autos"]), nch,
+                             device)
+        consts = dc_constants(w.cpu().numpy(), nbins, s, device)
+        for int8 in (False, True):
+            key = tag + ("_i8" if int8 else "")
+            x = parts_batch(case, 1, rng, device, int8)
+            hist = raw_history(case, rng, device, int8)
+            if int8:
+                args = (x, hist["tail"], w, pairs, STEP, svd, consts)
+                entry, ref = (ff.fx_fused_parts_i8,
+                              ff.fx_fused_parts_i8_wide_reference)
+            else:
+                args = (x, hist, w, pairs, svd, consts)
+                entry, ref = (ff.fx_fused_parts,
+                              ff.fx_fused_parts_wide_reference)
+            fns["parts_" + key] = lambda e=entry, a=args: e(*a)
+            fns["plain_" + key] = lambda r=ref, a=args: r(*a)
+            fns["parts_" + key]()
+            torch.cuda.synchronize()
+            dev_us[key] = kernel_us(device_events(fns["parts_" + key], 3))
+            keep.append(args)
+    times = cuda_times(fns, n=10, warm=2)
+    spec, pairs, da = xstage_inputs(NCHAN8, 1, device)
+    a = spec[0].permute(2, 0, 1).contiguous()      # [nbins, nch, S]
+    ah = a.conj().transpose(1, 2)                  # [nbins, S, nch]
+    gram = torch.matmul(a, ah)
+    xs = fx_xstage(spec, pairs, da)
+    torch.cuda.synchronize()
+    # the yardstick computes what the kernel computes for the pairs
+    p, q = pairs[:, 0].long(), pairs[:, 1].long()
+    gerr = ((gram[:, p, q].T - xs[0, :pairs.shape[0]]).abs().max()
+            / xs[0, :pairs.shape[0]].abs().max()).item()
+    print(f"  torch.matmul Gram against fx_xstage: {gerr:.3g} of max|xp|",
+          flush=True)
+    if not gerr <= REL_TOL:
+        raise AssertionError(f"the Gram yardstick disagrees: {gerr}")
+    times.update(cuda_times({
+        "xstage": lambda: fx_xstage(spec, pairs, da),
+        "xstage_plain": lambda: fx_xstage_reference(spec, pairs, da),
+        "xstage_library": lambda: torch.matmul(a, ah),
+    }, n=20, warm=3))
+    dev_us["xstage_alone"] = kernel_us(device_events(
+        lambda: fx_xstage(spec, pairs, da), 3))
+    del spec, a, ah, gram, xs
+    # the engine's step at the nchan8 block on either route
+    block = (rng.normal(size=(NCHAN8["nch"], NCHAN8["nsamp"], 2))
+             @ np.array([1.0, 1j]) + (0.02 - 0.01j)).astype(np.complex64)
+    steps = {}
+    for ingest in ("complex64", "int8"):
+        sfx = "_i8" if ingest == "int8" else ""
+        cfg = CorrelatorConfig(device="cuda", ingest_dtype=ingest,
+                               quant_step=STEP, nchan=NCHAN8["nch"],
+                               include_autos=True, num_samp=NCHAN8["nsamp"],
+                               nbins=NCHAN8["nbins"], clamp_num_samp=False)
+        blk = block if ingest == "complex64" else quantize_c64(block, STEP)
+        d = torch.as_tensor(pack_delays(
+            TRUE_DELAY * (np.arange(NCHAN8["nch"]) > 0), cfg.frequency),
+            device=device)
+        vis = {}
+        for route, fused in (("kernel", "auto"), ("plain", False)):
+            eng = FxEngine(cfg, fused=fused)
+            if fused == "auto" and not (eng.kernel_active
+                                        and eng.x_stage == "global"):
+                raise AssertionError(f"nchan8 {ingest}: the engine does "
+                                     "not take the wide route's kernels")
+            iq, h = eng.prepare_block(blk), eng.fresh_history()
+            vis[route], _ = eng.step(iq, d, h)
+            steps[f"step_{route}{sfx}"] = (
+                lambda e=eng, i=iq, hh=h: e.step(i, d, hh))
+            keep.append((eng, iq, h))
+        tol = DEEP_TOL if ingest == "int8" else REL_TOL
+        verr = ((vis["kernel"] - vis["plain"]).abs().max()
+                / vis["plain"].abs().max()).item()
+        print(f"  [nchan8 {ingest}] engine step, kernel route (wide) "
+              f"against plain route: {verr:.3g} of max|vis|", flush=True)
+        if not verr <= tol:
+            raise AssertionError(f"nchan8 {ingest} engine routes disagree: "
+                                 f"{verr} > {tol}")
+        events = device_events(steps["step_kernel" + sfx], 3)
+        launches["step" + sfx] = len(events) // 3
+        us = kernel_us(events)
+        dev_us["step" + sfx] = {k: v for k, v in us.items() if k != "other"}
+        names = sorted({e["name"][:60] for e in events})
+        if launches["step" + sfx] > 4 or "prepass" in us or "other" in us:
+            raise AssertionError(
+                f"nchan8 {ingest} step: {launches['step' + sfx]} device "
+                f"launches ({names}): a wide-route step is the frame "
+                "kernel, the X kernel and the epilogue, at most 4 "
+                "launches, no mean pre-pass")
+    times.update(cuda_times(steps, n=10, warm=2))
+    del keep
+    return times, dev_us, launches
+
+
+def time_x_routes(device):
+    """Phase 4, the single pass's two X stages at shapes both take: the
+    wrapper with ``x_stage`` "shared" and "global" at the flagship block
+    and at ``bench_pipeline``'s block, in both ingests, timed in turns
+    (A B B A) with CUDA events in this process, with the device us of each
+    kernel of a call.  Returns (times ms, device us), keyed
+    ``<shape>[_i8]_<x_stage>``."""
+    import torch
+
+    from fxtpu_torch.ops import baseline_pairs, pairs_tensor
+    from fxtpu_torch.ops import fx_fused as ff
+    from fxtpu_torch.ops.dc_posthoc import dc_constants
+    from fxtpu_torch.probes.common import device_events
+    rng = np.random.default_rng(43)
+    fns, dev_us, keep = {}, {}, []
+    for tag, case in (("flagship", FLAGSHIP), ("pipeline", PIPELINE_BLOCK)):
+        nch, nbins = case["nch"], case["nbins"]
+        s = case["nsamp"] // nbins
+        w, _ = window_and_fir(case, "direct", device)
+        pairs = pairs_tensor(baseline_pairs(nch, case["autos"]), nch,
+                             device)
+        consts = dc_constants(w.cpu().numpy(), nbins, s, device)
+        for int8 in (False, True):
+            x = parts_batch(case, 1, rng, device, int8)
+            hist = raw_history(case, rng, device, int8)
+            if int8:
+                entry = ff.fx_fused_parts_i8
+                args = (x, hist["tail"], w, pairs, STEP, None, consts)
+            else:
+                entry, args = ff.fx_fused_parts, (x, hist, w, pairs, None,
+                                                  consts)
+            keep.append(args)
+            for stage in ("shared", "global"):
+                key = f"{tag}{'_i8' if int8 else ''}_{stage}"
+                fns[key] = lambda e=entry, a=args, st=stage: e(*a,
+                                                               x_stage=st)
+                fns[key]()
+                torch.cuda.synchronize()
+                dev_us[key] = kernel_us(device_events(fns[key], 3))
+    times = cuda_times(fns, n=20, warm=3)
+    del keep
+    return times, dev_us
+
+
 def host_times(fns, n=30, warm=3):
     """Median ms per call of each fn by the host clock, each call ended
     by a synchronize, in turns (a, b, b, a)."""
@@ -1905,6 +2304,23 @@ def main() -> int:
             for key, pair in got.items():
                 errs[key] = tuple(map(max, errs[key], pair))
             dc_bin[name] = max(dc_bin.get(name, 0.0), dc)
+    for int8 in (False, True):
+        for case, fir, x_stage in WIDE_CASES:
+            for k in (1, WIDE_K):
+                name = "fx_parts_wide_i8" if int8 else "fx_parts_wide"
+                print(f"  {name} + fx_finish ({fir}, x_stage {x_stage}) "
+                      f"K={k} shape {case}", flush=True)
+                got, dc = compare_parts(case, k, device, fir, int8, x_stage)
+                if name not in got:
+                    raise AssertionError(f"{case} did not take the wide "
+                                         "route")
+                for key, pair in got.items():
+                    errs[key] = tuple(map(max, errs[key], pair))
+                dc_bin[name] = max(dc_bin.get(name, 0.0), dc)
+    for case in (NCHAN8, MANY_PAIRS, WIDE64):
+        for k in (1, WIDE_K):
+            errs["fx_xstage"] = tuple(map(max, errs["fx_xstage"],
+                                          compare_xstage(case, k, device)))
     for case, k in ((SMALL, 3), (FLAGSHIP, 2), (SMALL_DEEP, 3),
                     (DEEP_CLI, 2), (WIDEBAND, 1)):
         print(f"  fx_ablate K={k} shape {case}", flush=True)
@@ -1927,6 +2343,13 @@ def main() -> int:
                   flush=True)
             name, counts = run_staged_main_path(tmp, ingest)
             main_counts.append(counts)
+        phase(f"phase 3: the wide route's main path (python -m fxtpu_torch "
+              f"--nchan {CLI_NCHAN})")
+        for ingest in ("complex64", "int8"):
+            print(f"  --ingest {ingest} --nchan {CLI_NCHAN}", flush=True)
+            name, counts = run_wide_main_path(tmp, ingest)
+            main_counts.append(counts)
+        check_wide_engines()
         from fxtpu_torch.sources import NoiseSource, save_recording
         rec = save_recording(NoiseSource(nchan=PIPELINE["nchan"], seed=1),
                              os.path.join(tmp, "rec.npy"),
@@ -1937,8 +2360,10 @@ def main() -> int:
                 pipe[f"{ingest}_k{k}"] = run_pipeline(tmp, rec, ingest, k)
                 main_counts.append(pipe[f"{ingest}_k{k}"]["launches"])
     # the single-pass entries' launches on the main path, both FIR modes
-    for name in ("fx_parts", "fx_parts_i8"):
+    for name in ("fx_parts", "fx_parts_i8", "fx_parts_wide",
+                 "fx_parts_wide_i8"):
         launches[name] = sum(c[name] + c[name + "_svd"] for c in main_counts)
+    launches["fx_xstage"] = sum(c["fx_xstage"] for c in main_counts)
     launches["fx_finish"] = sum(c["fx_finish"] for c in main_counts)
     print(f"  main path, every run: launches {launches}", flush=True)
     phase("phase 3: the two-pass entries (fx_fused_raw* and finish)")
@@ -1997,6 +2422,8 @@ def main() -> int:
     mkt = time_multi_kernels(device)
     mst, mct, step_launches = time_multi_step(device)
     spt, sp_launches, sp_us = time_single_pass(device)
+    wdt, wd_us, wd_launches = time_wide(device)
+    xrt, xr_us = time_x_routes(device)
     step_launches.update(call_launches)
     step_launches.update(wide_launches)
     table = stage_table(ablate_runs, device)
@@ -2080,6 +2507,32 @@ def main() -> int:
           f"{spt['parts_i8']:.4f} (plain {spt['parts_i8_plain']:.4f}), "
           f"fx_finish {spt['finish']:.4f} (plain {spt['finish_plain']:.4f}); "
           f"DC bin, worst of phase 2, of max|vis|: {dc_bin}", flush=True)
+    for tag, what in (("nchan8", "nchan8 block (8 x 2^20, 4096 bins, 36 "
+                                 "baselines)"),
+                      ("deep8", "8-channel deep CLI block (8 x 2^18, 8192 "
+                                "bins, 32 taps, SVD)")):
+        for sfx in ("", "_i8"):
+            print(f"  [{card}] wide route, {what}{sfx}: fx_fused_parts "
+                  f"{wdt['parts_' + tag + sfx]:.4f} ms (plain "
+                  f"{wdt['plain_' + tag + sfx]:.4f}), device us a call "
+                  f"{wd_us[tag + sfx]}", flush=True)
+    print(f"  [{card}] X kernel alone at the nchan8 block: fx_xstage "
+          f"{wdt['xstage']:.4f} ms (device us {wd_us['xstage_alone']}), "
+          f"plain {wdt['xstage_plain']:.4f}, torch.matmul Gram "
+          f"{wdt['xstage_library']:.4f}", flush=True)
+    for key in xrt:
+        if key.endswith("_shared"):
+            wide = key[:-len("shared")] + "global"
+            print(f"  [{card}] single pass, X stage A/B at {key[:-7]}: "
+                  f"shared {xrt[key]:.4f} ms (device us {xr_us[key]}), "
+                  f"global {xrt[wide]:.4f} ms (device us {xr_us[wide]})",
+                  flush=True)
+    for sfx in ("", "_i8"):
+        print(f"  [{card}] nchan8 engine step{sfx}: kernel route "
+              f"{wdt['step_kernel' + sfx]:.4f} ms, plain route "
+              f"{wdt['step_plain' + sfx]:.4f} ms; device launches "
+              f"{wd_launches['step' + sfx]}, device us "
+              f"{wd_us['step' + sfx]}", flush=True)
     print(f"  [{card}] stage table: the frame kernel's device time per "
           "block after each stage, us (pre-pass, reduce; torch.fft.fft "
           "over one block beside them)", flush=True)
@@ -2234,6 +2687,45 @@ def main() -> int:
                 key: spt[f"copy_events_{key}_pipeline{sfx}"]
                 for key in ("pinned", "pageable")},
         })
+    for name, sfx, int8 in (("fx_parts_wide", "", False),
+                            ("fx_parts_wide_i8", "_i8", True)):
+        ms, by = fx_bound(NCHAN8, 1, int8, 0, parts=True)
+        deep_ms, deep_by = fx_bound(DEEP8, 1, int8, deep_rank, parts=True)
+        kernels.append({
+            "name": name, "route": "cuda", "source": SOURCE,
+            "replaces": REPLACES[name], "launches": launches[name],
+            "max_abs_err": errs[name][0], "max_rel_err": errs[name][1],
+            "ms": wdt["parts_nchan8" + sfx],
+            "plain_ms": wdt["plain_nchan8" + sfx],
+            "bound_ms": ms, "bound_by": by, "library_ms": None,
+            "shape": "nchan8", "device_us": wd_us["nchan8" + sfx],
+            "deep8_ms": wdt["parts_deep8" + sfx],
+            "deep8_plain_ms": wdt["plain_deep8" + sfx],
+            "deep8_bound_ms": deep_ms, "deep8_bound_by": deep_by,
+            "deep8_device_us": wd_us["deep8" + sfx],
+            "dc_bin_max_rel_err": dc_bin[name],
+            "step_ms": wdt["step_kernel" + sfx],
+            "plain_step_ms": wdt["step_plain" + sfx],
+            "step_device_launches": wd_launches["step" + sfx],
+            "step_device_us": wd_us["step" + sfx],
+            # the two X stages at shapes both take, timed in one process
+            "x_stage_ab_ms": {k: v for k, v in xrt.items()
+                              if ("_i8_" in k) == int8},
+            "x_stage_ab_device_us": {k: v for k, v in xr_us.items()
+                                     if ("_i8_" in k) == int8},
+        })
+    ms, by = xstage_bound(NCHAN8, 1)
+    kernels.append({
+        "name": "fx_xstage", "route": "cuda", "source": XSTAGE_SOURCE,
+        "replaces": REPLACES["fx_xstage"], "launches": launches["fx_xstage"],
+        "max_abs_err": errs["fx_xstage"][0],
+        "max_rel_err": errs["fx_xstage"][1],
+        "ms": wdt["xstage"], "plain_ms": wdt["xstage_plain"],
+        "bound_ms": ms, "bound_by": by,
+        "library_ms": wdt["xstage_library"],
+        "library": "torch.matmul [nbins, nch, S] @ [nbins, S, nch]^H",
+        "shape": "nchan8", "device_us": wd_us["xstage_alone"],
+    })
     ms, by = finish_bound(FLAGSHIP, 1)
     kernels.append({
         "name": "fx_finish", "route": "cuda", "source": FINISH_SOURCE,

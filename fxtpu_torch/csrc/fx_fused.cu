@@ -20,7 +20,12 @@
 // and the same kernel's single-pass DC accumulators (tout_ref, uout_ref,
 // sout_ref and, in f32 mode, the corrected tail hout_ref: what
 // fx_pallas_parts returns) -> fxt_fx_parts, fxt_fx_parts_i8 (the PartsOut
-// output policy below: no mean pre-pass, the input read once);
+// output policy below: no mean pre-pass, the input read once), and for
+// channel counts whose spectra of a frame do not fit in one CTA's shared
+// memory (up to _fx_kernel's 64) -> fxt_fx_wide_frames, fxt_fx_wide_frames_i8
+// (the WideOut policy writes the spectra to device memory) and then the X
+// kernel of fx_xstage.cu (fxt_xstage, fxt_xstage_i8), which forms the
+// parts from them;
 // and pfb_pallas.py _kernel (launched by _pfb_fft_call, wrapped by
 // spectrometer_pallas) -> fxt_spectrometer; and scripts/fused_ablate.py's
 // kernel (its STAGE truncation; _fx_kernel's FXTPU_FUSED_ABLATE)
@@ -83,6 +88,11 @@
 // corrects them in VMEM first; one CTA per frame group across all blocks
 // cannot), so the caller corrects them with the raw-tail algebra, mu_prev
 // [k] = mu[k-1], in both ingests: the same function.  S >= ntaps-1.
+// fxt_fx_wide_frames / fxt_fx_wide_frames_i8 followed by fxt_xstage /
+// fxt_xstage_i8 have the same contract; that frame kernel keeps one
+// spectrum in shared memory, whatever nch is, and writes each to a scratch
+// [K, nch, S, nbins] (complex64, 64 MiB a block at 8 channels of 2^20
+// samples) that the X kernel reads once.
 //
 // Contract of fxt_spectrometer (spectrometer_pallas): x complex64
 // [nch, nsamp], the DC-corrected history [nch, ntaps-1, nbins] (ntaps >= 1)
@@ -140,6 +150,8 @@
 
 #include <cuda_runtime.h>
 
+#include "fx_common.cuh"   // cadd, csub, cmulconj, SumOf
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -147,34 +159,9 @@ constexpr int kWarps = kThreads / 32;
 // Largest SVD rank the FIR policy keeps in registers (fx_fused.MAX_SVD_RANK).
 constexpr int kMaxRank = 16;
 
-__device__ __forceinline__ float2 cadd(float2 a, float2 b) {
-  return make_float2(a.x + b.x, a.y + b.y);
-}
-
-__device__ __forceinline__ float2 csub(float2 a, float2 b) {
-  return make_float2(a.x - b.x, a.y - b.y);
-}
-
 __device__ __forceinline__ float2 cmul(float2 a, float2 b) {
   return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
 }
-
-// a * conj(b)
-__device__ __forceinline__ float2 cmulconj(float2 a, float2 b) {
-  return make_float2(a.x * b.x + a.y * b.y, a.y * b.x - a.x * b.y);
-}
-
-// The sum type of each sample type: double for complex64 samples, exact
-// 64-bit integers for int8 ones.
-template <typename T> struct SumOf;
-template <> struct SumOf<float2> {
-  using type = double;
-  using pair = double2;
-};
-template <> struct SumOf<char2> {
-  using type = long long;
-  using pair = longlong2;
-};
 
 // (a) Stage 1 of the means: grid (parts, nch, K).  Block (part, c, k)
 // sums one contiguous chunk of block k's n samples of channel c (channel
@@ -813,6 +800,33 @@ struct PartsOut {
   }
 };
 
+// WideOut, the single pass where a frame's spectra of all channels do not
+// fit in shared memory together (the wide route, fxt_fx_wide_frames): one
+// slot, as SpecOut, each channel's spectrum written to the device scratch
+// spec [K, nch, S, nbins] as it is done, and PartsOut's sample sums
+// (sums[k, group, c]); the cross power, T and GJ are formed from the
+// scratch by the X kernel (fx_xstage.cu).  Not a PartsOut in the shared
+// route's sense: only PartsOut's sample-sum members are used.
+template <typename T>
+struct WideOut : PartsOut<T> {
+  float2* spec_out;   // [K, nch, S, nbins]
+  int S;
+
+  __host__ __device__ static int slots(int) { return 1; }
+  __device__ float2* slot(float2* spec, int, int) const { return spec; }
+  __device__ void channel_done(const float2* own, int c, int f,
+                               int nbins) const {
+    float2* out = spec_out +
+                  ((static_cast<size_t>(blockIdx.y) * this->nch + c) * S + f) *
+                      nbins;
+    for (int bin = threadIdx.x; bin < nbins; bin += kThreads) {
+      out[bin] = own[bin];
+    }
+    __syncthreads();  // the next channel's FIR or FFT overwrites `own`
+  }
+  __device__ void frame_done(const float2*, int, int, int, int) const {}
+};
+
 // (b) One CTA per group of frames of one block: grid (n_groups, K),
 // block k = blockIdx.y.  Dynamic shared memory:
 //   spec  [slots][nbins] float2 — the frame's spectra (CrossOut: every
@@ -1169,6 +1183,39 @@ int fx_parts(const Rows& rows, const void* w, const void* u, const void* v,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The frame kernel of the single pass's wide route over K blocks on `st`:
+// raw rows with WideOut in the FIR mode `rank` gives, the spectra to `spec`
+// and the sample sums to `sums`.  The X kernel (fx_xstage.cu, fxt_xstage)
+// forms parts, mu and the new history from them in a launch of its own.
+template <typename T, class Rows>
+int fx_wide_frames(const Rows& rows, const void* w, const void* u,
+                   const void* v, const void* tw, void* sums, void* spec,
+                   int nch, int K, int S, int nbins, int ntaps, int rank,
+                   int n_groups, int frames_per_group, cudaStream_t st) {
+  using Pair = typename SumOf<T>::pair;
+  const int halo = ntaps - 1;
+  if (rank < 0 || rank > kMaxRank || halo < 1 || S < halo) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const WideOut<T> out{{nullptr, nullptr, nullptr, static_cast<Pair*>(sums),
+                        0, nch, halo},
+                       static_cast<float2*>(spec),
+                       S};
+  const auto none = []() { return cudaSuccess; };
+  cudaError_t err;
+  if (rank > 0) {
+    const SvdFir fir{static_cast<const float*>(u),
+                     static_cast<const float*>(v), rank};
+    err = launch_frames(rows, fir, out, tw, nch, K, S, nbins, ntaps, n_groups,
+                        frames_per_group, 0, 2 * kWarps, st, none);
+  } else {
+    const DirectFir fir{static_cast<const float*>(w)};
+    err = launch_frames(rows, fir, out, tw, nch, K, S, nbins, ntaps, n_groups,
+                        frames_per_group, 0, 2 * kWarps, st, none);
+  }
+  return static_cast<int>(err);
+}
+
 // The FIR mode of the FX entry points: rank 0 the direct tap loop over w,
 // rank 1 .. kMaxRank the factorisation u v.
 template <int Stage = kStageFull, typename T, class Rows>
@@ -1380,6 +1427,48 @@ extern "C" int fxt_fx_parts_i8(const void* x, const void* tail, const void* w,
                          mu, new_tail, nch, K, S, nbins, ntaps, rank, nbl,
                          n_groups, frames_per_group, step,
                          static_cast<cudaStream_t>(stream));
+}
+
+// The frame kernel of the single pass's wide route (fx_fused.fx_fused_parts
+// with the X stage over device memory): fxt_fx_parts's x, hist, w, u, v, tw,
+// sums and shapes; it writes every frame's spectrum of every channel to
+// spec [K, nch, S, nbins] float2, with no bound on nch from shared memory
+// (the caller takes nch <= 64).  fxt_xstage then forms the parts, mu and
+// the new history.  Returns cudaGetLastError().
+extern "C" int fxt_fx_wide_frames(const void* x, const void* hist,
+                                  const void* w, const void* u,
+                                  const void* v, const void* tw, void* sums,
+                                  void* spec, int nch, int K, int S,
+                                  int nbins, int ntaps, int rank,
+                                  int n_groups, int frames_per_group,
+                                  void* stream) {
+  const long long n = static_cast<long long>(S) * nbins;
+  const F32Raw rows{{static_cast<const float2*>(x),
+                     static_cast<const float2*>(hist), nullptr, n, K * n, S,
+                     ntaps - 1, nbins, nch}};
+  return fx_wide_frames<float2>(rows, w, u, v, tw, sums, spec, nch, K, S,
+                                nbins, ntaps, rank, n_groups,
+                                frames_per_group,
+                                static_cast<cudaStream_t>(stream));
+}
+
+// The int8 wide route's frame kernel: fxt_fx_parts_i8's x, tail, step and
+// the rest as for fxt_fx_wide_frames; fxt_xstage_i8 follows it.
+extern "C" int fxt_fx_wide_frames_i8(const void* x, const void* tail,
+                                     const void* w, const void* u,
+                                     const void* v, const void* tw,
+                                     void* sums, void* spec, int nch, int K,
+                                     int S, int nbins, int ntaps, int rank,
+                                     int n_groups, int frames_per_group,
+                                     double step, void* stream) {
+  const long long n = static_cast<long long>(S) * nbins;
+  const I8Raw rows{{static_cast<const char2*>(x),
+                    static_cast<const char2*>(tail), nullptr, nullptr, n,
+                    K * n, S, ntaps - 1, nbins, nch,
+                    static_cast<float>(step), step}};
+  return fx_wide_frames<char2>(rows, w, u, v, tw, sums, spec, nch, K, S,
+                               nbins, ntaps, rank, n_groups, frames_per_group,
+                               static_cast<cudaStream_t>(stream));
 }
 
 // The stage ablation (fx_fused.fx_fused_ablate): fxt_fx_fused with the

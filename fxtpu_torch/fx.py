@@ -14,11 +14,14 @@ per engine (``_resolve_fused``, like ``fxtpu.fx._resolve_fused``):
     means after the fact and applies the FSTC rotation, ``1/n_frames``,
     the fftshift and the continuum reduction on the tiny ``[nbl, nbins]``
     result (the rotation commutes with the frame sum): three kernel
-    launches a step.  (The two-pass wrappers ``ops.fx_fused.fx_fused_raw*``
-    with ``ops.fx_epilogue.finish`` compute the same step with a mean
-    pre-pass and an exact DC bin; nothing here calls them.)  On a
-    CUDA device each step is hand-written kernels; on the CPU their plain
-    versions, as ``fxtpu`` runs its Pallas kernel in interpret mode there.
+    launches a step, for 2 to 64 channels (where a frame's spectra of
+    all channels do not fit in one CTA's shared memory the single pass
+    takes its wide route, ``FxEngine.x_stage`` ``"global"``).  (The
+    two-pass wrappers ``ops.fx_fused.fx_fused_raw*`` with
+    ``ops.fx_epilogue.finish`` compute the same step with a mean pre-pass
+    and an exact DC bin; nothing here calls them.)  On a CUDA device
+    each step is hand-written kernels; on the CPU their plain versions,
+    as ``fxtpu`` runs its Pallas kernel in interpret mode there.
     Its FIR runs in one of two modes, chosen once with the route: through
     the window's rank-r factors where the window factorises
     (``ops.svd_fir.deep_svd_applies``: 16 taps or more, as
@@ -47,6 +50,7 @@ within ``fxtpu``'s own bound for that, 1e-5 of max|vis|.
 
 from __future__ import annotations
 
+import logging
 import threading
 from typing import Optional
 
@@ -59,7 +63,8 @@ from fxtpu_torch.ops.dc_posthoc import dc_constants
 from fxtpu_torch.ops.delay import estimate_delay
 from fxtpu_torch.ops.fx_epilogue import FinishTables, fx_fused_step
 from fxtpu_torch.ops.fx_fused import (max_blocks_parts, pairs_tensor,
-                                      supported, supported_i8, svd_tensors)
+                                      supported_parts, svd_tensors, x_route)
+from fxtpu_torch.ops.fx_xstage import fx_xstage
 from fxtpu_torch.ops.pfb import (dc_remove, dequantize, spectrometer,
                                  zero_history)
 from fxtpu_torch.ops.svd_fir import deep_svd_applies
@@ -71,33 +76,40 @@ from fxtpu_torch.runtime.native import quantize_c64
 __all__ = ["make_fx_step", "make_fx_multi_step", "make_calibrator",
            "dc_remove", "FxEngine"]
 
+logger = logging.getLogger(__name__)
+
 
 def _resolve_fused(fused, device: torch.device, nbins: int, ntaps: int,
-                   nch: int, *, int8: bool = False, s_rows: int = 0,
-                   rank: int = 0) -> bool:
+                   nch: int, *, int8: bool = False,
+                   s_rows: Optional[int] = None, rank: int = 0) -> bool:
     """The route, decided once per engine.  'auto' -> the fused route on a
-    CUDA device for every shape its kernel takes, plain torch otherwise;
-    True -> the fused route on any device (the kernel on a CUDA device,
-    its plain version on the CPU), raising for a shape the kernel does
-    not take; False -> plain torch.  ``int8`` asks about the int8 kernel,
-    which also needs ``s_rows`` (see ``fx_fused.supported_i8``; a
-    complex64 engine's blocks always hold the ntaps-1 rows the single pass
-    needs, the config's bound); ``rank`` is the SVD-FIR mode's rank (0:
-    the direct tap loop)."""
-    shape = f"nbins={nbins}, ntaps={ntaps}, nch={nch}, rank={rank}"
-    if int8:
-        takes = supported_i8(nbins, ntaps, nch, s_rows, rank)
-        check = "supported_i8"
-        shape += f", S={s_rows}"
-    else:
-        takes, check = supported(nbins, ntaps, nch, rank), "supported"
+    CUDA device for every shape its single pass takes
+    (``fx_fused.supported_parts``: up to 64 channels, the X stage in
+    shared memory or through device memory), plain torch otherwise, with
+    a warning on a CUDA device; True -> the fused route on any device (the
+    kernels on a CUDA device, their plain versions on the CPU), raising
+    for a shape the kernels do not take; False -> plain torch.  ``int8``
+    names the ingest in the messages; ``s_rows`` is the block's rows
+    (None: at least the ntaps-1 the single pass needs, which a complex64
+    engine's blocks always hold, the config's bound); ``rank`` is the
+    SVD-FIR mode's rank (0: the direct tap loop)."""
+    rows = ntaps - 1 if s_rows is None else s_rows
+    shape = (f"nbins={nbins}, ntaps={ntaps}, nch={nch}, S={rows}, "
+             f"rank={rank}")
+    takes = supported_parts(nbins, ntaps, nch, rows, rank)
+    check = "fxtpu_torch.ops.fx_fused.supported_parts"
     if fused == "auto":
+        if device.type == "cuda" and not takes:
+            logger.warning(
+                "fused='auto' takes the plain torch route on %s: the "
+                "%s single-pass kernels do not take %s (%s)", device,
+                "int8" if int8 else "complex64", shape, check)
         return device.type == "cuda" and takes
     if fused is True:
         if not takes:
             raise ValueError(
                 f"fused=True: the CUDA FX kernel does not take {shape} "
-                f"(see fxtpu_torch.ops.fx_fused.{check})")
+                f"(see {check})")
         return True
     if fused is False:
         return False
@@ -285,7 +297,10 @@ class FxEngine:
     ``cfg.device``.  The route is decided once, here: :attr:`fused_active`
     reports it, :attr:`kernel_active` whether it runs a CUDA kernel,
     :attr:`int8_native` whether 8-bit samples reach the fused step as
-    they are, and :attr:`fir_mode` which FIR the step runs."""
+    they are, :attr:`fir_mode` which FIR the step runs and
+    :attr:`x_stage` where its single pass forms the cross power (the
+    shared-memory route where the spectra of all channels fit, the wide
+    route elsewhere: ``fx_fused.x_route``)."""
 
     def __init__(self, cfg: CorrelatorConfig, fused=None):
         self.cfg = cfg
@@ -306,6 +321,9 @@ class FxEngine:
             int8=self._int8, s_rows=cfg.num_samp // cfg.nbins,
             rank=0 if svd is None else svd[0].shape[1])
         self._svd = svd if self._fused else None
+        self._x_stage = (x_route(cfg.nbins, cfg.ntaps, cfg.nchan,
+                                 self._rank())
+                         if self._fused else None)
         self._pinned = _PinnedBlocks()
         self.step = make_fx_step(
             mode=cfg.mode, nbins=cfg.nbins, window2d=self.window2d,
@@ -329,6 +347,10 @@ class FxEngine:
                 fused=self._fused, quant_step=cfg.quant_step, svd=self._svd)
         return self._multi_step
 
+    def _rank(self) -> int:
+        """The fused step's SVD rank (0: the direct tap loop)."""
+        return 0 if self._svd is None else self._svd[0].shape[1]
+
     @property
     def batch_merged(self) -> bool:
         """True when :meth:`prepare_batch` stages the merged ``[nch, K, S,
@@ -341,14 +363,16 @@ class FxEngine:
         call this engine takes (``fxtpu.fx.FxEngine.dispatch_batch_for``
         without a mesh), 1 for ``requested <= 1``: any K on the plain
         route; on the fused route at most what one kernel launch takes at
-        this shape (``ops.fx_fused.max_blocks_parts``)."""
+        this shape on its X stage (``ops.fx_fused.max_blocks_parts``: the
+        partials, or on the wide route the spectra scratch)."""
         if requested <= 1:
             return 1
         if not self._fused:
             return requested
         cfg = self.cfg
         most = max_blocks_parts(cfg.num_samp // cfg.nbins, cfg.nbins,
-                                cfg.nchan, len(self.pairs))
+                                cfg.nchan, len(self.pairs), ntaps=cfg.ntaps,
+                                rank=self._rank(), x_stage=self._x_stage)
         return max(1, min(requested, most))
 
     @property
@@ -367,13 +391,28 @@ class FxEngine:
         route calls, by wrapper name (process-wide counts since import or
         the last reset; empty on the plain route): the single pass in this
         engine's ingest and FIR mode (its ``svd_launches`` in the SVD-FIR
-        mode) and the epilogue."""
+        mode), on the wide route under ``wrapper.wide_launches`` (or
+        ``.wide_svd_launches``) beside its X kernel's ``fx_xstage``, and
+        the epilogue."""
         if not self._fused:
             return {}
         name = "fx_fused_parts_i8" if self._int8 else "fx_fused_parts"
         attr = "launches" if self._svd is None else "svd_launches"
-        return {name: getattr(getattr(fx_fused, name), attr),
+        if self._x_stage != "global":
+            return {name: getattr(getattr(fx_fused, name), attr),
+                    "fx_finish": fx_epilogue.fx_finish.launches}
+        attr = "wide_" + attr
+        return {f"{name}.{attr}": getattr(getattr(fx_fused, name), attr),
+                "fx_xstage": fx_xstage.launches,
                 "fx_finish": fx_epilogue.fx_finish.launches}
+
+    @property
+    def x_stage(self) -> Optional[str]:
+        """Where the fused step's single pass forms the cross power:
+        ``"shared"`` (every channel's spectrum of a frame in one CTA's
+        shared memory), ``"global"`` (the wide route: the spectra through
+        device memory to the X kernel), None on the plain route."""
+        return self._x_stage
 
     @property
     def fir_mode(self) -> str:

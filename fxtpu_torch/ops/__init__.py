@@ -15,8 +15,11 @@ from fxtpu_torch.ops.dc_posthoc import (block_mu_prev, dc_constants,
                                         dc_correct)
 from fxtpu_torch.ops.fx_fused import (fx_fused_parts, fx_fused_parts_i8,
                                       fx_fused_parts_i8_reference,
+                                      fx_fused_parts_i8_wide_reference,
                                       fx_fused_parts_reference,
-                                      supported_parts)
+                                      fx_fused_parts_wide_reference,
+                                      supported_parts, x_route)
+from fxtpu_torch.ops.fx_xstage import fx_xstage, fx_xstage_reference
 from fxtpu_torch.ops.fx_fused import (fx_fused_raw, fx_fused_raw_i8,
                                       fx_fused_raw_i8_multi,
                                       fx_fused_raw_i8_multi_reference,
@@ -46,7 +49,9 @@ __all__ = [
     "supported_i8", "supported_parts",
     "block_mu_prev", "dc_constants", "dc_correct",
     "fx_fused_parts", "fx_fused_parts_reference", "fx_fused_parts_i8",
-    "fx_fused_parts_i8_reference",
+    "fx_fused_parts_i8_reference", "fx_fused_parts_wide_reference",
+    "fx_fused_parts_i8_wide_reference", "x_route", "fx_xstage",
+    "fx_xstage_reference",
     "finish", "fx_finish", "fx_finish_reference", "fx_fused_step",
     "svd_tensors", "spectrometer_fused", "spectrometer_fused_reference",
     "supported_spectrometer",

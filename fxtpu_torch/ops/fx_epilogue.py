@@ -15,8 +15,8 @@ of what ``fxtpu`` jits into one executable with its kernel:
     which is those two functions, some forty small launches;
   * :func:`fx_fused_step`, what the engine's fused route calls per block
     or per K blocks: the single pass (``fx_fused.fx_fused_parts`` or
-    ``fx_fused_parts_i8``) and :func:`fx_finish`, three kernel launches
-    on a CUDA device.
+    ``fx_fused_parts_i8``, either X stage) and :func:`fx_finish`, three
+    kernel launches on a CUDA device.
 
 A wrapper runs the plain version only for CPU tensors; for CUDA tensors
 it launches the kernel or raises.  ``fx_finish.launches`` counts launches.
@@ -209,8 +209,9 @@ def fx_fused_step(iq: torch.Tensor, history, window2d: torch.Tensor,
     ``{"tail", "mu_prev"}`` and ``quant_step``) -> ``(vis [K, nbl, nbins]
     or [K, nbl], new_history)`` in the same history contract: the parts,
     then :func:`fx_finish` with ``delays [K, nch(, 2)]``.  On a CUDA
-    device that is three kernel launches (frames, reduce, epilogue) and
-    nothing else; on the CPU the plain versions."""
+    device that is three kernel launches (frames, reduce or on the wide
+    route the X kernel, epilogue) and nothing else; on the CPU the plain
+    versions."""
     if isinstance(history, dict):
         xp, t, gj, mu, tail = fx_fused_parts_i8(
             iq, history["tail"], window2d, pairs, quant_step, svd, consts)

@@ -60,6 +60,18 @@ result agrees with K chained one-block calls within rounding, no longer
 bit for bit.  The two-pass wrappers above keep their contract: one call
 that returns corrected cross power, its DC bin included, exactly.
 
+The single pass forms its X stage on one of two routes (``x_stage``,
+:data:`X_STAGES`, chosen by :func:`x_route`): the shared-memory route,
+where every channel's spectrum of a frame stays in one CTA's shared
+memory (:func:`supported`: 6 channels at 4096 bins, 2 at 8192), and the
+wide route for the rest, up to ``fxtpu``'s 64 channels
+(:data:`MAX_FUSED_NCHAN`): the frame kernel writes each spectrum to a
+device scratch ``[K, nch, S, nbins]`` and the X kernel
+(``ops.fx_xstage``, ``csrc/fx_xstage.cu``) forms the parts from it, with
+the same contract; its plain versions are :func:`fx_fused_parts_wide_reference`
+and :func:`fx_fused_parts_i8_wide_reference`, the spectra first and then
+``fx_xstage.fx_xstage_reference``.  :func:`supported_parts` takes either.
+
 The rotation, ``1/n_frames``, fftshift and continuum stay with the caller
 (``fxtpu_torch.ops.fx_epilogue``), as ``_finish_fused`` stays XLA in JAX.
 
@@ -81,6 +93,8 @@ import numpy as np
 import torch
 
 from fxtpu_torch.ops.dc_posthoc import dc_constants
+from fxtpu_torch.ops.fx_xstage import (fx_xstage_reference, xstage_launch,
+                                       xstage_shared_bytes)
 from fxtpu_torch.ops.pfb import (dequantize, pfb_fir, spectrometer_rows,
                                  svd_fir)
 from fxtpu_torch.ops.svd_fir import svd_fir_factors
@@ -91,11 +105,13 @@ __all__ = ["supported", "supported_i8", "fx_fused_raw",
            "fx_fused_raw_multi_reference", "fx_fused_raw_i8_multi",
            "fx_fused_raw_i8_multi_reference", "fx_fused_parts",
            "fx_fused_parts_reference", "fx_fused_parts_i8",
-           "fx_fused_parts_i8_reference", "supported_parts",
+           "fx_fused_parts_i8_reference", "fx_fused_parts_wide_reference",
+           "fx_fused_parts_i8_wide_reference", "supported_parts", "x_route",
            "max_blocks_parts", "fx_fused_ablate",
            "fx_fused_ablate_reference", "stockham_stages", "max_blocks",
            "pairs_tensor", "svd_tensors", "MAX_SHARED_BYTES",
-           "MAX_SVD_RANK", "STAGES", "FFT_STAGE_BINS"]
+           "MAX_SVD_RANK", "MAX_FUSED_NCHAN", "X_STAGES", "STAGES",
+           "FFT_STAGE_BINS"]
 
 #: Dynamic shared memory one block may use on Hopper (227 KiB).
 MAX_SHARED_BYTES = 232448
@@ -112,6 +128,15 @@ MAX_LAUNCH_PARTIAL_BYTES = 1 << 30
 PARTS_CHAN_SLOTS = 16
 #: Largest SVD rank the kernel's FIR keeps in registers (kMaxRank).
 MAX_SVD_RANK = 16
+#: Most channels the single pass takes (``fxtpu``'s ``MAX_FUSED_NCHAN``,
+#: ``pfb_pallas.py:87``).
+MAX_FUSED_NCHAN = 64
+#: Where the single pass forms its X stage: ``"shared"``, every channel's
+#: spectrum of a frame in one CTA's shared memory (``supported``);
+#: ``"global"``, the wide route, the spectra written to device memory and
+#: read by the X kernel (``ops.fx_xstage``); ``"auto"``, shared where it
+#: fits, else global.
+X_STAGES = ("auto", "shared", "global")
 #: Most blocks one launch takes (the grid's second axis).
 MAX_BLOCKS = 65535
 #: Stages of the ablation, in the kernel's numbering (kStageFull ...):
@@ -134,6 +159,15 @@ def shared_bytes(nbins: int, nch: int, ntaps: int = 0, rank: int = 0,
     reads dA from device memory) and, in the SVD-FIR mode (``rank > 0``),
     the ``[ntaps, rank]`` float32 table u."""
     return (((nch + 1) * nbins + nch * mean_blocks) * 8
+            + ntaps * rank * 4)
+
+
+def shared_bytes_wide(nbins: int, nch: int, ntaps: int = 0,
+                      rank: int = 0) -> int:
+    """Dynamic shared memory of the wide route's frame kernel (one
+    spectrum slot, whatever nch is): the spectrum, the FFT's work buffer,
+    the warps' sample sums of every channel and the SVD table u."""
+    return ((2 * nbins + nch * PARTS_CHAN_SLOTS) * 8
             + ntaps * rank * 4)
 
 
@@ -172,12 +206,44 @@ def supported_i8(nbins: int, ntaps: int, nch: int, s_rows: int,
 def supported_parts(nbins: int, ntaps: int, nch: int, s_rows: int,
                     rank: int = 0) -> bool:
     """True when the single-pass kernels take this shape, in either
-    ingest: what :func:`supported` asks, and a block of at least ntaps-1
-    rows: the post-hoc correction assumes that a block's first ntaps-1
-    frames reach into the previous block only (``fxtpu``'s ``_pick_tile``
-    asks the same): :func:`supported_i8`'s condition.  An engine's blocks
-    always hold ntaps rows (the config's bound)."""
-    return supported_i8(nbins, ntaps, nch, s_rows, rank)
+    ingest: nbins a power of two in [256, 8192], ntaps >= 2, an SVD rank
+    in [0, MAX_SVD_RANK], 1 to MAX_FUSED_NCHAN channels (``fxtpu``'s
+    bound), a block of at least ntaps-1 rows (the post-hoc correction
+    assumes that a block's first ntaps-1 frames reach into the previous
+    block only; ``fxtpu``'s ``_pick_tile`` asks the same), and one of the
+    two X stages fits (:func:`x_route`): the shared-memory route where
+    :func:`supported` holds, else the wide route, whose frame kernel and X
+    kernel fit for every such nch.  An engine's blocks always hold ntaps
+    rows (the config's bound)."""
+    if not (256 <= nbins <= 8192 and nbins & (nbins - 1) == 0
+            and ntaps >= 2 and 1 <= nch <= MAX_FUSED_NCHAN
+            and 0 <= rank <= MAX_SVD_RANK and s_rows >= ntaps - 1):
+        return False
+    return supported(nbins, ntaps, nch, rank) or (
+        shared_bytes_wide(nbins, nch, ntaps, rank) <= MAX_SHARED_BYTES
+        and xstage_shared_bytes(nch) <= MAX_SHARED_BYTES)
+
+
+def x_route(nbins: int, ntaps: int, nch: int, rank: int = 0,
+            x_stage: str = "auto") -> str:
+    """The single pass's X stage at this shape: ``"shared"`` or
+    ``"global"`` (:data:`X_STAGES`).  ``"auto"`` takes the shared-memory
+    route where :func:`supported` holds and the wide route elsewhere;
+    ``"shared"`` raises where it does not hold; ``"global"`` is the wide
+    route at any shape (a caller forces it where both fit, to compare
+    them)."""
+    if x_stage not in X_STAGES:
+        raise ValueError(f"x_stage must be one of {X_STAGES}, got "
+                         f"{x_stage!r}")
+    fits = supported(nbins, ntaps, nch, rank)
+    if x_stage == "shared" and not fits:
+        raise ValueError(
+            f"x_stage='shared': the spectra of nch={nch} channels of "
+            f"{nbins} bins (rank={rank}) do not fit in one CTA's shared "
+            "memory (see fx_fused.supported)")
+    if x_stage == "auto":
+        return "shared" if fits else "global"
+    return x_stage
 
 
 def svd_tensors(window2d, device):
@@ -330,12 +396,30 @@ def max_blocks(s_rows: int, nbins: int, ntaps: int, nch: int, rank: int,
     return k
 
 
-def max_blocks_parts(s_rows: int, nbins: int, nch: int, nbl: int) -> int:
-    """:func:`max_blocks` for the single-pass kernels: their partials hold
-    ``nbl + 2 nch`` rows a CTA (the cross power, T and GJ), and their
-    shared memory does not grow with K."""
-    rows = nbl + 2 * nch
-    per_block = _groups(s_rows, rows, nbins)[0] * rows * nbins * 8
+def _wide_groups(s_rows: int):
+    """(n_groups, frames_per_group) of one block on the wide route, whose
+    CTAs write no partials: one frame per CTA up to MAX_GROUPS CTAs."""
+    n = max(1, min(s_rows, MAX_GROUPS))
+    per = -(-s_rows // n)
+    return -(-s_rows // per), per
+
+
+def max_blocks_parts(s_rows: int, nbins: int, nch: int, nbl: int, *,
+                     ntaps: int = 2, rank: int = 0,
+                     x_stage: str = "auto") -> int:
+    """:func:`max_blocks` for the single-pass kernels, on the X stage
+    :func:`x_route` gives: the shared route's partials hold ``nbl + 2
+    nch`` rows a CTA (the cross power, T and GJ); the wide route's scratch
+    holds every channel's spectra of the block (``nch S nbins``
+    complex64: 64 MiB a block at 8 channels of 2^20 samples) and its
+    groups' sample sums.  Either grows with K under
+    MAX_LAUNCH_PARTIAL_BYTES; their shared memory does not."""
+    if x_route(nbins, ntaps, nch, rank, x_stage) == "global":
+        per_block = (nch * s_rows * nbins * 8
+                     + _wide_groups(s_rows)[0] * nch * 16)
+    else:
+        rows = nbl + 2 * nch
+        per_block = _groups(s_rows, rows, nbins)[0] * rows * nbins * 8
     return min(MAX_BLOCKS, MAX_LAUNCH_PARTIAL_BYTES // per_block)
 
 
@@ -352,7 +436,10 @@ def _check_blocks(k, s_rows, nbins, ntaps, nch, rank, nbl):
             f"shared memory, {MAX_SHARED_BYTES} bytes)")
 
 
-def _check(x, history, window2d, pairs, svd, multi=False, blocks=True):
+def _check(x, history, window2d, pairs, svd, multi=False, blocks=True,
+           fits=True):
+    """The complex64 kernels' checks; ``fits`` False leaves the
+    shared-memory bound (:func:`supported`) to the caller."""
     if x.dtype != torch.complex64 or history.dtype != torch.complex64:
         raise TypeError("x and history must be complex64")
     if x.ndim != (4 if multi else 3):
@@ -365,7 +452,7 @@ def _check(x, history, window2d, pairs, svd, multi=False, blocks=True):
     if history.shape != (nch, ntaps - 1, nbins):
         raise ValueError(f"history {tuple(history.shape)} must be "
                          f"{(nch, ntaps - 1, nbins)}")
-    if not supported(nbins, ntaps, nch, rank):
+    if fits and not supported(nbins, ntaps, nch, rank):
         raise ValueError(
             f"the CUDA FX kernel does not take nbins={nbins}, "
             f"ntaps={ntaps}, nch={nch}, rank={rank} (see "
@@ -384,9 +471,10 @@ def _check_i8(x, history, window2d, pairs, quant_step, svd, multi=False):
 
 
 def _check_i8_rows(x, tail, window2d, pairs, quant_step, svd, multi=False,
-                   blocks=True, mu_prev=None):
+                   blocks=True, mu_prev=None, fits=True):
     """The int8 kernels' checks over the samples and the raw tail, and
-    over ``mu_prev`` where the entry takes it (the two-pass ones)."""
+    over ``mu_prev`` where the entry takes it (the two-pass ones);
+    ``fits`` as for :func:`_check`."""
     if x.dtype != torch.int8 or tail.dtype != torch.int8:
         raise TypeError("x and the tail must be int8")
     if mu_prev is not None and mu_prev.dtype != torch.complex64:
@@ -409,7 +497,7 @@ def _check_i8_rows(x, tail, window2d, pairs, quant_step, svd, multi=False,
                          "(an even address)")
     if not (math.isfinite(quant_step) and quant_step > 0):
         raise ValueError(f"quant_step must be positive, got {quant_step}")
-    if not supported_i8(nbins, ntaps, nch, s_rows, rank):
+    if fits and not supported_i8(nbins, ntaps, nch, s_rows, rank):
         raise ValueError(
             f"the CUDA int8 FX kernel does not take nbins={nbins}, "
             f"ntaps={ntaps}, nch={nch}, S={s_rows}, rank={rank} (see "
@@ -662,14 +750,19 @@ fx_fused_raw_i8_multi.launches = 0
 fx_fused_raw_i8_multi.svd_launches = 0
 
 
+def _raw_spectra(rows, hist, x_shape, window2d, svd):
+    """The spectra ``[nch, K, S, nbins]`` of the merged raw rows ``[nch,
+    K S, nbins]`` behind the raw history ``hist``, by ``torch.fft``."""
+    merged = torch.cat([hist, rows], dim=1)
+    fir = pfb_fir(merged, window2d) if svd is None else svd_fir(merged, *svd)
+    return torch.fft.fft(fir, dim=-1).reshape(x_shape)
+
+
 def _parts_from_rows(rows, hist, x_shape, window2d, pairs, svd, consts):
     """(xp_raw, T, GJ) of the merged raw rows ``[nch, K S, nbins]`` behind
     the raw history ``hist``, by ``torch.fft``."""
-    nch, k, s_rows, nbins = x_shape
     halo = window2d.shape[0] - 1
-    merged = torch.cat([hist, rows], dim=1)
-    fir = pfb_fir(merged, window2d) if svd is None else svd_fir(merged, *svd)
-    spec = torch.fft.fft(fir, dim=-1).reshape(nch, k, s_rows, nbins)
+    spec = _raw_spectra(rows, hist, x_shape, window2d, svd)
     idx = pairs.to(device=spec.device, dtype=torch.long)
     xp = (spec[idx[:, 0]] * spec[idx[:, 1]].conj()).sum(dim=-2)
     gj = (spec[:, :, :halo] * consts[1].conj()).sum(dim=-2)
@@ -717,17 +810,61 @@ def fx_fused_parts_i8_reference(x: torch.Tensor, tail: torch.Tensor,
                                       mu[-1])["tail"]
 
 
-def _check_parts(x, history, window2d, pairs, svd, consts, quant_step=None):
+def _wide_from_spectra(spec, pairs, da):
+    """(xp_raw, T, GJ) of the spectra ``[nch, K, S, nbins]`` through the
+    wide route's X stage (:func:`fx_xstage_reference`)."""
+    nbl, nch = pairs.shape[0], spec.shape[0]
+    parts = fx_xstage_reference(spec.transpose(0, 1).contiguous(), pairs, da)
+    return parts[:, :nbl], parts[:, nbl:nbl + nch], parts[:, nbl + nch:]
+
+
+def fx_fused_parts_wide_reference(x: torch.Tensor, history: torch.Tensor,
+                                  window2d: torch.Tensor, pairs: torch.Tensor,
+                                  svd=None, consts=None):
+    """The single pass's wide route in plain torch, same contract as
+    :func:`fx_fused_parts`: the spectra of the raw rows first, then the X
+    stage over them (``ops.fx_xstage.fx_xstage_reference``, autos with no
+    imaginary part), as the CUDA route composes them."""
+    nch, k, s_rows, nbins = x.shape
+    halo = window2d.shape[0] - 1
+    consts = _parts_consts(consts, window2d, nbins, s_rows, x.device)
+    spec = _raw_spectra(x.reshape(nch, k * s_rows, nbins), history, x.shape,
+                        window2d, svd)
+    mu = x.mean(dim=(-2, -1)).T.contiguous()                  # [K, nch]
+    tail = x[:, -1, s_rows - halo:] - mu[-1][:, None, None]
+    return (*_wide_from_spectra(spec, pairs, consts[1]), mu, tail)
+
+
+def fx_fused_parts_i8_wide_reference(x: torch.Tensor, tail: torch.Tensor,
+                                     window2d: torch.Tensor,
+                                     pairs: torch.Tensor, quant_step: float,
+                                     svd=None, consts=None):
+    """The int8 single pass's wide route in plain torch, same contract as
+    :func:`fx_fused_parts_i8` (:func:`fx_fused_parts_wide_reference`'s
+    composition)."""
+    nch, k, s_rows, nbins = x.shape[:4]
+    consts = _parts_consts(consts, window2d, nbins, s_rows, x.device)
+    rows = dequantize(x, quant_step).reshape(nch, k * s_rows, nbins)
+    spec = _raw_spectra(rows, dequantize(tail, quant_step), x.shape[:4],
+                        window2d, svd)
+    mu = torch.stack([block_mean_i8(x[:, j], quant_step) for j in range(k)])
+    return (*_wide_from_spectra(spec, pairs, consts[1]), mu,
+            _i8_history(x[:, -1], window2d.shape[0], mu[-1])["tail"])
+
+
+def _check_parts(x, history, window2d, pairs, svd, consts, quant_step=None,
+                 x_stage="auto"):
     """What the single-pass wrappers check beyond the two-pass ones'
-    checks: the constants' table dA, S >= ntaps-1 and the K-block bound
-    of their own partials.  Returns the FIR mode's rank."""
+    checks (whose shared-memory bound only the shared route keeps): the
+    constants' table dA, S >= ntaps-1 and the K-block bound of the
+    route's scratch.  Returns (the FIR mode's rank, the route)."""
     if quant_step is not None:
         rank = _check_i8_rows(x, history, window2d, pairs, quant_step, svd,
-                              multi=True, blocks=False)
+                              multi=True, blocks=False, fits=False)
         nch, k, s_rows, nbins = x.shape[:4]
     else:
         rank = _check(x, history, window2d, pairs, svd, multi=True,
-                      blocks=False)
+                      blocks=False, fits=False)
         nch, k, s_rows, nbins = x.shape
     ntaps = window2d.shape[0]
     if not supported_parts(nbins, ntaps, nch, s_rows, rank):
@@ -735,11 +872,14 @@ def _check_parts(x, history, window2d, pairs, svd, consts, quant_step=None):
             f"the single-pass FX kernel does not take nbins={nbins}, "
             f"ntaps={ntaps}, nch={nch}, S={s_rows}, rank={rank} (see "
             "fx_fused.supported_parts)")
-    most = max_blocks_parts(s_rows, nbins, nch, pairs.shape[0])
+    route = x_route(nbins, ntaps, nch, rank, x_stage)
+    most = max_blocks_parts(s_rows, nbins, nch, pairs.shape[0], ntaps=ntaps,
+                            rank=rank, x_stage=route)
     if not 1 <= k <= most:
         raise ValueError(
             f"{k} blocks of S={s_rows} per launch: the single-pass kernel "
-            f"takes 1 to {most} at this shape (fx_fused.max_blocks_parts)")
+            f"takes 1 to {most} at this shape on its {route} X stage "
+            "(fx_fused.max_blocks_parts)")
     da = consts[1]
     if (da.dtype != torch.complex64 or da.device != x.device
             or da.shape != (ntaps - 1, nbins) or not da.is_contiguous()):
@@ -747,48 +887,88 @@ def _check_parts(x, history, window2d, pairs, svd, consts, quant_step=None):
             f"consts must be dc_posthoc.dc_constants on {x.device}: dA "
             f"{tuple(da.shape)} {da.dtype} on {da.device}, expected "
             f"{(ntaps - 1, nbins)} complex64")
-    return rank
+    return rank, route
 
 
 def _launch_parts(x, history, window2d, pairs, svd, consts, rank, step,
-                  what):
+                  what, route="shared"):
     """Either single-pass entry over the merged x (checked) -> (xp_raw,
     T, GJ, mu, new history): complex64 the corrected tail, int8 (``step``
-    not None) the raw tail.  Two kernels: frames and reduce."""
+    not None) the raw tail.  Two kernels: frames and, on the shared
+    route, the reduce, on the wide route (``route`` "global") the X
+    kernel, which does the reduce's work too; ``fx_xstage`` launches that
+    one and counts it."""
     from fxtpu_torch.cuda_build import check, load_kernels
     lib = load_kernels()
     int8 = step is not None
+    wide = route == "global"
     nch, k, s_rows, nbins = x.shape[:4]
     ntaps, nbl, dev = window2d.shape[0], pairs.shape[0], x.device
     rows = nbl + 2 * nch
-    n_groups, per = _groups(s_rows, rows, nbins)
     parts = torch.empty((k, rows, nbins), dtype=torch.complex64, device=dev)
-    partial = torch.empty((k, n_groups, rows, nbins), dtype=torch.complex64,
-                          device=dev)
+    if wide:
+        n_groups, per = _wide_groups(s_rows)
+        scratch = torch.empty((k, nch, s_rows, nbins), dtype=torch.complex64,
+                              device=dev)
+    else:
+        n_groups, per = _groups(s_rows, rows, nbins)
+        scratch = torch.empty((k, n_groups, rows, nbins),
+                              dtype=torch.complex64, device=dev)
     sums = torch.empty((k, n_groups, nch, 2),
                        dtype=torch.int64 if int8 else torch.float64,
                        device=dev)
     mu = torch.empty((k, nch), dtype=torch.complex64, device=dev)
     new_hist = torch.empty_like(history)
     tw = _twiddles(nbins, dev)
+    extra = (step,) if int8 else ()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        entry, extra = ((lib.fxt_fx_parts_i8, (step,)) if int8
-                        else (lib.fxt_fx_parts, ()))
-        rc = entry(
-            x.data_ptr(), history.data_ptr(), window2d.data_ptr(),
-            *_svd_ptrs(svd), tw.data_ptr(), pairs.data_ptr(),
-            consts[1].data_ptr(), sums.data_ptr(), partial.data_ptr(),
-            parts.data_ptr(), mu.data_ptr(), new_hist.data_ptr(), nch, k,
-            s_rows, nbins, ntaps, rank, nbl, n_groups, per, *extra, stream)
+        if wide:
+            entry = lib.fxt_fx_wide_frames_i8 if int8 else (
+                lib.fxt_fx_wide_frames)
+            rc = entry(
+                x.data_ptr(), history.data_ptr(), window2d.data_ptr(),
+                *_svd_ptrs(svd), tw.data_ptr(), sums.data_ptr(),
+                scratch.data_ptr(), nch, k, s_rows, nbins, ntaps, rank,
+                n_groups, per, *extra, stream)
+        else:
+            entry = lib.fxt_fx_parts_i8 if int8 else lib.fxt_fx_parts
+            rc = entry(
+                x.data_ptr(), history.data_ptr(), window2d.data_ptr(),
+                *_svd_ptrs(svd), tw.data_ptr(), pairs.data_ptr(),
+                consts[1].data_ptr(), sums.data_ptr(), scratch.data_ptr(),
+                parts.data_ptr(), mu.data_ptr(), new_hist.data_ptr(), nch,
+                k, s_rows, nbins, ntaps, rank, nbl, n_groups, per, *extra,
+                stream)
     check(lib, rc, what)
+    if wide:
+        # the X kernel, a launch of its own, counted on fx_xstage.launches
+        xstage_launch(scratch, pairs, consts[1], parts,
+                      (x, sums, mu, new_hist, n_groups, step))
     return (parts[:, :nbl], parts[:, nbl:nbl + nch], parts[:, nbl + nch:],
             mu, new_hist)
 
 
+def _count_parts(wrapper, rank, route):
+    """The single pass's counters: the shared route's ``.launches`` /
+    ``.svd_launches``, the wide route's ``.wide_launches`` /
+    ``.wide_svd_launches``."""
+    attr = ("wide_" if route == "global" else "") + (
+        "svd_launches" if rank else "launches")
+    setattr(wrapper, attr, getattr(wrapper, attr) + 1)
+
+
+def _cpu_route(x, window2d, svd, x_stage):
+    """The X stage a CPU call's plain version follows: the one the card
+    takes at this shape (:func:`x_route`)."""
+    rank = 0 if svd is None else svd[0].shape[-1]
+    ntaps, nbins = window2d.shape
+    return x_route(nbins, ntaps, x.shape[0], rank, x_stage)
+
+
 def fx_fused_parts(x: torch.Tensor, history: torch.Tensor,
                    window2d: torch.Tensor, pairs: torch.Tensor, svd=None,
-                   consts=None):
+                   consts=None, *, x_stage: str = "auto"):
     """The single-pass fused step over the K blocks of the merged ``x
     [nch, K, S, nbins]`` complex64 (one block: ``x[:, None]``) ->
     ``(xp_raw [K, nbl, nbins], T [K, nch, nbins], GJ [K, nch, nbins], mu
@@ -803,30 +983,44 @@ def fx_fused_parts(x: torch.Tensor, history: torch.Tensor,
     window for ``S`` on ``x``'s device (formed here when None, through
     the host); ``dc_posthoc.dc_correct(xp_raw, T, GJ, mu, pairs, consts,
     block_mu_prev(mu))`` is the corrected cross power.  S >= ntaps-1.
+    ``x_stage`` (:data:`X_STAGES`) picks the X stage: every channel's
+    spectrum of a frame in shared memory, or (the wide route, where they
+    do not fit or where a caller forces it) the spectra through device
+    memory to the X kernel; the contract is the same (:func:`x_route`).
 
-    CPU tensors run :func:`fx_fused_parts_reference`; CUDA tensors launch
-    the kernels (frames and reduce, no mean pre-pass) or raise.  Each call
-    adds one to ``fx_fused_parts.launches`` (direct) or
-    ``fx_fused_parts.svd_launches``."""
+    CPU tensors run :func:`fx_fused_parts_reference`, or on the wide route
+    :func:`fx_fused_parts_wide_reference`; CUDA tensors launch the kernels
+    (frames, then the reduce or the X kernel; no mean pre-pass) or raise.
+    Each call adds one to ``fx_fused_parts.launches`` (direct) or
+    ``fx_fused_parts.svd_launches``, on the wide route to
+    ``fx_fused_parts.wide_launches`` or ``.wide_svd_launches`` (its frame
+    kernel) and to ``fx_xstage.launches`` (its X kernel)."""
     if not _on_card(x, "fx_fused_parts"):
+        if _cpu_route(x, window2d, svd, x_stage) == "global":
+            return fx_fused_parts_wide_reference(x, history, window2d, pairs,
+                                                 svd, consts)
         return fx_fused_parts_reference(x, history, window2d, pairs, svd,
                                         consts)
     consts = _parts_consts(consts, window2d, x.shape[-1], x.shape[-2],
                            x.device)
-    rank = _check_parts(x, history, window2d, pairs, svd, consts)
+    rank, route = _check_parts(x, history, window2d, pairs, svd, consts,
+                               x_stage=x_stage)
     out = _launch_parts(x, history, window2d, pairs, svd, consts, rank, None,
-                        "fx_parts kernel launch")
-    _count(fx_fused_parts, rank)
+                        "fx_parts kernel launch", route)
+    _count_parts(fx_fused_parts, rank, route)
     return out
 
 
 fx_fused_parts.launches = 0
 fx_fused_parts.svd_launches = 0
+fx_fused_parts.wide_launches = 0
+fx_fused_parts.wide_svd_launches = 0
 
 
 def fx_fused_parts_i8(x: torch.Tensor, tail: torch.Tensor,
                       window2d: torch.Tensor, pairs: torch.Tensor,
-                      quant_step: float, svd=None, consts=None):
+                      quant_step: float, svd=None, consts=None, *,
+                      x_stage: str = "auto"):
     """The single-pass fused step over the K blocks of the merged 8-bit
     ``x [nch, K, S, nbins, 2]`` -> ``(xp_raw, T, GJ, mu, new_tail)`` as
     :func:`fx_fused_parts` returns them, in real units (each sample times
@@ -836,26 +1030,36 @@ def fx_fused_parts_i8(x: torch.Tensor, tail: torch.Tensor,
     arrived, the next call's ``tail`` (``fx_pallas_parts`` leaves that
     slice to its caller; here the reduce kernel writes it, so a step
     needs no launch of its own for it).  Correct with ``dc_correct(...,
-    mu_prev=block_mu_prev(mu, carried mu_prev))``.
+    mu_prev=block_mu_prev(mu, carried mu_prev))``.  ``x_stage`` as for
+    :func:`fx_fused_parts`.
 
-    CPU tensors run :func:`fx_fused_parts_i8_reference`; CUDA tensors
-    launch the kernels or raise.  Each call adds one to
-    ``fx_fused_parts_i8.launches`` (direct) or ``.svd_launches``."""
+    CPU tensors run :func:`fx_fused_parts_i8_reference`, or on the wide
+    route :func:`fx_fused_parts_i8_wide_reference`; CUDA tensors launch
+    the kernels or raise.  Each call adds one to
+    ``fx_fused_parts_i8.launches`` (direct) or ``.svd_launches``, on the
+    wide route to ``.wide_launches`` or ``.wide_svd_launches`` and to
+    ``fx_xstage.launches``."""
     if not _on_card(x, "fx_fused_parts_i8"):
+        if _cpu_route(x, window2d, svd, x_stage) == "global":
+            return fx_fused_parts_i8_wide_reference(
+                x, tail, window2d, pairs, quant_step, svd, consts)
         return fx_fused_parts_i8_reference(x, tail, window2d, pairs,
                                            quant_step, svd, consts)
     quant_step = float(quant_step)
     consts = _parts_consts(consts, window2d, x.shape[-2], x.shape[-3],
                            x.device)
-    rank = _check_parts(x, tail, window2d, pairs, svd, consts, quant_step)
+    rank, route = _check_parts(x, tail, window2d, pairs, svd, consts,
+                               quant_step, x_stage)
     out = _launch_parts(x, tail, window2d, pairs, svd, consts, rank,
-                        quant_step, "fx_parts_i8 kernel launch")
-    _count(fx_fused_parts_i8, rank)
+                        quant_step, "fx_parts_i8 kernel launch", route)
+    _count_parts(fx_fused_parts_i8, rank, route)
     return out
 
 
 fx_fused_parts_i8.launches = 0
 fx_fused_parts_i8.svd_launches = 0
+fx_fused_parts_i8.wide_launches = 0
+fx_fused_parts_i8.wide_svd_launches = 0
 
 
 def stockham_stages(x: torch.Tensor, nstages: int) -> torch.Tensor:

@@ -396,7 +396,8 @@ def test_parts_wrappers_take_plain_versions_on_cpu(ingest):
     (256, 4, 2, 2, 0, False),        # a block shorter than the halo
     (8192, 32, 2, 32, 6, True),      # the CLI's deep-tap block
     (8192, 32, 2, 30, 6, False), (4096, 4, 6, 64, 0, True),
-    (4096, 4, 7, 64, 0, False), (384, 4, 2, 64, 0, False),
+    (4096, 4, 7, 64, 0, True),       # the wide route (x_stage "global")
+    (384, 4, 2, 64, 0, False),
 ])
 def test_supported_parts_shapes(nbins, ntaps, nch, s_rows, rank, ok):
     assert supported_parts(nbins, ntaps, nch, s_rows, rank) is ok

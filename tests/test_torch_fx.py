@@ -334,7 +334,9 @@ def test_fir_mode_resolution():
         _resolve_fused(True, cuda, 256, 32, 2, rank=17)
     assert not _resolve_fused("auto", cuda, 256, 32, 2, rank=17)
     assert _resolve_fused("auto", cuda, 8192, 32, 2, rank=6)
-    assert not _resolve_fused("auto", cuda, 8192, 32, 3, rank=6)
+    # 3 channels of 8192 bins: the wide route (the X stage through
+    # device memory) takes them
+    assert _resolve_fused("auto", cuda, 8192, 32, 3, rank=6)
 
 
 def _two_pass_step(eng):
