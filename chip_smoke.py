@@ -132,7 +132,8 @@ Phases (any failure raises and exits non-zero, with no ``ok`` line):
    frame kernel's device time per block after each stage from the
    ``ablate`` runs, with ``torch.fft.fft`` over ``[nch, S, nbins]`` timed
    beside the FFT stages (``library_ms``; the port never calls it on this
-   path).
+   path) and, at the flagship, the FFT stage's own device time (``fft -
+   fir``, the radix-16 passes) printed against it.
 
 Every kernel's ``bound_ms`` is computed here from the run's shapes: the
 larger of its bytes (each input read once, each output written once) over
@@ -176,7 +177,7 @@ PIPELINE_BLOCK = dict(nch=2, nsamp=2**21, nbins=4096, ntaps=4, autos=False)
 MANY_PAIRS = dict(nch=4, nsamp=2**18, nbins=4096, ntaps=4, autos=True)
 # bench.py's nchan8 cell (bench.py:392-393): 8 channels of 2^20 samples at
 # 4096 bins with autos (36 baselines); a frame's 8 spectra do not fit in
-# one CTA's shared memory, so the single pass takes its wide route (the
+# one cluster's shared memory, so the single pass takes its wide route (the
 # spectra through device memory to the X kernel, fx_xstage.cu)
 NCHAN8 = dict(nch=8, nsamp=2**20, nbins=4096, ntaps=4, autos=True)
 # the CLI's deep-tap block at --nchan 8 (28 baselines, the SVD-FIR mode)
@@ -1498,7 +1499,8 @@ def stage_table(ablate_runs, device):
     kernel's device time per block after each stage (us, the profiler's),
     the pre-pass and the reduce, the event time per block of the whole
     call, and ``torch.fft.fft`` over one block's ``[nch, S, nbins]``
-    complex64 timed beside them (``library_ms``, per block)."""
+    complex64 timed beside them (``library_ms``, per block), and the
+    FFT's own device time, ``fft - fir`` (``fft_stage_us``)."""
     import torch
     rows, fft_ms = [], {}
     for tag, records in ablate_runs:
@@ -1513,16 +1515,18 @@ def stage_table(ablate_runs, device):
                 {"fft": lambda z=z: torch.fft.fft(z)}, n=20)["fft"]
             del z
         full = {r["stage"]: r for r in stages}["full"]
+        frames_us = {r["stage"]: r["device_us"]["frames"] for r in stages}
         rows.append({
             "shape": tag, "k": first["k"], "ingest": first["ingest"],
             "fir_mode": first["fir_mode"],
-            "frames_us": {r["stage"]: r["device_us"]["frames"]
-                          for r in stages},
+            "frames_us": frames_us,
             "event_ms": {r["stage"]: r["ms_per_block"] for r in stages},
             "prepass_us": full["device_us"]["prepass"],
             "reduce_us": full["device_us"]["reduce"],
             "frames_differences_us":
                 diff["frame_kernel_differences_us_per_block"],
+            # the FFT's own device time: its passes over the block's frames
+            "fft_stage_us": frames_us["fft"] - frames_us["fir"],
             "library_ms": fft_ms[shape]})
     return rows
 
@@ -2544,6 +2548,13 @@ def main() -> int:
               + f" (pre-pass {row['prepass_us']:.2f}, reduce "
               f"{row['reduce_us']:.2f}; torch.fft.fft "
               f"{1e3 * row['library_ms']:.2f})", flush=True)
+    for row in table:
+        if row["shape"] == "flagship" and row["k"] == 1:
+            print(f"  [{card}] flagship {row['ingest']} FFT stage (fft - "
+                  f"fir, the radix-16 passes over one block's frames): "
+                  f"{row['fft_stage_us']:.2f} us of device time against "
+                  f"torch.fft.fft over the same [nch, S, nbins] "
+                  f"{1e3 * row['library_ms']:.2f} us by events", flush=True)
     for rec in probe_records["copy_rate"]:
         if rec["sweep"] == "width" or rec["mode"] in ("chan", "prod"):
             print(f"    copy {rec['sweep']} {rec['walk']} "

@@ -30,7 +30,7 @@
 // spectrometer_pallas) -> fxt_spectrometer; and scripts/fused_ablate.py's
 // kernel (its STAGE truncation; _fx_kernel's FXTPU_FUSED_ABLATE)
 // -> fxt_fx_ablate, fxt_fx_ablate_i8 (the kStage tags below).
-// All share one frame kernel (FIR, Stockham FFT, output), templated on a
+// All share one frame kernel (FIR, radix-16 FFT, output), templated on a
 // sample loader (how a row sample is read and which mean it loses), a FIR
 // policy (the direct tap loop over the window, or the rank-r factorisation
 // w = u v) and an output policy (the X loop, or the spectra written out).
@@ -85,8 +85,8 @@
 // they arrived.  From these the caller removes the means after the fact
 // (dc_posthoc.dc_correct; fxt_fx_finish in fx_finish.cu).  Blocks k >= 1
 // of a launch read block k-1's rows raw (the TPU kernel's sequential grid
-// corrects them in VMEM first; one CTA per frame group across all blocks
-// cannot), so the caller corrects them with the raw-tail algebra, mu_prev
+// corrects them in VMEM first; CTAs that run every block's frame groups at
+// once cannot), so the caller corrects them with the raw-tail algebra, mu_prev
 // [k] = mu[k-1], in both ingests: the same function.  S >= ntaps-1.
 // fxt_fx_wide_frames / fxt_fx_wide_frames_i8 followed by fxt_xstage /
 // fxt_xstage_i8 have the same contract; that frame kernel keeps one
@@ -104,53 +104,65 @@
 // What bounds it on the H100: the card's bound for a flagship block (2
 // channels, 2^18 samples, 4096 bins, 4 taps: 4.2 MB in once, 33 KB out) is
 // its bytes over 3.35 TB/s in complex64, 1.4 us, and in int8 (1.1 MB) its
-// 43 MFLOP over the 67 TFLOP/s float32 peak, 0.64 us.  The frame kernel
-// takes 38 to 40 us for one block and 15 us a block at K = 8: the bound is
-// 2 to 9% of that.  The stage ablation (fxt_fx_ablate; `python -m
-// fxtpu_torch.probes ablate`, numbers in PERF.md) says where it goes: about
-// two thirds in the log2 n radix-2 Stockham stages (one __syncthreads each,
-// every stage a full pass over shared memory: 12 passes where a radix-16
-// register FFT would make 3), about a third in bringing the tap rows in
-// (each frame reads its ntaps rows again, through registers, one float2 or
-// char2 a thread: the copy probe measures that load width at a third, for
-// char2 an eighth, of what 16-byte cp.async or bulk copies reach), a
-// twentieth in the FIR's arithmetic, and nothing measurable in the X stage.
-// On the two-pass entries the input is read twice per block (the mean
-// pre-pass, 3 us of device time, then the frames); the single-pass entries
-// sum each frame's newest tap row as the FIR reads it.  At deep taps (32
-// taps x 8192 bins, the wideband shape) the frames read 32x the block from
-// L2 and loads and FIR are most of the kernel; the SVD form does not change those reads and multiplies
-// the FIR's flops by r (r FMAs per tap and sample), a trade that paid on
-// the TPU, where it moved the tap loop onto the matrix unit, and does not
-// here: on an H100 (700 W) the SVD mode takes 2.2x to 2.6x the direct
-// loop's time at the wideband shape (PERF.md; the mode is kept because
-// fxtpu routes deep taps to it).  At few taps a frame's load time is its
-// loads' latency, so the direct loop starts four bins' loads per tap
-// together.  The design keeps what the TPU kernel keeps out of device
-// memory: the spectra live only in shared memory (nch x nbins x 8 B, 64 KiB
-// at the flagship shape, so the dynamic shared-memory limit is raised), and
-// only the [n_groups, nbl, nbins] partial cross power reaches device
-// memory.  Every sum runs in a fixed order (a two-stage mean reduction, in
-// double for complex64 samples and in exact 64-bit integers for int8 ones,
-// and a fixed-order sum of the partials), so a run is bit-for-bit
-// repeatable; there are no atomics.  The mean pre-pass costs the second
-// read of the input; the post-hoc DC algebra of the TPU kernel
-// (_dc_constants / _dc_correct) removes it: the single-pass entries
-// (PartsOut) are what the engine's step launches, the two-pass entries stay
-// for callers that want the corrected cross power from one call.  The
-// TPU's 4-bins-per-int32 packing of int8 planes answered its element-bound
-// DMA; loads here are byte-addressed, so the int8 kernel reads the
-// interleaved (I, Q) bytes as they arrived.  The TPU's banded bf16 matmul
-// for the SVD conv, its hi/lo splits and its 1-pass tail ranks are
-// matrix-unit workarounds: here every rank runs in f32 on the CUDA cores, u
-// in shared memory, r accumulators per bin.  A launch of K blocks runs K
-// times the CTAs of one block: where one block's frames leave most SMs idle
-// (the deep-tap CLI block's 32 frames fill 32 of 132) they fill the card,
-// and the host pays one set of launches per K blocks.
+// 43 MFLOP over the 67 TFLOP/s float32 peak, 0.64 us.  A radix-2 form of
+// this kernel took 38 to 40 us there: two thirds of it in 12 Stockham
+// stages (each a full pass over shared memory and a barrier), a third in
+// bringing the tap rows in, and its grid, one CTA running every channel of
+// its frames in turn, left half the card idle (64 CTAs on 132 SMs; 32 for
+// the 8-channel deep block).  The design answers each (numbers in
+// PERF.md; `python scripts/torch_ab_trees.py --parent DIR` runs two
+// trees' kernels in one process):
+//   * the FFT is radix 16 in registers (fft_pass below): 3 passes over
+//     shared memory at 512 to 8192 bins (2 at 256), in place, so each
+//     channel's slot is its only buffer (no ping-pong buffer), twiddles
+//     from a float64-formed table staged in shared memory once a CTA, the
+//     R-point DFTs with constant twiddles;
+//   * a frame group's channels are split over CTAs: the policies that form
+//     products across channels (CrossOut, PartsOut) run a group on a
+//     cluster of two CTAs that share their spectra through distributed
+//     shared memory, so the spectra still never reach device memory (what
+//     the TPU kernel keeps on chip), and the flagship block fills 128 CTAs;
+//     the one-slot policies (SpecOut, WideOut) run one channel a CTA
+//     (the 8-channel deep block: 256 CTAs);
+//   * the FIR keeps more loads in flight: 8 bins and their window values a
+//     tap in the direct loop, 8 rows a round trip in the SVD form.
+// Every launch keeps two CTAs of 256 threads an SM (128 registers).  What
+// is left at the flagship is the tap rows' load latency (a CTA of 8 warps
+// per SM at one block a launch), the FFT's passes, and PartsOut's partial
+// rows written to device memory.  On the two-pass entries the input is
+// read twice per block (the mean pre-pass, 3 us of device time, then the
+// frames); the single-pass entries sum each frame's newest tap row as the
+// FIR reads it.  At deep taps (32 taps x 8192 bins) the frames read 32x the
+// block from L2 and the loads and the FIR are most of the kernel; the SVD
+// form does not change those reads and multiplies the FIR's flops by r (r
+// FMAs per tap and sample), a trade that paid on the TPU, where it moved
+// the tap loop onto the matrix unit, and does not here (the mode is kept
+// because fxtpu routes deep taps to it).  Every sum runs in a fixed order
+// (a two-stage mean reduction, in double for complex64 samples and in
+// exact 64-bit integers for int8 ones, and a fixed-order sum of the
+// partials), so a run is bit-for-bit repeatable; there are no atomics.  The
+// mean pre-pass costs the second read of the input; the post-hoc DC algebra
+// of the TPU kernel (_dc_constants / _dc_correct) removes it: the
+// single-pass entries (PartsOut) are what the engine's step launches, the
+// two-pass entries stay for callers that want the corrected cross power
+// from one call.  The TPU's 4-bins-per-int32 packing of int8 planes
+// answered its element-bound DMA; loads here are byte-addressed, so the
+// int8 kernel reads the interleaved (I, Q) bytes as they arrived.  The
+// TPU's banded bf16 matmul for the SVD conv, its hi/lo splits and its
+// 1-pass tail ranks are matrix-unit workarounds: here every rank runs in
+// f32 on the CUDA cores, u in shared memory, r accumulators per bin.  A
+// launch of K blocks runs K times the CTAs of one block, and the host pays
+// one set of launches per K blocks.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include "fx_common.cuh"   // cadd, csub, cmulconj, SumOf
+
+namespace cg = cooperative_groups;
+
+// The frame kernel's dynamic shared memory (its layout is under (b)).
+extern __shared__ float2 fx_smem[];
 
 namespace {
 
@@ -423,6 +435,46 @@ struct RowSum {
   }
 };
 
+// Taps [t, end) of a run of rows that share one correction, U rows at a
+// time: the U rows' loads at the NB bins are issued together (U x NB
+// independent loads in flight a thread), then each row is corrected
+// (conv, which holds its loader by value: a reference would put the
+// kernel's parameter in local memory) and handed to f(t, v[NB]) in tap
+// order; the last end - t mod U rows one at a time.  p points at row t and
+// steps `step` samples a row.
+template <int NB, int U, class T, class Conv, class F>
+__device__ __forceinline__ void tap_run(int& t, int end, const T*& p,
+                                        int step, int nb, Conv conv,
+                                        F&& f) {
+  for (; U > 1 && t + U <= end; t += U, p += U * step) {
+    T raw[U][NB];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+#pragma unroll
+      for (int j = 0; j < NB; ++j) {
+        if (j < nb) raw[u][j] = __ldg(p + u * step + j * kThreads);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      float2 v[NB];
+#pragma unroll
+      for (int j = 0; j < NB; ++j) {
+        if (j < nb) v[j] = conv(raw[u][j]);
+      }
+      f(t + u, v);
+    }
+  }
+  for (; t < end; ++t, p += step) {
+    float2 v[NB];
+#pragma unroll
+    for (int j = 0; j < NB; ++j) {
+      if (j < nb) v[j] = conv(__ldg(p + j * kThreads));
+    }
+    f(t, v);
+  }
+}
+
 // The frame's rows e0 .. e0+ntaps-1 of [history; x] at NB bins (bin,
 // bin + kThreads, ...; the first nb of them are real), each DC-corrected,
 // handed to f(t, v[NB]) in tap order: the history rows (e < halo), then
@@ -431,9 +483,12 @@ struct RowSum {
 // its own over pointers that step one row (nbins samples) per tap, so a
 // frame inside its own block, the common case, reads its taps with no
 // branch and no 64-bit multiply per tap; block rows are contiguous across
-// blocks in the merged layout.  The NB bins' loads of a tap are issued
-// together: at few taps the frame's latency is its loads'.
-template <int NB, class Rows, class F>
+// blocks in the merged layout.  The history and own-block runs load U rows
+// at a time (tap_run), so that a thread keeps U x NB loads in flight
+// (SvdFir: one bin, 8 rows; DirectFir: 8 bins, one row, and their 8
+// window loads): the frame's time at few bins a thread is its loads'
+// latency.
+template <int NB, int U, class Rows, class F>
 __device__ __forceinline__ void for_each_tap(const Rows& rows, int c,
                                              long long e0, int bin, int nb,
                                              const RowMeans& m, int ntaps,
@@ -445,37 +500,28 @@ __device__ __forceinline__ void for_each_tap(const Rows& rows, int c,
   const int t2 = static_cast<int>(
       min(max(m.e_own - e0, static_cast<long long>(t1)), n));
   const int step = rows.nbins;
-  float2 v[NB];
   int t = 0;
   if (t1 > 0) {
     const T* p = rows.history_ptr(c, e0, bin);
     const float2 mh = rows.history_mean(c);
-    for (; t < t1; ++t, p += step) {
-#pragma unroll
-      for (int j = 0; j < NB; ++j) {
-        if (j < nb) v[j] = rows.history_value(__ldg(p + j * kThreads), mh);
-      }
-      f(t, v);
-    }
+    tap_run<NB, U>(t, t1, p, step, nb,
+                   [=](T q) { return rows.history_value(q, mh); }, f);
   }
   if (t < ntaps) {
     const T* p = rows.sample_ptr(c, e0 + t, bin);
     for (; t < t2; ++t, p += step) {
       const long long blk = (e0 + t - halo) / rows.S;
       const float2 mu = m.tab[(blk - m.jlo) * m.nch];
+      float2 v[NB];
 #pragma unroll
       for (int j = 0; j < NB; ++j) {
         if (j < nb) v[j] = rows.block_value(__ldg(p + j * kThreads), mu);
       }
       f(t, v);
     }
-    for (; t < ntaps; ++t, p += step) {
-#pragma unroll
-      for (int j = 0; j < NB; ++j) {
-        if (j < nb) v[j] = rows.block_value(__ldg(p + j * kThreads), m.own);
-      }
-      f(t, v);
-    }
+    const float2 own = m.own;
+    tap_run<NB, U>(t, ntaps, p, step, nb,
+                   [=](T q) { return rows.block_value(q, own); }, f);
   }
 }
 
@@ -494,8 +540,11 @@ __device__ __forceinline__ void for_each_tap(const Rows& rows, int c,
 //   kStageLoadRaw  the same over the samples as they arrived: no mean
 //                  lost, int8 only converted (TPU: dmapure / dma0);
 //   kStageFir      stop after the FIR (TPU: fir);
-//   kStageFftHalf  stop after floor(log2 n / 2) Stockham stages (TPU: fft1);
-//   kStageFft      every stage and no X stage: each thread folds one bin
+//   kStageFftHalf  stop after the first floor(passes / 2) radix passes of
+//                  the FFT (one of its 2 or 3; TPU: fft1, the first of its
+//                  two DFT stages); the slot then holds what
+//                  fx_fused.fft_passes(y, 1) returns;
+//   kStageFft      every pass and no X stage: each thread folds one bin
 //                  of every channel's spectrum into its element of the
 //                  partial (TPU: fft2 / nox).
 enum : int {
@@ -518,9 +567,9 @@ struct RawRows : Rows {
 };
 
 // The load stages' stand-in for the FIR: out[bin] = the sum in tap order of
-// the frame's ntaps rows at this thread's bins, NB bins at a time as the
-// FIR policy reads them.
-template <int NB, class Rows>
+// the frame's ntaps rows at this thread's bins, NB bins and U rows at a
+// time as the FIR policy reads them.
+template <int NB, int U, class Rows>
 __device__ void tap_sum(const Rows& rows, int c, long long e0,
                         const RowMeans& m, int ntaps, int nbins,
                         float2* out) {
@@ -529,7 +578,7 @@ __device__ void tap_sum(const Rows& rows, int c, long long e0,
     float2 acc[NB];
 #pragma unroll
     for (int j = 0; j < NB; ++j) acc[j] = make_float2(0.f, 0.f);
-    for_each_tap<NB>(rows, c, e0, b0, nb, m, ntaps,
+    for_each_tap<NB, U>(rows, c, e0, b0, nb, m, ntaps,
                      [&](int, const float2* v) {
 #pragma unroll
       for (int j = 0; j < NB; ++j) {
@@ -543,13 +592,189 @@ __device__ void tap_sum(const Rows& rows, int c, long long e0,
   }
 }
 
-// How many Stockham stages a stage of the ablation runs.
+// ---------------------------------------------------------------------------
+// The FFT: an in-place Stockham FFT of radix 16 in registers.  nbins =
+// 16 * 16 * r with r = 1 (256 bins: two passes), 2, 4, 8, 16 or 32 (512 to
+// 8192 bins: three passes).  Pass p of radix R over n points runs the n / R
+// butterflies j: each thread loads its R points j + r n / R from the slot
+// into registers, multiplies point r by exp(-2 pi i r k / (Ns R)) (k = j mod
+// Ns, Ns the product of the radices before it; the table tw, formed in
+// float64, staged in shared memory once a CTA), runs an R-point DFT in
+// registers (radix-2 decimation in frequency with constant twiddles, no
+// sincos), and after a barrier writes output r to (j - k) R + k + r Ns:
+// natural order after the last pass.  Two barriers a pass (every load of a
+// pass before any store, every store before the next pass's loads), so the
+// slot is its own work buffer.  Pass 0's stores (stride 16) would put a
+// half-warp on one bank; they and pass 1's loads go through the swizzle
+// L ^ ((L >> 4) & 15) instead, which leaves both conflict-free.  A thread
+// holds 16 points (1 butterfly at up to 4096 bins, 2 at 8192 in passes 0
+// and 1; 32 points in pass 2 at 8192); below 4096 bins n / 16 threads work
+// and the rest wait.  fx_fused.fft_passes is the same index arithmetic in
+// torch.
+
+// exp(-2 pi i j / 32) = kCos32[j] - i kSin32[j], rounded from float64.
+__constant__ float kCos32[16] = {
+    1.0f, 0.9807852506637573f, 0.9238795042037964f, 0.8314695954322815f,
+    0.7071067690849304f, 0.5555702447891235f, 0.3826834261417389f,
+    0.19509032368659973f, 0.0f, -0.19509032368659973f, -0.3826834261417389f,
+    -0.5555702447891235f, -0.7071067690849304f, -0.8314695954322815f,
+    -0.9238795042037964f, -0.9807852506637573f};
+__constant__ float kSin32[16] = {
+    0.0f, 0.19509032368659973f, 0.3826834261417389f, 0.5555702447891235f,
+    0.7071067690849304f, 0.8314695954322815f, 0.9238795042037964f,
+    0.9807852506637573f, 1.0f, 0.9807852506637573f, 0.9238795042037964f,
+    0.8314695954322815f, 0.7071067690849304f, 0.5555702447891235f,
+    0.3826834261417389f, 0.19509032368659973f};
+
+// d * exp(-2 pi i j / 32) for a j known at compile time once unrolled.
+__device__ __forceinline__ float2 rot32(float2 d, int j) {
+  if (j == 0) return d;
+  if (j == 8) return make_float2(d.y, -d.x);
+  const float c = kCos32[j], s = kSin32[j];
+  return make_float2(d.x * c + d.y * s, d.y * c - d.x * s);
+}
+
+// The radix-2 stages of span Span, Span / 2, ..., 1 of an R-point DFT by
+// decimation in frequency: v ends holding the DFT in bit-reversed order.
+template <int R, int Span>
+__device__ __forceinline__ void dif_stages(float2 (&v)[R]) {
+#pragma unroll
+  for (int s = 0; s < R; s += 2 * Span) {
+#pragma unroll
+    for (int k = 0; k < Span; ++k) {
+      const float2 a = v[s + k];
+      const float2 b = v[s + k + Span];
+      v[s + k] = cadd(a, b);
+      v[s + k + Span] = rot32(csub(a, b), k * (16 / Span));
+    }
+  }
+  if constexpr (Span > 1) dif_stages<R, Span / 2>(v);
+}
+
+__host__ __device__ constexpr int ilog2(int n) {
+  return n <= 1 ? 0 : 1 + ilog2(n >> 1);
+}
+
+__host__ __device__ constexpr int bitrev(int i, int bits) {
+  int r = 0;
+  for (int b = 0; b < bits; ++b) r = (r << 1) | ((i >> b) & 1);
+  return r;
+}
+
+template <bool kSwizzle>
+__device__ __forceinline__ int swz(int i) {
+  if constexpr (kSwizzle) {
+    return i ^ ((i >> 4) & 15);
+  } else {
+    return i;
+  }
+}
+
+// exp(-2 pi i m / n) for 0 <= m < n from the table of its first half (in
+// shared memory).
+__device__ __forceinline__ float2 twiddle(const float2* tw, int m,
+                                          int half) {
+  const float2 t = tw[m & (half - 1)];
+  return (m & half) ? make_float2(-t.x, -t.y) : t;
+}
+
+// One pass of radix R with stride Ns over the n points of buf, kPer
+// butterflies a thread (header above).
+template <int R, int kPer, bool kSwzIn, bool kSwzOut>
+__device__ __forceinline__ void fft_pass(float2* buf, const float2* tw,
+                                         int n, int ns) {
+  constexpr int kLog = ilog2(R);
+  const int nb = n / R;
+  float2 v[kPer][R];
+#pragma unroll
+  for (int p = 0; p < kPer; ++p) {
+    const int j = threadIdx.x + p * kThreads;
+    if (j < nb) {
+#pragma unroll
+      for (int r = 0; r < R; ++r) v[p][r] = buf[swz<kSwzIn>(j + r * nb)];
+      if (ns > 1) {
+        const int step = (j & (ns - 1)) * (n / (ns * R));
+#pragma unroll
+        for (int r = 1; r < R; ++r) {
+          v[p][r] = cmul(v[p][r], twiddle(tw, r * step, n >> 1));
+        }
+      }
+      dif_stages<R, R / 2>(v[p]);
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int p = 0; p < kPer; ++p) {
+    const int j = threadIdx.x + p * kThreads;
+    if (j < nb) {
+      const int k = j & (ns - 1);
+      const int base = (j - k) * R + k;
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        buf[swz<kSwzOut>(base + r * ns)] = v[p][bitrev(r, kLog)];
+      }
+    }
+  }
+  __syncthreads();
+}
+
+// How many radix passes an FFT of 2^log2n points makes.
+__host__ __device__ constexpr int fft_pass_count(int log2n) {
+  return log2n <= 8 ? 2 : 3;
+}
+
+// The first `npasses` passes of the FFT of 2^kLog points over the slot
+// that starts `off` float2 into the frame kernel's dynamic shared memory,
+// with the twiddle table staged at `tw_off` there.  Not inlined: one body
+// per size for every kernel instantiation (the production kernels and the
+// ablation's run the same code, and the build compiles it once), each with
+// registers of its own.
+template <int kLog>
+__device__ __noinline__ void fft_sized(int off, int tw_off, int npasses) {
+  float2* buf = fx_smem + off;
+  const float2* tw = fx_smem + tw_off;
+  constexpr int n = 1 << kLog;
+  constexpr int kPer = n > 16 * kThreads ? 2 : 1;  // radix-16 butterflies
+  fft_pass<16, kPer, false, true>(buf, tw, n, 1);
+  if (npasses > 1) fft_pass<16, kPer, true, false>(buf, tw, n, 16);
+  if constexpr (kLog > 8) {
+    if (npasses > 2) fft_pass<(n >> 8), 1, false, false>(buf, tw, n, 256);
+  }
+}
+
+// The first `npasses` passes of the FFT of 2^log2n points (8 to 13).
+__device__ __forceinline__ void fft_inplace(int off, int tw_off, int log2n,
+                                            int npasses) {
+  if (npasses <= 0) return;
+  switch (log2n) {
+    case 8:
+      fft_sized<8>(off, tw_off, npasses);
+      break;
+    case 9:
+      fft_sized<9>(off, tw_off, npasses);
+      break;
+    case 10:
+      fft_sized<10>(off, tw_off, npasses);
+      break;
+    case 11:
+      fft_sized<11>(off, tw_off, npasses);
+      break;
+    case 12:
+      fft_sized<12>(off, tw_off, npasses);
+      break;
+    default:
+      fft_sized<13>(off, tw_off, npasses);
+      break;
+  }
+}
+
+// How many FFT passes a stage of the ablation runs.
 template <int Stage>
-__device__ __forceinline__ int fft_stages(int log2n) {
+__device__ __forceinline__ int fft_passes(int log2n) {
   if constexpr (Stage == kStageFull || Stage == kStageFft) {
-    return log2n;
+    return fft_pass_count(log2n);
   } else if constexpr (Stage == kStageFftHalf) {
-    return log2n >> 1;
+    return fft_pass_count(log2n) / 2;
   } else {
     return 0;
   }
@@ -560,9 +785,13 @@ __device__ __forceinline__ int fft_stages(int log2n) {
 // each losing the mean m gives it, to out[bin] for this thread's bins, and
 // hands the newest row's values to `sum` (NoSum: nothing is compiled).
 // DirectFir is the tap loop over the window w [ntaps, nbins], kBins bins
-// at a time (each bin's sum still runs in tap order).
+// at a time (each bin's sum still runs in tap order): 8, so a tap's 8
+// sample loads and 8 window loads are in flight together (16 bins, or
+// 2 or 4 rows a round trip, took more registers and were slower, and rows
+// staged through shared memory by cp.async were no faster; PERF.md).
 struct DirectFir {
-  static constexpr int kBins = 4;
+  static constexpr int kBins = 8;
+  static constexpr int kTaps = 1;
   const float* w;
 
   size_t table_bytes(int) const { return 0; }
@@ -576,7 +805,7 @@ struct DirectFir {
       float2 acc[kBins];
 #pragma unroll
       for (int j = 0; j < kBins; ++j) acc[j] = make_float2(0.f, 0.f);
-      for_each_tap<kBins>(rows, c, e0, b0, nb, m, ntaps,
+      for_each_tap<kBins, kTaps>(rows, c, e0, b0, nb, m, ntaps,
                           [&](int t, const float2* v) {
         const float* wt = w + t * nbins + b0;
         if constexpr (Sum::kActive) {
@@ -603,9 +832,12 @@ struct DirectFir {
 // convolution c_k = sum_t u[t, k] row[f+t] (u staged in shared memory as
 // `tab`, one broadcast read per tap and rank), summed in tap order into r
 // register accumulators, then fir = sum_k v[k, bin] c_k in rank order; one
-// bin at a time (its r accumulators fill the registers).
+// bin at a time (its r accumulators fill the registers), its rows loaded
+// kTaps at a time (one load in flight a thread kept the deep-tap frames
+// latency-bound).
 struct SvdFir {
   static constexpr int kBins = 1;
+  static constexpr int kTaps = 8;
   const float* u;   // [ntaps, rank]
   const float* v;   // [rank, nbins]
   int rank;
@@ -624,7 +856,7 @@ struct SvdFir {
       float2 ck[kMaxRank];
 #pragma unroll
       for (int k = 0; k < kMaxRank; ++k) ck[k] = make_float2(0.f, 0.f);
-      for_each_tap<1>(rows, c, e0, bin, 1, m, ntaps,
+      for_each_tap<1, kTaps>(rows, c, e0, bin, 1, m, ntaps,
                       [&](int t, const float2* x) {
         const float* ut = tab + t * rank;
         if constexpr (Sum::kActive) {
@@ -652,13 +884,111 @@ struct SvdFir {
   }
 };
 
+// ---------------------------------------------------------------------------
+// Which CTAs run a frame group, and which channels and bins each owns.
+//
+// The output policies that form products across channels (CrossOut,
+// PartsOut) run a frame group on a cluster of csize = min(2, nch) CTAs:
+// grid (n_groups * csize, 1, K).  CTA r of the cluster runs the FIR and the
+// FFT of channels r, r + csize, ... into its own slots (slot c / csize of
+// CTA c mod csize holds channel c's spectrum); after a cluster barrier it
+// forms the cross power of every pair over bins [r, r + 1) * nbins / csize,
+// reading the partner's spectra through distributed shared memory, and T,
+// GJ and the sample sums of its own channels; a second cluster barrier
+// comes before any CTA overwrites or leaves a slot its partner reads.  The
+// spectra never leave the cluster's shared memory.  The one-slot policies
+// (SpecOut, WideOut), which keep no state across channels, run one channel
+// a CTA: grid (n_groups, nch, K), no partner.  fx_fused.frame_ctas is the
+// same split in Python.
+struct Cta {
+  int k;          // the CTA's block
+  int group;      // its frame group within the block
+  int rank;       // its rank in the cluster
+  int csize;      // the cluster's CTAs (1 or 2)
+  int c0, cstep;  // its channels: c0, c0 + cstep, ... < nch
+  long long part; // its group's slice of the partials: k * n_groups + group
+};
+
+struct ClusterCtas {
+  static constexpr bool kCluster = true;
+  __host__ __device__ static int cluster_size(int nch) {
+    return nch >= 2 ? 2 : 1;
+  }
+  __host__ __device__ static int slots(int nch, int csize) {
+    return (nch + csize - 1) / csize;
+  }
+  __device__ static Cta cta(int) {
+    cg::cluster_group cl = cg::this_cluster();
+    const int csize = static_cast<int>(cl.num_blocks());
+    const int rank = static_cast<int>(cl.block_rank());
+    const int group = static_cast<int>(blockIdx.x) / csize;
+    return Cta{static_cast<int>(blockIdx.z), group, rank, csize, rank, csize,
+               static_cast<long long>(blockIdx.z) * (gridDim.x / csize) +
+                   group};
+  }
+};
+
+struct ChannelCtas {
+  static constexpr bool kCluster = false;
+  __host__ __device__ static int cluster_size(int) { return 1; }
+  __host__ __device__ static int slots(int, int) { return 1; }
+  __device__ static Cta cta(int nch) {
+    return Cta{static_cast<int>(blockIdx.z), static_cast<int>(blockIdx.x), 0,
+               1, static_cast<int>(blockIdx.y), nch,
+               static_cast<long long>(blockIdx.z) * gridDim.x + blockIdx.x};
+  }
+};
+
+// Channel c's spectrum in a cluster: in this CTA's slots (own) or the
+// partner's (other), slot c / csize.
+__device__ __forceinline__ const float2* channel_spec(const float2* own,
+                                                      const float2* other,
+                                                      const Cta& cta, int c,
+                                                      int nbins) {
+  const int shift = cta.csize - 1;   // csize is 1 or 2
+  const float2* base = (c & shift) == cta.rank ? own : other;
+  return base + static_cast<size_t>(c >> shift) * nbins;
+}
+
+// The partner CTA's slots, mapped into this CTA's view of distributed
+// shared memory (a cluster of one has no partner: its own).
+__device__ __forceinline__ const float2* partner_spec(float2* spec,
+                                                      const Cta& cta) {
+  if (cta.csize == 1) return spec;
+  return cg::this_cluster().map_shared_rank(spec, cta.rank ^ 1);
+}
+
+// The cross power of every pair over this CTA's bins of the frame, added
+// to rows 0 .. nbl-1 of out [rows, nbins] (written at the group's first
+// frame): each element is owned by one thread, no atomics.
+__device__ __forceinline__ void cross_power(const float2* spec,
+                                            const float2* other,
+                                            const Cta& cta,
+                                            const int* __restrict__ pairs,
+                                            float2* out, int nbl, int nbins,
+                                            int log2n, bool first) {
+  const int hbits = log2n - (cta.csize - 1);
+  const int hmask = (1 << hbits) - 1;
+  const int bin0 = cta.rank << hbits;
+  for (int idx = threadIdx.x; idx < (nbl << hbits); idx += kThreads) {
+    const int l = idx >> hbits;
+    const int bin = bin0 + (idx & hmask);
+    const int p = __ldg(pairs + 2 * l);
+    const int q = __ldg(pairs + 2 * l + 1);
+    const float2 v = cmulconj(channel_spec(spec, other, cta, p, nbins)[bin],
+                              channel_spec(spec, other, cta, q, nbins)[bin]);
+    const size_t o = static_cast<size_t>(l) * nbins + bin;
+    out[o] = first ? v : cadd(out[o], v);
+  }
+}
+
 // Output policies.  CrossOut keeps every channel's spectrum of the frame
-// in shared memory and, once all are done, adds the cross power of every
-// pair to the CTA's own slice of `partial` (each element owned by one
-// thread: no atomics).  SpecOut keeps one spectrum and writes each to
-// spec[c, f, :] as it is done.  PartsOut (further down) is CrossOut over
-// raw rows plus the DC accumulators.
+// in the cluster's shared memory and, once all are done, adds the cross
+// power of every pair to its group's slice of `partial`.  SpecOut keeps one
+// spectrum and writes each to spec[c, f, :] as it is done.  PartsOut
+// (further down) is CrossOut over raw rows plus the DC accumulators.
 struct CrossOut {
+  using Ctas = ClusterCtas;
   static constexpr bool kParts = false;
   template <class Rows>
   using Sum = NoSum;
@@ -666,77 +996,76 @@ struct CrossOut {
   float2* partial;   // [K, n_groups, nbl, nbins]
   int nbl;
 
-  __host__ __device__ static int slots(int nch) { return nch; }
-  __device__ float2* slot(float2* spec, int c, int nbins) const {
-    return spec + static_cast<size_t>(c) * nbins;
-  }
-  __device__ void channel_done(const float2*, int, int, int) const {}
-  __device__ void frame_done(const float2* spec, int f, int f0, int nbins,
-                             int log2n) const {
-    const size_t cta =
-        static_cast<size_t>(blockIdx.y) * gridDim.x + blockIdx.x;
-    float2* out = partial + cta * nbl * nbins;
-    for (int idx = threadIdx.x; idx < nbl * nbins; idx += kThreads) {
-      const int l = idx >> log2n;
-      const int bin = idx & (nbins - 1);
-      const int p = __ldg(pairs + 2 * l);
-      const int q = __ldg(pairs + 2 * l + 1);
-      const float2 v = cmulconj(spec[static_cast<size_t>(p) * nbins + bin],
-                                spec[static_cast<size_t>(q) * nbins + bin]);
-      out[idx] = (f == f0) ? v : cadd(out[idx], v);
-    }
+  __device__ void channel_done(const float2*, const Cta&, int, int,
+                               int) const {}
+  __device__ void frame_done(float2* spec, const Cta& cta, int nch, int f,
+                             int f0, int nbins, int log2n) const {
+    cg::cluster_group cl = cg::this_cluster();
+    cl.sync();   // every channel's spectrum of frame f is done
+    cross_power(spec, partner_spec(spec, cta), cta, pairs,
+                partial + cta.part * nbl * nbins, nbl, nbins, log2n,
+                f == f0);
+    cl.sync();   // the partner has read them: they may be overwritten
   }
   // kStageFft's output: bin threadIdx.x of every channel's spectrum summed
-  // into element threadIdx.x of the CTA's partial, and nothing else.
-  __device__ void touch(const float2* spec, int nch, int f, int f0,
-                        int nbins) const {
-    const size_t cta =
-        static_cast<size_t>(blockIdx.y) * gridDim.x + blockIdx.x;
-    float2* out = partial + cta * nbl * nbins;
-    float2 v = spec[threadIdx.x];
-    for (int c = 1; c < nch; ++c) {
-      v = cadd(v, spec[static_cast<size_t>(c) * nbins + threadIdx.x]);
+  // (in channel order) by the cluster's first CTA into element threadIdx.x
+  // of the group's partial, and nothing else.
+  __device__ void touch(float2* spec, const Cta& cta, int nch, int f,
+                        int f0, int nbins) const {
+    cg::cluster_group cl = cg::this_cluster();
+    cl.sync();
+    if (cta.rank == 0) {
+      const float2* other = partner_spec(spec, cta);
+      float2* out = partial + cta.part * nbl * nbins;
+      float2 v = channel_spec(spec, other, cta, 0, nbins)[threadIdx.x];
+      for (int c = 1; c < nch; ++c) {
+        v = cadd(v, channel_spec(spec, other, cta, c, nbins)[threadIdx.x]);
+      }
+      out[threadIdx.x] = (f == f0) ? v : cadd(out[threadIdx.x], v);
     }
-    out[threadIdx.x] = (f == f0) ? v : cadd(out[threadIdx.x], v);
+    cl.sync();
   }
 };
 
 struct SpecOut {
+  using Ctas = ChannelCtas;
   static constexpr bool kParts = false;
   template <class Rows>
   using Sum = NoSum;
   float2* spec_out;   // [nch, S, nbins]
   int S;
 
-  __host__ __device__ static int slots(int) { return 1; }
-  __device__ float2* slot(float2* spec, int, int) const { return spec; }
-  __device__ void channel_done(const float2* own, int c, int f,
+  __device__ void channel_done(const float2* own, const Cta&, int c, int f,
                                int nbins) const {
     float2* out = spec_out + (static_cast<size_t>(c) * S + f) * nbins;
     for (int bin = threadIdx.x; bin < nbins; bin += kThreads) {
       out[bin] = own[bin];
     }
-    __syncthreads();  // the next channel's FIR or FFT overwrites `own`
   }
-  __device__ void frame_done(const float2*, int, int, int, int) const {}
+  __device__ void frame_done(float2*, const Cta&, int, int, int, int,
+                             int) const {
+    __syncthreads();  // the next frame's FIR overwrites the slot
+  }
 };
 
 // PartsOut, the single-pass policy (the TPU kernel's tout_ref, uout_ref and
-// sout_ref): over spectra of the raw rows, the CTA's slice of `partial`
+// sout_ref): over spectra of the raw rows, the group's slice of `partial`
 // [K, n_groups, nbl + 2 nch, nbins] takes the cross power of every pair
-// (rows 0 .. nbl-1, as CrossOut), T_c = the sum of the CTA's frames'
-// spectra of channel c (rows nbl + c) and, in a CTA that holds frames j <
+// (rows 0 .. nbl-1, as CrossOut), T_c = the sum of the group's frames'
+// spectra of channel c (rows nbl + c) and, in a group that holds frames j <
 // halo of its block, GJ_c = the sum over those of spec_c[j] conj(dA[j])
-// (rows nbl + nch + c; CTAs that start at or after frame halo leave theirs
-// unwritten and the reduce never reads them).  A block's first halo frames
-// may share a CTA with later ones (frames in groups) and at deep taps
+// (rows nbl + nch + c; groups that start at or after frame halo leave
+// theirs unwritten and the reduce never reads them); each CTA of the
+// cluster writes T and GJ of its own channels.  A block's first halo frames
+// may share a group with later ones (frames in groups) and at deep taps
 // nearly every frame is one; each is tested by its own index.  The sample
-// sums of the CTA's frames' newest rows leave as sums[k, group, c].  T is
+// sums of the group's frames' newest rows leave as sums[k, group, c].  T is
 // read, added to and written per frame, like the cross power; it is linear
 // in the FIR output, so one more FFT over the summed FIR outputs would do,
-// at the price of nch more rows of shared memory.
+// at the price of more rows of shared memory.
 template <typename T>
 struct PartsOut {
+  using Ctas = ClusterCtas;
   static constexpr bool kParts = true;
   template <class Rows>
   using Sum = RowSum<Rows>;
@@ -747,124 +1076,123 @@ struct PartsOut {
   Pair* sums;        // [K, n_groups, nch]
   int nbl, nch, halo;
 
-  __host__ __device__ static int slots(int nch) { return nch; }
-  __device__ float2* slot(float2* spec, int c, int nbins) const {
-    return spec + static_cast<size_t>(c) * nbins;
-  }
-  __device__ void channel_done(const float2*, int, int, int) const {}
+  __device__ void channel_done(const float2*, const Cta&, int, int,
+                               int) const {}
   __device__ void zero_sums(Pair* wsum) const {
     for (int i = threadIdx.x; i < nch * kWarps; i += kThreads) {
       wsum[i] = Pair{0, 0};
     }
   }
-  __device__ void frame_done(const float2* spec, int f, int f0, int nbins,
-                             int log2n) const {
-    const size_t cta =
-        static_cast<size_t>(blockIdx.y) * gridDim.x + blockIdx.x;
-    float2* out = partial + cta * (nbl + 2 * nch) * nbins;
+  __device__ void frame_done(float2* spec, const Cta& cta, int, int f,
+                             int f0, int nbins, int log2n) const {
+    cg::cluster_group cl = cg::this_cluster();
+    float2* out = partial + cta.part * (nbl + 2 * nch) * nbins;
     const bool first = f == f0;
-    for (int idx = threadIdx.x; idx < nbl * nbins; idx += kThreads) {
-      const int l = idx >> log2n;
-      const int bin = idx & (nbins - 1);
-      const int p = __ldg(pairs + 2 * l);
-      const int q = __ldg(pairs + 2 * l + 1);
-      const float2 v = cmulconj(spec[static_cast<size_t>(p) * nbins + bin],
-                                spec[static_cast<size_t>(q) * nbins + bin]);
-      out[idx] = first ? v : cadd(out[idx], v);
-    }
+    cl.sync();   // every channel's spectrum of frame f is done
+    cross_power(spec, partner_spec(spec, cta), cta, pairs, out, nbl, nbins,
+                log2n, first);
+    // T and GJ of the CTA's own channels, from its own slots
+    const int nlocal = (nch - cta.c0 + cta.cstep - 1) / cta.cstep;
     float2* tsum = out + static_cast<size_t>(nbl) * nbins;
-    for (int idx = threadIdx.x; idx < nch * nbins; idx += kThreads) {
-      tsum[idx] = first ? spec[idx] : cadd(tsum[idx], spec[idx]);
+    for (int idx = threadIdx.x; idx < (nlocal << log2n); idx += kThreads) {
+      const int c = cta.c0 + (idx >> log2n) * cta.cstep;
+      const size_t o = static_cast<size_t>(c) * nbins + (idx & (nbins - 1));
+      tsum[o] = first ? spec[idx] : cadd(tsum[o], spec[idx]);
     }
-    if (f < halo) {   // then f0 < halo too: the CTA's first frame wrote gj
+    if (f < halo) {   // then f0 < halo too: the group's first frame wrote gj
       float2* gj = tsum + static_cast<size_t>(nch) * nbins;
       const float2* dj = da + static_cast<size_t>(f) * nbins;
-      for (int idx = threadIdx.x; idx < nch * nbins; idx += kThreads) {
-        const float2 v = cmulconj(spec[idx], __ldg(dj + (idx & (nbins - 1))));
-        gj[idx] = first ? v : cadd(gj[idx], v);
+      for (int idx = threadIdx.x; idx < (nlocal << log2n); idx += kThreads) {
+        const int c = cta.c0 + (idx >> log2n) * cta.cstep;
+        const int bin = idx & (nbins - 1);
+        const size_t o = static_cast<size_t>(c) * nbins + bin;
+        const float2 v = cmulconj(spec[idx], __ldg(dj + bin));
+        gj[o] = first ? v : cadd(gj[o], v);
       }
     }
+    cl.sync();   // the partner has read this CTA's spectra
   }
-  // the warps' sample sums of each channel, in warp order
-  __device__ void cta_done(const Pair* wsum) const {
-    const size_t cta =
-        static_cast<size_t>(blockIdx.y) * gridDim.x + blockIdx.x;
-    for (int c = threadIdx.x; c < nch; c += kThreads) {
+  // the warps' sample sums of each of the CTA's channels, in warp order
+  __device__ void cta_done(const Pair* wsum, const Cta& cta) const {
+    for (int c = cta.c0 + threadIdx.x * cta.cstep; c < nch;
+         c += kThreads * cta.cstep) {
       Pair acc = wsum[c * kWarps];
       for (int w = 1; w < kWarps; ++w) {
         acc.x += wsum[c * kWarps + w].x;
         acc.y += wsum[c * kWarps + w].y;
       }
-      sums[cta * nch + c] = acc;
+      sums[cta.part * nch + c] = acc;
     }
   }
 };
 
 // WideOut, the single pass where a frame's spectra of all channels do not
 // fit in shared memory together (the wide route, fxt_fx_wide_frames): one
-// slot, as SpecOut, each channel's spectrum written to the device scratch
-// spec [K, nch, S, nbins] as it is done, and PartsOut's sample sums
-// (sums[k, group, c]); the cross power, T and GJ are formed from the
-// scratch by the X kernel (fx_xstage.cu).  Not a PartsOut in the shared
-// route's sense: only PartsOut's sample-sum members are used.
+// slot, as SpecOut, one channel a CTA, each spectrum written to the device
+// scratch spec [K, nch, S, nbins] as it is done, and PartsOut's sample
+// sums (sums[k, group, c], each written by its channel's CTA); the cross
+// power, T and GJ are formed from the scratch by the X kernel
+// (fx_xstage.cu).  Not a PartsOut in the shared route's sense: only
+// PartsOut's sample-sum members are used.
 template <typename T>
 struct WideOut : PartsOut<T> {
+  using Ctas = ChannelCtas;
   float2* spec_out;   // [K, nch, S, nbins]
   int S;
 
-  __host__ __device__ static int slots(int) { return 1; }
-  __device__ float2* slot(float2* spec, int, int) const { return spec; }
-  __device__ void channel_done(const float2* own, int c, int f,
-                               int nbins) const {
+  __device__ void channel_done(const float2* own, const Cta& cta, int c,
+                               int f, int nbins) const {
     float2* out = spec_out +
-                  ((static_cast<size_t>(blockIdx.y) * this->nch + c) * S + f) *
+                  ((static_cast<size_t>(cta.k) * this->nch + c) * S + f) *
                       nbins;
     for (int bin = threadIdx.x; bin < nbins; bin += kThreads) {
       out[bin] = own[bin];
     }
-    __syncthreads();  // the next channel's FIR or FFT overwrites `own`
   }
-  __device__ void frame_done(const float2*, int, int, int, int) const {}
+  __device__ void frame_done(float2*, const Cta&, int, int, int, int,
+                             int) const {
+    __syncthreads();  // the next frame's FIR overwrites the slot
+  }
 };
 
-// (b) One CTA per group of frames of one block: grid (n_groups, K),
-// block k = blockIdx.y.  Dynamic shared memory:
-//   spec  [slots][nbins] float2 — the frame's spectra (CrossOut: every
-//                                 channel's; SpecOut: one)
-//   work  [nbins]        float2 — the FFT's ping-pong buffer
+// (b) The frame kernel: a frame group of one block on one CTA or a cluster
+// of two (see Cta above), block k = blockIdx.z.  Dynamic shared memory:
+//   spec  [slots][nbins] float2 — the CTA's spectra of the frame (a
+//                                 cluster policy's own channels; one for
+//                                 SpecOut and WideOut); each slot is its
+//                                 FFT's only buffer
+//   tw    [nbins / 2]    float2 — the FFT's twiddle table, staged once
 //   mean  [chan_slots][nch] float2 — the means of blocks jlo .. k, the
 //                                 blocks the CTA's rows lie in (chan_slots
 //                                 of them); PartsOut stages no means and
 //                                 keeps its warps' sample sums there
 //   tab   [ntaps * r]    float  — SvdFir's u (none for DirectFir)
-// For each frame and channel: the FIR over ntaps rows of [history; x]
-// (read through `rows`) into the FFT's first buffer, a radix-2 Stockham
-// FFT (log2 nbins stages, ping-ponging between work and the channel's slot
-// and ending in the slot), then the output policy.  Stage truncates the
-// frame for the ablation (kStageFull: nothing is truncated; every branch on
-// Stage is an `if constexpr`, so that instantiation is the production
-// code); a truncated frame runs fewer Stockham stages and starts in the
-// buffer from which they end in the slot.
+// For each frame and each of the CTA's channels: the FIR over ntaps rows of
+// [history; x] (read through `rows`) into the channel's slot, the radix-16
+// FFT in place there, then the output policy.  Stage truncates the frame
+// for the ablation (kStageFull: nothing is truncated; every branch on Stage
+// is an `if constexpr`, so that instantiation is the production code).
 template <class Rows, class Fir, class Out, int Stage = kStageFull>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 2)
 fx_frames_kernel(Rows rows, Fir fir, Out out, const float2* __restrict__ tw,
                  int nch, int S, int nbins, int log2n, int ntaps,
                  int frames_per_group, int parts, int chan_slots) {
-  extern __shared__ float2 smem[];
-  float2* spec = smem;
-  float2* work = smem + static_cast<size_t>(Out::slots(nch)) * nbins;
-  float2* mean_s = work + nbins;
+  const Cta cta = Out::Ctas::cta(nch);
+  float2* spec = fx_smem;
+  const int tw_off = Out::Ctas::slots(nch, cta.csize) * nbins;
+  float2* tw_s = fx_smem + tw_off;
+  float2* mean_s = tw_s + (nbins >> 1);
   float* tab = reinterpret_cast<float*>(mean_s + chan_slots * nch);
   using Sum = typename Out::template Sum<Rows>;
   const int tid = threadIdx.x;
-  const int half = nbins >> 1;
-  const int kb = blockIdx.y;  // this CTA's block
+  const int kb = cta.k;  // this CTA's block
   const int halo = ntaps - 1;
   // the first block any of this block's frames reads a row of
   const long long g_min = static_cast<long long>(kb) * S - halo;
   const int jlo = g_min <= 0 ? 0 : static_cast<int>(g_min / S);
 
   fir.stage(tab, ntaps);
+  for (int i = tid; i < (nbins >> 1); i += kThreads) tw_s[i] = __ldg(tw + i);
   if constexpr (Out::kParts) {
     static_assert(Rows::kRaw, "PartsOut runs over raw rows");
     out.zero_sums(reinterpret_cast<typename Out::Pair*>(mean_s));
@@ -875,18 +1203,15 @@ fx_frames_kernel(Rows rows, Fir fir, Out out, const float2* __restrict__ tw,
   }
   __syncthreads();
 
-  const int f0 = blockIdx.x * frames_per_group;
+  const int f0 = cta.group * frames_per_group;
   const int f1 = min(f0 + frames_per_group, S);
   const long long e_own = static_cast<long long>(kb) * S + halo;
+  const int npasses = fft_passes<Stage>(log2n);
 
   for (int f = f0; f < f1; ++f) {
     const long long e0 = static_cast<long long>(kb) * S + f;
-    for (int c = 0; c < nch; ++c) {
-      float2* own = out.slot(spec, c, nbins);
-      // an odd stage count starts in `work` so the result ends in `own`
-      const int nstages = fft_stages<Stage>(log2n);
-      float2* a = (nstages & 1) ? work : own;
-      float2* b = (nstages & 1) ? own : work;
+    for (int c = cta.c0, li = 0; c < nch; c += cta.cstep, ++li) {
+      float2* own = spec + static_cast<size_t>(li) * nbins;
       // raw rows lose no mean: every block row runs as the CTA's own
       const RowMeans m =
           Out::kParts
@@ -895,42 +1220,31 @@ fx_frames_kernel(Rows rows, Fir fir, Out out, const float2* __restrict__ tw,
                          jlo, nch};
       Sum sum(rows);
       if constexpr (Stage == kStageLoad) {
-        tap_sum<Fir::kBins>(rows, c, e0, m, ntaps, nbins, a);
+        tap_sum<Fir::kBins, Fir::kTaps>(rows, c, e0, m, ntaps, nbins, own);
       } else if constexpr (Stage == kStageLoadRaw) {
-        tap_sum<Fir::kBins>(RawRows<Rows>{rows}, c, e0, m, ntaps, nbins, a);
+        tap_sum<Fir::kBins, Fir::kTaps>(RawRows<Rows>{rows}, c, e0, m, ntaps,
+                                        nbins, own);
       } else {
-        fir(rows, tab, c, e0, m, ntaps, nbins, a, sum);
+        fir(rows, tab, c, e0, m, ntaps, nbins, own, sum);
       }
       if constexpr (Out::kParts) {
         sum.flush(reinterpret_cast<typename Out::Pair*>(mean_s), c);
       }
       __syncthreads();
-      for (int s = 0, ns = 1; s < nstages; ++s, ns <<= 1) {
-        const int tshift = log2n - 1 - s;  // twiddle stride nbins / (2 ns)
-        for (int j = tid; j < half; j += kThreads) {
-          const int k = j & (ns - 1);
-          const float2 v0 = a[j];
-          const float2 v1 = cmul(a[j + half], tw[k << tshift]);
-          const int d = ((j - k) << 1) + k;
-          b[d] = cadd(v0, v1);
-          b[d + ns] = csub(v0, v1);
-        }
-        __syncthreads();
-        float2* tmp = a;
-        a = b;
-        b = tmp;
+      if constexpr (Stage != kStageLoad && Stage != kStageLoadRaw &&
+                    Stage != kStageFir) {
+        fft_inplace(li * nbins, tw_off, log2n, npasses);
       }
-      out.channel_done(own, c, f, nbins);
+      out.channel_done(own, cta, c, f, nbins);
     }
     if constexpr (Stage == kStageFft) {
-      out.touch(spec, nch, f, f0, nbins);
+      out.touch(spec, cta, nch, f, f0, nbins);
     } else {
-      out.frame_done(spec, f, f0, nbins, log2n);
+      out.frame_done(spec, cta, nch, f, f0, nbins, log2n);
     }
-    __syncthreads();  // the next frame overwrites spec
   }
   if constexpr (Out::kParts) {
-    out.cta_done(reinterpret_cast<const typename Out::Pair*>(mean_s));
+    out.cta_done(reinterpret_cast<const typename Out::Pair*>(mean_s), cta);
   }
 }
 
@@ -1078,9 +1392,11 @@ int log2_of(int n) {
 }
 
 // The frame kernel of any mode over K blocks, on `st`, with chan_slots
-// float2 per channel of shared memory after the FFT's buffers; `pre` puts
+// float2 per channel of shared memory after the spectra; `pre` puts
 // whatever must run before it on the stream (the two-pass entries' mean
-// pre-pass).
+// pre-pass).  A cluster policy launches clusters of Out::Ctas::cluster_size
+// CTAs (cudaLaunchKernelEx); a refused launch returns its error, and
+// nothing else is launched in its place.
 template <int Stage = kStageFull, class Rows, class Fir, class Out,
           class Pre>
 cudaError_t launch_frames(const Rows& rows, const Fir& fir, const Out& out,
@@ -1089,22 +1405,38 @@ cudaError_t launch_frames(const Rows& rows, const Fir& fir, const Out& out,
                           int parts, int chan_slots, cudaStream_t st,
                           Pre&& pre) {
   if (K < 1 || K > 65535 || S < 1) return cudaErrorInvalidValue;
+  using Ctas = typename Out::Ctas;
+  const int csize = Ctas::cluster_size(nch);
   const size_t smem =
-      (static_cast<size_t>(Out::slots(nch) + 1) * nbins +
+      (static_cast<size_t>(Ctas::slots(nch, csize)) * nbins + (nbins >> 1) +
        static_cast<size_t>(nch) * chan_slots) *
           sizeof(float2) +
       fir.table_bytes(ntaps);
+  auto* kernel = &fx_frames_kernel<Rows, Fir, Out, Stage>;
   cudaError_t err = cudaFuncSetAttribute(
-      reinterpret_cast<const void*>(
-          &fx_frames_kernel<Rows, Fir, Out, Stage>),
+      reinterpret_cast<const void*>(kernel),
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   err = pre();
   if (err != cudaSuccess) return err;
-  fx_frames_kernel<Rows, Fir, Out, Stage>
-      <<<dim3(n_groups, K), kThreads, smem, st>>>(
-          rows, fir, out, static_cast<const float2*>(tw), nch, S, nbins,
-          log2_of(nbins), ntaps, frames_per_group, parts, chan_slots);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = Ctas::kCluster ? dim3(n_groups * csize, 1, K)
+                               : dim3(n_groups, nch, K);
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = csize;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, rows, fir, out,
+                           static_cast<const float2*>(tw), nch, S, nbins,
+                           log2_of(nbins), ntaps, frames_per_group, parts,
+                           chan_slots);
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
@@ -1239,8 +1571,9 @@ cudaError_t launch_fx(const T* x, typename SumOf<T>::pair* sums,
                                         frames_per_group, parts, st);
 }
 
-// launch_fx at a stage chosen at run time (the ablation's entry points).
-template <typename T, class Rows>
+// launch_fx at a stage chosen at run time (kAblate: the ablation's entry
+// points, which instantiate every stage) or at kStageFull.
+template <bool kAblate, typename T, class Rows>
 cudaError_t launch_fx_stage(int stage, const T* x,
                             typename SumOf<T>::pair* sums, const Rows& rows,
                             const void* w, const void* u, const void* v,
@@ -1253,21 +1586,30 @@ cudaError_t launch_fx_stage(int stage, const T* x,
     return launch_fx<STAGE>(x, sums, rows, w, u, v, rank, out, tw, nch, K,  \
                             S, nbins, ntaps, n_groups, frames_per_group,    \
                             parts, st)
-  switch (stage) {
-    FXT_STAGE_CASE(kStageFull);
-    FXT_STAGE_CASE(kStageLoad);
-    FXT_STAGE_CASE(kStageLoadRaw);
-    FXT_STAGE_CASE(kStageFir);
-    FXT_STAGE_CASE(kStageFftHalf);
-    FXT_STAGE_CASE(kStageFft);
-    default:
-      return cudaErrorInvalidValue;
+  if constexpr (kAblate) {
+    switch (stage) {
+      FXT_STAGE_CASE(kStageFull);
+      FXT_STAGE_CASE(kStageLoad);
+      FXT_STAGE_CASE(kStageLoadRaw);
+      FXT_STAGE_CASE(kStageFir);
+      FXT_STAGE_CASE(kStageFftHalf);
+      FXT_STAGE_CASE(kStageFft);
+      default:
+        return cudaErrorInvalidValue;
+    }
+  } else {
+    switch (stage) {
+      FXT_STAGE_CASE(kStageFull);
+      default:
+        return cudaErrorInvalidValue;
+    }
   }
 #undef FXT_STAGE_CASE
 }
 
 // The three kernels of the complex64 mode over K blocks on `st`, the
 // frame kernel at `stage` (fxt_fx_fused: kStageFull).
+template <bool kAblate>
 int fx_c64(int stage, const void* x, const void* hist, const void* w,
            const void* u, const void* v, const void* tw, const void* pairs,
            void* sums, void* partial, void* xp, void* new_hist, int nch,
@@ -1287,7 +1629,7 @@ int fx_c64(int stage, const void* x, const void* hist, const void* w,
                      nch};
   const CrossOut out{static_cast<const int*>(pairs),
                      static_cast<float2*>(partial), nbl};
-  cudaError_t err = launch_fx_stage(
+  cudaError_t err = launch_fx_stage<kAblate>(
       stage, static_cast<const float2*>(x), sd, rows, w, u, v, rank, out, tw,
       nch, K, S, nbins, ntaps, n_groups, frames_per_group, parts, st);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -1303,6 +1645,7 @@ int fx_c64(int stage, const void* x, const void* hist, const void* w,
 
 // The three kernels of the int8 mode over K blocks on `st`, the frame
 // kernel at `stage` (fxt_fx_fused_i8: kStageFull).
+template <bool kAblate>
 int fx_i8(int stage, const void* x, const void* tail, const void* mu_prev,
           const void* w, const void* u, const void* v, const void* tw,
           const void* pairs, void* sums, void* partial, void* xp, void* mu,
@@ -1325,7 +1668,7 @@ int fx_i8(int stage, const void* x, const void* tail, const void* mu_prev,
                     step};
   const CrossOut out{static_cast<const int*>(pairs),
                      static_cast<float2*>(partial), nbl};
-  cudaError_t err = launch_fx_stage(
+  cudaError_t err = launch_fx_stage<kAblate>(
       stage, static_cast<const char2*>(x), sl, rows, w, u, v, rank, out, tw,
       nch, K, S, nbins, ntaps, n_groups, frames_per_group, parts, st);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -1340,6 +1683,12 @@ int fx_i8(int stage, const void* x, const void* tail, const void* mu_prev,
 }
 
 }  // namespace
+
+// This source is compiled three times, so that nvcc builds its kernels in
+// parallel: alone, for the production entry points below, and included by
+// fx_ablate_c64.cu and fx_ablate_i8.cu, each of which defines its macro
+// and builds one ablation entry point (its six stages' frame kernels).
+#if !defined(FXT_ABLATE_C64) && !defined(FXT_ABLATE_I8)
 
 // Launch the three kernels of the complex64 mode over K blocks on
 // `stream`.  The caller (fx_fused.py) has checked shapes, types,
@@ -1356,7 +1705,8 @@ extern "C" int fxt_fx_fused(const void* x, const void* hist, const void* w,
                             int nbins, int ntaps, int rank, int nbl,
                             int n_groups, int frames_per_group, int parts,
                             void* stream) {
-  return fx_c64(kStageFull, x, hist, w, u, v, tw, pairs, sums, partial, xp,
+  return fx_c64<false>(kStageFull, x, hist, w, u, v, tw, pairs, sums,
+                       partial, xp,
                 new_hist, nch, K, S, nbins, ntaps, rank, nbl, n_groups,
                 frames_per_group, parts, static_cast<cudaStream_t>(stream));
 }
@@ -1375,7 +1725,8 @@ extern "C" int fxt_fx_fused_i8(const void* x, const void* tail,
                                int nbins, int ntaps, int rank, int nbl,
                                int n_groups, int frames_per_group, int parts,
                                double step, void* stream) {
-  return fx_i8(kStageFull, x, tail, mu_prev, w, u, v, tw, pairs, sums,
+  return fx_i8<false>(kStageFull, x, tail, mu_prev, w, u, v, tw, pairs,
+                      sums,
                partial, xp, mu, nch, K, S, nbins, ntaps, rank, nbl, n_groups,
                frames_per_group, parts, step,
                static_cast<cudaStream_t>(stream));
@@ -1471,6 +1822,9 @@ extern "C" int fxt_fx_wide_frames_i8(const void* x, const void* tail,
                                static_cast<cudaStream_t>(stream));
 }
 
+#endif  // the production entry points
+
+#ifdef FXT_ABLATE_C64
 // The stage ablation (fx_fused.fx_fused_ablate): fxt_fx_fused with the
 // frame kernel truncated at `stage` (the kStage values, 0 .. 5; 0 is the
 // production kernel, the instantiation fxt_fx_fused launches).  The mean
@@ -1484,11 +1838,15 @@ extern "C" int fxt_fx_ablate(const void* x, const void* hist, const void* w,
                              int nbins, int ntaps, int rank, int nbl,
                              int n_groups, int frames_per_group, int parts,
                              int stage, void* stream) {
-  return fx_c64(stage, x, hist, w, u, v, tw, pairs, sums, partial, xp,
+  return fx_c64<true>(stage, x, hist, w, u, v, tw, pairs, sums, partial,
+                      xp,
                 new_hist, nch, K, S, nbins, ntaps, rank, nbl, n_groups,
                 frames_per_group, parts, static_cast<cudaStream_t>(stream));
 }
 
+#endif  // FXT_ABLATE_C64
+
+#ifdef FXT_ABLATE_I8
 // The stage ablation of the int8 mode: fxt_fx_fused_i8 at `stage`.
 extern "C" int fxt_fx_ablate_i8(const void* x, const void* tail,
                                 const void* mu_prev, const void* w,
@@ -1498,12 +1856,16 @@ extern "C" int fxt_fx_ablate_i8(const void* x, const void* tail,
                                 int nbins, int ntaps, int rank, int nbl,
                                 int n_groups, int frames_per_group, int parts,
                                 double step, int stage, void* stream) {
-  return fx_i8(stage, x, tail, mu_prev, w, u, v, tw, pairs, sums, partial,
+  return fx_i8<true>(stage, x, tail, mu_prev, w, u, v, tw, pairs, sums,
+                     partial,
                xp, mu, nch, K, S, nbins, ntaps, rank, nbl, n_groups,
                frames_per_group, parts, step,
                static_cast<cudaStream_t>(stream));
 }
 
+#endif  // FXT_ABLATE_I8
+
+#if !defined(FXT_ABLATE_C64) && !defined(FXT_ABLATE_I8)
 // Launch the spectrometer on `stream`: the mean pre-pass over all nsamp
 // samples of each channel, the frame kernel with the spectra written to
 // spec [nch, S, nbins], and (ntaps > 1) the new history.  The caller
@@ -1546,3 +1908,4 @@ extern "C" int fxt_spectrometer(const void* x, const void* hist,
 extern "C" const char* fxt_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
+#endif  // the production entry points

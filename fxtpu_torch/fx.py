@@ -15,7 +15,7 @@ per engine (``_resolve_fused``, like ``fxtpu.fx._resolve_fused``):
     the fftshift and the continuum reduction on the tiny ``[nbl, nbins]``
     result (the rotation commutes with the frame sum): three kernel
     launches a step, for 2 to 64 channels (where a frame's spectra of
-    all channels do not fit in one CTA's shared memory the single pass
+    all channels do not fit in one cluster's shared memory the single pass
     takes its wide route, ``FxEngine.x_stage`` ``"global"``).  (The
     two-pass wrappers ``ops.fx_fused.fx_fused_raw*`` with
     ``ops.fx_epilogue.finish`` compute the same step with a mean pre-pass
@@ -409,7 +409,7 @@ class FxEngine:
     @property
     def x_stage(self) -> Optional[str]:
         """Where the fused step's single pass forms the cross power:
-        ``"shared"`` (every channel's spectrum of a frame in one CTA's
+        ``"shared"`` (every channel's spectrum of a frame in one cluster's
         shared memory), ``"global"`` (the wide route: the spectra through
         device memory to the X kernel), None on the plain route."""
         return self._x_stage

@@ -62,8 +62,9 @@ that returns corrected cross power, its DC bin included, exactly.
 
 The single pass forms its X stage on one of two routes (``x_stage``,
 :data:`X_STAGES`, chosen by :func:`x_route`): the shared-memory route,
-where every channel's spectrum of a frame stays in one CTA's shared
-memory (:func:`supported`: 6 channels at 4096 bins, 2 at 8192), and the
+where every channel's spectrum of a frame stays in the shared memory of
+its frame group's cluster of two CTAs (:func:`supported`: 6 channels at
+4096 bins, 2 at 8192; :func:`frame_ctas`), and the
 wide route for the rest, up to ``fxtpu``'s 64 channels
 (:data:`MAX_FUSED_NCHAN`): the frame kernel writes each spectrum to a
 device scratch ``[K, nch, S, nbins]`` and the X kernel
@@ -108,8 +109,10 @@ __all__ = ["supported", "supported_i8", "fx_fused_raw",
            "fx_fused_parts_i8_reference", "fx_fused_parts_wide_reference",
            "fx_fused_parts_i8_wide_reference", "supported_parts", "x_route",
            "max_blocks_parts", "fx_fused_ablate",
-           "fx_fused_ablate_reference", "stockham_stages", "max_blocks",
-           "pairs_tensor", "svd_tensors", "MAX_SHARED_BYTES",
+           "fx_fused_ablate_reference", "stockham_stages", "fft_radices",
+           "fft_passes", "frame_ctas", "frame_shared_bytes",
+           "shared_route_bytes", "cluster_size", "max_blocks",
+           "pairs_tensor", "svd_tensors", "MAX_SHARED_BYTES", "CLUSTER_CTAS",
            "MAX_SVD_RANK", "MAX_FUSED_NCHAN", "X_STAGES", "STAGES",
            "FFT_STAGE_BINS"]
 
@@ -117,8 +120,11 @@ __all__ = ["supported", "supported_i8", "fx_fused_raw",
 MAX_SHARED_BYTES = 232448
 #: Blocks per channel in the kernel's mean pre-pass.
 MEAN_PARTS = 32
-#: Most CTAs the frame kernel splits one block into (two per H100 SM).
+#: Most frame groups the frame kernel splits one block into (two per H100
+#: SM; a cluster policy runs each on up to CLUSTER_CTAS CTAs).
 MAX_GROUPS = 264
+#: CTAs of a frame group's cluster where channels meet in one product.
+CLUSTER_CTAS = 2
 #: Bound on one block's [n_groups, nbl, nbins] partial cross power.
 MAX_PARTIAL_BYTES = 64 << 20
 #: Bound on a launch's partial cross power, all K blocks' together.
@@ -142,33 +148,83 @@ MAX_BLOCKS = 65535
 #: Stages of the ablation, in the kernel's numbering (kStageFull ...):
 #: the whole step; every tap row read and summed with unit weights,
 #: DC-corrected (``load``) or as it arrived (``load_raw``); stop after the
-#: FIR; after ``log2(nbins) // 2`` Stockham stages; after all of them,
-#: with no X stage.
+#: FIR; after the first ``floor(passes / 2)`` of the FFT's radix passes
+#: (:func:`fft_radices`); after all of them, with no X stage.
 STAGES = ("full", "load", "load_raw", "fir", "fft_half", "fft")
 #: Bins of baseline 0 that stage ``"fft"`` writes (one per thread).
 FFT_STAGE_BINS = 256
 
 
-def shared_bytes(nbins: int, nch: int, ntaps: int = 0, rank: int = 0,
-                 mean_blocks: int = 1) -> int:
-    """Dynamic shared memory of the frame kernel: every channel's
-    spectrum, one FFT ping-pong buffer, the channel means of
-    ``mean_blocks`` blocks (:func:`mean_blocks`; 1 for one block per
-    launch; :data:`PARTS_CHAN_SLOTS` for the single-pass kernel, which
-    keeps its sample sums there and stages no means and no dA table: it
-    reads dA from device memory) and, in the SVD-FIR mode (``rank > 0``),
-    the ``[ntaps, rank]`` float32 table u."""
+def shared_route_bytes(nbins: int, nch: int, ntaps: int = 0, rank: int = 0,
+                       mean_blocks: int = 1) -> int:
+    """The shared route's rule: the bytes by which :func:`supported` and
+    :func:`max_blocks` decide whether a shape takes the kernels that keep
+    every channel's spectrum of a frame on chip.  It is the footprint of
+    the radix-2 frame kernel these routes were first sized for (every
+    channel's spectrum, an FFT ping-pong buffer, the channel means of
+    ``mean_blocks`` blocks -- :func:`mean_blocks`; :data:`PARTS_CHAN_SLOTS`
+    for the single pass's sample sums -- and in the SVD-FIR mode the
+    ``[ntaps, rank]`` float32 table u), kept so that the routes do not
+    move; a launch asks for :func:`frame_shared_bytes`, which is never
+    more."""
     return (((nch + 1) * nbins + nch * mean_blocks) * 8
             + ntaps * rank * 4)
 
 
-def shared_bytes_wide(nbins: int, nch: int, ntaps: int = 0,
-                      rank: int = 0) -> int:
-    """Dynamic shared memory of the wide route's frame kernel (one
-    spectrum slot, whatever nch is): the spectrum, the FFT's work buffer,
-    the warps' sample sums of every channel and the SVD table u."""
+def wide_route_bytes(nbins: int, nch: int, ntaps: int = 0,
+                     rank: int = 0) -> int:
+    """The wide route's rule (:func:`supported_parts`), sized like
+    :func:`shared_route_bytes` for its one-slot frame kernel: a spectrum,
+    an FFT work buffer, the warps' sample sums of every channel and the
+    SVD table u."""
     return ((2 * nbins + nch * PARTS_CHAN_SLOTS) * 8
             + ntaps * rank * 4)
+
+
+def cluster_size(nch: int) -> int:
+    """CTAs a frame group runs on where a frame's channels meet in one
+    product (the two-pass and the single-pass shared-route kernels): a
+    cluster of :data:`CLUSTER_CTAS`, one CTA for one channel."""
+    return min(CLUSTER_CTAS, nch)
+
+
+def frame_shared_bytes(nbins: int, nch: int, ntaps: int = 0, rank: int = 0,
+                       chan_slots: int = 1, *, one_slot: bool = False) -> int:
+    """Dynamic shared memory one CTA of the frame kernel asks for
+    (``launch_frames`` in ``csrc/fx_fused.cu``): its spectrum slots --
+    ``ceil(nch / cluster_size(nch))`` for a cluster policy, one for the
+    one-slot policies (``one_slot``: the spectrometer and the wide route's
+    frames) -- each its FFT's only buffer, the FFT's twiddle table
+    (``nbins / 2`` float2), ``chan_slots`` float2 per channel (the means
+    of :func:`mean_blocks` blocks, or :data:`PARTS_CHAN_SLOTS` for the
+    single pass's sample sums) and the SVD table u."""
+    slots = 1 if one_slot else -(-nch // cluster_size(nch))
+    return ((slots * nbins + nbins // 2 + nch * chan_slots) * 8
+            + ntaps * rank * 4)
+
+
+def frame_ctas(nch: int, nbins: int, n_groups: int, per: int, s_rows: int,
+               *, one_slot: bool = False):
+    """The frame kernel's split of one block, CTA by CTA, as
+    ``csrc/fx_fused.cu`` makes it (its ``Cta``): a list of ``(group, rank,
+    channels, frames, bins)``, ``channels`` the channels whose FIR and FFT
+    the CTA runs, ``frames`` its group's frames and ``bins`` the range of
+    bins of every pair whose cross power it forms (empty for the one-slot
+    policies, which form none).  A cluster policy runs a group on
+    :func:`cluster_size` CTAs, CTA r taking channels r, r + csize, ... and
+    the r-th 1/csize of the bins; a one-slot policy runs one channel a
+    CTA."""
+    ctas = []
+    for g in range(n_groups):
+        frames = range(g * per, min((g + 1) * per, s_rows))
+        if one_slot:
+            ctas += [(g, 0, (c,), frames, range(0)) for c in range(nch)]
+            continue
+        cs = cluster_size(nch)
+        part = nbins // cs
+        ctas += [(g, r, tuple(range(r, nch, cs)), frames,
+                  range(r * part, (r + 1) * part)) for r in range(cs)]
+    return ctas
 
 
 def mean_blocks(k: int, s_rows: int, ntaps: int) -> int:
@@ -181,13 +237,13 @@ def mean_blocks(k: int, s_rows: int, ntaps: int) -> int:
 def supported(nbins: int, ntaps: int, nch: int, rank: int = 0) -> bool:
     """True when the CUDA kernels take this shape: nbins a power of two
     in [256, 8192], ntaps >= 2, an SVD rank in [0, MAX_SVD_RANK] (0: the
-    direct tap loop), and the spectra of all channels (plus the FFT's
-    work buffer, the u table and the single pass's sample sums, the
-    larger of the two forms' needs per channel) fit in one block's shared
-    memory."""
+    direct tap loop), and the shared route's rule holds
+    (:func:`shared_route_bytes` of every channel's spectrum, an FFT work
+    buffer, the u table and the single pass's sample sums within
+    MAX_SHARED_BYTES; a launch asks for less, :func:`frame_shared_bytes`)."""
     return (256 <= nbins <= 8192 and nbins & (nbins - 1) == 0
             and ntaps >= 2 and nch >= 1 and 0 <= rank <= MAX_SVD_RANK
-            and shared_bytes(nbins, nch, ntaps, rank, PARTS_CHAN_SLOTS)
+            and shared_route_bytes(nbins, nch, ntaps, rank, PARTS_CHAN_SLOTS)
             <= MAX_SHARED_BYTES)
 
 
@@ -220,7 +276,7 @@ def supported_parts(nbins: int, ntaps: int, nch: int, s_rows: int,
             and 0 <= rank <= MAX_SVD_RANK and s_rows >= ntaps - 1):
         return False
     return supported(nbins, ntaps, nch, rank) or (
-        shared_bytes_wide(nbins, nch, ntaps, rank) <= MAX_SHARED_BYTES
+        wide_route_bytes(nbins, nch, ntaps, rank) <= MAX_SHARED_BYTES
         and xstage_shared_bytes(nch) <= MAX_SHARED_BYTES)
 
 
@@ -390,7 +446,7 @@ def max_blocks(s_rows: int, nbins: int, ntaps: int, nch: int, rank: int,
     CTA reads in shared memory (MAX_SHARED_BYTES)."""
     per_block = _groups(s_rows, nbl, nbins)[0] * nbl * nbins * 8
     k = min(MAX_BLOCKS, MAX_LAUNCH_PARTIAL_BYTES // per_block)
-    while k > 0 and shared_bytes(nbins, nch, ntaps, rank, mean_blocks(
+    while k > 0 and shared_route_bytes(nbins, nch, ntaps, rank, mean_blocks(
             k, s_rows, ntaps)) > MAX_SHARED_BYTES:
         k = mean_blocks(k, s_rows, ntaps) - 1
     return k
@@ -1063,11 +1119,11 @@ fx_fused_parts_i8.wide_svd_launches = 0
 
 
 def stockham_stages(x: torch.Tensor, nstages: int) -> torch.Tensor:
-    """The first ``nstages`` radix-2 Stockham stages of the frame kernel's
-    FFT over the last axis of complex ``x`` (a power of two long), by
-    tensor indexing, with the kernel's own index arithmetic
-    (``fx_fused.cu``: ``b[d]``, ``b[d + ns]``).  All ``log2(n)`` stages
-    give the DFT in natural order."""
+    """The first ``nstages`` radix-2 Stockham stages over the last axis of
+    complex ``x`` (a power of two long), by tensor indexing, with the
+    index arithmetic of the probes' radix-2 FFT body (``csrc/probes.cu``:
+    ``b[d]``, ``b[d + ns]``; the overlap and layout probes compare with
+    it).  All ``log2(n)`` stages give the DFT in natural order."""
     n = x.shape[-1]
     log2n = n.bit_length() - 1
     if n != 1 << log2n or not 0 <= nstages <= log2n:
@@ -1089,14 +1145,78 @@ def stockham_stages(x: torch.Tensor, nstages: int) -> torch.Tensor:
     return a
 
 
+def fft_radices(n: int) -> tuple:
+    """The radices of the frame kernel's FFT passes over ``n`` points
+    (``csrc/fx_fused.cu``'s ``fft_inplace``): 16 and 16 at 256 points,
+    then one pass of radix ``n / 256`` (2 to 32) at 512 to 8192."""
+    log2n = n.bit_length() - 1
+    if n != 1 << log2n or not 8 <= log2n <= 13:
+        raise ValueError(f"the frame kernel's FFT takes 256 to 8192 points "
+                         f"(a power of two), not {n}")
+    return (16, 16) if log2n == 8 else (16, 16, n >> 8)
+
+
+def _fft_swizzle(idx: torch.Tensor) -> torch.Tensor:
+    """Where pass 0 stores, and pass 1 loads, logical point ``idx`` in the
+    kernel's slot (``L ^ ((L >> 4) & 15)``: keeps both off one bank)."""
+    return idx ^ ((idx >> 4) & 15)
+
+
+def fft_passes(x: torch.Tensor, stop: int, start: int = 0) -> torch.Tensor:
+    """Passes ``start`` .. ``stop - 1`` of the frame kernel's in-place
+    Stockham FFT (:func:`fft_radices`) over the last axis of complex ``x``,
+    by tensor indexing with the kernel's own index arithmetic: butterfly j
+    of a radix-R pass loads points ``j + r n / R``, multiplies point r by
+    ``exp(-2 pi i r k / (Ns R))`` (k = j mod Ns, Ns the product of the
+    radices before it; :func:`_twiddles`' table and its negation), takes
+    the R-point DFT and stores output r at ``(j - k) R + k + r Ns``.  ``x``
+    and the result are the slot as the kernel leaves it after ``start`` and
+    ``stop`` passes: after pass 0 in the swizzled order pass 1 reads
+    (:func:`_fft_swizzle`), after the last pass the DFT in natural
+    order."""
+    n = x.shape[-1]
+    radices = fft_radices(n)
+    if not 0 <= start <= stop <= len(radices):
+        raise ValueError(f"passes {start} .. {stop} of {len(radices)}")
+    tw = _twiddles(n, x.device)
+    half = n // 2
+    ns = math.prod(radices[:start])
+    a = x
+    for p in range(start, stop):
+        radix = radices[p]
+        nb = n // radix
+        j = torch.arange(nb, device=x.device)[:, None]
+        r = torch.arange(radix, device=x.device)[None, :]
+        load = j + r * nb
+        if p == 1:
+            load = _fft_swizzle(load)
+        v = a[..., load]                                   # [..., nb, R]
+        k = j & (ns - 1)
+        if ns > 1:
+            m = r * k * (n // (ns * radix))
+            t = tw[m & (half - 1)]
+            v = v * torch.where((m & half) != 0, -t, t)
+        v = torch.fft.fft(v, dim=-1)
+        store = (j - k) * radix + k + r * ns
+        if p == 0:
+            store = _fft_swizzle(store)
+        b = torch.empty_like(a)
+        b[..., store.reshape(-1)] = v.reshape(*v.shape[:-2], n)
+        a = b
+        ns *= radix
+    return a
+
+
 def fx_fused_ablate_reference(x: torch.Tensor, history, window2d: torch.Tensor,
                               pairs: torch.Tensor, stage: str,
                               quant_step=None, svd=None) -> torch.Tensor:
     """The truncated step in plain torch, same contract as
     :func:`fx_fused_ablate`: the merged rows ``[history; x]`` (each block
     losing its own mean, 8-bit samples dequantized; ``"load_raw"``: as they
-    arrived), the stage's share of FIR and Stockham stages, then the cross
-    power of every pair summed over each block's frames."""
+    arrived), the stage's share of FIR and FFT passes (:func:`fft_passes`:
+    ``"fft_half"`` the first ``floor(passes / 2)``, the slot as the kernel
+    leaves it), then the cross power of every pair summed over each
+    block's frames."""
     if stage not in STAGES:
         raise ValueError(f"stage {stage!r} is not one of {STAGES}")
     int8 = x.dtype == torch.int8
@@ -1128,11 +1248,11 @@ def fx_fused_ablate_reference(x: torch.Tensor, history, window2d: torch.Tensor,
         y = pfb_fir(merged, window2d)
     else:
         y = svd_fir(merged, *svd)
-    log2n = nbins.bit_length() - 1
+    passes = len(fft_radices(nbins))
     if stage == "fft_half":
-        y = stockham_stages(y, log2n // 2)
+        y = fft_passes(y, passes // 2)
     elif stage == "fft":
-        y = stockham_stages(y, log2n)
+        y = fft_passes(y, passes)
     y = y.reshape(nch, k, s_rows, nbins)
     if stage == "fft":
         # frames first, then channels: each block's sum is formed alike

@@ -5,8 +5,9 @@ PyTorch counterpart of ``fxtpu.ops.pfb_pallas.spectrometer_pallas``,
 whose Pallas kernel ``_kernel`` becomes the CUDA entry point
 ``fxt_spectrometer`` in ``fxtpu_torch/csrc/fx_fused.cu``: the fused FX
 step's mean pre-pass, FIR and FFT, with an output policy that writes each
-spectrum to device memory in place of the X loop, so shared memory holds
-one spectrum and the FFT's work buffer for any number of channels.
+spectrum to device memory in place of the X loop, one channel a CTA
+(the channels are a grid axis), so shared memory holds one spectrum, the
+FFT's only buffer, for any number of channels.
 
 Contract of :func:`spectrometer_fused`, for ``x`` complex64 ``[nch,
 nsamp]``, ``window2d`` float32 ``[ntaps, nbins]`` and the DC-corrected
@@ -32,8 +33,10 @@ __all__ = ["spectrometer_fused", "spectrometer_fused_reference",
 
 def supported_spectrometer(nbins: int, ntaps: int, nch: int) -> bool:
     """True when the CUDA spectrometer takes this shape: nbins a power of
-    two in [256, 8192], ntaps >= 1, and one spectrum, the FFT's work
-    buffer and the channel means in one block's shared memory."""
+    two in [256, 8192], ntaps >= 1, and one spectrum, an FFT work buffer
+    and the channel means within one block's shared memory (the radix-2
+    kernel's footprint, kept as the rule; a launch asks for less:
+    ``fx_fused.frame_shared_bytes(..., one_slot=True)``)."""
     return (256 <= nbins <= 8192 and nbins & (nbins - 1) == 0
             and ntaps >= 1 and nch >= 1
             and (2 * nbins + nch) * 8 <= MAX_SHARED_BYTES)

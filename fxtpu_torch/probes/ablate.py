@@ -11,7 +11,8 @@ the differences between consecutive stages:
                        the same without the DC correction and, for 8-bit
                        samples, without the dequantisation (TPU ``dma0``);
   fir - load           the window and the multiply-adds (TPU ``fir``);
-  fft_half - fir       the first log2(n) // 2 Stockham stages (``fft1``);
+  fft_half - fir       the first floor(passes / 2) of the FFT's radix
+                       passes, one of its 2 or 3 (``fft1``);
   fft - fft_half       the rest of them, with no X stage (``fft2``);
   full - fft           the X stage and the partials written out.
 

@@ -87,14 +87,15 @@ LAUNCH_CALLS = ("cudaLaunch", "cuLaunch", "cudaMemcpy", "cuMemcpy",
                 "cudaMemset", "cuMemset")
 
 
-def counted_device_events(events: list, calls: int, lead: int):
-    """From a trace's events of ``lead + calls`` calls, the device events
-    of the last ``calls`` calls in the order the host launched them, one
-    per launching call (:data:`LAUNCH_CALLS`; a call and its device event
-    share a ``correlation``), or None when one of them is missing.  Raises
-    when the calls do not hold the same number of launches each, or when a
-    device event belongs to a host call that :data:`LAUNCH_CALLS` does not
-    name."""
+def counted_device_events(events: list, calls: int, lead: int,
+                          tail: int = 0):
+    """From a trace's events of ``lead + calls + tail`` calls, the device
+    events of the ``calls`` calls after the first ``lead`` in the order the
+    host launched them, one per launching call (:data:`LAUNCH_CALLS`; a
+    call and its device event share a ``correlation``), or None when one of
+    them is missing.  Raises when the calls do not hold the same number of
+    launches each, or when a device event belongs to a host call that
+    :data:`LAUNCH_CALLS` does not name."""
     device = {e["args"]["correlation"]: e for e in events if e.get(
         "cat") in ("kernel", "gpu_memcpy", "gpu_memset")}
     host = sorted((e for e in events if e.get("cat") in (
@@ -106,32 +107,37 @@ def counted_device_events(events: list, calls: int, lead: int):
     if others:
         raise RuntimeError(f"device work launched by {others}, which "
                            "LAUNCH_CALLS does not name")
-    per, rest = divmod(len(launches), lead + calls)
+    per, rest = divmod(len(launches), lead + calls + tail)
     if rest or not per:
         raise RuntimeError(
-            f"{len(launches)} launching calls in {lead + calls} calls")
-    counted = [e["args"]["correlation"] for e in launches[lead * per:]]
+            f"{len(launches)} launching calls in {lead + calls + tail} calls")
+    counted = [e["args"]["correlation"]
+               for e in launches[lead * per:(lead + calls) * per]]
     if all(c in device for c in counted):
         return [device[c] for c in counted]
     return None
 
 
-def device_events(fn, calls: int, lead: int = 2, tries: int = 10) -> list:
+def device_events(fn, calls: int, lead: int = 2, tail: int = 2,
+                  tries: int = 10) -> list:
     """What the device ran during ``calls`` calls of ``fn``, in the order
-    the host launched it: the events of a CUDA-only ``torch.profiler``
+    the host launched them: the events of a CUDA-only ``torch.profiler``
     trace whose ``cat`` is ``kernel``, ``gpu_memcpy`` or ``gpu_memset``
     (``name``; ``dur`` in microseconds), one per launching call.
 
     The tracer's device records are lossy in a process that has traced a
-    long run before: a trace may lack its first launch's record, or more.
-    Its records of the host's calls are not.  So ``lead`` calls that are
-    not counted come first in the trace, every counted launching call must
-    have its device record (:func:`counted_device_events`), and a trace
-    that lacks one is taken again.  Raises after ``tries`` such traces."""
+    long run before: a trace may lack its first launches' records, or
+    more.  Its records of the host's calls are not.  So calls that are not
+    counted come first (``lead``, doubled on each retake up to 16 times
+    as many) and last (``tail``) in the trace, every counted launching
+    call must have its device record (:func:`counted_device_events`), and a
+    trace that lacks one is taken again.  Raises after ``tries`` such
+    traces."""
     acts = [torch.profiler.ProfilerActivity.CUDA]
-    for _ in range(tries):
+    for attempt in range(tries):
+        first = lead << min(attempt, 4)
         with torch.profiler.profile(activities=acts) as prof:
-            for _ in range(lead + calls):
+            for _ in range(first + calls + tail):
                 fn()
             torch.cuda.synchronize()
         with tempfile.TemporaryDirectory() as tmp:
@@ -139,7 +145,7 @@ def device_events(fn, calls: int, lead: int = 2, tries: int = 10) -> list:
             prof.export_chrome_trace(path)
             with open(path) as fh:
                 events = json.load(fh)["traceEvents"]
-        counted = counted_device_events(events, calls, lead)
+        counted = counted_device_events(events, calls, first, tail)
         if counted is not None:
             return counted
     raise RuntimeError(f"{tries} traces in a row lack device records of "

@@ -23,10 +23,10 @@ takes the place of a TPU formulation:
 
 All four write the same checksum (the script's ``out``: the sum over all
 frame slots of ``m @ bf16(x2)``); leg minus ``control`` is the layout's
-cost in ps per sample.  Beside them ``stockham`` runs the production
-frame kernel's radix-2 Stockham stages (``b[d]``, ``b[d + ns]``,
-``fx_fused.cu``) over the same frames taken as 2048 complex points: the
-access pattern the kernel has today, per stage.
+cost in ps per sample.  Beside them ``stockham`` runs radix-2 Stockham
+stages (``b[d]``, ``b[d + ns]``: the frame kernel's FFT up to its
+radix-16 redesign, ``fx_fused.stockham_stages``) over the same frames
+taken as 2048 complex points: that access pattern's cost per stage.
 
     python -m fxtpu_torch.probes retile
 

@@ -1,27 +1,44 @@
 """Two trees' frame kernels of fxtpu_torch in one process, parent / change
-/ change / parent: is the production kernel still the same kernel?
+/ change / parent: how much faster, and still right?
 
 A one-block call at the flagship is bounded by the host's enqueue, which
 drifts from process to process, so two trees are compared in one process,
 on one card, in turns.  This builds the CUDA sources of another checkout
 of this repository (``--parent DIR``, e.g. a ``git archive`` of the parent
-commit unpacked under ``build/``) and this tree's, each into a library of
-its own, and launches the entry both share (``fxt_fx_fused`` /
-``fxt_fx_fused_i8``) on the same buffers through this tree's launcher:
+commit unpacked under ``build/``) and of this tree (or ``--change DIR``),
+each into a library of its own, and launches the entries both export on
+the same input and output buffers:
+
+  * ``fxt_fx_parts`` / ``fxt_fx_parts_i8`` (the single pass the engine's
+    step launches: frame kernel and reduce) at the flagship (K = 1 and 8)
+    and at ``bench_pipeline``'s block;
+  * ``fxt_fx_wide_frames`` / ``fxt_fx_wide_frames_i8`` (the wide route's
+    frame kernel alone) at bench.py's ``nchan8`` block and at the CLI's
+    8-channel deep block (``--nchan 8 --resolution 8192 --ntaps 32``, SVD
+    rank 6);
+  * ``fxt_spectrometer`` (complex64 only) at the flagship's shape;
+
+each in both ingests, and reports
 
   * ``nvcc -Xptxas -v``'s registers, shared memory and spills of each
     tree's production frame kernels;
-  * the two libraries' outputs bit for bit (K = 1 and K = 8);
-  * the frame kernel's device time (``torch.profiler``) and the call's
-    event time, ``--rounds`` rounds in the order A B B A.
+  * each tree's largest difference from the plain version on the same
+    input (parts: of max|xp|; spectra: of max|spectrum|), and the largest
+    difference between the two trees' outputs (of the parent's largest
+    magnitude);
+  * the frame kernel's device time (``torch.profiler``, the median of ten
+    launches a round) and the call's event time, ``--rounds`` rounds in
+    the order A B B A.
 
-    python scripts/torch_ab_trees.py --parent build/parent
+    python scripts/torch_ab_trees.py --parent build/parent [--cases
+        flagship,nchan8]
 
 prints one JSON line per comparison.
 """
 
 import argparse
 import ctypes
+import hashlib
 import re
 import statistics
 import sys
@@ -34,17 +51,30 @@ sys.path.insert(0, str(ROOT))
 
 from fxtpu_torch import cuda_build  # noqa: E402
 from fxtpu_torch.ops import fx_fused as ff  # noqa: E402
+from fxtpu_torch.ops.dc_posthoc import dc_constants  # noqa: E402
+from fxtpu_torch.ops.xengine import baseline_pairs  # noqa: E402
 from fxtpu_torch.probes import ablate  # noqa: E402
-from fxtpu_torch.probes.common import (card_line, emit, event_ms,  # noqa: E402
-                                       resolve_device)
+from fxtpu_torch.probes.common import (card_line, device_events,  # noqa: E402
+                                       emit, event_ms, resolve_device)
 
-SHARED = ("fxt_fx_fused", "fxt_fx_fused_i8", "fxt_error_string")
+SHARED = ("fxt_fx_parts", "fxt_fx_parts_i8", "fxt_fx_wide_frames",
+          "fxt_fx_wide_frames_i8", "fxt_spectrometer", "fxt_error_string")
+#: name -> (entry, nch, samples a channel, nbins, ntaps, K, FIR mode, autos)
+CASES = {
+    "flagship": ("parts", 2, 2**18, 4096, 4, 1, "direct", False),
+    "flagship_k8": ("parts", 2, 2**18, 4096, 4, 8, "direct", False),
+    "pipeline": ("parts", 2, 2**21, 4096, 4, 1, "direct", False),
+    "nchan8": ("wide", 8, 2**20, 4096, 4, 1, "direct", True),
+    "deep8": ("wide", 8, 2**18, 8192, 32, 1, "svd", False),
+    "spectrometer": ("spec", 2, 2**18, 4096, 4, 1, "direct", False),
+}
 
 
 def production_kernels(log: str) -> dict:
     """``{kernel: "registers, shared memory, spills"}`` of the frame
     kernels in nvcc's ``-Xptxas -v`` output whose stage is the production
-    one: an older tree's (no stage parameter) or stage 0 of this one's."""
+    one (stage 0), and the stack and spills of the FFT's bodies
+    (``fft_sized<log2 n>``, called by every frame kernel)."""
     out = {}
     lines = log.splitlines()
     for i, line in enumerate(lines):
@@ -57,25 +87,38 @@ def production_kernels(log: str) -> dict:
             continue
         policy = "_".join(re.findall(
             r"(F32Rows|I8Rows|F32Raw|I8Raw|DirectFir|SvdFir|CrossOut|SpecOut|"
-            r"PartsOut)", m.group(1)))
+            r"PartsOut|WideOut)", m.group(1)))
         info = " ".join(s.strip() for s in lines[i + 1:i + 4]
                         if "registers" in s or "spill" in s)
         out[policy] = re.sub(r"ptxas info\s*:\s*", "", info)
+    for i, line in enumerate(lines):
+        m = re.search(r"Function properties for (\S*fft_sized\S*)", line)
+        if m and i + 1 < len(lines):
+            size = re.search(r"fft_sizedILi(\d+)E", m.group(1))
+            out[f"fft_sized<{size.group(1) if size else '?'}>"] = (
+                lines[i + 1].strip())
     return out
 
 
 def build_tree(root: Path, name: str, like=None):
     """Build the CUDA sources of the checkout at ``root`` into
-    ``build/fxtpu_torch/ab/lib<name>.so`` of this tree, anew, and load
-    them -> (library, nvcc's output).  ``like`` is a declared library whose
-    signatures of the shared entries the new one takes (an older tree
-    lacks the newer entries)."""
+    ``build/fxtpu_torch/ab/lib<name>_<hash>.so`` of this tree (once per
+    content: a second call with the same sources loads the first's) ->
+    (library, nvcc's output).  ``like`` is a declared library whose
+    signatures of the shared entries the new one takes."""
     sources = sorted((root / "fxtpu_torch" / "csrc").glob("*.cu"))
     if not sources:
         raise FileNotFoundError(f"no CUDA sources under {root}")
-    path = cuda_build.BUILD_DIR / "ab" / f"lib{name}.so"
-    path.unlink(missing_ok=True)
-    log = cuda_build.build_library(path, sources)
+    h = hashlib.sha256()
+    for src in sources + sorted((root / "fxtpu_torch" / "csrc").glob("*.cuh")):
+        h.update(src.name.encode() + src.read_bytes())
+    path = cuda_build.BUILD_DIR / "ab" / f"lib{name}_{h.hexdigest()[:12]}.so"
+    log_path = path.with_suffix(".log")
+    if path.exists() and log_path.exists():
+        log = log_path.read_text()
+    else:
+        log = cuda_build.build_library(path, sources)
+        log_path.write_text(log)
     lib = ctypes.CDLL(str(path))
     if like is None:
         return cuda_build.declare(lib), log
@@ -85,14 +128,137 @@ def build_tree(root: Path, name: str, like=None):
     return lib, log
 
 
-def launch(lib, x, hist, w, pairs, step):
-    """One launch of the shared FX entry of ``lib`` over x's K blocks (the
-    direct tap loop) -> xp [K, nbl, nbins]."""
-    if x.dtype == torch.int8:
-        return ff._launch_i8(x, hist, w, pairs, step, None, 0, "A/B launch",
-                             True, lib=lib)[0]
-    return ff._launch(x, hist, w, pairs, None, 0, "A/B launch", True,
-                      lib=lib)[0]
+class Case:
+    """One shape's inputs, output buffers and plain result, on the card."""
+
+    def __init__(self, name, ingest, device):
+        (self.entry, nch, num_samp, nbins, ntaps, k, fir,
+         autos) = CASES[name]
+        if self.entry == "spec":
+            ingest = "complex64"
+        self.x, self.hist, self.w, _, self.step, self.svd = (
+            ablate.make_inputs(device, nch=nch, k=k, num_samp=num_samp,
+                               nbins=nbins, ntaps=ntaps, ingest=ingest,
+                               fir_mode=fir, seed=k + nch))
+        if ingest == "int8":
+            self.hist = self.hist["tail"]
+        self.pairs = ff.pairs_tensor(
+            baseline_pairs(nch, include_autos=autos), nch, device)
+        self.int8 = ingest == "int8"
+        self.rank = 0 if self.svd is None else self.svd[0].shape[1]
+        self.nch, self.k, self.nbins, self.ntaps = nch, k, nbins, ntaps
+        self.s_rows = num_samp // nbins
+        self.consts = dc_constants(self.w.cpu().numpy(), nbins, self.s_rows,
+                                   device)
+        nbl = self.pairs.shape[0]
+        rows = nbl + 2 * nch
+        c64 = dict(dtype=torch.complex64, device=device)
+        if self.entry == "parts":
+            self.n_groups, self.per = ff._groups(self.s_rows, rows, nbins)
+            self.scratch = torch.empty((k, self.n_groups, rows, nbins), **c64)
+        else:
+            self.n_groups, self.per = ff._wide_groups(self.s_rows)
+            self.scratch = torch.empty((k, nch, self.s_rows, nbins), **c64)
+        self.parts = torch.empty((k, rows, nbins), **c64)
+        self.mu = torch.empty((k, nch), **c64)
+        self.new_hist = torch.empty_like(self.hist)
+        self.sums = torch.empty(
+            (k, self.n_groups, nch, 2),
+            dtype=torch.int64 if self.int8 else torch.float64, device=device)
+        self.tw = ff._twiddles(nbins, device)
+        if self.entry == "spec":
+            # one block [nch, nsamp], its DC-corrected history, spectra out
+            self.x = self.x.reshape(nch, num_samp)
+            self.n_groups, self.per = ff._groups(self.s_rows, 1, nbins)
+            self.scratch = torch.empty((nch, self.s_rows, nbins), **c64)
+            self.sums = torch.empty((nch, ff.MEAN_PARTS, 2),
+                                    dtype=torch.float64, device=device)
+        self.plain = self._plain()
+
+    def _plain(self):
+        """The plain version: parts (xp, T, GJ) or the spectra."""
+        svd, hist = self.svd, self.hist
+        x = self.x
+        if self.entry == "spec":
+            from fxtpu_torch.ops.spectrometer import (
+                spectrometer_fused_reference)
+            return spectrometer_fused_reference(x, self.w, self.nbins,
+                                                hist)[0]
+        if self.entry == "parts":
+            if self.int8:
+                xp, t, gj, _, _ = ff.fx_fused_parts_i8_reference(
+                    x, hist, self.w, self.pairs, self.step, svd, self.consts)
+            else:
+                xp, t, gj, _, _ = ff.fx_fused_parts_reference(
+                    x, hist, self.w, self.pairs, svd, self.consts)
+            return torch.cat([xp, t, gj], dim=1)
+        if self.int8:
+            from fxtpu_torch.ops.pfb import dequantize
+            rows = dequantize(x, self.step).reshape(self.nch, -1, self.nbins)
+            hist = dequantize(hist, self.step)
+        else:
+            rows = x.reshape(self.nch, -1, self.nbins)
+        spec = ff._raw_spectra(rows, hist, x.shape[:4], self.w, svd)
+        return spec.transpose(0, 1)
+
+    def launch(self, lib):
+        """One call of the tree's entry into this case's buffers."""
+        svd = ff._svd_ptrs(self.svd)
+        extra = (self.step,) if self.int8 else ()
+        stream = torch.cuda.current_stream().cuda_stream
+        if self.entry == "parts":
+            fn = lib.fxt_fx_parts_i8 if self.int8 else lib.fxt_fx_parts
+            rc = fn(self.x.data_ptr(), self.hist.data_ptr(),
+                    self.w.data_ptr(), *svd, self.tw.data_ptr(),
+                    self.pairs.data_ptr(), self.consts[1].data_ptr(),
+                    self.sums.data_ptr(), self.scratch.data_ptr(),
+                    self.parts.data_ptr(), self.mu.data_ptr(),
+                    self.new_hist.data_ptr(), self.nch, self.k, self.s_rows,
+                    self.nbins, self.ntaps, self.rank, self.pairs.shape[0],
+                    self.n_groups, self.per, *extra, stream)
+        elif self.entry == "spec":
+            rc = lib.fxt_spectrometer(
+                self.x.data_ptr(), self.hist.data_ptr(), self.w.data_ptr(),
+                self.tw.data_ptr(), self.sums.data_ptr(),
+                self.scratch.data_ptr(), self.new_hist.data_ptr(),
+                self.x.shape[1], self.nch, self.s_rows, self.nbins,
+                self.ntaps, self.n_groups, self.per, ff.MEAN_PARTS, stream)
+        else:
+            fn = (lib.fxt_fx_wide_frames_i8 if self.int8
+                  else lib.fxt_fx_wide_frames)
+            rc = fn(self.x.data_ptr(), self.hist.data_ptr(),
+                    self.w.data_ptr(), *svd, self.tw.data_ptr(),
+                    self.sums.data_ptr(), self.scratch.data_ptr(), self.nch,
+                    self.k, self.s_rows, self.nbins, self.ntaps, self.rank,
+                    self.n_groups, self.per, *extra, stream)
+        cuda_build.check(lib, rc, "A/B launch")
+
+    def output(self):
+        """The last call's output: the parts, or the spectra."""
+        return self.parts if self.entry == "parts" else self.scratch
+
+    def error(self):
+        """Largest difference of the last call's output from the plain
+        version, over the plain version's largest magnitude (parts: that
+        of the cross power)."""
+        if self.entry == "parts":
+            nbl = self.pairs.shape[0]
+            got, want = self.parts, self.plain
+            scale = want[:, :nbl].abs().max().item()
+        else:
+            got, want = self.scratch, self.plain
+            scale = want.abs().max().item()
+        return (got - want).abs().max().item() / scale
+
+
+def frame_us(fn, n=10):
+    """Median device microseconds of the frame kernel over n calls."""
+    events = device_events(fn, n)
+    durs = [e["dur"] for e in events if e["cat"] == "kernel"
+            and "fx_frames_kernel" in e["name"]]
+    if len(durs) != n:
+        raise RuntimeError(f"{len(durs)} frame-kernel records of {n} calls")
+    return statistics.median(durs)
 
 
 def main(argv=None) -> list:
@@ -101,50 +267,56 @@ def main(argv=None) -> list:
         formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--parent", required=True,
                     help="root of the other checkout of this repository")
-    ap.add_argument("--num_samp", type=int, default=2**18)
-    ap.add_argument("--nbins", type=int, default=4096)
-    ap.add_argument("--ntaps", type=int, default=4)
+    ap.add_argument("--change", default=str(ROOT),
+                    help="root of the checkout under test (this one)")
+    ap.add_argument("--cases", default=",".join(CASES),
+                    help=f"comma-separated subset of {tuple(CASES)}")
     ap.add_argument("--rounds", type=int, default=5)
     args = ap.parse_args(argv)
     device = resolve_device("cuda")
     card = card_line(device)
     records = []
-    change, change_log = build_tree(ROOT, "change")
+    change, change_log = build_tree(Path(args.change), "change")
     parent, parent_log = build_tree(Path(args.parent), "parent", like=change)
     libs = {"parent": parent, "change": change}
-    regs = {"parent": production_kernels(parent_log),
-            "change": production_kernels(change_log)}
-    # the kernels both trees have (a newer tree has more instantiations)
-    both = sorted(set(regs["parent"]) & set(regs["change"]))
-    emit(records, probe="ab_trees", ptxas=regs, compared=both,
-         same=bool(both) and all(regs["parent"][k] == regs["change"][k]
-                                 for k in both),
+    emit(records, probe="ab_trees", change=args.change, parent=args.parent,
+         ptxas={"parent": production_kernels(parent_log),
+                "change": production_kernels(change_log)},
          card=card)
-    for ingest in ("complex64", "int8"):
-        for k in (1, 8):
-            x, hist, w, pairs, step, _ = ablate.make_inputs(
-                device, nch=2, k=k, num_samp=args.num_samp,
-                nbins=args.nbins, ntaps=args.ntaps, ingest=ingest,
-                fir_mode="direct", seed=k)
-            outs = {name: launch(lib, x, hist, w, pairs, step)
-                    for name, lib in libs.items()}
-            torch.cuda.synchronize()
-            times = {name: {"frames_us": [], "event_ms": []}
-                     for name in libs}
+    for name in args.cases.split(","):
+        for ingest in (("complex64",) if CASES[name][0] == "spec"
+                       else ("complex64", "int8")):
+            case = Case(name, ingest, device)
+            err, outs = {}, {}
+            for tree, lib in libs.items():
+                case.launch(lib)
+                torch.cuda.synchronize()
+                err[tree] = case.error()
+                outs[tree] = case.output().clone()
+            scale = outs["parent"].abs().max().item()
+            times = {tree: {"frames_us": [], "event_ms": []} for tree in libs}
             for _ in range(args.rounds):
-                for name in ("parent", "change", "change", "parent"):
-                    def fn(lib=libs[name]):
-                        return launch(lib, x, hist, w, pairs, step)
-                    times[name]["frames_us"].append(
-                        ablate.device_times(fn)["frames"])
-                    times[name]["event_ms"].append(event_ms(fn, n=20))
-            emit(records, probe="ab_trees", ingest=ingest, k=k,
-                 num_samp=args.num_samp, nbins=args.nbins, ntaps=args.ntaps,
-                 bit_equal=bool(torch.equal(outs["parent"], outs["change"])),
-                 **{f"{name}_{key}": {"median": statistics.median(v),
+                for tree in ("parent", "change", "change", "parent"):
+                    def fn(lib=libs[tree]):
+                        case.launch(lib)
+                    times[tree]["frames_us"].append(frame_us(fn))
+                    times[tree]["event_ms"].append(event_ms(fn, n=20))
+            emit(records, probe="ab_trees", case=name, ingest=ingest,
+                 entry=case.entry, nch=case.nch, k=case.k, nbins=case.nbins,
+                 ntaps=case.ntaps, rank=case.rank,
+                 max_err_vs_plain=err,
+                 max_diff_between_trees=(
+                     (outs["parent"] - outs["change"]).abs().max().item()
+                     / scale),
+                 **{f"{tree}_{key}": {"median": statistics.median(v),
                                       "min": min(v), "max": max(v)}
-                    for name, t in times.items() for key, v in t.items()},
+                    for tree, t in times.items() for key, v in t.items()},
+                 speedup_frames=(
+                     statistics.median(times["parent"]["frames_us"])
+                     / statistics.median(times["change"]["frames_us"])),
                  card=card)
+            del case
+            torch.cuda.empty_cache()
     return records
 
 

@@ -411,3 +411,102 @@ def test_supported_parts_shapes(nbins, ntaps, nch, s_rows, rank, ok):
 ])
 def test_max_blocks_parts(s_rows, nbins, nch, nbl, most):
     assert fx_fused.max_blocks_parts(s_rows, nbins, nch, nbl) == most
+
+
+# --- the single pass on the card: the frame kernel's cluster split ----------
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
+    return torch.device("cuda", 0)
+
+
+def _card_parts_inputs(nch, k, s, nbins, ntaps, int8, device, seed):
+    """Merged blocks with a small DC offset per channel and block, a
+    random history, the window, pairs with autos and the constants."""
+    w2d = pfb_window(ntaps, nbins).reshape(ntaps, nbins).astype(np.float32)
+    rng = np.random.default_rng(seed)
+    grade = np.arange(1, nch + 1)[:, None] + 0.5 * np.arange(k)[None, :]
+    if int8:
+        dc = np.array([3.0, -2.0]) * grade[..., None, None, None]
+        x = np.clip(np.rint(30 * rng.normal(size=(nch, k, s, nbins, 2)) + dc),
+                    -127, 127).astype(np.int8)
+        hist = np.clip(np.rint(30 * rng.normal(
+            size=(nch, ntaps - 1, nbins, 2))), -127, 127).astype(np.int8)
+    else:
+        x = (rng.normal(size=(nch, k, s, nbins))
+             + 1j * rng.normal(size=(nch, k, s, nbins))
+             + (0.04 - 0.03j) * grade[..., None, None]).astype(np.complex64)
+        hist = (rng.normal(size=(nch, ntaps - 1, nbins)) + 1j * rng.normal(
+            size=(nch, ntaps - 1, nbins))).astype(np.complex64)
+    return (torch.as_tensor(x, device=device),
+            torch.as_tensor(hist, device=device),
+            torch.as_tensor(w2d, device=device),
+            pairs_tensor(baseline_pairs(nch, True), nch, device),
+            dc_constants(w2d, nbins, s, device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("nbins,s,ntaps,nch,k", [
+    (256, 32, 4, 3, 1),       # odd: CTA 1 of a cluster has one channel fewer
+    (256, 32, 4, 5, 2),       # odd, five channels, two blocks
+    (4096, 8, 4, 6, 1),       # six at 4096 bins: the shared route's most
+    (256, 16, 4, 2, 8),       # K = 8 blocks in one launch
+    (8192, 8, 4, 2, 2),       # the largest bin count (16 x 16 x 32)
+    (256, 8, 4, 1, 2),        # one channel: a cluster of one CTA
+])
+def test_cuda_parts_cluster_split_matches_plain_version(cuda_device, nbins,
+                                                        s, ntaps, nch, k,
+                                                        int8):
+    """The single pass's shared route, a frame group on a cluster of two
+    CTAs (each CTA's own channels' T, GJ and sample sums, every pair's
+    cross power over its half of the bins), against its plain version:
+    xp and T off the DC bin and at it on their own scales, GJ, 2e-5 of
+    scale (3e-5 for 8-bit samples), mu and the tail 1e-6 (the int8 tail
+    exact); bit for bit from run to run."""
+    x, hist, wt, pt, consts = _card_parts_inputs(
+        nch, k, s, nbins, ntaps, int8, cuda_device, seed=80 + nch)
+    if int8:
+        fn, ref, args = (fx_fused_parts_i8, fx_fused_parts_i8_reference,
+                         (x, hist, wt, pt, STEP, None, consts))
+    else:
+        fn, ref, args = (fx_fused_parts, fx_fused_parts_reference,
+                         (x, hist, wt, pt, None, consts))
+    before = fn.launches
+    got = fn(*args, x_stage="shared")
+    want = ref(*args)
+    again = fn(*args, x_stage="shared")
+    torch.cuda.synchronize()
+    assert fn.launches == before + 2
+    tol = 3e-5 if int8 else 2e-5
+    for name, g, w in zip(("xp", "T"), got, want):
+        _off_dc(g.cpu().numpy(), w.cpu().numpy(), tol, name)
+    assert (got[2] - want[2]).abs().max() <= tol * want[2].abs().max()
+    assert (got[3] - want[3]).abs().max() <= 1e-6 * max(
+        1.0, want[3].abs().max().item())
+    if int8:
+        assert torch.equal(got[4], want[4])
+    else:
+        assert (got[4] - want[4]).abs().max() <= 1e-6
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True])
+def test_cuda_parts_refused_launch_raises(cuda_device, int8):
+    """A cluster launch the card refuses (eight spectra of 8192 bins on
+    the shared route, more shared memory than a CTA has) returns its
+    error and the wrapper raises: no other grid, no plain version."""
+    nch, nbins, ntaps = 8, 8192, 4
+    x, hist, wt, pt, consts = _card_parts_inputs(
+        nch, 1, 4, nbins, ntaps, int8, cuda_device, seed=89)
+    assert fx_fused.frame_shared_bytes(
+        nbins, nch, chan_slots=fx_fused.PARTS_CHAN_SLOTS) > (
+        fx_fused.MAX_SHARED_BYTES)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        fx_fused._launch_parts(x, hist, wt, pt, None, consts, 0,
+                               STEP if int8 else None, "refused",
+                               route="shared")
+        torch.cuda.synchronize()

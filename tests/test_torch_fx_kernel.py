@@ -189,7 +189,7 @@ def test_wrapper_refuses_other_devices():
 ])
 def test_supported_shapes(nbins, ntaps, nch, ok):
     assert supported(nbins, ntaps, nch) is ok
-    assert (fx_fused.shared_bytes(nbins, nch)
+    assert (fx_fused.shared_route_bytes(nbins, nch)
             <= fx_fused.MAX_SHARED_BYTES) or not ok
 
 
@@ -202,8 +202,8 @@ def test_supported_shapes(nbins, ntaps, nch, ok):
 def test_supported_svd_shapes(nbins, ntaps, nch, rank, ok):
     assert supported(nbins, ntaps, nch, rank) is ok
     assert supported_i8(nbins, ntaps, nch, 64, rank) is ok
-    assert (fx_fused.shared_bytes(nbins, nch, ntaps, rank)
-            == fx_fused.shared_bytes(nbins, nch) + 4 * ntaps * rank)
+    assert (fx_fused.shared_route_bytes(nbins, nch, ntaps, rank)
+            == fx_fused.shared_route_bytes(nbins, nch) + 4 * ntaps * rank)
 
 
 @pytest.mark.parametrize("nbins,ntaps,nch,s_rows,ok", [
@@ -764,3 +764,79 @@ def test_fx_fused_step_on_cpu_agrees_with_the_two_pass_wrappers(int8):
         assert (hn["mu_prev"] - hr["mu_prev"]).abs().max() <= 1e-7
     else:
         assert (hn - hr).abs().max() <= 1e-6
+
+
+# --- the frame kernel's split: a frame group's channels over a cluster of
+# two CTAs (spectra shared through distributed shared memory) -------------
+
+SPLIT_SHAPES = [
+    # nbins, s, ntaps, nch, autos, k
+    (256, 32, 4, 3, True, 1),     # odd: CTA 1 of a cluster has one fewer
+    (256, 32, 4, 5, True, 2),     # odd, five channels, two blocks
+    (4096, 8, 4, 6, True, 1),     # six at 4096 bins: the shared route's most
+    (256, 16, 4, 2, False, 8),    # K = 8 blocks in one launch
+    (8192, 8, 4, 2, False, 2),    # the largest bin count (16 x 16 x 32)
+    (256, 8, 4, 1, True, 2),      # one channel: a cluster of one CTA
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("nbins,s,ntaps,nch,autos,k", SPLIT_SHAPES)
+def test_cuda_cluster_split_matches_plain_version(cuda_device, nbins, s,
+                                                  ntaps, nch, autos, k,
+                                                  int8):
+    """The two-pass K-block entries, whose frame groups run on clusters of
+    two CTAs, against their plain versions (2e-5 of scale, 3e-5 for 8-bit
+    samples; the history 1e-6, the int8 tail exact), bit for bit from run
+    to run."""
+    from fxtpu_torch.ops.fx_fused import (fx_fused_raw_i8_multi,
+                                          fx_fused_raw_i8_multi_reference,
+                                          fx_fused_raw_multi,
+                                          fx_fused_raw_multi_reference)
+    x, hist, wt, pt, _, _ = _parts_inputs(
+        nch, autos, k, s, nbins, ntaps, int8, "direct", cuda_device,
+        seed=70 + nch)
+    if int8:
+        hist = {"tail": hist, "mu_prev": torch.full(
+            (nch,), 0.05 - 0.02j, dtype=torch.complex64, device=cuda_device)}
+        fn, ref, arg = (fx_fused_raw_i8_multi,
+                        fx_fused_raw_i8_multi_reference, (STEP,))
+    else:
+        fn, ref, arg = fx_fused_raw_multi, fx_fused_raw_multi_reference, ()
+    got = fn(x, hist, wt, pt, *arg)
+    want = ref(x, hist, wt, pt, *arg)
+    again = fn(x, hist, wt, pt, *arg)
+    torch.cuda.synchronize()
+    scale = want[0].abs().max().item()
+    assert got[0].shape == (k, len(pt), nbins)
+    assert (got[0] - want[0]).abs().max().item() <= (
+        (3e-5 if int8 else 2e-5) * scale)
+    assert torch.equal(got[0], again[0])
+    if int8:
+        assert torch.equal(got[1]["tail"], want[1]["tail"])
+        assert (got[1]["mu_prev"] - want[1]["mu_prev"]).abs().max() <= 1e-6
+    else:
+        assert (got[1] - want[1]).abs().max() <= 1e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True])
+def test_cuda_refused_launch_raises(cuda_device, int8):
+    """A launch the card refuses (here: eight spectra of 8192 bins on the
+    cluster route, more shared memory than a CTA has) returns its error
+    and the wrapper raises; nothing else is launched in its place."""
+    nch, nbins, ntaps = 8, 8192, 4
+    x, hist, wt, pt, _, _ = _parts_inputs(
+        nch, False, 1, 4, nbins, ntaps, int8, "direct", cuda_device, seed=79)
+    assert fx_fused.frame_shared_bytes(nbins, nch) > fx_fused.MAX_SHARED_BYTES
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        if int8:
+            hist = {"tail": hist, "mu_prev": torch.zeros(
+                (nch,), dtype=torch.complex64, device=cuda_device)}
+            fx_fused._launch_i8(x, hist, wt, pt, STEP, None, 0, "refused",
+                                merged=True)
+        else:
+            fx_fused._launch(x, hist, wt, pt, None, 0, "refused",
+                             merged=True)
+        torch.cuda.synchronize()

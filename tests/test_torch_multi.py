@@ -364,8 +364,9 @@ def test_multi_wrappers_take_plain_versions_on_cpu():
 ])
 def test_mean_blocks(k, s_rows, ntaps, blocks):
     assert fx_fused.mean_blocks(k, s_rows, ntaps) == blocks
-    assert (fx_fused.shared_bytes(NBINS, 2, ntaps, 0, blocks)
-            == fx_fused.shared_bytes(NBINS, 2, ntaps) + 16 * (blocks - 1))
+    assert (fx_fused.shared_route_bytes(NBINS, 2, ntaps, 0, blocks)
+            == fx_fused.shared_route_bytes(NBINS, 2, ntaps)
+            + 16 * (blocks - 1))
 
 
 @pytest.mark.parametrize("k,s_rows,nbl,nbins,fits", [

@@ -196,7 +196,8 @@ def test_load_stages_sum_the_tap_rows(k, ingest):
 def test_fft_stages_against_torch_fft(ingest, ntaps, fir):
     """``fft``: every channel's spectrum (torch.fft of the FIR output)
     summed over the block's frames at the first bins; ``fft_half``: what
-    the remaining Stockham stages turn into that spectrum."""
+    the first of the FFT's radix passes leaves in the slot, which the
+    remaining pass turns into that spectrum."""
     k = 2
     x, h, w, pairs, step, svd = _merged_case(ingest, ntaps, k, fir, seed=3)
     rows = _corrected_rows(x, h, step)
@@ -206,24 +207,13 @@ def test_fft_stages_against_torch_fft(ingest, ntaps, fir):
     got = ff.fx_fused_ablate(x, h, w, pairs, "fft", step, svd)
     assert got.shape == (k, 1, ff.FFT_STAGE_BINS)
     assert (got - want).abs().max() <= 2e-5 * want.abs().max()
-    half = ff.stockham_stages(y, 4)          # log2(256) // 2 stages
+    assert ff.fft_radices(NBINS) == (16, 16)  # floor(2 / 2) = 1 pass
+    half = ff.fft_passes(y, 1)
     want_half = _cross(half, pairs, k)
     got_half = ff.fx_fused_ablate(x, h, w, pairs, "fft_half", step, svd)
     assert torch.equal(got_half, want_half)
-    # the other half of the stages finishes the transform
-    n = NBINS
-    j = torch.arange(n // 2)
-    a = half
-    tw = ff._twiddles(n, a.device)
-    for s in range(4, 8):
-        ns = 1 << s
-        kk = j & (ns - 1)
-        d = ((j - kk) << 1) + kk
-        b = torch.empty_like(a)
-        v1 = a[..., n // 2:] * tw[kk << (7 - s)]
-        b[..., d] = a[..., :n // 2] + v1
-        b[..., d + ns] = a[..., :n // 2] - v1
-        a = b
+    # the other pass finishes the transform
+    a = ff.fft_passes(half, 2, start=1)
     assert (a - torch.fft.fft(y)).abs().max() <= 2e-5 * spec.abs().max()
 
 
@@ -606,6 +596,20 @@ def test_counted_device_events_holds_each_launch_to_its_record(lost,
         assert got is None
         return
     assert [e["name"] for e in got] == ["k0", "k1", "k2"] * 3
+    assert [e["dur"] for e in got] == [1.0 + i for i in range(6, 15)]
+
+
+@pytest.mark.parametrize("lost,complete", [
+    ((15, 16, 17), True), ((20,), True),                 # lost in the tail
+    ((14,), False), ((6,), False)])
+def test_counted_device_events_skip_the_tail(lost, complete):
+    """2 lead calls, 3 counted and 2 tail calls of 3 launches each: a
+    record lost in the tail calls does not matter either."""
+    got = common.counted_device_events(_trace(3, 7, lost), calls=3, lead=2,
+                                       tail=2)
+    if not complete:
+        assert got is None
+        return
     assert [e["dur"] for e in got] == [1.0 + i for i in range(6, 15)]
 
 
