@@ -60,8 +60,11 @@ Phases (any failure raises and exits non-zero, with no ``ok`` line):
    channels at nbins=256 (both forced onto it, and held to the shared
    route's kernels within 2e-6 of scale as well, bit equality reported)
    at K = 1 and 4, to the same rules, its autos' imaginary parts exactly
-   0; the X kernel alone (``fx_xstage``) at three of those shapes within
-   2e-5 of each part's scale; every stage
+   0; the X kernel alone (``fx_xstage``) at four of those shapes within
+   2e-5 of each part's scale; the single pass's reduce alone
+   (``fx_parts_reduce``: ``ops.fx_fused.parts_reduce``) at the flagship
+   (K = 1 and 8) and ``bench_pipeline``'s block in both ingests, parts, mu
+   and history bit for bit its plain version's; every stage
    of the ablation (``fx_ablate``:
    ``ops.fx_fused.fx_fused_ablate``, both ingests, both FIR modes) at
    nbins=256, at the flagship, at the CLI's deep-tap block and at the
@@ -120,13 +123,16 @@ Phases (any failure raises and exits non-zero, with no ``ok`` line):
    step, and the device launches of a single-pass step, which fails the
    run when they are more than 3 or the mean pre-pass is among them; at
    8 channels the wide route's wrapper and plain version (nchan8 and the
-   8-channel deep block, both ingests), the X kernel alone against its
-   plain version and one ``torch.matmul`` of the spectra (its
-   ``library_ms``), the nchan8 engine step on either route, failing the
+   8-channel deep block, both ingests), the X kernel alone at the nchan8
+   and ``--nchan 8`` CLI blocks against its plain version and one
+   ``torch.matmul`` of the spectra (its ``library_ms``), the nchan8 engine
+   step on either route, failing the
    run above 4 device launches a wide-route step; the single pass with
    ``x_stage`` "shared" against "global" at the flagship and
-   ``bench_pipeline``'s block, both ingests, in turns (A B B A); the
-   device launches of one engine step (flagship, and wideband
+   ``bench_pipeline``'s block, both ingests, in turns (A B B A); the parts
+   reduce alone at the flagship (K = 1 and 8) and ``bench_pipeline``'s
+   block, both ingests, against its plain version and ``torch.sum`` over
+   the groups (its ``library_ms``); the device launches of one engine step (flagship, and wideband
    in the SVD mode), of one K = 8 ``multi_step`` and of each wrapper alone
    (a CUDA-only profiler trace); the stage table, the
    frame kernel's device time per block after each stage from the
@@ -142,8 +148,10 @@ cores), the H100's published rates; ``bound_by`` says which.  ``library_ms``
 is the time of one PyTorch call that computes the same function, timed
 here and used nowhere in the port: ``torch.sum`` over the tiles' words
 beside the copy probe's leg of contiguous tiles, ``torch.matmul`` of the
-spectra per bin (the Gram ``[nch, S] @ [S, nch]^H``) beside the X kernel;
-no single call computes what any other kernel here computes, so theirs
+spectra per bin (the Gram ``[nch, S] @ [S, nch]^H``) beside the X kernel,
+``torch.sum`` of the partials over the groups beside the parts reduce;
+no single call computes what any other kernel here computes (a FIR, an
+FFT and products in one pass, or a correction and a rotation), so theirs
 is null.
 
 It prints one JSON line of the stage table, one of kernel results (for
@@ -234,6 +242,7 @@ REPLACES = {
     "fx_fused_i8_multi": "fxtpu/ops/pfb_pallas.py:1669",
     "fx_parts": "fxtpu/ops/pfb_pallas.py:993",
     "fx_parts_i8": "fxtpu/ops/pfb_pallas.py:1050",
+    "fx_parts_reduce": "fxtpu/ops/pfb_pallas.py:993",
     "fx_parts_wide": "fxtpu/ops/pfb_pallas.py:993",
     "fx_parts_wide_i8": "fxtpu/ops/pfb_pallas.py:1050",
     "fx_xstage": "fxtpu/ops/pfb_pallas.py:1078",
@@ -248,6 +257,9 @@ FINISH_SOURCE = "fxtpu_torch/csrc/fx_finish.cu"
 FIN_TOL = 1e-6       # fx_finish, relative to max|vis_ref|, plus
 CANCEL_TOL = 2e-6    # this share of the raw cross power that cancels at a
 #                      bin (the DC bin's |mu|^2 |Abar(0)|^2 and its leakage)
+# (shape, K) of the parts reduce's checks in phase 2 and its times in 4
+REDUCE_CASES = (("flagship", FLAGSHIP, 1), ("flagship_k8", FLAGSHIP, MULTI_K),
+                ("pipeline", PIPELINE_BLOCK, 1))
 # (shape, K, FIR mode) of the single-pass entries' checks in phase 2
 PARTS_CASES = tuple((case, k, "direct") for case in (
     SMALL, FLAGSHIP, PIPELINE_BLOCK, WIDEBAND) for k in (1, MULTI_K)) + tuple(
@@ -292,7 +304,7 @@ def reset_counts():
     for fn in (fx_fused.fx_fused_parts, fx_fused.fx_fused_parts_i8):
         fn.wide_launches = fn.wide_svd_launches = 0
     spectrometer_fused.launches = fx_finish.launches = 0
-    fx_xstage.launches = 0
+    fx_xstage.launches = fx_fused.parts_reduce.launches = 0
     for fn in probe_wrappers().values():
         fn.launches = 0
 
@@ -317,6 +329,7 @@ def read_counts() -> dict:
         counts[name] = fn.wide_launches
         counts[name + "_svd"] = fn.wide_svd_launches
     counts["fx_xstage"] = fx_xstage.launches
+    counts["fx_parts_reduce"] = fx_fused.parts_reduce.launches
     counts["fx_finish"] = fx_finish.launches
     counts["spectrometer"] = spectrometer_fused.launches
     for name, fn in probe_wrappers().items():
@@ -830,6 +843,120 @@ def compare_xstage(case, k, device):
     return abs_err, rel_err
 
 
+def reduce_inputs(case, k, int8, device, seed=31):
+    """The parts reduce's operands at ``case``, K blocks: the step's
+    samples, per-group partials ``[K, n_groups, nbl + 2 nch, nbins]`` of
+    unit noise (the reduce's function does not depend on where they came
+    from; ``fx_fused._groups`` splits the block as the frame kernel does)
+    and each group's sample sums formed from the samples (double; exact
+    integers for 8-bit ones).  Returns (partial, sums, x, n_gj, halo)."""
+    import torch
+
+    from fxtpu_torch.ops import fx_fused as ff
+    nch, nbins, halo = case["nch"], case["nbins"], case["ntaps"] - 1
+    s = case["nsamp"] // nbins
+    nbl = nch * (nch - 1) // 2 + (nch if case["autos"] else 0)
+    n_groups, per = ff._groups(s, nbl + 2 * nch, nbins)
+    x = parts_batch(case, k, np.random.default_rng(seed), device, int8)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    partial = torch.randn((k, n_groups, nbl + 2 * nch, nbins),
+                          dtype=torch.complex64, device=device, generator=gen)
+    xs = x.long() if int8 else torch.view_as_real(x).double()
+    sums = torch.stack([xs[:, :, g * per:(g + 1) * per].sum(dim=(2, 3))
+                        for g in range(n_groups)], dim=2)
+    return (partial, sums.permute(1, 2, 0, 3).contiguous(), x,
+            min(n_groups, -(-halo // per)), halo)
+
+
+def compare_reduce(case, k, device, int8):
+    """Phase 2 for the parts reduce alone (``fx_parts_reduce``:
+    ``ops.fx_fused.parts_reduce``) at one shape and K: parts, mu and the
+    new history each equal to its plain version's bit for bit (the same
+    float32 and double additions in the same order).  Returns (max abs
+    err, max rel err), both 0 when it passes."""
+    import torch
+
+    from fxtpu_torch.ops import fx_fused as ff
+    partial, sums, x, n_gj, halo = reduce_inputs(case, k, int8, device)
+    step = STEP if int8 else None
+    got = ff.parts_reduce(partial, sums, x, n_gj, halo, step)
+    want = ff.parts_reduce_reference(partial, sums, x, n_gj, halo, step)
+    torch.cuda.synchronize()
+    for name, g, w in zip(("parts", "mu", "history"), got, want):
+        if not torch.equal(g, w):
+            err = (g.float() - w.float()).abs().max().item() if g.dtype == (
+                torch.int8) else (g - w).abs().max().item()
+            raise AssertionError(f"fx_parts_reduce {name} is not its plain "
+                                 f"version's bit for bit at {case} K={k} "
+                                 f"int8={int8}: max diff {err:.3g}")
+    print(f"  fx_parts_reduce K={k} int8={int8} ({partial.shape[1]} groups, "
+          f"GJ over {n_gj}): parts, mu and history bit-equal to the plain "
+          "version", flush=True)
+    return 0.0, 0.0
+
+
+def parts_reduce_bound(case, k, int8=False):
+    """The least time the card could take for one parts reduce over k
+    blocks of ``case``: its bytes, each read or written once (the xp and T
+    rows of every group's partial, the GJ rows of the first n_gj groups,
+    the groups' sample sums, the last block's halo rows in and the new
+    history out, the parts and mu out) over the device-memory rate, or its
+    float32 additions (2 per element and group after the first) over the
+    float32 rate.  Returns (ms, "bytes" or "operations")."""
+    from fxtpu_torch.ops.fx_fused import _groups
+    nch, nbins, halo = case["nch"], case["nbins"], case["ntaps"] - 1
+    s = case["nsamp"] // nbins
+    nbl = nch * (nch - 1) // 2 + (nch if case.get("autos") else 0)
+    n_groups, per = _groups(s, nbl + 2 * nch, nbins)
+    n_gj = min(n_groups, -(-halo // per))
+    sample = 2 if int8 else 8
+    nbytes = (8 * k * nbins * ((nbl + nch) * n_groups + nch * n_gj)
+              + 16 * k * n_groups * nch + 2 * sample * nch * halo * nbins
+              + 8 * k * (nbl + 2 * nch) * nbins + 8 * k * nch)
+    flops = 2 * k * nbins * ((nbl + nch) * (n_groups - 1)
+                             + nch * (n_gj - 1))
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_flops = flops / FP32_FLOPS * 1e3
+    return (max(t_bytes, t_flops),
+            "bytes" if t_bytes >= t_flops else "operations")
+
+
+def time_reduce(device):
+    """Phase 4, the parts reduce alone at each of REDUCE_CASES in both
+    ingests: the kernel, its plain version and ``torch.sum(partial,
+    dim=1)`` (its ``library_ms``: the same sums over the groups, the GJ
+    rows of every group where the kernel sums n_gj; the port never calls
+    it) by CUDA events, in turns, and the device us of the kernel and of
+    ``torch.sum`` (the profiler's).  Returns (times ms, device us), keyed
+    ``<shape>[_i8]`` with ``plain_`` and ``library_`` beside the
+    kernel's."""
+    import torch
+
+    from fxtpu_torch.ops import fx_fused as ff
+    from fxtpu_torch.probes.common import device_events
+    fns, dev_us, keep = {}, {}, []
+    for tag, case, k in REDUCE_CASES:
+        for int8 in (False, True):
+            key = tag + ("_i8" if int8 else "")
+            args = (*reduce_inputs(case, k, int8, device),
+                    STEP if int8 else None)
+            keep.append(args)
+            fns[key] = lambda a=args: ff.parts_reduce(*a)
+            fns["plain_" + key] = lambda a=args: ff.parts_reduce_reference(*a)
+            if not int8:
+                fns["library_" + tag] = (
+                    lambda p=args[0]: torch.sum(p, dim=1))
+                dev_us["library_" + tag] = kernel_us(device_events(
+                    fns["library_" + tag], 3)).get("other")
+            fns[key]()
+            torch.cuda.synchronize()
+            dev_us[key] = kernel_us(device_events(fns[key], 3)).get("reduce")
+    times = cuda_times(fns, n=20, warm=3)
+    del keep
+    return times, dev_us
+
+
 def make_spec_case(case, rng, device):
     """Window and 3 blocks [nch, nsamp] (nsamp need not be a multiple of
     nbins) with a DC offset per channel, and the fresh history."""
@@ -954,9 +1081,9 @@ def parts_name(ingest, deep=False):
 
 def run_main_path(tmpdir, ingest, deep):
     """Phase 3: the CLI on the card at one ingest dtype and depth, with
-    the launch counts of the run: the single-pass wrapper and the epilogue
-    once per block each, every other entry (the two-pass ones too) not at
-    all.  Returns (count name, the run's counts)."""
+    the launch counts of the run: the single-pass wrapper, its reduce and
+    the epilogue once per block each, every other entry (the two-pass ones
+    too) not at all.  Returns (count name, the run's counts)."""
     name = parts_name(ingest, deep)
     shape = ["--resolution", "8192", "--ntaps", "32"] if deep else []
     cor, out, counts = run_cli(tmpdir, name, ingest, shape)
@@ -964,9 +1091,9 @@ def run_main_path(tmpdir, ingest, deep):
         raise AssertionError(f"fir_mode {cor.engine.fir_mode} in the {name} "
                              "run")
     others = {k: v for k, v in counts.items()
-              if k not in (name, "fx_finish")}
-    if not (counts[name] == counts["fx_finish"] == cor.blocks_processed
-            >= 3) or any(others.values()):
+              if k not in (name, "fx_finish", "fx_parts_reduce")}
+    if not (counts[name] == counts["fx_finish"] == counts["fx_parts_reduce"]
+            == cor.blocks_processed >= 3) or any(others.values()):
         raise AssertionError(
             f"launches {counts} do not match blocks_processed "
             f"{cor.blocks_processed} of {name} (or fewer than 3 blocks)")
@@ -1029,13 +1156,15 @@ def staged_launches(counts, name, blocks, k):
     """(K-block calls, one-block calls) of a staged run from the count of
     its single-pass wrapper, which takes both: m K-block calls and t tail
     calls give ``m + t`` launches and ``k m + t`` blocks.  Raises when no
-    such m >= 0, t >= 0 exist or the epilogue did not run once a call."""
+    such m >= 0, t >= 0 exist or the reduce and the epilogue did not run
+    once a call."""
     launches = counts[name]
     m, rest = (divmod(blocks - launches, k - 1) if k > 1
                else (0, blocks - launches))
     others = {c: v for c, v in counts.items()
-              if c not in (name, "fx_finish")}
+              if c not in (name, "fx_finish", "fx_parts_reduce")}
     if (rest or m < 0 or launches - m < 0 or counts["fx_finish"] != launches
+            or counts["fx_parts_reduce"] != launches
             or any(others.values())):
         raise AssertionError(
             f"launches {counts} do not account for {blocks} blocks at K = "
@@ -2075,7 +2204,7 @@ def time_wide(device):
     fns, dev_us, launches, keep = {}, {}, {}, []
     rng = np.random.default_rng(41)
     for tag, case, fir in (("nchan8", NCHAN8, "direct"),
-                           ("deep8", DEEP8, "svd")):
+                           ("cli8", CLI8, "direct"), ("deep8", DEEP8, "svd")):
         nch, nbins = case["nch"], case["nbins"]
         s = case["nsamp"] // nbins
         w, svd = window_and_fir(case, fir, device)
@@ -2101,28 +2230,32 @@ def time_wide(device):
             dev_us[key] = kernel_us(device_events(fns["parts_" + key], 3))
             keep.append(args)
     times = cuda_times(fns, n=10, warm=2)
-    spec, pairs, da = xstage_inputs(NCHAN8, 1, device)
-    a = spec[0].permute(2, 0, 1).contiguous()      # [nbins, nch, S]
-    ah = a.conj().transpose(1, 2)                  # [nbins, S, nch]
-    gram = torch.matmul(a, ah)
-    xs = fx_xstage(spec, pairs, da)
-    torch.cuda.synchronize()
-    # the yardstick computes what the kernel computes for the pairs
-    p, q = pairs[:, 0].long(), pairs[:, 1].long()
-    gerr = ((gram[:, p, q].T - xs[0, :pairs.shape[0]]).abs().max()
-            / xs[0, :pairs.shape[0]].abs().max()).item()
-    print(f"  torch.matmul Gram against fx_xstage: {gerr:.3g} of max|xp|",
-          flush=True)
-    if not gerr <= REL_TOL:
-        raise AssertionError(f"the Gram yardstick disagrees: {gerr}")
-    times.update(cuda_times({
-        "xstage": lambda: fx_xstage(spec, pairs, da),
-        "xstage_plain": lambda: fx_xstage_reference(spec, pairs, da),
-        "xstage_library": lambda: torch.matmul(a, ah),
-    }, n=20, warm=3))
-    dev_us["xstage_alone"] = kernel_us(device_events(
-        lambda: fx_xstage(spec, pairs, da), 3))
-    del spec, a, ah, gram, xs
+    for tag, case in (("", NCHAN8), ("_cli8", CLI8)):
+        spec, pairs, da = xstage_inputs(case, 1, device)
+        a = spec[0].permute(2, 0, 1).contiguous()      # [nbins, nch, S]
+        ah = a.conj().transpose(1, 2)                  # [nbins, S, nch]
+        gram = torch.matmul(a, ah)
+        xs = fx_xstage(spec, pairs, da)
+        torch.cuda.synchronize()
+        # the yardstick computes what the kernel computes for the pairs
+        p, q = pairs[:, 0].long(), pairs[:, 1].long()
+        gerr = ((gram[:, p, q].T - xs[0, :pairs.shape[0]]).abs().max()
+                / xs[0, :pairs.shape[0]].abs().max()).item()
+        print(f"  torch.matmul Gram against fx_xstage{tag}: {gerr:.3g} of "
+              "max|xp|", flush=True)
+        if not gerr <= REL_TOL:
+            raise AssertionError(f"the Gram yardstick disagrees: {gerr}")
+        times.update(cuda_times({
+            "xstage" + tag: lambda: fx_xstage(spec, pairs, da),
+            "xstage_plain" + tag: lambda: fx_xstage_reference(spec, pairs,
+                                                              da),
+            "xstage_library" + tag: lambda: torch.matmul(a, ah),
+        }, n=20, warm=3))
+        dev_us["xstage_alone" + tag] = kernel_us(device_events(
+            lambda: fx_xstage(spec, pairs, da), 3))
+        dev_us["xstage_library" + tag] = kernel_us(device_events(
+            lambda: torch.matmul(a, ah), 3)).get("other")
+        del spec, a, ah, gram, xs
     # the engine's step at the nchan8 block on either route
     block = (rng.normal(size=(NCHAN8["nch"], NCHAN8["nsamp"], 2))
              @ np.array([1.0, 1j]) + (0.02 - 0.01j)).astype(np.complex64)
@@ -2175,8 +2308,9 @@ def time_wide(device):
 
 def time_x_routes(device):
     """Phase 4, the single pass's two X stages at shapes both take: the
-    wrapper with ``x_stage`` "shared" and "global" at the flagship block
-    and at ``bench_pipeline``'s block, in both ingests, timed in turns
+    wrapper with ``x_stage`` "shared" and "global" at the flagship block,
+    at K = 8 of them and at ``bench_pipeline``'s block, in both ingests,
+    timed in turns
     (A B B A) with CUDA events in this process, with the device us of each
     kernel of a call.  Returns (times ms, device us), keyed
     ``<shape>[_i8]_<x_stage>``."""
@@ -2188,7 +2322,9 @@ def time_x_routes(device):
     from fxtpu_torch.probes.common import device_events
     rng = np.random.default_rng(43)
     fns, dev_us, keep = {}, {}, []
-    for tag, case in (("flagship", FLAGSHIP), ("pipeline", PIPELINE_BLOCK)):
+    for tag, case, k in (("flagship", FLAGSHIP, 1),
+                         ("flagship_k8", FLAGSHIP, 8),
+                         ("pipeline", PIPELINE_BLOCK, 1)):
         nch, nbins = case["nch"], case["nbins"]
         s = case["nsamp"] // nbins
         w, _ = window_and_fir(case, "direct", device)
@@ -2196,7 +2332,7 @@ def time_x_routes(device):
                              device)
         consts = dc_constants(w.cpu().numpy(), nbins, s, device)
         for int8 in (False, True):
-            x = parts_batch(case, 1, rng, device, int8)
+            x = parts_batch(case, k, rng, device, int8)
             hist = raw_history(case, rng, device, int8)
             if int8:
                 entry = ff.fx_fused_parts_i8
@@ -2321,10 +2457,15 @@ def main() -> int:
                 for key, pair in got.items():
                     errs[key] = tuple(map(max, errs[key], pair))
                 dc_bin[name] = max(dc_bin.get(name, 0.0), dc)
-    for case in (NCHAN8, MANY_PAIRS, WIDE64):
+    for case in (NCHAN8, CLI8, MANY_PAIRS, WIDE64):
         for k in (1, WIDE_K):
             errs["fx_xstage"] = tuple(map(max, errs["fx_xstage"],
                                           compare_xstage(case, k, device)))
+    for _, case, k in REDUCE_CASES:
+        for int8 in (False, True):
+            errs["fx_parts_reduce"] = tuple(map(
+                max, errs["fx_parts_reduce"],
+                compare_reduce(case, k, device, int8)))
     for case, k in ((SMALL, 3), (FLAGSHIP, 2), (SMALL_DEEP, 3),
                     (DEEP_CLI, 2), (WIDEBAND, 1)):
         print(f"  fx_ablate K={k} shape {case}", flush=True)
@@ -2368,6 +2509,8 @@ def main() -> int:
                  "fx_parts_wide_i8"):
         launches[name] = sum(c[name] + c[name + "_svd"] for c in main_counts)
     launches["fx_xstage"] = sum(c["fx_xstage"] for c in main_counts)
+    launches["fx_parts_reduce"] = sum(c["fx_parts_reduce"]
+                                      for c in main_counts)
     launches["fx_finish"] = sum(c["fx_finish"] for c in main_counts)
     print(f"  main path, every run: launches {launches}", flush=True)
     phase("phase 3: the two-pass entries (fx_fused_raw* and finish)")
@@ -2407,7 +2550,7 @@ def main() -> int:
     for nsamp in (FLAGSHIP["nsamp"], PIPELINE_BLOCK["nsamp"]):
         recs = probe(f"breakdown_{nsamp}", [
             "breakdown", "--num_samp", str(nsamp), "--k", str(MULTI_K)],
-            ["fx_parts", "fx_finish"])
+            ["fx_parts", "fx_parts_reduce", "fx_finish"])
         for rec in recs:
             print(f"    breakdown {nsamp} {rec['route']}: against the float64 "
                   f"oracle {rec['max_rel_err']:.3g} of max|vis| (DC bins "
@@ -2417,7 +2560,8 @@ def main() -> int:
             if not rec["max_rel_err"] <= 3.1e-5 or not rec[
                     "multi_step_block0_is_step"]:
                 raise AssertionError(f"breakdown: {rec}")
-    probe("all", ["all"], [*PROBE_KERNELS, "fx_parts", "fx_finish"])
+    probe("all", ["all"], [*PROBE_KERNELS, "fx_parts", "fx_parts_reduce",
+                           "fx_finish"])
 
     phase("phase 4: times at the flagship and wideband shapes "
           f"({threading.active_count()} threads alive)")
@@ -2428,6 +2572,7 @@ def main() -> int:
     spt, sp_launches, sp_us = time_single_pass(device)
     wdt, wd_us, wd_launches = time_wide(device)
     xrt, xr_us = time_x_routes(device)
+    rdt, rd_us = time_reduce(device)
     step_launches.update(call_launches)
     step_launches.update(wide_launches)
     table = stage_table(ablate_runs, device)
@@ -2513,6 +2658,8 @@ def main() -> int:
           f"DC bin, worst of phase 2, of max|vis|: {dc_bin}", flush=True)
     for tag, what in (("nchan8", "nchan8 block (8 x 2^20, 4096 bins, 36 "
                                  "baselines)"),
+                      ("cli8", "--nchan 8 CLI block (8 x 2^18, 4096 bins, "
+                               "28 baselines)"),
                       ("deep8", "8-channel deep CLI block (8 x 2^18, 8192 "
                                 "bins, 32 taps, SVD)")):
         for sfx in ("", "_i8"):
@@ -2520,10 +2667,26 @@ def main() -> int:
                   f"{wdt['parts_' + tag + sfx]:.4f} ms (plain "
                   f"{wdt['plain_' + tag + sfx]:.4f}), device us a call "
                   f"{wd_us[tag + sfx]}", flush=True)
-    print(f"  [{card}] X kernel alone at the nchan8 block: fx_xstage "
-          f"{wdt['xstage']:.4f} ms (device us {wd_us['xstage_alone']}), "
-          f"plain {wdt['xstage_plain']:.4f}, torch.matmul Gram "
-          f"{wdt['xstage_library']:.4f}", flush=True)
+    for tag, what in (("", "nchan8"), ("_cli8", "--nchan 8 CLI")):
+        print(f"  [{card}] X kernel alone at the {what} block: fx_xstage "
+              f"{wdt['xstage' + tag]:.4f} ms (device us "
+              f"{wd_us['xstage_alone' + tag]}), plain "
+              f"{wdt['xstage_plain' + tag]:.4f}, torch.matmul Gram "
+              f"{wdt['xstage_library' + tag]:.4f} (device us "
+              f"{wd_us['xstage_library' + tag]}); bound "
+              f"{xstage_bound(CLI8 if tag else NCHAN8, 1)[0]:.5f} ms",
+              flush=True)
+    for tag, case, k in REDUCE_CASES:
+        bnd = {i8: parts_reduce_bound(case, k, i8)[0] for i8 in (False,
+                                                                 True)}
+        print(f"  [{card}] parts reduce alone, {tag} (K={k}): c64 "
+              f"{rdt[tag]:.4f} ms (device us {rd_us[tag]}), int8 "
+              f"{rdt[tag + '_i8']:.4f} ms (device us {rd_us[tag + '_i8']}); "
+              f"plain {rdt['plain_' + tag]:.4f} / "
+              f"{rdt['plain_' + tag + '_i8']:.4f}; torch.sum(partial, "
+              f"dim=1) {rdt['library_' + tag]:.4f} (device us "
+              f"{rd_us['library_' + tag]}); bound "
+              f"{bnd[False]:.5f} / {bnd[True]:.5f} ms", flush=True)
     for key in xrt:
         if key.endswith("_shared"):
             wide = key[:-len("shared")] + "global"
@@ -2714,6 +2877,9 @@ def main() -> int:
             "deep8_plain_ms": wdt["plain_deep8" + sfx],
             "deep8_bound_ms": deep_ms, "deep8_bound_by": deep_by,
             "deep8_device_us": wd_us["deep8" + sfx],
+            "cli8_ms": wdt["parts_cli8" + sfx],
+            "cli8_plain_ms": wdt["plain_cli8" + sfx],
+            "cli8_device_us": wd_us["cli8" + sfx],
             "dc_bin_max_rel_err": dc_bin[name],
             "step_ms": wdt["step_kernel" + sfx],
             "plain_step_ms": wdt["step_plain" + sfx],
@@ -2726,6 +2892,7 @@ def main() -> int:
                                      if ("_i8_" in k) == int8},
         })
     ms, by = xstage_bound(NCHAN8, 1)
+    cli8_ms, cli8_by = xstage_bound(CLI8, 1)
     kernels.append({
         "name": "fx_xstage", "route": "cuda", "source": XSTAGE_SOURCE,
         "replaces": REPLACES["fx_xstage"], "launches": launches["fx_xstage"],
@@ -2736,6 +2903,37 @@ def main() -> int:
         "library_ms": wdt["xstage_library"],
         "library": "torch.matmul [nbins, nch, S] @ [nbins, S, nch]^H",
         "shape": "nchan8", "device_us": wd_us["xstage_alone"],
+        # the wide route's main path (--nchan 8 at the CLI defaults)
+        "cli8_ms": wdt["xstage_cli8"],
+        "cli8_plain_ms": wdt["xstage_plain_cli8"],
+        "cli8_bound_ms": cli8_ms, "cli8_bound_by": cli8_by,
+        "cli8_library_ms": wdt["xstage_library_cli8"],
+        "cli8_device_us": wd_us["xstage_alone_cli8"],
+        "library_device_us": {"nchan8": wd_us["xstage_library"],
+                              "cli8": wd_us["xstage_library_cli8"]},
+        # the X kernel inside the wide route's call, each ingest
+        "in_call_device_us": {key: wd_us[key].get("xstage") for key in (
+            "nchan8", "nchan8_i8", "cli8", "cli8_i8")},
+    })
+    ms, by = parts_reduce_bound(FLAGSHIP, 1)
+    kernels.append({
+        "name": "fx_parts_reduce", "route": "cuda", "source": SOURCE,
+        "replaces": REPLACES["fx_parts_reduce"],
+        "launches": launches["fx_parts_reduce"],
+        "max_abs_err": errs["fx_parts_reduce"][0],
+        "max_rel_err": errs["fx_parts_reduce"][1],
+        "ms": rdt["flagship"], "plain_ms": rdt["plain_flagship"],
+        "bound_ms": ms, "bound_by": by,
+        "library_ms": rdt["library_flagship"],
+        "library": "torch.sum(partial, dim=1) over [K, n_groups, nbl + 2 "
+                   "nch, nbins] complex64 (the GJ rows of every group; the "
+                   "kernel reads those of n_gj groups)",
+        "shape": "flagship",
+        "times_ms": {key: v for key, v in rdt.items()},
+        "device_us": rd_us,
+        "bound_ms_by_shape": {
+            tag + ("_i8" if i8 else ""): parts_reduce_bound(case, k, i8)[0]
+            for tag, case, k in REDUCE_CASES for i8 in (False, True)},
     })
     ms, by = finish_bound(FLAGSHIP, 1)
     kernels.append({

@@ -1312,24 +1312,80 @@ fx_reduce_i8_kernel(const float2* __restrict__ partial,
 // double and rounded once, as fx_fused.block_mean_i8 forms it); and the
 // new history from the last block's last halo rows: complex64 minus that
 // block's mean (hout_ref's contract), int8 as they arrived (new_hist is
-// then char2 [nch, halo, nbins]).
-template <typename T>
-__device__ float2 parts_mean(const typename SumOf<T>::pair* __restrict__ sums,
-                             int n_groups, int nch, long long n,
-                             double step) {
-  typename SumOf<T>::type r = 0, i = 0;
-  for (int g = 0; g < n_groups; ++g) {
-    const typename SumOf<T>::pair v = sums[static_cast<size_t>(g) * nch];
-    r += v.x;
-    i += v.y;
+// then char2 [nch, halo, nbins]).  fxt_fx_parts launches it after its
+// frame kernel, fxt_parts_reduce alone.
+//
+// Replaces the TPU kernel's grid-carried sums: _fx_kernel's tout_ref and
+// uout_ref accumulate across its sequential grid (pfb_pallas.py:993-1076);
+// here the frame groups' CTAs run at once and leave one partial each.
+//
+// What bounds it on the H100: its bytes, each read or written once (a
+// flagship block: xp and T of 64 groups, GJ of 3, the history rows in and
+// out, the parts out: 7.05 MB, 2.1 us at 3.35 TB/s; the pipeline block's
+// 256 groups 25.9 MB, 7.7 us).  Every element is one chain of float32 adds
+// in group order, g = 0 first (the bits K one-block launches and the plain
+// version parts_reduce_reference give), so the latency of each partial's
+// load is the problem, not the adds.  Design: a thread owns one element
+// and keeps two batches of kReduceBatch groups' loads in flight (the next
+// batch issued before the adds of this one); CTAs of kReduceThreads
+// threads, so a flagship block's 12,288 elements of full rows are 192 CTAs
+// on 132 SMs; the GJ rows (n_gj groups) take a range of CTAs of their own,
+// so no warp mixes 64-group and 3-group chains; mu takes one CTA range and
+// the history another, with no partial to sum (grid (full + gj + mu +
+// history CTAs, K); the history CTAs of blocks k < K-1 return at once),
+// each mean formed by one warp from 32 groups' sums a load
+// (warp_block_mean).
+constexpr int kReduceThreads = 64;
+constexpr int kReduceWarps = kReduceThreads / 32;
+constexpr int kReduceBatch = 32;
+constexpr int kHistPerThread = 8;
+
+// p[0] + p[stride] + ... + p[(ng - 1) stride], added in that order, with
+// the loads of the next kReduceBatch groups issued before the adds of
+// these.
+__device__ __forceinline__ float2 sum_groups(const float2* __restrict__ p,
+                                             long long stride, int ng) {
+  float2 cur[kReduceBatch];
+#pragma unroll
+  for (int j = 0; j < kReduceBatch; ++j) {
+    cur[j] = j < ng ? __ldg(p + j * stride) : make_float2(0.f, 0.f);
   }
-  const double nd = static_cast<double>(n);
-  return make_float2(static_cast<float>(static_cast<double>(r) / nd * step),
-                     static_cast<float>(static_cast<double>(i) / nd * step));
+  float2 acc = cur[0];
+  for (int g0 = 0; g0 < ng; g0 += kReduceBatch) {
+    float2 nxt[kReduceBatch];
+#pragma unroll
+    for (int j = 0; j < kReduceBatch; ++j) {
+      const int g = g0 + kReduceBatch + j;
+      nxt[j] = g < ng ? __ldg(p + g * stride) : make_float2(0.f, 0.f);
+    }
+#pragma unroll
+    for (int j = 0; j < kReduceBatch; ++j) {
+      const int g = g0 + j;
+      if (g > 0 && g < ng) acc = cadd(acc, cur[j]);
+    }
+#pragma unroll
+    for (int j = 0; j < kReduceBatch; ++j) cur[j] = nxt[j];
+  }
+  return acc;
 }
 
+// The CTAs of each range of the reduce's grid (one block's share).
+struct ReduceGrid {
+  int full, gj, mu, hist;
+  __host__ __device__ ReduceGrid(int nbl, int nch, int nbins, int halo)
+      : full(ceil_div(static_cast<long long>(nbl + nch) * nbins,
+                      kReduceThreads)),
+        gj(ceil_div(static_cast<long long>(nch) * nbins, kReduceThreads)),
+        mu(ceil_div(nch, kReduceWarps)),
+        hist(ceil_div(static_cast<long long>(nch) * halo * nbins,
+                      kReduceThreads * kHistPerThread)) {}
+  __host__ __device__ static int ceil_div(long long n, int d) {
+    return static_cast<int>((n + d - 1) / d);
+  }
+};
+
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kReduceThreads)
 fx_parts_reduce_kernel(const float2* __restrict__ partial,
                        const typename SumOf<T>::pair* __restrict__ sums,
                        const T* __restrict__ x, float2* __restrict__ parts,
@@ -1338,47 +1394,108 @@ fx_parts_reduce_kernel(const float2* __restrict__ partial,
                        int nbins, int halo, double step) {
   extern __shared__ float2 mu_last[];   // [nch]: the last block's means
   constexpr bool kC64 = sizeof(T) == sizeof(float2);
+  const ReduceGrid grid(nbl, nch, nbins, halo);
+  const int k = blockIdx.y;
+  const long long n_full = static_cast<long long>(nbl + nch) * nbins;
+  const long long n_block = n_full + static_cast<long long>(nch) * nbins;
   const long long n = static_cast<long long>(S) * nbins;
+  int cta = blockIdx.x;
+  if (cta < grid.full + grid.gj) {
+    // one element of block k's parts: xp and T over every group, GJ over
+    // the first n_gj
+    const bool full = cta < grid.full;
+    const long long e =
+        (full ? 0 : n_full)
+        + static_cast<long long>(full ? cta : cta - grid.full)
+              * kReduceThreads
+        + threadIdx.x;
+    if (e >= (full ? n_full : n_block)) return;
+    parts[k * n_block + e] = sum_groups(
+        partial + static_cast<long long>(k) * n_groups * n_block + e,
+        n_block, full ? n_groups : n_gj);
+    return;
+  }
+  cta -= grid.full + grid.gj;
+  const int warp = threadIdx.x >> 5;
+  if (cta < grid.mu) {
+    // a warp a channel (warp_block_mean: 32 groups' sums a load)
+    const int c = cta * kReduceWarps + warp;
+    if (c < nch) {
+      const float2 m = warp_block_mean<T>(
+          sums + static_cast<size_t>(k) * n_groups * nch + c, n_groups, nch,
+          n, step);
+      if ((threadIdx.x & 31) == 0) mu[static_cast<size_t>(k) * nch + c] = m;
+    }
+    return;
+  }
+  cta -= grid.mu;
+  if (k != K - 1) return;
+  const long long n_hist = static_cast<long long>(nch) * halo * nbins;
+  const long long stride =
+      static_cast<long long>(grid.hist) * kReduceThreads;
+  T v[kHistPerThread];
+  long long idx[kHistPerThread];
+#pragma unroll
+  for (int j = 0; j < kHistPerThread; ++j) {
+    idx[j] = static_cast<long long>(cta) * kReduceThreads + threadIdx.x
+             + j * stride;
+    if (idx[j] < n_hist) {
+      const int bin = static_cast<int>(idx[j] % nbins);
+      const int r = static_cast<int>((idx[j] / nbins) % halo);
+      const int c =
+          static_cast<int>(idx[j] / (static_cast<long long>(nbins) * halo));
+      v[j] = x[(static_cast<long long>(c) * K + k) * n
+               + static_cast<long long>(S - halo + r) * nbins + bin];
+    }
+  }
+  // the rows' loads are in flight while the warps form the means
   if constexpr (kC64) {
-    for (int c = threadIdx.x; c < nch; c += kThreads) {
-      mu_last[c] = parts_mean<T>(
-          sums + (static_cast<size_t>(K - 1) * n_groups) * nch + c, n_groups,
-          nch, n, step);
+    for (int c = warp; c < nch; c += kReduceWarps) {
+      const float2 m = warp_block_mean<T>(
+          sums + static_cast<size_t>(k) * n_groups * nch + c, n_groups, nch,
+          n, step);
+      if ((threadIdx.x & 31) == 0) mu_last[c] = m;
     }
     __syncthreads();
   }
-  const long long idx =
-      static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-  const int rows = nbl + 2 * nch;
-  const long long n_block = static_cast<long long>(rows) * nbins;
-  if (idx < K * n_block) {
-    const long long k = idx / n_block;
-    const long long e = idx - k * n_block;
-    const int ng = e < static_cast<long long>(nbl + nch) * nbins ? n_groups
-                                                                  : n_gj;
-    const float2* p = partial + k * n_groups * n_block + e;
-    float2 acc = p[0];
-    for (int g = 1; g < ng; ++g) acc = cadd(acc, p[g * n_block]);
-    parts[idx] = acc;
-  }
-  if (idx < static_cast<long long>(K) * nch) {
-    const int k = static_cast<int>(idx / nch), c = static_cast<int>(idx % nch);
-    mu[idx] = parts_mean<T>(
-        sums + (static_cast<size_t>(k) * n_groups) * nch + c, n_groups, nch,
-        n, step);
-  }
-  if (idx < static_cast<long long>(nch) * halo * nbins) {
-    const int bin = static_cast<int>(idx % nbins);
-    const int r = static_cast<int>((idx / nbins) % halo);
-    const int c = static_cast<int>(idx / (static_cast<long long>(nbins) * halo));
-    const T v = x[(static_cast<long long>(c) * K + (K - 1)) * n +
-                  static_cast<long long>(S - halo + r) * nbins + bin];
-    if constexpr (kC64) {
-      new_hist[idx] = csub(v, mu_last[c]);
-    } else {
-      new_hist[idx] = v;
+#pragma unroll
+  for (int j = 0; j < kHistPerThread; ++j) {
+    if (idx[j] < n_hist) {
+      if constexpr (kC64) {
+        const int c = static_cast<int>(
+            idx[j] / (static_cast<long long>(nbins) * halo));
+        new_hist[idx[j]] = csub(v[j], mu_last[c]);
+      } else {
+        new_hist[idx[j]] = v[j];
+      }
     }
   }
+}
+
+// The reduce of a single-pass step on `st` (fxt_fx_parts after its frame
+// kernel, fxt_parts_reduce alone): partial [K, n_groups, nbl + 2 nch,
+// nbins] float2, sums [K, n_groups, nch], x the step's samples [nch, K, S,
+// nbins] -> parts [K, nbl + 2 nch, nbins], mu [K, nch], new_hist [nch,
+// halo, nbins].  Returns the launch's error.
+template <typename T>
+cudaError_t launch_parts_reduce(const float2* partial,
+                                const typename SumOf<T>::pair* sums,
+                                const T* x, float2* parts, float2* mu,
+                                T* new_hist, int K, int S, int n_groups,
+                                int n_gj, int nbl, int nch, int nbins,
+                                int halo, double step, cudaStream_t st) {
+  if (K < 1 || K > 65535 || S < 1 || nch < 1 || nbl < 0 || nbins < 1
+      || n_groups < 1 || n_gj < 1 || n_gj > n_groups || halo < 1
+      || halo > S) {
+    return cudaErrorInvalidValue;
+  }
+  const ReduceGrid g(nbl, nch, nbins, halo);
+  fx_parts_reduce_kernel<T>
+      <<<dim3(g.full + g.gj + g.mu + g.hist, K), kReduceThreads,
+         nch * sizeof(float2), st>>>(partial, sums, x, parts, mu, new_hist,
+                                     K, S, n_groups, n_gj, nbl, nch, nbins,
+                                     halo, step);
+  return cudaGetLastError();
 }
 
 int reduce_blocks(long long n) {
@@ -1502,17 +1619,11 @@ int fx_parts(const Rows& rows, const void* w, const void* u, const void* v,
   if (err != cudaSuccess) return static_cast<int>(err);
   const int n_gj = min(n_groups,
                        (halo + frames_per_group - 1) / frames_per_group);
-  const long long n_out =
-      static_cast<long long>(K) * (nbl + 2 * nch) * nbins;
-  const long long n_hist = static_cast<long long>(nch) * halo * nbins;
-  fx_parts_reduce_kernel<T>
-      <<<reduce_blocks(n_out > n_hist ? n_out : n_hist), kThreads,
-         nch * sizeof(float2), st>>>(
-          static_cast<const float2*>(partial), static_cast<const Pair*>(sums),
-          rows.x, static_cast<float2*>(parts), static_cast<float2*>(mu),
-          static_cast<T*>(new_hist), K, S, n_groups, n_gj, nbl, nch, nbins,
-          halo, step);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(launch_parts_reduce<T>(
+      static_cast<const float2*>(partial), static_cast<const Pair*>(sums),
+      rows.x, static_cast<float2*>(parts), static_cast<float2*>(mu),
+      static_cast<T*>(new_hist), K, S, n_groups, n_gj, nbl, nch, nbins, halo,
+      step, st));
 }
 
 // The frame kernel of the single pass's wide route over K blocks on `st`:
@@ -1778,6 +1889,43 @@ extern "C" int fxt_fx_parts_i8(const void* x, const void* tail, const void* w,
                          mu, new_tail, nch, K, S, nbins, ntaps, rank, nbl,
                          n_groups, frames_per_group, step,
                          static_cast<cudaStream_t>(stream));
+}
+
+// The single pass's reduce alone on `stream` (fx_fused.parts_reduce): the
+// second kernel of fxt_fx_parts over partials a caller holds.  partial
+// float2 [K, n_groups, nbl + 2 nch, nbins], sums double2 [K, n_groups,
+// nch], x complex64 [nch, K, S, nbins] -> parts [K, nbl + 2 nch, nbins]
+// (xp and T over every group in group order, GJ over the first n_gj), mu
+// [K, nch] and new_hist [nch, halo, nbins], the last block's last halo
+// rows minus its mean.  The caller has checked shapes, types and
+// contiguity.  Returns cudaGetLastError().
+extern "C" int fxt_parts_reduce(const void* partial, const void* sums,
+                                const void* x, void* parts, void* mu,
+                                void* new_hist, int nch, int K, int S,
+                                int nbins, int nbl, int halo, int n_groups,
+                                int n_gj, void* stream) {
+  return static_cast<int>(launch_parts_reduce<float2>(
+      static_cast<const float2*>(partial),
+      static_cast<const double2*>(sums), static_cast<const float2*>(x),
+      static_cast<float2*>(parts), static_cast<float2*>(mu),
+      static_cast<float2*>(new_hist), K, S, n_groups, n_gj, nbl, nch, nbins,
+      halo, 1.0, static_cast<cudaStream_t>(stream)));
+}
+
+// fxt_parts_reduce after fxt_fx_parts_i8's frame kernel: sums longlong2,
+// x int8 [nch, K, S, nbins, 2], mu in real units (times `step`) and the new
+// tail int8 [nch, halo, nbins, 2], the last rows as they arrived.
+extern "C" int fxt_parts_reduce_i8(const void* partial, const void* sums,
+                                   const void* x, void* parts, void* mu,
+                                   void* new_tail, int nch, int K, int S,
+                                   int nbins, int nbl, int halo, int n_groups,
+                                   int n_gj, double step, void* stream) {
+  return static_cast<int>(launch_parts_reduce<char2>(
+      static_cast<const float2*>(partial),
+      static_cast<const longlong2*>(sums), static_cast<const char2*>(x),
+      static_cast<float2*>(parts), static_cast<float2*>(mu),
+      static_cast<char2*>(new_tail), K, S, n_groups, n_gj, nbl, nch, nbins,
+      halo, step, static_cast<cudaStream_t>(stream)));
 }
 
 // The frame kernel of the single pass's wide route (fx_fused.fx_fused_parts

@@ -31,37 +31,61 @@
 // double for complex64 samples and exact integers for 8-bit ones, rounded
 // once) and the new history from the last block's last halo rows.
 //
-// What bounds it on the H100: bench.py's nchan8 block (8 channels, 256
-// frames of 4096 bins, 36 pairs with autos) reads 64 MiB of spectra and
-// writes 1.6 MiB of parts: 20 us at 3.35 TB/s, against 0.34 GFLOP of
-// products, 5 us at 67 TFLOP/s.  It is a per-bin Hermitian product
-// [nch x S][S x nch], so at 64 channels the operations grow as nch^2 and
-// the tensor cores would be the way there (not taken here).  Design: a CTA
-// owns 32 bins (one a lane) of one block and a tile of 32 rows of parts
-// (four a warp, warp-uniform, so the branch on a row's kind does not
-// diverge); it stages each chunk of 8 frames of every channel's spectra at
-// its bins in shared memory (nch x 8 x 32 x 8 bytes, 128 KiB at 64
-// channels) and each thread keeps its rows' sums in registers.  The row
-// tile is the grid's fastest axis, so the CTAs of one bin tile run
-// together and a second row tile reads the spectra from L2.  No atomics:
-// every output element has one owner.
+// What bounds it on the H100: its bytes.  bench.py's nchan8 block (8
+// channels, 256 frames of 4096 bins, 36 pairs with autos) reads 64 MiB of
+// spectra and writes 1.6 MiB of parts: 20 us at 3.35 TB/s, against 0.34
+// GFLOP, 5 us at 67 TFLOP/s; per frame and bin it does about 4 nch^2
+// operations for 8 nch bytes, under float32's 20 operations a byte until
+// nch ~ 40, so the tensor cores would pay only above that (not taken here).
+// Design, for the copies:
+//   * a CTA owns a tile of bins of one block and every row of parts for it
+//     (grid (nbins / tile, K), no row-tile axis), so each spectrum byte
+//     crosses device memory once a launch;
+//   * the frames stream through a ring of `stages` buffers in shared
+//     memory, each `frames` frames of every channel at the tile's bins,
+//     filled by 16-byte cp.async copies `stages - 1` chunks ahead of the
+//     one being summed (no synchronous staging loop; the last chunk may be
+//     ragged and copies no frame past S);
+//   * thread t sums bin t % tile of the rows slot, slot + slots, ... (slot
+//     = t / tile), 2, 4 or 8 of them, in registers, its loads of 4 frames
+//     issued before their adds and no branch on a row in the loop; 256
+//     threads a CTA, two CTAs an SM (576 at 8 rows a thread, where 64
+//     channels' 2,208 rows need them, at a tile of 2 bins);
+//   * the tile, the slots, the rows a thread (the kernel instance), the
+//     frames a stage and the stages are planned in Python alone
+//     (fx_xstage.xstage_plan: the grid near 128 CTAs or more, the ring
+//     within 96 KiB); here the plan is only checked against the shape and
+//     the instance's fixed limits.  A plan that does not fit, or shared
+//     memory the card refuses, is an error, never another kernel.
+// No atomics: every output element has one owner.
 
 #include <cuda_runtime.h>
 
-#include "fx_common.cuh"   // cadd, csub, cmulconj, SumOf
+#include "fx_common.cuh"   // cadd, cmulconj, cp_async16, warp_block_mean
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kTileBins = 32;                       // one bin a lane
-constexpr int kRowsPerWarp = 4;
-constexpr int kTileRows = kRowsPerWarp * kWarps;    // rows of a CTA
-constexpr int kChunk = 8;                           // frames staged at once
-constexpr int kStride = kChunk * kTileBins;         // a channel's staged run
+// A kernel instance sums kRows = 2, 4 or 8 rows a thread (the plan's
+// `rows`), every one of them on every frame, so the loop has no branch on
+// a row, and takes at most RowThreads<kRows> threads a CTA (its
+// __launch_bounds__, fx_xstage.XSTAGE_ROW_THREADS): 256 at 2 and 4 rows;
+// 576 at 8, which cover 64 channels' 2,208 rows at a tile of 2 bins (552
+// threads) and leave a thread 112 registers.
+constexpr int kMaxRows = 8;
+template <int kRows>
+struct RowThreads {
+  static constexpr int value = kRows < kMaxRows ? 256 : 576;
+};
+constexpr int kMaxStages = 8;
 
-// What a row of parts is.
-enum : int { kNone = 0, kCross, kAuto, kTotal, kGj };
+
+// The launch's shape (fx_xstage.XStagePlan): bins of a CTA's tile, row
+// slots (rows slot, slot + slots, ... a thread), rows a thread (the kernel
+// instance: 2, 4 or 8), frames a stage of the ring, stages, threads a CTA
+// (a multiple of 32, at least tile * slots).
+struct XStagePlan {
+  int tile, slots, rows, frames, stages, threads;
+};
 
 // What one launch reads and writes.  T is the sample type of the step it
 // ends (float2: complex64 samples; char2: 8-bit ones).
@@ -83,179 +107,258 @@ struct XStageArgs {
   T* new_hist;
   int n_groups;
   double step;
+  XStagePlan plan;
 };
 
-// A block's mean of one channel from its groups' sums, by one warp: the
-// lanes load 32 groups' sums at a time and every lane adds them in group
-// order from the shuffles, formed in double and rounded once: fx_fused.cu's
-// parts_mean to the bit, without one dependent load per group.
-template <typename T>
-__device__ float2 warp_block_mean(
-    const typename SumOf<T>::pair* __restrict__ sums, int n_groups, int nch,
-    long long n, double step) {
-  using A = typename SumOf<T>::type;
-  const int lane = threadIdx.x & 31;
-  A r = 0, i = 0;
-  for (int g0 = 0; g0 < n_groups; g0 += 32) {
-    A vr = 0, vi = 0;
-    if (g0 + lane < n_groups) {
-      const typename SumOf<T>::pair v =
-          sums[static_cast<size_t>(g0 + lane) * nch];
-      vr = v.x;
-      vi = v.y;
-    }
-    const int m = min(32, n_groups - g0);
-    for (int j = 0; j < m; ++j) {
-      r += __shfl_sync(0xffffffffu, vr, j);
-      i += __shfl_sync(0xffffffffu, vi, j);
+// Chunk i (frames i << lf ..) of every channel of one block at a tile's
+// bins into stage i % stages of the ring (`sk`: the block's spectra from
+// the tile's first bin), 16 bytes (2 bins) a copy, by every thread of the
+// CTA; one commit
+// group a chunk, an empty one past the last, so that every thread counts
+// the same groups.  The tile and the frames a stage are powers of two
+// (2^lt, 2^lf), so a copy's place is shifts and masks.
+__device__ __forceinline__ void stage_chunk(float2* ring, const float2* sk,
+                                            int i, int n_chunks, int stages,
+                                            int lf, int lt, int nch, int S,
+                                            int nbins) {
+  if (i < n_chunks) {
+    float2* dst = ring + (i % stages) * (nch << (lf + lt));
+    const int f0 = i << lf;
+    const int nf = min(1 << lf, S - f0);
+    const int lh = lt - 1;                  // 16-byte copies a frame's run
+    const int units = nch << (lf + lh);
+#pragma unroll 4
+    for (int u = threadIdx.x; u < units; u += blockDim.x) {
+      const int w = u & ((1 << lh) - 1);
+      const int ff = (u >> lh) & ((1 << lf) - 1);
+      const int c = u >> (lh + lf);
+      if (ff < nf) {
+        cp_async16(dst + (u << 1),
+                   sk + (static_cast<size_t>(c) * S + f0 + ff) * nbins
+                       + 2 * w);
+      }
     }
   }
-  const double nd = static_cast<double>(n);
-  return make_float2(static_cast<float>(static_cast<double>(r) / nd * step),
-                     static_cast<float>(static_cast<double>(i) / nd * step));
+  cp_async_commit();
 }
 
-// Grid (row tiles, nbins / kTileBins, K); dynamic shared memory nch x
-// kChunk x kTileBins float2.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-fx_xstage_kernel(const XStageArgs<T> a) {
-  extern __shared__ float2 tile[];   // [nch][kChunk][kTileBins]
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int k = blockIdx.z;
-  const int b0 = blockIdx.y * kTileBins;
-  const int bin = b0 + lane;
-  const int rows = a.nbl + 2 * a.nch;
-
-  int kind[kRowsPerWarp], ca[kRowsPerWarp], cb[kRowsPerWarp];
-  float2 acc[kRowsPerWarp];
+// kU frames f, f + 1, ... of a thread's rows at one bin (`at`: the first
+// frame's element of the bin in the stage, a channel's run 2^lc elements):
+// every row's loads of the kU frames issued before its adds, which run in
+// frame order.  Pairs add spec_p conj(spec_q) (an auto pair's imaginary
+// part is dropped at the end), T rows spec_c conj(1) = spec_c exactly; with
+// kGj (one frame f < halo) the GJ rows add spec_c conj(dA[f]).  No branch
+// on a row: every row loads and a row that does not add keeps its sum, so
+// the compiler may overlap one row's loads with another's adds.
+template <int kRows, int kU, bool kGj>
+__device__ __forceinline__ void sum_frames(
+    float2 (&acc)[kRows], const int (&chans)[kRows], int npair, int nt,
+    int nrows, const float2* ring, int at, int tile, int lc, int f,
+    const float2* __restrict__ da, int nbins, int bin) {
+  const float2 one = make_float2(1.f, 0.f);
+  float2 d = one;
+  if constexpr (kGj) {
+    d = __ldg(da + static_cast<size_t>(f) * nbins + bin);
+  }
 #pragma unroll
-  for (int j = 0; j < kRowsPerWarp; ++j) {
-    const int r = blockIdx.x * kTileRows + j * kWarps + warp;
-    kind[j] = kNone;
-    ca[j] = cb[j] = 0;
-    if (r < a.nbl) {
-      ca[j] = __ldg(a.pairs + 2 * r);
-      cb[j] = __ldg(a.pairs + 2 * r + 1);
-      kind[j] = ca[j] == cb[j] ? kAuto : kCross;
-    } else if (r < a.nbl + a.nch) {
-      kind[j] = kTotal;
-      ca[j] = r - a.nbl;
-    } else if (r < rows) {
-      kind[j] = kGj;
-      ca[j] = r - a.nbl - a.nch;
+  for (int j = 0; j < kRows; ++j) {
+    const int pa = at + ((chans[j] & 255) << lc);
+    const int pb = at + ((chans[j] >> 8) << lc);
+    // rows j < npair: pairs; npair <= j < nt: T; nt <= j < nrows: GJ
+    // (loads it does not need read channel 0: cheaper than predicating)
+    const bool pair = j < npair, gj = kGj && j >= nt && j < nrows;
+    const bool used = j < nt || gj;
+    float2 vp[kU], vq[kU];
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      vp[u] = ring[pa + u * tile];
+      vq[u] = ring[pb + u * tile];
+      vq[u] = pair ? vq[u] : (gj ? d : one);
     }
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      const float2 sum = cadd(acc[j], cmulconj(vp[u], vq[u]));
+      acc[j] = used ? sum : acc[j];
+    }
+  }
+}
+
+// Grid (nbins / tile, K), plan.threads threads; dynamic shared memory
+// stages x nch x frames x tile float2 of the ring, then nch float2 of the
+// block's means (with `x`).  A thread's rows run cross and auto pairs
+// first, then T, then GJ (r = slot + j slots), so their kinds are the same
+// across a row slot (a warp where the tile is 32 bins or more): the
+// branches on them do not diverge.
+template <typename T, int kRows>
+__global__ void __launch_bounds__(RowThreads<kRows>::value, 1)
+fx_xstage_kernel(const XStageArgs<T> a) {
+  extern __shared__ __align__(16) float2 ring[];   // [stages][nch][frames][tile]
+  const XStagePlan p = a.plan;
+  const int tile = p.tile, stages = p.stages;
+  const int nch = a.nch, S = a.S, nbins = a.nbins, halo = a.halo;
+  const int lt = __ffs(tile) - 1, lf = __ffs(p.frames) - 1;
+  const int l = threadIdx.x & (tile - 1);
+  const int slot = threadIdx.x >> lt;
+  const int k = blockIdx.y;
+  const int b0 = blockIdx.x * tile;
+  const int bin = b0 + l;
+  const int rows = a.nbl + 2 * nch;
+  const int lc = lf + lt;                  // a channel's run in a stage
+  const int stage_len = nch << lc;
+  const int n_chunks = (S + p.frames - 1) >> lf;
+  float2* means = ring + stages * stage_len;       // [nch], with x
+
+  // the thread's rows: j < npair pairs (autos among them), then T rows
+  // up to nt, then GJ rows up to nrows; a row's channels ca | cb << 8
+  int chans[kRows];
+  unsigned autos = 0;
+  int npair = 0, nt = 0, nrows = 0;
+  float2 acc[kRows];
+#pragma unroll
+  for (int j = 0; j < kRows; ++j) {
+    const int r = slot + j * p.slots;
+    int ca = 0, cb = 0;
+    if (slot < p.slots && r < rows) {
+      nrows = j + 1;
+      if (r < a.nbl) {
+        ca = __ldg(a.pairs + 2 * r);
+        cb = __ldg(a.pairs + 2 * r + 1);
+        autos |= static_cast<unsigned>(ca == cb) << j;
+        npair = nt = j + 1;
+      } else if (r < a.nbl + nch) {
+        ca = r - a.nbl;
+        nt = j + 1;
+      } else {
+        ca = r - a.nbl - nch;
+      }
+    }
+    chans[j] = ca | cb << 8;
     acc[j] = make_float2(0.f, 0.f);
   }
 
-  const float2* sk = a.spec + static_cast<size_t>(k) * a.nch * a.S * a.nbins
-                     + b0;
-  for (int f0 = 0; f0 < a.S; f0 += kChunk) {
-    const int nf = min(kChunk, a.S - f0);
-    for (int i = threadIdx.x; i < a.nch * kStride; i += kThreads) {
-      const int l = i % kTileBins;
-      const int ff = (i / kTileBins) % kChunk;
-      const int c = i / kStride;
-      if (ff < nf) {
-        tile[i] = __ldg(sk + (static_cast<size_t>(c) * a.S + f0 + ff) * a.nbins
-                        + l);
-      }
-    }
-    __syncthreads();
-    for (int ff = 0; ff < nf; ++ff) {
-      const int f = f0 + ff;
-      const float2* at = tile + ff * kTileBins + lane;
-      const float2 d =
-          f < a.halo ? __ldg(a.da + static_cast<size_t>(f) * a.nbins + bin)
-                     : make_float2(0.f, 0.f);
-#pragma unroll
-      for (int j = 0; j < kRowsPerWarp; ++j) {
-        const float2 vp = at[ca[j] * kStride];
-        if (kind[j] == kCross) {
-          acc[j] = cadd(acc[j], cmulconj(vp, at[cb[j] * kStride]));
-        } else if (kind[j] == kAuto) {
-          acc[j] = cadd(acc[j], make_float2(cmulconj(vp, vp).x, 0.f));
-        } else if (kind[j] == kTotal) {
-          acc[j] = cadd(acc[j], vp);
-        } else if (kind[j] == kGj && f < a.halo) {
-          acc[j] = cadd(acc[j], cmulconj(vp, d));
-        }
-      }
-    }
-    __syncthreads();   // the next chunk overwrites the tile
+  const float2* sk = a.spec + static_cast<size_t>(k) * nch * S * nbins + b0;
+  for (int i = 0; i < stages - 1; ++i) {
+    stage_chunk(ring, sk, i, n_chunks, stages, lf, lt, nch, S, nbins);
   }
-#pragma unroll
-  for (int j = 0; j < kRowsPerWarp; ++j) {
-    if (kind[j] != kNone) {
-      const int r = blockIdx.x * kTileRows + j * kWarps + warp;
-      a.parts[(static_cast<size_t>(k) * rows + r) * a.nbins + bin] = acc[j];
+  // the reduce's share, while the first chunks are in flight: block k's
+  // means, for mu (bin tile 0) and the new history (the last block)
+  constexpr bool kC64 = sizeof(T) == sizeof(float2);
+  using Pair = typename SumOf<T>::pair;
+  const bool fold = a.x != nullptr && (blockIdx.x == 0 || k == a.K - 1);
+  if (fold) {
+    const int warps = blockDim.x >> 5;
+    for (int c = threadIdx.x >> 5; c < nch; c += warps) {
+      const float2 m = warp_block_mean<T>(
+          static_cast<const Pair*>(a.sums)
+              + static_cast<size_t>(k) * a.n_groups * nch + c,
+          a.n_groups, nch, static_cast<long long>(S) * nbins, a.step);
+      if ((threadIdx.x & 31) == 0) means[c] = m;
     }
   }
 
-  // the reduce's share, in the first row tile: each block's means (bin
-  // tile 0) and the new history at this CTA's bins (the last block)
-  if (a.x == nullptr || blockIdx.x != 0) return;
-  constexpr bool kC64 = sizeof(T) == sizeof(float2);
-  using Pair = typename SumOf<T>::pair;
-  const Pair* sums = static_cast<const Pair*>(a.sums);
-  const long long n = static_cast<long long>(a.S) * a.nbins;
-  // a warp per channel (warp-uniform loops: the shuffles see every lane)
-  if (blockIdx.y == 0) {
-    for (int c = warp; c < a.nch; c += kWarps) {
-      const float2 m = warp_block_mean<T>(
-          sums + static_cast<size_t>(k) * a.n_groups * a.nch + c,
-          a.n_groups, a.nch, n, a.step);
-      if (lane == 0) a.mu[static_cast<size_t>(k) * a.nch + c] = m;
+  for (int i = 0; i < n_chunks; ++i) {
+    cp_async_wait_pending(stages - 2);   // chunk i has landed (this thread)
+    __syncthreads();                     // ... for every thread, and chunk
+                                         // i-1's stage is free
+    stage_chunk(ring, sk, i + stages - 1, n_chunks, stages, lf, lt, nch, S,
+                nbins);
+    const int f0 = i << lf;
+    const int nf = min(1 << lf, S - f0);
+    const int at = (i % stages) * stage_len + l;
+    constexpr int kAhead = 4;   // frames whose loads run ahead of the adds
+    int ff = 0;
+    if (f0 < halo) {      // the block's first halo frames: GJ rows too
+      for (const int stop = min(nf, halo - f0); ff < stop; ++ff) {
+        sum_frames<kRows, 1, true>(acc, chans, npair, nt, nrows, ring,
+                                   at + ff * tile, tile, lc, f0 + ff, a.da,
+                                   nbins, bin);
+      }
+    }
+    for (; ff + kAhead <= nf; ff += kAhead) {
+      sum_frames<kRows, kAhead, false>(acc, chans, npair, nt, nrows, ring,
+                                       at + ff * tile, tile, lc, f0 + ff,
+                                       a.da, nbins, bin);
+    }
+    for (; ff < nf; ++ff) {
+      sum_frames<kRows, 1, false>(acc, chans, npair, nt, nrows, ring,
+                                  at + ff * tile, tile, lc, f0 + ff, a.da,
+                                  nbins, bin);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < kRows; ++j) {
+    if (j < nrows) {
+      const int r = slot + j * p.slots;
+      // an auto pair's imaginary part is 0 (its sum of the products'
+      // imaginary parts is only their roundings)
+      a.parts[(static_cast<size_t>(k) * rows + r) * nbins + bin] =
+          (autos >> j) & 1u ? make_float2(acc[j].x, 0.f) : acc[j];
+    }
+  }
+
+  if (!fold) return;
+  if (blockIdx.x == 0) {
+    for (int c = threadIdx.x; c < nch; c += blockDim.x) {
+      a.mu[static_cast<size_t>(k) * nch + c] = means[c];
     }
   }
   if (k != a.K - 1) return;
-  float2* mu_last = tile;   // [nch], the tile is free after the last chunk
-  if constexpr (kC64) {
-    for (int c = warp; c < a.nch; c += kWarps) {
-      const float2 m = warp_block_mean<T>(
-          sums + static_cast<size_t>(k) * a.n_groups * a.nch + c,
-          a.n_groups, a.nch, n, a.step);
-      if (lane == 0) mu_last[c] = m;
-    }
-    __syncthreads();
-  }
-  for (int i = threadIdx.x; i < a.nch * a.halo * kTileBins;
-       i += kThreads) {
-    const int l = i % kTileBins;
-    const int r = (i / kTileBins) % a.halo;
-    const int c = i / (kTileBins * a.halo);
+  // the new history at this CTA's bins
+  const long long n = static_cast<long long>(S) * nbins;
+  for (int i = threadIdx.x; i < nch * halo * tile; i += blockDim.x) {
+    const int b = i & (tile - 1);
+    const int r = (i >> lt) % halo;
+    const int c = (i >> lt) / halo;
     const T v = a.x[(static_cast<long long>(c) * a.K + k) * n
-                    + static_cast<long long>(a.S - a.halo + r) * a.nbins
-                    + b0 + l];
-    T* out = a.new_hist + (static_cast<size_t>(c) * a.halo + r) * a.nbins
-             + b0 + l;
+                    + static_cast<long long>(S - halo + r) * nbins + b0 + b];
+    T* out = a.new_hist + (static_cast<size_t>(c) * halo + r) * nbins
+             + b0 + b;
     if constexpr (kC64) {
-      *out = csub(v, mu_last[c]);
+      *out = csub(v, means[c]);
     } else {
       *out = v;
     }
   }
 }
 
-template <typename T>
-cudaError_t launch_xstage(const XStageArgs<T>& a, cudaStream_t st) {
-  if (a.K < 1 || a.K > 65535 || a.S < 1 || a.nch < 1 || a.nbl < 0
-      || a.halo < 0 || a.halo > a.S || a.nbins < kTileBins
-      || a.nbins % kTileBins != 0) {
-    return cudaErrorInvalidValue;
-  }
-  const int rows = a.nbl + 2 * a.nch;
-  const size_t smem =
-      static_cast<size_t>(a.nch) * kStride * sizeof(float2);
+// The plan's kernel instance on `st`; more threads than it takes is an
+// error.
+template <typename T, int kRows>
+cudaError_t launch_rows(const XStageArgs<T>& a, size_t smem,
+                        cudaStream_t st) {
+  if (a.plan.threads > RowThreads<kRows>::value) return cudaErrorInvalidValue;
+  auto* kernel = &fx_xstage_kernel<T, kRows>;
   cudaError_t err = cudaFuncSetAttribute(
-      reinterpret_cast<const void*>(&fx_xstage_kernel<T>),
+      reinterpret_cast<const void*>(kernel),
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid((rows + kTileRows - 1) / kTileRows, a.nbins / kTileBins,
-                  a.K);
-  fx_xstage_kernel<T><<<grid, kThreads, smem, st>>>(a);
+  kernel<<<dim3(a.nbins / a.plan.tile, a.K), a.plan.threads, smem, st>>>(a);
   return cudaGetLastError();
+}
+
+// The plan is checked against the shape: it must cover every row, bin and
+// frame, and its ring must hold the history's means after the last chunk.
+template <typename T>
+cudaError_t launch_xstage(const XStageArgs<T>& a, cudaStream_t st) {
+  const XStagePlan& p = a.plan;
+  const int rows = a.nbl + 2 * a.nch;
+  if (a.K < 1 || a.K > 65535 || a.S < 1 || a.nch < 1 || a.nch > 255
+      || a.nbl < 0 || a.halo < 0 || a.halo > a.S || p.tile < 2
+      || (p.tile & (p.tile - 1)) != 0 || a.nbins % p.tile != 0
+      || p.frames < 1 || (p.frames & (p.frames - 1)) != 0 || p.slots < 1
+      || static_cast<long long>(p.slots) * p.rows < rows
+      || p.threads % 32 != 0 || p.threads < p.tile * p.slots
+      || p.stages < 2 || p.stages > kMaxStages) {
+    return cudaErrorInvalidValue;
+  }
+  const size_t smem = (static_cast<size_t>(p.stages) * a.nch * p.frames
+                          * p.tile + a.nch) * sizeof(float2);
+  switch (p.rows) {
+    case 2: return launch_rows<T, 2>(a, smem, st);
+    case 4: return launch_rows<T, 4>(a, smem, st);
+    case 8: return launch_rows<T, 8>(a, smem, st);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -266,14 +369,18 @@ cudaError_t launch_xstage(const XStageArgs<T>& a, cudaStream_t st) {
 // mu, new_hist and n_groups unused).  Else it ends the wide route's step
 // after fxt_fx_wide_frames: x complex64 [nch, K, S, nbins] and the frame
 // kernel's sums double2 [K, n_groups, nch] give mu [K, nch] and the new
-// history [nch, halo, nbins].  The caller has checked shapes, types and
-// contiguity, and that nbins is a multiple of 32.  Returns
+// history [nch, halo, nbins].  tile, slots, rows, frames, stages and
+// threads are the launch's plan (fx_xstage.xstage_plan), checked here
+// against the shape (an invalid plan returns cudaErrorInvalidValue).  The
+// caller has checked shapes, types and contiguity.  Returns
 // cudaGetLastError().
 extern "C" int fxt_xstage(const void* spec, const void* pairs,
                           const void* da, void* parts, const void* x,
                           const void* sums, void* mu, void* new_hist,
                           int nch, int K, int S, int nbins, int nbl,
-                          int halo, int n_groups, void* stream) {
+                          int halo, int n_groups, int tile, int slots,
+                          int rows, int frames, int stages, int threads,
+                          void* stream) {
   const XStageArgs<float2> a{static_cast<const float2*>(spec),
                              static_cast<const int*>(pairs),
                              static_cast<const float2*>(da),
@@ -281,7 +388,8 @@ extern "C" int fxt_xstage(const void* spec, const void* pairs,
                              nch, K, S, nbins, nbl, halo,
                              static_cast<const float2*>(x), sums,
                              static_cast<float2*>(mu),
-                             static_cast<float2*>(new_hist), n_groups, 1.0};
+                             static_cast<float2*>(new_hist), n_groups, 1.0,
+                             {tile, slots, rows, frames, stages, threads}};
   return static_cast<int>(
       launch_xstage(a, static_cast<cudaStream_t>(stream)));
 }
@@ -293,8 +401,9 @@ extern "C" int fxt_xstage_i8(const void* spec, const void* pairs,
                              const void* da, void* parts, const void* x,
                              const void* sums, void* mu, void* new_tail,
                              int nch, int K, int S, int nbins, int nbl,
-                             int halo, int n_groups, double step,
-                             void* stream) {
+                             int halo, int n_groups, int tile, int slots,
+                             int rows, int frames, int stages, int threads,
+                             double step, void* stream) {
   const XStageArgs<char2> a{static_cast<const float2*>(spec),
                             static_cast<const int*>(pairs),
                             static_cast<const float2*>(da),
@@ -302,7 +411,13 @@ extern "C" int fxt_xstage_i8(const void* spec, const void* pairs,
                             nch, K, S, nbins, nbl, halo,
                             static_cast<const char2*>(x), sums,
                             static_cast<float2*>(mu),
-                            static_cast<char2*>(new_tail), n_groups, step};
+                            static_cast<char2*>(new_tail), n_groups, step,
+                            {tile, slots, rows, frames, stages, threads}};
   return static_cast<int>(
       launch_xstage(a, static_cast<cudaStream_t>(stream)));
 }
+
+// The plan's integers fxt_xstage and fxt_xstage_i8 take, in
+// fx_xstage.XStagePlan.args()'s order (a tool that drives two builds of
+// this file asks each how to call it).
+extern "C" int fxt_xstage_plan_ints(void) { return 6; }

@@ -34,6 +34,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "fx_common.cuh"   // cadd, csub, cp_async16, cp_async_wait_pending
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -43,23 +45,6 @@ enum : int { kLdg = 0, kCpAsync = 1, kBulk = 2 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes from device memory to shared memory, not through registers.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
@@ -112,14 +97,6 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
         : "r"(smem_u32(bar)), "r"(parity)
         : "memory");
   } while (!done);
-}
-
-__device__ __forceinline__ float2 cadd(float2 a, float2 b) {
-  return make_float2(a.x + b.x, a.y + b.y);
-}
-
-__device__ __forceinline__ float2 csub(float2 a, float2 b) {
-  return make_float2(a.x - b.x, a.y - b.y);
 }
 
 __device__ __forceinline__ float2 cmul(float2 a, float2 b) {
@@ -340,16 +317,7 @@ overlap_probe_kernel(OverlapArgs p) {
   // in flight behind it.
   auto wait = [&](int slot, int younger) {
     if constexpr (Mech == kCpAsync) {
-      switch (younger) {
-        case 0: cp_async_wait<0>(); break;
-        case 1: cp_async_wait<1>(); break;
-        case 2: cp_async_wait<2>(); break;
-        case 3: cp_async_wait<3>(); break;
-        case 4: cp_async_wait<4>(); break;
-        case 5: cp_async_wait<5>(); break;
-        case 6: cp_async_wait<6>(); break;
-        default: cp_async_wait<7>(); break;
-      }
+      cp_async_wait_pending(younger);
       __syncthreads();
     } else {
       mbar_wait(&bars[slot], (phases >> slot) & 1u);

@@ -74,8 +74,10 @@ def declare(lib):
         "fxt_fx_parts_i8": [P] * 13 + [I] * 9 + [D, P],
         "fxt_fx_wide_frames": [P] * 8 + [I] * 8 + [P],
         "fxt_fx_wide_frames_i8": [P] * 8 + [I] * 8 + [D, P],
-        "fxt_xstage": [P] * 8 + [I] * 7 + [P],
-        "fxt_xstage_i8": [P] * 8 + [I] * 7 + [D, P],
+        "fxt_parts_reduce": [P] * 6 + [I] * 8 + [P],
+        "fxt_parts_reduce_i8": [P] * 6 + [I] * 8 + [D, P],
+        "fxt_xstage": [P] * 8 + [I] * 13 + [P],
+        "fxt_xstage_i8": [P] * 8 + [I] * 13 + [D, P],
         "fxt_fx_finish": [P] * 13 + [L] * 3 + [I] * 7 + [D, P],
         "fxt_fx_ablate": [P] * 11 + [I] * 11 + [P],
         "fxt_fx_ablate_i8": [P] * 12 + [I] * 10 + [D, I, P],

@@ -95,7 +95,7 @@ import torch
 
 from fxtpu_torch.ops.dc_posthoc import dc_constants
 from fxtpu_torch.ops.fx_xstage import (fx_xstage_reference, xstage_launch,
-                                       xstage_shared_bytes)
+                                       xstage_plan)
 from fxtpu_torch.ops.pfb import (dequantize, pfb_fir, spectrometer_rows,
                                  svd_fir)
 from fxtpu_torch.ops.svd_fir import svd_fir_factors
@@ -107,6 +107,7 @@ __all__ = ["supported", "supported_i8", "fx_fused_raw",
            "fx_fused_raw_i8_multi_reference", "fx_fused_parts",
            "fx_fused_parts_reference", "fx_fused_parts_i8",
            "fx_fused_parts_i8_reference", "fx_fused_parts_wide_reference",
+           "parts_reduce", "parts_reduce_reference",
            "fx_fused_parts_i8_wide_reference", "supported_parts", "x_route",
            "max_blocks_parts", "fx_fused_ablate",
            "fx_fused_ablate_reference", "stockham_stages", "fft_radices",
@@ -277,7 +278,8 @@ def supported_parts(nbins: int, ntaps: int, nch: int, s_rows: int,
         return False
     return supported(nbins, ntaps, nch, rank) or (
         wide_route_bytes(nbins, nch, ntaps, rank) <= MAX_SHARED_BYTES
-        and xstage_shared_bytes(nch) <= MAX_SHARED_BYTES)
+        and xstage_plan(nch, nch * (nch + 1) // 2, s_rows,
+                        nbins).shared_bytes <= MAX_SHARED_BYTES)
 
 
 def x_route(nbins: int, ntaps: int, nch: int, rank: int = 0,
@@ -1001,8 +1003,121 @@ def _launch_parts(x, history, window2d, pairs, svd, consts, rank, step,
         # the X kernel, a launch of its own, counted on fx_xstage.launches
         xstage_launch(scratch, pairs, consts[1], parts,
                       (x, sums, mu, new_hist, n_groups, step))
+    else:
+        parts_reduce.launches += 1     # the entry's second kernel
     return (parts[:, :nbl], parts[:, nbl:nbl + nch], parts[:, nbl + nch:],
             mu, new_hist)
+
+
+def _reduce_shape(partial, sums, x, n_gj, halo, int8):
+    """Check the reduce's operands (CUDA tensors) -> (K, n_groups, nbl,
+    nch, S, nbins)."""
+    if partial.dtype != torch.complex64 or partial.ndim != 4:
+        raise TypeError("partial must be complex64 [K, n_groups, rows, nbins]")
+    k, n_groups, rows, nbins = partial.shape
+    want = (torch.int8, 5) if int8 else (torch.complex64, 4)
+    if (x.dtype, x.ndim) != want or x.shape[1] != k:
+        raise ValueError(f"x {tuple(x.shape)} {x.dtype} must be the step's "
+                         f"samples [nch, {k}, S, {nbins}]"
+                         + (", 2] int8" if int8 else "] complex64"))
+    nch, _, s_rows = x.shape[:3]
+    nbl = rows - 2 * nch
+    if (x.shape[3] != nbins or nbl < 0
+            or sums.dtype != (torch.int64 if int8 else torch.float64)
+            or tuple(sums.shape) != (k, n_groups, nch, 2)):
+        raise ValueError(
+            f"partial {tuple(partial.shape)}, sums {tuple(sums.shape)} "
+            f"{sums.dtype} and x {tuple(x.shape)} do not match")
+    if not (1 <= n_gj <= n_groups and 1 <= halo <= s_rows
+            and 1 <= k <= MAX_BLOCKS):
+        raise ValueError(f"n_gj={n_gj} must be in [1, {n_groups}] and "
+                         f"halo={halo} in [1, {s_rows}], K={k} in [1, "
+                         f"{MAX_BLOCKS}]")
+    for name, t in (("sums", sums), ("x", x)):
+        if t.device != partial.device:
+            raise ValueError(f"{name} is on {t.device}, partial on "
+                             f"{partial.device}")
+    for name, t in (("partial", partial), ("sums", sums), ("x", x)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    return k, n_groups, nbl, nch, s_rows, nbins
+
+
+def parts_reduce_reference(partial: torch.Tensor, sums: torch.Tensor,
+                           x: torch.Tensor, n_gj: int, halo: int,
+                           quant_step=None):
+    """The reduce in plain torch, same contract as :func:`parts_reduce`:
+    an explicit loop over the groups in order (``acc = p[0]; acc = acc +
+    p[g]``) and over the sample sums, so it makes the kernel's float32 and
+    double additions and the two agree bit for bit."""
+    nch, k, s_rows = x.shape[:3]
+    full = partial.shape[2] - nch           # xp and T, then GJ
+    parts = partial[:, 0].clone()
+    acc = sums[:, 0].clone()
+    for g in range(1, partial.shape[1]):
+        parts[:, :full] += partial[:, g, :full]
+        if g < n_gj:
+            parts[:, full:] += partial[:, g, full:]
+        acc += sums[:, g]
+    step = 1.0 if quant_step is None else float(quant_step)
+    mean = (acc.double() / (s_rows * x.shape[3]) * step).float()
+    mu = torch.complex(mean[..., 0], mean[..., 1])
+    last = x[:, k - 1, s_rows - halo:]
+    new_hist = last.clone() if quant_step is not None else (
+        last - mu[k - 1][:, None, None])
+    return parts, mu, new_hist
+
+
+def parts_reduce(partial: torch.Tensor, sums: torch.Tensor, x: torch.Tensor,
+                 n_gj: int, halo: int, quant_step=None):
+    """The single pass's reduce alone: the frame kernel's per-group
+    partials ``partial [K, n_groups, nbl + 2 nch, nbins]`` complex64 and
+    sample sums ``sums [K, n_groups, nch, 2]`` (float64; int64 for 8-bit
+    samples) of the step's samples ``x [nch, K, S, nbins]`` complex64 (or
+    int8 ``[nch, K, S, nbins, 2]`` with ``quant_step``) -> ``(parts [K,
+    nbl + 2 nch, nbins], mu [K, nch], new_hist)``: every row of parts
+    summed over the groups in group order, g = 0 first, in float32, the GJ
+    rows (the last nch) over the first ``n_gj`` groups only; mu the block
+    means from the sums (double, rounded once; times ``quant_step`` for
+    8-bit samples); ``new_hist [nch, halo, nbins]`` the last block's last
+    ``halo`` rows, complex64 minus its mean, int8 as they arrived.
+
+    CPU tensors run :func:`parts_reduce_reference`; CUDA tensors launch
+    the reduce kernel (``fxt_parts_reduce`` / ``_i8``, the second kernel
+    of :func:`fx_fused_parts`' shared route) or raise.  Each launch of the
+    kernel adds one to ``parts_reduce.launches``: this call's and those of
+    the single pass's shared route."""
+    if partial.device.type == "cpu":
+        return parts_reduce_reference(partial, sums, x, n_gj, halo,
+                                      quant_step)
+    if partial.device.type != "cuda":
+        raise ValueError(f"parts_reduce runs on cuda or cpu, not "
+                         f"{partial.device}")
+    from fxtpu_torch.cuda_build import check, load_kernels
+    int8 = quant_step is not None
+    k, n_groups, nbl, nch, s_rows, nbins = _reduce_shape(
+        partial, sums, x, n_gj, halo, int8)
+    lib = load_kernels()
+    dev = partial.device
+    parts = torch.empty((k, nbl + 2 * nch, nbins), dtype=torch.complex64,
+                        device=dev)
+    mu = torch.empty((k, nch), dtype=torch.complex64, device=dev)
+    new_hist = torch.empty((nch, halo, *x.shape[3:]), dtype=x.dtype,
+                           device=dev)
+    entry = lib.fxt_parts_reduce_i8 if int8 else lib.fxt_parts_reduce
+    extra = (float(quant_step),) if int8 else ()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = entry(partial.data_ptr(), sums.data_ptr(), x.data_ptr(),
+                   parts.data_ptr(), mu.data_ptr(), new_hist.data_ptr(), nch,
+                   k, s_rows, nbins, nbl, halo, n_groups, n_gj, *extra,
+                   stream)
+    check(lib, rc, "parts_reduce kernel launch")
+    parts_reduce.launches += 1
+    return parts, mu, new_hist
+
+
+parts_reduce.launches = 0
 
 
 def _count_parts(wrapper, rank, route):

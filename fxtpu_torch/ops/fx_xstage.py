@@ -20,21 +20,102 @@ channel c's spectra, then ``GJ_c``, the sum over frames ``f < halo`` of
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
-__all__ = ["fx_xstage", "fx_xstage_reference", "xstage_shared_bytes",
-           "XSTAGE_BINS", "XSTAGE_FRAMES"]
+__all__ = ["fx_xstage", "fx_xstage_reference", "xstage_plan", "XStagePlan",
+           "XSTAGE_BINS"]
 
-#: Bins of a CTA's tile (one a lane; kTileBins).
+#: The wrappers take bin counts that are multiples of this (every bin
+#: count the port takes is one).
 XSTAGE_BINS = 32
-#: Frames of every channel a CTA stages at once (kChunk).
-XSTAGE_FRAMES = 8
+#: Rows of parts a thread sums (``kRows``, the kernel instance) -> the
+#: threads a CTA that instance takes at most (its ``__launch_bounds__``,
+#: ``RowThreads`` in ``csrc/fx_xstage.cu``): 576 x 8 rows cover 64
+#: channels' 2,208 rows at a tile of 2 bins.
+XSTAGE_ROW_THREADS = {2: 256, 4: 256, 8: 576}
+XSTAGE_ROWS = max(XSTAGE_ROW_THREADS)
+#: Stages of the ring the frames stream through (at least 2), and the
+#: shared memory the ring takes at most: 96 KiB, two CTAs an SM.
+XSTAGE_STAGES = 3
+XSTAGE_RING_BYTES = 96 << 10
+#: CTAs the grid reaches for where the bins allow: two an SM of the
+#: H100's 132, rounded to a power of two of tiles.
+XSTAGE_FILL_CTAS = 256
 
 
-def xstage_shared_bytes(nch: int) -> int:
-    """Dynamic shared memory of the X kernel: a chunk of frames of every
-    channel at a tile of bins (128 KiB at 64 channels)."""
-    return nch * XSTAGE_FRAMES * XSTAGE_BINS * 8
+@dataclasses.dataclass(frozen=True)
+class XStagePlan:
+    """One launch's shape (``XStagePlan`` in ``csrc/fx_xstage.cu``): a CTA
+    owns ``tile`` bins of one block; thread t sums bin ``t % tile`` of the
+    rows ``slot, slot + slots, ...`` (``slot = t // tile``), ``rows`` of
+    them (the kernel instance, a key of :data:`XSTAGE_ROW_THREADS`); the
+    frames stream through ``stages`` buffers of ``frames`` frames of every
+    channel (tile and frames powers of two); ``threads`` a CTA;
+    ``shared_bytes`` the ring and the block's means."""
+    tile: int
+    slots: int
+    rows: int
+    frames: int
+    stages: int
+    threads: int
+    shared_bytes: int
+
+    def args(self):
+        """The entry's plan arguments, in its order."""
+        return (self.tile, self.slots, self.rows, self.frames, self.stages,
+                self.threads)
+
+
+def xstage_plan(nch: int, nbl: int, s_rows: int, nbins: int,
+                k: int = 1) -> XStagePlan:
+    """The X kernel's plan for K blocks of ``nch`` channels, ``nbl``
+    pairs, ``s_rows`` frames and ``nbins`` bins (a multiple of
+    :data:`XSTAGE_BINS`).  The tile is the widest power of two that
+    leaves about :data:`XSTAGE_FILL_CTAS` CTAs or more, narrowed until the
+    ``nbl + 2 nch`` rows spread over 256 threads (576 where 256 cannot
+    hold them), at most :data:`XSTAGE_ROWS` a thread.  A slot takes one row
+    of those summed over every frame (pairs and T) where they are few, and
+    the GJ rows, summed over the first halo frames only, ride on the same
+    threads, so every thread sums over every frame.  The kernel instance
+    is the fewest rows a thread of :data:`XSTAGE_ROW_THREADS` that hold a
+    slot's rows and take the threads.  The ring takes
+    :data:`XSTAGE_STAGES` stages (fewer only where one frame of every
+    channel would not fit, never fewer than 2) of the most frames, a power
+    of two, that :data:`XSTAGE_RING_BYTES` allows (few, large chunks: each
+    costs the CTA a barrier), at most a third of the block's so that short
+    blocks still overlap; after the ring, the block's means (nch
+    float2)."""
+    rows = nbl + 2 * nch
+    busy = max(1, rows - nch)     # the rows summed over every frame
+    top = min(256, nbins & -nbins)
+    fill = 2
+    while fill * 2 <= min(top, nbins * k // XSTAGE_FILL_CTAS):
+        fill *= 2
+    for most in sorted(set(XSTAGE_ROW_THREADS.values())):
+        tile = fill
+        while tile > 2 and -(-rows // (most // tile)) > XSTAGE_ROWS:
+            tile //= 2
+        slots = min(most // tile, busy)
+        if -(-rows // slots) <= XSTAGE_ROWS:
+            break
+    else:
+        raise ValueError(f"the X kernel takes at most "
+                         f"{most // 2 * XSTAGE_ROWS} rows of parts, got "
+                         f"{rows}")
+    threads = -(-tile * slots // 32) * 32
+    per = min(n for n, top in XSTAGE_ROW_THREADS.items()
+              if n * slots >= rows and threads <= top)
+    frame_bytes = nch * tile * 8
+    stages = XSTAGE_STAGES
+    while stages > 2 and stages * frame_bytes > XSTAGE_RING_BYTES:
+        stages -= 1
+    most = max(1, min(XSTAGE_RING_BYTES // (stages * frame_bytes),
+                      -(-s_rows // stages)))
+    frames = 1 << (most.bit_length() - 1)
+    return XStagePlan(tile, slots, per, frames, stages, threads,
+                      stages * frames * frame_bytes + nch * 8)
 
 
 def fx_xstage_reference(spec: torch.Tensor, pairs: torch.Tensor,
@@ -94,6 +175,7 @@ def xstage_launch(spec, pairs, da, parts, fold=None):
         x, sums, mu, new_hist, n_groups, step = fold
     entry = lib.fxt_xstage if step is None else lib.fxt_xstage_i8
     extra = () if step is None else (step,)
+    plan = xstage_plan(nch, pairs.shape[0], s_rows, nbins, k)
 
     def ptr(t):
         return None if t is None or t.numel() == 0 else t.data_ptr()
@@ -103,7 +185,7 @@ def xstage_launch(spec, pairs, da, parts, fold=None):
         rc = entry(spec.data_ptr(), pairs.data_ptr(), ptr(da),
                    parts.data_ptr(), ptr(x), ptr(sums), ptr(mu),
                    ptr(new_hist), nch, k, s_rows, nbins, pairs.shape[0],
-                   da.shape[0], n_groups, *extra, stream)
+                   da.shape[0], n_groups, *plan.args(), *extra, stream)
     check(lib, rc, "fx_xstage kernel launch")
     fx_xstage.launches += 1
 

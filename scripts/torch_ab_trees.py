@@ -1,5 +1,5 @@
-"""Two trees' frame kernels of fxtpu_torch in one process, parent / change
-/ change / parent: how much faster, and still right?
+"""Two trees' kernels of fxtpu_torch in one process, parent / change /
+change / parent: how much faster, and still right?
 
 A one-block call at the flagship is bounded by the host's enqueue, which
 drifts from process to process, so two trees are compared in one process,
@@ -10,25 +10,33 @@ each into a library of its own, and launches the entries both export on
 the same input and output buffers:
 
   * ``fxt_fx_parts`` / ``fxt_fx_parts_i8`` (the single pass the engine's
-    step launches: frame kernel and reduce) at the flagship (K = 1 and 8)
-    and at ``bench_pipeline``'s block;
+    step launches: frame kernel and parts reduce) at the flagship (K = 1
+    and 8) and at ``bench_pipeline``'s block;
   * ``fxt_fx_wide_frames`` / ``fxt_fx_wide_frames_i8`` (the wide route's
     frame kernel alone) at bench.py's ``nchan8`` block and at the CLI's
     8-channel deep block (``--nchan 8 --resolution 8192 --ntaps 32``, SVD
     rank 6);
   * ``fxt_spectrometer`` (complex64 only) at the flagship's shape;
+  * ``fxt_xstage`` / ``fxt_xstage_i8`` (the wide route's X kernel with the
+    reduce's share folded in, over spectra formed in plain torch) at the
+    nchan8 block, at the CLI's ``--nchan 8`` block and, forced onto the
+    wide route, at ``bench_pipeline``'s (``nchan8_x``, ``cli8_x``,
+    ``pipeline_x``); the entry takes as many plan integers as its
+    library's ``fxt_xstage_plan_ints()`` says (none where the library
+    has no such symbol: the X kernel before its launch plan);
 
 each in both ingests, and reports
 
   * ``nvcc -Xptxas -v``'s registers, shared memory and spills of each
     tree's production frame kernels;
   * each tree's largest difference from the plain version on the same
-    input (parts: of max|xp|; spectra: of max|spectrum|), and the largest
+    input (parts: of max|xp|; spectra: of max|spectrum|), the largest
     difference between the two trees' outputs (of the parent's largest
-    magnitude);
-  * the frame kernel's device time (``torch.profiler``, the median of ten
-    launches a round) and the call's event time, ``--rounds`` rounds in
-    the order A B B A.
+    magnitude) and whether their mu and new history are equal bit for bit;
+  * each kernel's device time by name (``fx_frames_kernel``,
+    ``fx_parts_reduce_kernel``, ``fx_xstage_kernel``; ``torch.profiler``,
+    the median of ten launches a round) and the call's event time,
+    ``--rounds`` rounds in the order A B B A.
 
     python scripts/torch_ab_trees.py --parent build/parent [--cases
         flagship,nchan8]
@@ -52,13 +60,19 @@ sys.path.insert(0, str(ROOT))
 from fxtpu_torch import cuda_build  # noqa: E402
 from fxtpu_torch.ops import fx_fused as ff  # noqa: E402
 from fxtpu_torch.ops.dc_posthoc import dc_constants  # noqa: E402
+from fxtpu_torch.ops.fx_xstage import (fx_xstage_reference,  # noqa: E402
+                                       xstage_plan)
 from fxtpu_torch.ops.xengine import baseline_pairs  # noqa: E402
 from fxtpu_torch.probes import ablate  # noqa: E402
 from fxtpu_torch.probes.common import (card_line, device_events,  # noqa: E402
                                        emit, event_ms, resolve_device)
 
 SHARED = ("fxt_fx_parts", "fxt_fx_parts_i8", "fxt_fx_wide_frames",
-          "fxt_fx_wide_frames_i8", "fxt_spectrometer", "fxt_error_string")
+          "fxt_fx_wide_frames_i8", "fxt_spectrometer", "fxt_xstage",
+          "fxt_xstage_i8", "fxt_error_string")
+#: The kernels whose device time is reported, by the name the profiler
+#: gives them.
+KERNELS = ("fx_frames_kernel", "fx_parts_reduce_kernel", "fx_xstage_kernel")
 #: name -> (entry, nch, samples a channel, nbins, ntaps, K, FIR mode, autos)
 CASES = {
     "flagship": ("parts", 2, 2**18, 4096, 4, 1, "direct", False),
@@ -67,13 +81,19 @@ CASES = {
     "nchan8": ("wide", 8, 2**20, 4096, 4, 1, "direct", True),
     "deep8": ("wide", 8, 2**18, 8192, 32, 1, "svd", False),
     "spectrometer": ("spec", 2, 2**18, 4096, 4, 1, "direct", False),
+    "nchan8_x": ("xstage", 8, 2**20, 4096, 4, 1, "direct", True),
+    "cli8_x": ("xstage", 8, 2**18, 4096, 4, 1, "direct", False),
+    "pipeline_x": ("xstage", 2, 2**21, 4096, 4, 1, "direct", False),
+    "nch64_x": ("xstage", 64, 2**18, 4096, 4, 1, "direct", True),
 }
 
 
 def production_kernels(log: str) -> dict:
     """``{kernel: "registers, shared memory, spills"}`` of the frame
     kernels in nvcc's ``-Xptxas -v`` output whose stage is the production
-    one (stage 0), and the stack and spills of the FFT's bodies
+    one (stage 0) and of every instance of the parts reduce and the X
+    kernel (``fx_xstage_kernel<float2,8>``: complex64 samples, 8 rows a
+    thread), and the stack and spills of the FFT's bodies
     (``fft_sized<log2 n>``, called by every frame kernel)."""
     out = {}
     lines = log.splitlines()
@@ -91,6 +111,17 @@ def production_kernels(log: str) -> dict:
         info = " ".join(s.strip() for s in lines[i + 1:i + 4]
                         if "registers" in s or "spill" in s)
         out[policy] = re.sub(r"ptxas info\s*:\s*", "", info)
+    for i, line in enumerate(lines):
+        m = re.search(r"Compiling entry function '\S*(fx_xstage_kernel|"
+                      r"fx_parts_reduce_kernel)I\d+([A-Za-z]\w*?)(?:Li(\d+)E)?EE?v",
+                      line)
+        if not m:
+            continue
+        name = f"{m.group(1)}<{m.group(2)}" + (
+            f",{m.group(3)}>" if m.group(3) else ">")
+        info = " ".join(s.strip() for s in lines[i + 1:i + 4]
+                        if "registers" in s or "spill" in s)
+        out[name] = re.sub(r"ptxas info\s*:\s*", "", info)
     for i, line in enumerate(lines):
         m = re.search(r"Function properties for (\S*fft_sized\S*)", line)
         if m and i + 1 < len(lines):
@@ -120,11 +151,19 @@ def build_tree(root: Path, name: str, like=None):
         log = cuda_build.build_library(path, sources)
         log_path.write_text(log)
     lib = ctypes.CDLL(str(path))
+    ints = getattr(lib, "fxt_xstage_plan_ints", None)
+    lib.plan_ints = ints() if ints is not None else 0
     if like is None:
         return cuda_build.declare(lib), log
     for entry in SHARED:
         getattr(lib, entry).restype = getattr(like, entry).restype
         getattr(lib, entry).argtypes = getattr(like, entry).argtypes
+    # the X kernel's entries: the plan's integers after the first 15
+    # arguments, as many as this library takes
+    for entry in ("fxt_xstage", "fxt_xstage_i8"):
+        fn = getattr(lib, entry)
+        fn.argtypes = (fn.argtypes[:15] + [ctypes.c_int] * lib.plan_ints
+                       + fn.argtypes[15 + like.plan_ints:])
     return lib, log
 
 
@@ -156,6 +195,9 @@ class Case:
         if self.entry == "parts":
             self.n_groups, self.per = ff._groups(self.s_rows, rows, nbins)
             self.scratch = torch.empty((k, self.n_groups, rows, nbins), **c64)
+        elif self.entry == "xstage":
+            self.n_groups, self.per = ff._wide_groups(self.s_rows)
+            self.scratch = self._spectra().transpose(0, 1).contiguous()
         else:
             self.n_groups, self.per = ff._wide_groups(self.s_rows)
             self.scratch = torch.empty((k, nch, self.s_rows, nbins), **c64)
@@ -165,6 +207,15 @@ class Case:
         self.sums = torch.empty(
             (k, self.n_groups, nch, 2),
             dtype=torch.int64 if self.int8 else torch.float64, device=device)
+        if self.entry == "xstage":
+            # the groups' sample sums, as the wide route's frame kernel
+            # leaves them for the X kernel
+            xs = self.x.long() if self.int8 else torch.view_as_real(
+                self.x).double()
+            self.sums = torch.stack(
+                [xs[:, :, g * self.per:(g + 1) * self.per].sum(dim=(2, 3))
+                 for g in range(self.n_groups)], dim=2).permute(
+                     1, 2, 0, 3).contiguous()
         self.tw = ff._twiddles(nbins, device)
         if self.entry == "spec":
             # one block [nch, nsamp], its DC-corrected history, spectra out
@@ -192,14 +243,22 @@ class Case:
                 xp, t, gj, _, _ = ff.fx_fused_parts_reference(
                     x, hist, self.w, self.pairs, svd, self.consts)
             return torch.cat([xp, t, gj], dim=1)
+        if self.entry == "xstage":
+            return fx_xstage_reference(self.scratch, self.pairs,
+                                       self.consts[1])
+        return self._spectra().transpose(0, 1)
+
+    def _spectra(self):
+        """The spectra ``[nch, K, S, nbins]`` of the case's rows, in
+        plain torch."""
+        svd, hist, x = self.svd, self.hist, self.x
         if self.int8:
             from fxtpu_torch.ops.pfb import dequantize
             rows = dequantize(x, self.step).reshape(self.nch, -1, self.nbins)
             hist = dequantize(hist, self.step)
         else:
             rows = x.reshape(self.nch, -1, self.nbins)
-        spec = ff._raw_spectra(rows, hist, x.shape[:4], self.w, svd)
-        return spec.transpose(0, 1)
+        return ff._raw_spectra(rows, hist, x.shape[:4], self.w, svd)
 
     def launch(self, lib):
         """One call of the tree's entry into this case's buffers."""
@@ -216,6 +275,21 @@ class Case:
                     self.new_hist.data_ptr(), self.nch, self.k, self.s_rows,
                     self.nbins, self.ntaps, self.rank, self.pairs.shape[0],
                     self.n_groups, self.per, *extra, stream)
+        elif self.entry == "xstage":
+            fn = lib.fxt_xstage_i8 if self.int8 else lib.fxt_xstage
+            nbl = self.pairs.shape[0]
+            plan = xstage_plan(self.nch, nbl, self.s_rows, self.nbins,
+                               self.k).args() if lib.plan_ints else ()
+            if len(plan) != lib.plan_ints:
+                raise RuntimeError(f"the library's X entry takes "
+                                   f"{lib.plan_ints} plan integers, this "
+                                   f"tree plans {len(plan)}")
+            rc = fn(self.scratch.data_ptr(), self.pairs.data_ptr(),
+                    self.consts[1].data_ptr(), self.parts.data_ptr(),
+                    self.x.data_ptr(), self.sums.data_ptr(),
+                    self.mu.data_ptr(), self.new_hist.data_ptr(), self.nch,
+                    self.k, self.s_rows, self.nbins, nbl, self.ntaps - 1,
+                    self.n_groups, *plan, *extra, stream)
         elif self.entry == "spec":
             rc = lib.fxt_spectrometer(
                 self.x.data_ptr(), self.hist.data_ptr(), self.w.data_ptr(),
@@ -235,13 +309,20 @@ class Case:
 
     def output(self):
         """The last call's output: the parts, or the spectra."""
-        return self.parts if self.entry == "parts" else self.scratch
+        return self.parts if self.entry in ("parts", "xstage") else (
+            self.scratch)
+
+    def fold(self):
+        """The last call's mu and new history (None for the entries that
+        form neither)."""
+        return ((self.mu.clone(), self.new_hist.clone())
+                if self.entry in ("parts", "xstage") else None)
 
     def error(self):
         """Largest difference of the last call's output from the plain
         version, over the plain version's largest magnitude (parts: that
         of the cross power)."""
-        if self.entry == "parts":
+        if self.entry in ("parts", "xstage"):
             nbl = self.pairs.shape[0]
             got, want = self.parts, self.plain
             scale = want[:, :nbl].abs().max().item()
@@ -251,14 +332,19 @@ class Case:
         return (got - want).abs().max().item() / scale
 
 
-def frame_us(fn, n=10):
-    """Median device microseconds of the frame kernel over n calls."""
+def kernel_us(fn, n=10):
+    """Median device microseconds of each kernel of :data:`KERNELS` that
+    a call of fn launches, over n calls: ``{name: us}``."""
     events = device_events(fn, n)
-    durs = [e["dur"] for e in events if e["cat"] == "kernel"
-            and "fx_frames_kernel" in e["name"]]
-    if len(durs) != n:
-        raise RuntimeError(f"{len(durs)} frame-kernel records of {n} calls")
-    return statistics.median(durs)
+    out = {}
+    for name in KERNELS:
+        durs = [e["dur"] for e in events if e["cat"] == "kernel"
+                and name in e["name"]]
+        if durs and len(durs) != n:
+            raise RuntimeError(f"{len(durs)} {name} records of {n} calls")
+        if durs:
+            out[name] = statistics.median(durs)
+    return out
 
 
 def main(argv=None) -> list:
@@ -287,19 +373,21 @@ def main(argv=None) -> list:
         for ingest in (("complex64",) if CASES[name][0] == "spec"
                        else ("complex64", "int8")):
             case = Case(name, ingest, device)
-            err, outs = {}, {}
+            err, outs, folds = {}, {}, {}
             for tree, lib in libs.items():
                 case.launch(lib)
                 torch.cuda.synchronize()
                 err[tree] = case.error()
                 outs[tree] = case.output().clone()
+                folds[tree] = case.fold()
             scale = outs["parent"].abs().max().item()
-            times = {tree: {"frames_us": [], "event_ms": []} for tree in libs}
+            times = {tree: {"event_ms": []} for tree in libs}
             for _ in range(args.rounds):
                 for tree in ("parent", "change", "change", "parent"):
                     def fn(lib=libs[tree]):
                         case.launch(lib)
-                    times[tree]["frames_us"].append(frame_us(fn))
+                    for kname, us in kernel_us(fn).items():
+                        times[tree].setdefault(kname + "_us", []).append(us)
                     times[tree]["event_ms"].append(event_ms(fn, n=20))
             emit(records, probe="ab_trees", case=name, ingest=ingest,
                  entry=case.entry, nch=case.nch, k=case.k, nbins=case.nbins,
@@ -308,12 +396,18 @@ def main(argv=None) -> list:
                  max_diff_between_trees=(
                      (outs["parent"] - outs["change"]).abs().max().item()
                      / scale),
+                 mu_and_history_equal=(None if folds["parent"] is None
+                                       else all(torch.equal(a, b) for a, b
+                                                in zip(folds["parent"],
+                                                       folds["change"]))),
                  **{f"{tree}_{key}": {"median": statistics.median(v),
                                       "min": min(v), "max": max(v)}
                     for tree, t in times.items() for key, v in t.items()},
-                 speedup_frames=(
-                     statistics.median(times["parent"]["frames_us"])
-                     / statistics.median(times["change"]["frames_us"])),
+                 speedup={key[:-3]: (statistics.median(times["parent"][key])
+                                     / statistics.median(
+                                         times["change"][key]))
+                          for key in times["change"]
+                          if key.endswith("_us") and key in times["parent"]},
                  card=card)
             del case
             torch.cuda.empty_cache()

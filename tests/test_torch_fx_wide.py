@@ -573,7 +573,8 @@ def _card_inputs(nch, k, s, nbins, ntaps, int8, fir, device, seed):
 @pytest.mark.parametrize("nch,k,s,nbins,ntaps,fir", [
     (4, 1, 32, 256, 4, "direct"), (4, 3, 32, 256, 4, "direct"),
     (8, 2, 16, 4096, 4, "direct"), (4, 2, 64, 256, 32, "svd"),
-    (64, 1, 8, 256, 4, "direct")])
+    (64, 1, 8, 256, 4, "direct"), (55, 1, 8, 512, 4, "direct"),
+    (48, 2, 8, 256, 4, "direct")])
 def test_cuda_wide_parts_match_plain_and_shared(cuda_device, nch, k, s, nbins,
                                                 ntaps, fir, int8):
     """The wide route's kernels against their plain version (2e-5 of
