@@ -64,7 +64,17 @@ Phases (any failure raises and exits non-zero, with no ``ok`` line):
    2e-5 of each part's scale; the single pass's reduce alone
    (``fx_parts_reduce``: ``ops.fx_fused.parts_reduce``) at the flagship
    (K = 1 and 8) and ``bench_pipeline``'s block in both ingests, parts, mu
-   and history bit for bit its plain version's; every stage
+   and history bit for bit its plain version's; the step's one C call
+   (``fxt_fx_step`` / ``_i8``, ``ops.fx_epilogue.fx_fused_step``: the
+   frame kernel, then the reduce or X kernel and the epilogue as
+   programmatic dependents) at the flagship (K = 1 and 8), the pipeline
+   block (CONTINUUM), the deep-tap block (SVD) and the wide route's cli8,
+   nchan8 and deep8 blocks, both ingests, packed and plain delays: vis, mu
+   and the new history bit for bit those of the two-call step
+   (``fx_fused_parts*`` then ``fx_finish``; largest difference 0), vis
+   within 1e-6 of max|vis| plus 2e-6 of the raw cross power of the plain
+   epilogue over the step's own parts, the parts within 2e-5 (3e-5) of
+   the plain single pass's; every stage
    of the ablation (``fx_ablate``:
    ``ops.fx_fused.fx_fused_ablate``, both ingests, both FIR modes) at
    nbins=256, at the flagship, at the CLI's deep-tap block and at the
@@ -89,6 +99,11 @@ Phases (any failure raises and exits non-zero, with no ``ok`` line):
    (``direct``, ``svd``), the calibration recovered the injected 2 us
    delay within 0.5 sample, the calibrated in-band phase is flat (std <
    0.3 rad, 0.35 under int8) and the CSV loads with the reference recipe;
+   then checkpoint/resume through the CLI in both ingests at K = 1 and 8:
+   a replay of the CLI's blocks run whole, run cut short with
+   ``--snapshot_every 2`` and resumed from its snapshot with
+   ``--resume_from`` over the whole replay, the resumed rows within 2e-5
+   of max|vis| (3e-5 int8) of the whole run's tail;
    then ``bench_pipeline``'s configuration through the Correlator
    (looping replay, CONTINUUM, ``buffer_chunks`` 32) for 4 s at K = 8 and
    at K = 1 in each ingest, counted the same way, under a CUDA-only
@@ -132,7 +147,14 @@ Phases (any failure raises and exits non-zero, with no ``ok`` line):
    ``bench_pipeline``'s block, both ingests, in turns (A B B A); the parts
    reduce alone at the flagship (K = 1 and 8) and ``bench_pipeline``'s
    block, both ingests, against its plain version and ``torch.sum`` over
-   the groups (its ``library_ms``); the device launches of one engine step (flagship, and wideband
+   the groups (its ``library_ms``); the step's one C call against the
+   two-call step in turns (A B B A) at the flagship (K = 1 and 8), the
+   pipeline block, cli8 and nchan8, both ingests: event ms a step, device
+   us by kernel, the epilogue's exposed us (its end less its
+   predecessor's) and the step's span on the card, failing above 3 device
+   launches a step; a flagship step's host time split into checks,
+   allocations, ctypes call(s) and the rest (``time.perf_counter``);
+   the device launches of one engine step (flagship, and wideband
    in the SVD mode), of one K = 8 ``multi_step`` and of each wrapper alone
    (a CUDA-only profiler trace); the stage table, the
    frame kernel's device time per block after each stage from the
@@ -260,6 +282,16 @@ CANCEL_TOL = 2e-6    # this share of the raw cross power that cancels at a
 # (shape, K) of the parts reduce's checks in phase 2 and its times in 4
 REDUCE_CASES = (("flagship", FLAGSHIP, 1), ("flagship_k8", FLAGSHIP, MULTI_K),
                 ("pipeline", PIPELINE_BLOCK, 1))
+# (tag, shape, K, FIR mode, continuum) of the step entry's checks in phase 2
+# and its A/B in phase 4: the main path's shapes on both routes
+STEP_CASES = (("flagship", FLAGSHIP, 1, "direct", False),
+              ("flagship_k8", FLAGSHIP, MULTI_K, "direct", False),
+              ("pipeline", PIPELINE_BLOCK, 1, "direct", True),
+              ("deep", DEEP_CLI, 1, "svd", False),
+              ("cli8", CLI8, 1, "direct", False),
+              ("nchan8", NCHAN8, 1, "direct", False),
+              ("deep8", DEEP8, 1, "svd", False))
+STEP_SOURCE = "fxtpu_torch/csrc/fx_step.cu"
 # (shape, K, FIR mode) of the single-pass entries' checks in phase 2
 PARTS_CASES = tuple((case, k, "direct") for case in (
     SMALL, FLAGSHIP, PIPELINE_BLOCK, WIDEBAND) for k in (1, MULTI_K)) + tuple(
@@ -788,6 +820,162 @@ def compare_parts(case, k, device, fir, int8, x_stage="auto"):
             max(dc_rel, two_dc))
 
 
+def step_inputs(case, k, fir, int8, packed, continuum, device, seed=2468):
+    """One single-pass step's arguments at ``case`` over K blocks, in
+    ``ops.fx_epilogue.fx_fused_step``'s order: merged blocks with DC
+    offsets (``parts_batch``) behind a carried history that is not zero
+    (``raw_history``), the window and its FIR factors, pairs, the window's
+    constants, per-block delays (packed or plain), the epilogue's tables,
+    the bandwidth, the mode and, for 8-bit samples, the quantisation
+    step."""
+    import torch
+
+    from fxtpu_torch.ops import baseline_pairs, pairs_tensor
+    from fxtpu_torch.ops import fx_epilogue as fe
+    from fxtpu_torch.ops.dc_posthoc import dc_constants
+    from fxtpu_torch.ops.xengine import pack_delays
+    nch, nbins = case["nch"], case["nbins"]
+    s = case["nsamp"] // nbins
+    w, svd = window_and_fir(case, fir, device)
+    pairs_np = baseline_pairs(nch, case["autos"])
+    rng = np.random.default_rng(seed)
+    x = parts_batch(case, k, rng, device, int8)
+    hist = raw_history(case, rng, device, int8)
+    bw, freq = 2.4e6, 1.4204e9
+    d = (np.tile(np.arange(nch) * TRUE_DELAY, (k, 1))
+         + 1e-7 * np.arange(k)[:, None])
+    delays = torch.as_tensor(pack_delays(d, freq) if packed
+                             else d.astype(np.float32), device=device)
+    return (x, hist, w, pairs_tensor(pairs_np, nch, device),
+            dc_constants(w.cpu().numpy(), nbins, s, device), delays,
+            fe.FinishTables(pairs_np, nbins, bw, freq, device), bw,
+            continuum, STEP if int8 else None, svd)
+
+
+def two_call_step(args):
+    """The step as the parent tree's ``fx_fused_step`` formed it: the
+    single pass's wrapper (``fx_fused_parts`` / ``_i8``: frames and reduce,
+    or on the wide route frames and the X kernel, in one or two C calls),
+    then ``fx_finish`` in a call of its own -> (vis, mu, new history,
+    parts (xp, T, GJ))."""
+    from fxtpu_torch.ops import fx_epilogue as fe
+    from fxtpu_torch.ops import fx_fused as ff
+    x, hist, w, pairs, consts, delays, tables, bw, cont, step, svd = args
+    if step is not None:
+        xp, t, gj, mu, new = ff.fx_fused_parts_i8(x, hist["tail"], w, pairs,
+                                                  step, svd, consts)
+        mu_prev = hist["mu_prev"]
+    else:
+        xp, t, gj, mu, new = ff.fx_fused_parts(x, hist, w, pairs, svd, consts)
+        mu_prev = None
+    vis = fe.fx_finish(xp, t, gj, mu, pairs, consts, delays, tables,
+                       x.shape[2], bw, cont, mu_prev)
+    return vis, mu, new, (xp, t, gj)
+
+
+def one_call_step(args, pool=None):
+    """The step through its one C call (``fxt_fx_step`` / ``_i8``), by
+    the pieces ``fx_fused_step`` is made of -> its buffers (``vis``,
+    ``mu``, ``new_hist``, ``parts``, ...)."""
+    from fxtpu_torch.ops import fx_epilogue as fe
+    plan = fe.check_step(*args)
+    bufs = fe.step_buffers(plan, pool)
+    fe.launch_step(plan, bufs)
+    bufs["plan"] = plan
+    return bufs
+
+
+def compare_step(case, k, fir, continuum, device):
+    """Phase 2 for the step entry at one shape, K blocks, in both ingests
+    with packed and plain delays: its vis, mu and new history against the
+    two-call form's (``two_call_step``) bit for bit (largest difference
+    0); ``fx_fused_step``'s outputs the same as the pieces'; its vis
+    against the plain epilogue (``fx_finish_reference``) over its own
+    parts, every bin within FIN_TOL of max|vis| plus CANCEL_TOL of the raw
+    cross power per frame (phase 2's rule for ``fx_finish``), and its
+    parts against the plain single pass (the wide route's plain version
+    where it takes that route) within 2e-5 (3e-5: 8-bit samples, deep
+    taps) of their scale off the DC bin and at it.  Returns (largest
+    difference from the two-call form, largest error against the plain
+    epilogue relative to max|vis|, route)."""
+    import torch
+
+    from fxtpu_torch.ops import fx_epilogue as fe
+    from fxtpu_torch.ops import fx_fused as ff
+    diff = fin_rel = 0.0
+    route = None
+    for int8 in (False, True):
+        for packed in (True, False):
+            args = step_inputs(case, k, fir, int8, packed, continuum, device)
+            x, hist, w, pairs, consts, delays, tables, bw, cont, step, svd = (
+                args)
+            vis_o, mu_o, new_o, _ = two_call_step(args)
+            bufs = one_call_step(args)
+            vis_w, new_w = fe.fx_fused_step(*args, pool={})
+            torch.cuda.synchronize()
+            plan = bufs["plan"]
+            route = plan.route
+            vis, mu, new = bufs["vis"], bufs["mu"], bufs["new_hist"]
+            d = (vis - vis_o).abs().max().item()
+            diff = max(diff, d)
+            new_w = new_w["tail"] if int8 else new_w
+            if not (d == 0 and torch.equal(vis, vis_o)
+                    and torch.equal(mu, mu_o) and torch.equal(new, new_o)
+                    and torch.equal(vis_w, vis) and torch.equal(new_w, new)):
+                raise AssertionError(
+                    f"the step entry is not the two-call step bit for bit at "
+                    f"{case} K={k} ({fir}, int8 {int8}, packed {packed}): "
+                    f"largest vis difference {d}, mu equal "
+                    f"{torch.equal(mu, mu_o)}, history equal "
+                    f"{torch.equal(new, new_o)}")
+            nbl, nch = plan.nbl, plan.nch
+            parts = bufs["parts"]
+            xp, t, gj = parts[:, :nbl], parts[:, nbl:nbl + nch], parts[
+                :, nbl + nch:]
+            mu_prev = hist["mu_prev"] if int8 else None
+            s = x.shape[2]
+            r = fe.fx_finish_reference(xp, t, gj, mu, pairs, consts, delays,
+                                       tables, s, bw, cont, mu_prev)
+            raw = xp.abs() / s
+            scale = r.abs().max().item()
+            bound = FIN_TOL * scale + CANCEL_TOL * (
+                raw.mean(dim=-1) / bw if cont
+                else torch.fft.fftshift(raw, dim=-1))
+            err = (vis - r).abs()
+            if vis.shape != r.shape or not bool((err <= bound).all()):
+                raise AssertionError(
+                    f"the step entry's vis disagrees with the plain epilogue "
+                    f"at {case} K={k} ({fir}, int8 {int8}, packed {packed}): "
+                    f"{(err / bound).max().item():.3g} of its bound")
+            fin_rel = max(fin_rel, err.max().item() / scale)
+            wide = route == "global"
+            if int8:
+                ref = (ff.fx_fused_parts_i8_wide_reference if wide
+                       else ff.fx_fused_parts_i8_reference)(
+                    x, hist["tail"], w, pairs, step, svd, consts)
+            else:
+                ref = (ff.fx_fused_parts_wide_reference if wide
+                       else ff.fx_fused_parts_reference)(
+                    x, hist, w, pairs, svd, consts)
+            tol = DEEP_TOL if (int8 or case["ntaps"] >= 16) else REL_TOL
+            for name, g, want in zip(("xp", "T", "GJ"), (xp, t, gj), ref):
+                for sl in ((slice(None),) if name == "GJ"
+                           else (slice(1, None), slice(0, 1))):
+                    e = (g[..., sl] - want[..., sl]).abs().max().item()
+                    sc = want[..., sl].abs().max().item()
+                    if not e <= tol * sc:
+                        raise AssertionError(
+                            f"the step entry's {name} disagrees with the "
+                            f"plain single pass at {case} K={k} ({fir}, int8 "
+                            f"{int8}): {e / sc:.3g} > {tol}")
+            del args, bufs, vis_o, mu_o, new_o, ref
+    print(f"  fx_step K={k} ({fir}, {route} route, "
+          f"{'continuum' if continuum else 'spectra'}) shape {case}: largest "
+          f"difference from the two-call step {diff}, against the plain "
+          f"epilogue {fin_rel:.2g} of max|vis|", flush=True)
+    return diff, fin_rel, route
+
+
 def xstage_inputs(case, k, device):
     """The X kernel's inputs at ``case``: the spectra ``[K, nch, S,
     nbins]`` of K raw blocks from a carried history (plain torch), the
@@ -1188,6 +1376,62 @@ def run_staged_main_path(tmpdir, ingest):
         raise AssertionError("the staged run made no K-block call")
     check_products(cor, out, name)
     return name, counts
+
+
+def run_resume_path(tmpdir, ingest, k):
+    """Phase 3, checkpoint/resume through the CLI on the card: a replay
+    of the CLI's blocks (2 channels, 2 us apart) run whole, then cut
+    short with ``--snapshot_every 2`` (at K = 1 after 5 blocks: the
+    calibration block and 4 rows; at K = 8 after 11: one call of 8 and two
+    tail blocks) and resumed from its snapshot over the whole replay with
+    ``--resume_from``, at ``--blocks_per_dispatch k`` in ``ingest``.  The
+    resumed run's rows must be the whole run's tail within 2e-5 of
+    max|vis| (3e-5 under int8).  Returns the largest difference relative
+    to max|vis|."""
+    from fxtpu_torch.cli import main as cli_main
+    from fxtpu_torch.products import load_products
+    from fxtpu_torch.sources import NoiseSource, save_recording
+    nsamp = FLAGSHIP["nsamp"]
+    total, cut = (20, 11) if k > 1 else (8, 5)
+    rec = os.path.join(tmpdir, f"resume_{total}.npy")
+    if not os.path.exists(rec):
+        save_recording(NoiseSource(nchan=2, delays=[0.0, TRUE_DELAY],
+                                   seed=61), rec, nsamp, total)
+    short = os.path.join(tmpdir, f"resume_{cut}.npy")
+    if not os.path.exists(short):
+        np.save(short, np.load(rec)[:, : cut * nsamp])
+
+    def run(replay, name, extra=()):
+        out = os.path.join(tmpdir, f"resume_{ingest}_{k}_{name}.csv")
+        cor = cli_main(["--time", "600", "--mode", "spectrum", "--source",
+                        "replay", "--replay_file", replay, "--ingest", ingest,
+                        "--blocks_per_dispatch", str(k), "--no_keyboard",
+                        "--omit_plot", "--output", out, "--device", "cuda",
+                        "-L", "WARNING", *extra])
+        if not cor.engine.kernel_active:
+            raise AssertionError("the resume run did not take the kernels")
+        return cor, np.atleast_2d(load_products(out)[1])
+
+    full, rows = run(rec, "full")
+    cor_a, _ = run(short, "a", ["--snapshot_every", "2"])
+    cor_b, rows_b = run(rec, "b", ["--resume_from", cor_a.snapshot_path])
+    done = cor_a.blocks_processed
+    if not (rows.shape[0] == full.blocks_processed == total - 1
+            and done == cut - 1 and cor_b.blocks_processed == total - 1
+            and rows_b.shape == rows[done:].shape):
+        raise AssertionError(
+            f"resume {ingest} K={k}: {full.blocks_processed} / {done} / "
+            f"{cor_b.blocks_processed} blocks, rows {rows.shape} / "
+            f"{rows_b.shape}")
+    tol = 3e-5 if ingest == "int8" else 2e-5
+    scale = np.abs(rows).max()
+    err = float(np.abs(rows_b - rows[done:]).max() / scale)
+    print(f"  resume {ingest} --blocks_per_dispatch {k}: snapshot at block "
+          f"{done}, resumed rows against the whole run's {err:.3g} of "
+          f"max|vis| (bound {tol})", flush=True)
+    if not err <= tol:
+        raise AssertionError(f"resumed rows disagree: {err} > {tol}")
+    return err
 
 
 def device_busy(prof, path):
@@ -2151,6 +2395,10 @@ def time_single_pass(device):
         "finish_plain": lambda: fe.fx_finish_reference(
             *parts[:4], pairs, consts, d, tables, s_rows, 2.4e6, False),
     }, n=20, warm=3)
+    # the epilogue launched alone (no predecessor to wait for)
+    kt["finish_device_us"] = statistics.median(e["dur"] for e in device_events(
+        lambda: fe.fx_finish(*parts[:4], pairs, consts, d, tables, s_rows,
+                             2.4e6, False), 5))
     del keep
     return {**st, **{"copy_" + k: v for k, v in ct.items()},
             **{"copy_events_" + k: v for k, v in ce.items()}, **kt}, \
@@ -2371,6 +2619,185 @@ def host_times(fns, n=30, warm=3):
     return {k: statistics.median(v) for k, v in samples.items()}
 
 
+def step_pair(tag, case, k, fir, cont, int8, device):
+    """Phase 4: the step's arguments at one of STEP_CASES and its two forms
+    on them, ``{"two_call": fn, "one_call": fn}``: the parent tree's
+    (``two_call_step``) and ``fx_fused_step`` with a scratch pool kept
+    across calls, as the engine calls it."""
+    from fxtpu_torch.ops import fx_epilogue as fe
+    args = step_inputs(case, k, fir, int8, True, cont, device, seed=97)
+    pool = {}
+    return args, {"two_call": lambda: two_call_step(args),
+                  "one_call": lambda: fe.fx_fused_step(*args, pool=pool)}
+
+
+def time_steps(device):
+    """Phase 4, Part 1's A/B in one process: at each of STEP_CASES but
+    the deep ones, in both ingests, the two-call step against the one C
+    call, timed in turns (A B B A): event ms a step, device us a step by
+    kernel, the epilogue's exposed us and the step's span on the device
+    (``probes.common.step_exposed_us`` of a CUDA-only trace);
+    each one-call step must launch 3 kernels on the device.  Returns
+    {tag: {...}}."""
+    import torch
+
+    from fxtpu_torch.probes.common import device_events, step_exposed_us
+    out = {}
+    for tag, case, k, fir, cont in STEP_CASES:
+        if fir != "direct":
+            continue
+        for int8 in (False, True):
+            key = tag + ("_i8" if int8 else "")
+            args, forms = step_pair(tag, case, k, fir, cont, int8, device)
+            for fn in forms.values():
+                fn()
+            torch.cuda.synchronize()
+            ms = cuda_times(forms, n=20, warm=3)
+            rec = {"event_ms": ms}
+            for form, fn in forms.items():
+                events = device_events(fn, 5)
+                per = len(events) // 5
+                if form == "one_call" and per != 3:
+                    raise AssertionError(f"{key}: the step entry launched "
+                                         f"{per} kernels a step")
+                us = kernel_us(events)
+                rec[form] = {"launches": per, "device_us": us,
+                             "device_us_sum": sum(us.values())}
+                rec[form]["exposed_us"], rec[form]["span_us"] = (
+                    step_exposed_us(events, per))
+            out[key] = rec
+            print(f"  step A/B {key} (K={k}): event ms two-call "
+                  f"{ms['two_call']:.4f} / one call {ms['one_call']:.4f}; "
+                  f"device us {rec['two_call']['device_us']} / "
+                  f"{rec['one_call']['device_us']}; epilogue exposed us "
+                  f"{rec['two_call']['exposed_us']:.3f} / "
+                  f"{rec['one_call']['exposed_us']:.3f}; span us "
+                  f"{rec['two_call']['span_us']:.3f} / "
+                  f"{rec['one_call']['span_us']:.3f}", flush=True)
+            del args, forms
+    return out
+
+
+def host_split(device, n=200):
+    """Phase 4: one flagship step's host time (K = 1, complex64 and int8)
+    split by ``time.perf_counter`` into its checks, its allocations, its
+    ctypes call(s) and the rest (the whole call less those three; the
+    rest holds the Python between them, the argument marshalling and the
+    launch counters), each the mean of ``n`` calls, for the two-call form
+    and for the one C call.  Returns {form_ingest: {part: us}}."""
+    import ctypes
+
+    import torch
+
+    from fxtpu_torch.cuda_build import load_kernels
+    from fxtpu_torch.ops import fx_epilogue as fe
+    from fxtpu_torch.ops import fx_fused as ff
+    lib = load_kernels()
+
+    def mean_us(fn):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        t = (time.perf_counter() - t0) / n * 1e6
+        torch.cuda.synchronize()
+        return t
+
+    out = {}
+    for int8 in (False, True):
+        sfx = "_i8" if int8 else ""
+        args = step_inputs(FLAGSHIP, 1, "direct", int8, True, False, device,
+                           seed=98)
+        x, hist, w, pairs, consts, delays, tables, bw, cont, step, svd = args
+        tail = hist["tail"] if int8 else hist
+        stream = torch.cuda.current_stream(device).cuda_stream
+        # the two-call form's pieces, as fx_fused_parts* and fx_finish make
+        # them (fx_fused._launch_parts, fx_epilogue.fx_finish)
+        vis, mu, new, (xp, t, gj) = two_call_step(args)
+        nch, k, s_rows, nbins = x.shape[:4]
+        nbl = pairs.shape[0]
+        rows = nbl + 2 * nch
+        n_groups, per = ff._groups(s_rows, rows, nbins)
+        abar, da, cs, cab, cbb = consts
+
+        def old_checks():
+            ff._check_parts(x, tail, w, pairs, svd, consts, step)
+            for name, tt, shape in (("xp", xp, (k, nbl, nbins)),
+                                    ("T", t, (k, nch, nbins)),
+                                    ("GJ", gj, (k, nch, nbins))):
+                fe._rows_stride(name, tt, shape)
+            dl, packed = fe._check_delays(delays, k, nch, nbl, x.device)
+            small = [("mu", mu, torch.complex64, (k, nch)),
+                     ("pairs", pairs, torch.int32, (nbl, 2)),
+                     ("abar", abar, torch.complex64, (nbins,)),
+                     ("cs", cs, torch.float32, (nbins,)),
+                     ("cab", cab, torch.complex64, (nbins,)),
+                     ("cbb", cbb, torch.float32, (nbins,)),
+                     ("freqs", tables.fbase, torch.float32, (nbins,))]
+            if int8:
+                small.append(("mu_prev", hist["mu_prev"], torch.complex64,
+                              (nch,)))
+            fe._check_small(small, x.device)
+
+        def old_allocs():
+            c64 = dict(dtype=torch.complex64, device=device)
+            torch.empty((k, rows, nbins), **c64)
+            torch.empty((k, n_groups, rows, nbins), **c64)
+            torch.empty((k, n_groups, nch, 2), device=device,
+                        dtype=torch.int64 if int8 else torch.float64)
+            torch.empty((k, nch), **c64)
+            torch.empty_like(tail)
+            torch.empty((k, nbl, nbins), **c64)
+
+        plan = fe.check_step(*args)
+        pool = {}
+        bufs = fe.step_buffers(plan, pool)
+        parts = bufs["parts"]
+        ptr = [tt.data_ptr() for tt in (
+            x, tail, w, ff._twiddles(nbins, device), pairs, da, bufs["sums"],
+            bufs["scratch"], parts, bufs["mu"], bufs["new_hist"])]
+        extra = (step,) if int8 else ()
+        parts_entry = lib.fxt_fx_parts_i8 if int8 else lib.fxt_fx_parts
+        fin_ptr = [tt.data_ptr() for tt in (
+            abar, cs, cab, cbb, delays, tables.fbase, bufs["vis"])]
+        mu_prev = hist["mu_prev"].data_ptr() if int8 else None
+
+        def old_ctypes():
+            parts_entry(*ptr[:3], None, None, *ptr[3:], nch, k, s_rows,
+                        nbins, w.shape[0], 0, nbl, n_groups, per, *extra,
+                        stream)
+            lib.fxt_fx_finish(
+                ptr[8], ptr[8] + 8 * nbl * nbins,
+                ptr[8] + 8 * (nbl + nch) * nbins, ptr[9], mu_prev, ptr[4],
+                *fin_ptr, rows * nbins, rows * nbins, rows * nbins, k, nbl,
+                nch, nbins, 1, 0, s_rows, bw, stream)
+
+        sargs = fe.step_args(plan, bufs)
+        entry = lib.fxt_fx_step_i8 if int8 else lib.fxt_fx_step
+        parts_old = {"total": mean_us(lambda: two_call_step(args)),
+                     "checks": mean_us(old_checks),
+                     "allocations": mean_us(old_allocs),
+                     "ctypes": mean_us(old_ctypes)}
+        parts_new = {
+            "total": mean_us(lambda: fe.fx_fused_step(*args, pool=pool)),
+            "checks": mean_us(lambda: fe.check_step(*args)),
+            "allocations": mean_us(lambda: fe.step_buffers(plan, pool)),
+            "ctypes": mean_us(lambda: entry(ctypes.byref(sargs), stream)),
+            "of_the_rest_step_args": mean_us(
+                lambda: fe.step_args(plan, bufs))}
+        for form, rec in (("two_call", parts_old), ("one_call", parts_new)):
+            rec["rest"] = (rec["total"] - rec["checks"] - rec["allocations"]
+                           - rec["ctypes"])
+            out[form + sfx] = rec
+            print(f"  host split, flagship K=1 {form}{sfx} (us a step, mean "
+                  f"of {n}): " + ", ".join(f"{key} {v:.2f}"
+                                            for key, v in rec.items()),
+                  flush=True)
+        del args, bufs, pool
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2457,6 +2884,13 @@ def main() -> int:
                 for key, pair in got.items():
                     errs[key] = tuple(map(max, errs[key], pair))
                 dc_bin[name] = max(dc_bin.get(name, 0.0), dc)
+    step_diff, step_fin, step_routes = 0.0, 0.0, {}
+    for tag, case, k, fir, cont in STEP_CASES:
+        d, f, route = compare_step(case, k, fir, cont, device)
+        step_diff, step_fin = max(step_diff, d), max(step_fin, f)
+        step_routes[tag] = route
+    print(f"  fx_step against the two-call step, every shape: largest "
+          f"difference {step_diff}", flush=True)
     for case in (NCHAN8, CLI8, MANY_PAIRS, WIDE64):
         for k in (1, WIDE_K):
             errs["fx_xstage"] = tuple(map(max, errs["fx_xstage"],
@@ -2488,6 +2922,13 @@ def main() -> int:
                   flush=True)
             name, counts = run_staged_main_path(tmp, ingest)
             main_counts.append(counts)
+        phase("phase 3: snapshot and resume (python -m fxtpu_torch "
+              "--snapshot_every 2, then --resume_from)")
+        resume_err = {}
+        for ingest in ("complex64", "int8"):
+            for k in (1, MULTI_K):
+                resume_err[f"{ingest}_k{k}"] = run_resume_path(tmp, ingest,
+                                                               k)
         phase(f"phase 3: the wide route's main path (python -m fxtpu_torch "
               f"--nchan {CLI_NCHAN})")
         for ingest in ("complex64", "int8"):
@@ -2573,6 +3014,8 @@ def main() -> int:
     wdt, wd_us, wd_launches = time_wide(device)
     xrt, xr_us = time_x_routes(device)
     rdt, rd_us = time_reduce(device)
+    step_ab = time_steps(device)
+    split = host_split(device)
     step_launches.update(call_launches)
     step_launches.update(wide_launches)
     table = stage_table(ablate_runs, device)
@@ -2654,7 +3097,8 @@ def main() -> int:
     print(f"  [{card}] flagship wrappers: fx_fused_parts {spt['parts']:.4f} "
           f"ms (plain {spt['parts_plain']:.4f}), fx_fused_parts_i8 "
           f"{spt['parts_i8']:.4f} (plain {spt['parts_i8_plain']:.4f}), "
-          f"fx_finish {spt['finish']:.4f} (plain {spt['finish_plain']:.4f}); "
+          f"fx_finish {spt['finish']:.4f} (plain {spt['finish_plain']:.4f}; "
+          f"device us alone {spt['finish_device_us']:.3f}); "
           f"DC bin, worst of phase 2, of max|vis|: {dc_bin}", flush=True)
     for tag, what in (("nchan8", "nchan8 block (8 x 2^20, 4096 bins, 36 "
                                  "baselines)"),
@@ -2943,7 +3387,23 @@ def main() -> int:
         "max_rel_err": errs["fx_finish"][1],
         "ms": spt["finish"], "plain_ms": spt["finish_plain"],
         "bound_ms": ms, "bound_by": by, "library_ms": None,
-        "device_us": sp_us["step_new"].get("finish"),
+        # launched alone; in a step its record also holds its wait
+        "device_us": spt["finish_device_us"],
+        "step_device_us": sp_us["step_new"].get("finish"),
+        "step_exposed_us": {key: rec["one_call"]["exposed_us"]
+                            for key, rec in step_ab.items()},
+        "two_call_exposed_us": {key: rec["two_call"]["exposed_us"]
+                                for key, rec in step_ab.items()},
+        # the step's one C call, whose third kernel it is
+        "entry": "fxt_fx_step, fxt_fx_step_i8", "step_source": STEP_SOURCE,
+        "step_max_diff_vs_two_call": step_diff,
+        "step_max_rel_err_vs_plain_epilogue": step_fin,
+        "step_routes": step_routes,
+        "bound_ms_by_shape": {
+            tag: finish_bound(case, k)[0]
+            for tag, case, k, _, _ in STEP_CASES},
+        "step_ab": step_ab, "host_split_us": split,
+        "resume_max_rel_err": resume_err,
     })
     kernels += probe_kernel_entries(table, probe_records, launches, errs,
                                     mkt, device)

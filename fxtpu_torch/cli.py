@@ -7,9 +7,13 @@ The same flags as ``fxtpu.cli`` (a superset of the reference CLI,
 ``--device cpu`` was asked for.  ``--ingest int8`` keeps samples 8-bit
 from the source to the card.  ``--blocks_per_dispatch K`` correlates K
 blocks per device call, staged by a background thread (pinned host
-buffers, the copy on its own CUDA stream).  Flags of options not ported
-yet (mesh, multi-process, snapshots) are accepted and raise
-``NotImplementedError`` naming their ROADMAP.md item.
+buffers, the copy on its own CUDA stream).  ``--snapshot_every N``
+writes the streaming state every N blocks to ``<output>.state.npz``, in
+``fxtpu``'s snapshot format, and ``--resume_from FILE`` continues from
+such a snapshot, this package's or ``fxtpu``'s (replay and synthetic
+sources).  Flags of options not ported yet (mesh,
+multi-process) are accepted and raise ``NotImplementedError`` naming their
+ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -93,9 +97,12 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--integration_blocks", default=1, type=int,
                         help="Blocks averaged per output row.")
     parser.add_argument("--snapshot_every", default=0, type=int,
-                        help="Blocks between resumable state snapshots.")
+                        help="Blocks between resumable state snapshots "
+                             "(0: none), written to <output>.state.npz.")
     parser.add_argument("--resume_from", default=None, type=str,
-                        help="Resume from a state snapshot (.npz).")
+                        help="Resume from a state snapshot (.npz) of this "
+                             "package or of fxtpu (replay and synthetic "
+                             "sources).")
     parser.add_argument("--profile_dir", default=None, type=str,
                         help="Write a torch.profiler trace of the run here "
                              "(trace.json, Chrome trace format).")

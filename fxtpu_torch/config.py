@@ -107,14 +107,15 @@ class CorrelatorConfig:
     # --- dispatch batching ---------------------------------------------------
     # Blocks correlated per device call.  1 is the reference's per-block
     # dispatch; K > 1 stages K blocks at a time (runtime/stager.py) for
-    # one FxEngine.multi_step call.  The mesh knobs above and the snapshot
-    # knobs below are kept for field parity with fxtpu.config and raise
-    # NotImplementedError naming their ROADMAP.md item.
+    # one FxEngine.multi_step call.  The mesh knobs above are kept for
+    # field parity with fxtpu.config and raise NotImplementedError naming
+    # their ROADMAP.md item.
     blocks_per_dispatch: int = 1
 
     # --- long-integration / durability (SURVEY.md §5.4; none in reference) --
     integration_blocks: int = 1        # blocks averaged per output row
     snapshot_every: int = 0            # blocks between state snapshots (0=off)
+    snapshot_path: Optional[str] = None  # default: <output_file>.state.npz
     resume_from: Optional[str] = None  # snapshot to restore before running
     profile_dir: Optional[str] = None  # torch.profiler trace directory
 

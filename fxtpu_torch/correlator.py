@@ -21,13 +21,20 @@ takes its blocks from :class:`~fxtpu_torch.runtime.stager.DeviceStager`,
 which stages K blocks at a time (pinned, copied on its own stream) for
 one ``multi_step`` call, in ``fxtpu``'s order: the first block is
 calibrated on the unstaged path and the stager starts on the RUN
-transition.  Options of ``fxtpu`` that are not ported yet raise
-``NotImplementedError`` naming the ROADMAP.md item that ports them.
+transition.  With ``snapshot_every`` N the streaming state is written
+every N blocks (:meth:`Correlator.snapshot`, in ``fxtpu``'s snapshot
+format: ``runtime.checkpoint``), and ``resume_from`` restores it before
+the run, so an integration survives a restart; each package resumes the
+other's snapshots.  A resumed run starts in RUN with the snapshot's
+delays (``fxtpu`` calibrates on start unless told not to).  Options of
+``fxtpu`` that are not ported yet raise ``NotImplementedError`` naming
+the ROADMAP.md item that ports them.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 import logging
 import sys
 import threading
@@ -43,6 +50,7 @@ from fxtpu_torch.config import (MAX_NUM_SAMP, MIN_NUM_SAMP, MODES, STATES,
                                 CorrelatorConfig)
 from fxtpu_torch.fx import FxEngine
 from fxtpu_torch.ops.xengine import pack_delays
+from fxtpu_torch.runtime import checkpoint
 from fxtpu_torch.runtime.feeder import BlockAligner, Feeder, StreamDrainTracker
 from fxtpu_torch.runtime.metrics import Metrics, profiler_trace
 from fxtpu_torch.runtime.native import make_ring
@@ -83,10 +91,6 @@ def reject_unported(cfg: CorrelatorConfig):
         (cfg.mesh_time * cfg.mesh_freq > 1,
          f"a device mesh (mesh_time={cfg.mesh_time}, mesh_freq="
          f"{cfg.mesh_freq})", "A.9, scale-out"),
-        (bool(cfg.snapshot_every), f"snapshot_every={cfg.snapshot_every}",
-         "A.8, checkpoint/resume"),
-        (bool(cfg.resume_from), f"resume_from={cfg.resume_from!r}",
-         "A.8, checkpoint/resume"),
     ]
     for bad, what, item in checks:
         if bad:
@@ -176,6 +180,12 @@ class Correlator:
         self.kbd_queue: Queue = Queue(1)
         self.writer: Optional[products.VisibilityWriter] = None
         self.blocks_processed = 0
+        #: Blocks taken from the rings, the calibration blocks included,
+        #: and the ring seq of the last one: the stream position a
+        #: snapshot keys the source's state on (seqs gap where the source
+        #: dropped blocks, so the count alone is not a position).
+        self._blocks_consumed = 0
+        self._consumed_seq = -1
 
         # --- TEST mode sweep (effex.py:144-155) ---------------------------
         self.test_delay_sweep_step = config.test_delay_sweep_step
@@ -185,6 +195,10 @@ class Correlator:
         self.metrics = Metrics()
         self._accumulator = None
         self._accumulated = 0
+        self.snapshot_path = (config.snapshot_path
+                              or self.output_file + ".state.npz")
+        if config.resume_from:
+            self._restore(config.resume_from)
 
     def _make_rings(self):
         cfg = self.config
@@ -416,7 +430,11 @@ class Correlator:
                 self.state = "STARTUP"
             elif self.state == "STARTUP":
                 self._startup_task()
-                if self.config.calibrate_on_start:
+                # a resumed run keeps the snapshot's delays: calibrating
+                # again would take a block and correlate the rest with
+                # other delays than the uninterrupted run's
+                if (self.config.calibrate_on_start
+                        and not self.config.resume_from):
                     self.state = "CALIBRATE"
                 else:
                     self.state = "RUN"
@@ -447,6 +465,8 @@ class Correlator:
                     continue
 
                 drain.got_block()
+                self._blocks_consumed += 1
+                self._consumed_seq = self.aligner.last_seq
                 self.metrics.count("samples_in",
                                    self.config.nchan * self.num_samp)
                 if self.state == "CALIBRATE":
@@ -459,6 +479,7 @@ class Correlator:
                 else:
                     self._run_block(block)
                     self.metrics.mark_once("steady")
+                    self._maybe_snapshot()
             elif self.state == "SHUTDOWN":
                 self.close()
                 break
@@ -626,6 +647,8 @@ class Correlator:
             time.sleep(0.05)
             return True
 
+        self._blocks_consumed += batch.k
+        self._consumed_seq = batch.last_seq
         self.metrics.count("samples_in",
                            batch.k * self.config.nchan * self.num_samp)
         iq = batch.take()
@@ -644,6 +667,7 @@ class Correlator:
                     self.calibrated_delays[1:] += self.test_delay_sweep_step
                 self._emit(self._run_task(iq))
         self.metrics.mark_once("steady")
+        self._maybe_snapshot()
         return True
 
     def _first_staged_block(self, batch) -> torch.Tensor:
@@ -682,3 +706,74 @@ class Correlator:
             self._accumulated = 0
             return True
         return False
+
+    # ------------------------------------------------------------------
+    # Snapshots (SURVEY.md §5.4): fxtpu's format, runtime/checkpoint.py
+    # ------------------------------------------------------------------
+    def _maybe_snapshot(self):
+        if (self.config.snapshot_every and
+                self.blocks_processed % self.config.snapshot_every == 0):
+            with self.metrics.stage("snapshot"):
+                self.snapshot()
+
+    def snapshot(self, path: Optional[str] = None) -> str:
+        """Write a resumable snapshot (history, delays, accumulator, block
+        counters and the source's stream state) to ``path`` (default
+        :attr:`snapshot_path`); returns the path."""
+        path = path or self.snapshot_path
+        meta = {"blocks_consumed": np.int64(self._blocks_consumed)}
+        # The feeder reads ahead of the consumer, so the source's current
+        # state is past what was correlated: take the feeder's logged state
+        # at the last correlated block's seq + 1.  The source's own state
+        # is right only before the feeder starts.
+        if self.feeder is not None:
+            src_state = self.feeder.source_state_at(self._consumed_seq + 1)
+        else:
+            src_state = self.source.snapshot_state()
+        if src_state is not None:
+            meta["source_state"] = json.dumps(src_state)
+        checkpoint.save_state(
+            path, history=self.history, delays=self.calibrated_delays,
+            blocks_processed=self.blocks_processed,
+            accumulator=self._accumulator, accumulated=self._accumulated,
+            meta=meta)
+        self.logger.debug("state snapshot -> %s", path)
+        return path
+
+    def _restore(self, path: str):
+        """Restore a snapshot (this package's or ``fxtpu``'s) before the
+        run: the history in this engine's form on its device, the delays,
+        the counters, the accumulator and the source's stream state.
+        Raises FileNotFoundError for a missing file and ValueError where
+        the source cannot be put back at the snapshot's position."""
+        state = checkpoint.load_state(path)
+        self.history = self.engine.restore_history(state["history"])
+        self.calibrated_delays = np.asarray(state["delays"], np.float64)
+        self.blocks_processed = state["blocks_processed"]
+        acc = state["accumulator"]
+        self._accumulator = (None if acc is None else
+                             torch.from_numpy(acc).to(self.engine.device))
+        self._accumulated = state["accumulated"]
+        self._blocks_consumed = int(state["meta"].get(
+            "blocks_consumed", self.blocks_processed))
+        src_state = state["meta"].get("source_state")
+        if src_state is not None:
+            # the generator's or cursor's exact state (replay position,
+            # synthetic RNG, sinusoid phase), through the Source protocol
+            self.source.restore_state(json.loads(str(src_state)))
+        elif hasattr(self.source, "_pos"):
+            # a snapshot from before the source state was kept, of a
+            # seekable replay: seek by the consumed blocks
+            self.source._pos = self._blocks_consumed * self.num_samp
+        else:
+            # correlating other samples against the snapshot's tap history
+            # would be silently wrong: live sources cannot reproduce their
+            # stream, and such a snapshot of a synthetic source carries no
+            # generator state
+            raise ValueError(
+                f"cannot resume from {path}: no source stream state in "
+                f"the snapshot and {type(self.source).__name__} is not "
+                "seekable (snapshot/resume requires a replay or "
+                "synthetic source; live streams cannot be reproduced)")
+        self.logger.info("resumed from %s at block %d", path,
+                         self.blocks_processed)

@@ -1,11 +1,17 @@
 // Device helpers the port's kernels share: the complex arithmetic both
 // routes of the single pass form their parts with (fx_fused.cu,
-// fx_xstage.cu), the sample sums' types and the block means formed from
-// them, and the 16-byte cp.async copies (fx_xstage.cu, probes.cu).  The two routes agree bit for bit only while they
-// compute these alike, so there is one copy.
+// fx_xstage.cu, fx_finish.cu), the sample sums' types and the block means
+// formed from them, and the 16-byte cp.async copies (fx_xstage.cu,
+// probes.cu).  The two routes agree bit for bit only while they compute
+// these alike, so there is one copy.  Then the programmatic dependent
+// launch the step's second and third kernels take, and the host launchers
+// of those kernels that fx_step.cu chains (each defined in its own
+// source).
 #pragma once
 
 #include <cuda_runtime.h>
+
+#include <utility>
 
 namespace {
 
@@ -98,4 +104,91 @@ __device__ __forceinline__ void cp_async_wait_pending(int younger) {
   }
 }
 
+// Programmatic dependent launch (sm_90).  A kernel launched as a dependent
+// of the one before it on its stream (launch_kernel, `dependent`) may be
+// scheduled while that one is still running: it runs what needs none of
+// that kernel's results, then waits here until that kernel has completed
+// and its writes are visible.  Launched without the attribute, the wait
+// returns at once.
+__device__ __forceinline__ void wait_for_predecessor() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
+// Let the kernel launched after this one as a dependent be scheduled once
+// every CTA of this grid has passed here (or exited); it still waits for
+// this grid's completion before it reads what this grid writes.
+__device__ __forceinline__ void release_dependent() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+
+// Launch `kernel` on `st`; with `dependent`, as a programmatic dependent of
+// the work before it on the stream (cudaLaunchAttributeProgrammatic-
+// StreamSerialization).  A launch the runtime refuses returns its error;
+// nothing is launched in its place.
+template <typename... Params, typename... Args>
+cudaError_t launch_kernel(void (*kernel)(Params...), dim3 grid, dim3 block,
+                          size_t smem, cudaStream_t st, bool dependent,
+                          Args&&... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = block;
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = dependent ? 1 : 0;
+  const cudaError_t err =
+      cudaLaunchKernelEx(&cfg, kernel, std::forward<Args>(args)...);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
 }  // namespace
+
+// The host launchers of a single-pass step's kernels.  fx_step.cu's entry
+// chains them on one stream; the standalone entries of each source call the
+// same launcher with `dependent` false.  Each returns the first CUDA error
+// of its launches (0: none).
+namespace fxt {
+
+// fx_fused.cu: the shared route's frame kernel (PartsOut; launched as
+// always) and then the parts reduce, which with `dependent` launches as a
+// programmatic dependent of the frame kernel.  The arguments of
+// fxt_fx_parts (int8: fxt_fx_parts_i8, with `step`).
+int parts_step(bool int8, const void* x, const void* hist, const void* w,
+               const void* u, const void* v, const void* tw,
+               const void* pairs, const void* da, void* sums, void* partial,
+               void* parts, void* mu, void* new_hist, int nch, int K, int S,
+               int nbins, int ntaps, int rank, int nbl, int n_groups,
+               int frames_per_group, double step, bool dependent,
+               cudaStream_t st);
+
+// fx_fused.cu: the wide route's frame kernel (WideOut), the arguments of
+// fxt_fx_wide_frames (int8: fxt_fx_wide_frames_i8, with `step`).
+int wide_frames(bool int8, const void* x, const void* hist, const void* w,
+                const void* u, const void* v, const void* tw, void* sums,
+                void* spec, int nch, int K, int S, int nbins, int ntaps,
+                int rank, int n_groups, int frames_per_group, double step,
+                cudaStream_t st);
+
+// fx_xstage.cu: the X kernel, the arguments of fxt_xstage (int8:
+// fxt_xstage_i8, with `step`).
+int xstage(bool int8, const void* spec, const void* pairs, const void* da,
+           void* parts, const void* x, const void* sums, void* mu,
+           void* new_hist, int nch, int K, int S, int nbins, int nbl,
+           int halo, int n_groups, int tile, int slots, int rows, int frames,
+           int stages, int threads, double step, bool dependent,
+           cudaStream_t st);
+
+// fx_finish.cu: the epilogue, the arguments of fxt_fx_finish.
+int finish(const void* xp, const void* t, const void* gj, const void* mu,
+           const void* mu_prev, const void* pairs, const void* abar,
+           const void* cs, const void* cab, const void* cbb,
+           const void* delays, const void* freqs, void* vis,
+           long long xp_stride, long long t_stride, long long gj_stride,
+           int K, int nbl, int nch, int nbins, int packed, int continuum,
+           int n_frames, double bandwidth, bool dependent, cudaStream_t st);
+
+}  // namespace fxt

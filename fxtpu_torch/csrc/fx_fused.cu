@@ -1400,6 +1400,11 @@ fx_parts_reduce_kernel(const float2* __restrict__ partial,
   const long long n_block = n_full + static_cast<long long>(nch) * nbins;
   const long long n = static_cast<long long>(S) * nbins;
   int cta = blockIdx.x;
+  // launched by a step as a dependent of the frame kernel: the partials and
+  // sums are read only once it has completed; the epilogue may then be
+  // scheduled behind this grid
+  wait_for_predecessor();
+  release_dependent();
   if (cta < grid.full + grid.gj) {
     // one element of block k's parts: xp and T over every group, GJ over
     // the first n_gj
@@ -1476,26 +1481,27 @@ fx_parts_reduce_kernel(const float2* __restrict__ partial,
 // kernel, fxt_parts_reduce alone): partial [K, n_groups, nbl + 2 nch,
 // nbins] float2, sums [K, n_groups, nch], x the step's samples [nch, K, S,
 // nbins] -> parts [K, nbl + 2 nch, nbins], mu [K, nch], new_hist [nch,
-// halo, nbins].  Returns the launch's error.
+// halo, nbins]; with `dependent` a programmatic dependent of the frame
+// kernel (fx_step.cu's entries).  Returns the launch's error.
 template <typename T>
 cudaError_t launch_parts_reduce(const float2* partial,
                                 const typename SumOf<T>::pair* sums,
                                 const T* x, float2* parts, float2* mu,
                                 T* new_hist, int K, int S, int n_groups,
                                 int n_gj, int nbl, int nch, int nbins,
-                                int halo, double step, cudaStream_t st) {
+                                int halo, double step, bool dependent,
+                                cudaStream_t st) {
   if (K < 1 || K > 65535 || S < 1 || nch < 1 || nbl < 0 || nbins < 1
       || n_groups < 1 || n_gj < 1 || n_gj > n_groups || halo < 1
       || halo > S) {
     return cudaErrorInvalidValue;
   }
   const ReduceGrid g(nbl, nch, nbins, halo);
-  fx_parts_reduce_kernel<T>
-      <<<dim3(g.full + g.gj + g.mu + g.hist, K), kReduceThreads,
-         nch * sizeof(float2), st>>>(partial, sums, x, parts, mu, new_hist,
-                                     K, S, n_groups, n_gj, nbl, nch, nbins,
-                                     halo, step);
-  return cudaGetLastError();
+  return launch_kernel(&fx_parts_reduce_kernel<T>,
+                       dim3(g.full + g.gj + g.mu + g.hist, K),
+                       dim3(kReduceThreads), nch * sizeof(float2), st,
+                       dependent, partial, sums, x, parts, mu, new_hist, K,
+                       S, n_groups, n_gj, nbl, nch, nbins, halo, step);
 }
 
 int reduce_blocks(long long n) {
@@ -1582,14 +1588,15 @@ cudaError_t launch_means_and_frames(const T* x, typename SumOf<T>::pair* sums,
 
 // The single-pass step over K blocks on `st`: the frame kernel over raw
 // rows with PartsOut in the FIR mode `rank` gives (no mean pre-pass), then
-// the reduce.  The warps' sample sums take kWarps pairs per channel of
-// shared memory, 2 kWarps float2 slots.
+// the reduce, with `dependent` as a programmatic dependent of the frame
+// kernel.  The warps' sample sums take kWarps pairs per channel of shared
+// memory, 2 kWarps float2 slots.
 template <typename T, class Rows>
 int fx_parts(const Rows& rows, const void* w, const void* u, const void* v,
              const void* tw, const void* pairs, const void* da, void* sums,
              void* partial, void* parts, void* mu, void* new_hist, int nch,
              int K, int S, int nbins, int ntaps, int rank, int nbl,
-             int n_groups, int frames_per_group, double step,
+             int n_groups, int frames_per_group, double step, bool dependent,
              cudaStream_t st) {
   using Pair = typename SumOf<T>::pair;
   static_assert(sizeof(Pair) == 2 * sizeof(float2), "two slots per pair");
@@ -1623,7 +1630,7 @@ int fx_parts(const Rows& rows, const void* w, const void* u, const void* v,
       static_cast<const float2*>(partial), static_cast<const Pair*>(sums),
       rows.x, static_cast<float2*>(parts), static_cast<float2*>(mu),
       static_cast<T*>(new_hist), K, S, n_groups, n_gj, nbl, nch, nbins, halo,
-      step, st));
+      step, dependent, st));
 }
 
 // The frame kernel of the single pass's wide route over K blocks on `st`:
@@ -1801,6 +1808,59 @@ int fx_i8(int stage, const void* x, const void* tail, const void* mu_prev,
 // and builds one ablation entry point (its six stages' frame kernels).
 #if !defined(FXT_ABLATE_C64) && !defined(FXT_ABLATE_I8)
 
+namespace fxt {
+
+int parts_step(bool int8, const void* x, const void* hist, const void* w,
+               const void* u, const void* v, const void* tw,
+               const void* pairs, const void* da, void* sums, void* partial,
+               void* parts, void* mu, void* new_hist, int nch, int K, int S,
+               int nbins, int ntaps, int rank, int nbl, int n_groups,
+               int frames_per_group, double step, bool dependent,
+               cudaStream_t st) {
+  const long long n = static_cast<long long>(S) * nbins;
+  if (int8) {
+    const I8Raw rows{{static_cast<const char2*>(x),
+                      static_cast<const char2*>(hist), nullptr, nullptr, n,
+                      K * n, S, ntaps - 1, nbins, nch,
+                      static_cast<float>(step), step}};
+    return fx_parts<char2>(rows, w, u, v, tw, pairs, da, sums, partial,
+                           parts, mu, new_hist, nch, K, S, nbins, ntaps, rank,
+                           nbl, n_groups, frames_per_group, step, dependent,
+                           st);
+  }
+  const F32Raw rows{{static_cast<const float2*>(x),
+                     static_cast<const float2*>(hist), nullptr, n, K * n, S,
+                     ntaps - 1, nbins, nch}};
+  return fx_parts<float2>(rows, w, u, v, tw, pairs, da, sums, partial, parts,
+                          mu, new_hist, nch, K, S, nbins, ntaps, rank, nbl,
+                          n_groups, frames_per_group, 1.0, dependent, st);
+}
+
+int wide_frames(bool int8, const void* x, const void* hist, const void* w,
+                const void* u, const void* v, const void* tw, void* sums,
+                void* spec, int nch, int K, int S, int nbins, int ntaps,
+                int rank, int n_groups, int frames_per_group, double step,
+                cudaStream_t st) {
+  const long long n = static_cast<long long>(S) * nbins;
+  if (int8) {
+    const I8Raw rows{{static_cast<const char2*>(x),
+                      static_cast<const char2*>(hist), nullptr, nullptr, n,
+                      K * n, S, ntaps - 1, nbins, nch,
+                      static_cast<float>(step), step}};
+    return fx_wide_frames<char2>(rows, w, u, v, tw, sums, spec, nch, K, S,
+                                 nbins, ntaps, rank, n_groups,
+                                 frames_per_group, st);
+  }
+  const F32Raw rows{{static_cast<const float2*>(x),
+                     static_cast<const float2*>(hist), nullptr, n, K * n, S,
+                     ntaps - 1, nbins, nch}};
+  return fx_wide_frames<float2>(rows, w, u, v, tw, sums, spec, nch, K, S,
+                                nbins, ntaps, rank, n_groups,
+                                frames_per_group, st);
+}
+
+}  // namespace fxt
+
 // Launch the three kernels of the complex64 mode over K blocks on
 // `stream`.  The caller (fx_fused.py) has checked shapes, types,
 // contiguity and that nbins is a power of two in [256, 8192] with ntaps >=
@@ -1857,14 +1917,10 @@ extern "C" int fxt_fx_parts(const void* x, const void* hist, const void* w,
                             void* new_hist, int nch, int K, int S, int nbins,
                             int ntaps, int rank, int nbl, int n_groups,
                             int frames_per_group, void* stream) {
-  const long long n = static_cast<long long>(S) * nbins;
-  const F32Raw rows{{static_cast<const float2*>(x),
-                     static_cast<const float2*>(hist), nullptr, n, K * n, S,
-                     ntaps - 1, nbins, nch}};
-  return fx_parts<float2>(rows, w, u, v, tw, pairs, da, sums, partial, parts,
-                          mu, new_hist, nch, K, S, nbins, ntaps, rank, nbl,
-                          n_groups, frames_per_group, 1.0,
-                          static_cast<cudaStream_t>(stream));
+  return fxt::parts_step(false, x, hist, w, u, v, tw, pairs, da, sums,
+                         partial, parts, mu, new_hist, nch, K, S, nbins,
+                         ntaps, rank, nbl, n_groups, frames_per_group, 1.0,
+                         false, static_cast<cudaStream_t>(stream));
 }
 
 // The single-pass step of the int8 mode (fx_fused.fx_fused_parts_i8): x
@@ -1880,15 +1936,10 @@ extern "C" int fxt_fx_parts_i8(const void* x, const void* tail, const void* w,
                                int nbins, int ntaps, int rank, int nbl,
                                int n_groups, int frames_per_group,
                                double step, void* stream) {
-  const long long n = static_cast<long long>(S) * nbins;
-  const I8Raw rows{{static_cast<const char2*>(x),
-                    static_cast<const char2*>(tail), nullptr, nullptr, n,
-                    K * n, S, ntaps - 1, nbins, nch,
-                    static_cast<float>(step), step}};
-  return fx_parts<char2>(rows, w, u, v, tw, pairs, da, sums, partial, parts,
-                         mu, new_tail, nch, K, S, nbins, ntaps, rank, nbl,
-                         n_groups, frames_per_group, step,
-                         static_cast<cudaStream_t>(stream));
+  return fxt::parts_step(true, x, tail, w, u, v, tw, pairs, da, sums,
+                         partial, parts, mu, new_tail, nch, K, S, nbins,
+                         ntaps, rank, nbl, n_groups, frames_per_group, step,
+                         false, static_cast<cudaStream_t>(stream));
 }
 
 // The single pass's reduce alone on `stream` (fx_fused.parts_reduce): the
@@ -1909,7 +1960,7 @@ extern "C" int fxt_parts_reduce(const void* partial, const void* sums,
       static_cast<const double2*>(sums), static_cast<const float2*>(x),
       static_cast<float2*>(parts), static_cast<float2*>(mu),
       static_cast<float2*>(new_hist), K, S, n_groups, n_gj, nbl, nch, nbins,
-      halo, 1.0, static_cast<cudaStream_t>(stream)));
+      halo, 1.0, false, static_cast<cudaStream_t>(stream)));
 }
 
 // fxt_parts_reduce after fxt_fx_parts_i8's frame kernel: sums longlong2,
@@ -1925,7 +1976,7 @@ extern "C" int fxt_parts_reduce_i8(const void* partial, const void* sums,
       static_cast<const longlong2*>(sums), static_cast<const char2*>(x),
       static_cast<float2*>(parts), static_cast<float2*>(mu),
       static_cast<char2*>(new_tail), K, S, n_groups, n_gj, nbl, nch, nbins,
-      halo, step, static_cast<cudaStream_t>(stream)));
+      halo, step, false, static_cast<cudaStream_t>(stream)));
 }
 
 // The frame kernel of the single pass's wide route (fx_fused.fx_fused_parts
@@ -1941,14 +1992,9 @@ extern "C" int fxt_fx_wide_frames(const void* x, const void* hist,
                                   int nbins, int ntaps, int rank,
                                   int n_groups, int frames_per_group,
                                   void* stream) {
-  const long long n = static_cast<long long>(S) * nbins;
-  const F32Raw rows{{static_cast<const float2*>(x),
-                     static_cast<const float2*>(hist), nullptr, n, K * n, S,
-                     ntaps - 1, nbins, nch}};
-  return fx_wide_frames<float2>(rows, w, u, v, tw, sums, spec, nch, K, S,
-                                nbins, ntaps, rank, n_groups,
-                                frames_per_group,
-                                static_cast<cudaStream_t>(stream));
+  return fxt::wide_frames(false, x, hist, w, u, v, tw, sums, spec, nch, K, S,
+                          nbins, ntaps, rank, n_groups, frames_per_group, 1.0,
+                          static_cast<cudaStream_t>(stream));
 }
 
 // The int8 wide route's frame kernel: fxt_fx_parts_i8's x, tail, step and
@@ -1960,14 +2006,9 @@ extern "C" int fxt_fx_wide_frames_i8(const void* x, const void* tail,
                                      int S, int nbins, int ntaps, int rank,
                                      int n_groups, int frames_per_group,
                                      double step, void* stream) {
-  const long long n = static_cast<long long>(S) * nbins;
-  const I8Raw rows{{static_cast<const char2*>(x),
-                    static_cast<const char2*>(tail), nullptr, nullptr, n,
-                    K * n, S, ntaps - 1, nbins, nch,
-                    static_cast<float>(step), step}};
-  return fx_wide_frames<char2>(rows, w, u, v, tw, sums, spec, nch, K, S,
-                               nbins, ntaps, rank, n_groups, frames_per_group,
-                               static_cast<cudaStream_t>(stream));
+  return fxt::wide_frames(true, x, tail, w, u, v, tw, sums, spec, nch, K, S,
+                          nbins, ntaps, rank, n_groups, frames_per_group,
+                          step, static_cast<cudaStream_t>(stream));
 }
 
 #endif  // the production entry points

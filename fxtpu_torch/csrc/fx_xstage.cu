@@ -236,6 +236,11 @@ fx_xstage_kernel(const XStageArgs<T> a) {
     acc[j] = make_float2(0.f, 0.f);
   }
 
+  // launched by a step as a dependent of the wide frame kernel: the
+  // spectra and sums are read only once it has completed; the epilogue may
+  // then be scheduled behind this grid
+  wait_for_predecessor();
+  release_dependent();
   const float2* sk = a.spec + static_cast<size_t>(k) * nch * S * nbins + b0;
   for (int i = 0; i < stages - 1; ++i) {
     stage_chunk(ring, sk, i, n_chunks, stages, lf, lt, nch, S, nbins);
@@ -321,10 +326,11 @@ fx_xstage_kernel(const XStageArgs<T> a) {
   }
 }
 
-// The plan's kernel instance on `st`; more threads than it takes is an
+// The plan's kernel instance on `st` (with `dependent`, a programmatic
+// dependent of the kernel before it); more threads than it takes is an
 // error.
 template <typename T, int kRows>
-cudaError_t launch_rows(const XStageArgs<T>& a, size_t smem,
+cudaError_t launch_rows(const XStageArgs<T>& a, size_t smem, bool dependent,
                         cudaStream_t st) {
   if (a.plan.threads > RowThreads<kRows>::value) return cudaErrorInvalidValue;
   auto* kernel = &fx_xstage_kernel<T, kRows>;
@@ -332,14 +338,15 @@ cudaError_t launch_rows(const XStageArgs<T>& a, size_t smem,
       reinterpret_cast<const void*>(kernel),
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  kernel<<<dim3(a.nbins / a.plan.tile, a.K), a.plan.threads, smem, st>>>(a);
-  return cudaGetLastError();
+  return launch_kernel(kernel, dim3(a.nbins / a.plan.tile, a.K),
+                       dim3(a.plan.threads), smem, st, dependent, a);
 }
 
 // The plan is checked against the shape: it must cover every row, bin and
 // frame, and its ring must hold the history's means after the last chunk.
 template <typename T>
-cudaError_t launch_xstage(const XStageArgs<T>& a, cudaStream_t st) {
+cudaError_t launch_xstage(const XStageArgs<T>& a, bool dependent,
+                          cudaStream_t st) {
   const XStagePlan& p = a.plan;
   const int rows = a.nbl + 2 * a.nch;
   if (a.K < 1 || a.K > 65535 || a.S < 1 || a.nch < 1 || a.nch > 255
@@ -354,14 +361,49 @@ cudaError_t launch_xstage(const XStageArgs<T>& a, cudaStream_t st) {
   const size_t smem = (static_cast<size_t>(p.stages) * a.nch * p.frames
                           * p.tile + a.nch) * sizeof(float2);
   switch (p.rows) {
-    case 2: return launch_rows<T, 2>(a, smem, st);
-    case 4: return launch_rows<T, 4>(a, smem, st);
-    case 8: return launch_rows<T, 8>(a, smem, st);
+    case 2: return launch_rows<T, 2>(a, smem, dependent, st);
+    case 4: return launch_rows<T, 4>(a, smem, dependent, st);
+    case 8: return launch_rows<T, 8>(a, smem, dependent, st);
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
+
+namespace fxt {
+
+int xstage(bool int8, const void* spec, const void* pairs, const void* da,
+           void* parts, const void* x, const void* sums, void* mu,
+           void* new_hist, int nch, int K, int S, int nbins, int nbl,
+           int halo, int n_groups, int tile, int slots, int rows, int frames,
+           int stages, int threads, double step, bool dependent,
+           cudaStream_t st) {
+  const XStagePlan plan{tile, slots, rows, frames, stages, threads};
+  if (int8) {
+    const XStageArgs<char2> a{static_cast<const float2*>(spec),
+                              static_cast<const int*>(pairs),
+                              static_cast<const float2*>(da),
+                              static_cast<float2*>(parts),
+                              nch, K, S, nbins, nbl, halo,
+                              static_cast<const char2*>(x), sums,
+                              static_cast<float2*>(mu),
+                              static_cast<char2*>(new_hist), n_groups, step,
+                              plan};
+    return static_cast<int>(launch_xstage(a, dependent, st));
+  }
+  const XStageArgs<float2> a{static_cast<const float2*>(spec),
+                             static_cast<const int*>(pairs),
+                             static_cast<const float2*>(da),
+                             static_cast<float2*>(parts),
+                             nch, K, S, nbins, nbl, halo,
+                             static_cast<const float2*>(x), sums,
+                             static_cast<float2*>(mu),
+                             static_cast<float2*>(new_hist), n_groups, 1.0,
+                             plan};
+  return static_cast<int>(launch_xstage(a, dependent, st));
+}
+
+}  // namespace fxt
 
 // The X stage on `stream` (fx_xstage.py): spec complex64 [K, nch, S, nbins],
 // pairs int32 [nbl, 2], da complex64 [halo, nbins] (halo <= S); writes parts
@@ -381,17 +423,10 @@ extern "C" int fxt_xstage(const void* spec, const void* pairs,
                           int halo, int n_groups, int tile, int slots,
                           int rows, int frames, int stages, int threads,
                           void* stream) {
-  const XStageArgs<float2> a{static_cast<const float2*>(spec),
-                             static_cast<const int*>(pairs),
-                             static_cast<const float2*>(da),
-                             static_cast<float2*>(parts),
-                             nch, K, S, nbins, nbl, halo,
-                             static_cast<const float2*>(x), sums,
-                             static_cast<float2*>(mu),
-                             static_cast<float2*>(new_hist), n_groups, 1.0,
-                             {tile, slots, rows, frames, stages, threads}};
-  return static_cast<int>(
-      launch_xstage(a, static_cast<cudaStream_t>(stream)));
+  return fxt::xstage(false, spec, pairs, da, parts, x, sums, mu, new_hist,
+                     nch, K, S, nbins, nbl, halo, n_groups, tile, slots, rows,
+                     frames, stages, threads, 1.0, false,
+                     static_cast<cudaStream_t>(stream));
 }
 
 // The X stage after fxt_fx_wide_frames_i8: fxt_xstage's contract with x
@@ -404,17 +439,10 @@ extern "C" int fxt_xstage_i8(const void* spec, const void* pairs,
                              int halo, int n_groups, int tile, int slots,
                              int rows, int frames, int stages, int threads,
                              double step, void* stream) {
-  const XStageArgs<char2> a{static_cast<const float2*>(spec),
-                            static_cast<const int*>(pairs),
-                            static_cast<const float2*>(da),
-                            static_cast<float2*>(parts),
-                            nch, K, S, nbins, nbl, halo,
-                            static_cast<const char2*>(x), sums,
-                            static_cast<float2*>(mu),
-                            static_cast<char2*>(new_tail), n_groups, step,
-                            {tile, slots, rows, frames, stages, threads}};
-  return static_cast<int>(
-      launch_xstage(a, static_cast<cudaStream_t>(stream)));
+  return fxt::xstage(true, spec, pairs, da, parts, x, sums, mu, new_tail, nch,
+                     K, S, nbins, nbl, halo, n_groups, tile, slots, rows,
+                     frames, stages, threads, step, false,
+                     static_cast<cudaStream_t>(stream));
 }
 
 // The plan's integers fxt_xstage and fxt_xstage_i8 take, in

@@ -62,12 +62,29 @@ def library_path() -> Path:
     return BUILD_DIR / f"libfxtpu_torch_{h.hexdigest()[:16]}.so"
 
 
+class StepArgs(ctypes.Structure):
+    """The arguments of one single-pass step, ``FxtStepArgs`` of
+    ``csrc/fx_step.cu`` field for field (``fxt_fx_step`` /
+    ``fxt_fx_step_i8`` take a pointer to one)."""
+    _fields_ = ([(name, ctypes.c_void_p) for name in (
+        "x", "hist", "w", "u", "v", "tw", "pairs", "da", "sums", "scratch",
+        "parts", "mu", "new_hist", "mu_prev", "abar", "cs", "cab", "cbb",
+        "delays", "freqs", "vis")]
+        + [("step", ctypes.c_double), ("bandwidth", ctypes.c_double)]
+        + [(name, ctypes.c_int) for name in (
+            "nch", "K", "S", "nbins", "ntaps", "rank", "nbl", "n_groups",
+            "frames_per_group", "wide", "packed", "continuum", "tile",
+            "slots", "rows", "frames", "stages", "threads")])
+
+
 def declare(lib):
     """Set the argument types of the library's entry points (a pointer or
     a stream passed without them would be cut to 32 bits)."""
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     D = ctypes.c_double
     signatures = {
+        "fxt_fx_step": [ctypes.POINTER(StepArgs), P],
+        "fxt_fx_step_i8": [ctypes.POINTER(StepArgs), P],
         "fxt_fx_fused": [P] * 11 + [I] * 10 + [P],
         "fxt_fx_fused_i8": [P] * 12 + [I] * 10 + [D, P],
         "fxt_fx_parts": [P] * 13 + [I] * 9 + [P],
@@ -91,6 +108,8 @@ def declare(lib):
         fn.restype, fn.argtypes = I, argtypes
     lib.fxt_error_string.restype = ctypes.c_char_p
     lib.fxt_error_string.argtypes = [I]
+    lib.fxt_xstage_plan_ints.restype = I
+    lib.fxt_xstage_plan_ints.argtypes = []
     return lib
 
 

@@ -183,7 +183,8 @@ def make_fx_multi_step(*, mode: str, nbins: int, window2d: np.ndarray,
     module docstring).  ``fused=True``: ``iq`` is the merged ``[nch, K,
     S, nbins]`` complex64 or ``[nch, K, S, nbins, 2]`` int8 batch and the
     K blocks go through one :func:`fx_fused_step` call, with the window's
-    DC constants formed once per block length S and kept on the device;
+    DC constants formed once per block length S and kept on the device,
+    and the step's scratch kept across calls (its ``pool``);
     ``fused=False``: ``iq`` is the stacked ``[K, nch, num_samp(, 2)]``
     batch and the plain step runs over the blocks in turn (the
     counterpart of ``fxtpu``'s ``lax.scan``)."""
@@ -208,7 +209,7 @@ def make_fx_multi_step(*, mode: str, nbins: int, window2d: np.ndarray,
     pairs = np.asarray(pairs)
     pairs_dev = pairs_tensor(pairs, int(pairs.max()) + 1, device)
     tables = FinishTables(pairs, nbins, bandwidth, frequency, device)
-    consts = {}
+    consts, pool = {}, {}
 
     def multi_fused(iq, delays, history):
         s_rows = iq.shape[2]
@@ -216,7 +217,7 @@ def make_fx_multi_step(*, mode: str, nbins: int, window2d: np.ndarray,
             consts[s_rows] = dc_constants(window2d, nbins, s_rows, device)
         return fx_fused_step(iq, history, w, pairs_dev, consts[s_rows],
                              delays, tables, bandwidth, continuum,
-                             quant_step, svd)
+                             quant_step, svd, pool=pool)
 
     return multi_fused
 
@@ -551,6 +552,35 @@ class FxEngine:
                              device=self.device)
         return self.prepare_block(iq), delays, self.fresh_history()
 
+    def restore_history(self, history):
+        """A history on the host in this engine's layout (a snapshot's,
+        ``runtime.checkpoint.load_state``) -> this engine's history on
+        :attr:`device`: complex64 ``[nch, ntaps-1, nbins]`` (the corrected
+        tail), or on the int8-native route ``{"tail": int8 [nch, ntaps-1,
+        nbins, 2], "mu_prev": complex64 [nch]}``.  Raises when its form or
+        shape is not this engine's."""
+        cfg = self.cfg
+        tail_shape = (cfg.nchan, cfg.ntaps - 1, cfg.nbins)
+        if isinstance(history, dict) != self.int8_native:
+            raise ValueError(
+                "the raw-tail dict history belongs to the int8-native "
+                "route, a complex history to every other "
+                f"(this engine: int8_native={self.int8_native})")
+        if self.int8_native:
+            tail = np.ascontiguousarray(history["tail"], np.int8)
+            mu = np.ascontiguousarray(history["mu_prev"], np.complex64)
+            if tail.shape != (*tail_shape, 2) or mu.shape != (cfg.nchan,):
+                raise ValueError(
+                    f"tail {tail.shape} and mu_prev {mu.shape}, expected "
+                    f"{(*tail_shape, 2)} and {(cfg.nchan,)}")
+            return {"tail": torch.from_numpy(tail).to(self.device),
+                    "mu_prev": torch.from_numpy(mu).to(self.device)}
+        h = np.ascontiguousarray(history, np.complex64)
+        if h.shape != tail_shape:
+            raise ValueError(f"history shape {h.shape}, expected "
+                             f"{tail_shape}")
+        return torch.from_numpy(h).to(self.device)
+
     def import_fxtpu_state(self, window2d, pairs, history, delays):
         """The JAX engine's parameters and state, as numpy arrays, in this
         engine's form: returns ``(history, delays)`` on :attr:`device` so
@@ -566,30 +596,12 @@ class FxEngine:
         if not np.allclose(np.asarray(window2d, np.float64), self.window2d,
                            rtol=1e-6, atol=0.0):
             raise ValueError("window2d differs from this engine's window")
-        cfg = self.cfg
-        tail_shape = (cfg.nchan, cfg.ntaps - 1, cfg.nbins)
-        if isinstance(history, dict) != self.int8_native:
-            raise ValueError(
-                "the raw-tail dict history belongs to the int8-native "
-                "route, a (re, im) history to every other "
-                f"(this engine: int8_native={self.int8_native})")
-        if self.int8_native:
-            tail = np.stack([_unpack_i8_words(p) for p in history["tail"]],
-                            axis=-1)
-            if tail.shape != (*tail_shape, 2):
-                raise ValueError(f"tail shape {tail.shape[:-1]}, expected "
-                                 f"{tail_shape}")
-            mu = _complex64(history["mu_prev"])
-            if mu.shape != (cfg.nchan,):
-                raise ValueError(f"mu_prev shape {mu.shape}, expected "
-                                 f"{(cfg.nchan,)}")
-            hist = {"tail": torch.from_numpy(tail).to(self.device),
-                    "mu_prev": torch.from_numpy(mu).to(self.device)}
+        if isinstance(history, dict):
+            history = {"tail": np.stack([_unpack_i8_words(p)
+                                         for p in history["tail"]], axis=-1),
+                       "mu_prev": _complex64(history["mu_prev"])}
         else:
-            h = _complex64(history)
-            if h.shape != tail_shape:
-                raise ValueError(f"history shape {h.shape}, expected "
-                                 f"{tail_shape}")
-            hist = torch.from_numpy(h).to(self.device)
+            history = _complex64(history)
+        hist = self.restore_history(history)
         return hist, torch.as_tensor(np.asarray(delays, np.float32),
                                      device=self.device)

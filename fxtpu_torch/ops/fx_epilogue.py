@@ -15,8 +15,12 @@ of what ``fxtpu`` jits into one executable with its kernel:
     which is those two functions, some forty small launches;
   * :func:`fx_fused_step`, what the engine's fused route calls per block
     or per K blocks: the single pass (``fx_fused.fx_fused_parts`` or
-    ``fx_fused_parts_i8``, either X stage) and :func:`fx_finish`, three
-    kernel launches on a CUDA device.
+    ``fx_fused_parts_i8``, either X stage) and :func:`fx_finish`.  On a
+    CUDA device its arguments are checked once and one C call
+    (``fxt_fx_step`` / ``fxt_fx_step_i8``, ``csrc/fx_step.cu``) enqueues
+    the three kernels: the frame kernel, then the reduce (on the wide
+    route the X kernel) and the epilogue as programmatic dependents of the
+    kernel before each.
 
 A wrapper runs the plain version only for CPU tensors; for CUDA tensors
 it launches the kernel or raises.  ``fx_finish.launches`` counts launches.
@@ -24,17 +28,24 @@ it launches the kernel or raises.  ``fx_finish.launches`` counts launches.
 
 from __future__ import annotations
 
+import ctypes
+import dataclasses
+from typing import Optional
+
 import numpy as np
 import torch
 
+from fxtpu_torch.ops import fx_fused as ff
 from fxtpu_torch.ops.dc_posthoc import block_mu_prev, dc_correct
 from fxtpu_torch.ops.fx_fused import (_on_card, fx_fused_parts,
                                       fx_fused_parts_i8)
+from fxtpu_torch.ops.fx_xstage import XStagePlan, fx_xstage, xstage_plan
 from fxtpu_torch.ops.xengine import (continuum_reduce, rf_freqs,
                                      rotation_phase, split_delays)
 
 __all__ = ["FinishTables", "finish", "fx_finish", "fx_finish_reference",
-           "fx_fused_step", "MAX_FINISH_ROWS"]
+           "fx_fused_step", "check_step", "step_buffers", "step_args",
+           "launch_step", "StepPlan", "MAX_FINISH_ROWS"]
 
 #: Most (block, baseline) rows one launch of the epilogue takes (its
 #: grid's second axis).
@@ -199,19 +210,184 @@ def fx_finish(xp: torch.Tensor, T: torch.Tensor, GJ: torch.Tensor,
 fx_finish.launches = 0
 
 
+@dataclasses.dataclass
+class StepPlan:
+    """One step's checked arguments (:func:`check_step`): the tensors as
+    the kernels read them and the launch's shape."""
+    x: torch.Tensor
+    hist: torch.Tensor                  # the corrected tail, or the raw tail
+    mu_prev: Optional[torch.Tensor]     # int8: the mean the raw tail carries
+    window2d: torch.Tensor
+    svd: Optional[tuple]
+    pairs: torch.Tensor
+    consts: tuple
+    delays: torch.Tensor                # float32 [K, nch(, 2)]
+    freqs: torch.Tensor
+    quant_step: Optional[float]         # None: complex64 samples
+    bandwidth: float
+    continuum: bool
+    packed: bool
+    rank: int
+    route: str                          # "shared" or "global" (the wide one)
+    k: int
+    nch: int
+    s_rows: int
+    nbins: int
+    ntaps: int
+    nbl: int
+    n_groups: int
+    per: int
+    xplan: Optional[XStagePlan]
+
+
+def check_step(iq, history, window2d, pairs, consts, delays, tables,
+               bandwidth, continuum, quant_step=None,
+               svd=None) -> StepPlan:
+    """:func:`fx_fused_step`'s checks of CUDA tensors, made once for its
+    three kernels: the single pass's (``fx_fused._check_parts``) and the
+    epilogue's (delays, the window's tables, the frequencies and, for 8-bit
+    samples, the carried mean).  Raises on what the kernels do not take."""
+    int8 = isinstance(history, dict)
+    hist = history["tail"] if int8 else history
+    step = float(quant_step) if int8 else None
+    rank, route = ff._check_parts(iq, hist, window2d, pairs, svd, consts,
+                                  step)
+    nch, k, s_rows, nbins = iq.shape[:4]
+    nbl = pairs.shape[0]
+    delays, packed = _check_delays(delays, k, nch, nbl, iq.device)
+    abar, _, cs, cab, cbb = consts
+    freqs = tables.fbase if packed else tables.frf
+    small = [("abar", abar, torch.complex64, (nbins,)),
+             ("cs", cs, torch.float32, (nbins,)),
+             ("cab", cab, torch.complex64, (nbins,)),
+             ("cbb", cbb, torch.float32, (nbins,)),
+             ("freqs", freqs, torch.float32, (nbins,))]
+    mu_prev = history["mu_prev"] if int8 else None
+    if int8:
+        small.append(("mu_prev", mu_prev, torch.complex64, (nch,)))
+    _check_small(small, iq.device)
+    if route == "global":
+        n_groups, per = ff._wide_groups(s_rows)
+        xplan = xstage_plan(nch, nbl, s_rows, nbins, k)
+    else:
+        n_groups, per = ff._groups(s_rows, nbl + 2 * nch, nbins)
+        xplan = None
+    return StepPlan(iq, hist, mu_prev, window2d, svd, pairs, consts, delays,
+                    freqs, step, float(bandwidth), bool(continuum), packed,
+                    rank, route, k, nch, s_rows, nbins, window2d.shape[0],
+                    nbl, n_groups, per, xplan)
+
+
+def step_buffers(plan: StepPlan, pool=None) -> dict:
+    """The step's outputs, new (``vis``, ``mu``, ``new_hist``: they
+    outlive the step), and its scratch (``sums``, the partials or on the
+    wide route the spectra, ``parts``): ``pool``'s (a dict the caller
+    keeps, keyed with the current stream: a step's kernels run on that
+    stream in order, so the next step's kernels write the scratch only
+    after this step's have read it), made at first use; new ones when
+    ``pool`` is None."""
+    dev, k, nch, nbins = plan.x.device, plan.k, plan.nch, plan.nbins
+    c64 = torch.complex64
+    if plan.route == "global":
+        scratch = (k, nch, plan.s_rows, nbins)
+    else:
+        scratch = (k, plan.n_groups, plan.nbl + 2 * nch, nbins)
+    sums = torch.int64 if plan.quant_step is not None else torch.float64
+    shapes = (("sums", (k, plan.n_groups, nch, 2), sums),
+              ("scratch", scratch, c64),
+              ("parts", (k, plan.nbl + 2 * nch, nbins), c64))
+    stream = (None if pool is None
+              else torch.cuda.current_stream(dev).cuda_stream)
+    bufs = {}
+    for name, shape, dtype in shapes:
+        key = (name, shape, dtype, stream)
+        t = None if pool is None else pool.get(key)
+        if t is None:
+            t = torch.empty(shape, dtype=dtype, device=dev)
+            if pool is not None:
+                pool[key] = t
+        bufs[name] = t
+    bufs["mu"] = torch.empty((k, nch), dtype=c64, device=dev)
+    bufs["new_hist"] = torch.empty_like(plan.hist)
+    bufs["vis"] = torch.empty((k, plan.nbl) if plan.continuum
+                              else (k, plan.nbl, nbins), dtype=c64,
+                              device=dev)
+    return bufs
+
+
+def step_args(plan: StepPlan, bufs: dict):
+    """The C entry's argument struct (``cuda_build.StepArgs``) for the
+    plan and its buffers."""
+    from fxtpu_torch.cuda_build import StepArgs
+    u, v = ff._svd_ptrs(plan.svd)
+    abar, da, cs, cab, cbb = plan.consts
+    xp = plan.xplan.args() if plan.xplan is not None else (0,) * 6
+    return StepArgs(
+        plan.x.data_ptr(), plan.hist.data_ptr(), plan.window2d.data_ptr(),
+        u, v, ff._twiddles(plan.nbins, plan.x.device).data_ptr(),
+        plan.pairs.data_ptr(), da.data_ptr(), bufs["sums"].data_ptr(),
+        bufs["scratch"].data_ptr(), bufs["parts"].data_ptr(),
+        bufs["mu"].data_ptr(), bufs["new_hist"].data_ptr(),
+        None if plan.mu_prev is None else plan.mu_prev.data_ptr(),
+        abar.data_ptr(), cs.data_ptr(), cab.data_ptr(), cbb.data_ptr(),
+        plan.delays.data_ptr(), plan.freqs.data_ptr(), bufs["vis"].data_ptr(),
+        1.0 if plan.quant_step is None else plan.quant_step, plan.bandwidth,
+        plan.nch, plan.k, plan.s_rows, plan.nbins, plan.ntaps, plan.rank,
+        plan.nbl, plan.n_groups, plan.per, int(plan.route == "global"),
+        int(plan.packed), int(plan.continuum), *xp)
+
+
+def launch_step(plan: StepPlan, bufs: dict):
+    """One call of ``fxt_fx_step`` (``_i8`` for 8-bit samples) over a
+    checked plan and its buffers: three kernels on the current stream,
+    each counted on its wrapper."""
+    from fxtpu_torch.cuda_build import check, load_kernels
+    lib = load_kernels()
+    int8 = plan.quant_step is not None
+    args = step_args(plan, bufs)
+    with torch.cuda.device(plan.x.device):
+        stream = torch.cuda.current_stream(plan.x.device).cuda_stream
+        entry = lib.fxt_fx_step_i8 if int8 else lib.fxt_fx_step
+        rc = entry(ctypes.byref(args), stream)
+    check(lib, rc, "fx_step launch")
+    ff._count_parts(ff.fx_fused_parts_i8 if int8 else ff.fx_fused_parts,
+                    plan.rank, plan.route)
+    if plan.route == "global":
+        fx_xstage.launches += 1
+    else:
+        ff.parts_reduce.launches += 1
+    fx_finish.launches += 1
+
+
 def fx_fused_step(iq: torch.Tensor, history, window2d: torch.Tensor,
                   pairs: torch.Tensor, consts, delays: torch.Tensor,
                   tables: FinishTables, bandwidth: float, continuum: bool,
-                  quant_step=None, svd=None):
+                  quant_step=None, svd=None, *, pool=None):
     """The single-pass fused step over the K blocks of the merged ``iq``
     (``[nch, K, S, nbins]`` complex64 with the DC-corrected tail as
     ``history``, or int8 ``[nch, K, S, nbins, 2]`` with the raw-tail dict
     ``{"tail", "mu_prev"}`` and ``quant_step``) -> ``(vis [K, nbl, nbins]
-    or [K, nbl], new_history)`` in the same history contract: the parts,
-    then :func:`fx_finish` with ``delays [K, nch(, 2)]``.  On a CUDA
-    device that is three kernel launches (frames, reduce or on the wide
-    route the X kernel, epilogue) and nothing else; on the CPU the plain
-    versions."""
+    or [K, nbl], new_history)`` in the same history contract: the parts
+    (``fx_fused_parts*``, on the X stage the shape takes), then
+    :func:`fx_finish` with ``delays [K, nch(, 2)]``.
+
+    On the CPU the plain versions.  On a CUDA device the arguments are
+    checked once (:func:`check_step`) and one C call launches three
+    kernels (frames, reduce or on the wide route the X kernel, epilogue)
+    and nothing else (:func:`launch_step`), each counted where its
+    wrapper counts it: ``fx_fused_parts[_i8]`` (its route's and FIR mode's
+    counter), ``fx_fused.parts_reduce`` or ``fx_xstage.fx_xstage``, and
+    :func:`fx_finish`.  ``pool`` (a dict the caller keeps across steps)
+    holds the step's scratch; ``vis`` and the new history are new."""
+    if _on_card(iq, "fx_fused_step"):
+        plan = check_step(iq, history, window2d, pairs, consts, delays,
+                          tables, bandwidth, continuum, quant_step, svd)
+        bufs = step_buffers(plan, pool)
+        launch_step(plan, bufs)
+        mu = bufs["mu"]
+        new_history = ({"tail": bufs["new_hist"], "mu_prev": mu[-1]}
+                       if plan.quant_step is not None else bufs["new_hist"])
+        return bufs["vis"], new_history
     if isinstance(history, dict):
         xp, t, gj, mu, tail = fx_fused_parts_i8(
             iq, history["tail"], window2d, pairs, quant_step, svd, consts)

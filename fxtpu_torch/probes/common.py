@@ -152,6 +152,25 @@ def device_events(fn, calls: int, lead: int = 2, tail: int = 2,
                        f"the {calls} counted calls")
 
 
+def step_exposed_us(events: list, per: int = 3):
+    """From the device events of calls that launch ``per`` kernels each,
+    the epilogue (``fx_finish_kernel``) last (:func:`device_events` of a
+    fused step): the medians of the epilogue's end less its predecessor's
+    end, what it adds to the step, and of a call's span on the card (first
+    start to last end), in µs.  Raises when a call's last kernel is not
+    the epilogue."""
+    exposed, span = [], []
+    for i in range(0, len(events) - per + 1, per):
+        call = events[i:i + per]
+        if "fx_finish_kernel" not in call[-1]["name"]:
+            raise RuntimeError(f"the step's last kernel is "
+                               f"{call[-1]['name'][:60]}")
+        end = [e["ts"] + e["dur"] for e in call]
+        exposed.append(end[-1] - end[-2])
+        span.append(max(end) - call[0]["ts"])
+    return statistics.median(exposed), statistics.median(span)
+
+
 def slope_ms(launch, lo: int, hi: int, n: int = 5):
     """The slope method: ``launch(reps)`` repeats its walk ``reps`` times
     inside one kernel launch; the time of one repeat is the difference of

@@ -24,6 +24,16 @@ the same input and output buffers:
     ``pipeline_x``); the entry takes as many plan integers as its
     library's ``fxt_xstage_plan_ints()`` says (none where the library
     has no such symbol: the X kernel before its launch plan);
+  * a whole single-pass step (``step_*``: the flagship at K = 1 and 8,
+    ``bench_pipeline``'s block in CONTINUUM, the ``--nchan 8`` CLI block
+    and the nchan8 block on the wide route): in a tree with the step entry
+    (``fxt_fx_step`` / ``_i8``) its one call, in a tree without it the
+    calls the parent's ``fx_fused_step`` made (``fxt_fx_parts`` then
+    ``fxt_fx_finish``; on the wide route ``fxt_fx_wide_frames``,
+    ``fxt_xstage``, ``fxt_fx_finish``), on the same buffers; the
+    visibilities, mu and the new history compared bit for bit, and the
+    epilogue's exposed time (its end less its predecessor's end) and the
+    step's span on the device;
 
 each in both ingests, and reports
 
@@ -52,27 +62,33 @@ import statistics
 import sys
 from pathlib import Path
 
+import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
 from fxtpu_torch import cuda_build  # noqa: E402
+from fxtpu_torch.ops import fx_epilogue as fe  # noqa: E402
 from fxtpu_torch.ops import fx_fused as ff  # noqa: E402
 from fxtpu_torch.ops.dc_posthoc import dc_constants  # noqa: E402
 from fxtpu_torch.ops.fx_xstage import (fx_xstage_reference,  # noqa: E402
                                        xstage_plan)
-from fxtpu_torch.ops.xengine import baseline_pairs  # noqa: E402
+from fxtpu_torch.ops.xengine import baseline_pairs, pack_delays  # noqa: E402
 from fxtpu_torch.probes import ablate  # noqa: E402
 from fxtpu_torch.probes.common import (card_line, device_events,  # noqa: E402
-                                       emit, event_ms, resolve_device)
+                                       emit, event_ms, resolve_device,
+                                       step_exposed_us)
 
 SHARED = ("fxt_fx_parts", "fxt_fx_parts_i8", "fxt_fx_wide_frames",
           "fxt_fx_wide_frames_i8", "fxt_spectrometer", "fxt_xstage",
-          "fxt_xstage_i8", "fxt_error_string")
+          "fxt_xstage_i8", "fxt_fx_finish", "fxt_error_string")
+#: The step entry, in the trees that have it.
+STEP_ENTRIES = ("fxt_fx_step", "fxt_fx_step_i8")
 #: The kernels whose device time is reported, by the name the profiler
 #: gives them.
-KERNELS = ("fx_frames_kernel", "fx_parts_reduce_kernel", "fx_xstage_kernel")
+KERNELS = ("fx_frames_kernel", "fx_parts_reduce_kernel", "fx_xstage_kernel",
+           "fx_finish_kernel")
 #: name -> (entry, nch, samples a channel, nbins, ntaps, K, FIR mode, autos)
 CASES = {
     "flagship": ("parts", 2, 2**18, 4096, 4, 1, "direct", False),
@@ -85,15 +101,22 @@ CASES = {
     "cli8_x": ("xstage", 8, 2**18, 4096, 4, 1, "direct", False),
     "pipeline_x": ("xstage", 2, 2**21, 4096, 4, 1, "direct", False),
     "nch64_x": ("xstage", 64, 2**18, 4096, 4, 1, "direct", True),
+    "step_flagship": ("step", 2, 2**18, 4096, 4, 1, "direct", False),
+    "step_flagship_k8": ("step", 2, 2**18, 4096, 4, 8, "direct", False),
+    "step_pipeline": ("step", 2, 2**21, 4096, 4, 1, "direct", False),
+    "step_cli8": ("step", 8, 2**18, 4096, 4, 1, "direct", False),
+    "step_nchan8": ("step", 8, 2**20, 4096, 4, 1, "direct", True),
 }
+#: The step cases whose epilogue reduces to the continuum (CONTINUUM).
+CONTINUUM = ("step_pipeline",)
 
 
 def production_kernels(log: str) -> dict:
     """``{kernel: "registers, shared memory, spills"}`` of the frame
     kernels in nvcc's ``-Xptxas -v`` output whose stage is the production
-    one (stage 0) and of every instance of the parts reduce and the X
-    kernel (``fx_xstage_kernel<float2,8>``: complex64 samples, 8 rows a
-    thread), and the stack and spills of the FFT's bodies
+    one (stage 0), of every instance of the parts reduce and the X kernel
+    (``fx_xstage_kernel<float2,8>``: complex64 samples, 8 rows a thread)
+    and of the epilogue, and the stack and spills of the FFT's bodies
     (``fft_sized<log2 n>``, called by every frame kernel)."""
     out = {}
     lines = log.splitlines()
@@ -122,6 +145,12 @@ def production_kernels(log: str) -> dict:
         info = " ".join(s.strip() for s in lines[i + 1:i + 4]
                         if "registers" in s or "spill" in s)
         out[name] = re.sub(r"ptxas info\s*:\s*", "", info)
+    for i, line in enumerate(lines):
+        if re.search(r"Compiling entry function '\S*fx_finish_kernel", line):
+            out["fx_finish_kernel"] = re.sub(
+                r"ptxas info\s*:\s*", "", " ".join(
+                    s.strip() for s in lines[i + 1:i + 4]
+                    if "registers" in s or "spill" in s))
     for i, line in enumerate(lines):
         m = re.search(r"Function properties for (\S*fft_sized\S*)", line)
         if m and i + 1 < len(lines):
@@ -153,9 +182,10 @@ def build_tree(root: Path, name: str, like=None):
     lib = ctypes.CDLL(str(path))
     ints = getattr(lib, "fxt_xstage_plan_ints", None)
     lib.plan_ints = ints() if ints is not None else 0
+    lib.has_step = getattr(lib, STEP_ENTRIES[0], None) is not None
     if like is None:
         return cuda_build.declare(lib), log
-    for entry in SHARED:
+    for entry in SHARED + (STEP_ENTRIES if lib.has_step else ()):
         getattr(lib, entry).restype = getattr(like, entry).restype
         getattr(lib, entry).argtypes = getattr(like, entry).argtypes
     # the X kernel's entries: the plan's integers after the first 15
@@ -332,11 +362,117 @@ class Case:
         return (got - want).abs().max().item() / scale
 
 
+class StepCase:
+    """One shape's whole single-pass step: the inputs, the buffers both
+    trees' calls write (``fx_epilogue.step_buffers``), and the plain
+    visibilities (the plain single pass and the plain epilogue)."""
+
+    def __init__(self, name, ingest, device):
+        (self.entry, nch, num_samp, nbins, ntaps, k, fir,
+         autos) = CASES[name]
+        x, hist, w, _, step, svd = ablate.make_inputs(
+            device, nch=nch, k=k, num_samp=num_samp, nbins=nbins,
+            ntaps=ntaps, ingest=ingest, fir_mode=fir, seed=k + nch)
+        self.int8 = ingest == "int8"
+        pairs_np = baseline_pairs(nch, include_autos=autos)
+        pairs = ff.pairs_tensor(pairs_np, nch, device)
+        s_rows = num_samp // nbins
+        consts = dc_constants(w.cpu().numpy(), nbins, s_rows, device)
+        tables = fe.FinishTables(pairs_np, nbins, 2.4e6, 1.4204e9, device)
+        d = (np.tile(np.arange(nch) * 2e-6, (k, 1))
+             + 1e-7 * np.arange(k)[:, None])
+        delays = torch.as_tensor(pack_delays(d, 1.4204e9), device=device)
+        self.plan = p = fe.check_step(
+            x, hist, w, pairs, consts, delays, tables, 2.4e6,
+            name in CONTINUUM, step if self.int8 else None, svd)
+        self.bufs = fe.step_buffers(p)
+        self.args = fe.step_args(p, self.bufs)
+        self.nch, self.k, self.nbins, self.ntaps = nch, k, nbins, ntaps
+        self.rank = p.rank
+        wide = p.route == "global"
+        if self.int8:
+            ref = (ff.fx_fused_parts_i8_wide_reference if wide
+                   else ff.fx_fused_parts_i8_reference)(
+                x, p.hist, w, pairs, step, svd, consts)
+        else:
+            ref = (ff.fx_fused_parts_wide_reference if wide
+                   else ff.fx_fused_parts_reference)(
+                x, p.hist, w, pairs, svd, consts)
+        self.plain = fe.fx_finish_reference(
+            *ref[:4], pairs, consts, delays, tables, s_rows, 2.4e6,
+            p.continuum, p.mu_prev)
+
+    def launch(self, lib):
+        """One step from ``lib``: its step entry, or in a tree without
+        one the calls the parent's ``fx_fused_step`` made."""
+        stream = torch.cuda.current_stream().cuda_stream
+        if lib.has_step:
+            fn = lib.fxt_fx_step_i8 if self.int8 else lib.fxt_fx_step
+            cuda_build.check(lib, fn(ctypes.byref(self.args), stream),
+                             "A/B step")
+            return
+        p, b = self.plan, self.bufs
+        extra = (p.quant_step,) if self.int8 else ()
+        head = (p.x.data_ptr(), p.hist.data_ptr(), p.window2d.data_ptr(),
+                *ff._svd_ptrs(p.svd),
+                ff._twiddles(p.nbins, p.x.device).data_ptr())
+        da = p.consts[1].data_ptr()
+        if p.route == "global":
+            fn = (lib.fxt_fx_wide_frames_i8 if self.int8
+                  else lib.fxt_fx_wide_frames)
+            rc = fn(*head, b["sums"].data_ptr(), b["scratch"].data_ptr(),
+                    p.nch, p.k, p.s_rows, p.nbins, p.ntaps, p.rank,
+                    p.n_groups, p.per, *extra, stream)
+            cuda_build.check(lib, rc, "A/B wide frames")
+            plan = p.xplan.args() if lib.plan_ints else ()
+            fn = lib.fxt_xstage_i8 if self.int8 else lib.fxt_xstage
+            rc = fn(b["scratch"].data_ptr(), p.pairs.data_ptr(), da,
+                    b["parts"].data_ptr(), p.x.data_ptr(),
+                    b["sums"].data_ptr(), b["mu"].data_ptr(),
+                    b["new_hist"].data_ptr(), p.nch, p.k, p.s_rows, p.nbins,
+                    p.nbl, p.ntaps - 1, p.n_groups, *plan, *extra, stream)
+        else:
+            fn = lib.fxt_fx_parts_i8 if self.int8 else lib.fxt_fx_parts
+            rc = fn(*head, p.pairs.data_ptr(), da, b["sums"].data_ptr(),
+                    b["scratch"].data_ptr(), b["parts"].data_ptr(),
+                    b["mu"].data_ptr(), b["new_hist"].data_ptr(), p.nch,
+                    p.k, p.s_rows, p.nbins, p.ntaps, p.rank, p.nbl,
+                    p.n_groups, p.per, *extra, stream)
+        cuda_build.check(lib, rc, "A/B parts")
+        abar, _, cs, cab, cbb = p.consts
+        parts = b["parts"].data_ptr()
+        rows = (p.nbl + 2 * p.nch) * p.nbins
+        rc = lib.fxt_fx_finish(
+            parts, parts + 8 * p.nbl * p.nbins,
+            parts + 8 * (p.nbl + p.nch) * p.nbins, b["mu"].data_ptr(),
+            None if p.mu_prev is None else p.mu_prev.data_ptr(),
+            p.pairs.data_ptr(), abar.data_ptr(), cs.data_ptr(),
+            cab.data_ptr(), cbb.data_ptr(), p.delays.data_ptr(),
+            p.freqs.data_ptr(), b["vis"].data_ptr(), rows, rows, rows, p.k,
+            p.nbl, p.nch, p.nbins, int(p.packed), int(p.continuum),
+            p.s_rows, p.bandwidth, stream)
+        cuda_build.check(lib, rc, "A/B finish")
+
+    def output(self):
+        return self.bufs["vis"]
+
+    def fold(self):
+        return self.bufs["mu"].clone(), self.bufs["new_hist"].clone()
+
+    def error(self):
+        """Largest difference of the visibilities from the plain step's,
+        over their largest magnitude."""
+        return ((self.bufs["vis"] - self.plain).abs().max().item()
+                / self.plain.abs().max().item())
+
+
 def kernel_us(fn, n=10):
     """Median device microseconds of each kernel of :data:`KERNELS` that
     a call of fn launches, over n calls: ``{name: us}``."""
     events = device_events(fn, n)
     out = {}
+    if len(events) == 3 * n and "fx_finish_kernel" in events[-1]["name"]:
+        out["exposed"], out["span"] = step_exposed_us(events)
     for name in KERNELS:
         durs = [e["dur"] for e in events if e["cat"] == "kernel"
                 and name in e["name"]]
@@ -372,7 +508,8 @@ def main(argv=None) -> list:
     for name in args.cases.split(","):
         for ingest in (("complex64",) if CASES[name][0] == "spec"
                        else ("complex64", "int8")):
-            case = Case(name, ingest, device)
+            case = (StepCase if CASES[name][0] == "step" else Case)(
+                name, ingest, device)
             err, outs, folds = {}, {}, {}
             for tree, lib in libs.items():
                 case.launch(lib)
@@ -396,6 +533,7 @@ def main(argv=None) -> list:
                  max_diff_between_trees=(
                      (outs["parent"] - outs["change"]).abs().max().item()
                      / scale),
+                 steps={tree: lib.has_step for tree, lib in libs.items()},
                  mu_and_history_equal=(None if folds["parent"] is None
                                        else all(torch.equal(a, b) for a, b
                                                 in zip(folds["parent"],

@@ -1,7 +1,7 @@
 """The port's slice as a whole on the CPU: one fixed-length replay
 recording through both Correlators (fxtpu and fxtpu_torch) on either
 route and ingest, the port's CLI end to end, its independence from JAX,
-and the options it does not carry yet.
+the options it does not carry yet and the snapshot options it does.
 
 Tolerances: CSV rows within 2e-5*scale (fxtpu's fused-against-unfused
 bound, tests/test_planes.py:318-321), 3e-5*scale under int8 ingest
@@ -223,23 +223,35 @@ def test_port_never_imports_jax():
     assert res.returncode == 0, res.stderr
 
 
-@pytest.mark.parametrize("kw", [
-    dict(mesh_time=2), dict(mesh_freq=2),
-    dict(blocks_per_dispatch=4, resume_from="state.npz"),
-    dict(ingest_dtype="int8", snapshot_every=5), dict(snapshot_every=5),
-    dict(resume_from="state.npz")])
+@pytest.mark.parametrize("kw", [dict(mesh_time=2), dict(mesh_freq=2)])
 def test_unported_options_raise(kw):
     cfg = CorrelatorConfig(**SMALL, device="cpu", **kw)
     with pytest.raises(NotImplementedError, match="ROADMAP.md A."):
         Correlator(config=cfg)
 
 
+@pytest.mark.parametrize("kw", [
+    dict(blocks_per_dispatch=4, resume_from="state.npz"),
+    dict(ingest_dtype="int8", snapshot_every=5), dict(snapshot_every=5),
+    dict(resume_from="state.npz")])
+def test_checkpoint_options_accepted(tmp_path, kw):
+    """The snapshot options construct (ROADMAP A.8 is ported); a resume
+    from a file that is not there raises naming it."""
+    if "resume_from" in kw:
+        kw = dict(kw, resume_from=str(tmp_path / kw["resume_from"]))
+    cfg = CorrelatorConfig(**SMALL, device="cpu",
+                           output_file=str(tmp_path / "v.csv"), **kw)
+    if "resume_from" not in kw:
+        cor = Correlator(config=cfg)
+        assert cor.snapshot_path == str(tmp_path / "v.csv") + ".state.npz"
+        return
+    with pytest.raises(FileNotFoundError, match="state.npz"):
+        Correlator(config=cfg)
+
+
 def test_unported_cli_flags_raise(tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP.md A.9"):
         cli_main(["--num_processes", "2", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A.8"):
-        cli_main(["--blocks_per_dispatch", "2", "--snapshot_every", "2",
-                  "--device", "cpu", "--output", str(tmp_path / "v.csv")])
 
 
 def test_illegal_transition_raises():

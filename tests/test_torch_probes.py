@@ -637,6 +637,25 @@ def test_the_probes_import_nothing_of_jax():
                     path.name, line)
 
 
+def test_step_exposed_us_reads_each_call():
+    """The epilogue's end less its predecessor's end, and the call's span,
+    per call of three kernels, their medians; a call whose last kernel is
+    not the epilogue raises."""
+    def call(t0, finish_start):
+        # frames 0-20, reduce 18-27 (a dependent starts early), epilogue
+        return [{"name": "fx_frames_kernel", "ts": t0, "dur": 20.0},
+                {"name": "fx_parts_reduce_kernel", "ts": t0 + 18.0,
+                 "dur": 9.0},
+                {"name": "fx_finish_kernel", "ts": t0 + finish_start,
+                 "dur": 30.0 - finish_start}]
+    events = call(0.0, 20.0) + call(100.0, 25.0) + call(200.0, 22.0)
+    exposed, span = common.step_exposed_us(events)
+    assert exposed == pytest.approx(3.0) and span == pytest.approx(30.0)
+    with pytest.raises(RuntimeError, match="last kernel"):
+        common.step_exposed_us(events[:2] + events[3:5] + events[2:3]
+                               + events[5:])
+
+
 # --- on the card: every kernel against its plain version ------------------
 
 @pytest.mark.cuda
@@ -743,3 +762,4 @@ def test_cuda_probe_wrappers_reject_bad_input(cuda_device):
         overlap.overlap_probe(osrc, cb=256, ntaps=4, frames=2, reps=1,
                               nbuf=1, copy=True, body="fx", grid=2,
                               smem=4096)
+
