@@ -99,11 +99,11 @@ Phases (any failure raises and exits non-zero, with no ``ok`` line):
    (``direct``, ``svd``), the calibration recovered the injected 2 us
    delay within 0.5 sample, the calibrated in-band phase is flat (std <
    0.3 rad, 0.35 under int8) and the CSV loads with the reference recipe;
-   then checkpoint/resume through the CLI in both ingests at K = 1 and 8:
-   a replay of the CLI's blocks run whole, run cut short with
-   ``--snapshot_every 2`` and resumed from its snapshot with
-   ``--resume_from`` over the whole replay, the resumed rows within 2e-5
-   of max|vis| (3e-5 int8) of the whole run's tail;
+   then checkpoint/resume through the Correlator (``calibrate_on_start=
+   False``) in both ingests at K = 1 and 8: a replay of the CLI's blocks
+   run whole, run cut short with ``snapshot_every=2`` and resumed from its
+   snapshot with ``resume_from`` over the whole replay, the resumed rows
+   within 2e-5 of max|vis| (3e-5 int8) of the whole run's tail;
    then ``bench_pipeline``'s configuration through the Correlator
    (looping replay, CONTINUUM, ``buffer_chunks`` 32) for 4 s at K = 8 and
    at K = 1 in each ingest, counted the same way, under a CUDA-only
@@ -162,6 +162,24 @@ Phases (any failure raises and exits non-zero, with no ``ok`` line):
    beside the FFT stages (``library_ms``; the port never calls it on this
    path) and, at the flagship, the FFT stage's own device time (``fft -
    fir``, the radix-16 passes) printed against it.
+
+Every bin count of ``fxtpu``'s kernels (``_kernel_factor``: n = 128 m, 2
+<= m <= 128; ROADMAP K.3) runs the same kernels, the FFT through the
+frame kernel's mixed-radix body: phase 2 holds the single pass and its
+epilogue at 384, 3072, 16,256 and 16,384 bins (2 x 2^18 samples, both
+ingests; the last two on the wide route) and in the SVD-FIR mode at 6144
+bins and 32 taps, to the rules above; K = 8 at 3072 bins against 8
+one-block steps (block 0 bit for bit, every block within 1e-5 of
+max|vis|, plus what cancels at the DC bin); the step's one C call at 3072
+and 16,384; the X kernel alone at 16,256 and 16,384; the spectrometer at
+3072 and 16,384; the ablation at 3072 and 16,256 (stages ``fir``,
+``fft`` and ``full``).  Phase 3 runs the CLI at ``--resolution 3072``,
+``16384`` and ``6144 --ntaps 32`` in both ingests, counted as above, with no
+WARNING that the engine took the plain route, and the ablation probe at
+3072 and 16,256; phase 4 times the single pass, the spectrometer and the
+X kernel there and prints the FFT stage (``fft - fir``) at 3072 and
+16,256 bins beside ``torch.fft.fft``.  Snapshot/resume (phase 3) runs
+through the Correlator with ``calibrate_on_start=False``.
 
 Every kernel's ``bound_ms`` is computed here from the run's shapes: the
 larger of its bytes (each input read once, each output written once) over
@@ -297,6 +315,28 @@ PARTS_CASES = tuple((case, k, "direct") for case in (
     SMALL, FLAGSHIP, PIPELINE_BLOCK, WIDEBAND) for k in (1, MULTI_K)) + tuple(
     (case, k, "svd") for case in (SMALL_DEEP, DEEP_CLI, WIDEBAND)
     for k in (1, MULTI_K))
+# Every bin count of fxtpu's kernels (_kernel_factor: n = 128 m, 2 <= m <=
+# 128; ROADMAP K.3) at the CLI's block, 2 channels of 2^18 samples: 384
+# (682 frames), 3072 (85 frames, 1024 samples a block not framed), 16,256
+# = 127 x 128 (16 frames, the largest odd factor) and 16,384 (16 frames,
+# the wide route: a spectrum is 128 KiB), and 6144 at 32 taps (42 frames,
+# the SVD-FIR mode at rank 6)
+R384 = dict(nch=2, nsamp=2**18, nbins=384, ntaps=4, autos=False)
+R3072 = dict(nch=2, nsamp=2**18, nbins=3072, ntaps=4, autos=False)
+R16256 = dict(nch=2, nsamp=2**18, nbins=16256, ntaps=4, autos=False)
+R16384 = dict(nch=2, nsamp=2**18, nbins=16384, ntaps=4, autos=False)
+R6144D = dict(nch=2, nsamp=2**18, nbins=6144, ntaps=32, autos=False)
+# (tag, shape, FIR mode) of the single pass's checks and times at them
+BIN_CASES = (("r384", R384, "direct"), ("r3072", R3072, "direct"),
+             ("r16256", R16256, "direct"), ("r16384", R16384, "direct"),
+             ("r6144d", R6144D, "svd"))
+# the spectrometer at the same counts
+BIN_SPEC_CASES = (dict(nch=2, nsamp=2**18, nbins=3072, ntaps=4),
+                  dict(nch=2, nsamp=2**18, nbins=16384, ntaps=4))
+# (tag, CLI flags) of the main path's runs at them, each in both ingests
+BIN_CLI = (("r3072", ["--resolution", "3072"]),
+           ("r16384", ["--resolution", "16384"]),
+           ("r6144d", ["--resolution", "6144", "--ntaps", "32"]))
 
 
 def card_line() -> str:
@@ -1379,17 +1419,22 @@ def run_staged_main_path(tmpdir, ingest):
 
 
 def run_resume_path(tmpdir, ingest, k):
-    """Phase 3, checkpoint/resume through the CLI on the card: a replay
-    of the CLI's blocks (2 channels, 2 us apart) run whole, then cut
-    short with ``--snapshot_every 2`` (at K = 1 after 5 blocks: the
-    calibration block and 4 rows; at K = 8 after 11: one call of 8 and two
-    tail blocks) and resumed from its snapshot over the whole replay with
-    ``--resume_from``, at ``--blocks_per_dispatch k`` in ``ingest``.  The
-    resumed run's rows must be the whole run's tail within 2e-5 of
-    max|vis| (3e-5 under int8).  Returns the largest difference relative
-    to max|vis|."""
-    from fxtpu_torch.cli import main as cli_main
+    """Phase 3, checkpoint/resume on the card through the Correlator with
+    ``calibrate_on_start=False``, as every resume test of both packages
+    runs it (a resumed run with calibration on spends its first block on
+    it and correlates the rest with fresh delays, as ``fxtpu``'s does; the
+    CLI has no flag for it in either package): a replay of the CLI's
+    blocks (2 channels, 2 us apart) run whole, then cut short with
+    ``snapshot_every=2`` (at K = 1 after 5 blocks, at K = 8 after 11: one
+    call of 8 and three tail blocks) and resumed from its last snapshot
+    over the whole replay, at ``blocks_per_dispatch=k`` in ``ingest``.
+    The resumed run's rows must be the whole run's tail from the
+    snapshot's block on, within 2e-5 of max|vis| (3e-5 under int8).
+    Returns the largest difference relative to max|vis|."""
+    from fxtpu_torch.config import CorrelatorConfig
+    from fxtpu_torch.correlator import Correlator
     from fxtpu_torch.products import load_products
+    from fxtpu_torch.runtime import checkpoint
     from fxtpu_torch.sources import NoiseSource, save_recording
     nsamp = FLAGSHIP["nsamp"]
     total, cut = (20, 11) if k > 1 else (8, 5)
@@ -1401,37 +1446,222 @@ def run_resume_path(tmpdir, ingest, k):
     if not os.path.exists(short):
         np.save(short, np.load(rec)[:, : cut * nsamp])
 
-    def run(replay, name, extra=()):
+    def run(replay, name, **kw):
         out = os.path.join(tmpdir, f"resume_{ingest}_{k}_{name}.csv")
-        cor = cli_main(["--time", "600", "--mode", "spectrum", "--source",
-                        "replay", "--replay_file", replay, "--ingest", ingest,
-                        "--blocks_per_dispatch", str(k), "--no_keyboard",
-                        "--omit_plot", "--output", out, "--device", "cuda",
-                        "-L", "WARNING", *extra])
+        cor = Correlator(config=CorrelatorConfig(
+            run_time=600, mode="SPECTRUM", source="replay",
+            replay_file=replay, ingest_dtype=ingest, quant_step=STEP,
+            blocks_per_dispatch=k, keyboard_control=False, omit_plot=True,
+            output_file=out, device="cuda", loglevel="WARNING",
+            calibrate_on_start=False, **kw))
+        cor.run_state_machine()
         if not cor.engine.kernel_active:
             raise AssertionError("the resume run did not take the kernels")
         return cor, np.atleast_2d(load_products(out)[1])
 
     full, rows = run(rec, "full")
-    cor_a, _ = run(short, "a", ["--snapshot_every", "2"])
-    cor_b, rows_b = run(rec, "b", ["--resume_from", cor_a.snapshot_path])
-    done = cor_a.blocks_processed
-    if not (rows.shape[0] == full.blocks_processed == total - 1
-            and done == cut - 1 and cor_b.blocks_processed == total - 1
+    cor_a, _ = run(short, "a", snapshot_every=2)
+    done = checkpoint.load_state(cor_a.snapshot_path)["blocks_processed"]
+    cor_b, rows_b = run(rec, "b", resume_from=cor_a.snapshot_path)
+    if not (rows.shape[0] == full.blocks_processed == total
+            and cor_a.blocks_processed == cut and 0 < done <= cut
+            and cor_b.blocks_processed == total
             and rows_b.shape == rows[done:].shape):
         raise AssertionError(
-            f"resume {ingest} K={k}: {full.blocks_processed} / {done} / "
+            f"resume {ingest} K={k}: {full.blocks_processed} / "
+            f"{cor_a.blocks_processed} (snapshot at {done}) / "
             f"{cor_b.blocks_processed} blocks, rows {rows.shape} / "
             f"{rows_b.shape}")
     tol = 3e-5 if ingest == "int8" else 2e-5
     scale = np.abs(rows).max()
     err = float(np.abs(rows_b - rows[done:]).max() / scale)
-    print(f"  resume {ingest} --blocks_per_dispatch {k}: snapshot at block "
+    print(f"  resume {ingest} blocks_per_dispatch={k}: snapshot at block "
           f"{done}, resumed rows against the whole run's {err:.3g} of "
           f"max|vis| (bound {tol})", flush=True)
     if not err <= tol:
         raise AssertionError(f"resumed rows disagree: {err} > {tol}")
     return err
+
+
+def compare_k_blocks(case, k, device):
+    """Phase 2, K blocks a call at a bin count that is not a power of two:
+    the step over K merged blocks (``fx_fused_step``, one C call) against
+    K one-block steps chained through their history, both ingests, packed
+    delays that differ per block: block 0 bit for bit (a block's frames
+    are grouped and summed as a one-block launch sums them), every block
+    within 1e-5 of max|vis| (blocks after the first read the rows of the
+    block before raw, ``fxtpu``'s own bound for K blocks a call) plus, as
+    phase 2 holds the epilogue, 2e-6 of the raw cross power per frame
+    that cancels at a bin (the DC bin: the two forms remove the means in
+    another order), the history after the last block within 1e-6 (int8:
+    the tail exactly, ``mu_prev`` within 1e-6 of max|mu|).  Returns the
+    largest difference relative to max|vis|, off the DC bin and at it."""
+    import torch
+
+    from fxtpu_torch.ops import fx_epilogue as fe
+    from fxtpu_torch.ops import fx_fused as ff
+    worst = [0.0, 0.0]
+    for int8 in (False, True):
+        args = step_inputs(case, k, "direct", int8, True, False, device)
+        x, hist, w, pairs, consts, delays, tables, bw, cont, step, svd = args
+        vis, new = fe.fx_fused_step(*args, pool={})
+        xp_raw = (ff.fx_fused_parts_i8(x, hist["tail"], w, pairs, step, svd,
+                                       consts) if int8 else
+                  ff.fx_fused_parts(x, hist, w, pairs, svd, consts))[0]
+        raw = torch.fft.fftshift(xp_raw.abs() / x.shape[2], dim=-1)
+        h, ones = hist, []
+        for j in range(k):
+            v, h = fe.fx_fused_step(x[:, j:j + 1].contiguous(), h, w, pairs,
+                                    consts, delays[j:j + 1], tables, bw, cont,
+                                    step, svd, pool={})
+            ones.append(v[0])
+        torch.cuda.synchronize()
+        ones = torch.stack(ones)
+        scale = ones.abs().max().item()
+        diff = (vis - ones).abs()
+        within = bool((diff <= 1e-5 * scale + CANCEL_TOL * raw).all())
+        dc = x.shape[-2] // 2 if int8 else x.shape[-1] // 2
+        err = diff[..., dc].max().item() / scale
+        diff[..., dc] = 0
+        off = diff.max().item() / scale
+        first = torch.equal(vis[0], ones[0])
+        if int8:
+            mu_err = (new["mu_prev"] - h["mu_prev"]).abs().max().item()
+            hist_ok = torch.equal(new["tail"], h["tail"]) and (
+                mu_err <= MU_TOL * max(1.0, h["mu_prev"].abs().max().item()))
+        else:
+            hist_ok = (new - h).abs().max().item() <= HIST_TOL
+        print(f"  fx_fused_step K={k} against {k} one-block steps, shape "
+              f"{case}, int8 {int8}: block 0 bit for bit {first}, every "
+              f"block {off:.3g} of max|vis| off the DC bin, {err:.3g} at it "
+              f"(within its bound {within}), history {hist_ok}", flush=True)
+        if not (first and off <= 1e-5 and within and hist_ok):
+            raise AssertionError(
+                f"K = {k} blocks a call disagree with {k} steps at {case} "
+                f"(int8 {int8}): block 0 bit for bit {first}, {off:.3g} off "
+                f"DC, {err:.3g} at it (bound 1e-5 + {CANCEL_TOL} of the raw "
+                f"cross power), history {hist_ok}")
+        worst = [max(worst[0], off), max(worst[1], err)]
+    return worst
+
+
+def run_bins_main_path(tmpdir, ingest, tag, flags):
+    """Phase 3 at a bin count that is not a power of two in [256, 8192]
+    (ROADMAP K.3): the CLI with ``flags``, every launch count set to 0 just
+    before and read just after: the engine takes the kernels
+    (``kernel_active``; the wide route where the shared one does not fit,
+    the SVD-FIR mode at 32 taps), with no WARNING that it took the plain
+    torch route; the single pass's wrapper, its reduce (or on the wide
+    route its X kernel) and the epilogue once a block each, every other
+    entry not at all; the products hold (``check_products``).  Returns
+    the run's counts."""
+    import logging
+
+    class Keep(logging.Handler):
+        def emit(self, record):
+            records.append(record.getMessage())
+
+    records, keep = [], Keep(logging.WARNING)
+    log = logging.getLogger("fxtpu_torch.fx")
+    log.addHandler(keep)
+    try:
+        cor, out, counts = run_cli(tmpdir, f"{tag}_{ingest}", ingest, flags)
+    finally:
+        log.removeHandler(keep)
+    eng = cor.engine
+    plain = [m for m in records if "plain torch route" in m]
+    wide = eng.x_stage == "global"
+    name = (("fx_parts_wide" if wide else "fx_parts")
+            + ("_i8" if ingest == "int8" else "")
+            + ("_svd" if eng.fir_mode == "svd" else ""))
+    second = "fx_xstage" if wide else "fx_parts_reduce"
+    others = {c: v for c, v in counts.items()
+              if c not in (name, second, "fx_finish")}
+    print(f"  {tag} {ingest}: x_stage {eng.x_stage}, fir_mode "
+          f"{eng.fir_mode}, {cor.config.num_samp // cor.config.nbins} "
+          f"frames a block", flush=True)
+    if plain or not (counts[name] == counts[second] == counts["fx_finish"]
+                     == cor.blocks_processed >= 2) or any(others.values()):
+        raise AssertionError(
+            f"{tag} {ingest}: launches {counts} do not match blocks_processed "
+            f"{cor.blocks_processed} of {name} (or fewer than 2 blocks), or "
+            f"the engine warned {plain}")
+    check_products(cor, out, f"{tag}_{ingest}")
+    return counts
+
+
+def time_bins(device):
+    """Phase 4 at the bin counts of ROADMAP K.3 (``BIN_CASES``): the single
+    pass's wrapper (frames and reduce, or frames and X kernel) and its
+    plain version in both ingests, by CUDA events in turns, and the
+    device us of each of its kernels (a CUDA-only trace of 3 calls); the
+    spectrometer and its plain version at ``BIN_SPEC_CASES``; the X kernel
+    alone at 16,384 bins against its plain version and ``torch.matmul``'s
+    Gram (its ``library_ms``).  Returns (times ms, device us by kernel)."""
+    import torch
+
+    from fxtpu_torch.ops import baseline_pairs, pairs_tensor
+    from fxtpu_torch.ops import fx_fused as ff
+    from fxtpu_torch.ops.dc_posthoc import dc_constants
+    from fxtpu_torch.ops.fx_xstage import fx_xstage, fx_xstage_reference
+    from fxtpu_torch.ops.spectrometer import (spectrometer_fused,
+                                              spectrometer_fused_reference)
+    from fxtpu_torch.probes.common import device_events
+    fns, dev_us, keep = {}, {}, []
+    rng = np.random.default_rng(43)
+    for tag, case, fir in BIN_CASES:
+        nch, nbins = case["nch"], case["nbins"]
+        s = case["nsamp"] // nbins
+        w, svd = window_and_fir(case, fir, device)
+        pairs = pairs_tensor(baseline_pairs(nch, case["autos"]), nch, device)
+        consts = dc_constants(w.cpu().numpy(), nbins, s, device)
+        for int8 in (False, True):
+            key = tag + ("_i8" if int8 else "")
+            x = parts_batch(case, 1, rng, device, int8)
+            hist = raw_history(case, rng, device, int8)
+            rank = 0 if svd is None else svd[0].shape[1]
+            wide = ff.x_route(nbins, case["ntaps"], nch, rank) == "global"
+            if int8:
+                args = (x, hist["tail"], w, pairs, STEP, svd, consts)
+                entry = ff.fx_fused_parts_i8
+                ref = (ff.fx_fused_parts_i8_wide_reference if wide
+                       else ff.fx_fused_parts_i8_reference)
+            else:
+                args = (x, hist, w, pairs, svd, consts)
+                entry = ff.fx_fused_parts
+                ref = (ff.fx_fused_parts_wide_reference if wide
+                       else ff.fx_fused_parts_reference)
+            fns["parts_" + key] = lambda e=entry, a=args: e(*a)
+            fns["plain_" + key] = lambda r=ref, a=args: r(*a)
+            fns["parts_" + key]()
+            torch.cuda.synchronize()
+            dev_us[key] = kernel_us(device_events(fns["parts_" + key], 3))
+            keep.append(args)
+    for case in BIN_SPEC_CASES:
+        key = f"spec_r{case['nbins']}"
+        w, blocks, h0 = make_spec_case(case, rng, device)
+        fns[key] = lambda w=w, x=blocks[0], h=h0, n=case["nbins"]: (
+            spectrometer_fused(x, w, n, h))
+        fns["plain_" + key] = lambda w=w, x=blocks[0], h=h0, n=case[
+            "nbins"]: spectrometer_fused_reference(x, w, n, h)
+        fns[key]()
+        torch.cuda.synchronize()
+        dev_us[key] = kernel_us(device_events(fns[key], 3))
+        keep.append(blocks)
+    spec, pairs, da = xstage_inputs(R16384, 1, device)
+    a = spec[0].permute(2, 0, 1).contiguous()      # [nbins, nch, S]
+    ah = a.conj().transpose(1, 2)                  # [nbins, S, nch]
+    fns["xstage_r16384"] = lambda: fx_xstage(spec, pairs, da)
+    fns["xstage_plain_r16384"] = lambda: fx_xstage_reference(spec, pairs,
+                                                             da)
+    fns["xstage_library_r16384"] = lambda: torch.matmul(a, ah)
+    for key in ("xstage_r16384", "xstage_library_r16384"):
+        fns[key]()
+        torch.cuda.synchronize()
+        dev_us[key] = kernel_us(device_events(fns[key], 3))
+    times = cuda_times(fns, n=10, warm=2)
+    del keep
+    return times, dev_us
 
 
 def device_busy(prof, path):
@@ -1673,7 +1903,9 @@ def compare_ablate(case, k, device):
                 nbins=case["nbins"], ntaps=case["ntaps"], ingest=ingest,
                 fir_mode=fir, seed=3)
             errs = {}
-            for stage in ff.STAGES:
+            # the mixed-radix kernel runs fir, fft and full
+            for stage in (st for st in ff.STAGES if st in ff.MIXED_STAGES
+                          or ff._pow2_bins(case["nbins"])):
                 got = ff.fx_fused_ablate(x, h, w, pairs, stage, step, svd)
                 want = ff.fx_fused_ablate_reference(x, h, w, pairs, stage,
                                                     step, svd)
@@ -2906,6 +3138,32 @@ def main() -> int:
         errs["fx_ablate"] = tuple(map(max, errs["fx_ablate"],
                                       compare_ablate(case, k, device)))
     errs.update(compare_probes(device))
+    phase("phase 2: every bin count of fxtpu's kernels (ROADMAP K.3)")
+    bins_dc = {}
+    for tag, case, fir in BIN_CASES:
+        for int8 in (False, True):
+            print(f"  {tag}: single pass + fx_finish ({fir}, int8 {int8}) "
+                  f"shape {case}", flush=True)
+            got, dc = compare_parts(case, 1, device, fir, int8)
+            for key, pair in got.items():
+                errs[key] = tuple(map(max, errs[key], pair))
+            bins_dc[f"{tag}{'_i8' if int8 else ''}"] = dc
+    k_blocks_err = compare_k_blocks(R3072, MULTI_K, device)
+    for tag, case in (("r3072", R3072), ("r16384", R16384)):
+        d, f, route = compare_step(case, 1, "direct", False, device)
+        step_diff, step_fin = max(step_diff, d), max(step_fin, f)
+        step_routes[tag] = route
+    for case in (R16256, R16384):
+        errs["fx_xstage"] = tuple(map(max, errs["fx_xstage"],
+                                      compare_xstage(case, 1, device)))
+    for case in BIN_SPEC_CASES:
+        print(f"  spectrometer shape {case}", flush=True)
+        errs["spectrometer"] = tuple(map(max, errs["spectrometer"],
+                                         compare_spectrometer(case, device)))
+    for case in (R3072, R16256):
+        print(f"  fx_ablate K=1 shape {case}", flush=True)
+        errs["fx_ablate"] = tuple(map(max, errs["fx_ablate"],
+                                      compare_ablate(case, 1, device)))
 
     phase("phase 3: main path (python -m fxtpu_torch)")
     launches, main_counts = {}, []
@@ -2922,8 +3180,9 @@ def main() -> int:
                   flush=True)
             name, counts = run_staged_main_path(tmp, ingest)
             main_counts.append(counts)
-        phase("phase 3: snapshot and resume (python -m fxtpu_torch "
-              "--snapshot_every 2, then --resume_from)")
+        phase("phase 3: snapshot and resume (the Correlator, "
+              "snapshot_every=2, then resume_from, calibrate_on_start="
+              "False)")
         resume_err = {}
         for ingest in ("complex64", "int8"):
             for k in (1, MULTI_K):
@@ -2936,6 +3195,13 @@ def main() -> int:
             name, counts = run_wide_main_path(tmp, ingest)
             main_counts.append(counts)
         check_wide_engines()
+        phase("phase 3: the main path at bin counts that are not powers of "
+              "two in [256, 8192] (ROADMAP K.3)")
+        for tag, flags in BIN_CLI:
+            for ingest in ("complex64", "int8"):
+                print(f"  --ingest {ingest} {' '.join(flags)}", flush=True)
+                main_counts.append(run_bins_main_path(tmp, ingest, tag,
+                                                      flags))
         from fxtpu_torch.sources import NoiseSource, save_recording
         rec = save_recording(NoiseSource(nchan=PIPELINE["nchan"], seed=1),
                              os.path.join(tmp, "rec.npy"),
@@ -2972,7 +3238,9 @@ def main() -> int:
             ("flagship", FLAGSHIP, (1, MULTI_K), ("auto",), 20),
             ("pipeline", PIPELINE_BLOCK, (1, MULTI_K), ("auto",), 10),
             ("deep", DEEP_CLI, (1, MULTI_K), ("direct", "svd"), 6),
-            ("wideband", WIDEBAND, (1, MULTI_K), ("direct", "svd"), 3)):
+            ("wideband", WIDEBAND, (1, MULTI_K), ("direct", "svd"), 3),
+            ("r3072", R3072, (1,), ("auto",), 10),
+            ("r16256", R16256, (1,), ("auto",), 6)):
         for k in ks:
             for ingest in ("complex64", "int8"):
                 for fir in firs:
@@ -3019,6 +3287,7 @@ def main() -> int:
     step_launches.update(call_launches)
     step_launches.update(wide_launches)
     table = stage_table(ablate_runs, device)
+    bt, bt_us = time_bins(device)
     samples = FLAGSHIP["nch"] * FLAGSHIP["nsamp"]
     wsamples = WIDEBAND["nch"] * WIDEBAND["nsamp"]
     for name, sfx in (("fx_fused", ""), ("fx_fused_i8", "_i8")):
@@ -3162,6 +3431,41 @@ def main() -> int:
                   f"{row['fft_stage_us']:.2f} us of device time against "
                   f"torch.fft.fft over the same [nch, S, nbins] "
                   f"{1e3 * row['library_ms']:.2f} us by events", flush=True)
+    for row in table:
+        if row["shape"] in ("r3072", "r16256"):
+            print(f"  [{card}] {row['shape']} {row['ingest']} FFT stage (fft "
+                  f"- fir, the mixed-radix passes over one block's frames, "
+                  f"two-pass kernel K=1): {row['fft_stage_us']:.2f} us of "
+                  f"device time against torch.fft.fft over the same [nch, "
+                  f"S, nbins] {1e3 * row['library_ms']:.2f} us by events",
+                  flush=True)
+    bins_bounds = {}
+    for tag, case, fir in BIN_CASES:
+        fac = window_and_fir(case, fir, device)[1]
+        rank = 0 if fac is None else fac[0].shape[1]
+        for int8 in (False, True):
+            key = tag + ("_i8" if int8 else "")
+            bins_bounds[key] = fx_bound(case, 1, int8, rank, parts=True)
+            print(f"  [{card}] {key} ({case['nbins']} bins, {fir}): "
+                  f"fx_fused_parts{'_i8' if int8 else ''} "
+                  f"{bt['parts_' + key]:.4f} ms (plain "
+                  f"{bt['plain_' + key]:.4f}), device us {bt_us[key]}; "
+                  f"bound {bins_bounds[key][0]:.5f} ms "
+                  f"({bins_bounds[key][1]})", flush=True)
+    for case in BIN_SPEC_CASES:
+        key = f"spec_r{case['nbins']}"
+        bins_bounds[key] = fx_bound(case, 1, False, 0, spectra=True)
+        print(f"  [{card}] spectrometer at {case['nbins']} bins: "
+              f"{bt[key]:.4f} ms (plain {bt['plain_' + key]:.4f}), device us "
+              f"{bt_us[key]}; bound {bins_bounds[key][0]:.5f} ms "
+              f"({bins_bounds[key][1]})", flush=True)
+    bins_bounds["xstage_r16384"] = xstage_bound(R16384, 1)
+    print(f"  [{card}] X kernel alone at 16384 bins: fx_xstage "
+          f"{bt['xstage_r16384']:.4f} ms (device us {bt_us['xstage_r16384']}),"
+          f" plain {bt['xstage_plain_r16384']:.4f}, torch.matmul Gram "
+          f"{bt['xstage_library_r16384']:.4f} (device us "
+          f"{bt_us['xstage_library_r16384']}); bound "
+          f"{bins_bounds['xstage_r16384'][0]:.5f} ms", flush=True)
     for rec in probe_records["copy_rate"]:
         if rec["sweep"] == "width" or rec["mode"] in ("chan", "prod"):
             print(f"    copy {rec['sweep']} {rec['walk']} "
@@ -3407,6 +3711,42 @@ def main() -> int:
     })
     kernels += probe_kernel_entries(table, probe_records, launches, errs,
                                     mkt, device)
+    # the bin counts of ROADMAP K.3, by the entry that ran each
+    bins = {}
+    for tag, case, fir in BIN_CASES:
+        for int8 in (False, True):
+            key = tag + ("_i8" if int8 else "")
+            wide = "xstage" in bt_us[key]
+            name = ("fx_parts_wide" if wide else "fx_parts") + (
+                "_i8" if int8 else "")
+            bins.setdefault(name, {})[tag] = {
+                "nbins": case["nbins"], "ntaps": case["ntaps"],
+                "fir_mode": fir, "ms": bt["parts_" + key],
+                "plain_ms": bt["plain_" + key], "device_us": bt_us[key],
+                "bound_ms": bins_bounds[key][0],
+                "bound_by": bins_bounds[key][1], "library_ms": None,
+                "dc_bin_max_rel_err": bins_dc[key]}
+    bins["spectrometer"] = {
+        f"r{case['nbins']}": {
+            "nbins": case["nbins"], "ms": bt[f"spec_r{case['nbins']}"],
+            "plain_ms": bt[f"plain_spec_r{case['nbins']}"],
+            "device_us": bt_us[f"spec_r{case['nbins']}"],
+            "bound_ms": bins_bounds[f"spec_r{case['nbins']}"][0],
+            "bound_by": bins_bounds[f"spec_r{case['nbins']}"][1],
+            "library_ms": None} for case in BIN_SPEC_CASES}
+    bins["fx_xstage"] = {"r16384": {
+        "nbins": 16384, "ms": bt["xstage_r16384"],
+        "plain_ms": bt["xstage_plain_r16384"],
+        "device_us": bt_us["xstage_r16384"],
+        "bound_ms": bins_bounds["xstage_r16384"][0],
+        "bound_by": bins_bounds["xstage_r16384"][1],
+        "library_ms": bt["xstage_library_r16384"],
+        "library_device_us": bt_us["xstage_library_r16384"]}}
+    for entry in kernels:
+        if entry["name"] in bins:
+            entry["bin_counts"] = bins[entry["name"]]
+        if entry["name"] == "fx_finish":
+            entry["k8_r3072_max_rel_err_vs_steps"] = k_blocks_err
     for entry in kernels:
         missing = {"name", "route", "source", "replaces", "launches",
                    "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -3415,7 +3755,9 @@ def main() -> int:
             raise AssertionError(f"kernel entry {entry.get('name')}: missing "
                                  f"{missing} or never launched")
     print(f"  whole run {time.perf_counter() - t_start:.1f} s", flush=True)
-    print(json.dumps({"stage_table": table, "card": card}), flush=True)
+    print(json.dumps({"stage_table": table, "card": card,
+                      "build_seconds": cuda_build.build_seconds}),
+          flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

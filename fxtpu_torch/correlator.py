@@ -25,8 +25,9 @@ transition.  With ``snapshot_every`` N the streaming state is written
 every N blocks (:meth:`Correlator.snapshot`, in ``fxtpu``'s snapshot
 format: ``runtime.checkpoint``), and ``resume_from`` restores it before
 the run, so an integration survives a restart; each package resumes the
-other's snapshots.  A resumed run starts in RUN with the snapshot's
-delays (``fxtpu`` calibrates on start unless told not to).  Options of
+other's snapshots.  A resumed run keeps the snapshot's delays and
+starts in RUN with ``calibrate_on_start=False``; with it set (the
+default) it calibrates its first block, as ``fxtpu``'s does.  Options of
 ``fxtpu`` that are not ported yet raise ``NotImplementedError`` naming
 the ROADMAP.md item that ports them.
 """
@@ -340,6 +341,11 @@ class Correlator:
             raise RuntimeError(
                 "num_samp cannot change after streaming has started: the "
                 "ring buffers are sized per block and owned by the feeder")
+        if "nbins" in changes and self.stager is not None:
+            raise RuntimeError(
+                "nbins cannot change while the async stager is running: "
+                "staged batches are framed by the OLD engine's "
+                "prepare_batch and would reach the new step mis-framed")
         self.config = dataclasses.replace(self.config, **changes)
         self.engine = FxEngine(self.config)
         self.history = self.engine.fresh_history()
@@ -430,11 +436,10 @@ class Correlator:
                 self.state = "STARTUP"
             elif self.state == "STARTUP":
                 self._startup_task()
-                # a resumed run keeps the snapshot's delays: calibrating
-                # again would take a block and correlate the rest with
-                # other delays than the uninterrupted run's
-                if (self.config.calibrate_on_start
-                        and not self.config.resume_from):
+                # fxtpu's condition: a resumed run calibrates too when
+                # calibrate_on_start is set (it then keeps the snapshot's
+                # delays only with calibrate_on_start=False)
+                if self.config.calibrate_on_start:
                     self.state = "CALIBRATE"
                 else:
                     self.state = "RUN"

@@ -611,6 +611,26 @@ __device__ void tap_sum(const Rows& rows, int c, long long e0,
 // and 1; 32 points in pass 2 at 8192); below 4096 bins n / 16 threads work
 // and the rest wait.  fx_fused.fft_passes is the same index arithmetic in
 // torch.
+//
+// Every other bin count the TPU kernel takes (_kernel_factor: n = 128 m,
+// 2 <= m <= 128; fx_fused.kernel_bins) runs fft_mixed, one body for all of
+// them with the size at run time: n = 2^a q, q odd.  Up to kFftMaxSub
+// points it is one Stockham sequence: radix-16 passes in registers while
+// 16 divides 2^a (fft_pass16, the same pass as above with the twiddle read
+// for any even n), then the rest of 2^a (2, 4 or 8) and one pass for each
+// odd prime factor p of q as direct DFTs (fft_pass_direct): each thread
+// forms up to 32 outputs, each a sum of p loads times exp(-2 pi i m / n)
+// from the table, holds them across the barrier and stores them as a
+// Stockham pass does.  Above kFftMaxSub points
+// a pass would hold n / 256 > 32 points a thread across its barrier, more
+// registers than two CTAs an SM leave: the FIR writes the frame's even
+// samples to the slot's first half and its odd ones to the second
+// (fft_slot), each half runs the sequence of n / 2 points (the table read
+// at stride 2), and one radix-2 pass, in place with each thread's own two
+// points, combines them into the natural order.  The n / 2-entry table
+// exp(-2 pi i m / n) and its negation give every twiddle of every pass,
+// the p-point DFTs' roots exp(-2 pi i j / p) = exp(-2 pi i j (n / p) / n)
+// among them.
 
 // exp(-2 pi i j / 32) = kCos32[j] - i kSin32[j], rounded from float64.
 __constant__ float kCos32[16] = {
@@ -742,6 +762,208 @@ __device__ __noinline__ void fft_sized(int off, int tw_off, int npasses) {
   }
 }
 
+// The largest FFT that runs as one Stockham sequence over its slot
+// (fx_fused.FFT_MAX_SUB); above it, two halves and a radix-2 pass.
+constexpr int kFftMaxSub = 8192;
+// Outputs a thread of a direct-DFT pass holds across its barrier.
+constexpr int kDirectPer = kFftMaxSub / kThreads;
+
+// log2 n where the FFT of n points runs fft_sized (a power of two in [256,
+// kFftMaxSub]), else -1: fft_mixed, and the frame's bins split by division.
+int fft_log2(int n) {
+  if (n < 256 || n > kFftMaxSub || (n & (n - 1)) != 0) return -1;
+  int k = 0;
+  while ((1 << k) < n) ++k;
+  return k;
+}
+
+// Where the FIR stores bin b of a frame of n bins for the FFT: in place up
+// to kFftMaxSub, above it the even samples in the first half and the odd
+// ones in the second (fft_mixed).
+__device__ __forceinline__ int fft_slot(int b, int n) {
+  return n > kFftMaxSub ? (b & 1) * (n >> 1) + (b >> 1) : b;
+}
+
+// (idx / n, idx % n) over a frame's n bins: by shifts at a power of two
+// (lg = log2 n), by division at any other n (kMixed).
+template <bool kMixed>
+__device__ __forceinline__ int2 split_bins(int idx, int n, int lg) {
+  if constexpr (kMixed) {
+    const int q = idx / n;
+    return make_int2(q, idx - q * n);
+  } else {
+    return make_int2(idx >> lg, idx & (n - 1));
+  }
+}
+
+// exp(-2 pi i m / n) for 0 <= m < n, n even, from the table of its first
+// half.
+__device__ __forceinline__ float2 twiddle_any(const float2* tw, int m,
+                                              int half) {
+  if (m < half) return tw[m];
+  const float2 t = tw[m - half];
+  return make_float2(-t.x, -t.y);
+}
+
+// A radix-16 pass of a Stockham sequence of N points at buf (fft_pass,
+// its loads and stores through the swizzle where swz_in / swz_out say)
+// for N <= kFftMaxSub, the twiddle exp(-2 pi i e / N) read at e ts of the
+// table of n = N ts points (half = n / 2).  Its radix-16 passes come first,
+// so Ns is a power of two.
+__device__ __noinline__ void fft_pass16(float2* buf, const float2* tw, int N,
+                                        int ns, int ts, int half, bool swz_in,
+                                        bool swz_out) {
+  constexpr int R = 16;
+  constexpr int kPer = kFftMaxSub / (R * kThreads);
+  const int nb = N / R;
+  const int d = N / (ns * R) * ts;
+  float2 v[kPer][R];
+#pragma unroll
+  for (int p = 0; p < kPer; ++p) {
+    const int j = threadIdx.x + p * kThreads;
+    if (j < nb) {
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const int i = j + r * nb;
+        v[p][r] = buf[swz_in ? swz<true>(i) : i];
+      }
+      if (ns > 1) {
+        const int step = (j & (ns - 1)) * d;
+#pragma unroll
+        for (int r = 1; r < R; ++r) {
+          v[p][r] = cmul(v[p][r], twiddle_any(tw, r * step, half));
+        }
+      }
+      dif_stages<R, R / 2>(v[p]);
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int p = 0; p < kPer; ++p) {
+    const int j = threadIdx.x + p * kThreads;
+    if (j < nb) {
+      const int k = j & (ns - 1);
+      const int base = (j - k) * R + k;
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const int i = base + r * ns;
+        buf[swz_out ? swz<true>(i) : i] = v[p][bitrev(r, 4)];
+      }
+    }
+  }
+  __syncthreads();
+}
+
+// A pass of any radix R with stride Ns over the N points at buf, each
+// output a direct R-point DFT with its input twiddles folded in: output r
+// of butterfly j (o = r N / R + j, thread-owned) is
+//   sum_s buf[j + s N / R] exp(-2 pi i s (k + r Ns) N / (Ns R) / N),
+// k = j mod Ns, each exponent kept below n by one subtraction, summed in
+// two chains (even and odd s) to halve the adds' latency; every output is
+// held across the barrier and stored at (j - k) R + k + r Ns.  A thread's
+// outputs step kThreads apart, so (r, j) steps without a division.
+__device__ __noinline__ void fft_pass_direct(float2* buf, const float2* tw,
+                                             int N, int R, int ns, int ts,
+                                             int half) {
+  const int nb = N / R;
+  const int n = N * ts;
+  const int d = N / (ns * R) * ts;
+  const bool ns_pow2 = (ns & (ns - 1)) == 0;
+  const int r0 = static_cast<int>(threadIdx.x) / nb;
+  const int j0 = static_cast<int>(threadIdx.x) - r0 * nb;
+  float2 y[kDirectPer];
+  int r = r0, j = j0;
+#pragma unroll
+  for (int i = 0; i < kDirectPer; ++i) {
+    if (r >= R) break;   // the thread's outputs are done
+    const int k = ns_pow2 ? (j & (ns - 1)) : j % ns;
+    const int inc = (k + r * ns) * d;
+    float2 a0 = buf[j];
+    float2 a1 = make_float2(0.f, 0.f);
+    int m = 0;
+    int s = 1;
+    for (; s + 1 < R; s += 2) {
+      m += inc;
+      if (m >= n) m -= n;
+      a1 = cadd(a1, cmul(buf[j + s * nb], twiddle_any(tw, m, half)));
+      m += inc;
+      if (m >= n) m -= n;
+      a0 = cadd(a0, cmul(buf[j + (s + 1) * nb], twiddle_any(tw, m, half)));
+    }
+    if (s < R) {
+      m += inc;
+      if (m >= n) m -= n;
+      a1 = cadd(a1, cmul(buf[j + s * nb], twiddle_any(tw, m, half)));
+    }
+    y[i] = cadd(a0, a1);
+    for (j += kThreads; j >= nb; j -= nb) ++r;
+  }
+  __syncthreads();
+  r = r0;
+  j = j0;
+#pragma unroll
+  for (int i = 0; i < kDirectPer; ++i) {
+    if (r >= R) break;
+    const int k = ns_pow2 ? (j & (ns - 1)) : j % ns;
+    buf[(j - k) * R + k + r * ns] = y[i];
+    for (j += kThreads; j >= nb; j -= nb) ++r;
+  }
+  __syncthreads();
+}
+
+// The Stockham sequence of N = 2^a q points (64 <= 2^a, N <= kFftMaxSub,
+// q odd) at buf, natural order after it (fx_fused.fft_radices): radix 16
+// while 16 divides 2^a (where pass 1 is one of these, pass 0 stores
+// swizzled and pass 1 loads so), then the rest of 2^a (2, 4 or 8) and
+// each odd prime factor of q, smallest first, as direct DFTs.
+__device__ __forceinline__ void fft_stockham(float2* buf, const float2* tw,
+                                             int N, int ts, int half) {
+  int p2 = N & -N;
+  const bool swz = p2 % 256 == 0;   // pass 1 is a radix-16 pass
+  int ns = 1;
+  for (; p2 % 16 == 0; p2 /= 16, ns *= 16) {
+    fft_pass16(buf, tw, N, ns, ts, half, swz && ns == 16, swz && ns == 1);
+  }
+  if (p2 > 1) {
+    fft_pass_direct(buf, tw, N, p2, ns, ts, half);
+    ns *= p2;
+  }
+  int q = N / ns;
+  for (int f = 3; q > 1; f += 2) {
+    while (q % f == 0) {
+      fft_pass_direct(buf, tw, N, f, ns, ts, half);
+      ns *= f;
+      q /= f;
+    }
+  }
+}
+
+// The FFT of every bin count fft_sized does not take (header above), over
+// the slot `off` float2 into the frame kernel's dynamic shared memory, the
+// twiddle table at `tw_off`: only the kernels of those bin counts
+// (fx_frames_kernel's kMixed) call it, so the radix-16 sizes' kernels
+// compile as they did without it.  Not inlined, nor are its passes: one
+// body each (inlined into one, the passes spilled some 10 KB a thread and
+// ptxas took minutes).
+__device__ __noinline__ void fft_mixed(int off, int tw_off, int n) {
+  float2* buf = fx_smem + off;
+  const float2* tw = fx_smem + tw_off;
+  const int half = n >> 1;
+  if (n <= kFftMaxSub) {
+    fft_stockham(buf, tw, n, 1, half);
+    return;
+  }
+  fft_stockham(buf, tw, half, 2, half);         // the even samples' DFT
+  fft_stockham(buf + half, tw, half, 2, half);  // the odd samples'
+  for (int k = threadIdx.x; k < half; k += kThreads) {
+    const float2 a = buf[k];
+    const float2 b = cmul(buf[k + half], tw[k]);
+    buf[k] = cadd(a, b);
+    buf[k + half] = csub(a, b);
+  }
+  __syncthreads();
+}
+
 // The first `npasses` passes of the FFT of 2^log2n points (8 to 13).
 __device__ __forceinline__ void fft_inplace(int off, int tw_off, int log2n,
                                             int npasses) {
@@ -780,10 +1002,12 @@ __device__ __forceinline__ int fft_passes(int log2n) {
   }
 }
 
-// FIR policies: fir(rows, tab, c, e0, m, ntaps, nbins, out, sum) writes the
-// FIR output of the frame over merged rows e0 .. e0+ntaps-1 of [history; x],
-// each losing the mean m gives it, to out[bin] for this thread's bins, and
-// hands the newest row's values to `sum` (NoSum: nothing is compiled).
+// FIR policies: fir.run<kSlot>(rows, tab, c, e0, m, ntaps, nbins, out,
+// sum) writes the FIR output of the frame over merged rows e0 ..
+// e0+ntaps-1 of [history; x], each losing the mean m gives it, to
+// out[bin] for this thread's bins (kSlot: to out[fft_slot(bin)], the
+// mixed-radix FFT's order), and hands the newest row's values to `sum`
+// (NoSum: nothing is compiled).
 // DirectFir is the tap loop over the window w [ntaps, nbins], kBins bins
 // at a time (each bin's sum still runs in tap order): 8, so a tap's 8
 // sample loads and 8 window loads are in flight together (16 bins, or
@@ -796,10 +1020,10 @@ struct DirectFir {
 
   size_t table_bytes(int) const { return 0; }
   __device__ void stage(float*, int) const {}
-  template <class Rows, class Sum>
-  __device__ void operator()(const Rows& rows, const float*, int c,
-                             long long e0, const RowMeans& m, int ntaps,
-                             int nbins, float2* out, Sum& sum) const {
+  template <bool kSlot, class Rows, class Sum>
+  __device__ void run(const Rows& rows, const float*, int c, long long e0,
+                      const RowMeans& m, int ntaps, int nbins, float2* out,
+                      Sum& sum) const {
     for (int b0 = threadIdx.x; b0 < nbins; b0 += kBins * kThreads) {
       const int nb = min(kBins, (nbins - b0 + kThreads - 1) / kThreads);
       float2 acc[kBins];
@@ -822,7 +1046,10 @@ struct DirectFir {
       });
 #pragma unroll
       for (int j = 0; j < kBins; ++j) {
-        if (j < nb) out[b0 + j * kThreads] = acc[j];
+        if (j < nb) {
+          const int bin = b0 + j * kThreads;
+          out[kSlot ? fft_slot(bin, nbins) : bin] = acc[j];
+        }
       }
     }
   }
@@ -848,10 +1075,10 @@ struct SvdFir {
   __device__ void stage(float* tab, int ntaps) const {
     for (int i = threadIdx.x; i < ntaps * rank; i += kThreads) tab[i] = u[i];
   }
-  template <class Rows, class Sum>
-  __device__ void operator()(const Rows& rows, const float* tab, int c,
-                             long long e0, const RowMeans& m, int ntaps,
-                             int nbins, float2* out, Sum& sum) const {
+  template <bool kSlot, class Rows, class Sum>
+  __device__ void run(const Rows& rows, const float* tab, int c, long long e0,
+                      const RowMeans& m, int ntaps, int nbins, float2* out,
+                      Sum& sum) const {
     for (int bin = threadIdx.x; bin < nbins; bin += kThreads) {
       float2 ck[kMaxRank];
 #pragma unroll
@@ -879,7 +1106,7 @@ struct SvdFir {
           acc.y += vk * ck[k].y;
         }
       }
-      out[bin] = acc;
+      out[kSlot ? fft_slot(bin, nbins) : bin] = acc;
     }
   }
 };
@@ -960,19 +1187,25 @@ __device__ __forceinline__ const float2* partner_spec(float2* spec,
 
 // The cross power of every pair over this CTA's bins of the frame, added
 // to rows 0 .. nbl-1 of out [rows, nbins] (written at the group's first
-// frame): each element is owned by one thread, no atomics.
+// frame): each element is owned by one thread, no atomics.  CTA r of the
+// cluster takes bins [r, r + 1) * nbins / csize: by shifts at a power of
+// two (log2n, fft_log2), by division at any other bin count (kMixed; nbins
+// is even).
+template <bool kMixed>
 __device__ __forceinline__ void cross_power(const float2* spec,
                                             const float2* other,
                                             const Cta& cta,
                                             const int* __restrict__ pairs,
                                             float2* out, int nbl, int nbins,
                                             int log2n, bool first) {
-  const int hbits = log2n - (cta.csize - 1);
-  const int hmask = (1 << hbits) - 1;
-  const int bin0 = cta.rank << hbits;
-  for (int idx = threadIdx.x; idx < (nbl << hbits); idx += kThreads) {
-    const int l = idx >> hbits;
-    const int bin = bin0 + (idx & hmask);
+  const int part = nbins >> (cta.csize - 1);   // csize is 1 or 2
+  const int hbits = log2n - (cta.csize - 1);   // unused where kMixed
+  const int bin0 = cta.rank * part;
+  const int n_pairs = kMixed ? nbl * part : nbl << hbits;
+  for (int idx = threadIdx.x; idx < n_pairs; idx += kThreads) {
+    const int2 lb = split_bins<kMixed>(idx, part, hbits);
+    const int l = lb.x;
+    const int bin = bin0 + lb.y;
     const int p = __ldg(pairs + 2 * l);
     const int q = __ldg(pairs + 2 * l + 1);
     const float2 v = cmulconj(channel_spec(spec, other, cta, p, nbins)[bin],
@@ -998,13 +1231,14 @@ struct CrossOut {
 
   __device__ void channel_done(const float2*, const Cta&, int, int,
                                int) const {}
+  template <bool kMixed>
   __device__ void frame_done(float2* spec, const Cta& cta, int nch, int f,
                              int f0, int nbins, int log2n) const {
     cg::cluster_group cl = cg::this_cluster();
     cl.sync();   // every channel's spectrum of frame f is done
-    cross_power(spec, partner_spec(spec, cta), cta, pairs,
-                partial + cta.part * nbl * nbins, nbl, nbins, log2n,
-                f == f0);
+    cross_power<kMixed>(spec, partner_spec(spec, cta), cta, pairs,
+                        partial + cta.part * nbl * nbins, nbl, nbins, log2n,
+                        f == f0);
     cl.sync();   // the partner has read them: they may be overwritten
   }
   // kStageFft's output: bin threadIdx.x of every channel's spectrum summed
@@ -1042,6 +1276,7 @@ struct SpecOut {
       out[bin] = own[bin];
     }
   }
+  template <bool kMixed>
   __device__ void frame_done(float2*, const Cta&, int, int, int, int,
                              int) const {
     __syncthreads();  // the next frame's FIR overwrites the slot
@@ -1083,28 +1318,32 @@ struct PartsOut {
       wsum[i] = Pair{0, 0};
     }
   }
+  template <bool kMixed>
   __device__ void frame_done(float2* spec, const Cta& cta, int, int f,
                              int f0, int nbins, int log2n) const {
     cg::cluster_group cl = cg::this_cluster();
     float2* out = partial + cta.part * (nbl + 2 * nch) * nbins;
     const bool first = f == f0;
     cl.sync();   // every channel's spectrum of frame f is done
-    cross_power(spec, partner_spec(spec, cta), cta, pairs, out, nbl, nbins,
-                log2n, first);
+    cross_power<kMixed>(spec, partner_spec(spec, cta), cta, pairs, out, nbl,
+                        nbins, log2n, first);
     // T and GJ of the CTA's own channels, from its own slots
     const int nlocal = (nch - cta.c0 + cta.cstep - 1) / cta.cstep;
+    const int n_own = kMixed ? nlocal * nbins : nlocal << log2n;
     float2* tsum = out + static_cast<size_t>(nbl) * nbins;
-    for (int idx = threadIdx.x; idx < (nlocal << log2n); idx += kThreads) {
-      const int c = cta.c0 + (idx >> log2n) * cta.cstep;
-      const size_t o = static_cast<size_t>(c) * nbins + (idx & (nbins - 1));
+    for (int idx = threadIdx.x; idx < n_own; idx += kThreads) {
+      const int2 cb = split_bins<kMixed>(idx, nbins, log2n);
+      const int c = cta.c0 + cb.x * cta.cstep;
+      const size_t o = static_cast<size_t>(c) * nbins + cb.y;
       tsum[o] = first ? spec[idx] : cadd(tsum[o], spec[idx]);
     }
     if (f < halo) {   // then f0 < halo too: the group's first frame wrote gj
       float2* gj = tsum + static_cast<size_t>(nch) * nbins;
       const float2* dj = da + static_cast<size_t>(f) * nbins;
-      for (int idx = threadIdx.x; idx < (nlocal << log2n); idx += kThreads) {
-        const int c = cta.c0 + (idx >> log2n) * cta.cstep;
-        const int bin = idx & (nbins - 1);
+      for (int idx = threadIdx.x; idx < n_own; idx += kThreads) {
+        const int2 cb = split_bins<kMixed>(idx, nbins, log2n);
+        const int c = cta.c0 + cb.x * cta.cstep;
+        const int bin = cb.y;
         const size_t o = static_cast<size_t>(c) * nbins + bin;
         const float2 v = cmulconj(spec[idx], __ldg(dj + bin));
         gj[o] = first ? v : cadd(gj[o], v);
@@ -1149,6 +1388,7 @@ struct WideOut : PartsOut<T> {
       out[bin] = own[bin];
     }
   }
+  template <bool kMixed>
   __device__ void frame_done(float2*, const Cta&, int, int, int, int,
                              int) const {
     __syncthreads();  // the next frame's FIR overwrites the slot
@@ -1168,11 +1408,16 @@ struct WideOut : PartsOut<T> {
 //                                 keeps its warps' sample sums there
 //   tab   [ntaps * r]    float  — SvdFir's u (none for DirectFir)
 // For each frame and each of the CTA's channels: the FIR over ntaps rows of
-// [history; x] (read through `rows`) into the channel's slot, the radix-16
-// FFT in place there, then the output policy.  Stage truncates the frame
+// [history; x] (read through `rows`) into the channel's slot, the FFT in
+// place there, then the output policy.  The FFT is radix 16 at a power of
+// two in [256, 8192] (log2n = log2 nbins); every other bin count runs the
+// kMixed instance (log2n -1): fft_mixed, the FIR's output stored at
+// fft_slot's places, and a frame's bins split by division.  Stage
+// truncates the frame
 // for the ablation (kStageFull: nothing is truncated; every branch on Stage
 // is an `if constexpr`, so that instantiation is the production code).
-template <class Rows, class Fir, class Out, int Stage = kStageFull>
+template <class Rows, class Fir, class Out, int Stage = kStageFull,
+          bool kMixed = false>
 __global__ void __launch_bounds__(kThreads, 2)
 fx_frames_kernel(Rows rows, Fir fir, Out out, const float2* __restrict__ tw,
                  int nch, int S, int nbins, int log2n, int ntaps,
@@ -1225,7 +1470,8 @@ fx_frames_kernel(Rows rows, Fir fir, Out out, const float2* __restrict__ tw,
         tap_sum<Fir::kBins, Fir::kTaps>(RawRows<Rows>{rows}, c, e0, m, ntaps,
                                         nbins, own);
       } else {
-        fir(rows, tab, c, e0, m, ntaps, nbins, own, sum);
+        fir.template run<kMixed>(rows, tab, c, e0, m, ntaps, nbins, own,
+                                 sum);
       }
       if constexpr (Out::kParts) {
         sum.flush(reinterpret_cast<typename Out::Pair*>(mean_s), c);
@@ -1233,14 +1479,18 @@ fx_frames_kernel(Rows rows, Fir fir, Out out, const float2* __restrict__ tw,
       __syncthreads();
       if constexpr (Stage != kStageLoad && Stage != kStageLoadRaw &&
                     Stage != kStageFir) {
-        fft_inplace(li * nbins, tw_off, log2n, npasses);
+        if constexpr (kMixed) {
+          fft_mixed(li * nbins, tw_off, nbins);
+        } else {
+          fft_inplace(li * nbins, tw_off, log2n, npasses);
+        }
       }
       out.channel_done(own, cta, c, f, nbins);
     }
     if constexpr (Stage == kStageFft) {
       out.touch(spec, cta, nch, f, f0, nbins);
     } else {
-      out.frame_done(spec, cta, nch, f, f0, nbins, log2n);
+      out.template frame_done<kMixed>(spec, cta, nch, f, f0, nbins, log2n);
     }
   }
   if constexpr (Out::kParts) {
@@ -1508,12 +1758,6 @@ int reduce_blocks(long long n) {
   return static_cast<int>((n + kThreads - 1) / kThreads);
 }
 
-int log2_of(int n) {
-  int k = 0;
-  while ((1 << k) < n) ++k;
-  return k;
-}
-
 // The frame kernel of any mode over K blocks, on `st`, with chan_slots
 // float2 per channel of shared memory after the spectra; `pre` puts
 // whatever must run before it on the stream (the two-pass entries' mean
@@ -1535,7 +1779,18 @@ cudaError_t launch_frames(const Rows& rows, const Fir& fir, const Out& out,
        static_cast<size_t>(nch) * chan_slots) *
           sizeof(float2) +
       fir.table_bytes(ntaps);
+  // the radix-16 sizes' kernel, or its kMixed instance at every other bin
+  // count (where the ablation runs its fir, fft and full stages only)
+  const int log2n = fft_log2(nbins);
   auto* kernel = &fx_frames_kernel<Rows, Fir, Out, Stage>;
+  if (log2n < 0) {
+    if constexpr (Stage == kStageFull || Stage == kStageFir ||
+                  Stage == kStageFft) {
+      kernel = &fx_frames_kernel<Rows, Fir, Out, Stage, true>;
+    } else {
+      return cudaErrorInvalidValue;
+    }
+  }
   cudaError_t err = cudaFuncSetAttribute(
       reinterpret_cast<const void*>(kernel),
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
@@ -1557,7 +1812,7 @@ cudaError_t launch_frames(const Rows& rows, const Fir& fir, const Out& out,
   cfg.numAttrs = 1;
   err = cudaLaunchKernelEx(&cfg, kernel, rows, fir, out,
                            static_cast<const float2*>(tw), nch, S, nbins,
-                           log2_of(nbins), ntaps, frames_per_group, parts,
+                           log2n, ntaps, frames_per_group, parts,
                            chan_slots);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
@@ -1802,12 +2057,21 @@ int fx_i8(int stage, const void* x, const void* tail, const void* mu_prev,
 
 }  // namespace
 
-// This source is compiled three times, so that nvcc builds its kernels in
-// parallel: alone, for the production entry points below, and included by
-// fx_ablate_c64.cu and fx_ablate_i8.cu, each of which defines its macro
-// and builds one ablation entry point (its six stages' frame kernels).
-#if !defined(FXT_ABLATE_C64) && !defined(FXT_ABLATE_I8)
+// This source is compiled five times, so that nvcc builds its kernels in
+// parallel (every frame kernel compiles its FFT's functions anew, so a unit
+// of many frame kernels is slow to build): alone, for the two-pass entry
+// points, the reduce alone and the spectrometer below; included by
+// fx_parts.cu (FXT_UNIT_PARTS: the single pass's shared route, fxt_fx_parts
+// and fxt_fx_parts_i8), by fx_wide.cu (FXT_UNIT_WIDE: its wide route's
+// frames, fxt_fx_wide_frames and fxt_fx_wide_frames_i8), and by
+// fx_ablate_c64.cu and fx_ablate_i8.cu, each of which builds one ablation
+// entry point (its six stages' frame kernels).
+#if defined(FXT_ABLATE_C64) || defined(FXT_ABLATE_I8) || \
+    defined(FXT_UNIT_PARTS) || defined(FXT_UNIT_WIDE)
+#define FXT_NOT_MAIN_UNIT
+#endif
 
+#ifdef FXT_UNIT_PARTS
 namespace fxt {
 
 int parts_step(bool int8, const void* x, const void* hist, const void* w,
@@ -1836,6 +2100,12 @@ int parts_step(bool int8, const void* x, const void* hist, const void* w,
                           n_groups, frames_per_group, 1.0, dependent, st);
 }
 
+}  // namespace fxt
+#endif  // FXT_UNIT_PARTS
+
+#ifdef FXT_UNIT_WIDE
+namespace fxt {
+
 int wide_frames(bool int8, const void* x, const void* hist, const void* w,
                 const void* u, const void* v, const void* tw, void* sums,
                 void* spec, int nch, int K, int S, int nbins, int ntaps,
@@ -1860,13 +2130,16 @@ int wide_frames(bool int8, const void* x, const void* hist, const void* w,
 }
 
 }  // namespace fxt
+#endif  // FXT_UNIT_WIDE
 
+#ifndef FXT_NOT_MAIN_UNIT
 // Launch the three kernels of the complex64 mode over K blocks on
 // `stream`.  The caller (fx_fused.py) has checked shapes, types,
-// contiguity and that nbins is a power of two in [256, 8192] with ntaps >=
-// 2 and rank in [0, 16] (0: the direct loop over w; else u [ntaps, rank]
-// and v [rank, nbins]).  x is [nch, K, S, nbins]; each block has n_groups
-// groups of frames_per_group frames.  Scratch: sums [K, nch, parts]
+// contiguity and that nbins is a multiple of 128 in [256, 16384]
+// (fx_fused.kernel_bins) with ntaps >= 2 and rank in [0, 16] (0: the
+// direct loop over w; else u [ntaps, rank] and v [rank, nbins]).  x is
+// [nch, K, S, nbins]; each block has n_groups groups of frames_per_group
+// frames.  Scratch: sums [K, nch, parts]
 // double2, partial [K, n_groups, nbl, nbins] float2.  Writes xp [K, nbl,
 // nbins] and new_hist [nch, ntaps-1, nbins].  Returns cudaGetLastError().
 extern "C" int fxt_fx_fused(const void* x, const void* hist, const void* w,
@@ -2054,12 +2327,12 @@ extern "C" int fxt_fx_ablate_i8(const void* x, const void* tail,
 
 #endif  // FXT_ABLATE_I8
 
-#if !defined(FXT_ABLATE_C64) && !defined(FXT_ABLATE_I8)
+#ifndef FXT_NOT_MAIN_UNIT
 // Launch the spectrometer on `stream`: the mean pre-pass over all nsamp
 // samples of each channel, the frame kernel with the spectra written to
 // spec [nch, S, nbins], and (ntaps > 1) the new history.  The caller
 // (spectrometer.py) has checked shapes, types, contiguity, that nbins is a
-// power of two in [256, 8192], ntaps >= 1 and S >= 1.  Scratch: sums
+// multiple of 128 in [256, 16384], ntaps >= 1 and S >= 1.  Scratch: sums
 // [nch, parts] double2.  Returns cudaGetLastError().
 extern "C" int fxt_spectrometer(const void* x, const void* hist,
                                 const void* w, const void* tw, void* sums,

@@ -102,7 +102,10 @@ def _resolve_fused(fused, device: torch.device, nbins: int, ntaps: int,
         if device.type == "cuda" and not takes:
             logger.warning(
                 "fused='auto' takes the plain torch route on %s: the "
-                "%s single-pass kernels do not take %s (%s)", device,
+                "%s single-pass kernels do not take %s (%s: nbins a "
+                "multiple of 128 from 256 to 16384, fxtpu's _kernel_factor "
+                "rule, where fxtpu runs XLA too; up to 64 channels; a block "
+                "of at least ntaps-1 rows)", device,
                 "int8" if int8 else "complex64", shape, check)
         return device.type == "cuda" and takes
     if fused is True:

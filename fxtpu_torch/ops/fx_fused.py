@@ -111,10 +111,12 @@ __all__ = ["supported", "supported_i8", "fx_fused_raw",
            "fx_fused_parts_i8_wide_reference", "supported_parts", "x_route",
            "max_blocks_parts", "fx_fused_ablate",
            "fx_fused_ablate_reference", "stockham_stages", "fft_radices",
-           "fft_passes", "frame_ctas", "frame_shared_bytes",
+           "fft_passes", "fft_slot", "frame_ctas", "frame_shared_bytes",
+           "kernel_bins", "wide_route_bytes", "FFT_MAX_SUB",
            "shared_route_bytes", "cluster_size", "max_blocks",
            "pairs_tensor", "svd_tensors", "MAX_SHARED_BYTES", "CLUSTER_CTAS",
            "MAX_SVD_RANK", "MAX_FUSED_NCHAN", "X_STAGES", "STAGES",
+           "MIXED_STAGES",
            "FFT_STAGE_BINS"]
 
 #: Dynamic shared memory one block may use on Hopper (227 KiB).
@@ -152,8 +154,29 @@ MAX_BLOCKS = 65535
 #: FIR; after the first ``floor(passes / 2)`` of the FFT's radix passes
 #: (:func:`fft_radices`); after all of them, with no X stage.
 STAGES = ("full", "load", "load_raw", "fir", "fft_half", "fft")
+#: The stages the ablation runs at bin counts that are not a power of two
+#: in [256, 8192] (the frame kernel's mixed-radix instance): enough for
+#: the FFT's own time, ``fft - fir``.
+MIXED_STAGES = ("full", "fir", "fft")
 #: Bins of baseline 0 that stage ``"fft"`` writes (one per thread).
 FFT_STAGE_BINS = 256
+#: The largest FFT the frame kernel runs as one Stockham sequence over its
+#: slot (``kFftMaxSub``); above it, two halves of n/2 points and a radix-2
+#: pass (:func:`fft_radices`).
+FFT_MAX_SUB = 8192
+
+
+def kernel_bins(nbins: int) -> bool:
+    """True for the bin counts the frame kernel's FFT takes: those of
+    ``fxtpu``'s Pallas kernels (``_kernel_factor``, ``pfb_pallas.py:75-81``),
+    every multiple of 128 from 256 to 16,384."""
+    return nbins % 128 == 0 and 2 <= nbins // 128 <= 128
+
+
+def _pow2_bins(nbins: int) -> bool:
+    """The bin counts of the radix-16 FFT (``fft_sized``): a power of two
+    in [256, 8192]; every other count runs the mixed-radix one."""
+    return 256 <= nbins <= FFT_MAX_SUB and nbins & (nbins - 1) == 0
 
 
 def shared_route_bytes(nbins: int, nch: int, ntaps: int = 0, rank: int = 0,
@@ -177,7 +200,14 @@ def wide_route_bytes(nbins: int, nch: int, ntaps: int = 0,
     """The wide route's rule (:func:`supported_parts`), sized like
     :func:`shared_route_bytes` for its one-slot frame kernel: a spectrum,
     an FFT work buffer, the warps' sample sums of every channel and the
-    SVD table u."""
+    SVD table u.  Above :data:`FFT_MAX_SUB` bins, where the spectrum and
+    that buffer (2 x 16384 x 8 B at 16,384 bins) exceed a CTA's shared
+    memory, the rule is the launch's own footprint
+    (:func:`frame_shared_bytes`, one slot: the spectrum and the twiddle
+    table)."""
+    if nbins > FFT_MAX_SUB:
+        return frame_shared_bytes(nbins, nch, ntaps, rank, PARTS_CHAN_SLOTS,
+                                  one_slot=True)
     return ((2 * nbins + nch * PARTS_CHAN_SLOTS) * 8
             + ntaps * rank * 4)
 
@@ -236,13 +266,14 @@ def mean_blocks(k: int, s_rows: int, ntaps: int) -> int:
 
 
 def supported(nbins: int, ntaps: int, nch: int, rank: int = 0) -> bool:
-    """True when the CUDA kernels take this shape: nbins a power of two
-    in [256, 8192], ntaps >= 2, an SVD rank in [0, MAX_SVD_RANK] (0: the
-    direct tap loop), and the shared route's rule holds
+    """True when the CUDA kernels take this shape: nbins a multiple of 128
+    in [256, 16384] (:func:`kernel_bins`), ntaps >= 2, an SVD rank in [0,
+    MAX_SVD_RANK] (0: the direct tap loop), and the shared route's rule
+    holds
     (:func:`shared_route_bytes` of every channel's spectrum, an FFT work
     buffer, the u table and the single pass's sample sums within
     MAX_SHARED_BYTES; a launch asks for less, :func:`frame_shared_bytes`)."""
-    return (256 <= nbins <= 8192 and nbins & (nbins - 1) == 0
+    return (kernel_bins(nbins)
             and ntaps >= 2 and nch >= 1 and 0 <= rank <= MAX_SVD_RANK
             and shared_route_bytes(nbins, nch, ntaps, rank, PARTS_CHAN_SLOTS)
             <= MAX_SHARED_BYTES)
@@ -263,7 +294,8 @@ def supported_i8(nbins: int, ntaps: int, nch: int, s_rows: int,
 def supported_parts(nbins: int, ntaps: int, nch: int, s_rows: int,
                     rank: int = 0) -> bool:
     """True when the single-pass kernels take this shape, in either
-    ingest: nbins a power of two in [256, 8192], ntaps >= 2, an SVD rank
+    ingest: nbins a multiple of 128 in [256, 16384] (:func:`kernel_bins`:
+    ``fxtpu``'s Pallas kernels take the same), ntaps >= 2, an SVD rank
     in [0, MAX_SVD_RANK], 1 to MAX_FUSED_NCHAN channels (``fxtpu``'s
     bound), a block of at least ntaps-1 rows (the post-hoc correction
     assumes that a block's first ntaps-1 frames reach into the previous
@@ -272,7 +304,7 @@ def supported_parts(nbins: int, ntaps: int, nch: int, s_rows: int,
     :func:`supported` holds, else the wide route, whose frame kernel and X
     kernel fit for every such nch.  An engine's blocks always hold ntaps
     rows (the config's bound)."""
-    if not (256 <= nbins <= 8192 and nbins & (nbins - 1) == 0
+    if not (kernel_bins(nbins)
             and ntaps >= 2 and 1 <= nch <= MAX_FUSED_NCHAN
             and 0 <= rank <= MAX_SVD_RANK and s_rows >= ntaps - 1):
         return False
@@ -521,11 +553,12 @@ def _check(x, history, window2d, pairs, svd, multi=False, blocks=True,
     return rank
 
 
-def _check_i8(x, history, window2d, pairs, quant_step, svd, multi=False):
+def _check_i8(x, history, window2d, pairs, quant_step, svd, multi=False,
+              **kw):
     if not isinstance(history, dict) or set(history) != {"tail", "mu_prev"}:
         raise TypeError('history must be {"tail": ..., "mu_prev": ...}')
     return _check_i8_rows(x, history["tail"], window2d, pairs, quant_step,
-                          svd, multi, mu_prev=history["mu_prev"])
+                          svd, multi, mu_prev=history["mu_prev"], **kw)
 
 
 def _check_i8_rows(x, tail, window2d, pairs, quant_step, svd, multi=False,
@@ -1260,21 +1293,108 @@ def stockham_stages(x: torch.Tensor, nstages: int) -> torch.Tensor:
     return a
 
 
+def _stockham_radices(n: int) -> tuple:
+    """The passes of ``fft_mixed``'s Stockham sequence over n = 2^a q
+    points (q odd, 2^a >= 64): radix 16 while 16 divides 2^a, then the
+    rest of 2^a (2, 4 or 8) and each odd prime factor of q, smallest
+    first (``fft_stockham``)."""
+    p2 = n & -n
+    radices = []
+    while p2 % 16 == 0:
+        radices.append(16)
+        p2 //= 16
+    if p2 > 1:
+        radices.append(p2)
+    q, f = n // (n & -n), 3
+    while q > 1:
+        while q % f == 0:
+            radices.append(f)
+            q //= f
+        f += 2
+    return tuple(radices)
+
+
 def fft_radices(n: int) -> tuple:
-    """The radices of the frame kernel's FFT passes over ``n`` points
-    (``csrc/fx_fused.cu``'s ``fft_inplace``): 16 and 16 at 256 points,
-    then one pass of radix ``n / 256`` (2 to 32) at 512 to 8192."""
-    log2n = n.bit_length() - 1
-    if n != 1 << log2n or not 8 <= log2n <= 13:
-        raise ValueError(f"the frame kernel's FFT takes 256 to 8192 points "
-                         f"(a power of two), not {n}")
-    return (16, 16) if log2n == 8 else (16, 16, n >> 8)
+    """The radices of the frame kernel's FFT passes over ``n`` points, in
+    the order they run (``csrc/fx_fused.cu``), for every n
+    :func:`kernel_bins` takes: at a power of two in [256, 8192] 16 and 16,
+    then one pass of radix ``n / 256`` (``fft_sized``); at any other n up
+    to :data:`FFT_MAX_SUB` the Stockham sequence of ``fft_mixed`` (radix 16
+    while 16 divides the power of two, then the rest of it and the odd
+    prime factors); above it the sequence of ``n / 2`` points, run over
+    each half of the slot, and a last radix-2 pass that combines the
+    halves."""
+    if not kernel_bins(n):
+        raise ValueError(f"the frame kernel's FFT takes n = 128 m points, "
+                         f"2 <= m <= 128 (256 to 16384), not {n}")
+    if _pow2_bins(n):
+        return (16, 16) if n == 256 else (16, 16, n >> 8)
+    if n > FFT_MAX_SUB:
+        return (*_stockham_radices(n // 2), 2)
+    return _stockham_radices(n)
 
 
 def _fft_swizzle(idx: torch.Tensor) -> torch.Tensor:
     """Where pass 0 stores, and pass 1 loads, logical point ``idx`` in the
     kernel's slot (``L ^ ((L >> 4) & 15)``: keeps both off one bank)."""
     return idx ^ ((idx >> 4) & 15)
+
+
+def _stockham_pass(a: torch.Tensor, radices: tuple, p: int,
+                   tw: torch.Tensor, direct: bool) -> torch.Tensor:
+    """Pass ``p`` of the Stockham sequence ``radices`` over the last axis
+    of ``a`` (N points), its twiddles ``exp(-2 pi i e / N)`` read at ``e
+    n / N`` in ``tw``, the table of n points (``_twiddles``); ``direct``:
+    the pass is a direct DFT (``fft_pass_direct``)."""
+    n_pts = a.shape[-1]
+    half = tw.shape[0]
+    ts = 2 * half // n_pts
+    radix = radices[p]
+    ns = math.prod(radices[:p])
+    nb = n_pts // radix
+    j = torch.arange(nb, device=a.device)[:, None]
+    r = torch.arange(radix, device=a.device)[None, :]
+    load = j + r * nb
+    # pass 0 stores through the swizzle, and pass 1 loads so, where pass 1
+    # is a radix-16 pass
+    swz = len(radices) > 1 and radices[1] == 16
+    if p == 1 and swz:
+        load = _fft_swizzle(load)
+    v = a[..., load]                                       # [..., nb, R]
+    k = j % ns
+
+    def twiddle(m):
+        t = tw[torch.where(m < half, m, m - half)]
+        return torch.where(m >= half, -t, t)
+
+    d = n_pts // (ns * radix) * ts
+    if direct:
+        # fft_pass_direct: output r is the direct R-point DFT with the
+        # input twiddles folded in, exponent s (k + r Ns) d mod n for input s
+        s_in = torch.arange(radix, device=a.device)
+        m = ((k + r * ns) * d)[..., None] * s_in % (2 * half)  # [nb, R, R]
+        v = (v[..., None, :] * twiddle(m)).sum(dim=-1)
+    else:
+        if ns > 1:
+            v = v * twiddle(r * k * d)
+        v = torch.fft.fft(v, dim=-1)
+    store = (j - k) * radix + k + r * ns
+    if p == 0 and swz:
+        store = _fft_swizzle(store)
+    b = torch.empty_like(a)
+    b[..., store.reshape(-1)] = v.reshape(*v.shape[:-2], n_pts)
+    return b
+
+
+def fft_slot(y: torch.Tensor) -> torch.Tensor:
+    """A frame's FIR output ``y`` (last axis, n bins) as the frame kernel
+    stores it for its FFT (``fft_slot`` in ``csrc/fx_fused.cu``): as it is
+    up to :data:`FFT_MAX_SUB` bins, above that the even bins in the first
+    half and the odd ones in the second, where :func:`fft_passes` takes
+    the slot before pass 0."""
+    if y.shape[-1] <= FFT_MAX_SUB:
+        return y
+    return torch.cat([y[..., 0::2], y[..., 1::2]], dim=-1)
 
 
 def fft_passes(x: torch.Tensor, stop: int, start: int = 0) -> torch.Tensor:
@@ -1284,41 +1404,39 @@ def fft_passes(x: torch.Tensor, stop: int, start: int = 0) -> torch.Tensor:
     of a radix-R pass loads points ``j + r n / R``, multiplies point r by
     ``exp(-2 pi i r k / (Ns R))`` (k = j mod Ns, Ns the product of the
     radices before it; :func:`_twiddles`' table and its negation), takes
-    the R-point DFT and stores output r at ``(j - k) R + k + r Ns``.  ``x``
-    and the result are the slot as the kernel leaves it after ``start`` and
-    ``stop`` passes: after pass 0 in the swizzled order pass 1 reads
-    (:func:`_fft_swizzle`), after the last pass the DFT in natural
-    order."""
+    the R-point DFT (in ``fft_mixed`` every radix but 16 as the kernel's
+    ``fft_pass_direct`` takes it: a direct sum over the inputs with each
+    twiddle folded into one exponent) and stores output r at ``(j - k) R
+    + k + r Ns``.  ``x`` and the result are the slot as the kernel leaves
+    it after ``start`` and ``stop`` passes: after pass 0 in the swizzled
+    order pass 1 reads (:func:`_fft_swizzle`; where pass 1 is a radix-16
+    pass, as it is at every power of two), after the last pass the DFT in
+    natural order.  Above :data:`FFT_MAX_SUB` points the slot before pass
+    0 holds the FIR's output even samples first, odd ones after
+    (:func:`fft_slot`); each pass but the last runs on both halves of the
+    slot, the last combines them."""
     n = x.shape[-1]
     radices = fft_radices(n)
     if not 0 <= start <= stop <= len(radices):
         raise ValueError(f"passes {start} .. {stop} of {len(radices)}")
     tw = _twiddles(n, x.device)
-    half = n // 2
-    ns = math.prod(radices[:start])
+    mixed = not _pow2_bins(n)
     a = x
+    if n <= FFT_MAX_SUB:
+        for p in range(start, stop):
+            a = _stockham_pass(a, radices, p, tw,
+                               mixed and radices[p] != 16)
+        return a
+    h = n // 2
     for p in range(start, stop):
-        radix = radices[p]
-        nb = n // radix
-        j = torch.arange(nb, device=x.device)[:, None]
-        r = torch.arange(radix, device=x.device)[None, :]
-        load = j + r * nb
-        if p == 1:
-            load = _fft_swizzle(load)
-        v = a[..., load]                                   # [..., nb, R]
-        k = j & (ns - 1)
-        if ns > 1:
-            m = r * k * (n // (ns * radix))
-            t = tw[m & (half - 1)]
-            v = v * torch.where((m & half) != 0, -t, t)
-        v = torch.fft.fft(v, dim=-1)
-        store = (j - k) * radix + k + r * ns
-        if p == 0:
-            store = _fft_swizzle(store)
-        b = torch.empty_like(a)
-        b[..., store.reshape(-1)] = v.reshape(*v.shape[:-2], n)
-        a = b
-        ns *= radix
+        if p == len(radices) - 1:
+            e, o = a[..., :h], a[..., h:] * tw
+            a = torch.cat([e + o, e - o], dim=-1)
+        else:
+            direct = radices[p] != 16
+            a = torch.cat([_stockham_pass(a[..., :h], radices, p, tw, direct),
+                           _stockham_pass(a[..., h:], radices, p, tw, direct)],
+                          dim=-1)
     return a
 
 
@@ -1328,10 +1446,10 @@ def fx_fused_ablate_reference(x: torch.Tensor, history, window2d: torch.Tensor,
     """The truncated step in plain torch, same contract as
     :func:`fx_fused_ablate`: the merged rows ``[history; x]`` (each block
     losing its own mean, 8-bit samples dequantized; ``"load_raw"``: as they
-    arrived), the stage's share of FIR and FFT passes (:func:`fft_passes`:
-    ``"fft_half"`` the first ``floor(passes / 2)``, the slot as the kernel
-    leaves it), then the cross power of every pair summed over each
-    block's frames."""
+    arrived), the stage's share of FIR and FFT passes (the FIR's output in
+    its slot order, :func:`fft_slot`; :func:`fft_passes`: ``"fft_half"``
+    the first ``floor(passes / 2)``, the slot as the kernel leaves it),
+    then the cross power of every pair summed over each block's frames."""
     if stage not in STAGES:
         raise ValueError(f"stage {stage!r} is not one of {STAGES}")
     int8 = x.dtype == torch.int8
@@ -1359,10 +1477,10 @@ def fx_fused_ablate_reference(x: torch.Tensor, history, window2d: torch.Tensor,
     merged = torch.cat([hist, rows.reshape(nch, k * s_rows, nbins)], dim=1)
     if stage in ("load", "load_raw"):
         y = pfb_fir(merged, torch.ones_like(window2d))
-    elif svd is None:
-        y = pfb_fir(merged, window2d)
     else:
-        y = svd_fir(merged, *svd)
+        # the FIR stores its output where the FFT wants it (fft_slot)
+        y = fft_slot(pfb_fir(merged, window2d) if svd is None
+                     else svd_fir(merged, *svd))
     passes = len(fft_radices(nbins))
     if stage == "fft_half":
         y = fft_passes(y, passes // 2)
@@ -1377,17 +1495,42 @@ def fx_fused_ablate_reference(x: torch.Tensor, history, window2d: torch.Tensor,
     return xp.permute(1, 0, 2).contiguous()
 
 
+def _check_ablate(x, window2d, pairs, rank):
+    """The ablation's launch, which the shared route's rule does not
+    bound (it times the frame kernel, and the FFT, at every bin count
+    :func:`kernel_bins` takes, 16,256 included): its shared memory
+    (:func:`frame_shared_bytes` of a cluster's CTA and the K blocks'
+    means), its grid and its partials within the card's and the
+    launch's limits, and a block of at least ntaps-1 rows for 8-bit
+    samples (:func:`supported_i8`)."""
+    nch, k, s_rows = x.shape[:3]
+    ntaps, nbins = window2d.shape
+    nbl = pairs.shape[0]
+    partial = k * _groups(s_rows, nbl, nbins)[0] * nbl * nbins * 8
+    if not (kernel_bins(nbins) and ntaps >= 2 and 1 <= k <= MAX_BLOCKS
+            and partial <= MAX_LAUNCH_PARTIAL_BYTES
+            and (x.dtype != torch.int8 or s_rows >= ntaps - 1)
+            and frame_shared_bytes(nbins, nch, ntaps, rank, mean_blocks(
+                k, s_rows, ntaps)) <= MAX_SHARED_BYTES):
+        raise ValueError(
+            f"the stage ablation does not take nbins={nbins}, ntaps={ntaps}, "
+            f"nch={nch}, K={k}, S={s_rows}, rank={rank} (fx_fused."
+            "_check_ablate)")
+
+
 def fx_fused_ablate(x: torch.Tensor, history, window2d: torch.Tensor,
                     pairs: torch.Tensor, stage: str, quant_step=None,
                     svd=None) -> torch.Tensor:
     """The fused step over the K blocks of the merged ``x`` with the frame
     kernel truncated after ``stage`` (:data:`STAGES`) -> ``xp [K, nbl,
     nbins]``: the cross power of what the truncated frames left in the
-    channels' slots.  Stage ``"fft"`` runs no X stage and returns ``[K, 1,
-    FFT_STAGE_BINS]``, every channel's spectrum summed over the block's
-    frames at the first bins.  ``x`` complex64 ``[nch, K, S, nbins]`` with
-    a tensor history, or int8 ``[nch, K, S, nbins, 2]`` with the raw-tail
-    dict and ``quant_step``; ``svd`` as for :func:`fx_fused_raw`.  No
+    channels' slots (at bin counts that are not a power of two in [256,
+    8192] the stages of :data:`MIXED_STAGES` only).  Stage ``"fft"`` runs
+    no X stage and returns ``[K, 1, FFT_STAGE_BINS]``, every channel's
+    spectrum summed over the block's frames at the first bins.  ``x``
+    complex64 ``[nch, K, S, nbins]`` with a tensor history, or int8
+    ``[nch, K, S, nbins, 2]`` with the raw-tail dict and ``quant_step``;
+    ``svd`` as for :func:`fx_fused_raw`.  No
     history is returned: a timing harness feeds the same one again.
 
     CPU tensors run :func:`fx_fused_ablate_reference`; CUDA tensors launch
@@ -1395,6 +1538,11 @@ def fx_fused_ablate(x: torch.Tensor, history, window2d: torch.Tensor,
     Each launch adds one to ``fx_fused_ablate.launches``."""
     if stage not in STAGES:
         raise ValueError(f"stage {stage!r} is not one of {STAGES}")
+    if stage not in MIXED_STAGES and not _pow2_bins(window2d.shape[-1]):
+        raise ValueError(f"stage {stage!r} takes nbins a power of two in "
+                         f"[256, {FFT_MAX_SUB}] (the radix-16 FFT's sizes); "
+                         f"at {window2d.shape[-1]} bins the ablation runs "
+                         f"{MIXED_STAGES}")
     int8 = x.dtype == torch.int8
     if int8 and quant_step is None:
         raise ValueError("8-bit samples need their quant_step")
@@ -1406,11 +1554,15 @@ def fx_fused_ablate(x: torch.Tensor, history, window2d: torch.Tensor,
     if int8:
         quant_step = float(quant_step)
         rank = _check_i8(x, history, window2d, pairs, quant_step, svd,
-                         multi=True)
+                         multi=True, blocks=False, fits=False)
+    else:
+        rank = _check(x, history, window2d, pairs, svd, multi=True,
+                      blocks=False, fits=False)
+    _check_ablate(x, window2d, pairs, rank)
+    if int8:
         xp, _ = _launch_i8(x, history, window2d, pairs, quant_step, svd,
                            rank, what, merged=True, stage=index)
     else:
-        rank = _check(x, history, window2d, pairs, svd, multi=True)
         xp, _ = _launch(x, history, window2d, pairs, svd, rank, what,
                         merged=True, stage=index)
     fx_fused_ablate.launches += 1

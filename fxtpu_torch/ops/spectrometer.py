@@ -23,8 +23,9 @@ from __future__ import annotations
 
 import torch
 
-from fxtpu_torch.ops.fx_fused import (MAX_SHARED_BYTES, MEAN_PARTS, _groups,
-                                      _twiddles)
+from fxtpu_torch.ops.fx_fused import (FFT_MAX_SUB, MAX_SHARED_BYTES,
+                                      MEAN_PARTS, _groups, _twiddles,
+                                      frame_shared_bytes, kernel_bins)
 from fxtpu_torch.ops.pfb import dc_remove, spectrometer
 
 __all__ = ["spectrometer_fused", "spectrometer_fused_reference",
@@ -32,14 +33,20 @@ __all__ = ["spectrometer_fused", "spectrometer_fused_reference",
 
 
 def supported_spectrometer(nbins: int, ntaps: int, nch: int) -> bool:
-    """True when the CUDA spectrometer takes this shape: nbins a power of
-    two in [256, 8192], ntaps >= 1, and one spectrum, an FFT work buffer
-    and the channel means within one block's shared memory (the radix-2
-    kernel's footprint, kept as the rule; a launch asks for less:
-    ``fx_fused.frame_shared_bytes(..., one_slot=True)``)."""
-    return (256 <= nbins <= 8192 and nbins & (nbins - 1) == 0
-            and ntaps >= 1 and nch >= 1
-            and (2 * nbins + nch) * 8 <= MAX_SHARED_BYTES)
+    """True when the CUDA spectrometer takes this shape: nbins a multiple
+    of 128 in [256, 16384] (``fx_fused.kernel_bins``, the bin counts of
+    ``spectrometer_pallas``'s kernel), ntaps >= 1, and one spectrum, an
+    FFT work buffer and the channel means within one block's shared
+    memory (the radix-2 kernel's footprint, kept as the rule; a launch
+    asks for less: ``fx_fused.frame_shared_bytes(..., one_slot=True)``,
+    which is the rule itself above ``fx_fused.FFT_MAX_SUB`` bins, as
+    ``fx_fused.wide_route_bytes`` takes it)."""
+    if not (kernel_bins(nbins) and ntaps >= 1 and nch >= 1):
+        return False
+    if nbins > FFT_MAX_SUB:
+        return frame_shared_bytes(nbins, nch, one_slot=True) <= \
+            MAX_SHARED_BYTES
+    return (2 * nbins + nch) * 8 <= MAX_SHARED_BYTES
 
 
 def spectrometer_fused_reference(x: torch.Tensor, window2d: torch.Tensor,

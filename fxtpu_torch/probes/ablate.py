@@ -16,7 +16,10 @@ the differences between consecutive stages:
   fft - fft_half       the rest of them, with no X stage (``fft2``);
   full - fft           the X stage and the partials written out.
 
-Every stage but ``fft`` still runs the X stage over what it left, so a
+At a bin count that is not a power of two in [256, 8192] ``--stage all``
+runs ``fir``, ``fft`` and ``full`` (``ops.fx_fused.MIXED_STAGES``), and
+``fft - fir`` is the whole mixed-radix FFT.  Every stage but ``fft``
+still runs the X stage over what it left, so a
 difference between two of them is the stage's own arithmetic.  The mean
 pre-pass and the reduce run in every stage alike and cancel in the
 differences; their own device times per block, and the frame kernel's,
@@ -160,7 +163,10 @@ def main(argv=None) -> list:
                     help="timed launches per stage")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
-    stages = ORDER if args.stage == "all" else (args.stage,)
+    # the mixed-radix kernel (other bin counts) runs fir, fft and full
+    stages = (tuple(s for s in ORDER if s in ff.MIXED_STAGES
+                    or ff._pow2_bins(args.nbins))
+              if args.stage == "all" else (args.stage,))
     for stage in stages:
         if stage not in ORDER:
             raise ValueError(f"--stage {stage!r} is not one of {ORDER}")

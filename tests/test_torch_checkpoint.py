@@ -288,6 +288,47 @@ def test_resume_across_packages(tmp_path, snapshots, ingest):
                                atol=TOL[ingest] * np.abs(want).max())
 
 
+@pytest.mark.parametrize("ingest", ["complex64", "int8"])
+def test_resume_calibrates_as_fxtpu(tmp_path, ingest):
+    """A resumed run with calibrate_on_start=True (the default) spends its
+    first block on calibration in both packages, as fxtpu's state machine
+    does (STARTUP -> CALIBRATE whenever calibrate_on_start is set), and
+    correlates the rest with the fresh delays: one snapshot resumed by
+    each package over the same replay gives the same rows, within the
+    port's parity bound, and the same delays within 1e-9 s."""
+    pytest.importorskip("jax")
+    from fxtpu.config import CorrelatorConfig as JConfig
+    from fxtpu.correlator import Correlator as JCorrelator
+
+    rec = save_recording(NoiseSource(nchan=NCH, delays=[0.0, 2e-6], seed=29),
+                         str(tmp_path / "rec.npy"), NSAMP, 10)
+    common = dict(SMALL, source="replay", ingest_dtype=ingest, fused=True)
+    cor_a = _run(tmp_path, "a.csv", snapshot_every=2,
+                 replay_file=_cut(rec, tmp_path / "a.npy", 5),
+                 source="replay", ingest_dtype=ingest, fused=True)
+    assert cor_a.blocks_processed == 4
+    st = checkpoint.load_state(cor_a.snapshot_path)
+    st_delays = np.asarray(st["delays"], np.float64)
+    kw = dict(common, replay_file=rec, calibrate_on_start=True,
+              resume_from=cor_a.snapshot_path)
+    jcor = JCorrelator(config=JConfig(**kw,
+                                      output_file=str(tmp_path / "j.csv")))
+    jcor.run_state_machine()
+    tcor = _run(tmp_path, "t.csv", **kw)
+    # the snapshot's 4 blocks, then 5 more: one calibrates, 4 are rows
+    assert tcor.blocks_processed == jcor.blocks_processed == 8
+    want, got = _rows(jcor), _rows(tcor)
+    assert got.shape == want.shape == (4, NBINS) and np.isfinite(got).all()
+    np.testing.assert_allclose(got, want,
+                               atol=TOL[ingest] * np.abs(want).max())
+    np.testing.assert_allclose(tcor.calibrated_delays,
+                               np.asarray(jcor.calibrated_delays), rtol=0,
+                               atol=1e-9)
+    # the resumed stream's first block calibrated: the delays are its own
+    assert abs(tcor.calibrated_delays[1] - 2e-6) < 0.5 / 2.4e6
+    assert not np.array_equal(tcor.calibrated_delays, st_delays)
+
+
 def test_snapshot_resume_blocks_per_dispatch(tmp_path):
     """K = 4 blocks a call (the staged path) snapshots after each call and
     resumes: its rows are the K = 1 uninterrupted run's tail within the

@@ -397,7 +397,8 @@ def test_parts_wrappers_take_plain_versions_on_cpu(ingest):
     (8192, 32, 2, 32, 6, True),      # the CLI's deep-tap block
     (8192, 32, 2, 30, 6, False), (4096, 4, 6, 64, 0, True),
     (4096, 4, 7, 64, 0, True),       # the wide route (x_stage "global")
-    (384, 4, 2, 64, 0, False),
+    (384, 4, 2, 64, 0, True),        # 3 x 128 bins: the mixed-radix FFT
+    (1000, 4, 2, 64, 0, False),      # not a multiple of 128
 ])
 def test_supported_parts_shapes(nbins, ntaps, nch, s_rows, rank, ok):
     assert supported_parts(nbins, ntaps, nch, s_rows, rank) is ok
@@ -456,6 +457,9 @@ def _card_parts_inputs(nch, k, s, nbins, ntaps, int8, device, seed):
     (256, 16, 4, 2, 8),       # K = 8 blocks in one launch
     (8192, 8, 4, 2, 2),       # the largest bin count (16 x 16 x 32)
     (256, 8, 4, 1, 2),        # one channel: a cluster of one CTA
+    (384, 16, 3, 2, 1),       # 3 x 128 bins: halves of 192, mixed radix
+    (3072, 8, 4, 3, 2),       # 3 x 1024, three channels, two blocks
+    (12288, 8, 4, 1, 1),      # above 8192 bins: two halves and a radix 2
 ])
 def test_cuda_parts_cluster_split_matches_plain_version(cuda_device, nbins,
                                                         s, ntaps, nch, k,

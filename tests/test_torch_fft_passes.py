@@ -1,5 +1,6 @@
 """The frame kernel's FFT and CTA split, by their plain mirrors in
-fxtpu_torch.ops.fx_fused: the radix passes' index arithmetic
+fxtpu_torch.ops.fx_fused, at every bin count the kernel takes (n = 128 m,
+2 <= m <= 128): the radix passes' index arithmetic
 (``fft_passes``, the same loads, twiddles and stores as
 ``csrc/fx_fused.cu``'s ``fft_pass``), the stage ablation's ``fft_half``,
 the split of a frame group's channels and bins over a cluster
@@ -67,9 +68,31 @@ def test_first_pass_is_stored_swizzled():
     assert torch.allclose(got[idx ^ ((idx >> 4) & 15)], logical, atol=1e-5)
 
 
-@pytest.mark.parametrize("n", [128, 384, 16384])
+@pytest.mark.parametrize("n", [128 * m for m in range(2, 129)])
+def test_every_kernel_bin_count_is_the_dft(n):
+    """Every bin count of fxtpu's kernels (``_kernel_factor``): the FIR's
+    output as the kernel stores it (``fft_slot``), then every pass, is
+    the DFT in natural order; passes stopped halfway (the powers of two:
+    after the first) resume bit for bit; the radices multiply to n, the
+    powers of two's as before."""
+    x = _noise(n, rows=2, seed=n)
+    radices = ff.fft_radices(n)
+    assert int(np.prod(radices)) == n and radices[0] == 16
+    if n in SIZES:
+        assert radices == ((16, 16) if n == 256 else (16, 16, n >> 8))
+    slot = ff.fft_slot(x)
+    got = ff.fft_passes(slot, len(radices))
+    want = torch.fft.fft(x.to(torch.complex128))
+    assert (got.to(torch.complex128) - want).abs().max() <= (
+        1e-5 * want.abs().max())
+    half = len(radices) // 2
+    assert torch.equal(ff.fft_passes(ff.fft_passes(slot, half),
+                                     len(radices), start=half), got)
+
+
+@pytest.mark.parametrize("n", [128, 1000, 16512])
 def test_radices_reject_other_sizes(n):
-    with pytest.raises(ValueError, match="256 to 8192"):
+    with pytest.raises(ValueError, match="256 to 16384"):
         ff.fft_radices(n)
     with pytest.raises(ValueError, match="passes"):
         ff.fft_passes(_noise(256), 3)
@@ -96,6 +119,38 @@ def test_fft_half_stage_is_the_first_pass(nbins):
     idx = pairs.long()
     want = (half[idx[:, 0]] * half[idx[:, 1]].conj()).sum(dim=-2)
     assert torch.equal(got, want.permute(1, 0, 2))
+
+
+@pytest.mark.parametrize("nbins", [384, 16384])
+def test_ablation_at_other_counts(nbins):
+    """Away from the radix-16 FFT's sizes the ablation runs the stages of
+    ``MIXED_STAGES``: ``fir`` is the cross power over the FIR's output in
+    the slot order the kernel stores it (``fft_slot``), ``fft`` the DFT
+    of the FIR's frames, the stage's first bins summed over frames and
+    channels; the others are refused."""
+    nch, k, s, ntaps = 2, 1, 4, 4
+    rng = np.random.default_rng(nbins)
+    x = torch.from_numpy((rng.normal(size=(nch, k, s, nbins))
+                          + 1j * rng.normal(size=(nch, k, s, nbins))
+                          ).astype(np.complex64))
+    hist = torch.zeros((nch, ntaps - 1, nbins), dtype=torch.complex64)
+    w = torch.from_numpy(pfb_window(ntaps, nbins).reshape(
+        ntaps, nbins).astype(np.float32))
+    pairs = ff.pairs_tensor(baseline_pairs(nch), nch, "cpu")
+    rows = x - x.mean(dim=(-2, -1), keepdim=True)
+    y = pfb_fir(torch.cat([hist, rows.reshape(nch, k * s, nbins)], dim=1), w)
+    slot = ff.fft_slot(y)
+    got = ff.fx_fused_ablate(x, hist, w, pairs, "fir")
+    want = (slot[0] * slot[1].conj()).sum(dim=-2)
+    assert torch.allclose(got[0, 0], want, rtol=1e-5, atol=1e-5)
+    got = ff.fx_fused_ablate(x, hist, w, pairs, "fft")
+    spec = torch.fft.fft(y.to(torch.complex128))
+    want = spec[..., :ff.FFT_STAGE_BINS].sum(dim=-2).sum(dim=0)
+    assert (got[0, 0] - want).abs().max() <= 1e-5 * spec.abs().max() * s
+    assert ff.MIXED_STAGES == ("full", "fir", "fft")
+    for stage in ("load", "load_raw", "fft_half"):
+        with pytest.raises(ValueError, match=stage):
+            ff.fx_fused_ablate(x, hist, w, pairs, stage)
 
 
 @pytest.mark.parametrize("one_slot", [False, True])
@@ -133,6 +188,31 @@ def test_split_covers_every_frame_channel_and_bin_once(nch, one_slot):
                 for b in bins:
                     formed[(p, b)] = formed.get((p, b), 0) + 1
         assert formed == {(p, b): 1 for p in pairs for b in range(nbins)}
+
+
+@pytest.mark.parametrize("nch", [1, 2, 3, 8])
+@pytest.mark.parametrize("nbins", [384, 640, 16256])
+def test_split_covers_every_bin_at_other_counts(nbins, nch):
+    """At bin counts that are not powers of two the cluster's halves of a
+    frame's bins (192 of 384, 8128 of 16256) still cover every bin of
+    every pair once, and the one-slot split every (frame, channel)."""
+    s_rows, n_groups, per = 5, 2, 3
+    for one_slot in (False, True):
+        ctas = ff.frame_ctas(nch, nbins, n_groups, per, s_rows,
+                             one_slot=one_slot)
+        ran = {}
+        for _, _, chans, frames, _ in ctas:
+            for f in frames:
+                for c in chans:
+                    ran[(f, c)] = ran.get((f, c), 0) + 1
+        assert ran == {(f, c): 1 for f in range(s_rows) for c in range(nch)}
+        if one_slot:
+            continue
+        for g in range(n_groups):
+            bins = sorted(b for c in ctas if c[0] == g for b in c[4])
+            assert bins == list(range(nbins))
+            assert {len(c[4]) for c in ctas if c[0] == g} == {
+                nbins // ff.cluster_size(nch)}
 
 
 def _radix2_route_rule(nbins, nch, ntaps=0, rank=0, mean_blocks=1):

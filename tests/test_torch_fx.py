@@ -259,7 +259,8 @@ def test_route_resolution():
     assert _resolve_fused(True, cpu, 4096, 4, 2) is True
     assert _resolve_fused(False, cuda, 4096, 4, 2) is False
     assert _resolve_fused("auto", cuda, 4096, 4, 2) is True
-    assert _resolve_fused("auto", cuda, 384, 4, 2) is False
+    assert _resolve_fused("auto", cuda, 384, 4, 2) is True
+    assert _resolve_fused("auto", cuda, 1000, 4, 2) is False
     # int8: a block shorter than the tail takes the plain route
     assert _resolve_fused("auto", cuda, 256, 4, 2, int8=True, s_rows=3)
     assert not _resolve_fused("auto", cuda, 256, 4, 2, int8=True, s_rows=2)

@@ -184,8 +184,8 @@ def test_wrapper_refuses_other_devices():
 @pytest.mark.parametrize("nbins,ntaps,nch,ok", [
     (256, 4, 2, True), (4096, 4, 2, True), (8192, 4, 2, True),
     (4096, 4, 6, True), (4096, 4, 7, False), (128, 4, 2, False),
-    (16384, 4, 2, False), (384, 4, 2, False), (4096, 1, 2, False),
-    (8192, 4, 3, False),
+    (16384, 4, 2, False), (384, 4, 2, True), (4096, 1, 2, False),
+    (8192, 4, 3, False), (1000, 4, 2, False),
 ])
 def test_supported_shapes(nbins, ntaps, nch, ok):
     assert supported(nbins, ntaps, nch) is ok
@@ -209,7 +209,7 @@ def test_supported_svd_shapes(nbins, ntaps, nch, rank, ok):
 @pytest.mark.parametrize("nbins,ntaps,nch,s_rows,ok", [
     (4096, 4, 2, 64, True), (256, 4, 2, 3, True), (256, 4, 2, 2, False),
     (256, 32, 2, 31, True), (256, 32, 2, 30, False), (4096, 4, 7, 64, False),
-    (384, 4, 2, 64, False), (4096, 1, 2, 64, False),
+    (384, 4, 2, 64, True), (4096, 1, 2, 64, False), (16512, 4, 2, 64, False),
 ])
 def test_supported_i8_shapes(nbins, ntaps, nch, s_rows, ok):
     assert supported_i8(nbins, ntaps, nch, s_rows) is ok

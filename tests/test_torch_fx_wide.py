@@ -505,16 +505,17 @@ def test_resolve_fused_routes_8_channels_and_warns_on_a_refused_shape(caplog):
                               s_rows=256)
         assert _resolve_fused("auto", cuda, 8192, 32, 3, s_rows=32, rank=6)
         assert _resolve_fused("auto", cuda, 4096, 4, 64, s_rows=256)
+        assert _resolve_fused("auto", cuda, 3072, 4, 2, s_rows=85)
         assert not caplog.records
         assert not _resolve_fused("auto", cpu, 4096, 4, 8, s_rows=256)
         assert not _resolve_fused("auto", cpu, 384, 4, 2)
         assert not caplog.records
         assert not _resolve_fused("auto", cuda, 4096, 4, 65, s_rows=256)
-        assert not _resolve_fused("auto", cuda, 3072, 4, 2, s_rows=64)
+        assert not _resolve_fused("auto", cuda, 1000, 4, 2, s_rows=64)
     warned = [r.getMessage() for r in caplog.records]
     assert len(warned) == 2
     assert "nch=65" in warned[0] and "supported_parts" in warned[0]
-    assert "nbins=3072" in warned[1]
+    assert "nbins=1000" in warned[1] and "multiple of 128" in warned[1]
     with pytest.raises(ValueError, match="nch=65"):
         _resolve_fused(True, cpu, 4096, 4, 65, s_rows=256)
 
@@ -574,7 +575,8 @@ def _card_inputs(nch, k, s, nbins, ntaps, int8, fir, device, seed):
     (4, 1, 32, 256, 4, "direct"), (4, 3, 32, 256, 4, "direct"),
     (8, 2, 16, 4096, 4, "direct"), (4, 2, 64, 256, 32, "svd"),
     (64, 1, 8, 256, 4, "direct"), (55, 1, 8, 512, 4, "direct"),
-    (48, 2, 8, 256, 4, "direct")])
+    (48, 2, 8, 256, 4, "direct"), (2, 1, 16, 16384, 4, "direct"),
+    (3, 2, 16, 16256, 4, "direct"), (2, 1, 40, 6144, 32, "svd")])
 def test_cuda_wide_parts_match_plain_and_shared(cuda_device, nch, k, s, nbins,
                                                 ntaps, fir, int8):
     """The wide route's kernels against their plain version (2e-5 of

@@ -46,6 +46,8 @@ def _zero_hist(nch, ntaps, nbins, device="cpu"):
     (512, 512 * 64, 32, 5e-6, 2),     # wideband taps (test_planes:289)
     (256, 2**12, 1, 3e-6, 2),         # ntaps=1: empty history
     (256, 2**13 + 100, 4, 3e-6, 2),   # the mean covers the ragged tail
+    (384, 384 * 16, 4, 5e-6, 2),      # 3 x 128 bins: the mixed-radix FFT
+    (1536, 1536 * 8 + 200, 4, 5e-6, 2),  # 3 x 512, a ragged tail
 ])
 def test_reference_matches_spectrometer_pallas(nbins, nsamp, ntaps, tol, k):
     jnp = pytest.importorskip("jax.numpy")
@@ -110,8 +112,8 @@ def test_wrapper_refuses_other_devices():
 
 @pytest.mark.parametrize("nbins,ntaps,nch,ok", [
     (256, 1, 2, True), (8192, 32, 2, True), (8192, 4, 64, True),
-    (128, 4, 2, False), (16384, 4, 2, False), (384, 4, 2, False),
-    (256, 0, 2, False),
+    (128, 4, 2, False), (16384, 4, 2, True), (384, 4, 2, True),
+    (256, 0, 2, False), (16512, 4, 2, False), (1000, 4, 2, False),
 ])
 def test_supported_shapes(nbins, ntaps, nch, ok):
     assert supported_spectrometer(nbins, ntaps, nch) is ok
@@ -132,6 +134,8 @@ def cuda_device():
     (8192, 8192 * 8 + 17, 4, 3),      # the largest nbins, ragged tail
     (4096, 2**18, 4, 2),              # the flagship block
     (256, 256 * 529, 4, 2),           # more frames than CTAs
+    (640, 640 * 16 + 3, 4, 2),        # 5 x 128 bins: the mixed-radix FFT
+    (16384, 16384 * 4, 4, 3),         # the largest bin count
 ])
 def test_cuda_kernel_matches_plain_version(cuda_device, nbins, nsamp, ntaps,
                                            nch):
