@@ -166,8 +166,8 @@ Phases (any failure raises and exits non-zero, with no ``ok`` line):
 Every bin count of ``fxtpu``'s kernels (``_kernel_factor``: n = 128 m, 2
 <= m <= 128; ROADMAP K.3) runs the same kernels, the FFT through the
 frame kernel's mixed-radix body: phase 2 holds the single pass and its
-epilogue at 384, 3072, 16,256 and 16,384 bins (2 x 2^18 samples, both
-ingests; the last two on the wide route) and in the SVD-FIR mode at 6144
+epilogue at 384, 3072, 12,288, 16,256 and 16,384 bins (2 x 2^18 samples, both
+ingests; the last three on the wide route) and in the SVD-FIR mode at 6144
 bins and 32 taps, to the rules above; K = 8 at 3072 bins against 8
 one-block steps (block 0 bit for bit, every block within 1e-5 of
 max|vis|, plus what cancels at the DC bin); the step's one C call at 3072
@@ -179,7 +179,21 @@ WARNING that the engine took the plain route, and the ablation probe at
 3072 and 16,256; phase 4 times the single pass, the spectrometer and the
 X kernel there and prints the FFT stage (``fft - fir``) at 3072 and
 16,256 bins beside ``torch.fft.fft``.  Snapshot/resume (phase 3) runs
-through the Correlator with ``calibrate_on_start=False``.
+through the Correlator with ``calibrate_on_start=False``.  12,288 bins (the
+band plan's third count) joins 384 to 16,384 in phases 2 and 4.
+
+At deep taps (``fx_fused.deep_fir``: 16 taps and more) every entry but the
+spectrometer launches the FIR as a kernel of its own, ``fir_rows_kernel``,
+before its frame kernel, which then reads one row of its output a frame;
+phase 2 holds that launch alone (``fx_fused.fir_rows``) against its plain
+version at ``FIR_CASES`` (the deep CLI block at K = 1 and 8, the wideband
+block in both FIR modes, 6144 bins at 32 taps, the 8-channel deep block;
+both ingests; within ``FIR_TOL`` of max|fir|) and K = 8 at the deep CLI
+block against 8 steps; phase 3 counts one FIR launch a block on the deep
+CLI runs (``fir_rows`` in ``read_counts``) and on the deep ablation
+probes; phase 4 times it at ``FIR_CASES`` against its bound (``fir_bound``)
+and its plain version (``fir_rows`` in the kernels line; no single PyTorch
+call computes it in this layout, so ``library_ms`` is null).
 
 Every kernel's ``bound_ms`` is computed here from the run's shapes: the
 larger of its bytes (each input read once, each output written once) over
@@ -291,7 +305,12 @@ REPLACES = {
     "copy_probe": "scripts/dma_width_probe.py:44",
     "overlap_probe": "scripts/dma_overlap_probe.py:154",
     "retile_probe": "scripts/retile_probe.py:51",
+    # _fx_kernel's FIR, at deep taps its banded SVD form (:810-869), whose
+    # windows of rows are read once
+    "fir_rows": "fxtpu/ops/pfb_pallas.py:810",
 }
+FIR_TOL = 1e-6       # fir_rows against its plain version, of max|fir|
+
 PROBE_KERNELS = ("fx_ablate", "copy_probe", "overlap_probe", "retile_probe")
 FINISH_SOURCE = "fxtpu_torch/csrc/fx_finish.cu"
 FIN_TOL = 1e-6       # fx_finish, relative to max|vis_ref|, plus
@@ -325,11 +344,22 @@ R384 = dict(nch=2, nsamp=2**18, nbins=384, ntaps=4, autos=False)
 R3072 = dict(nch=2, nsamp=2**18, nbins=3072, ntaps=4, autos=False)
 R16256 = dict(nch=2, nsamp=2**18, nbins=16256, ntaps=4, autos=False)
 R16384 = dict(nch=2, nsamp=2**18, nbins=16384, ntaps=4, autos=False)
+# the band plan's third count (PERF.md section 4): 12,288 = 3 x 4096, the
+# wide route (a frame's two spectra take 192 KiB)
+R12288 = dict(nch=2, nsamp=2**18, nbins=12288, ntaps=4, autos=False)
 R6144D = dict(nch=2, nsamp=2**18, nbins=6144, ntaps=32, autos=False)
 # (tag, shape, FIR mode) of the single pass's checks and times at them
 BIN_CASES = (("r384", R384, "direct"), ("r3072", R3072, "direct"),
-             ("r16256", R16256, "direct"), ("r16384", R16384, "direct"),
-             ("r6144d", R6144D, "svd"))
+             ("r12288", R12288, "direct"), ("r16256", R16256, "direct"),
+             ("r16384", R16384, "direct"), ("r6144d", R6144D, "svd"))
+# (tag, shape, K, FIR mode) of the deep-tap FIR launch's checks in phase 2
+# and its times in phase 4: the shapes where a step launches it
+# (fx_fused.deep_fir), each with the table of its main path's FIR mode
+FIR_CASES = (("deep", DEEP_CLI, 1, "svd"),
+             ("deep_k8", DEEP_CLI, MULTI_K, "svd"),
+             ("wideband", WIDEBAND, 1, "svd"),
+             ("wideband_direct", WIDEBAND, 1, "direct"),
+             ("r6144d", R6144D, 1, "svd"), ("deep8", DEEP8, 1, "svd"))
 # the spectrometer at the same counts
 BIN_SPEC_CASES = (dict(nch=2, nsamp=2**18, nbins=3072, ntaps=4),
                   dict(nch=2, nsamp=2**18, nbins=16384, ntaps=4))
@@ -377,6 +407,7 @@ def reset_counts():
         fn.wide_launches = fn.wide_svd_launches = 0
     spectrometer_fused.launches = fx_finish.launches = 0
     fx_xstage.launches = fx_fused.parts_reduce.launches = 0
+    fx_fused.fir_rows.launches = 0
     for fn in probe_wrappers().values():
         fn.launches = 0
 
@@ -403,6 +434,7 @@ def read_counts() -> dict:
     counts["fx_xstage"] = fx_xstage.launches
     counts["fx_parts_reduce"] = fx_fused.parts_reduce.launches
     counts["fx_finish"] = fx_finish.launches
+    counts["fir_rows"] = fx_fused.fir_rows.launches
     counts["spectrometer"] = spectrometer_fused.launches
     for name, fn in probe_wrappers().items():
         counts[name] = fn.launches
@@ -1307,11 +1339,21 @@ def parts_name(ingest, deep=False):
         "_svd" if deep else "")
 
 
+def deep_fir_launches(cor):
+    """The deep-tap FIR's launches a one-block-a-call run makes: one a
+    block where ``fx_fused.deep_fir`` holds at its shape, else none."""
+    from fxtpu_torch.ops.fx_fused import deep_fir
+    cfg = cor.config
+    return (cor.blocks_processed
+            if deep_fir(cfg.ntaps, cfg.num_samp // cfg.nbins) else 0)
+
+
 def run_main_path(tmpdir, ingest, deep):
     """Phase 3: the CLI on the card at one ingest dtype and depth, with
     the launch counts of the run: the single-pass wrapper, its reduce and
-    the epilogue once per block each, every other entry (the two-pass ones
-    too) not at all.  Returns (count name, the run's counts)."""
+    the epilogue once per block each (at deep taps the FIR launch too),
+    every other entry (the two-pass ones too) not at all.  Returns (count
+    name, the run's counts)."""
     name = parts_name(ingest, deep)
     shape = ["--resolution", "8192", "--ntaps", "32"] if deep else []
     cor, out, counts = run_cli(tmpdir, name, ingest, shape)
@@ -1319,9 +1361,10 @@ def run_main_path(tmpdir, ingest, deep):
         raise AssertionError(f"fir_mode {cor.engine.fir_mode} in the {name} "
                              "run")
     others = {k: v for k, v in counts.items()
-              if k not in (name, "fx_finish", "fx_parts_reduce")}
+              if k not in (name, "fx_finish", "fx_parts_reduce", "fir_rows")}
     if not (counts[name] == counts["fx_finish"] == counts["fx_parts_reduce"]
-            == cor.blocks_processed >= 3) or any(others.values()):
+            == cor.blocks_processed >= 3) or any(others.values()) or (
+                counts["fir_rows"] != deep_fir_launches(cor)):
         raise AssertionError(
             f"launches {counts} do not match blocks_processed "
             f"{cor.blocks_processed} of {name} (or fewer than 3 blocks)")
@@ -1483,9 +1526,10 @@ def run_resume_path(tmpdir, ingest, k):
     return err
 
 
-def compare_k_blocks(case, k, device):
-    """Phase 2, K blocks a call at a bin count that is not a power of two:
-    the step over K merged blocks (``fx_fused_step``, one C call) against
+def compare_k_blocks(case, k, device, fir="direct"):
+    """Phase 2, K blocks a call (at 3072 bins, and at the deep CLI block,
+    where each block's frames read the FIR launch's rows, ``fir``): the
+    step over K merged blocks (``fx_fused_step``, one C call) against
     K one-block steps chained through their history, both ingests, packed
     delays that differ per block: block 0 bit for bit (a block's frames
     are grouped and summed as a one-block launch sums them), every block
@@ -1502,7 +1546,7 @@ def compare_k_blocks(case, k, device):
     from fxtpu_torch.ops import fx_fused as ff
     worst = [0.0, 0.0]
     for int8 in (False, True):
-        args = step_inputs(case, k, "direct", int8, True, False, device)
+        args = step_inputs(case, k, fir, int8, True, False, device)
         x, hist, w, pairs, consts, delays, tables, bw, cont, step, svd = args
         vis, new = fe.fx_fused_step(*args, pool={})
         xp_raw = (ff.fx_fused_parts_i8(x, hist["tail"], w, pairs, step, svd,
@@ -1545,6 +1589,96 @@ def compare_k_blocks(case, k, device):
     return worst
 
 
+def fir_inputs(case, k, fir, int8, device, seed=77):
+    """The deep-tap FIR's inputs at one shape: the merged samples, the
+    history (complex64 the corrected tail, int8 the raw tail), the FIR's
+    table (``fx_fused.fir_table``: the window, or the SVD mode's folded
+    factors) and the quantisation step (None for complex64)."""
+    from fxtpu_torch.ops import fx_fused as ff
+    rng = np.random.default_rng(seed)
+    w, svd = window_and_fir(case, fir, device)
+    x = parts_batch(case, k, rng, device, int8)
+    hist = raw_history(case, rng, device, int8)
+    return (x, hist["tail"] if int8 else hist, ff.fir_table(w, svd),
+            STEP if int8 else None)
+
+
+def compare_fir_rows(case, k, fir, device):
+    """Phase 2: the deep-tap FIR launch alone (``fx_fused.fir_rows``, the
+    first kernel of every deep-tap step) against its plain version on the
+    same inputs, in both ingests: finite, and within FIR_TOL of the plain
+    output's largest magnitude (the same table, the same tap order: the
+    multiply-adds' rounding only).  Returns (max abs err, max rel err)."""
+    import torch
+
+    from fxtpu_torch.ops import fx_fused as ff
+    worst = (0.0, 0.0)
+    for int8 in (False, True):
+        x, h, table, step = fir_inputs(case, k, fir, int8, device)
+        got = ff.fir_rows(x, h, table, step)
+        want = ff.fir_rows_reference(x, h, table, step)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        scale = want.abs().max().item()
+        print(f"  fir_rows ({fir}) K={k} int8 {int8} shape {case}: "
+              f"{err / scale:.3g} of max|fir|", flush=True)
+        if not (torch.isfinite(torch.view_as_real(got)).all()
+                and err <= FIR_TOL * scale):
+            raise AssertionError(f"fir_rows disagrees with its plain version "
+                                 f"at {case} K={k} ({fir}, int8 {int8}): "
+                                 f"{err / scale:.3g} > {FIR_TOL}")
+        worst = (max(worst[0], err), max(worst[1], err / scale))
+        del x, h, got, want
+    return worst
+
+
+def fir_bound(case, k, int8):
+    """(bound ms, what bounds it) of the deep-tap FIR launch: each sample
+    and history row read once (8 bytes complex64, 2 int8), the table once,
+    every frame's output written once (8 bytes a bin), against 3.35 TB/s;
+    its operations, 4 ntaps flops an output (two real multiply-adds a
+    tap), against 67 TFLOP/s float32."""
+    nch, nbins, ntaps = case["nch"], case["nbins"], case["ntaps"]
+    frames = k * (case["nsamp"] // nbins)
+    per = 2 if int8 else 8
+    nbytes = (nch * (frames + ntaps - 1) * nbins * per + ntaps * nbins * 4
+              + nch * frames * nbins * 8)
+    ops = 4 * ntaps * nch * frames * nbins
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / 67e12 * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def time_fir_rows(device):
+    """Phase 4: the deep-tap FIR launch alone at FIR_CASES in both ingests:
+    the wrapper and its plain version by CUDA events in turns, its device
+    us (a CUDA-only trace of 5 calls).  Returns ({key: ms}, {key: us})."""
+    import statistics
+
+    import torch
+
+    from fxtpu_torch.ops import fx_fused as ff
+    from fxtpu_torch.probes.common import device_events
+    ms, us = {}, {}
+    for tag, case, k, fir in FIR_CASES:
+        for int8 in (False, True):
+            key = tag + ("_i8" if int8 else "")
+            x, h, table, step = fir_inputs(case, k, fir, int8, device)
+            t = cuda_times({
+                "kernel": lambda: ff.fir_rows(x, h, table, step),
+                "plain": lambda: ff.fir_rows_reference(x, h, table, step)},
+                n=10)
+            ms[key], ms["plain_" + key] = t["kernel"], t["plain"]
+            us[key] = statistics.median(
+                e["dur"] for e in device_events(
+                    lambda: ff.fir_rows(x, h, table, step), 5))
+            print(f"  fir_rows {key} (K={k}): {t['kernel']:.4f} ms "
+                  f"(device us {us[key]:.2f}), plain {t['plain']:.4f} ms; "
+                  f"bound {fir_bound(case, k, int8)[0]:.5f} ms", flush=True)
+            del x, h
+            torch.cuda.empty_cache()
+    return ms, us
+
+
 def run_bins_main_path(tmpdir, ingest, tag, flags):
     """Phase 3 at a bin count that is not a power of two in [256, 8192]
     (ROADMAP K.3): the CLI with ``flags``, every launch count set to 0 just
@@ -1576,12 +1710,13 @@ def run_bins_main_path(tmpdir, ingest, tag, flags):
             + ("_svd" if eng.fir_mode == "svd" else ""))
     second = "fx_xstage" if wide else "fx_parts_reduce"
     others = {c: v for c, v in counts.items()
-              if c not in (name, second, "fx_finish")}
+              if c not in (name, second, "fx_finish", "fir_rows")}
     print(f"  {tag} {ingest}: x_stage {eng.x_stage}, fir_mode "
           f"{eng.fir_mode}, {cor.config.num_samp // cor.config.nbins} "
           f"frames a block", flush=True)
     if plain or not (counts[name] == counts[second] == counts["fx_finish"]
-                     == cor.blocks_processed >= 2) or any(others.values()):
+                     == cor.blocks_processed >= 2) or any(others.values()) or (
+                         counts["fir_rows"] != deep_fir_launches(cor)):
         raise AssertionError(
             f"{tag} {ingest}: launches {counts} do not match blocks_processed "
             f"{cor.blocks_processed} of {name} (or fewer than 2 blocks), or "
@@ -1832,6 +1967,9 @@ def run_two_pass_path(device):
             torch.cuda.synchronize()
             counts = read_counts()
             want = {single + sfx: 3, single + "_multi" + sfx: 2}
+            if deep:
+                # each deep-tap call launches the FIR first
+                want["fir_rows"] = 5
             if {c: v for c, v in counts.items() if v} != want:
                 raise AssertionError(f"two-pass step launches {counts}, "
                                      f"expected {want}")
@@ -2127,6 +2265,8 @@ def stage_table(ablate_runs, device):
             "frames_us": frames_us,
             "event_ms": {r["stage"]: r["ms_per_block"] for r in stages},
             "prepass_us": full["device_us"]["prepass"],
+            # the deep-tap FIR launch before the frame kernel, or None
+            "fir_us": full["device_us"].get("fir"),
             "reduce_us": full["device_us"]["reduce"],
             "frames_differences_us":
                 diff["frame_kernel_differences_us_per_block"],
@@ -2504,7 +2644,8 @@ def kernel_us(events):
     the part of its name that says which it is; copies as ``copy``."""
     names = {"mean_partial_kernel": "prepass", "fx_frames_kernel": "frames",
              "fx_parts_reduce_kernel": "reduce", "fx_reduce": "reduce",
-             "fx_finish_kernel": "finish", "fx_xstage_kernel": "xstage"}
+             "fx_finish_kernel": "finish", "fx_xstage_kernel": "xstage",
+             "fir_rows_kernel": "fir", "fx_wide_halves_kernel": "frames"}
     durs = {}
     for e in events:
         key = "copy" if e["cat"] == "gpu_memcpy" else next(
@@ -2996,9 +3137,8 @@ def host_split(device, n=200):
         mu_prev = hist["mu_prev"].data_ptr() if int8 else None
 
         def old_ctypes():
-            parts_entry(*ptr[:3], None, None, *ptr[3:], nch, k, s_rows,
-                        nbins, w.shape[0], 0, nbl, n_groups, per, *extra,
-                        stream)
+            parts_entry(*ptr[:3], None, *ptr[3:], nch, k, s_rows, nbins,
+                        w.shape[0], nbl, n_groups, per, *extra, stream)
             lib.fxt_fx_finish(
                 ptr[8], ptr[8] + 8 * nbl * nbins,
                 ptr[8] + 8 * (nbl + nch) * nbins, ptr[9], mu_prev, ptr[4],
@@ -3149,6 +3289,10 @@ def main() -> int:
                 errs[key] = tuple(map(max, errs[key], pair))
             bins_dc[f"{tag}{'_i8' if int8 else ''}"] = dc
     k_blocks_err = compare_k_blocks(R3072, MULTI_K, device)
+    k_blocks_deep_err = compare_k_blocks(DEEP_CLI, MULTI_K, device, "svd")
+    for _, case, k, fir in FIR_CASES:
+        errs["fir_rows"] = tuple(map(max, errs["fir_rows"],
+                                     compare_fir_rows(case, k, fir, device)))
     for tag, case in (("r3072", R3072), ("r16384", R16384)):
         d, f, route = compare_step(case, 1, "direct", False, device)
         step_diff, step_fin = max(step_diff, d), max(step_fin, f)
@@ -3219,11 +3363,13 @@ def main() -> int:
     launches["fx_parts_reduce"] = sum(c["fx_parts_reduce"]
                                       for c in main_counts)
     launches["fx_finish"] = sum(c["fx_finish"] for c in main_counts)
+    launches["fir_rows"] = sum(c["fir_rows"] for c in main_counts)
     print(f"  main path, every run: launches {launches}", flush=True)
     phase("phase 3: the two-pass entries (fx_fused_raw* and finish)")
     launches.update(run_two_pass_path(device))
     launches["spectrometer"] = run_spectrometer_path(device)
     phase("phase 3: the measurement path (python -m fxtpu_torch.probes)")
+    from fxtpu_torch.ops.fx_fused import deep_fir
     launches.update({name: 0 for name in PROBE_KERNELS})
     ablate_runs, probe_records = [], {}
 
@@ -3248,9 +3394,12 @@ def main() -> int:
                             "--nbins", str(case["nbins"]), "--ntaps",
                             str(case["ntaps"]), "--k", str(k), "--ingest",
                             ingest, "--fir_mode", fir, "--iters", str(iters)]
+                    # a deep-tap launch runs the FIR launch first
+                    expect = ["fx_ablate"] + (["fir_rows"] if deep_fir(
+                        case["ntaps"], case["nsamp"] // case["nbins"])
+                        else [])
                     ablate_runs.append((tag, probe(
-                        f"ablate_{tag}_{k}_{ingest}_{fir}", argv,
-                        ["fx_ablate"])))
+                        f"ablate_{tag}_{k}_{ingest}_{fir}", argv, expect)))
     probe("copy_rate", ["copy_rate"], ["copy_probe"])
     for mech in ("bulk", "cp_async"):
         probe(f"overlap_{mech}", ["overlap", "--mech", mech],
@@ -3288,6 +3437,7 @@ def main() -> int:
     step_launches.update(wide_launches)
     table = stage_table(ablate_runs, device)
     bt, bt_us = time_bins(device)
+    ft, ft_us = time_fir_rows(device)
     samples = FLAGSHIP["nch"] * FLAGSHIP["nsamp"]
     wsamples = WIDEBAND["nch"] * WIDEBAND["nsamp"]
     for name, sfx in (("fx_fused", ""), ("fx_fused_i8", "_i8")):
@@ -3421,7 +3571,8 @@ def main() -> int:
         print(f"    {row['shape']} K={row['k']} {row['ingest']} "
               f"{row['fir_mode']}: "
               + ", ".join(f"{st} {fr[st]:.2f}" for st in fr)
-              + f" (pre-pass {row['prepass_us']:.2f}, reduce "
+              + f" (pre-pass {row['prepass_us']:.2f}, FIR launch "
+              f"{row['fir_us']}, reduce "
               f"{row['reduce_us']:.2f}; torch.fft.fft "
               f"{1e3 * row['library_ms']:.2f})", flush=True)
     for row in table:
@@ -3742,11 +3893,29 @@ def main() -> int:
         "bound_by": bins_bounds["xstage_r16384"][1],
         "library_ms": bt["xstage_library_r16384"],
         "library_device_us": bt_us["xstage_library_r16384"]}}
+    fir_bounds = {tag + ("_i8" if i8 else ""): fir_bound(case, k, i8)
+                  for tag, case, k, _ in FIR_CASES for i8 in (False, True)}
+    kernels.append({
+        "name": "fir_rows", "route": "cuda", "source": SOURCE,
+        "replaces": REPLACES["fir_rows"], "launches": launches["fir_rows"],
+        "max_abs_err": errs["fir_rows"][0],
+        "max_rel_err": errs["fir_rows"][1],
+        # the deep CLI block (--resolution 8192 --ntaps 32, 2 x 2^18
+        # samples), the main path's deep-tap shape, complex64
+        "shape": "deep", "ms": ft["deep"], "plain_ms": ft["plain_deep"],
+        "bound_ms": fir_bounds["deep"][0], "bound_by": fir_bounds["deep"][1],
+        "library_ms": None,
+        "library": "none: a per-bin FIR along the frame axis is a grouped "
+                   "convolution only in another layout",
+        "device_us": ft_us, "times_ms": ft,
+        "bound_ms_by_shape": {key: b[0] for key, b in fir_bounds.items()},
+    })
     for entry in kernels:
         if entry["name"] in bins:
             entry["bin_counts"] = bins[entry["name"]]
         if entry["name"] == "fx_finish":
             entry["k8_r3072_max_rel_err_vs_steps"] = k_blocks_err
+            entry["k8_deep_max_rel_err_vs_steps"] = k_blocks_deep_err
     for entry in kernels:
         missing = {"name", "route", "source", "replaces", "launches",
                    "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

@@ -153,25 +153,25 @@ cudaError_t launch_kernel(void (*kernel)(Params...), dim3 grid, dim3 block,
 // of its launches (0: none).
 namespace fxt {
 
-// fx_fused.cu: the shared route's frame kernel (PartsOut; launched as
-// always) and then the parts reduce, which with `dependent` launches as a
-// programmatic dependent of the frame kernel.  The arguments of
-// fxt_fx_parts (int8: fxt_fx_parts_i8, with `step`).
+// fx_fused.cu: at deep taps (fir not NULL) the FIR launch, then the shared
+// route's frame kernel (PartsOut; both launched as always) and then the
+// parts reduce, which with `dependent` launches as a programmatic
+// dependent of the frame kernel.  The arguments of fxt_fx_parts (int8:
+// fxt_fx_parts_i8, with `step`).
 int parts_step(bool int8, const void* x, const void* hist, const void* w,
-               const void* u, const void* v, const void* tw,
-               const void* pairs, const void* da, void* sums, void* partial,
-               void* parts, void* mu, void* new_hist, int nch, int K, int S,
-               int nbins, int ntaps, int rank, int nbl, int n_groups,
-               int frames_per_group, double step, bool dependent,
-               cudaStream_t st);
+               void* fir, const void* tw, const void* pairs, const void* da,
+               void* sums, void* partial, void* parts, void* mu,
+               void* new_hist, int nch, int K, int S, int nbins, int ntaps,
+               int nbl, int n_groups, int frames_per_group, double step,
+               bool dependent, cudaStream_t st);
 
-// fx_fused.cu: the wide route's frame kernel (WideOut), the arguments of
-// fxt_fx_wide_frames (int8: fxt_fx_wide_frames_i8, with `step`).
+// fx_fused.cu: at deep taps the FIR launch, then the wide route's frame
+// kernel (WideOut), the arguments of fxt_fx_wide_frames (int8:
+// fxt_fx_wide_frames_i8, with `step`).
 int wide_frames(bool int8, const void* x, const void* hist, const void* w,
-                const void* u, const void* v, const void* tw, void* sums,
-                void* spec, int nch, int K, int S, int nbins, int ntaps,
-                int rank, int n_groups, int frames_per_group, double step,
-                cudaStream_t st);
+                void* fir, const void* tw, void* sums, void* spec, int nch,
+                int K, int S, int nbins, int ntaps, int n_groups,
+                int frames_per_group, double step, cudaStream_t st);
 
 // fx_xstage.cu: the X kernel, the arguments of fxt_xstage (int8:
 // fxt_xstage_i8, with `step`).

@@ -11,10 +11,10 @@
 // Replaces: fxtpu/ops/pfb_pallas.py _fx_kernel (launched by _fx_call,
 // wrapped by fx_pallas_parts / fx_pallas_raw_multi / fx_pallas_raw), for
 // any list of baseline pairs, autos included, in four of its modes:
-//   * f32 direct-tap mode      -> fxt_fx_fused     rank 0 (complex64);
-//   * f32 SVD-FIR mode         -> fxt_fx_fused     rank r > 0;
-//   * int8-native mode         -> fxt_fx_fused_i8  rank 0 (8-bit samples);
-//   * int8-native SVD-FIR mode -> fxt_fx_fused_i8  rank r > 0;
+//   * f32 direct-tap mode      -> fxt_fx_fused     w the window (complex64);
+//   * f32 SVD-FIR mode         -> fxt_fx_fused     w the folded factors;
+//   * int8-native mode         -> fxt_fx_fused_i8  w the window (8-bit);
+//   * int8-native SVD-FIR mode -> fxt_fx_fused_i8  w the folded factors;
 // each for K >= 1 blocks per launch (fx_pallas_raw_multi's grid
 // (k_blocks, tiles) over the merged rows [nch, K*S, lanes]);
 // and the same kernel's single-pass DC accumulators (tout_ref, uout_ref,
@@ -32,8 +32,9 @@
 // -> fxt_fx_ablate, fxt_fx_ablate_i8 (the kStage tags below).
 // All share one frame kernel (FIR, radix-16 FFT, output), templated on a
 // sample loader (how a row sample is read and which mean it loses), a FIR
-// policy (the direct tap loop over the window, or the rank-r factorisation
-// w = u v) and an output policy (the X loop, or the spectra written out).
+// policy (the direct tap loop over the FIR's table, or at deep taps the
+// rows of a FIR launch of its own, fir_rows_kernel) and an output policy
+// (the X loop, or the spectra written out).
 //
 // Contract of fxt_fx_fused (fx_pallas_raw): given x complex64
 // [nch, S, nbins], the DC-corrected history complex64 [nch, ntaps-1,
@@ -41,14 +42,18 @@
 //   xp[l, b]      = sum over frames of spec_p[b] * conj(spec_q[b]),
 //                   natural bin order, no rotation, no normalisation;
 //   new_hist      = the block's last ntaps-1 rows minus the block mean,
-// where spec is the FFT of the FIR over [history; x - mean].  With rank
-// r > 0 the FIR is sum_k v[k, b] * (sum_t u[t, k] * row[f+t, b]) for
-// u f32 [ntaps, r] and v f32 [r, nbins] (u v ~= w, fx_fused.svd_tensors).
+// where spec is the FFT of the FIR over [history; x - mean].  In the SVD
+// mode fxtpu's FIR is sum_k v[k, b] * (sum_t u[t, k] * row[f+t, b]) for
+// the window's rank-r factors u [ntaps, r] and v [r, nbins]
+// (fx_fused.svd_tensors); here the caller folds them into one table w = u v
+// (formed in float64, rounded once: fx_fused.fir_table), the same function
+// summed in another association, and the kernel runs the direct loop over
+// it.
 //
 // Contract of fxt_fx_fused_i8 (fx_pallas_raw, int8-native): x int8
 // [nch, S, nbins, 2] (I/Q interleaved, the ring's bytes), the previous
 // block's raw tail int8 [nch, ntaps-1, nbins, 2] and its mean mu_prev
-// complex64 [nch] in real units, window (or u, v), pairs and quant_step;
+// complex64 [nch] in real units, the FIR's table w, pairs and quant_step;
 // return xp as above over [tail*step - mu_prev; x*step - mu] and mu, this
 // block's mean in real units.  The new history (x's last ntaps-1 rows and
 // mu) is a slice the caller takes: this kernel writes no history.  fxtpu
@@ -123,21 +128,25 @@
 //     shared memory, so the spectra still never reach device memory (what
 //     the TPU kernel keeps on chip), and the flagship block fills 128 CTAs;
 //     the one-slot policies (SpecOut, WideOut) run one channel a CTA
-//     (the 8-channel deep block: 256 CTAs);
+//     (the 8-channel deep block: 256 CTAs), and above 8192 bins the wide
+//     route's frames split each frame's two FFT halves over a cluster of
+//     two CTAs (fx_wide_halves_kernel);
 //   * the FIR keeps more loads in flight: 8 bins and their window values a
-//     tap in the direct loop, 8 rows a round trip in the SVD form.
+//     tap in the direct loop; at deep taps the FIR is a launch of its own
+//     that reads each row once (fir_rows_kernel).
 // Every launch keeps two CTAs of 256 threads an SM (128 registers).  What
 // is left at the flagship is the tap rows' load latency (a CTA of 8 warps
 // per SM at one block a launch), the FFT's passes, and PartsOut's partial
 // rows written to device memory.  On the two-pass entries the input is
 // read twice per block (the mean pre-pass, 3 us of device time, then the
 // frames); the single-pass entries sum each frame's newest tap row as the
-// FIR reads it.  At deep taps (32 taps x 8192 bins) the frames read 32x the
-// block from L2 and the loads and the FIR are most of the kernel; the SVD
-// form does not change those reads and multiplies the FIR's flops by r (r
-// FMAs per tap and sample), a trade that paid on the TPU, where it moved
-// the tap loop onto the matrix unit, and does not here (the mode is kept
-// because fxtpu routes deep taps to it).  Every sum runs in a fixed order
+// FIR reads it.  At deep taps (32 taps x 8192 bins) an in-kernel tap loop
+// reads 32x the block from L2, and the rank-r SVD form multiplied the
+// FIR's flops by r, a trade that paid on the TPU, where it moved the tap
+// loop onto the matrix unit, and does not here: the factors are folded
+// back into one table and a FIR launch reads each row once (RowsFir,
+// fir_rows_kernel; the mode is kept because fxtpu routes deep taps to
+// it).  Every sum runs in a fixed order
 // (a two-stage mean reduction, in double for complex64 samples and in
 // exact 64-bit integers for int8 ones, and a fixed-order sum of the
 // partials), so a run is bit-for-bit repeatable; there are no atomics.  The
@@ -149,8 +158,8 @@
 // answered its element-bound DMA; loads here are byte-addressed, so the
 // int8 kernel reads the interleaved (I, Q) bytes as they arrived.  The
 // TPU's banded bf16 matmul for the SVD conv, its hi/lo splits and its
-// 1-pass tail ranks are matrix-unit workarounds: here every rank runs in
-// f32 on the CUDA cores, u in shared memory, r accumulators per bin.  A
+// 1-pass tail ranks are matrix-unit workarounds: here the folded table
+// runs in f32 on the CUDA cores.  A
 // launch of K blocks runs K times the CTAs of one block, and the host pays
 // one set of launches per K blocks.
 
@@ -168,8 +177,6 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-// Largest SVD rank the FIR policy keeps in registers (fx_fused.MAX_SVD_RANK).
-constexpr int kMaxRank = 16;
 
 __device__ __forceinline__ float2 cmul(float2 a, float2 b) {
   return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
@@ -485,9 +492,8 @@ __device__ __forceinline__ void tap_run(int& t, int end, const T*& p,
 // branch and no 64-bit multiply per tap; block rows are contiguous across
 // blocks in the merged layout.  The history and own-block runs load U rows
 // at a time (tap_run), so that a thread keeps U x NB loads in flight
-// (SvdFir: one bin, 8 rows; DirectFir: 8 bins, one row, and their 8
-// window loads): the frame's time at few bins a thread is its loads'
-// latency.
+// (DirectFir: 8 bins, one row, and their 8 window loads): the frame's time
+// at few bins a thread is its loads' latency.
 template <int NB, int U, class Rows, class F>
 __device__ __forceinline__ void for_each_tap(const Rows& rows, int c,
                                              long long e0, int bin, int nb,
@@ -615,13 +621,15 @@ __device__ void tap_sum(const Rows& rows, int c, long long e0,
 // Every other bin count the TPU kernel takes (_kernel_factor: n = 128 m,
 // 2 <= m <= 128; fx_fused.kernel_bins) runs fft_mixed, one body for all of
 // them with the size at run time: n = 2^a q, q odd.  Up to kFftMaxSub
-// points it is one Stockham sequence: radix-16 passes in registers while
-// 16 divides 2^a (fft_pass16, the same pass as above with the twiddle read
-// for any even n), then the rest of 2^a (2, 4 or 8) and one pass for each
-// odd prime factor p of q as direct DFTs (fft_pass_direct): each thread
-// forms up to 32 outputs, each a sum of p loads times exp(-2 pi i m / n)
-// from the table, holds them across the barrier and stores them as a
-// Stockham pass does.  Above kFftMaxSub points
+// points it is one Stockham sequence: register passes while 16 divides
+// 2^a and for the rest of 2^a (2, 4 or 8; fft_pass_reg, the pass above
+// with the twiddle read for any even n), then one pass for each odd prime
+// factor p of q: the largest, the last pass, as pre-twiddled p-point DFTs
+// by their roots' real symmetry in register tiles (fft_pass_prime_last),
+// any smaller one as a direct DFT (fft_pass_direct: each thread forms up to
+// 32 outputs, each a sum of p loads times exp(-2 pi i m / n) from the
+// table, holds them across the barrier and stores them as a Stockham pass
+// does).  Above kFftMaxSub points
 // a pass would hold n / 256 > 32 points a thread across its barrier, more
 // registers than two CTAs an SM leave: the FIR writes the frame's even
 // samples to the slot's first half and its odd ones to the second
@@ -805,15 +813,26 @@ __device__ __forceinline__ float2 twiddle_any(const float2* tw, int m,
   return make_float2(-t.x, -t.y);
 }
 
-// A radix-16 pass of a Stockham sequence of N points at buf (fft_pass,
-// its loads and stores through the swizzle where swz_in / swz_out say)
-// for N <= kFftMaxSub, the twiddle exp(-2 pi i e / N) read at e ts of the
-// table of n = N ts points (half = n / 2).  Its radix-16 passes come first,
-// so Ns is a power of two.
-__device__ __noinline__ void fft_pass16(float2* buf, const float2* tw, int N,
-                                        int ns, int ts, int half, bool swz_in,
-                                        bool swz_out) {
-  constexpr int R = 16;
+// A register pass of radix R (2, 4, 8 or 16) of a Stockham sequence of N
+// points at slot offset `off` of the frame kernel's shared memory (fft_pass,
+// its loads and stores through the swizzle where swz_in / swz_out say) for
+// N <= kFftMaxSub, the twiddle exp(-2 pi i e / N) read at e ts of the table
+// of n = N ts points at `tw_off` (half = n / 2).  The mixed FFT's passes
+// take offsets into fx_smem, not pointers: a pointer handed to a function
+// that is not inlined is a generic address, and every load through it a
+// generic load (as fft_sized's offsets avoid).  The
+// power-of-two passes come first, so Ns is a power of two; a thread holds
+// kFftMaxSub / kThreads points across the barrier at every radix.  The
+// radix-2/4/8 rest of the power of two ran as a direct DFT before
+// (fft_pass_direct), each output a chain of R table loads: at 16,384 bins
+// (two halves of 16^3 x 2) the frame kernel took 77.3 us of a 2 x 2^18
+// block (PERF.md).
+template <int R>
+__device__ __noinline__ void fft_pass_reg(int off, int tw_off, int N, int ns,
+                                          int ts, int half, bool swz_in,
+                                          bool swz_out) {
+  float2* buf = fx_smem + off;
+  const float2* tw = fx_smem + tw_off;
   constexpr int kPer = kFftMaxSub / (R * kThreads);
   const int nb = N / R;
   const int d = N / (ns * R) * ts;
@@ -847,7 +866,7 @@ __device__ __noinline__ void fft_pass16(float2* buf, const float2* tw, int N,
 #pragma unroll
       for (int r = 0; r < R; ++r) {
         const int i = base + r * ns;
-        buf[swz_out ? swz<true>(i) : i] = v[p][bitrev(r, 4)];
+        buf[swz_out ? swz<true>(i) : i] = v[p][bitrev(r, ilog2(R))];
       }
     }
   }
@@ -862,9 +881,11 @@ __device__ __noinline__ void fft_pass16(float2* buf, const float2* tw, int N,
 // two chains (even and odd s) to halve the adds' latency; every output is
 // held across the barrier and stored at (j - k) R + k + r Ns.  A thread's
 // outputs step kThreads apart, so (r, j) steps without a division.
-__device__ __noinline__ void fft_pass_direct(float2* buf, const float2* tw,
-                                             int N, int R, int ns, int ts,
+__device__ __noinline__ void fft_pass_direct(int off, int tw_off, int N,
+                                             int R, int ns, int ts,
                                              int half) {
+  float2* buf = fx_smem + off;
+  const float2* tw = fx_smem + tw_off;
   const int nb = N / R;
   const int n = N * ts;
   const int d = N / (ns * R) * ts;
@@ -911,27 +932,185 @@ __device__ __noinline__ void fft_pass_direct(float2* buf, const float2* tw,
   __syncthreads();
 }
 
+// Replaces, with the passes around it: the FFT of _fx_kernel and _kernel
+// (fxtpu/ops/pfb_pallas.py) at the bin counts of _kernel_factor (:75-81)
+// that are not powers of two, which the TPU kernel runs as DFT matmuls.
+// What bounds it on the H100: latency; its operations (at 16,256 bins 2 x
+// 64 x 63^2 x 4 real multiply-adds a frame, 2 us for a 2 x 2^18 block at
+// the card's float32 rate) and shared-memory loads are far below the time
+// it takes.
+//
+// The last pass of a Stockham sequence of N points at buf when its radix
+// is an odd prime p (the largest prime factor of N): Ns = nb = N / p, so
+// butterfly j reads the column j + s nb (s < p) and writes its outputs to
+// the same column, j + r nb.  Two steps:
+//   * the input twiddles exp(-2 pi i s j / N) in place (each point once);
+//   * a pure p-point DFT of every column, by the real symmetry of its
+//     roots: with u_s = x_s + x_{p-s}, v_s = x_s - x_{p-s} (1 <= s <= H =
+//     (p - 1) / 2) and theta = 2 pi r s / p,
+//       y_r     = x_0 + A_r - i B_r,   y_{p-r} = x_0 + A_r + i B_r,
+//       A_r = sum_s cos(theta) u_s,     B_r = sum_s sin(theta) v_s,
+//       y_0 = x_0 + sum_s u_s,
+//     H^2 real-by-complex products per column pair where the direct form
+//     (fft_pass_direct) made p^2 complex ones.  A thread forms a tile of
+//     kPrimeRows r's by kPrimeCols columns: each x it loads serves its
+//     kPrimeRows r's, each root its kPrimeCols columns, and its 2
+//     kPrimeRows kPrimeCols accumulators are independent chains.  The root
+//     of r s mod p (kept by one add and one compare per step) comes from the
+//     FFT's own float64-formed table, exp(-2 pi i m nb ts / n), folded into
+//     m <= H by cos(2 pi (p - m) / p) = cos(2 pi m / p) (its sine negated),
+//     so no recurrence rounds it.  The r-group is uniform over a warp where
+//     it can be (the column groups of a round run along the warp), so the
+//     root's load is one broadcast.  The tiles of a round cover whole
+//     columns: every read of a round comes before the barrier and every
+//     write after it, so a thread holds one tile's outputs, not N / kThreads.
+// At 16,256 bins (127 x 128; the halves' last pass is 127 over 64 columns)
+// the direct form was 96% of the frame kernel, 706 of 742 us: 2 x 8128 x
+// 127 complex products a frame, each output one chain of table loads.
+// This form took that frame kernel to 162 us (H100, 700 W; PERF.md), of
+// which the two halves' DFTs were 85 us (timed by skipping them) and their
+// pre-twiddles 7.5: at one CTA of 8 warps an SM (195 KB of shared memory)
+// and 32 CTAs for a 2 x 2^18 block, the loop's loads and roots are not
+// hidden; each half on a CTA of its own (fx_wide_halves_kernel) took it to
+// 88.  Measured and dropped, at 16,256 / 3072 / 384 bins (frame kernel us
+// against this form's 159 / 31.5 / 57.7, one CTA a frame-channel): 4
+// columns a tile 144 / 39.2 / 75.0 (fewer threads at work where p is
+// small); the s loop unrolled by 4 156 / 30.7 / 57.6; roots by recurrence
+// re-anchored every 8 steps 153 / 29.8 / 56.6.
+// Rader's algorithm (a 126-point cyclic convolution by FFTs of 2 x 3^2 x 7
+// points) was not taken: its passes would add more noinline bodies to every
+// kMixed kernel, whose build cost each bin count pays, for a pass that the
+// symmetric tiles already bring near the other passes' cost.
+constexpr int kPrimeRows = 4;   // r's of a tile
+constexpr int kPrimeCols = 2;   // columns of a tile
+
+__device__ __noinline__ void fft_pass_prime_last(int off, int tw_off, int N,
+                                                 int p, int ts) {
+  float2* buf = fx_smem + off;
+  const float2* tw = fx_smem + tw_off;
+  const int nb = N / p;
+  for (int i = threadIdx.x; i < (p - 1) * nb; i += kThreads) {
+    const int s = 1 + i / nb;
+    const int j = i - (s - 1) * nb;
+    float2* e = buf + j + s * nb;
+    *e = cmul(*e, twiddle_any(tw, s * j * ts, (N * ts) >> 1));
+  }
+  __syncthreads();
+  const int hp = (p - 1) >> 1;
+  const int n_rg = (hp + kPrimeRows - 1) / kPrimeRows;   // <= 16 (p < 128)
+  const int n_cg = (nb + kPrimeCols - 1) / kPrimeCols;
+  const int per_round = kThreads / n_rg;                 // column groups
+  const int rg = static_cast<int>(threadIdx.x) / per_round;
+  const int cl = static_cast<int>(threadIdx.x) - rg * per_round;
+  const int root = nb * ts;   // the table's stride between roots of p
+  for (int g0 = 0; g0 < n_cg; g0 += per_round) {
+    const int cg = g0 + cl;
+    const bool active = rg < n_rg && cg < n_cg;
+    float2 x0[kPrimeCols], y0[kPrimeCols];
+    float2 a[kPrimeRows][kPrimeCols], b[kPrimeRows][kPrimeCols];
+    if (active) {
+#pragma unroll
+      for (int c = 0; c < kPrimeCols; ++c) {
+        const int j = cg + c * n_cg;
+        x0[c] = j < nb ? buf[j] : make_float2(0.f, 0.f);
+        y0[c] = x0[c];
+#pragma unroll
+        for (int r = 0; r < kPrimeRows; ++r) {
+          a[r][c] = make_float2(0.f, 0.f);
+          b[r][c] = make_float2(0.f, 0.f);
+        }
+      }
+      int m[kPrimeRows];
+#pragma unroll
+      for (int r = 0; r < kPrimeRows; ++r) m[r] = 0;
+      for (int s = 1; s <= hp; ++s) {
+        float2 u[kPrimeCols], v[kPrimeCols];
+#pragma unroll
+        for (int c = 0; c < kPrimeCols; ++c) {
+          const int j = cg + c * n_cg;
+          const float2 xa = j < nb ? buf[j + s * nb] : make_float2(0.f, 0.f);
+          const float2 xb =
+              j < nb ? buf[j + (p - s) * nb] : make_float2(0.f, 0.f);
+          u[c] = cadd(xa, xb);
+          v[c] = csub(xa, xb);
+          y0[c] = cadd(y0[c], u[c]);
+        }
+#pragma unroll
+        for (int r = 0; r < kPrimeRows; ++r) {
+          const int rr = rg * kPrimeRows + r + 1;
+          if (rr <= hp) {
+            m[r] += rr;
+            if (m[r] >= p) m[r] -= p;
+            const bool hi = m[r] > hp;
+            const float2 t = tw[(hi ? p - m[r] : m[r]) * root];
+            const float cs = t.x;
+            const float sn = hi ? t.y : -t.y;
+#pragma unroll
+            for (int c = 0; c < kPrimeCols; ++c) {
+              a[r][c].x += cs * u[c].x;
+              a[r][c].y += cs * u[c].y;
+              b[r][c].x += sn * v[c].x;
+              b[r][c].y += sn * v[c].y;
+            }
+          }
+        }
+      }
+    }
+    __syncthreads();   // every read of the round's columns is done
+    if (active) {
+#pragma unroll
+      for (int c = 0; c < kPrimeCols; ++c) {
+        const int j = cg + c * n_cg;
+        if (j >= nb) continue;
+        if (rg == 0) buf[j] = y0[c];
+#pragma unroll
+        for (int r = 0; r < kPrimeRows; ++r) {
+          const int rr = rg * kPrimeRows + r + 1;
+          if (rr <= hp) {
+            const float2 e = cadd(x0[c], a[r][c]);
+            buf[j + rr * nb] = make_float2(e.x + b[r][c].y, e.y - b[r][c].x);
+            buf[j + (p - rr) * nb] =
+                make_float2(e.x - b[r][c].y, e.y + b[r][c].x);
+          }
+        }
+      }
+    }
+    __syncthreads();   // the round's writes before the next round's reads
+  }
+}
+
 // The Stockham sequence of N = 2^a q points (64 <= 2^a, N <= kFftMaxSub,
 // q odd) at buf, natural order after it (fx_fused.fft_radices): radix 16
 // while 16 divides 2^a (where pass 1 is one of these, pass 0 stores
-// swizzled and pass 1 loads so), then the rest of 2^a (2, 4 or 8) and
-// each odd prime factor of q, smallest first, as direct DFTs.
-__device__ __forceinline__ void fft_stockham(float2* buf, const float2* tw,
-                                             int N, int ts, int half) {
+// swizzled and pass 1 loads so), then the rest of 2^a (2, 4 or 8) as a
+// register pass, then each odd prime factor of q, smallest first: the last
+// (the largest) by fft_pass_prime_last, any before it as a direct DFT
+// (primes of 3 to 11, whose direct sums are short).
+__device__ __forceinline__ void fft_stockham(int off, int tw_off, int N,
+                                             int ts, int half) {
   int p2 = N & -N;
   const bool swz = p2 % 256 == 0;   // pass 1 is a radix-16 pass
   int ns = 1;
   for (; p2 % 16 == 0; p2 /= 16, ns *= 16) {
-    fft_pass16(buf, tw, N, ns, ts, half, swz && ns == 16, swz && ns == 1);
+    fft_pass_reg<16>(off, tw_off, N, ns, ts, half, swz && ns == 16,
+                     swz && ns == 1);
   }
-  if (p2 > 1) {
-    fft_pass_direct(buf, tw, N, p2, ns, ts, half);
-    ns *= p2;
+  if (p2 == 8) {
+    fft_pass_reg<8>(off, tw_off, N, ns, ts, half, false, false);
+  } else if (p2 == 4) {
+    fft_pass_reg<4>(off, tw_off, N, ns, ts, half, false, false);
+  } else if (p2 == 2) {
+    fft_pass_reg<2>(off, tw_off, N, ns, ts, half, false, false);
   }
+  ns *= p2;
   int q = N / ns;
   for (int f = 3; q > 1; f += 2) {
     while (q % f == 0) {
-      fft_pass_direct(buf, tw, N, f, ns, ts, half);
+      if (q == f) {
+        fft_pass_prime_last(off, tw_off, N, f, ts);
+      } else {
+        fft_pass_direct(off, tw_off, N, f, ns, ts, half);
+      }
       ns *= f;
       q /= f;
     }
@@ -950,11 +1129,11 @@ __device__ __noinline__ void fft_mixed(int off, int tw_off, int n) {
   const float2* tw = fx_smem + tw_off;
   const int half = n >> 1;
   if (n <= kFftMaxSub) {
-    fft_stockham(buf, tw, n, 1, half);
+    fft_stockham(off, tw_off, n, 1, half);
     return;
   }
-  fft_stockham(buf, tw, half, 2, half);         // the even samples' DFT
-  fft_stockham(buf + half, tw, half, 2, half);  // the odd samples'
+  fft_stockham(off, tw_off, half, 2, half);         // the even samples'
+  fft_stockham(off + half, tw_off, half, 2, half);  // the odd samples'
   for (int k = threadIdx.x; k < half; k += kThreads) {
     const float2 a = buf[k];
     const float2 b = cmul(buf[k + half], tw[k]);
@@ -1055,61 +1234,273 @@ struct DirectFir {
   }
 };
 
-// SvdFir is the rank-r factorisation: per rank k the scalar-tap
-// convolution c_k = sum_t u[t, k] row[f+t] (u staged in shared memory as
-// `tab`, one broadcast read per tap and rank), summed in tap order into r
-// register accumulators, then fir = sum_k v[k, bin] c_k in rank order; one
-// bin at a time (its r accumulators fill the registers), its rows loaded
-// kTaps at a time (one load in flight a thread kept the deep-tap frames
-// latency-bound).
-struct SvdFir {
-  static constexpr int kBins = 1;
-  static constexpr int kTaps = 8;
-  const float* u;   // [ntaps, rank]
-  const float* v;   // [rank, nbins]
-  int rank;
+// RowsFir is the FIR at deep taps (fx_fused.deep_fir): a launch of its own
+// before the frame kernel (fir_rows_kernel below) has written every frame's
+// FIR output to fir [nch, K S, nbins] (frame g of the merged rows is row g),
+// and the frame kernel reads one row a frame, kBins bins a thread as
+// DirectFir walks them; a single-pass policy (Sum active) also reads the
+// frame's newest tap row and hands it to `sum` exactly as the tap loop did,
+// so the sample sums, and the means the reduce forms from them, keep their
+// bits.
+struct RowsFir {
+  static constexpr int kBins = DirectFir::kBins;
+  static constexpr int kTaps = 1;   // tap_sum's rows a round trip (ablation)
+  const float2* fir;
+  long long frames;   // K S: the rows of each channel
 
-  size_t table_bytes(int ntaps) const {
-    return static_cast<size_t>(ntaps) * rank * sizeof(float);
-  }
-  __device__ void stage(float* tab, int ntaps) const {
-    for (int i = threadIdx.x; i < ntaps * rank; i += kThreads) tab[i] = u[i];
-  }
+  size_t table_bytes(int) const { return 0; }
+  __device__ void stage(float*, int) const {}
   template <bool kSlot, class Rows, class Sum>
-  __device__ void run(const Rows& rows, const float* tab, int c, long long e0,
+  __device__ void run(const Rows& rows, const float*, int c, long long e0,
                       const RowMeans& m, int ntaps, int nbins, float2* out,
                       Sum& sum) const {
-    for (int bin = threadIdx.x; bin < nbins; bin += kThreads) {
-      float2 ck[kMaxRank];
+    const float2* src = fir + (c * frames + e0) * nbins;
+    for (int b0 = threadIdx.x; b0 < nbins; b0 += kBins * kThreads) {
+      const int nb = min(kBins, (nbins - b0 + kThreads - 1) / kThreads);
+      float2 y[kBins];
 #pragma unroll
-      for (int k = 0; k < kMaxRank; ++k) ck[k] = make_float2(0.f, 0.f);
-      for_each_tap<1, kTaps>(rows, c, e0, bin, 1, m, ntaps,
-                      [&](int t, const float2* x) {
-        const float* ut = tab + t * rank;
-        if constexpr (Sum::kActive) {
-          if (t == ntaps - 1) sum.template add<1>(x, 1);
+      for (int j = 0; j < kBins; ++j) {
+        if (j < nb) y[j] = __ldg(src + b0 + j * kThreads);
+      }
+      if constexpr (Sum::kActive) {
+        // the newest tap row, e0 + ntaps - 1, always a block row
+        const auto* p = rows.sample_ptr(c, e0 + ntaps - 1, b0);
+        float2 v[kBins];
+#pragma unroll
+        for (int j = 0; j < kBins; ++j) {
+          if (j < nb) v[j] = rows.block_value(__ldg(p + j * kThreads), m.own);
         }
+        sum.template add<kBins>(v, nb);
+      }
 #pragma unroll
-        for (int k = 0; k < kMaxRank; ++k) {
-          if (k < rank) {
-            ck[k].x += ut[k] * x[0].x;
-            ck[k].y += ut[k] * x[0].y;
-          }
-        }
-      });
-      float2 acc = make_float2(0.f, 0.f);
-#pragma unroll
-      for (int k = 0; k < kMaxRank; ++k) {
-        if (k < rank) {
-          const float vk = __ldg(v + k * nbins + bin);
-          acc.x += vk * ck[k].x;
-          acc.y += vk * ck[k].y;
+      for (int j = 0; j < kBins; ++j) {
+        if (j < nb) {
+          const int bin = b0 + j * kThreads;
+          out[kSlot ? fft_slot(bin, nbins) : bin] = y[j];
         }
       }
-      out[kSlot ? fft_slot(bin, nbins) : bin] = acc;
     }
   }
 };
+
+// (b0) The FIR at deep taps, a launch of its own: fir[c, g, bin] = sum over
+// t in tap order of w[t, bin] row[g + t, bin], for every frame g < K S of
+// the merged rows [history; x] (each row DC-corrected as the loader says,
+// as for_each_tap corrects it: the same values in the same order, so the
+// direct mode's output is the in-kernel loop's).  w is the window, or in
+// the SVD mode its rank-r factors folded into one table (u v formed in
+// float64 and rounded once, fx_fused.fir_table): the same function as the
+// U-then-V sum, in another association, with a sixth of its operations.
+//
+// Replaces: the FIR of _fx_kernel (fxtpu/ops/pfb_pallas.py), at deep taps
+// its banded SVD form (:810-869), whose point is that each window of rows
+// is "read exactly once".  The in-kernel tap loop read every frame's ntaps
+// rows again, though consecutive frames share ntaps - 1 of them: at the
+// wideband shape (2 x 2^21 samples, 8192 bins, 32 taps) 32 times the block
+// from L2, 388.6 us of frame kernel in the direct mode and 559.95 in the
+// rank-6 form (6 x 32 + 6 multiply-adds an output), against a 12.5 us
+// bound (PERF.md).
+//
+// What bounds it on the H100: its bytes, each sample read once and each
+// output written once (33.5 MB each way at the wideband shape: 20 us at
+// 3.35 TB/s); its operations (4 ntaps flops an output, 8 us there) are
+// below that.  Design: a thread owns one bin and kFirFrames consecutive
+// frames; it walks the kFirFrames + ntaps - 1 rows those frames read once,
+// down its bin's column, in a ring of kFirFrames registers, and adds each
+// row to the kFirFrames accumulators it belongs to, a tap weight a row
+// (static ring indices: the tap loop unrolled by kFirFrames).  Rows come
+// kFirLoads at a time with their weights, so a thread keeps that many loads
+// in flight; a CTA is kFirThreads consecutive bins (coalesced rows), the
+// grid (nbins / kFirThreads, frame chunks, nch) fills every SM at the
+// deep CLI block (256 CTAs) and the wideband one (2048).  Rows beyond the
+// last frame's are read at the last row's address and feed only frames past
+// the end, which are not written.  The two-pass loaders' block means are
+// staged in shared memory (the blocks one chunk's rows lie in).
+// Measured on an H100 at 700 W (PERF.md): 52.8 us at the wideband block
+// (int8 55.9), 49.0 us for the deep CLI block's 8 blocks, against the 20 us
+// bound; the frame kernel behind it 87 us where the tap loop took 388.6
+// (direct) and 559.95 (rank 6).  What is left is the bookkeeping around
+// each row's 32 multiply-adds.  Forms measured against this one in one
+// process and dropped (wideband c64 / int8 FIR us): each row's address
+// and block formed anew, a 64-bit division a row, 93.8 / 108.7 (the
+// cursors and the one-block fast path took it to 52.8 / 55.9); the next
+// kFirLoads rows prefetched into a second staging array (150-168
+// registers) 106.9 / 142.9 against 93.3 / 105.9; 16 rows a round trip
+// 94.4 / 136.7; 8 frames a thread 66.0 / 86.2 against 77.2 / 83.1 (more
+// CTAs, 2.4x the rows read); 256 threads a CTA, no change.
+constexpr int kFirThreads = 128;
+constexpr int kFirFrames = 16;
+constexpr int kFirLoads = 8;
+constexpr int kFirMaxMeans = 256;
+
+// One thread's kFirFrames FIR outputs at bin: the rows its frames read,
+// in order, from fetch() (the raw sample) and correct(raw) (its value),
+// each fetched and corrected once.  Tap t: row t + kFirFrames - 1 of the
+// chunk into ring slot (t - 1) mod kFirFrames (its row t - 1 was last read
+// at tap t - 1), then frame f adds w[t] times slot (t + f) mod kFirFrames,
+// its row f + t, in tap order; kFirLoads rows' loads (and their weights')
+// are issued before their adds.
+template <class Fetch, class Correct>
+__device__ __forceinline__ void fir_taps(float2 (&acc)[kFirFrames],
+                                         const float* __restrict__ w, int bin,
+                                         int nbins, int ntaps, Fetch fetch,
+                                         Correct correct) {
+  using T = decltype(fetch());
+  float2 ring[kFirFrames];
+#pragma unroll
+  for (int f = 0; f < kFirFrames; ++f) acc[f] = make_float2(0.f, 0.f);
+#pragma unroll
+  for (int f = 0; f + 1 < kFirFrames; ++f) ring[f] = correct(fetch());
+  for (int t0 = 0; t0 < ntaps; t0 += kFirFrames) {
+#pragma unroll
+    for (int d0 = 0; d0 < kFirFrames; d0 += kFirLoads) {
+      T raw[kFirLoads];
+      float wt[kFirLoads];
+#pragma unroll
+      for (int u = 0; u < kFirLoads; ++u) {
+        const int t = t0 + d0 + u;
+        if (t < ntaps) {
+          raw[u] = fetch();
+          wt[u] = __ldg(w + static_cast<long long>(t) * nbins + bin);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kFirLoads; ++u) {
+        const int d = d0 + u;
+        if (t0 + d < ntaps) {
+          ring[(d + kFirFrames - 1) % kFirFrames] = correct(raw[u]);
+#pragma unroll
+          for (int f = 0; f < kFirFrames; ++f) {
+            const float2 x = ring[(d + f) % kFirFrames];
+            acc[f].x += wt[u] * x.x;
+            acc[f].y += wt[u] * x.y;
+          }
+        }
+      }
+    }
+  }
+}
+
+template <class Rows>
+__global__ void __launch_bounds__(kFirThreads)
+fir_rows_kernel(Rows rows, const float* __restrict__ w,
+                float2* __restrict__ fir, int ntaps, long long frames,
+                int parts) {
+  using T = typename Rows::T;
+  __shared__ float2 means[Rows::kRaw ? 1 : kFirMaxMeans];
+  const int nbins = rows.nbins;
+  const int halo = rows.halo;
+  const int bin = blockIdx.x * kFirThreads + threadIdx.x;
+  const int c = blockIdx.z;
+  const long long g0 = static_cast<long long>(blockIdx.y) * kFirFrames;
+  const long long e_last = frames + halo - 1;   // the last merged row
+  // the blocks this chunk's rows lie in (two-pass loaders only)
+  const long long j_lo = g0 < halo ? 0 : (g0 - halo) / rows.S;
+  if constexpr (!Rows::kRaw) {
+    const long long e_hi = min(g0 + kFirFrames + ntaps - 2, e_last);
+    const int n_means =
+        e_hi < halo ? 0
+                    : static_cast<int>((e_hi - halo) / rows.S - j_lo + 1);
+    for (int i = threadIdx.x; i < n_means; i += kFirThreads) {
+      means[i] = rows.mean(static_cast<int>(j_lo + i), c, parts);
+    }
+    __syncthreads();
+  }
+  const float2 mh = rows.history_mean(c);
+  const T* const x_row0 = rows.sample_ptr(c, halo, bin);
+  const long long e_end = g0 + kFirFrames + ntaps - 2;   // the chunk's last
+  // The common chunk lies in one block's rows and before the last row: its
+  // rows are read by stepping a pointer and all lose one mean.  The first
+  // chunk (history rows), the last one (rows past the end) and a two-pass
+  // chunk across blocks step cursors that say where each row comes from
+  // and which mean it loses.
+  const bool fast =
+      g0 >= halo && e_end <= e_last &&
+      (Rows::kRaw || (g0 - halo) / rows.S == (e_end - halo) / rows.S);
+  float2 acc[kFirFrames];
+  if (fast) {
+    float2 mu = make_float2(0.f, 0.f);
+    if constexpr (!Rows::kRaw) mu = means[0];
+    const T* pf = x_row0 + (g0 - halo) * nbins;
+    fir_taps(acc, w, bin, nbins, ntaps,
+             [&]() {
+               const T q = __ldg(pf);
+               pf += nbins;
+               return q;
+             },
+             [&](T q) { return rows.block_value(q, mu); });
+  } else {
+    // the fetch cursor: past the last row it stays there (the rows it then
+    // reads feed only frames past the end, which are not written)
+    long long ef = g0;
+    const T* pf = g0 < halo ? rows.history_ptr(c, g0, bin)
+                            : x_row0 + (g0 - halo) * nbins;
+    // the correction cursor: row ec, its block jr and its rows from ec on
+    long long ec = g0;
+    int jr = 0, left = rows.S;
+    if (g0 >= halo) {
+      jr = static_cast<int>((g0 - halo) / rows.S);
+      left = rows.S - static_cast<int>((g0 - halo) -
+                                       static_cast<long long>(jr) * rows.S);
+    }
+    fir_taps(acc, w, bin, nbins, ntaps,
+             [&]() {
+               const T q = __ldg(pf);
+               if (ef < e_last) {
+                 ++ef;
+                 pf = ef == halo ? x_row0 : pf + nbins;
+               }
+               return q;
+             },
+             [&](T q) {
+               float2 v;
+               if (ec < halo) {
+                 v = rows.history_value(q, mh);
+               } else {
+                 float2 mu = make_float2(0.f, 0.f);
+                 if constexpr (!Rows::kRaw) mu = means[jr - j_lo];
+                 v = rows.block_value(q, mu);
+               }
+               if (ec < e_last) {
+                 if (ec >= halo && --left == 0) {
+                   ++jr;
+                   left = rows.S;
+                 }
+                 ++ec;
+               }
+               return v;
+             });
+  }
+  float2* o = fir + (c * frames + g0) * nbins + bin;
+#pragma unroll
+  for (int f = 0; f < kFirFrames; ++f) {
+    if (g0 + f < frames) o[static_cast<long long>(f) * nbins] = acc[f];
+  }
+}
+
+// The FIR launch before a deep-tap frame kernel on `st`: rows of nch
+// channels over K blocks of S frames, w [ntaps, nbins], fir [nch, K S,
+// nbins].  A two-pass loader's means must be formed before it (the mean
+// pre-pass).  Refuses a shape whose chunk spans more blocks than it stages
+// means for (fx_fused.deep_fir keeps to it).
+template <class Rows>
+cudaError_t launch_fir_rows(const Rows& rows, const void* w, void* fir,
+                            int nch, int K, int S, int nbins, int ntaps,
+                            int parts, cudaStream_t st) {
+  const long long frames = static_cast<long long>(K) * S;
+  if (nbins % kFirThreads != 0 || ntaps < 1 ||
+      (kFirFrames + ntaps - 2) / S + 2 > kFirMaxMeans) {
+    return cudaErrorInvalidValue;
+  }
+  const long long chunks = (frames + kFirFrames - 1) / kFirFrames;
+  if (chunks > 65535 || nch > 65535) return cudaErrorInvalidValue;
+  fir_rows_kernel<Rows><<<dim3(nbins / kFirThreads,
+                               static_cast<unsigned>(chunks), nch),
+                          kFirThreads, 0, st>>>(
+      rows, static_cast<const float*>(w), static_cast<float2*>(fir), ntaps,
+      frames, parts);
+  return cudaGetLastError();
+}
 
 // ---------------------------------------------------------------------------
 // Which CTAs run a frame group, and which channels and bins each owns.
@@ -1372,7 +1763,8 @@ struct PartsOut {
 // sums (sums[k, group, c], each written by its channel's CTA); the cross
 // power, T and GJ are formed from the scratch by the X kernel
 // (fx_xstage.cu).  Not a PartsOut in the shared route's sense: only
-// PartsOut's sample-sum members are used.
+// PartsOut's sample-sum members are used.  Above kFftMaxSub bins in the
+// direct FIR mode its frames run fx_wide_halves_kernel (b2) instead.
 template <typename T>
 struct WideOut : PartsOut<T> {
   using Ctas = ChannelCtas;
@@ -1395,6 +1787,135 @@ struct WideOut : PartsOut<T> {
   }
 };
 
+// (b2) The wide route's frames above kFftMaxSub bins in the direct FIR mode
+// (fxt_fx_wide_frames at 12,288 to 16,384 bins): a frame group of one
+// channel on a cluster of two CTAs, CTA r holding half r of the frame,
+// its samples of parity r (fft_slot's halves), each half's n / 2-point
+// sequence of fft_stockham on its own SM.  Per frame: the FIR of bins [r,
+// r + 1) n / 2 in natural order into the CTA's slot (the tap loop of
+// DirectFir, the newest row to the sample sums), a cluster barrier, the
+// slot gathered to its parity (point i is bin 2 i + r, read from either
+// CTA's slot through distributed shared memory and held across a second
+// barrier), the half's FFT, a barrier, then the radix-2 combine of bins
+// [r, r + 1) n / 4 and the same + n / 2, written to the scratch spec, and
+// a barrier before the next frame's FIR overwrites a slot the partner
+// reads.  The spectra are the one-CTA kernel's (the same FIR, passes and
+// combine; only where each runs moves); the sample sums are added per CTA
+// and then CTA 0's warps before CTA 1's.  Dynamic shared memory: the slot
+// [n / 2] float2, the twiddle table [n / 2] and the warps' sums.
+// Replaces: _fx_kernel's frames (fxtpu/ops/pfb_pallas.py) at the bin counts
+// above 8192 that _kernel_factor (:75-81) takes, on the wide route.  What
+// bounds it on the H100: latency, not bytes (a 2 x 2^18 block's 4.2 MB in
+// and 4.2 MB of spectra out are 2.5 us): at 12,288 to 16,384 bins a frame
+// kernel's CTA holds a whole spectrum and the table (195 KB at 16,256), so
+// one CTA an SM ran one frame-channel, and the block's 32 of them left 100
+// of 132 SMs idle; this runs 64 CTAs, each with half the frame's work
+// (16,256 bins: 162 -> 88 us of frames; PERF.md).
+constexpr int kHalfHold = kFftMaxSub / kThreads;   // gathered points a thread
+
+template <class Rows>
+__global__ void __launch_bounds__(kThreads, 1)
+fx_wide_halves_kernel(Rows rows, const float* __restrict__ w,
+                      WideOut<typename Rows::T> out,
+                      const float2* __restrict__ tw, int nch, int S,
+                      int nbins, int ntaps, int frames_per_group) {
+  using Pair = typename SumOf<typename Rows::T>::pair;
+  constexpr int kBins = DirectFir::kBins;
+  cg::cluster_group cl = cg::this_cluster();
+  const int rank = static_cast<int>(cl.block_rank());
+  const int group = static_cast<int>(blockIdx.x) >> 1;
+  const int c = blockIdx.y;
+  const int kb = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int half = nbins >> 1;
+  const int quarter = nbins >> 2;
+  float2* slot = fx_smem;
+  float2* tw_s = fx_smem + half;
+  Pair* wsum = reinterpret_cast<Pair*>(tw_s + half);   // [kWarps]
+  const float2* other = cl.map_shared_rank(slot, rank ^ 1);
+  for (int i = tid; i < half; i += kThreads) tw_s[i] = __ldg(tw + i);
+  if (tid < kWarps) wsum[tid] = Pair{0, 0};
+  __syncthreads();
+  const int halo = ntaps - 1;
+  const RowMeans m{make_float2(0.f, 0.f), halo, nullptr, 0, nch};
+  const int f0 = group * frames_per_group;
+  const int f1 = min(f0 + frames_per_group, S);
+  const int lo = rank * half;
+  for (int f = f0; f < f1; ++f) {
+    const long long e0 = static_cast<long long>(kb) * S + f;
+    RowSum<Rows> sum(rows);
+    for (int b0 = lo + tid; b0 < lo + half; b0 += kBins * kThreads) {
+      const int nb = min(kBins, (lo + half - b0 + kThreads - 1) / kThreads);
+      float2 acc[kBins];
+#pragma unroll
+      for (int j = 0; j < kBins; ++j) acc[j] = make_float2(0.f, 0.f);
+      for_each_tap<kBins, 1>(rows, c, e0, b0, nb, m, ntaps,
+                             [&](int t, const float2* v) {
+        const float* wt = w + t * nbins + b0;
+        if (t == ntaps - 1) sum.template add<kBins>(v, nb);
+#pragma unroll
+        for (int j = 0; j < kBins; ++j) {
+          if (j < nb) {
+            const float wj = __ldg(wt + j * kThreads);
+            acc[j].x += wj * v[j].x;
+            acc[j].y += wj * v[j].y;
+          }
+        }
+      });
+#pragma unroll
+      for (int j = 0; j < kBins; ++j) {
+        if (j < nb) slot[b0 + j * kThreads - lo] = acc[j];
+      }
+    }
+    sum.flush(wsum, 0);
+    cl.sync();   // both CTAs' FIR outputs, natural order
+    float2 v[kHalfHold];
+#pragma unroll
+    for (int p = 0; p < kHalfHold; ++p) {
+      const int i = tid + p * kThreads;
+      if (i < half) {
+        const int b = 2 * i + rank;
+        v[p] = ((b >= half) == (rank == 1) ? slot : other)[b >= half ? b - half
+                                                                      : b];
+      }
+    }
+    cl.sync();   // every read of the natural order is done
+#pragma unroll
+    for (int p = 0; p < kHalfHold; ++p) {
+      const int i = tid + p * kThreads;
+      if (i < half) slot[i] = v[p];
+    }
+    __syncthreads();
+    fft_stockham(0, half, half, 2, half);
+    cl.sync();   // both halves' DFTs are done
+    const float2* even = rank == 0 ? slot : other;
+    const float2* odd = rank == 0 ? other : slot;
+    float2* spec = out.spec_out +
+                   ((static_cast<size_t>(kb) * nch + c) * S + f) * nbins;
+    for (int k = rank * quarter + tid; k < (rank + 1) * quarter;
+         k += kThreads) {
+      const float2 a = even[k];
+      const float2 b = cmul(odd[k], tw_s[k]);
+      spec[k] = cadd(a, b);
+      spec[k + half] = csub(a, b);
+    }
+    cl.sync();   // the partner has read this CTA's slot
+  }
+  // the sample sums of the group's frames: CTA 0's warps, then CTA 1's
+  if (rank == 0 && tid == 0) {
+    const Pair* ow = cl.map_shared_rank(wsum, 1);
+    Pair acc = wsum[0];
+    for (int i = 1; i < 2 * kWarps; ++i) {
+      const Pair p = i < kWarps ? wsum[i] : ow[i - kWarps];
+      acc.x += p.x;
+      acc.y += p.y;
+    }
+    out.sums[(static_cast<long long>(kb) * gridDim.x / 2 + group) * nch + c] =
+        acc;
+  }
+  cl.sync();   // CTA 1 stays until CTA 0 has read its sums
+}
+
 // (b) The frame kernel: a frame group of one block on one CTA or a cluster
 // of two (see Cta above), block k = blockIdx.z.  Dynamic shared memory:
 //   spec  [slots][nbins] float2 — the CTA's spectra of the frame (a
@@ -1406,7 +1927,8 @@ struct WideOut : PartsOut<T> {
 //                                 blocks the CTA's rows lie in (chan_slots
 //                                 of them); PartsOut stages no means and
 //                                 keeps its warps' sample sums there
-//   tab   [ntaps * r]    float  — SvdFir's u (none for DirectFir)
+//   tab   [table_bytes]         — a FIR policy's table (none for the two
+//                                 here)
 // For each frame and each of the CTA's channels: the FIR over ntaps rows of
 // [history; x] (read through `rows`) into the channel's slot, the FFT in
 // place there, then the output policy.  The FFT is radix 16 at a power of
@@ -1791,10 +2313,16 @@ cudaError_t launch_frames(const Rows& rows, const Fir& fir, const Out& out,
       return cudaErrorInvalidValue;
     }
   }
+  // A refused call's error is returned, and taken off the runtime's
+  // last-error slot as well, so that the next launch's check in this
+  // process does not report it again.
   cudaError_t err = cudaFuncSetAttribute(
       reinterpret_cast<const void*>(kernel),
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+    return err;
+  }
   err = pre();
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg = {};
@@ -1814,7 +2342,10 @@ cudaError_t launch_frames(const Rows& rows, const Fir& fir, const Out& out,
                            static_cast<const float2*>(tw), nch, S, nbins,
                            log2n, ntaps, frames_per_group, parts,
                            chan_slots);
-  if (err != cudaSuccess) return err;
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+    return err;
+  }
   return cudaGetLastError();
 }
 
@@ -1822,13 +2353,13 @@ cudaError_t launch_frames(const Rows& rows, const Fir& fir, const Out& out,
 // means of every block its rows lie in: at most ceil(halo / S) + 1 of
 // them, and never more than K.
 template <int Stage = kStageFull, typename T, class Rows, class Fir,
-          class Out>
+          class Out, class Pre>
 cudaError_t launch_means_and_frames(const T* x, typename SumOf<T>::pair* sums,
                                     const Rows& rows, const Fir& fir,
                                     const Out& out, const void* tw, int nch,
                                     int K, int S, int nbins, int ntaps,
                                     int n_groups, int frames_per_group,
-                                    int parts, cudaStream_t st) {
+                                    int parts, cudaStream_t st, Pre&& pre) {
   if (K < 1 || S < 1) return cudaErrorInvalidValue;
   const int halo = ntaps - 1;
   const int mean_blocks = min(K, (halo + S - 1) / S + 1);
@@ -1837,28 +2368,50 @@ cudaError_t launch_means_and_frames(const T* x, typename SumOf<T>::pair* sums,
       frames_per_group, parts, mean_blocks, st, [&]() {
         mean_partial_kernel<T><<<dim3(parts, nch, K), kThreads, 0, st>>>(
             x, sums, rows.n, rows.stride);
-        return cudaGetLastError();
+        const cudaError_t err = cudaGetLastError();
+        return err != cudaSuccess ? err : pre();
+      });
+}
+
+// The frame kernel's FIR on `st`: with `fir` NULL the tap loop over w in
+// the frame kernel (DirectFir); else, at deep taps, fir_rows_kernel into
+// fir [nch, K S, nbins] first and RowsFir in the frame kernel.  w is the
+// FIR's table [ntaps, nbins]: the window, or the SVD mode's folded factors.
+// launch(fir_policy, pre) launches the frame kernel, running pre() (which
+// launches what must precede the frame kernel) just before it.
+template <class Rows, class Launch>
+cudaError_t with_fir(const Rows& rows, const void* w, void* fir, int nch,
+                     int K, int S, int nbins, int ntaps, int parts,
+                     cudaStream_t st, Launch&& launch) {
+  if (fir == nullptr) {
+    return launch(DirectFir{static_cast<const float*>(w)},
+                  []() { return cudaSuccess; });
+  }
+  return launch(
+      RowsFir{static_cast<const float2*>(fir),
+              static_cast<long long>(K) * S},
+      [&]() {
+        return launch_fir_rows(rows, w, fir, nch, K, S, nbins, ntaps, parts,
+                               st);
       });
 }
 
 // The single-pass step over K blocks on `st`: the frame kernel over raw
-// rows with PartsOut in the FIR mode `rank` gives (no mean pre-pass), then
-// the reduce, with `dependent` as a programmatic dependent of the frame
+// rows with PartsOut (no mean pre-pass; the FIR as with_fir says), then the
+// reduce, with `dependent` as a programmatic dependent of the frame
 // kernel.  The warps' sample sums take kWarps pairs per channel of shared
 // memory, 2 kWarps float2 slots.
 template <typename T, class Rows>
-int fx_parts(const Rows& rows, const void* w, const void* u, const void* v,
-             const void* tw, const void* pairs, const void* da, void* sums,
-             void* partial, void* parts, void* mu, void* new_hist, int nch,
-             int K, int S, int nbins, int ntaps, int rank, int nbl,
-             int n_groups, int frames_per_group, double step, bool dependent,
+int fx_parts(const Rows& rows, const void* w, void* fir, const void* tw,
+             const void* pairs, const void* da, void* sums, void* partial,
+             void* parts, void* mu, void* new_hist, int nch, int K, int S,
+             int nbins, int ntaps, int nbl, int n_groups,
+             int frames_per_group, double step, bool dependent,
              cudaStream_t st) {
   using Pair = typename SumOf<T>::pair;
   static_assert(sizeof(Pair) == 2 * sizeof(float2), "two slots per pair");
   const int halo = ntaps - 1;
-  if (rank < 0 || rank > kMaxRank || halo < 1 || S < halo) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (halo < 1 || S < halo) return static_cast<int>(cudaErrorInvalidValue);
   const PartsOut<T> out{static_cast<const int*>(pairs),
                         static_cast<float2*>(partial),
                         static_cast<const float2*>(da),
@@ -1866,18 +2419,13 @@ int fx_parts(const Rows& rows, const void* w, const void* u, const void* v,
                         nbl,
                         nch,
                         halo};
-  const auto none = []() { return cudaSuccess; };
-  cudaError_t err;
-  if (rank > 0) {
-    const SvdFir fir{static_cast<const float*>(u),
-                     static_cast<const float*>(v), rank};
-    err = launch_frames(rows, fir, out, tw, nch, K, S, nbins, ntaps, n_groups,
-                        frames_per_group, 0, 2 * kWarps, st, none);
-  } else {
-    const DirectFir fir{static_cast<const float*>(w)};
-    err = launch_frames(rows, fir, out, tw, nch, K, S, nbins, ntaps, n_groups,
-                        frames_per_group, 0, 2 * kWarps, st, none);
-  }
+  const cudaError_t err = with_fir(
+      rows, w, fir, nch, K, S, nbins, ntaps, 0, st,
+      [&](const auto& f, auto&& pre) {
+        return launch_frames(rows, f, out, tw, nch, K, S, nbins, ntaps,
+                             n_groups, frames_per_group, 0, 2 * kWarps, st,
+                             pre);
+      });
   if (err != cudaSuccess) return static_cast<int>(err);
   const int n_gj = min(n_groups,
                        (halo + frames_per_group - 1) / frames_per_group);
@@ -1889,59 +2437,80 @@ int fx_parts(const Rows& rows, const void* w, const void* u, const void* v,
 }
 
 // The frame kernel of the single pass's wide route over K blocks on `st`:
-// raw rows with WideOut in the FIR mode `rank` gives, the spectra to `spec`
+// raw rows with WideOut (the FIR as with_fir says), the spectra to `spec`
 // and the sample sums to `sums`.  The X kernel (fx_xstage.cu, fxt_xstage)
 // forms parts, mu and the new history from them in a launch of its own.
 template <typename T, class Rows>
-int fx_wide_frames(const Rows& rows, const void* w, const void* u,
-                   const void* v, const void* tw, void* sums, void* spec,
-                   int nch, int K, int S, int nbins, int ntaps, int rank,
-                   int n_groups, int frames_per_group, cudaStream_t st) {
+int fx_wide_frames(const Rows& rows, const void* w, void* fir,
+                   const void* tw, void* sums, void* spec, int nch, int K,
+                   int S, int nbins, int ntaps, int n_groups,
+                   int frames_per_group, cudaStream_t st) {
   using Pair = typename SumOf<T>::pair;
   const int halo = ntaps - 1;
-  if (rank < 0 || rank > kMaxRank || halo < 1 || S < halo) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (halo < 1 || S < halo) return static_cast<int>(cudaErrorInvalidValue);
   const WideOut<T> out{{nullptr, nullptr, nullptr, static_cast<Pair*>(sums),
                         0, nch, halo},
                        static_cast<float2*>(spec),
                        S};
-  const auto none = []() { return cudaSuccess; };
-  cudaError_t err;
-  if (rank > 0) {
-    const SvdFir fir{static_cast<const float*>(u),
-                     static_cast<const float*>(v), rank};
-    err = launch_frames(rows, fir, out, tw, nch, K, S, nbins, ntaps, n_groups,
-                        frames_per_group, 0, 2 * kWarps, st, none);
-  } else {
-    const DirectFir fir{static_cast<const float*>(w)};
-    err = launch_frames(rows, fir, out, tw, nch, K, S, nbins, ntaps, n_groups,
-                        frames_per_group, 0, 2 * kWarps, st, none);
+  if (nbins > kFftMaxSub && fir == nullptr) {
+    // a frame's halves on a cluster of two CTAs (fx_wide_halves_kernel)
+    if (K < 1 || K > 65535 || S < 1 || (nbins & 3) != 0) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    auto* kernel = &fx_wide_halves_kernel<Rows>;
+    const size_t smem = static_cast<size_t>(nbins) * sizeof(float2) +
+                        kWarps * sizeof(Pair);
+    cudaError_t err = cudaFuncSetAttribute(
+        reinterpret_cast<const void*>(kernel),
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) {
+      cudaGetLastError();
+      return static_cast<int>(err);
+    }
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(n_groups * 2, nch, K);
+    cfg.blockDim = dim3(kThreads, 1, 1);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = st;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = 2;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    err = cudaLaunchKernelEx(&cfg, kernel, rows, static_cast<const float*>(w),
+                             out, static_cast<const float2*>(tw), nch, S,
+                             nbins, ntaps, frames_per_group);
+    if (err != cudaSuccess) {
+      cudaGetLastError();
+      return static_cast<int>(err);
+    }
+    return static_cast<int>(cudaGetLastError());
   }
-  return static_cast<int>(err);
+  return static_cast<int>(with_fir(
+      rows, w, fir, nch, K, S, nbins, ntaps, 0, st,
+      [&](const auto& f, auto&& pre) {
+        return launch_frames(rows, f, out, tw, nch, K, S, nbins, ntaps,
+                             n_groups, frames_per_group, 0, 2 * kWarps, st,
+                             pre);
+      }));
 }
 
-// The FIR mode of the FX entry points: rank 0 the direct tap loop over w,
-// rank 1 .. kMaxRank the factorisation u v.
+// The mean pre-pass, the FIR as with_fir says and the frame kernel of the
+// two-pass FX entry points.
 template <int Stage = kStageFull, typename T, class Rows>
 cudaError_t launch_fx(const T* x, typename SumOf<T>::pair* sums,
-                      const Rows& rows, const void* w, const void* u,
-                      const void* v, int rank, const CrossOut& out,
-                      const void* tw, int nch, int K, int S, int nbins,
-                      int ntaps, int n_groups, int frames_per_group,
-                      int parts, cudaStream_t st) {
-  if (rank < 0 || rank > kMaxRank) return cudaErrorInvalidValue;
-  if (rank > 0) {
-    const SvdFir fir{static_cast<const float*>(u),
-                     static_cast<const float*>(v), rank};
-    return launch_means_and_frames<Stage>(x, sums, rows, fir, out, tw, nch,
-                                          K, S, nbins, ntaps, n_groups,
-                                          frames_per_group, parts, st);
-  }
-  const DirectFir fir{static_cast<const float*>(w)};
-  return launch_means_and_frames<Stage>(x, sums, rows, fir, out, tw, nch, K,
-                                        S, nbins, ntaps, n_groups,
-                                        frames_per_group, parts, st);
+                      const Rows& rows, const void* w, void* fir,
+                      const CrossOut& out, const void* tw, int nch, int K,
+                      int S, int nbins, int ntaps, int n_groups,
+                      int frames_per_group, int parts, cudaStream_t st) {
+  return with_fir(rows, w, fir, nch, K, S, nbins, ntaps, parts, st,
+                  [&](const auto& f, auto&& pre) {
+    return launch_means_and_frames<Stage>(x, sums, rows, f, out, tw, nch, K,
+                                          S, nbins, ntaps, n_groups,
+                                          frames_per_group, parts, st, pre);
+  });
 }
 
 // launch_fx at a stage chosen at run time (kAblate: the ablation's entry
@@ -1949,16 +2518,15 @@ cudaError_t launch_fx(const T* x, typename SumOf<T>::pair* sums,
 template <bool kAblate, typename T, class Rows>
 cudaError_t launch_fx_stage(int stage, const T* x,
                             typename SumOf<T>::pair* sums, const Rows& rows,
-                            const void* w, const void* u, const void* v,
-                            int rank, const CrossOut& out, const void* tw,
-                            int nch, int K, int S, int nbins, int ntaps,
-                            int n_groups, int frames_per_group, int parts,
-                            cudaStream_t st) {
+                            const void* w, void* fir, const CrossOut& out,
+                            const void* tw, int nch, int K, int S, int nbins,
+                            int ntaps, int n_groups, int frames_per_group,
+                            int parts, cudaStream_t st) {
 #define FXT_STAGE_CASE(STAGE)                                               \
   case STAGE:                                                               \
-    return launch_fx<STAGE>(x, sums, rows, w, u, v, rank, out, tw, nch, K,  \
-                            S, nbins, ntaps, n_groups, frames_per_group,    \
-                            parts, st)
+    return launch_fx<STAGE>(x, sums, rows, w, fir, out, tw, nch, K, S,      \
+                            nbins, ntaps, n_groups, frames_per_group, parts, \
+                            st)
   if constexpr (kAblate) {
     switch (stage) {
       FXT_STAGE_CASE(kStageFull);
@@ -1980,14 +2548,14 @@ cudaError_t launch_fx_stage(int stage, const T* x,
 #undef FXT_STAGE_CASE
 }
 
-// The three kernels of the complex64 mode over K blocks on `st`, the
-// frame kernel at `stage` (fxt_fx_fused: kStageFull).
+// The kernels of the complex64 mode over K blocks on `st`, the frame
+// kernel at `stage` (fxt_fx_fused: kStageFull).
 template <bool kAblate>
 int fx_c64(int stage, const void* x, const void* hist, const void* w,
-           const void* u, const void* v, const void* tw, const void* pairs,
-           void* sums, void* partial, void* xp, void* new_hist, int nch,
-           int K, int S, int nbins, int ntaps, int rank, int nbl,
-           int n_groups, int frames_per_group, int parts, cudaStream_t st) {
+           void* fir, const void* tw, const void* pairs, void* sums,
+           void* partial, void* xp, void* new_hist, int nch, int K, int S,
+           int nbins, int ntaps, int nbl, int n_groups, int frames_per_group,
+           int parts, cudaStream_t st) {
   const int halo = ntaps - 1;
   const long long n = static_cast<long long>(S) * nbins;
   auto* sd = static_cast<double2*>(sums);
@@ -2003,8 +2571,8 @@ int fx_c64(int stage, const void* x, const void* hist, const void* w,
   const CrossOut out{static_cast<const int*>(pairs),
                      static_cast<float2*>(partial), nbl};
   cudaError_t err = launch_fx_stage<kAblate>(
-      stage, static_cast<const float2*>(x), sd, rows, w, u, v, rank, out, tw,
-      nch, K, S, nbins, ntaps, n_groups, frames_per_group, parts, st);
+      stage, static_cast<const float2*>(x), sd, rows, w, fir, out, tw, nch,
+      K, S, nbins, ntaps, n_groups, frames_per_group, parts, st);
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long n_out = static_cast<long long>(K) * nbl * nbins;
   const long long n_hist = static_cast<long long>(nch) * halo * nbins;
@@ -2016,15 +2584,14 @@ int fx_c64(int stage, const void* x, const void* hist, const void* w,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The three kernels of the int8 mode over K blocks on `st`, the frame
-// kernel at `stage` (fxt_fx_fused_i8: kStageFull).
+// The kernels of the int8 mode over K blocks on `st`, the frame kernel at
+// `stage` (fxt_fx_fused_i8: kStageFull).
 template <bool kAblate>
 int fx_i8(int stage, const void* x, const void* tail, const void* mu_prev,
-          const void* w, const void* u, const void* v, const void* tw,
-          const void* pairs, void* sums, void* partial, void* xp, void* mu,
-          int nch, int K, int S, int nbins, int ntaps, int rank, int nbl,
-          int n_groups, int frames_per_group, int parts, double step,
-          cudaStream_t st) {
+          const void* w, void* fir, const void* tw, const void* pairs,
+          void* sums, void* partial, void* xp, void* mu, int nch, int K,
+          int S, int nbins, int ntaps, int nbl, int n_groups,
+          int frames_per_group, int parts, double step, cudaStream_t st) {
   const long long n = static_cast<long long>(S) * nbins;
   auto* sl = static_cast<longlong2*>(sums);
   const I8Rows rows{static_cast<const char2*>(x),
@@ -2042,8 +2609,8 @@ int fx_i8(int stage, const void* x, const void* tail, const void* mu_prev,
   const CrossOut out{static_cast<const int*>(pairs),
                      static_cast<float2*>(partial), nbl};
   cudaError_t err = launch_fx_stage<kAblate>(
-      stage, static_cast<const char2*>(x), sl, rows, w, u, v, rank, out, tw,
-      nch, K, S, nbins, ntaps, n_groups, frames_per_group, parts, st);
+      stage, static_cast<const char2*>(x), sl, rows, w, fir, out, tw, nch, K,
+      S, nbins, ntaps, n_groups, frames_per_group, parts, st);
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long n_out = static_cast<long long>(K) * nbl * nbins;
   const long long n_mu = static_cast<long long>(K) * nch;
@@ -2075,28 +2642,26 @@ int fx_i8(int stage, const void* x, const void* tail, const void* mu_prev,
 namespace fxt {
 
 int parts_step(bool int8, const void* x, const void* hist, const void* w,
-               const void* u, const void* v, const void* tw,
-               const void* pairs, const void* da, void* sums, void* partial,
-               void* parts, void* mu, void* new_hist, int nch, int K, int S,
-               int nbins, int ntaps, int rank, int nbl, int n_groups,
-               int frames_per_group, double step, bool dependent,
-               cudaStream_t st) {
+               void* fir, const void* tw, const void* pairs, const void* da,
+               void* sums, void* partial, void* parts, void* mu,
+               void* new_hist, int nch, int K, int S, int nbins, int ntaps,
+               int nbl, int n_groups, int frames_per_group, double step,
+               bool dependent, cudaStream_t st) {
   const long long n = static_cast<long long>(S) * nbins;
   if (int8) {
     const I8Raw rows{{static_cast<const char2*>(x),
                       static_cast<const char2*>(hist), nullptr, nullptr, n,
                       K * n, S, ntaps - 1, nbins, nch,
                       static_cast<float>(step), step}};
-    return fx_parts<char2>(rows, w, u, v, tw, pairs, da, sums, partial,
-                           parts, mu, new_hist, nch, K, S, nbins, ntaps, rank,
-                           nbl, n_groups, frames_per_group, step, dependent,
-                           st);
+    return fx_parts<char2>(rows, w, fir, tw, pairs, da, sums, partial,
+                           parts, mu, new_hist, nch, K, S, nbins, ntaps, nbl,
+                           n_groups, frames_per_group, step, dependent, st);
   }
   const F32Raw rows{{static_cast<const float2*>(x),
                      static_cast<const float2*>(hist), nullptr, n, K * n, S,
                      ntaps - 1, nbins, nch}};
-  return fx_parts<float2>(rows, w, u, v, tw, pairs, da, sums, partial, parts,
-                          mu, new_hist, nch, K, S, nbins, ntaps, rank, nbl,
+  return fx_parts<float2>(rows, w, fir, tw, pairs, da, sums, partial, parts,
+                          mu, new_hist, nch, K, S, nbins, ntaps, nbl,
                           n_groups, frames_per_group, 1.0, dependent, st);
 }
 
@@ -2107,93 +2672,92 @@ int parts_step(bool int8, const void* x, const void* hist, const void* w,
 namespace fxt {
 
 int wide_frames(bool int8, const void* x, const void* hist, const void* w,
-                const void* u, const void* v, const void* tw, void* sums,
-                void* spec, int nch, int K, int S, int nbins, int ntaps,
-                int rank, int n_groups, int frames_per_group, double step,
-                cudaStream_t st) {
+                void* fir, const void* tw, void* sums, void* spec, int nch,
+                int K, int S, int nbins, int ntaps, int n_groups,
+                int frames_per_group, double step, cudaStream_t st) {
   const long long n = static_cast<long long>(S) * nbins;
   if (int8) {
     const I8Raw rows{{static_cast<const char2*>(x),
                       static_cast<const char2*>(hist), nullptr, nullptr, n,
                       K * n, S, ntaps - 1, nbins, nch,
                       static_cast<float>(step), step}};
-    return fx_wide_frames<char2>(rows, w, u, v, tw, sums, spec, nch, K, S,
-                                 nbins, ntaps, rank, n_groups,
-                                 frames_per_group, st);
+    return fx_wide_frames<char2>(rows, w, fir, tw, sums, spec, nch, K, S,
+                                 nbins, ntaps, n_groups, frames_per_group,
+                                 st);
   }
   const F32Raw rows{{static_cast<const float2*>(x),
                      static_cast<const float2*>(hist), nullptr, n, K * n, S,
                      ntaps - 1, nbins, nch}};
-  return fx_wide_frames<float2>(rows, w, u, v, tw, sums, spec, nch, K, S,
-                                nbins, ntaps, rank, n_groups,
-                                frames_per_group, st);
+  return fx_wide_frames<float2>(rows, w, fir, tw, sums, spec, nch, K, S,
+                                nbins, ntaps, n_groups, frames_per_group, st);
 }
 
 }  // namespace fxt
 #endif  // FXT_UNIT_WIDE
 
 #ifndef FXT_NOT_MAIN_UNIT
-// Launch the three kernels of the complex64 mode over K blocks on
-// `stream`.  The caller (fx_fused.py) has checked shapes, types,
-// contiguity and that nbins is a multiple of 128 in [256, 16384]
-// (fx_fused.kernel_bins) with ntaps >= 2 and rank in [0, 16] (0: the
-// direct loop over w; else u [ntaps, rank] and v [rank, nbins]).  x is
-// [nch, K, S, nbins]; each block has n_groups groups of frames_per_group
-// frames.  Scratch: sums [K, nch, parts]
-// double2, partial [K, n_groups, nbl, nbins] float2.  Writes xp [K, nbl,
-// nbins] and new_hist [nch, ntaps-1, nbins].  Returns cudaGetLastError().
+// Launch the kernels of the complex64 mode over K blocks on `stream`.  The
+// caller (fx_fused.py) has checked shapes, types, contiguity and that
+// nbins is a multiple of 128 in [256, 16384] (fx_fused.kernel_bins) with
+// ntaps >= 2.  w is the FIR's table [ntaps, nbins] float32: the window, or
+// the SVD mode's folded factors (fx_fused.fir_table).  fir is NULL (the tap
+// loop in the frame kernel) or, at deep taps (fx_fused.deep_fir), a scratch
+// [nch, K S, nbins] float2 that fir_rows_kernel fills first.  x is [nch, K,
+// S, nbins]; each block has n_groups groups of frames_per_group frames.
+// Scratch: sums [K, nch, parts] double2, partial [K, n_groups, nbl, nbins]
+// float2.  Writes xp [K, nbl, nbins] and new_hist [nch, ntaps-1, nbins].
+// Returns cudaGetLastError().
 extern "C" int fxt_fx_fused(const void* x, const void* hist, const void* w,
-                            const void* u, const void* v, const void* tw,
-                            const void* pairs, void* sums, void* partial,
-                            void* xp, void* new_hist, int nch, int K, int S,
-                            int nbins, int ntaps, int rank, int nbl,
-                            int n_groups, int frames_per_group, int parts,
-                            void* stream) {
-  return fx_c64<false>(kStageFull, x, hist, w, u, v, tw, pairs, sums,
-                       partial, xp,
-                new_hist, nch, K, S, nbins, ntaps, rank, nbl, n_groups,
-                frames_per_group, parts, static_cast<cudaStream_t>(stream));
+                            void* fir, const void* tw, const void* pairs,
+                            void* sums, void* partial, void* xp,
+                            void* new_hist, int nch, int K, int S, int nbins,
+                            int ntaps, int nbl, int n_groups,
+                            int frames_per_group, int parts, void* stream) {
+  return fx_c64<false>(kStageFull, x, hist, w, fir, tw, pairs, sums, partial,
+                       xp, new_hist, nch, K, S, nbins, ntaps, nbl, n_groups,
+                       frames_per_group, parts,
+                       static_cast<cudaStream_t>(stream));
 }
 
-// Launch the three kernels of the int8 mode over K blocks on `stream`.
-// The caller (fx_fused.py) has checked what it checks for fxt_fx_fused,
-// plus S >= ntaps-1 and that x and tail start on an (I, Q) pair.  x is
-// [nch, K, S, nbins, 2].  Scratch: sums [K, nch, parts] longlong2, partial
-// [K, n_groups, nbl, nbins] float2.  Writes xp [K, nbl, nbins] and mu [K,
-// nch] (complex64).  Returns cudaGetLastError().
+// Launch the kernels of the int8 mode over K blocks on `stream`.  The
+// caller (fx_fused.py) has checked what it checks for fxt_fx_fused, plus
+// S >= ntaps-1 and that x and tail start on an (I, Q) pair.  x is [nch, K,
+// S, nbins, 2]; w and fir as for fxt_fx_fused.  Scratch: sums [K, nch,
+// parts] longlong2, partial [K, n_groups, nbl, nbins] float2.  Writes xp
+// [K, nbl, nbins] and mu [K, nch] (complex64).  Returns
+// cudaGetLastError().
 extern "C" int fxt_fx_fused_i8(const void* x, const void* tail,
-                               const void* mu_prev, const void* w,
-                               const void* u, const void* v, const void* tw,
-                               const void* pairs, void* sums, void* partial,
-                               void* xp, void* mu, int nch, int K, int S,
-                               int nbins, int ntaps, int rank, int nbl,
+                               const void* mu_prev, const void* w, void* fir,
+                               const void* tw, const void* pairs, void* sums,
+                               void* partial, void* xp, void* mu, int nch,
+                               int K, int S, int nbins, int ntaps, int nbl,
                                int n_groups, int frames_per_group, int parts,
                                double step, void* stream) {
-  return fx_i8<false>(kStageFull, x, tail, mu_prev, w, u, v, tw, pairs,
-                      sums,
-               partial, xp, mu, nch, K, S, nbins, ntaps, rank, nbl, n_groups,
-               frames_per_group, parts, step,
-               static_cast<cudaStream_t>(stream));
+  return fx_i8<false>(kStageFull, x, tail, mu_prev, w, fir, tw, pairs, sums,
+                      partial, xp, mu, nch, K, S, nbins, ntaps, nbl, n_groups,
+                      frames_per_group, parts, step,
+                      static_cast<cudaStream_t>(stream));
 }
 
 // The single-pass step of the complex64 mode over K blocks on `stream`
-// (fx_fused.fx_fused_parts): two kernels, frames and reduce.  Checked by
-// the caller as for fxt_fx_fused, plus S >= ntaps-1.  da is the window's
-// table dA [ntaps-1, nbins] complex64.  Scratch: sums [K, n_groups, nch]
-// double2, partial [K, n_groups, nbl + 2 nch, nbins] float2.  Writes parts
-// [K, nbl + 2 nch, nbins] (xp_raw, T, GJ), mu [K, nch] and new_hist [nch,
-// ntaps-1, nbins].  Returns cudaGetLastError().
+// (fx_fused.fx_fused_parts): frames and reduce (at deep taps the FIR launch
+// first).  Checked by the caller as for fxt_fx_fused, plus S >= ntaps-1; w
+// and fir as there.  da is the window's table dA [ntaps-1, nbins]
+// complex64.  Scratch: sums [K, n_groups, nch] double2, partial [K,
+// n_groups, nbl + 2 nch, nbins] float2.  Writes parts [K, nbl + 2 nch,
+// nbins] (xp_raw, T, GJ), mu [K, nch] and new_hist [nch, ntaps-1, nbins].
+// Returns cudaGetLastError().
 extern "C" int fxt_fx_parts(const void* x, const void* hist, const void* w,
-                            const void* u, const void* v, const void* tw,
-                            const void* pairs, const void* da, void* sums,
-                            void* partial, void* parts, void* mu,
-                            void* new_hist, int nch, int K, int S, int nbins,
-                            int ntaps, int rank, int nbl, int n_groups,
-                            int frames_per_group, void* stream) {
-  return fxt::parts_step(false, x, hist, w, u, v, tw, pairs, da, sums,
+                            void* fir, const void* tw, const void* pairs,
+                            const void* da, void* sums, void* partial,
+                            void* parts, void* mu, void* new_hist, int nch,
+                            int K, int S, int nbins, int ntaps, int nbl,
+                            int n_groups, int frames_per_group,
+                            void* stream) {
+  return fxt::parts_step(false, x, hist, w, fir, tw, pairs, da, sums,
                          partial, parts, mu, new_hist, nch, K, S, nbins,
-                         ntaps, rank, nbl, n_groups, frames_per_group, 1.0,
-                         false, static_cast<cudaStream_t>(stream));
+                         ntaps, nbl, n_groups, frames_per_group, 1.0, false,
+                         static_cast<cudaStream_t>(stream));
 }
 
 // The single-pass step of the int8 mode (fx_fused.fx_fused_parts_i8): x
@@ -2202,17 +2766,50 @@ extern "C" int fxt_fx_parts(const void* x, const void* hist, const void* w,
 // units) and new_tail int8 [nch, ntaps-1, nbins, 2], the last block's last
 // rows as they arrived.  Returns cudaGetLastError().
 extern "C" int fxt_fx_parts_i8(const void* x, const void* tail, const void* w,
-                               const void* u, const void* v, const void* tw,
-                               const void* pairs, const void* da, void* sums,
-                               void* partial, void* parts, void* mu,
-                               void* new_tail, int nch, int K, int S,
-                               int nbins, int ntaps, int rank, int nbl,
+                               void* fir, const void* tw, const void* pairs,
+                               const void* da, void* sums, void* partial,
+                               void* parts, void* mu, void* new_tail, int nch,
+                               int K, int S, int nbins, int ntaps, int nbl,
                                int n_groups, int frames_per_group,
                                double step, void* stream) {
-  return fxt::parts_step(true, x, tail, w, u, v, tw, pairs, da, sums,
+  return fxt::parts_step(true, x, tail, w, fir, tw, pairs, da, sums,
                          partial, parts, mu, new_tail, nch, K, S, nbins,
-                         ntaps, rank, nbl, n_groups, frames_per_group, step,
-                         false, static_cast<cudaStream_t>(stream));
+                         ntaps, nbl, n_groups, frames_per_group, step, false,
+                         static_cast<cudaStream_t>(stream));
+}
+
+// The deep-tap FIR alone on `stream` (fx_fused.fir_rows): fir_rows_kernel
+// over the single pass's raw rows, x [nch, K, S, nbins] complex64 behind
+// the corrected tail hist [nch, ntaps-1, nbins], w [ntaps, nbins] float32
+// -> fir [nch, K S, nbins] complex64, frame g's FIR output in row g.  The
+// caller has checked shapes, types and contiguity.  Returns
+// cudaGetLastError().
+extern "C" int fxt_fir_rows(const void* x, const void* hist, const void* w,
+                            void* fir, int nch, int K, int S, int nbins,
+                            int ntaps, void* stream) {
+  const long long n = static_cast<long long>(S) * nbins;
+  const F32Raw rows{{static_cast<const float2*>(x),
+                     static_cast<const float2*>(hist), nullptr, n, K * n, S,
+                     ntaps - 1, nbins, nch}};
+  return static_cast<int>(launch_fir_rows(rows, w, fir, nch, K, S, nbins,
+                                          ntaps, 0,
+                                          static_cast<cudaStream_t>(stream)));
+}
+
+// fxt_fir_rows over 8-bit samples: x int8 [nch, K, S, nbins, 2] behind the
+// raw tail [nch, ntaps-1, nbins, 2], each sample times `step`.
+extern "C" int fxt_fir_rows_i8(const void* x, const void* tail,
+                               const void* w, void* fir, int nch, int K,
+                               int S, int nbins, int ntaps, double step,
+                               void* stream) {
+  const long long n = static_cast<long long>(S) * nbins;
+  const I8Raw rows{{static_cast<const char2*>(x),
+                    static_cast<const char2*>(tail), nullptr, nullptr, n,
+                    K * n, S, ntaps - 1, nbins, nch, static_cast<float>(step),
+                    step}};
+  return static_cast<int>(launch_fir_rows(rows, w, fir, nch, K, S, nbins,
+                                          ntaps, 0,
+                                          static_cast<cudaStream_t>(stream)));
 }
 
 // The single pass's reduce alone on `stream` (fx_fused.parts_reduce): the
@@ -2253,35 +2850,32 @@ extern "C" int fxt_parts_reduce_i8(const void* partial, const void* sums,
 }
 
 // The frame kernel of the single pass's wide route (fx_fused.fx_fused_parts
-// with the X stage over device memory): fxt_fx_parts's x, hist, w, u, v, tw,
+// with the X stage over device memory): fxt_fx_parts's x, hist, w, fir, tw,
 // sums and shapes; it writes every frame's spectrum of every channel to
 // spec [K, nch, S, nbins] float2, with no bound on nch from shared memory
 // (the caller takes nch <= 64).  fxt_xstage then forms the parts, mu and
 // the new history.  Returns cudaGetLastError().
 extern "C" int fxt_fx_wide_frames(const void* x, const void* hist,
-                                  const void* w, const void* u,
-                                  const void* v, const void* tw, void* sums,
-                                  void* spec, int nch, int K, int S,
-                                  int nbins, int ntaps, int rank,
-                                  int n_groups, int frames_per_group,
-                                  void* stream) {
-  return fxt::wide_frames(false, x, hist, w, u, v, tw, sums, spec, nch, K, S,
-                          nbins, ntaps, rank, n_groups, frames_per_group, 1.0,
+                                  const void* w, void* fir, const void* tw,
+                                  void* sums, void* spec, int nch, int K,
+                                  int S, int nbins, int ntaps, int n_groups,
+                                  int frames_per_group, void* stream) {
+  return fxt::wide_frames(false, x, hist, w, fir, tw, sums, spec, nch, K, S,
+                          nbins, ntaps, n_groups, frames_per_group, 1.0,
                           static_cast<cudaStream_t>(stream));
 }
 
 // The int8 wide route's frame kernel: fxt_fx_parts_i8's x, tail, step and
 // the rest as for fxt_fx_wide_frames; fxt_xstage_i8 follows it.
 extern "C" int fxt_fx_wide_frames_i8(const void* x, const void* tail,
-                                     const void* w, const void* u,
-                                     const void* v, const void* tw,
+                                     const void* w, void* fir, const void* tw,
                                      void* sums, void* spec, int nch, int K,
-                                     int S, int nbins, int ntaps, int rank,
+                                     int S, int nbins, int ntaps,
                                      int n_groups, int frames_per_group,
                                      double step, void* stream) {
-  return fxt::wide_frames(true, x, tail, w, u, v, tw, sums, spec, nch, K, S,
-                          nbins, ntaps, rank, n_groups, frames_per_group,
-                          step, static_cast<cudaStream_t>(stream));
+  return fxt::wide_frames(true, x, tail, w, fir, tw, sums, spec, nch, K, S,
+                          nbins, ntaps, n_groups, frames_per_group, step,
+                          static_cast<cudaStream_t>(stream));
 }
 
 #endif  // the production entry points
@@ -2290,20 +2884,21 @@ extern "C" int fxt_fx_wide_frames_i8(const void* x, const void* tail,
 // The stage ablation (fx_fused.fx_fused_ablate): fxt_fx_fused with the
 // frame kernel truncated at `stage` (the kStage values, 0 .. 5; 0 is the
 // production kernel, the instantiation fxt_fx_fused launches).  The mean
-// pre-pass and the reduce run as they do there, so two stages' times
-// differ by the frame kernel alone; the history written is fxt_fx_fused's.
-// At kStageFft only xp[k, 0, 0:256] is defined.
+// pre-pass, the deep-tap FIR launch (fir not NULL) and the reduce run as
+// they do there, so two stages' times differ by the frame kernel alone; the
+// history written is fxt_fx_fused's.  At kStageFft only xp[k, 0, 0:256] is
+// defined.
 extern "C" int fxt_fx_ablate(const void* x, const void* hist, const void* w,
-                             const void* u, const void* v, const void* tw,
-                             const void* pairs, void* sums, void* partial,
-                             void* xp, void* new_hist, int nch, int K, int S,
-                             int nbins, int ntaps, int rank, int nbl,
-                             int n_groups, int frames_per_group, int parts,
-                             int stage, void* stream) {
-  return fx_c64<true>(stage, x, hist, w, u, v, tw, pairs, sums, partial,
-                      xp,
-                new_hist, nch, K, S, nbins, ntaps, rank, nbl, n_groups,
-                frames_per_group, parts, static_cast<cudaStream_t>(stream));
+                             void* fir, const void* tw, const void* pairs,
+                             void* sums, void* partial, void* xp,
+                             void* new_hist, int nch, int K, int S, int nbins,
+                             int ntaps, int nbl, int n_groups,
+                             int frames_per_group, int parts, int stage,
+                             void* stream) {
+  return fx_c64<true>(stage, x, hist, w, fir, tw, pairs, sums, partial, xp,
+                      new_hist, nch, K, S, nbins, ntaps, nbl, n_groups,
+                      frames_per_group, parts,
+                      static_cast<cudaStream_t>(stream));
 }
 
 #endif  // FXT_ABLATE_C64
@@ -2311,18 +2906,16 @@ extern "C" int fxt_fx_ablate(const void* x, const void* hist, const void* w,
 #ifdef FXT_ABLATE_I8
 // The stage ablation of the int8 mode: fxt_fx_fused_i8 at `stage`.
 extern "C" int fxt_fx_ablate_i8(const void* x, const void* tail,
-                                const void* mu_prev, const void* w,
-                                const void* u, const void* v, const void* tw,
-                                const void* pairs, void* sums, void* partial,
-                                void* xp, void* mu, int nch, int K, int S,
-                                int nbins, int ntaps, int rank, int nbl,
+                                const void* mu_prev, const void* w, void* fir,
+                                const void* tw, const void* pairs, void* sums,
+                                void* partial, void* xp, void* mu, int nch,
+                                int K, int S, int nbins, int ntaps, int nbl,
                                 int n_groups, int frames_per_group, int parts,
                                 double step, int stage, void* stream) {
-  return fx_i8<true>(stage, x, tail, mu_prev, w, u, v, tw, pairs, sums,
-                     partial,
-               xp, mu, nch, K, S, nbins, ntaps, rank, nbl, n_groups,
-               frames_per_group, parts, step,
-               static_cast<cudaStream_t>(stream));
+  return fx_i8<true>(stage, x, tail, mu_prev, w, fir, tw, pairs, sums,
+                     partial, xp, mu, nch, K, S, nbins, ntaps, nbl, n_groups,
+                     frames_per_group, parts, step,
+                     static_cast<cudaStream_t>(stream));
 }
 
 #endif  // FXT_ABLATE_I8
@@ -2356,7 +2949,8 @@ extern "C" int fxt_spectrometer(const void* x, const void* hist,
   const SpecOut out{static_cast<float2*>(spec), S};
   cudaError_t err = launch_means_and_frames(
       static_cast<const float2*>(x), sd, rows, fir, out, tw, nch, 1, S,
-      nbins, ntaps, n_groups, frames_per_group, parts, st);
+      nbins, ntaps, n_groups, frames_per_group, parts, st,
+      []() { return cudaSuccess; });
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long n_hist = static_cast<long long>(nch) * halo * nbins;
   if (n_hist > 0) {

@@ -1,5 +1,5 @@
-// One single-pass FX step in one C call: the three kernels of a step
-// enqueued back to back on the caller's stream.  Built by
+// One single-pass FX step in one C call: the three kernels of a step (four
+// at deep taps) enqueued back to back on the caller's stream.  Built by
 // fxtpu_torch/cuda_build.py, called through fxtpu_torch/ops/fx_epilogue.py
 // (fx_fused_step on CUDA tensors; its ctypes mirror of FxtStepArgs is
 // cuda_build.StepArgs).
@@ -10,6 +10,8 @@
 //
 //   shared route:  frame kernel (PartsOut)  -> parts reduce -> epilogue
 //   wide route:    frame kernel (WideOut)   -> X kernel     -> epilogue
+//   at deep taps (fx_fused.deep_fir) the FIR launch (fir_rows_kernel)
+//   before the frame kernel, which reads its rows
 //
 // What bounds a step's short kernels on the H100 is latency: launched by
 // separate calls from Python, the second and third kernels arrived after
@@ -32,9 +34,10 @@
 struct FxtStepArgs {
   const void* x;          // samples [nch, K, S, nbins] c64, or int8 [.., 2]
   const void* hist;       // complex64 corrected tail, or the int8 raw tail
-  const void* w;          // window [ntaps, nbins] float32 (direct FIR)
-  const void* u;          // SVD factors u [ntaps, rank], or NULL
-  const void* v;          // and v [rank, nbins]
+  const void* w;          // the FIR's table [ntaps, nbins] float32: the
+                          // window, or the SVD mode's folded factors
+  void* fir;              // deep taps: the FIR's rows [nch, K S, nbins]
+                          // complex64 (fx_fused.deep_fir), else NULL
   const void* tw;         // twiddles [nbins / 2] complex64
   const void* pairs;      // [nbl, 2] int32
   const void* da;         // dA [ntaps - 1, nbins] complex64
@@ -59,7 +62,6 @@ struct FxtStepArgs {
   int S;
   int nbins;
   int ntaps;
-  int rank;
   int nbl;
   int n_groups;
   int frames_per_group;
@@ -80,18 +82,18 @@ int fx_step(const FxtStepArgs& a, bool int8, cudaStream_t st) {
   const int halo = a.ntaps - 1;
   int rc;
   if (a.wide) {
-    rc = fxt::wide_frames(int8, a.x, a.hist, a.w, a.u, a.v, a.tw, a.sums,
+    rc = fxt::wide_frames(int8, a.x, a.hist, a.w, a.fir, a.tw, a.sums,
                           a.scratch, a.nch, a.K, a.S, a.nbins, a.ntaps,
-                          a.rank, a.n_groups, a.frames_per_group, a.step, st);
+                          a.n_groups, a.frames_per_group, a.step, st);
     if (rc != 0) return rc;
     rc = fxt::xstage(int8, a.scratch, a.pairs, a.da, a.parts, a.x, a.sums,
                      a.mu, a.new_hist, a.nch, a.K, a.S, a.nbins, a.nbl, halo,
                      a.n_groups, a.tile, a.slots, a.rows, a.frames, a.stages,
                      a.threads, a.step, true, st);
   } else {
-    rc = fxt::parts_step(int8, a.x, a.hist, a.w, a.u, a.v, a.tw, a.pairs,
+    rc = fxt::parts_step(int8, a.x, a.hist, a.w, a.fir, a.tw, a.pairs,
                          a.da, a.sums, a.scratch, a.parts, a.mu, a.new_hist,
-                         a.nch, a.K, a.S, a.nbins, a.ntaps, a.rank, a.nbl,
+                         a.nch, a.K, a.S, a.nbins, a.ntaps, a.nbl,
                          a.n_groups, a.frames_per_group, a.step, true, st);
   }
   if (rc != 0) return rc;

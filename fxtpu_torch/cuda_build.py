@@ -67,12 +67,12 @@ class StepArgs(ctypes.Structure):
     ``csrc/fx_step.cu`` field for field (``fxt_fx_step`` /
     ``fxt_fx_step_i8`` take a pointer to one)."""
     _fields_ = ([(name, ctypes.c_void_p) for name in (
-        "x", "hist", "w", "u", "v", "tw", "pairs", "da", "sums", "scratch",
+        "x", "hist", "w", "fir", "tw", "pairs", "da", "sums", "scratch",
         "parts", "mu", "new_hist", "mu_prev", "abar", "cs", "cab", "cbb",
         "delays", "freqs", "vis")]
         + [("step", ctypes.c_double), ("bandwidth", ctypes.c_double)]
         + [(name, ctypes.c_int) for name in (
-            "nch", "K", "S", "nbins", "ntaps", "rank", "nbl", "n_groups",
+            "nch", "K", "S", "nbins", "ntaps", "nbl", "n_groups",
             "frames_per_group", "wide", "packed", "continuum", "tile",
             "slots", "rows", "frames", "stages", "threads")])
 
@@ -85,19 +85,21 @@ def declare(lib):
     signatures = {
         "fxt_fx_step": [ctypes.POINTER(StepArgs), P],
         "fxt_fx_step_i8": [ctypes.POINTER(StepArgs), P],
-        "fxt_fx_fused": [P] * 11 + [I] * 10 + [P],
-        "fxt_fx_fused_i8": [P] * 12 + [I] * 10 + [D, P],
-        "fxt_fx_parts": [P] * 13 + [I] * 9 + [P],
-        "fxt_fx_parts_i8": [P] * 13 + [I] * 9 + [D, P],
-        "fxt_fx_wide_frames": [P] * 8 + [I] * 8 + [P],
-        "fxt_fx_wide_frames_i8": [P] * 8 + [I] * 8 + [D, P],
+        "fxt_fx_fused": [P] * 10 + [I] * 9 + [P],
+        "fxt_fx_fused_i8": [P] * 11 + [I] * 9 + [D, P],
+        "fxt_fx_parts": [P] * 12 + [I] * 8 + [P],
+        "fxt_fx_parts_i8": [P] * 12 + [I] * 8 + [D, P],
+        "fxt_fir_rows": [P] * 4 + [I] * 5 + [P],
+        "fxt_fir_rows_i8": [P] * 4 + [I] * 5 + [D, P],
+        "fxt_fx_wide_frames": [P] * 7 + [I] * 7 + [P],
+        "fxt_fx_wide_frames_i8": [P] * 7 + [I] * 7 + [D, P],
         "fxt_parts_reduce": [P] * 6 + [I] * 8 + [P],
         "fxt_parts_reduce_i8": [P] * 6 + [I] * 8 + [D, P],
         "fxt_xstage": [P] * 8 + [I] * 13 + [P],
         "fxt_xstage_i8": [P] * 8 + [I] * 13 + [D, P],
         "fxt_fx_finish": [P] * 13 + [L] * 3 + [I] * 7 + [D, P],
-        "fxt_fx_ablate": [P] * 11 + [I] * 11 + [P],
-        "fxt_fx_ablate_i8": [P] * 12 + [I] * 10 + [D, I, P],
+        "fxt_fx_ablate": [P] * 10 + [I] * 10 + [P],
+        "fxt_fx_ablate_i8": [P] * 11 + [I] * 9 + [D, I, P],
         "fxt_spectrometer": [P] * 7 + [L] + [I] * 7 + [P],
         "fxt_copy_probe": [P] * 2 + [L] * 4 + [I] * 12 + [P],
         "fxt_overlap_probe": [P] * 3 + [I] * 13 + [P],

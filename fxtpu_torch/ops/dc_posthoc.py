@@ -71,7 +71,9 @@ def dc_constants(window2d, nbins: int, s_rows: int, device="cpu"):
             f"a window of {w.size} taps over nbins={nbins} and blocks of "
             f"S={s_rows} rows: the post-hoc DC correction needs whole tap "
             "rows and S >= ntaps-1")
-    return tuple(torch.from_numpy(a).to(device)
+    # copies: a tensor made by from_numpy shares the cached arrays, so an
+    # in-place write by one caller would change every later caller's
+    return tuple(torch.from_numpy(a.copy()).to(device)
                  for a in _constants(w.tobytes(), ntaps, nbins, s_rows))
 
 

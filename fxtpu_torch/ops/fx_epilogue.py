@@ -18,9 +18,10 @@ of what ``fxtpu`` jits into one executable with its kernel:
     ``fx_fused_parts_i8``, either X stage) and :func:`fx_finish`.  On a
     CUDA device its arguments are checked once and one C call
     (``fxt_fx_step`` / ``fxt_fx_step_i8``, ``csrc/fx_step.cu``) enqueues
-    the three kernels: the frame kernel, then the reduce (on the wide
-    route the X kernel) and the epilogue as programmatic dependents of the
-    kernel before each.
+    the three kernels: the frame kernel (at deep taps behind the FIR
+    launch, ``fx_fused.deep_fir``), then the reduce (on the wide route the
+    X kernel) and the epilogue as programmatic dependents of the kernel
+    before each.
 
 A wrapper runs the plain version only for CPU tensors; for CUDA tensors
 it launches the kernel or raises.  ``fx_finish.launches`` counts launches.
@@ -281,7 +282,8 @@ def check_step(iq, history, window2d, pairs, consts, delays, tables,
 def step_buffers(plan: StepPlan, pool=None) -> dict:
     """The step's outputs, new (``vis``, ``mu``, ``new_hist``: they
     outlive the step), and its scratch (``sums``, the partials or on the
-    wide route the spectra, ``parts``): ``pool``'s (a dict the caller
+    wide route the spectra, ``parts``, at deep taps the FIR's rows
+    ``fir``): ``pool``'s (a dict the caller
     keeps, keyed with the current stream: a step's kernels run on that
     stream in order, so the next step's kernels write the scratch only
     after this step's have read it), made at first use; new ones when
@@ -296,6 +298,9 @@ def step_buffers(plan: StepPlan, pool=None) -> dict:
     shapes = (("sums", (k, plan.n_groups, nch, 2), sums),
               ("scratch", scratch, c64),
               ("parts", (k, plan.nbl + 2 * nch, nbins), c64))
+    if ff.deep_fir(plan.ntaps, plan.s_rows):
+        # the deep-tap FIR's rows, which the frame kernel reads
+        shapes += (("fir", (nch, k * plan.s_rows, nbins), c64),)
     stream = (None if pool is None
               else torch.cuda.current_stream(dev).cuda_stream)
     bufs = {}
@@ -319,12 +324,14 @@ def step_args(plan: StepPlan, bufs: dict):
     """The C entry's argument struct (``cuda_build.StepArgs``) for the
     plan and its buffers."""
     from fxtpu_torch.cuda_build import StepArgs
-    u, v = ff._svd_ptrs(plan.svd)
     abar, da, cs, cab, cbb = plan.consts
     xp = plan.xplan.args() if plan.xplan is not None else (0,) * 6
+    fir = bufs.get("fir")
     return StepArgs(
-        plan.x.data_ptr(), plan.hist.data_ptr(), plan.window2d.data_ptr(),
-        u, v, ff._twiddles(plan.nbins, plan.x.device).data_ptr(),
+        plan.x.data_ptr(), plan.hist.data_ptr(),
+        ff.fir_table(plan.window2d, plan.svd).data_ptr(),
+        None if fir is None else fir.data_ptr(),
+        ff._twiddles(plan.nbins, plan.x.device).data_ptr(),
         plan.pairs.data_ptr(), da.data_ptr(), bufs["sums"].data_ptr(),
         bufs["scratch"].data_ptr(), bufs["parts"].data_ptr(),
         bufs["mu"].data_ptr(), bufs["new_hist"].data_ptr(),
@@ -332,15 +339,15 @@ def step_args(plan: StepPlan, bufs: dict):
         abar.data_ptr(), cs.data_ptr(), cab.data_ptr(), cbb.data_ptr(),
         plan.delays.data_ptr(), plan.freqs.data_ptr(), bufs["vis"].data_ptr(),
         1.0 if plan.quant_step is None else plan.quant_step, plan.bandwidth,
-        plan.nch, plan.k, plan.s_rows, plan.nbins, plan.ntaps, plan.rank,
-        plan.nbl, plan.n_groups, plan.per, int(plan.route == "global"),
+        plan.nch, plan.k, plan.s_rows, plan.nbins, plan.ntaps, plan.nbl,
+        plan.n_groups, plan.per, int(plan.route == "global"),
         int(plan.packed), int(plan.continuum), *xp)
 
 
 def launch_step(plan: StepPlan, bufs: dict):
     """One call of ``fxt_fx_step`` (``_i8`` for 8-bit samples) over a
-    checked plan and its buffers: three kernels on the current stream,
-    each counted on its wrapper."""
+    checked plan and its buffers: three kernels on the current stream (four
+    at deep taps: the FIR launch first), each counted on its wrapper."""
     from fxtpu_torch.cuda_build import check, load_kernels
     lib = load_kernels()
     int8 = plan.quant_step is not None
@@ -350,6 +357,7 @@ def launch_step(plan: StepPlan, bufs: dict):
         entry = lib.fxt_fx_step_i8 if int8 else lib.fxt_fx_step
         rc = entry(ctypes.byref(args), stream)
     check(lib, rc, "fx_step launch")
+    ff._count_fir(bufs.get("fir"))
     ff._count_parts(ff.fx_fused_parts_i8 if int8 else ff.fx_fused_parts,
                     plan.rank, plan.route)
     if plan.route == "global":
@@ -373,12 +381,14 @@ def fx_fused_step(iq: torch.Tensor, history, window2d: torch.Tensor,
 
     On the CPU the plain versions.  On a CUDA device the arguments are
     checked once (:func:`check_step`) and one C call launches three
-    kernels (frames, reduce or on the wide route the X kernel, epilogue)
-    and nothing else (:func:`launch_step`), each counted where its
-    wrapper counts it: ``fx_fused_parts[_i8]`` (its route's and FIR mode's
-    counter), ``fx_fused.parts_reduce`` or ``fx_xstage.fx_xstage``, and
-    :func:`fx_finish`.  ``pool`` (a dict the caller keeps across steps)
-    holds the step's scratch; ``vis`` and the new history are new."""
+    kernels (frames, reduce or on the wide route the X kernel, epilogue;
+    at deep taps the FIR launch before them) and nothing else
+    (:func:`launch_step`), each counted where its wrapper counts it:
+    ``fx_fused_parts[_i8]`` (its route's and FIR mode's counter),
+    ``fx_fused.parts_reduce`` or ``fx_xstage.fx_xstage``,
+    :func:`fx_finish` and ``fx_fused.fir_rows``.  ``pool`` (a dict the
+    caller keeps across steps) holds the step's scratch; ``vis`` and the
+    new history are new."""
     if _on_card(iq, "fx_fused_step"):
         plan = check_step(iq, history, window2d, pairs, consts, delays,
                           tables, bandwidth, continuum, quant_step, svd)

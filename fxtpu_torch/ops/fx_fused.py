@@ -12,7 +12,14 @@ Each takes the FIR in one of two modes: the direct tap loop over the
 window (``svd=None``), or, at deep taps, the window's rank-r factors
 ``svd=(u, v)`` (:func:`svd_tensors`; ``_fx_kernel``'s SVD-FIR mode,
 ``svd_r > 0``).  Beside each sits its plain torch version
-(``*_reference``), which computes the same FIR in the same mode.  A
+(``*_reference``), which computes the same FIR in the same mode (the SVD
+mode as ``sum_k v_k (u_k conv x)``).  The kernels run either mode as the
+direct loop over one table (:func:`fir_table`: the window, or ``u v``
+formed in float64 and rounded once, the same function in another
+association), and at deep taps (:func:`deep_fir`) that loop is a launch
+of its own, ``fir_rows_kernel``, which reads each row once and writes
+every frame's FIR output for the frame kernel (:func:`fir_rows` launches it
+alone; each launch adds one to ``fir_rows.launches``).  A
 wrapper runs the plain version only for CPU tensors; for a CUDA tensor it
 launches the kernel or raises.  Each mode counts its launches apart:
 ``.launches`` (direct) and ``.svd_launches`` on each wrapper.
@@ -114,7 +121,9 @@ __all__ = ["supported", "supported_i8", "fx_fused_raw",
            "fft_passes", "fft_slot", "frame_ctas", "frame_shared_bytes",
            "kernel_bins", "wide_route_bytes", "FFT_MAX_SUB",
            "shared_route_bytes", "cluster_size", "max_blocks",
-           "pairs_tensor", "svd_tensors", "MAX_SHARED_BYTES", "CLUSTER_CTAS",
+           "pairs_tensor", "svd_tensors", "fir_table", "deep_fir",
+           "fir_rows", "fir_rows_reference", "DEEP_FIR_TAPS",
+           "MAX_SHARED_BYTES", "CLUSTER_CTAS",
            "MAX_SVD_RANK", "MAX_FUSED_NCHAN", "X_STAGES", "STAGES",
            "MIXED_STAGES",
            "FFT_STAGE_BINS"]
@@ -135,8 +144,19 @@ MAX_LAUNCH_PARTIAL_BYTES = 1 << 30
 #: float2 slots per channel the single-pass frame kernel keeps in shared
 #: memory for its warps' sample sums (2 kWarps: a pair of doubles a warp).
 PARTS_CHAN_SLOTS = 16
-#: Largest SVD rank the kernel's FIR keeps in registers (kMaxRank).
+#: Largest SVD rank the wrappers take.  The kernels run the factors folded
+#: into one table (:func:`fir_table`), whatever the rank; the bound stays
+#: so that the routes' rules (:func:`shared_route_bytes`, which still count
+#: the radix-2 kernel's ``[ntaps, rank]`` table) do not move.
 MAX_SVD_RANK = 16
+#: Taps from which the FIR is a launch of its own (``fir_rows_kernel``),
+#: whose rows the frame kernel reads one a frame (:func:`deep_fir`):
+#: ``fxtpu``'s deep-tap threshold (``ops.svd_fir.SVD_FIR_MIN_TAPS``).
+DEEP_FIR_TAPS = 16
+#: Frames a thread of the FIR launch sums (``kFirFrames``) and the block
+#: means a CTA of it stages (``kFirMaxMeans``).
+FIR_FRAMES = 16
+FIR_MAX_MEANS = 256
 #: Most channels the single pass takes (``fxtpu``'s ``MAX_FUSED_NCHAN``,
 #: ``pfb_pallas.py:87``).
 MAX_FUSED_NCHAN = 64
@@ -202,12 +222,12 @@ def wide_route_bytes(nbins: int, nch: int, ntaps: int = 0,
     an FFT work buffer, the warps' sample sums of every channel and the
     SVD table u.  Above :data:`FFT_MAX_SUB` bins, where the spectrum and
     that buffer (2 x 16384 x 8 B at 16,384 bins) exceed a CTA's shared
-    memory, the rule is the launch's own footprint
-    (:func:`frame_shared_bytes`, one slot: the spectrum and the twiddle
-    table)."""
+    memory, the rule is the one-slot launch's footprint
+    (:func:`frame_shared_bytes`: the spectrum and the twiddle table) and
+    that table u."""
     if nbins > FFT_MAX_SUB:
-        return frame_shared_bytes(nbins, nch, ntaps, rank, PARTS_CHAN_SLOTS,
-                                  one_slot=True)
+        return (frame_shared_bytes(nbins, nch, PARTS_CHAN_SLOTS,
+                                   one_slot=True) + ntaps * rank * 4)
     return ((2 * nbins + nch * PARTS_CHAN_SLOTS) * 8
             + ntaps * rank * 4)
 
@@ -219,19 +239,20 @@ def cluster_size(nch: int) -> int:
     return min(CLUSTER_CTAS, nch)
 
 
-def frame_shared_bytes(nbins: int, nch: int, ntaps: int = 0, rank: int = 0,
-                       chan_slots: int = 1, *, one_slot: bool = False) -> int:
+def frame_shared_bytes(nbins: int, nch: int, chan_slots: int = 1, *,
+                       one_slot: bool = False) -> int:
     """Dynamic shared memory one CTA of the frame kernel asks for
     (``launch_frames`` in ``csrc/fx_fused.cu``): its spectrum slots --
     ``ceil(nch / cluster_size(nch))`` for a cluster policy, one for the
     one-slot policies (``one_slot``: the spectrometer and the wide route's
     frames) -- each its FFT's only buffer, the FFT's twiddle table
-    (``nbins / 2`` float2), ``chan_slots`` float2 per channel (the means
+    (``nbins / 2`` float2) and ``chan_slots`` float2 per channel (the means
     of :func:`mean_blocks` blocks, or :data:`PARTS_CHAN_SLOTS` for the
-    single pass's sample sums) and the SVD table u."""
+    single pass's sample sums).  Neither FIR policy keeps a table there:
+    the SVD mode's factors are folded into the FIR's table
+    (:func:`fir_table`), which the tap loop reads from device memory."""
     slots = 1 if one_slot else -(-nch // cluster_size(nch))
-    return ((slots * nbins + nbins // 2 + nch * chan_slots) * 8
-            + ntaps * rank * 4)
+    return (slots * nbins + nbins // 2 + nch * chan_slots) * 8
 
 
 def frame_ctas(nch: int, nbins: int, n_groups: int, per: int, s_rows: int,
@@ -244,7 +265,10 @@ def frame_ctas(nch: int, nbins: int, n_groups: int, per: int, s_rows: int,
     policies, which form none).  A cluster policy runs a group on
     :func:`cluster_size` CTAs, CTA r taking channels r, r + csize, ... and
     the r-th 1/csize of the bins; a one-slot policy runs one channel a
-    CTA."""
+    CTA.  (Above :data:`FFT_MAX_SUB` bins the wide route's frames in the
+    direct FIR mode run ``fx_wide_halves_kernel`` instead: a frame group
+    of one channel on a cluster of two CTAs, CTA r holding the frame's
+    samples of parity r and forming bins [r, r + 1) n / 4 and n / 2 on.)"""
     ctas = []
     for g in range(n_groups):
         frames = range(g * per, min((g + 1) * per, s_rows))
@@ -336,6 +360,14 @@ def x_route(nbins: int, ntaps: int, nch: int, rank: int = 0,
     return x_stage
 
 
+@functools.lru_cache(maxsize=8)
+def _folded(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """``u v`` formed in float64 and rounded once to float32, contiguous,
+    on the factors' device (cached: an engine passes the same factors every
+    step)."""
+    return (u.double() @ v.double()).float().contiguous()
+
+
 def svd_tensors(window2d, device):
     """The window's factors as the kernel takes them, ``(u [ntaps, r],
     v [r, nbins])`` float32 on ``device``, or None where the window does
@@ -346,8 +378,47 @@ def svd_tensors(window2d, device):
     fac = svd_fir_factors(w.astype(np.float64), w.shape[1])
     if fac is None:
         return None
-    return tuple(torch.as_tensor(np.ascontiguousarray(a, np.float32),
-                                 device=device) for a in fac[:2])
+    u, v = (torch.as_tensor(np.ascontiguousarray(a, np.float32),
+                            device=device) for a in fac[:2])
+    _folded(u, v)   # the kernels' table, formed now and not in a step
+    return u, v
+
+
+def fir_table(window2d: torch.Tensor, svd=None) -> torch.Tensor:
+    """The table ``[ntaps, nbins]`` float32 the kernels' FIR loop runs
+    over: the window in the direct mode, the SVD mode's factors ``u [ntaps,
+    r]``, ``v [r, nbins]`` folded into ``u v`` (float64, rounded once).
+    ``sum_t (u v)[t, b] row[f + t, b]`` is the plain version's ``sum_k
+    v[k, b] sum_t u[t, k] row[f + t, b]`` in another association, with
+    ``ntaps`` multiply-adds an output instead of ``(ntaps + 1) r``; the
+    two differ by rounding (within 1e-6 of scale,
+    ``tests/test_torch_svd_fir.py``)."""
+    return window2d if svd is None else _folded(*svd)
+
+
+def deep_fir(ntaps: int, s_rows: int) -> bool:
+    """True where the kernels run the FIR as a launch of its own
+    (``fir_rows_kernel``) and the frame kernel reads one row of its output
+    a frame: from :data:`DEEP_FIR_TAPS` taps, where the tap loop in the
+    frame kernel read every row ``ntaps`` times, at block lengths whose
+    rows a CTA of it spans lie in at most :data:`FIR_MAX_MEANS` blocks."""
+    return (ntaps >= DEEP_FIR_TAPS
+            and (FIR_FRAMES + ntaps - 2) // s_rows + 2 <= FIR_MAX_MEANS)
+
+
+def _fir_scratch(nch: int, k: int, s_rows: int, nbins: int, ntaps: int,
+                 device):
+    """The FIR launch's output ``[nch, K S, nbins]`` complex64 where
+    :func:`deep_fir` holds, else None (the frame kernel's own tap loop)."""
+    if not deep_fir(ntaps, s_rows):
+        return None
+    return torch.empty((nch, k * s_rows, nbins), dtype=torch.complex64,
+                       device=device)
+
+
+def _ptr(t):
+    """A tensor's address for a C call, NULL for None."""
+    return None if t is None else t.data_ptr()
 
 
 def pairs_tensor(pairs, nch: int, device) -> torch.Tensor:
@@ -616,10 +687,11 @@ def _launch_setup(x, pairs, k, s_rows, nbins, merged, lib=None):
     return lib, nbl, n_groups, per, xp, partial
 
 
-def _svd_ptrs(svd):
-    """The factors' addresses for the C call (NULL in the direct mode)."""
-    return (None, None) if svd is None else (svd[0].data_ptr(),
-                                             svd[1].data_ptr())
+def _count_fir(fir):
+    """One launch of the deep-tap FIR on ``fir_rows.launches`` where a call
+    made one (its scratch ``fir`` is not None)."""
+    if fir is not None:
+        fir_rows.launches += 1
 
 
 def _count(wrapper, rank):
@@ -629,7 +701,7 @@ def _count(wrapper, rank):
         wrapper.launches += 1
 
 
-def _launch(x, history, window2d, pairs, svd, rank, what, merged,
+def _launch(x, history, window2d, pairs, svd, what, merged,
             stage=None, lib=None):
     """The complex64 entry point over x (checked): one block ``[nch, S,
     nbins]`` -> (xp [nbl, nbins], new_history), or with ``merged`` the K
@@ -650,21 +722,24 @@ def _launch(x, history, window2d, pairs, svd, rank, what, merged,
     sums = torch.empty((k, nch, MEAN_PARTS, 2), dtype=torch.float64,
                        device=dev)
     tw = _twiddles(nbins, dev)
+    fir = _fir_scratch(nch, k, s_rows, nbins, ntaps, dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         entry, extra = ((lib.fxt_fx_fused, ()) if stage is None
                         else (lib.fxt_fx_ablate, (stage,)))
         rc = entry(
-            x.data_ptr(), history.data_ptr(), window2d.data_ptr(),
-            *_svd_ptrs(svd), tw.data_ptr(), pairs.data_ptr(),
-            sums.data_ptr(), partial.data_ptr(), xp.data_ptr(),
-            new_hist.data_ptr(), nch, k, s_rows, nbins, ntaps, rank, nbl,
-            n_groups, per, MEAN_PARTS, *extra, stream)
+            x.data_ptr(), history.data_ptr(),
+            fir_table(window2d, svd).data_ptr(), _ptr(fir), tw.data_ptr(),
+            pairs.data_ptr(), sums.data_ptr(),
+            partial.data_ptr(), xp.data_ptr(), new_hist.data_ptr(), nch, k,
+            s_rows, nbins, ntaps, nbl, n_groups, per, MEAN_PARTS, *extra,
+            stream)
     check(lib, rc, what)
+    _count_fir(fir)
     return xp, new_hist
 
 
-def _launch_i8(x, history, window2d, pairs, quant_step, svd, rank, what,
+def _launch_i8(x, history, window2d, pairs, quant_step, svd, what,
                merged, stage=None, lib=None):
     """The int8 entry point over x (checked): one block ``[nch, S, nbins,
     2]`` -> (xp [nbl, nbins], mu [nch]), or with ``merged`` the K blocks of
@@ -682,18 +757,20 @@ def _launch_i8(x, history, window2d, pairs, quant_step, svd, rank, what,
     sums = torch.empty((k, nch, MEAN_PARTS, 2), dtype=torch.int64,
                        device=dev)
     tw = _twiddles(nbins, dev)
+    fir = _fir_scratch(nch, k, s_rows, nbins, ntaps, dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         entry, extra = ((lib.fxt_fx_fused_i8, ()) if stage is None
                         else (lib.fxt_fx_ablate_i8, (stage,)))
         rc = entry(
             x.data_ptr(), history["tail"].data_ptr(),
-            history["mu_prev"].data_ptr(), window2d.data_ptr(),
-            *_svd_ptrs(svd), tw.data_ptr(), pairs.data_ptr(),
-            sums.data_ptr(), partial.data_ptr(), xp.data_ptr(),
-            mu.data_ptr(), nch, k, s_rows, nbins, ntaps, rank, nbl,
+            history["mu_prev"].data_ptr(),
+            fir_table(window2d, svd).data_ptr(), _ptr(fir), tw.data_ptr(),
+            pairs.data_ptr(), sums.data_ptr(), partial.data_ptr(),
+            xp.data_ptr(), mu.data_ptr(), nch, k, s_rows, nbins, ntaps, nbl,
             n_groups, per, MEAN_PARTS, quant_step, *extra, stream)
     check(lib, rc, what)
+    _count_fir(fir)
     return xp, mu
 
 
@@ -719,7 +796,7 @@ def fx_fused_raw(x: torch.Tensor, history: torch.Tensor,
     if not _on_card(x, "fx_fused_raw"):
         return fx_fused_raw_reference(x, history, window2d, pairs, svd)
     rank = _check(x, history, window2d, pairs, svd)
-    out = _launch(x, history, window2d, pairs, svd, rank,
+    out = _launch(x, history, window2d, pairs, svd,
                   "fx_fused kernel launch", merged=False)
     _count(fx_fused_raw, rank)
     return out
@@ -745,7 +822,7 @@ def fx_fused_raw_i8(x: torch.Tensor, history: dict, window2d: torch.Tensor,
                                          quant_step, svd)
     quant_step = float(quant_step)
     rank = _check_i8(x, history, window2d, pairs, quant_step, svd)
-    xp, mu = _launch_i8(x, history, window2d, pairs, quant_step, svd, rank,
+    xp, mu = _launch_i8(x, history, window2d, pairs, quant_step, svd,
                         "fx_fused_i8 kernel launch", merged=False)
     _count(fx_fused_raw_i8, rank)
     return xp, _i8_history(x, window2d.shape[0], mu)
@@ -786,7 +863,7 @@ def fx_fused_raw_multi(x: torch.Tensor, history: torch.Tensor,
     if not _on_card(x, "fx_fused_raw_multi"):
         return fx_fused_raw_multi_reference(x, history, window2d, pairs, svd)
     rank = _check(x, history, window2d, pairs, svd, multi=True)
-    out = _launch(x, history, window2d, pairs, svd, rank,
+    out = _launch(x, history, window2d, pairs, svd,
                   "fx_fused_multi kernel launch", merged=True)
     _count(fx_fused_raw_multi, rank)
     return out
@@ -831,7 +908,7 @@ def fx_fused_raw_i8_multi(x: torch.Tensor, history: dict,
     quant_step = float(quant_step)
     rank = _check_i8(x, history, window2d, pairs, quant_step, svd,
                      multi=True)
-    xp, mu = _launch_i8(x, history, window2d, pairs, quant_step, svd, rank,
+    xp, mu = _launch_i8(x, history, window2d, pairs, quant_step, svd,
                         "fx_fused_i8_multi kernel launch", merged=True)
     _count(fx_fused_raw_i8_multi, rank)
     return xp, _i8_history(x[:, -1], window2d.shape[0], mu[-1])
@@ -981,7 +1058,7 @@ def _check_parts(x, history, window2d, pairs, svd, consts, quant_step=None,
     return rank, route
 
 
-def _launch_parts(x, history, window2d, pairs, svd, consts, rank, step,
+def _launch_parts(x, history, window2d, pairs, svd, consts, step,
                   what, route="shared"):
     """Either single-pass entry over the merged x (checked) -> (xp_raw,
     T, GJ, mu, new history): complex64 the corrected tail, int8 (``step``
@@ -1011,6 +1088,8 @@ def _launch_parts(x, history, window2d, pairs, svd, consts, rank, step,
     mu = torch.empty((k, nch), dtype=torch.complex64, device=dev)
     new_hist = torch.empty_like(history)
     tw = _twiddles(nbins, dev)
+    fir = _fir_scratch(nch, k, s_rows, nbins, ntaps, dev)
+    table = fir_table(window2d, svd)
     extra = (step,) if int8 else ()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -1018,20 +1097,20 @@ def _launch_parts(x, history, window2d, pairs, svd, consts, rank, step,
             entry = lib.fxt_fx_wide_frames_i8 if int8 else (
                 lib.fxt_fx_wide_frames)
             rc = entry(
-                x.data_ptr(), history.data_ptr(), window2d.data_ptr(),
-                *_svd_ptrs(svd), tw.data_ptr(), sums.data_ptr(),
-                scratch.data_ptr(), nch, k, s_rows, nbins, ntaps, rank,
-                n_groups, per, *extra, stream)
+                x.data_ptr(), history.data_ptr(), table.data_ptr(),
+                _ptr(fir), tw.data_ptr(), sums.data_ptr(),
+                scratch.data_ptr(), nch, k, s_rows, nbins, ntaps, n_groups,
+                per, *extra, stream)
         else:
             entry = lib.fxt_fx_parts_i8 if int8 else lib.fxt_fx_parts
             rc = entry(
-                x.data_ptr(), history.data_ptr(), window2d.data_ptr(),
-                *_svd_ptrs(svd), tw.data_ptr(), pairs.data_ptr(),
+                x.data_ptr(), history.data_ptr(), table.data_ptr(),
+                _ptr(fir), tw.data_ptr(), pairs.data_ptr(),
                 consts[1].data_ptr(), sums.data_ptr(), scratch.data_ptr(),
                 parts.data_ptr(), mu.data_ptr(), new_hist.data_ptr(), nch,
-                k, s_rows, nbins, ntaps, rank, nbl, n_groups, per, *extra,
-                stream)
+                k, s_rows, nbins, ntaps, nbl, n_groups, per, *extra, stream)
     check(lib, rc, what)
+    _count_fir(fir)
     if wide:
         # the X kernel, a launch of its own, counted on fx_xstage.launches
         xstage_launch(scratch, pairs, consts[1], parts,
@@ -1040,6 +1119,82 @@ def _launch_parts(x, history, window2d, pairs, svd, consts, rank, step,
         parts_reduce.launches += 1     # the entry's second kernel
     return (parts[:, :nbl], parts[:, nbl:nbl + nch], parts[:, nbl + nch:],
             mu, new_hist)
+
+
+def fir_rows_reference(x: torch.Tensor, history: torch.Tensor,
+                       table: torch.Tensor, quant_step=None) -> torch.Tensor:
+    """The deep-tap FIR in plain torch, same contract as :func:`fir_rows`:
+    ``ops.pfb.pfb_fir`` over the merged raw rows ``[history; x]``."""
+    if quant_step is not None:
+        x, history = (dequantize(x, quant_step),
+                      dequantize(history, quant_step))
+    nch, k, s_rows, nbins = x.shape
+    merged = torch.cat([history, x.reshape(nch, k * s_rows, nbins)], dim=1)
+    return pfb_fir(merged, table)
+
+
+def fir_rows(x: torch.Tensor, history: torch.Tensor, table: torch.Tensor,
+             quant_step=None) -> torch.Tensor:
+    """The single pass's FIR at deep taps alone: the merged raw rows of
+    ``x [nch, K, S, nbins]`` complex64 behind the corrected tail
+    ``history [nch, ntaps-1, nbins]`` (or int8 ``x [nch, K, S, nbins, 2]``
+    behind the raw tail, each sample times ``quant_step``) through the FIR
+    table ``table [ntaps, nbins]`` float32 (:func:`fir_table`) -> ``[nch, K
+    S, nbins]`` complex64, row g the FIR output of frame g (``sum_t
+    table[t] row[g + t]`` in tap order).  It is what the deep-tap steps
+    (:func:`deep_fir`) launch before their frame kernel.
+
+    CPU tensors run :func:`fir_rows_reference`; CUDA tensors launch
+    ``fir_rows_kernel`` (``fxt_fir_rows`` / ``_i8``) or raise.  Each launch
+    adds one to ``fir_rows.launches``: this call's and those of every
+    deep-tap step."""
+    if not _on_card(x, "fir_rows"):
+        return fir_rows_reference(x, history, table, quant_step)
+    from fxtpu_torch.cuda_build import check, load_kernels
+    int8 = quant_step is not None
+    want = (torch.int8, 5) if int8 else (torch.complex64, 4)
+    if (x.dtype, x.ndim) != want or history.dtype != x.dtype:
+        raise ValueError(f"x {x.dtype} {tuple(x.shape)} and history "
+                         f"{history.dtype} must be {want[0]} with x "
+                         f"[nch, K, S, nbins{', 2' if int8 else ''}]")
+    nch, k, s_rows, nbins = x.shape[:4]
+    ntaps = table.shape[0]
+    if (table.dtype != torch.float32 or table.shape != (ntaps, nbins)
+            or history.shape[:3] != (nch, ntaps - 1, nbins)
+            or nbins % 128 or ntaps < 2 or k * s_rows > 16 * 65535
+            or not deep_fir(ntaps, s_rows)):
+        raise ValueError(
+            f"fir_rows takes x [nch, K, S, nbins] with nbins a multiple of "
+            f"128, history [nch, ntaps-1, nbins] and a float32 table "
+            f"[ntaps, nbins] where fx_fused.deep_fir holds; got x "
+            f"{tuple(x.shape)}, history {tuple(history.shape)}, table "
+            f"{tuple(table.shape)} {table.dtype}")
+    for name, t in (("history", history), ("table", table)):
+        if t.device != x.device:
+            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
+    for name, t in (("x", x), ("history", history), ("table", table)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    lib = load_kernels()
+    out = torch.empty((nch, k * s_rows, nbins), dtype=torch.complex64,
+                      device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        if int8:
+            rc = lib.fxt_fir_rows_i8(x.data_ptr(), history.data_ptr(),
+                                     table.data_ptr(), out.data_ptr(), nch, k,
+                                     s_rows, nbins, ntaps, float(quant_step),
+                                     stream)
+        else:
+            rc = lib.fxt_fir_rows(x.data_ptr(), history.data_ptr(),
+                                  table.data_ptr(), out.data_ptr(), nch, k,
+                                  s_rows, nbins, ntaps, stream)
+    check(lib, rc, "fir_rows kernel launch")
+    fir_rows.launches += 1
+    return out
+
+
+fir_rows.launches = 0
 
 
 def _reduce_shape(partial, sums, x, n_gj, halo, int8):
@@ -1209,7 +1364,7 @@ def fx_fused_parts(x: torch.Tensor, history: torch.Tensor,
                            x.device)
     rank, route = _check_parts(x, history, window2d, pairs, svd, consts,
                                x_stage=x_stage)
-    out = _launch_parts(x, history, window2d, pairs, svd, consts, rank, None,
+    out = _launch_parts(x, history, window2d, pairs, svd, consts, None,
                         "fx_parts kernel launch", route)
     _count_parts(fx_fused_parts, rank, route)
     return out
@@ -1254,8 +1409,8 @@ def fx_fused_parts_i8(x: torch.Tensor, tail: torch.Tensor,
                            x.device)
     rank, route = _check_parts(x, tail, window2d, pairs, svd, consts,
                                quant_step, x_stage)
-    out = _launch_parts(x, tail, window2d, pairs, svd, consts, rank,
-                        quant_step, "fx_parts_i8 kernel launch", route)
+    out = _launch_parts(x, tail, window2d, pairs, svd, consts, quant_step,
+                        "fx_parts_i8 kernel launch", route)
     _count_parts(fx_fused_parts_i8, rank, route)
     return out
 
@@ -1297,7 +1452,7 @@ def _stockham_radices(n: int) -> tuple:
     """The passes of ``fft_mixed``'s Stockham sequence over n = 2^a q
     points (q odd, 2^a >= 64): radix 16 while 16 divides 2^a, then the
     rest of 2^a (2, 4 or 8) and each odd prime factor of q, smallest
-    first (``fft_stockham``)."""
+    first, the largest last (``fft_stockham``)."""
     p2 = n & -n
     radices = []
     while p2 % 16 == 0:
@@ -1340,12 +1495,44 @@ def _fft_swizzle(idx: torch.Tensor) -> torch.Tensor:
     return idx ^ ((idx >> 4) & 15)
 
 
+def _prime_dft(v: torch.Tensor, tw: torch.Tensor, root: int) -> torch.Tensor:
+    """The pure p-point DFT over the last axis of ``v`` (p odd, ``v`` its
+    pre-twiddled inputs) as ``fft_pass_prime_last`` forms it: ``u_s = x_s +
+    x_{p-s}``, ``v_s = x_s - x_{p-s}`` for ``1 <= s <= H = (p - 1) / 2``,
+    ``A_r = sum_s cos(2 pi r s / p) u_s``, ``B_r = sum_s sin(2 pi r s / p)
+    v_s``, ``y_0 = x_0 + sum_s u_s``, ``y_r = x_0 + A_r - i B_r`` and
+    ``y_{p-r} = x_0 + A_r + i B_r``; the root of ``m = r s mod p`` read at
+    ``min(m, p - m) root`` in the FFT's table ``tw`` (the sine negated for
+    ``m > H``)."""
+    p = v.shape[-1]
+    h = (p - 1) // 2
+    s = torch.arange(1, h + 1, device=v.device)
+    x0 = v[..., 0]
+    u = v[..., s] + v[..., p - s]
+    w = v[..., s] - v[..., p - s]
+    m = (s[:, None] * s[None, :]) % p                         # [r, s]
+    hi = m > h
+    t = tw[torch.where(hi, p - m, m) * root]
+    cs, sn = t.real, torch.where(hi, t.imag, -t.imag)
+    a = (cs * u[..., None, :]).sum(dim=-1)                    # [..., r]
+    b = (sn * w[..., None, :]).sum(dim=-1)
+    e = x0[..., None] + a
+    out = torch.empty_like(v)
+    out[..., 0] = x0 + u.sum(dim=-1)
+    out[..., s] = e - 1j * b
+    out[..., p - s] = e + 1j * b
+    return out
+
+
 def _stockham_pass(a: torch.Tensor, radices: tuple, p: int,
-                   tw: torch.Tensor, direct: bool) -> torch.Tensor:
+                   tw: torch.Tensor, kind: str) -> torch.Tensor:
     """Pass ``p`` of the Stockham sequence ``radices`` over the last axis
     of ``a`` (N points), its twiddles ``exp(-2 pi i e / N)`` read at ``e
-    n / N`` in ``tw``, the table of n points (``_twiddles``); ``direct``:
-    the pass is a direct DFT (``fft_pass_direct``)."""
+    n / N`` in ``tw``, the table of n points (``_twiddles``); ``kind``:
+    ``"direct"`` a direct DFT (``fft_pass_direct``), ``"prime"`` the input
+    twiddles and then :func:`_prime_dft` (the last odd prime's pass,
+    ``fft_pass_prime_last``), ``"fft"`` the input twiddles and then the
+    R-point DFT (the register passes)."""
     n_pts = a.shape[-1]
     half = tw.shape[0]
     ts = 2 * half // n_pts
@@ -1368,7 +1555,7 @@ def _stockham_pass(a: torch.Tensor, radices: tuple, p: int,
         return torch.where(m >= half, -t, t)
 
     d = n_pts // (ns * radix) * ts
-    if direct:
+    if kind == "direct":
         # fft_pass_direct: output r is the direct R-point DFT with the
         # input twiddles folded in, exponent s (k + r Ns) d mod n for input s
         s_in = torch.arange(radix, device=a.device)
@@ -1377,7 +1564,8 @@ def _stockham_pass(a: torch.Tensor, radices: tuple, p: int,
     else:
         if ns > 1:
             v = v * twiddle(r * k * d)
-        v = torch.fft.fft(v, dim=-1)
+        v = (_prime_dft(v, tw, nb * ts) if kind == "prime"
+             else torch.fft.fft(v, dim=-1))
     store = (j - k) * radix + k + r * ns
     if p == 0 and swz:
         store = _fft_swizzle(store)
@@ -1404,28 +1592,34 @@ def fft_passes(x: torch.Tensor, stop: int, start: int = 0) -> torch.Tensor:
     of a radix-R pass loads points ``j + r n / R``, multiplies point r by
     ``exp(-2 pi i r k / (Ns R))`` (k = j mod Ns, Ns the product of the
     radices before it; :func:`_twiddles`' table and its negation), takes
-    the R-point DFT (in ``fft_mixed`` every radix but 16 as the kernel's
-    ``fft_pass_direct`` takes it: a direct sum over the inputs with each
-    twiddle folded into one exponent) and stores output r at ``(j - k) R
-    + k + r Ns``.  ``x`` and the result are the slot as the kernel leaves
-    it after ``start`` and ``stop`` passes: after pass 0 in the swizzled
-    order pass 1 reads (:func:`_fft_swizzle`; where pass 1 is a radix-16
-    pass, as it is at every power of two), after the last pass the DFT in
-    natural order.  Above :data:`FFT_MAX_SUB` points the slot before pass
-    0 holds the FIR's output even samples first, odd ones after
-    (:func:`fft_slot`); each pass but the last runs on both halves of the
-    slot, the last combines them."""
+    the R-point DFT (in ``fft_mixed`` the last pass's odd prime as the
+    kernel's ``fft_pass_prime_last`` forms it, :func:`_prime_dft`, and an
+    odd prime before it as ``fft_pass_direct`` takes it: a direct sum over
+    the inputs with each twiddle folded into one exponent) and stores
+    output r
+    at ``(j - k) R + k + r Ns``.  ``x`` and the result are the slot as the
+    kernel leaves it after ``start`` and ``stop`` passes: after pass 0 in
+    the swizzled order pass 1 reads (:func:`_fft_swizzle`; where pass 1 is
+    a radix-16 pass, as it is at every power of two), after the last pass
+    the DFT in natural order.  Above :data:`FFT_MAX_SUB` points the slot
+    before pass 0 holds the FIR's output even samples first, odd ones
+    after (:func:`fft_slot`); each pass but the last runs on both halves
+    of the slot, the last combines them."""
     n = x.shape[-1]
     radices = fft_radices(n)
     if not 0 <= start <= stop <= len(radices):
         raise ValueError(f"passes {start} .. {stop} of {len(radices)}")
     tw = _twiddles(n, x.device)
-    mixed = not _pow2_bins(n)
+    seq = radices[:-1] if n > FFT_MAX_SUB else radices
+    # the sequence's last pass, where its radix is an odd prime, runs as
+    # fft_pass_prime_last, any odd prime before it as a direct DFT
+    kind = [("fft" if _pow2_bins(n) or r % 2 == 0 else
+             "prime" if p == len(seq) - 1 else "direct")
+            for p, r in enumerate(seq)]
     a = x
     if n <= FFT_MAX_SUB:
         for p in range(start, stop):
-            a = _stockham_pass(a, radices, p, tw,
-                               mixed and radices[p] != 16)
+            a = _stockham_pass(a, radices, p, tw, kind[p])
         return a
     h = n // 2
     for p in range(start, stop):
@@ -1433,10 +1627,10 @@ def fft_passes(x: torch.Tensor, stop: int, start: int = 0) -> torch.Tensor:
             e, o = a[..., :h], a[..., h:] * tw
             a = torch.cat([e + o, e - o], dim=-1)
         else:
-            direct = radices[p] != 16
-            a = torch.cat([_stockham_pass(a[..., :h], radices, p, tw, direct),
-                           _stockham_pass(a[..., h:], radices, p, tw, direct)],
-                          dim=-1)
+            a = torch.cat([_stockham_pass(a[..., :h], radices, p, tw,
+                                          kind[p]),
+                           _stockham_pass(a[..., h:], radices, p, tw,
+                                          kind[p])], dim=-1)
     return a
 
 
@@ -1510,7 +1704,7 @@ def _check_ablate(x, window2d, pairs, rank):
     if not (kernel_bins(nbins) and ntaps >= 2 and 1 <= k <= MAX_BLOCKS
             and partial <= MAX_LAUNCH_PARTIAL_BYTES
             and (x.dtype != torch.int8 or s_rows >= ntaps - 1)
-            and frame_shared_bytes(nbins, nch, ntaps, rank, mean_blocks(
+            and frame_shared_bytes(nbins, nch, mean_blocks(
                 k, s_rows, ntaps)) <= MAX_SHARED_BYTES):
         raise ValueError(
             f"the stage ablation does not take nbins={nbins}, ntaps={ntaps}, "
@@ -1561,10 +1755,10 @@ def fx_fused_ablate(x: torch.Tensor, history, window2d: torch.Tensor,
     _check_ablate(x, window2d, pairs, rank)
     if int8:
         xp, _ = _launch_i8(x, history, window2d, pairs, quant_step, svd,
-                           rank, what, merged=True, stage=index)
+                           what, merged=True, stage=index)
     else:
-        xp, _ = _launch(x, history, window2d, pairs, svd, rank, what,
-                        merged=True, stage=index)
+        xp, _ = _launch(x, history, window2d, pairs, svd, what, merged=True,
+                        stage=index)
     fx_fused_ablate.launches += 1
     return xp[:, :1, :FFT_STAGE_BINS] if stage == "fft" else xp
 

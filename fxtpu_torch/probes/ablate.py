@@ -59,9 +59,11 @@ __all__ = ["ORDER", "make_inputs", "kernel_durations", "device_times",
 #: The stages in the order their differences are taken.
 ORDER = ("load_raw", "load", "fir", "fft_half", "fft", "full")
 QUANT_STEP = 1.0 / 32
-#: Substrings of the three kernels' names in a profiler trace.
-KERNELS = {"prepass": "mean_partial_kernel", "frames": "fx_frames_kernel",
-           "reduce": "fx_reduce"}
+#: Substrings of the kernels' names in a profiler trace: the mean
+#: pre-pass, at deep taps the FIR launch (``ops.fx_fused.deep_fir``; no
+#: other shape has one), the frame kernel and the reduce.
+KERNELS = {"prepass": "mean_partial_kernel", "fir": "fir_rows_kernel",
+           "frames": "fx_frames_kernel", "reduce": "fx_reduce"}
 
 
 def make_inputs(device, *, nch, k, num_samp, nbins, ntaps, ingest, fir_mode,
@@ -102,16 +104,19 @@ def make_inputs(device, *, nch, k, num_samp, nbins, ntaps, ingest, fir_mode,
 
 
 def kernel_durations(fn, n: int = 10) -> dict:
-    """Device microseconds of every launch of the mean pre-pass, the frame
-    kernel and the reduce during ``n`` calls of ``fn``, which launches
-    each once, read from a CUDA-only ``torch.profiler`` trace
-    (``common.device_events``) -> ``{kernel: [us] * n}``.  Raises when the
-    trace does not show ``n`` launches of each."""
+    """Device microseconds of every launch of the mean pre-pass, the FIR
+    launch (deep taps), the frame kernel and the reduce during ``n`` calls
+    of ``fn``, which launches each once, read from a CUDA-only
+    ``torch.profiler`` trace (``common.device_events``) -> ``{kernel: [us]
+    * n}``, the FIR's key only where it ran.  Raises when the trace does
+    not show ``n`` launches of each."""
     fn()
     torch.cuda.synchronize()
     kernels = [e for e in device_events(fn, n) if e["cat"] == "kernel"]
     durs = {key: [e["dur"] for e in kernels if name in e["name"]]
             for key, name in KERNELS.items()}
+    if not durs["fir"]:
+        del durs["fir"]
     if any(len(v) != n for v in durs.values()):
         raise RuntimeError(
             f"the trace of {n} calls shows "

@@ -16,6 +16,17 @@ the same input and output buffers:
     frame kernel alone) at bench.py's ``nchan8`` block and at the CLI's
     8-channel deep block (``--nchan 8 --resolution 8192 --ntaps 32``, SVD
     rank 6);
+  * the bin counts that are not powers of two in [256, 8192], each at the
+    CLI's 2 x 2^18-sample block: the single pass at 384, 3072 and 6144 x 32
+    taps (SVD; ``r384``, ``r3072``, ``r6144d``), its wide route's frames
+    at 12,288, 16,256 and 16,384 (``r12288``, ``r16256``, ``r16384``);
+  * the two-pass ``fxt_fx_fused`` / ``fxt_fx_fused_i8`` at bench.py's
+    ``wideband`` shape (2 x 2^21 samples, 8192 bins, 32 taps; ``wideband``
+    the SVD mode, ``wideband_direct`` the tap loop) and at the CLI's deep
+    block at K = 8 (``deep``, SVD), and the single pass there (``deep_parts``);
+    at deep taps a tree with the FIR launch (``fxt_fir_rows``) runs it
+    before its frame kernel, a tree without one takes the factors ``u``,
+    ``v`` and the rank (its entries' signatures are declared apart);
   * ``fxt_spectrometer`` (complex64 only) at the flagship's shape;
   * ``fxt_xstage`` / ``fxt_xstage_i8`` (the wide route's X kernel with the
     reduce's share folded in, over spectra formed in plain torch) at the
@@ -38,7 +49,8 @@ the same input and output buffers:
 each in both ingests, and reports
 
   * ``nvcc -Xptxas -v``'s registers, shared memory and spills of each
-    tree's production frame kernels;
+    tree's production frame kernels (the radix-16 instances and the
+    ``kMixed`` ones apart), of the FFT's bodies and of the FIR launch;
   * each tree's largest difference from the plain version on the same
     input (parts: of max|xp|; spectra: of max|spectrum|), the largest
     difference between the two trees' outputs (of the parent's largest
@@ -81,14 +93,77 @@ from fxtpu_torch.probes.common import (card_line, device_events,  # noqa: E402
                                        step_exposed_us)
 
 SHARED = ("fxt_fx_parts", "fxt_fx_parts_i8", "fxt_fx_wide_frames",
-          "fxt_fx_wide_frames_i8", "fxt_spectrometer", "fxt_xstage",
-          "fxt_xstage_i8", "fxt_fx_finish", "fxt_error_string")
+          "fxt_fx_wide_frames_i8", "fxt_fx_fused", "fxt_fx_fused_i8",
+          "fxt_spectrometer", "fxt_xstage", "fxt_xstage_i8", "fxt_fx_finish",
+          "fxt_error_string")
+#: The entries whose FIR arguments changed with the deep-tap FIR launch: a
+#: tree without ``fxt_fir_rows`` takes the window, the factors u and v and
+#: the rank (its signatures here), one with it the FIR's table and the
+#: launch's scratch (``cuda_build.declare``).
+_P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+FACTOR_SIGNATURES = {
+    "fxt_fx_parts": [_P] * 13 + [_I] * 9 + [_P],
+    "fxt_fx_parts_i8": [_P] * 13 + [_I] * 9 + [_D, _P],
+    "fxt_fx_wide_frames": [_P] * 8 + [_I] * 8 + [_P],
+    "fxt_fx_wide_frames_i8": [_P] * 8 + [_I] * 8 + [_D, _P],
+    "fxt_fx_fused": [_P] * 11 + [_I] * 10 + [_P],
+    "fxt_fx_fused_i8": [_P] * 12 + [_I] * 10 + [_D, _P],
+}
+
+
+class FactorStepArgs(ctypes.Structure):
+    """``FxtStepArgs`` of a tree without the FIR launch: the window, the
+    factors u and v and the rank where the FIR's table and scratch are
+    now."""
+    _fields_ = ([(name, ctypes.c_void_p) for name in (
+        "x", "hist", "w", "u", "v", "tw", "pairs", "da", "sums", "scratch",
+        "parts", "mu", "new_hist", "mu_prev", "abar", "cs", "cab", "cbb",
+        "delays", "freqs", "vis")]
+        + [("step", ctypes.c_double), ("bandwidth", ctypes.c_double)]
+        + [(name, ctypes.c_int) for name in (
+            "nch", "K", "S", "nbins", "ntaps", "rank", "nbl", "n_groups",
+            "frames_per_group", "wide", "packed", "continuum", "tile",
+            "slots", "rows", "frames", "stages", "threads")])
+
+
+def fir_args(lib, window2d, svd, fir):
+    """The FIR's pointers of an entry in ``lib``'s form: the table and the
+    scratch, or (a tree without the FIR launch) the window, u and v."""
+    if lib.fir_launch:
+        return (ff.fir_table(window2d, svd).data_ptr(),
+                None if fir is None else fir.data_ptr())
+    return (window2d.data_ptr(), *((None, None) if svd is None else (
+        svd[0].data_ptr(), svd[1].data_ptr())))
+
+
+def factor_step_args(args, plan) -> FactorStepArgs:
+    """``args`` (``cuda_build.StepArgs``) in the form of a tree without the
+    FIR launch: the window and the factors where the FIR's table and
+    scratch are, and the rank."""
+    out = FactorStepArgs()
+    for name, _ in FactorStepArgs._fields_:
+        if hasattr(args, name):
+            setattr(out, name, getattr(args, name))
+    out.w = plan.window2d.data_ptr()
+    out.u, out.v = ((None, None) if plan.svd is None else
+                    (plan.svd[0].data_ptr(), plan.svd[1].data_ptr()))
+    out.rank = plan.rank
+    return out
+
+
+def rank_arg(lib, svd):
+    """The rank argument a tree without the FIR launch takes after ntaps
+    (none in one with it)."""
+    if lib.fir_launch:
+        return ()
+    return (0 if svd is None else svd[0].shape[1],)
 #: The step entry, in the trees that have it.
 STEP_ENTRIES = ("fxt_fx_step", "fxt_fx_step_i8")
 #: The kernels whose device time is reported, by the name the profiler
 #: gives them.
 KERNELS = ("fx_frames_kernel", "fx_parts_reduce_kernel", "fx_xstage_kernel",
-           "fx_finish_kernel")
+           "fx_finish_kernel", "fir_rows_kernel", "fx_reduce",
+           "fx_wide_halves_kernel")
 #: name -> (entry, nch, samples a channel, nbins, ntaps, K, FIR mode, autos)
 CASES = {
     "flagship": ("parts", 2, 2**18, 4096, 4, 1, "direct", False),
@@ -106,6 +181,16 @@ CASES = {
     "step_pipeline": ("step", 2, 2**21, 4096, 4, 1, "direct", False),
     "step_cli8": ("step", 8, 2**18, 4096, 4, 1, "direct", False),
     "step_nchan8": ("step", 8, 2**20, 4096, 4, 1, "direct", True),
+    "r384": ("parts", 2, 2**18, 384, 4, 1, "direct", False),
+    "r3072": ("parts", 2, 2**18, 3072, 4, 1, "direct", False),
+    "r6144d": ("parts", 2, 2**18, 6144, 32, 1, "svd", False),
+    "r12288": ("wide", 2, 2**18, 12288, 4, 1, "direct", False),
+    "r16256": ("wide", 2, 2**18, 16256, 4, 1, "direct", False),
+    "r16384": ("wide", 2, 2**18, 16384, 4, 1, "direct", False),
+    "wideband": ("fused", 2, 2**21, 8192, 32, 1, "svd", False),
+    "wideband_direct": ("fused", 2, 2**21, 8192, 32, 1, "direct", False),
+    "deep": ("fused", 2, 2**18, 8192, 32, 8, "svd", False),
+    "deep_parts": ("parts", 2, 2**18, 8192, 32, 8, "svd", False),
 }
 #: The step cases whose epilogue reduces to the continuum (CONTINUUM).
 CONTINUUM = ("step_pipeline",)
@@ -125,12 +210,14 @@ def production_kernels(log: str) -> dict:
                       line)
         if not m:
             continue
-        stage = re.search(r"ELi(\d+)EEEv", m.group(1))
+        stage = re.search(r"ELi(\d+)E(?:Lb[01]E)?EEv", m.group(1))
         if stage and stage.group(1) != "0":
             continue
         policy = "_".join(re.findall(
-            r"(F32Rows|I8Rows|F32Raw|I8Raw|DirectFir|SvdFir|CrossOut|SpecOut|"
-            r"PartsOut|WideOut)", m.group(1)))
+            r"(F32Rows|I8Rows|F32Raw|I8Raw|DirectFir|SvdFir|RowsFir|CrossOut|"
+            r"SpecOut|PartsOut|WideOut)", m.group(1)))
+        if re.search(r"Lb1EEEv", m.group(1)):
+            policy += "_kMixed"
         info = " ".join(s.strip() for s in lines[i + 1:i + 4]
                         if "registers" in s or "spill" in s)
         out[policy] = re.sub(r"ptxas info\s*:\s*", "", info)
@@ -152,12 +239,22 @@ def production_kernels(log: str) -> dict:
                     s.strip() for s in lines[i + 1:i + 4]
                     if "registers" in s or "spill" in s))
     for i, line in enumerate(lines):
-        m = re.search(r"Function properties for (\S*fft_sized\S*)", line)
+        m = re.search(r"Function properties for (\S*(fft_sized|fft_pass_reg|"
+                      r"fft_pass_direct|fft_pass16|fft_pass_prime_last|"
+                      r"fft_mixed)\S*)", line)
         if m and i + 1 < len(lines):
-            size = re.search(r"fft_sizedILi(\d+)E", m.group(1))
-            out[f"fft_sized<{size.group(1) if size else '?'}>"] = (
-                lines[i + 1].strip())
-    return out
+            size = re.search(r"ILi(\d+)E", m.group(1))
+            key = m.group(2) + (f"<{size.group(1)}>" if size else "")
+            out.setdefault(key, set()).add(lines[i + 1].strip())
+        m = re.search(r"Compiling entry function '\S*fir_rows_kernel\S*?"
+                      r"(F32Rows|I8Rows|F32Raw|I8Raw)", line)
+        if m:
+            out[f"fir_rows_kernel<{m.group(1)}>"] = re.sub(
+                r"ptxas info\s*:\s*", "", " ".join(
+                    s.strip() for s in lines[i + 1:i + 4]
+                    if "registers" in s or "spill" in s))
+    return {k: sorted(v) if isinstance(v, set) else v
+            for k, v in out.items()}
 
 
 def build_tree(root: Path, name: str, like=None):
@@ -183,11 +280,18 @@ def build_tree(root: Path, name: str, like=None):
     ints = getattr(lib, "fxt_xstage_plan_ints", None)
     lib.plan_ints = ints() if ints is not None else 0
     lib.has_step = getattr(lib, STEP_ENTRIES[0], None) is not None
+    lib.fir_launch = getattr(lib, "fxt_fir_rows", None) is not None
     if like is None:
         return cuda_build.declare(lib), log
     for entry in SHARED + (STEP_ENTRIES if lib.has_step else ()):
         getattr(lib, entry).restype = getattr(like, entry).restype
         getattr(lib, entry).argtypes = getattr(like, entry).argtypes
+    if like.fir_launch and not lib.fir_launch:
+        for entry, argtypes in FACTOR_SIGNATURES.items():
+            getattr(lib, entry).argtypes = argtypes
+        for entry in STEP_ENTRIES if lib.has_step else ():
+            getattr(lib, entry).argtypes = [
+                ctypes.POINTER(FactorStepArgs), _P]
     # the X kernel's entries: the plan's integers after the first 15
     # arguments, as many as this library takes
     for entry in ("fxt_xstage", "fxt_xstage_i8"):
@@ -210,6 +314,7 @@ class Case:
                                nbins=nbins, ntaps=ntaps, ingest=ingest,
                                fir_mode=fir, seed=k + nch))
         if ingest == "int8":
+            self.mu_prev = self.hist["mu_prev"]
             self.hist = self.hist["tail"]
         self.pairs = ff.pairs_tensor(
             baseline_pairs(nch, include_autos=autos), nch, device)
@@ -222,20 +327,30 @@ class Case:
         nbl = self.pairs.shape[0]
         rows = nbl + 2 * nch
         c64 = dict(dtype=torch.complex64, device=device)
+        # the deep-tap FIR's rows (None where the frame kernel runs its
+        # own tap loop)
+        self.fir = ff._fir_scratch(nch, k, self.s_rows, nbins, ntaps, device)
         if self.entry == "parts":
             self.n_groups, self.per = ff._groups(self.s_rows, rows, nbins)
             self.scratch = torch.empty((k, self.n_groups, rows, nbins), **c64)
+        elif self.entry == "fused":
+            # the two-pass entry: partials of the cross power, xp, the
+            # mean pre-pass's sums
+            self.n_groups, self.per = ff._groups(self.s_rows, nbl, nbins)
+            self.scratch = torch.empty((k, self.n_groups, nbl, nbins), **c64)
         elif self.entry == "xstage":
             self.n_groups, self.per = ff._wide_groups(self.s_rows)
             self.scratch = self._spectra().transpose(0, 1).contiguous()
         else:
             self.n_groups, self.per = ff._wide_groups(self.s_rows)
             self.scratch = torch.empty((k, nch, self.s_rows, nbins), **c64)
-        self.parts = torch.empty((k, rows, nbins), **c64)
+        self.parts = torch.empty((k, nbl if self.entry == "fused" else rows,
+                                  nbins), **c64)
         self.mu = torch.empty((k, nch), **c64)
         self.new_hist = torch.empty_like(self.hist)
         self.sums = torch.empty(
-            (k, self.n_groups, nch, 2),
+            (k, ff.MEAN_PARTS if self.entry == "fused" else self.n_groups,
+             nch, 2),
             dtype=torch.int64 if self.int8 else torch.float64, device=device)
         if self.entry == "xstage":
             # the groups' sample sums, as the wide route's frame kernel
@@ -276,6 +391,13 @@ class Case:
         if self.entry == "xstage":
             return fx_xstage_reference(self.scratch, self.pairs,
                                        self.consts[1])
+        if self.entry == "fused":
+            if self.int8:
+                return ff.fx_fused_raw_i8_multi_reference(
+                    x, {"tail": hist, "mu_prev": self.mu_prev}, self.w,
+                    self.pairs, self.step, svd)[0]
+            return ff.fx_fused_raw_multi_reference(x, hist, self.w,
+                                                   self.pairs, svd)[0]
         return self._spectra().transpose(0, 1)
 
     def _spectra(self):
@@ -292,19 +414,32 @@ class Case:
 
     def launch(self, lib):
         """One call of the tree's entry into this case's buffers."""
-        svd = ff._svd_ptrs(self.svd)
+        fir = fir_args(lib, self.w, self.svd, self.fir)
+        rank = rank_arg(lib, self.svd)
         extra = (self.step,) if self.int8 else ()
         stream = torch.cuda.current_stream().cuda_stream
         if self.entry == "parts":
             fn = lib.fxt_fx_parts_i8 if self.int8 else lib.fxt_fx_parts
-            rc = fn(self.x.data_ptr(), self.hist.data_ptr(),
-                    self.w.data_ptr(), *svd, self.tw.data_ptr(),
-                    self.pairs.data_ptr(), self.consts[1].data_ptr(),
+            rc = fn(self.x.data_ptr(), self.hist.data_ptr(), *fir,
+                    self.tw.data_ptr(), self.pairs.data_ptr(),
+                    self.consts[1].data_ptr(), self.sums.data_ptr(),
+                    self.scratch.data_ptr(), self.parts.data_ptr(),
+                    self.mu.data_ptr(), self.new_hist.data_ptr(), self.nch,
+                    self.k, self.s_rows, self.nbins, self.ntaps, *rank,
+                    self.pairs.shape[0], self.n_groups, self.per, *extra,
+                    stream)
+        elif self.entry == "fused":
+            head = ((self.x.data_ptr(), self.hist.data_ptr(),
+                     self.mu_prev.data_ptr()) if self.int8
+                    else (self.x.data_ptr(), self.hist.data_ptr()))
+            out = self.mu if self.int8 else self.new_hist
+            fn = lib.fxt_fx_fused_i8 if self.int8 else lib.fxt_fx_fused
+            rc = fn(*head, *fir, self.tw.data_ptr(), self.pairs.data_ptr(),
                     self.sums.data_ptr(), self.scratch.data_ptr(),
-                    self.parts.data_ptr(), self.mu.data_ptr(),
-                    self.new_hist.data_ptr(), self.nch, self.k, self.s_rows,
-                    self.nbins, self.ntaps, self.rank, self.pairs.shape[0],
-                    self.n_groups, self.per, *extra, stream)
+                    self.parts.data_ptr(), out.data_ptr(), self.nch, self.k,
+                    self.s_rows, self.nbins, self.ntaps, *rank,
+                    self.pairs.shape[0], self.n_groups, self.per,
+                    ff.MEAN_PARTS, *extra, stream)
         elif self.entry == "xstage":
             fn = lib.fxt_xstage_i8 if self.int8 else lib.fxt_xstage
             nbl = self.pairs.shape[0]
@@ -330,21 +465,26 @@ class Case:
         else:
             fn = (lib.fxt_fx_wide_frames_i8 if self.int8
                   else lib.fxt_fx_wide_frames)
-            rc = fn(self.x.data_ptr(), self.hist.data_ptr(),
-                    self.w.data_ptr(), *svd, self.tw.data_ptr(),
-                    self.sums.data_ptr(), self.scratch.data_ptr(), self.nch,
-                    self.k, self.s_rows, self.nbins, self.ntaps, self.rank,
-                    self.n_groups, self.per, *extra, stream)
+            rc = fn(self.x.data_ptr(), self.hist.data_ptr(), *fir,
+                    self.tw.data_ptr(), self.sums.data_ptr(),
+                    self.scratch.data_ptr(), self.nch, self.k, self.s_rows,
+                    self.nbins, self.ntaps, *rank, self.n_groups, self.per,
+                    *extra, stream)
         cuda_build.check(lib, rc, "A/B launch")
 
     def output(self):
-        """The last call's output: the parts, or the spectra."""
-        return self.parts if self.entry in ("parts", "xstage") else (
+        """The last call's output: the parts (the two-pass entry: xp), or
+        the spectra."""
+        return self.parts if self.entry in ("parts", "xstage", "fused") else (
             self.scratch)
 
     def fold(self):
-        """The last call's mu and new history (None for the entries that
-        form neither)."""
+        """The last call's mu and new history (the two-pass entry: the new
+        history, or the 8-bit mu; None for the entries that form
+        neither)."""
+        if self.entry == "fused":
+            return ((self.mu.clone(),) if self.int8
+                    else (self.new_hist.clone(),))
         return ((self.mu.clone(), self.new_hist.clone())
                 if self.entry in ("parts", "xstage") else None)
 
@@ -352,7 +492,7 @@ class Case:
         """Largest difference of the last call's output from the plain
         version, over the plain version's largest magnitude (parts: that
         of the cross power)."""
-        if self.entry in ("parts", "xstage"):
+        if self.entry in ("parts", "xstage", "fused"):
             nbl = self.pairs.shape[0]
             got, want = self.parts, self.plain
             scale = want[:, :nbl].abs().max().item()
@@ -387,6 +527,7 @@ class StepCase:
             name in CONTINUUM, step if self.int8 else None, svd)
         self.bufs = fe.step_buffers(p)
         self.args = fe.step_args(p, self.bufs)
+        self.factor_args = factor_step_args(self.args, p)
         self.nch, self.k, self.nbins, self.ntaps = nch, k, nbins, ntaps
         self.rank = p.rank
         wide = p.route == "global"
@@ -408,20 +549,22 @@ class StepCase:
         stream = torch.cuda.current_stream().cuda_stream
         if lib.has_step:
             fn = lib.fxt_fx_step_i8 if self.int8 else lib.fxt_fx_step
-            cuda_build.check(lib, fn(ctypes.byref(self.args), stream),
+            args = self.args if lib.fir_launch else self.factor_args
+            cuda_build.check(lib, fn(ctypes.byref(args), stream),
                              "A/B step")
             return
         p, b = self.plan, self.bufs
         extra = (p.quant_step,) if self.int8 else ()
-        head = (p.x.data_ptr(), p.hist.data_ptr(), p.window2d.data_ptr(),
-                *ff._svd_ptrs(p.svd),
+        rank = rank_arg(lib, p.svd)
+        head = (p.x.data_ptr(), p.hist.data_ptr(),
+                *fir_args(lib, p.window2d, p.svd, b.get("fir")),
                 ff._twiddles(p.nbins, p.x.device).data_ptr())
         da = p.consts[1].data_ptr()
         if p.route == "global":
             fn = (lib.fxt_fx_wide_frames_i8 if self.int8
                   else lib.fxt_fx_wide_frames)
             rc = fn(*head, b["sums"].data_ptr(), b["scratch"].data_ptr(),
-                    p.nch, p.k, p.s_rows, p.nbins, p.ntaps, p.rank,
+                    p.nch, p.k, p.s_rows, p.nbins, p.ntaps, *rank,
                     p.n_groups, p.per, *extra, stream)
             cuda_build.check(lib, rc, "A/B wide frames")
             plan = p.xplan.args() if lib.plan_ints else ()
@@ -436,7 +579,7 @@ class StepCase:
             rc = fn(*head, p.pairs.data_ptr(), da, b["sums"].data_ptr(),
                     b["scratch"].data_ptr(), b["parts"].data_ptr(),
                     b["mu"].data_ptr(), b["new_hist"].data_ptr(), p.nch,
-                    p.k, p.s_rows, p.nbins, p.ntaps, p.rank, p.nbl,
+                    p.k, p.s_rows, p.nbins, p.ntaps, *rank, p.nbl,
                     p.n_groups, p.per, *extra, stream)
         cuda_build.check(lib, rc, "A/B parts")
         abar, _, cs, cab, cbb = p.consts

@@ -68,8 +68,8 @@ def test_sixteen_thousand_bins_take_the_wide_route():
     for nch in (1, 2, 8, 64):
         for ntaps, rank in ((4, 0), (32, 6)):
             assert ff.wide_route_bytes(n, nch, ntaps, rank) == \
-                ff.frame_shared_bytes(n, nch, ntaps, rank,
-                                      ff.PARTS_CHAN_SLOTS, one_slot=True)
+                ff.frame_shared_bytes(n, nch, ff.PARTS_CHAN_SLOTS,
+                                      one_slot=True) + ntaps * rank * 4
             assert ff.wide_route_bytes(n, nch, ntaps, rank) <= \
                 ff.MAX_SHARED_BYTES
             assert ff.supported_parts(n, ntaps, nch, ntaps, rank)

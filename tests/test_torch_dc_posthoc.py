@@ -510,7 +510,7 @@ def test_cuda_parts_refused_launch_raises(cuda_device, int8):
         nbins, nch, chan_slots=fx_fused.PARTS_CHAN_SLOTS) > (
         fx_fused.MAX_SHARED_BYTES)
     with pytest.raises(RuntimeError, match="CUDA error"):
-        fx_fused._launch_parts(x, hist, wt, pt, None, consts, 0,
+        fx_fused._launch_parts(x, hist, wt, pt, None, consts,
                                STEP if int8 else None, "refused",
                                route="shared")
         torch.cuda.synchronize()

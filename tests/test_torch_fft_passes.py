@@ -243,11 +243,10 @@ def test_launch_asks_less_than_the_route_rule(nbins):
     for nch in range(1, 65):
         for ntaps, rank in ((4, 0), (32, 6)):
             if ff.supported(nbins, ntaps, nch, rank):
-                got = ff.frame_shared_bytes(nbins, nch, ntaps, rank,
-                                            ff.PARTS_CHAN_SLOTS)
+                got = ff.frame_shared_bytes(nbins, nch, ff.PARTS_CHAN_SLOTS)
                 assert got <= ff.shared_route_bytes(
                     nbins, nch, ntaps, rank, ff.PARTS_CHAN_SLOTS)
-            wide = ff.frame_shared_bytes(nbins, nch, ntaps, rank,
-                                         ff.PARTS_CHAN_SLOTS, one_slot=True)
+            wide = ff.frame_shared_bytes(nbins, nch, ff.PARTS_CHAN_SLOTS,
+                                         one_slot=True)
             assert wide <= ff.wide_route_bytes(nbins, nch, ntaps, rank)
             assert wide <= ff.MAX_SHARED_BYTES

@@ -834,9 +834,8 @@ def test_cuda_refused_launch_raises(cuda_device, int8):
         if int8:
             hist = {"tail": hist, "mu_prev": torch.zeros(
                 (nch,), dtype=torch.complex64, device=cuda_device)}
-            fx_fused._launch_i8(x, hist, wt, pt, STEP, None, 0, "refused",
+            fx_fused._launch_i8(x, hist, wt, pt, STEP, None, "refused",
                                 merged=True)
         else:
-            fx_fused._launch(x, hist, wt, pt, None, 0, "refused",
-                             merged=True)
+            fx_fused._launch(x, hist, wt, pt, None, "refused", merged=True)
         torch.cuda.synchronize()
