@@ -80,9 +80,14 @@ Phases (any failure raises and exits non-zero, with no ``ok`` line):
    nbins=256, at the flagship, at the CLI's deep-tap block and at the
    wideband shape, and every leg of the copy, overlap and retile probes
    (``copy_probe``, ``overlap_probe``, ``retile_probe``) at a small shape
-   and at the shape it is timed at, each against its plain version (the
-   stages within 2e-5 max|xp_ref|, 3e-5 at deep taps; the copy checksums
-   exactly; overlap within 2e-5, retile within 1e-5 of max|plain|);
+   and at the shape it is timed at (the overlap probe also at 256 and 8192
+   bins with 2 and 8 taps, each structure with the shared memory the probe
+   asks for, which decides its layout: the kernel's, ``fxt_overlap_layout``,
+   must be the module's plan, and a copying leg's copies must ask for its
+   schedule's bytes, as the kernel counts them), each against its plain
+   version (the stages within 2e-5 max|xp_ref|, 3e-5 at deep taps; the
+   copy checksums exactly; overlap within 2e-5, retile within 1e-5 of
+   max|plain|);
 3. the main path, ``fxtpu_torch.cli.main`` for 2 s on the card, at the
    CLI defaults and at ``--resolution 8192 --ntaps 32`` (the deep-tap
    path), each with complex64 ingest and with ``--ingest int8`` (int8
@@ -198,7 +203,9 @@ call computes it in this layout, so ``library_ms`` is null).
 Every kernel's ``bound_ms`` is computed here from the run's shapes: the
 larger of its bytes (each input read once, each output written once) over
 3.35 TB/s and its operations over 67 TFLOP/s (float32 outside the tensor
-cores), the H100's published rates; ``bound_by`` says which.  ``library_ms``
+cores; the retile probe's bf16 products summed in float32, the tensor
+cores' work, over 989.4 TFLOP/s), the H100's published rates;
+``bound_by`` says which.  ``library_ms``
 is the time of one PyTorch call that computes the same function, timed
 here and used nowhere in the port: ``torch.sum`` over the tiles' words
 beside the copy probe's leg of contiguous tiles, ``torch.matmul`` of the
@@ -273,6 +280,8 @@ PIPELINE_S = 2.5
 CLI_S = 2            # seconds of each CLI run
 HBM_BYTES_PER_S = 3.35e12    # the H100's published device-memory rate
 FP32_FLOPS = 67e12           # and float32 rate outside the tensor cores
+# the H100 SXM5's dense bf16 tensor-core rate (bf16 products, float32 sums)
+BF16_TENSOR_FLOPS = 989.4e12
 PROBES_SOURCE = "fxtpu_torch/csrc/probes.cu"
 SPEC_CASES = (dict(nch=3, nsamp=32 * 256 + 100, nbins=256, ntaps=4),
               dict(nch=3, nsamp=32 * 256, nbins=256, ntaps=1),
@@ -2095,26 +2104,58 @@ def compare_probes(device):
     print(f"  copy_probe: {legs} legs, every tile checksum exact",
           flush=True)
     errs["copy_probe"] = (0.0, 0.0)
-    # overlap probe: the probe's own shapes and a small one
+    # overlap probe: the probe's own shape, a small one, and 256 and 8192
+    # bins at 2 and 8 taps; each structure with the shared memory the probe
+    # asks for (it decides the layout: rows once or chunks, teams)
     sms = sm_count(device)
-    worst = 0.0
-    for n, cb, frames in ((1024, 256, 3), (4096, 512, 32)):
+    worst, legs, layouts = 0.0, 0, set()
+    for n, cb, frames, ntaps in ((1024, 256, 3, 4), (4096, 512, 32, 4),
+                                 (256, 256, 3, 2), (256, 256, 3, 8),
+                                 (8192, 512, 3, 2), (8192, 512, 3, 8)):
         gen = torch.Generator(device=device).manual_seed(6)
         src = torch.view_as_complex(torch.randn(
-            (2 * sms * frames + 3, n, 2), device=device, generator=gen))
+            (2 * sms * frames + ntaps - 1, n, 2), device=device,
+            generator=gen))
         for structure, (nbuf, per_sm) in overlap.STRUCTURES.items():
             nbuf = min(nbuf, n // cb)
+            lay = overlap.plan(n, cb, ntaps, nbuf, per_sm)
+            if lay is None:
+                continue
+            layouts.add((n, ntaps, structure, lay.rows_once, lay.teams))
+            smem = (lay.shared_bytes if per_sm > 1
+                    else max(lay.shared_bytes, overlap.ONE_CTA_BYTES))
+            # the kernel takes the layout the module plans
+            took = overlap.kernel_layout(n, cb, ntaps, nbuf, smem)
+            if took != lay:
+                raise AssertionError(f"overlap probe at n = {n}, {ntaps} "
+                                     f"taps, {structure}: the kernel takes "
+                                     f"{took}, overlap.plan says {lay}")
+            grid, per_cta = per_sm * sms, frames * 2 // per_sm
             for mech in overlap.MECHS:
                 for copy, body in ((True, "touch"), (False, "fma"),
                                    (False, "fx"), (True, "fma"),
                                    (True, "fx")):
+                    overlap.copied_bytes(device)
                     worst = max(worst, overlap.check_leg(
-                        src, tol=REL_TOL, cb=cb, ntaps=4,
-                        frames=frames * 2 // per_sm, reps=1, nbuf=nbuf,
-                        copy=copy, body=body, grid=per_sm * sms, mech=mech))
+                        src, tol=REL_TOL, cb=cb, ntaps=ntaps,
+                        frames=per_cta, reps=1, nbuf=nbuf, copy=copy,
+                        body=body, grid=grid, mech=mech, smem=smem))
+                    # a copying leg's copies ask for its schedule's bytes
+                    copied = overlap.copied_bytes(device)
+                    want = overlap.device_bytes(grid, per_cta, ntaps, n,
+                                                lay.rows_once)
+                    if copy and copied != want:
+                        raise AssertionError(
+                            f"overlap probe ({mech}) at n = {n}, {ntaps} "
+                            f"taps, {structure}: its copies asked for "
+                            f"{copied} bytes, the schedule {want}")
+                    legs += 1
         del src
-    print(f"  overlap_probe: every leg within {worst:.3g} of max|plain|",
-          flush=True)
+    print(f"  overlap_probe: {legs} legs within {worst:.3g} of max|plain|, "
+          "each the kernel's layout, each copying leg's copies its "
+          "schedule's bytes; layouts (n, ntaps, structure, rows once, "
+          "teams): "
+          f"{sorted(layouts)}", flush=True)
     errs["overlap_probe"] = (worst, worst)
     x, xt, m = retile.make_inputs(device)
     worst = max(retile.check_form(x, xt, m, form, nt, reps)
@@ -2362,7 +2403,11 @@ def probe_kernel_entries(table, probe_records, launches, errs, mkt, device):
     entry("overlap_probe", PROBES_SOURCE, ms=rec["ms_per_rep"],
           plain_ms=plain, bound_ms=max(tb, tf),
           bound_by="bytes" if tb >= tf else "operations",
-          leg="pipelined, fx body, bulk copies")
+          leg="pipelined, fx body, bulk copies",
+          # the layout the kernel took and the bytes its copies asked for
+          # a repeat, both read from the kernel in the probe's run
+          rows_read_once=rec["rows_read_once"], teams=rec["teams"],
+          device_bytes_per_rep=rec["device_bytes_per_rep"])
     del src
 
     # retile_probe: the gather leg, one repeat of 32 tiles of 16 frames
@@ -2372,12 +2417,18 @@ def probe_kernel_entries(table, probe_records, launches, errs, mkt, device):
         x, m, rec["nt"], 1)}, n=10, warm=2)["plain"]
     slots = rec["nt"] * rec["tile"]
     nbytes = x.numel() * 4 + m.numel() * 4      # one repeat, as above
+    # bf16 products summed in float32: the tensor cores' work
     flops = slots * 2 * retile.N1 * retile.NBINS
-    tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS * 1e3
+    tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_TENSOR_FLOPS * 1e3
+    # every slot reads its 16 KB frame again, from L2: the best rate the
+    # copy probe's hot walks measured in this run
+    hot = max(r["gbps"] for r in probe_records["copy_rate"]
+              if r.get("walk") == "hot" and r.get("gbps"))
     entry("retile_probe", PROBES_SOURCE,
           ms=rec["ps_per_sample"] * rec["samples_per_rep"] * 1e-9,
           plain_ms=plain, bound_ms=max(tb, tf),
-          bound_by="bytes" if tb >= tf else "operations", leg="gather")
+          bound_by="bytes" if tb >= tf else "operations", leg="gather",
+          l2_gbps=hot)
     return out
 
 

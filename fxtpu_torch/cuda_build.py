@@ -103,6 +103,8 @@ def declare(lib):
         "fxt_spectrometer": [P] * 7 + [L] + [I] * 7 + [P],
         "fxt_copy_probe": [P] * 2 + [L] * 4 + [I] * 12 + [P],
         "fxt_overlap_probe": [P] * 3 + [I] * 13 + [P],
+        "fxt_overlap_layout": [I] * 5 + [P],
+        "fxt_overlap_copied": [P],
         "fxt_retile_probe": [P] * 5 + [I] * 5 + [P],
     }
     for name, argtypes in signatures.items():

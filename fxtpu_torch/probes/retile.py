@@ -5,33 +5,40 @@ Counterpart of ``scripts/retile_probe.py`` (``make_fn``), as the CUDA
 kernel ``fxt_retile_probe`` in ``csrc/probes.cu``, with that script's
 constants: frames of 4096 float32 in tiles of 16, ``[n1, n2] = [32,
 128]``, 32 tile slots per repeat walked over 8 rotating source tiles.
-Thread i2 of a CTA owns column i2 of the frame's ``[n1, n2]`` matrix and
-runs the script's body on it, ``acc += m @ bf16(x2)`` with ``m`` a ``[32,
-32]`` matrix of bf16 values (one frame's ``[32, 32] @ [32, 128]`` dot).
-The legs differ in how the column reaches the thread's registers; each
+Every frame slot's product ``m @ bf16(x2)`` (``m`` a ``[32, 32]`` matrix
+of bf16 values, the script's MXU dot with float32 sums) runs on the
+tensor cores: ``mma.m16n8k16`` with bf16 operands and float32 sums, warp
+w of a CTA's four forming columns ``32 w .. 32 w + 31``, ``m``'s
+fragments loaded once, the sums kept in registers across the CTA's slots.
+The legs differ in how the frame reaches the mma's B fragments; each
 takes the place of a TPU formulation:
 
-  control        the frame arrives pre-tiled, ``[n2, n1]``: the thread
-                 loads its own 128 bytes (TPU ``control``);
-  transpose      the ``[n1, n2]`` frame goes through shared memory laid
-                 ``[n2][n1]``, unpadded: every thread of a warp on one
-                 bank (TPU ``reshape``, the production form there);
-  transpose_pad  the same with rows padded by one float: no two threads
-                 on one bank (TPU ``stack``);
-  gather         each thread loads its 32 strided elements itself, with
-                 no shared memory (TPU ``gather``).
+  control        the frame arrives pre-tiled, ``[n2, n1]``: a thread's
+                 four values of a fragment are one float4 (TPU
+                 ``control``);
+  transpose      the warp's ``[32, 32]`` block goes through shared memory
+                 as bf16 ``[n2][n1]``, rows unpadded, then ``ldmatrix``
+                 (TPU ``reshape``, the production form there);
+  transpose_pad  the same with rows padded by 8 bf16 (TPU ``stack``);
+  gather         each thread's float4s are loaded from the ``[n1, n2]``
+                 frame straight into fragments, with no shared memory (TPU
+                 ``gather``).
 
-All four write the same checksum (the script's ``out``: the sum over all
-frame slots of ``m @ bf16(x2)``); leg minus ``control`` is the layout's
-cost in ps per sample.  Beside them ``stockham`` runs radix-2 Stockham
-stages (``b[d]``, ``b[d + ns]``: the frame kernel's FFT up to its
-radix-16 redesign, ``fx_fused.stockham_stages``) over the same frames
-taken as 2048 complex points: that access pattern's cost per stage.
+:func:`fragment_checksum` mirrors each leg's index arithmetic (loads,
+staging, ``ldmatrix``, fragments, the mma's layouts) on the CPU.  All four
+write the same checksum (the script's ``out``: the sum over all frame
+slots of ``m @ bf16(x2)``); leg minus ``control`` is the layout's cost in
+ps per sample.  Every slot loads its frame from L2 and forms its
+products.  Beside them ``stockham`` runs radix-2 Stockham stages (``b[d]``,
+``b[d + ns]``: the frame kernel's FFT up to its radix-16 redesign,
+``fx_fused.stockham_stages``) over the same frames taken as 2048 complex
+points: that access pattern's cost per stage.
 
     python -m fxtpu_torch.probes retile
 
-prints one JSON line per leg (slope between ``--reps`` 32 and 256: the
-script's 8 and 64 leave a launch under a millisecond on this card).
+prints one JSON line per leg (slope between ``--reps`` 64 and 1024: a
+repeat takes about a microsecond on this card, so the script's 8 and 64
+leave the two launches under a millisecond apart).
 """
 
 from __future__ import annotations
@@ -46,7 +53,8 @@ from fxtpu_torch.probes.common import (add_device_argument, card_line, emit,
                                        resolve_device, slope_ms, sm_count)
 
 __all__ = ["FORMS", "NBINS", "TILE", "N1", "N2", "NT", "NSRC", "make_inputs",
-           "retile_probe", "retile_reference", "stockham_reference", "main"]
+           "launch_grid", "fragment_checksum", "retile_probe",
+           "retile_reference", "stockham_reference", "main"]
 
 FORMS = ("control", "transpose", "transpose_pad", "gather", "stockham")
 NBINS = 4096
@@ -56,6 +64,10 @@ NT = 32                   # tile slots walked per repeat
 NSRC = 8                  # rotating source tiles
 STOCKHAM_POINTS = NBINS // 2
 STOCKHAM_STAGES = 11
+#: The layout legs (the tensor-core body) and their CTAs an SM.
+LAYOUT_FORMS = FORMS[:4]
+MMA_CTAS_PER_SM = 4
+STOCKHAM_CTAS_PER_SM = 8
 
 
 def make_inputs(device, seed: int = 7):
@@ -104,6 +116,155 @@ def stockham_reference(x: torch.Tensor, nt: int = NT,
     return parts.permute(0, 2, 1).reshape(N1, N2).contiguous()
 
 
+# --- the tensor-core legs' index arithmetic (csrc/probes.cu) --------------
+
+def _permuted(form: str) -> bool:
+    """control and gather permute a K step's rows so that a thread's four
+    values of a fragment are one float4."""
+    return form in ("control", "gather")
+
+
+def _kj(form: str, k: int) -> int:
+    """x2's row, within a K step of 16, of a fragment's row k."""
+    if _permuted(form):
+        return 4 * ((k & 7) >> 1) + 2 * (k >> 3) + (k & 1)
+    return k
+
+
+def _column(form: str, warp: int, t: int, n: int) -> int:
+    """x2's column of column n of N tile t of a warp's 32."""
+    return 32 * warp + (4 * n + t if _permuted(form) else 8 * t + n)
+
+
+def _pitch(form: str) -> int:
+    """bf16 elements in a row of a warp's staged block."""
+    return N1 + 8 if form == "transpose_pad" else N1
+
+
+def _loads(form: str, warp: int, lane: int) -> list:
+    """The flat index, into a frame of the form's array (``xt`` for
+    control, else ``x``), of the first float of each of a thread's eight
+    float4 loads."""
+    r, c, nbase = lane >> 2, lane & 3, 32 * warp
+    out = []
+    for i in range(8):
+        if form == "gather":        # row 16 kk + 4 c + j4, 4 columns
+            out.append((16 * (i >> 2) + 4 * c + (i & 3)) * N2 + nbase + 4 * r)
+        elif form == "control":     # column 4 r + t, 4 rows
+            out.append((nbase + 4 * r + (i & 3)) * N1 + 16 * (i >> 2) + 4 * c)
+        else:                       # row 2 rp + (i & 1) of the warp's block
+            row = 2 * ((lane >> 3) + 4 * (i >> 1)) + (i & 1)
+            out.append(row * N2 + nbase + 4 * (lane & 7))
+    return out
+
+
+def _staged(form: str, warp: int) -> dict:
+    """A transpose's staged block: bf16 element -> the frame's flat index
+    stored there (each lane's rows 2 rp, 2 rp + 1 as pairs at [4 q + e,
+    2 rp])."""
+    p, stage = _pitch(form), {}
+    for lane in range(32):
+        ld = _loads(form, warp, lane)
+        for i in range(4):
+            rp, q = (lane >> 3) + 4 * i, lane & 7
+            for e in range(4):
+                for h in range(2):
+                    stage[(4 * q + e) * p + 2 * rp + h] = ld[2 * i + h] + e
+    return stage
+
+
+def _b_registers(form: str, warp: int, t: int, lane: int, stage=None):
+    """A thread's B fragments of N tile t: ``[K step][register][half]`` ->
+    the frame's flat index."""
+    c = lane & 3
+    if form in ("transpose", "transpose_pad"):
+        p = _pitch(form)
+
+        def addr(ln):       # the row lane ln hands ldmatrix
+            return (8 * t + (ln & 7)) * p + 8 * (ln >> 3)
+        mats = [[stage[addr(8 * mi + (lane >> 2)) + 2 * c + h]
+                 for h in range(2)] for mi in range(4)]
+        return [[mats[2 * kk], mats[2 * kk + 1]] for kk in range(2)]
+    ld = _loads(form, warp, lane)
+    if form == "gather":
+        return [[[ld[4 * kk + 2 * g] + t, ld[4 * kk + 2 * g + 1] + t]
+                 for g in range(2)] for kk in range(2)]
+    return [[[ld[4 * kk + t] + 2 * g, ld[4 * kk + t] + 2 * g + 1]
+             for g in range(2)] for kk in range(2)]
+
+
+def _a_registers(form: str, mu: int, kk: int, lane: int):
+    """A thread's A fragment of M tile mu, K step kk: ``[register][half]``
+    -> (row, column) of m."""
+    r, c = lane >> 2, lane & 3
+    return [[(16 * mu + r + 8 * (g & 1),
+              16 * kk + _kj(form, 2 * c + 8 * (g >> 1) + h))
+             for h in range(2)] for g in range(4)]
+
+
+def fragment_checksum(x: torch.Tensor, xt: torch.Tensor, m: torch.Tensor,
+                      form: str, nt: int = NT, reps: int = 1
+                      ) -> torch.Tensor:
+    """A layout leg's checksum formed as its kernel forms it, on the CPU:
+    each thread's loads (and a transpose's staged block and ``ldmatrix``)
+    into A and B fragments, the fragments placed by ``mma.m16n8k16``'s
+    layouts (A: rows r, r + 8 and columns 2 c, 2 c + 8 of register 0 .. 3;
+    B: rows 2 c, 2 c + 8 of column r; C: rows r, r + 8, columns 2 c, 2 c +
+    1), the tile products, and the accumulators written back by the form's
+    columns, for every source frame, then weighted by the slots that read
+    it -> float32 ``[N1, N2]``, :func:`retile_reference`'s checksum."""
+    if form not in LAYOUT_FORMS:
+        raise ValueError(f"form {form!r} is not one of {LAYOUT_FORMS}")
+    frames = (xt if form == "control" else x).bfloat16().double()
+    mm = m.bfloat16().double()
+    nsrc = frames.shape[0]
+    out = torch.zeros((nsrc, N1, N2), dtype=torch.float64)
+    a = torch.zeros((2, 2, 16, 16), dtype=torch.float64)   # [mu, kk]
+    for mu in range(2):
+        for kk in range(2):
+            for lane in range(32):
+                r, c = lane >> 2, lane & 3
+                for g, pair in enumerate(_a_registers(form, mu, kk, lane)):
+                    for h, (row, col) in enumerate(pair):
+                        a[mu, kk, r + 8 * (g & 1),
+                          2 * c + 8 * (g >> 1) + h] = mm[row, col]
+    for warp in range(N2 // 32):
+        stage = (_staged(form, warp) if form in ("transpose", "transpose_pad")
+                 else None)
+        for t in range(4):
+            b = torch.zeros((2, nsrc, 16, 8), dtype=torch.float64)
+            for lane in range(32):
+                r, c = lane >> 2, lane & 3
+                regs = _b_registers(form, warp, t, lane, stage)
+                for kk in range(2):
+                    for g in range(2):
+                        for h in range(2):
+                            b[kk, :, 2 * c + 8 * g + h, r] = \
+                                frames[:, regs[kk][g][h]]
+            for mu in range(2):
+                d = a[mu, 0] @ b[0] + a[mu, 1] @ b[1]     # [nsrc, 16, 8]
+                for lane in range(32):
+                    r, c = lane >> 2, lane & 3
+                    for e in range(2):
+                        col = _column(form, warp, t, 2 * c + e)
+                        out[:, 16 * mu + r, col] = d[:, r, 2 * c + e]
+                        out[:, 16 * mu + r + 8, col] = d[:, r + 8, 2 * c + e]
+    counts = _slot_counts(nsrc, reps * nt * TILE, "cpu").double()
+    return (out * counts[:, None, None]).sum(dim=0).float()
+
+
+def launch_grid(form: str, slots: int, nsrc: int, sms: int) -> int:
+    """CTAs of a launch: 4 an SM for the tensor-core legs (128 registers a
+    thread), 8 for stockham, at most one a slot; never a multiple of
+    ``nsrc`` above it, so that a CTA does not meet the same source frame at
+    every slot."""
+    per_sm = STOCKHAM_CTAS_PER_SM if form == "stockham" else MMA_CTAS_PER_SM
+    grid = min(per_sm * sms, slots)
+    if grid > nsrc and grid % nsrc == 0:
+        grid -= 1
+    return grid
+
+
 def _check(x, xt, m):
     for name, t in (("x", x), ("xt", xt), ("m", m)):
         if t.dtype != torch.float32 or not t.is_contiguous():
@@ -121,8 +282,8 @@ def retile_probe(x: torch.Tensor, xt: torch.Tensor, m: torch.Tensor,
                  form: str, nt: int = NT, reps: int = 1) -> torch.Tensor:
     """One leg over the ``reps x nt x TILE`` frame slots -> float32
     ``[N1, N2]`` checksum (:func:`retile_reference`'s, or for ``stockham``
-    :func:`stockham_reference`'s).  Eight CTAs of 128 threads per SM share
-    the slots; their partial checksums are summed here.
+    :func:`stockham_reference`'s).  CTAs of 128 threads share the slots
+    (:func:`launch_grid`); their partial checksums are summed here.
 
     CPU tensors run the plain version; CUDA tensors launch
     ``fxt_retile_probe`` or raise.  Each launch adds one to
@@ -141,7 +302,7 @@ def retile_probe(x: torch.Tensor, xt: torch.Tensor, m: torch.Tensor,
     from fxtpu_torch.cuda_build import check, load_kernels
     lib = load_kernels()
     slots = reps * nt * TILE
-    grid = min(8 * sm_count(x.device), slots)
+    grid = launch_grid(form, slots, x.shape[0], sm_count(x.device))
     out = torch.empty((grid, N1, N2), dtype=torch.float32, device=x.device)
     tw = _twiddles(STOCKHAM_POINTS, x.device)
     with torch.cuda.device(x.device):
@@ -179,7 +340,7 @@ def main(argv=None) -> list:
     add_device_argument(ap)
     ap.add_argument("--nt", type=int, default=NT,
                     help="tile slots (of 16 frames) walked per repeat")
-    ap.add_argument("--reps", default="32,256",
+    ap.add_argument("--reps", default="64,1024",
                     help="the two repeat counts of the slope")
     ap.add_argument("--seed", type=int, default=7)
     args = ap.parse_args(argv)

@@ -46,11 +46,19 @@ the same input and output buffers:
     epilogue's exposed time (its end less its predecessor's end) and the
     step's span on the device;
 
-each in both ingests, and reports
+each in both ingests; and the two probes a tree's kernels are measured
+with (``overlap``, ``retile``): every leg of ``fxt_overlap_probe`` at the
+probe's defaults (4096 bins, 4 taps, chunks of 512, each structure with
+the shared memory the tree's own ``probes/overlap.py`` asks for) under
+both copy mechanisms, and every form of ``fxt_retile_probe`` (each tree's
+own grid), each tree's ms a repeat by the slope between two repeat counts
+inside one launch, and its checksum against the plain version; and
+reports
 
   * ``nvcc -Xptxas -v``'s registers, shared memory and spills of each
     tree's production frame kernels (the radix-16 instances and the
-    ``kMixed`` ones apart), of the FFT's bodies and of the FIR launch;
+    ``kMixed`` ones apart), of the FFT's bodies, of the FIR launch and of
+    the overlap and retile probes' kernels;
   * each tree's largest difference from the plain version on the same
     input (parts: of max|xp|; spectra: of max|spectrum|), the largest
     difference between the two trees' outputs (of the parent's largest
@@ -61,7 +69,7 @@ each in both ingests, and reports
     ``--rounds`` rounds in the order A B B A.
 
     python scripts/torch_ab_trees.py --parent build/parent [--cases
-        flagship,nchan8]
+        flagship,nchan8,overlap,retile]
 
 prints one JSON line per comparison.
 """
@@ -69,6 +77,7 @@ prints one JSON line per comparison.
 import argparse
 import ctypes
 import hashlib
+import importlib.util
 import re
 import statistics
 import sys
@@ -88,9 +97,10 @@ from fxtpu_torch.ops.fx_xstage import (fx_xstage_reference,  # noqa: E402
                                        xstage_plan)
 from fxtpu_torch.ops.xengine import baseline_pairs, pack_delays  # noqa: E402
 from fxtpu_torch.probes import ablate  # noqa: E402
+from fxtpu_torch.probes import overlap, retile  # noqa: E402
 from fxtpu_torch.probes.common import (card_line, device_events,  # noqa: E402
                                        emit, event_ms, resolve_device,
-                                       step_exposed_us)
+                                       slope_ms, sm_count, step_exposed_us)
 
 SHARED = ("fxt_fx_parts", "fxt_fx_parts_i8", "fxt_fx_wide_frames",
           "fxt_fx_wide_frames_i8", "fxt_fx_fused", "fxt_fx_fused_i8",
@@ -194,6 +204,17 @@ CASES = {
 }
 #: The step cases whose epilogue reduces to the continuum (CONTINUUM).
 CONTINUUM = ("step_pipeline",)
+#: The probe cases: ``fxt_overlap_probe`` and ``fxt_retile_probe``.
+PROBE_CASES = ("overlap", "retile")
+PROBE_ENTRIES = ("fxt_overlap_probe", "fxt_retile_probe")
+#: The overlap probe's defaults (``python -m fxtpu_torch.probes overlap``)
+#: and the repeat counts of each slope.
+OVERLAP_SHAPE = dict(n=4096, cb=512, ntaps=4, frames=32)
+OVERLAP_REPS = (2, 8)
+RETILE_REPS = (64, 1024)
+OVERLAP_LEGS = (("copy", True, "touch"), ("comp_fma", False, "fma"),
+                ("comp_fx", False, "fx"), ("body_fma", True, "fma"),
+                ("body_fx", True, "fx"))
 
 
 def production_kernels(log: str) -> dict:
@@ -253,6 +274,16 @@ def production_kernels(log: str) -> dict:
                 r"ptxas info\s*:\s*", "", " ".join(
                     s.strip() for s in lines[i + 1:i + 4]
                     if "registers" in s or "spill" in s))
+    for i, line in enumerate(lines):
+        m = re.search(r"Compiling entry function '\S*(overlap_probe_kernel|"
+                      r"retile_mma_kernel|retile_stockham_kernel)"
+                      r"((?:ILi\d+E)?(?:Li\d+E)*)", line)
+        if m:
+            args = ",".join(re.findall(r"Li(\d+)E", m.group(2)))
+            out[f"{m.group(1)}<{args}>"] = re.sub(
+                r"ptxas info\s*:\s*", "", " ".join(
+                    s.strip() for s in lines[i + 1:i + 4]
+                    if "registers" in s or "spill" in s))
     return {k: sorted(v) if isinstance(v, set) else v
             for k, v in out.items()}
 
@@ -283,7 +314,8 @@ def build_tree(root: Path, name: str, like=None):
     lib.fir_launch = getattr(lib, "fxt_fir_rows", None) is not None
     if like is None:
         return cuda_build.declare(lib), log
-    for entry in SHARED + (STEP_ENTRIES if lib.has_step else ()):
+    for entry in SHARED + PROBE_ENTRIES + (STEP_ENTRIES if lib.has_step
+                                           else ()):
         getattr(lib, entry).restype = getattr(like, entry).restype
         getattr(lib, entry).argtypes = getattr(like, entry).argtypes
     if like.fir_launch and not lib.fir_launch:
@@ -609,6 +641,146 @@ class StepCase:
                 / self.plain.abs().max().item())
 
 
+def tree_module(root: Path, name: str):
+    """A probe module (``overlap``, ``retile``) of the checkout at ``root``,
+    loaded as it stands beside this tree's: its own shared-memory plan and
+    grid, with this tree's imports."""
+    path = root / "fxtpu_torch" / "probes" / f"{name}.py"
+    key = f"_ab_{name}_{hashlib.sha256(str(root).encode()).hexdigest()[:8]}"
+    spec = importlib.util.spec_from_file_location(key, path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[key] = mod      # dataclasses look their module up there
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def overlap_smem(mod, n, cb, ntaps, nbuf, per_sm):
+    """The shared memory a tree's overlap probe asks for in a structure,
+    and its layout's record (the parent's probe has one layout, chunked)."""
+    if hasattr(mod, "plan"):
+        lay = mod.plan(n, cb, ntaps, nbuf, per_sm)
+        need, info = lay.shared_bytes, dict(rows_read_once=lay.rows_once,
+                                            teams=lay.teams)
+    else:
+        need, info = (mod.shared_bytes(n, cb, ntaps, nbuf),
+                      dict(rows_read_once=False, teams=1))
+    return (need if per_sm > 1 else max(need, mod.ONE_CTA_BYTES)), info
+
+
+def probe_cases(name, libs, roots, rounds, device, card, records):
+    """The A/B of one probe (:data:`PROBE_CASES`): each leg's ms a repeat in
+    each tree, A B B A over ``rounds`` rounds, and each tree's checksum
+    against the plain version."""
+    sms = sm_count(device)
+    mods = {tree: tree_module(root, name) for tree, root in roots.items()}
+    stream = torch.cuda.current_stream(device).cuda_stream
+
+    def compare(legs):
+        for key, launch, plain, info in legs:
+            err = {}
+            for tree in libs:
+                got = launch(tree, OVERLAP_REPS[0] if name == "overlap"
+                             else RETILE_REPS[0])
+                torch.cuda.synchronize()
+                err[tree] = ((got - plain).abs().max().item()
+                             / plain.abs().max().item())
+            per = {tree: [] for tree in libs}
+            lo, hi = OVERLAP_REPS if name == "overlap" else RETILE_REPS
+            for _ in range(rounds):
+                for tree in ("parent", "change", "change", "parent"):
+                    per[tree].append(slope_ms(
+                        lambda r, t=tree: launch(t, r), lo, hi)[2])
+            med = {tree: statistics.median(v) for tree, v in per.items()}
+            emit(records, probe="ab_trees", case=name, **key,
+                 max_err_vs_plain=err, reps=[lo, hi],
+                 **{f"{tree}_ms_per_rep": {"median": med[tree],
+                                           "min": min(v), "max": max(v)}
+                    for tree, v in per.items()},
+                 speedup=med["parent"] / med["change"], **info, card=card)
+
+    if name == "overlap":
+        n, cb, ntaps = (OVERLAP_SHAPE[k] for k in ("n", "cb", "ntaps"))
+        gen = torch.Generator(device=device).manual_seed(0)
+        src = torch.view_as_complex(torch.randn(
+            (2 * sms * OVERLAP_SHAPE["frames"] + ntaps - 1, n, 2),
+            device=device, generator=gen))
+        tw = ff._twiddles(n, device)
+        for mech in overlap.MECHS:
+            legs = []
+            for structure, (nbuf, per_sm) in overlap.STRUCTURES.items():
+                grid = per_sm * sms
+                frames = OVERLAP_SHAPE["frames"] * 2 // per_sm
+                smem = {tree: overlap_smem(mods[tree], n, cb, ntaps, nbuf,
+                                           per_sm) for tree in libs}
+                for leg, copy, body in OVERLAP_LEGS:
+                    out = torch.empty((grid, n), dtype=torch.complex64,
+                                      device=device)
+
+                    def launch(tree, reps, grid=grid, frames=frames,
+                               nbuf=nbuf, copy=copy, body=body, out=out,
+                               smem=smem, mech=mech):
+                        mod = mods[tree]
+                        rc = libs[tree].fxt_overlap_probe(
+                            src.data_ptr(), out.data_ptr(), tw.data_ptr(), n,
+                            n.bit_length() - 1, cb, ntaps, frames, reps, nbuf,
+                            int(copy), mod.FMA_PASSES, mod.BODIES.index(body),
+                            mod.MECHS[mech], grid, smem[tree][0], stream)
+                        if rc:
+                            raise RuntimeError(f"{tree} overlap probe: {rc}")
+                        return out
+                    plain = overlap.overlap_probe_reference(
+                        src, cb=cb, ntaps=ntaps, frames=frames,
+                        reps=OVERLAP_REPS[0], nbuf=nbuf, copy=copy,
+                        body=body, grid=grid)
+                    info = {f"{tree}_layout": smem[tree][1] for tree in libs}
+                    change_lay = smem["change"][1]
+                    # each tree's schedule, as reckoned (the parent's
+                    # chunks re-read every frame's rows; the change's
+                    # reckoning is held to its kernel's own count by the
+                    # probe and by chip_smoke.py)
+                    info["schedule_bytes_per_rep"] = {
+                        "parent": overlap.copy_bytes(grid, frames, ntaps, n)
+                        * copy,
+                        "change": overlap.device_bytes(
+                            grid, frames, ntaps, n,
+                            change_lay["rows_read_once"]) * copy}
+                    legs.append((dict(mech=mech, structure=structure, leg=leg,
+                                      body=body, copy=copy, grid=grid,
+                                      frames_per_cta=frames), launch, plain,
+                                 info))
+            compare(legs)
+        return
+    x, xt, m = retile.make_inputs(device)
+    tw = ff._twiddles(retile.STOCKHAM_POINTS, device)
+    slots_of = retile.NT * retile.TILE
+    legs = []
+    for form in retile.FORMS:
+        grids = {}
+        for tree in libs:
+            mod = mods[tree]
+            grids[tree] = (mod.launch_grid(form, slots_of * RETILE_REPS[0],
+                                           x.shape[0], sms)
+                           if hasattr(mod, "launch_grid")
+                           else min(8 * sms, slots_of * RETILE_REPS[0]))
+        outs = {tree: torch.empty((g, retile.N1, retile.N2),
+                                  dtype=torch.float32, device=device)
+                for tree, g in grids.items()}
+
+        def launch(tree, reps, form=form, outs=outs, grids=grids):
+            rc = libs[tree].fxt_retile_probe(
+                x.data_ptr(), xt.data_ptr(), m.data_ptr(), tw.data_ptr(),
+                outs[tree].data_ptr(), x.shape[0], slots_of, reps,
+                retile.FORMS.index(form), grids[tree], stream)
+            if rc:
+                raise RuntimeError(f"{tree} retile probe: {rc}")
+            return outs[tree].sum(dim=0)
+        plain = (retile.stockham_reference(x, retile.NT, RETILE_REPS[0])
+                 if form == "stockham" else
+                 retile.retile_reference(x, m, retile.NT, RETILE_REPS[0]))
+        legs.append((dict(form=form), launch, plain, {"grid": grids}))
+    compare(legs)
+
+
 def kernel_us(fn, n=10):
     """Median device microseconds of each kernel of :data:`KERNELS` that
     a call of fn launches, over n calls: ``{name: us}``."""
@@ -634,8 +806,9 @@ def main(argv=None) -> list:
                     help="root of the other checkout of this repository")
     ap.add_argument("--change", default=str(ROOT),
                     help="root of the checkout under test (this one)")
-    ap.add_argument("--cases", default=",".join(CASES),
-                    help=f"comma-separated subset of {tuple(CASES)}")
+    ap.add_argument("--cases", default=",".join((*CASES, *PROBE_CASES)),
+                    help="comma-separated subset of "
+                         f"{(*CASES, *PROBE_CASES)}")
     ap.add_argument("--rounds", type=int, default=5)
     args = ap.parse_args(argv)
     device = resolve_device("cuda")
@@ -648,7 +821,11 @@ def main(argv=None) -> list:
          ptxas={"parent": production_kernels(parent_log),
                 "change": production_kernels(change_log)},
          card=card)
+    roots = {"parent": Path(args.parent), "change": Path(args.change)}
     for name in args.cases.split(","):
+        if name in PROBE_CASES:
+            probe_cases(name, libs, roots, args.rounds, device, card, records)
+            continue
         for ingest in (("complex64",) if CASES[name][0] == "spec"
                        else ("complex64", "int8")):
             case = (StepCase if CASES[name][0] == "step" else Case)(

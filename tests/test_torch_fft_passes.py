@@ -2,7 +2,7 @@
 fxtpu_torch.ops.fx_fused, at every bin count the kernel takes (n = 128 m,
 2 <= m <= 128): the radix passes' index arithmetic
 (``fft_passes``, the same loads, twiddles and stores as
-``csrc/fx_fused.cu``'s ``fft_pass``), the stage ablation's ``fft_half``,
+``csrc/fx_fft.cuh``'s ``fft_pass``), the stage ablation's ``fft_half``,
 the split of a frame group's channels and bins over a cluster
 (``frame_ctas``), and the shared-memory sizes a launch asks for against
 the routes' rules, which must not move.

@@ -283,15 +283,99 @@ def test_overlap_copy_bytes_is_the_scripts_formula():
 
 
 def test_overlap_shared_memory_budget():
-    """The flagship's budget: a ring of ntaps + 1 whole rows beside the
-    FFT buffers leaves room for one channel; chunked rings fit."""
-    assert overlap.shared_bytes(4096, 4096, 4, 1) == (4 + 2) * 32768
-    assert overlap.shared_bytes(4096, 512, 4, 1) == 81920
+    """The flagship's budget (n = 4096, 4 taps), with the rows read once:
+    the pipelined ring of ntaps + 2 whole rows (two teams, a row in
+    flight) beside the twiddle table is one CTA an SM; two CTAs an SM take
+    the chunked ring and its work slot; at 8192 bins whole rows fit only at
+    two taps, with one team."""
+    bars = overlap.BARRIER_BYTES
+    assert overlap.shared_bytes(4096, 512, 4, 2, rows_once=True, teams=2) \
+        == bars + (6 * 4096 + 2048) * 8 == 213504
+    assert overlap.shared_bytes(4096, 512, 4, 1, rows_once=True) == (
+        bars + (5 * 4096 + 2048) * 8)
+    assert overlap.shared_bytes(4096, 512, 4, 1) == (
+        bars + (4 * 512 + 4096 + 2048) * 8) == 66048
+    assert overlap.plan(4096, 512, 4, 2) == overlap.Layout(True, 2, 6, 213504)
+    assert overlap.plan(4096, 512, 4, 2).threads == 2 * 256 + 32
+    assert overlap.plan(4096, 512, 4, 1) == overlap.Layout(True, 1, 5, 180736)
+    assert overlap.plan(4096, 512, 4, 1, ctas_per_sm=2) == overlap.Layout(
+        False, 1, 1, 66048)
     assert overlap.fits(4096, 512, 4, 1, ctas_per_sm=2)
     assert overlap.fits(4096, 512, 4, 2) and overlap.fits(4096, 512, 4, 8)
     assert not overlap.fits(4096, 512, 4, 2, ctas_per_sm=3)
     assert not overlap.fits(4096, 4096, 4, 2)
     assert not overlap.fits(256, 256, 4, 2)      # one chunk, two slots
+    assert overlap.plan(8192, 512, 2, 2) == overlap.Layout(True, 1, 3, 229888)
+    assert not overlap.plan(8192, 512, 4, 1).rows_once
+    assert not overlap.plan(4096, 512, 8, 2).rows_once
+    # the kernel decides by the shared memory it is given: the structures'
+    # requests (a lone CTA asks for more than half an SM) give the plans
+    for nbuf, per_sm in overlap.STRUCTURES.values():
+        lay = overlap.plan(4096, 512, 4, nbuf, per_sm)
+        smem = (lay.shared_bytes if per_sm > 1
+                else max(lay.shared_bytes, overlap.ONE_CTA_BYTES))
+        assert overlap.layout(4096, 512, 4, nbuf, smem) == lay
+    assert overlap.layout(4096, 512, 4, 1, 4096) is None
+
+
+#: (n, ntaps, nbuf, frames) of the ring's schedule: chunks of 256 bins
+ROW_CASES = [(n, ntaps, nbuf, frames) for n in (256, 1024, 4096)
+             for ntaps in (2, 4, 8) for nbuf in (1, 2, 4)
+             for frames in (1, 3, 8) if nbuf <= n // 256]
+
+
+@pytest.mark.parametrize("n,ntaps,nbuf,frames", ROW_CASES)
+def test_overlap_row_schedule(n, ntaps, nbuf, frames):
+    """The rows-once ring's schedule (overlap.row_schedule, the kernel's
+    rules), with the teams the leg's layout has (one where the rows do not
+    fit and the leg streams chunks): each row of a repeat is copied once,
+    every frame's ntaps rows are resident when it reads them, and no slot
+    is overwritten while a frame's FIR output is in it."""
+    lay = overlap.plan(n, 256, ntaps, nbuf)
+    teams = lay.teams if lay.rows_once else 1
+    reps = 2
+    S = ntaps + teams + nbuf - 2
+    if lay.rows_once:
+        assert lay.slots >= S
+    holds, held, copies, reads, frees = {}, {}, [], set(), 0
+    for ev in overlap.row_schedule(ntaps, nbuf, frames, teams, reps):
+        if ev[0] == "copy":
+            _, g, rep, row, slot = ev
+            assert slot == g % S and slot not in held, ev
+            holds[slot] = (rep, row)
+            copies.append((rep, row))
+        elif ev[0] == "read":
+            _, u, rows = ev
+            rep, f = divmod(u, frames)
+            assert [(rp, row) for rp, row, _ in rows] == [
+                (rep, f + t) for t in range(ntaps)]
+            for rp, row, slot in rows:
+                assert holds.get(slot) == (rp, row), (ev, holds)
+            reads.add(u)
+        elif ev[0] == "write":
+            _, u, slot = ev
+            assert u in reads
+            holds[slot], held[slot] = ("fir", u), u
+        else:
+            _, u, slot = ev
+            held.pop(slot, None)
+            frees += 1
+    per_rep = frames + ntaps - 1
+    assert sorted(copies) == [(rp, row) for rp in range(reps)
+                              for row in range(per_rep)]
+    assert reads == set(range(reps * frames)) and not held
+    assert frees == len(copies)
+
+
+def test_overlap_device_bytes_at_the_defaults():
+    """python -m fxtpu_torch.probes overlap on 132 SMs: the pipelined
+    leg's 132 CTAs of 64 frames read their 67 rows each once a repeat,
+    where the chunks read every frame's 4 rows."""
+    assert overlap.plan(4096, 512, 4, 2).rows_once
+    assert overlap.device_bytes(132, 64, 4, 4096, True) == (
+        132 * 67 * 4096 * 8) == 289800192
+    assert overlap.device_bytes(132, 64, 4, 4096, False) == (
+        overlap.copy_bytes(132, 64, 4, 4096)) == 1107296256
 
 
 # --- the copy probe's plain version ---------------------------------------
@@ -462,6 +546,30 @@ def test_stockham_leg_reference_is_the_fft_of_the_frames():
         seg = total[j * retile.N2:(j + 1) * retile.N2]
         want[2 * j], want[2 * j + 1] = seg.real, seg.imag
     assert (got - want).abs().max() <= 1e-5 * want.abs().max()
+
+
+@pytest.mark.parametrize("form", retile.LAYOUT_FORMS)
+def test_retile_fragment_checksum_is_the_reference(form):
+    """The layout legs' index arithmetic on the CPU (loads, staging,
+    ldmatrix, the mma's fragment layouts, the columns written back) forms
+    retile_reference's checksum, within 1e-5 of max|plain|."""
+    x, xt, m = retile.make_inputs("cpu")
+    for nt, reps in ((3, 2), (retile.NT, 1)):
+        want = retile.retile_reference(x, m, nt, reps)
+        got = retile.fragment_checksum(x, xt, m, form, nt, reps)
+        assert (got - want).abs().max() <= 1e-5 * want.abs().max()
+
+
+@pytest.mark.parametrize("sms", [114, 128, 132])
+def test_retile_grid_rotates_the_sources(sms):
+    """No grid is a multiple of the source frames: a CTA meets more than
+    one source."""
+    for form in retile.FORMS:
+        for slots in (512, 4096, 131072):
+            grid = retile.launch_grid(form, slots, retile.NSRC * retile.TILE,
+                                      sms)
+            assert 1 <= grid <= min(slots, 8 * sms)
+            assert grid % (retile.NSRC * retile.TILE) != 0
 
 
 @pytest.mark.parametrize("form", ["control", "reshape", "stack", "gather"])
@@ -741,6 +849,94 @@ def test_cuda_retile_probe(form, cuda_device):
     before = retile.retile_probe.launches
     assert retile.check_form(x, xt, m, form, nt=4, reps=3) <= 1e-5
     assert retile.retile_probe.launches == before + 1
+
+
+#: (n, ntaps, leg, structure): every leg of every structure that fits
+OVERLAP_LEGS = {"copy": (True, "touch"), "comp_fma": (False, "fma"),
+                "comp_fx": (False, "fx"), "body_fma": (True, "fma"),
+                "body_fx": (True, "fx")}
+OVERLAP_CARD_CASES = [
+    (n, ntaps, leg, structure) for n in (256, 1024, 4096, 8192)
+    for ntaps in (2, 4, 8) for leg in OVERLAP_LEGS
+    for structure, (nbuf, per_sm) in overlap.STRUCTURES.items()
+    if overlap.plan(n, 256 if n < 4096 else 512, ntaps,
+                    min(nbuf, n // (256 if n < 4096 else 512)), per_sm)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mech", list(overlap.MECHS))
+@pytest.mark.parametrize("n,ntaps,leg,structure", OVERLAP_CARD_CASES)
+def test_cuda_overlap_leg(n, ntaps, leg, structure, mech, cuda_device):
+    """Every leg as the probe runs it in each structure (the structure's
+    shared memory decides the layout: rows once or chunks, one team or
+    two), within 2e-5 of max|plain|; the kernel takes the module's plan,
+    and its copies ask for the schedule's bytes (a leg without the copy:
+    the resident rows or chunks, once a launch)."""
+    copy, body = OVERLAP_LEGS[leg]
+    nbuf, per_sm = overlap.STRUCTURES[structure]
+    cb = 256 if n < 4096 else 512
+    nbuf = min(nbuf, n // cb)
+    lay = overlap.plan(n, cb, ntaps, nbuf, per_sm)
+    smem = (lay.shared_bytes if per_sm > 1
+            else max(lay.shared_bytes, overlap.ONE_CTA_BYTES))
+    assert overlap.kernel_layout(n, cb, ntaps, nbuf, smem) == lay
+    grid, frames, reps = 3, 5, 2
+    src = _overlap_src(grid * frames + ntaps - 1, n, seed=9).to(cuda_device)
+    before = overlap.overlap_probe.launches
+    overlap.copied_bytes(cuda_device)
+    err = overlap.check_leg(src, mech=mech, cb=cb, ntaps=ntaps,
+                            frames=frames, reps=reps, nbuf=nbuf, copy=copy,
+                            body=body, grid=grid, smem=smem)
+    copied = overlap.copied_bytes(cuda_device)
+    assert overlap.overlap_probe.launches == before + 1
+    assert err <= 2e-5
+    if copy:
+        assert copied == reps * overlap.device_bytes(grid, frames, ntaps, n,
+                                                     lay.rows_once)
+    else:
+        assert copied == grid * ntaps * 8 * (n if lay.rows_once
+                                             else nbuf * cb)
+
+
+#: (n, cb, ntaps, nbuf) of the layout rule's comparison: every accepted
+#: shape of the probe's structures and beyond, each at the shared memory
+#: of each layout, a byte below it, a lone CTA's request and the most
+LAYOUT_CASES = [(n, cb, ntaps, nbuf) for n in (256, 1024, 4096, 8192)
+                for cb in (256, 512) for ntaps in (2, 3, 4, 8, 16, 32)
+                for nbuf in (1, 2, 4, 8) if cb <= n and nbuf <= n // cb]
+
+
+@pytest.mark.cuda
+def test_cuda_overlap_layout_is_the_kernels(cuda_device):
+    """overlap.layout, the module's copy of the rule by which a CTA lays out
+    its shared memory, against the kernel's own (fxt_overlap_layout)."""
+    checked = 0
+    for n, cb, ntaps, nbuf in LAYOUT_CASES:
+        sizes = {4096, overlap.ONE_CTA_BYTES, common.MAX_SHARED_BYTES}
+        for rows_once, teams in ((True, 2), (True, 1), (False, 1)):
+            need = overlap.shared_bytes(n, cb, ntaps, nbuf, rows_once, teams)
+            sizes |= {need - 1, need}
+        for smem in sorted(sizes):
+            assert overlap.kernel_layout(n, cb, ntaps, nbuf, smem) == (
+                overlap.layout(n, cb, ntaps, nbuf, smem)), (n, cb, ntaps,
+                                                            nbuf, smem)
+            checked += 1
+    assert checked > 1000
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", retile.FORMS)
+def test_cuda_retile_probe_at_the_probes_shape(form, cuda_device):
+    """Every leg at the probe's own shape (512 slots a repeat over 4 CTAs an
+    SM) against its plain version, and the layout legs against the CPU
+    mirror of their fragments."""
+    x, xt, m = retile.make_inputs(cuda_device)
+    assert retile.check_form(x, xt, m, form, nt=retile.NT, reps=3) <= 1e-5
+    if form in retile.LAYOUT_FORMS:
+        got = retile.retile_probe(x, xt, m, form, retile.NT, 3).cpu()
+        mirror = retile.fragment_checksum(x.cpu(), xt.cpu(), m.cpu(), form,
+                                          retile.NT, 3)
+        assert (got - mirror).abs().max() <= 1e-5 * mirror.abs().max()
 
 
 @pytest.mark.cuda
