@@ -200,6 +200,29 @@ probes; phase 4 times it at ``FIR_CASES`` against its bound (``fir_bound``)
 and its plain version (``fir_rows`` in the kernels line; no single PyTorch
 call computes it in this layout, so ``library_ms`` is null).
 
+Scale-out (``fxtpu_torch.parallel``), a phase 3 part of its own, each run
+counted alone: the fused frame-sharded step (``SCALE_CASES``: the
+flagship in both ingests and the ``--nchan 8`` CLI block on the wide
+route) on meshes of 2 x 2 and 4 x 1 shards of the card over 3 chained
+blocks with a mean offset, against the single-device fused step (vis
+within 2e-5 of max|vis|, 3e-5 under int8; the history within 1e-6, the
+int8 tail exact); each block launches the single pass and its reduce (or
+X kernel) once a shard and the epilogue once, nothing else; the
+block-parallel K = 8 call on 4 shards against 8 single-device steps
+(3e-5, history 1e-5), one launch of each a shard; the plain step with
+the corner turn on 2 x 2 against the plain single-device step (rtol
+5e-4, atol 5e-7), no hand kernel; the collective bytes of each, counted
+by ``parallel.collectives``, equal to ``parallel.accounting``'s model;
+``python -m fxtpu_torch --mesh_time 2 --mesh_freq 2`` on the card (the
+single-device run's CSV header, the delay recovered, 4 single passes and
+one epilogue a block), also at ``--blocks_per_dispatch 8``; and ``parallel.multihost.launch(2, "step")``, two
+processes of 4 shards each on the card over ``gloo`` (CUDA tensors staged
+through pinned host memory, the staged bytes printed), against the
+one-process 4 x 2 mesh (rtol 2e-5, atol 2e-4).  The mesh steps and the
+K = 8 call are timed by events beside the single-device step's and
+call's.  Their launches join the main path's counts in the kernels line,
+and ``fx_parts`` carries the phase's record under ``scaleout``.
+
 Every kernel's ``bound_ms`` is computed here from the run's shapes: the
 larger of its bytes (each input read once, each output written once) over
 3.35 TB/s and its operations over 67 TFLOP/s (float32 outside the tensor
@@ -3221,6 +3244,341 @@ def host_split(device, n=200):
     return out
 
 
+# --------------------------------------------------------------------------
+# Scale-out (fxtpu_torch.parallel): meshes of shards on the one card
+# --------------------------------------------------------------------------
+
+SCALE_MESHES = ((2, 2), (4, 1))
+SCALE_BLOCKS = 3     # chained blocks each mesh step is held over
+# (tag, shape, ingest) of the fused frame-sharded step's checks
+SCALE_CASES = (("flagship", FLAGSHIP, "complex64"),
+               ("flagship", FLAGSHIP, "int8"),
+               ("cli8", CLI8, "complex64"))
+SCALE_TOL = {"complex64": 2e-5, "int8": 3e-5}   # of max|vis|
+MULTI_TOL = 3e-5     # the K-block call against single steps (test_sharded)
+
+
+def scale_engines(case, ingest, mesh_tf, device, fused=True):
+    """(mesh engine, single-device engine, mesh) at ``case`` on one card,
+    SPECTRUM, with the mesh's shards all on ``device``."""
+    from fxtpu_torch.config import CorrelatorConfig
+    from fxtpu_torch.fx import FxEngine
+    from fxtpu_torch.parallel import make_correlator_mesh
+    cfg = CorrelatorConfig(num_samp=case["nsamp"], nbins=case["nbins"],
+                           ntaps=case["ntaps"], nchan=case["nch"],
+                           include_autos=case["autos"], mode="SPECTRUM",
+                           clamp_num_samp=False, ingest_dtype=ingest,
+                           device="cuda", fused=fused)
+    t, f = mesh_tf
+    mesh = make_correlator_mesh(t, f, [device] * (t * f))
+    return FxEngine(cfg, mesh=mesh), FxEngine(cfg), mesh
+
+
+def scale_blocks(case, ingest, k, seed):
+    """k blocks of ``case`` from a seed, complex ones with a mean offset
+    (the post-hoc DC correction at work)."""
+    rng = np.random.default_rng(seed)
+    shape = (case["nch"], case["nsamp"])
+    if ingest == "int8":
+        return [rng.integers(-127, 128, size=(*shape, 2)).astype(np.int8)
+                for _ in range(k)]
+    return [(rng.normal(size=shape) + 1j * rng.normal(size=shape)
+             + (0.02 - 0.01j)).astype(np.complex64) for _ in range(k)]
+
+
+def history_err(a, b):
+    """(largest history difference, whether the int8 tails are equal)."""
+    if isinstance(a, dict):
+        mu = float((a["mu_prev"] - b["mu_prev"]).abs().max()) / max(
+            float(b["mu_prev"].abs().max()), 1e-30)
+        return mu, bool((a["tail"] == b["tail"]).all())
+    return float((a - b).abs().max()), True
+
+
+def per_block_volume(mesh, blocks):
+    return {k: v // blocks for k, v in mesh.volume.items()}
+
+
+def check_scale_counts(counts, expect, what):
+    """Every count of ``expect`` as given, every other count 0."""
+    bad = {k: (v, expect.get(k, 0)) for k, v in counts.items()
+           if v != expect.get(k, 0)}
+    if bad:
+        raise AssertionError(f"{what}: launches (got, expected) {bad}")
+
+
+def scale_fused_step(tag, case, ingest, mesh_tf, device, card):
+    """Scale-out check 1: the fused frame-sharded step on a mesh of shards
+    of the card over SCALE_BLOCKS chained blocks against the single-device
+    fused step, its launches (the single pass and its reduce or X kernel
+    once a shard a block, one epilogue a block, nothing else) and its
+    collective bytes against the model, then both steps' time per block
+    by events.  Returns (counts, record)."""
+    import torch
+    from fxtpu_torch.parallel.accounting import predicted_volume
+    from fxtpu_torch.ops.xengine import pack_delays
+    peng, one, mesh = scale_engines(case, ingest, mesh_tf, device)
+    n = mesh.size
+    if not (peng.kernel_active and peng.step.fused_kernel):
+        raise AssertionError(f"scale-out {tag}: not the kernel route")
+    int8 = ingest == "int8"
+    d = torch.as_tensor(pack_delays(
+        1e-7 * np.arange(case["nch"]), peng.cfg.frequency), device=device)
+    blocks = scale_blocks(case, ingest, SCALE_BLOCKS, seed=case["nch"])
+    reset_counts()
+    mesh.reset_volume()
+    ph, vis = peng.fresh_history(), []
+    for b in blocks:
+        v, ph = peng.step(peng.prepare_block(b), d, ph)
+        vis.append(v)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    volume = per_block_volume(mesh, SCALE_BLOCKS)
+    h1, err = one.fresh_history(), 0.0
+    for b, v in zip(blocks, vis):
+        v1, h1 = one.step(one.prepare_block(b), d, h1)
+        err = max(err, float((v - v1).abs().max() / v1.abs().max()))
+    herr, tail_equal = history_err(ph, h1)
+    wide = peng.x_stage == "global"
+    name = ("fx_parts_wide" if wide else "fx_parts") + ("_i8" if int8 else "")
+    expect = {name: n * SCALE_BLOCKS, "fx_finish": SCALE_BLOCKS,
+              ("fx_xstage" if wide else "fx_parts_reduce"): n * SCALE_BLOCKS}
+    check_scale_counts(counts, expect, f"scale-out {tag} {ingest} {mesh_tf}")
+    pred = predicted_volume(nch=case["nch"], nbl=len(peng.pairs),
+                            nbins=case["nbins"], num_samp=case["nsamp"],
+                            ntaps=case["ntaps"], mesh_time=mesh_tf[0],
+                            mesh_freq=mesh_tf[1], fused=True,
+                            int8_native=int8)
+    if not (err <= SCALE_TOL[ingest] and tail_equal
+            and herr <= (MU_TOL if int8 else HIST_TOL) and volume == pred):
+        raise AssertionError(
+            f"scale-out {tag} {ingest} {mesh_tf}: vis {err:.3g} of scale, "
+            f"history {herr:.3g}, tails equal {tail_equal}, bytes {volume} "
+            f"against the model {pred}")
+    iq_m, iq_1 = peng.prepare_block(blocks[0]), one.prepare_block(blocks[0])
+    h_m, h_1 = peng.fresh_history(), one.fresh_history()
+    times = cuda_times({"mesh": lambda: peng.step(iq_m, d, h_m),
+                        "single": lambda: one.step(iq_1, d, h_1)}, n=20,
+                       warm=3)
+    print(f"  [{card}] {tag} {ingest} mesh {mesh_tf} ({n} shards, "
+          f"{peng.x_stage} route): vis {err:.3g} of max|vis|, history "
+          f"{herr:.3g}; launches {counts}; bytes a block {volume}; "
+          f"{times['mesh']:.4f} ms a block against the single-device step's "
+          f"{times['single']:.4f} ms", flush=True)
+    return counts, {"shards": n, "route": peng.x_stage, "max_rel_err": err,
+                    "history_err": herr, "bytes_per_block": volume,
+                    "ms_per_block": times["mesh"],
+                    "single_ms_per_block": times["single"]}
+
+
+def scale_multi(device, card):
+    """Scale-out check 2: the block-parallel K = MULTI_K call on a 4-shard
+    mesh against MULTI_K single-device steps (MULTI_TOL of max|vis|,
+    history 1e-5), one K/n-block launch of the single pass, its reduce and
+    the epilogue a shard, the boundary bytes against the model, and the
+    time per block beside the single-device K-block call's."""
+    import torch
+    from fxtpu_torch.parallel.accounting import predicted_volume_blockdp
+    peng, one, mesh = scale_engines(FLAGSHIP, "complex64", (4, 1), device)
+    k = peng.dispatch_batch_for(MULTI_K)
+    if k != MULTI_K:
+        raise AssertionError(f"dispatch_batch_for({MULTI_K}) = {k}")
+    blocks = scale_blocks(FLAGSHIP, "complex64", k, seed=8)
+    d = torch.zeros((k, 2), device=device)
+    d[:, 1] = 2e-7
+    reset_counts()
+    mesh.reset_volume()
+    vis, ph = peng.multi_step(peng.prepare_batch(blocks), d,
+                              peng.fresh_history())
+    torch.cuda.synchronize()
+    counts = read_counts()
+    volume = dict(mesh.volume)
+    h1, err = one.fresh_history(), 0.0
+    for i, b in enumerate(blocks):
+        v1, h1 = one.step(one.prepare_block(b), d[i], h1)
+        err = max(err, float((vis[i] - v1).abs().max() / v1.abs().max()))
+    herr = float((ph - h1).abs().max())
+    check_scale_counts(counts, {"fx_parts": 4, "fx_parts_reduce": 4,
+                                "fx_finish": 4}, "scale-out K-block call")
+    pred = predicted_volume_blockdp(nch=2, nbins=FLAGSHIP["nbins"],
+                                    ntaps=FLAGSHIP["ntaps"], n_shards=4)
+    if not (err <= MULTI_TOL and herr <= 1e-5 and volume == pred):
+        raise AssertionError(f"scale-out K-block call: vis {err:.3g}, "
+                             f"history {herr:.3g}, bytes {volume} against "
+                             f"{pred}")
+    iq_m, iq_1 = peng.prepare_batch(blocks), one.prepare_batch(blocks)
+    h_m, h_1 = peng.fresh_history(), one.fresh_history()
+    times = cuda_times({"mesh": lambda: peng.multi_step(iq_m, d, h_m),
+                        "single": lambda: one.multi_step(iq_1, d, h_1)},
+                       n=10, warm=2)
+    print(f"  [{card}] K={k} block-parallel call on 4 shards: vis {err:.3g} "
+          f"of max|vis|, history {herr:.3g}; launches {counts}; bytes a "
+          f"call {volume}; {times['mesh'] / k:.4f} ms a block against the "
+          f"single-device K={k} call's {times['single'] / k:.4f} ms",
+          flush=True)
+    return counts, {"shards": 4, "k": k, "max_rel_err": err,
+                    "history_err": herr, "bytes_per_call": volume,
+                    "ms_per_block": times["mesh"] / k,
+                    "single_ms_per_block": times["single"] / k}
+
+
+def scale_plain(device, card):
+    """Scale-out check 3: the plain step with the corner turn on (2, 2)
+    against the plain single-device step (rtol 5e-4, atol 5e-7,
+    tests/test_sharded.py:67) over SCALE_BLOCKS chained blocks; no hand
+    kernel launches; the bytes against the model."""
+    import torch
+    from fxtpu_torch.parallel.accounting import predicted_volume
+    peng, one, mesh = scale_engines(FLAGSHIP, "complex64", (2, 2), device,
+                                    fused=False)
+    blocks = scale_blocks(FLAGSHIP, "complex64", SCALE_BLOCKS, seed=12)
+    d = torch.tensor([0.0, 3.3e-7], device=device)
+    reset_counts()
+    mesh.reset_volume()
+    ph, h1, worst = peng.fresh_history(), one.fresh_history(), 0.0
+    for b in blocks:
+        v, ph = peng.step(peng.prepare_block(b), d, ph)
+        v1, h1 = one.step(one.prepare_block(b), d, h1)
+        v, v1 = v.cpu().numpy(), v1.cpu().numpy()
+        np.testing.assert_allclose(v, v1, rtol=5e-4, atol=5e-7)
+        worst = max(worst, float(np.abs(v - v1).max() / np.abs(v1).max()))
+    torch.cuda.synchronize()
+    counts = read_counts()
+    volume = per_block_volume(mesh, SCALE_BLOCKS)
+    check_scale_counts(counts, {}, "scale-out plain step")
+    pred = predicted_volume(nch=2, nbl=1, nbins=FLAGSHIP["nbins"],
+                            num_samp=FLAGSHIP["nsamp"],
+                            ntaps=FLAGSHIP["ntaps"], mesh_time=2,
+                            mesh_freq=2, fused=False)
+    if volume != pred:
+        raise AssertionError(f"scale-out plain step: bytes {volume} against "
+                             f"{pred}")
+    print(f"  [{card}] plain step with the corner turn on (2, 2): within "
+          f"rtol 5e-4, atol 5e-7 ({worst:.3g} of max|vis|); bytes a block "
+          f"{volume}", flush=True)
+    return {"max_rel_err": worst, "bytes_per_block": volume}
+
+
+def scale_cli(tmp):
+    """Scale-out check 4: ``python -m fxtpu_torch --mesh_time 2
+    --mesh_freq 2 --device cuda`` (4 shards on the card) for CLI_S s: the
+    product's header is the single-device default run's, the calibration
+    recovers the delay, every block launches the single pass on the 4
+    shards and one epilogue; then the same at ``--blocks_per_dispatch 8``
+    (the stager's batches split over the shards on the card)."""
+    cor, out, counts = run_cli(tmp, "mesh22", "complex64",
+                               ["--mesh_time", "2", "--mesh_freq", "2"])
+    n, blocks = cor.engine.mesh.size, cor.blocks_processed
+    check_scale_counts(counts, {"fx_parts": n * blocks,
+                                "fx_parts_reduce": n * blocks,
+                                "fx_finish": blocks}, "scale-out CLI run")
+    check_products(cor, out, "mesh22")
+    with open(out) as fh, open(os.path.join(tmp, "vis_fx_parts.csv")) as ref:
+        if [fh.readline() for _ in range(2)] != [ref.readline()
+                                                 for _ in range(2)]:
+            raise AssertionError("the mesh run's header differs from the "
+                                 "single-device run's")
+    # the staged path on the mesh: the stager's m K-block calls launch the
+    # single pass, its reduce and the epilogue once a shard each; the t
+    # one-block calls (the calibrating block, the tail) the single pass and
+    # its reduce once a shard and one epilogue
+    cor, out, staged = run_cli(tmp, "mesh22_staged", "complex64",
+                               ["--mesh_time", "2", "--mesh_freq", "2",
+                                "--blocks_per_dispatch", str(MULTI_K)])
+    if cor.stager is None or cor.stager.stacked_batches < 1:
+        raise AssertionError("the staged mesh run made no K-block call")
+    m = cor.stager.stacked_batches
+    t = cor.blocks_processed - m * MULTI_K
+    check_scale_counts(staged, {"fx_parts": n * (m + t),
+                                "fx_parts_reduce": n * (m + t),
+                                "fx_finish": n * m + t},
+                       "scale-out staged CLI run")
+    check_products(cor, out, "mesh22_staged")
+    print(f"  mesh, staged: {m} calls of {MULTI_K} blocks, {t} of one",
+          flush=True)
+    return [counts, staged], {"shards": n, "blocks": blocks,
+                              "staged_calls": [m, t]}
+
+
+def scale_two_processes(tmp, device, card):
+    """Scale-out check 5: ``multihost.launch(2, "step")``, both processes'
+    4 shards on the card, gloo (chosen here, by argument), against the
+    single-process (4, 2) mesh step in this process on the same block
+    (rtol 2e-5, atol 2e-4); each worker's own launch counts checked (the
+    single pass and its reduce once a local shard, one epilogue), the
+    staged bytes printed."""
+    import torch
+    from fxtpu_torch.config import CorrelatorConfig
+    from fxtpu_torch.fx import FxEngine
+    from fxtpu_torch.parallel import make_correlator_mesh
+    from fxtpu_torch.parallel.multihost import launch, step_block
+    nbins, nsamp = FLAGSHIP["nbins"], FLAGSHIP["nsamp"]
+    out = os.path.join(tmp, "mh_step.npz")
+    t0 = time.perf_counter()
+    results = launch(2, "step", ["--out", out, "--nbins", str(nbins),
+                                 "--num_samp", str(nsamp), "--fused"],
+                     timeout=300, backend="gloo", device="cuda")
+    wall = time.perf_counter() - t0
+    # every process's step: the single pass and its reduce once on each of
+    # its shards, one epilogue, nothing else, on the kernel route
+    worker_launches = []
+    for pid, r in enumerate(results):
+        print("    " + r.stdout.strip().splitlines()[-1], flush=True)
+        line = next((json.loads(l) for l in r.stdout.splitlines()
+                     if l.startswith('{"process"')), None)
+        if line is None or line["process"] != pid:
+            raise AssertionError(f"worker {pid} printed no launch counts")
+        k = line["local_shards"]
+        expect = {"fx_fused_parts": k, "parts_reduce": k, "fx_finish": 1,
+                  "fir_rows": 0}
+        if not line["kernel_active"] or line["launches"] != expect:
+            raise AssertionError(
+                f"two processes: worker {pid}'s launches {line['launches']}"
+                f" (kernel route {line['kernel_active']}), expected {expect}")
+        worker_launches.append(line["launches"])
+    got = np.load(out)
+    cfg = CorrelatorConfig(mode="SPECTRUM", nchan=2, ntaps=4, nbins=nbins,
+                           num_samp=nsamp, clamp_num_samp=False, fused=True,
+                           device="cuda")
+    eng = FxEngine(cfg, mesh=make_correlator_mesh(4, 2, [device] * 8))
+    vis, hist = eng.step(eng.prepare_block(step_block(nsamp)),
+                         torch.tensor([0.0, 1.25e-6], device=device),
+                         eng.fresh_history())
+    np.testing.assert_allclose(got["vis"], vis.cpu().numpy(), rtol=2e-5,
+                               atol=2e-4)
+    np.testing.assert_allclose(got["hist"], hist.cpu().numpy(), rtol=1e-6,
+                               atol=1e-6)
+    err = float(np.abs(got["vis"] - vis.cpu().numpy()).max()
+                / np.abs(vis.cpu().numpy()).max())
+    print(f"  [{card}] two processes (gloo, 4 shards each on the card): "
+          f"vis {err:.3g} of max|vis| from the one-process mesh; staged "
+          f"through pinned host memory {int(got['staged_bytes'])} bytes "
+          f"(process 0); each worker's launches {worker_launches[0]}; "
+          f"launch and run {wall:.1f} s", flush=True)
+    return {"max_rel_err": err, "staged_bytes": int(got["staged_bytes"]),
+            "seconds": wall, "worker_launches": worker_launches}
+
+
+def run_scaleout(tmp, device, card):
+    """The scale-out phase: checks 1-5 (the accounting, check 6, inside 1
+    to 3).  Returns (the launch counts of its kernel runs, the record)."""
+    counts, record = [], {"fused_step": {}}
+    for tag, case, ingest in SCALE_CASES:
+        for mesh_tf in SCALE_MESHES:
+            c, rec = scale_fused_step(tag, case, ingest, mesh_tf, device,
+                                      card)
+            counts.append(c)
+            record["fused_step"][f"{tag}_{ingest}_{mesh_tf[0]}x{mesh_tf[1]}"] = rec
+    c, record["multi"] = scale_multi(device, card)
+    counts.append(c)
+    record["plain_step"] = scale_plain(device, card)
+    c, record["cli"] = scale_cli(tmp)
+    counts += c
+    record["two_processes"] = scale_two_processes(tmp, device, card)
+    return counts, record
+
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3406,6 +3764,10 @@ def main() -> int:
             for k in (MULTI_K, 1):
                 pipe[f"{ingest}_k{k}"] = run_pipeline(tmp, rec, ingest, k)
                 main_counts.append(pipe[f"{ingest}_k{k}"]["launches"])
+        phase("phase 3: scale-out (fxtpu_torch.parallel: meshes of shards "
+              "on the card, two processes)")
+        scale_counts, scaleout = run_scaleout(tmp, device, card)
+        main_counts += scale_counts
     # the single-pass entries' launches on the main path, both FIR modes
     for name in ("fx_parts", "fx_parts_i8", "fx_parts_wide",
                  "fx_parts_wide_i8"):
@@ -3964,6 +4326,9 @@ def main() -> int:
     for entry in kernels:
         if entry["name"] in bins:
             entry["bin_counts"] = bins[entry["name"]]
+        if entry["name"] == "fx_parts":
+            # the scale-out phase: each shard's single pass is this entry
+            entry["scaleout"] = scaleout
         if entry["name"] == "fx_finish":
             entry["k8_r3072_max_rel_err_vs_steps"] = k_blocks_err
             entry["k8_deep_max_rel_err_vs_steps"] = k_blocks_deep_err

@@ -11,9 +11,13 @@ buffers, the copy on its own CUDA stream).  ``--snapshot_every N``
 writes the streaming state every N blocks to ``<output>.state.npz``, in
 ``fxtpu``'s snapshot format, and ``--resume_from FILE`` continues from
 such a snapshot, this package's or ``fxtpu``'s (replay and synthetic
-sources).  Flags of options not ported yet (mesh,
-multi-process) are accepted and raise ``NotImplementedError`` naming their
-ROADMAP.md item.
+sources).  ``--mesh_time T --mesh_freq F`` shards the step over a T x F
+mesh of ``--local_devices`` shards a process on the device
+(``fxtpu_torch.parallel``); ``--num_processes N --process_id i
+--coordinator host:port`` runs process i of N (the same command once per
+process; ``--backend`` gloo or nccl), each feeding the sample span its
+shards own, process 0 writing the products; without a mesh flag their
+mesh is every shard, ``freq`` 2 where their count is even.
 """
 
 from __future__ import annotations
@@ -122,8 +126,13 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--coordinator", default="127.0.0.1:9731", type=str,
                         help="Multi-host: coordinator address host:port.")
     parser.add_argument("--local_devices", default=4, type=int,
-                        help="Multi-host on CPU: virtual devices per "
-                             "process.")
+                        help="Mesh shards per process (on --device; "
+                             "several may share one card or the CPU).")
+    parser.add_argument("--backend", default="gloo",
+                        choices=["gloo", "nccl"],
+                        help="torch.distributed backend of a multi-process "
+                             "run: nccl where every process owns its own "
+                             "card, gloo otherwise.")
     # --- the port's device (takes the place of fxtpu's --platform) -------
     parser.add_argument("--device", default="cuda",
                         choices=["cuda", "cpu"],
@@ -133,13 +142,28 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
+def _run(cfg: CorrelatorConfig, args):
+    """Build the mesh the flags ask for (None for one device) and run the
+    Correlator to its end."""
+    mesh = None
+    if args.num_processes > 1 or cfg.mesh_time * cfg.mesh_freq > 1:
+        from fxtpu_torch.parallel.mesh import all_shards, make_correlator_mesh
+        shards = all_shards(args.local_devices, args.device)
+        if cfg.mesh_time * cfg.mesh_freq > 1:
+            mesh = make_correlator_mesh(cfg.mesh_time, cfg.mesh_freq, shards)
+        else:
+            # the default multi-process mesh: every shard, freq=2 when even
+            f = 2 if len(shards) % 2 == 0 else 1
+            mesh = make_correlator_mesh(len(shards) // f, f, shards)
+
+    from fxtpu_torch.correlator import Correlator
+    cor = Correlator(config=cfg, mesh=mesh)
+    cor.run_state_machine()
+    return cor
+
+
 def main(argv=None):
     args = build_parser().parse_args(argv)
-
-    if args.num_processes > 1:
-        raise NotImplementedError(
-            f"--num_processes {args.num_processes}: multi-process runs are "
-            "not ported to fxtpu_torch yet (ROADMAP.md A.9, scale-out)")
 
     cfg = CorrelatorConfig(
         run_time=args.run_time,
@@ -171,9 +195,21 @@ def main(argv=None):
         device=args.device,
     )
 
-    from fxtpu_torch.correlator import Correlator
-    cor = Correlator(config=cfg)
-    cor.run_state_machine()
+    if args.num_processes > 1:
+        # join the other processes before building the mesh; every
+        # process runs this same command with its own --process_id
+        from fxtpu_torch.parallel.mesh import init_distributed
+        init_distributed(args.coordinator, args.num_processes,
+                         args.process_id, backend=args.backend)
+    try:
+        cor = _run(cfg, args)
+    finally:
+        if args.num_processes > 1:
+            import torch.distributed as dist
+            dist.destroy_process_group()
+
+    if not cor._is_primary:
+        return cor  # only process 0 holds products to post-process
 
     # Reload our own CSV and post-process (effex.py:784-807).
     if cor.writer is not None:

@@ -107,9 +107,9 @@ class CorrelatorConfig:
     # --- dispatch batching ---------------------------------------------------
     # Blocks correlated per device call.  1 is the reference's per-block
     # dispatch; K > 1 stages K blocks at a time (runtime/stager.py) for
-    # one FxEngine.multi_step call.  The mesh knobs above are kept for
-    # field parity with fxtpu.config and raise NotImplementedError naming
-    # their ROADMAP.md item.
+    # one FxEngine.multi_step call (on a mesh a multiple of its shards).
+    # The mesh knobs above are what the CLI builds its mesh from; the
+    # Correlator shards over the mesh it is handed (fxtpu_torch.parallel).
     blocks_per_dispatch: int = 1
 
     # --- long-integration / durability (SURVEY.md §5.4; none in reference) --

@@ -1,6 +1,6 @@
 """The Correlator: state machine, orchestration, and the host hot loop.
 
-Counterpart of ``fxtpu.correlator`` for one device.  Behavioural
+Counterpart of ``fxtpu.correlator``.  Behavioural
 contract from the reference ``Correlator`` (``effex/effex.py:23-696``):
 
   * five states with guarded transitions and :class:`StateTransitionError`
@@ -27,9 +27,11 @@ format: ``runtime.checkpoint``), and ``resume_from`` restores it before
 the run, so an integration survives a restart; each package resumes the
 other's snapshots.  A resumed run keeps the snapshot's delays and
 starts in RUN with ``calibrate_on_start=False``; with it set (the
-default) it calibrates its first block, as ``fxtpu``'s does.  Options of
-``fxtpu`` that are not ported yet raise ``NotImplementedError`` naming
-the ROADMAP.md item that ports them.
+default) it calibrates its first block, as ``fxtpu``'s does.  With a
+``mesh`` (:mod:`fxtpu_torch.parallel`) the step is sharded over its
+shards; under several processes each process feeds only the sample span
+its shards own (``sample_span``) and only process 0 (``_is_primary``)
+writes products.
 """
 
 from __future__ import annotations
@@ -85,23 +87,11 @@ _ALLOWED = {
 }
 
 
-def reject_unported(cfg: CorrelatorConfig):
-    """Raise NotImplementedError for the options of ``fxtpu`` this port
-    does not carry yet, naming the ROADMAP.md item that ports each."""
-    checks = [
-        (cfg.mesh_time * cfg.mesh_freq > 1,
-         f"a device mesh (mesh_time={cfg.mesh_time}, mesh_freq="
-         f"{cfg.mesh_freq})", "A.9, scale-out"),
-    ]
-    for bad, what, item in checks:
-        if bad:
-            raise NotImplementedError(
-                f"{what} is not ported to fxtpu_torch yet (ROADMAP.md "
-                f"{item})")
-
-
 class Correlator:
-    """N-channel streaming FX correlator on one torch device.
+    """N-channel streaming FX correlator on one torch device, or sharded
+    over a :class:`~fxtpu_torch.parallel.mesh.CorrelatorMesh` (``mesh``;
+    the config's ``mesh_time`` / ``mesh_freq`` are what the CLI builds it
+    from, as in ``fxtpu``).
 
     Accepts either a :class:`~fxtpu_torch.config.CorrelatorConfig` or the
     reference's keyword arguments (``effex.py:45-53``)."""
@@ -111,12 +101,11 @@ class Correlator:
     StateTransitionError = StateTransitionError  # reference exposes it nested
 
     def __init__(self, config: Optional[CorrelatorConfig] = None,
-                 source: Optional[Source] = None, **kwargs):
+                 source: Optional[Source] = None, mesh=None, **kwargs):
         if config is None:
             config = CorrelatorConfig(**kwargs)
         elif kwargs:
             config = dataclasses.replace(config, **kwargs)
-        reject_unported(config)
         self.config = config
 
         # --- logging (effex.py:55-72) ----------------------------------
@@ -157,13 +146,26 @@ class Correlator:
         self.mode = config.mode
         self.start_time = -1.0
 
+        # --- multi-process: each process feeds only the sample span its
+        # mesh shards own (fxtpu_torch.parallel.ingest) -------------------
+        self._is_primary = mesh is None or mesh.process_index == 0
+        self.sample_span = None
+        if mesh is not None and mesh.process_count > 1:
+            from fxtpu_torch.parallel.ingest import local_sample_span
+            self.sample_span = local_sample_span(mesh, config.num_samp,
+                                                 config.nbins)
+            self.logger.info(
+                "multi-process run: process %d/%d feeds samples [%d, %d) "
+                "of each block", mesh.process_index, mesh.process_count,
+                *self.sample_span)
+
         # --- host buffering (effex.py:105-110): native C++ ring when the
         # shared library is built, Python fallback otherwise -------------
         self._make_rings()
         self.feeders: list = []
 
         # --- compute engine (F+X, device side) ---------------------------
-        self.engine = FxEngine(config)
+        self.engine = FxEngine(config, mesh=mesh)
         self.history = self.engine.fresh_history()
         self.stager: Optional[DeviceStager] = None
         if self._dispatch_batch < config.blocks_per_dispatch:
@@ -203,11 +205,13 @@ class Correlator:
 
     def _make_rings(self):
         cfg = self.config
+        local = (cfg.num_samp if self.sample_span is None
+                 else self.sample_span[1] - self.sample_span[0])
         # int8 ingest keeps the rings 8-bit: (I, Q) byte pairs
         if cfg.ingest_dtype == "int8":
-            shape, dtype = (cfg.num_samp, 2), np.int8
+            shape, dtype = (local, 2), np.int8
         else:
-            shape, dtype = (cfg.num_samp,), np.complex64
+            shape, dtype = (local,), np.complex64
         self.bufs = [make_ring(cfg.buffer_chunks, shape, dtype=dtype)
                      for _ in range(cfg.nchan)]
         self.aligner = BlockAligner(self.bufs)
@@ -347,7 +351,7 @@ class Correlator:
                 "staged batches are framed by the OLD engine's "
                 "prepare_batch and would reach the new step mis-framed")
         self.config = dataclasses.replace(self.config, **changes)
-        self.engine = FxEngine(self.config)
+        self.engine = FxEngine(self.config, mesh=self.engine.mesh)
         self.history = self.engine.fresh_history()
         self._delays_dev = None
         self._accumulator = None
@@ -355,6 +359,12 @@ class Correlator:
         self.test_delay_sweep_step = self.config.test_delay_sweep_step
         self.test_delay_offset = self.config.test_delay_offset
         if "num_samp" in changes:
+            if self.sample_span is not None:
+                # the rings hold this process's span of each block: the
+                # span of the new block length
+                from fxtpu_torch.parallel.ingest import local_sample_span
+                self.sample_span = local_sample_span(
+                    self.engine.mesh, self.config.num_samp, self.config.nbins)
             self._make_rings()
         self.logger.debug("engine rebuilt after property mutation: %s",
                           changes)
@@ -500,8 +510,11 @@ class Correlator:
     # ------------------------------------------------------------------
     def _startup_task(self):
         """Write the CSV header and start feeder/writer/keyboard threads
-        (``effex.py:420-474``)."""
-        products.write_metadata(self.output_file, self.config)
+        (``effex.py:420-474``).  In a multi-process run only process 0
+        writes products; every process feeds its own sample span and runs
+        the same collectives in step."""
+        if self._is_primary:
+            products.write_metadata(self.output_file, self.config)
 
         self.start_time = time.time() + self.config.startup_duration
         self.logger.info(
@@ -513,7 +526,8 @@ class Correlator:
         # a 1-channel source with its own ring: the zero-copy producer's
         # condition); otherwise one multi-channel feeder.
         splits = (self.source.split_channels()
-                  if self.config.channel_feeders else None)
+                  if self.config.channel_feeders and self.sample_span is None
+                  else None)
         if splits is not None:
             self.feeders = [
                 Feeder(src, [buf], self.num_samp,
@@ -526,14 +540,17 @@ class Correlator:
             self.feeder = Feeder(self.source, self.bufs, self.num_samp,
                                  start_time=self.start_time,
                                  run_time=self.run_time,
-                                 exc_queue=self.exc_queue).start()
+                                 exc_queue=self.exc_queue,
+                                 sample_span=self.sample_span).start()
             self.logger.debug("Started feeder thread.")
 
-        self.writer = products.VisibilityWriter(
-            self.output_file, self.vis_out,
-            active_fn=lambda: self.state in ("STARTUP", "RUN", "CALIBRATE"),
-        ).start()
-        self.logger.debug("Started output buffering thread.")
+        if self._is_primary:
+            self.writer = products.VisibilityWriter(
+                self.output_file, self.vis_out,
+                active_fn=lambda: self.state in ("STARTUP", "RUN",
+                                                 "CALIBRATE"),
+            ).start()
+            self.logger.debug("Started output buffering thread.")
 
         if self.config.keyboard_control and sys.stdin.isatty():
             threading.Thread(target=self._get_kbd, args=(self.kbd_queue,),
@@ -678,9 +695,14 @@ class Correlator:
     def _first_staged_block(self, batch) -> torch.Tensor:
         """Block 0 of a staged batch in single-block input form: the
         second axis of the fused route's merged layout, the first of the
-        plain route's stack."""
+        plain route's stack; on a mesh the fused route's block 0 is whole
+        on shard 0, the plain route's spread over every shard."""
         if not batch.stacked:
             return batch.iq
+        if isinstance(batch.iq, dict):
+            if self.engine.batch_merged:
+                return batch.iq[0][:, 0]
+            return {i: x[0] for i, x in batch.iq.items()}
         if self.engine.batch_merged:
             return batch.iq[:, 0]
         return batch.iq[0]
@@ -700,13 +722,15 @@ class Correlator:
         Returns True when a row was emitted."""
         m = self.config.integration_blocks
         if m <= 1:
-            self.vis_out.put(vis)
+            if self._is_primary:
+                self.vis_out.put(vis)
             return True
         self._accumulator = (vis if self._accumulator is None
                              else self._accumulator + vis)
         self._accumulated += 1
         if self._accumulated >= m:
-            self.vis_out.put(self._accumulator / m)
+            if self._is_primary:
+                self.vis_out.put(self._accumulator / m)
             self._accumulator = None
             self._accumulated = 0
             return True

@@ -37,6 +37,9 @@ per engine (``_resolve_fused``, like ``fxtpu.fx._resolve_fused``):
 scalars (CONTINUUM/TEST); ``delays`` is ``[nch]`` seconds or the packed
 ``[nch, 2]`` form of :func:`~fxtpu_torch.ops.xengine.pack_delays`.
 
+With a mesh (``FxEngine(cfg, mesh=...)``) the step and the K-block call
+are ``parallel.sharded``'s over the mesh's shards, on the same routes.
+
 ``multi_step(iq, delays, history) -> (vis [K, ...], new_history)`` takes
 K blocks per call (``fxtpu.fx.make_fx_multi_step``), as
 :meth:`FxEngine.prepare_batch` stages them, with per-block delays ``[K,
@@ -306,9 +309,16 @@ class FxEngine:
     shared-memory route where the spectra of all channels fit, the wide
     route elsewhere: ``fx_fused.x_route``)."""
 
-    def __init__(self, cfg: CorrelatorConfig, fused=None):
+    def __init__(self, cfg: CorrelatorConfig, fused=None, mesh=None):
         self.cfg = cfg
-        self.device = torch.device(cfg.device)
+        #: The :class:`~fxtpu_torch.parallel.mesh.CorrelatorMesh` the step
+        #: is sharded over (None: one device); then :attr:`device` is the
+        #: mesh's home device, where history, delays and visibilities live.
+        self.mesh = mesh
+        self.device = torch.device(cfg.device) if mesh is None else mesh.home
+        if self.device.type != torch.device(cfg.device).type:
+            raise ValueError(f"the mesh's shards are on {self.device}, the "
+                             f"config asks for device {cfg.device!r}")
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
                 f"device {cfg.device!r} requested but torch.cuda."
@@ -320,35 +330,58 @@ class FxEngine:
         self.window2d = self.window.reshape(cfg.ntaps, cfg.nbins)
         self.pairs = baseline_pairs(cfg.nchan, cfg.include_autos)
         svd = _svd_mode(self.window2d, cfg.nbins, self.device)
-        self._fused = _resolve_fused(
-            self.fused, self.device, cfg.nbins, cfg.ntaps, cfg.nchan,
-            int8=self._int8, s_rows=cfg.num_samp // cfg.nbins,
-            rank=0 if svd is None else svd[0].shape[1])
-        self._svd = svd if self._fused else None
-        self._x_stage = (x_route(cfg.nbins, cfg.ntaps, cfg.nchan,
-                                 self._rank())
-                         if self._fused else None)
         self._pinned = _PinnedBlocks()
-        self.step = make_fx_step(
-            mode=cfg.mode, nbins=cfg.nbins, window2d=self.window2d,
-            pairs=self.pairs, bandwidth=cfg.bandwidth,
-            frequency=cfg.frequency, device=self.device,
-            fused=self._fused, quant_step=cfg.quant_step, svd=self._svd)
-        self.calibrate = make_calibrator(bandwidth=cfg.bandwidth)
-        self._multi_step = None
-
-    @property
-    def multi_step(self):
-        """The K-blocks-per-call step (:func:`make_fx_multi_step` on this
-        engine's route and FIR mode), built at first use: feed it what
-        :meth:`prepare_batch` returns."""
-        if self._multi_step is None:
-            cfg = self.cfg
-            self._multi_step = make_fx_multi_step(
+        if mesh is None:
+            self._fused = _resolve_fused(
+                self.fused, self.device, cfg.nbins, cfg.ntaps, cfg.nchan,
+                int8=self._int8, s_rows=cfg.num_samp // cfg.nbins,
+                rank=0 if svd is None else svd[0].shape[1])
+            self._svd = svd if self._fused else None
+            self.step = make_fx_step(
                 mode=cfg.mode, nbins=cfg.nbins, window2d=self.window2d,
                 pairs=self.pairs, bandwidth=cfg.bandwidth,
                 frequency=cfg.frequency, device=self.device,
                 fused=self._fused, quant_step=cfg.quant_step, svd=self._svd)
+        else:
+            from fxtpu_torch.parallel.sharded import make_sharded_fx_step
+            self.step = make_sharded_fx_step(
+                **self._sharded_kw(), fused=self.fused)
+            self._fused = self.step.fused_kernel
+            self._svd = svd if self._fused else None
+        self._x_stage = (x_route(cfg.nbins, cfg.ntaps, cfg.nchan,
+                                 self._rank())
+                         if self._fused else None)
+        self.calibrate = make_calibrator(bandwidth=cfg.bandwidth)
+        self._multi_step = None
+
+    def _sharded_kw(self) -> dict:
+        cfg = self.cfg
+        return dict(mode=cfg.mode, nbins=cfg.nbins, window2d=self.window2d,
+                    pairs=self.pairs, bandwidth=cfg.bandwidth,
+                    frequency=cfg.frequency, mesh=self.mesh,
+                    num_samp=cfg.num_samp, quant_step=cfg.quant_step,
+                    int8_ingest=self._int8)
+
+    @property
+    def multi_step(self):
+        """The K-blocks-per-call step (:func:`make_fx_multi_step` on this
+        engine's route and FIR mode; with a mesh ``parallel.sharded.
+        make_sharded_fx_multi_step``), built at first use: feed it what
+        :meth:`prepare_batch` returns."""
+        if self._multi_step is None:
+            cfg = self.cfg
+            if self.mesh is not None:
+                from fxtpu_torch.parallel.sharded import (
+                    make_sharded_fx_multi_step)
+                self._multi_step = make_sharded_fx_multi_step(
+                    **self._sharded_kw(), fused=self._fused)
+            else:
+                self._multi_step = make_fx_multi_step(
+                    mode=cfg.mode, nbins=cfg.nbins, window2d=self.window2d,
+                    pairs=self.pairs, bandwidth=cfg.bandwidth,
+                    frequency=cfg.frequency, device=self.device,
+                    fused=self._fused, quant_step=cfg.quant_step,
+                    svd=self._svd)
         return self._multi_step
 
     def _rank(self) -> int:
@@ -364,12 +397,17 @@ class FxEngine:
 
     def dispatch_batch_for(self, requested: int) -> int:
         """The largest K <= ``requested`` blocks per :attr:`multi_step`
-        call this engine takes (``fxtpu.fx.FxEngine.dispatch_batch_for``
-        without a mesh), 1 for ``requested <= 1``: any K on the plain
-        route; on the fused route at most what one kernel launch takes at
-        this shape on its X stage (``ops.fx_fused.max_blocks_parts``: the
-        partials, or on the wide route the spectra scratch)."""
+        call this engine takes (``fxtpu.fx.FxEngine.dispatch_batch_for``),
+        1 for ``requested <= 1``: any K on the plain route; on the fused
+        route at most what one kernel launch takes at this shape on its X
+        stage (``ops.fx_fused.max_blocks_parts``: the partials, or on the
+        wide route the spectra scratch).  With a mesh: 1 under several
+        processes (their feeders read per-block sample spans); on the
+        fused route a multiple of the shard count (each shard takes K/n
+        whole blocks), 1 below one block a shard."""
         if requested <= 1:
+            return 1
+        if self.mesh is not None and self.mesh.process_count > 1:
             return 1
         if not self._fused:
             return requested
@@ -377,7 +415,11 @@ class FxEngine:
         most = max_blocks_parts(cfg.num_samp // cfg.nbins, cfg.nbins,
                                 cfg.nchan, len(self.pairs), ntaps=cfg.ntaps,
                                 rank=self._rank(), x_stage=self._x_stage)
-        return max(1, min(requested, most))
+        if self.mesh is None:
+            return max(1, min(requested, most))
+        n = self.mesh.size
+        k = min(requested, most * n) // n * n
+        return k if k > 1 else 1
 
     @property
     def fused_active(self) -> bool:
@@ -457,12 +499,28 @@ class FxEngine:
         engine the block goes through a pooled pinned buffer and one
         ``non_blocking`` copy on the current stream (raising if the
         memory cannot be pinned), so the host does not wait for the card;
-        work queued on that stream afterwards sees the whole block."""
+        work queued on that stream afterwards sees the whole block.
+
+        With a mesh the block is placed on its shards (``parallel.ingest``:
+        ``put_frames`` on the fused route, ``put_block`` on the plain one;
+        ``{shard: tensor}``), after one copy to the home device; under
+        several processes ``block`` is this process's sample span."""
         if self._int8 and np.iscomplexobj(block):
             block = quantize_c64(np.ascontiguousarray(block, np.complex64),
                                  self.cfg.quant_step)
         block = np.ascontiguousarray(
             block, np.int8 if block.dtype == np.int8 else np.complex64)
+        if self.mesh is not None:
+            from fxtpu_torch.parallel.ingest import put_block, put_frames
+            stage = (self._pinned.stage if self.device.type == "cuda"
+                     else None)
+            total = (self.cfg.num_samp if self.mesh.process_count > 1
+                     else None)
+            if self._fused:
+                return put_frames(block, self.mesh, self.cfg.nbins, total,
+                                  stage=stage)
+            return put_block(block, self.mesh, total, nbins=self.cfg.nbins,
+                             stage=stage)
         if self._fused:
             nch, nbins = block.shape[0], self.cfg.nbins
             s = block.shape[1] // nbins
@@ -506,7 +564,10 @@ class FxEngine:
         ``non_blocking`` copy on the current stream: the caller keeps
         ``host`` untouched until that copy has completed (``runtime.
         stager`` records an event after it).  On the CPU the buffer is
-        the batch."""
+        the batch.  With a mesh the batch is then split on the home
+        device, ``{shard: tensor}``: on the fused route K/n whole blocks a
+        shard (K a multiple of the shard count), on the plain route the
+        sample axis (``parallel.ingest.split``)."""
         blocks = list(blocks)
         if host is None:
             host = self.batch_host_buffer(len(blocks))
@@ -523,22 +584,63 @@ class FxEngine:
                 np.copyto(out[:, j], block)
             else:
                 np.copyto(out[j], block)
-        if self.device.type != "cuda":
+        if self.device.type == "cuda":
+            host = host.to(self.device, non_blocking=True)
+        if self.mesh is None:
             return host
-        return host.to(self.device, non_blocking=True)
+        return self._split_batch(host, len(blocks))
+
+    def _split_batch(self, x: torch.Tensor, k: int) -> dict:
+        """A whole batch on the home device -> its shards."""
+        from fxtpu_torch.parallel.ingest import block_sharding, split
+        mesh = self.mesh
+        if mesh.process_count > 1:
+            raise ValueError("a K-block batch needs the whole blocks in one "
+                             "process (dispatch_batch_for is 1 under "
+                             "several processes)")
+        if not self._fused:
+            spans = block_sharding(mesh, self.cfg.num_samp, self.cfg.nbins)
+            return split(mesh, x, 2, spans)
+        n = mesh.size
+        if k % n:
+            raise ValueError(
+                f"the sharded multi_step needs K % {n} == 0, got K={k} "
+                "(FxEngine.dispatch_batch_for rounds the batch down)")
+        per = k // n
+        return split(mesh, x, 1, [(i * per, (i + 1) * per) for i in range(n)])
 
     def calibrate_block(self, iq: torch.Tensor,
                         ncal: Optional[int] = None) -> torch.Tensor:
         """Delay calibration from a prepared single-block input: 8-bit
         samples become complex64 with no scale (the estimator is
         scale-invariant), framed rows are flattened back to a sample axis
-        and the leading ``ncal`` samples feed the calibrator."""
+        and the leading ``ncal`` samples feed the calibrator.  A mesh
+        engine's block is first gathered from the shards that hold those
+        samples (from other processes too), so every process calibrates
+        on the same samples and gets the same delays."""
+        if isinstance(iq, dict):
+            iq = self._gather_leading(iq, ncal)
         if iq.dtype == torch.int8:
             iq = torch.view_as_complex(iq.float())
         iq = iq.reshape(iq.shape[0], -1)
         if ncal:
             iq = iq[:, : min(ncal, iq.shape[-1])]
         return self.calibrate(iq)
+
+    def _gather_leading(self, iq: dict, ncal: Optional[int]) -> torch.Tensor:
+        """The leading samples of a sharded block, whole shards up to the
+        first that holds sample ``ncal``, each shard's whole rows only
+        (every shard's piece then has one shape)."""
+        from fxtpu_torch.parallel.collectives import gather
+        from fxtpu_torch.parallel.mesh import block_sharding
+        cfg = self.cfg
+        spans = block_sharding(self.mesh, cfg.num_samp, cfg.nbins)
+        per = spans[0][1]
+        tail = (2,) if self._int8 else ()
+        rows = {i: x.reshape(x.shape[0], -1, *tail)[:, :per]
+                for i, x in iq.items()}
+        need = len(spans) if not ncal else min(len(spans), -(-ncal // per))
+        return torch.cat(gather(self.mesh, rows, range(need)), dim=1)
 
     def example_inputs(self, seed: int = 0):
         """Representative ``(iq, delays, history)`` step inputs, made with

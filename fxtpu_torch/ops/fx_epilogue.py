@@ -42,7 +42,8 @@ from fxtpu_torch.ops.fx_fused import (_on_card, fx_fused_parts,
                                       fx_fused_parts_i8)
 from fxtpu_torch.ops.fx_xstage import XStagePlan, fx_xstage, xstage_plan
 from fxtpu_torch.ops.xengine import (continuum_reduce, rf_freqs,
-                                     rotation_phase, split_delays)
+                                     rotation_phase, split_delays,
+                                     unit_phasor)
 
 __all__ = ["FinishTables", "finish", "fx_finish", "fx_finish_reference",
            "fx_fused_step", "check_step", "step_buffers", "step_args",
@@ -79,7 +80,7 @@ def finish(xp: torch.Tensor, delays: torch.Tensor, tables: FinishTables,
                                frac[..., tables.p] - frac[..., tables.q])
     else:
         phase = rotation_phase(tables.frf, dd, None)
-    rot = torch.complex(torch.cos(phase), torch.sin(phase))
+    rot = unit_phasor(phase)
     vis = torch.fft.fftshift(xp * rot / n_frames, dim=-1)
     return continuum_reduce(vis, bandwidth) if continuum else vis
 

@@ -19,8 +19,8 @@ import numpy as np
 import torch
 
 __all__ = [
-    "baseline_pairs", "pack_delays", "rf_freqs", "fstc_rotate",
-    "xcorr_baselines", "continuum_reduce",
+    "baseline_pairs", "pack_delays", "rf_freqs", "unit_phasor",
+    "fstc_rotate", "xcorr_baselines", "continuum_reduce",
 ]
 
 
@@ -76,6 +76,24 @@ def rotation_phase(freqs: torch.Tensor, d: torch.Tensor, frac) -> torch.Tensor:
     return (2.0 * math.pi) * freqs * d[..., None]
 
 
+def unit_phasor(phase: torch.Tensor) -> torch.Tensor:
+    """``exp(j phase)`` as complex64 on ``phase``'s device.
+
+    On the CPU the cosine and sine are taken by numpy in float64 on the
+    calling thread and rounded once to float32.  torch's CPU ``cos`` of a
+    large float32 tensor splits it over the intra-op threads, and on its
+    first call in a process under load it returned one contiguous chunk
+    (40,960 of 147,456 elements, at 8 channels with autos and 4096 bins)
+    with 1.5e-4 absolute error, from the same input that gave 3.6e-8 on
+    every later call: the 8-channel engine test's unsteady failures
+    (``tests/test_torch_fx_wide.py``)."""
+    if phase.device.type == "cpu":
+        p = phase.detach().numpy().astype(np.float64)
+        return torch.complex(torch.from_numpy(np.cos(p).astype(np.float32)),
+                             torch.from_numpy(np.sin(p).astype(np.float32)))
+    return torch.complex(torch.cos(phase), torch.sin(phase))
+
+
 def fstc_rotate(spectra: torch.Tensor, delays, bandwidth: float,
                 frequency: float) -> torch.Tensor:
     """Apply the per-channel FSTC phase ramp ``exp(+2 pi j f_RF d_c)``.
@@ -87,8 +105,7 @@ def fstc_rotate(spectra: torch.Tensor, delays, bandwidth: float,
     d, frac = split_delays(delays, 1)
     freqs = rf_freqs(spectra.shape[-1], bandwidth, frequency,
                      frac is not None, spectra.device)
-    phase = rotation_phase(freqs, d, frac)               # [nch, nbins]
-    rot = torch.complex(torch.cos(phase), torch.sin(phase))
+    rot = unit_phasor(rotation_phase(freqs, d, frac))    # [nch, nbins]
     return spectra * rot[:, None, :]
 
 

@@ -42,7 +42,8 @@ class Feeder:
     def __init__(self, source: Source, bufs: List[RingBuffer], num_samp: int,
                  start_time: float = 0.0, run_time: float = float("inf"),
                  exc_queue: Optional[Queue] = None,
-                 put_timeout: float = 30.0):
+                 put_timeout: float = 30.0,
+                 sample_span: Optional[tuple] = None):
         if len(bufs) != source.nchan:
             raise ValueError("need one ring buffer per channel")
         self.source = source
@@ -52,6 +53,11 @@ class Feeder:
         self.run_time = run_time
         self.exc_queue = exc_queue
         self.put_timeout = put_timeout
+        #: Multi-process: the [start, stop) span of each global block this
+        #: process's mesh shards own (fxtpu_torch.parallel.ingest
+        #: .local_sample_span); the feeder reads only that span, and the
+        #: rings hold local-span blocks.
+        self.sample_span = sample_span
         self.blocks_fed = 0
         # Per-block source stream-state log for checkpoint/resume: the
         # feeder reads AHEAD of the consumer (rings hold unprocessed
@@ -147,7 +153,7 @@ class Feeder:
             # ring slot (ReplaySource copies once; QuantizedSource
             # quantizes into the slot) — the per-channel parallel feeder
             # configuration the >=100 MS/s pipeline runs.
-            if (len(self.bufs) == 1
+            if (self.sample_span is None and len(self.bufs) == 1
                     and getattr(self.bufs[0], "can_reserve", False)
                     and hasattr(self.source, "read_block_into")
                     and getattr(self.source, "nchan", 0) == 1):
@@ -159,7 +165,11 @@ class Feeder:
                 return
             self._log_source_state(0)
             while not self._stop.is_set():
-                block = self.source.read_block(self.num_samp)
+                if self.sample_span is not None:
+                    block = self.source.read_block_span(self.num_samp,
+                                                        *self.sample_span)
+                else:
+                    block = self.source.read_block(self.num_samp)
                 if block is None:
                     logger.info("Source exhausted; feeder stopping.")
                     break

@@ -66,11 +66,15 @@ class Batch:
     def take(self) -> torch.Tensor:
         """``iq``, safe to use on the current stream: the stream waits for
         the copy and the allocator keeps ``iq`` until the stream's work
-        queued so far is done."""
+        queued so far is done (each shard's tensor of a mesh engine's
+        ``{shard: tensor}`` on its device's stream)."""
         if self.ready is not None:
-            stream = torch.cuda.current_stream(self.iq.device)
-            stream.wait_event(self.ready)
-            self.iq.record_stream(stream)
+            parts = (self.iq.values() if isinstance(self.iq, dict)
+                     else (self.iq,))
+            for t in parts:
+                stream = torch.cuda.current_stream(t.device)
+                stream.wait_event(self.ready)
+                t.record_stream(stream)
         return self.iq
 
 
@@ -117,6 +121,7 @@ class DeviceStager:
         self._turn = 0
         self.out: Queue = Queue(maxsize=depth)
         self.staged_blocks = 0
+        self.stacked_batches = 0   # K-block batches handed out by get()
         self.done = False  # end-of-stream sentinel observed by the consumer
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
@@ -152,6 +157,7 @@ class DeviceStager:
         if item is None:
             self.done = True
             return None
+        self.stacked_batches += item.stacked
         return item
 
     def _gather(self):

@@ -122,6 +122,23 @@ class ReplaySource(Source):
         self._pos += num_samp
         return np.ascontiguousarray(block)
 
+    def read_block_span(self, num_samp: int, start: int,
+                        stop: int) -> Optional[np.ndarray]:
+        """Random-access span read: only ``[start, stop)`` of the next
+        block is copied (each process of a multi-process run touches only
+        the samples its shards own) while the stream position still
+        advances by the full block."""
+        n = self._data.shape[1]
+        if self._pos + num_samp > n:
+            if not self.loop:
+                return None
+            self._pos = 0
+            if num_samp > n:
+                raise ValueError("block longer than recording")
+        block = self._data[:, self._pos + start: self._pos + stop]
+        self._pos += num_samp
+        return np.ascontiguousarray(block)
+
     def read_block_into(self, out: np.ndarray, num_samp: int) -> bool:
         """Zero-copy-producer read: copy the next block of a SINGLE-channel
         replay straight into ``out`` (a ring slot view, shape

@@ -225,9 +225,15 @@ def test_port_never_imports_jax():
 
 @pytest.mark.parametrize("kw", [dict(mesh_time=2), dict(mesh_freq=2)])
 def test_unported_options_raise(kw):
+    """The mesh is ported (ROADMAP A.9): the config's mesh knobs construct,
+    and as in fxtpu the Correlator shards only over a mesh it is handed
+    (the CLI builds one from them), which it keeps."""
+    from fxtpu_torch.parallel import make_correlator_mesh
     cfg = CorrelatorConfig(**SMALL, device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A."):
-        Correlator(config=cfg)
+    assert Correlator(config=cfg).engine.mesh is None
+    mesh = make_correlator_mesh(cfg.mesh_time, cfg.mesh_freq,
+                                [torch.device("cpu")] * 2)
+    assert Correlator(config=cfg, mesh=mesh).engine.mesh is mesh
 
 
 @pytest.mark.parametrize("kw", [
@@ -250,8 +256,11 @@ def test_checkpoint_options_accepted(tmp_path, kw):
 
 
 def test_unported_cli_flags_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A.9"):
-        cli_main(["--num_processes", "2", "--device", "cpu"])
+    """Multi-process runs are ported (ROADMAP A.9): a process id outside
+    the run raises before any rendezvous."""
+    with pytest.raises(ValueError, match="process_id 2"):
+        cli_main(["--num_processes", "2", "--process_id", "2",
+                  "--device", "cpu"])
 
 
 def test_illegal_transition_raises():

@@ -322,6 +322,53 @@ def test_wide_three_blocks_in_one_call_match_three_chained_calls(
 
 # --- the engine and the CLI at 8 channels -----------------------------------
 
+@pytest.mark.parametrize("entry", ["unit_phasor", "finish", "fstc_rotate"])
+def test_cpu_rotation_takes_its_trig_on_the_calling_thread(monkeypatch,
+                                                          entry):
+    """The delay rotation on the CPU at the 8-channel engine's shape (36
+    baselines with autos, 4096 bins): its cosine and sine come from numpy
+    in float64, rounded once, and never from torch's threaded CPU
+    ``cos``/``sin``, whose first call in a process under load returned a
+    chunk of the 8-channel engine test's rotation 1.5e-4 off (that test's
+    unsteady failures)."""
+    from fxtpu_torch.ops import xengine
+    from fxtpu_torch.ops.fx_epilogue import FinishTables, finish
+
+    def refused(*a, **k):
+        raise AssertionError("torch trig on the CPU")
+
+    nbins, bw, fc = 4096, 2.4e6, 1.42e9
+    pairs = baseline_pairs(NCH8, include_autos=True)
+    d = xengine.pack_delays(1e-7 * np.arange(NCH8), fc)
+    tables = FinishTables(pairs, nbins, bw, fc, "cpu")
+    dd = torch.from_numpy(d[pairs[:, 0], 0] - d[pairs[:, 1], 0])
+    frac = torch.from_numpy(d[pairs[:, 0], 1] - d[pairs[:, 1], 1])
+    phase = xengine.rotation_phase(tables.fbase, dd, frac)
+    want = np.exp(1j * phase.numpy().astype(np.float64))
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy((rng.normal(size=(len(pairs), nbins))
+                          + 1j * rng.normal(size=(len(pairs), nbins))
+                          ).astype(np.complex64))
+    monkeypatch.setattr(torch, "cos", refused)
+    monkeypatch.setattr(torch, "sin", refused)
+    if entry == "unit_phasor":
+        got, ref = xengine.unit_phasor(phase), want
+    elif entry == "finish":
+        got = finish(x, torch.from_numpy(d), tables, 1, bw, False)
+        ref = np.fft.fftshift(x.numpy() * want, axes=-1)
+    else:
+        spec = x[:NCH8, None]                        # [nch, 1, nbins]
+        got = xengine.fstc_rotate(spec, d, bw, fc)[:, 0]
+        freqs = xengine.rf_freqs(nbins, bw, fc, True, "cpu")
+        ph = xengine.rotation_phase(freqs, torch.from_numpy(d[:, 0]),
+                                    torch.from_numpy(d[:, 1]))
+        ref = spec[:, 0].numpy() * np.exp(1j * ph.numpy().astype(np.float64))
+    assert got.dtype == torch.complex64
+    # one rounding of the phasor, then float32 products
+    np.testing.assert_allclose(got.numpy(), ref, rtol=0,
+                               atol=2.5e-7 * np.abs(ref).max())
+
+
 def test_engine_nchan8_matches_fxtpu_engine():
     """fused=True, 8 channels with autos at 4096 bins, where the wide
     route is the engine's own choice, against fxtpu's fused engine over 3

@@ -79,6 +79,7 @@ def test_stager_full_batches_then_tail_singles():
     assert [(b.k, b.stacked, b.last_seq) for b in got] == [
         (3, True, 2), (3, True, 5), (1, False, 6)]
     assert st.staged_blocks == 7
+    assert st.stacked_batches == 2   # the K-block batches handed out
     assert got[0].take().shape == (3, 2, 4)
     np.testing.assert_array_equal(got[1].take()[:, 1, 0], [31.0, 41.0, 51.0])
     np.testing.assert_array_equal(got[2].take()[:, 0], [60.0, 61.0])
@@ -112,6 +113,7 @@ def test_staged_run_writes_the_rows_of_one_block_dispatch(tmp_path, fused,
     corK, dK = _run(tmp_path, "k", blocks_per_dispatch=4, **kw)
     assert cor1.stager is None and corK.stager is not None
     assert corK.stager.staged_blocks == corK.blocks_processed == 9
+    assert corK.stager.stacked_batches == 2
     assert corK.engine.fused_active == fused
     assert isinstance(corK.history, dict) == (fused and ingest == "int8")
     assert d1.shape == dK.shape == (9, SMALL["nbins"])
