@@ -223,6 +223,19 @@ K = 8 call are timed by events beside the single-device step's and
 call's.  Their launches join the main path's counts in the kernels line,
 and ``fx_parts`` carries the phase's record under ``scaleout``.
 
+The scaling bench and the observe example, the last step of phase 3:
+``fxtpu_torch.scaling_bench.main`` at the flagship width (2 channels,
+4096 bins, 4 taps) and fxtpu's ``--block_pow 21``, the sweep over 1, 2
+and 4 shards of the card (2^21 samples a shard, ``BENCH_ITERS`` timed
+steps) and ``--multi 8`` on 4 shards; every row's steps launch the single
+pass and its reduce once a shard and the epilogue once (the K = 8 call:
+the block-parallel path, once a shard each), counted around each run and
+added to the kernels line's.  Then ``examples/observe_torch.sh --device
+cuda --time 2 --omit_plot``: its CSV loads with the reference recipe and
+its logged launches are one single pass and one epilogue a row.  The
+rows print on a JSON line of their own (``scaling_bench``, with the card)
+before the stage table's.
+
 Every kernel's ``bound_ms`` is computed here from the run's shapes: the
 larger of its bytes (each input read once, each output written once) over
 3.35 TB/s and its operations over 67 TFLOP/s (float32 outside the tensor
@@ -3579,6 +3592,179 @@ def run_scaleout(tmp, device, card):
 
 
 
+# --------------------------------------------------------------------------
+# The scaling bench and the observe example on the card
+# --------------------------------------------------------------------------
+
+BENCH_DEVICES = (1, 2, 4)   # shards of the card in the sweep
+BENCH_MULTI_SHARDS = 4
+BENCH_ITERS = 10            # timed steps a sweep row (the bench's default)
+BENCH_MULTI_ITERS = 10      # timed repeats of each --multi leg
+BENCH_ARGS = ["--device", "cuda", "--block_pow", "21", "--nbins", "4096",
+              "--freq", "2"]
+
+
+def bench_expect(per_shard, per_block, shards, steps):
+    """The launch counts of ``steps`` mesh steps on ``shards`` shards: the
+    single pass and its reduce ``per_shard`` times a shard a step, the
+    epilogue ``per_block`` times a step."""
+    n = per_shard * shards * steps
+    return {"fx_parts": n, "fx_parts_reduce": n,
+            "fx_finish": per_block * steps}
+
+
+def run_scaling_bench(card):
+    """``fxtpu_torch.scaling_bench.main`` on the card at the flagship width
+    (2 channels, 4096 bins, 4 taps) and fxtpu's --block_pow 21: the sweep
+    over 1, 2 and 4 shards (2^21 samples a shard), then --multi 8 on 4
+    shards.  Every row is checked: a sweep step launches the single pass
+    and its reduce once a shard and the epilogue once; the K = 8 call
+    takes the block-parallel path, one launch of each a shard; the K
+    single steps as a sweep step.  The widest sweep row's step is held to
+    the single-device step (``check_bench_mesh``).  Returns (the counts
+    of both runs, the record)."""
+    from fxtpu_torch import scaling_bench
+    reset_counts()
+    sweep = scaling_bench.main(
+        BENCH_ARGS + ["--iters", str(BENCH_ITERS), "--devices",
+                      *map(str, BENCH_DEVICES)])
+    torch_sync()
+    counts = read_counts()
+    rows = sweep["rows"]
+    if [r["devices"] for r in rows] != list(BENCH_DEVICES):
+        raise AssertionError(f"scaling bench: rows {rows}")
+    total = {}
+    for r in rows:
+        steps, n = r["steps"], r["devices"]
+        if steps != 1 + scaling_bench.WARMUP + BENCH_ITERS or r[
+                "launches"] != {"fx_fused_parts": n * steps,
+                                "fx_finish": steps}:
+            raise AssertionError(f"scaling bench row {r}: expected "
+                                 f"{n * steps} single passes, {steps} "
+                                 "epilogues")
+        for key, v in bench_expect(1, 1, n, steps).items():
+            total[key] = total.get(key, 0) + v
+    check_scale_counts(counts, total, "scaling bench sweep")
+    mesh_check = check_bench_mesh(card)
+    reset_counts()
+    multi = scaling_bench.main(
+        BENCH_ARGS + ["--iters", str(BENCH_MULTI_ITERS), "--devices",
+                      str(BENCH_MULTI_SHARDS), "--multi", str(MULTI_K)])
+    torch_sync()
+    mcounts = read_counts()
+    (row,) = multi["rows"]
+    n, k, calls = BENCH_MULTI_SHARDS, MULTI_K, 1 + BENCH_MULTI_ITERS
+    single = bench_expect(1, 1, n, k * calls)
+    blockdp = bench_expect(1, n, n, calls)
+    if not (row["path"] == "block-DP" and row["k"] == k
+            and row["single_launches"] == {
+                "fx_fused_parts": single["fx_parts"],
+                "fx_finish": single["fx_finish"]}
+            and row["multi_launches"] == {
+                "fx_fused_parts": blockdp["fx_parts"],
+                "fx_finish": blockdp["fx_finish"]}):
+        raise AssertionError(f"scaling bench --multi {k}: {row}")
+    check_scale_counts(mcounts, {key: single[key] + blockdp[key]
+                                 for key in single},
+                       f"scaling bench --multi {k}")
+    for r in rows:
+        print(f"  [{card}] scaling bench, {r['devices']} shard(s) of the "
+              f"card: {r['samples_per_s']:.1f} samples/s "
+              f"({r['per_device']:.1f} a shard, efficiency "
+              f"{r['efficiency_vs_linear']}), launches {r['launches']}",
+              flush=True)
+    print(f"  [{card}] scaling bench --multi {k} on {n} shards: single steps "
+          f"{row['single_samples_per_s']:.1f} samples/s, one {row['path']} "
+          f"call {row['multi_samples_per_s']:.1f} (x{row['multi_speedup']})",
+          flush=True)
+    return [counts, mcounts], {"sweep": sweep, "multi": multi,
+                               "mesh_check": mesh_check,
+                               "iters": BENCH_ITERS,
+                               "multi_iters": BENCH_MULTI_ITERS}
+
+
+def check_bench_mesh(card):
+    """The sweep's widest row held to the single-device step: that row's
+    engine (``scaling_bench._engine``: 4 shards of the card, 2^21 samples
+    a shard, the raw halo between them) and block, over two chained
+    steps with nonzero delays, against ``FxEngine`` without a mesh: vis
+    within SCALE_TOL of max|vis|, history within HIST_TOL.  Its launches
+    are a comparison's and fall outside the counted runs."""
+    import torch
+    from fxtpu_torch import scaling_bench
+    from fxtpu_torch.fx import FxEngine
+    from fxtpu_torch.ops.xengine import pack_delays
+    n = max(BENCH_DEVICES)
+    nsamp = 2 ** 21 * n
+    peng = scaling_bench._engine(n, 2, nsamp, 4096, "cuda")
+    one = FxEngine(peng.cfg, fused=peng.fused)
+    if not (peng.kernel_active and peng.step.fused_kernel):
+        raise AssertionError("scaling bench mesh: not the kernel route")
+    block = scaling_bench._blocks(1, nsamp)[0]
+    d = torch.as_tensor(pack_delays(1e-7 * np.arange(2), peng.cfg.frequency),
+                        device="cuda")
+    iq_m, iq_1 = peng.prepare_block(block), one.prepare_block(block)
+    h_m, h_1, err = peng.fresh_history(), one.fresh_history(), 0.0
+    for _ in range(2):
+        v_m, h_m = peng.step(iq_m, d, h_m)
+        v_1, h_1 = one.step(iq_1, d, h_1)
+        err = max(err, float((v_m - v_1).abs().max() / v_1.abs().max()))
+    herr, _ = history_err(h_m, h_1)
+    torch.cuda.synchronize()
+    print(f"  [{card}] scaling bench's {n}-shard step against the "
+          f"single-device step: vis {err:.3g} of max|vis|, history "
+          f"{herr:.3g}", flush=True)
+    if not (err <= SCALE_TOL["complex64"] and herr <= HIST_TOL):
+        raise AssertionError(f"scaling bench {n}-shard step: vis {err:.3g} "
+                             f"of scale, history {herr:.3g}")
+    return {"shards": n, "max_rel_err": err, "history_err": herr}
+
+
+def torch_sync():
+    import torch
+    torch.cuda.synchronize()
+
+
+def run_observe_example(tmp, card):
+    """``examples/observe_torch.sh --device cuda --time 2 --omit_plot`` (no
+    plot: this machine may lack matplotlib) in a directory of its own: the
+    CSV loads with the reference recipe, 4096 finite bins a row, and the
+    run's ``kernel launches`` log line shows one single pass and one
+    epilogue a row (its own process's counters)."""
+    import ast
+    here = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(tmp, "observe")
+    os.makedirs(work)
+    env = dict(os.environ, PYTHONPATH=here + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        ["bash", os.path.join(here, "examples", "observe_torch.sh"),
+         "--device", "cuda", "--time", "2", "--omit_plot"],
+        cwd=work, env=env, capture_output=True, text=True, timeout=300)
+    wall = time.perf_counter() - t0
+    if res.returncode != 0:
+        raise AssertionError(f"observe_torch.sh failed ({res.returncode}): "
+                             f"{res.stderr[-3000:]}")
+    data = np.atleast_2d(np.loadtxt(
+        os.path.join(work, "visibilities_example.csv"), dtype=np.complex128,
+        delimiter=",", skiprows=2))
+    line = next((l for l in res.stderr.splitlines()
+                 if "kernel launches" in l), None)
+    if line is None:
+        raise AssertionError("observe_torch.sh logged no kernel launches: "
+                             "not the kernel route")
+    counts = ast.literal_eval(line[line.index("{"):])
+    rows = data.shape[0]
+    if not (data.shape[1] == 4096 and np.isfinite(data).all() and rows >= 1
+            and counts == {"fx_fused_parts": rows, "fx_finish": rows}):
+        raise AssertionError(f"observe_torch.sh: rows {data.shape}, "
+                             f"launches {counts}")
+    print(f"  [{card}] examples/observe_torch.sh: {rows} rows of 4096 bins, "
+          f"launches {counts}, {wall:.1f} s", flush=True)
+    return {"rows": rows, "launches": counts, "seconds": wall}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3768,6 +3954,11 @@ def main() -> int:
               "on the card, two processes)")
         scale_counts, scaleout = run_scaleout(tmp, device, card)
         main_counts += scale_counts
+        phase("phase 3: the scaling bench (python -m fxtpu_torch.scaling_bench,"
+              " shards of the card) and examples/observe_torch.sh")
+        bench_counts, surface = run_scaling_bench(card)
+        main_counts += bench_counts
+        surface["observe_example"] = run_observe_example(tmp, card)
     # the single-pass entries' launches on the main path, both FIR modes
     for name in ("fx_parts", "fx_parts_i8", "fx_parts_wide",
                  "fx_parts_wide_i8"):
@@ -4340,6 +4531,7 @@ def main() -> int:
             raise AssertionError(f"kernel entry {entry.get('name')}: missing "
                                  f"{missing} or never launched")
     print(f"  whole run {time.perf_counter() - t_start:.1f} s", flush=True)
+    print(json.dumps({"scaling_bench": surface, "card": card}), flush=True)
     print(json.dumps({"stage_table": table, "card": card,
                       "build_seconds": cuda_build.build_seconds}),
           flush=True)

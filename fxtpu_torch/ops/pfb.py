@@ -17,7 +17,8 @@ from typing import Optional, Tuple
 import torch
 
 __all__ = ["dc_remove", "dequantize", "zero_history", "frame_rows",
-           "pfb_fir", "svd_fir", "spectrometer_rows", "spectrometer"]
+           "frame_blocks", "pfb_fir", "svd_fir", "spectrometer_rows",
+           "spectrometer", "spectrometer_poly", "spectrometer_poly_stream"]
 
 
 def dc_remove(iq: torch.Tensor) -> torch.Tensor:
@@ -48,6 +49,31 @@ def frame_rows(x: torch.Tensor, nbins: int) -> torch.Tensor:
             f"block of {x.shape[-1]} samples is shorter than one row of "
             f"{nbins}")
     return x[..., : s * nbins].reshape(*x.shape[:-1], s, nbins)
+
+
+def _prepend_history(rows: torch.Tensor, ntaps: int,
+                     history: Optional[torch.Tensor]
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``rows [..., S, nbins]`` -> ``(xp, new_history)``: ``ntaps-1`` rows
+    of history (zeros at stream start) before the rows, and the last
+    ``ntaps-1`` rows of ``xp`` for the next block."""
+    batch, nbins = rows.shape[:-2], rows.shape[-1]
+    if ntaps == 1:
+        return rows, zero_history(batch, nbins, ntaps, rows.device,
+                                  rows.dtype)
+    if history is None:
+        history = zero_history(batch, nbins, ntaps, rows.device, rows.dtype)
+    xp = torch.cat([history.to(rows.dtype), rows], dim=-2)
+    return xp, xp[..., -(ntaps - 1):, :]
+
+
+def frame_blocks(x: torch.Tensor, nbins: int, ntaps: int,
+                 history: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``x [..., nsamp]`` -> ``(xp [..., S+ntaps-1, nbins],
+    new_history)``: the rows of :func:`frame_rows` after ``ntaps-1`` rows
+    of history (``fxtpu.ops.pfb.frame_blocks``)."""
+    return _prepend_history(frame_rows(x, nbins), ntaps, history)
 
 
 def pfb_fir(xp: torch.Tensor, window2d: torch.Tensor) -> torch.Tensor:
@@ -90,18 +116,7 @@ def spectrometer_rows(rows: torch.Tensor, window2d: torch.Tensor,
     ``history`` is the previous block's DC-corrected tail (zeros at
     stream start).  ``svd=(u, v)`` runs the FIR through the window's
     factors (:func:`svd_fir`) instead of the tap loop over ``window2d``."""
-    ntaps, nbins = window2d.shape
-    batch = rows.shape[:-2]
-    if ntaps == 1:
-        xp = rows
-        new_history = zero_history(batch, nbins, ntaps, rows.device,
-                                   rows.dtype)
-    else:
-        if history is None:
-            history = zero_history(batch, nbins, ntaps, rows.device,
-                                   rows.dtype)
-        xp = torch.cat([history.to(rows.dtype), rows], dim=-2)
-        new_history = xp[..., -(ntaps - 1):, :]
+    xp, new_history = _prepend_history(rows, window2d.shape[0], history)
     fir = pfb_fir(xp, window2d) if svd is None else svd_fir(xp, *svd)
     return torch.fft.fft(fir, dim=-1), new_history
 
@@ -112,3 +127,33 @@ def spectrometer(x: torch.Tensor, window2d: torch.Tensor, nbins: int,
     """Streaming PFB on a DC-corrected sample stream ``[..., nsamp]``
     (``fxtpu.ops.planes.spectrometer_planes`` contract)."""
     return spectrometer_rows(frame_rows(x, nbins), window2d, history)
+
+
+def _as_window2d(window, nbins: int) -> torch.Tensor:
+    """A prototype filter of ``ntaps*nbins`` taps (or already ``[ntaps,
+    nbins]``) as a float32 ``[ntaps, nbins]`` tensor."""
+    w = torch.as_tensor(window, dtype=torch.float32)
+    if w.ndim == 1:
+        if w.shape[0] % nbins:
+            raise ValueError(f"window length {w.shape[0]} not a multiple of "
+                             f"nbins {nbins}")
+        w = w.reshape(-1, nbins)
+    return w
+
+
+def spectrometer_poly_stream(x: torch.Tensor, window, nbins: int,
+                             history: Optional[torch.Tensor] = None
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The streaming PFB on the samples as they are (no DC removal):
+    ``x [..., nsamp]`` and the ``ntaps*nbins`` prototype ``window`` ->
+    ``(spectra [..., S, nbins], new_history)``, tap history carried
+    across blocks (``fxtpu.ops.pfb.spectrometer_poly_stream``)."""
+    return spectrometer(x, _as_window2d(window, nbins).to(x.device), nbins,
+                        history)
+
+
+def spectrometer_poly(x: torch.Tensor, window, nbins: int) -> torch.Tensor:
+    """The per-block PFB spectrometer with the reference's zero history
+    (``fxtpu.ops.pfb.spectrometer_poly``): spectra ``[..., S, nbins]``
+    in ``fftfreq`` bin order."""
+    return spectrometer_poly_stream(x, window, nbins)[0]

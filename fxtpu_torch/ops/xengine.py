@@ -20,7 +20,7 @@ import torch
 
 __all__ = [
     "baseline_pairs", "pack_delays", "rf_freqs", "unit_phasor",
-    "fstc_rotate", "xcorr_baselines", "continuum_reduce",
+    "fstc_rotate", "xcorr_pair", "xcorr_baselines", "continuum_reduce",
 ]
 
 
@@ -60,7 +60,8 @@ def split_delays(delays: torch.Tensor, nch_ndim: int):
 def rf_freqs(nbins: int, bandwidth: float, frequency: float,
              packed: bool, device) -> torch.Tensor:
     """float32 frequency per (unshifted) FFT bin, built in float64: the
-    baseband offsets for packed delays, RF (``+ frequency``) otherwise."""
+    baseband offsets for packed delays, RF (``+ frequency``) otherwise
+    (``fxtpu.ops.xengine.rf_freqs``)."""
     f = np.fft.fftfreq(nbins, d=1.0 / bandwidth)
     if not packed:
         f = f + frequency
@@ -107,6 +108,13 @@ def fstc_rotate(spectra: torch.Tensor, delays, bandwidth: float,
                      frac is not None, spectra.device)
     rot = unit_phasor(rotation_phase(freqs, d, frac))    # [nch, nbins]
     return spectra * rot[:, None, :]
+
+
+def xcorr_pair(f0: torch.Tensor, f1: torch.Tensor) -> torch.Tensor:
+    """One pair's frame-averaged cross power, fftshifted:
+    ``f0, f1 [..., S, nbins]`` -> ``[..., nbins]``
+    (``fxtpu.ops.xengine.xcorr_pair``)."""
+    return torch.fft.fftshift((f0 * f1.conj()).mean(dim=-2), dim=-1)
 
 
 def xcorr_baselines(spectra: torch.Tensor, pairs) -> torch.Tensor:

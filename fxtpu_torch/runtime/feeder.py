@@ -68,8 +68,8 @@ class Feeder:
         # snapshots the entry at its last PROCESSED seq + 1 and a resumed
         # run regenerates the first unprocessed block.  Keyed by SEQ, not
         # read count: source-reported drops (take_dropped) gap the seqs.
-        # Disabled for sources that return None (live radios cannot
-        # reproduce their stream).
+        # Disabled for span mode (random-access reads) and for sources
+        # that return None (live radios cannot reproduce their stream).
         self._state_log: dict = {}
         self._state_lock = threading.Lock()
         #: True once _run selected the reserve/commit producer loop —
@@ -121,6 +121,8 @@ class Feeder:
     def _log_source_state(self, key: int):
         """Record the source's current stream state at seq boundary
         ``key`` (see ``_state_log``'s keying note in __init__)."""
+        if self.sample_span is not None:
+            return
         state = self.source.snapshot_state()
         if state is None:
             return
@@ -131,8 +133,8 @@ class Feeder:
 
     def source_state_at(self, seq_boundary: int) -> Optional[dict]:
         """Stream state at ``seq_boundary`` = last processed seq + 1 (for
-        a snapshot), or None when unknown — a live source, or an entry
-        older than the log window."""
+        a snapshot), or None when unknown — span mode, a live source, or an
+        entry older than the log window."""
         with self._state_lock:
             return self._state_log.get(seq_boundary)
 

@@ -1,7 +1,7 @@
 """The port's slice as a whole on the CPU: one fixed-length replay
 recording through both Correlators (fxtpu and fxtpu_torch) on either
 route and ingest, the port's CLI end to end, its independence from JAX,
-the options it does not carry yet and the snapshot options it does.
+its mesh and snapshot options, and a process id outside the run.
 
 Tolerances: CSV rows within 2e-5*scale (fxtpu's fused-against-unfused
 bound, tests/test_planes.py:318-321), 3e-5*scale under int8 ingest
@@ -213,10 +213,16 @@ def test_cli_deep_taps_runs_end_to_end_on_cpu(tmp_path):
 
 
 def test_port_never_imports_jax():
-    code = ("import sys, fxtpu_torch.cli, fxtpu_torch.correlator, "
-            "fxtpu_torch.ops, fxtpu_torch.ops.spectrometer, "
-            "fxtpu_torch.ops.svd_fir, fxtpu_torch.post_process; "
-            "sys.exit(1 if 'jax' in sys.modules else 0)")
+    """Every module of the port imports, and neither JAX nor the JAX
+    package comes with it."""
+    code = ("import sys, pkgutil, importlib, fxtpu_torch\n"
+            "for m in pkgutil.walk_packages(fxtpu_torch.__path__, "
+            "'fxtpu_torch.'):\n"
+            "    if not m.name.endswith('__main__'):\n"
+            "        importlib.import_module(m.name)\n"
+            "bad = [n for n in sys.modules if n == 'jax' or n == 'fxtpu' "
+            "or n.startswith(('jax.', 'fxtpu.'))]\n"
+            "sys.exit(f'imported {bad}' if bad else 0)")
     env = dict(os.environ, PYTHONPATH=REPO)
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
@@ -224,7 +230,7 @@ def test_port_never_imports_jax():
 
 
 @pytest.mark.parametrize("kw", [dict(mesh_time=2), dict(mesh_freq=2)])
-def test_unported_options_raise(kw):
+def test_mesh_options_construct(kw):
     """The mesh is ported (ROADMAP A.9): the config's mesh knobs construct,
     and as in fxtpu the Correlator shards only over a mesh it is handed
     (the CLI builds one from them), which it keeps."""
@@ -255,7 +261,7 @@ def test_checkpoint_options_accepted(tmp_path, kw):
         Correlator(config=cfg)
 
 
-def test_unported_cli_flags_raise(tmp_path):
+def test_out_of_range_process_id_raises(tmp_path):
     """Multi-process runs are ported (ROADMAP A.9): a process id outside
     the run raises before any rendezvous."""
     with pytest.raises(ValueError, match="process_id 2"):

@@ -215,3 +215,269 @@ def test_mutation_under_a_mesh_keeps_the_mesh(pkg):
     finally:
         cor.close()
         other.close()
+
+
+# --------------------------------------------------------------------------
+# The rest of tests/test_state_machine.py, each case for both packages:
+# the defaults, the transitions and the refused ones, the off-nominal
+# inits, supervision, the reference's keyword constructor and the
+# keyboard thread on a real tty
+# --------------------------------------------------------------------------
+
+def _names(pkg):
+    """(CorrelatorConfig with the package's CPU placement, Correlator,
+    StateTransitionError) of ``pkg``."""
+    if pkg == "fxtpu":
+        pytest.importorskip("jax")
+        from fxtpu.config import CorrelatorConfig
+        from fxtpu.correlator import Correlator, StateTransitionError
+        return CorrelatorConfig, Correlator, StateTransitionError
+    from fxtpu_torch.config import CorrelatorConfig
+    from fxtpu_torch.correlator import Correlator, StateTransitionError
+
+    def config(**kw):
+        return CorrelatorConfig(**kw, device="cpu")
+    return config, Correlator, StateTransitionError
+
+
+PKGS = ["fxtpu", "fxtpu_torch"]
+
+
+def _walk(cor, sequence):
+    for state in sequence:
+        cor.state = state
+        assert cor.state == state
+
+
+@pytest.mark.parametrize("pkg", PKGS)
+def test_correlator_init(pkg):
+    cor = _make(pkg)
+    try:
+        assert cor.state == "OFF" and cor.mode == "SPECTRUM"
+        assert (cor.bandwidth, cor.frequency, cor.gain) == (2.4e6, 1.4204e9,
+                                                            49.6)
+    finally:
+        cor.close()
+
+
+@pytest.mark.parametrize("pkg", PKGS)
+def test_nominal_state_transitions(pkg):
+    cor = _make(pkg)
+    try:
+        _walk(cor, ("STARTUP", "RUN", "CALIBRATE", "RUN", "SHUTDOWN", "OFF"))
+    finally:
+        cor.close()
+
+
+@pytest.mark.parametrize("pkg", PKGS)
+def test_early_aborts(pkg):
+    cor = _make(pkg)
+    try:
+        for seq in (("STARTUP", "SHUTDOWN", "OFF"),
+                    ("STARTUP", "RUN", "SHUTDOWN", "OFF"),
+                    ("STARTUP", "RUN", "CALIBRATE", "SHUTDOWN", "OFF"),
+                    ("STARTUP", "RUN", "CALIBRATE", "RUN", "SHUTDOWN",
+                     "OFF")):
+            _walk(cor, seq)
+    finally:
+        cor.close()
+
+
+@pytest.mark.parametrize("pkg", PKGS)
+@pytest.mark.parametrize("path,bad", [
+    ((), "OFF"), ((), "RUN"), (("STARTUP",), "STARTUP"),
+    (("STARTUP", "RUN"), "RUN"), (("STARTUP", "RUN"), "STARTUP"),
+    (("STARTUP", "RUN", "CALIBRATE"), "CALIBRATE"),
+    (("STARTUP", "RUN", "CALIBRATE"), "STARTUP")],
+    ids=["OFF-OFF", "OFF-RUN", "STARTUP-STARTUP", "RUN-RUN", "RUN-STARTUP",
+         "CALIBRATE-CALIBRATE", "CALIBRATE-STARTUP"])
+def test_bad_transitions(pkg, path, bad):
+    """The four refused-transition cases of fxtpu's tests (from OFF,
+    STARTUP, RUN and CALIBRATE), each edge on a fresh Correlator."""
+    _, _, error = _names(pkg)
+    cor = _make(pkg)
+    try:
+        _walk(cor, path)
+        with pytest.raises(error):
+            cor.state = bad
+        assert cor.state == (path[-1] if path else "OFF")
+    finally:
+        cor.close()
+
+
+@pytest.mark.parametrize("pkg", PKGS)
+def test_unknown_state_raises(pkg):
+    cor = _make(pkg)
+    try:
+        with pytest.raises(ValueError):
+            cor.state = "WARP"
+    finally:
+        cor.close()
+
+
+@pytest.mark.parametrize("pkg", PKGS)
+def test_nested_exception_alias(pkg):
+    _, correlator, error = _names(pkg)
+    assert correlator.StateTransitionError is error
+
+
+@pytest.mark.parametrize("pkg", PKGS)
+def test_bad_run_time_init(pkg):
+    with pytest.raises(ValueError):
+        _make(pkg, run_time=0)
+
+
+@pytest.mark.parametrize("pkg", PKGS)
+def test_bad_bandwidth_init(pkg):
+    _make(pkg, bandwidth=3.0e6).close()   # constructs; sources may warn
+
+
+@pytest.mark.parametrize("pkg", PKGS)
+@pytest.mark.parametrize("mode,want", [("FOO", None),
+                                       ("CONTINUUM", "CONTINUUM"),
+                                       ("continuum", "CONTINUUM")],
+                         ids=["bad", "alt", "lowercase"])
+def test_mode_init(pkg, mode, want):
+    """The bad mode raises; the alternative mode and a lowercase one
+    construct in OFF with the mode upper-cased."""
+    if want is None:
+        with pytest.raises(ValueError):
+            _make(pkg, mode=mode)
+        return
+    cor = _make(pkg, mode=mode)
+    assert (cor.state, cor.mode) == ("OFF", want)
+    cor.close()
+
+
+@pytest.mark.parametrize("pkg", PKGS)
+def test_pfb_constraint_enforced(pkg):
+    config, _, _ = _names(pkg)
+    with pytest.raises(ValueError):
+        config(num_samp=2**10, nbins=2**10, ntaps=4, clamp_num_samp=False)
+
+
+@pytest.mark.parametrize("pkg", PKGS)
+def test_child_exception_forces_shutdown(pkg):
+    cor = _make(pkg)
+    try:
+        cor.exc_queue.put("boom traceback")
+        assert cor._child_threw_exception()
+        assert not cor._child_threw_exception()
+    finally:
+        cor.close()
+
+
+@pytest.mark.parametrize("pkg", PKGS)
+def test_num_samp_mutation_after_start_raises(pkg):
+    cor = _make(pkg)
+    try:
+        cor.feeder = object()   # as if streaming had started
+        with pytest.raises(RuntimeError):
+            cor.num_samp = 2**13
+        cor.feeder = None
+    finally:
+        cor.close()
+
+
+@pytest.mark.parametrize("pkg", PKGS)
+def test_invalid_mutation_raises(pkg):
+    cor = _make(pkg, ntaps=4)
+    try:
+        with pytest.raises(ValueError):
+            cor.num_samp = 2**10   # below one 4-tap window of 1024 bins
+        assert cor.config.num_samp == 2**14
+    finally:
+        cor.close()
+
+
+@pytest.mark.parametrize("pkg", PKGS)
+def test_reference_kwarg_constructor(pkg):
+    _, correlator, _ = _names(pkg)
+    kw = dict(run_time=1, bandwidth=2.4e6, frequency=1.4204e9,
+              num_samp=2**14, nbins=2**10, gain=49.6, mode="SPECTRUM",
+              loglevel="WARNING", clamp_num_samp=False)
+    if pkg == "fxtpu_torch":
+        kw["device"] = "cpu"
+    cor = correlator(**kw)
+    assert cor.mode == "SPECTRUM" and cor.num_samp == 2**14
+    cor.close()
+
+
+@pytest.mark.parametrize("pkg", PKGS)
+def test_complex128_dtype_rejected(pkg):
+    """complex128 raises in both packages.  The messages differ by design
+    (ROADMAP, known differences of route): fxtpu's names the TPU planes'
+    measured 3.1e-5 bound, the port's that it is built for complex64."""
+    config, _, _ = _names(pkg)
+    with pytest.raises(ValueError, match=("3.1e-5" if pkg == "fxtpu"
+                                          else "complex64 samples only")):
+        config(dtype="complex128")
+
+
+class _Deadline:
+    """SIGALRM after ``seconds`` in the main thread (a pty read that
+    never returns fails the case instead of holding its worker)."""
+
+    def __init__(self, seconds):
+        self.seconds = seconds
+
+    def __enter__(self):
+        import signal
+        import threading
+
+        def fire(*_):
+            raise TimeoutError(f"no answer in {self.seconds} s")
+        self.armed = threading.current_thread() is threading.main_thread()
+        if self.armed:
+            self.old = signal.signal(signal.SIGALRM, fire)
+            signal.setitimer(signal.ITIMER_REAL, self.seconds)
+        return self
+
+    def __exit__(self, *exc):
+        import signal
+        if self.armed:
+            signal.setitimer(signal.ITIMER_REAL, 0)
+            signal.signal(signal.SIGALRM, self.old)
+
+
+@pytest.mark.parametrize("pkg", PKGS)
+def test_kbd_thread_reads_stdin_through_a_real_tty(pkg, monkeypatch):
+    """``Correlator._get_kbd`` on a pty: the typed character (with its
+    return, the pty is in canonical mode) arrives on the queue, and the
+    thread ends once the state leaves the listening set.  The whole case
+    has a 30 s deadline of its own."""
+    import os
+    import pty
+    import queue
+    import sys
+    import threading
+
+    _, correlator, _ = _names(pkg)
+    master, slave = pty.openpty()
+    fake_stdin = os.fdopen(slave, "r")
+    assert fake_stdin.isatty()
+    monkeypatch.setattr(sys, "stdin", fake_stdin)
+
+    class _Shell:                      # the attribute _get_kbd reads
+        state = "RUN"
+
+    shell = _Shell()
+    kq = queue.Queue(4)
+    th = threading.Thread(target=correlator._get_kbd, args=(shell, kq),
+                          daemon=True)
+    try:
+        with _Deadline(30):
+            th.start()
+            os.write(master, b"c\n")
+            assert kq.get(timeout=10) == "c"
+            shell.state = "SHUTDOWN"
+            os.write(master, b"x\n")       # unblock any read in flight
+            th.join(timeout=10)
+            alive = th.is_alive()
+    finally:
+        os.close(master)
+    assert not alive
+    leftovers = []
+    while not kq.empty():
+        leftovers.append(kq.get_nowait())
+    assert set(leftovers) <= {"\n", "x"}
