@@ -74,7 +74,14 @@ Phases (any failure raises and exits non-zero, with no ``ok`` line):
    (``fx_fused_parts*`` then ``fx_finish``; largest difference 0), vis
    within 1e-6 of max|vis| plus 2e-6 of the raw cross power of the plain
    epilogue over the step's own parts, the parts within 2e-5 (3e-5) of
-   the plain single pass's; every stage
+   the plain single pass's; the bench's largest calls (``bench_cases``:
+   each configuration of ``fxtpu_torch.bench.CONFIGS`` at the K of its
+   largest ``multi_step`` call, 22 blocks at 2 x 2^21 samples and at the
+   wideband shape, 16 at wideband int8, 13 at nchan8: the calls nearest
+   the single pass's cap of 25 blocks, 15 on the wide route) through the
+   single pass and its epilogue, its reduce or X kernel, and at the
+   largest K of each shape the FIR launch at 32 taps and the step's one C
+   call, to the rules above; every stage
    of the ablation (``fx_ablate``:
    ``ops.fx_fused.fx_fused_ablate``, both ingests, both FIR modes) at
    nbins=256, at the flagship, at the CLI's deep-tap block and at the
@@ -236,6 +243,21 @@ its logged launches are one single pass and one epilogue a row.  The
 rows print on a JSON line of their own (``scaling_bench``, with the card)
 before the stage table's.
 
+The bench, after the observe example: ``fxtpu_torch.bench.bench`` (the
+port of ``bench.py``) in this process for each of its five
+configurations at their full size, the counts set to 0 before and read
+after each run: every timed iteration's ceil(K / m) ``multi_step`` calls
+(``BENCH_ROUTES``: K blocks capped at what one launch takes) and the
+untimed ones launch the configuration's single pass, its reduce or X
+kernel, the FIR launch at 32 taps and the epilogue once a call, and
+nothing else; each configuration's JSON line prints.  Then ``python -m
+fxtpu_torch.bench`` runs in processes of its own: the default
+configuration, and ``--pipeline`` and ``--host_pipeline`` in each ingest
+at ``--seconds 6`` (bench.py's runs are 12 and 6 s), each exiting 0 with
+one line of bench.py's metric, a positive value, no ``error`` and shares
+of the card's peaks at most 1.05.  Its record prints on a ``bench`` JSON
+line after the scaling bench's.
+
 Every kernel's ``bound_ms`` is computed here from the run's shapes: the
 larger of its bytes (each input read once, each output written once) over
 3.35 TB/s and its operations over 67 TFLOP/s (float32 outside the tensor
@@ -304,7 +326,8 @@ WIDE_CASES = ((NCHAN8, "direct", "auto"), (CLI8, "direct", "auto"),
 CLI_NCHAN = 8        # the CLI runs of the wide route (28 baselines)
 XSTAGE_SOURCE = "fxtpu_torch/csrc/fx_xstage.cu"
 # (shape, K, FIR mode) of the K-block entries' checks in phase 2: every
-# shape and K the main path and phase 4 launch them at, and smaller ones
+# shape and K the CLI's main path and phase 4 launch them at, and smaller
+# ones (the bench launches the single pass instead: ``bench_cases``)
 MULTI_CASES = ((SMALL, 3, "direct"), (FLAGSHIP, MULTI_K, "direct"),
                (PIPELINE_BLOCK, MULTI_K, "direct"), (WIDEBAND, 2, "direct"),
                (SMALL_DEEP, 3, "svd"), (DEEP_CLI, MULTI_K, "svd"),
@@ -746,14 +769,17 @@ def parts_batch(case, k, rng, device, int8):
     nch, nbins = case["nch"], case["nbins"]
     s = case["nsamp"] // nbins
     grade = (np.arange(nch) % 4 + 1)[:, None] + 0.5 * np.arange(k)[None, :]
+    # the normals drawn on the host, the rest formed on the device in
+    # float64 (numpy's sums and roundings, faster at 2 x 22 x 2^21)
+    g = torch.as_tensor(rng.normal(size=(nch, k, s, nbins, 2)),
+                        device=device)
     if int8:
-        dc = np.array([3.0, -2.0]) * grade[..., None, None, None]
-        x = np.clip(np.rint(30 * rng.normal(size=(nch, k, s, nbins, 2)) + dc),
-                    -127, 127)
-        return torch.as_tensor(x.astype(np.int8), device=device)
-    x = (rng.normal(size=(nch, k, s, nbins, 2)) @ np.array([1.0, 1j])
-         + (0.03 - 0.02j) * grade[..., None, None])
-    return torch.as_tensor(x.astype(np.complex64), device=device)
+        dc = torch.as_tensor(np.array([3.0, -2.0])
+                             * grade[..., None, None, None], device=device)
+        return torch.round(30 * g + dc).clamp_(-127, 127).to(torch.int8)
+    off = torch.as_tensor((0.03 - 0.02j) * grade[..., None, None],
+                          device=device)
+    return (torch.complex(g[..., 0], g[..., 1]) + off).to(torch.complex64)
 
 
 def compare_parts(case, k, device, fir, int8, x_stage="auto"):
@@ -791,7 +817,7 @@ def compare_parts(case, k, device, fir, int8, x_stage="auto"):
     w, svd = window_and_fir(case, fir, device)
     pairs_np = baseline_pairs(nch, case["autos"])
     pairs = pairs_tensor(pairs_np, nch, device)
-    consts = dc_constants(w.cpu().numpy(), nbins, s, device)
+    consts = dc_constants(w.cpu().numpy(), nbins, s, device, svd)
     rng = np.random.default_rng(1357)
     x = parts_batch(case, k, rng, device, int8)
     hist = raw_history(case, rng, device, int8)
@@ -950,7 +976,6 @@ def step_inputs(case, k, fir, int8, packed, continuum, device, seed=2468):
     from fxtpu_torch.ops import baseline_pairs, pairs_tensor
     from fxtpu_torch.ops import fx_epilogue as fe
     from fxtpu_torch.ops.dc_posthoc import dc_constants
-    from fxtpu_torch.ops.xengine import pack_delays
     nch, nbins = case["nch"], case["nbins"]
     s = case["nsamp"] // nbins
     w, svd = window_and_fir(case, fir, device)
@@ -959,14 +984,22 @@ def step_inputs(case, k, fir, int8, packed, continuum, device, seed=2468):
     x = parts_batch(case, k, rng, device, int8)
     hist = raw_history(case, rng, device, int8)
     bw, freq = 2.4e6, 1.4204e9
-    d = (np.tile(np.arange(nch) * TRUE_DELAY, (k, 1))
-         + 1e-7 * np.arange(k)[:, None])
-    delays = torch.as_tensor(pack_delays(d, freq) if packed
-                             else d.astype(np.float32), device=device)
     return (x, hist, w, pairs_tensor(pairs_np, nch, device),
-            dc_constants(w.cpu().numpy(), nbins, s, device), delays,
+            dc_constants(w.cpu().numpy(), nbins, s, device, svd),
+            step_delays(nch, k, packed, freq, device),
             fe.FinishTables(pairs_np, nbins, bw, freq, device), bw,
             continuum, STEP if int8 else None, svd)
+
+
+def step_delays(nch, k, packed, freq, device):
+    """Per-block delays ``[K, nch]`` of ``step_inputs``: packed or plain."""
+    import torch
+
+    from fxtpu_torch.ops.xengine import pack_delays
+    d = (np.tile(np.arange(nch) * TRUE_DELAY, (k, 1))
+         + 1e-7 * np.arange(k)[:, None])
+    return torch.as_tensor(pack_delays(d, freq) if packed
+                           else d.astype(np.float32), device=device)
 
 
 def two_call_step(args):
@@ -1022,8 +1055,14 @@ def compare_step(case, k, fir, continuum, device):
     diff = fin_rel = 0.0
     route = None
     for int8 in (False, True):
+        base = step_inputs(case, k, fir, int8, True, continuum, device)
         for packed in (True, False):
-            args = step_inputs(case, k, fir, int8, packed, continuum, device)
+            # the same samples and history (copies) under each delay form
+            args = (base[0].clone(),
+                    ({n: v.clone() for n, v in base[1].items()} if int8
+                     else base[1].clone()), *base[2:5],
+                    base[5] if packed else step_delays(
+                        case["nch"], k, False, 1.4204e9, device), *base[6:])
             x, hist, w, pairs, consts, delays, tables, bw, cont, step, svd = (
                 args)
             vis_o, mu_o, new_o, _ = two_call_step(args)
@@ -1086,6 +1125,7 @@ def compare_step(case, k, fir, continuum, device):
                             f"plain single pass at {case} K={k} ({fir}, int8 "
                             f"{int8}): {e / sc:.3g} > {tol}")
             del args, bufs, vis_o, mu_o, new_o, ref
+        del base
     print(f"  fx_step K={k} ({fir}, {route} route, "
           f"{'continuum' if continuum else 'spectra'}) shape {case}: largest "
           f"difference from the two-call step {diff}, against the plain "
@@ -1794,7 +1834,7 @@ def time_bins(device):
         s = case["nsamp"] // nbins
         w, svd = window_and_fir(case, fir, device)
         pairs = pairs_tensor(baseline_pairs(nch, case["autos"]), nch, device)
-        consts = dc_constants(w.cpu().numpy(), nbins, s, device)
+        consts = dc_constants(w.cpu().numpy(), nbins, s, device, svd)
         for int8 in (False, True):
             key = tag + ("_i8" if int8 else "")
             x = parts_batch(case, 1, rng, device, int8)
@@ -2918,7 +2958,7 @@ def time_wide(device):
         w, svd = window_and_fir(case, fir, device)
         pairs = pairs_tensor(baseline_pairs(nch, case["autos"]), nch,
                              device)
-        consts = dc_constants(w.cpu().numpy(), nbins, s, device)
+        consts = dc_constants(w.cpu().numpy(), nbins, s, device, svd)
         for int8 in (False, True):
             key = tag + ("_i8" if int8 else "")
             x = parts_batch(case, 1, rng, device, int8)
@@ -3765,6 +3805,132 @@ def run_observe_example(tmp, card):
     return {"rows": rows, "launches": counts, "seconds": wall}
 
 
+# --------------------------------------------------------------------------
+# The bench (python -m fxtpu_torch.bench, the port of bench.py) on the card
+# --------------------------------------------------------------------------
+
+# configuration -> (the single-pass count its step advances, whether it
+# launches the deep-tap FIR first, multi_step calls a timed iteration,
+# the largest call's K): K blocks capped at ops.fx_fused.max_blocks_parts
+# (25 at 2 x 2^21 samples, 15 on the wide route at 8 x 2^20)
+BENCH_ROUTES = {"default": ("fx_parts", False, 6, 22),
+                "default_int8": ("fx_parts_i8", False, 6, 22),
+                "wideband": ("fx_parts_svd", True, 3, 22),
+                "wideband_int8": ("fx_parts_i8_svd", True, 2, 16),
+                "nchan8": ("fx_parts_wide", False, 5, 13)}
+BENCH_SECONDS = 6    # the module's pipeline legs (bench.py runs 12 and 6 s)
+MAX_SHARE = 1.05     # of a peak, in the roofline's shares
+
+
+def bench_cases():
+    """(configuration, shape, K, FIR mode, int8) of each of
+    ``fxtpu_torch.bench.CONFIGS`` at its largest ``multi_step`` call: the
+    shape from the configuration and ``bench``'s defaults, K from
+    ``BENCH_ROUTES`` (which ``run_bench_configs`` holds to the run's
+    ``blocks_per_dispatch``)."""
+    import inspect
+
+    from fxtpu_torch import bench
+    defaults = {p.name: p.default for p in
+                inspect.signature(bench.bench).parameters.values()}
+    cases = []
+    for name in sorted(bench.CONFIGS):
+        kw = {**defaults, **bench.CONFIGS[name]}
+        case = dict(nch=kw["nchan"], nsamp=2 ** kw["block_pow"],
+                    nbins=kw["nbins"], ntaps=kw["ntaps"],
+                    autos=kw["include_autos"])
+        entry, _, _, k = BENCH_ROUTES[name]
+        cases.append((name, case, k,
+                      "svd" if entry.endswith("_svd") else "direct",
+                      kw["ingest"] == "int8"))
+    return cases
+
+
+def run_bench_configs(card):
+    """``fxtpu_torch.bench.bench(**CONFIGS[c])`` in this process for each
+    configuration, the counts set to 0 before and read after each: every
+    timed iteration's ceil(K / m) ``multi_step`` calls, one untimed and
+    ``WARMUP`` more, launch the fused single pass once a call (its SVD-FIR
+    mode and the FIR launch at 32 taps, the wide route and the X kernel at
+    8 channels) with its reduce or X kernel and the epilogue, and nothing
+    else.  Prints each configuration's JSON line (``step_line``).  Returns
+    (the counts of each run, the lines by configuration)."""
+    import torch
+    from fxtpu_torch import bench
+    kind = torch.cuda.get_device_name(0)
+    counts_all, lines = [], {}
+    for name in sorted(bench.CONFIGS):
+        entry, deep, per_iter, largest = BENCH_ROUTES[name]
+        reset_counts()
+        t0 = time.perf_counter()
+        res = bench.bench(**bench.CONFIGS[name])
+        torch_sync()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        calls = per_iter * (1 + bench.WARMUP + bench.ITERS)
+        expect = {entry: calls, "fx_finish": calls,
+                  ("fx_xstage" if "wide" in entry else "fx_parts_reduce"):
+                  calls}
+        if deep:
+            expect["fir_rows"] = calls
+        launched = {c: v for c, v in counts.items() if v}
+        if launched != expect or res["blocks_per_dispatch"] != largest:
+            raise AssertionError(
+                f"bench {name}: launches {launched}, expected {expect}; "
+                f"blocks_per_dispatch {res['blocks_per_dispatch']}, "
+                f"expected {largest}")
+        line = bench.step_line(name, res, card, kind)
+        print(f"  [{card}] bench {name}: {json.dumps(line)} ({wall:.1f} s "
+              "with the blocks' making)", flush=True)
+        lines[name] = dict(line, launches=launched, wall_s=wall)
+        counts_all.append(counts)
+        torch.cuda.empty_cache()
+    return counts_all, lines
+
+
+def run_bench_module(tmp, card):
+    """``python -m fxtpu_torch.bench`` in processes of its own: the default
+    configuration, then ``--pipeline`` and ``--host_pipeline`` at
+    ``--seconds BENCH_SECONDS`` in each ingest.  Each exits 0 and prints
+    one JSON line with bench.py's metric for its flags, a positive value,
+    no ``error`` and its shares of the card's peaks at most MAX_SHARE.
+    Returns the lines by their flags."""
+    from fxtpu_torch import bench
+    here = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(tmp, "bench")
+    os.makedirs(work)
+    env = dict(os.environ, PYTHONPATH=here + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    runs = [[]] + [[flag, "--ingest", ingest, "--seconds", str(BENCH_SECONDS)]
+                   for flag in ("--pipeline", "--host_pipeline")
+                   for ingest in ("complex64", "int8")]
+    out = {}
+    for argv in runs:
+        args = bench._parser().parse_args(argv)
+        metric = bench.metric_name(args.config, args.pipeline,
+                                   args.host_pipeline, args.ingest)
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "-m", "fxtpu_torch.bench", *argv], cwd=work,
+            env=env, capture_output=True, text=True, timeout=300)
+        wall = time.perf_counter() - t0
+        lines = res.stdout.strip().splitlines()
+        line = json.loads(lines[-1]) if lines else {}
+        shares = [line.get(s, 0.0) for s in ("flop_frac", "hbm_frac")]
+        if not (res.returncode == 0 and len(lines) == 1
+                and line.get("metric") == metric and line.get("value", 0) > 0
+                and "error" not in line and max(shares) <= MAX_SHARE):
+            raise AssertionError(
+                f"python -m fxtpu_torch.bench {' '.join(argv)}: exit "
+                f"{res.returncode}, stdout {res.stdout[-2000:]!r}, stderr "
+                f"{res.stderr[-3000:]}")
+        tag = " ".join(argv) or "--config default"
+        print(f"  [{card}] python -m fxtpu_torch.bench {tag}: "
+              f"{json.dumps(line)} ({wall:.1f} s)", flush=True)
+        out[tag] = dict(line, wall_s=wall)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3867,6 +4033,39 @@ def main() -> int:
             errs["fx_parts_reduce"] = tuple(map(
                 max, errs["fx_parts_reduce"],
                 compare_reduce(case, k, device, int8)))
+    # the bench's largest calls, nearest the single pass's cap: every
+    # kernel its configurations launch; the FIR launch and the step's one
+    # C call at the largest K of each shape (each in both ingests)
+    step_cases = {}
+    for name, case, k, fir, int8 in bench_cases():
+        entry = BENCH_ROUTES[name][0].removesuffix("_svd")
+        print(f"  bench {name}: {entry} + fx_finish ({fir}) K={k} shape "
+              f"{case}", flush=True)
+        got, dc = compare_parts(case, k, device, fir, int8)
+        if entry not in got:
+            raise AssertionError(f"bench {name}: the single pass took "
+                                 f"{sorted(got)}, not {entry}")
+        for key, pair in got.items():
+            errs[key] = tuple(map(max, errs[key], pair))
+        dc_bin[entry] = max(dc_bin.get(entry, 0.0), dc)
+        if entry.startswith("fx_parts_wide"):
+            errs["fx_xstage"] = tuple(map(max, errs["fx_xstage"],
+                                          compare_xstage(case, k, device)))
+        else:
+            errs["fx_parts_reduce"] = tuple(map(
+                max, errs["fx_parts_reduce"],
+                compare_reduce(case, k, device, int8)))
+        key = (json.dumps(case, sort_keys=True), fir)
+        if k > step_cases.get(key, (0,))[0]:
+            step_cases[key] = (k, case, name)
+    for (_, fir), (k, case, name) in step_cases.items():
+        if fir == "svd":
+            errs["fir_rows"] = tuple(map(max, errs["fir_rows"],
+                                         compare_fir_rows(case, k, fir,
+                                                          device)))
+        d, f, route = compare_step(case, k, fir, False, device)
+        step_diff, step_fin = max(step_diff, d), max(step_fin, f)
+        step_routes[f"bench_{name}"] = route
     for case, k in ((SMALL, 3), (FLAGSHIP, 2), (SMALL_DEEP, 3),
                     (DEEP_CLI, 2), (WIDEBAND, 1)):
         print(f"  fx_ablate K={k} shape {case}", flush=True)
@@ -3959,6 +4158,16 @@ def main() -> int:
         bench_counts, surface = run_scaling_bench(card)
         main_counts += bench_counts
         surface["observe_example"] = run_observe_example(tmp, card)
+        phase("phase 3: the bench (fxtpu_torch.bench: every configuration "
+              "in this process, then python -m fxtpu_torch.bench)")
+        t_bench = time.perf_counter()
+        bench_counts, bench_lines = run_bench_configs(card)
+        main_counts += bench_counts
+        bench_record = {"configs": bench_lines,
+                        "module": run_bench_module(tmp, card)}
+        bench_record["seconds"] = time.perf_counter() - t_bench
+        print(f"  the bench phase: {bench_record['seconds']:.1f} s",
+              flush=True)
     # the single-pass entries' launches on the main path, both FIR modes
     for name in ("fx_parts", "fx_parts_i8", "fx_parts_wide",
                  "fx_parts_wide_i8"):
@@ -4532,6 +4741,7 @@ def main() -> int:
                                  f"{missing} or never launched")
     print(f"  whole run {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"scaling_bench": surface, "card": card}), flush=True)
+    print(json.dumps({"bench": bench_record, "card": card}), flush=True)
     print(json.dumps({"stage_table": table, "card": card,
                       "build_seconds": cuda_build.build_seconds}),
           flush=True)

@@ -220,7 +220,8 @@ def make_fx_multi_step(*, mode: str, nbins: int, window2d: np.ndarray,
     def multi_fused(iq, delays, history):
         s_rows = iq.shape[2]
         if s_rows not in consts:
-            consts[s_rows] = dc_constants(window2d, nbins, s_rows, device)
+            consts[s_rows] = dc_constants(window2d, nbins, s_rows, device,
+                                          svd)
         return fx_fused_step(iq, history, w, pairs_dev, consts[s_rows],
                              delays, tables, bandwidth, continuum,
                              quant_step, svd, pool=pool)

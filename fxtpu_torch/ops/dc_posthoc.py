@@ -55,7 +55,8 @@ def _constants(w_bytes: bytes, ntaps: int, nbins: int, s_rows: int):
             cbb.astype(np.float32))
 
 
-def dc_constants(window2d, nbins: int, s_rows: int, device="cpu"):
+def dc_constants(window2d, nbins: int, s_rows: int, device="cpu",
+                 svd=None):
     """The window's constants for :func:`dc_correct`, natural bin order,
     on ``device``: ``(abar [nbins] c64, dA [ntaps-1, nbins] c64 = A_j -
     Abar, cs [nbins] f32 = sum_f |A[f]|^2, cab [nbins] c64 = sum_j A_j
@@ -63,7 +64,18 @@ def dc_constants(window2d, nbins: int, s_rows: int, device="cpu"):
     of ``s_rows >= ntaps-1`` frames.  ``cs`` serves the corrected-tail
     history contract; ``cab`` and ``cbb`` the raw-tail one, where the
     first frames also carry ``mu_prev (Abar - A_j)`` from the previous
-    block's uncorrected rows."""
+    block's uncorrected rows.
+
+    ``svd``: the SVD-FIR mode's factors ``(u [ntaps, r], v [r, nbins])``.
+    That FIR applies the window ``u v``, not ``window2d``, so the
+    constants are taken of ``u v`` (in float64): the correction then
+    removes what the FIR made of the mean, whatever the mean.  Constants
+    of ``window2d`` would leave ``mu (A(u v) - A(window2d))`` in every
+    frame, a residue that grows with the mean."""
+    if svd is not None:
+        u, v = (np.asarray(torch.as_tensor(a).detach().cpu(), np.float64)
+                for a in svd)
+        window2d = u @ v
     w = np.ascontiguousarray(np.asarray(window2d, np.float64))
     ntaps = w.size // nbins
     if w.size != ntaps * nbins or s_rows < ntaps - 1:

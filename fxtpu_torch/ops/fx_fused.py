@@ -939,13 +939,13 @@ def _parts_from_rows(rows, hist, x_shape, window2d, pairs, svd, consts):
             gj.permute(1, 0, 2).contiguous())
 
 
-def _parts_consts(consts, window2d, nbins, s_rows, device):
-    """``consts``, or the window's constants formed now (a copy of the
-    window to the host: callers on the card pass them in)."""
+def _parts_consts(consts, window2d, nbins, s_rows, device, svd):
+    """``consts``, or the constants of the window the FIR applies formed
+    now (a copy to the host: callers on the card pass them in)."""
     if consts is not None:
         return consts
     return dc_constants(window2d.detach().cpu().numpy(), nbins, s_rows,
-                        device)
+                        device, svd)
 
 
 def fx_fused_parts_reference(x: torch.Tensor, history: torch.Tensor,
@@ -955,7 +955,7 @@ def fx_fused_parts_reference(x: torch.Tensor, history: torch.Tensor,
     :func:`fx_fused_parts`."""
     nch, k, s_rows, nbins = x.shape
     halo = window2d.shape[0] - 1
-    consts = _parts_consts(consts, window2d, nbins, s_rows, x.device)
+    consts = _parts_consts(consts, window2d, nbins, s_rows, x.device, svd)
     xp, t, gj = _parts_from_rows(x.reshape(nch, k * s_rows, nbins), history,
                                  x.shape, window2d, pairs, svd, consts)
     mu = x.mean(dim=(-2, -1)).T.contiguous()                  # [K, nch]
@@ -969,7 +969,7 @@ def fx_fused_parts_i8_reference(x: torch.Tensor, tail: torch.Tensor,
     """The single pass over 8-bit samples in plain torch, same contract
     as :func:`fx_fused_parts_i8`."""
     nch, k, s_rows, nbins = x.shape[:4]
-    consts = _parts_consts(consts, window2d, nbins, s_rows, x.device)
+    consts = _parts_consts(consts, window2d, nbins, s_rows, x.device, svd)
     rows = dequantize(x, quant_step).reshape(nch, k * s_rows, nbins)
     xp, t, gj = _parts_from_rows(rows, dequantize(tail, quant_step),
                                  x.shape[:4], window2d, pairs, svd, consts)
@@ -995,7 +995,7 @@ def fx_fused_parts_wide_reference(x: torch.Tensor, history: torch.Tensor,
     imaginary part), as the CUDA route composes them."""
     nch, k, s_rows, nbins = x.shape
     halo = window2d.shape[0] - 1
-    consts = _parts_consts(consts, window2d, nbins, s_rows, x.device)
+    consts = _parts_consts(consts, window2d, nbins, s_rows, x.device, svd)
     spec = _raw_spectra(x.reshape(nch, k * s_rows, nbins), history, x.shape,
                         window2d, svd)
     mu = x.mean(dim=(-2, -1)).T.contiguous()                  # [K, nch]
@@ -1011,7 +1011,7 @@ def fx_fused_parts_i8_wide_reference(x: torch.Tensor, tail: torch.Tensor,
     :func:`fx_fused_parts_i8` (:func:`fx_fused_parts_wide_reference`'s
     composition)."""
     nch, k, s_rows, nbins = x.shape[:4]
-    consts = _parts_consts(consts, window2d, nbins, s_rows, x.device)
+    consts = _parts_consts(consts, window2d, nbins, s_rows, x.device, svd)
     rows = dequantize(x, quant_step).reshape(nch, k * s_rows, nbins)
     spec = _raw_spectra(rows, dequantize(tail, quant_step), x.shape[:4],
                         window2d, svd)
@@ -1361,7 +1361,7 @@ def fx_fused_parts(x: torch.Tensor, history: torch.Tensor,
         return fx_fused_parts_reference(x, history, window2d, pairs, svd,
                                         consts)
     consts = _parts_consts(consts, window2d, x.shape[-1], x.shape[-2],
-                           x.device)
+                           x.device, svd)
     rank, route = _check_parts(x, history, window2d, pairs, svd, consts,
                                x_stage=x_stage)
     out = _launch_parts(x, history, window2d, pairs, svd, consts, None,
@@ -1406,7 +1406,7 @@ def fx_fused_parts_i8(x: torch.Tensor, tail: torch.Tensor,
                                            quant_step, svd, consts)
     quant_step = float(quant_step)
     consts = _parts_consts(consts, window2d, x.shape[-2], x.shape[-3],
-                           x.device)
+                           x.device, svd)
     rank, route = _check_parts(x, tail, window2d, pairs, svd, consts,
                                quant_step, x_stage)
     out = _launch_parts(x, tail, window2d, pairs, svd, consts, quant_step,

@@ -75,12 +75,12 @@ def _constants(window2d, pairs, nbins: int, s_rows: int, svd_applies):
     nch = int(pairs.max()) + 1
 
     def build(device):
+        svd = _svd_mode(window2d, nbins, device) if svd_applies else None
         return types.SimpleNamespace(
             w=torch.as_tensor(np.asarray(window2d, np.float32),
                               device=device),
             pairs=pairs_tensor(pairs, nch, device),
-            dc=dc_constants(window2d, nbins, s_rows, device),
-            svd=_svd_mode(window2d, nbins, device) if svd_applies else None)
+            dc=dc_constants(window2d, nbins, s_rows, device, svd), svd=svd)
 
     return _OnDevice(build)
 

@@ -355,7 +355,7 @@ class Case:
         self.nch, self.k, self.nbins, self.ntaps = nch, k, nbins, ntaps
         self.s_rows = num_samp // nbins
         self.consts = dc_constants(self.w.cpu().numpy(), nbins, self.s_rows,
-                                   device)
+                                   device, self.svd)
         nbl = self.pairs.shape[0]
         rows = nbl + 2 * nch
         c64 = dict(dtype=torch.complex64, device=device)
@@ -549,7 +549,7 @@ class StepCase:
         pairs_np = baseline_pairs(nch, include_autos=autos)
         pairs = ff.pairs_tensor(pairs_np, nch, device)
         s_rows = num_samp // nbins
-        consts = dc_constants(w.cpu().numpy(), nbins, s_rows, device)
+        consts = dc_constants(w.cpu().numpy(), nbins, s_rows, device, svd)
         tables = fe.FinishTables(pairs_np, nbins, 2.4e6, 1.4204e9, device)
         d = (np.tile(np.arange(nch) * 2e-6, (k, 1))
              + 1e-7 * np.arange(k)[:, None])
