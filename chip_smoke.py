@@ -16,9 +16,10 @@ samples at 8192 bins and 32 taps) and ``bench.py``'s ``bench_pipeline``
 Phases (any failure raises and exits non-zero, with no ``ok`` line):
 
 1. print the card (``nvidia-smi`` name and power limit), the torch, CUDA
-   and nvcc versions and whether ``native/libfxring.so`` (the host ring
-   buffer and quantizer) is present, then build the CUDA kernels from
-   ``fxtpu_torch/csrc``;
+   and nvcc versions, then build the CUDA kernels from
+   ``fxtpu_torch/csrc`` and the host library (the ring buffer and the
+   int8 loops) from ``fxtpu_torch/csrc/host`` with ``g++``, printing the
+   compiler's version, the build's seconds and the file;
 2. hold each kernel entry against its plain torch version on the card,
    over 3 chained blocks from a fresh history: the fused FX step in the
    direct-loop mode (``fx_fused``, ``fx_fused_i8``) at nbins=256 with 3
@@ -119,7 +120,21 @@ Phases (any failure raises and exits non-zero, with no ``ok`` line):
    then ``bench_pipeline``'s configuration through the Correlator
    (looping replay, CONTINUUM, ``buffer_chunks`` 32) for 4 s at K = 8 and
    at K = 1 in each ingest, counted the same way, under a CUDA-only
-   ``torch.profiler`` trace for the device's busy share; then the
+   ``torch.profiler`` trace for the device's busy share (the launches
+   whose device record the tracer lost counted beside it); every CLI and
+   pipeline run must have gone through the native host plane (every ring
+   a ``NativeRingBuffer``, a feeder a channel on the zero-copy producer,
+   the aligner gathering through views); then the host data plane alone:
+   ``bench_host_pipeline``'s configuration (2 channels x 2^21 samples, a
+   feeder a channel, both ingests) on the native plane and on Python rings
+   with numpy's quantizer, A B B A, 3 s a run (Msamp/s and GB/s, median
+   and spread), then each host stage alone on one such block (the
+   source's read, the quantize, the ring's ``put`` against ``reserve`` +
+   ``commit``, the aligner's views against ``get`` + ``np.stack``, the
+   staging copy into pinned memory by torch's ``copy_`` against
+   ``np.copyto``, the copy to the card by CUDA events; median of 12 on
+   one thread), each reading with the host's CPU, cores, load average and
+   torch's threads beside it, on a ``host_plane`` JSON line; then the
    two-pass entries, which the engine no longer calls, as a caller
    composes a step from them (``fx_fused_raw*`` and the plain ``finish``:
    3 blocks one at a time, 2 batches of 8, both ingests, 4 and 32 taps),
@@ -280,6 +295,7 @@ line, ``{"ok": true, "device": {...}}``.
 
 import json
 import os
+import resource
 import statistics
 import subprocess
 import sys
@@ -1379,6 +1395,7 @@ def run_cli(tmpdir, name, ingest, extra=()):
             cor.bufs[0].dtype == np.int8
             and cor.bufs[0].block_shape == (cor.config.num_samp, 2)):
         raise AssertionError("the int8 run's rings are not int8")
+    host_plane_state(cor, name)
     return cor, out, counts
 
 
@@ -1885,20 +1902,31 @@ def time_bins(device):
 
 
 def device_busy(prof, path):
-    """(busy ms, kernel ms, copy ms, first-to-last span ms) of the device
-    in a ``torch.profiler`` trace: the union of its kernels', copies' and
-    memsets' spans, and the sums of each."""
+    """(busy ms, kernel ms, copy ms, first-to-last span ms, launches the
+    host made, launches without their device record) of the device in a
+    ``torch.profiler`` trace: the union of its kernels', copies' and
+    memsets' spans, and the sums of each.  Records are matched to the
+    host's launching calls by ``correlation``, the rule of
+    ``probes.common.device_events`` (B.4): the tracer can lose device
+    records, and a busy share over a trace that lost some reads low, so
+    the count of lost records stands beside it."""
+    from fxtpu_torch.probes.common import LAUNCH_CALLS
     prof.export_chrome_trace(path)
     with open(path) as fh:
         events = json.load(fh)["traceEvents"]
+    device = [e for e in events
+              if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    launched = {e["args"]["correlation"] for e in events
+                if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and e["name"].startswith(LAUNCH_CALLS)}
+    recorded = {e["args"]["correlation"] for e in device}
     spans, kern, copy = [], 0.0, 0.0
-    for e in events:
-        if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"):
-            spans.append((e["ts"], e["ts"] + e["dur"]))
-            if e["cat"] == "kernel":
-                kern += e["dur"]
-            elif e["cat"] == "gpu_memcpy":
-                copy += e["dur"]
+    for e in device:
+        spans.append((e["ts"], e["ts"] + e["dur"]))
+        if e["cat"] == "kernel":
+            kern += e["dur"]
+        elif e["cat"] == "gpu_memcpy":
+            copy += e["dur"]
     if not spans:
         raise AssertionError("the profiler saw no device work")
     spans.sort()
@@ -1912,7 +1940,8 @@ def device_busy(prof, path):
             hi = max(hi, b)
     busy += hi - lo
     last = max(b for _, b in spans)
-    return busy / 1e3, kern / 1e3, copy / 1e3, (last - first) / 1e3
+    return (busy / 1e3, kern / 1e3, copy / 1e3, (last - first) / 1e3,
+            len(launched), len(launched - recorded))
 
 
 def run_pipeline(tmpdir, rec, ingest, k):
@@ -1952,7 +1981,7 @@ def run_pipeline(tmpdir, rec, ingest, k):
     if (data.shape[0] != n or not np.isfinite(data).all()
             or md["mode"] != "CONTINUUM"):
         raise AssertionError(f"pipeline CSV {data.shape} for {n} blocks")
-    busy, kern, copy, span = device_busy(
+    busy, kern, copy, span, host_launches, lost = device_busy(
         prof, os.path.join(tmpdir, f"trace_{ingest}_{k}.json"))
     r = cor.metrics.rates(since="steady", until="end")
     res = {"k": k, "blocks": n, "blocks_per_s": r["blocks_per_s"],
@@ -1960,15 +1989,20 @@ def run_pipeline(tmpdir, rec, ingest, k):
            "steady_s": r["elapsed_s"], "wall_s": wall,
            "device_busy_ms": busy, "busy_share": busy / (wall * 1e3),
            "kernel_ms_per_block": kern / n, "copy_ms_per_block": copy / n,
-           "device_span_ms": span, "launches": counts}
+           "device_span_ms": span, "launches": counts,
+           "host_launches": host_launches, "lost_records": lost,
+           "host_plane": host_plane_state(cor, f"pipeline {ingest} K={k}"),
+           "host": host_info()}
     print(f"  pipeline {ingest} K={k}: {n} blocks, "
           f"{res['blocks_per_s']:.4f} blocks/s, "
           f"{res['msamp_per_s']:.4f} Msamp/s steady over "
           f"{r['elapsed_s']:.3f} s; device busy {busy:.3f} ms of "
-          f"{wall:.3f} s ({100 * res['busy_share']:.4f}%), kernels "
+          f"{wall:.3f} s ({100 * res['busy_share']:.4f}%; {lost} of "
+          f"{host_launches} launches without a device record), kernels "
           f"{res['kernel_ms_per_block']:.4f} ms/block, copies "
           f"{res['copy_ms_per_block']:.4f} ms/block; "
-          f"{cor.metrics.report()}", flush=True)
+          f"{cor.metrics.report()}; host {json.dumps(res['host'])}",
+          flush=True)
     return res
 
 
@@ -3806,6 +3840,362 @@ def run_observe_example(tmp, card):
 
 
 # --------------------------------------------------------------------------
+# The host data plane (fxtpu_torch/csrc/host: the native rings and loops)
+# --------------------------------------------------------------------------
+
+HOST_POW = 21        # bench_host_pipeline's block: 2 channels x 2^21 samples
+HOST_NCH = 2
+HOST_NBINS = 4096    # the staging buffer's frames, as bench_host_pipeline's
+HOST_AB_S = 3.0      # seconds of each run of the native / Python A/B
+HOST_REPEATS = 12    # calls of each stage alone; the median is kept
+
+
+def host_info() -> dict:
+    """The host beside a host reading: its CPU (``/proc/cpuinfo``'s model
+    name, family and model number: a virtual machine may name its CPU
+    "unknown"), its logical cores, the load average and torch's CPU
+    threads."""
+    import platform
+
+    import torch
+    cpu = {"model name": platform.processor() or platform.machine()}
+    try:
+        with open("/proc/cpuinfo") as fh:
+            for line in fh:
+                key, _, value = line.partition(":")
+                key = key.strip()
+                if key in ("model name", "cpu family", "model"):
+                    cpu.setdefault(key + " (cpuinfo)", value.strip())
+    except OSError:
+        pass
+    model = cpu.get("model name (cpuinfo)", cpu["model name"])
+    if "cpu family (cpuinfo)" in cpu:
+        model += (f" (family {cpu['cpu family (cpuinfo)']}, model "
+                  f"{cpu.get('model (cpuinfo)', '?')})")
+    return {"cpu": model, "cores": os.cpu_count(),
+            "loadavg": [round(x, 2) for x in os.getloadavg()],
+            "torch_threads": torch.get_num_threads()}
+
+
+def host_library_line() -> dict:
+    """(a) The port's host library, built from ``fxtpu_torch/csrc/host``
+    at first use (or loaded when this machine built it before): prints
+    the compiler's version, the build's seconds (0 when cached) and the
+    file.  Raises when there is no C++ compiler or the build fails."""
+    from fxtpu_torch import host_build
+    from fxtpu_torch.runtime import native
+    cxx = host_build.compiler()
+    if cxx is None or not native.native_available():
+        raise AssertionError("no C++ compiler ($CXX or g++): the port's "
+                             "host library cannot be built")
+    rec = {"compiler": host_build.compiler_version(cxx),
+           "command": " ".join(cxx + host_build.CXX_FLAGS),
+           "build_s": host_build.build_seconds,
+           "file": host_build.loaded_path.name}
+    print(f"  host library {rec['file']}: {rec['compiler']}, build "
+          f"{rec['build_s']:.2f} s ({rec['command']})", flush=True)
+    for line in host_build.build_log.splitlines():
+        print(f"    {line.rstrip()}", flush=True)
+    return rec
+
+
+def host_plane_state(cor, tag) -> dict:
+    """(b) The host plane a Correlator's run went through: every ring a
+    ``NativeRingBuffer``, a feeder a channel (the synthetic and replay
+    sources split), each on the zero-copy producer, and the aligner
+    gathering through views.  Raises otherwise."""
+    from fxtpu_torch.runtime.native import NativeRingBuffer
+    per_channel = [f for f in cor.feeders if len(f.bufs) == 1]
+    state = {"rings": sorted({type(b).__name__ for b in cor.bufs}),
+             "feeders": len(cor.feeders), "per_channel": len(per_channel),
+             "zero_copy": [f.zero_copy for f in cor.feeders],
+             "aligner_views": cor.aligner._views}
+    print(f"  [{tag}] host plane: rings {state['rings']}, "
+          f"{state['feeders']} feeders ({state['per_channel']} a channel), "
+          f"zero_copy {state['zero_copy']}, aligner views "
+          f"{state['aligner_views']}", flush=True)
+    if (not all(type(b) is NativeRingBuffer for b in cor.bufs)
+            or len(per_channel) != cor.config.nchan
+            or not all(f.zero_copy for f in cor.feeders)
+            or not cor.aligner._views):
+        raise AssertionError(f"{tag}: the run's host plane is not the "
+                             f"native one: {state}")
+    return state
+
+
+def host_pipeline_run(rec, ingest, native_plane, seconds=HOST_AB_S):
+    """(c) ``bench_host_pipeline``'s configuration (a looping replay of
+    ``rec``, a feeder a channel, rings of 8 blocks, the aligner, the
+    staging copy into pinned memory by torch's ``copy_``; no copy to the
+    card) for ``seconds``, on the native plane (native rings, the
+    zero-copy producer, the native quantizer) or on the Python plane
+    (``make_ring(..., prefer_native=False)``: Python rings and ``put``,
+    numpy's quantizer).  Raises unless the run took the plane it was
+    asked for and dropped nothing.  Returns its rates and the process's
+    CPU time over the run's wall time (``cores_busy``)."""
+    import torch
+
+    from fxtpu_torch.runtime.feeder import BlockAligner, Feeder
+    from fxtpu_torch.runtime.native import (NativeRingBuffer, make_ring,
+                                            quantize_c64_numpy)
+    from fxtpu_torch.runtime.ringbuffer import RingBuffer
+    from fxtpu_torch.sources import QuantizedSource, ReplaySource
+
+    class NumpyQuantizedSource(QuantizedSource):
+        """A QuantizedSource through numpy's ufunc chain."""
+
+        def _quantize(self, block, out=None):
+            return quantize_c64_numpy(
+                np.ascontiguousarray(block, dtype=np.complex64),
+                self.quant_step, out=out)
+
+    num_samp, int8 = 2 ** HOST_POW, ingest == "int8"
+    iq = (2,) if int8 else ()
+    frames = num_samp // HOST_NBINS
+    stage = torch.empty((HOST_NCH, frames, HOST_NBINS, *iq),
+                        dtype=torch.int8 if int8 else torch.complex64,
+                        pin_memory=True)
+    wrap = QuantizedSource if native_plane else NumpyQuantizedSource
+
+    def source(c):
+        src = ReplaySource(rec, loop=True).select_channels([c])
+        return wrap(src) if int8 else src
+
+    bufs = [make_ring(8, (num_samp, *iq), np.int8 if int8 else np.complex64,
+                      prefer_native=native_plane) for _ in range(HOST_NCH)]
+    feeders = [Feeder(source(c), [bufs[c]], num_samp)
+               for c in range(HOST_NCH)]
+    aligner = BlockAligner(bufs)
+    for f in feeders:
+        f.start()
+    blocks = 0
+    cpu0 = resource.getrusage(resource.RUSAGE_SELF)
+    try:
+        t0 = time.perf_counter()
+        deadline = t0 + seconds
+        while time.perf_counter() < deadline:
+            block = aligner.get(timeout=1.0)
+            if block is None:
+                break
+            framed = block[:, : frames * HOST_NBINS].reshape(stage.shape)
+            stage.copy_(torch.from_numpy(framed))
+            blocks += 1
+        dt = time.perf_counter() - t0
+        cpu1 = resource.getrusage(resource.RUSAGE_SELF)
+    finally:
+        for f in feeders:
+            f.stop()
+        for f in feeders:
+            f.join(5.0)
+    cpu_s = (cpu1.ru_utime + cpu1.ru_stime) - (cpu0.ru_utime + cpu0.ru_stime)
+    kind = NativeRingBuffer if native_plane else RingBuffer
+    zero_copy = [f.zero_copy for f in feeders]
+    drops = sum(b.drops for b in bufs)
+    if (not all(type(b) is kind for b in bufs)
+            or zero_copy != [native_plane] * HOST_NCH
+            or not aligner._views or blocks < 2 or drops
+            or any(f.alive for f in feeders)):
+        raise AssertionError(
+            f"host pipeline {ingest} native={native_plane}: rings "
+            f"{[type(b).__name__ for b in bufs]}, zero_copy {zero_copy}, "
+            f"views {aligner._views}, {blocks} blocks, {drops} drops, "
+            f"feeders alive {[f.alive for f in feeders]}")
+    rate = blocks * HOST_NCH * num_samp / dt
+    return {"msamp_per_s": rate / 1e6,
+            "gb_per_s": rate * (2 if int8 else 8) / 1e9,
+            "blocks": blocks, "seconds": dt, "rings": kind.__name__,
+            "zero_copy": zero_copy, "cores_busy": cpu_s / dt,
+            "host": host_info()}
+
+
+def host_pipeline_ab(rec, card) -> dict:
+    """(c) The host pipeline on the native plane (A) and on the Python
+    plane (B), A B B A in each ingest, in this process: each run's
+    Msamp/s and GB/s with the host beside it, then each plane's median and
+    spread (largest less smallest)."""
+    out = {}
+    for ingest in ("complex64", "int8"):
+        runs = {"native": [], "python": []}
+        for plane in ("native", "python", "python", "native"):
+            r = host_pipeline_run(rec, ingest, plane == "native")
+            runs[plane].append(r)
+            print(f"  [{card}] host pipeline {ingest} {plane}: "
+                  f"{r['msamp_per_s']:.4f} Msamp/s, {r['gb_per_s']:.4f} "
+                  f"GB/s ({r['blocks']} blocks in {r['seconds']:.3f} s, "
+                  f"the process's CPU time {r['cores_busy']:.3f} cores); "
+                  f"host {json.dumps(r['host'])}", flush=True)
+        summary = {}
+        for plane, rs in runs.items():
+            ms = [r["msamp_per_s"] for r in rs]
+            gb = [r["gb_per_s"] for r in rs]
+            summary[plane] = {
+                "msamp_per_s": statistics.median(ms),
+                "msamp_per_s_spread": max(ms) - min(ms),
+                "gb_per_s": statistics.median(gb),
+                "gb_per_s_spread": max(gb) - min(gb), "runs": rs}
+        nat, py = summary["native"], summary["python"]
+        print(f"  [{card}] host pipeline {ingest}, median (spread): native "
+              f"{nat['msamp_per_s']:.4f} ({nat['msamp_per_s_spread']:.4f}) "
+              f"Msamp/s, {nat['gb_per_s']:.4f} GB/s; python "
+              f"{py['msamp_per_s']:.4f} ({py['msamp_per_s_spread']:.4f}) "
+              f"Msamp/s, {py['gb_per_s']:.4f} GB/s; native / python "
+              f"{nat['msamp_per_s'] / py['msamp_per_s']:.4f}", flush=True)
+        out[ingest] = summary
+    return out
+
+
+def time_host(fn, before=None, n=HOST_REPEATS, warm=2):
+    """Median ms of ``fn()`` by the host clock over ``n`` calls after
+    ``warm``, on this thread; ``before()`` runs untimed before each."""
+    times = []
+    for i in range(warm + n):
+        if before is not None:
+            before()
+        t0 = time.perf_counter()
+        fn()
+        dt = (time.perf_counter() - t0) * 1e3
+        if i >= warm:
+            times.append(dt)
+    return statistics.median(times)
+
+
+def host_stages(rec, ingest, device, card) -> dict:
+    """(d) Each stage of the host plane alone on one pipeline block (2 x
+    2^21 samples), on this thread, the median of HOST_REPEATS calls: the
+    source's read (``read_block``, and ``read_block_into`` a reserved
+    slot a channel), the quantize (int8: native and numpy, into a buffer
+    made before), the ring (``put`` against ``reserve`` + ``commit``),
+    the aligner's gather (views against ``get`` + ``np.stack``), the
+    staging copy into pinned memory (torch's ``copy_``, the
+    ``prepare_block`` route, against ``np.copyto``, the ``prepare_batch``
+    route) and the copy of the staged block to the card (CUDA events).
+    GB/s: the bytes a stage reads and writes (each once) over its time;
+    the copy to the card counts the block once.  Each reading prints with
+    the host beside it."""
+    import torch
+
+    from fxtpu_torch.runtime.feeder import BlockAligner
+    from fxtpu_torch.runtime.native import (NativeRingBuffer, quantize_c64,
+                                            quantize_c64_numpy)
+    from fxtpu_torch.sources import QuantizedSource, ReplaySource
+    num_samp, int8 = 2 ** HOST_POW, ingest == "int8"
+    iq = (2,) if int8 else ()
+    dtype = np.int8 if int8 else np.complex64
+    c64 = HOST_NCH * num_samp * 8            # the block as complex64
+    q8 = HOST_NCH * num_samp * 2             # and as int8 pairs
+    blk = q8 if int8 else c64                # the rings' block
+    frames = num_samp // HOST_NBINS
+
+    def source(channels=None):
+        src = ReplaySource(rec, loop=True)
+        if channels is not None:
+            src = src.select_channels(channels)
+        return QuantizedSource(src, STEP) if int8 else src
+
+    whole = source()
+    splits = [source([c]) for c in range(HOST_NCH)]
+    rings = [NativeRingBuffer(4, (num_samp, *iq), dtype)
+             for _ in range(HOST_NCH)]
+    block = whole.read_block(num_samp)
+    stages = {}   # name -> (ms, bytes read and written)
+    stages["read_block"] = (time_host(lambda: whole.read_block(num_samp)),
+                            3 * c64 + q8 if int8 else 2 * c64)
+    slots = [r.reserve(timeout=1.0) for r in rings]   # left uncommitted
+
+    def read_into():
+        for src, slot in zip(splits, slots):
+            src.read_block_into(slot, num_samp)
+
+    stages["read_block_into"] = (time_host(read_into),
+                                 3 * c64 + q8 if int8 else 2 * c64)
+    if int8:
+        samples = ReplaySource(rec).read_block(num_samp)
+        qout = np.empty((*samples.shape, 2), np.int8)
+        stages["quantize_native"] = (time_host(
+            lambda: quantize_c64(samples, STEP, out=qout)), c64 + q8)
+        stages["quantize_numpy"] = (time_host(
+            lambda: quantize_c64_numpy(samples, STEP, out=qout)), c64 + q8)
+
+    def drain():
+        for r in rings:
+            while r.qsize():
+                r.get_view(timeout=1.0)
+                r.release()
+
+    def put():
+        for c, r in enumerate(rings):
+            r.put(block[c], timeout=1.0)
+
+    def reserve_commit():
+        for r in rings:
+            r.reserve(timeout=1.0)
+            r.commit()
+
+    drain()
+    stages["ring_put"] = (time_host(put, before=drain), 2 * blk)
+    stages["ring_reserve_commit"] = (time_host(reserve_commit, before=drain),
+                                     0)
+    views, stacked = BlockAligner(rings), BlockAligner(rings)
+    stacked._views = False
+
+    def refill():
+        drain()
+        put()
+
+    stages["aligner_views"] = (time_host(lambda: views.get(timeout=1.0),
+                                         before=refill), 2 * blk)
+    stages["aligner_get_stack"] = (time_host(
+        lambda: stacked.get(timeout=1.0), before=refill), 4 * blk)
+    refill()
+    gathered = views.get(timeout=1.0)
+    stage = torch.empty((HOST_NCH, frames, HOST_NBINS, *iq),
+                        dtype=torch.int8 if int8 else torch.complex64,
+                        pin_memory=True)
+    framed = gathered[:, : frames * HOST_NBINS].reshape(stage.shape)
+    stages["stage_torch_copy"] = (time_host(
+        lambda: stage.copy_(torch.from_numpy(framed))), 2 * blk)
+    stages["stage_np_copyto"] = (time_host(
+        lambda: np.copyto(stage.numpy(), framed)), 2 * blk)
+    on_card = torch.empty(stage.shape, dtype=stage.dtype, device=device)
+    ms = []
+    for i in range(2 + HOST_REPEATS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        on_card.copy_(stage, non_blocking=True)
+        end.record()
+        torch.cuda.synchronize()
+        if i >= 2:
+            ms.append(start.elapsed_time(end))
+    stages["h2d"] = (statistics.median(ms), blk)
+    if not torch.equal(on_card.cpu(), stage):
+        raise AssertionError("the staged block did not reach the card whole")
+    out = {}
+    for name, (ms_, nbytes) in stages.items():
+        rec_ = {"ms": ms_, "bytes": nbytes,
+                "gb_per_s": nbytes / (ms_ * 1e6) if nbytes else None,
+                "host": host_info()}
+        out[name] = rec_
+        rate = (f"{rec_['gb_per_s']:.4f} GB/s" if nbytes
+                else "no bytes moved")
+        print(f"  [{card}] host stage {ingest} {name}: {ms_:.4f} ms a "
+              f"block, {rate} ({nbytes} B); host {json.dumps(rec_['host'])}",
+              flush=True)
+    for r in rings:
+        r.close()
+    return out
+
+
+def run_host_plane(rec, device, card) -> dict:
+    """(c) and (d): the native plane against the Python plane, then each
+    stage alone, in each ingest."""
+    record = {"ab": host_pipeline_ab(rec, card)}
+    record["stages"] = {ingest: host_stages(rec, ingest, device, card)
+                        for ingest in ("complex64", "int8")}
+    return record
+
+
+# --------------------------------------------------------------------------
 # The bench (python -m fxtpu_torch.bench, the port of bench.py) on the card
 # --------------------------------------------------------------------------
 
@@ -3947,11 +4337,6 @@ def main() -> int:
           f"{nvcc_version()}, python {sys.version.split()[0]}", flush=True)
     device = torch.device("cuda", 0)
 
-    native_lib = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                              "native", "libfxring.so")
-    print(f"native/libfxring.so present: {os.path.exists(native_lib)}",
-          flush=True)
-
     def phase(title):
         print(f"{title} [{time.perf_counter() - t_start:.1f} s]", flush=True)
 
@@ -3965,6 +4350,7 @@ def main() -> int:
     for line in cuda_build.build_log.splitlines():
         if "registers" in line or "bytes stack" in line or "Compiling" in line:
             print(f"  {line.strip()}", flush=True)
+    host_record = {"library": host_library_line()}
 
     phase("phase 2: kernels against their plain versions")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4149,6 +4535,9 @@ def main() -> int:
             for k in (MULTI_K, 1):
                 pipe[f"{ingest}_k{k}"] = run_pipeline(tmp, rec, ingest, k)
                 main_counts.append(pipe[f"{ingest}_k{k}"]["launches"])
+        phase("phase 3: the host data plane (fxtpu_torch/csrc/host): "
+              "native against Python, A B B A, then each stage alone")
+        host_record.update(run_host_plane(rec, device, card))
         phase("phase 3: scale-out (fxtpu_torch.parallel: meshes of shards "
               "on the card, two processes)")
         scale_counts, scaleout = run_scaleout(tmp, device, card)
@@ -4742,6 +5131,7 @@ def main() -> int:
     print(f"  whole run {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"scaling_bench": surface, "card": card}), flush=True)
     print(json.dumps({"bench": bench_record, "card": card}), flush=True)
+    print(json.dumps({"host_plane": host_record, "card": card}), flush=True)
     print(json.dumps({"stage_table": table, "card": card,
                       "build_seconds": cuda_build.build_seconds}),
           flush=True)

@@ -44,7 +44,7 @@ from fxtpu_torch.correlator import Correlator
 from fxtpu_torch.fx import FxEngine
 from fxtpu_torch.ops.xengine import pack_delays
 from fxtpu_torch.runtime.feeder import BlockAligner, Feeder
-from fxtpu_torch.runtime.native import make_ring
+from fxtpu_torch.runtime.native import make_ring, require_native
 from fxtpu_torch.sources import (NoiseSource, QuantizedSource, ReplaySource,
                                  save_recording)
 
@@ -325,6 +325,7 @@ def bench_host_pipeline(block_pow: int = 21, nchan: int = 2,
     if device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("device 'cuda' requested but torch.cuda."
                            "is_available() is False; ask for 'cpu'")
+    require_native(device, "bench_host_pipeline's rings")
     num_samp = 2 ** block_pow
     int8 = ingest == "int8"
     iq = (2,) if int8 else ()

@@ -56,7 +56,7 @@ from fxtpu_torch.ops.xengine import pack_delays
 from fxtpu_torch.runtime import checkpoint
 from fxtpu_torch.runtime.feeder import BlockAligner, Feeder, StreamDrainTracker
 from fxtpu_torch.runtime.metrics import Metrics, profiler_trace
-from fxtpu_torch.runtime.native import make_ring
+from fxtpu_torch.runtime.native import make_ring, require_native
 from fxtpu_torch.runtime.stager import DeviceStager
 from fxtpu_torch.sources import make_source
 from fxtpu_torch.sources.base import Source
@@ -159,8 +159,8 @@ class Correlator:
                 "of each block", mesh.process_index, mesh.process_count,
                 *self.sample_span)
 
-        # --- host buffering (effex.py:105-110): native C++ ring when the
-        # shared library is built, Python fallback otherwise -------------
+        # --- host buffering (effex.py:105-110): the native C++ ring, built
+        # from csrc/host at first use (on the card it must be) -----------
         self._make_rings()
         self.feeders: list = []
 
@@ -212,6 +212,7 @@ class Correlator:
             shape, dtype = (local, 2), np.int8
         else:
             shape, dtype = (local,), np.complex64
+        require_native(cfg.device, "the Correlator's rings")
         self.bufs = [make_ring(cfg.buffer_chunks, shape, dtype=dtype)
                      for _ in range(cfg.nchan)]
         self.aligner = BlockAligner(self.bufs)

@@ -74,7 +74,7 @@ from fxtpu_torch.ops.svd_fir import deep_svd_applies
 from fxtpu_torch.ops.window import pfb_window
 from fxtpu_torch.ops.xengine import (baseline_pairs, continuum_reduce,
                                      fstc_rotate, xcorr_baselines)
-from fxtpu_torch.runtime.native import quantize_c64
+from fxtpu_torch.runtime.native import quantize_c64, require_native
 
 __all__ = ["make_fx_step", "make_fx_multi_step", "make_calibrator",
            "dc_remove", "FxEngine"]
@@ -327,6 +327,8 @@ class FxEngine:
                 "(--device cpu) to run on the CPU")
         self.fused = cfg.fused if fused is None else fused
         self._int8 = cfg.ingest_dtype == "int8"
+        if self._int8:
+            require_native(self.device, "the int8 engine's quantizer")
         self.window = pfb_window(cfg.ntaps, cfg.nbins, cfg.window)
         self.window2d = self.window.reshape(cfg.ntaps, cfg.nbins)
         self.pairs = baseline_pairs(cfg.nchan, cfg.include_autos)

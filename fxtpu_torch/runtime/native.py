@@ -1,93 +1,99 @@
-"""ctypes binding for the native C++ ring buffer (native/ringbuffer.cpp).
+"""ctypes binding for the port's host data-plane library.
 
-Same sequence/drop semantics as the Python :class:`~fxtpu_torch.runtime.ringbuffer.
-RingBuffer`; used for high-rate ingest (BASELINE config 4: >=100 MS/s) where
-the Python condition-variable lock dominates.  Falls back cleanly: callers
-use :func:`native_available` / :func:`make_ring` and get the Python
-implementation when the shared library hasn't been built
-(``make -C native``).  The library is the JAX package's own
-(``native/libfxring.so``).  Bound here: its ring buffer and the int8
-data-plane loops of int8 ingest (:func:`quantize_c64`,
-:func:`split_planes_i8`); its 4-bins-per-int32 packing is not, because it
-answered the TPU's element-bound copies and GPU loads are byte-addressed.
+The library is the port's own: ``fxtpu_torch/csrc/host/`` (a copy of
+``fxtpu``'s ``native/ringbuffer.cpp`` and of the int8 loops of its
+``native/dataplane.cpp``), compiled at first use by
+:mod:`fxtpu_torch.host_build` into ``build/fxtpu_torch/``; no ``make`` is
+needed.  Bound here: the lock-free ring buffer (:class:`NativeRingBuffer`,
+the same sequence/drop semantics as the Python
+:class:`~fxtpu_torch.runtime.ringbuffer.RingBuffer`, with the zero-copy
+producer ``reserve``/``commit``) and the int8 data-plane loops of int8
+ingest (:func:`quantize_c64`, :func:`split_planes_i8`).  ``fxtpu``'s
+4-bins-per-int32 packing is not, because it answered the TPU's
+element-bound copies and GPU loads are byte-addressed.
+
+:func:`native_available` builds the library on its first call and raises
+with the compiler's output when the build fails.  Only a machine with no
+C++ compiler gets False; there :func:`make_ring` returns the Python ring
+and the loops run their numpy expressions, as ``fxtpu`` does without its
+library.  The card's path never does: :func:`require_native` raises for a
+CUDA device when the library is missing.
 """
 
 from __future__ import annotations
 
 import ctypes
-import os
 from typing import Optional, Tuple
 
 import numpy as np
 
+from fxtpu_torch import host_build
 from fxtpu_torch.runtime.ringbuffer import BufferClosed, BufferFull, RingBuffer
-
-_LIB_PATHS = [
-    os.path.join(os.path.dirname(__file__), "..", "..", "native",
-                 "libfxring.so"),
-    os.path.join(os.path.dirname(__file__), "libfxring.so"),
-]
 
 _lib = None
 
 
+def _declare(lib):
+    """Set the argument and result types of the library's entries."""
+    P, I64, D = ctypes.c_void_p, ctypes.c_int64, ctypes.c_double
+    lib.rb_create.restype = P
+    lib.rb_create.argtypes = [I64, I64]
+    lib.rb_destroy.argtypes = [P]
+    for name in ("rb_size", "rb_drops", "rb_total_put"):
+        getattr(lib, name).restype = I64
+        getattr(lib, name).argtypes = [P]
+    lib.rb_close.argtypes = [P]
+    lib.rb_closed.restype = ctypes.c_int
+    lib.rb_closed.argtypes = [P]
+    lib.rb_put.restype = ctypes.c_int
+    lib.rb_put.argtypes = [P, P, I64, I64, D]
+    lib.rb_get.restype = ctypes.c_int
+    lib.rb_get.argtypes = [P, P, ctypes.POINTER(I64), D]
+    lib.rb_peek.restype = ctypes.c_int
+    lib.rb_peek.argtypes = [P, ctypes.POINTER(P), ctypes.POINTER(I64), D]
+    lib.rb_release.argtypes = [P]
+    lib.rb_reserve.restype = ctypes.c_int
+    lib.rb_reserve.argtypes = [P, ctypes.POINTER(P), D]
+    lib.rb_commit.argtypes = [P, I64]
+    lib.fx_quant_c64_i8.argtypes = [P, P, I64, ctypes.c_float]
+    lib.fx_split_i8.argtypes = [P, P, P, I64]
+    return lib
+
+
 def _load():
+    """The declared library, built at first use; None only without a C++
+    compiler."""
     global _lib
-    if _lib is not None:
-        return _lib
-    for p in _LIB_PATHS:
-        p = os.path.abspath(p)
-        if os.path.exists(p):
-            lib = ctypes.CDLL(p)
-            lib.rb_create.restype = ctypes.c_void_p
-            lib.rb_create.argtypes = [ctypes.c_int64, ctypes.c_int64]
-            lib.rb_destroy.argtypes = [ctypes.c_void_p]
-            lib.rb_size.restype = ctypes.c_int64
-            lib.rb_size.argtypes = [ctypes.c_void_p]
-            lib.rb_drops.restype = ctypes.c_int64
-            lib.rb_drops.argtypes = [ctypes.c_void_p]
-            lib.rb_total_put.restype = ctypes.c_int64
-            lib.rb_total_put.argtypes = [ctypes.c_void_p]
-            lib.rb_close.argtypes = [ctypes.c_void_p]
-            lib.rb_closed.restype = ctypes.c_int
-            lib.rb_closed.argtypes = [ctypes.c_void_p]
-            lib.rb_put.restype = ctypes.c_int
-            lib.rb_put.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
-                                   ctypes.c_int64, ctypes.c_int64,
-                                   ctypes.c_double]
-            lib.rb_get.restype = ctypes.c_int
-            lib.rb_get.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
-                                   ctypes.POINTER(ctypes.c_int64),
-                                   ctypes.c_double]
-            lib.rb_peek.restype = ctypes.c_int
-            lib.rb_peek.argtypes = [ctypes.c_void_p,
-                                    ctypes.POINTER(ctypes.c_void_p),
-                                    ctypes.POINTER(ctypes.c_int64),
-                                    ctypes.c_double]
-            lib.rb_release.argtypes = [ctypes.c_void_p]
-            if hasattr(lib, "rb_reserve"):
-                lib.rb_reserve.restype = ctypes.c_int
-                lib.rb_reserve.argtypes = [ctypes.c_void_p,
-                                           ctypes.POINTER(ctypes.c_void_p),
-                                           ctypes.c_double]
-                lib.rb_commit.argtypes = [ctypes.c_void_p, ctypes.c_int64]
-            if hasattr(lib, "fx_quant_c64_i8"):   # older .so: ring only
-                P, I64 = ctypes.c_void_p, ctypes.c_int64
-                lib.fx_quant_c64_i8.argtypes = [P, P, I64, ctypes.c_float]
-                lib.fx_split_i8.argtypes = [P, P, P, I64]
-            _lib = lib
-            return lib
-    return None
+    if _lib is None:
+        lib = host_build.load_host()
+        if lib is None:
+            return None
+        _lib = _declare(lib)
+    return _lib
 
 
 def native_available() -> bool:
+    """True when the host library is loaded, building it first; raises
+    when the build fails."""
     return _load() is not None
 
 
 def _dataplane():
-    lib = _load()
-    return lib if lib is not None and hasattr(lib, "fx_quant_c64_i8") \
-        else None
+    """The library whose loops :func:`quantize_c64` and
+    :func:`split_planes_i8` call, or None: then their numpy versions
+    run."""
+    return _load()
+
+
+def require_native(device, what: str):
+    """Raise when ``device`` is a CUDA device and the host library cannot
+    be had: the card's path runs the native rings and loops, never their
+    Python and numpy fallbacks."""
+    if str(device).startswith("cuda") and not native_available():
+        raise RuntimeError(
+            f"{what} on {device} needs the port's host library, built from "
+            "fxtpu_torch/csrc/host at first use, and no C++ compiler was "
+            "found ($CXX or g++)")
 
 
 def _ptr(a: np.ndarray) -> ctypes.c_void_p:
@@ -95,29 +101,22 @@ def _ptr(a: np.ndarray) -> ctypes.c_void_p:
 
 
 # ---------------------------------------------------------------------------
-# Host data-plane loops of int8 ingest (native/dataplane.cpp), each with the
-# numpy expression it replaces as its fallback: identical results, used
-# when the library is missing or the input layout rules the flat loop out.
+# Host data-plane loops of int8 ingest (csrc/host/dataplane.cpp), each with
+# its plain numpy version: identical results, used when there is no
+# library or the input layout rules the flat loop out.
 
-def quantize_c64(block: np.ndarray, quant_step: float,
-                 out: Optional[np.ndarray] = None) -> np.ndarray:
-    """complex64 ``[..., n]`` -> int8 ``[..., n, 2]``, ``round(x/step)``
-    (half to even) clipped to [-127, 127] (the QuantizedSource contract).
-    ``out`` (int8, ``block.shape + (2,)``, contiguous) lets the caller
-    quantize straight into a ring slot (the zero-copy producer)."""
+def _check_out(block: np.ndarray, out: Optional[np.ndarray]):
     if out is not None and (out.dtype != np.int8
                             or not out.flags.c_contiguous
                             or out.shape != (*block.shape, 2)):
         raise ValueError(f"out must be contiguous int8 {(*block.shape, 2)}, "
                          f"got {out.dtype} {out.shape}")
-    lib = _dataplane()
-    if (lib is not None and block.dtype == np.complex64
-            and block.flags.c_contiguous):
-        if out is None:
-            out = np.empty((*block.shape, 2), np.int8)
-        lib.fx_quant_c64_i8(_ptr(block), _ptr(out), block.size,
-                            1.0 / float(quant_step))
-        return out
+
+
+def quantize_c64_numpy(block: np.ndarray, quant_step: float,
+                       out: Optional[np.ndarray] = None) -> np.ndarray:
+    """:func:`quantize_c64`'s plain numpy version (numpy's ufunc chain)."""
+    _check_out(block, out)
     q = out if out is not None \
         else np.empty((*block.shape, 2), dtype=np.int8)
     inv = 1.0 / quant_step
@@ -126,6 +125,25 @@ def quantize_c64(block: np.ndarray, quant_step: float,
     np.clip(np.rint(block.imag * inv), -127, 127, out=q[..., 1],
             casting="unsafe")
     return q
+
+
+def quantize_c64(block: np.ndarray, quant_step: float,
+                 out: Optional[np.ndarray] = None) -> np.ndarray:
+    """complex64 ``[..., n]`` -> int8 ``[..., n, 2]``, ``round(x/step)``
+    (half to even) clipped to [-127, 127] (the QuantizedSource contract),
+    in one native pass.  ``out`` (int8, ``block.shape + (2,)``,
+    contiguous) lets the caller quantize straight into a ring slot (the
+    zero-copy producer)."""
+    _check_out(block, out)
+    lib = _dataplane()
+    if (lib is not None and block.dtype == np.complex64
+            and block.flags.c_contiguous):
+        if out is None:
+            out = np.empty((*block.shape, 2), np.int8)
+        lib.fx_quant_c64_i8(_ptr(block), _ptr(out), block.size,
+                            1.0 / float(quant_step))
+        return out
+    return quantize_c64_numpy(block, quant_step, out)
 
 
 def split_planes_i8(block: np.ndarray):
@@ -139,6 +157,11 @@ def split_planes_i8(block: np.ndarray):
         im = np.empty(shape, np.int8)
         lib.fx_split_i8(_ptr(block), _ptr(re), _ptr(im), re.size)
         return re, im
+    return split_planes_i8_numpy(block)
+
+
+def split_planes_i8_numpy(block: np.ndarray):
+    """:func:`split_planes_i8`'s plain numpy version."""
     return (np.ascontiguousarray(block[..., 0]),
             np.ascontiguousarray(block[..., 1]))
 
@@ -152,7 +175,8 @@ class NativeRingBuffer:
         lib = _load()
         if lib is None:
             raise RuntimeError(
-                "native ring buffer not built; run `make -C native`")
+                "no native ring buffer: no C++ compiler ($CXX or g++) to "
+                "build fxtpu_torch/csrc/host")
         if policy not in ("raise", "drop"):
             raise ValueError(f"native ring supports raise/drop, got {policy}")
         self._lib = lib
@@ -213,12 +237,16 @@ class NativeRingBuffer:
         self._next_seq = seq + 1
         return seq
 
-    @property
-    def can_reserve(self) -> bool:
-        """True when the loaded .so exports the zero-copy producer API
-        (rb_reserve/rb_commit) — the Feeder gates its zero-copy loop on
-        this, never on hasattr(ring, 'reserve') (always true here)."""
-        return hasattr(self._lib, "rb_reserve")
+    #: The zero-copy producer (reserve/commit) is there: the Feeder gates
+    #: its zero-copy loop on this, which the Python ring lacks.
+    can_reserve = True
+
+    def _slot_view(self, addr: int) -> np.ndarray:
+        """The ring slot at ``addr`` as an array.  The view holds this
+        ring, so the slots are not freed (``__del__``) while it lives."""
+        buf = (ctypes.c_char * self.block_bytes).from_address(addr)
+        buf._ring = self
+        return np.frombuffer(buf, dtype=self.dtype).reshape(self.block_shape)
 
     def reserve(self, timeout: Optional[float] = None
                 ) -> Optional[np.ndarray]:
@@ -227,8 +255,6 @@ class NativeRingBuffer:
         into it, deleting put()'s staging memcpy.  Publish with
         :meth:`commit`; an uncommitted reservation is simply abandoned.
         Same timeout semantics as put() (raise/drop policy, drop counted)."""
-        if not self.can_reserve:
-            return None
         ptr = ctypes.c_void_p()
         rc = self._lib.rb_reserve(
             self._rb, ctypes.byref(ptr),
@@ -241,8 +267,7 @@ class NativeRingBuffer:
                     f"native ring buffer full for {timeout} s "
                     f"({self.drops} drops so far)")
             return None
-        buf = (ctypes.c_char * self.block_bytes).from_address(ptr.value)
-        return np.frombuffer(buf, dtype=self.dtype).reshape(self.block_shape)
+        return self._slot_view(ptr.value)
 
     def commit(self, seq: Optional[int] = None) -> int:
         if seq is None:
@@ -270,9 +295,7 @@ class NativeRingBuffer:
                                1e9 if timeout is None else float(timeout))
         if rc != 0:
             return None
-        buf = (ctypes.c_char * self.block_bytes).from_address(ptr.value)
-        arr = np.frombuffer(buf, dtype=self.dtype).reshape(self.block_shape)
-        return int(seq.value), arr
+        return int(seq.value), self._slot_view(ptr.value)
 
     def release(self):
         self._lib.rb_release(self._rb)
@@ -288,7 +311,9 @@ class NativeRingBuffer:
 
 def make_ring(capacity: int, block_shape, dtype=np.complex64,
               policy: str = "raise", prefer_native: bool = True):
-    """Build the fastest available ring buffer implementation."""
+    """The native ring where the host library is there (built at first
+    use) and the policy is one it has (raise, drop), else the Python
+    ring; ``prefer_native=False`` asks for the Python ring."""
     if prefer_native and native_available() and policy in ("raise", "drop"):
         return NativeRingBuffer(capacity, block_shape, dtype, policy)
     return RingBuffer(capacity, block_shape, dtype, policy)

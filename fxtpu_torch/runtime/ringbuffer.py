@@ -9,10 +9,11 @@ and drops are *counted*, not silently lost — the discipline SURVEY.md §5.2
 calls for (the reference can only warn "data may have been lost",
 ``effex.py:338-342``).
 
-A C++ implementation of the same layout lives in ``native/ringbuffer.cpp``
-(bound via ctypes in ``fxtpu_torch.runtime.native``) for ingest rates where the
-Python lock becomes the bottleneck; this class is the portable fallback and
-the semantic reference.
+A C++ implementation of the same layout lives in
+``fxtpu_torch/csrc/host/ringbuffer.cpp`` (built at first use, bound via
+ctypes in ``fxtpu_torch.runtime.native``) for ingest rates where the
+Python lock becomes the bottleneck; this class is the fallback of a
+machine without a C++ compiler and the semantic reference.
 """
 
 from __future__ import annotations

@@ -1,6 +1,7 @@
 """8-bit ingest on the host: fxtpu_torch's int8 data-plane helpers and
 QuantizedSource against fxtpu's on the same numpy samples (CPU), with the
-native loops of native/libfxring.so and with their numpy fallbacks.
+native loops of the port's host library (fxtpu_torch/csrc/host) and with
+their numpy fallbacks.
 Quantized samples are integers, so everything is compared exactly."""
 
 import numpy as np
@@ -32,7 +33,7 @@ def data_plane(request, monkeypatch):
     library is built, and the numpy fallback."""
     if request.param == "native":
         if tnative._dataplane() is None:
-            pytest.skip("native/libfxring.so is not built")
+            pytest.skip("no C++ compiler to build the host library")
     else:
         monkeypatch.setattr(tnative, "_dataplane", lambda: None)
     return request.param

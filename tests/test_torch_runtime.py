@@ -85,13 +85,25 @@ def _raises(fn):
     return None
 
 
-def _native_ok():
-    from fxtpu_torch.runtime import native
-    return native.native_available()
-
+#: The packages whose native host library is there: fxtpu's where its
+#: native/libfxring.so was built (make -C native), the port's wherever a
+#: C++ compiler builds it from fxtpu_torch/csrc/host at first use.
+NATIVE_PKGS = tuple(name for name in PKGS
+                    if _pkg(name).native.native_available())
 
 native_only = pytest.mark.skipif(
-    not _native_ok(), reason="native lib not built (make -C native)")
+    "fxtpu_torch" not in NATIVE_PKGS,
+    reason="no C++ compiler to build the port's host library")
+
+
+def _native_both(scenario, *args):
+    """:func:`_both` over the packages of NATIVE_PKGS: each package's half
+    runs where its own library is there, the records are compared where
+    both ran, and the port's is returned."""
+    got = {name: scenario(_pkg(name), *args) for name in NATIVE_PKGS}
+    if "fxtpu" in got:
+        _assert_same(got["fxtpu_torch"], got["fxtpu"])
+    return got["fxtpu_torch"]
 
 
 # ---------------------------------------------------------------------------
@@ -393,7 +405,8 @@ def test_feeder_span_mode_logs_no_stream_state(tmp_path):
 
 
 # ---------------------------------------------------------------------------
-# the native ring (the same library, bound by each package)
+# the native ring (each package binds its own library: fxtpu native/,
+# the port fxtpu_torch/csrc/host)
 # ---------------------------------------------------------------------------
 
 @native_only
@@ -408,7 +421,7 @@ class TestNativeRing:
             drops = rb.drops
             rb.close()
             return seqs, drops, got
-        seqs, drops, got = _both(run)
+        seqs, drops, got = _native_both(run)
         assert seqs == [0, 1, 2, 3, -1] and drops == 1
         assert all(s == i and b[0] == i for i, (s, b) in enumerate(got))
 
@@ -421,7 +434,7 @@ class TestNativeRing:
                                          timeout=0.02))
             rb.close()
             return exc, [rb.get(timeout=0.1) for _ in range(3)]
-        exc, got = _both(run)
+        exc, got = _native_both(run)
         assert exc == "BufferFull"
         assert got[0] is not None and got[1] is not None and got[2] is None
 
@@ -430,7 +443,7 @@ class TestNativeRing:
             rb = p.native.NativeRingBuffer(2, (8,))
             rb.put(np.ones(5, np.complex64))
             return rb.get(timeout=0.5)[1]
-        blk = _both(run)
+        blk = _native_both(run)
         assert np.all(blk[:5] == 1) and np.all(blk[5:] == 0)
 
     def test_zero_copy_view(self):
@@ -441,7 +454,7 @@ class TestNativeRing:
             held = view.copy()
             rb.release()
             return seq, held, rb.qsize()
-        seq, view, n = _both(run)
+        seq, view, n = _native_both(run)
         assert seq == 0 and view[3] == 3 and n == 0
 
     def test_reserve_commit_matches_put(self):
@@ -455,7 +468,7 @@ class TestNativeRing:
             got = [rb.get(timeout=0.5) for _ in range(3)]
             rb.close()
             return got
-        for i, (seq, blk) in enumerate(_both(run)):
+        for i, (seq, blk) in enumerate(_native_both(run)):
             assert seq == i
             np.testing.assert_array_equal(
                 blk, np.arange(16, dtype=np.complex64) + i)
@@ -473,7 +486,7 @@ class TestNativeRing:
             drops = rb.drops
             rb.close(), rb2.close()
             return full, drops, exc
-        assert _both(run) == (None, 1, "BufferFull")
+        assert _native_both(run) == (None, 1, "BufferFull")
 
     def test_feeder_zero_copy_single_channel_replay(self, tmp_path):
         def run(p):
@@ -491,7 +504,7 @@ class TestNativeRing:
                 got.append(item[1])
             f.join(2.0)
             return f.zero_copy, got, want[0]
-        zero_copy, got, want = _both(run)
+        zero_copy, got, want = _native_both(run)
         assert zero_copy and len(got) == 4
         np.testing.assert_array_equal(np.concatenate(got), want)
 
@@ -506,7 +519,7 @@ class TestNativeRing:
             seq, blk = buf.get(timeout=1.0)
             f.join(2.0)
             return f.zero_copy, seq, blk, want[0]
-        zero_copy, seq, blk, want = _both(run)
+        zero_copy, seq, blk, want = _native_both(run)
         assert zero_copy and seq == 0 and blk.dtype == np.int8
         np.testing.assert_array_equal(blk, want)
 
@@ -524,12 +537,13 @@ class TestNativeRing:
                 blocks.append(blk)
             f.join(2.0)
             return blocks, f.blocks_fed
-        got = {name: run(_pkg(name)) for name in PKGS}
+        got = {name: run(_pkg(name)) for name in NATIVE_PKGS}
         blocks, fed = got["fxtpu_torch"]
         assert len(blocks) == fed > 0
         assert all(b.shape == (2, 1024) for b in blocks)
-        n = min(len(blocks), len(got["fxtpu"][0]))
-        _assert_same(blocks[:n], got["fxtpu"][0][:n])
+        if "fxtpu" in got:
+            n = min(len(blocks), len(got["fxtpu"][0]))
+            _assert_same(blocks[:n], got["fxtpu"][0][:n])
 
 
 @native_only
@@ -547,7 +561,7 @@ def test_aligner_view_path_realigns_with_native_rings():
         b0.put(np.full(4, 3, np.complex64), seq=3)
         b1.put(np.full(4, 13, np.complex64), seq=3)
         return out + [al.get(timeout=0.5)]
-    views, first, second, realigned, none, last = _both(run)
+    views, first, second, realigned, none, last = _native_both(run)
     assert views and realigned == 1 and none is None
     assert first[0][0] == 0 and first[1][0] == 10
     assert second[0][0] == 2 and second[1][0] == 12
@@ -570,7 +584,7 @@ def test_native_put_timeout_none_blocks():
         seq = rb.put(np.ones(4, np.float32))
         t.join()
         return seq
-    assert _both(run) == 1
+    assert _native_both(run) == 1
 
 
 # ---------------------------------------------------------------------------
