@@ -159,6 +159,11 @@ class Correlator:
                 "of each block", mesh.process_index, mesh.process_count,
                 *self.sample_span)
 
+        # --- metrics and the run's trace (SURVEY.md §5.1): every stage's
+        # span is keyed by its block's ring seq, from the feeders' read to
+        # the row's flush -------------------------------------------------
+        self.metrics = Metrics()
+
         # --- host buffering (effex.py:105-110): the native C++ ring, built
         # from csrc/host at first use (on the card it must be) -----------
         self._make_rings()
@@ -178,6 +183,8 @@ class Correlator:
         # --- science data (effex.py:129-141) ------------------------------
         self.calibrated_delays = np.zeros(config.nchan, dtype=np.float64)
         self._delays_dev = None   # (host delays, packed device tensor)
+        #: Rows for the writer: ``(seq, vis)``, the ring seq of the row's
+        #: block (``(first, last)`` under integration_blocks > 1)
         self.vis_out: Queue = Queue()
         self.output_file = config.output_file
         self.kbd_queue: Queue = Queue(1)
@@ -194,10 +201,10 @@ class Correlator:
         self.test_delay_sweep_step = config.test_delay_sweep_step
         self.test_delay_offset = config.test_delay_offset
 
-        # --- metrics + long-integration state (SURVEY.md §5.1/§5.4) --------
-        self.metrics = Metrics()
+        # --- long-integration state (SURVEY.md §5.4) ------------------------
         self._accumulator = None
         self._accumulated = 0
+        self._row_first: Optional[int] = None   # seq of the row's 1st block
         self.snapshot_path = (config.snapshot_path
                               or self.output_file + ".state.npz")
         if config.resume_from:
@@ -215,7 +222,7 @@ class Correlator:
         require_native(cfg.device, "the Correlator's rings")
         self.bufs = [make_ring(cfg.buffer_chunks, shape, dtype=dtype)
                      for _ in range(cfg.nchan)]
-        self.aligner = BlockAligner(self.bufs)
+        self.aligner = BlockAligner(self.bufs, metrics=self.metrics)
 
     # ------------------------------------------------------------------
     # Properties with validation + source pass-through (effex.py:231-320)
@@ -403,9 +410,16 @@ class Correlator:
     # ------------------------------------------------------------------
     def run_state_machine(self):
         """Run the machine to completion: OFF -> STARTUP -> (CALIBRATE <->
-        RUN) -> SHUTDOWN -> done."""
+        RUN) -> SHUTDOWN -> done.  With ``profile_dir`` the run's trace is
+        on (``self.metrics.trace``) and each span is a range of the
+        profile too."""
+        own_trace = bool(self.config.profile_dir) and not self.metrics.tracing
         with profiler_trace(self.config.profile_dir):
+            if own_trace:
+                self.metrics.start_trace(ranges=True)
             self._run_machine()
+        if own_trace:
+            self.metrics.stop_trace()
         self.metrics.mark_once("end")
         self.logger.info("%s", self.metrics.report())
         if self.engine.kernel_active:
@@ -481,28 +495,25 @@ class Correlator:
                     continue
 
                 drain.got_block()
+                seq = self.aligner.last_seq
                 self._blocks_consumed += 1
-                self._consumed_seq = self.aligner.last_seq
+                self._consumed_seq = seq
                 self.metrics.count("samples_in",
-                                   self.config.nchan * self.num_samp)
+                                   self.config.nchan * self.num_samp, seq)
                 if self.state == "CALIBRATE":
-                    with self.metrics.stage("h2d"):
+                    with self.metrics.stage("correlator.h2d", seq):
                         iq = self.engine.prepare_block(block)
-                    with self.metrics.stage("calibrate"):
+                    with self.metrics.stage("correlator.calibrate", seq):
                         self._calibrate_task(iq)
                     self.state = "RUN"
                     self._maybe_start_stager()
                 else:
-                    self._run_block(block)
+                    self._run_block(block, seq)
                     self.metrics.mark_once("steady")
                     self._maybe_snapshot()
             elif self.state == "SHUTDOWN":
                 self.close()
                 break
-
-            self.logger.debug("ring buffer sizes: %s; vis_out: %d",
-                              [b.qsize() for b in self.bufs],
-                              self.vis_out.qsize())
         if self.writer is not None:
             self.writer.join(timeout=5.0)
 
@@ -533,7 +544,8 @@ class Correlator:
             self.feeders = [
                 Feeder(src, [buf], self.num_samp,
                        start_time=self.start_time, run_time=self.run_time,
-                       exc_queue=self.exc_queue).start()
+                       exc_queue=self.exc_queue,
+                       metrics=self.metrics).start()
                 for src, buf in zip(splits, self.bufs)]
             self.logger.debug("Started %d per-channel feeder threads.",
                               len(self.feeders))
@@ -542,7 +554,8 @@ class Correlator:
                                  start_time=self.start_time,
                                  run_time=self.run_time,
                                  exc_queue=self.exc_queue,
-                                 sample_span=self.sample_span).start()
+                                 sample_span=self.sample_span,
+                                 metrics=self.metrics).start()
             self.logger.debug("Started feeder thread.")
 
         if self._is_primary:
@@ -550,6 +563,7 @@ class Correlator:
                 self.output_file, self.vis_out,
                 active_fn=lambda: self.state in ("STARTUP", "RUN",
                                                  "CALIBRATE"),
+                metrics=self.metrics,
             ).start()
             self.logger.debug("Started output buffering thread.")
 
@@ -609,20 +623,23 @@ class Correlator:
         return self.engine.dispatch_batch_for(
             self.config.blocks_per_dispatch)
 
-    def _run_block(self, block):
-        """Correlate one aligned host block on the unstaged path (K-block
-        calls run only on the stager's batches, :meth:`_staged_iteration`)."""
+    def _run_block(self, block, seq: int):
+        """Correlate one aligned host block, ring seq ``seq``, on the
+        unstaged path (K-block calls run only on the stager's batches,
+        :meth:`_staged_iteration`)."""
         if self.mode == "TEST":
             # artificial delay sweep (effex.py:403-404)
             self.calibrated_delays[1:] += self.test_delay_sweep_step
-        with self.metrics.stage("h2d"):
+        with self.metrics.stage("correlator.h2d", seq):
             iq = self.engine.prepare_block(block)
-        with self.metrics.stage("fx_step"):
-            self._emit(self._run_task(iq))
+        with self.metrics.stage("correlator.fx_step", seq):
+            self._emit(self._run_task(iq), seq)
 
-    def _dispatch_multi(self, iq: torch.Tensor, k: int):
-        """One K-block call on a prepared batch, with per-block delays:
-        TEST mode advances the sweep one step per block inside the call."""
+    def _dispatch_multi(self, iq: torch.Tensor, seqs: tuple):
+        """One K-block call on a prepared batch of the blocks ``seqs``,
+        with per-block delays: TEST mode advances the sweep one step per
+        block inside the call."""
+        k = len(seqs)
         delays_k = np.repeat(self.calibrated_delays[None], k, axis=0)
         if self.mode == "TEST":
             steps = np.arange(1, k + 1) * self.test_delay_sweep_step
@@ -634,7 +651,7 @@ class Correlator:
             v = vis[i]
             if len(self.engine.pairs) == 1:
                 v = v[0]  # single-baseline squeeze (see _run_task)
-            self._emit(v)
+            self._emit(v, seqs[i])
 
     # ------------------------------------------------------------------
     # Staged ingest (runtime/stager.py): overlaps the host's gather, the
@@ -670,25 +687,28 @@ class Correlator:
             time.sleep(0.05)
             return True
 
+        seqs = batch.seqs
+        call_seq = seqs[0] if len(seqs) == 1 else (seqs[0], seqs[-1])
         self._blocks_consumed += batch.k
         self._consumed_seq = batch.last_seq
         self.metrics.count("samples_in",
-                           batch.k * self.config.nchan * self.num_samp)
+                           batch.k * self.config.nchan * self.num_samp,
+                           call_seq)
         iq = batch.take()
         if self.state == "CALIBRATE":
             # Mid-run recalibration ('c'): estimate from the first staged
             # block, then correlate the whole batch with the fresh delays
             # (no samples are dropped: the cal block is correlated too).
-            with self.metrics.stage("calibrate"):
+            with self.metrics.stage("correlator.calibrate", seqs[0]):
                 self._calibrate_task(self._first_staged_block(batch))
             self.state = "RUN"
-        with self.metrics.stage("fx_step"):
+        with self.metrics.stage("correlator.fx_step", call_seq):
             if batch.stacked:
-                self._dispatch_multi(iq, batch.k)
+                self._dispatch_multi(iq, seqs)
             else:
                 if self.mode == "TEST":
                     self.calibrated_delays[1:] += self.test_delay_sweep_step
-                self._emit(self._run_task(iq))
+                self._emit(self._run_task(iq), seqs[0])
         self.metrics.mark_once("steady")
         self._maybe_snapshot()
         return True
@@ -708,34 +728,45 @@ class Correlator:
             return batch.iq[:, 0]
         return batch.iq[0]
 
-    def _emit(self, vis):
+    def _emit(self, vis, seq: int):
         self.blocks_processed += 1
-        self.metrics.count("blocks")
-        if self._integrate(vis):
-            self.metrics.count("spectra_out")
+        self.metrics.count("blocks", 1, seq)
+        if self._integrate(vis, seq):
+            self.metrics.count("spectra_out", 1, seq)
 
     # ------------------------------------------------------------------
     # Long integration (SURVEY.md §5.4)
     # ------------------------------------------------------------------
-    def _integrate(self, vis) -> bool:
+    def _integrate(self, vis, seq: int) -> bool:
         """Accumulate ``integration_blocks`` block visibilities per output
-        row (default 1 = reference parity: every block is written).
-        Returns True when a row was emitted."""
+        row (default 1 = reference parity: every block is written); block
+        ``seq`` is the row's last.  Returns True when a row was emitted."""
         m = self.config.integration_blocks
         if m <= 1:
-            if self._is_primary:
-                self.vis_out.put(vis)
+            self._queue_row(seq, vis)
             return True
+        if self._accumulator is None:
+            self._row_first = seq
         self._accumulator = (vis if self._accumulator is None
                              else self._accumulator + vis)
         self._accumulated += 1
         if self._accumulated >= m:
-            if self._is_primary:
-                self.vis_out.put(self._accumulator / m)
+            # a row resumed from a snapshot began before this run: its
+            # first block's seq is unknown (None)
+            self._queue_row((self._row_first, seq), self._accumulator / m)
             self._accumulator = None
             self._accumulated = 0
+            self._row_first = None
             return True
         return False
+
+    def _queue_row(self, seq, vis):
+        """Hand the writer row ``(seq, vis)``; the gauge
+        ``products.queued`` reads the writer's backlog after the put."""
+        if self._is_primary:
+            self.metrics.hand_off("products.queue", seq)
+            self.vis_out.put((seq, vis))
+            self.metrics.gauge("products.queued", self.vis_out.qsize(), seq)
 
     # ------------------------------------------------------------------
     # Snapshots (SURVEY.md §5.4): fxtpu's format, runtime/checkpoint.py
@@ -743,7 +774,8 @@ class Correlator:
     def _maybe_snapshot(self):
         if (self.config.snapshot_every and
                 self.blocks_processed % self.config.snapshot_every == 0):
-            with self.metrics.stage("snapshot"):
+            with self.metrics.stage("correlator.snapshot",
+                                    self._consumed_seq):
                 self.snapshot()
 
     def snapshot(self, path: Optional[str] = None) -> str:

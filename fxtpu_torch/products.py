@@ -19,6 +19,7 @@ so the reference's own ``post_process.py`` can read our files unmodified:
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import threading
 import time
@@ -29,6 +30,7 @@ import numpy as np
 import torch
 
 from fxtpu_torch.config import CorrelatorConfig
+from fxtpu_torch.runtime.metrics import Metrics, Seq
 
 logger = logging.getLogger(__name__)
 
@@ -54,18 +56,29 @@ def write_metadata(path: str, cfg: CorrelatorConfig):
             np.savetxt(fh, [])
 
 
-def append_visibility(fh, vis):
+def _untimed(name: str, seq: Seq = None):
+    return contextlib.nullcontext()
+
+
+def append_visibility(fh, vis, *, metrics: Optional[Metrics] = None,
+                      seq: Seq = None):
     """Append one block's visibilities: accepts a scalar (continuum, one
     baseline), a vector (one spectrum row or continuum baselines), or a
     ``[nbl, nbins]`` matrix (one row per baseline), as a numpy array or a
-    torch tensor on any device (moved to the host here)."""
+    torch tensor on any device (moved to the host here).  ``metrics``
+    takes the copy to the host as span ``products.d2h`` (it waits for the
+    kernels that make ``vis``) and the text as ``products.text``, keyed
+    by the row's ``seq``."""
+    stage = _untimed if metrics is None else metrics.stage
     if isinstance(vis, torch.Tensor):
-        vis = vis.detach().cpu().numpy()
-    arr = np.atleast_1d(np.asarray(vis)).astype(np.complex128)
-    if arr.ndim == 1:
-        np.savetxt(fh, [arr], delimiter=",")
-    else:
-        np.savetxt(fh, arr, delimiter=",")
+        with stage("products.d2h", seq):
+            vis = vis.detach().cpu().numpy()
+    with stage("products.text", seq):
+        arr = np.atleast_1d(np.asarray(vis)).astype(np.complex128)
+        if arr.ndim == 1:
+            np.savetxt(fh, [arr], delimiter=",")
+        else:
+            np.savetxt(fh, arr, delimiter=",")
 
 
 def parse_metadata(path: str) -> dict:
@@ -97,13 +110,22 @@ class VisibilityWriter:
     """Background CSV appender (``Correlator._write_data``, ``effex.py:687-696``):
     polls the output queue every 0.1 s while the correlator is active, then
     drains on stop.  Forcing the device->host transfer here keeps the main
-    loop's launches asynchronous."""
+    loop's launches asynchronous.
+
+    The queue's items are ``(seq, vis)``: the ring seq of the row's block
+    (``(first, last)`` of an integrated row) and its visibilities.
+    ``metrics`` takes each row's spans keyed by ``seq``: ``products.queue``
+    (from the producer's :meth:`~Metrics.hand_off` to the get),
+    ``products.d2h`` and ``products.text`` (:func:`append_visibility`),
+    ``products.flush``, and the count ``products.rows_written``."""
 
     def __init__(self, path: str, vis_queue: Queue,
-                 active_fn: Callable[[], bool]):
+                 active_fn: Callable[[], bool],
+                 metrics: Optional[Metrics] = None):
         self.path = path
         self.vis_queue = vis_queue
         self.active_fn = active_fn
+        self.metrics = metrics if metrics is not None else Metrics()
         self.rows_written = 0
         self._thread: Optional[threading.Thread] = None
 
@@ -120,12 +142,15 @@ class VisibilityWriter:
     def _drain(self, fh):
         while True:
             try:
-                data = self.vis_queue.get_nowait()
+                seq, vis = self.vis_queue.get_nowait()
             except Empty:
                 return
-            append_visibility(fh, data)
+            self.metrics.pick_up("products.queue", seq)
+            append_visibility(fh, vis, metrics=self.metrics, seq=seq)
             self.rows_written += 1
-            fh.flush()
+            with self.metrics.stage("products.flush", seq):
+                fh.flush()
+            self.metrics.count("products.rows_written", 1, seq)
 
     def _run(self):
         with open(self.path, "a") as fh:

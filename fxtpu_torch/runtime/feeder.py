@@ -30,6 +30,7 @@ from typing import List, Optional
 
 import numpy as np
 
+from fxtpu_torch.runtime.metrics import Metrics
 from fxtpu_torch.runtime.ringbuffer import BufferClosed, BufferFull, RingBuffer
 from fxtpu_torch.sources.base import Source
 
@@ -37,15 +38,23 @@ logger = logging.getLogger(__name__)
 
 
 class Feeder:
-    """Streams blocks from a source into per-channel ring buffers."""
+    """Streams blocks from a source into per-channel ring buffers.
+
+    ``metrics`` (a :class:`~fxtpu_torch.runtime.metrics.Metrics`) takes
+    each block's spans ``runtime.feeder.read`` (the source's read) and
+    ``runtime.feeder.put`` (the wait for room in the rings and the put; on
+    the zero-copy path from the reserve to the commit, the read into the
+    slot inside it), keyed by the block's ring seq."""
 
     def __init__(self, source: Source, bufs: List[RingBuffer], num_samp: int,
                  start_time: float = 0.0, run_time: float = float("inf"),
                  exc_queue: Optional[Queue] = None,
                  put_timeout: float = 30.0,
-                 sample_span: Optional[tuple] = None):
+                 sample_span: Optional[tuple] = None,
+                 metrics: Optional[Metrics] = None):
         if len(bufs) != source.nchan:
             raise ValueError("need one ring buffer per channel")
+        self.metrics = metrics if metrics is not None else Metrics()
         self.source = source
         self.bufs = bufs
         self.num_samp = int(num_samp)
@@ -166,13 +175,16 @@ class Feeder:
                             time.strftime("%a, %d %b %Y %H:%M:%S"))
                 return
             self._log_source_state(0)
+            metrics = self.metrics
             while not self._stop.is_set():
+                read = metrics.begin("runtime.feeder.read")
                 if self.sample_span is not None:
                     block = self.source.read_block_span(self.num_samp,
                                                         *self.sample_span)
                 else:
                     block = self.source.read_block(self.num_samp)
                 if block is None:
+                    metrics.drop(read)
                     logger.info("Source exhausted; feeder stopping.")
                     break
                 # source-level losses (USB gap / injected fault) become
@@ -182,7 +194,9 @@ class Feeder:
                 dropped = getattr(self.source, "take_dropped", None)
                 if dropped is not None:
                     self.blocks_fed += dropped()
+                metrics.end(read, self.blocks_fed)
                 self._log_source_state(self.blocks_fed + 1)
+                put = metrics.begin("runtime.feeder.put")
                 if not realtime:
                     # wait for space in EVERY ring WITHOUT attempting puts
                     # (a timed-out put counts as a drop — these blocks are
@@ -193,10 +207,12 @@ class Feeder:
                            and not self._stop.is_set()):
                         time.sleep(0.002)
                 if self._stop.is_set():
+                    metrics.drop(put)
                     break
                 for c, buf in enumerate(self.bufs):
                     buf.put(block[c], timeout=self.put_timeout,
                             seq=self.blocks_fed)
+                metrics.end(put, self.blocks_fed)
                 self.blocks_fed += 1
                 if time.time() - t0 > self.run_time:
                     break
@@ -232,21 +248,29 @@ class Feeder:
     def _run_zero_copy(self, t0: float, realtime: bool):
         """Single-ring hot loop: reserve slot -> source writes it -> commit.
         Same drop/backpressure/run_time semantics as the copy loop."""
-        buf, src = self.bufs[0], self.source
+        buf, src, metrics = self.bufs[0], self.source, self.metrics
         while not self._stop.is_set():
+            put = metrics.begin("runtime.feeder.put")
             if not realtime:
                 while buf.full() and not self._stop.is_set():
                     time.sleep(0.002)
                 if self._stop.is_set():
+                    metrics.drop(put)
                     return
             view = buf.reserve(timeout=self.put_timeout)  # raises on
             if view is None:                              # realtime overrun
+                metrics.drop(put)
                 continue        # drop-policy timeout: counted, try again
+            read = metrics.begin("runtime.feeder.read")
             if not src.read_block_into(view, self.num_samp):
+                metrics.drop(read)
+                metrics.drop(put)
                 logger.info("Source exhausted; feeder stopping.")
                 return
+            metrics.end(read, self.blocks_fed)
             self._log_source_state(self.blocks_fed + 1)
             buf.commit(seq=self.blocks_fed)
+            metrics.end(put, self.blocks_fed)
             self.blocks_fed += 1
             if time.time() - t0 > self.run_time:
                 return
@@ -288,11 +312,16 @@ class BlockAligner:
     ``get()`` returns an aligned ``[nchan, num_samp]`` array (copied out of
     the ring slots) or None if no aligned set arrived within the timeout.
     Misaligned blocks (a channel missing a seq the others have) are discarded
-    and counted in ``realigned``.
+    and counted in ``realigned``.  ``metrics`` takes the span
+    ``runtime.align`` of each get that returns a block (the wait for every
+    channel's slot, then the gather) and inside it ``runtime.align.copy``
+    (the gather), keyed by the block's seq.
     """
 
-    def __init__(self, bufs: List[RingBuffer]):
+    def __init__(self, bufs: List[RingBuffer],
+                 metrics: Optional[Metrics] = None):
         self.bufs = bufs
+        self.metrics = metrics if metrics is not None else Metrics()
         self.realigned = 0
         #: Sequence number of the block get() last returned.  Seqs can
         #: have GAPS (ring drops, source-reported losses), so consumers
@@ -307,8 +336,16 @@ class BlockAligner:
                           for b in bufs)
 
     def get(self, timeout: float = 1.0) -> Optional[np.ndarray]:
-        if self._views:
-            return self._get_via_views(timeout)
+        span = self.metrics.begin("runtime.align")
+        block = (self._get_via_views(timeout) if self._views
+                 else self._get_stacked(timeout))
+        if block is None:
+            self.metrics.drop(span)
+        else:
+            self.metrics.end(span, self.last_seq)
+        return block
+
+    def _get_stacked(self, timeout: float) -> Optional[np.ndarray]:
         deadline = time.time() + timeout
         items = []
         for buf in self.bufs:
@@ -319,8 +356,10 @@ class BlockAligner:
         while True:
             target = max(seq for seq, _ in items)
             if all(seq == target for seq, _ in items):
+                with self.metrics.stage("runtime.align.copy", target):
+                    block = np.stack([blk for _, blk in items])
                 self.last_seq = target
-                return np.stack([blk for _, blk in items])
+                return block
             # Some channel is behind: advance laggards to the target seq.
             self.realigned += 1
             for c, (seq, _) in enumerate(items):
@@ -358,10 +397,12 @@ class BlockAligner:
                         return None
                     seq, _view = nxt
                     items[c] = (seq, _view)
-        out = np.empty((len(self.bufs), *items[0][1].shape),
-                       items[0][1].dtype)
-        for c, (_seq, view) in enumerate(items):
-            np.copyto(out[c], view)
-            self.bufs[c].release()
-        self.last_seq = items[0][0]
+        seq = items[0][0]
+        with self.metrics.stage("runtime.align.copy", seq):
+            out = np.empty((len(self.bufs), *items[0][1].shape),
+                           items[0][1].dtype)
+            for c, (_seq, view) in enumerate(items):
+                np.copyto(out[c], view)
+                self.bufs[c].release()
+        self.last_seq = seq
         return out

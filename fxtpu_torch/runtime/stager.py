@@ -38,6 +38,7 @@ import numpy as np
 import torch
 
 from fxtpu_torch.runtime.feeder import StreamDrainTracker
+from fxtpu_torch.runtime.metrics import Metrics
 
 logger = logging.getLogger(__name__)
 
@@ -49,19 +50,24 @@ class Batch:
     ``prepare_batch`` staged (the merged ``[nch, k, S, nbins(, 2)]``
     layout on the fused route, a stacked ``[k, nch, num_samp(, 2)]``
     otherwise); for a tail block (``k == 1``, ``stacked`` False) a
-    single-block ``prepare_block`` input.  ``ready`` is the CUDA event
-    recorded after its copy (None on the CPU)."""
+    single-block ``prepare_block`` input.  ``seqs`` are the ring seqs of
+    its blocks, in order (seqs can have gaps).  ``ready`` is the CUDA
+    event recorded after its copy (None on the CPU)."""
 
-    __slots__ = ("iq", "k", "stacked", "last_seq", "ready")
+    __slots__ = ("iq", "k", "stacked", "seqs", "ready")
 
-    def __init__(self, iq, k: int, stacked: bool, last_seq: int = -1,
+    def __init__(self, iq, k: int, stacked: bool, seqs: tuple = (),
                  ready: Optional[torch.cuda.Event] = None):
         self.iq = iq
         self.k = k
         self.stacked = stacked
-        #: Ring seq of this batch's last block (seqs can have gaps)
-        self.last_seq = last_seq
+        self.seqs = tuple(seqs)
         self.ready = ready
+
+    @property
+    def last_seq(self) -> int:
+        """Ring seq of this batch's last block (-1 without seqs)."""
+        return self.seqs[-1] if self.seqs else -1
 
     def take(self) -> torch.Tensor:
         """``iq``, safe to use on the current stream: the stream waits for
@@ -102,8 +108,9 @@ class DeviceStager:
         an empty pinned host batch (FxEngine.batch_host_buffer), pooled
         ``depth + 1`` deep on a CUDA ``device``; ``batch``: blocks per
         staged batch (K); ``feeding``: callable, True while the upstream
-        feeder may still produce blocks; ``metrics``: a Metrics whose
-        ``stage`` timer takes the host time of each staging."""
+        feeder may still produce blocks; ``metrics``: a Metrics whose span
+        ``runtime.stage`` takes the host time of each staging, keyed by
+        the batch's first and last seq."""
         self.aligner = aligner
         self.prepare_block = prepare_block
         self.prepare_batch = (prepare_batch if prepare_batch is not None
@@ -113,7 +120,7 @@ class DeviceStager:
         self.batch = int(batch)
         self.exc_queue = exc_queue
         self.feeding = feeding
-        self.metrics = metrics
+        self.metrics = metrics if metrics is not None else Metrics()
         self.device = torch.device(device) if device is not None else None
         self.on_card = self.device is not None and self.device.type == "cuda"
         self.stream = torch.cuda.Stream(self.device) if self.on_card else None
@@ -201,10 +208,6 @@ class DeviceStager:
         slot.copied = self._copied()
         return iq, slot.copied
 
-    def _timed(self):
-        return (self.metrics.stage("stage") if self.metrics is not None
-                else contextlib.nullcontext())
-
     def _run(self):
         try:
             stream = (torch.cuda.stream(self.stream) if self.on_card
@@ -215,11 +218,13 @@ class DeviceStager:
                     if not blocks:
                         break
                     if len(blocks) == self.batch and self.batch > 1:
-                        with self._timed():
+                        seqs = [s for s, _ in blocks]
+                        with self.metrics.stage("runtime.stage",
+                                                (seqs[0], seqs[-1])):
                             iq, ready = self._stage([b for _, b in blocks])
                         self.staged_blocks += self.batch
                         self._put(Batch(iq, self.batch, stacked=True,
-                                        last_seq=blocks[-1][0], ready=ready))
+                                        seqs=seqs, ready=ready))
                     else:
                         # tail (or batch == 1): single-block units for the
                         # single-block step
@@ -227,7 +232,7 @@ class DeviceStager:
                             iq = self.prepare_block(b)
                             self.staged_blocks += 1
                             self._put(Batch(iq, 1, stacked=False,
-                                            last_seq=seq,
+                                            seqs=(seq,),
                                             ready=self._copied()))
         except Exception:
             logger.exception("stager thread failed")

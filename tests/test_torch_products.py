@@ -102,7 +102,7 @@ def test_load_products_roundtrip(tmp_path):
 
 def test_visibility_writer_thread(tmp_path):
     """Both packages' writer threads write the same five rows, the port's
-    from torch tensors."""
+    from ``(seq, vis)`` items of torch tensors."""
     def run(mod, config, path, wrap):
         mod.write_metadata(path, config)
         q = Queue()
@@ -110,7 +110,7 @@ def test_visibility_writer_thread(tmp_path):
         active.set()
         w = mod.VisibilityWriter(path, q, active_fn=active.is_set).start()
         for k in range(5):
-            q.put(wrap(np.complex128(k + 0.5j)))
+            q.put(wrap(k, np.complex128(k + 0.5j)))
         time.sleep(0.3)
         active.clear()
         w.join(2.0)
@@ -118,9 +118,9 @@ def test_visibility_writer_thread(tmp_path):
     kw = dict(mode="CONTINUUM", num_samp=2**14, nbins=2**10,
               clamp_num_samp=False)
     a, b = str(tmp_path / "a.csv"), str(tmp_path / "b.csv")
-    assert run(jproducts, JConfig(**kw), a, lambda v: v) == 5
+    assert run(jproducts, JConfig(**kw), a, lambda k, v: v) == 5
     assert run(products, CorrelatorConfig(**kw, device="cpu"), b,
-               lambda v: torch.tensor(v, dtype=torch.complex64)) == 5
+               lambda k, v: (k, torch.tensor(v, dtype=torch.complex64))) == 5
     with open(a, "rb") as fa, open(b, "rb") as fb:
         assert fa.read() == fb.read()
     _, data = products.load_products(b)
