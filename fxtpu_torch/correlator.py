@@ -762,11 +762,14 @@ class Correlator:
 
     def _queue_row(self, seq, vis):
         """Hand the writer row ``(seq, vis)``; the gauge
-        ``products.queued`` reads the writer's backlog after the put."""
+        ``products.queued`` reads the writer's backlog with this row: the
+        depth the row joins, itself counted, read before the put (after
+        it, a writer woken by the put may already have taken the row)."""
         if self._is_primary:
             self.metrics.hand_off("products.queue", seq)
+            depth = self.vis_out.qsize() + 1
             self.vis_out.put((seq, vis))
-            self.metrics.gauge("products.queued", self.vis_out.qsize(), seq)
+            self.metrics.gauge("products.queued", depth, seq)
 
     # ------------------------------------------------------------------
     # Snapshots (SURVEY.md §5.4): fxtpu's format, runtime/checkpoint.py

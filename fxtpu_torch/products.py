@@ -22,7 +22,6 @@ from __future__ import annotations
 import contextlib
 import logging
 import threading
-import time
 from queue import Empty, Queue
 from typing import Callable, Optional
 
@@ -108,16 +107,26 @@ def load_products(path: str):
 
 class VisibilityWriter:
     """Background CSV appender (``Correlator._write_data``, ``effex.py:687-696``):
-    polls the output queue every 0.1 s while the correlator is active, then
-    drains on stop.  Forcing the device->host transfer here keeps the main
-    loop's launches asynchronous.
+    it blocks on the output queue, so a row's put wakes it at once; it
+    writes that row, then whatever else is already queued, then blocks
+    again.  A blocking get gives up after 0.1 s; the writer then ends if
+    ``active_fn`` no longer holds, after a last drain.  So it stops
+    within 0.1 s of the run once the queue is empty, without a marker in
+    the queue (another thread may empty the queue on stop).  Forcing the
+    device->host transfer here keeps the main loop's launches
+    asynchronous.
 
     The queue's items are ``(seq, vis)``: the ring seq of the row's block
-    (``(first, last)`` of an integrated row) and its visibilities.
-    ``metrics`` takes each row's spans keyed by ``seq``: ``products.queue``
-    (from the producer's :meth:`~Metrics.hand_off` to the get),
-    ``products.d2h`` and ``products.text`` (:func:`append_visibility`),
-    ``products.flush``, and the count ``products.rows_written``."""
+    (``(first, last)`` of an integrated row) and its visibilities.  Each
+    row is flushed on its own.  ``metrics`` takes each row's spans keyed
+    by ``seq``: ``products.queue`` (from the producer's
+    :meth:`~Metrics.hand_off` to the get), ``products.d2h`` and
+    ``products.text`` (:func:`append_visibility`), ``products.flush``,
+    and the count ``products.rows_written``; and the count
+    ``products.wakes``, 1 keyed by the row a blocking get returned.
+    ``rows_written / wakes`` is the rows written a wake: 1 while the
+    writer keeps up with the rows, above 1 only when a backlog builds
+    (rows arriving faster than their text is written)."""
 
     def __init__(self, path: str, vis_queue: Queue,
                  active_fn: Callable[[], bool],
@@ -139,22 +148,37 @@ class VisibilityWriter:
         if self._thread is not None:
             self._thread.join(timeout)
 
+    def _write(self, fh, seq, vis):
+        self.metrics.pick_up("products.queue", seq)
+        append_visibility(fh, vis, metrics=self.metrics, seq=seq)
+        self.rows_written += 1
+        with self.metrics.stage("products.flush", seq):
+            fh.flush()
+        self.metrics.count("products.rows_written", 1, seq)
+
     def _drain(self, fh):
         while True:
             try:
                 seq, vis = self.vis_queue.get_nowait()
             except Empty:
                 return
-            self.metrics.pick_up("products.queue", seq)
-            append_visibility(fh, vis, metrics=self.metrics, seq=seq)
-            self.rows_written += 1
-            with self.metrics.stage("products.flush", seq):
-                fh.flush()
-            self.metrics.count("products.rows_written", 1, seq)
+            self._write(fh, seq, vis)
 
     def _run(self):
         with open(self.path, "a") as fh:
-            while self.active_fn():
+            while True:
+                try:
+                    seq, vis = self.vis_queue.get(timeout=0.1)
+                except Empty:
+                    # the stop is looked at only after a get that waited
+                    # its whole 0.1 s, so the thread outlives a run's last
+                    # row by that much: fxbench's live driver ends its
+                    # source at the window's end and counts a Correlator
+                    # that ends before it as failed
+                    if self.active_fn():
+                        continue
+                    break
+                self.metrics.count("products.wakes", 1, seq)
+                self._write(fh, seq, vis)
                 self._drain(fh)
-                time.sleep(0.1)
             self._drain(fh)  # final drain after shutdown

@@ -2,11 +2,13 @@
 ``tests/test_products.py`` writes the same visibilities through both
 packages' writers, and the files are the same byte for byte (one case
 hands the port's writer a torch tensor); the port's reader then holds
-the reference's recipe, its headers and its round trip."""
+the reference's recipe, its headers and its round trip.  The port's
+writer thread is also held to waking on a row's put and to its stop."""
 
+import statistics
 import threading
 import time
-from queue import Queue
+from queue import Empty, Queue
 
 import numpy as np
 import pytest
@@ -18,6 +20,11 @@ from fxtpu import products as jproducts  # noqa: E402
 from fxtpu.config import CorrelatorConfig as JConfig  # noqa: E402
 from fxtpu_torch import products  # noqa: E402
 from fxtpu_torch.config import CorrelatorConfig  # noqa: E402
+from fxtpu_torch.runtime.metrics import Metrics  # noqa: E402
+
+#: The writer threads' product: a CONTINUUM row a block, one value each.
+CONTINUUM = dict(mode="CONTINUUM", num_samp=2**14, nbins=2**10,
+                 clamp_num_samp=False)
 
 
 def _write(tmp_path, rows, **cfg):
@@ -100,31 +107,134 @@ def test_load_products_roundtrip(tmp_path):
     assert data == jdata == 3 + 4j
 
 
+def _value(k):
+    return np.complex128(k + 0.5j)
+
+
+def _port_item(k):
+    """Row ``k`` as the Correlator queues it: ``(seq, vis)``, a tensor."""
+    return k, torch.tensor(_value(k), dtype=torch.complex64)
+
+
+def _start(mod, path, **kw):
+    """Write a CONTINUUM header at ``path`` and start ``mod``'s writer,
+    active until the returned event is cleared, on a new queue."""
+    config = (JConfig(**CONTINUUM) if mod is jproducts
+              else CorrelatorConfig(**CONTINUUM, device="cpu"))
+    mod.write_metadata(path, config)
+    q = Queue()
+    active = threading.Event()
+    active.set()
+    w = mod.VisibilityWriter(path, q, active_fn=active.is_set, **kw).start()
+    return w, q, active
+
+
+def _stop(w, active, within=1.0):
+    """Clear ``active`` and assert the writer's thread ends ``within``
+    seconds."""
+    active.clear()
+    w.join(within)
+    assert not w._thread.is_alive()
+
+
+def _rows(path):
+    """The seq (the real part) of each data row of a CONTINUUM file."""
+    with open(path) as fh:
+        return [int(complex(line.strip()).real) for line in fh.readlines()[1:]]
+
+
+def _same_bytes(a, b):
+    with open(a, "rb") as fa, open(b, "rb") as fb:
+        assert fa.read() == fb.read()
+
+
 def test_visibility_writer_thread(tmp_path):
     """Both packages' writer threads write the same five rows, the port's
     from ``(seq, vis)`` items of torch tensors."""
-    def run(mod, config, path, wrap):
-        mod.write_metadata(path, config)
-        q = Queue()
-        active = threading.Event()
-        active.set()
-        w = mod.VisibilityWriter(path, q, active_fn=active.is_set).start()
+    def run(mod, path, item):
+        w, q, active = _start(mod, path)
         for k in range(5):
-            q.put(wrap(k, np.complex128(k + 0.5j)))
+            q.put(item(k))
         time.sleep(0.3)
-        active.clear()
-        w.join(2.0)
+        _stop(w, active, 2.0)
         return w.rows_written
-    kw = dict(mode="CONTINUUM", num_samp=2**14, nbins=2**10,
-              clamp_num_samp=False)
     a, b = str(tmp_path / "a.csv"), str(tmp_path / "b.csv")
-    assert run(jproducts, JConfig(**kw), a, lambda k, v: v) == 5
-    assert run(products, CorrelatorConfig(**kw, device="cpu"), b,
-               lambda k, v: (k, torch.tensor(v, dtype=torch.complex64))) == 5
-    with open(a, "rb") as fa, open(b, "rb") as fb:
-        assert fa.read() == fb.read()
+    assert run(jproducts, a, _value) == 5
+    assert run(products, b, _port_item) == 5
+    _same_bytes(a, b)
     _, data = products.load_products(b)
     assert data.shape == (5,)
+
+
+def test_writer_wakes_on_the_put(tmp_path):
+    """An active port writer writes a row soon after its put: of 10 rows
+    put 50 ms apart, the median from the put to the row's count in
+    ``rows_written`` is under 20 ms (a 0.1 s poll's would be about 50).
+    ``products.wakes`` counts the blocking gets that returned a row (one
+    a row while the writer keeps up; fewer where a slow host lets rows
+    queue up), and the file is ``fxtpu``'s writer's byte for byte."""
+    metrics = Metrics()
+    port = str(tmp_path / "port.csv")
+    w, q, active = _start(products, port, metrics=metrics)
+    waits = []
+    for k in range(10):
+        t0 = time.perf_counter()
+        q.put(_port_item(k))
+        while w.rows_written <= k and time.perf_counter() - t0 < 1.0:
+            time.sleep(2e-4)
+        waits.append(time.perf_counter() - t0)
+        time.sleep(max(0.05 - (time.perf_counter() - t0), 0.0))
+    _stop(w, active)
+    assert w.rows_written == metrics.get("products.rows_written") == 10
+    assert statistics.median(waits) < 0.02, waits
+    assert 1 <= metrics.get("products.wakes") <= 10
+    ref = str(tmp_path / "fxtpu.csv")
+    w, q, active = _start(jproducts, ref)
+    for k in range(10):
+        q.put(_value(k))
+    _stop(w, active)
+    _same_bytes(ref, port)
+
+
+@pytest.mark.parametrize("emptied", [False, True],
+                         ids=["rows_put_before_stop", "queue_emptied"])
+def test_writer_stops_within_a_second(tmp_path, emptied):
+    """Rows put just before ``active`` is cleared are all written, and the
+    writer ends within 1 s.  ``emptied``: as the benchmark's stop does, a
+    second thread empties the queue with ``get_nowait`` while the writer
+    blocks on it; the writer still ends within 1 s of the clear, and each
+    row is either on disk once, in order, or taken by the other thread."""
+    path = str(tmp_path / "port.csv")
+    w, q, active = _start(products, path, metrics=Metrics())
+    taken, done = [], threading.Event()
+
+    def take():
+        while not done.is_set():
+            try:
+                taken.append(q.get_nowait()[0])
+            except Empty:
+                time.sleep(1e-4)
+    thief = threading.Thread(target=take, daemon=True)
+    if emptied:
+        thief.start()
+    n = 40
+    for k in range(n):
+        q.put(_port_item(k))
+        if emptied:
+            time.sleep(1e-3)
+    if emptied:
+        time.sleep(0.15)   # the writer blocks on the emptied queue
+    _stop(w, active)
+    done.set()
+    if emptied:
+        thief.join(1.0)
+        assert not thief.is_alive()
+    on_disk = _rows(path)
+    assert len(on_disk) == w.rows_written
+    assert on_disk == sorted(set(on_disk))
+    assert sorted(on_disk + taken) == list(range(n))
+    if not emptied:
+        assert on_disk == list(range(n))
 
 
 def test_reads_reference_written_file(tmp_path):

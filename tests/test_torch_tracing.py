@@ -71,6 +71,7 @@ def test_every_row_has_one_chain_in_time_order(tmp_path, source):
     spans = _by_name(cor)
     assert cor.writer.rows_written == BLOCKS - 1
     assert cor.metrics.get("products.rows_written") == cor.writer.rows_written
+    assert 1 <= cor.metrics.get("products.wakes") <= cor.writer.rows_written
     rows = [r.seq for r in spans["products.flush"]]
     assert rows == list(range(1, BLOCKS))
     assert [r.seq for r in spans["products.rows_written"]] == rows
