@@ -61,8 +61,15 @@ Phases (any failure raises and exits non-zero, with no ``ok`` line):
    channels at nbins=256 (both forced onto it, and held to the shared
    route's kernels within 2e-6 of scale as well, bit equality reported)
    at K = 1 and 4, to the same rules, its autos' imaginary parts exactly
-   0; the X kernel alone (``fx_xstage``) at four of those shapes within
-   2e-5 of each part's scale; the single pass's reduce alone
+   0; the shapes of fxbench's engine cells, to the same rules: 128
+   channels with autos (8,256 pairs, 2^18 samples, 4096 bins, the X kernel
+   in 4 row tiles) on the wide route at K = 1 and 3 in both ingests and
+   the flagship at K = 64 on the shared route in complex64 (effex2.engine's
+   ingest), the plain versions taken in tiles of pairs (``by_pair_tiles``:
+   every pair at once would gather 17 GB a block at 128 channels), the
+   step's one C call there too and the reduce at K = 64 in both ingests; the X kernel alone (``fx_xstage``) at four of those
+   shapes and at 128 channels (K = 1 and 3) within 2e-5 of each part's
+   scale; the single pass's reduce alone
    (``fx_parts_reduce``: ``ops.fx_fused.parts_reduce``) at the flagship
    (K = 1 and 8) and ``bench_pipeline``'s block in both ingests, parts, mu
    and history bit for bit its plain version's; the step's one C call
@@ -107,7 +114,13 @@ Phases (any failure raises and exits non-zero, with no ``ok`` line):
    not at all (at ``--nchan 8`` in each ingest the wide route's counters
    and the X kernel's, counted by the wrapper that launches it, 28 baselines a block in the CSV, every channel's delay recovered; and
    ``FxEngine`` takes the wide route's kernels at the nchan8 shape and at
-   ``--nchan 3 --resolution 8192 --ntaps 32``), the engine's
+   ``--nchan 3 --resolution 8192 --ntaps 32``; at fxbench's engine cells,
+   ``meerkat_l4k.engine128_int8`` and ``effex2.engine``, it takes their
+   route and ingest, ``dispatch_batch_for`` gives their K (3 and 64), and
+   one ``multi_step`` call with every count set to 0 just before is one
+   launch of the single pass, of its X kernel (4 row tiles and the plan's
+   CTAs) or reduce, and of the epilogue, its block 0 ``step`` bit for bit;
+   these counts are in the ``kernels`` line under ``cells``), the engine's
    ``fir_mode`` is the run's
    (``direct``, ``svd``), the calibration recovered the injected 2 us
    delay within 0.5 sample, the calibrated in-band phase is flat (std <
@@ -340,6 +353,23 @@ WIDE_CASES = ((NCHAN8, "direct", "auto"), (CLI8, "direct", "auto"),
               (DEEP8, "svd", "auto"), (MANY_PAIRS, "direct", "global"),
               (WIDE64, "direct", "global"))
 CLI_NCHAN = 8        # the CLI runs of the wide route (28 baselines)
+# MeerKAT's 4k mode (fxbench's meerkat_l4k): 128 channels with autos, 8,256
+# pairs of 2^18 samples at 4096 bins, past the shared route's 64 channels:
+# 8,512 rows of parts, which the X kernel takes in 4 row tiles
+NCHAN128 = dict(nch=128, nsamp=2**18, nbins=4096, ntaps=4, autos=True)
+NCHAN128_K = 3       # the most blocks a launch takes there (the scratch)
+FLAGSHIP_K = 64      # the blocks of fxbench's effex2.engine calls
+# the most bytes of one gathered [K, pairs, S, nbins] operand of a plain
+# version: every pair at once takes 17 GB a block at NCHAN128
+PLAIN_TILE_BYTES = 2 << 30
+# (cell, the engine's configuration, ingest, the cell's blocks, K of its
+# calls, X stage) of the benchmark's engine cells whose calls phase 3 counts
+CELL_ENGINES = (
+    ("meerkat_l4k.engine128_int8",
+     dict(nchan=128, include_autos=True, num_samp=2**18, nbins=4096,
+          bandwidth=856e6, frequency=1284e6), "int8", 24, NCHAN128_K,
+     "global"),
+    ("effex2.engine", dict(), "complex64", 64, FLAGSHIP_K, "shared"))
 XSTAGE_SOURCE = "fxtpu_torch/csrc/fx_xstage.cu"
 # (shape, K, FIR mode) of the K-block entries' checks in phase 2: every
 # shape and K the CLI's main path and phase 4 launch them at, and smaller
@@ -491,6 +521,7 @@ def reset_counts():
         fn.wide_launches = fn.wide_svd_launches = 0
     spectrometer_fused.launches = fx_finish.launches = 0
     fx_xstage.launches = fx_fused.parts_reduce.launches = 0
+    fx_xstage.row_tiles = fx_xstage.ctas = 0
     fx_fused.fir_rows.launches = 0
     for fn in probe_wrappers().values():
         fn.launches = 0
@@ -798,6 +829,22 @@ def parts_batch(case, k, rng, device, int8):
     return (torch.complex(g[..., 0], g[..., 1]) + off).to(torch.complex64)
 
 
+def by_pair_tiles(fn, args, at, per_pair):
+    """``fn(*args)``, a plain version whose pairs are ``args[at]``, with
+    the pairs taken in tiles where every pair at once would gather more
+    than PLAIN_TILE_BYTES into one operand (``per_pair``: its bytes a
+    pair): the first output's pair rows (axis 1) joined in order, the
+    other outputs, which do not depend on the pairs, the first tile's."""
+    import torch
+    pairs = args[at]
+    per = max(1, PLAIN_TILE_BYTES // per_pair)
+    if len(pairs) <= per:
+        return fn(*args)
+    outs = [fn(*args[:at], pairs[lo:lo + per], *args[at + 1:])
+            for lo in range(0, len(pairs), per)]
+    return (torch.cat([o[0] for o in outs], dim=1), *outs[0][1:])
+
+
 def compare_parts(case, k, device, fir, int8, x_stage="auto"):
     """Phase 2 for the single pass at one shape, K blocks from a carried
     history, on the X stage ``x_stage`` gives (``fx_fused.x_route``: the
@@ -854,7 +901,7 @@ def compare_parts(case, k, device, fir, int8, x_stage="auto"):
                else ff.fx_fused_parts_reference)
         mu_prev = None
     got = entry(*args, x_stage=x_stage)
-    want = ref(*args)
+    want = by_pair_tiles(ref, args, 3, k * s * nbins * 8)
     torch.cuda.synchronize()
     abs_err = rel_err = 0.0
     notes = []
@@ -954,10 +1001,12 @@ def compare_parts(case, k, device, fir, int8, x_stage="auto"):
     xp = dc_correct(*got[:4], pairs, consts,
                     mu_prev=block_mu_prev(got[3], mu_prev))
     if int8:
-        ref, _ = ff.fx_fused_raw_i8_multi_reference(x, hist, w, pairs, STEP,
-                                                    svd)
+        ref, _ = by_pair_tiles(ff.fx_fused_raw_i8_multi_reference,
+                               (x, hist, w, pairs, STEP, svd), 3,
+                               s * nbins * 8)
     else:
-        ref, _ = ff.fx_fused_raw_multi_reference(x, hist, w, pairs, svd)
+        ref, _ = by_pair_tiles(ff.fx_fused_raw_multi_reference,
+                               (x, hist, w, pairs, svd), 3, s * nbins * 8)
     scale = ref.abs().max().item()
     err = (xp - ref).abs()
     two_dc = err[..., 0].max().item() / scale
@@ -1051,9 +1100,10 @@ def one_call_step(args, pool=None):
     return bufs
 
 
-def compare_step(case, k, fir, continuum, device):
-    """Phase 2 for the step entry at one shape, K blocks, in both ingests
-    with packed and plain delays: its vis, mu and new history against the
+def compare_step(case, k, fir, continuum, device, ingests=(False, True)):
+    """Phase 2 for the step entry at one shape, K blocks, in the ingests
+    ``ingests`` gives (int8 or not; both by default) with packed and plain
+    delays: its vis, mu and new history against the
     two-call form's (``two_call_step``) bit for bit (largest difference
     0); ``fx_fused_step``'s outputs the same as the pieces'; its vis
     against the plain epilogue (``fx_finish_reference``) over its own
@@ -1070,7 +1120,7 @@ def compare_step(case, k, fir, continuum, device):
     from fxtpu_torch.ops import fx_fused as ff
     diff = fin_rel = 0.0
     route = None
-    for int8 in (False, True):
+    for int8 in ingests:
         base = step_inputs(case, k, fir, int8, True, continuum, device)
         for packed in (True, False):
             # the same samples and history (copies) under each delay form
@@ -1121,14 +1171,18 @@ def compare_step(case, k, fir, continuum, device):
                     f"{(err / bound).max().item():.3g} of its bound")
             fin_rel = max(fin_rel, err.max().item() / scale)
             wide = route == "global"
+            per_pair = k * s * case["nbins"] * 8
             if int8:
-                ref = (ff.fx_fused_parts_i8_wide_reference if wide
-                       else ff.fx_fused_parts_i8_reference)(
-                    x, hist["tail"], w, pairs, step, svd, consts)
+                ref = by_pair_tiles(
+                    ff.fx_fused_parts_i8_wide_reference if wide
+                    else ff.fx_fused_parts_i8_reference,
+                    (x, hist["tail"], w, pairs, step, svd, consts), 3,
+                    per_pair)
             else:
-                ref = (ff.fx_fused_parts_wide_reference if wide
-                       else ff.fx_fused_parts_reference)(
-                    x, hist, w, pairs, svd, consts)
+                ref = by_pair_tiles(
+                    ff.fx_fused_parts_wide_reference if wide
+                    else ff.fx_fused_parts_reference,
+                    (x, hist, w, pairs, svd, consts), 3, per_pair)
             tol = DEEP_TOL if (int8 or case["ntaps"] >= 16) else REL_TOL
             for name, g, want in zip(("xp", "T", "GJ"), (xp, t, gj), ref):
                 for sl in ((slice(None),) if name == "GJ"
@@ -1179,9 +1233,15 @@ def compare_xstage(case, k, device):
     from fxtpu_torch.ops.fx_xstage import fx_xstage, fx_xstage_reference
     spec, pairs, da = xstage_inputs(case, k, device)
     got = fx_xstage(spec, pairs, da)
-    want = fx_xstage_reference(spec, pairs, da)
-    torch.cuda.synchronize()
     nbl, nch = pairs.shape[0], case["nch"]
+
+    def plain(spec, p, da):         # (the pairs' rows, T and GJ)
+        parts = fx_xstage_reference(spec, p, da)
+        return parts[:, :len(p)], parts[:, len(p):]
+
+    want = torch.cat(by_pair_tiles(plain, (spec, pairs, da), 1,
+                                   spec[:, 0].numel() * 8), dim=1)
+    torch.cuda.synchronize()
     abs_err = rel_err = 0.0
     notes = []
     for name, rows in (("xp", slice(0, nbl)), ("T", slice(nbl, nbl + nch)),
@@ -1523,6 +1583,93 @@ def check_wide_engines():
                     and eng.fir_mode == fir):
                 raise AssertionError(f"FxEngine {shape} {ingest} does not "
                                      "take the wide route's kernels")
+
+
+def check_cell_engines(device):
+    """Phase 3 at the benchmark's engine cells (``CELL_ENGINES``):
+    ``FxEngine`` on the card takes the cell's X stage and ingest with the
+    kernels, ``dispatch_batch_for`` gives the cell's K, and one
+    ``multi_step`` call of K blocks, with every count set to 0 just
+    before and read just after, is one launch of the single pass's
+    wrapper, one of its X kernel (the wide route; at 128 channels in 4
+    row tiles, the plan's CTAs) or its reduce (the shared route) and one
+    of the epilogue, every other entry none; block 0 of the call is
+    ``step`` on that block bit for bit.  Returns ({cell: the entries the
+    call launched, with the X kernel's row tiles and CTAs}, [each call's
+    counts])."""
+    import torch
+
+    from fxtpu_torch.config import CorrelatorConfig
+    from fxtpu_torch.fx import FxEngine
+    from fxtpu_torch.ops.fx_xstage import xstage_plan
+    from fxtpu_torch.ops.xengine import pack_delays
+    from fxtpu_torch.runtime.native import quantize_c64
+    cells, calls = {}, []
+    for cell, shape, ingest, blocks, k, x_stage in CELL_ENGINES:
+        eng = FxEngine(CorrelatorConfig(device="cuda", ingest_dtype=ingest,
+                                        quant_step=STEP, **shape))
+        cfg, int8 = eng.cfg, ingest == "int8"
+        if not (eng.kernel_active and eng.x_stage == x_stage
+                and eng.int8_native == int8
+                and eng.dispatch_batch_for(blocks) == k):
+            raise AssertionError(
+                f"{cell}: kernel_active {eng.kernel_active}, x_stage "
+                f"{eng.x_stage}, int8_native {eng.int8_native}, "
+                f"dispatch_batch_for({blocks}) "
+                f"{eng.dispatch_batch_for(blocks)}, not {k}")
+        rng = np.random.default_rng(22)
+        data = [(rng.normal(size=(cfg.nchan, cfg.num_samp, 2))
+                 @ np.array([1.0, 1j])).astype(np.complex64)
+                for _ in range(k)]
+        if int8:
+            data = [quantize_c64(b, STEP) for b in data]
+        # delays within +-8 samples, as the cell's
+        d = (np.arange(cfg.nchan) % 17 - 8) / cfg.bandwidth
+        d1 = torch.as_tensor(pack_delays(d, cfg.frequency), device=device)
+        dk = torch.as_tensor(pack_delays(np.tile(d, (k, 1)), cfg.frequency),
+                             device=device)
+        h = eng.fresh_history()
+        iq_k, iq_1 = eng.prepare_batch(data), eng.prepare_block(data[0])
+        del data
+        v1, _ = eng.step(iq_1, d1, h)
+        eng.multi_step(iq_k, dk, h)         # built and warmed
+        torch.cuda.synchronize()
+        reset_counts()
+        vk, _ = eng.multi_step(iq_k, dk, h)
+        torch.cuda.synchronize()
+        counts, moved = read_counts(), eng.launch_counts()
+        calls.append(counts)
+        ran = {n: v for n, v in counts.items() if v}
+        wrapper = ("fx_parts_wide" if x_stage == "global" else "fx_parts"
+                   ) + ("_i8" if int8 else "")
+        second = "fx_xstage" if x_stage == "global" else "fx_parts_reduce"
+        want = {wrapper: 1, second: 1, "fx_finish": 1}
+        if ran != want:
+            raise AssertionError(f"{cell}: one multi_step call of K={k} "
+                                 f"launched {ran}, not {want}")
+        if x_stage == "global":
+            plan = xstage_plan(cfg.nchan, len(eng.pairs),
+                               cfg.num_samp // cfg.nbins, cfg.nbins, k)
+            tiles = 4 if cfg.nchan == 128 else 1
+            if (plan.row_tiles != tiles
+                    or moved["fx_xstage.row_tiles"] != tiles
+                    or moved["fx_xstage.ctas"] != plan.ctas(cfg.nbins, k)):
+                raise AssertionError(
+                    f"{cell}: the X kernel's work {moved}, the plan "
+                    f"{plan.row_tiles} row tiles, "
+                    f"{plan.ctas(cfg.nbins, k)} CTAs; expected {tiles} row "
+                    "tiles")
+            ran.update({n: moved[n] for n in ("fx_xstage.row_tiles",
+                                               "fx_xstage.ctas")})
+        if not torch.equal(vk[0], v1):
+            raise AssertionError(f"{cell}: multi_step block 0 is not step")
+        print(f"  FxEngine at {cell} ({ingest}, x_stage {eng.x_stage}, "
+              f"K={k}, {len(eng.pairs)} pairs): one multi_step call "
+              f"launched {ran}; block 0 is step bit for bit", flush=True)
+        cells[cell] = ran
+        del eng, iq_k, iq_1, vk, v1, h
+        torch.cuda.empty_cache()
+    return cells, calls
 
 
 def staged_launches(counts, name, blocks, k):
@@ -4403,9 +4550,42 @@ def main() -> int:
                 for key, pair in got.items():
                     errs[key] = tuple(map(max, errs[key], pair))
                 dc_bin[name] = max(dc_bin.get(name, 0.0), dc)
+    # the benchmark's engine cells at their calls' shapes: 128 channels on
+    # the wide route (the X kernel in 4 row tiles) at K = 1 and 3 in both
+    # ingests, and the flagship's K = 64 on the shared route in
+    # effex2.engine's, complex64 (parts_batch's offsets grow with K: at 64
+    # the int8 blocks' means reach 3.6 sigma, where the float32 cancellation
+    # next to the DC bin passes FIN_TOL + CANCEL_TOL in the plain epilogue
+    # as well as the kernel's)
+    for case, k, int8 in ((NCHAN128, 1, False), (NCHAN128, NCHAN128_K, False),
+                          (NCHAN128, 1, True), (NCHAN128, NCHAN128_K, True),
+                          (FLAGSHIP, FLAGSHIP_K, False)):
+        name = ("fx_parts_wide" if case is NCHAN128 else "fx_parts") + (
+            "_i8" if int8 else "")
+        print(f"  {name} + fx_finish (direct) K={k} shape {case}",
+              flush=True)
+        got, dc = compare_parts(case, k, device, "direct", int8)
+        if name not in got:
+            raise AssertionError(f"{case} K={k} took {sorted(got)}, not "
+                                 f"{name}")
+        for key, pair in got.items():
+            errs[key] = tuple(map(max, errs[key], pair))
+        dc_bin[name] = max(dc_bin.get(name, 0.0), dc)
+    for int8 in (False, True):
+        errs["fx_parts_reduce"] = tuple(map(
+            max, errs["fx_parts_reduce"],
+            compare_reduce(FLAGSHIP, FLAGSHIP_K, device, int8)))
+    for k in (1, NCHAN128_K):
+        errs["fx_xstage"] = tuple(map(max, errs["fx_xstage"],
+                                      compare_xstage(NCHAN128, k, device)))
     step_diff, step_fin, step_routes = 0.0, 0.0, {}
-    for tag, case, k, fir, cont in STEP_CASES:
-        d, f, route = compare_step(case, k, fir, cont, device)
+    for tag, case, k, fir, cont, ingests in (
+            *(c + ((False, True),) for c in STEP_CASES),
+            ("nchan128_k3", NCHAN128, NCHAN128_K, "direct", False,
+             (False, True)),
+            ("flagship_k64", FLAGSHIP, FLAGSHIP_K, "direct", False,
+             (False,))):
+        d, f, route = compare_step(case, k, fir, cont, device, ingests)
         step_diff, step_fin = max(step_diff, d), max(step_fin, f)
         step_routes[tag] = route
     print(f"  fx_step against the two-call step, every shape: largest "
@@ -4519,6 +4699,10 @@ def main() -> int:
             name, counts = run_wide_main_path(tmp, ingest)
             main_counts.append(counts)
         check_wide_engines()
+        phase("phase 3: the engine at the benchmark's engine cells "
+              "(meerkat_l4k.engine128_int8, effex2.engine)")
+        cell_counts, cell_calls = check_cell_engines(device)
+        main_counts += cell_calls
         phase("phase 3: the main path at bin counts that are not powers of "
               "two in [256, 8192] (ROADMAP K.3)")
         for tag, flags in BIN_CLI:
@@ -5118,6 +5302,12 @@ def main() -> int:
         if entry["name"] == "fx_parts":
             # the scale-out phase: each shard's single pass is this entry
             entry["scaleout"] = scaleout
+        # the launch counts of one multi_step call at each engine cell
+        for cell, moved in cell_counts.items():
+            for key, n in moved.items():
+                if key.split(".")[0] == entry["name"]:
+                    entry.setdefault("cells", {}).setdefault(cell, {})[
+                        key] = n
         if entry["name"] == "fx_finish":
             entry["k8_r3072_max_rel_err_vs_steps"] = k_blocks_err
             entry["k8_deep_max_rel_err_vs_steps"] = k_blocks_deep_err

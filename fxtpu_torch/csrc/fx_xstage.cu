@@ -11,7 +11,10 @@
 // accumulators tout_ref and uout_ref (:993-1076) for nch up to
 // MAX_FUSED_NCHAN = 64 (:87), where the TPU kernel keeps every channel's
 // spectra of a tile of frames in VMEM; a CTA's 227 KiB cannot hold nch
-// spectra of 4096 or 8192 bins beyond 6 or 2 channels.
+// spectra of 4096 or 8192 bins beyond 6 or 2 channels.  The port's wide
+// route goes on to fx_fused.MAX_WIDE_NCHAN = 128 channels (MeerKAT's 64
+// dual-polarisation dishes: 8,256 pairs with autos), whose rows one CTA
+// cannot hold: they are split over a third grid axis (below).
 //
 // Contract, per block k, bin b and frame f = 0 .. S-1 of spec [K, nch, S,
 // nbins]:
@@ -38,9 +41,17 @@
 // operations for 8 nch bytes, under float32's 20 operations a byte until
 // nch ~ 40, so the tensor cores would pay only above that (not taken here).
 // Design, for the copies:
-//   * a CTA owns a tile of bins of one block and every row of parts for it
-//     (grid (nbins / tile, K), no row-tile axis), so each spectrum byte
-//     crosses device memory once a launch;
+//   * a CTA owns a tile of bins of one block and a tile of rows of parts
+//     for it (grid (nbins / tile, K, row tiles)); up to 64 channels one
+//     row tile holds every row (the grid's third axis is 1), so each
+//     spectrum byte crosses device memory once a launch.  Past what 576
+//     threads of 8 rows hold (2,304 rows at a tile of 2 bins: 66
+//     channels with autos and more), the rows are cut into the fewest
+//     tiles of near-equal size, each CTA staging every channel's spectra
+//     at its bins: a spectrum byte crosses device memory once a row tile
+//     (4 at 128 channels: 1.07 GB a 2^18 block, 0.32 ms at 3.35 TB/s,
+//     against the products' 17.3 GFLOP, 0.26 ms at 67 TFLOP/s).  The
+//     rows' order, and so each row's sums, do not depend on the tiling;
 //   * the frames stream through a ring of `stages` buffers in shared
 //     memory, each `frames` frames of every channel at the tile's bins,
 //     filled by 16-byte cp.async copies `stages - 1` chunks ahead of the
@@ -55,9 +66,12 @@
 //     frames a stage and the stages are planned in Python alone
 //     (fx_xstage.xstage_plan: the grid near 128 CTAs or more, the ring
 //     within 96 KiB); here the plan is only checked against the shape and
-//     the instance's fixed limits.  A plan that does not fit, or shared
-//     memory the card refuses, is an error, never another kernel.
-// No atomics: every output element has one owner.
+//     the instance's fixed limits; the row tiles are the fewest that the
+//     plan's slots of `rows` rows cover (ceil(rows / (slots x rows))).  A
+//     plan that does not fit, or shared memory the card refuses, is an
+//     error, never another kernel.
+// No atomics: every output element has one owner.  The fold of mu and of
+// the new history is done once a bin tile, by row tile 0.
 
 #include <cuda_runtime.h>
 
@@ -183,12 +197,13 @@ __device__ __forceinline__ void sum_frames(
   }
 }
 
-// Grid (nbins / tile, K), plan.threads threads; dynamic shared memory
-// stages x nch x frames x tile float2 of the ring, then nch float2 of the
-// block's means (with `x`).  A thread's rows run cross and auto pairs
-// first, then T, then GJ (r = slot + j slots), so their kinds are the same
-// across a row slot (a warp where the tile is 32 bins or more): the
-// branches on them do not diverge.
+// Grid (nbins / tile, K, row tiles), plan.threads threads; dynamic shared
+// memory stages x nch x frames x tile float2 of the ring, then nch float2
+// of the block's means (with `x`).  Row tile z holds rows z slots kRows
+// onwards; a thread's rows run cross and auto pairs first, then T, then GJ
+// (r = z slots kRows + slot + j slots), so their kinds are the same across
+// a row slot (a warp where the tile is 32 bins or more): the branches on
+// them do not diverge.
 template <typename T, int kRows>
 __global__ void __launch_bounds__(RowThreads<kRows>::value, 1)
 fx_xstage_kernel(const XStageArgs<T> a) {
@@ -203,6 +218,7 @@ fx_xstage_kernel(const XStageArgs<T> a) {
   const int b0 = blockIdx.x * tile;
   const int bin = b0 + l;
   const int rows = a.nbl + 2 * nch;
+  const int r0 = static_cast<int>(blockIdx.z) * p.slots * kRows;
   const int lc = lf + lt;                  // a channel's run in a stage
   const int stage_len = nch << lc;
   const int n_chunks = (S + p.frames - 1) >> lf;
@@ -216,7 +232,7 @@ fx_xstage_kernel(const XStageArgs<T> a) {
   float2 acc[kRows];
 #pragma unroll
   for (int j = 0; j < kRows; ++j) {
-    const int r = slot + j * p.slots;
+    const int r = r0 + slot + j * p.slots;
     int ca = 0, cb = 0;
     if (slot < p.slots && r < rows) {
       nrows = j + 1;
@@ -246,10 +262,12 @@ fx_xstage_kernel(const XStageArgs<T> a) {
     stage_chunk(ring, sk, i, n_chunks, stages, lf, lt, nch, S, nbins);
   }
   // the reduce's share, while the first chunks are in flight: block k's
-  // means, for mu (bin tile 0) and the new history (the last block)
+  // means, for mu (bin tile 0) and the new history (the last block), in
+  // row tile 0 alone
   constexpr bool kC64 = sizeof(T) == sizeof(float2);
   using Pair = typename SumOf<T>::pair;
-  const bool fold = a.x != nullptr && (blockIdx.x == 0 || k == a.K - 1);
+  const bool fold = a.x != nullptr && blockIdx.z == 0
+                    && (blockIdx.x == 0 || k == a.K - 1);
   if (fold) {
     const int warps = blockDim.x >> 5;
     for (int c = threadIdx.x >> 5; c < nch; c += warps) {
@@ -293,7 +311,7 @@ fx_xstage_kernel(const XStageArgs<T> a) {
 #pragma unroll
   for (int j = 0; j < kRows; ++j) {
     if (j < nrows) {
-      const int r = slot + j * p.slots;
+      const int r = r0 + slot + j * p.slots;
       // an auto pair's imaginary part is 0 (its sum of the products'
       // imaginary parts is only their roundings)
       a.parts[(static_cast<size_t>(k) * rows + r) * nbins + bin] =
@@ -327,43 +345,47 @@ fx_xstage_kernel(const XStageArgs<T> a) {
 }
 
 // The plan's kernel instance on `st` (with `dependent`, a programmatic
-// dependent of the kernel before it); more threads than it takes is an
-// error.
+// dependent of the kernel before it) over `row_tiles` tiles of rows; more
+// threads than it takes is an error.
 template <typename T, int kRows>
-cudaError_t launch_rows(const XStageArgs<T>& a, size_t smem, bool dependent,
-                        cudaStream_t st) {
+cudaError_t launch_rows(const XStageArgs<T>& a, size_t smem, int row_tiles,
+                        bool dependent, cudaStream_t st) {
   if (a.plan.threads > RowThreads<kRows>::value) return cudaErrorInvalidValue;
   auto* kernel = &fx_xstage_kernel<T, kRows>;
   cudaError_t err = cudaFuncSetAttribute(
       reinterpret_cast<const void*>(kernel),
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  return launch_kernel(kernel, dim3(a.nbins / a.plan.tile, a.K),
+  return launch_kernel(kernel, dim3(a.nbins / a.plan.tile, a.K, row_tiles),
                        dim3(a.plan.threads), smem, st, dependent, a);
 }
 
-// The plan is checked against the shape: it must cover every row, bin and
-// frame, and its ring must hold the history's means after the last chunk.
+// The plan is checked against the shape: it must cover every bin and
+// frame, its row tiles every row (at most 65535 of them), and its ring
+// must hold the history's means after the last chunk.
 template <typename T>
 cudaError_t launch_xstage(const XStageArgs<T>& a, bool dependent,
                           cudaStream_t st) {
   const XStagePlan& p = a.plan;
-  const int rows = a.nbl + 2 * a.nch;
+  const long long rows = static_cast<long long>(a.nbl) + 2 * a.nch;
   if (a.K < 1 || a.K > 65535 || a.S < 1 || a.nch < 1 || a.nch > 255
       || a.nbl < 0 || a.halo < 0 || a.halo > a.S || p.tile < 2
       || (p.tile & (p.tile - 1)) != 0 || a.nbins % p.tile != 0
       || p.frames < 1 || (p.frames & (p.frames - 1)) != 0 || p.slots < 1
-      || static_cast<long long>(p.slots) * p.rows < rows
-      || p.threads % 32 != 0 || p.threads < p.tile * p.slots
+      || p.rows < 1 || p.threads % 32 != 0 || p.threads < p.tile * p.slots
       || p.stages < 2 || p.stages > kMaxStages) {
     return cudaErrorInvalidValue;
   }
+  const long long per_tile = static_cast<long long>(p.slots) * p.rows;
+  const long long row_tiles = (rows + per_tile - 1) / per_tile;
+  if (row_tiles < 1 || row_tiles > 65535) return cudaErrorInvalidValue;
+  const int z = static_cast<int>(row_tiles);
   const size_t smem = (static_cast<size_t>(p.stages) * a.nch * p.frames
                           * p.tile + a.nch) * sizeof(float2);
   switch (p.rows) {
-    case 2: return launch_rows<T, 2>(a, smem, dependent, st);
-    case 4: return launch_rows<T, 4>(a, smem, dependent, st);
-    case 8: return launch_rows<T, 8>(a, smem, dependent, st);
+    case 2: return launch_rows<T, 2>(a, smem, z, dependent, st);
+    case 4: return launch_rows<T, 4>(a, smem, z, dependent, st);
+    case 8: return launch_rows<T, 8>(a, smem, z, dependent, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -412,8 +434,9 @@ int xstage(bool int8, const void* spec, const void* pairs, const void* da,
 // after fxt_fx_wide_frames: x complex64 [nch, K, S, nbins] and the frame
 // kernel's sums double2 [K, n_groups, nch] give mu [K, nch] and the new
 // history [nch, halo, nbins].  tile, slots, rows, frames, stages and
-// threads are the launch's plan (fx_xstage.xstage_plan), checked here
-// against the shape (an invalid plan returns cudaErrorInvalidValue).  The
+// threads are the launch's plan (fx_xstage.xstage_plan; its row tiles
+// follow from slots and rows), checked here against the shape (an invalid
+// plan returns cudaErrorInvalidValue).  The
 // caller has checked shapes, types and contiguity.  Returns
 // cudaGetLastError().
 extern "C" int fxt_xstage(const void* spec, const void* pairs,

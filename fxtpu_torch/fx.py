@@ -14,9 +14,10 @@ per engine (``_resolve_fused``, like ``fxtpu.fx._resolve_fused``):
     means after the fact and applies the FSTC rotation, ``1/n_frames``,
     the fftshift and the continuum reduction on the tiny ``[nbl, nbins]``
     result (the rotation commutes with the frame sum): three kernel
-    launches a step, for 2 to 64 channels (where a frame's spectra of
-    all channels do not fit in one cluster's shared memory the single pass
-    takes its wide route, ``FxEngine.x_stage`` ``"global"``).  (The
+    launches a step, for 2 to 128 channels (where a frame's spectra of
+    all channels do not fit in one cluster's shared memory, and always
+    past 64 channels, the single pass takes its wide route,
+    ``FxEngine.x_stage`` ``"global"``).  (The
     two-pass wrappers ``ops.fx_fused.fx_fused_raw*`` with
     ``ops.fx_epilogue.finish`` compute the same step with a mean pre-pass
     and an exact DC bin; nothing here calls them.)  On a CUDA device
@@ -87,8 +88,9 @@ def _resolve_fused(fused, device: torch.device, nbins: int, ntaps: int,
                    s_rows: Optional[int] = None, rank: int = 0) -> bool:
     """The route, decided once per engine.  'auto' -> the fused route on a
     CUDA device for every shape its single pass takes
-    (``fx_fused.supported_parts``: up to 64 channels, the X stage in
-    shared memory or through device memory), plain torch otherwise, with
+    (``fx_fused.supported_parts``: up to 128 channels, the X stage in
+    shared memory up to 64 or through device memory), plain torch
+    otherwise, with
     a warning on a CUDA device; True -> the fused route on any device (the
     kernels on a CUDA device, their plain versions on the CPU), raising
     for a shape the kernels do not take; False -> plain torch.  ``int8``
@@ -107,8 +109,8 @@ def _resolve_fused(fused, device: torch.device, nbins: int, ntaps: int,
                 "fused='auto' takes the plain torch route on %s: the "
                 "%s single-pass kernels do not take %s (%s: nbins a "
                 "multiple of 128 from 256 to 16384, fxtpu's _kernel_factor "
-                "rule, where fxtpu runs XLA too; up to 64 channels; a block "
-                "of at least ntaps-1 rows)", device,
+                "rule, where fxtpu runs XLA too; up to 128 channels; a "
+                "block of at least ntaps-1 rows)", device,
                 "int8" if int8 else "complex64", shape, check)
         return device.type == "cuda" and takes
     if fused is True:
@@ -441,8 +443,10 @@ class FxEngine:
         the last reset; empty on the plain route): the single pass in this
         engine's ingest and FIR mode (its ``svd_launches`` in the SVD-FIR
         mode), on the wide route under ``wrapper.wide_launches`` (or
-        ``.wide_svd_launches``) beside its X kernel's ``fx_xstage``, and
-        the epilogue."""
+        ``.wide_svd_launches``) beside its X kernel's launches
+        ``fx_xstage`` and their work, ``fx_xstage.row_tiles`` (the X
+        grid's tiles of rows, one a launch up to 64 channels, 4 at 128)
+        and ``fx_xstage.ctas``, and the epilogue."""
         if not self._fused:
             return {}
         name = "fx_fused_parts_i8" if self._int8 else "fx_fused_parts"
@@ -453,6 +457,8 @@ class FxEngine:
         attr = "wide_" + attr
         return {f"{name}.{attr}": getattr(getattr(fx_fused, name), attr),
                 "fx_xstage": fx_xstage.launches,
+                "fx_xstage.row_tiles": fx_xstage.row_tiles,
+                "fx_xstage.ctas": fx_xstage.ctas,
                 "fx_finish": fx_epilogue.fx_finish.launches}
 
     @property

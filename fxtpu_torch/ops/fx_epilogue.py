@@ -40,7 +40,7 @@ from fxtpu_torch.ops import fx_fused as ff
 from fxtpu_torch.ops.dc_posthoc import block_mu_prev, dc_correct
 from fxtpu_torch.ops.fx_fused import (_on_card, fx_fused_parts,
                                       fx_fused_parts_i8)
-from fxtpu_torch.ops.fx_xstage import XStagePlan, fx_xstage, xstage_plan
+from fxtpu_torch.ops.fx_xstage import XStagePlan, count_launch, xstage_plan
 from fxtpu_torch.ops.xengine import (continuum_reduce, rf_freqs,
                                      rotation_phase, split_delays,
                                      unit_phasor)
@@ -362,7 +362,7 @@ def launch_step(plan: StepPlan, bufs: dict):
     ff._count_parts(ff.fx_fused_parts_i8 if int8 else ff.fx_fused_parts,
                     plan.rank, plan.route)
     if plan.route == "global":
-        fx_xstage.launches += 1
+        count_launch(plan.xplan, plan.nbins, plan.k)
     else:
         ff.parts_reduce.launches += 1
     fx_finish.launches += 1

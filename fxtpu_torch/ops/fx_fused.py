@@ -71,10 +71,10 @@ The single pass forms its X stage on one of two routes (``x_stage``,
 :data:`X_STAGES`, chosen by :func:`x_route`): the shared-memory route,
 where every channel's spectrum of a frame stays in the shared memory of
 its frame group's cluster of two CTAs (:func:`supported`: 6 channels at
-4096 bins, 2 at 8192; :func:`frame_ctas`), and the
-wide route for the rest, up to ``fxtpu``'s 64 channels
-(:data:`MAX_FUSED_NCHAN`): the frame kernel writes each spectrum to a
-device scratch ``[K, nch, S, nbins]`` and the X kernel
+4096 bins, 2 at 8192; :func:`frame_ctas`; up to ``fxtpu``'s 64 channels,
+:data:`MAX_FUSED_NCHAN`), and the wide route for the rest, up to
+:data:`MAX_WIDE_NCHAN` = 128 channels: the frame kernel writes each
+spectrum to a device scratch ``[K, nch, S, nbins]`` and the X kernel
 (``ops.fx_xstage``, ``csrc/fx_xstage.cu``) forms the parts from it, with
 the same contract; its plain versions are :func:`fx_fused_parts_wide_reference`
 and :func:`fx_fused_parts_i8_wide_reference`, the spectra first and then
@@ -124,7 +124,8 @@ __all__ = ["supported", "supported_i8", "fx_fused_raw",
            "pairs_tensor", "svd_tensors", "fir_table", "deep_fir",
            "fir_rows", "fir_rows_reference", "DEEP_FIR_TAPS",
            "MAX_SHARED_BYTES", "CLUSTER_CTAS",
-           "MAX_SVD_RANK", "MAX_FUSED_NCHAN", "X_STAGES", "STAGES",
+           "MAX_SVD_RANK", "MAX_FUSED_NCHAN", "MAX_WIDE_NCHAN", "X_STAGES",
+           "STAGES",
            "MIXED_STAGES",
            "FFT_STAGE_BINS"]
 
@@ -157,9 +158,13 @@ DEEP_FIR_TAPS = 16
 #: means a CTA of it stages (``kFirMaxMeans``).
 FIR_FRAMES = 16
 FIR_MAX_MEANS = 256
-#: Most channels the single pass takes (``fxtpu``'s ``MAX_FUSED_NCHAN``,
-#: ``pfb_pallas.py:87``).
+#: Most channels the single pass takes on its shared route (``fxtpu``'s
+#: ``MAX_FUSED_NCHAN``, ``pfb_pallas.py:87``).
 MAX_FUSED_NCHAN = 64
+#: Most channels the single pass takes on its wide route: MeerKAT's 64
+#: dual-polarisation dishes (8,256 pairs with autos), whose rows of parts
+#: the X kernel splits over tiles of rows (``fx_xstage.xstage_plan``).
+MAX_WIDE_NCHAN = 128
 #: Where the single pass forms its X stage: ``"shared"``, every channel's
 #: spectrum of a frame in one CTA's shared memory (``supported``);
 #: ``"global"``, the wide route, the spectra written to device memory and
@@ -320,41 +325,47 @@ def supported_parts(nbins: int, ntaps: int, nch: int, s_rows: int,
     """True when the single-pass kernels take this shape, in either
     ingest: nbins a multiple of 128 in [256, 16384] (:func:`kernel_bins`:
     ``fxtpu``'s Pallas kernels take the same), ntaps >= 2, an SVD rank
-    in [0, MAX_SVD_RANK], 1 to MAX_FUSED_NCHAN channels (``fxtpu``'s
-    bound), a block of at least ntaps-1 rows (the post-hoc correction
-    assumes that a block's first ntaps-1 frames reach into the previous
-    block only; ``fxtpu``'s ``_pick_tile`` asks the same), and one of the
-    two X stages fits (:func:`x_route`): the shared-memory route where
-    :func:`supported` holds, else the wide route, whose frame kernel and X
-    kernel fit for every such nch.  An engine's blocks always hold ntaps
-    rows (the config's bound)."""
+    in [0, MAX_SVD_RANK], 1 to MAX_WIDE_NCHAN channels, a block of at
+    least ntaps-1 rows (the post-hoc correction assumes that a block's
+    first ntaps-1 frames reach into the previous block only; ``fxtpu``'s
+    ``_pick_tile`` asks the same), and one of the two X stages fits
+    (:func:`x_route`): the shared-memory route where :func:`supported`
+    holds up to MAX_FUSED_NCHAN channels (``fxtpu``'s bound), else the
+    wide route, whose frame kernel and X kernel fit for every such nch.
+    An engine's blocks always hold ntaps rows (the config's bound)."""
     if not (kernel_bins(nbins)
-            and ntaps >= 2 and 1 <= nch <= MAX_FUSED_NCHAN
+            and ntaps >= 2 and 1 <= nch <= MAX_WIDE_NCHAN
             and 0 <= rank <= MAX_SVD_RANK and s_rows >= ntaps - 1):
         return False
-    return supported(nbins, ntaps, nch, rank) or (
+    return _shared_fits(nbins, ntaps, nch, rank) or (
         wide_route_bytes(nbins, nch, ntaps, rank) <= MAX_SHARED_BYTES
         and xstage_plan(nch, nch * (nch + 1) // 2, s_rows,
                         nbins).shared_bytes <= MAX_SHARED_BYTES)
+
+
+def _shared_fits(nbins: int, ntaps: int, nch: int, rank: int) -> bool:
+    """The single pass's shared route takes the shape: :func:`supported`
+    and at most :data:`MAX_FUSED_NCHAN` channels."""
+    return nch <= MAX_FUSED_NCHAN and supported(nbins, ntaps, nch, rank)
 
 
 def x_route(nbins: int, ntaps: int, nch: int, rank: int = 0,
             x_stage: str = "auto") -> str:
     """The single pass's X stage at this shape: ``"shared"`` or
     ``"global"`` (:data:`X_STAGES`).  ``"auto"`` takes the shared-memory
-    route where :func:`supported` holds and the wide route elsewhere;
-    ``"shared"`` raises where it does not hold; ``"global"`` is the wide
-    route at any shape (a caller forces it where both fit, to compare
-    them)."""
+    route where :func:`supported` holds, up to :data:`MAX_FUSED_NCHAN`
+    channels, and the wide route elsewhere; ``"shared"`` raises where it
+    does not hold; ``"global"`` is the wide route at any shape (a caller
+    forces it where both fit, to compare them)."""
     if x_stage not in X_STAGES:
         raise ValueError(f"x_stage must be one of {X_STAGES}, got "
                          f"{x_stage!r}")
-    fits = supported(nbins, ntaps, nch, rank)
+    fits = _shared_fits(nbins, ntaps, nch, rank)
     if x_stage == "shared" and not fits:
         raise ValueError(
             f"x_stage='shared': the spectra of nch={nch} channels of "
             f"{nbins} bins (rank={rank}) do not fit in one CTA's shared "
-            "memory (see fx_fused.supported)")
+            f"memory, or nch > {MAX_FUSED_NCHAN} (see fx_fused.supported)")
     if x_stage == "auto":
         return "shared" if fits else "global"
     return x_stage
@@ -572,16 +583,21 @@ def max_blocks_parts(s_rows: int, nbins: int, nch: int, nbl: int, *,
     :func:`x_route` gives: the shared route's partials hold ``nbl + 2
     nch`` rows a CTA (the cross power, T and GJ); the wide route's scratch
     holds every channel's spectra of the block (``nch S nbins``
-    complex64: 64 MiB a block at 8 channels of 2^20 samples) and its
-    groups' sample sums.  Either grows with K under
-    MAX_LAUNCH_PARTIAL_BYTES; their shared memory does not."""
+    complex64: 64 MiB a block at 8 channels of 2^20 samples, 256 MiB at
+    128 channels of 2^18) and its groups' sample sums.  Either grows with
+    K under MAX_LAUNCH_PARTIAL_BYTES; their shared memory does not.  The
+    epilogue's grid (``csrc/fx_finish.cu``) holds a CTA row for every
+    block and pair on its second axis, so K nbl is at most MAX_BLOCKS too
+    (a bound only where blocks are short and pairs many: 31 blocks at 64
+    channels with autos, 7 at 128)."""
     if x_route(nbins, ntaps, nch, rank, x_stage) == "global":
         per_block = (nch * s_rows * nbins * 8
                      + _wide_groups(s_rows)[0] * nch * 16)
     else:
         rows = nbl + 2 * nch
         per_block = _groups(s_rows, rows, nbins)[0] * rows * nbins * 8
-    return min(MAX_BLOCKS, MAX_LAUNCH_PARTIAL_BYTES // per_block)
+    return min(MAX_BLOCKS // max(1, nbl),
+               MAX_LAUNCH_PARTIAL_BYTES // per_block)
 
 
 def _check_blocks(k, s_rows, nbins, ntaps, nch, rank, nbl):

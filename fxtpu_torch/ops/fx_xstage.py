@@ -25,7 +25,7 @@ import dataclasses
 import torch
 
 __all__ = ["fx_xstage", "fx_xstage_reference", "xstage_plan", "XStagePlan",
-           "XSTAGE_BINS"]
+           "count_launch", "XSTAGE_BINS"]
 
 #: The wrappers take bin counts that are multiples of this (every bin
 #: count the port takes is one).
@@ -33,7 +33,8 @@ XSTAGE_BINS = 32
 #: Rows of parts a thread sums (``kRows``, the kernel instance) -> the
 #: threads a CTA that instance takes at most (its ``__launch_bounds__``,
 #: ``RowThreads`` in ``csrc/fx_xstage.cu``): 576 x 8 rows cover 64
-#: channels' 2,208 rows at a tile of 2 bins.
+#: channels' 2,208 rows at a tile of 2 bins; more rows take tiles of rows
+#: (:attr:`XStagePlan.row_tiles`).
 XSTAGE_ROW_THREADS = {2: 256, 4: 256, 8: 576}
 XSTAGE_ROWS = max(XSTAGE_ROW_THREADS)
 #: Stages of the ring the frames stream through (at least 2), and the
@@ -53,7 +54,11 @@ class XStagePlan:
     them (the kernel instance, a key of :data:`XSTAGE_ROW_THREADS`); the
     frames stream through ``stages`` buffers of ``frames`` frames of every
     channel (tile and frames powers of two); ``threads`` a CTA;
-    ``shared_bytes`` the ring and the block's means."""
+    ``shared_bytes`` the ring and the block's means; ``row_tiles`` the
+    grid's third axis, ``ceil((nbl + 2 nch) / (slots rows))`` (1 up to 64
+    channels), row tile z holding rows from ``z slots rows`` on.  The
+    kernel derives the row tiles from the same numbers, so they are not
+    among :meth:`args`."""
     tile: int
     slots: int
     rows: int
@@ -61,11 +66,16 @@ class XStagePlan:
     stages: int
     threads: int
     shared_bytes: int
+    row_tiles: int = 1
 
     def args(self):
         """The entry's plan arguments, in its order."""
         return (self.tile, self.slots, self.rows, self.frames, self.stages,
                 self.threads)
+
+    def ctas(self, nbins: int, k: int) -> int:
+        """CTAs a launch over ``k`` blocks of ``nbins`` bins runs."""
+        return nbins // self.tile * k * self.row_tiles
 
 
 def xstage_plan(nch: int, nbl: int, s_rows: int, nbins: int,
@@ -80,7 +90,11 @@ def xstage_plan(nch: int, nbl: int, s_rows: int, nbins: int,
     the GJ rows, summed over the first halo frames only, ride on the same
     threads, so every thread sums over every frame.  The kernel instance
     is the fewest rows a thread of :data:`XSTAGE_ROW_THREADS` that hold a
-    slot's rows and take the threads.  The ring takes
+    slot's rows and take the threads.  Where even 576 threads of 8 rows
+    at a tile of 2 bins cannot hold the rows (from 66 channels with
+    autos), the rows are cut into the fewest row tiles of that instance,
+    of near-equal size, each with the slots its share needs.  The ring
+    takes
     :data:`XSTAGE_STAGES` stages (fewer only where one frame of every
     channel would not fit, never fewer than 2) of the most frames, a power
     of two, that :data:`XSTAGE_RING_BYTES` allows (few, large chunks: each
@@ -93,6 +107,7 @@ def xstage_plan(nch: int, nbl: int, s_rows: int, nbins: int,
     fill = 2
     while fill * 2 <= min(top, nbins * k // XSTAGE_FILL_CTAS):
         fill *= 2
+    row_tiles = 1
     for most in sorted(set(XSTAGE_ROW_THREADS.values())):
         tile = fill
         while tile > 2 and -(-rows // (most // tile)) > XSTAGE_ROWS:
@@ -101,12 +116,12 @@ def xstage_plan(nch: int, nbl: int, s_rows: int, nbins: int,
         if -(-rows // slots) <= XSTAGE_ROWS:
             break
     else:
-        raise ValueError(f"the X kernel takes at most "
-                         f"{most // 2 * XSTAGE_ROWS} rows of parts, got "
-                         f"{rows}")
+        # tile is 2 here: the rows over the widest instance's CTAs
+        row_tiles = -(-rows // (most // tile * XSTAGE_ROWS))
+        slots = -(-rows // (row_tiles * XSTAGE_ROWS))
     threads = -(-tile * slots // 32) * 32
     per = min(n for n, top in XSTAGE_ROW_THREADS.items()
-              if n * slots >= rows and threads <= top)
+              if n * slots * row_tiles >= rows and threads <= top)
     frame_bytes = nch * tile * 8
     stages = XSTAGE_STAGES
     while stages > 2 and stages * frame_bytes > XSTAGE_RING_BYTES:
@@ -115,7 +130,7 @@ def xstage_plan(nch: int, nbl: int, s_rows: int, nbins: int,
                       -(-s_rows // stages)))
     frames = 1 << (most.bit_length() - 1)
     return XStagePlan(tile, slots, per, frames, stages, threads,
-                      stages * frames * frame_bytes + nch * 8)
+                      stages * frames * frame_bytes + nch * 8, row_tiles)
 
 
 def fx_xstage_reference(spec: torch.Tensor, pairs: torch.Tensor,
@@ -158,9 +173,18 @@ def _check(spec, pairs, da):
             raise ValueError(f"{name} must be contiguous")
 
 
+def count_launch(plan: XStagePlan, nbins: int, k: int):
+    """Count one launch of the X kernel on :func:`fx_xstage`'s counters:
+    ``launches``, and its work, ``row_tiles`` (the grid's third axis) and
+    ``ctas`` (:meth:`XStagePlan.ctas`)."""
+    fx_xstage.launches += 1
+    fx_xstage.row_tiles += plan.row_tiles
+    fx_xstage.ctas += plan.ctas(nbins, k)
+
+
 def xstage_launch(spec, pairs, da, parts, fold=None):
     """Launch the X kernel over ``spec`` into ``parts`` on the current
-    stream, checked, and count it on ``fx_xstage.launches``.  ``fold =
+    stream, checked, and count it (:func:`count_launch`).  ``fold =
     (x, sums, mu, new_hist, n_groups, step)`` ends the wide route's step
     (``fx_fused._launch_parts``): the launch also forms mu and the new
     history from the merged samples ``x`` and the frame kernel's sample
@@ -187,7 +211,7 @@ def xstage_launch(spec, pairs, da, parts, fold=None):
                    ptr(new_hist), nch, k, s_rows, nbins, pairs.shape[0],
                    da.shape[0], n_groups, *plan.args(), *extra, stream)
     check(lib, rc, "fx_xstage kernel launch")
-    fx_xstage.launches += 1
+    count_launch(plan, nbins, k)
 
 
 def fx_xstage(spec: torch.Tensor, pairs: torch.Tensor,
@@ -197,9 +221,10 @@ def fx_xstage(spec: torch.Tensor, pairs: torch.Tensor,
 
     CPU tensors run :func:`fx_xstage_reference`; CUDA tensors launch the
     kernel (built at first use) or raise.  Each launch of the kernel adds
-    one to ``fx_xstage.launches``: those of this call, and those of the
-    single pass's wide route, which launches it after its frame kernel
-    (``fx_fused.fx_fused_parts(..., x_stage="global")``)."""
+    one to ``fx_xstage.launches``, and its row tiles and CTAs to
+    ``fx_xstage.row_tiles`` and ``fx_xstage.ctas``: those of this call,
+    and those of the single pass's wide route, which launches it after its
+    frame kernel (``fx_fused.fx_fused_parts(..., x_stage="global")``)."""
     if spec.device.type == "cpu":
         return fx_xstage_reference(spec, pairs, da)
     if spec.device.type != "cuda":
@@ -213,3 +238,5 @@ def fx_xstage(spec: torch.Tensor, pairs: torch.Tensor,
 
 
 fx_xstage.launches = 0
+fx_xstage.row_tiles = 0
+fx_xstage.ctas = 0

@@ -36,12 +36,13 @@ from fxtpu_torch.ops import fx_fused  # noqa: E402
 from fxtpu_torch.ops.dc_posthoc import (block_mu_prev,  # noqa: E402
                                         dc_constants, dc_correct)
 from fxtpu_torch.ops.fx_fused import (MAX_FUSED_NCHAN,  # noqa: E402
+                                      MAX_WIDE_NCHAN,
                                       fx_fused_parts, fx_fused_parts_i8,
                                       max_blocks_parts, pairs_tensor,
                                       supported, supported_parts,
                                       svd_tensors, x_route)
 from fxtpu_torch.ops.fx_xstage import (fx_xstage,  # noqa: E402
-                                       fx_xstage_reference)
+                                       fx_xstage_reference, xstage_plan)
 from fxtpu_torch.ops.window import pfb_window  # noqa: E402
 from fxtpu_torch.ops.xengine import baseline_pairs  # noqa: E402
 
@@ -446,10 +447,14 @@ def test_cli_nchan8_on_cpu_writes_fxtpu_products(tmp_path):
 
 @pytest.mark.parametrize("nbins", [256, 512, 1024, 2048, 4096, 8192])
 def test_supported_parts_takes_up_to_64_channels(nbins):
-    for nch in (1, 2, 7, 8, 33, MAX_FUSED_NCHAN):
+    """Every channel count up to the shared route's 64 and on to the
+    wide route's 128 (past 64 on the wide route alone); none past 128."""
+    for nch in (1, 2, 7, 8, 33, MAX_FUSED_NCHAN, MAX_FUSED_NCHAN + 1,
+                MAX_WIDE_NCHAN):
         assert supported_parts(nbins, 4, nch, 64)
         assert supported_parts(nbins, 32, nch, 64, rank=6)
-    assert not supported_parts(nbins, 4, MAX_FUSED_NCHAN + 1, 64)
+    assert x_route(nbins, 4, MAX_FUSED_NCHAN + 1) == "global"
+    assert not supported_parts(nbins, 4, MAX_WIDE_NCHAN + 1, 64)
     assert not supported_parts(nbins, 4, 8, 2)        # S < ntaps-1
     assert not supported_parts(nbins, 1, 8, 64)       # ntaps < 2
 
@@ -530,8 +535,9 @@ def test_engine_routes_and_counters_at_8_channels():
             assert eng.x_stage == stage and eng.fir_mode == fir
             name = "fx_fused_parts_i8" if ingest == "int8" else "fx_fused_parts"
             attr = "launches" if fir == "direct" else "svd_launches"
-            keys = [name] if stage == "shared" else [f"{name}.wide_{attr}",
-                                                     "fx_xstage"]
+            keys = [name] if stage == "shared" else [
+                f"{name}.wide_{attr}", "fx_xstage", "fx_xstage.row_tiles",
+                "fx_xstage.ctas"]
             assert list(eng.launch_counts()) == [*keys, "fx_finish"]
             assert FxEngine(cfg).x_stage is None     # 'auto' on the CPU
     cfg = CorrelatorConfig(nchan=3, nbins=8192, ntaps=32, num_samp=2**18,
@@ -541,8 +547,8 @@ def test_engine_routes_and_counters_at_8_channels():
 
 def test_resolve_fused_routes_8_channels_and_warns_on_a_refused_shape(caplog):
     """'auto' on a CUDA device takes the single pass for every nch up to
-    64 at the bin counts the kernels take, and says at WARNING when it
-    falls to plain torch (nch > 64, a bin count the FFT does not take);
+    128 at the bin counts the kernels take, and says at WARNING when it
+    falls to plain torch (nch > 128, a bin count the FFT does not take);
     on the CPU 'auto' stays plain and says nothing.  The device is a
     torch.device: no card is needed to decide the route."""
     cpu, cuda = torch.device("cpu"), torch.device("cuda")
@@ -552,19 +558,22 @@ def test_resolve_fused_routes_8_channels_and_warns_on_a_refused_shape(caplog):
                               s_rows=256)
         assert _resolve_fused("auto", cuda, 8192, 32, 3, s_rows=32, rank=6)
         assert _resolve_fused("auto", cuda, 4096, 4, 64, s_rows=256)
+        assert _resolve_fused("auto", cuda, 4096, 4, 65, s_rows=256)
+        assert _resolve_fused("auto", cuda, 4096, 4, 128, int8=True,
+                              s_rows=64)
         assert _resolve_fused("auto", cuda, 3072, 4, 2, s_rows=85)
         assert not caplog.records
         assert not _resolve_fused("auto", cpu, 4096, 4, 8, s_rows=256)
         assert not _resolve_fused("auto", cpu, 384, 4, 2)
         assert not caplog.records
-        assert not _resolve_fused("auto", cuda, 4096, 4, 65, s_rows=256)
+        assert not _resolve_fused("auto", cuda, 4096, 4, 129, s_rows=256)
         assert not _resolve_fused("auto", cuda, 1000, 4, 2, s_rows=64)
     warned = [r.getMessage() for r in caplog.records]
     assert len(warned) == 2
-    assert "nch=65" in warned[0] and "supported_parts" in warned[0]
+    assert "nch=129" in warned[0] and "supported_parts" in warned[0]
     assert "nbins=1000" in warned[1] and "multiple of 128" in warned[1]
-    with pytest.raises(ValueError, match="nch=65"):
-        _resolve_fused(True, cpu, 4096, 4, 65, s_rows=256)
+    with pytest.raises(ValueError, match="nch=129"):
+        _resolve_fused(True, cpu, 4096, 4, 129, s_rows=256)
 
 
 def test_wide_wrappers_take_plain_versions_on_cpu():
@@ -711,6 +720,11 @@ def test_cuda_engine_nchan8_step_is_three_launches(cuda_device, ingest):
         before = one.launch_counts()
         v1, h1 = one.step(one.prepare_block(blk), d, h1)
         after = one.launch_counts()
-        assert [after[n] - before[n] for n in after] == [1, 1, 1]
+        moved = {n: after[n] - before[n] for n in after}
+        assert [v for n, v in moved.items()
+                if not n.startswith("fx_xstage.")] == [1, 1, 1]
+        assert moved["fx_xstage.row_tiles"] == 1     # one row tile
+        assert moved["fx_xstage.ctas"] == xstage_plan(
+            8, 36, 8, 4096).ctas(4096, 1)
         v2, h2 = plain.step(plain.prepare_block(blk), d, h2)
         assert (v1 - v2).abs().max() <= tol * v2.abs().max(), f"block {k}"
