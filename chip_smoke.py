@@ -62,8 +62,8 @@ Phases (any failure raises and exits non-zero, with no ``ok`` line):
    route's kernels within 2e-6 of scale as well, bit equality reported)
    at K = 1 and 4, to the same rules, its autos' imaginary parts exactly
    0; the shapes of fxbench's engine cells, to the same rules: 128
-   channels with autos (8,256 pairs, 2^18 samples, 4096 bins, the X kernel
-   in 4 row tiles) on the wide route at K = 1 and 3 in both ingests and
+   channels with autos (8,256 pairs, 2^18 samples, 4096 bins, the X
+   kernel's register-tiled instance) on the wide route at K = 1 and 3 in both ingests and
    the flagship at K = 64 on the shared route in complex64 (effex2.engine's
    ingest), the plain versions taken in tiles of pairs (``by_pair_tiles``:
    every pair at once would gather 17 GB a block at 128 channels), the
@@ -118,8 +118,8 @@ Phases (any failure raises and exits non-zero, with no ``ok`` line):
    ``meerkat_l4k.engine128_int8`` and ``effex2.engine``, it takes their
    route and ingest, ``dispatch_batch_for`` gives their K (3 and 64), and
    one ``multi_step`` call with every count set to 0 just before is one
-   launch of the single pass, of its X kernel (4 row tiles and the plan's
-   CTAs) or reduce, and of the epilogue, its block 0 ``step`` bit for bit;
+   launch of the single pass, of its X kernel (the plan's CTAs, on the
+   register-tiled instance at 128 channels) or reduce, and of the epilogue, its block 0 ``step`` bit for bit;
    these counts are in the ``kernels`` line under ``cells``), the engine's
    ``fir_mode`` is the run's
    (``direct``, ``svd``), the calibration recovered the injected 2 us
@@ -355,7 +355,7 @@ WIDE_CASES = ((NCHAN8, "direct", "auto"), (CLI8, "direct", "auto"),
 CLI_NCHAN = 8        # the CLI runs of the wide route (28 baselines)
 # MeerKAT's 4k mode (fxbench's meerkat_l4k): 128 channels with autos, 8,256
 # pairs of 2^18 samples at 4096 bins, past the shared route's 64 channels:
-# 8,512 rows of parts, which the X kernel takes in 4 row tiles
+# 8,512 rows of parts, which the X kernel's register-tiled instance takes
 NCHAN128 = dict(nch=128, nsamp=2**18, nbins=4096, ntaps=4, autos=True)
 NCHAN128_K = 3       # the most blocks a launch takes there (the scratch)
 FLAGSHIP_K = 64      # the blocks of fxbench's effex2.engine calls
@@ -521,7 +521,7 @@ def reset_counts():
         fn.wide_launches = fn.wide_svd_launches = 0
     spectrometer_fused.launches = fx_finish.launches = 0
     fx_xstage.launches = fx_fused.parts_reduce.launches = 0
-    fx_xstage.row_tiles = fx_xstage.ctas = 0
+    fx_xstage.ctas = fx_xstage.tiled = 0
     fx_fused.fir_rows.launches = 0
     for fn in probe_wrappers().values():
         fn.launches = 0
@@ -1227,12 +1227,21 @@ def compare_xstage(case, k, device):
     """Phase 2 for the X kernel alone (``fx_xstage``): K blocks' spectra
     through the kernel against its plain version, the cross power, T and
     GJ each within 2e-5 of its own scale, the autos' imaginary parts
-    exactly 0.  Returns (max abs err, max rel err)."""
+    exactly 0, and the instance the plan names launched (from
+    ``XSTAGE_TILED_NCH`` channels, MeerKAT's 128 among them, the
+    register-tiled one, counted on ``fx_xstage.tiled``).  Returns (max
+    abs err, max rel err)."""
     import torch
 
-    from fxtpu_torch.ops.fx_xstage import fx_xstage, fx_xstage_reference
+    from fxtpu_torch.ops.fx_xstage import (XSTAGE_TILED_NCH, fx_xstage,
+                                           fx_xstage_reference)
     spec, pairs, da = xstage_inputs(case, k, device)
+    tiled = fx_xstage.tiled
     got = fx_xstage(spec, pairs, da)
+    tiled = fx_xstage.tiled - tiled
+    if tiled != int(case["nch"] >= XSTAGE_TILED_NCH):
+        raise AssertionError(f"fx_xstage at {case} K={k}: {tiled} launches "
+                             f"of the tiled instance")
     nbl, nch = pairs.shape[0], case["nch"]
 
     def plain(spec, p, da):         # (the pairs' rows, T and GJ)
@@ -1259,8 +1268,9 @@ def compare_xstage(case, k, device):
     if bool((got[:, :nbl][:, autos].imag != 0).any()):
         raise AssertionError(f"fx_xstage autos have an imaginary part at "
                              f"{case} K={k}")
-    print(f"  fx_xstage K={k}: " + ", ".join(notes) + " of scale; autos' "
-          "imaginary parts 0", flush=True)
+    print(f"  fx_xstage K={k} ({'tiled' if tiled else 'row'} instance, "
+          f"{case['nch']} channels): " + ", ".join(notes) + " of scale; "
+          "autos' imaginary parts 0", flush=True)
     return abs_err, rel_err
 
 
@@ -1591,17 +1601,17 @@ def check_cell_engines(device):
     kernels, ``dispatch_batch_for`` gives the cell's K, and one
     ``multi_step`` call of K blocks, with every count set to 0 just
     before and read just after, is one launch of the single pass's
-    wrapper, one of its X kernel (the wide route; at 128 channels in 4
-    row tiles, the plan's CTAs) or its reduce (the shared route) and one
-    of the epilogue, every other entry none; block 0 of the call is
-    ``step`` on that block bit for bit.  Returns ({cell: the entries the
-    call launched, with the X kernel's row tiles and CTAs}, [each call's
-    counts])."""
+    wrapper, one of its X kernel (the wide route: the plan's CTAs, and
+    at 128 channels one launch of the register-tiled instance) or its
+    reduce (the shared route) and one of the epilogue, every other entry
+    none; block 0 of the call is ``step`` on that block bit for bit.
+    Returns ({cell: the entries the call launched, with the X kernel's
+    CTAs and tiled launches}, [each call's counts])."""
     import torch
 
     from fxtpu_torch.config import CorrelatorConfig
     from fxtpu_torch.fx import FxEngine
-    from fxtpu_torch.ops.fx_xstage import xstage_plan
+    from fxtpu_torch.ops.fx_xstage import XSTAGE_TILED_NCH, xstage_plan
     from fxtpu_torch.ops.xengine import pack_delays
     from fxtpu_torch.runtime.native import quantize_c64
     cells, calls = {}, []
@@ -1650,17 +1660,16 @@ def check_cell_engines(device):
         if x_stage == "global":
             plan = xstage_plan(cfg.nchan, len(eng.pairs),
                                cfg.num_samp // cfg.nbins, cfg.nbins, k)
-            tiles = 4 if cfg.nchan == 128 else 1
-            if (plan.row_tiles != tiles
-                    or moved["fx_xstage.row_tiles"] != tiles
+            tiled = int(cfg.nchan >= XSTAGE_TILED_NCH)
+            if (int(plan.tiled) != tiled
+                    or moved["fx_xstage.tiled"] != tiled
                     or moved["fx_xstage.ctas"] != plan.ctas(cfg.nbins, k)):
                 raise AssertionError(
                     f"{cell}: the X kernel's work {moved}, the plan "
-                    f"{plan.row_tiles} row tiles, "
-                    f"{plan.ctas(cfg.nbins, k)} CTAs; expected {tiles} row "
-                    "tiles")
-            ran.update({n: moved[n] for n in ("fx_xstage.row_tiles",
-                                               "fx_xstage.ctas")})
+                    f"{plan}, {plan.ctas(cfg.nbins, k)} CTAs; expected "
+                    f"{tiled} tiled launch")
+            ran.update({n: moved[n] for n in ("fx_xstage.ctas",
+                                               "fx_xstage.tiled")})
         if not torch.equal(vk[0], v1):
             raise AssertionError(f"{cell}: multi_step block 0 is not step")
         print(f"  FxEngine at {cell} ({ingest}, x_stage {eng.x_stage}, "
@@ -4551,7 +4560,7 @@ def main() -> int:
                     errs[key] = tuple(map(max, errs[key], pair))
                 dc_bin[name] = max(dc_bin.get(name, 0.0), dc)
     # the benchmark's engine cells at their calls' shapes: 128 channels on
-    # the wide route (the X kernel in 4 row tiles) at K = 1 and 3 in both
+    # the wide route (the X kernel's tiled instance) at K = 1 and 3 in both
     # ingests, and the flagship's K = 64 on the shared route in
     # effex2.engine's, complex64 (parts_batch's offsets grow with K: at 64
     # the int8 blocks' means reach 3.6 sigma, where the float32 cancellation

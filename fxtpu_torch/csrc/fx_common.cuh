@@ -175,11 +175,11 @@ int wide_frames(bool int8, const void* x, const void* hist, const void* w,
 
 // fx_xstage.cu: the X kernel, the arguments of fxt_xstage (int8:
 // fxt_xstage_i8, with `step`).
-int xstage(bool int8, const void* spec, const void* pairs, const void* da,
-           void* parts, const void* x, const void* sums, void* mu,
-           void* new_hist, int nch, int K, int S, int nbins, int nbl,
-           int halo, int n_groups, int tile, int slots, int rows, int frames,
-           int stages, int threads, double step, bool dependent,
+int xstage(bool int8, const void* spec, const void* pairs, const void* rowmap,
+           const void* da, void* parts, const void* x, const void* sums,
+           void* mu, void* new_hist, int nch, int K, int S, int nbins,
+           int nbl, int halo, int n_groups, int tile, int slots, int rows,
+           int frames, int stages, int threads, double step, bool dependent,
            cudaStream_t st);
 
 // fx_finish.cu: the epilogue, the arguments of fxt_fx_finish.

@@ -74,6 +74,10 @@ struct FxtStepArgs {
   int frames;
   int stages;
   int threads;
+  const void* rowmap;     // the X kernel's row map [np, np] int32
+                          // (fx_xstage.row_map), NULL but on the tiled
+                          // instance; last, so a build without it reads
+                          // the fields before it alike
 };
 
 namespace {
@@ -86,10 +90,10 @@ int fx_step(const FxtStepArgs& a, bool int8, cudaStream_t st) {
                           a.scratch, a.nch, a.K, a.S, a.nbins, a.ntaps,
                           a.n_groups, a.frames_per_group, a.step, st);
     if (rc != 0) return rc;
-    rc = fxt::xstage(int8, a.scratch, a.pairs, a.da, a.parts, a.x, a.sums,
-                     a.mu, a.new_hist, a.nch, a.K, a.S, a.nbins, a.nbl, halo,
-                     a.n_groups, a.tile, a.slots, a.rows, a.frames, a.stages,
-                     a.threads, a.step, true, st);
+    rc = fxt::xstage(int8, a.scratch, a.pairs, a.rowmap, a.da, a.parts, a.x,
+                     a.sums, a.mu, a.new_hist, a.nch, a.K, a.S, a.nbins,
+                     a.nbl, halo, a.n_groups, a.tile, a.slots, a.rows,
+                     a.frames, a.stages, a.threads, a.step, true, st);
   } else {
     rc = fxt::parts_step(int8, a.x, a.hist, a.w, a.fir, a.tw, a.pairs,
                          a.da, a.sums, a.scratch, a.parts, a.mu, a.new_hist,

@@ -13,8 +13,7 @@
 // spectra of a tile of frames in VMEM; a CTA's 227 KiB cannot hold nch
 // spectra of 4096 or 8192 bins beyond 6 or 2 channels.  The port's wide
 // route goes on to fx_fused.MAX_WIDE_NCHAN = 128 channels (MeerKAT's 64
-// dual-polarisation dishes: 8,256 pairs with autos), whose rows one CTA
-// cannot hold: they are split over a third grid axis (below).
+// dual-polarisation dishes: 8,256 pairs with autos).
 //
 // Contract, per block k, bin b and frame f = 0 .. S-1 of spec [K, nch, S,
 // nbins]:
@@ -25,53 +24,93 @@
 //   parts[k, nbl + nch + c, b]
 //                          = sum_{f < halo} spec[k, c, f, b] conj(da[f, b])
 //                                                                     (GJ);
-// each summed in frame order, f = 0 first, in float32: the order in which
-// the shared-memory route (PartsOut and its reduce) sums them when a CTA
-// holds one frame, and with the same complex product, so the two routes
-// agree there bit for bit wherever the compiler forms the product alike.
-// With `x` set the launch also does what that route's reduce does: mu[k, c]
-// from the frame kernel's sample sums [K, n_groups, nch] (in group order,
-// double for complex64 samples and exact integers for 8-bit ones, rounded
-// once) and the new history from the last block's last halo rows.
+// each summed in frame order, f = 0 first, in float32.  With `x` set the
+// launch also does what the shared route's reduce does: mu[k, c] from the
+// frame kernel's sample sums [K, n_groups, nch] (in group order, double
+// for complex64 samples and exact integers for 8-bit ones, rounded once)
+// and the new history from the last block's last halo rows.
 //
-// What bounds it on the H100: its bytes.  bench.py's nchan8 block (8
-// channels, 256 frames of 4096 bins, 36 pairs with autos) reads 64 MiB of
-// spectra and writes 1.6 MiB of parts: 20 us at 3.35 TB/s, against 0.34
-// GFLOP, 5 us at 67 TFLOP/s; per frame and bin it does about 4 nch^2
-// operations for 8 nch bytes, under float32's 20 operations a byte until
-// nch ~ 40, so the tensor cores would pay only above that (not taken here).
-// Design, for the copies:
-//   * a CTA owns a tile of bins of one block and a tile of rows of parts
-//     for it (grid (nbins / tile, K, row tiles)); up to 64 channels one
-//     row tile holds every row (the grid's third axis is 1), so each
-//     spectrum byte crosses device memory once a launch.  Past what 576
-//     threads of 8 rows hold (2,304 rows at a tile of 2 bins: 66
-//     channels with autos and more), the rows are cut into the fewest
-//     tiles of near-equal size, each CTA staging every channel's spectra
-//     at its bins: a spectrum byte crosses device memory once a row tile
-//     (4 at 128 channels: 1.07 GB a 2^18 block, 0.32 ms at 3.35 TB/s,
-//     against the products' 17.3 GFLOP, 0.26 ms at 67 TFLOP/s).  The
-//     rows' order, and so each row's sums, do not depend on the tiling;
-//   * the frames stream through a ring of `stages` buffers in shared
-//     memory, each `frames` frames of every channel at the tile's bins,
-//     filled by 16-byte cp.async copies `stages - 1` chunks ahead of the
-//     one being summed (no synchronous staging loop; the last chunk may be
-//     ragged and copies no frame past S);
-//   * thread t sums bin t % tile of the rows slot, slot + slots, ... (slot
-//     = t / tile), 2, 4 or 8 of them, in registers, its loads of 4 frames
-//     issued before their adds and no branch on a row in the loop; 256
-//     threads a CTA, two CTAs an SM (576 at 8 rows a thread, where 64
-//     channels' 2,208 rows need them, at a tile of 2 bins);
-//   * the tile, the slots, the rows a thread (the kernel instance), the
-//     frames a stage and the stages are planned in Python alone
-//     (fx_xstage.xstage_plan: the grid near 128 CTAs or more, the ring
-//     within 96 KiB); here the plan is only checked against the shape and
-//     the instance's fixed limits; the row tiles are the fewest that the
-//     plan's slots of `rows` rows cover (ceil(rows / (slots x rows))).  A
-//     plan that does not fit, or shared memory the card refuses, is an
-//     error, never another kernel.
-// No atomics: every output element has one owner.  The fold of mu and of
-// the new history is done once a bin tile, by row tile 0.
+// Two instances of one contract, one launch point and one plan type
+// (fx_xstage.xstage_plan picks by shape; the plan's `rows` names the
+// instance):
+//
+// * The row instance (fx_xstage_kernel<T, kRows>, rows 2, 4 or 8), below
+//   fx_xstage.XSTAGE_TILED_NCH channels.  What bounds it is bytes:
+//   bench.py's nchan8 block (8 channels, 256 frames of 4096 bins, 36 pairs
+//   with autos) reads 64 MiB of spectra and writes 1.6 MiB of parts: 20 us
+//   at 3.35 TB/s, against 0.34 GFLOP, 5 us at 67 TFLOP/s.  A CTA owns a
+//   tile of bins of one block and every row of parts for it (grid (nbins /
+//   tile, K)), so each spectrum byte crosses device memory once; thread t
+//   sums bin t % tile of the rows slot, slot + slots, ... (slot = t /
+//   tile), 2, 4 or 8 of them, in registers, its loads of 4 frames issued
+//   before their adds and no branch on a row in the loop.  Each product
+//   takes two 8-byte shared loads for a complex multiply-add's four
+//   operations, so shared memory caps it near a quarter of the float32
+//   rate; 576 threads of 8 rows hold 2,304 rows in one CTA
+//   (fx_xstage.XSTAGE_ROW_CAPACITY).  It forms a pair's product as the
+//   shared route (PartsOut and its reduce) does, so below the threshold the
+//   two routes agree bit for bit wherever the compiler forms it alike.
+//
+// * The register-tiled instance (fx_xstage_kernel_tiled<T, kU>, rows 64),
+//   from XSTAGE_TILED_NCH = 36 channels on (every count past 64 with
+//   it).  What bounds it is float32 operations: MeerKAT's block (128
+//   channels, 64 frames of 4096 bins, 8,256 pairs) is 17.3 GFLOP, 0.258 ms
+//   at 67 TFLOP/s, against 268 MB of spectra and 279 MB of parts, 0.163 ms
+//   at 3.35 TB/s.  The design is the classic correlator's register tile
+//   (xGPU: Clark, La Plante and Greenhill 2011), kept on the CUDA cores,
+//   where float32's 67 TFLOP/s is the ceiling, and on float32 products
+//   throughout:
+//     - the channels fall into groups of 8 (the last one padded with
+//       zeros); thread t owns bin t % tile of one tile of pairs, a group gp
+//       against a group gq, 8 x 8 products whose 128 sums stay in
+//       registers over all S frames.  Each frame it loads the 16 values
+//       once, as four 16-byte loads a group, and forms 64 complex
+//       multiply-adds: 0.125 shared loads (0.25 values) a multiply-add,
+//       against 2 in the row instance.  8 warps a CTA at most, two a
+//       sub-partition, so a thread may take 255 registers;
+//     - the tiles run through the triangle of groups by diagonals, gq =
+//       (gp + d) mod ng, ng(ng + 1) / 2 of them; where ng is even and at
+//       least 8 the half diagonal's ng / 2 tiles are cut into units of 2 x
+//       2 pairs spread over every thread (the tail), so that MeerKAT's 16
+//       groups fill 8 warps, not 8 and a half.  One CTA takes a tile of
+//       bins, or two take it, half the tiles each (grid (nbins / tile, K,
+//       split)), so each spectrum byte crosses device memory at most
+//       twice, and at a tile of 4 bins each row's 32 bytes, a whole
+//       sector, come from one CTA.  A warp's neighbouring slots take
+//       neighbouring groups, whose runs in the ring (a bin's 8 channels at
+//       a stride of kBinStride = 10 values) land on distinct banks at
+//       every tile the plan takes;
+//     - the ring of `stages` chunks is filled by 8-byte cp.async copies,
+//       which put a bin's 8 channels of a group side by side;
+//     - each output goes through the row map [np, np] int32 (np = nch
+//       rounded up to whole groups; -1 where the pair list has no row;
+//       fx_xstage.row_map, built once a pair list and kept with it), so
+//       any list of distinct pairs works: a tile writes its product (p, q)
+//       to row map[p][q] and its conjugate to row map[q][p]; a diagonal
+//       tile (gp = gq) forms the mirrored products too and writes only p
+//       <= q;
+//     - T and GJ ride on every thread: nch x tile sums over the split, kU
+//       (1 or 2, the instance) a thread with the tail's units, each one
+//       more load a frame;
+//     - each product is an FFMA chain, re = fma(p.re, q.re, re); re =
+//       fma(p.im, q.im, re); im = fma(p.im, q.re, im); im = fma(-p.re,
+//       q.im, im), summed in frame order: it rounds no worse than the row
+//       instance's product-then-add, but not alike, so from the threshold
+//       on the routes agree within the suite's tolerances, not bit for
+//       bit.
+//   No tensor cores: TF32 or a bf16 split would be a lower precision than
+//   the float32 the configuration states.
+
+// Both instances stream the frames through a ring of `stages` buffers in
+// shared memory, each `frames` frames of every channel at the tile's bins,
+// filled by cp.async `stages - 1` chunks ahead of the one being summed (the
+// last chunk may be ragged and copies no frame past S).  The tile, slots,
+// instance, frames a stage, stages and threads are planned in Python alone
+// (fx_xstage.xstage_plan); here the plan is only checked against the shape
+// and the instance's fixed limits.  A plan that does not fit, or shared
+// memory the card refuses, is an error, never another kernel.  No atomics:
+// every output element has one owner.  The fold of mu and of the new
+// history is done once a bin tile (by its first CTA).
 
 #include <cuda_runtime.h>
 
@@ -79,9 +118,9 @@
 
 namespace {
 
-// A kernel instance sums kRows = 2, 4 or 8 rows a thread (the plan's
-// `rows`), every one of them on every frame, so the loop has no branch on
-// a row, and takes at most RowThreads<kRows> threads a CTA (its
+// A row instance sums kRows = 2, 4 or 8 rows a thread (the plan's `rows`),
+// every one of them on every frame, so the loop has no branch on a row,
+// and takes at most RowThreads<kRows> threads a CTA (its
 // __launch_bounds__, fx_xstage.XSTAGE_ROW_THREADS): 256 at 2 and 4 rows;
 // 576 at 8, which cover 64 channels' 2,208 rows at a tile of 2 bins (552
 // threads) and leave a thread 112 registers.
@@ -92,11 +131,25 @@ struct RowThreads {
 };
 constexpr int kMaxStages = 8;
 
+// The register-tiled instance: groups of kGroup channels, a thread's tile
+// kGroup x kGroup pairs (the plan's `rows`, kTiledRows, names it), at most
+// kTiledThreads threads a CTA (fx_xstage.XSTAGE_TILED_THREADS: 8 warps,
+// two a sub-partition, so a thread may take 255 registers for its 128
+// sums and 16 operands), kMaxTiledTile bins a tile, a bin's channels of a
+// group kBinStride values apart in the ring, at most kMaxUnits tail units
+// and T and GJ sums a thread.
+constexpr int kGroup = 8;
+constexpr int kTiledRows = kGroup * kGroup;
+constexpr int kTiledThreads = 256;
+constexpr int kMaxTiledTile = 32;
+constexpr int kBinStride = kGroup + 2;
+constexpr int kMaxUnits = 2;
 
-// The launch's shape (fx_xstage.XStagePlan): bins of a CTA's tile, row
-// slots (rows slot, slot + slots, ... a thread), rows a thread (the kernel
-// instance: 2, 4 or 8), frames a stage of the ring, stages, threads a CTA
-// (a multiple of 32, at least tile * slots).
+// The launch's shape (fx_xstage.XStagePlan): bins of a CTA's tile, slots
+// (row slots: rows slot, slot + slots, ... a thread; tiled: tiles of
+// pairs), rows a thread (the instance: 2, 4 or 8; kTiledRows), frames a
+// stage of the ring, stages, threads a CTA (a multiple of 32, at least
+// tile * slots).
 struct XStagePlan {
   int tile, slots, rows, frames, stages, threads;
 };
@@ -123,6 +176,81 @@ struct XStageArgs {
   double step;
   XStagePlan plan;
 };
+
+// The tiled instance's arguments: a launch's, and the row map [np, np]
+// (np = nch rounded up to whole groups) of a pair's row or -1.  Apart, so
+// that the row instances' arguments stay as they were: one pointer more
+// there cost the 8-row instance 5% at array8's K = 32 (an H100, 438 us ->
+// 459 us a call).
+template <typename T>
+struct TiledArgs {
+  XStageArgs<T> a;
+  const int* rowmap;
+};
+
+// 8 bytes from device memory to shared memory, not through registers.
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(
+                   static_cast<unsigned>(__cvta_generic_to_shared(dst))),
+               "l"(src)
+               : "memory");
+}
+
+// Whether this CTA folds mu and the new history (`x` set): the first bin
+// tile forms mu, the last block's tiles the history at their bins.
+template <typename T>
+__device__ __forceinline__ bool folds(const XStageArgs<T>& a, int k) {
+  return a.x != nullptr && (blockIdx.x == 0 || k == a.K - 1);
+}
+
+// The reduce's share, while the first chunks are in flight: block k's
+// means into `means` [nch], a warp a channel.
+template <typename T>
+__device__ __forceinline__ void fold_means(const XStageArgs<T>& a, float2* means, int k) {
+  using Pair = typename SumOf<T>::pair;
+  const int warps = blockDim.x >> 5;
+  for (int c = threadIdx.x >> 5; c < a.nch; c += warps) {
+    const float2 m = warp_block_mean<T>(
+        static_cast<const Pair*>(a.sums)
+            + static_cast<size_t>(k) * a.n_groups * a.nch + c,
+        a.n_groups, a.nch, static_cast<long long>(a.S) * a.nbins, a.step);
+    if ((threadIdx.x & 31) == 0) means[c] = m;
+  }
+}
+
+// mu from the first bin tile and the new history at this CTA's bins
+// [b0, b0 + 2^lt) from the last block, once a barrier has made `means`
+// visible.
+template <typename T>
+__device__ __forceinline__ void fold_out(const XStageArgs<T>& a, const float2* means, int k,
+                         int b0, int lt) {
+  constexpr bool kC64 = sizeof(T) == sizeof(float2);
+  const int nch = a.nch, S = a.S, nbins = a.nbins, halo = a.halo;
+  const int tile = 1 << lt;
+  if (blockIdx.x == 0) {
+    for (int c = threadIdx.x; c < nch; c += blockDim.x) {
+      a.mu[static_cast<size_t>(k) * nch + c] = means[c];
+    }
+  }
+  if (k != a.K - 1) return;
+  const long long n = static_cast<long long>(S) * nbins;
+  for (int i = threadIdx.x; i < nch * halo * tile; i += blockDim.x) {
+    const int b = i & (tile - 1);
+    const int r = (i >> lt) % halo;
+    const int c = (i >> lt) / halo;
+    const T v = a.x[(static_cast<long long>(c) * a.K + k) * n
+                    + static_cast<long long>(S - halo + r) * nbins + b0 + b];
+    T* out = a.new_hist + (static_cast<size_t>(c) * halo + r) * nbins
+             + b0 + b;
+    if constexpr (kC64) {
+      *out = csub(v, means[c]);
+    } else {
+      *out = v;
+    }
+  }
+}
+
+// ---- the row instance ---------------------------------------------------
 
 // Chunk i (frames i << lf ..) of every channel of one block at a tile's
 // bins into stage i % stages of the ring (`sk`: the block's spectra from
@@ -197,13 +325,12 @@ __device__ __forceinline__ void sum_frames(
   }
 }
 
-// Grid (nbins / tile, K, row tiles), plan.threads threads; dynamic shared
-// memory stages x nch x frames x tile float2 of the ring, then nch float2
-// of the block's means (with `x`).  Row tile z holds rows z slots kRows
-// onwards; a thread's rows run cross and auto pairs first, then T, then GJ
-// (r = z slots kRows + slot + j slots), so their kinds are the same across
-// a row slot (a warp where the tile is 32 bins or more): the branches on
-// them do not diverge.
+// Grid (nbins / tile, K), plan.threads threads; dynamic shared memory
+// stages x nch x frames x tile float2 of the ring, then nch float2 of the
+// block's means (with `x`).  A thread's rows run cross and auto pairs
+// first, then T, then GJ (r = slot + j slots), so their kinds are the same
+// across a row slot (a warp where the tile is 32 bins or more): the
+// branches on them do not diverge.
 template <typename T, int kRows>
 __global__ void __launch_bounds__(RowThreads<kRows>::value, 1)
 fx_xstage_kernel(const XStageArgs<T> a) {
@@ -218,7 +345,6 @@ fx_xstage_kernel(const XStageArgs<T> a) {
   const int b0 = blockIdx.x * tile;
   const int bin = b0 + l;
   const int rows = a.nbl + 2 * nch;
-  const int r0 = static_cast<int>(blockIdx.z) * p.slots * kRows;
   const int lc = lf + lt;                  // a channel's run in a stage
   const int stage_len = nch << lc;
   const int n_chunks = (S + p.frames - 1) >> lf;
@@ -232,7 +358,7 @@ fx_xstage_kernel(const XStageArgs<T> a) {
   float2 acc[kRows];
 #pragma unroll
   for (int j = 0; j < kRows; ++j) {
-    const int r = r0 + slot + j * p.slots;
+    const int r = slot + j * p.slots;
     int ca = 0, cb = 0;
     if (slot < p.slots && r < rows) {
       nrows = j + 1;
@@ -261,23 +387,8 @@ fx_xstage_kernel(const XStageArgs<T> a) {
   for (int i = 0; i < stages - 1; ++i) {
     stage_chunk(ring, sk, i, n_chunks, stages, lf, lt, nch, S, nbins);
   }
-  // the reduce's share, while the first chunks are in flight: block k's
-  // means, for mu (bin tile 0) and the new history (the last block), in
-  // row tile 0 alone
-  constexpr bool kC64 = sizeof(T) == sizeof(float2);
-  using Pair = typename SumOf<T>::pair;
-  const bool fold = a.x != nullptr && blockIdx.z == 0
-                    && (blockIdx.x == 0 || k == a.K - 1);
-  if (fold) {
-    const int warps = blockDim.x >> 5;
-    for (int c = threadIdx.x >> 5; c < nch; c += warps) {
-      const float2 m = warp_block_mean<T>(
-          static_cast<const Pair*>(a.sums)
-              + static_cast<size_t>(k) * a.n_groups * nch + c,
-          a.n_groups, nch, static_cast<long long>(S) * nbins, a.step);
-      if ((threadIdx.x & 31) == 0) means[c] = m;
-    }
-  }
+  const bool fold = folds(a, k);
+  if (fold) fold_means(a, means, k);
 
   for (int i = 0; i < n_chunks; ++i) {
     cp_async_wait_pending(stages - 2);   // chunk i has landed (this thread)
@@ -311,63 +422,403 @@ fx_xstage_kernel(const XStageArgs<T> a) {
 #pragma unroll
   for (int j = 0; j < kRows; ++j) {
     if (j < nrows) {
-      const int r = r0 + slot + j * p.slots;
+      const int r = slot + j * p.slots;
       // an auto pair's imaginary part is 0 (its sum of the products'
       // imaginary parts is only their roundings)
       a.parts[(static_cast<size_t>(k) * rows + r) * nbins + bin] =
           (autos >> j) & 1u ? make_float2(acc[j].x, 0.f) : acc[j];
     }
   }
+  if (fold) fold_out(a, means, k, b0, lt);
+}
 
-  if (!fold) return;
-  if (blockIdx.x == 0) {
-    for (int c = threadIdx.x; c < nch; c += blockDim.x) {
-      a.mu[static_cast<size_t>(k) * nch + c] = means[c];
+// ---- the register-tiled instance ------------------------------------------
+
+// Chunk i of every channel of one block at a tile's bins into stage i %
+// stages of the ring, 8 bytes (one bin of one channel) a copy so that a
+// bin's channels of a group land side by side: channel c, frame ff, bin b
+// at ff frame_len + (c / 8) gs + b kBinStride + c % 8 (gs = tile
+// kBinStride, a group's run).  One commit group a chunk, an empty one past
+// the last.
+__device__ __forceinline__ void stage_chunk_tiled(
+    float2* ring, const float2* sk, int i, int n_chunks, int stages, int lf,
+    int lt, int nch, int S, int nbins, int frame_len, int stage_len) {
+  if (i < n_chunks) {
+    float2* dst = ring + (i % stages) * stage_len;
+    const int f0 = i << lf;
+    const int nf = min(1 << lf, S - f0);
+    const int gs = kBinStride << lt;
+    const int units = nch << (lf + lt);
+#pragma unroll 4
+    for (int u = threadIdx.x; u < units; u += blockDim.x) {
+      const int b = u & ((1 << lt) - 1);
+      const int ff = (u >> lt) & ((1 << lf) - 1);
+      const int c = u >> (lt + lf);
+      if (ff < nf) {
+        cp_async8(dst + ff * frame_len + (c / kGroup) * gs + b * kBinStride
+                      + c % kGroup,
+                  sk + (static_cast<size_t>(c) * S + f0 + ff) * nbins + b);
+      }
     }
   }
-  if (k != a.K - 1) return;
-  // the new history at this CTA's bins
-  const long long n = static_cast<long long>(S) * nbins;
-  for (int i = threadIdx.x; i < nch * halo * tile; i += blockDim.x) {
-    const int b = i & (tile - 1);
-    const int r = (i >> lt) % halo;
-    const int c = (i >> lt) / halo;
-    const T v = a.x[(static_cast<long long>(c) * a.K + k) * n
-                    + static_cast<long long>(S - halo + r) * nbins + b0 + b];
-    T* out = a.new_hist + (static_cast<size_t>(c) * halo + r) * nbins
-             + b0 + b;
-    if constexpr (kC64) {
-      *out = csub(v, means[c]);
-    } else {
-      *out = v;
+  cp_async_commit();
+}
+
+// A thread's sums in the tiled instance: its tile's 8 x 8 products, kU
+// tail units of 2 x 2 and kU T and GJ sums (a unit or sum past the CTA's
+// share sums a valid place and is not written).
+template <int kU>
+struct TiledSums {
+  float re[kGroup][kGroup], im[kGroup][kGroup];
+  float ure[kU][4], uim[kU][4];
+  float2 t[kU], gj[kU];
+};
+
+// What a thread reads of one frame: its groups' 8 values each (four
+// 16-byte loads a group), each tail unit's two pairs of channels, each T
+// sum's value, and dA at its bin (a frame f < halo).
+template <int kU>
+struct TiledOperands {
+  float4 p[kGroup / 2], q[kGroup / 2], up[kU], uq[kU];
+  float2 t[kU], dv;
+};
+
+// The thread's places in a frame of the ring: its tile's groups, its
+// tail units' pairs and its T sums' channels (offsets at its bin).
+template <int kU>
+struct TiledPlaces {
+  int op, oq, up[kU], uq[kU], ot[kU];
+};
+
+template <int kU, bool kGj>
+__device__ __forceinline__ void load_frame(TiledOperands<kU>& o,
+                                           const float2* fr,
+                                           const TiledPlaces<kU>& w,
+                                           const float2* da_f) {
+#pragma unroll
+  for (int h = 0; h < kGroup / 2; ++h) {
+    o.p[h] = reinterpret_cast<const float4*>(fr + w.op)[h];
+    o.q[h] = reinterpret_cast<const float4*>(fr + w.oq)[h];
+  }
+#pragma unroll
+  for (int m = 0; m < kU; ++m) {
+    o.up[m] = *reinterpret_cast<const float4*>(fr + w.up[m]);
+    o.uq[m] = *reinterpret_cast<const float4*>(fr + w.uq[m]);
+    o.t[m] = fr[w.ot[m]];
+  }
+  if constexpr (kGj) o.dv = __ldg(da_f);
+}
+
+// acc += a conj(b) as an FFMA chain: re = fma(a.re, b.re, re); re =
+// fma(a.im, b.im, re); im = fma(a.im, b.re, im); im = fma(-a.re, b.im, im).
+__device__ __forceinline__ void cmac(float& re, float& im, float ar, float ai,
+                                     float br, float bi) {
+  re = fmaf(ar, br, re);
+  re = fmaf(ai, bi, re);
+  im = fmaf(ai, br, im);
+  im = fmaf(-ar, bi, im);
+}
+
+// One frame's operands into a thread's sums: 64 products of the tile, 4 a
+// tail unit, each T sum and, with kGj (a frame f < halo), its GJ sum.
+template <int kU, bool kGj>
+__device__ __forceinline__ void sum_frame(TiledSums<kU>& s,
+                                          const TiledOperands<kU>& o) {
+#pragma unroll
+  for (int j = 0; j < kGroup; ++j) {
+    const float qr = j & 1 ? o.q[j >> 1].z : o.q[j >> 1].x;
+    const float qi = j & 1 ? o.q[j >> 1].w : o.q[j >> 1].y;
+#pragma unroll
+    for (int i = 0; i < kGroup; ++i) {
+      const float pr = i & 1 ? o.p[i >> 1].z : o.p[i >> 1].x;
+      const float pi = i & 1 ? o.p[i >> 1].w : o.p[i >> 1].y;
+      cmac(s.re[i][j], s.im[i][j], pr, pi, qr, qi);
+    }
+  }
+#pragma unroll
+  for (int m = 0; m < kU; ++m) {
+    const float4 a = o.up[m], b = o.uq[m];
+    cmac(s.ure[m][0], s.uim[m][0], a.x, a.y, b.x, b.y);
+    cmac(s.ure[m][1], s.uim[m][1], a.x, a.y, b.z, b.w);
+    cmac(s.ure[m][2], s.uim[m][2], a.z, a.w, b.x, b.y);
+    cmac(s.ure[m][3], s.uim[m][3], a.z, a.w, b.z, b.w);
+    s.t[m] = cadd(s.t[m], o.t[m]);
+    if constexpr (kGj) {
+      cmac(s.gj[m].x, s.gj[m].y, o.t[m].x, o.t[m].y, o.dv.x, o.dv.y);
     }
   }
 }
 
-// The plan's kernel instance on `st` (with `dependent`, a programmatic
-// dependent of the kernel before it) over `row_tiles` tiles of rows; more
-// threads than it takes is an error.
-template <typename T, int kRows>
-cudaError_t launch_rows(const XStageArgs<T>& a, size_t smem, int row_tiles,
-                        bool dependent, cudaStream_t st) {
-  if (a.plan.threads > RowThreads<kRows>::value) return cudaErrorInvalidValue;
-  auto* kernel = &fx_xstage_kernel<T, kRows>;
+// Product (pc, qc) summed as re + i im to row r as it is (imaginary part
+// 0 where pc = qc) and to row rm conjugated; -1: no row.
+__device__ __forceinline__ void put_pair(float2* out, int nbins, int r,
+                                         int rm, bool autos, float re,
+                                         float im) {
+  if (r >= 0) {
+    out[static_cast<size_t>(r) * nbins] = make_float2(re, autos ? 0.f : im);
+  }
+  if (rm >= 0) out[static_cast<size_t>(rm) * nbins] = make_float2(re, -im);
+}
+
+// Grid (nbins / tile, K, split), plan.threads threads; dynamic shared
+// memory stages x frames x ng groups x tile x kBinStride float2 of the
+// ring, then nch float2 of the block's means (with `x`).  The tiles of
+// the triangle of ng groups on slots: tile s holds gp = s mod ng against
+// gq = (gp + s / ng) mod ng, all ng (ng + 1) / 2 of them, or, where ng is
+// even and at least 8, the ng / 2 whole diagonals' ng^2 / 2, the half
+// diagonal's ng / 2 tiles (gp, gp + ng / 2) going to the tail: 16 units
+// of 2 x 2 pairs a tile and bin, spread over every thread.  `split` = 1
+// or 2 CTAs share a bin tile: CTA z takes tiles z slots .. (z + 1) slots -
+// 1 (a thread the one t / tile at bin t % tile; threads past them sum like
+// the others and write nothing) and the z-th share of the tail's units and
+// of the T and GJ sums (channels z cs .. (z + 1) cs - 1, cs = ceil(nch /
+// split), at every bin), kU of each at most a thread.  With split 1 and
+// tile 2, MeerKAT's 128 channels fill 8 warps (a ninth would leave one
+// sub-partition three warps to the others' two, and a thread 168
+// registers); split 2 at a tile of 4 bins writes each row's 32 bytes, a
+// whole sector, where a tile of 2 writes half of one.
+template <typename T, int kU>
+__global__ void __launch_bounds__(kTiledThreads, 1)
+fx_xstage_kernel_tiled(const __grid_constant__ TiledArgs<T> args) {
+  extern __shared__ __align__(16) float2 ring[];
+  const XStageArgs<T>& a = args.a;
+  const int* __restrict__ rowmap = args.rowmap;
+  const XStagePlan p = a.plan;
+  const int tile = p.tile, stages = p.stages;
+  const int nch = a.nch, S = a.S, nbins = a.nbins, halo = a.halo;
+  const int lt = __ffs(tile) - 1, lf = __ffs(p.frames) - 1;
+  const int ng = (nch + kGroup - 1) / kGroup;
+  const int np = ng * kGroup;                      // the row map's side
+  const int gs = kBinStride << lt;
+  const int frame_len = ng * gs;
+  const int stage_len = frame_len << lf;
+  const int l = threadIdx.x & (tile - 1);
+  const int z = blockIdx.z, split = gridDim.z;
+  const int k = blockIdx.y;
+  const int b0 = blockIdx.x * tile;
+  const int bin = b0 + l;
+  const int n_chunks = (S + p.frames - 1) >> lf;
+  float2* means = ring + stages * stage_len;       // [nch], with x
+
+  // the thread's tile
+  const bool own = (threadIdx.x >> lt) < p.slots;
+  const int slot = own ? (threadIdx.x >> lt) + z * p.slots : 0;
+  const int d = slot / ng;
+  const int gp = slot - d * ng;
+  const int gq = (gp + d) % ng;
+  TiledPlaces<kU> w;
+  w.op = gp * gs + l * kBinStride;
+  w.oq = gq * gs + l * kBinStride;
+  // the tail's units of this CTA: unit u -> tile tt = (u / tile) mod half,
+  // sub-tile (u / tile) / half = 0 .. 15, channels 2 (sub mod 4) .. of gp
+  // = tt against 2 (sub / 4) .. of gq = tt + half
+  const int half = ng >> 1;
+  const int units = p.slots * split * 2 < ng * (ng + 1)
+                        ? ((half * 16) << lt) / split : 0;
+  // the T and GJ sums of this CTA: channel z cs + (t + m threads) / tile
+  const int cs = (nch + split - 1) / split;
+  const int c_end = min(nch, (z + 1) * cs);
+#pragma unroll
+  for (int m = 0; m < kU; ++m) {
+    const int v = threadIdx.x + m * blockDim.x;
+    const int rest = (v < units ? z * units + v : 0) >> lt;
+    const int tt = rest % max(half, 1), sub = rest / max(half, 1);
+    w.up[m] = tt * gs + l * kBinStride + 2 * (sub & 3);
+    w.uq[m] = (tt + half) * gs + l * kBinStride + 2 * (sub >> 2);
+    const int c = z * cs + (v >> lt);
+    w.ot[m] = c < c_end ? (c / kGroup) * gs + l * kBinStride + c % kGroup
+                        : 0;
+  }
+
+  // the last group's channels past nch read 0 in every stage (no copy
+  // writes them)
+  const int pad = np - nch;
+  for (int u = threadIdx.x; u < (stages << (lf + lt)) * pad;
+       u += blockDim.x) {
+    const int b = u & (tile - 1);
+    const int c = nch + (u >> lt) % pad;
+    const int fr = (u >> lt) / pad;
+    ring[fr * frame_len + (c / kGroup) * gs + b * kBinStride + c % kGroup] =
+        make_float2(0.f, 0.f);
+  }
+
+  wait_for_predecessor();
+  release_dependent();
+  const float2* sk = a.spec + static_cast<size_t>(k) * nch * S * nbins + b0;
+  for (int i = 0; i < stages - 1; ++i) {
+    stage_chunk_tiled(ring, sk, i, n_chunks, stages, lf, lt, nch, S, nbins,
+                      frame_len, stage_len);
+  }
+  const bool fold = z == 0 && folds(a, k);
+  if (fold) fold_means(a, means, k);
+
+  TiledSums<kU> s;
+#pragma unroll
+  for (int i = 0; i < kGroup; ++i) {
+#pragma unroll
+    for (int j = 0; j < kGroup; ++j) s.re[i][j] = s.im[i][j] = 0.f;
+  }
+#pragma unroll
+  for (int m = 0; m < kU; ++m) {
+#pragma unroll
+    for (int u = 0; u < 4; ++u) s.ure[m][u] = s.uim[m][u] = 0.f;
+    s.t[m] = s.gj[m] = make_float2(0.f, 0.f);
+  }
+  const float2* da = a.da + bin;
+  for (int i = 0, at = 0; i < n_chunks; ++i) {
+    cp_async_wait_pending(stages - 2);
+    __syncthreads();
+    stage_chunk_tiled(ring, sk, i + stages - 1, n_chunks, stages, lf, lt,
+                      nch, S, nbins, frame_len, stage_len);
+    const int f0 = i << lf;
+    const int nf = min(1 << lf, S - f0);
+    const float2* fr = ring + at * stage_len;
+    at = at + 1 == stages ? 0 : at + 1;
+    TiledOperands<kU> o;
+    int ff = 0;
+    for (const int stop = min(nf, halo - f0); ff < stop; ++ff) {
+      load_frame<kU, true>(o, fr + ff * frame_len, w,
+                           da + static_cast<size_t>(f0 + ff) * nbins);
+      sum_frame<kU, true>(s, o);
+    }
+    for (; ff < nf; ++ff) {
+      load_frame<kU, false>(o, fr + ff * frame_len, w, da);
+      sum_frame<kU, false>(s, o);
+    }
+  }
+
+  const size_t rows = static_cast<size_t>(a.nbl) + 2 * nch;
+  float2* out = a.parts + static_cast<size_t>(k) * rows * nbins + bin;
+  if (own) {
+    // rows of (gp 8 + i, gq 8 + j) and of (gq 8 + j, gp 8 + i): the row
+    // map's runs of 8, two 16-byte loads each
+    int r[kGroup][kGroup];
+#pragma unroll
+    for (int i = 0; i < kGroup; ++i) {
+      const int4* run = reinterpret_cast<const int4*>(
+          rowmap + (gp * kGroup + i) * np + gq * kGroup);
+      const int4 lo = __ldg(run), hi = __ldg(run + 1);
+      r[i][0] = lo.x; r[i][1] = lo.y; r[i][2] = lo.z; r[i][3] = lo.w;
+      r[i][4] = hi.x; r[i][5] = hi.y; r[i][6] = hi.z; r[i][7] = hi.w;
+    }
+#pragma unroll
+    for (int i = 0; i < kGroup; ++i) {
+#pragma unroll
+      for (int j = 0; j < kGroup; ++j) {
+        if (d > 0 || i <= j) {
+          put_pair(out, nbins, r[i][j], -1, d == 0 && i == j, s.re[i][j],
+                   s.im[i][j]);
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kGroup; ++j) {
+      const int4* run = reinterpret_cast<const int4*>(
+          rowmap + (gq * kGroup + j) * np + gp * kGroup);
+      const int4 lo = __ldg(run), hi = __ldg(run + 1);
+      const int rm[kGroup] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+#pragma unroll
+      for (int i = 0; i < kGroup; ++i) {
+        if (d > 0 || i < j) {
+          put_pair(out, nbins, -1, rm[i], false, s.re[i][j], s.im[i][j]);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int m = 0; m < kU; ++m) {
+    const int v = threadIdx.x + m * blockDim.x;
+    if (v < units) {
+      const int rest = (z * units + v) >> lt;
+      const int tt = rest % half, sub = rest / half;
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int pc = tt * kGroup + 2 * (sub & 3) + (u >> 1);
+        const int qc = (tt + half) * kGroup + 2 * (sub >> 2) + (u & 1);
+        put_pair(out, nbins, __ldg(rowmap + pc * np + qc),
+                 __ldg(rowmap + qc * np + pc), false, s.ure[m][u],
+                 s.uim[m][u]);
+      }
+    }
+    const int c = z * cs + (v >> lt);
+    if (c < c_end) {
+      out[(static_cast<size_t>(a.nbl) + c) * nbins] = s.t[m];
+      out[(static_cast<size_t>(a.nbl) + nch + c) * nbins] = s.gj[m];
+    }
+  }
+  if (fold) fold_out(a, means, k, b0, lt);
+}
+
+// ---- launchers ------------------------------------------------------------
+
+// A kernel instance on `st` (with `dependent`, a programmatic dependent
+// of the kernel before it) over a grid (x, y, z) of `threads` threads,
+// given its argument and dynamic shared memory.
+template <typename Args>
+cudaError_t launch_instance(void (*kernel)(Args), const Args& args, int x,
+                            int y, int z, int threads, size_t smem,
+                            bool dependent, cudaStream_t st) {
   cudaError_t err = cudaFuncSetAttribute(
       reinterpret_cast<const void*>(kernel),
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  return launch_kernel(kernel, dim3(a.nbins / a.plan.tile, a.K, row_tiles),
-                       dim3(a.plan.threads), smem, st, dependent, a);
+  return launch_kernel(kernel, dim3(x, y, z), dim3(threads), smem, st,
+                       dependent, args);
+}
+
+// A row instance: its slots of `rows` rows hold every row, and it takes
+// the threads.
+template <typename T, int kRows>
+cudaError_t launch_rows(const XStageArgs<T>& a, bool dependent,
+                        cudaStream_t st) {
+  const XStagePlan& p = a.plan;
+  const long long rows = static_cast<long long>(a.nbl) + 2 * a.nch;
+  if (p.threads > RowThreads<kRows>::value
+      || static_cast<long long>(p.slots) * kRows < rows) {
+    return cudaErrorInvalidValue;
+  }
+  const size_t smem = (static_cast<size_t>(p.stages) * a.nch * p.frames
+                          * p.tile + a.nch) * sizeof(float2);
+  return launch_instance(&fx_xstage_kernel<T, kRows>, a, a.nbins / p.tile,
+                         a.K, 1, p.threads, smem, dependent, st);
+}
+
+// The tiled instance: `split` = 1 or 2 CTAs a bin tile share the tiles
+// of the triangle of groups on their slots (all ng (ng + 1) / 2, or the
+// whole diagonals' ng^2 / 2 where ng is even and at least 8, the half
+// diagonal in the tail), the tail's units and the T and GJ sums, kU of
+// each at most a thread (the instance), with a row map wherever there are
+// pairs.
+template <typename T>
+cudaError_t launch_tiled(const XStageArgs<T>& a, const int* rowmap,
+                         bool dependent, cudaStream_t st) {
+  const XStagePlan& p = a.plan;
+  const int ng = (a.nch + kGroup - 1) / kGroup;
+  const bool halves = ng % 2 == 0 && ng >= 8;
+  const int tiles = halves ? ng * ng / 2 : ng * (ng + 1) / 2;
+  const int split = tiles / p.slots;
+  const int units = halves ? ng / 2 * 16 * p.tile / split : 0;
+  const int sums = (a.nch + split - 1) / split * p.tile;
+  const int need = (max(units, sums) + p.threads - 1) / p.threads;
+  if (p.tile > kMaxTiledTile || split < 1 || split > 2
+      || split * p.slots != tiles || p.threads > kTiledThreads
+      || need > kMaxUnits || (a.nbl > 0 && rowmap == nullptr)) {
+    return cudaErrorInvalidValue;
+  }
+  const size_t smem = (static_cast<size_t>(p.stages) * p.frames * ng
+                          * p.tile * kBinStride + a.nch) * sizeof(float2);
+  auto* kernel = need == 1 ? &fx_xstage_kernel_tiled<T, 1>
+                           : &fx_xstage_kernel_tiled<T, 2>;
+  return launch_instance(kernel, TiledArgs<T>{a, rowmap}, a.nbins / p.tile,
+                         a.K, split, p.threads, smem, dependent, st);
 }
 
 // The plan is checked against the shape: it must cover every bin and
-// frame, its row tiles every row (at most 65535 of them), and its ring
-// must hold the history's means after the last chunk.
+// frame, and its instance every row (one CTA a bin tile).
 template <typename T>
-cudaError_t launch_xstage(const XStageArgs<T>& a, bool dependent,
-                          cudaStream_t st) {
+cudaError_t launch_xstage(const XStageArgs<T>& a, const int* rowmap,
+                          bool dependent, cudaStream_t st) {
   const XStagePlan& p = a.plan;
-  const long long rows = static_cast<long long>(a.nbl) + 2 * a.nch;
   if (a.K < 1 || a.K > 65535 || a.S < 1 || a.nch < 1 || a.nch > 255
       || a.nbl < 0 || a.halo < 0 || a.halo > a.S || p.tile < 2
       || (p.tile & (p.tile - 1)) != 0 || a.nbins % p.tile != 0
@@ -376,16 +827,11 @@ cudaError_t launch_xstage(const XStageArgs<T>& a, bool dependent,
       || p.stages < 2 || p.stages > kMaxStages) {
     return cudaErrorInvalidValue;
   }
-  const long long per_tile = static_cast<long long>(p.slots) * p.rows;
-  const long long row_tiles = (rows + per_tile - 1) / per_tile;
-  if (row_tiles < 1 || row_tiles > 65535) return cudaErrorInvalidValue;
-  const int z = static_cast<int>(row_tiles);
-  const size_t smem = (static_cast<size_t>(p.stages) * a.nch * p.frames
-                          * p.tile + a.nch) * sizeof(float2);
   switch (p.rows) {
-    case 2: return launch_rows<T, 2>(a, smem, z, dependent, st);
-    case 4: return launch_rows<T, 4>(a, smem, z, dependent, st);
-    case 8: return launch_rows<T, 8>(a, smem, z, dependent, st);
+    case 2: return launch_rows<T, 2>(a, dependent, st);
+    case 4: return launch_rows<T, 4>(a, dependent, st);
+    case 8: return launch_rows<T, 8>(a, dependent, st);
+    case kTiledRows: return launch_tiled<T>(a, rowmap, dependent, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -394,11 +840,11 @@ cudaError_t launch_xstage(const XStageArgs<T>& a, bool dependent,
 
 namespace fxt {
 
-int xstage(bool int8, const void* spec, const void* pairs, const void* da,
-           void* parts, const void* x, const void* sums, void* mu,
-           void* new_hist, int nch, int K, int S, int nbins, int nbl,
-           int halo, int n_groups, int tile, int slots, int rows, int frames,
-           int stages, int threads, double step, bool dependent,
+int xstage(bool int8, const void* spec, const void* pairs, const void* rowmap,
+           const void* da, void* parts, const void* x, const void* sums,
+           void* mu, void* new_hist, int nch, int K, int S, int nbins,
+           int nbl, int halo, int n_groups, int tile, int slots, int rows,
+           int frames, int stages, int threads, double step, bool dependent,
            cudaStream_t st) {
   const XStagePlan plan{tile, slots, rows, frames, stages, threads};
   if (int8) {
@@ -411,7 +857,8 @@ int xstage(bool int8, const void* spec, const void* pairs, const void* da,
                               static_cast<float2*>(mu),
                               static_cast<char2*>(new_hist), n_groups, step,
                               plan};
-    return static_cast<int>(launch_xstage(a, dependent, st));
+    return static_cast<int>(
+        launch_xstage(a, static_cast<const int*>(rowmap), dependent, st));
   }
   const XStageArgs<float2> a{static_cast<const float2*>(spec),
                              static_cast<const int*>(pairs),
@@ -422,33 +869,35 @@ int xstage(bool int8, const void* spec, const void* pairs, const void* da,
                              static_cast<float2*>(mu),
                              static_cast<float2*>(new_hist), n_groups, 1.0,
                              plan};
-  return static_cast<int>(launch_xstage(a, dependent, st));
+  return static_cast<int>(
+      launch_xstage(a, static_cast<const int*>(rowmap), dependent, st));
 }
 
 }  // namespace fxt
 
 // The X stage on `stream` (fx_xstage.py): spec complex64 [K, nch, S, nbins],
-// pairs int32 [nbl, 2], da complex64 [halo, nbins] (halo <= S); writes parts
-// [K, nbl + 2 nch, nbins].  With x NULL that is all (fx_xstage alone; sums,
+// pairs int32 [nbl, 2], rowmap int32 [np, np] (fx_xstage.row_map: pair
+// (p, q)'s row or -1; read by the tiled instance, NULL allowed for the row
+// instances), da complex64 [halo, nbins] (halo <= S); writes parts [K,
+// nbl + 2 nch, nbins].  With x NULL that is all (fx_xstage alone; sums,
 // mu, new_hist and n_groups unused).  Else it ends the wide route's step
 // after fxt_fx_wide_frames: x complex64 [nch, K, S, nbins] and the frame
 // kernel's sums double2 [K, n_groups, nch] give mu [K, nch] and the new
 // history [nch, halo, nbins].  tile, slots, rows, frames, stages and
-// threads are the launch's plan (fx_xstage.xstage_plan; its row tiles
-// follow from slots and rows), checked here against the shape (an invalid
-// plan returns cudaErrorInvalidValue).  The
+// threads are the launch's plan (fx_xstage.xstage_plan), checked here
+// against the shape (an invalid plan returns cudaErrorInvalidValue).  The
 // caller has checked shapes, types and contiguity.  Returns
 // cudaGetLastError().
 extern "C" int fxt_xstage(const void* spec, const void* pairs,
-                          const void* da, void* parts, const void* x,
-                          const void* sums, void* mu, void* new_hist,
-                          int nch, int K, int S, int nbins, int nbl,
-                          int halo, int n_groups, int tile, int slots,
-                          int rows, int frames, int stages, int threads,
-                          void* stream) {
-  return fxt::xstage(false, spec, pairs, da, parts, x, sums, mu, new_hist,
-                     nch, K, S, nbins, nbl, halo, n_groups, tile, slots, rows,
-                     frames, stages, threads, 1.0, false,
+                          const void* rowmap, const void* da, void* parts,
+                          const void* x, const void* sums, void* mu,
+                          void* new_hist, int nch, int K, int S, int nbins,
+                          int nbl, int halo, int n_groups, int tile,
+                          int slots, int rows, int frames, int stages,
+                          int threads, void* stream) {
+  return fxt::xstage(false, spec, pairs, rowmap, da, parts, x, sums, mu,
+                     new_hist, nch, K, S, nbins, nbl, halo, n_groups, tile,
+                     slots, rows, frames, stages, threads, 1.0, false,
                      static_cast<cudaStream_t>(stream));
 }
 
@@ -456,19 +905,22 @@ extern "C" int fxt_xstage(const void* spec, const void* pairs,
 // int8 [nch, K, S, nbins, 2], sums longlong2 (exact integer sums), mu in
 // real units (times `step`) and the new tail the last rows as they arrived.
 extern "C" int fxt_xstage_i8(const void* spec, const void* pairs,
-                             const void* da, void* parts, const void* x,
-                             const void* sums, void* mu, void* new_tail,
-                             int nch, int K, int S, int nbins, int nbl,
-                             int halo, int n_groups, int tile, int slots,
-                             int rows, int frames, int stages, int threads,
-                             double step, void* stream) {
-  return fxt::xstage(true, spec, pairs, da, parts, x, sums, mu, new_tail, nch,
-                     K, S, nbins, nbl, halo, n_groups, tile, slots, rows,
-                     frames, stages, threads, step, false,
+                             const void* rowmap, const void* da, void* parts,
+                             const void* x, const void* sums, void* mu,
+                             void* new_tail, int nch, int K, int S,
+                             int nbins, int nbl, int halo, int n_groups,
+                             int tile, int slots, int rows, int frames,
+                             int stages, int threads, double step,
+                             void* stream) {
+  return fxt::xstage(true, spec, pairs, rowmap, da, parts, x, sums, mu,
+                     new_tail, nch, K, S, nbins, nbl, halo, n_groups, tile,
+                     slots, rows, frames, stages, threads, step, false,
                      static_cast<cudaStream_t>(stream));
 }
 
 // The plan's integers fxt_xstage and fxt_xstage_i8 take, in
-// fx_xstage.XStagePlan.args()'s order (a tool that drives two builds of
-// this file asks each how to call it).
+// fx_xstage.XStagePlan.args()'s order, and the pointers before them (a
+// tool that drives two builds of this file asks each how to call it; a
+// build without fxt_xstage_pointers takes 8, no row map).
 extern "C" int fxt_xstage_plan_ints(void) { return 6; }
+extern "C" int fxt_xstage_pointers(void) { return 9; }

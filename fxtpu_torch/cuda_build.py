@@ -74,7 +74,8 @@ class StepArgs(ctypes.Structure):
         + [(name, ctypes.c_int) for name in (
             "nch", "K", "S", "nbins", "ntaps", "nbl", "n_groups",
             "frames_per_group", "wide", "packed", "continuum", "tile",
-            "slots", "rows", "frames", "stages", "threads")])
+            "slots", "rows", "frames", "stages", "threads")]
+        + [("rowmap", ctypes.c_void_p)])
 
 
 def declare(lib):
@@ -95,8 +96,8 @@ def declare(lib):
         "fxt_fx_wide_frames_i8": [P] * 7 + [I] * 7 + [D, P],
         "fxt_parts_reduce": [P] * 6 + [I] * 8 + [P],
         "fxt_parts_reduce_i8": [P] * 6 + [I] * 8 + [D, P],
-        "fxt_xstage": [P] * 8 + [I] * 13 + [P],
-        "fxt_xstage_i8": [P] * 8 + [I] * 13 + [D, P],
+        "fxt_xstage": [P] * 9 + [I] * 13 + [P],
+        "fxt_xstage_i8": [P] * 9 + [I] * 13 + [D, P],
         "fxt_fx_finish": [P] * 13 + [L] * 3 + [I] * 7 + [D, P],
         "fxt_fx_ablate": [P] * 10 + [I] * 10 + [P],
         "fxt_fx_ablate_i8": [P] * 11 + [I] * 9 + [D, I, P],
@@ -112,8 +113,9 @@ def declare(lib):
         fn.restype, fn.argtypes = I, argtypes
     lib.fxt_error_string.restype = ctypes.c_char_p
     lib.fxt_error_string.argtypes = [I]
-    lib.fxt_xstage_plan_ints.restype = I
-    lib.fxt_xstage_plan_ints.argtypes = []
+    for name in ("fxt_xstage_plan_ints", "fxt_xstage_pointers"):
+        getattr(lib, name).restype = I
+        getattr(lib, name).argtypes = []
     return lib
 
 

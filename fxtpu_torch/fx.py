@@ -444,9 +444,10 @@ class FxEngine:
         engine's ingest and FIR mode (its ``svd_launches`` in the SVD-FIR
         mode), on the wide route under ``wrapper.wide_launches`` (or
         ``.wide_svd_launches``) beside its X kernel's launches
-        ``fx_xstage`` and their work, ``fx_xstage.row_tiles`` (the X
-        grid's tiles of rows, one a launch up to 64 channels, 4 at 128)
-        and ``fx_xstage.ctas``, and the epilogue."""
+        ``fx_xstage`` and their work, ``fx_xstage.ctas``, and
+        ``fx_xstage.tiled`` (those that took the register-tiled instance,
+        from ``fx_xstage.XSTAGE_TILED_NCH`` channels on), and the
+        epilogue."""
         if not self._fused:
             return {}
         name = "fx_fused_parts_i8" if self._int8 else "fx_fused_parts"
@@ -457,8 +458,8 @@ class FxEngine:
         attr = "wide_" + attr
         return {f"{name}.{attr}": getattr(getattr(fx_fused, name), attr),
                 "fx_xstage": fx_xstage.launches,
-                "fx_xstage.row_tiles": fx_xstage.row_tiles,
                 "fx_xstage.ctas": fx_xstage.ctas,
+                "fx_xstage.tiled": fx_xstage.tiled,
                 "fx_finish": fx_epilogue.fx_finish.launches}
 
     @property

@@ -40,7 +40,8 @@ from fxtpu_torch.ops import fx_fused as ff
 from fxtpu_torch.ops.dc_posthoc import block_mu_prev, dc_correct
 from fxtpu_torch.ops.fx_fused import (_on_card, fx_fused_parts,
                                       fx_fused_parts_i8)
-from fxtpu_torch.ops.fx_xstage import XStagePlan, count_launch, xstage_plan
+from fxtpu_torch.ops.fx_xstage import (XStagePlan, count_launch, row_map,
+                                       xstage_plan)
 from fxtpu_torch.ops.xengine import (continuum_reduce, rf_freqs,
                                      rotation_phase, split_delays,
                                      unit_phasor)
@@ -240,6 +241,7 @@ class StepPlan:
     n_groups: int
     per: int
     xplan: Optional[XStagePlan]
+    rowmap: Optional[torch.Tensor]      # the tiled X instance's row map
 
 
 def check_step(iq, history, window2d, pairs, consts, delays, tables,
@@ -274,10 +276,11 @@ def check_step(iq, history, window2d, pairs, consts, delays, tables,
     else:
         n_groups, per = ff._groups(s_rows, nbl + 2 * nch, nbins)
         xplan = None
+    rmap = row_map(pairs, nch) if xplan is not None and xplan.tiled else None
     return StepPlan(iq, hist, mu_prev, window2d, svd, pairs, consts, delays,
                     freqs, step, float(bandwidth), bool(continuum), packed,
                     rank, route, k, nch, s_rows, nbins, window2d.shape[0],
-                    nbl, n_groups, per, xplan)
+                    nbl, n_groups, per, xplan, rmap)
 
 
 def step_buffers(plan: StepPlan, pool=None) -> dict:
@@ -342,7 +345,8 @@ def step_args(plan: StepPlan, bufs: dict):
         1.0 if plan.quant_step is None else plan.quant_step, plan.bandwidth,
         plan.nch, plan.k, plan.s_rows, plan.nbins, plan.ntaps, plan.nbl,
         plan.n_groups, plan.per, int(plan.route == "global"),
-        int(plan.packed), int(plan.continuum), *xp)
+        int(plan.packed), int(plan.continuum), *xp,
+        None if plan.rowmap is None else plan.rowmap.data_ptr())
 
 
 def launch_step(plan: StepPlan, bufs: dict):

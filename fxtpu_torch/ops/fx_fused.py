@@ -162,8 +162,8 @@ FIR_MAX_MEANS = 256
 #: ``MAX_FUSED_NCHAN``, ``pfb_pallas.py:87``).
 MAX_FUSED_NCHAN = 64
 #: Most channels the single pass takes on its wide route: MeerKAT's 64
-#: dual-polarisation dishes (8,256 pairs with autos), whose rows of parts
-#: the X kernel splits over tiles of rows (``fx_xstage.xstage_plan``).
+#: dual-polarisation dishes (8,256 pairs with autos), whose pairs the X
+#: kernel's register-tiled instance takes (``fx_xstage.xstage_plan``).
 MAX_WIDE_NCHAN = 128
 #: Where the single pass forms its X stage: ``"shared"``, every channel's
 #: spectrum of a frame in one CTA's shared memory (``supported``);

@@ -34,7 +34,10 @@ the same input and output buffers:
     wide route, at ``bench_pipeline``'s (``nchan8_x``, ``cli8_x``,
     ``pipeline_x``); the entry takes as many plan integers as its
     library's ``fxt_xstage_plan_ints()`` says (none where the library
-    has no such symbol: the X kernel before its launch plan);
+    has no such symbol: the X kernel before its launch plan), and the
+    row map after the pairs where ``fxt_xstage_pointers()`` says 9 (a
+    library without it takes none and is given a row instance's plan,
+    ``fx_xstage.row_plan``, as before the register-tiled instance);
   * a whole single-pass step (``step_*``: the flagship at K = 1 and 8,
     ``bench_pipeline``'s block in CONTINUUM, the ``--nchan 8`` CLI block
     and the nchan8 block on the wide route): in a tree with the step entry
@@ -94,7 +97,7 @@ from fxtpu_torch.ops import fx_epilogue as fe  # noqa: E402
 from fxtpu_torch.ops import fx_fused as ff  # noqa: E402
 from fxtpu_torch.ops.dc_posthoc import dc_constants  # noqa: E402
 from fxtpu_torch.ops.fx_xstage import (fx_xstage_reference,  # noqa: E402
-                                       xstage_plan)
+                                       row_map, row_plan, xstage_plan)
 from fxtpu_torch.ops.xengine import baseline_pairs, pack_delays  # noqa: E402
 from fxtpu_torch.probes import ablate  # noqa: E402
 from fxtpu_torch.probes import overlap, retile  # noqa: E402
@@ -186,11 +189,13 @@ CASES = {
     "cli8_x": ("xstage", 8, 2**18, 4096, 4, 1, "direct", False),
     "pipeline_x": ("xstage", 2, 2**21, 4096, 4, 1, "direct", False),
     "nch64_x": ("xstage", 64, 2**18, 4096, 4, 1, "direct", True),
+    "array8_x": ("xstage", 8, 2**18, 4096, 4, 32, "direct", True),
     "step_flagship": ("step", 2, 2**18, 4096, 4, 1, "direct", False),
     "step_flagship_k8": ("step", 2, 2**18, 4096, 4, 8, "direct", False),
     "step_pipeline": ("step", 2, 2**21, 4096, 4, 1, "direct", False),
     "step_cli8": ("step", 8, 2**18, 4096, 4, 1, "direct", False),
     "step_nchan8": ("step", 8, 2**20, 4096, 4, 1, "direct", True),
+    "step_array8": ("step", 8, 2**18, 4096, 4, 32, "direct", True),
     "r384": ("parts", 2, 2**18, 384, 4, 1, "direct", False),
     "r3072": ("parts", 2, 2**18, 3072, 4, 1, "direct", False),
     "r6144d": ("parts", 2, 2**18, 6144, 32, 1, "svd", False),
@@ -310,6 +315,8 @@ def build_tree(root: Path, name: str, like=None):
     lib = ctypes.CDLL(str(path))
     ints = getattr(lib, "fxt_xstage_plan_ints", None)
     lib.plan_ints = ints() if ints is not None else 0
+    pointers = getattr(lib, "fxt_xstage_pointers", None)
+    lib.row_map = pointers is not None and pointers() == 9
     lib.has_step = getattr(lib, STEP_ENTRIES[0], None) is not None
     lib.fir_launch = getattr(lib, "fxt_fir_rows", None) is not None
     if like is None:
@@ -324,12 +331,15 @@ def build_tree(root: Path, name: str, like=None):
         for entry in STEP_ENTRIES if lib.has_step else ():
             getattr(lib, entry).argtypes = [
                 ctypes.POINTER(FactorStepArgs), _P]
-    # the X kernel's entries: the plan's integers after the first 15
-    # arguments, as many as this library takes
+    # the X kernel's entries: the pointers (the row map after the pairs
+    # where the library takes one), 7 integers, then the plan's integers,
+    # as many as this library takes
+    head = 9 if like.row_map else 8
     for entry in ("fxt_xstage", "fxt_xstage_i8"):
         fn = getattr(lib, entry)
-        fn.argtypes = (fn.argtypes[:15] + [ctypes.c_int] * lib.plan_ints
-                       + fn.argtypes[15 + like.plan_ints:])
+        ptrs = [_P] * (9 if lib.row_map else 8)
+        fn.argtypes = (ptrs + [_I] * (7 + lib.plan_ints)
+                       + fn.argtypes[head + 7 + like.plan_ints:])
     return lib, log
 
 
@@ -475,13 +485,16 @@ class Case:
         elif self.entry == "xstage":
             fn = lib.fxt_xstage_i8 if self.int8 else lib.fxt_xstage
             nbl = self.pairs.shape[0]
-            plan = xstage_plan(self.nch, nbl, self.s_rows, self.nbins,
-                               self.k).args() if lib.plan_ints else ()
+            planner = xstage_plan if lib.row_map else row_plan
+            plan = planner(self.nch, nbl, self.s_rows, self.nbins,
+                           self.k).args() if lib.plan_ints else ()
             if len(plan) != lib.plan_ints:
                 raise RuntimeError(f"the library's X entry takes "
                                    f"{lib.plan_ints} plan integers, this "
                                    f"tree plans {len(plan)}")
-            rc = fn(self.scratch.data_ptr(), self.pairs.data_ptr(),
+            rmap = ((row_map(self.pairs, self.nch).data_ptr(),)
+                    if lib.row_map else ())
+            rc = fn(self.scratch.data_ptr(), self.pairs.data_ptr(), *rmap,
                     self.consts[1].data_ptr(), self.parts.data_ptr(),
                     self.x.data_ptr(), self.sums.data_ptr(),
                     self.mu.data_ptr(), self.new_hist.data_ptr(), self.nch,
@@ -601,7 +614,9 @@ class StepCase:
             cuda_build.check(lib, rc, "A/B wide frames")
             plan = p.xplan.args() if lib.plan_ints else ()
             fn = lib.fxt_xstage_i8 if self.int8 else lib.fxt_xstage
-            rc = fn(b["scratch"].data_ptr(), p.pairs.data_ptr(), da,
+            rmap = ((None if p.rowmap is None else p.rowmap.data_ptr(),)
+                    if lib.row_map else ())
+            rc = fn(b["scratch"].data_ptr(), p.pairs.data_ptr(), *rmap, da,
                     b["parts"].data_ptr(), p.x.data_ptr(),
                     b["sums"].data_ptr(), b["mu"].data_ptr(),
                     b["new_hist"].data_ptr(), p.nch, p.k, p.s_rows, p.nbins,

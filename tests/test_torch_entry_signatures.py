@@ -167,15 +167,20 @@ def _step_case(nch, ingest, k=2, nbins=256, s_rows=32, ntaps=4, seed=3):
 
 @pytest.mark.parametrize("ingest", ["complex64", "int8"])
 @pytest.mark.parametrize("nch,nbins,s_rows", [(3, 256, 32), (2, 4096, 16),
-                                              (8, 4096, 32)])
+                                              (8, 4096, 32), (65, 256, 16)])
 def test_step_args_carry_the_plan(nch, nbins, s_rows, ingest):
     """``step_args`` puts each of the plan's tensors and numbers in the
     field the C entry reads it from: the route, its groups, the X
-    kernel's plan on the wide route, the carried mean for 8-bit samples."""
+    kernel's plan on the wide route (at 65 channels the tiled instance's,
+    with its row map), the carried mean for 8-bit samples."""
     plan = _step_case(nch, ingest, nbins=nbins, s_rows=s_rows)
     bufs = fe.step_buffers(plan)
     args = fe.step_args(plan, bufs)
-    wide = nch == 8      # 8 spectra of 4096 bins do not fit in a CTA
+    # 8 spectra of 4096 bins do not fit in a CTA; past 64 channels the
+    # shared route is not taken
+    wide = nch >= 8
+    assert args.rowmap == (plan.rowmap.data_ptr() if nch >= 65 else None)
+    assert (plan.rowmap is not None) == (wide and plan.xplan.tiled)
     assert plan.route == ("global" if wide else "shared")
     for field in ("sums", "scratch", "parts", "mu", "new_hist", "vis"):
         assert getattr(args, field) == bufs[field].data_ptr(), field

@@ -536,8 +536,8 @@ def test_engine_routes_and_counters_at_8_channels():
             name = "fx_fused_parts_i8" if ingest == "int8" else "fx_fused_parts"
             attr = "launches" if fir == "direct" else "svd_launches"
             keys = [name] if stage == "shared" else [
-                f"{name}.wide_{attr}", "fx_xstage", "fx_xstage.row_tiles",
-                "fx_xstage.ctas"]
+                f"{name}.wide_{attr}", "fx_xstage", "fx_xstage.ctas",
+                "fx_xstage.tiled"]
             assert list(eng.launch_counts()) == [*keys, "fx_finish"]
             assert FxEngine(cfg).x_stage is None     # 'auto' on the CPU
     cfg = CorrelatorConfig(nchan=3, nbins=8192, ntaps=32, num_samp=2**18,
@@ -723,7 +723,7 @@ def test_cuda_engine_nchan8_step_is_three_launches(cuda_device, ingest):
         moved = {n: after[n] - before[n] for n in after}
         assert [v for n, v in moved.items()
                 if not n.startswith("fx_xstage.")] == [1, 1, 1]
-        assert moved["fx_xstage.row_tiles"] == 1     # one row tile
+        assert moved["fx_xstage.tiled"] == 0     # a row instance
         assert moved["fx_xstage.ctas"] == xstage_plan(
             8, 36, 8, 4096).ctas(4096, 1)
         v2, h2 = plain.step(plain.prepare_block(blk), d, h2)

@@ -1,13 +1,15 @@
 """The single pass past 64 channels: the wide route up to
 fxtpu_torch.ops.fx_fused.MAX_WIDE_NCHAN = 128 inputs (MeerKAT's 64
-dual-polarisation dishes, 8,256 pairs with autos), whose rows of parts the
-X kernel splits over tiles of rows (fx_xstage.xstage_plan's row_tiles).
+dual-polarisation dishes, 8,256 pairs with autos), whose pairs the X
+kernel's register-tiled instance takes (fx_xstage.xstage_plan, from
+XSTAGE_TILED_NCH channels on).
 
 On the CPU: FxEngine on the fused route's plain versions at 65 and 96
 channels, in both ingests, against the benchmark's tiled float64
 reference (fxbench.reference.fx_tiled) and against fxtpu's plain step;
-xstage_plan unchanged up to 64 channels and covering every row once past
-them; the routes, the K cap and the counters.  On a card (marked
+xstage_plan's row instance unchanged below XSTAGE_TILED_NCH channels and
+its tiled instance from there, past 64 channels too; the routes, the K
+cap and the counters.  On a card (marked
 ``cuda``): the X kernel, the wide route's kernels and the engine at 65,
 96 and 128 channels against their plain versions.
 
@@ -34,8 +36,9 @@ from fxtpu_torch.ops.fx_fused import (MAX_FUSED_NCHAN,  # noqa: E402
                                       MAX_SHARED_BYTES, MAX_WIDE_NCHAN,
                                       max_blocks_parts, pairs_tensor,
                                       supported_parts, x_route)
-from fxtpu_torch.ops.fx_xstage import (XSTAGE_ROW_THREADS,  # noqa: E402
-                                       XSTAGE_ROWS, fx_xstage,
+from fxtpu_torch.ops.fx_xstage import (XSTAGE_TILED_NCH,  # noqa: E402
+                                       XSTAGE_TILED_ROWS,
+                                       XSTAGE_TILED_THREADS, fx_xstage,
                                        fx_xstage_reference, xstage_plan)
 from fxtpu_torch.ops.window import pfb_window  # noqa: E402
 from fxtpu_torch.ops.xengine import baseline_pairs, pack_delays  # noqa: E402
@@ -130,90 +133,90 @@ def test_engine_at_65_channels_matches_fxtpu_plain_step():
 
 # --- the X kernel's plan -----------------------------------------------------
 
-#: xstage_plan's plans up to 64 channels before tiles of rows: (nch, nbl,
-#: S, nbins, K) -> (tile, slots, rows, frames, stages, threads,
-#: shared_bytes).
+#: xstage_plan's plans up to 64 channels: (nch, nbl, S, nbins, K) ->
+#: (tile, slots, rows, frames, stages, threads, shared_bytes, split); the
+#: row instance's at 8 channels, as before the tiled instance, which 36
+#: and 64 channels take (rows 64: 15 and 32 tiles of 8 x 8 pairs).
 PLANS_TO_64 = {
-    (8, 28, 64, 4096, 1): (16, 16, 4, 16, 3, 256, 49216),
-    (8, 28, 64, 4096, 3): (32, 8, 8, 16, 3, 256, 98368),
-    (8, 28, 256, 4096, 63): (32, 8, 8, 16, 3, 256, 98368),
-    (8, 28, 32, 8192, 1): (32, 8, 8, 8, 3, 256, 49216),
-    (8, 28, 8, 256, 1): (2, 36, 2, 2, 3, 96, 832),
-    (8, 28, 1024, 512, 2): (4, 36, 2, 128, 3, 160, 98368),
-    (8, 36, 64, 4096, 1): (16, 16, 4, 16, 3, 256, 49216),
-    (8, 36, 64, 4096, 3): (32, 8, 8, 16, 3, 256, 98368),
-    (8, 36, 256, 4096, 63): (32, 8, 8, 16, 3, 256, 98368),
-    (8, 36, 32, 8192, 1): (32, 8, 8, 8, 3, 256, 49216),
-    (8, 36, 8, 256, 1): (2, 44, 2, 2, 3, 96, 832),
-    (8, 36, 1024, 512, 2): (4, 44, 2, 128, 3, 192, 98368),
-    (36, 630, 64, 4096, 1): (2, 128, 8, 16, 3, 256, 27936),
-    (36, 630, 64, 4096, 3): (2, 128, 8, 16, 3, 256, 27936),
-    (36, 630, 256, 4096, 63): (2, 128, 8, 32, 3, 256, 55584),
-    (36, 630, 32, 8192, 1): (2, 128, 8, 8, 3, 256, 14112),
-    (36, 630, 8, 256, 1): (2, 128, 8, 2, 3, 256, 3744),
-    (36, 630, 1024, 512, 2): (2, 128, 8, 32, 3, 256, 55584),
-    (36, 666, 64, 4096, 1): (2, 128, 8, 16, 3, 256, 27936),
-    (36, 666, 64, 4096, 3): (2, 128, 8, 16, 3, 256, 27936),
-    (36, 666, 256, 4096, 63): (2, 128, 8, 32, 3, 256, 55584),
-    (36, 666, 32, 8192, 1): (2, 128, 8, 8, 3, 256, 14112),
-    (36, 666, 8, 256, 1): (2, 128, 8, 2, 3, 256, 3744),
-    (36, 666, 1024, 512, 2): (2, 128, 8, 32, 3, 256, 55584),
-    (64, 2016, 64, 4096, 1): (2, 288, 8, 16, 3, 576, 49664),
-    (64, 2016, 64, 4096, 3): (2, 288, 8, 16, 3, 576, 49664),
-    (64, 2016, 256, 4096, 63): (2, 288, 8, 32, 3, 576, 98816),
-    (64, 2016, 32, 8192, 1): (2, 288, 8, 8, 3, 576, 25088),
-    (64, 2016, 8, 256, 1): (2, 288, 8, 2, 3, 576, 6656),
-    (64, 2016, 1024, 512, 2): (2, 288, 8, 32, 3, 576, 98816),
-    (64, 2080, 64, 4096, 1): (2, 288, 8, 16, 3, 576, 49664),
-    (64, 2080, 64, 4096, 3): (2, 288, 8, 16, 3, 576, 49664),
-    (64, 2080, 256, 4096, 63): (2, 288, 8, 32, 3, 576, 98816),
-    (64, 2080, 32, 8192, 1): (2, 288, 8, 8, 3, 576, 25088),
-    (64, 2080, 8, 256, 1): (2, 288, 8, 2, 3, 576, 6656),
-    (64, 2080, 1024, 512, 2): (2, 288, 8, 32, 3, 576, 98816),
+    (8, 28, 64, 4096, 1): (16, 16, 4, 16, 3, 256, 49216, 1),
+    (8, 28, 64, 4096, 3): (32, 8, 8, 16, 3, 256, 98368, 1),
+    (8, 28, 256, 4096, 63): (32, 8, 8, 16, 3, 256, 98368, 1),
+    (8, 28, 32, 8192, 1): (32, 8, 8, 8, 3, 256, 49216, 1),
+    (8, 28, 8, 256, 1): (2, 36, 2, 2, 3, 96, 832, 1),
+    (8, 28, 1024, 512, 2): (4, 36, 2, 128, 3, 160, 98368, 1),
+    (8, 36, 64, 4096, 1): (16, 16, 4, 16, 3, 256, 49216, 1),
+    (8, 36, 64, 4096, 3): (32, 8, 8, 16, 3, 256, 98368, 1),
+    (8, 36, 256, 4096, 63): (32, 8, 8, 16, 3, 256, 98368, 1),
+    (8, 36, 32, 8192, 1): (32, 8, 8, 8, 3, 256, 49216, 1),
+    (8, 36, 8, 256, 1): (2, 44, 2, 2, 3, 96, 832, 1),
+    (8, 36, 1024, 512, 2): (4, 44, 2, 128, 3, 192, 98368, 1),
+    (36, 630, 64, 4096, 1): (8, 15, 64, 16, 3, 160, 153888, 1),
+    (36, 630, 64, 4096, 3): (8, 15, 64, 16, 3, 160, 153888, 1),
+    (36, 630, 256, 4096, 63): (8, 15, 64, 16, 3, 160, 153888, 1),
+    (36, 630, 32, 8192, 1): (8, 15, 64, 8, 3, 160, 77088, 1),
+    (36, 630, 8, 256, 1): (2, 15, 64, 2, 3, 64, 5088, 1),
+    (36, 630, 1024, 512, 2): (4, 15, 64, 32, 3, 96, 153888, 1),
+    (36, 666, 64, 4096, 1): (8, 15, 64, 16, 3, 160, 153888, 1),
+    (36, 666, 64, 4096, 3): (8, 15, 64, 16, 3, 160, 153888, 1),
+    (36, 666, 256, 4096, 63): (8, 15, 64, 16, 3, 160, 153888, 1),
+    (36, 666, 32, 8192, 1): (8, 15, 64, 8, 3, 160, 77088, 1),
+    (36, 666, 8, 256, 1): (2, 15, 64, 2, 3, 64, 5088, 1),
+    (36, 666, 1024, 512, 2): (4, 15, 64, 32, 3, 96, 153888, 1),
+    (64, 2016, 64, 4096, 1): (8, 32, 64, 8, 3, 256, 123392, 1),
+    (64, 2016, 64, 4096, 3): (8, 32, 64, 8, 3, 256, 123392, 1),
+    (64, 2016, 256, 4096, 63): (8, 32, 64, 8, 3, 256, 123392, 1),
+    (64, 2016, 32, 8192, 1): (8, 32, 64, 8, 3, 256, 123392, 1),
+    (64, 2016, 8, 256, 1): (2, 32, 64, 2, 3, 64, 8192, 1),
+    (64, 2016, 1024, 512, 2): (4, 32, 64, 16, 3, 128, 123392, 1),
+    (64, 2080, 64, 4096, 1): (8, 32, 64, 8, 3, 256, 123392, 1),
+    (64, 2080, 64, 4096, 3): (8, 32, 64, 8, 3, 256, 123392, 1),
+    (64, 2080, 256, 4096, 63): (8, 32, 64, 8, 3, 256, 123392, 1),
+    (64, 2080, 32, 8192, 1): (8, 32, 64, 8, 3, 256, 123392, 1),
+    (64, 2080, 8, 256, 1): (2, 32, 64, 2, 3, 64, 8192, 1),
+    (64, 2080, 1024, 512, 2): (4, 32, 64, 16, 3, 128, 123392, 1),
 }
 
 
 def test_xstage_plan_is_unchanged_up_to_64_channels():
-    """8, 36 and 64 channels, with and without autos: the kernel instance
-    and launch shape the port took before tiles of rows, and one row
-    tile."""
+    """8, 36 and 64 channels, with and without autos: below
+    XSTAGE_TILED_NCH the row instance and launch shape the port took
+    before the tiled instance; from it the tiled instance's plan, the
+    same with and without autos (it covers the triangle of groups)."""
     for shape, want in PLANS_TO_64.items():
         p = xstage_plan(*shape)
         assert (p.tile, p.slots, p.rows, p.frames, p.stages, p.threads,
-                p.shared_bytes) == want, shape
-        assert p.row_tiles == 1 and p.args() == want[:6], shape
+                p.shared_bytes, p.split) == want, shape
+        assert p.args() == want[:6], shape
+        assert p.tiled == (shape[0] >= XSTAGE_TILED_NCH), shape
 
 
 @pytest.mark.parametrize("nch", [65, 66, 80, 96, 127, MAX_WIDE_NCHAN])
 def test_xstage_plan_tiles_the_rows_past_one_cta(nch):
-    """Past what one CTA holds, the 8-row instance at a tile of 2 bins
-    over the fewest row tiles; every row owned once, the ring within a
-    CTA, and no more row tiles than needed.  At 128 channels with autos:
-    8,512 rows in 4 tiles of 266 slots."""
+    """Past 64 channels, with and without autos, the tiled instance: the
+    triangle of ceil(nch / 8) groups' tiles of 8 x 8 pairs over one or two
+    CTAs a bin tile (the half diagonal's tiles in the tail where the
+    groups are even and at least 8), 8 warps at most, the ring within a
+    CTA, the grid's CTAs the bin tiles' times the split
+    (tests/test_torch_xstage_tiled.py holds every pair's write once).  At
+    128 channels with autos: 16 groups, 128 whole-diagonal tiles on two
+    CTAs of 64 at a tile of 4 bins, 256 threads."""
+    ng = -(-nch // 8)
+    tiles = ng * ng // 2 if ng % 2 == 0 and ng >= 8 else ng * (ng + 1) // 2
     for autos in (False, True):
         nbl = nch * (nch - 1) // 2 + (nch if autos else 0)
-        rows = nbl + 2 * nch
         for s, nbins, k in ((64, 4096, 3), (16, 256, 2), (3, 512, 1),
                             (256, 16384, 1)):
             p = xstage_plan(nch, nbl, s, nbins, k)
             what = f"{p} for nch={nch} nbl={nbl} S={s} nbins={nbins}"
+            assert p.tiled and p.rows == XSTAGE_TILED_ROWS, what
             assert p.shared_bytes <= MAX_SHARED_BYTES, what
-            assert p.threads <= XSTAGE_ROW_THREADS[p.rows], what
+            assert p.threads <= XSTAGE_TILED_THREADS, what
             assert p.threads % 32 == 0 and p.threads >= p.tile * p.slots
-            per_tile = p.slots * p.rows
-            assert p.row_tiles == -(-rows // per_tile), what
-            if p.row_tiles > 1:
-                assert (p.tile, p.rows) == (2, XSTAGE_ROWS), what
-                assert p.row_tiles == -(-rows // (288 * XSTAGE_ROWS)), what
-            owned = (per_tile * np.arange(p.row_tiles)[:, None, None]
-                     + np.arange(p.slots)[None, :, None]
-                     + p.slots * np.arange(p.rows)[None, None, :]).ravel()
-            assert np.array_equal(np.sort(owned[owned < rows]),
-                                  np.arange(rows)), what
-            assert p.ctas(nbins, k) == nbins // p.tile * k * p.row_tiles
+            assert p.split in (1, 2) and p.slots * p.split == tiles, what
+            assert p.ctas(nbins, k) == nbins // p.tile * k * p.split
     p = xstage_plan(128, 8256, 64, 4096, 3)
-    assert (p.tile, p.slots, p.rows, p.threads, p.row_tiles) == (
-        2, 266, 8, 544, 4)
+    assert (p.tile, p.slots, p.rows, p.threads, p.split) == (
+        4, 64, XSTAGE_TILED_ROWS, 256, 2)
 
 
 # --- routes, caps and counters -----------------------------------------------
@@ -240,12 +243,13 @@ def test_routes_and_caps_past_64_channels():
 
 
 def test_engine_counts_the_x_stage_s_row_tiles():
-    """The wide route's counters name the X stage's launches, row tiles
-    and CTAs; on the CPU the plain versions count none."""
+    """The wide route's counters name the X stage's launches, CTAs and
+    launches of the tiled instance; on the CPU the plain versions count
+    none."""
     eng = _engine(65, "int8")
     counts = eng.launch_counts()
     assert list(counts) == ["fx_fused_parts_i8.wide_launches", "fx_xstage",
-                            "fx_xstage.row_tiles", "fx_xstage.ctas",
+                            "fx_xstage.ctas", "fx_xstage.tiled",
                             "fx_finish"]
     blk = _quantized(_stream(65, 1, seed=3))[0]
     eng.step(eng.prepare_block(blk), torch.zeros(65), eng.fresh_history())
@@ -274,20 +278,19 @@ def _spectra(k, nch, s, nbins, halo, device, seed):
 @pytest.mark.parametrize("nch,k,s,nbins", [
     (65, 2, 20, 512), (96, 1, 16, 256), (128, 2, 8, 4096), (128, 1, 64, 256)])
 def test_cuda_xstage_kernel_past_64_channels(cuda_device, nch, k, s, nbins):
-    """The X kernel alone against its plain version over tiles of rows:
-    2e-5 of each row's scale, the autos' imaginary parts exactly 0; one
-    launch and its plan's row tiles and CTAs counted."""
+    """The X kernel alone against its plain version on the tiled
+    instance: 2e-5 of each row's scale, the autos' imaginary parts exactly
+    0; one launch, its plan's CTAs and one tiled launch counted."""
     spec, da = _spectra(k, nch, s, nbins, 3, cuda_device, seed=nch + s)
     pairs = baseline_pairs(nch, True)
     pt = pairs_tensor(pairs, nch, cuda_device)
     plan = xstage_plan(nch, len(pairs), s, nbins, k)
-    before = (fx_xstage.launches, fx_xstage.row_tiles, fx_xstage.ctas)
+    before = (fx_xstage.launches, fx_xstage.tiled, fx_xstage.ctas)
     got = fx_xstage(spec, pt, da)
     want = fx_xstage_reference(spec, pt, da)
     torch.cuda.synchronize()
-    assert (fx_xstage.launches, fx_xstage.row_tiles, fx_xstage.ctas) == (
-        before[0] + 1, before[1] + plan.row_tiles,
-        before[2] + plan.ctas(nbins, k))
+    assert (fx_xstage.launches, fx_xstage.tiled, fx_xstage.ctas) == (
+        before[0] + 1, before[1] + 1, before[2] + plan.ctas(nbins, k))
     g, w = got.cpu().numpy(), want.cpu().numpy()
     _held(g.reshape(-1, nbins), w.reshape(-1, nbins), 2e-5, "parts")
     autos = pairs[:, 0] == pairs[:, 1]
@@ -299,7 +302,8 @@ def test_cuda_xstage_kernel_past_64_channels(cuda_device, nch, k, s, nbins):
 @pytest.mark.parametrize("nch", [65, 96, 128])
 def test_cuda_wide_parts_past_64_channels(cuda_device, nch, int8):
     """The wide route's frame kernel and X kernel (mu and the new history
-    folded in by row tile 0) against their plain version over two blocks:
+    folded in by a bin tile's first CTA) against their plain version over
+    two blocks:
     xp and T 2e-5 of scale (3e-5 for 8-bit samples), mu 1e-6, the int8
     tail exact, the complex64 tail 1e-6."""
     k, s, nbins, ntaps = 2, 16, 512, 4
@@ -346,8 +350,8 @@ def test_cuda_wide_parts_past_64_channels(cuda_device, nch, int8):
 def test_cuda_engine_at_128_channels(cuda_device):
     """MeerKAT's width on the card: FxEngine with 'auto' takes the wide
     route with int8-native ingest; a 3-block multi_step call is one
-    launch of each kernel, its X stage in 4 row tiles, and agrees with
-    the tiled reference within 3e-5 of scale."""
+    launch of each kernel, its X stage on the tiled instance, and agrees
+    with the tiled reference within 3e-5 of scale."""
     nch = 128
     eng = _engine(nch, "int8", device="cuda")
     assert eng.kernel_active and eng.int8_native and eng.x_stage == "global"
@@ -364,9 +368,9 @@ def test_cuda_engine_at_128_channels(cuda_device):
     moved = {n: after[n] - before[n] for n in after}
     plan = xstage_plan(nch, len(eng.pairs), NSAMP // NBINS, NBINS, k)
     assert moved == {"fx_fused_parts_i8.wide_launches": 1, "fx_xstage": 1,
-                     "fx_xstage.row_tiles": plan.row_tiles,
-                     "fx_xstage.ctas": plan.ctas(NBINS, k), "fx_finish": 1}
-    assert plan.row_tiles == 4
+                     "fx_xstage.ctas": plan.ctas(NBINS, k),
+                     "fx_xstage.tiled": 1, "fx_finish": 1}
+    assert plan.tiled
     w2d = ref_fx.prototype(4, NBINS)
     pairs = ref_fx.baselines(nch, True)
     ref = [ref_fx.dequantize(torch.from_numpy(b).to(cuda_device), STEP)

@@ -234,10 +234,36 @@ def _entry_takes(p, nch, nbl, s, nbins, k, halo=3):
             and p.threads <= xs.XSTAGE_ROW_THREADS[p.rows])
 
 
+def _check_tiled_plan(p, nch, s, nbins, k, what):
+    """A plan of the register-tiled instance (from XSTAGE_TILED_NCH
+    channels on): its tiles of 8 x 8 pairs cover the triangle of groups
+    on 1 or 2 CTAs a bin tile, its threads within the instance's, its ring
+    and means within a CTA, its chunks every frame
+    (tests/test_torch_xstage_tiled.py holds its assignment to threads)."""
+    ng = -(-nch // xs.XSTAGE_GROUP)
+    tiles = (ng * ng // 2 if ng % 2 == 0 and ng >= 8
+             else ng * (ng + 1) // 2)
+    assert p.rows == xs.XSTAGE_TILED_ROWS and p.split in (1, 2), what
+    assert p.slots * p.split == tiles, what
+    assert p.tile * p.slots <= p.threads <= xs.XSTAGE_TILED_THREADS, what
+    assert p.threads % 32 == 0 and nbins % p.tile == 0, what
+    assert 2 <= p.tile <= xs.XSTAGE_TILED_TILE, what
+    assert p.tile & (p.tile - 1) == 0 and p.frames & (p.frames - 1) == 0
+    assert 2 <= p.stages <= 8, what
+    assert p.shared_bytes == p.stages * p.frames * ng * p.tile * (
+        xs.XSTAGE_BIN_STRIDE * 8) + nch * 8, what
+    assert p.shared_bytes <= MAX_SHARED_BYTES, what
+    chunks = -(-s // p.frames)
+    assert (chunks - 1) * p.frames < s <= chunks * p.frames, what
+    return p
+
+
 def _check_plan(nch, nbl, s, nbins, k):
     p = xstage_plan(nch, nbl, s, nbins, k)
     rows = nbl + 2 * nch
     what = f"plan {p} for nch={nch} nbl={nbl} S={s} nbins={nbins} K={k}"
+    if nch >= xs.XSTAGE_TILED_NCH:
+        return _check_tiled_plan(p, nch, s, nbins, k, what)
     assert _entry_takes(p, nch, nbl, s, nbins, k, min(3, s)), what
     assert p.shared_bytes <= MAX_SHARED_BYTES, what
     assert p.shared_bytes == (p.stages * p.frames * p.tile + 1) * nch * 8, (
@@ -269,7 +295,9 @@ def test_xstage_plan_covers_and_fits(nch):
     and long blocks, one, two and many blocks, with and without autos: the
     entry takes the plan (the kernel instance it names takes its threads),
     the plan's ring fits a CTA with at least 2 stages, and its tiles,
-    chunks and row slots cover every bin, frame and row once."""
+    chunks and row slots (from XSTAGE_TILED_NCH channels on, the tiled
+    instance's tiles of the triangle) cover every bin, frame and row
+    once."""
     for nbins in BIN_COUNTS:
         for s in (3, 20, 64, 256, 1024):
             for k in (1, 2, 8):
@@ -282,18 +310,19 @@ def test_xstage_plan_fills_the_card():
     """At the wide route's main-path shapes (the CLI at --nchan 8, 28
     pairs; bench.py's nchan8, 36 with autos) and the flagship block the
     grid reaches 256 CTAs (two an SM), 3 stages of at least 16 frames, 4
-    rows a thread or fewer on 256 threads; 55 channels at 512 bins (1,650
-    rows, past what 256 threads hold) and 64 channels with autos (2,208)
-    take the 8-row instance's 576 threads at a tile of 2 bins."""
+    rows a thread or fewer on 256 threads; 55 channels at 512 bins (1,540
+    pairs with autos) and 64 channels with autos at 256 bins take the
+    tiled instance at a tile of 2 bins: 28 and 32 tiles of 8 x 8 pairs,
+    the grid's 256 and 128 CTAs as many as the bins allow."""
     for nch, nbl, s in ((8, 28, 64), (8, 36, 256), (2, 1, 64), (2, 1, 512)):
         p = _check_plan(nch, nbl, s, 4096, 1)
         assert 4096 // p.tile == 256, p
         assert p.stages == 3 and p.frames >= 16, p
         assert p.rows <= 4 and p.threads <= 256, p
-    for nch, nbins in ((55, 512), (64, 256)):
+    for nch, nbins, slots in ((55, 512, 28), (64, 256, 32)):
         p = _check_plan(nch, nch * (nch + 1) // 2, 8, nbins, 1)
-        assert p.tile == 2 and p.slots == 288 and p.rows == 8, p
-        assert p.threads == 576, p
+        assert p.tiled and p.tile == 2 and p.slots == slots, p
+        assert p.split == 1 and p.ctas(nbins, 1) == nbins // 2, p
 
 
 def test_supported_parts_takes_the_plan_at_every_width():
@@ -347,8 +376,8 @@ def _mirror(spec, pairs, da, plan):
     (2, True, 2, 20, 512),       # a ragged last chunk
     (8, False, 1, 64, 4096),     # the CLI at --nchan 8: 64 frames in 6 chunks
     (8, True, 2, 20, 512),
-    (64, True, 1, 8, 256),       # 2,208 rows: a tile of 2 bins, 8 rows a thread
-    (55, True, 1, 8, 512),       # 1,650 rows: past 256 threads
+    (32, True, 1, 8, 256),       # 592 rows: a tile of 2 bins, 8 rows a thread
+    (35, True, 1, 8, 512),       # 700 rows: the widest row instance
 ])
 def test_xstage_mirror_matches_plain_version(nch, autos, k, s, nbins):
     rng = np.random.default_rng(nch + s)
@@ -358,6 +387,7 @@ def test_xstage_mirror_matches_plain_version(nch, autos, k, s, nbins):
           + 1j * rng.normal(size=(3, nbins))).astype(np.complex64)
     pairs = np.asarray(baseline_pairs(nch, autos), dtype=np.int32)
     plan = xstage_plan(nch, pairs.shape[0], s, nbins, k)
+    assert not plan.tiled
     got = torch.from_numpy(_mirror(spec, pairs, da, plan))
     want = fx_xstage_reference(torch.from_numpy(spec),
                                torch.from_numpy(pairs), torch.from_numpy(da))
@@ -444,7 +474,7 @@ def test_cuda_reduce_is_its_plain_version(cuda_device, s, n_groups, k, int8):
 def test_cuda_xstage_kernel_on_its_plan(cuda_device, nch, autos, s, nbins):
     """The X kernel against its plain version at 2, 8 and 64 channels, 64
     frames and 20 (a ragged last chunk), two blocks; at 55 and 48
-    channels, whose rows take the 8-row instance's 576 threads."""
+    channels; from XSTAGE_TILED_NCH channels on the tiled instance."""
     rng = np.random.default_rng(nch * s)
     k = 2
     spec = torch.from_numpy(
