@@ -1274,20 +1274,38 @@ def compare_xstage(case, k, device):
     return abs_err, rel_err
 
 
+def shared_plan(case):
+    """The single pass's plan of one block of ``case`` on the shared route
+    (``fx_fused.plan_parts`` over meta tensors: the shapes alone, no
+    memory)."""
+    import torch
+
+    from fxtpu_torch.ops import baseline_pairs
+    from fxtpu_torch.ops import fx_fused as ff
+    nch, nbins, ntaps = case["nch"], case["nbins"], case["ntaps"]
+    meta = dict(device="meta", dtype=torch.complex64)
+    pairs = baseline_pairs(nch, case.get("autos", False))
+    return ff.plan_parts(
+        torch.empty((nch, 1, case["nsamp"] // nbins, nbins), **meta),
+        torch.empty((nch, ntaps - 1, nbins), **meta),
+        torch.empty((ntaps, nbins), device="meta"),
+        ff.pairs_tensor(pairs, nch, "meta"), None,
+        (None, torch.empty((ntaps - 1, nbins), **meta)), None, "shared")
+
+
 def reduce_inputs(case, k, int8, device, seed=31):
     """The parts reduce's operands at ``case``, K blocks: the step's
     samples, per-group partials ``[K, n_groups, nbl + 2 nch, nbins]`` of
     unit noise (the reduce's function does not depend on where they came
-    from; ``fx_fused._groups`` splits the block as the frame kernel does)
-    and each group's sample sums formed from the samples (double; exact
-    integers for 8-bit ones).  Returns (partial, sums, x, n_gj, halo)."""
+    from; the single pass's plan, ``shared_plan``, splits the block as
+    the frame kernel does) and each group's sample sums formed from the
+    samples (double; exact integers for 8-bit ones).  Returns (partial,
+    sums, x, n_gj, halo)."""
     import torch
 
-    from fxtpu_torch.ops import fx_fused as ff
     nch, nbins, halo = case["nch"], case["nbins"], case["ntaps"] - 1
-    s = case["nsamp"] // nbins
-    nbl = nch * (nch - 1) // 2 + (nch if case["autos"] else 0)
-    n_groups, per = ff._groups(s, nbl + 2 * nch, nbins)
+    plan = shared_plan(case)
+    nbl, n_groups, per = plan.nbl, plan.n_groups, plan.per
     x = parts_batch(case, k, np.random.default_rng(seed), device, int8)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
@@ -1335,11 +1353,9 @@ def parts_reduce_bound(case, k, int8=False):
     history out, the parts and mu out) over the device-memory rate, or its
     float32 additions (2 per element and group after the first) over the
     float32 rate.  Returns (ms, "bytes" or "operations")."""
-    from fxtpu_torch.ops.fx_fused import _groups
     nch, nbins, halo = case["nch"], case["nbins"], case["ntaps"] - 1
-    s = case["nsamp"] // nbins
-    nbl = nch * (nch - 1) // 2 + (nch if case.get("autos") else 0)
-    n_groups, per = _groups(s, nbl + 2 * nch, nbins)
+    plan = shared_plan(case)
+    nbl, n_groups, per = plan.nbl, plan.n_groups, plan.per
     n_gj = min(n_groups, -(-halo // per))
     sample = 2 if int8 else 8
     nbytes = (8 * k * nbins * ((nbl + nch) * n_groups + nch * n_gj)
@@ -3374,7 +3390,11 @@ def host_split(device, n=200):
     ctypes call(s) and the rest (the whole call less those three; the
     rest holds the Python between them, the argument marshalling and the
     launch counters), each the mean of ``n`` calls, for the two-call form
-    and for the one C call.  Returns {form_ingest: {part: us}}."""
+    and for the one C call.  The two-call form's checks are
+    ``fx_fused.plan_parts`` (the checks, the FIR table, the twiddles and
+    the shape plan, which its launch used to work out within "rest") and
+    the epilogue's; the one call's are ``fx_epilogue.check_step``.
+    Returns {form_ingest: {part: us}}."""
     import ctypes
 
     import torch
@@ -3403,16 +3423,17 @@ def host_split(device, n=200):
         tail = hist["tail"] if int8 else hist
         stream = torch.cuda.current_stream(device).cuda_stream
         # the two-call form's pieces, as fx_fused_parts* and fx_finish make
-        # them (fx_fused._launch_parts, fx_epilogue.fx_finish)
+        # them (fx_fused.plan_parts and launch_parts, fx_epilogue.fx_finish)
         vis, mu, new, (xp, t, gj) = two_call_step(args)
         nch, k, s_rows, nbins = x.shape[:4]
         nbl = pairs.shape[0]
         rows = nbl + 2 * nch
-        n_groups, per = ff._groups(s_rows, rows, nbins)
+        plan = fe.check_step(*args)
+        n_groups, per = plan.n_groups, plan.per
         abar, da, cs, cab, cbb = consts
 
         def old_checks():
-            ff._check_parts(x, tail, w, pairs, svd, consts, step)
+            ff.plan_parts(x, tail, w, pairs, svd, consts, step)
             for name, tt, shape in (("xp", xp, (k, nbl, nbins)),
                                     ("T", t, (k, nch, nbins)),
                                     ("GJ", gj, (k, nch, nbins))):
@@ -3440,12 +3461,11 @@ def host_split(device, n=200):
             torch.empty_like(tail)
             torch.empty((k, nbl, nbins), **c64)
 
-        plan = fe.check_step(*args)
         pool = {}
         bufs = fe.step_buffers(plan, pool)
         parts = bufs["parts"]
         ptr = [tt.data_ptr() for tt in (
-            x, tail, w, ff._twiddles(nbins, device), pairs, da, bufs["sums"],
+            x, tail, w, plan.tw, pairs, da, bufs["sums"],
             bufs["scratch"], parts, bufs["mu"], bufs["new_hist"])]
         extra = (step,) if int8 else ()
         parts_entry = lib.fxt_fx_parts_i8 if int8 else lib.fxt_fx_parts
@@ -3772,8 +3792,7 @@ def scale_two_processes(tmp, device, card):
         if line is None or line["process"] != pid:
             raise AssertionError(f"worker {pid} printed no launch counts")
         k = line["local_shards"]
-        expect = {"fx_fused_parts": k, "parts_reduce": k, "fx_finish": 1,
-                  "fir_rows": 0}
+        expect = {"fx_fused_parts": k, "parts_reduce": k, "fx_finish": 1}
         if not line["kernel_active"] or line["launches"] != expect:
             raise AssertionError(
                 f"two processes: worker {pid}'s launches {line['launches']}"
@@ -3868,6 +3887,7 @@ def run_scaling_bench(card):
         steps, n = r["steps"], r["devices"]
         if steps != 1 + scaling_bench.WARMUP + BENCH_ITERS or r[
                 "launches"] != {"fx_fused_parts": n * steps,
+                                "parts_reduce": n * steps,
                                 "fx_finish": steps}:
             raise AssertionError(f"scaling bench row {r}: expected "
                                  f"{n * steps} single passes, {steps} "
@@ -3889,9 +3909,11 @@ def run_scaling_bench(card):
     if not (row["path"] == "block-DP" and row["k"] == k
             and row["single_launches"] == {
                 "fx_fused_parts": single["fx_parts"],
+                "parts_reduce": single["fx_parts_reduce"],
                 "fx_finish": single["fx_finish"]}
             and row["multi_launches"] == {
                 "fx_fused_parts": blockdp["fx_parts"],
+                "parts_reduce": blockdp["fx_parts_reduce"],
                 "fx_finish": blockdp["fx_finish"]}):
         raise AssertionError(f"scaling bench --multi {k}: {row}")
     check_scale_counts(mcounts, {key: single[key] + blockdp[key]
@@ -3959,8 +3981,8 @@ def run_observe_example(tmp, card):
     """``examples/observe_torch.sh --device cuda --time 2 --omit_plot`` (no
     plot: this machine may lack matplotlib) in a directory of its own: the
     CSV loads with the reference recipe, 4096 finite bins a row, and the
-    run's ``kernel launches`` log line shows one single pass and one
-    epilogue a row (its own process's counters)."""
+    run's ``kernel launches`` log line shows one single pass, one reduce
+    and one epilogue a row (its own process's counters)."""
     import ast
     here = os.path.dirname(os.path.abspath(__file__))
     work = os.path.join(tmp, "observe")
@@ -3987,7 +4009,8 @@ def run_observe_example(tmp, card):
     counts = ast.literal_eval(line[line.index("{"):])
     rows = data.shape[0]
     if not (data.shape[1] == 4096 and np.isfinite(data).all() and rows >= 1
-            and counts == {"fx_fused_parts": rows, "fx_finish": rows}):
+            and counts == {"fx_fused_parts": rows, "parts_reduce": rows,
+                           "fx_finish": rows}):
         raise AssertionError(f"observe_torch.sh: rows {data.shape}, "
                              f"launches {counts}")
     print(f"  [{card}] examples/observe_torch.sh: {rows} rows of 4096 bins, "

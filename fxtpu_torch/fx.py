@@ -438,29 +438,33 @@ class FxEngine:
         return self._fused and self.device.type == "cuda"
 
     def launch_counts(self) -> dict:
-        """The launch counters of the kernel wrappers this engine's fused
-        route calls, by wrapper name (process-wide counts since import or
-        the last reset; empty on the plain route): the single pass in this
-        engine's ingest and FIR mode (its ``svd_launches`` in the SVD-FIR
-        mode), on the wide route under ``wrapper.wide_launches`` (or
-        ``.wide_svd_launches``) beside its X kernel's launches
-        ``fx_xstage`` and their work, ``fx_xstage.ctas``, and
-        ``fx_xstage.tiled`` (those that took the register-tiled instance,
-        from ``fx_xstage.XSTAGE_TILED_NCH`` channels on), and the
-        epilogue."""
+        """Every launch counter this engine's fused route moves
+        (``fx_fused.count_launches``; process-wide since import or the last
+        reset; empty on the plain route): the single pass's frame kernel
+        in this engine's ingest and FIR mode (on the wide route
+        ``name.wide_launches`` or ``.wide_svd_launches``), the reduce
+        ``parts_reduce`` or the X kernel's ``fx_xstage``, ``.ctas`` and
+        ``.tiled`` (launches of its register-tiled instance), at deep taps
+        ``fir_rows`` and last the epilogue ``fx_finish``."""
         if not self._fused:
             return {}
         name = "fx_fused_parts_i8" if self._int8 else "fx_fused_parts"
+        frames = getattr(fx_fused, name)
         attr = "launches" if self._svd is None else "svd_launches"
-        if self._x_stage != "global":
-            return {name: getattr(getattr(fx_fused, name), attr),
-                    "fx_finish": fx_epilogue.fx_finish.launches}
-        attr = "wide_" + attr
-        return {f"{name}.{attr}": getattr(getattr(fx_fused, name), attr),
-                "fx_xstage": fx_xstage.launches,
-                "fx_xstage.ctas": fx_xstage.ctas,
-                "fx_xstage.tiled": fx_xstage.tiled,
-                "fx_finish": fx_epilogue.fx_finish.launches}
+        if self._x_stage == "global":
+            attr = "wide_" + attr
+            counts = {f"{name}.{attr}": getattr(frames, attr),
+                      "fx_xstage": fx_xstage.launches,
+                      "fx_xstage.ctas": fx_xstage.ctas,
+                      "fx_xstage.tiled": fx_xstage.tiled}
+        else:
+            counts = {name: getattr(frames, attr),
+                      "parts_reduce": fx_fused.parts_reduce.launches}
+        if fx_fused.deep_fir(self.cfg.ntaps,
+                             self.cfg.num_samp // self.cfg.nbins):
+            counts["fir_rows"] = fx_fused.fir_rows.launches
+        counts["fx_finish"] = fx_epilogue.fx_finish.launches
+        return counts
 
     @property
     def x_stage(self) -> Optional[str]:

@@ -38,10 +38,8 @@ import torch
 
 from fxtpu_torch.ops import fx_fused as ff
 from fxtpu_torch.ops.dc_posthoc import block_mu_prev, dc_correct
-from fxtpu_torch.ops.fx_fused import (_on_card, fx_fused_parts,
-                                      fx_fused_parts_i8)
-from fxtpu_torch.ops.fx_xstage import (XStagePlan, count_launch, row_map,
-                                       xstage_plan)
+from fxtpu_torch.ops.fx_fused import (fx_fused_parts, fx_fused_parts_i8,
+                                      on_card)
 from fxtpu_torch.ops.xengine import (continuum_reduce, rf_freqs,
                                      rotation_phase, split_delays,
                                      unit_phasor)
@@ -121,6 +119,17 @@ def _check_small(tensors, device):
             raise ValueError(f"{name} is on {t.device}, xp on {device}")
 
 
+def _tables(consts, freqs, nbins):
+    """The window's constants and the frequencies the epilogue reads, in
+    :func:`_check_small`'s form."""
+    abar, _, cs, cab, cbb = consts
+    return [("abar", abar, torch.complex64, (nbins,)),
+            ("cs", cs, torch.float32, (nbins,)),
+            ("cab", cab, torch.complex64, (nbins,)),
+            ("cbb", cbb, torch.float32, (nbins,)),
+            ("freqs", freqs, torch.float32, (nbins,))]
+
+
 def _check_delays(delays, k, nch, nbl, device):
     """``delays`` as the kernel reads them (float32, ``[k, nch]`` or packed
     ``[k, nch, 2]``, on ``device``) and whether they are packed."""
@@ -181,7 +190,7 @@ def fx_finish(xp: torch.Tensor, T: torch.Tensor, GJ: torch.Tensor,
 
     CPU tensors run :func:`fx_finish_reference`; CUDA tensors launch one
     kernel or raise.  Each launch adds one to ``fx_finish.launches``."""
-    if not _on_card(xp, "fx_finish"):
+    if not on_card(xp, "fx_finish"):
         return fx_finish_reference(xp, T, GJ, mu, pairs, consts, delays,
                                    tables, n_frames, bandwidth, continuum,
                                    mu_prev)
@@ -194,15 +203,9 @@ def fx_finish(xp: torch.Tensor, T: torch.Tensor, GJ: torch.Tensor,
         if t.device != xp.device:
             raise ValueError(f"{name} is on {t.device}, xp on {xp.device}")
     delays, packed = _check_delays(delays, k, nch, nbl, xp.device)
-    abar, _, cs, cab, cbb = consts
     small = [("mu", mu, torch.complex64, (k, nch)),
              ("pairs", pairs, torch.int32, (nbl, 2)),
-             ("abar", abar, torch.complex64, (nbins,)),
-             ("cs", cs, torch.float32, (nbins,)),
-             ("cab", cab, torch.complex64, (nbins,)),
-             ("cbb", cbb, torch.float32, (nbins,)),
-             ("freqs", tables.fbase if packed else tables.frf, torch.float32,
-              (nbins,))]
+             *_tables(consts, tables.fbase if packed else tables.frf, nbins)]
     if mu_prev is not None:
         small.append(("mu_prev", mu_prev, torch.complex64, (nch,)))
     _check_small(small, xp.device)
@@ -214,113 +217,52 @@ fx_finish.launches = 0
 
 
 @dataclasses.dataclass
-class StepPlan:
-    """One step's checked arguments (:func:`check_step`): the tensors as
-    the kernels read them and the launch's shape."""
-    x: torch.Tensor
-    hist: torch.Tensor                  # the corrected tail, or the raw tail
+class StepPlan(ff.PartsPlan):
+    """One step's checked arguments (:func:`check_step`): the single
+    pass's plan (``fx_fused.plan_parts``) and what the epilogue reads."""
     mu_prev: Optional[torch.Tensor]     # int8: the mean the raw tail carries
-    window2d: torch.Tensor
-    svd: Optional[tuple]
-    pairs: torch.Tensor
-    consts: tuple
     delays: torch.Tensor                # float32 [K, nch(, 2)]
     freqs: torch.Tensor
-    quant_step: Optional[float]         # None: complex64 samples
     bandwidth: float
     continuum: bool
     packed: bool
-    rank: int
-    route: str                          # "shared" or "global" (the wide one)
-    k: int
-    nch: int
-    s_rows: int
-    nbins: int
-    ntaps: int
-    nbl: int
-    n_groups: int
-    per: int
-    xplan: Optional[XStagePlan]
-    rowmap: Optional[torch.Tensor]      # the tiled X instance's row map
 
 
 def check_step(iq, history, window2d, pairs, consts, delays, tables,
                bandwidth, continuum, quant_step=None,
                svd=None) -> StepPlan:
     """:func:`fx_fused_step`'s checks of CUDA tensors, made once for its
-    three kernels: the single pass's (``fx_fused._check_parts``) and the
-    epilogue's (delays, the window's tables, the frequencies and, for 8-bit
-    samples, the carried mean).  Raises on what the kernels do not take."""
+    kernels: the single pass's plan (``fx_fused.plan_parts``) and the
+    epilogue's checks (delays, the window's tables, the frequencies and,
+    for 8-bit samples, the carried mean).  Raises on what the kernels do
+    not take."""
     int8 = isinstance(history, dict)
-    hist = history["tail"] if int8 else history
-    step = float(quant_step) if int8 else None
-    rank, route = ff._check_parts(iq, hist, window2d, pairs, svd, consts,
-                                  step)
-    nch, k, s_rows, nbins = iq.shape[:4]
-    nbl = pairs.shape[0]
-    delays, packed = _check_delays(delays, k, nch, nbl, iq.device)
-    abar, _, cs, cab, cbb = consts
+    parts = ff.plan_parts(iq, history["tail"] if int8 else history, window2d,
+                          pairs, svd, consts,
+                          float(quant_step) if int8 else None)
+    nch, nbins = parts.nch, parts.nbins
+    delays, packed = _check_delays(delays, parts.k, nch, parts.nbl,
+                                   iq.device)
     freqs = tables.fbase if packed else tables.frf
-    small = [("abar", abar, torch.complex64, (nbins,)),
-             ("cs", cs, torch.float32, (nbins,)),
-             ("cab", cab, torch.complex64, (nbins,)),
-             ("cbb", cbb, torch.float32, (nbins,)),
-             ("freqs", freqs, torch.float32, (nbins,))]
+    small = _tables(consts, freqs, nbins)
     mu_prev = history["mu_prev"] if int8 else None
     if int8:
         small.append(("mu_prev", mu_prev, torch.complex64, (nch,)))
     _check_small(small, iq.device)
-    if route == "global":
-        n_groups, per = ff._wide_groups(s_rows)
-        xplan = xstage_plan(nch, nbl, s_rows, nbins, k)
-    else:
-        n_groups, per = ff._groups(s_rows, nbl + 2 * nch, nbins)
-        xplan = None
-    rmap = row_map(pairs, nch) if xplan is not None and xplan.tiled else None
-    return StepPlan(iq, hist, mu_prev, window2d, svd, pairs, consts, delays,
-                    freqs, step, float(bandwidth), bool(continuum), packed,
-                    rank, route, k, nch, s_rows, nbins, window2d.shape[0],
-                    nbl, n_groups, per, xplan, rmap)
+    return StepPlan(**vars(parts), mu_prev=mu_prev, delays=delays,
+                    freqs=freqs, bandwidth=float(bandwidth),
+                    continuum=bool(continuum), packed=packed)
 
 
 def step_buffers(plan: StepPlan, pool=None) -> dict:
-    """The step's outputs, new (``vis``, ``mu``, ``new_hist``: they
-    outlive the step), and its scratch (``sums``, the partials or on the
-    wide route the spectra, ``parts``, at deep taps the FIR's rows
-    ``fir``): ``pool``'s (a dict the caller
-    keeps, keyed with the current stream: a step's kernels run on that
-    stream in order, so the next step's kernels write the scratch only
-    after this step's have read it), made at first use; new ones when
-    ``pool`` is None."""
-    dev, k, nch, nbins = plan.x.device, plan.k, plan.nch, plan.nbins
-    c64 = torch.complex64
-    if plan.route == "global":
-        scratch = (k, nch, plan.s_rows, nbins)
-    else:
-        scratch = (k, plan.n_groups, plan.nbl + 2 * nch, nbins)
-    sums = torch.int64 if plan.quant_step is not None else torch.float64
-    shapes = (("sums", (k, plan.n_groups, nch, 2), sums),
-              ("scratch", scratch, c64),
-              ("parts", (k, plan.nbl + 2 * nch, nbins), c64))
-    if ff.deep_fir(plan.ntaps, plan.s_rows):
-        # the deep-tap FIR's rows, which the frame kernel reads
-        shapes += (("fir", (nch, k * plan.s_rows, nbins), c64),)
-    stream = (None if pool is None
-              else torch.cuda.current_stream(dev).cuda_stream)
-    bufs = {}
-    for name, shape, dtype in shapes:
-        key = (name, shape, dtype, stream)
-        t = None if pool is None else pool.get(key)
-        if t is None:
-            t = torch.empty(shape, dtype=dtype, device=dev)
-            if pool is not None:
-                pool[key] = t
-        bufs[name] = t
-    bufs["mu"] = torch.empty((k, nch), dtype=c64, device=dev)
-    bufs["new_hist"] = torch.empty_like(plan.hist)
-    bufs["vis"] = torch.empty((k, plan.nbl) if plan.continuum
-                              else (k, plan.nbl, nbins), dtype=c64,
-                              device=dev)
+    """The single pass's buffers (``fx_fused.parts_buffers``: its scratch
+    from ``pool``, ``mu`` and ``new_hist`` new) and the visibilities
+    ``vis``, new (they outlive the step)."""
+    bufs = ff.parts_buffers(plan, pool)
+    bufs["vis"] = torch.empty(
+        (plan.k, plan.nbl) if plan.continuum
+        else (plan.k, plan.nbl, plan.nbins), dtype=torch.complex64,
+        device=plan.x.device)
     return bufs
 
 
@@ -332,10 +274,8 @@ def step_args(plan: StepPlan, bufs: dict):
     xp = plan.xplan.args() if plan.xplan is not None else (0,) * 6
     fir = bufs.get("fir")
     return StepArgs(
-        plan.x.data_ptr(), plan.hist.data_ptr(),
-        ff.fir_table(plan.window2d, plan.svd).data_ptr(),
-        None if fir is None else fir.data_ptr(),
-        ff._twiddles(plan.nbins, plan.x.device).data_ptr(),
+        plan.x.data_ptr(), plan.hist.data_ptr(), plan.table.data_ptr(),
+        None if fir is None else fir.data_ptr(), plan.tw.data_ptr(),
         plan.pairs.data_ptr(), da.data_ptr(), bufs["sums"].data_ptr(),
         bufs["scratch"].data_ptr(), bufs["parts"].data_ptr(),
         bufs["mu"].data_ptr(), bufs["new_hist"].data_ptr(),
@@ -352,24 +292,18 @@ def step_args(plan: StepPlan, bufs: dict):
 def launch_step(plan: StepPlan, bufs: dict):
     """One call of ``fxt_fx_step`` (``_i8`` for 8-bit samples) over a
     checked plan and its buffers: three kernels on the current stream (four
-    at deep taps: the FIR launch first), each counted on its wrapper."""
+    at deep taps: the FIR launch first), counted on their wrappers
+    (``fx_fused.count_launches``)."""
     from fxtpu_torch.cuda_build import check, load_kernels
     lib = load_kernels()
-    int8 = plan.quant_step is not None
     args = step_args(plan, bufs)
     with torch.cuda.device(plan.x.device):
         stream = torch.cuda.current_stream(plan.x.device).cuda_stream
-        entry = lib.fxt_fx_step_i8 if int8 else lib.fxt_fx_step
+        entry = (lib.fxt_fx_step if plan.quant_step is None
+                 else lib.fxt_fx_step_i8)
         rc = entry(ctypes.byref(args), stream)
     check(lib, rc, "fx_step launch")
-    ff._count_fir(bufs.get("fir"))
-    ff._count_parts(ff.fx_fused_parts_i8 if int8 else ff.fx_fused_parts,
-                    plan.rank, plan.route)
-    if plan.route == "global":
-        count_launch(plan.xplan, plan.nbins, plan.k)
-    else:
-        ff.parts_reduce.launches += 1
-    fx_finish.launches += 1
+    ff.count_launches(plan, fx_finish)
 
 
 def fx_fused_step(iq: torch.Tensor, history, window2d: torch.Tensor,
@@ -388,13 +322,13 @@ def fx_fused_step(iq: torch.Tensor, history, window2d: torch.Tensor,
     checked once (:func:`check_step`) and one C call launches three
     kernels (frames, reduce or on the wide route the X kernel, epilogue;
     at deep taps the FIR launch before them) and nothing else
-    (:func:`launch_step`), each counted where its wrapper counts it:
-    ``fx_fused_parts[_i8]`` (its route's and FIR mode's counter),
-    ``fx_fused.parts_reduce`` or ``fx_xstage.fx_xstage``,
-    :func:`fx_finish` and ``fx_fused.fir_rows``.  ``pool`` (a dict the
-    caller keeps across steps) holds the step's scratch; ``vis`` and the
-    new history are new."""
-    if _on_card(iq, "fx_fused_step"):
+    (:func:`launch_step`), each counted on its wrapper's counter
+    (``fx_fused.count_launches``): ``fx_fused_parts[_i8]`` (its route's
+    and FIR mode's counter), ``fx_fused.parts_reduce`` or
+    ``fx_xstage.fx_xstage``, :func:`fx_finish` and ``fx_fused.fir_rows``.
+    ``pool`` (a dict the caller keeps across steps) holds the step's
+    scratch; ``vis`` and the new history are new."""
+    if on_card(iq, "fx_fused_step"):
         plan = check_step(iq, history, window2d, pairs, consts, delays,
                           tables, bandwidth, continuum, quant_step, svd)
         bufs = step_buffers(plan, pool)

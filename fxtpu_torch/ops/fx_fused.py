@@ -94,15 +94,18 @@ the production kernel.  ``fxtpu_torch.probes.ablate`` times the stages.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import math
+from typing import Optional
 
 import numpy as np
 import torch
 
 from fxtpu_torch.ops.dc_posthoc import dc_constants
-from fxtpu_torch.ops.fx_xstage import (fx_xstage_reference, xstage_launch,
-                                       xstage_plan)
+from fxtpu_torch.ops.fx_xstage import (XStagePlan, count_launch,
+                                       fx_xstage_reference, row_map,
+                                       xstage_launch, xstage_plan)
 from fxtpu_torch.ops.pfb import (dequantize, pfb_fir, spectrometer_rows,
                                  svd_fir)
 from fxtpu_torch.ops.svd_fir import svd_fir_factors
@@ -114,6 +117,8 @@ __all__ = ["supported", "supported_i8", "fx_fused_raw",
            "fx_fused_raw_i8_multi_reference", "fx_fused_parts",
            "fx_fused_parts_reference", "fx_fused_parts_i8",
            "fx_fused_parts_i8_reference", "fx_fused_parts_wide_reference",
+           "PartsPlan", "plan_parts", "parts_buffers", "launch_parts",
+           "count_launches", "on_card",
            "parts_reduce", "parts_reduce_reference",
            "fx_fused_parts_i8_wide_reference", "supported_parts", "x_route",
            "max_blocks_parts", "fx_fused_ablate",
@@ -503,14 +508,16 @@ def _twiddles(nbins: int, device: torch.device) -> torch.Tensor:
 
 def _groups(s_rows: int, nbl: int, nbins: int):
     """(n_groups, frames_per_group) of one block whose CTAs each write
-    ``nbl`` rows of partials (the single-pass kernel: its ``nbl + 2 nch``
-    rows): one frame per CTA until
-    the block's CTAs reach MAX_GROUPS or its partials MAX_PARTIAL_BYTES.
+    ``nbl`` rows of partials (the single pass's shared route: its ``nbl +
+    2 nch`` rows; 0 where they write none, its wide route): one frame per
+    CTA until the block's CTAs reach MAX_GROUPS or its partials
+    MAX_PARTIAL_BYTES.
     A launch of K blocks has K times the CTAs and the partials: the
     grouping of a block must not depend on K, or its frames would be
     summed in another order than a one-block launch sums them, and K
     blocks would no longer be K one-block launches bit for bit."""
-    cap = max(1, MAX_PARTIAL_BYTES // (nbl * nbins * 8))
+    cap = (max(1, MAX_PARTIAL_BYTES // (nbl * nbins * 8)) if nbl
+           else MAX_GROUPS)
     n = max(1, min(s_rows, MAX_GROUPS, cap))
     per = -(-s_rows // n)
     return -(-s_rows // per), per
@@ -568,34 +575,50 @@ def max_blocks(s_rows: int, nbins: int, ntaps: int, nch: int, rank: int,
     return k
 
 
-def _wide_groups(s_rows: int):
-    """(n_groups, frames_per_group) of one block on the wide route, whose
-    CTAs write no partials: one frame per CTA up to MAX_GROUPS CTAs."""
-    n = max(1, min(s_rows, MAX_GROUPS))
-    per = -(-s_rows // n)
-    return -(-s_rows // per), per
+def _layout(route: str, k: int, nch: int, s_rows: int, nbins: int,
+            ntaps: int, nbl: int, int8: bool):
+    """The single pass's ``(n_groups, per, buffers)`` on ``route``, each
+    buffer ``(name, shape, dtype)``: the groups' sample sums, the shared
+    route's partials or the wide route's spectra (``scratch``), the parts
+    and, where :func:`deep_fir` holds, the FIR's rows."""
+    rows = nbl + 2 * nch
+    c64 = torch.complex64
+    if route == "global":
+        n_groups, per = _groups(s_rows, 0, nbins)
+        scratch = (k, nch, s_rows, nbins)
+    else:
+        n_groups, per = _groups(s_rows, rows, nbins)
+        scratch = (k, n_groups, rows, nbins)
+    buffers = (("sums", (k, n_groups, nch, 2),
+                torch.int64 if int8 else torch.float64),
+               ("scratch", scratch, c64),
+               ("parts", (k, rows, nbins), c64))
+    if deep_fir(ntaps, s_rows):
+        buffers += (("fir", (nch, k * s_rows, nbins), c64),)
+    return n_groups, per, buffers
 
 
 def max_blocks_parts(s_rows: int, nbins: int, nch: int, nbl: int, *,
                      ntaps: int = 2, rank: int = 0,
                      x_stage: str = "auto") -> int:
     """:func:`max_blocks` for the single-pass kernels, on the X stage
-    :func:`x_route` gives: the shared route's partials hold ``nbl + 2
-    nch`` rows a CTA (the cross power, T and GJ); the wide route's scratch
-    holds every channel's spectra of the block (``nch S nbins``
-    complex64: 64 MiB a block at 8 channels of 2^20 samples, 256 MiB at
-    128 channels of 2^18) and its groups' sample sums.  Either grows with
-    K under MAX_LAUNCH_PARTIAL_BYTES; their shared memory does not.  The
+    :func:`x_route` gives, from one block's buffers (:func:`_layout`): the
+    shared route's partials hold ``nbl + 2 nch`` rows a CTA (the cross
+    power, T and GJ); the wide route's scratch holds every channel's
+    spectra of the block (``nch S nbins`` complex64: 64 MiB a block at 8
+    channels of 2^20 samples, 256 MiB at 128 channels of 2^18) and its
+    groups' sample sums.  Either grows with K under
+    MAX_LAUNCH_PARTIAL_BYTES; their shared memory does not.  The
     epilogue's grid (``csrc/fx_finish.cu``) holds a CTA row for every
     block and pair on its second axis, so K nbl is at most MAX_BLOCKS too
     (a bound only where blocks are short and pairs many: 31 blocks at 64
     channels with autos, 7 at 128)."""
-    if x_route(nbins, ntaps, nch, rank, x_stage) == "global":
-        per_block = (nch * s_rows * nbins * 8
-                     + _wide_groups(s_rows)[0] * nch * 16)
-    else:
-        rows = nbl + 2 * nch
-        per_block = _groups(s_rows, rows, nbins)[0] * rows * nbins * 8
+    route = x_route(nbins, ntaps, nch, rank, x_stage)
+    counted = ("scratch", "sums") if route == "global" else ("scratch",)
+    per_block = sum(
+        math.prod(shape) * dtype.itemsize for name, shape, dtype in _layout(
+            route, 1, nch, s_rows, nbins, ntaps, nbl, False)[2]
+        if name in counted)
     return min(MAX_BLOCKS // max(1, nbl),
                MAX_LAUNCH_PARTIAL_BYTES // per_block)
 
@@ -703,13 +726,6 @@ def _launch_setup(x, pairs, k, s_rows, nbins, merged, lib=None):
     return lib, nbl, n_groups, per, xp, partial
 
 
-def _count_fir(fir):
-    """One launch of the deep-tap FIR on ``fir_rows.launches`` where a call
-    made one (its scratch ``fir`` is not None)."""
-    if fir is not None:
-        fir_rows.launches += 1
-
-
 def _count(wrapper, rank):
     if rank:
         wrapper.svd_launches += 1
@@ -751,7 +767,8 @@ def _launch(x, history, window2d, pairs, svd, what, merged,
             s_rows, nbins, ntaps, nbl, n_groups, per, MEAN_PARTS, *extra,
             stream)
     check(lib, rc, what)
-    _count_fir(fir)
+    if fir is not None:                 # the entry's FIR launch
+        fir_rows.launches += 1
     return xp, new_hist
 
 
@@ -786,11 +803,12 @@ def _launch_i8(x, history, window2d, pairs, quant_step, svd, what,
             xp.data_ptr(), mu.data_ptr(), nch, k, s_rows, nbins, ntaps, nbl,
             n_groups, per, MEAN_PARTS, quant_step, *extra, stream)
     check(lib, rc, what)
-    _count_fir(fir)
+    if fir is not None:                 # the entry's FIR launch
+        fir_rows.launches += 1
     return xp, mu
 
 
-def _on_card(x, name):
+def on_card(x, name):
     """True for a CUDA tensor, False for a CPU one; raises otherwise."""
     if x.device.type in ("cpu", "cuda"):
         return x.device.type == "cuda"
@@ -809,7 +827,7 @@ def fx_fused_raw(x: torch.Tensor, history: torch.Tensor,
     the kernel (built at first use) at K = 1 or raise.  Each launch adds
     one to ``fx_fused_raw.launches`` (direct) or
     ``fx_fused_raw.svd_launches``."""
-    if not _on_card(x, "fx_fused_raw"):
+    if not on_card(x, "fx_fused_raw"):
         return fx_fused_raw_reference(x, history, window2d, pairs, svd)
     rank = _check(x, history, window2d, pairs, svd)
     out = _launch(x, history, window2d, pairs, svd,
@@ -833,7 +851,7 @@ def fx_fused_raw_i8(x: torch.Tensor, history: dict, window2d: torch.Tensor,
     launch the int8 kernel (built at first use) at K = 1 or raise.  Each
     launch adds one to ``fx_fused_raw_i8.launches`` (direct) or
     ``fx_fused_raw_i8.svd_launches``."""
-    if not _on_card(x, "fx_fused_raw_i8"):
+    if not on_card(x, "fx_fused_raw_i8"):
         return fx_fused_raw_i8_reference(x, history, window2d, pairs,
                                          quant_step, svd)
     quant_step = float(quant_step)
@@ -876,7 +894,7 @@ def fx_fused_raw_multi(x: torch.Tensor, history: torch.Tensor,
     launch the kernel or raise.  Each launch adds one to
     ``fx_fused_raw_multi.launches`` (direct) or
     ``fx_fused_raw_multi.svd_launches``."""
-    if not _on_card(x, "fx_fused_raw_multi"):
+    if not on_card(x, "fx_fused_raw_multi"):
         return fx_fused_raw_multi_reference(x, history, window2d, pairs, svd)
     rank = _check(x, history, window2d, pairs, svd, multi=True)
     out = _launch(x, history, window2d, pairs, svd,
@@ -918,7 +936,7 @@ def fx_fused_raw_i8_multi(x: torch.Tensor, history: dict,
     launch the int8 kernel or raise.  Each launch adds one to
     ``fx_fused_raw_i8_multi.launches`` (direct) or
     ``fx_fused_raw_i8_multi.svd_launches``."""
-    if not _on_card(x, "fx_fused_raw_i8_multi"):
+    if not on_card(x, "fx_fused_raw_i8_multi"):
         return fx_fused_raw_i8_multi_reference(x, history, window2d, pairs,
                                                quant_step, svd)
     quant_step = float(quant_step)
@@ -1036,34 +1054,81 @@ def fx_fused_parts_i8_wide_reference(x: torch.Tensor, tail: torch.Tensor,
             _i8_history(x[:, -1], window2d.shape[0], mu[-1])["tail"])
 
 
-def _check_parts(x, history, window2d, pairs, svd, consts, quant_step=None,
-                 x_stage="auto"):
-    """What the single-pass wrappers check beyond the two-pass ones'
-    checks (whose shared-memory bound only the shared route keeps): the
-    constants' table dA, S >= ntaps-1 and the K-block bound of the
-    route's scratch.  Returns (the FIR mode's rank, the route)."""
-    if quant_step is not None:
-        rank = _check_i8_rows(x, history, window2d, pairs, quant_step, svd,
-                              multi=True, blocks=False, fits=False)
-        nch, k, s_rows, nbins = x.shape[:4]
-    else:
-        rank = _check(x, history, window2d, pairs, svd, multi=True,
-                      blocks=False, fits=False)
-        nch, k, s_rows, nbins = x.shape
-    ntaps = window2d.shape[0]
+@functools.lru_cache(maxsize=64)
+def _shape_plan(nch: int, k: int, s_rows: int, nbins: int, ntaps: int,
+                nbl: int, rank: int, int8: bool, x_stage: str):
+    """What :func:`plan_parts` decides from the shape alone: ``(route,
+    n_groups, per, xplan, buffers)``, or ValueError."""
     if not supported_parts(nbins, ntaps, nch, s_rows, rank):
         raise ValueError(
             f"the single-pass FX kernel does not take nbins={nbins}, "
             f"ntaps={ntaps}, nch={nch}, S={s_rows}, rank={rank} (see "
             "fx_fused.supported_parts)")
     route = x_route(nbins, ntaps, nch, rank, x_stage)
-    most = max_blocks_parts(s_rows, nbins, nch, pairs.shape[0], ntaps=ntaps,
-                            rank=rank, x_stage=route)
+    most = max_blocks_parts(s_rows, nbins, nch, nbl, ntaps=ntaps, rank=rank,
+                            x_stage=route)
     if not 1 <= k <= most:
         raise ValueError(
             f"{k} blocks of S={s_rows} per launch: the single-pass kernel "
             f"takes 1 to {most} at this shape on its {route} X stage "
             "(fx_fused.max_blocks_parts)")
+    n_groups, per, buffers = _layout(route, k, nch, s_rows, nbins, ntaps,
+                                     nbl, int8)
+    xplan = (xstage_plan(nch, nbl, s_rows, nbins, k) if route == "global"
+             else None)
+    return route, n_groups, per, xplan, buffers
+
+
+@dataclasses.dataclass
+class PartsPlan:
+    """One launch of the single pass (:func:`plan_parts`): the checked
+    tensors as the kernels read them, the route and the launch's shape,
+    the frame groups, the X kernel's plan and row map (wide route), whether
+    the FIR is a launch of its own and the buffers the kernels write."""
+    x: torch.Tensor
+    hist: torch.Tensor                  # the corrected tail, or the raw tail
+    window2d: torch.Tensor
+    svd: Optional[tuple]
+    pairs: torch.Tensor
+    consts: tuple
+    quant_step: Optional[float]         # None: complex64 samples
+    table: torch.Tensor                 # fir_table(window2d, svd)
+    tw: torch.Tensor                    # the FFT's twiddles
+    route: str                          # "shared" or "global" (the wide one)
+    rank: int
+    k: int
+    nch: int
+    s_rows: int
+    nbins: int
+    ntaps: int
+    nbl: int
+    n_groups: int
+    per: int                            # frames a group
+    xplan: Optional[XStagePlan]
+    rowmap: Optional[torch.Tensor]      # the tiled X instance's row map
+    fir: bool                           # deep_fir: the FIR launches alone
+    buffers: tuple                      # (name, shape, dtype): _layout's
+
+
+def plan_parts(x, history, window2d, pairs, svd, consts, quant_step=None,
+               x_stage="auto") -> PartsPlan:
+    """The single pass's launch over ``x`` behind ``history`` (the
+    arguments of :func:`fx_fused_parts`, or with ``quant_step`` of
+    :func:`fx_fused_parts_i8`), for the wrappers and the engine's step:
+    the two-pass kernels' checks (their shared-memory bound only on the
+    shared route), dA, S >= ntaps-1 and the route's K-block bound, then
+    the route, groups, X plan, row map and buffers."""
+    if quant_step is not None:
+        rank = _check_i8_rows(x, history, window2d, pairs, quant_step, svd,
+                              multi=True, blocks=False, fits=False)
+    else:
+        rank = _check(x, history, window2d, pairs, svd, multi=True,
+                      blocks=False, fits=False)
+    nch, k, s_rows, nbins = x.shape[:4]
+    ntaps, nbl = window2d.shape[0], pairs.shape[0]
+    route, n_groups, per, xplan, buffers = _shape_plan(
+        nch, k, s_rows, nbins, ntaps, nbl, rank, quant_step is not None,
+        x_stage)
     da = consts[1]
     if (da.dtype != torch.complex64 or da.device != x.device
             or da.shape != (ntaps - 1, nbins) or not da.is_contiguous()):
@@ -1071,70 +1136,100 @@ def _check_parts(x, history, window2d, pairs, svd, consts, quant_step=None,
             f"consts must be dc_posthoc.dc_constants on {x.device}: dA "
             f"{tuple(da.shape)} {da.dtype} on {da.device}, expected "
             f"{(ntaps - 1, nbins)} complex64")
-    return rank, route
+    rowmap = row_map(pairs, nch) if xplan is not None and xplan.tiled else None
+    return PartsPlan(x, history, window2d, svd, pairs, consts, quant_step,
+                     fir_table(window2d, svd), _twiddles(nbins, x.device),
+                     route, rank, k, nch, s_rows, nbins, ntaps, nbl,
+                     n_groups, per, xplan, rowmap, deep_fir(ntaps, s_rows),
+                     buffers)
 
 
-def _launch_parts(x, history, window2d, pairs, svd, consts, step,
-                  what, route="shared"):
-    """Either single-pass entry over the merged x (checked) -> (xp_raw,
-    T, GJ, mu, new history): complex64 the corrected tail, int8 (``step``
-    not None) the raw tail.  Two kernels: frames and, on the shared
-    route, the reduce, on the wide route (``route`` "global") the X
-    kernel, which does the reduce's work too; ``fx_xstage`` launches that
-    one and counts it."""
+def parts_buffers(plan: PartsPlan, pool=None) -> dict:
+    """``plan.buffers``, ``pool``'s (a dict the caller keeps, keyed with
+    the current stream, whose kernels run in order: the next launch writes
+    the scratch only after this one has read it) or new where ``pool`` is
+    None, and ``mu`` and ``new_hist``, new (they outlive the launch)."""
+    dev = plan.x.device
+    stream = (None if pool is None
+              else torch.cuda.current_stream(dev).cuda_stream)
+    bufs = {}
+    for name, shape, dtype in plan.buffers:
+        key = (name, shape, dtype, stream)
+        t = None if pool is None else pool.get(key)
+        if t is None:
+            t = torch.empty(shape, dtype=dtype, device=dev)
+            if pool is not None:
+                pool[key] = t
+        bufs[name] = t
+    bufs["mu"] = torch.empty((plan.k, plan.nch), dtype=torch.complex64,
+                             device=dev)
+    bufs["new_hist"] = torch.empty_like(plan.hist)
+    return bufs
+
+
+def count_launches(plan: PartsPlan, finish=None):
+    """Count each kernel a launch over ``plan`` made on its wrapper's
+    counter: the frame kernel on ``fx_fused_parts[_i8]``'s by route and
+    FIR mode, the FIR on :func:`fir_rows`', the reduce on
+    :func:`parts_reduce`' or the X kernel on ``fx_xstage``'s, and where
+    the launch also ran the epilogue (a step's), on ``finish``'s, the
+    epilogue's wrapper."""
+    wrapper = fx_fused_parts if plan.quant_step is None else (
+        fx_fused_parts_i8)
+    wide = plan.route == "global"
+    attr = ("wide_" if wide else "") + (
+        "svd_launches" if plan.rank else "launches")
+    setattr(wrapper, attr, getattr(wrapper, attr) + 1)
+    if plan.fir:
+        fir_rows.launches += 1
+    if wide:
+        count_launch(plan.xplan, plan.nbins, plan.k)
+    else:
+        parts_reduce.launches += 1
+    if finish is not None:
+        finish.launches += 1
+
+
+def launch_parts(plan: PartsPlan, bufs: dict):
+    """The single pass over a plan and its buffers on the current stream
+    -> ``(xp_raw, T, GJ, mu, new history)``, views of ``bufs``: the frame
+    kernel (at deep taps behind the FIR launch), then on the shared route
+    the reduce, which its entry launches, on the wide route the X kernel,
+    a launch of its own that also forms mu and the new history
+    (``fx_xstage.xstage_launch``)."""
     from fxtpu_torch.cuda_build import check, load_kernels
     lib = load_kernels()
-    int8 = step is not None
-    wide = route == "global"
-    nch, k, s_rows, nbins = x.shape[:4]
-    ntaps, nbl, dev = window2d.shape[0], pairs.shape[0], x.device
-    rows = nbl + 2 * nch
-    parts = torch.empty((k, rows, nbins), dtype=torch.complex64, device=dev)
-    if wide:
-        n_groups, per = _wide_groups(s_rows)
-        scratch = torch.empty((k, nch, s_rows, nbins), dtype=torch.complex64,
-                              device=dev)
-    else:
-        n_groups, per = _groups(s_rows, rows, nbins)
-        scratch = torch.empty((k, n_groups, rows, nbins),
-                              dtype=torch.complex64, device=dev)
-    sums = torch.empty((k, n_groups, nch, 2),
-                       dtype=torch.int64 if int8 else torch.float64,
-                       device=dev)
-    mu = torch.empty((k, nch), dtype=torch.complex64, device=dev)
-    new_hist = torch.empty_like(history)
-    tw = _twiddles(nbins, dev)
-    fir = _fir_scratch(nch, k, s_rows, nbins, ntaps, dev)
-    table = fir_table(window2d, svd)
-    extra = (step,) if int8 else ()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        if wide:
+    p = plan
+    int8 = p.quant_step is not None
+    extra = (p.quant_step,) if int8 else ()
+    sums, scratch, parts, mu, new_hist = (bufs[name].data_ptr() for name in (
+        "sums", "scratch", "parts", "mu", "new_hist"))
+    head = (p.x.data_ptr(), p.hist.data_ptr(), p.table.data_ptr(),
+            _ptr(bufs.get("fir")), p.tw.data_ptr())
+    what = "fx_parts_i8 kernel launch" if int8 else "fx_parts kernel launch"
+    with torch.cuda.device(p.x.device):
+        stream = torch.cuda.current_stream(p.x.device).cuda_stream
+        if p.route == "global":
             entry = lib.fxt_fx_wide_frames_i8 if int8 else (
                 lib.fxt_fx_wide_frames)
-            rc = entry(
-                x.data_ptr(), history.data_ptr(), table.data_ptr(),
-                _ptr(fir), tw.data_ptr(), sums.data_ptr(),
-                scratch.data_ptr(), nch, k, s_rows, nbins, ntaps, n_groups,
-                per, *extra, stream)
+            rc = entry(*head, sums, scratch, p.nch, p.k, p.s_rows, p.nbins,
+                       p.ntaps, p.n_groups, p.per, *extra, stream)
         else:
             entry = lib.fxt_fx_parts_i8 if int8 else lib.fxt_fx_parts
-            rc = entry(
-                x.data_ptr(), history.data_ptr(), table.data_ptr(),
-                _ptr(fir), tw.data_ptr(), pairs.data_ptr(),
-                consts[1].data_ptr(), sums.data_ptr(), scratch.data_ptr(),
-                parts.data_ptr(), mu.data_ptr(), new_hist.data_ptr(), nch,
-                k, s_rows, nbins, ntaps, nbl, n_groups, per, *extra, stream)
+            rc = entry(*head, p.pairs.data_ptr(), p.consts[1].data_ptr(),
+                       sums, scratch, parts, mu, new_hist, p.nch, p.k,
+                       p.s_rows, p.nbins, p.ntaps, p.nbl, p.n_groups, p.per,
+                       *extra, stream)
     check(lib, rc, what)
-    _count_fir(fir)
-    if wide:
-        # the X kernel, a launch of its own, counted on fx_xstage.launches
-        xstage_launch(scratch, pairs, consts[1], parts,
-                      (x, sums, mu, new_hist, n_groups, step))
-    else:
-        parts_reduce.launches += 1     # the entry's second kernel
-    return (parts[:, :nbl], parts[:, nbl:nbl + nch], parts[:, nbl + nch:],
-            mu, new_hist)
+    if p.route == "global":
+        xstage_launch(p.xplan, p.rowmap, bufs["scratch"], p.pairs,
+                      p.consts[1], bufs["parts"], x=p.x, sums=bufs["sums"],
+                      mu=bufs["mu"], new_hist=bufs["new_hist"],
+                      n_groups=p.n_groups, quant_step=p.quant_step)
+    count_launches(plan)
+    nbl, nch, out = p.nbl, p.nch, bufs["parts"]
+    return (out[:, :nbl], out[:, nbl:nbl + nch], out[:, nbl + nch:],
+            bufs["mu"], bufs["new_hist"])
 
 
 def fir_rows_reference(x: torch.Tensor, history: torch.Tensor,
@@ -1164,7 +1259,7 @@ def fir_rows(x: torch.Tensor, history: torch.Tensor, table: torch.Tensor,
     ``fir_rows_kernel`` (``fxt_fir_rows`` / ``_i8``) or raise.  Each launch
     adds one to ``fir_rows.launches``: this call's and those of every
     deep-tap step."""
-    if not _on_card(x, "fir_rows"):
+    if not on_card(x, "fir_rows"):
         return fir_rows_reference(x, history, table, quant_step)
     from fxtpu_torch.cuda_build import check, load_kernels
     int8 = quant_step is not None
@@ -1324,15 +1419,6 @@ def parts_reduce(partial: torch.Tensor, sums: torch.Tensor, x: torch.Tensor,
 parts_reduce.launches = 0
 
 
-def _count_parts(wrapper, rank, route):
-    """The single pass's counters: the shared route's ``.launches`` /
-    ``.svd_launches``, the wide route's ``.wide_launches`` /
-    ``.wide_svd_launches``."""
-    attr = ("wide_" if route == "global" else "") + (
-        "svd_launches" if rank else "launches")
-    setattr(wrapper, attr, getattr(wrapper, attr) + 1)
-
-
 def _cpu_route(x, window2d, svd, x_stage):
     """The X stage a CPU call's plain version follows: the one the card
     takes at this shape (:func:`x_route`)."""
@@ -1370,7 +1456,7 @@ def fx_fused_parts(x: torch.Tensor, history: torch.Tensor,
     ``fx_fused_parts.svd_launches``, on the wide route to
     ``fx_fused_parts.wide_launches`` or ``.wide_svd_launches`` (its frame
     kernel) and to ``fx_xstage.launches`` (its X kernel)."""
-    if not _on_card(x, "fx_fused_parts"):
+    if not on_card(x, "fx_fused_parts"):
         if _cpu_route(x, window2d, svd, x_stage) == "global":
             return fx_fused_parts_wide_reference(x, history, window2d, pairs,
                                                  svd, consts)
@@ -1378,12 +1464,9 @@ def fx_fused_parts(x: torch.Tensor, history: torch.Tensor,
                                         consts)
     consts = _parts_consts(consts, window2d, x.shape[-1], x.shape[-2],
                            x.device, svd)
-    rank, route = _check_parts(x, history, window2d, pairs, svd, consts,
-                               x_stage=x_stage)
-    out = _launch_parts(x, history, window2d, pairs, svd, consts, None,
-                        "fx_parts kernel launch", route)
-    _count_parts(fx_fused_parts, rank, route)
-    return out
+    plan = plan_parts(x, history, window2d, pairs, svd, consts,
+                      x_stage=x_stage)
+    return launch_parts(plan, parts_buffers(plan))
 
 
 fx_fused_parts.launches = 0
@@ -1414,21 +1497,17 @@ def fx_fused_parts_i8(x: torch.Tensor, tail: torch.Tensor,
     ``fx_fused_parts_i8.launches`` (direct) or ``.svd_launches``, on the
     wide route to ``.wide_launches`` or ``.wide_svd_launches`` and to
     ``fx_xstage.launches``."""
-    if not _on_card(x, "fx_fused_parts_i8"):
+    if not on_card(x, "fx_fused_parts_i8"):
         if _cpu_route(x, window2d, svd, x_stage) == "global":
             return fx_fused_parts_i8_wide_reference(
                 x, tail, window2d, pairs, quant_step, svd, consts)
         return fx_fused_parts_i8_reference(x, tail, window2d, pairs,
                                            quant_step, svd, consts)
-    quant_step = float(quant_step)
     consts = _parts_consts(consts, window2d, x.shape[-2], x.shape[-3],
                            x.device, svd)
-    rank, route = _check_parts(x, tail, window2d, pairs, svd, consts,
-                               quant_step, x_stage)
-    out = _launch_parts(x, tail, window2d, pairs, svd, consts, quant_step,
-                        "fx_parts_i8 kernel launch", route)
-    _count_parts(fx_fused_parts_i8, rank, route)
-    return out
+    plan = plan_parts(x, tail, window2d, pairs, svd, consts,
+                      float(quant_step), x_stage)
+    return launch_parts(plan, parts_buffers(plan))
 
 
 fx_fused_parts_i8.launches = 0
@@ -1756,7 +1835,7 @@ def fx_fused_ablate(x: torch.Tensor, history, window2d: torch.Tensor,
     int8 = x.dtype == torch.int8
     if int8 and quant_step is None:
         raise ValueError("8-bit samples need their quant_step")
-    if not _on_card(x, "fx_fused_ablate"):
+    if not on_card(x, "fx_fused_ablate"):
         return fx_fused_ablate_reference(x, history, window2d, pairs, stage,
                                          quant_step, svd)
     index = STAGES.index(stage)

@@ -33,8 +33,8 @@ import numpy as np
 import torch
 
 __all__ = ["fx_xstage", "fx_xstage_reference", "xstage_plan", "row_plan",
-           "tiled_plan", "XStagePlan", "count_launch", "row_map",
-           "XSTAGE_BINS", "XSTAGE_TILED_NCH"]
+           "tiled_plan", "XStagePlan", "xstage_launch", "count_launch",
+           "row_map", "XSTAGE_BINS", "XSTAGE_TILED_NCH"]
 
 #: The wrappers take bin counts that are multiples of this (every bin
 #: count the port takes is one).
@@ -310,37 +310,33 @@ def count_launch(plan: XStagePlan, nbins: int, k: int):
     fx_xstage.tiled += int(plan.tiled)
 
 
-def xstage_launch(spec, pairs, da, parts, fold=None):
-    """Launch the X kernel over ``spec`` into ``parts`` on the current
-    stream, checked, and count it (:func:`count_launch`).  ``fold =
-    (x, sums, mu, new_hist, n_groups, step)`` ends the wide route's step
-    (``fx_fused._launch_parts``): the launch also forms mu and the new
-    history from the merged samples ``x`` and the frame kernel's sample
-    sums; ``step`` is None for complex64 samples, the quantisation step of
-    8-bit ones."""
+def xstage_launch(plan: XStagePlan, rowmap, spec, pairs, da, parts, *,
+                  x=None, sums=None, mu=None, new_hist=None, n_groups=0,
+                  quant_step=None):
+    """Launch the X kernel as ``plan`` says over ``spec [K, nch, S,
+    nbins]`` into ``parts`` on the current stream, writing through
+    ``rowmap`` (:func:`row_map`; None on the row instance), and check the
+    launch; the caller counts it.  The single pass's wide route
+    (``fx_fused.launch_parts``) also gives the merged samples ``x``
+    (8-bit ones with their ``quant_step``), the frame kernel's
+    ``n_groups`` groups of sample sums ``sums`` and ``mu`` and
+    ``new_hist``, which the launch forms."""
     from fxtpu_torch.cuda_build import check, load_kernels
     lib = load_kernels()
     k, nch, s_rows, nbins = spec.shape
-    x = sums = mu = new_hist = None
-    n_groups, step = 0, None
-    if fold is not None:
-        x, sums, mu, new_hist, n_groups, step = fold
-    entry = lib.fxt_xstage if step is None else lib.fxt_xstage_i8
-    extra = () if step is None else (step,)
-    plan = xstage_plan(nch, pairs.shape[0], s_rows, nbins, k)
-    rmap = row_map(pairs, nch) if plan.tiled else None
+    entry = lib.fxt_xstage if quant_step is None else lib.fxt_xstage_i8
+    extra = () if quant_step is None else (quant_step,)
 
     def ptr(t):
         return None if t is None or t.numel() == 0 else t.data_ptr()
 
     with torch.cuda.device(spec.device):
         stream = torch.cuda.current_stream(spec.device).cuda_stream
-        rc = entry(spec.data_ptr(), pairs.data_ptr(), ptr(rmap), ptr(da),
+        rc = entry(spec.data_ptr(), pairs.data_ptr(), ptr(rowmap), ptr(da),
                    parts.data_ptr(), ptr(x), ptr(sums), ptr(mu),
                    ptr(new_hist), nch, k, s_rows, nbins, pairs.shape[0],
                    da.shape[0], n_groups, *plan.args(), *extra, stream)
     check(lib, rc, "fx_xstage kernel launch")
-    count_launch(plan, nbins, k)
 
 
 def fx_xstage(spec: torch.Tensor, pairs: torch.Tensor,
@@ -360,10 +356,13 @@ def fx_xstage(spec: torch.Tensor, pairs: torch.Tensor,
     if spec.device.type != "cuda":
         raise ValueError(f"fx_xstage runs on cuda or cpu, not {spec.device}")
     _check(spec, pairs, da)
-    k, nch, _, nbins = spec.shape
+    k, nch, s_rows, nbins = spec.shape
+    plan = xstage_plan(nch, pairs.shape[0], s_rows, nbins, k)
     parts = torch.empty((k, pairs.shape[0] + 2 * nch, nbins),
                         dtype=torch.complex64, device=spec.device)
-    xstage_launch(spec, pairs, da, parts)
+    xstage_launch(plan, row_map(pairs, nch) if plan.tiled else None, spec,
+                  pairs, da, parts)
+    count_launch(plan, nbins, k)
     return parts
 
 

@@ -129,17 +129,6 @@ def step_block(num_samp: int):
             ).astype(np.complex64)
 
 
-def _launch_counts(eng) -> dict:
-    """The engine's launch counters and, on its fused route, those of the
-    two kernels its step may add (the parts reduce, the deep-tap FIR)."""
-    counts = dict(eng.launch_counts())
-    if eng.fused_active:
-        from fxtpu_torch.ops import fx_fused
-        counts["parts_reduce"] = fx_fused.parts_reduce.launches
-        counts["fir_rows"] = fx_fused.fir_rows.launches
-    return counts
-
-
 def _role_step(args):
     """One sharded FX step over the block of :func:`step_block`, each
     process placing only its span; process 0 saves the visibility and the
@@ -160,9 +149,9 @@ def _role_step(args):
     start, stop = local_sample_span(mesh, args.num_samp, args.nbins)
     iq = eng.prepare_block(step_block(args.num_samp)[:, start:stop])
     delays = torch.tensor([0.0, 1.25e-6], device=eng.device)
-    before = _launch_counts(eng)
+    before = eng.launch_counts()
     vis, hist = eng.step(iq, delays, eng.fresh_history())
-    launches = {k: v - before[k] for k, v in _launch_counts(eng).items()}
+    launches = {k: v - before[k] for k, v in eng.launch_counts().items()}
     vis, hist = vis.cpu().numpy(), hist.cpu().numpy()
     if not np.all(np.isfinite(vis)):
         raise RuntimeError("non-finite visibility")

@@ -367,34 +367,37 @@ class Case:
         self.consts = dc_constants(self.w.cpu().numpy(), nbins, self.s_rows,
                                    device, self.svd)
         nbl = self.pairs.shape[0]
-        rows = nbl + 2 * nch
         c64 = dict(dtype=torch.complex64, device=device)
-        # the deep-tap FIR's rows (None where the frame kernel runs its
-        # own tap loop)
-        self.fir = ff._fir_scratch(nch, k, self.s_rows, nbins, ntaps, device)
-        if self.entry == "parts":
-            self.n_groups, self.per = ff._groups(self.s_rows, rows, nbins)
-            self.scratch = torch.empty((k, self.n_groups, rows, nbins), **c64)
-        elif self.entry == "fused":
-            # the two-pass entry: partials of the cross power, xp, the
-            # mean pre-pass's sums
+        if self.entry in ("parts", "wide", "xstage"):
+            # the single pass's plan and buffers, on the entry's route
+            plan = ff.plan_parts(
+                self.x, self.hist, self.w, self.pairs, self.svd, self.consts,
+                self.step if self.int8 else None,
+                "shared" if self.entry == "parts" else "global")
+            self.n_groups, self.per = plan.n_groups, plan.per
+            bufs = ff.parts_buffers(plan)
+            (self.sums, self.scratch, self.parts, self.mu,
+             self.new_hist) = (bufs[name] for name in (
+                 "sums", "scratch", "parts", "mu", "new_hist"))
+            self.fir = bufs.get("fir")
+        else:
+            # the two-pass entry (partials of the cross power, xp, the mean
+            # pre-pass's sums) and the spectrometer's (below)
+            self.fir = ff._fir_scratch(nch, k, self.s_rows, nbins, ntaps,
+                                       device)
             self.n_groups, self.per = ff._groups(self.s_rows, nbl, nbins)
             self.scratch = torch.empty((k, self.n_groups, nbl, nbins), **c64)
-        elif self.entry == "xstage":
-            self.n_groups, self.per = ff._wide_groups(self.s_rows)
-            self.scratch = self._spectra().transpose(0, 1).contiguous()
-        else:
-            self.n_groups, self.per = ff._wide_groups(self.s_rows)
-            self.scratch = torch.empty((k, nch, self.s_rows, nbins), **c64)
-        self.parts = torch.empty((k, nbl if self.entry == "fused" else rows,
-                                  nbins), **c64)
-        self.mu = torch.empty((k, nch), **c64)
-        self.new_hist = torch.empty_like(self.hist)
-        self.sums = torch.empty(
-            (k, ff.MEAN_PARTS if self.entry == "fused" else self.n_groups,
-             nch, 2),
-            dtype=torch.int64 if self.int8 else torch.float64, device=device)
+            self.parts = torch.empty(
+                (k, nbl if self.entry == "fused" else nbl + 2 * nch, nbins),
+                **c64)
+            self.mu = torch.empty((k, nch), **c64)
+            self.new_hist = torch.empty_like(self.hist)
+            self.sums = torch.empty(
+                (k, ff.MEAN_PARTS, nch, 2),
+                dtype=torch.int64 if self.int8 else torch.float64,
+                device=device)
         if self.entry == "xstage":
+            self.scratch = self._spectra().transpose(0, 1).contiguous()
             # the groups' sample sums, as the wide route's frame kernel
             # leaves them for the X kernel
             xs = self.x.long() if self.int8 else torch.view_as_real(
@@ -603,7 +606,7 @@ class StepCase:
         rank = rank_arg(lib, p.svd)
         head = (p.x.data_ptr(), p.hist.data_ptr(),
                 *fir_args(lib, p.window2d, p.svd, b.get("fir")),
-                ff._twiddles(p.nbins, p.x.device).data_ptr())
+                p.tw.data_ptr())
         da = p.consts[1].data_ptr()
         if p.route == "global":
             fn = (lib.fxt_fx_wide_frames_i8 if self.int8

@@ -76,8 +76,18 @@ def test_sixteen_thousand_bins_take_the_wide_route():
             assert ff.x_route(n, ntaps, nch, rank) == "global"
     assert ff.max_blocks_parts(16, n, 2, 1) == (
         ff.MAX_LAUNCH_PARTIAL_BYTES // (2 * 16 * n * 8 + 16 * 2 * 16))
-    assert ff._groups(16, 1, n) == (16, 1)
-    assert ff._wide_groups(16) == (16, 1)
+    # the plan of such a block (its shapes alone: meta tensors): one frame
+    # a group, and the scratch and sums that max_blocks_parts counts
+    meta = dict(device="meta")
+    plan = ff.plan_parts(
+        torch.empty((2, 1, 16, n), dtype=torch.complex64, **meta),
+        torch.empty((2, 3, n), dtype=torch.complex64, **meta),
+        torch.empty((4, n), **meta), ff.pairs_tensor([[0, 1]], 2, "meta"),
+        None, (None, torch.empty((3, n), dtype=torch.complex64, **meta)))
+    assert plan.route == "global" and (plan.n_groups, plan.per) == (16, 1)
+    nbytes = {name: np.prod(shape) * dtype.itemsize
+              for name, shape, dtype in plan.buffers}
+    assert nbytes["scratch"] + nbytes["sums"] == 2 * 16 * n * 8 + 16 * 2 * 16
 
 
 def _engines(nbins, ntaps, nsamp, nch, ingest):

@@ -14,6 +14,8 @@ K blocks in one call against K chained calls 1e-5*scale
 off-DC bins are held on the off-DC scale, the DC bin on its own, and the
 corrected DC bin to what fxtpu's own kernel gives on the same input."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -545,15 +547,22 @@ def test_cuda_parts_cluster_split_matches_plain_version(cuda_device, nbins,
 def test_cuda_parts_refused_launch_raises(cuda_device, int8):
     """A cluster launch the card refuses (eight spectra of 8192 bins on
     the shared route, more shared memory than a CTA has) returns its
-    error and the wrapper raises: no other grid, no plain version."""
+    error and the launch raises: no other grid, no plain version.  The
+    planner never takes that route there, so the plan is the wide
+    route's, moved onto the shared one with the shared route's scratch."""
     nch, nbins, ntaps = 8, 8192, 4
     x, hist, wt, pt, consts = _card_parts_inputs(
         nch, 1, 4, nbins, ntaps, int8, cuda_device, seed=89)
     assert fx_fused.frame_shared_bytes(
         nbins, nch, chan_slots=fx_fused.PARTS_CHAN_SLOTS) > (
         fx_fused.MAX_SHARED_BYTES)
+    wide = fx_fused.plan_parts(x, hist, wt, pt, None, consts,
+                               STEP if int8 else None, "global")
+    sums, _, parts = wide.buffers
+    scratch = ("scratch", (1, wide.n_groups, wide.nbl + 2 * nch, nbins),
+               torch.complex64)
+    plan = dataclasses.replace(wide, route="shared", xplan=None, rowmap=None,
+                               buffers=(sums, scratch, parts))
     with pytest.raises(RuntimeError, match="CUDA error"):
-        fx_fused._launch_parts(x, hist, wt, pt, None, consts,
-                               STEP if int8 else None, "refused",
-                               route="shared")
+        fx_fused.launch_parts(plan, fx_fused.parts_buffers(plan))
         torch.cuda.synchronize()

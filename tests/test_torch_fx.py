@@ -393,16 +393,17 @@ def test_single_pass_step_matches_the_two_pass_form(ingest, mode):
 
 
 def test_fused_route_is_the_single_pass():
-    """The fused route's wrappers are the single pass's and the epilogue,
-    by ingest; the plain route has none.  Its K cap counts the single
+    """The fused route's counters are the single pass's (its frame kernel
+    by ingest, then the parts reduce) and the epilogue's; the plain route
+    has none.  Its K cap counts the single
     pass's partials (5 rows a CTA for 2 channels and one baseline)."""
     from fxtpu_torch.ops import fx_fused as ff
     cfg = CorrelatorConfig(**SMALL, device="cpu")
     assert list(FxEngine(cfg, fused=True).launch_counts()) == [
-        "fx_fused_parts", "fx_finish"]
+        "fx_fused_parts", "parts_reduce", "fx_finish"]
     i8 = CorrelatorConfig(**SMALL, device="cpu", ingest_dtype="int8")
     assert list(FxEngine(i8, fused=True).launch_counts()) == [
-        "fx_fused_parts_i8", "fx_finish"]
+        "fx_fused_parts_i8", "parts_reduce", "fx_finish"]
     assert FxEngine(cfg, fused=False).launch_counts() == {}
     big = CorrelatorConfig(num_samp=2**21, nbins=4096, clamp_num_samp=False,
                            device="cpu")

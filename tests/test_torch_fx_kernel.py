@@ -216,12 +216,32 @@ def test_supported_i8_shapes(nbins, ntaps, nch, s_rows, ok):
 
 
 def test_groups_cover_every_frame():
-    for s_rows, nbl, nbins in ((64, 1, 4096), (1024, 1, 256), (7, 3, 256),
-                               (64, 36, 8192)):
-        n, per = fx_fused._groups(s_rows, nbl, nbins)
+    """The single pass's plan (its shapes alone: meta tensors) splits a
+    block into groups that cover every frame, the shared route's partials
+    within MAX_PARTIAL_BYTES: 32 channels with autos at 512 bins (592
+    rows) reach that cap, 22 groups of 3 frames where the grid would take
+    64 groups of one (8 channels of 8192 bins take the wide route)."""
+    meta = dict(device="meta")
+    for s_rows, nch, autos, nbins, capped in (
+            (64, 2, False, 4096, False), (1024, 2, False, 256, False),
+            (7, 2, True, 256, False), (64, 32, True, 512, True),
+            (64, 8, True, 8192, False)):
+        pt = fx_fused.pairs_tensor(baseline_pairs(nch, autos), nch, "meta")
+        plan = fx_fused.plan_parts(
+            torch.empty((nch, 1, s_rows, nbins), dtype=torch.complex64,
+                        **meta),
+            torch.empty((nch, 3, nbins), dtype=torch.complex64, **meta),
+            torch.empty((4, nbins), **meta), pt, None,
+            (None, torch.empty((3, nbins), dtype=torch.complex64, **meta)))
+        n, per, rows = plan.n_groups, plan.per, plan.nbl + 2 * nch
+        assert plan.route == ("global" if nch == 8 else "shared")
         assert (n - 1) * per < s_rows <= n * per
-        assert n * nbl * nbins * 8 <= max(fx_fused.MAX_PARTIAL_BYTES,
-                                          nbl * nbins * 8)
+        # the cap, not the grid's MAX_GROUPS, sets the frames a group
+        assert (per > -(-s_rows // min(s_rows, fx_fused.MAX_GROUPS))) == (
+            capped)
+        if plan.route == "shared":
+            assert n * rows * nbins * 8 <= max(fx_fused.MAX_PARTIAL_BYTES,
+                                               rows * nbins * 8)
 
 
 @pytest.mark.cuda
@@ -679,8 +699,9 @@ def test_cuda_parts_wrappers_reject_bad_input(cuda_device):
                                           ("complex64", 32), ("int8", 32)])
 def test_cuda_engine_step_is_the_single_pass(cuda_device, ingest, ntaps,
                                              mode):
-    """FxEngine.step on the card: the single-pass wrapper and the epilogue
-    launch once a block each, the two-pass wrappers not at all, and three
+    """FxEngine.step on the card: the single pass (its frame kernel and
+    reduce; at deep taps its FIR launch) and the epilogue launch once a
+    block each, the two-pass wrappers not at all, and three
     chained steps agree with the plain route within 2e-5 of max|vis| (3e-5
     for 8-bit samples and at deep taps)."""
     from fxtpu_torch.config import CorrelatorConfig
@@ -713,7 +734,9 @@ def test_cuda_engine_step_is_the_single_pass(cuda_device, ingest, ntaps,
         assert v1.shape == v2.shape
         assert (v1 - v2).abs().max() <= tol * v2.abs().max(), f"block {k}"
     after = one.launch_counts()
-    assert [after[n] - before[n] for n in after] == [3, 3]
+    assert [after[n] - before[n] for n in after] == [3] * len(after)
+    assert list(after)[1:] == ["parts_reduce", *(["fir_rows"] if ntaps >= 16
+                                                 else []), "fx_finish"]
     assert two_pass_counts() == old
 
 

@@ -535,9 +535,11 @@ def test_engine_routes_and_counters_at_8_channels():
             assert eng.x_stage == stage and eng.fir_mode == fir
             name = "fx_fused_parts_i8" if ingest == "int8" else "fx_fused_parts"
             attr = "launches" if fir == "direct" else "svd_launches"
-            keys = [name] if stage == "shared" else [
+            keys = [name, "parts_reduce"] if stage == "shared" else [
                 f"{name}.wide_{attr}", "fx_xstage", "fx_xstage.ctas",
                 "fx_xstage.tiled"]
+            if ntaps >= 16:
+                keys.append("fir_rows")     # the deep-tap FIR's launch
             assert list(eng.launch_counts()) == [*keys, "fx_finish"]
             assert FxEngine(cfg).x_stage is None     # 'auto' on the CPU
     cfg = CorrelatorConfig(nchan=3, nbins=8192, ntaps=32, num_samp=2**18,

@@ -528,7 +528,10 @@ def test_cuda_single_pass_multi_step(cuda_device, ingest, ntaps, mode):
         before = one.launch_counts()
         vm, hm = one.multi_step(one.prepare_batch(blocks), d, hm)
         after = one.launch_counts()
-        assert [after[n] - before[n] for n in after] == [1, 1]
+        assert [after[n] - before[n] for n in after] == [1] * len(after)
+        assert list(after)[1:] == [
+            "parts_reduce", *(["fir_rows"] if ntaps >= 16 else []),
+            "fx_finish"]
         vp, hp = plain.multi_step(plain.prepare_batch(blocks), d, hp)
         vs = []
         for k, b in enumerate(blocks):

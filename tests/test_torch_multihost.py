@@ -70,7 +70,7 @@ def test_two_process_step_matches_single_process(tmp_path, fused):
         assert line["process"] == pid and line["local_shards"] == 4
         assert line["kernel_active"] is False
         assert set(line["launches"]) == (
-            {"fx_fused_parts", "fx_finish", "parts_reduce", "fir_rows"}
+            {"fx_fused_parts", "parts_reduce", "fx_finish"}
             if fused else set())
         assert not any(line["launches"].values())
     got = np.load(out)

@@ -69,11 +69,11 @@ def _blocks(nch, k, s, nbins, seed, int8):
 
 def _group_partials(x, hist, wt, pt, consts, int8):
     """What the frame kernel leaves for the reduce, in plain torch: the
-    partials ``[K, n_groups, nbl + 2 nch, nbins]`` of each group of
-    ``fx_fused._groups`` (its frames' cross power and T, and GJ over its
-    frames j < halo; the GJ rows of groups past the halo are NaN, as
-    never written) and each group's sample sums ``[K, n_groups, nch,
-    2]``.  Returns (partial, sums, n_gj)."""
+    partials ``[K, n_groups, nbl + 2 nch, nbins]`` of each group of the
+    single pass's plan (``fx_fused.plan_parts``): its frames' cross power
+    and T, and GJ over its frames j < halo (the GJ rows of groups past the
+    halo are NaN, as never written), and each group's sample sums ``[K,
+    n_groups, nch, 2]``.  Returns (partial, sums, n_gj)."""
     nch, k, s, nbins = x.shape[:4]
     halo = wt.shape[0] - 1
     rows = dequantize(x, STEP) if int8 else x
@@ -81,7 +81,9 @@ def _group_partials(x, hist, wt, pt, consts, int8):
                                  dequantize(hist, STEP) if int8 else hist,
                                  x.shape[:4], wt, None)
     nbl = pt.shape[0]
-    n_groups, per = fx_fused._groups(s, nbl + 2 * nch, nbins)
+    plan = fx_fused.plan_parts(x, hist, wt, pt, None, consts,
+                               STEP if int8 else None, "shared")
+    n_groups, per = plan.n_groups, plan.per
     idx = pt.long()
     da = consts[1]
     partial = torch.full((k, n_groups, nbl + 2 * nch, nbins), float("nan"),

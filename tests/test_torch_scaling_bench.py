@@ -81,7 +81,7 @@ def test_multi_takes_the_block_parallel_path(capsys):
         assert r["single_samples_per_s"] > 0 and r["multi_samples_per_s"] > 0
         # the fused route's plain versions on the CPU launch no kernel
         assert r["single_launches"] == r["multi_launches"] == {
-            "fx_fused_parts": 0, "fx_finish": 0}
+            "fx_fused_parts": 0, "parts_reduce": 0, "fx_finish": 0}
 
 
 def test_cuda_without_a_card_raises():
