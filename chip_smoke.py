@@ -519,7 +519,7 @@ def reset_counts():
         fn.launches = fn.svd_launches = 0
     for fn in (fx_fused.fx_fused_parts, fx_fused.fx_fused_parts_i8):
         fn.wide_launches = fn.wide_svd_launches = 0
-    spectrometer_fused.launches = fx_finish.launches = 0
+    spectrometer_fused.launches = fx_finish.launches = fx_finish.tiled = 0
     fx_xstage.launches = fx_fused.parts_reduce.launches = 0
     fx_xstage.ctas = fx_xstage.tiled = 0
     fx_fused.fir_rows.launches = 0
@@ -1619,14 +1619,17 @@ def check_cell_engines(device):
     before and read just after, is one launch of the single pass's
     wrapper, one of its X kernel (the wide route: the plan's CTAs, and
     at 128 channels one launch of the register-tiled instance) or its
-    reduce (the shared route) and one of the epilogue, every other entry
-    none; block 0 of the call is ``step`` on that block bit for bit.
-    Returns ({cell: the entries the call launched, with the X kernel's
-    CTAs and tiled launches}, [each call's counts])."""
+    reduce (the shared route) and one of the epilogue (on its pair-tiled
+    instance where ``finish_plan`` takes it), every other entry none;
+    block 0 of the call is ``step`` on that block bit for bit.  Returns
+    ({cell: the entries the call launched, with the X kernel's CTAs and
+    tiled launches and the epilogue's pair-tiled ones}, [each call's
+    counts])."""
     import torch
 
     from fxtpu_torch.config import CorrelatorConfig
     from fxtpu_torch.fx import FxEngine
+    from fxtpu_torch.ops.fx_epilogue import finish_plan
     from fxtpu_torch.ops.fx_xstage import XSTAGE_TILED_NCH, xstage_plan
     from fxtpu_torch.ops.xengine import pack_delays
     from fxtpu_torch.runtime.native import quantize_c64
@@ -1686,6 +1689,13 @@ def check_cell_engines(device):
                     f"{tiled} tiled launch")
             ran.update({n: moved[n] for n in ("fx_xstage.ctas",
                                                "fx_xstage.tiled")})
+        pair_tiled = int(finish_plan(cfg.nchan, len(eng.pairs), cfg.nbins,
+                                     k).tiled)
+        if moved.get("fx_finish.tiled", 0) != pair_tiled:
+            raise AssertionError(f"{cell}: the epilogue's launches {moved}; "
+                                 f"expected {pair_tiled} pair-tiled")
+        if pair_tiled:
+            ran["fx_finish.tiled"] = pair_tiled
         if not torch.equal(vk[0], v1):
             raise AssertionError(f"{cell}: multi_step block 0 is not step")
         print(f"  FxEngine at {cell} ({ingest}, x_stage {eng.x_stage}, "
@@ -3480,7 +3490,7 @@ def host_split(device, n=200):
                 ptr[8], ptr[8] + 8 * nbl * nbins,
                 ptr[8] + 8 * (nbl + nch) * nbins, ptr[9], mu_prev, ptr[4],
                 *fin_ptr, rows * nbins, rows * nbins, rows * nbins, k, nbl,
-                nch, nbins, 1, 0, s_rows, bw, stream)
+                nch, nbins, 1, 0, s_rows, plan.finish_plan.chunk, bw, stream)
 
         sargs = fe.step_args(plan, bufs)
         entry = lib.fxt_fx_step_i8 if int8 else lib.fxt_fx_step

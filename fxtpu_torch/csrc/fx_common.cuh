@@ -189,6 +189,7 @@ int finish(const void* xp, const void* t, const void* gj, const void* mu,
            const void* delays, const void* freqs, void* vis,
            long long xp_stride, long long t_stride, long long gj_stride,
            int K, int nbl, int nch, int nbins, int packed, int continuum,
-           int n_frames, double bandwidth, bool dependent, cudaStream_t st);
+           int n_frames, int chunk, double bandwidth, bool dependent,
+           cudaStream_t st);
 
 }  // namespace fxt

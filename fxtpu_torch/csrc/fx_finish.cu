@@ -54,6 +54,19 @@
 // did all of it after loading the parts (scripts/torch_ab_trees.py --cases
 // step_*; a rotation staged in shared memory before the wait, or the loop
 // not unrolled, changed the compiler's contractions there).
+//
+// Many pairs (MeerKAT's 8,256 a block) make another bound: bytes (xp read,
+// vis written, 8 bytes each a pair and bin), which the one-bin-a-thread
+// instance reached a quarter of, since each thread walked the whole
+// dependent chain for one value and formed again what depends on the pair
+// alone (the means' products, the delay difference) or on the channel
+// alone (G and H, nbl / nch times each).  The pair-tiled instance
+// (fx_finish_kernel_tiled, picked by shape in fx_epilogue.finish_plan)
+// forms G and H once per (block, channel, bin) into shared memory and
+// sweeps many pairs at one tile of bins, the pair's values once for two
+// bins, the loads of several pairs made before their arithmetic.  Both
+// instances form G and H, the correction and the phase alike
+// (channel_gh, corrected, rotation_at).
 
 #include <cuda_runtime.h>
 
@@ -94,17 +107,22 @@ struct FinishArgs {
   float n_frames, bandwidth;
 };
 
-// exp(+j phase) of bin b for the pair's delay difference dd (and carrier
-// fraction difference dfrac of packed delays), as (cos, sin).
-__device__ __forceinline__ float2 rotation(const FinishArgs& a, int b,
-                                           float dd, float dfrac) {
-  const float f = __ldg(a.freqs + b);
+// exp(+j phase) at the frequency f for the pair's delay difference dd
+// (and carrier fraction difference dfrac of packed delays), as (cos, sin).
+__device__ __forceinline__ float2 rotation_at(float f, float dd, float dfrac,
+                                              int packed) {
   const float phase =
-      a.packed ? __fmul_rn(kTwoPi, __fadd_rn(__fmul_rn(f, dd), dfrac))
-               : __fmul_rn(__fmul_rn(kTwoPi, f), dd);
+      packed ? __fmul_rn(kTwoPi, __fadd_rn(__fmul_rn(f, dd), dfrac))
+             : __fmul_rn(__fmul_rn(kTwoPi, f), dd);
   float sn, cs;
   sincosf(phase, &sn, &cs);
   return make_float2(cs, sn);
+}
+
+// The same at bin b.
+__device__ __forceinline__ float2 rotation(const FinishArgs& a, int b,
+                                           float dd, float dfrac) {
+  return rotation_at(__ldg(a.freqs + b), dd, dfrac, a.packed);
 }
 
 // The window's tables at bin b.
@@ -137,32 +155,72 @@ __device__ __forceinline__ BinParts bin_parts(const FinishArgs& a, int k,
           t[po], t[qo], gj[po], gj[qo]};
 }
 
-// The finished value of one bin: the correction of the raw parts v for
-// the means mu and mv (the contract above), the rotation rot and
-// 1/n_frames, every product and sum in this order.
+// G and H of one channel at one bin: ta = T conj(Abar), G = ta + GJ,
+// H = ta - G.
+struct ChannelGH {
+  float2 g, h;
+};
+
+__device__ __forceinline__ ChannelGH channel_gh(float2 t, float2 gj,
+                                                float2 abar) {
+  const float2 ta = cmul(t, cconj(abar));
+  const float2 g = cadd(ta, gj);
+  return {g, csub(ta, g)};
+}
+
+// A pair's means, mu of block k and mv of the rows before it, and their
+// four products: uniform over the pair's bins.
+struct PairMeans {
+  float2 mu_p, mu_q, mv_p, mv_q, uu, uv, vu, vv;
+};
+
+__device__ __forceinline__ PairMeans pair_means(float2 mu_p, float2 mu_q,
+                                                float2 mv_p, float2 mv_q) {
+  return {mu_p, mu_q, mv_p, mv_q, cmul(mu_p, cconj(mu_q)),
+          cmul(mu_p, cconj(mv_q)), cmul(mv_p, cconj(mu_q)),
+          cmul(mv_p, cconj(mv_q))};
+}
+
+// The correction of one bin's raw cross power xp for the means m (the
+// contract above) from both channels' G and H and the window's tables at
+// the bin, every product and sum in this order.
+__device__ __forceinline__ float2 corrected(float2 xp, ChannelGH p,
+                                            ChannelGH q, const PairMeans& m,
+                                            float cs, float2 cab, float cbb) {
+  float2 c = xp;
+  c = csub(c, cmul(p.g, cconj(m.mu_q)));
+  c = csub(c, cconj(cmul(q.g, cconj(m.mu_p))));
+  c = cadd(c, cscale(m.uu, cs));
+  c = csub(c, cmul(p.h, cconj(m.mv_q)));
+  c = csub(c, cconj(cmul(q.h, cconj(m.mv_p))));
+  c = cadd(c, cmul(m.uv, cab));
+  c = cadd(c, cmul(m.vu, cconj(cab)));
+  c = cadd(c, cscale(m.vv, cbb));
+  return c;
+}
+
+// The finished value: c times the rotation rot, over n_frames.  Where
+// `inv` is not 0 it is 1 / n_frames exactly (n_frames a power of two), and
+// the product by it is the quotient, bit for bit, without a division.
+__device__ __forceinline__ float2 rotated(float2 c, float2 rot,
+                                          float n_frames, float inv) {
+  const float2 r = cmul(c, rot);
+  if (inv != 0.f) return make_float2(r.x * inv, r.y * inv);
+  return make_float2(r.x / n_frames, r.y / n_frames);
+}
+
+// The same from the raw parts v of one bin and the pair's means (the
+// one-bin-a-thread instance): G, H and the products formed here.
 __device__ __forceinline__ float2 finished(const BinTables& w,
                                            const BinParts& v, float2 rot,
                                            float2 mu_p, float2 mu_q,
                                            float2 mv_p, float2 mv_q,
                                            float n_frames) {
-  const float2 abar_c = cconj(w.abar);
-  const float2 ta_p = cmul(v.t_p, abar_c);
-  const float2 ta_q = cmul(v.t_q, abar_c);
-  const float2 g_p = cadd(ta_p, v.gj_p);
-  const float2 g_q = cadd(ta_q, v.gj_q);
-  float2 c = v.xp;
-  c = csub(c, cmul(g_p, cconj(mu_q)));
-  c = csub(c, cconj(cmul(g_q, cconj(mu_p))));
-  c = cadd(c, cscale(cmul(mu_p, cconj(mu_q)), w.cs));
-  const float2 h_p = csub(ta_p, g_p);
-  const float2 h_q = csub(ta_q, g_q);
-  c = csub(c, cmul(h_p, cconj(mv_q)));
-  c = csub(c, cconj(cmul(h_q, cconj(mv_p))));
-  c = cadd(c, cmul(cmul(mu_p, cconj(mv_q)), w.cab));
-  c = cadd(c, cmul(cmul(mv_p, cconj(mu_q)), cconj(w.cab)));
-  c = cadd(c, cscale(cmul(mv_p, cconj(mv_q)), w.cbb));
-  const float2 r = cmul(c, rot);
-  return make_float2(r.x / n_frames, r.y / n_frames);
+  return rotated(corrected(v.xp, channel_gh(v.t_p, v.gj_p, w.abar),
+                           channel_gh(v.t_q, v.gj_q, w.abar),
+                           pair_means(mu_p, mu_q, mv_p, mv_q), w.cs, w.cab,
+                           w.cbb),
+                 rot, n_frames, 0.f);
 }
 
 // grid (chunks of bins, K * nbl), one bin a thread; with `continuum` one
@@ -235,6 +293,130 @@ fx_finish_kernel(FinishArgs a, float2* __restrict__ vis, int continuum) {
   }
 }
 
+// The pair-tiled instance (SPECTRUM only): grid (tiles of kTileBins bins,
+// K, chunks of `chunk` pairs).  A CTA owns one tile of one block and sweeps
+// its chunk of pairs there, kRows pairs at a time: a half-warp a pair, two
+// bins a lane (lane and lane + kHalf of the tile), so each of the pair's
+// uniform values (p, q, the delay difference, the four mean products) is
+// formed once for two bins, and the tables at a lane's bins, loaded once,
+// stay in registers over the whole sweep.  G and H depend only on (block,
+// channel, bin): the CTA forms them once for every channel at its tile into
+// shared memory (channel_gh, as the other instance forms them), with the
+// block's means.  A half-warp loads kAhead pairs' cross power before their
+// arithmetic.  Shared memory: nch (2 kTileBins + 3) float2.
+constexpr int kTileBins = 32;
+constexpr int kHalf = kTileBins / 2;
+constexpr int kTiledThreads = 256;
+constexpr int kRows = kTiledThreads / kHalf;
+constexpr int kAhead = 4;
+
+__global__ void __launch_bounds__(kTiledThreads, 3)
+fx_finish_kernel_tiled(FinishArgs a, float2* __restrict__ vis, int chunk) {
+  extern __shared__ float2 smem[];
+  float2* g_s = smem;                       // [nch, kTileBins]
+  float2* h_s = g_s + a.nch * kTileBins;    // [nch, kTileBins]
+  float2* mu_s = h_s + a.nch * kTileBins;   // [nch]: mu of block k
+  float2* mv_s = mu_s + a.nch;              // [nch]: the mean before it
+  float2* d_s = mv_s + a.nch;               // [nch]: (delay, fraction)
+  const float2 zero = make_float2(0.f, 0.f);
+  const int k = blockIdx.y;
+  const int tile = blockIdx.x * kTileBins;
+  const int lane = threadIdx.x % kHalf;
+  const int row = threadIdx.x / kHalf;
+  const int half = a.nbins >> 1;
+  const int nf = static_cast<int>(a.n_frames);
+  const float inv = (nf & (nf - 1)) == 0 ? 1.f / a.n_frames : 0.f;
+  // Before the wait, what no kernel of the step writes: the tables and
+  // frequencies at this lane's two bins, where each lands fftshifted, the
+  // window's Abar at the bin this thread stages, the block's delays.
+  int bin[2], out[2];
+  bool in[2];
+  float f[2], cs[2], cbb[2];
+  float2 cab[2];
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    bin[j] = lane + j * kHalf;
+    in[j] = tile + bin[j] < a.nbins;
+    const int b = in[j] ? tile + bin[j] : 0;
+    f[j] = __ldg(a.freqs + b);
+    cs[j] = __ldg(a.cs + b);
+    cab[j] = __ldg(a.cab + b);
+    cbb[j] = __ldg(a.cbb + b);
+    out[j] = b + half < a.nbins ? b + half : b + half - a.nbins;
+  }
+  const int sbin = threadIdx.x % kTileBins;
+  const bool s_in = tile + sbin < a.nbins;
+  const float2 abar = s_in ? __ldg(a.abar + tile + sbin) : zero;
+  const int w = a.packed ? 2 : 1;
+  const float* d = a.delays + static_cast<size_t>(k) * a.nch * w;
+  for (int c = threadIdx.x; c < a.nch; c += kTiledThreads) {
+    d_s[c] = make_float2(d[c * w], a.packed ? d[c * w + 1] : 0.f);
+  }
+  wait_for_predecessor();
+  const float2* t = a.t + k * a.t_stride + tile + sbin;
+  const float2* gj = a.gj + k * a.gj_stride + tile + sbin;
+  for (int c = threadIdx.x / kTileBins; c < a.nch;
+       c += kTiledThreads / kTileBins) {
+    ChannelGH v{zero, zero};
+    if (s_in) {
+      const size_t o = static_cast<size_t>(c) * a.nbins;
+      v = channel_gh(t[o], gj[o], abar);
+    }
+    g_s[c * kTileBins + sbin] = v.g;
+    h_s[c * kTileBins + sbin] = v.h;
+  }
+  const float2* mu = a.mu + static_cast<size_t>(k) * a.nch;
+  for (int c = threadIdx.x; c < a.nch; c += kTiledThreads) {
+    mu_s[c] = mu[c];
+    mv_s[c] = k > 0 ? mu[c - a.nch]
+                    : (a.mu_prev != nullptr ? a.mu_prev[c] : zero);
+  }
+  __syncthreads();
+  const int last = min(a.nbl, (blockIdx.z + 1) * chunk);
+  const float2* xp = a.xp + k * a.xp_stride + tile;
+  float2* vk = vis + static_cast<size_t>(k) * a.nbl * a.nbins;
+  for (int l0 = blockIdx.z * chunk + row; l0 < last; l0 += kRows * kAhead) {
+    int2 pq[kAhead];
+    float2 x[kAhead][2];
+#pragma unroll
+    for (int u = 0; u < kAhead; ++u) {
+      const int l = l0 + u * kRows;
+      pq[u] = make_int2(0, 0);
+      x[u][0] = x[u][1] = zero;
+      if (l < last) {
+        pq[u] = make_int2(__ldg(a.pairs + 2 * l), __ldg(a.pairs + 2 * l + 1));
+        const float2* r = xp + static_cast<size_t>(l) * a.nbins;
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          if (in[j]) x[u][j] = r[bin[j]];
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kAhead; ++u) {
+      const int l = l0 + u * kRows;
+      if (l >= last) break;
+      const int p = pq[u].x, q = pq[u].y;
+      const float2 dp = d_s[p], dq = d_s[q];
+      const float dd = __fsub_rn(dp.x, dq.x);
+      const float dfrac = a.packed ? __fsub_rn(dp.y, dq.y) : 0.f;
+      const PairMeans m = pair_means(mu_s[p], mu_s[q], mv_s[p], mv_s[q]);
+      float2* o = vk + static_cast<size_t>(l) * a.nbins;
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        if (!in[j]) continue;
+        const ChannelGH vp{g_s[p * kTileBins + bin[j]],
+                           h_s[p * kTileBins + bin[j]]};
+        const ChannelGH vq{g_s[q * kTileBins + bin[j]],
+                           h_s[q * kTileBins + bin[j]]};
+        o[out[j]] = rotated(
+            corrected(x[u][j], vp, vq, m, cs[j], cab[j], cbb[j]),
+            rotation_at(f[j], dd, dfrac, a.packed), a.n_frames, inv);
+      }
+    }
+  }
+}
+
 }  // namespace
 
 namespace fxt {
@@ -245,8 +427,10 @@ int finish(const void* xp, const void* t, const void* gj, const void* mu,
            const void* delays, const void* freqs, void* vis,
            long long xp_stride, long long t_stride, long long gj_stride,
            int K, int nbl, int nch, int nbins, int packed, int continuum,
-           int n_frames, double bandwidth, bool dependent, cudaStream_t st) {
-  if (K < 1 || nbl < 1 || nbins < 1
+           int n_frames, int chunk, double bandwidth, bool dependent,
+           cudaStream_t st) {
+  if (K < 1 || nbl < 1 || nbins < 1 || n_frames < 1 || chunk < 0
+      || (chunk && continuum)
       || static_cast<long long>(K) * nbl > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -272,6 +456,21 @@ int finish(const void* xp, const void* t, const void* gj, const void* mu,
                      packed,
                      static_cast<float>(n_frames),
                      static_cast<float>(bandwidth)};
+  if (chunk > 0) {
+    const size_t smem =
+        static_cast<size_t>(nch) * (2 * kTileBins + 3) * sizeof(float2);
+    cudaError_t err = cudaFuncSetAttribute(
+        reinterpret_cast<const void*>(&fx_finish_kernel_tiled),
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err == cudaSuccess) {
+      err = launch_kernel(&fx_finish_kernel_tiled,
+                          dim3((nbins + kTileBins - 1) / kTileBins, K,
+                               (nbl + chunk - 1) / chunk),
+                          dim3(kTiledThreads), smem, st, dependent, a,
+                          static_cast<float2*>(vis), chunk);
+    }
+    return static_cast<int>(err);
+  }
   const int chunks = continuum ? 1 : (nbins + kThreads - 1) / kThreads;
   return static_cast<int>(launch_kernel(&fx_finish_kernel,
                                         dim3(chunks, K * nbl),
@@ -285,8 +484,11 @@ int finish(const void* xp, const void* t, const void* gj, const void* mu,
 // Launch the epilogue on `stream`.  The caller (fx_epilogue.py) has checked
 // types, shapes, devices and that every [.., nbins] row is contiguous; xp,
 // t and gj may be slices of one tensor (their block strides are in
-// elements).  mu_prev may be NULL.  Writes vis [K, nbl, nbins] complex64,
-// or with `continuum` [K, nbl].  Returns cudaGetLastError().
+// elements).  mu_prev may be NULL.  `chunk` picks the instance
+// (fx_epilogue.finish_plan): 0 the one-bin-a-thread one, else the
+// pair-tiled one with `chunk` pairs a CTA (SPECTRUM only).  Writes vis [K,
+// nbl, nbins] complex64, or with `continuum` [K, nbl].  Returns
+// cudaGetLastError().
 extern "C" int fxt_fx_finish(const void* xp, const void* t, const void* gj,
                              const void* mu, const void* mu_prev,
                              const void* pairs, const void* abar,
@@ -295,9 +497,10 @@ extern "C" int fxt_fx_finish(const void* xp, const void* t, const void* gj,
                              long long xp_stride, long long t_stride,
                              long long gj_stride, int K, int nbl, int nch,
                              int nbins, int packed, int continuum,
-                             int n_frames, double bandwidth, void* stream) {
+                             int n_frames, int chunk, double bandwidth,
+                             void* stream) {
   return fxt::finish(xp, t, gj, mu, mu_prev, pairs, abar, cs, cab, cbb,
                      delays, freqs, vis, xp_stride, t_stride, gj_stride, K,
-                     nbl, nch, nbins, packed, continuum, n_frames, bandwidth,
-                     false, static_cast<cudaStream_t>(stream));
+                     nbl, nch, nbins, packed, continuum, n_frames, chunk,
+                     bandwidth, false, static_cast<cudaStream_t>(stream));
 }

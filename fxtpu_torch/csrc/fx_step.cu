@@ -76,8 +76,11 @@ struct FxtStepArgs {
   int threads;
   const void* rowmap;     // the X kernel's row map [np, np] int32
                           // (fx_xstage.row_map), NULL but on the tiled
-                          // instance; last, so a build without it reads
-                          // the fields before it alike
+                          // instance
+  int finish_chunk;       // the epilogue's plan (fx_epilogue.finish_plan):
+                          // pairs a CTA of its pair-tiled instance, 0 for
+                          // the one-bin-a-thread one; last, so a build
+                          // without it reads the fields before it alike
 };
 
 namespace {
@@ -108,8 +111,8 @@ int fx_step(const FxtStepArgs& a, bool int8, cudaStream_t st) {
                      a.mu, a.mu_prev, a.pairs, a.abar, a.cs, a.cab, a.cbb,
                      a.delays, a.freqs, a.vis, rows * a.nbins,
                      rows * a.nbins, rows * a.nbins, a.K, a.nbl, a.nch,
-                     a.nbins, a.packed, a.continuum, a.S, a.bandwidth, true,
-                     st);
+                     a.nbins, a.packed, a.continuum, a.S, a.finish_chunk,
+                     a.bandwidth, true, st);
 }
 
 }  // namespace

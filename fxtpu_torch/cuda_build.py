@@ -75,7 +75,7 @@ class StepArgs(ctypes.Structure):
             "nch", "K", "S", "nbins", "ntaps", "nbl", "n_groups",
             "frames_per_group", "wide", "packed", "continuum", "tile",
             "slots", "rows", "frames", "stages", "threads")]
-        + [("rowmap", ctypes.c_void_p)])
+        + [("rowmap", ctypes.c_void_p), ("finish_chunk", ctypes.c_int)])
 
 
 def declare(lib):
@@ -98,7 +98,7 @@ def declare(lib):
         "fxt_parts_reduce_i8": [P] * 6 + [I] * 8 + [D, P],
         "fxt_xstage": [P] * 9 + [I] * 13 + [P],
         "fxt_xstage_i8": [P] * 9 + [I] * 13 + [D, P],
-        "fxt_fx_finish": [P] * 13 + [L] * 3 + [I] * 7 + [D, P],
+        "fxt_fx_finish": [P] * 13 + [L] * 3 + [I] * 8 + [D, P],
         "fxt_fx_ablate": [P] * 10 + [I] * 10 + [P],
         "fxt_fx_ablate_i8": [P] * 11 + [I] * 9 + [D, I, P],
         "fxt_spectrometer": [P] * 7 + [L] + [I] * 7 + [P],

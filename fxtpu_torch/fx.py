@@ -445,7 +445,10 @@ class FxEngine:
         ``name.wide_launches`` or ``.wide_svd_launches``), the reduce
         ``parts_reduce`` or the X kernel's ``fx_xstage``, ``.ctas`` and
         ``.tiled`` (launches of its register-tiled instance), at deep taps
-        ``fir_rows`` and last the epilogue ``fx_finish``."""
+        ``fir_rows`` and last the epilogue ``fx_finish``, with
+        ``fx_finish.tiled`` where the epilogue's plan takes its pair-tiled
+        instance at this engine's shape and mode
+        (``fx_epilogue.finish_plan``)."""
         if not self._fused:
             return {}
         name = "fx_fused_parts_i8" if self._int8 else "fx_fused_parts"
@@ -464,6 +467,10 @@ class FxEngine:
                              self.cfg.num_samp // self.cfg.nbins):
             counts["fir_rows"] = fx_fused.fir_rows.launches
         counts["fx_finish"] = fx_epilogue.fx_finish.launches
+        if fx_epilogue.finish_plan(
+                self.cfg.nchan, len(self.pairs), self.cfg.nbins, 1,
+                self.cfg.mode in ("CONTINUUM", "TEST")).tiled:
+            counts["fx_finish.tiled"] = fx_epilogue.fx_finish.tiled
         return counts
 
     @property

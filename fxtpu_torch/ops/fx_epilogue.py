@@ -23,8 +23,15 @@ of what ``fxtpu`` jits into one executable with its kernel:
     X kernel) and the epilogue as programmatic dependents of the kernel
     before each.
 
+The epilogue kernel has two instances of one contract, and
+:func:`finish_plan` picks one by shape: the one-bin-a-thread instance (a
+CTA a block, pair and 256 bins; CONTINUUM always), and from
+:data:`FINISH_TILED_PAIRS` pairs on the pair-tiled one (a CTA a block and
+tile of :data:`FINISH_TILE` bins, sweeping a chunk of pairs there).
+
 A wrapper runs the plain version only for CPU tensors; for CUDA tensors
-it launches the kernel or raises.  ``fx_finish.launches`` counts launches.
+it launches the kernel or raises.  ``fx_finish.launches`` counts launches,
+``fx_finish.tiled`` those of the pair-tiled instance.
 """
 
 from __future__ import annotations
@@ -46,11 +53,73 @@ from fxtpu_torch.ops.xengine import (continuum_reduce, rf_freqs,
 
 __all__ = ["FinishTables", "finish", "fx_finish", "fx_finish_reference",
            "fx_fused_step", "check_step", "step_buffers", "step_args",
-           "launch_step", "StepPlan", "MAX_FINISH_ROWS"]
+           "launch_step", "StepPlan", "FinishPlan", "finish_plan",
+           "tiled_plan", "finish_launch", "count_finish", "BIN_PLAN",
+           "MAX_FINISH_ROWS", "FINISH_TILED_PAIRS", "FINISH_TILE"]
 
-#: Most (block, baseline) rows one launch of the epilogue takes (its
-#: grid's second axis).
+#: Most (block, baseline) rows one launch of the epilogue takes (the
+#: one-bin-a-thread instance's grid's second axis; both instances keep it).
 MAX_FINISH_ROWS = 65535
+#: The one-bin-a-thread instance's CTA: 256 threads, a bin each
+#: (``kThreads`` in ``csrc/fx_finish.cu``).
+FINISH_THREADS = 256
+#: The pair-tiled instance (``fx_finish_kernel_tiled``): bins a tile (a
+#: pair a half-warp, two bins a lane; ``kTileBins`` in the kernel) and the
+#: shared memory it takes a channel (G and H at the tile, mu, the mean
+#: before it, the delay).
+FINISH_TILE = 32
+FINISH_CHANNEL_BYTES = (2 * FINISH_TILE + 3) * 8
+#: From this many pairs on the plan takes the pair-tiled instance in
+#: SPECTRUM: the lowest of 3, 36, 136, 666, 2,080 and 8,256 pairs (2 to 128
+#: channels with autos) at which it won alone on an H100 (PERF.md: the A/B
+#: of the two instances, ``scripts/finish_ab.py``, K = 3, 4096 bins; it
+#: lost at 3 pairs, 1.05 against 0.82 us a block, and won from 36 on, 1.6
+#: to 2.7 times faster).
+FINISH_TILED_PAIRS = 36
+#: CTAs the pair-tiled grid reaches for by splitting the pairs into
+#: chunks: three resident a SM of the H100's 132.
+FINISH_FILL_CTAS = 396
+
+
+@dataclasses.dataclass(frozen=True)
+class FinishPlan:
+    """One launch of the epilogue (:func:`finish_plan`): ``chunk`` pairs a
+    CTA of the pair-tiled instance (grid ``(nbins / tile, K, nbl /
+    chunk)``), or 0 for the one-bin-a-thread instance (grid ``(nbins /
+    tile, K nbl)``, one CTA a row in CONTINUUM); ``tile`` bins a CTA."""
+    chunk: int
+    tile: int
+
+    @property
+    def tiled(self) -> bool:
+        """The pair-tiled instance."""
+        return self.chunk > 0
+
+
+#: The one-bin-a-thread instance's plan.
+BIN_PLAN = FinishPlan(0, FINISH_THREADS)
+
+
+def finish_plan(nch: int, nbl: int, nbins: int, k: int,
+                continuum: bool = False) -> FinishPlan:
+    """The epilogue's plan for K blocks of ``nch`` channels, ``nbl`` pairs
+    and ``nbins`` bins: the pair-tiled instance (:func:`tiled_plan`) in
+    SPECTRUM from :data:`FINISH_TILED_PAIRS` pairs on, where a CTA's
+    shared memory holds every channel's G and H at its tile; else the
+    one-bin-a-thread instance (:data:`BIN_PLAN`).  The instance depends on
+    the shape alone, not on K."""
+    if (continuum or nbl < FINISH_TILED_PAIRS
+            or nch * FINISH_CHANNEL_BYTES > ff.MAX_SHARED_BYTES):
+        return BIN_PLAN
+    return tiled_plan(nbl, nbins, k)
+
+
+def tiled_plan(nbl: int, nbins: int, k: int) -> FinishPlan:
+    """The pair-tiled instance's plan: its pairs split into the fewest
+    chunks that bring the grid to about :data:`FINISH_FILL_CTAS` CTAs."""
+    tiles = -(-nbins // FINISH_TILE)
+    chunks = max(1, min(nbl, FINISH_FILL_CTAS // (tiles * k)))
+    return FinishPlan(-(-nbl // chunks), FINISH_TILE)
 
 
 class FinishTables:
@@ -147,11 +216,15 @@ def _check_delays(delays, k, nch, nbl, device):
     return delays, packed
 
 
-def _launch_finish(xp, T, GJ, mu, pairs, consts, delays, packed, tables,
-                   n_frames, bandwidth, continuum, mu_prev):
-    """The epilogue kernel over checked arguments -> vis."""
+def finish_launch(plan: FinishPlan, xp, T, GJ, mu, pairs, consts, delays,
+                  tables: FinishTables, n_frames: int, bandwidth: float,
+                  continuum: bool, mu_prev=None):
+    """Launch the epilogue kernel as ``plan`` says over checked arguments
+    (:func:`fx_finish`'s) on the current stream -> vis, and check the
+    launch; the caller counts it (:func:`count_finish`)."""
     from fxtpu_torch.cuda_build import check, load_kernels
     k, nbl, nbins = xp.shape
+    packed = delays.ndim == 3
     abar, _, cs, cab, cbb = consts
     freqs = tables.fbase if packed else tables.frf
     lib = load_kernels()
@@ -167,9 +240,8 @@ def _launch_finish(xp, T, GJ, mu, pairs, consts, delays, packed, tables,
             cbb.data_ptr(), delays.data_ptr(), freqs.data_ptr(),
             vis.data_ptr(), xp.stride(0), T.stride(0), GJ.stride(0), k, nbl,
             mu.shape[-1], nbins, int(packed), int(bool(continuum)),
-            int(n_frames), float(bandwidth), stream)
+            int(n_frames), plan.chunk, float(bandwidth), stream)
     check(lib, rc, "fx_finish kernel launch")
-    fx_finish.launches += 1
     return vis
 
 
@@ -189,7 +261,9 @@ def fx_finish(xp: torch.Tensor, T: torch.Tensor, GJ: torch.Tensor,
     reduction over ``bandwidth``.  ``pairs`` as for ``fx_fused_raw``.
 
     CPU tensors run :func:`fx_finish_reference`; CUDA tensors launch one
-    kernel or raise.  Each launch adds one to ``fx_finish.launches``."""
+    kernel (on the instance :func:`finish_plan` takes) or raise.  Each
+    launch adds one to ``fx_finish.launches`` and, on the pair-tiled
+    instance, to ``fx_finish.tiled``."""
     if not on_card(xp, "fx_finish"):
         return fx_finish_reference(xp, T, GJ, mu, pairs, consts, delays,
                                    tables, n_frames, bandwidth, continuum,
@@ -209,33 +283,46 @@ def fx_finish(xp: torch.Tensor, T: torch.Tensor, GJ: torch.Tensor,
     if mu_prev is not None:
         small.append(("mu_prev", mu_prev, torch.complex64, (nch,)))
     _check_small(small, xp.device)
-    return _launch_finish(xp, T, GJ, mu, pairs, consts, delays, packed,
-                          tables, n_frames, bandwidth, continuum, mu_prev)
+    plan = finish_plan(nch, nbl, nbins, k, continuum)
+    vis = finish_launch(plan, xp, T, GJ, mu, pairs, consts, delays, tables,
+                        n_frames, bandwidth, continuum, mu_prev)
+    count_finish(plan)
+    return vis
 
 
 fx_finish.launches = 0
+fx_finish.tiled = 0
+
+
+def count_finish(plan: FinishPlan):
+    """Count one launch of the epilogue on :func:`fx_finish`'s counters:
+    ``launches`` and, on the pair-tiled instance, ``tiled``."""
+    fx_finish.launches += 1
+    fx_finish.tiled += int(plan.tiled)
 
 
 @dataclasses.dataclass
 class StepPlan(ff.PartsPlan):
     """One step's checked arguments (:func:`check_step`): the single
-    pass's plan (``fx_fused.plan_parts``) and what the epilogue reads."""
+    pass's plan (``fx_fused.plan_parts``), what the epilogue reads and its
+    plan (:func:`finish_plan`)."""
     mu_prev: Optional[torch.Tensor]     # int8: the mean the raw tail carries
     delays: torch.Tensor                # float32 [K, nch(, 2)]
     freqs: torch.Tensor
     bandwidth: float
     continuum: bool
     packed: bool
+    finish_plan: FinishPlan
 
 
 def check_step(iq, history, window2d, pairs, consts, delays, tables,
                bandwidth, continuum, quant_step=None,
                svd=None) -> StepPlan:
     """:func:`fx_fused_step`'s checks of CUDA tensors, made once for its
-    kernels: the single pass's plan (``fx_fused.plan_parts``) and the
+    kernels: the single pass's plan (``fx_fused.plan_parts``), the
     epilogue's checks (delays, the window's tables, the frequencies and,
-    for 8-bit samples, the carried mean).  Raises on what the kernels do
-    not take."""
+    for 8-bit samples, the carried mean) and its plan
+    (:func:`finish_plan`).  Raises on what the kernels do not take."""
     int8 = isinstance(history, dict)
     parts = ff.plan_parts(iq, history["tail"] if int8 else history, window2d,
                           pairs, svd, consts,
@@ -251,7 +338,9 @@ def check_step(iq, history, window2d, pairs, consts, delays, tables,
     _check_small(small, iq.device)
     return StepPlan(**vars(parts), mu_prev=mu_prev, delays=delays,
                     freqs=freqs, bandwidth=float(bandwidth),
-                    continuum=bool(continuum), packed=packed)
+                    continuum=bool(continuum), packed=packed,
+                    finish_plan=finish_plan(nch, parts.nbl, nbins, parts.k,
+                                            bool(continuum)))
 
 
 def step_buffers(plan: StepPlan, pool=None) -> dict:
@@ -286,7 +375,8 @@ def step_args(plan: StepPlan, bufs: dict):
         plan.nch, plan.k, plan.s_rows, plan.nbins, plan.ntaps, plan.nbl,
         plan.n_groups, plan.per, int(plan.route == "global"),
         int(plan.packed), int(plan.continuum), *xp,
-        None if plan.rowmap is None else plan.rowmap.data_ptr())
+        None if plan.rowmap is None else plan.rowmap.data_ptr(),
+        plan.finish_plan.chunk)
 
 
 def launch_step(plan: StepPlan, bufs: dict):
@@ -303,7 +393,7 @@ def launch_step(plan: StepPlan, bufs: dict):
                  else lib.fxt_fx_step_i8)
         rc = entry(ctypes.byref(args), stream)
     check(lib, rc, "fx_step launch")
-    ff.count_launches(plan, fx_finish)
+    ff.count_launches(plan, count_finish)
 
 
 def fx_fused_step(iq: torch.Tensor, history, window2d: torch.Tensor,

@@ -1167,13 +1167,14 @@ def parts_buffers(plan: PartsPlan, pool=None) -> dict:
     return bufs
 
 
-def count_launches(plan: PartsPlan, finish=None):
+def count_launches(plan: PartsPlan, count_finish=None):
     """Count each kernel a launch over ``plan`` made on its wrapper's
     counter: the frame kernel on ``fx_fused_parts[_i8]``'s by route and
     FIR mode, the FIR on :func:`fir_rows`', the reduce on
     :func:`parts_reduce`' or the X kernel on ``fx_xstage``'s, and where
-    the launch also ran the epilogue (a step's), on ``finish``'s, the
-    epilogue's wrapper."""
+    the launch also ran the epilogue (a step's; ``plan`` is then its
+    ``fx_epilogue.StepPlan``), on the epilogue's wrapper's by
+    ``count_finish(plan.finish_plan)`` (``fx_epilogue.count_finish``)."""
     wrapper = fx_fused_parts if plan.quant_step is None else (
         fx_fused_parts_i8)
     wide = plan.route == "global"
@@ -1186,8 +1187,8 @@ def count_launches(plan: PartsPlan, finish=None):
         count_launch(plan.xplan, plan.nbins, plan.k)
     else:
         parts_reduce.launches += 1
-    if finish is not None:
-        finish.launches += 1
+    if count_finish is not None:
+        count_finish(plan.finish_plan)
 
 
 def launch_parts(plan: PartsPlan, bufs: dict):

@@ -114,6 +114,9 @@ SHARED = ("fxt_fx_parts", "fxt_fx_parts_i8", "fxt_fx_wide_frames",
 #: the rank (its signatures here), one with it the FIR's table and the
 #: launch's scratch (``cuda_build.declare``).
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+#: ``fxt_fx_finish`` of a tree without the step entry, which the A/B calls
+#: there: no ``chunk`` (the one-bin-a-thread instance alone).
+FINISH_SIGNATURE = [_P] * 13 + [ctypes.c_longlong] * 3 + [_I] * 7 + [_D, _P]
 FACTOR_SIGNATURES = {
     "fxt_fx_parts": [_P] * 13 + [_I] * 9 + [_P],
     "fxt_fx_parts_i8": [_P] * 13 + [_I] * 9 + [_D, _P],
@@ -325,6 +328,8 @@ def build_tree(root: Path, name: str, like=None):
                                            else ()):
         getattr(lib, entry).restype = getattr(like, entry).restype
         getattr(lib, entry).argtypes = getattr(like, entry).argtypes
+    if not lib.has_step:    # its epilogue predates the plan's chunk
+        lib.fxt_fx_finish.argtypes = FINISH_SIGNATURE
     if like.fir_launch and not lib.fir_launch:
         for entry, argtypes in FACTOR_SIGNATURES.items():
             getattr(lib, entry).argtypes = argtypes

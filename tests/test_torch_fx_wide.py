@@ -521,7 +521,8 @@ def test_engine_caps_k_at_the_scratch_bound(caplog, tmp_path):
 def test_engine_routes_and_counters_at_8_channels():
     """The engine's route, X stage and counter names at 8 channels: the
     wide route at 4096 bins (both ingests, both FIR modes), the shared one
-    where it fits; the counters named per route."""
+    where it fits; the counters named per route, the epilogue's pair-tiled
+    instance's too (36 pairs)."""
     for ingest in ("complex64", "int8"):
         for nbins, ntaps, num_samp, stage, fir in (
                 (4096, 4, 2**20, "global", "direct"),
@@ -540,7 +541,8 @@ def test_engine_routes_and_counters_at_8_channels():
                 "fx_xstage.tiled"]
             if ntaps >= 16:
                 keys.append("fir_rows")     # the deep-tap FIR's launch
-            assert list(eng.launch_counts()) == [*keys, "fx_finish"]
+            assert list(eng.launch_counts()) == [*keys, "fx_finish",
+                                                 "fx_finish.tiled"]
             assert FxEngine(cfg).x_stage is None     # 'auto' on the CPU
     cfg = CorrelatorConfig(nchan=3, nbins=8192, ntaps=32, num_samp=2**18,
                            clamp_num_samp=False, device="cpu")
@@ -704,7 +706,8 @@ def test_cuda_xstage_kernel_matches_plain_version(cuda_device):
 def test_cuda_engine_nchan8_step_is_three_launches(cuda_device, ingest):
     """The engine at 8 channels and 4096 bins takes the wide route on the
     card: each step adds one wide launch (the frame kernel), one launch
-    of the X kernel and one of the epilogue, and agrees
+    of the X kernel and one of the epilogue, on its pair-tiled instance
+    (36 pairs), and agrees
     with the plain route within 2e-5 of scale (3e-5 for 8-bit samples)."""
     cfg = CorrelatorConfig(nchan=8, include_autos=True, num_samp=2**15,
                            nbins=4096, clamp_num_samp=False,
@@ -724,7 +727,7 @@ def test_cuda_engine_nchan8_step_is_three_launches(cuda_device, ingest):
         after = one.launch_counts()
         moved = {n: after[n] - before[n] for n in after}
         assert [v for n, v in moved.items()
-                if not n.startswith("fx_xstage.")] == [1, 1, 1]
+                if not n.startswith("fx_xstage.")] == [1, 1, 1, 1]
         assert moved["fx_xstage.tiled"] == 0     # a row instance
         assert moved["fx_xstage.ctas"] == xstage_plan(
             8, 36, 8, 4096).ctas(4096, 1)

@@ -244,13 +244,13 @@ def test_routes_and_caps_past_64_channels():
 
 def test_engine_counts_the_x_stage_s_row_tiles():
     """The wide route's counters name the X stage's launches, CTAs and
-    launches of the tiled instance; on the CPU the plain versions count
-    none."""
+    launches of the tiled instance, and the epilogue's and its pair-tiled
+    instance's (2,145 pairs); on the CPU the plain versions count none."""
     eng = _engine(65, "int8")
     counts = eng.launch_counts()
     assert list(counts) == ["fx_fused_parts_i8.wide_launches", "fx_xstage",
                             "fx_xstage.ctas", "fx_xstage.tiled",
-                            "fx_finish"]
+                            "fx_finish", "fx_finish.tiled"]
     blk = _quantized(_stream(65, 1, seed=3))[0]
     eng.step(eng.prepare_block(blk), torch.zeros(65), eng.fresh_history())
     assert eng.launch_counts() == counts
@@ -350,8 +350,9 @@ def test_cuda_wide_parts_past_64_channels(cuda_device, nch, int8):
 def test_cuda_engine_at_128_channels(cuda_device):
     """MeerKAT's width on the card: FxEngine with 'auto' takes the wide
     route with int8-native ingest; a 3-block multi_step call is one
-    launch of each kernel, its X stage on the tiled instance, and agrees
-    with the tiled reference within 3e-5 of scale."""
+    launch of each kernel, its X stage on the tiled instance and its
+    epilogue on the pair-tiled one, and agrees with the tiled reference
+    within 3e-5 of scale."""
     nch = 128
     eng = _engine(nch, "int8", device="cuda")
     assert eng.kernel_active and eng.int8_native and eng.x_stage == "global"
@@ -369,7 +370,8 @@ def test_cuda_engine_at_128_channels(cuda_device):
     plan = xstage_plan(nch, len(eng.pairs), NSAMP // NBINS, NBINS, k)
     assert moved == {"fx_fused_parts_i8.wide_launches": 1, "fx_xstage": 1,
                      "fx_xstage.ctas": plan.ctas(NBINS, k),
-                     "fx_xstage.tiled": 1, "fx_finish": 1}
+                     "fx_xstage.tiled": 1, "fx_finish": 1,
+                     "fx_finish.tiled": 1}
     assert plan.tiled
     w2d = ref_fx.prototype(4, NBINS)
     pairs = ref_fx.baselines(nch, True)

@@ -48,6 +48,17 @@ PLANS = {
     "effex2.live_spectrum": ("shared", 0, 1, 64, 1, None, None),
     "deep_svd": ("shared", 6, 1, 32, 1, None, None),
 }
+#: case -> the epilogue's plan (fx_epilogue.finish_plan): (pair-tiled
+#: instance, tile, chunk); MeerKAT's 8,256 pairs and array8's 36 on the
+#: pair-tiled one, a CTA's chunk every pair (the grid 384 and 4096 CTAs
+#: already), the single pair on the one-bin-a-thread instance
+FINISH = {
+    "effex2.engine": (False, 256, 0),
+    "array8.engine_int8": (True, 32, 36),
+    "meerkat_l4k.engine128_int8": (True, 32, 8256),
+    "effex2.live_spectrum": (False, 256, 0),
+    "deep_svd": (False, 256, 0),
+}
 #: case -> buffer -> shape, as recorded (new_hist: the history's, complex64
 #: [nch, ntaps-1, nbins] or int8 [..., 2]; sums float64, int64 for 8 bits)
 BUFFERS = {
@@ -118,6 +129,8 @@ def test_plan_is_the_recorded_one(case, ingest, monkeypatch):
             else tuple(plan.rowmap.shape)) == (None if side is None
                                                else (side, side))
     assert plan.fir == ("fir" in BUFFERS[case])
+    fplan = plan.finish_plan
+    assert (fplan.tiled, fplan.tile, fplan.chunk) == FINISH[case]
 
     bufs = fe.step_buffers(plan)
     int8 = ingest == "int8"
@@ -139,7 +152,7 @@ def test_plan_is_the_recorded_one(case, ingest, monkeypatch):
         n_groups=n_groups, frames_per_group=per,
         wide=int(route == "global"), packed=1, continuum=0,
         **dict(zip(("tile", "slots", "rows", "frames", "stages", "threads"),
-                   plan_ints)))
+                   plan_ints)), finish_chunk=FINISH[case][2])
 
     # the parts wrapper plans alike: its card path, up to the launch
     seen = {}
@@ -183,12 +196,13 @@ def _counters() -> dict:
 @pytest.mark.parametrize("ingest", ["complex64", "int8"])
 @pytest.mark.parametrize("case", list(CASES))
 def test_one_count_moves_what_the_engine_reports(case, ingest):
-    """``count_launches`` over a step's plan and the epilogue's wrapper
-    (as ``launch_step`` counts a step) moves each counter that
+    """``count_launches`` over a step's plan and the epilogue's count (as
+    ``launch_step`` counts a step) moves each counter that
     ``FxEngine.launch_counts()`` reports at the same shape, by what it
     reports, and no other: the frame kernel's by route and FIR mode, the
     reduce or X (its launches, CTAs and tiled launches), the deep-tap FIR
-    and the epilogue, once each."""
+    and the epilogue (and its pair-tiled instance's where the plan takes
+    it), once each."""
     from fxtpu_torch.config import CorrelatorConfig
     from fxtpu_torch.fx import FxEngine
     nch, autos, k, s, nbins, ntaps, _ = CASES[case]
@@ -200,12 +214,15 @@ def test_one_count_moves_what_the_engine_reports(case, ingest):
     assert eng.x_stage == plan.route and eng.fir_mode == (
         "svd" if plan.rank else "direct")
     before, reported = _counters(), eng.launch_counts()
-    ff.count_launches(plan, fe.fx_finish)
+    ff.count_launches(plan, fe.count_finish)
     moved = {n: v - before[n] for n, v in _counters().items()
              if v != before[n]}
     now = eng.launch_counts()
     delta = {n: now[n] - reported[n] for n in now}
-    assert list(now)[-1] == "fx_finish"
+    tiled = FINISH[case][0]
+    assert list(now)[-2 if tiled else -1] == "fx_finish"
+    assert ("fx_finish.tiled" in now) == tiled
+    assert moved.get("fx_finish.tiled") == (1 if tiled else None)
     assert sorted(v for v in delta.values() if v) == sorted(moved.values())
     ctas = plan.xplan.ctas(nbins, k) if plan.xplan is not None else None
     assert all(v == 1 for n, v in moved.items() if n != "fx_xstage.ctas")
