@@ -63,13 +63,16 @@ Phases (any failure raises and exits non-zero, with no ``ok`` line):
    at K = 1 and 4, to the same rules, its autos' imaginary parts exactly
    0; the shapes of fxbench's engine cells, to the same rules: 128
    channels with autos (8,256 pairs, 2^18 samples, 4096 bins, the X
-   kernel's register-tiled instance) on the wide route at K = 1 and 3 in both ingests and
+   kernel's register-tiled instance) on the wide route at K = 1 and 3 in both ingests,
+   512 channels with autos (131,328 pairs, the X kernel's band instance,
+   the epilogue's narrow one; CONTINUUM refused there, past 65,535 rows)
+   at K = 1 in both ingests, and
    the flagship at K = 64 on the shared route in complex64 (effex2.engine's
    ingest), the plain versions taken in tiles of pairs (``by_pair_tiles``:
    every pair at once would gather 17 GB a block at 128 channels), the
-   step's one C call there too and the reduce at K = 64 in both ingests; the X kernel alone (``fx_xstage``) at four of those
-   shapes and at 128 channels (K = 1 and 3) within 2e-5 of each part's
-   scale; the single pass's reduce alone
+   step's one C call there too (not at 512) and the reduce at K = 64 in both ingests; the X kernel alone (``fx_xstage``) at four of those
+   shapes, at 128 channels (K = 1 and 3) and at 512 (K = 1) within 2e-5
+   of each part's scale; the single pass's reduce alone
    (``fx_parts_reduce``: ``ops.fx_fused.parts_reduce``) at the flagship
    (K = 1 and 8) and ``bench_pipeline``'s block in both ingests, parts, mu
    and history bit for bit its plain version's; the step's one C call
@@ -115,11 +118,13 @@ Phases (any failure raises and exits non-zero, with no ``ok`` line):
    and the X kernel's, counted by the wrapper that launches it, 28 baselines a block in the CSV, every channel's delay recovered; and
    ``FxEngine`` takes the wide route's kernels at the nchan8 shape and at
    ``--nchan 3 --resolution 8192 --ntaps 32``; at fxbench's engine cells,
-   ``meerkat_l4k.engine128_int8`` and ``effex2.engine``, it takes their
-   route and ingest, ``dispatch_batch_for`` gives their K (3 and 64), and
+   ``meerkat_l4k.engine128_int8``, ``effex2.engine`` and
+   ``leda512.engine512_int8``, it takes their
+   route and ingest, ``dispatch_batch_for`` gives their K (3, 64 and 1), and
    one ``multi_step`` call with every count set to 0 just before is one
-   launch of the single pass, of its X kernel (the plan's CTAs, on the
-   register-tiled instance at 128 channels) or reduce, and of the epilogue, its block 0 ``step`` bit for bit;
+   launch of the single pass, of its X kernel (the plan's CTAs and
+   spectra reads, on a register-tiled instance at 128 and 512 channels)
+   or reduce, and of the epilogue, its block 0 ``step`` bit for bit;
    these counts are in the ``kernels`` line under ``cells``), the engine's
    ``fir_mode`` is the run's
    (``direct``, ``svd``), the calibration recovered the injected 2 us
@@ -358,6 +363,11 @@ CLI_NCHAN = 8        # the CLI runs of the wide route (28 baselines)
 # 8,512 rows of parts, which the X kernel's register-tiled instance takes
 NCHAN128 = dict(nch=128, nsamp=2**18, nbins=4096, ntaps=4, autos=True)
 NCHAN128_K = 3       # the most blocks a launch takes there (the scratch)
+# LEDA's 512-input correlator (fxbench's leda512): 512 channels with autos,
+# 131,328 pairs of 2^18 samples at 4096 bins, one block a launch (K nbl and
+# the spectra pass the caps on K): the X kernel's band instance and the
+# epilogue's narrow pair-tiled one (16 bins a tile past 433 channels)
+NCHAN512 = dict(nch=512, nsamp=2**18, nbins=4096, ntaps=4, autos=True)
 FLAGSHIP_K = 64      # the blocks of fxbench's effex2.engine calls
 # the most bytes of one gathered [K, pairs, S, nbins] operand of a plain
 # version: every pair at once takes 17 GB a block at NCHAN128
@@ -369,7 +379,10 @@ CELL_ENGINES = (
      dict(nchan=128, include_autos=True, num_samp=2**18, nbins=4096,
           bandwidth=856e6, frequency=1284e6), "int8", 24, NCHAN128_K,
      "global"),
-    ("effex2.engine", dict(), "complex64", 64, FLAGSHIP_K, "shared"))
+    ("effex2.engine", dict(), "complex64", 64, FLAGSHIP_K, "shared"),
+    ("leda512.engine512_int8",
+     dict(nchan=512, include_autos=True, num_samp=2**18, nbins=4096,
+          bandwidth=98.304e6, frequency=49.152e6), "int8", 16, 1, "global"))
 XSTAGE_SOURCE = "fxtpu_torch/csrc/fx_xstage.cu"
 # (shape, K, FIR mode) of the K-block entries' checks in phase 2: every
 # shape and K the CLI's main path and phase 4 launch them at, and smaller
@@ -521,7 +534,7 @@ def reset_counts():
         fn.wide_launches = fn.wide_svd_launches = 0
     spectrometer_fused.launches = fx_finish.launches = fx_finish.tiled = 0
     fx_xstage.launches = fx_fused.parts_reduce.launches = 0
-    fx_xstage.ctas = fx_xstage.tiled = 0
+    fx_xstage.ctas = fx_xstage.spectra_reads = fx_xstage.tiled = 0
     fx_fused.fir_rows.launches = 0
     for fn in probe_wrappers().values():
         fn.launches = 0
@@ -860,7 +873,9 @@ def compare_parts(case, k, device, fir, int8, x_stage="auto"):
     scale), GJ on one scale, mu and the complex64 tail within 1e-6, the
     int8 tail exact; then the epilogue (``fx_finish``) on the kernel's
     parts against ``dc_correct`` + ``finish`` for packed and plain delays,
-    spectra and continuum: every bin within 1e-6 of max|vis| plus 2e-6
+    spectra and continuum (continuum refused, ValueError, where K nbl
+    passes ``fx_epilogue.MAX_FINISH_ROWS``: LEDA's 131,328 pairs at one
+    block): every bin within 1e-6 of max|vis| plus 2e-6
     of the raw cross power per frame that cancels at that bin (the DC bin
     and, for large means, its neighbours); then the corrected cross power
     against the two-pass plain version, at the kernels' tolerance plus the
@@ -954,6 +969,7 @@ def compare_parts(case, k, device, fir, int8, x_stage="auto"):
             and hist_ok):
         raise AssertionError(f"mu ({mu_err:.3g}) or the new history of the "
                              f"single pass is wrong at {case} K={k}")
+    del want
     # the epilogue on the kernel's parts
     bw, freq = 2.4e6, 1.4204e9
     tables = fe.FinishTables(pairs_np, nbins, bw, freq, device)
@@ -965,11 +981,21 @@ def compare_parts(case, k, device, fir, int8, x_stage="auto"):
     raw_dc = raw.max().item()
     raw_shifted = torch.fft.fftshift(raw, dim=-1)
     fin_abs = fin_rel = dc_rel = cont_rel = 0.0
+    refused = k * len(pairs_np) > fe.MAX_FINISH_ROWS
     for packed in (True, False):
         delays = torch.as_tensor(
             pack_delays(d, freq) if packed else d.astype(np.float32),
             device=device)
         for continuum in (False, True):
+            if continuum and refused:
+                try:
+                    fe.fx_finish(*got[:4], pairs, consts, delays, tables, s,
+                                 bw, continuum, mu_prev)
+                except ValueError:
+                    continue
+                raise AssertionError(
+                    f"fx_finish took CONTINUUM at {case} K={k}: "
+                    f"{k * len(pairs_np)} rows, past MAX_FINISH_ROWS")
             v = fe.fx_finish(*got[:4], pairs, consts, delays, tables, s, bw,
                              continuum, mu_prev)
             r = fe.fx_finish_reference(*got[:4], pairs, consts, delays,
@@ -997,21 +1023,36 @@ def compare_parts(case, k, device, fir, int8, x_stage="auto"):
             err[..., around] = 0
             worst = err.max().item()
             fin_abs, fin_rel = max(fin_abs, worst), max(fin_rel, worst / scale)
-    # the single pass against the two-pass plain version, off the DC bin
-    xp = dc_correct(*got[:4], pairs, consts,
-                    mu_prev=block_mu_prev(got[3], mu_prev))
-    if int8:
-        ref, _ = by_pair_tiles(ff.fx_fused_raw_i8_multi_reference,
-                               (x, hist, w, pairs, STEP, svd), 3,
-                               s * nbins * 8)
-    else:
-        ref, _ = by_pair_tiles(ff.fx_fused_raw_multi_reference,
-                               (x, hist, w, pairs, svd), 3, s * nbins * 8)
-    scale = ref.abs().max().item()
-    err = (xp - ref).abs()
-    two_dc = err[..., 0].max().item() / scale
-    two_off = err[..., 1:].max().item() / scale
-    if not bool((err <= tol * scale + CANCEL_TOL * got[0].abs()).all()):
+            del v, r, err, bound
+    # the single pass against the two-pass plain version, off the DC bin,
+    # a tile of pairs at a time (at once, its operands and the correction's
+    # terms would hold several [K, nbl, nbins] tensors: 4.3 GB each at 512
+    # channels); every bin within tol of max|xp| plus CANCEL_TOL of the raw
+    # cross power: max(err - CANCEL_TOL |raw|) <= tol * scale
+    del raw, raw_shifted
+    torch.cuda.empty_cache()
+    mu_blocks = block_mu_prev(got[3], mu_prev)
+    per = max(1, PLAIN_TILE_BYTES // (s * nbins * 8))
+    scale = dc_abs = off_abs = excess = 0.0
+    for lo in range(0, len(pairs), per):
+        tile = slice(lo, lo + per)
+        xp = dc_correct(got[0][:, tile], *got[1:4], pairs[tile], consts,
+                        mu_prev=mu_blocks)
+        if int8:
+            ref, _ = ff.fx_fused_raw_i8_multi_reference(
+                x, hist, w, pairs[tile], STEP, svd)
+        else:
+            ref, _ = ff.fx_fused_raw_multi_reference(x, hist, w,
+                                                     pairs[tile], svd)
+        err = (xp - ref).abs()
+        scale = max(scale, ref.abs().max().item())
+        dc_abs = max(dc_abs, err[..., 0].max().item())
+        off_abs = max(off_abs, err[..., 1:].max().item())
+        excess = max(excess, (err - CANCEL_TOL * got[0][:, tile].abs())
+                     .max().item())
+        del xp, ref, err
+    two_dc, two_off = dc_abs / scale, off_abs / scale
+    if not excess <= tol * scale:
         raise AssertionError(
             f"the corrected single pass disagrees with the two-pass plain "
             f"version at {case} K={k}: {two_off:.3g} of max|xp| off the DC "
@@ -1019,9 +1060,10 @@ def compare_parts(case, k, device, fir, int8, x_stage="auto"):
             "the raw cross power")
     print(f"  K={k}: " + ", ".join(notes) + f", mu {mu_err:.2g}; fx_finish "
           f"{fin_rel:.2g} of max|vis| (5 bins around DC {dc_rel:.2g}, "
-          f"continuum {cont_rel:.2g}, raw DC bin "
-          f"{raw_dc / scale * s:.3g} of max|xp|); against the two-pass plain "
-          f"version {two_off:.2g} off DC, DC bin {two_dc:.2g}", flush=True)
+          f"continuum {'refused' if refused else f'{cont_rel:.2g}'}, raw DC "
+          f"bin {raw_dc / scale * s:.3g} of max|xp|); against the two-pass "
+          f"plain version {two_off:.2g} off DC, DC bin {two_dc:.2g}",
+          flush=True)
     name = ("fx_parts_wide" if wide else "fx_parts") + (
         "_i8" if int8 else "")
     return ({name: (abs_err, rel_err), "fx_finish": (fin_abs, fin_rel)},
@@ -1617,14 +1659,15 @@ def check_cell_engines(device):
     kernels, ``dispatch_batch_for`` gives the cell's K, and one
     ``multi_step`` call of K blocks, with every count set to 0 just
     before and read just after, is one launch of the single pass's
-    wrapper, one of its X kernel (the wide route: the plan's CTAs, and
-    at 128 channels one launch of the register-tiled instance) or its
-    reduce (the shared route) and one of the epilogue (on its pair-tiled
-    instance where ``finish_plan`` takes it), every other entry none;
-    block 0 of the call is ``step`` on that block bit for bit.  Returns
-    ({cell: the entries the call launched, with the X kernel's CTAs and
-    tiled launches and the epilogue's pair-tiled ones}, [each call's
-    counts])."""
+    wrapper, one of its X kernel (the wide route: the plan's CTAs and
+    the CTAs that stage each bin tile's spectra, ``plan.reads``, and from
+    128 channels one launch of a register-tiled instance: at 512 the band
+    one, one block a call) or its reduce (the shared route) and one of
+    the epilogue (on its pair-tiled instance where ``finish_plan`` takes
+    it), every other entry none; block 0 of the call is ``step`` on that
+    block bit for bit.  Returns ({cell: the entries the call launched,
+    with the X kernel's CTAs, spectra reads and tiled launches and the
+    epilogue's pair-tiled ones}, [each call's counts])."""
     import torch
 
     from fxtpu_torch.config import CorrelatorConfig
@@ -1682,13 +1725,16 @@ def check_cell_engines(device):
             tiled = int(cfg.nchan >= XSTAGE_TILED_NCH)
             if (int(plan.tiled) != tiled
                     or moved["fx_xstage.tiled"] != tiled
-                    or moved["fx_xstage.ctas"] != plan.ctas(cfg.nbins, k)):
+                    or moved["fx_xstage.ctas"] != plan.ctas(cfg.nbins, k)
+                    or moved["fx_xstage.spectra_reads"] != plan.reads):
                 raise AssertionError(
                     f"{cell}: the X kernel's work {moved}, the plan "
-                    f"{plan}, {plan.ctas(cfg.nbins, k)} CTAs; expected "
-                    f"{tiled} tiled launch")
-            ran.update({n: moved[n] for n in ("fx_xstage.ctas",
-                                               "fx_xstage.tiled")})
+                    f"{plan}, {plan.ctas(cfg.nbins, k)} CTAs, "
+                    f"{plan.reads} spectra reads; expected {tiled} tiled "
+                    "launch")
+            ran.update({n: moved[n] for n in (
+                "fx_xstage.ctas", "fx_xstage.spectra_reads",
+                "fx_xstage.tiled")})
         pair_tiled = int(finish_plan(cfg.nchan, len(eng.pairs), cfg.nbins,
                                      k).tiled)
         if moved.get("fx_finish.tiled", 0) != pair_tiled:
@@ -3270,6 +3316,57 @@ def time_wide(device):
     return times, dev_us, launches
 
 
+def time_nchan512(device):
+    """Phase 4 at LEDA's block (NCHAN512, one block): the X kernel alone on
+    its spectra (the band instance) and the epilogue alone on the X
+    kernel's parts (the narrow pair-tiled instance, SPECTRUM, packed
+    delays within 8 samples, a carried mean), each by CUDA events (ms a
+    launch) and by its device time (us).  Returns ({"xstage", "finish"}:
+    ms, the same: device us)."""
+    import torch
+
+    from fxtpu_torch.ops import baseline_pairs
+    from fxtpu_torch.ops import fx_epilogue as fe
+    from fxtpu_torch.ops.dc_posthoc import dc_constants
+    from fxtpu_torch.ops.fx_xstage import fx_xstage
+    from fxtpu_torch.ops.xengine import pack_delays
+    from fxtpu_torch.probes.common import device_events
+    case = NCHAN512
+    nch, nbins = case["nch"], case["nbins"]
+    s = case["nsamp"] // nbins
+    bw, freq = 98.304e6, 49.152e6
+    spec, pairs, da = xstage_inputs(case, 1, device)
+    parts = fx_xstage(spec, pairs, da)
+    nbl = pairs.shape[0]
+    w, _ = window_and_fir(case, "direct", device)
+    rng = np.random.default_rng(512)
+
+    def means(*shape):
+        z = rng.normal(size=shape) + 1j * rng.normal(size=shape)
+        return torch.as_tensor((0.1 * z).astype(np.complex64), device=device)
+
+    fin = (parts[:, :nbl], parts[:, nbl:nbl + nch], parts[:, nbl + nch:],
+           means(1, nch), pairs, dc_constants(w.cpu().numpy(), nbins, s,
+                                              device),
+           torch.as_tensor(pack_delays(rng.uniform(-8, 8, (1, nch)) / bw,
+                                       freq), device=device),
+           fe.FinishTables(baseline_pairs(nch, True), nbins, bw, freq,
+                           device), s, bw, False, means(nch))
+    fns = {"xstage": lambda: fx_xstage(spec, pairs, da),
+           "finish": lambda: fe.fx_finish(*fin)}
+    ms = cuda_times(fns, n=10, warm=2)
+    us = {key: kernel_us(device_events(fn, 3))[key]
+          for key, fn in fns.items()}
+    for key in fns:
+        bound = (xstage_bound if key == "xstage" else finish_bound)(case, 1)
+        print(f"  [nchan512] {key} alone {ms[key]:.4f} ms, device "
+              f"{us[key]:.1f} us, least {bound[0]:.4f} ms ({bound[1]})",
+              flush=True)
+    del spec, parts, fin
+    torch.cuda.empty_cache()
+    return ms, us
+
+
 def time_x_routes(device):
     """Phase 4, the single pass's two X stages at shapes both take: the
     wrapper with ``x_stage`` "shared" and "global" at the flagship block,
@@ -4593,7 +4690,8 @@ def main() -> int:
                     errs[key] = tuple(map(max, errs[key], pair))
                 dc_bin[name] = max(dc_bin.get(name, 0.0), dc)
     # the benchmark's engine cells at their calls' shapes: 128 channels on
-    # the wide route (the X kernel's tiled instance) at K = 1 and 3 in both
+    # the wide route (the X kernel's tiled instance) at K = 1 and 3 and 512
+    # (its band instance, the epilogue's narrow one) at K = 1 in both
     # ingests, and the flagship's K = 64 on the shared route in
     # effex2.engine's, complex64 (parts_batch's offsets grow with K: at 64
     # the int8 blocks' means reach 3.6 sigma, where the float32 cancellation
@@ -4601,8 +4699,9 @@ def main() -> int:
     # as well as the kernel's)
     for case, k, int8 in ((NCHAN128, 1, False), (NCHAN128, NCHAN128_K, False),
                           (NCHAN128, 1, True), (NCHAN128, NCHAN128_K, True),
+                          (NCHAN512, 1, False), (NCHAN512, 1, True),
                           (FLAGSHIP, FLAGSHIP_K, False)):
-        name = ("fx_parts_wide" if case is NCHAN128 else "fx_parts") + (
+        name = ("fx_parts" if case is FLAGSHIP else "fx_parts_wide") + (
             "_i8" if int8 else "")
         print(f"  {name} + fx_finish (direct) K={k} shape {case}",
               flush=True)
@@ -4613,13 +4712,15 @@ def main() -> int:
         for key, pair in got.items():
             errs[key] = tuple(map(max, errs[key], pair))
         dc_bin[name] = max(dc_bin.get(name, 0.0), dc)
+        torch.cuda.empty_cache()
     for int8 in (False, True):
         errs["fx_parts_reduce"] = tuple(map(
             max, errs["fx_parts_reduce"],
             compare_reduce(FLAGSHIP, FLAGSHIP_K, device, int8)))
-    for k in (1, NCHAN128_K):
+    for case, k in ((NCHAN128, 1), (NCHAN128, NCHAN128_K), (NCHAN512, 1)):
         errs["fx_xstage"] = tuple(map(max, errs["fx_xstage"],
-                                      compare_xstage(NCHAN128, k, device)))
+                                      compare_xstage(case, k, device)))
+    torch.cuda.empty_cache()
     step_diff, step_fin, step_routes = 0.0, 0.0, {}
     for tag, case, k, fir, cont, ingests in (
             *(c + ((False, True),) for c in STEP_CASES),
@@ -4742,7 +4843,8 @@ def main() -> int:
             main_counts.append(counts)
         check_wide_engines()
         phase("phase 3: the engine at the benchmark's engine cells "
-              "(meerkat_l4k.engine128_int8, effex2.engine)")
+              "(meerkat_l4k.engine128_int8, effex2.engine, "
+              "leda512.engine512_int8)")
         cell_counts, cell_calls = check_cell_engines(device)
         main_counts += cell_calls
         phase("phase 3: the main path at bin counts that are not powers of "
@@ -4857,6 +4959,7 @@ def main() -> int:
     mst, mct, step_launches = time_multi_step(device)
     spt, sp_launches, sp_us = time_single_pass(device)
     wdt, wd_us, wd_launches = time_wide(device)
+    n512_ms, n512_us = time_nchan512(device)
     xrt, xr_us = time_x_routes(device)
     rdt, rd_us = time_reduce(device)
     step_ab = time_steps(device)
@@ -5241,6 +5344,11 @@ def main() -> int:
         # the X kernel inside the wide route's call, each ingest
         "in_call_device_us": {key: wd_us[key].get("xstage") for key in (
             "nchan8", "nchan8_i8", "cli8", "cli8_i8")},
+        # LEDA's block (512 channels, one block): the band instance alone
+        "nchan512_ms": n512_ms["xstage"],
+        "nchan512_device_us": n512_us["xstage"],
+        "nchan512_bound_ms": xstage_bound(NCHAN512, 1)[0],
+        "nchan512_bound_by": xstage_bound(NCHAN512, 1)[1],
     })
     ms, by = parts_reduce_bound(FLAGSHIP, 1)
     kernels.append({
@@ -5287,6 +5395,12 @@ def main() -> int:
             for tag, case, k, _, _ in STEP_CASES},
         "step_ab": step_ab, "host_split_us": split,
         "resume_max_rel_err": resume_err,
+        # LEDA's block (512 channels, one block): the narrow pair-tiled
+        # instance alone
+        "nchan512_ms": n512_ms["finish"],
+        "nchan512_device_us": n512_us["finish"],
+        "nchan512_bound_ms": finish_bound(NCHAN512, 1)[0],
+        "nchan512_bound_by": finish_bound(NCHAN512, 1)[1],
     })
     kernels += probe_kernel_entries(table, probe_records, launches, errs,
                                     mkt, device)

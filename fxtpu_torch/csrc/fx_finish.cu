@@ -67,6 +67,14 @@
 // bins, the loads of several pairs made before their arithmetic.  Both
 // instances form G and H, the correction and the phase alike
 // (channel_gh, corrected, rotation_at).
+//
+// Past 433 channels (LEDA's 512: 131,328 pairs) the pair-tiled CTA's G and
+// H of every channel at 32 bins pass a CTA's 227 KiB.  Its narrow instance,
+// fx_finish_kernel_narrow, is the same sweep at 16 bins a tile (280 bytes
+// a channel: up to 830 channels), 512 threads a CTA, a quarter-warp a
+// pair; the launcher takes it by shape.  The one-bin-a-thread grid holds
+// its K nbl rows on its second axis, 65,535 of them: past that (CONTINUUM
+// from 362 channels with autos) the launch is refused.
 
 #include <cuda_runtime.h>
 
@@ -303,24 +311,37 @@ fx_finish_kernel(FinishArgs a, float2* __restrict__ vis, int continuum) {
 // channel, bin): the CTA forms them once for every channel at its tile into
 // shared memory (channel_gh, as the other instance forms them), with the
 // block's means.  A half-warp loads kAhead pairs' cross power before their
-// arithmetic.  Shared memory: nch (2 kTileBins + 3) float2.
+// arithmetic.  Shared memory: nch (2 kTileBins + 3) float2.  The narrow
+// instance: kNarrowBins a tile, kNarrowThreads threads, kHalf = kNarrowBins
+// / 2 lanes a pair (a quarter-warp).
 constexpr int kTileBins = 32;
-constexpr int kHalf = kTileBins / 2;
 constexpr int kTiledThreads = 256;
-constexpr int kRows = kTiledThreads / kHalf;
+constexpr int kNarrowBins = 16;
+constexpr int kNarrowThreads = 512;
 constexpr int kAhead = 4;
+// Shared memory a CTA may take (fx_fused.MAX_SHARED_BYTES).
+constexpr size_t kMaxShared = 232448;
 
-__global__ void __launch_bounds__(kTiledThreads, 3)
-fx_finish_kernel_tiled(FinishArgs a, float2* __restrict__ vis, int chunk) {
+// The shared memory the pair-tiled sweep takes at `bins` a tile.
+constexpr size_t tiled_bytes(int nch, int bins) {
+  return static_cast<size_t>(nch) * (2 * bins + 3) * sizeof(float2);
+}
+
+template <int kBins, int kCtaThreads>
+__device__ __forceinline__ void finish_tiled(FinishArgs a,
+                                             float2* __restrict__ vis,
+                                             int chunk) {
+  constexpr int kHalf = kBins / 2;
+  constexpr int kRows = kCtaThreads / kHalf;
   extern __shared__ float2 smem[];
-  float2* g_s = smem;                       // [nch, kTileBins]
-  float2* h_s = g_s + a.nch * kTileBins;    // [nch, kTileBins]
-  float2* mu_s = h_s + a.nch * kTileBins;   // [nch]: mu of block k
-  float2* mv_s = mu_s + a.nch;              // [nch]: the mean before it
-  float2* d_s = mv_s + a.nch;               // [nch]: (delay, fraction)
+  float2* g_s = smem;                   // [nch, kBins]
+  float2* h_s = g_s + a.nch * kBins;    // [nch, kBins]
+  float2* mu_s = h_s + a.nch * kBins;   // [nch]: mu of block k
+  float2* mv_s = mu_s + a.nch;          // [nch]: the mean before it
+  float2* d_s = mv_s + a.nch;           // [nch]: (delay, fraction)
   const float2 zero = make_float2(0.f, 0.f);
   const int k = blockIdx.y;
-  const int tile = blockIdx.x * kTileBins;
+  const int tile = blockIdx.x * kBins;
   const int lane = threadIdx.x % kHalf;
   const int row = threadIdx.x / kHalf;
   const int half = a.nbins >> 1;
@@ -344,29 +365,29 @@ fx_finish_kernel_tiled(FinishArgs a, float2* __restrict__ vis, int chunk) {
     cbb[j] = __ldg(a.cbb + b);
     out[j] = b + half < a.nbins ? b + half : b + half - a.nbins;
   }
-  const int sbin = threadIdx.x % kTileBins;
+  const int sbin = threadIdx.x % kBins;
   const bool s_in = tile + sbin < a.nbins;
   const float2 abar = s_in ? __ldg(a.abar + tile + sbin) : zero;
   const int w = a.packed ? 2 : 1;
   const float* d = a.delays + static_cast<size_t>(k) * a.nch * w;
-  for (int c = threadIdx.x; c < a.nch; c += kTiledThreads) {
+  for (int c = threadIdx.x; c < a.nch; c += kCtaThreads) {
     d_s[c] = make_float2(d[c * w], a.packed ? d[c * w + 1] : 0.f);
   }
   wait_for_predecessor();
   const float2* t = a.t + k * a.t_stride + tile + sbin;
   const float2* gj = a.gj + k * a.gj_stride + tile + sbin;
-  for (int c = threadIdx.x / kTileBins; c < a.nch;
-       c += kTiledThreads / kTileBins) {
+  for (int c = threadIdx.x / kBins; c < a.nch;
+       c += kCtaThreads / kBins) {
     ChannelGH v{zero, zero};
     if (s_in) {
       const size_t o = static_cast<size_t>(c) * a.nbins;
       v = channel_gh(t[o], gj[o], abar);
     }
-    g_s[c * kTileBins + sbin] = v.g;
-    h_s[c * kTileBins + sbin] = v.h;
+    g_s[c * kBins + sbin] = v.g;
+    h_s[c * kBins + sbin] = v.h;
   }
   const float2* mu = a.mu + static_cast<size_t>(k) * a.nch;
-  for (int c = threadIdx.x; c < a.nch; c += kTiledThreads) {
+  for (int c = threadIdx.x; c < a.nch; c += kCtaThreads) {
     mu_s[c] = mu[c];
     mv_s[c] = k > 0 ? mu[c - a.nch]
                     : (a.mu_prev != nullptr ? a.mu_prev[c] : zero);
@@ -405,16 +426,47 @@ fx_finish_kernel_tiled(FinishArgs a, float2* __restrict__ vis, int chunk) {
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
         if (!in[j]) continue;
-        const ChannelGH vp{g_s[p * kTileBins + bin[j]],
-                           h_s[p * kTileBins + bin[j]]};
-        const ChannelGH vq{g_s[q * kTileBins + bin[j]],
-                           h_s[q * kTileBins + bin[j]]};
+        const ChannelGH vp{g_s[p * kBins + bin[j]],
+                           h_s[p * kBins + bin[j]]};
+        const ChannelGH vq{g_s[q * kBins + bin[j]],
+                           h_s[q * kBins + bin[j]]};
         o[out[j]] = rotated(
             corrected(x[u][j], vp, vq, m, cs[j], cab[j], cbb[j]),
             rotation_at(f[j], dd, dfrac, a.packed), a.n_frames, inv);
       }
     }
   }
+}
+
+__global__ void __launch_bounds__(kTiledThreads, 3)
+fx_finish_kernel_tiled(FinishArgs a, float2* __restrict__ vis, int chunk) {
+  finish_tiled<kTileBins, kTiledThreads>(a, vis, chunk);
+}
+
+__global__ void __launch_bounds__(kNarrowThreads, 1)
+fx_finish_kernel_narrow(FinishArgs a, float2* __restrict__ vis, int chunk) {
+  finish_tiled<kNarrowBins, kNarrowThreads>(a, vis, chunk);
+}
+
+// A pair-tiled instance on `st` over chunks of `chunk` pairs: the 32-bin
+// one where every channel's G and H fit a CTA there, else the narrow one.
+cudaError_t launch_tiled(const FinishArgs& a, float2* vis, int chunk,
+                         bool dependent, cudaStream_t st) {
+  const bool narrow = tiled_bytes(a.nch, kTileBins) > kMaxShared;
+  const int bins = narrow ? kNarrowBins : kTileBins;
+  const size_t smem = tiled_bytes(a.nch, bins);
+  const int chunks = (a.nbl + chunk - 1) / chunk;
+  if (smem > kMaxShared || a.K > 65535 || chunks > 65535) {
+    return cudaErrorInvalidValue;
+  }
+  auto* kernel = narrow ? &fx_finish_kernel_narrow : &fx_finish_kernel_tiled;
+  cudaError_t err = cudaFuncSetAttribute(
+      reinterpret_cast<const void*>(kernel),
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  return launch_kernel(kernel, dim3((a.nbins + bins - 1) / bins, a.K, chunks),
+                       dim3(narrow ? kNarrowThreads : kTiledThreads), smem,
+                       st, dependent, a, vis, chunk);
 }
 
 }  // namespace
@@ -431,7 +483,7 @@ int finish(const void* xp, const void* t, const void* gj, const void* mu,
            cudaStream_t st) {
   if (K < 1 || nbl < 1 || nbins < 1 || n_frames < 1 || chunk < 0
       || (chunk && continuum)
-      || static_cast<long long>(K) * nbl > 65535) {
+      || static_cast<long long>(K) * nbl > (chunk ? 0x7fffffff : 65535)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const FinishArgs a{static_cast<const float2*>(xp),
@@ -457,19 +509,8 @@ int finish(const void* xp, const void* t, const void* gj, const void* mu,
                      static_cast<float>(n_frames),
                      static_cast<float>(bandwidth)};
   if (chunk > 0) {
-    const size_t smem =
-        static_cast<size_t>(nch) * (2 * kTileBins + 3) * sizeof(float2);
-    cudaError_t err = cudaFuncSetAttribute(
-        reinterpret_cast<const void*>(&fx_finish_kernel_tiled),
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err == cudaSuccess) {
-      err = launch_kernel(&fx_finish_kernel_tiled,
-                          dim3((nbins + kTileBins - 1) / kTileBins, K,
-                               (nbl + chunk - 1) / chunk),
-                          dim3(kTiledThreads), smem, st, dependent, a,
-                          static_cast<float2*>(vis), chunk);
-    }
-    return static_cast<int>(err);
+    return static_cast<int>(launch_tiled(a, static_cast<float2*>(vis), chunk,
+                                         dependent, st));
   }
   const int chunks = continuum ? 1 : (nbins + kThreads - 1) / kThreads;
   return static_cast<int>(launch_kernel(&fx_finish_kernel,
@@ -485,8 +526,10 @@ int finish(const void* xp, const void* t, const void* gj, const void* mu,
 // types, shapes, devices and that every [.., nbins] row is contiguous; xp,
 // t and gj may be slices of one tensor (their block strides are in
 // elements).  mu_prev may be NULL.  `chunk` picks the instance
-// (fx_epilogue.finish_plan): 0 the one-bin-a-thread one, else the
-// pair-tiled one with `chunk` pairs a CTA (SPECTRUM only).  Writes vis [K,
+// (fx_epilogue.finish_plan): 0 the one-bin-a-thread one (K nbl at most
+// 65,535), else the pair-tiled one with
+// `chunk` pairs a CTA (SPECTRUM only; 16 bins a tile where 32 bins' G and H
+// of every channel do not fit a CTA).  Writes vis [K,
 // nbl, nbins] complex64, or with `continuum` [K, nbl].  Returns
 // cudaGetLastError().
 extern "C" int fxt_fx_finish(const void* xp, const void* t, const void* gj,

@@ -12,8 +12,8 @@
 // MAX_FUSED_NCHAN = 64 (:87), where the TPU kernel keeps every channel's
 // spectra of a tile of frames in VMEM; a CTA's 227 KiB cannot hold nch
 // spectra of 4096 or 8192 bins beyond 6 or 2 channels.  The port's wide
-// route goes on to fx_fused.MAX_WIDE_NCHAN = 128 channels (MeerKAT's 64
-// dual-polarisation dishes: 8,256 pairs with autos).
+// route goes on to fx_fused.MAX_WIDE_NCHAN = 512 channels (LEDA's 256
+// dual-polarisation antennas: 131,328 pairs with autos).
 //
 // Contract, per block k, bin b and frame f = 0 .. S-1 of spec [K, nch, S,
 // nbins]:
@@ -30,7 +30,7 @@
 // for complex64 samples and exact integers for 8-bit ones, rounded once)
 // and the new history from the last block's last halo rows.
 //
-// Two instances of one contract, one launch point and one plan type
+// Three instances of one contract, one launch point and one plan type
 // (fx_xstage.xstage_plan picks by shape; the plan's `rows` names the
 // instance):
 //
@@ -100,11 +100,35 @@
 //       bit.
 //   No tensor cores: TF32 or a bf16 split would be a lower precision than
 //   the float32 the configuration states.
+//
+// * The band instance (fx_xstage_kernel_bands<T>, rows kBandRows), past
+//   fx_xstage.XSTAGE_TILED_MAX_NCH = 128 channels, where the triangle of
+//   groups no longer fits 8 warps on two CTAs a bin tile.  LEDA's block
+//   (512 channels, 64 frames of 4096 bins, 131,328 pairs) is 275 GFLOP, 4.1
+//   ms at 67 TFLOP/s, against 1.07 GB of spectra and 4.3 GB of parts, 1.6
+//   ms at 3.35 TB/s: float32 operations bound it.  Split the tiled
+//   instance's way, each of the 16 to 32 CTAs a bin tile would need would
+//   stage every channel (a frame of 512 channels is 160 KiB at 32 bins) and
+//   read each spectrum byte once a CTA: 2 complex multiply-adds a byte
+//   staged, where the tiled instance at 128 channels has 4.  Here the
+//   channels fall into bands of kBand = 8 groups (64 channels) and a CTA
+//   takes a pair of bands (P, Q), P <= Q, at a tile of 4 bins: its 64
+//   tiles (gp, gq) = (8 P + i, 8 Q + j), one a slot, each thread one tile at
+//   one bin with the tiled instance's loads and FFMA chains; where P = Q
+//   the 36 tiles with i <= j (the rest of the slots sum and write nothing)
+//   and the band's T and GJ sums, one a thread.  A CTA stages only its two
+//   bands (16 groups, 5 KiB a frame at 4 bins), 4 multiply-adds a byte
+//   staged, and each spectrum byte is read by the nb CTAs whose pair holds
+//   its band (8 at 512 channels: fx_xstage.XStagePlan.reads).  The grid is
+//   (band pairs, nbins / tile, K), the pairs fastest, so a bin tile's
+//   CTAs run together and its re-reads come from L2.  A band past nch (the
+//   last one ragged) has slots that own no tile; they sum like the others.
 
-// Both instances stream the frames through a ring of `stages` buffers in
-// shared memory, each `frames` frames of every channel at the tile's bins,
-// filled by cp.async `stages - 1` chunks ahead of the one being summed (the
-// last chunk may be ragged and copies no frame past S).  The tile, slots,
+// Every instance streams the frames through a ring of `stages` buffers in
+// shared memory, each `frames` frames of the CTA's channels (every channel
+// but on the band instance) at the tile's bins, filled by cp.async `stages
+// - 1` chunks ahead of the one being summed (the last chunk may be ragged
+// and copies no frame past S).  The tile, slots,
 // instance, frames a stage, stages and threads are planned in Python alone
 // (fx_xstage.xstage_plan); here the plan is only checked against the shape
 // and the instance's fixed limits.  A plan that does not fit, or shared
@@ -144,6 +168,12 @@ constexpr int kTiledThreads = 256;
 constexpr int kMaxTiledTile = 32;
 constexpr int kBinStride = kGroup + 2;
 constexpr int kMaxUnits = 2;
+
+// The band instance: bands of kBand groups, a CTA's kBandSlots tiles (a
+// thread one tile at one bin), the plan's `rows` naming it (kBandRows).
+constexpr int kBand = 8;
+constexpr int kBandSlots = kBand * kBand;
+constexpr int kBandRows = 2 * kTiledRows;
 
 // The launch's shape (fx_xstage.XStagePlan): bins of a CTA's tile, slots
 // (row slots: rows slot, slot + slots, ... a thread; tiled: tiles of
@@ -196,11 +226,12 @@ __device__ __forceinline__ void cp_async8(void* dst, const void* src) {
                : "memory");
 }
 
-// Whether this CTA folds mu and the new history (`x` set): the first bin
-// tile forms mu, the last block's tiles the history at their bins.
+// Whether this CTA, of bin tile bt, folds mu and the new history (`x`
+// set): the first bin tile forms mu, the last block's tiles the history at
+// their bins.
 template <typename T>
-__device__ __forceinline__ bool folds(const XStageArgs<T>& a, int k) {
-  return a.x != nullptr && (blockIdx.x == 0 || k == a.K - 1);
+__device__ __forceinline__ bool folds(const XStageArgs<T>& a, int k, int bt) {
+  return a.x != nullptr && (bt == 0 || k == a.K - 1);
 }
 
 // The reduce's share, while the first chunks are in flight: block k's
@@ -218,16 +249,16 @@ __device__ __forceinline__ void fold_means(const XStageArgs<T>& a, float2* means
   }
 }
 
-// mu from the first bin tile and the new history at this CTA's bins
+// mu from the first bin tile (bt 0) and the new history at this CTA's bins
 // [b0, b0 + 2^lt) from the last block, once a barrier has made `means`
 // visible.
 template <typename T>
 __device__ __forceinline__ void fold_out(const XStageArgs<T>& a, const float2* means, int k,
-                         int b0, int lt) {
+                         int b0, int lt, int bt) {
   constexpr bool kC64 = sizeof(T) == sizeof(float2);
   const int nch = a.nch, S = a.S, nbins = a.nbins, halo = a.halo;
   const int tile = 1 << lt;
-  if (blockIdx.x == 0) {
+  if (bt == 0) {
     for (int c = threadIdx.x; c < nch; c += blockDim.x) {
       a.mu[static_cast<size_t>(k) * nch + c] = means[c];
     }
@@ -387,7 +418,7 @@ fx_xstage_kernel(const XStageArgs<T> a) {
   for (int i = 0; i < stages - 1; ++i) {
     stage_chunk(ring, sk, i, n_chunks, stages, lf, lt, nch, S, nbins);
   }
-  const bool fold = folds(a, k);
+  const bool fold = folds(a, k, blockIdx.x);
   if (fold) fold_means(a, means, k);
 
   for (int i = 0; i < n_chunks; ++i) {
@@ -429,7 +460,7 @@ fx_xstage_kernel(const XStageArgs<T> a) {
           (autos >> j) & 1u ? make_float2(acc[j].x, 0.f) : acc[j];
     }
   }
-  if (fold) fold_out(a, means, k, b0, lt);
+  if (fold) fold_out(a, means, k, b0, lt, blockIdx.x);
 }
 
 // ---- the register-tiled instance ------------------------------------------
@@ -490,7 +521,8 @@ struct TiledPlaces {
   int op, oq, up[kU], uq[kU], ot[kU];
 };
 
-template <int kU, bool kGj>
+// (kTail false: the band instance, which has no tail units.)
+template <int kU, bool kGj, bool kTail = true>
 __device__ __forceinline__ void load_frame(TiledOperands<kU>& o,
                                            const float2* fr,
                                            const TiledPlaces<kU>& w,
@@ -502,8 +534,10 @@ __device__ __forceinline__ void load_frame(TiledOperands<kU>& o,
   }
 #pragma unroll
   for (int m = 0; m < kU; ++m) {
-    o.up[m] = *reinterpret_cast<const float4*>(fr + w.up[m]);
-    o.uq[m] = *reinterpret_cast<const float4*>(fr + w.uq[m]);
+    if constexpr (kTail) {
+      o.up[m] = *reinterpret_cast<const float4*>(fr + w.up[m]);
+      o.uq[m] = *reinterpret_cast<const float4*>(fr + w.uq[m]);
+    }
     o.t[m] = fr[w.ot[m]];
   }
   if constexpr (kGj) o.dv = __ldg(da_f);
@@ -520,8 +554,9 @@ __device__ __forceinline__ void cmac(float& re, float& im, float ar, float ai,
 }
 
 // One frame's operands into a thread's sums: 64 products of the tile, 4 a
-// tail unit, each T sum and, with kGj (a frame f < halo), its GJ sum.
-template <int kU, bool kGj>
+// tail unit (kTail), each T sum and, with kGj (a frame f < halo), its GJ
+// sum.
+template <int kU, bool kGj, bool kTail = true>
 __device__ __forceinline__ void sum_frame(TiledSums<kU>& s,
                                           const TiledOperands<kU>& o) {
 #pragma unroll
@@ -537,11 +572,13 @@ __device__ __forceinline__ void sum_frame(TiledSums<kU>& s,
   }
 #pragma unroll
   for (int m = 0; m < kU; ++m) {
-    const float4 a = o.up[m], b = o.uq[m];
-    cmac(s.ure[m][0], s.uim[m][0], a.x, a.y, b.x, b.y);
-    cmac(s.ure[m][1], s.uim[m][1], a.x, a.y, b.z, b.w);
-    cmac(s.ure[m][2], s.uim[m][2], a.z, a.w, b.x, b.y);
-    cmac(s.ure[m][3], s.uim[m][3], a.z, a.w, b.z, b.w);
+    if constexpr (kTail) {
+      const float4 a = o.up[m], b = o.uq[m];
+      cmac(s.ure[m][0], s.uim[m][0], a.x, a.y, b.x, b.y);
+      cmac(s.ure[m][1], s.uim[m][1], a.x, a.y, b.z, b.w);
+      cmac(s.ure[m][2], s.uim[m][2], a.z, a.w, b.x, b.y);
+      cmac(s.ure[m][3], s.uim[m][3], a.z, a.w, b.z, b.w);
+    }
     s.t[m] = cadd(s.t[m], o.t[m]);
     if constexpr (kGj) {
       cmac(s.gj[m].x, s.gj[m].y, o.t[m].x, o.t[m].y, o.dv.x, o.dv.y);
@@ -558,6 +595,50 @@ __device__ __forceinline__ void put_pair(float2* out, int nbins, int r,
     out[static_cast<size_t>(r) * nbins] = make_float2(re, autos ? 0.f : im);
   }
   if (rm >= 0) out[static_cast<size_t>(rm) * nbins] = make_float2(re, -im);
+}
+
+// A thread's tile (gp, gq) at its bin, d = gq - gp groups apart (0: a
+// diagonal tile, whose mirrored products are its own): the rows of (gp 8 +
+// i, gq 8 + j) as formed and of (gq 8 + j, gp 8 + i) conjugated, through
+// the row map's runs of 8, two 16-byte loads each; a diagonal tile writes
+// only p <= q.
+template <int kU>
+__device__ __forceinline__ void put_tile(float2* out, int nbins,
+                                         const int* __restrict__ rowmap,
+                                         int np, int gp, int gq, int d,
+                                         const TiledSums<kU>& s) {
+  int r[kGroup][kGroup];
+#pragma unroll
+  for (int i = 0; i < kGroup; ++i) {
+    const int4* run = reinterpret_cast<const int4*>(
+        rowmap + (gp * kGroup + i) * np + gq * kGroup);
+    const int4 lo = __ldg(run), hi = __ldg(run + 1);
+    r[i][0] = lo.x; r[i][1] = lo.y; r[i][2] = lo.z; r[i][3] = lo.w;
+    r[i][4] = hi.x; r[i][5] = hi.y; r[i][6] = hi.z; r[i][7] = hi.w;
+  }
+#pragma unroll
+  for (int i = 0; i < kGroup; ++i) {
+#pragma unroll
+    for (int j = 0; j < kGroup; ++j) {
+      if (d > 0 || i <= j) {
+        put_pair(out, nbins, r[i][j], -1, d == 0 && i == j, s.re[i][j],
+                 s.im[i][j]);
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < kGroup; ++j) {
+    const int4* run = reinterpret_cast<const int4*>(
+        rowmap + (gq * kGroup + j) * np + gp * kGroup);
+    const int4 lo = __ldg(run), hi = __ldg(run + 1);
+    const int rm[kGroup] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+#pragma unroll
+    for (int i = 0; i < kGroup; ++i) {
+      if (d > 0 || i < j) {
+        put_pair(out, nbins, -1, rm[i], false, s.re[i][j], s.im[i][j]);
+      }
+    }
+  }
 }
 
 // Grid (nbins / tile, K, split), plan.threads threads; dynamic shared
@@ -649,7 +730,7 @@ fx_xstage_kernel_tiled(const __grid_constant__ TiledArgs<T> args) {
     stage_chunk_tiled(ring, sk, i, n_chunks, stages, lf, lt, nch, S, nbins,
                       frame_len, stage_len);
   }
-  const bool fold = z == 0 && folds(a, k);
+  const bool fold = z == 0 && folds(a, k, blockIdx.x);
   if (fold) fold_means(a, means, k);
 
   TiledSums<kU> s;
@@ -689,42 +770,7 @@ fx_xstage_kernel_tiled(const __grid_constant__ TiledArgs<T> args) {
 
   const size_t rows = static_cast<size_t>(a.nbl) + 2 * nch;
   float2* out = a.parts + static_cast<size_t>(k) * rows * nbins + bin;
-  if (own) {
-    // rows of (gp 8 + i, gq 8 + j) and of (gq 8 + j, gp 8 + i): the row
-    // map's runs of 8, two 16-byte loads each
-    int r[kGroup][kGroup];
-#pragma unroll
-    for (int i = 0; i < kGroup; ++i) {
-      const int4* run = reinterpret_cast<const int4*>(
-          rowmap + (gp * kGroup + i) * np + gq * kGroup);
-      const int4 lo = __ldg(run), hi = __ldg(run + 1);
-      r[i][0] = lo.x; r[i][1] = lo.y; r[i][2] = lo.z; r[i][3] = lo.w;
-      r[i][4] = hi.x; r[i][5] = hi.y; r[i][6] = hi.z; r[i][7] = hi.w;
-    }
-#pragma unroll
-    for (int i = 0; i < kGroup; ++i) {
-#pragma unroll
-      for (int j = 0; j < kGroup; ++j) {
-        if (d > 0 || i <= j) {
-          put_pair(out, nbins, r[i][j], -1, d == 0 && i == j, s.re[i][j],
-                   s.im[i][j]);
-        }
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < kGroup; ++j) {
-      const int4* run = reinterpret_cast<const int4*>(
-          rowmap + (gq * kGroup + j) * np + gp * kGroup);
-      const int4 lo = __ldg(run), hi = __ldg(run + 1);
-      const int rm[kGroup] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
-#pragma unroll
-      for (int i = 0; i < kGroup; ++i) {
-        if (d > 0 || i < j) {
-          put_pair(out, nbins, -1, rm[i], false, s.re[i][j], s.im[i][j]);
-        }
-      }
-    }
-  }
+  if (own) put_tile(out, nbins, rowmap, np, gp, gq, d, s);
 #pragma unroll
   for (int m = 0; m < kU; ++m) {
     const int v = threadIdx.x + m * blockDim.x;
@@ -746,7 +792,165 @@ fx_xstage_kernel_tiled(const __grid_constant__ TiledArgs<T> args) {
       out[(static_cast<size_t>(a.nbl) + nch + c) * nbins] = s.gj[m];
     }
   }
-  if (fold) fold_out(a, means, k, b0, lt);
+  if (fold) fold_out(a, means, k, b0, lt, blockIdx.x);
+}
+
+
+// ---- the band instance ------------------------------------------------------
+
+// Chunk i of a band pair's channels (P's ncp from c0p, then Q's ncq from
+// c0q; ncq 0 where P = Q) at a tile's bins into stage i % stages of the
+// ring, 8 bytes a copy as stage_chunk_tiled puts them: a frame holds P's
+// kBand groups, then Q's, each group tile x kBinStride values.  One commit
+// group a chunk, an empty one past the last.
+__device__ __forceinline__ void stage_chunk_bands(
+    float2* ring, const float2* sk, int i, int n_chunks, int stages, int lf,
+    int lt, int c0p, int ncp, int c0q, int ncq, int S, int nbins,
+    int frame_len, int stage_len) {
+  if (i < n_chunks) {
+    float2* dst = ring + (i % stages) * stage_len;
+    const int f0 = i << lf;
+    const int nf = min(1 << lf, S - f0);
+    const int gs = kBinStride << lt;
+    const int units = (ncp + ncq) << (lf + lt);
+#pragma unroll 4
+    for (int u = threadIdx.x; u < units; u += blockDim.x) {
+      const int b = u & ((1 << lt) - 1);
+      const int ff = (u >> lt) & ((1 << lf) - 1);
+      const int cc = u >> (lt + lf);
+      const bool q = cc >= ncp;
+      const int c = q ? c0q + cc - ncp : c0p + cc;
+      const int place = q ? kBand * kGroup + cc - ncp : cc;
+      if (ff < nf) {
+        cp_async8(dst + ff * frame_len + (place / kGroup) * gs
+                      + b * kBinStride + place % kGroup,
+                  sk + (static_cast<size_t>(c) * S + f0 + ff) * nbins + b);
+      }
+    }
+  }
+  cp_async_commit();
+}
+
+// Grid (nb (nb + 1) / 2 band pairs, nbins / tile, K), plan.threads = tile
+// kBandSlots threads; dynamic shared memory stages x frames x 2 kBand groups
+// x tile x kBinStride float2 of the ring, then nch float2 of the block's
+// means (with `x`).  Band pair z is (P, Q), P <= Q, row by row of the
+// triangle of the nb = ceil(ng / kBand) bands.  Thread t sums slot s = t /
+// tile, tile (gp, gq) = (kBand P + s / kBand, kBand Q + s % kBand) at bin
+// t % tile, owned where both groups exist and, where P = Q, s / kBand <= s
+// % kBand; where P = Q it also sums T and GJ of the band's channel t /
+// tile.  The first band pair (0, 0) folds mu and the history.
+template <typename T>
+__global__ void __launch_bounds__(kTiledThreads, 1)
+fx_xstage_kernel_bands(const __grid_constant__ TiledArgs<T> args) {
+  extern __shared__ __align__(16) float2 ring[];
+  const XStageArgs<T>& a = args.a;
+  const int* __restrict__ rowmap = args.rowmap;
+  const XStagePlan p = a.plan;
+  const int tile = p.tile, stages = p.stages;
+  const int nch = a.nch, S = a.S, nbins = a.nbins, halo = a.halo;
+  const int lt = __ffs(tile) - 1, lf = __ffs(p.frames) - 1;
+  const int ng = (nch + kGroup - 1) / kGroup;
+  const int np = ng * kGroup;                      // the row map's side
+  const int nb = (ng + kBand - 1) / kBand;
+  const int gs = kBinStride << lt;
+  const int frame_len = 2 * kBand * gs;
+  const int stage_len = frame_len << lf;
+  const int l = threadIdx.x & (tile - 1);
+  int bp = 0, bq = blockIdx.x;
+  while (bq >= nb - bp) {
+    bq -= nb - bp;
+    ++bp;
+  }
+  bq += bp;
+  const bool diag = bp == bq;
+  const int bt = blockIdx.y;
+  const int k = blockIdx.z;
+  const int b0 = bt * tile;
+  const int bin = b0 + l;
+  const int n_chunks = (S + p.frames - 1) >> lf;
+  float2* means = ring + stages * stage_len;       // [nch], with x
+  const int c0p = bp * kBand * kGroup, c0q = bq * kBand * kGroup;
+  const int ncp = min(kBand * kGroup, nch - c0p);
+  const int ncq = diag ? 0 : min(kBand * kGroup, nch - c0q);
+
+  // the thread's tile, and its T and GJ channel where P = Q
+  const int slot = threadIdx.x >> lt;
+  const int ti = slot / kBand, tj = slot % kBand;
+  const int gp = bp * kBand + ti, gq = bq * kBand + tj;
+  const bool own = gp < ng && gq < ng && (!diag || ti <= tj);
+  TiledPlaces<1> w;
+  w.op = (own ? ti * gs : 0) + l * kBinStride;
+  w.oq = (own ? ((diag ? 0 : kBand) + tj) * gs : 0) + l * kBinStride;
+  const bool sums = diag && slot < ncp;
+  w.ot[0] = sums ? (slot / kGroup) * gs + l * kBinStride + slot % kGroup
+                 : 0;
+
+  // the last group's channels past nch read 0 in every stage (no copy
+  // writes them): in P's half where P is the last band, else in Q's
+  const int pad = np - nch;
+  const int last = (ng - 1) - (nb - 1) * kBand;    // its group in its band
+  const int half = bp == nb - 1 ? 0 : (bq == nb - 1 ? kBand : -1);
+  if (half >= 0) {
+    for (int u = threadIdx.x; u < (stages << (lf + lt)) * pad;
+         u += blockDim.x) {
+      const int b = u & (tile - 1);
+      const int c = kGroup - pad + (u >> lt) % pad;
+      const int fr = (u >> lt) / pad;
+      ring[fr * frame_len + (half + last) * gs + b * kBinStride + c] =
+          make_float2(0.f, 0.f);
+    }
+  }
+
+  wait_for_predecessor();
+  release_dependent();
+  const float2* sk = a.spec + static_cast<size_t>(k) * nch * S * nbins + b0;
+  for (int i = 0; i < stages - 1; ++i) {
+    stage_chunk_bands(ring, sk, i, n_chunks, stages, lf, lt, c0p, ncp, c0q,
+                      ncq, S, nbins, frame_len, stage_len);
+  }
+  const bool fold = blockIdx.x == 0 && folds(a, k, bt);
+  if (fold) fold_means(a, means, k);
+
+  TiledSums<1> s;
+#pragma unroll
+  for (int i = 0; i < kGroup; ++i) {
+#pragma unroll
+    for (int j = 0; j < kGroup; ++j) s.re[i][j] = s.im[i][j] = 0.f;
+  }
+  s.t[0] = s.gj[0] = make_float2(0.f, 0.f);
+  const float2* da = a.da + bin;
+  for (int i = 0, at = 0; i < n_chunks; ++i) {
+    cp_async_wait_pending(stages - 2);
+    __syncthreads();
+    stage_chunk_bands(ring, sk, i + stages - 1, n_chunks, stages, lf, lt,
+                      c0p, ncp, c0q, ncq, S, nbins, frame_len, stage_len);
+    const int f0 = i << lf;
+    const int nf = min(1 << lf, S - f0);
+    const float2* fr = ring + at * stage_len;
+    at = at + 1 == stages ? 0 : at + 1;
+    TiledOperands<1> o;
+    int ff = 0;
+    for (const int stop = min(nf, halo - f0); ff < stop; ++ff) {
+      load_frame<1, true, false>(o, fr + ff * frame_len, w,
+                                 da + static_cast<size_t>(f0 + ff) * nbins);
+      sum_frame<1, true, false>(s, o);
+    }
+    for (; ff < nf; ++ff) {
+      load_frame<1, false, false>(o, fr + ff * frame_len, w, da);
+      sum_frame<1, false, false>(s, o);
+    }
+  }
+
+  const size_t rows = static_cast<size_t>(a.nbl) + 2 * nch;
+  float2* out = a.parts + static_cast<size_t>(k) * rows * nbins + bin;
+  if (own) put_tile(out, nbins, rowmap, np, gp, gq, gq - gp, s);
+  if (sums) {
+    const int c = c0p + slot;
+    out[(static_cast<size_t>(a.nbl) + c) * nbins] = s.t[0];
+    out[(static_cast<size_t>(a.nbl) + nch + c) * nbins] = s.gj[0];
+  }
+  if (fold) fold_out(a, means, k, b0, lt, bt);
 }
 
 // ---- launchers ------------------------------------------------------------
@@ -773,7 +977,7 @@ cudaError_t launch_rows(const XStageArgs<T>& a, bool dependent,
                         cudaStream_t st) {
   const XStagePlan& p = a.plan;
   const long long rows = static_cast<long long>(a.nbl) + 2 * a.nch;
-  if (p.threads > RowThreads<kRows>::value
+  if (a.nch > 255 || p.threads > RowThreads<kRows>::value
       || static_cast<long long>(p.slots) * kRows < rows) {
     return cudaErrorInvalidValue;
   }
@@ -800,7 +1004,7 @@ cudaError_t launch_tiled(const XStageArgs<T>& a, const int* rowmap,
   const int units = halves ? ng / 2 * 16 * p.tile / split : 0;
   const int sums = (a.nch + split - 1) / split * p.tile;
   const int need = (max(units, sums) + p.threads - 1) / p.threads;
-  if (p.tile > kMaxTiledTile || split < 1 || split > 2
+  if (a.nch > 255 || p.tile > kMaxTiledTile || split < 1 || split > 2
       || split * p.slots != tiles || p.threads > kTiledThreads
       || need > kMaxUnits || (a.nbl > 0 && rowmap == nullptr)) {
     return cudaErrorInvalidValue;
@@ -813,14 +1017,35 @@ cudaError_t launch_tiled(const XStageArgs<T>& a, const int* rowmap,
                          a.K, split, p.threads, smem, dependent, st);
 }
 
+// The band instance: a CTA each of the nb (nb + 1) / 2 pairs of bands at
+// each bin tile, kBandSlots tiles of tile (2 or 4) bins over as many
+// threads, the band's T and GJ sums one a thread, with a row map wherever
+// there are pairs.
+template <typename T>
+cudaError_t launch_bands(const XStageArgs<T>& a, const int* rowmap,
+                         bool dependent, cudaStream_t st) {
+  const XStagePlan& p = a.plan;
+  const int ng = (a.nch + kGroup - 1) / kGroup;
+  const int nb = (ng + kBand - 1) / kBand;
+  if (p.tile > 4 || p.slots != kBandSlots
+      || p.threads != p.tile * kBandSlots || a.nbins / p.tile > 65535
+      || (a.nbl > 0 && rowmap == nullptr)) {
+    return cudaErrorInvalidValue;
+  }
+  const size_t smem = (static_cast<size_t>(p.stages) * p.frames * 2 * kBand
+                          * p.tile * kBinStride + a.nch) * sizeof(float2);
+  return launch_instance(&fx_xstage_kernel_bands<T>, TiledArgs<T>{a, rowmap},
+                         nb * (nb + 1) / 2, a.nbins / p.tile, a.K,
+                         p.threads, smem, dependent, st);
+}
+
 // The plan is checked against the shape: it must cover every bin and
 // frame, and its instance every row (one CTA a bin tile).
 template <typename T>
 cudaError_t launch_xstage(const XStageArgs<T>& a, const int* rowmap,
                           bool dependent, cudaStream_t st) {
   const XStagePlan& p = a.plan;
-  if (a.K < 1 || a.K > 65535 || a.S < 1 || a.nch < 1 || a.nch > 255
-      || a.nbl < 0 || a.halo < 0 || a.halo > a.S || p.tile < 2
+  if (a.K < 1 || a.K > 65535 || a.S < 1 || a.nch < 1 || a.nbl < 0 || a.halo < 0 || a.halo > a.S || p.tile < 2
       || (p.tile & (p.tile - 1)) != 0 || a.nbins % p.tile != 0
       || p.frames < 1 || (p.frames & (p.frames - 1)) != 0 || p.slots < 1
       || p.rows < 1 || p.threads % 32 != 0 || p.threads < p.tile * p.slots
@@ -832,6 +1057,7 @@ cudaError_t launch_xstage(const XStageArgs<T>& a, const int* rowmap,
     case 4: return launch_rows<T, 4>(a, dependent, st);
     case 8: return launch_rows<T, 8>(a, dependent, st);
     case kTiledRows: return launch_tiled<T>(a, rowmap, dependent, st);
+    case kBandRows: return launch_bands<T>(a, rowmap, dependent, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -877,8 +1103,8 @@ int xstage(bool int8, const void* spec, const void* pairs, const void* rowmap,
 
 // The X stage on `stream` (fx_xstage.py): spec complex64 [K, nch, S, nbins],
 // pairs int32 [nbl, 2], rowmap int32 [np, np] (fx_xstage.row_map: pair
-// (p, q)'s row or -1; read by the tiled instance, NULL allowed for the row
-// instances), da complex64 [halo, nbins] (halo <= S); writes parts [K,
+// (p, q)'s row or -1; read by the tiled and band instances, NULL allowed
+// for the row instances), da complex64 [halo, nbins] (halo <= S); writes parts [K,
 // nbl + 2 nch, nbins].  With x NULL that is all (fx_xstage alone; sums,
 // mu, new_hist and n_groups unused).  Else it ends the wide route's step
 // after fxt_fx_wide_frames: x complex64 [nch, K, S, nbins] and the frame

@@ -14,7 +14,7 @@ per engine (``_resolve_fused``, like ``fxtpu.fx._resolve_fused``):
     means after the fact and applies the FSTC rotation, ``1/n_frames``,
     the fftshift and the continuum reduction on the tiny ``[nbl, nbins]``
     result (the rotation commutes with the frame sum): three kernel
-    launches a step, for 2 to 128 channels (where a frame's spectra of
+    launches a step, for 2 to 512 channels (where a frame's spectra of
     all channels do not fit in one cluster's shared memory, and always
     past 64 channels, the single pass takes its wide route,
     ``FxEngine.x_stage`` ``"global"``).  (The
@@ -88,7 +88,7 @@ def _resolve_fused(fused, device: torch.device, nbins: int, ntaps: int,
                    s_rows: Optional[int] = None, rank: int = 0) -> bool:
     """The route, decided once per engine.  'auto' -> the fused route on a
     CUDA device for every shape its single pass takes
-    (``fx_fused.supported_parts``: up to 128 channels, the X stage in
+    (``fx_fused.supported_parts``: up to 512 channels, the X stage in
     shared memory up to 64 or through device memory), plain torch
     otherwise, with
     a warning on a CUDA device; True -> the fused route on any device (the
@@ -109,7 +109,7 @@ def _resolve_fused(fused, device: torch.device, nbins: int, ntaps: int,
                 "fused='auto' takes the plain torch route on %s: the "
                 "%s single-pass kernels do not take %s (%s: nbins a "
                 "multiple of 128 from 256 to 16384, fxtpu's _kernel_factor "
-                "rule, where fxtpu runs XLA too; up to 128 channels; a "
+                "rule, where fxtpu runs XLA too; up to 512 channels; a "
                 "block of at least ntaps-1 rows)", device,
                 "int8" if int8 else "complex64", shape, check)
         return device.type == "cuda" and takes
@@ -443,8 +443,10 @@ class FxEngine:
         reset; empty on the plain route): the single pass's frame kernel
         in this engine's ingest and FIR mode (on the wide route
         ``name.wide_launches`` or ``.wide_svd_launches``), the reduce
-        ``parts_reduce`` or the X kernel's ``fx_xstage``, ``.ctas`` and
-        ``.tiled`` (launches of its register-tiled instance), at deep taps
+        ``parts_reduce`` or the X kernel's ``fx_xstage``, ``.ctas``,
+        ``.spectra_reads`` (the CTAs that stage each bin tile's spectra,
+        summed over launches) and ``.tiled`` (launches of its register-tiled
+        instances), at deep taps
         ``fir_rows`` and last the epilogue ``fx_finish``, with
         ``fx_finish.tiled`` where the epilogue's plan takes its pair-tiled
         instance at this engine's shape and mode
@@ -459,6 +461,7 @@ class FxEngine:
             counts = {f"{name}.{attr}": getattr(frames, attr),
                       "fx_xstage": fx_xstage.launches,
                       "fx_xstage.ctas": fx_xstage.ctas,
+                      "fx_xstage.spectra_reads": fx_xstage.spectra_reads,
                       "fx_xstage.tiled": fx_xstage.tiled}
         else:
             counts = {name: getattr(frames, attr),

@@ -27,7 +27,12 @@ The epilogue kernel has two instances of one contract, and
 :func:`finish_plan` picks one by shape: the one-bin-a-thread instance (a
 CTA a block, pair and 256 bins; CONTINUUM always), and from
 :data:`FINISH_TILED_PAIRS` pairs on the pair-tiled one (a CTA a block and
-tile of :data:`FINISH_TILE` bins, sweeping a chunk of pairs there).
+tile of :data:`FINISH_TILE` bins, sweeping a chunk of pairs there).  Its
+launcher takes the pair-tiled sweep at :data:`FINISH_NARROW_TILE` bins
+where every channel's G and H at :data:`FINISH_TILE` do not fit a CTA
+(past 433 channels).  The one-bin instance takes at most
+:data:`MAX_FINISH_ROWS` (block, pair) rows a launch, so CONTINUUM is
+refused past them (from 362 channels with autos at one block).
 
 A wrapper runs the plain version only for CPU tensors; for CUDA tensors
 it launches the kernel or raises.  ``fx_finish.launches`` counts launches,
@@ -55,10 +60,11 @@ __all__ = ["FinishTables", "finish", "fx_finish", "fx_finish_reference",
            "fx_fused_step", "check_step", "step_buffers", "step_args",
            "launch_step", "StepPlan", "FinishPlan", "finish_plan",
            "tiled_plan", "finish_launch", "count_finish", "BIN_PLAN",
-           "MAX_FINISH_ROWS", "FINISH_TILED_PAIRS", "FINISH_TILE"]
+           "MAX_FINISH_ROWS", "FINISH_TILED_PAIRS", "FINISH_TILE",
+           "FINISH_NARROW_TILE", "finish_tile"]
 
-#: Most (block, baseline) rows one launch of the epilogue takes (the
-#: one-bin-a-thread instance's grid's second axis; both instances keep it).
+#: Most (block, baseline) rows one launch of the one-bin-a-thread instance
+#: takes (its grid's second axis); the pair-tiled one puts K on that axis.
 MAX_FINISH_ROWS = 65535
 #: The one-bin-a-thread instance's CTA: 256 threads, a bin each
 #: (``kThreads`` in ``csrc/fx_finish.cu``).
@@ -69,6 +75,10 @@ FINISH_THREADS = 256
 #: before it, the delay).
 FINISH_TILE = 32
 FINISH_CHANNEL_BYTES = (2 * FINISH_TILE + 3) * 8
+#: The pair-tiled sweep's tile where :data:`FINISH_TILE`'s G and H of every
+#: channel do not fit a CTA (``fx_finish_kernel_narrow``: ``kNarrowBins``,
+#: 512 threads, a quarter-warp a pair): 280 bytes a channel, up to 830.
+FINISH_NARROW_TILE = 16
 #: From this many pairs on the plan takes the pair-tiled instance in
 #: SPECTRUM: the lowest of 3, 36, 136, 666, 2,080 and 8,256 pairs (2 to 128
 #: channels with autos) at which it won alone on an H100 (PERF.md: the A/B
@@ -100,26 +110,40 @@ class FinishPlan:
 BIN_PLAN = FinishPlan(0, FINISH_THREADS)
 
 
+def finish_tile(nch: int) -> Optional[int]:
+    """The pair-tiled sweep's tile at ``nch`` channels, as its launcher
+    takes it (``launch_tiled`` in ``csrc/fx_finish.cu``): :data:`FINISH_TILE`
+    where a CTA's shared memory holds every channel's G and H there, else
+    :data:`FINISH_NARROW_TILE` where it holds them at that, else None."""
+    for tile in (FINISH_TILE, FINISH_NARROW_TILE):
+        if nch * (2 * tile + 3) * 8 <= ff.MAX_SHARED_BYTES:
+            return tile
+    return None
+
+
 def finish_plan(nch: int, nbl: int, nbins: int, k: int,
                 continuum: bool = False) -> FinishPlan:
     """The epilogue's plan for K blocks of ``nch`` channels, ``nbl`` pairs
     and ``nbins`` bins: the pair-tiled instance (:func:`tiled_plan`) in
     SPECTRUM from :data:`FINISH_TILED_PAIRS` pairs on, where a CTA's
-    shared memory holds every channel's G and H at its tile; else the
-    one-bin-a-thread instance (:data:`BIN_PLAN`).  The instance depends on
-    the shape alone, not on K."""
-    if (continuum or nbl < FINISH_TILED_PAIRS
-            or nch * FINISH_CHANNEL_BYTES > ff.MAX_SHARED_BYTES):
+    shared memory holds every channel's G and H at its tile
+    (:func:`finish_tile`); else the one-bin-a-thread instance
+    (:data:`BIN_PLAN`).  The instance depends on the shape alone, not on
+    K."""
+    tile = finish_tile(nch)
+    if continuum or nbl < FINISH_TILED_PAIRS or tile is None:
         return BIN_PLAN
-    return tiled_plan(nbl, nbins, k)
+    return tiled_plan(nbl, nbins, k, tile)
 
 
-def tiled_plan(nbl: int, nbins: int, k: int) -> FinishPlan:
-    """The pair-tiled instance's plan: its pairs split into the fewest
-    chunks that bring the grid to about :data:`FINISH_FILL_CTAS` CTAs."""
-    tiles = -(-nbins // FINISH_TILE)
+def tiled_plan(nbl: int, nbins: int, k: int,
+               tile: int = FINISH_TILE) -> FinishPlan:
+    """The pair-tiled instance's plan at ``tile`` bins a CTA: its pairs
+    split into the fewest chunks that bring the grid to about
+    :data:`FINISH_FILL_CTAS` CTAs."""
+    tiles = -(-nbins // tile)
     chunks = max(1, min(nbl, FINISH_FILL_CTAS // (tiles * k)))
-    return FinishPlan(-(-nbl // chunks), FINISH_TILE)
+    return FinishPlan(-(-nbl // chunks), tile)
 
 
 class FinishTables:
@@ -202,10 +226,6 @@ def _tables(consts, freqs, nbins):
 def _check_delays(delays, k, nch, nbl, device):
     """``delays`` as the kernel reads them (float32, ``[k, nch]`` or packed
     ``[k, nch, 2]``, on ``device``) and whether they are packed."""
-    if k * nbl > MAX_FINISH_ROWS:
-        raise ValueError(f"{k} blocks of {nbl} baselines: one launch takes "
-                         f"{MAX_FINISH_ROWS} rows "
-                         "(fx_epilogue.MAX_FINISH_ROWS)")
     delays = delays.to(torch.float32)
     packed = delays.ndim == 3
     if tuple(delays.shape) != ((k, nch, 2) if packed else (k, nch)):
@@ -214,6 +234,19 @@ def _check_delays(delays, k, nch, nbl, device):
     _check_small([("delays", delays, torch.float32, tuple(delays.shape))],
                  device)
     return delays, packed
+
+
+def _check_rows(plan: FinishPlan, k: int, nbl: int):
+    """Refuse K blocks of ``nbl`` pairs where ``plan``'s instance does not
+    take them: the one-bin-a-thread instance holds its K nbl rows on its
+    grid's second axis (:data:`MAX_FINISH_ROWS`); the pair-tiled one its K
+    and its chunks of pairs."""
+    if not plan.tiled and k * nbl > MAX_FINISH_ROWS:
+        raise ValueError(
+            f"{k} blocks of {nbl} baselines on the epilogue's "
+            f"one-bin-a-thread instance (CONTINUUM, or fewer than "
+            f"{FINISH_TILED_PAIRS} pairs): one launch takes "
+            f"{MAX_FINISH_ROWS} rows (fx_epilogue.MAX_FINISH_ROWS)")
 
 
 def finish_launch(plan: FinishPlan, xp, T, GJ, mu, pairs, consts, delays,
@@ -284,6 +317,7 @@ def fx_finish(xp: torch.Tensor, T: torch.Tensor, GJ: torch.Tensor,
         small.append(("mu_prev", mu_prev, torch.complex64, (nch,)))
     _check_small(small, xp.device)
     plan = finish_plan(nch, nbl, nbins, k, continuum)
+    _check_rows(plan, k, nbl)
     vis = finish_launch(plan, xp, T, GJ, mu, pairs, consts, delays, tables,
                         n_frames, bandwidth, continuum, mu_prev)
     count_finish(plan)
@@ -336,11 +370,12 @@ def check_step(iq, history, window2d, pairs, consts, delays, tables,
     if int8:
         small.append(("mu_prev", mu_prev, torch.complex64, (nch,)))
     _check_small(small, iq.device)
+    fplan = finish_plan(nch, parts.nbl, nbins, parts.k, bool(continuum))
+    _check_rows(fplan, parts.k, parts.nbl)
     return StepPlan(**vars(parts), mu_prev=mu_prev, delays=delays,
                     freqs=freqs, bandwidth=float(bandwidth),
                     continuum=bool(continuum), packed=packed,
-                    finish_plan=finish_plan(nch, parts.nbl, nbins, parts.k,
-                                            bool(continuum)))
+                    finish_plan=fplan)
 
 
 def step_buffers(plan: StepPlan, pool=None) -> dict:

@@ -73,7 +73,7 @@ where every channel's spectrum of a frame stays in the shared memory of
 its frame group's cluster of two CTAs (:func:`supported`: 6 channels at
 4096 bins, 2 at 8192; :func:`frame_ctas`; up to ``fxtpu``'s 64 channels,
 :data:`MAX_FUSED_NCHAN`), and the wide route for the rest, up to
-:data:`MAX_WIDE_NCHAN` = 128 channels: the frame kernel writes each
+:data:`MAX_WIDE_NCHAN` = 512 channels: the frame kernel writes each
 spectrum to a device scratch ``[K, nch, S, nbins]`` and the X kernel
 (``ops.fx_xstage``, ``csrc/fx_xstage.cu``) forms the parts from it, with
 the same contract; its plain versions are :func:`fx_fused_parts_wide_reference`
@@ -147,6 +147,12 @@ CLUSTER_CTAS = 2
 MAX_PARTIAL_BYTES = 64 << 20
 #: Bound on a launch's partial cross power, all K blocks' together.
 MAX_LAUNCH_PARTIAL_BYTES = 1 << 30
+#: Bound on one block's buffers of the single pass (its scratch, sums and
+#: parts, :func:`_layout`): 32 GiB of the H100's 80 GB, the rest left to
+#: the visibilities, the staged blocks and the caller.  Where one block
+#: passes the caps that bound K, a launch takes that block alone while its
+#: buffers fit this (:func:`max_blocks_parts`).
+MAX_BLOCK_BYTES = 32 << 30
 #: float2 slots per channel the single-pass frame kernel keeps in shared
 #: memory for its warps' sample sums (2 kWarps: a pair of doubles a warp).
 PARTS_CHAN_SLOTS = 16
@@ -166,10 +172,12 @@ FIR_MAX_MEANS = 256
 #: Most channels the single pass takes on its shared route (``fxtpu``'s
 #: ``MAX_FUSED_NCHAN``, ``pfb_pallas.py:87``).
 MAX_FUSED_NCHAN = 64
-#: Most channels the single pass takes on its wide route: MeerKAT's 64
-#: dual-polarisation dishes (8,256 pairs with autos), whose pairs the X
-#: kernel's register-tiled instance takes (``fx_xstage.xstage_plan``).
-MAX_WIDE_NCHAN = 128
+#: Most channels the single pass takes on its wide route: LEDA's 256
+#: dual-polarisation antennas (131,328 pairs with autos), whose pairs the
+#: X kernel's band instance takes past MeerKAT's 128 channels
+#: (``fx_xstage.xstage_plan``) and the epilogue's narrow pair-tiled
+#: instance past 433 (``fx_epilogue.finish_plan``).
+MAX_WIDE_NCHAN = 512
 #: Where the single pass forms its X stage: ``"shared"``, every channel's
 #: spectrum of a frame in one CTA's shared memory (``supported``);
 #: ``"global"``, the wide route, the spectra written to device memory and
@@ -606,21 +614,29 @@ def max_blocks_parts(s_rows: int, nbins: int, nch: int, nbl: int, *,
     shared route's partials hold ``nbl + 2 nch`` rows a CTA (the cross
     power, T and GJ); the wide route's scratch holds every channel's
     spectra of the block (``nch S nbins`` complex64: 64 MiB a block at 8
-    channels of 2^20 samples, 256 MiB at 128 channels of 2^18) and its
-    groups' sample sums.  Either grows with K under
-    MAX_LAUNCH_PARTIAL_BYTES; their shared memory does not.  The
-    epilogue's grid (``csrc/fx_finish.cu``) holds a CTA row for every
-    block and pair on its second axis, so K nbl is at most MAX_BLOCKS too
-    (a bound only where blocks are short and pairs many: 31 blocks at 64
-    channels with autos, 7 at 128)."""
+    channels of 2^20 samples, 256 MiB at 128 channels of 2^18, 1 GiB at
+    512) and its groups' sample sums.  Either grows with K under
+    MAX_LAUNCH_PARTIAL_BYTES; their shared memory does not.  K nbl is at
+    most MAX_BLOCKS too, the bound the epilogue's grid set while its rows
+    had only its second axis (31 blocks at 64 channels with autos, 7 at
+    128), kept so that no shape's K moves.  Where one block passes either
+    bound (LEDA's 512 channels: 131,328 pairs and 1 GiB of spectra) a
+    launch takes one block, while its buffers fit MAX_BLOCK_BYTES; 0 where
+    they do not.  Every offset the kernels form into a launch's spectra,
+    parts and visibilities is 64-bit, so K is not bounded by 2^31
+    elements."""
     route = x_route(nbins, ntaps, nch, rank, x_stage)
+    layout = _layout(route, 1, nch, s_rows, nbins, ntaps, nbl, False)[2]
     counted = ("scratch", "sums") if route == "global" else ("scratch",)
-    per_block = sum(
-        math.prod(shape) * dtype.itemsize for name, shape, dtype in _layout(
-            route, 1, nch, s_rows, nbins, ntaps, nbl, False)[2]
-        if name in counted)
-    return min(MAX_BLOCKS // max(1, nbl),
+    per_block = sum(math.prod(shape) * dtype.itemsize
+                    for name, shape, dtype in layout if name in counted)
+    most = min(MAX_BLOCKS // max(1, nbl),
                MAX_LAUNCH_PARTIAL_BYTES // per_block)
+    if most > 0:
+        return most
+    block = sum(math.prod(shape) * dtype.itemsize
+                for _, shape, dtype in layout)
+    return int(block <= MAX_BLOCK_BYTES)
 
 
 def _check_blocks(k, s_rows, nbins, ntaps, nch, rank, nbl):

@@ -17,12 +17,15 @@ rows ``0 .. nbl-1`` the frame-summed ``spec_p conj(spec_q)`` of each pair
 channel c's spectra, then ``GJ_c``, the sum over frames ``f < halo`` of
 ``spec_c[f] conj(dA[f])``.
 
-The kernel has two instances of that contract, and :func:`xstage_plan`
+The kernel has three instances of that contract, and :func:`xstage_plan`
 picks one by shape: below :data:`XSTAGE_TILED_NCH` channels a row
 instance (:func:`row_plan`: each thread sums a few rows of parts, bound
-by bytes), from there the register-tiled one (:func:`tiled_plan`: each
-thread sums an 8 x 8 tile of pairs in registers, bound by float32
-operations), whose writes go through the pair list's :func:`row_map`.
+by bytes), from there to :data:`XSTAGE_TILED_MAX_NCH` the register-tiled
+one (:func:`tiled_plan`: each thread sums an 8 x 8 tile of pairs in
+registers, bound by float32 operations), and past it the band instance
+(:func:`band_plan`: the same tiles, a CTA a pair of bands of 64 channels,
+so that each CTA reads only its two bands' spectra).  The register-tiled
+instances write through the pair list's :func:`row_map`.
 """
 
 from __future__ import annotations
@@ -33,8 +36,9 @@ import numpy as np
 import torch
 
 __all__ = ["fx_xstage", "fx_xstage_reference", "xstage_plan", "row_plan",
-           "tiled_plan", "XStagePlan", "xstage_launch", "count_launch",
-           "row_map", "XSTAGE_BINS", "XSTAGE_TILED_NCH"]
+           "tiled_plan", "band_plan", "XStagePlan", "xstage_launch",
+           "count_launch", "row_map", "XSTAGE_BINS", "XSTAGE_TILED_NCH",
+           "XSTAGE_TILED_MAX_NCH"]
 
 #: The wrappers take bin counts that are multiples of this (every bin
 #: count the port takes is one).
@@ -70,6 +74,20 @@ XSTAGE_MAX_UNITS = 2
 #: won alone on an H100 (PERF.md: the A/B of the two instances at S = 64,
 #: 4096 bins, K = 3; it won at each, 3.0, 5.0 and 7.0 times faster).
 XSTAGE_TILED_NCH = 36
+#: The most channels the register-tiled instance's plan takes: 16 groups,
+#: whose triangle fills 8 warps on two CTAs a bin tile (:func:`tiled_plan`
+#: raises past it).  Past it the band instance (:func:`band_plan`).
+XSTAGE_TILED_MAX_NCH = 128
+#: The band instance (``fx_xstage_kernel_bands``): bands of
+#: :data:`XSTAGE_BAND` groups (64 channels), a CTA a pair of bands (P, Q),
+#: P <= Q, at one bin tile: its 8 x 8 tiles of 8 x 8 pairs, one a slot of
+#: :data:`XSTAGE_BAND_SLOTS` (the 36 with i <= j where P = Q), and where P
+#: = Q its band's T and GJ sums; the plan's ``rows``,
+#: :data:`XSTAGE_BAND_ROWS`, names it (``kBand``, ``kBandSlots``,
+#: ``kBandRows`` in the kernel).
+XSTAGE_BAND = 8
+XSTAGE_BAND_SLOTS = XSTAGE_BAND * XSTAGE_BAND
+XSTAGE_BAND_ROWS = 2 * XSTAGE_TILED_ROWS
 #: Stages of the ring the frames stream through (at least 2), and the
 #: shared memory the ring takes at most: 96 KiB for a row instance, two
 #: CTAs an SM; 160 KiB for the tiled one, whose registers leave one CTA an
@@ -90,14 +108,19 @@ class XStagePlan:
     instance (``rows`` a key of :data:`XSTAGE_ROW_THREADS`): thread t sums
     bin ``t % tile`` of the rows ``slot, slot + slots, ...`` (``slot = t //
     tile``), ``rows`` of them.  The tiled instance (``rows`` =
-    :data:`XSTAGE_TILED_ROWS`, :attr:`tiled`): slot s holds one tile of
-    pairs of the ``ng (ng + 1) / 2`` in the triangle of groups of
-    :data:`XSTAGE_GROUP` channels on ``split`` CTAs (1 or 2, the grid's
-    third axis, which the kernel derives from ``slots``, so it is not
-    among :meth:`args`), ``slots`` tiles a CTA.  The frames stream through
-    ``stages`` buffers of ``frames`` frames of every channel (tile and
-    frames powers of two); ``threads`` a CTA; ``shared_bytes`` the ring
-    and the block's means."""
+    :data:`XSTAGE_TILED_ROWS`): slot s holds one tile of pairs of the ``ng
+    (ng + 1) / 2`` in the triangle of groups of :data:`XSTAGE_GROUP`
+    channels on ``split`` CTAs (1 or 2, the grid's third axis, which the
+    kernel derives from ``slots``, so it is not among :meth:`args`),
+    ``slots`` tiles a CTA.  The band instance (``rows`` =
+    :data:`XSTAGE_BAND_ROWS`, :attr:`bands`): ``split`` CTAs a bin tile,
+    one a pair of bands (grid ``(split, nbins / tile, K)``, which the
+    kernel derives from nch), ``slots`` tiles each.  The frames stream
+    through ``stages`` buffers of ``frames`` frames of the CTA's channels
+    (tile and frames powers of two); ``threads`` a CTA; ``shared_bytes``
+    the ring and the block's means; ``reads`` the CTAs that stage each bin
+    tile's spectra (1 on a row instance, ``split`` on the tiled one, the
+    bands on the band one)."""
     tile: int
     slots: int
     rows: int
@@ -106,6 +129,7 @@ class XStagePlan:
     threads: int
     shared_bytes: int
     split: int = 1
+    reads: int = 1
 
     def args(self):
         """The entry's plan arguments, in its order."""
@@ -114,8 +138,14 @@ class XStagePlan:
 
     @property
     def tiled(self) -> bool:
-        """The register-tiled instance."""
-        return self.rows == XSTAGE_TILED_ROWS
+        """A register-tiled instance (the tiled one or the band one), which
+        writes through the pair list's :func:`row_map`."""
+        return self.rows in (XSTAGE_TILED_ROWS, XSTAGE_BAND_ROWS)
+
+    @property
+    def bands(self) -> bool:
+        """The band instance."""
+        return self.rows == XSTAGE_BAND_ROWS
 
     def ctas(self, nbins: int, k: int) -> int:
         """CTAs a launch over ``k`` blocks of ``nbins`` bins runs."""
@@ -153,7 +183,10 @@ def xstage_plan(nch: int, nbl: int, s_rows: int, nbins: int,
     :data:`XSTAGE_BINS`): the register-tiled instance from
     :data:`XSTAGE_TILED_NCH` channels on, or wherever the ``nbl + 2 nch``
     rows pass what a row instance holds in one CTA
-    (:data:`XSTAGE_ROW_CAPACITY`), else a row instance."""
+    (:data:`XSTAGE_ROW_CAPACITY`), the band instance past
+    :data:`XSTAGE_TILED_MAX_NCH` channels, else a row instance."""
+    if nch > XSTAGE_TILED_MAX_NCH:
+        return band_plan(nch, s_rows, nbins, k)
     if nch >= XSTAGE_TILED_NCH or nbl + 2 * nch > XSTAGE_ROW_CAPACITY:
         return tiled_plan(nch, s_rows, nbins, k)
     return row_plan(nch, nbl, s_rows, nbins, k)
@@ -233,7 +266,31 @@ def tiled_plan(nch: int, s_rows: int, nbins: int, k: int) -> XStagePlan:
     stages, frames = _ring(frame_bytes, s_rows, XSTAGE_TILED_RING_BYTES)
     return XStagePlan(tile, slots, XSTAGE_TILED_ROWS, frames, stages,
                       threads, stages * frames * frame_bytes + nch * 8,
-                      split)
+                      split, split)
+
+
+def band_plan(nch: int, s_rows: int, nbins: int, k: int) -> XStagePlan:
+    """The band instance's plan past :data:`XSTAGE_TILED_MAX_NCH`
+    channels: ``nb = ceil(ng / 8)`` bands of :data:`XSTAGE_BAND` groups,
+    one CTA a pair of bands at a bin tile (``nb (nb + 1) / 2`` of them,
+    the ``split``), :data:`XSTAGE_BAND_SLOTS` tiles of 8 x 8 pairs a CTA,
+    one a slot at each bin, so 4 bins a tile (256 threads, each row's 32
+    bytes a sector) where :func:`_fill_tile` allows, else 2.  A frame in
+    the ring is the two bands' 16 groups, ``16 x tile x``
+    :data:`XSTAGE_BIN_STRIDE` values whatever nch (a quarter of every
+    channel's at 512), and each spectrum byte is read by the
+    ``nb`` CTAs whose pair holds its band.  At LEDA's 512 channels: 8
+    bands, 36 CTAs a bin tile, 90% of the slots owning a tile (the 8
+    diagonal pairs own 36 of 64)."""
+    ng = -(-nch // XSTAGE_GROUP)
+    nb = -(-ng // XSTAGE_BAND)
+    tile = 4 if min(XSTAGE_TILED_TILE, _fill_tile(nbins, k)) >= 4 else 2
+    frame_bytes = 2 * XSTAGE_BAND * tile * XSTAGE_BIN_STRIDE * 8
+    stages, frames = _ring(frame_bytes, s_rows, XSTAGE_TILED_RING_BYTES)
+    return XStagePlan(tile, XSTAGE_BAND_SLOTS, XSTAGE_BAND_ROWS, frames,
+                      stages, tile * XSTAGE_BAND_SLOTS,
+                      stages * frames * frame_bytes + nch * 8,
+                      nb * (nb + 1) // 2, nb)
 
 
 def row_map(pairs: torch.Tensor, nch: int) -> torch.Tensor:
@@ -303,10 +360,12 @@ def _check(spec, pairs, da):
 
 def count_launch(plan: XStagePlan, nbins: int, k: int):
     """Count one launch of the X kernel on :func:`fx_xstage`'s counters:
-    ``launches``, its CTAs ``ctas`` (:meth:`XStagePlan.ctas`) and, where
-    it took the register-tiled instance, ``tiled``."""
+    ``launches``, its CTAs ``ctas`` (:meth:`XStagePlan.ctas`), the CTAs
+    that stage each bin tile's spectra ``spectra_reads``
+    (:attr:`XStagePlan.reads`) and, where it took a register-tiled instance, ``tiled``."""
     fx_xstage.launches += 1
     fx_xstage.ctas += plan.ctas(nbins, k)
+    fx_xstage.spectra_reads += plan.reads
     fx_xstage.tiled += int(plan.tiled)
 
 
@@ -346,8 +405,9 @@ def fx_xstage(spec: torch.Tensor, pairs: torch.Tensor,
 
     CPU tensors run :func:`fx_xstage_reference`; CUDA tensors launch the
     kernel (built at first use) or raise.  Each launch of the kernel adds
-    one to ``fx_xstage.launches``, its CTAs to ``fx_xstage.ctas`` and,
-    where it took the register-tiled instance, one to ``fx_xstage.tiled``:
+    one to ``fx_xstage.launches``, its CTAs to ``fx_xstage.ctas``, the CTAs
+    that stage each bin tile's spectra to ``fx_xstage.spectra_reads`` and,
+    where it took a register-tiled instance, one to ``fx_xstage.tiled``:
     those of this call, and those of the single pass's wide route, which
     launches it after its frame kernel (``fx_fused.fx_fused_parts(...,
     x_stage="global")``)."""
@@ -368,4 +428,5 @@ def fx_xstage(spec: torch.Tensor, pairs: torch.Tensor,
 
 fx_xstage.launches = 0
 fx_xstage.ctas = 0
+fx_xstage.spectra_reads = 0
 fx_xstage.tiled = 0

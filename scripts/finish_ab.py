@@ -1,8 +1,11 @@
 """The epilogue's two instances alone on the card, over the same parts.
 
 For each channel count (every pair, autos too): the one-bin-a-thread
-instance (``fx_epilogue.BIN_PLAN``) and the pair-tiled one
-(``fx_epilogue.tiled_plan``), each launched through the epilogue's entry
+instance (``fx_epilogue.BIN_PLAN``; where K nbl passes its 65,535 rows,
+``fx_epilogue.MAX_FINISH_ROWS``, its line says so and times the other
+alone) and the pair-tiled one (``fx_epilogue.tiled_plan``
+at ``fx_epilogue.finish_tile``'s tile: 16 bins past 433 channels), each
+launched through the epilogue's entry
 (``fxt_fx_finish``, ``fx_epilogue.finish_launch``) on K blocks of raw
 parts of ``nbins`` bins laid out as a step's (xp, T and GJ rows of one
 tensor), in SPECTRUM with packed delays within 8 samples at MeerKAT's
@@ -102,8 +105,12 @@ def main(argv=None):
                    least_ms=least_ms,
                    plan=fe.finish_plan(nch, nbl, nbins, k).chunk)
         got = {}
-        for name, plan in (("bin", fe.BIN_PLAN),
-                           ("tiled", fe.tiled_plan(nbl, nbins, k))):
+        plans = [("tiled", fe.tiled_plan(nbl, nbins, k, fe.finish_tile(nch)))]
+        if k * nbl <= fe.MAX_FINISH_ROWS:
+            plans.insert(0, ("bin", fe.BIN_PLAN))
+        else:
+            out["bin"] = f"refused: {k * nbl} rows"
+        for name, plan in plans:
             def run(plan=plan):
                 return fe.finish_launch(plan, **a)
             got[name] = run()
@@ -114,7 +121,8 @@ def main(argv=None):
                         f"{name}_device_us": us,
                         f"{name}_share": least_ms / ms,
                         f"{name}_err": row_error(got[name], want)})
-        out["between"] = row_error(got["tiled"], got["bin"])
+        if "bin" in got:
+            out["between"] = row_error(got["tiled"], got["bin"])
         emit(records, **out)
         del a, want, got
         torch.cuda.empty_cache()

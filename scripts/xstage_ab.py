@@ -1,8 +1,10 @@
 """The X kernel's two instances alone on the card, over the same spectra.
 
 For each channel count: the register-tiled instance's plan
-(``fx_xstage.tiled_plan``) and, where its rows fit one CTA, the row
-instance's (``fx_xstage.row_plan``), each launched through the X entry
+(``fx_xstage.tiled_plan``; past ``XSTAGE_TILED_MAX_NCH`` channels the
+band instance's, ``fx_xstage.band_plan``) and, where its rows fit one
+CTA, the row instance's (``fx_xstage.row_plan``), each launched through
+the X entry
 (``fxt_xstage``) on K blocks of ``S`` frames of ``nbins`` bins with every
 pair and autos; per block the median milliseconds by CUDA events over
 ``--rounds`` launches and the kernel's device microseconds (a CUDA-only
@@ -99,8 +101,10 @@ def main(argv=None):
                    least_ms=8 * nbl * s * nbins / F32_FLOPS * 1e3,
                    plain_ms=plain_ms,
                    plan=xs.xstage_plan(nch, nbl, s, nbins, k).args())
-        plans = {"tiled": (xs.tiled_plan(nch, s, nbins, k),
-                           xs.row_map(pairs, nch))}
+        rmap = xs.row_map(pairs, nch)
+        plans = ({"bands": (xs.band_plan(nch, s, nbins, k), rmap)}
+                 if nch > xs.XSTAGE_TILED_MAX_NCH
+                 else {"tiled": (xs.tiled_plan(nch, s, nbins, k), rmap)})
         if nbl + 2 * nch <= xs.XSTAGE_ROW_CAPACITY:
             plans["row"] = (xs.row_plan(nch, nbl, s, nbins, k), None)
         for name, (plan, rmap) in plans.items():
@@ -112,6 +116,7 @@ def main(argv=None):
             err = ((parts[..., :64] - want).abs().amax(dim=-1) / scale).max()
             out.update({f"{name}_plan": plan.args(),
                         f"{name}_split": plan.split,
+                        f"{name}_reads": plan.reads,
                         f"{name}_ms": ms, f"{name}_device_us": us,
                         f"{name}_err": err.item(),
                         f"{name}_share": out["least_ms"] / ms})

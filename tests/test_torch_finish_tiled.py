@@ -54,7 +54,9 @@ def test_plan_at_the_cells(cell):
 
 def test_plan_edges():
     """The threshold in pairs, K leaving the instance as it is, the chunks
-    filling the grid, the shared memory a channel."""
+    filling the grid, the shared memory a channel: past what a CTA holds at
+    32 bins (433 channels) the narrow tile of 16 bins, past what it holds
+    there (830) the one-bin-a-thread instance."""
     n = fe.FINISH_TILED_PAIRS
     assert fe.finish_plan(64, n - 1, 4096, 3) == fe.BIN_PLAN
     assert fe.finish_plan(64, n, 4096, 3).tiled
@@ -66,8 +68,13 @@ def test_plan_edges():
     small = fe.finish_plan(8, 36, 384, 3)          # 12 tiles x 3 blocks
     assert 36 * -(-36 // small.chunk) <= fe.FINISH_FILL_CTAS
     wide = MAX_SHARED_BYTES // fe.FINISH_CHANNEL_BYTES
-    assert fe.finish_plan(wide, 8256, 4096, 1).tiled
-    assert fe.finish_plan(wide + 1, 8256, 4096, 1) == fe.BIN_PLAN
+    assert fe.finish_plan(wide, 8256, 4096, 1).tile == fe.FINISH_TILE
+    narrow = fe.finish_plan(wide + 1, 8256, 4096, 1)
+    assert narrow.tiled and narrow.tile == fe.FINISH_NARROW_TILE
+    assert fe.finish_tile(wide + 1) == fe.FINISH_NARROW_TILE
+    most = MAX_SHARED_BYTES // ((2 * fe.FINISH_NARROW_TILE + 3) * 8)
+    assert most == 830 and fe.finish_plan(most, 8256, 4096, 1).tiled
+    assert fe.finish_plan(most + 1, 8256, 4096, 1) == fe.BIN_PLAN
 
 
 def test_plan_constants_are_the_kernel_s():
@@ -78,7 +85,9 @@ def test_plan_constants_are_the_kernel_s():
 
     assert const("kThreads") == fe.FINISH_THREADS
     assert const("kTileBins") == fe.FINISH_TILE
-    assert "(2 * kTileBins + 3) * sizeof(float2)" in src
+    assert const("kNarrowBins") == fe.FINISH_NARROW_TILE
+    assert "(2 * bins + 3) * sizeof(float2)" in src
+    assert f"constexpr size_t kMaxShared = {MAX_SHARED_BYTES};" in src
     assert fe.FINISH_CHANNEL_BYTES == (2 * fe.FINISH_TILE + 3) * 8
 
 

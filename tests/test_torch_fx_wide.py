@@ -448,7 +448,7 @@ def test_cli_nchan8_on_cpu_writes_fxtpu_products(tmp_path):
 @pytest.mark.parametrize("nbins", [256, 512, 1024, 2048, 4096, 8192])
 def test_supported_parts_takes_up_to_64_channels(nbins):
     """Every channel count up to the shared route's 64 and on to the
-    wide route's 128 (past 64 on the wide route alone); none past 128."""
+    wide route's 512 (past 64 on the wide route alone); none past 512."""
     for nch in (1, 2, 7, 8, 33, MAX_FUSED_NCHAN, MAX_FUSED_NCHAN + 1,
                 MAX_WIDE_NCHAN):
         assert supported_parts(nbins, 4, nch, 64)
@@ -538,7 +538,7 @@ def test_engine_routes_and_counters_at_8_channels():
             attr = "launches" if fir == "direct" else "svd_launches"
             keys = [name, "parts_reduce"] if stage == "shared" else [
                 f"{name}.wide_{attr}", "fx_xstage", "fx_xstage.ctas",
-                "fx_xstage.tiled"]
+                "fx_xstage.spectra_reads", "fx_xstage.tiled"]
             if ntaps >= 16:
                 keys.append("fir_rows")     # the deep-tap FIR's launch
             assert list(eng.launch_counts()) == [*keys, "fx_finish",
@@ -551,8 +551,8 @@ def test_engine_routes_and_counters_at_8_channels():
 
 def test_resolve_fused_routes_8_channels_and_warns_on_a_refused_shape(caplog):
     """'auto' on a CUDA device takes the single pass for every nch up to
-    128 at the bin counts the kernels take, and says at WARNING when it
-    falls to plain torch (nch > 128, a bin count the FFT does not take);
+    512 at the bin counts the kernels take, and says at WARNING when it
+    falls to plain torch (nch > 512, a bin count the FFT does not take);
     on the CPU 'auto' stays plain and says nothing.  The device is a
     torch.device: no card is needed to decide the route."""
     cpu, cuda = torch.device("cpu"), torch.device("cuda")
@@ -565,19 +565,21 @@ def test_resolve_fused_routes_8_channels_and_warns_on_a_refused_shape(caplog):
         assert _resolve_fused("auto", cuda, 4096, 4, 65, s_rows=256)
         assert _resolve_fused("auto", cuda, 4096, 4, 128, int8=True,
                               s_rows=64)
+        assert _resolve_fused("auto", cuda, 4096, 4, 512, int8=True,
+                              s_rows=64)
         assert _resolve_fused("auto", cuda, 3072, 4, 2, s_rows=85)
         assert not caplog.records
         assert not _resolve_fused("auto", cpu, 4096, 4, 8, s_rows=256)
         assert not _resolve_fused("auto", cpu, 384, 4, 2)
         assert not caplog.records
-        assert not _resolve_fused("auto", cuda, 4096, 4, 129, s_rows=256)
+        assert not _resolve_fused("auto", cuda, 4096, 4, 513, s_rows=256)
         assert not _resolve_fused("auto", cuda, 1000, 4, 2, s_rows=64)
     warned = [r.getMessage() for r in caplog.records]
     assert len(warned) == 2
-    assert "nch=129" in warned[0] and "supported_parts" in warned[0]
+    assert "nch=513" in warned[0] and "supported_parts" in warned[0]
     assert "nbins=1000" in warned[1] and "multiple of 128" in warned[1]
-    with pytest.raises(ValueError, match="nch=129"):
-        _resolve_fused(True, cpu, 4096, 4, 129, s_rows=256)
+    with pytest.raises(ValueError, match="nch=513"):
+        _resolve_fused(True, cpu, 4096, 4, 513, s_rows=256)
 
 
 def test_wide_wrappers_take_plain_versions_on_cpu():

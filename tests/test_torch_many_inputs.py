@@ -1,8 +1,8 @@
-"""The single pass past 64 channels: the wide route up to
-fxtpu_torch.ops.fx_fused.MAX_WIDE_NCHAN = 128 inputs (MeerKAT's 64
-dual-polarisation dishes, 8,256 pairs with autos), whose pairs the X
-kernel's register-tiled instance takes (fx_xstage.xstage_plan, from
-XSTAGE_TILED_NCH channels on).
+"""The single pass past 64 channels: the wide route to 128 inputs
+(MeerKAT's 64 dual-polarisation dishes, 8,256 pairs with autos), whose
+pairs the X kernel's register-tiled instance takes (fx_xstage.xstage_plan,
+from XSTAGE_TILED_NCH channels to XSTAGE_TILED_MAX_NCH; past it, to
+fxtpu_torch.ops.fx_fused.MAX_WIDE_NCHAN = 512, tests/test_torch_large_n.py).
 
 On the CPU: FxEngine on the fused route's plain versions at 65 and 96
 channels, in both ingests, against the benchmark's tiled float64
@@ -36,8 +36,8 @@ from fxtpu_torch.ops.fx_fused import (MAX_FUSED_NCHAN,  # noqa: E402
                                       MAX_SHARED_BYTES, MAX_WIDE_NCHAN,
                                       max_blocks_parts, pairs_tensor,
                                       supported_parts, x_route)
-from fxtpu_torch.ops.fx_xstage import (XSTAGE_TILED_NCH,  # noqa: E402
-                                       XSTAGE_TILED_ROWS,
+from fxtpu_torch.ops.fx_xstage import (XSTAGE_TILED_MAX_NCH,  # noqa: E402
+                                       XSTAGE_TILED_NCH, XSTAGE_TILED_ROWS,
                                        XSTAGE_TILED_THREADS, fx_xstage,
                                        fx_xstage_reference, xstage_plan)
 from fxtpu_torch.ops.window import pfb_window  # noqa: E402
@@ -190,7 +190,7 @@ def test_xstage_plan_is_unchanged_up_to_64_channels():
         assert p.tiled == (shape[0] >= XSTAGE_TILED_NCH), shape
 
 
-@pytest.mark.parametrize("nch", [65, 66, 80, 96, 127, MAX_WIDE_NCHAN])
+@pytest.mark.parametrize("nch", [65, 66, 80, 96, 127, XSTAGE_TILED_MAX_NCH])
 def test_xstage_plan_tiles_the_rows_past_one_cta(nch):
     """Past 64 channels, with and without autos, the tiled instance: the
     triangle of ceil(nch / 8) groups' tiles of 8 x 8 pairs over one or two
@@ -223,10 +223,12 @@ def test_xstage_plan_tiles_the_rows_past_one_cta(nch):
 
 def test_routes_and_caps_past_64_channels():
     """The shared route stops at 64 channels even where its bytes would
-    fit (100 channels of 256 bins); the wide route takes up to 128.  K is
-    capped by the spectra scratch (3 blocks of 2^18 samples at 128
-    channels) and by the epilogue's grid, K nbl <= 65535 (7 blocks at
-    128 channels where the scratch would take more)."""
+    fit (100 channels of 256 bins); the wide route takes up to 512 (past
+    128 on the X kernel's band instance).  K is capped by the spectra
+    scratch (3 blocks of 2^18 samples at 128 channels) and by K nbl <=
+    65535 (7 blocks at 128 channels where the scratch would take more);
+    past either cap (LEDA's 512 channels: 131,328 pairs, 1 GiB of spectra
+    a block) a launch takes one block."""
     assert fx_fused.supported(256, 4, 100)
     assert x_route(256, 4, 100) == "global"
     with pytest.raises(ValueError, match="nch > 64"):
@@ -234,8 +236,11 @@ def test_routes_and_caps_past_64_channels():
     for nch in (65, 96, 128):
         assert supported_parts(4096, 4, nch, 64)
         assert x_route(4096, 4, nch) == "global"
-    assert not supported_parts(4096, 4, 129, 64)
+    assert supported_parts(4096, 4, 129, 64)
+    assert supported_parts(4096, 4, MAX_WIDE_NCHAN, 64)
+    assert not supported_parts(4096, 4, MAX_WIDE_NCHAN + 1, 64)
     assert max_blocks_parts(64, 4096, 128, 8256, ntaps=4) == 3
+    assert max_blocks_parts(64, 4096, 512, 131328, ntaps=4) == 1
     assert max_blocks_parts(16, 256, 128, 8256, ntaps=4) == 65535 // 8256
     assert max_blocks_parts(64, 4096, 8, 36, ntaps=4) == 63     # array8
     cuda = torch.device("cuda")
@@ -249,8 +254,9 @@ def test_engine_counts_the_x_stage_s_row_tiles():
     eng = _engine(65, "int8")
     counts = eng.launch_counts()
     assert list(counts) == ["fx_fused_parts_i8.wide_launches", "fx_xstage",
-                            "fx_xstage.ctas", "fx_xstage.tiled",
-                            "fx_finish", "fx_finish.tiled"]
+                            "fx_xstage.ctas", "fx_xstage.spectra_reads",
+                            "fx_xstage.tiled", "fx_finish",
+                            "fx_finish.tiled"]
     blk = _quantized(_stream(65, 1, seed=3))[0]
     eng.step(eng.prepare_block(blk), torch.zeros(65), eng.fresh_history())
     assert eng.launch_counts() == counts
@@ -370,6 +376,7 @@ def test_cuda_engine_at_128_channels(cuda_device):
     plan = xstage_plan(nch, len(eng.pairs), NSAMP // NBINS, NBINS, k)
     assert moved == {"fx_fused_parts_i8.wide_launches": 1, "fx_xstage": 1,
                      "fx_xstage.ctas": plan.ctas(NBINS, k),
+                     "fx_xstage.spectra_reads": plan.reads,
                      "fx_xstage.tiled": 1, "fx_finish": 1,
                      "fx_finish.tiled": 1}
     assert plan.tiled

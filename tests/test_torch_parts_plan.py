@@ -187,7 +187,8 @@ def _counters() -> dict:
                ff.fx_fused_raw_i8_multi, ff.parts_reduce, ff.fir_rows,
                fx_xstage, fe.fx_finish):
         for attr in ("launches", "svd_launches", "wide_launches",
-                     "wide_svd_launches", "ctas", "tiled"):
+                     "wide_svd_launches", "ctas", "spectra_reads",
+                     "tiled"):
             if hasattr(fn, attr):
                 out[f"{fn.__name__}.{attr}"] = getattr(fn, attr)
     return out
@@ -225,8 +226,11 @@ def test_one_count_moves_what_the_engine_reports(case, ingest):
     assert moved.get("fx_finish.tiled") == (1 if tiled else None)
     assert sorted(v for v in delta.values() if v) == sorted(moved.values())
     ctas = plan.xplan.ctas(nbins, k) if plan.xplan is not None else None
-    assert all(v == 1 for n, v in moved.items() if n != "fx_xstage.ctas")
+    reads = plan.xplan.reads if plan.xplan is not None else None
+    assert all(v == 1 for n, v in moved.items()
+               if n not in ("fx_xstage.ctas", "fx_xstage.spectra_reads"))
     assert moved.get("fx_xstage.ctas") == ctas
+    assert moved.get("fx_xstage.spectra_reads") == reads
     # the one counter the engine reports that a launch may leave: the
     # tiled X instance's, which the row instance does not move
     assert [n for n, v in delta.items() if not v] == (

@@ -31,7 +31,7 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(2)
 
 from fxtpu_torch.ops.fx_fused import (MAX_SHARED_BYTES,  # noqa: E402
-                                      MAX_WIDE_NCHAN, pairs_tensor)
+                                      pairs_tensor)
 from fxtpu_torch.ops.xengine import baseline_pairs  # noqa: E402
 
 xs = importlib.import_module("fxtpu_torch.ops.fx_xstage")
@@ -138,7 +138,7 @@ def _writes(p, nch):
 
 # --- the plan ------------------------------------------------------------------
 
-@pytest.mark.parametrize("nch", range(1, MAX_WIDE_NCHAN + 1))
+@pytest.mark.parametrize("nch", range(1, xs.XSTAGE_TILED_MAX_NCH + 1))
 def test_xstage_plan_picks_the_instance_by_shape(nch):
     """The tiled instance from XSTAGE_TILED_NCH channels on and wherever
     the rows pass what one CTA of the row instance holds; a row instance
@@ -159,7 +159,7 @@ def test_xstage_plan_picks_the_instance_by_shape(nch):
     assert xs.xstage_plan(min(nch, 40), many, 64, 4096, 1).tiled
 
 
-@pytest.mark.parametrize("nch", range(9, MAX_WIDE_NCHAN + 1))
+@pytest.mark.parametrize("nch", range(9, xs.XSTAGE_TILED_MAX_NCH + 1))
 def test_tiled_plan_is_taken_by_its_entry_and_fits(nch):
     """Every tiled plan at the bin counts, frames and blocks the wide
     route takes: the entry's checks hold, the ring of at least 2 stages
